@@ -5,22 +5,39 @@
 
 Phases, each printing one JSON line; any failure raises and exits non-zero:
 
-  1. device  — needs CUDA; TF32 off for matmuls and convolutions.
-  2. build   — builds every kernel of the main path from the sources in
-               stoix_tpu_torch/csrc/ with nvcc.
-  3. kernel  — each kernel against its plain PyTorch version on the card, at
-               the main path's shape and at a ragged shape with resets, float32
-               (bitwise) and bfloat16; timed with CUDA events, per call from
-               Python and per launch replayed from a CUDA graph.
-  4. gae     — truncation-aware GAE through the kernel on the card against the
-               `scan` impl on the CPU, on one rollout-shaped input.
-  5. learn   — IdentityGame trained on the card to a return above 8.0 (the
-               JAX package's learning oracle, tests/test_ff_ppo.py).
-  6. train   — the main path: Anakin ff_ppo on CartPole at the default config's
-               full width (1024 envs, T=16, MLP 256x256, 4 epochs x 4
-               minibatches) for a few updates with system.multistep_impl=pallas.
-               Every kernel's launch counter is zeroed just before and read just
-               after; each must have launched (B1: once per update).
+  1. device      — needs CUDA; TF32 off for matmuls and convolutions.
+  2. build       — builds every kernel from the sources in stoix_tpu_torch/csrc/,
+                   one nvcc per source, all started together.
+  3. kernel      — B1 (linear recurrence) against its plain PyTorch version on
+                   the card, at the main path's shape and at a ragged shape
+                   with resets, float32 (bitwise) and bfloat16; timed with CUDA
+                   events, per call from Python and per launch replayed from a
+                   CUDA graph.
+  4. attention   — B2 (flash attention): the forward kernel against its plain
+                   version at the ff_trans_ppo path's shapes ([1024|4096|16384,
+                   16, 4, 32] float32 causal, from strided qkv views), a ragged
+                   non-causal [2, 100, 2, 32] and a bfloat16 causal
+                   [1, 128, 1, 64]; the two backward kernels against the plain
+                   backward at [4096, 16, 4, 32] and the ragged shape; each
+                   kernel timed, beside its plain version and SDPA.
+  5. gae         — truncation-aware GAE through B1 on the card against the
+                   `scan` impl on the CPU, on one rollout-shaped input.
+  6. learn       — ff_ppo trains IdentityGame on the card to a return above 8.0
+                   (the JAX package's learning oracle, tests/test_ff_ppo.py).
+  7. train       — Anakin ff_ppo on CartPole at the default config's full width
+                   (1024 envs, T=16, MLP 256x256, 4 epochs x 4 minibatches) for
+                   a few updates with system.multistep_impl=pallas; B1's counter
+                   is zeroed just before and read just after (once per update).
+  8. trans_learn — ff_trans_ppo trains IdentityGame on the card (window 4, one
+                   layer) to a return above 8.0.
+  9. trans_train — Anakin ff_trans_ppo on CartPole at its default config's full
+                   width (1024 envs, T=16, window 16, 2 layers of 4 heads x 32,
+                   FFN 256, 4 epochs x 4 minibatches), 4 updates in 2 eval
+                   windows with system.multistep_impl=pallas. Every counter is
+                   zeroed just before the run and read just after; around each
+                   learner call the learner's own launches are counted and must
+                   be exact per update: 130 forward, 64 of each backward kernel,
+                   1 of B1. The evaluator's launches are the rest.
 
 Then a `{"kernels": [...]}` line, the card's `nvidia-smi` name and power
 limit, and last `{"ok": true, "device": {...}}`.
@@ -36,16 +53,21 @@ import time
 
 import torch
 
-from stoix_tpu_torch.kernels import linear_recurrence
+from stoix_tpu_torch.kernels import build, flash_attention, linear_recurrence
 from stoix_tpu_torch.ops import truncated_generalized_advantage_estimation
 from stoix_tpu_torch.systems import runner
-from stoix_tpu_torch.systems.ppo.anakin import ff_ppo
+from stoix_tpu_torch.systems.ppo.anakin import ff_ppo, ff_trans_ppo
 from stoix_tpu_torch.utils import config as config_lib
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor-core) peak.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 MAIN_UPDATES = 4
+# ff_trans_ppo's default config: layers, heads, head dim, window, rollout, epochs, minibatches.
+TRANS = dict(layers=2, heads=4, head_dim=32, window=16, rollout=16, epochs=4, minibatches=4)
+TRANS_ENVS = 1024
+ATTENTION_SOURCE = "stoix_tpu_torch/csrc/flash_attention.cu"
+ATTENTION_REPLACES = "stoix_tpu/ops/pallas_attention.py:154"
 
 
 def emit(record: dict) -> None:
@@ -113,10 +135,10 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    libraries = [linear_recurrence.LIBRARY, flash_attention.LIBRARY]
     start = time.perf_counter()
-    linear_recurrence.KERNEL.build()
-    emit({"phase": "build", "kernel": "linear_recurrence_reverse",
-          "library": linear_recurrence.KERNEL.library_path(),
+    build.build_all(libraries)
+    emit({"phase": "build", "libraries": [lib.library_path() for lib in libraries],
           "seconds": time.perf_counter() - start})
 
 
@@ -175,6 +197,157 @@ def phase_kernel() -> dict:
     return entry
 
 
+def qkv_views(batch: int, seq: int, heads: int, head_dim: int, dtype: torch.dtype, seed: int):
+    """q, k, v as the main path gives them: strided views of one
+    [B, S, 3, H, D] projection."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    proj = torch.randn((batch, seq, 3, heads, head_dim), generator=gen, device="cuda").to(dtype)
+    return proj[:, :, 0], proj[:, :, 1], proj[:, :, 2]
+
+
+def attention_bound(kind: str, q: torch.Tensor, causal: bool, lse: bool = False):
+    """(bound_ms, bound_by, bytes, flops) of one launch on these inputs: each
+    input read once, each output written once; the flops of the (query, key)
+    pairs the mask leaves."""
+    batch, seq, heads, head_dim = q.shape
+    tensor = q.numel() * q.element_size()  # one [B, S, H, D] operand
+    stat = batch * heads * seq * 4  # one float32 [B, H, S] row statistic
+    pairs = batch * heads * (seq * (seq + 1) // 2 if causal else seq * seq)
+    if kind == "forward":  # read q, k, v; write o (and lse)
+        moved, flops = 4 * tensor + (stat if lse else 0), 4 * head_dim * pairs
+    elif kind == "dq":  # read q, k, v, o, dO, lse; write dQ, delta
+        moved = 6 * tensor + 2 * stat
+        flops = 6 * head_dim * pairs + 2 * batch * seq * heads * head_dim
+    else:  # dkdv: read q, k, v, dO, lse, delta; write dK, dV
+        moved, flops = 6 * tensor + 2 * stat, 8 * head_dim * pairs
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), moved, flops
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    """PyTorch's one call for the same function: the yardstick, never used by the port."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal
+    ).transpose(1, 2)
+
+
+def phase_attention() -> list:
+    """B2's three kernels against their plain versions; returns their
+    kernels-line entries (without launches)."""
+    fa = flash_attention
+    # Same tiles, another summation order than the plain version: float32 is
+    # held at 1e-5 absolute, bfloat16 at 2e-2 (JAX's own bf16 tolerance for
+    # this kernel, tests/test_pallas_attention.py).
+    tolerance = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    path = [((b, TRANS["window"], TRANS["heads"], TRANS["head_dim"]), True, torch.float32)
+            for b in (TRANS_ENVS, 4 * TRANS_ENVS, TRANS["rollout"] * TRANS_ENVS)]
+    errors = {"forward": 0.0, "dq": 0.0, "dkdv": 0.0}
+    for seed, (shape, causal, dtype) in enumerate(path + [
+        ((2, 100, 2, 32), False, torch.float32),
+        ((1, 128, 1, 64), True, torch.bfloat16),
+    ]):
+        q, k, v = qkv_views(*shape, dtype, seed=seed)
+        got, lse = fa.forward_kernel(q, k, v, causal, need_lse=True)
+        torch.cuda.synchronize()
+        want, want_lse = fa.plain_flash_attention_forward(q, k, v, causal, need_lse=True)
+        err = (got.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        if got.dtype != dtype or got.shape != q.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"forward kernel output malformed at {shape} {dtype}")
+        if not (err <= tolerance[dtype] and lse_err <= 1e-5):
+            raise AssertionError(f"forward != plain at {shape} {dtype}: {err}, lse {lse_err}")
+        if dtype == torch.float32:
+            errors["forward"] = max(errors["forward"], err)
+        emit({"phase": "attention", "kernel": "flash_attention_forward", "shape": list(shape),
+              "causal": causal, "dtype": str(dtype), "max_abs_err": err,
+              "lse_max_abs_err": lse_err, "tolerance": tolerance[dtype]})
+
+    for seed, (shape, causal) in enumerate([((4 * TRANS_ENVS, 16, 4, 32), True),
+                                            ((2, 100, 2, 32), False)]):
+        q, k, v = qkv_views(*shape, torch.float32, seed=10 + seed)
+        dout = torch.randn(shape, device="cuda")
+        o, lse = fa.forward_kernel(q, k, v, causal, need_lse=True)
+        got = fa.backward_kernels(q, k, v, o, lse, dout, causal)
+        torch.cuda.synchronize()
+        want = fa.plain_flash_attention_backward(q, k, v, o, lse, dout, causal)
+        errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        if not all(torch.isfinite(g).all() for g in got) or not max(errs) <= 1e-5:
+            raise AssertionError(f"backward kernels != plain at {shape}: dq, dk, dv {errs}")
+        errors["dq"] = max(errors["dq"], errs[0])
+        errors["dkdv"] = max(errors["dkdv"], errs[1], errs[2])
+        emit({"phase": "attention", "kernel": "flash_attention_backward", "shape": list(shape),
+              "causal": causal, "max_abs_err_dq_dk_dv": errs, "tolerance": 1e-5})
+
+    # Times at the path's shapes: the forward at each batch it runs at, the
+    # backward at the minibatch's.
+    shapes = []
+    for shape, causal, _ in path:
+        q, k, v = qkv_views(*shape, torch.float32, seed=20)
+        bound, bound_by, moved, flops = attention_bound("forward", q, causal)
+        shapes.append({
+            "shape": list(shape),
+            "ms": cuda_ms(lambda: fa.forward_kernel(q, k, v, causal)),
+            "device_ms": graph_ms(lambda: fa.forward_kernel(q, k, v, causal)),
+            "with_lse_device_ms": graph_ms(lambda: fa.forward_kernel(q, k, v, causal, True)),
+            "plain_ms": cuda_ms(lambda: fa.plain_flash_attention_forward(q, k, v, causal),
+                                repeats=5, inner=3),
+            "library_ms": cuda_ms(lambda: sdpa(q, k, v, causal)),
+            "bound_ms": bound, "bound_by": bound_by, "bytes": moved, "flops": flops,
+        })
+    emit({"phase": "attention_time", "kernel": "flash_attention_forward", "shapes": shapes})
+    main_shape = shapes[1]  # the minibatch forward, [4096, 16, 4, 32]
+    forward_entry = {
+        "name": fa.FORWARD.name, "route": "cuda", "source": ATTENTION_SOURCE,
+        "replaces": ATTENTION_REPLACES, "max_abs_err": errors["forward"],
+        **{key: main_shape[key] for key in
+           ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shapes": shapes,
+    }
+
+    shape, causal = (4 * TRANS_ENVS, 16, 4, 32), True
+    q, k, v = qkv_views(*shape, torch.float32, seed=21)
+    dout = torch.randn(shape, device="cuda")
+    o, lse = fa.forward_kernel(q, k, v, causal, need_lse=True)
+    _, delta = fa.backward_dq_kernel(q, k, v, o, lse, dout, causal)
+    leaf = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+
+    def ours_fwd_bwd():
+        out = fa.FlashAttention.apply(*leaf, causal)
+        out.backward(dout)
+
+    def sdpa_fwd_bwd():
+        sdpa(*leaf, causal).backward(dout)
+
+    fwd_bwd = {"fwd_bwd_ms": cuda_ms(ours_fwd_bwd, repeats=11, inner=20),
+               "library_fwd_bwd_ms": cuda_ms(sdpa_fwd_bwd, repeats=11, inner=20)}
+    entries = [forward_entry]
+    for kind, counter, run, plain in (
+        ("dq", fa.BACKWARD_DQ,
+         lambda: fa.backward_dq_kernel(q, k, v, o, lse, dout, causal),
+         lambda: fa.plain_flash_attention_backward_dq(q, k, v, o, lse, dout, causal)),
+        ("dkdv", fa.BACKWARD_DKDV,
+         lambda: fa.backward_dkdv_kernel(q, k, v, dout, lse, delta, causal),
+         lambda: fa.plain_flash_attention_backward_dkdv(q, k, v, dout, lse, delta, causal)),
+    ):
+        bound, bound_by, moved, flops = attention_bound(kind, q, causal)
+        entries.append({
+            "name": counter.name, "route": "cuda", "source": ATTENTION_SOURCE,
+            "replaces": ATTENTION_REPLACES, "max_abs_err": errors[kind], "shape": list(shape),
+            "ms": cuda_ms(run), "device_ms": graph_ms(run),
+            "plain_ms": cuda_ms(plain, repeats=5, inner=3),
+            "bound_ms": bound, "bound_by": bound_by, "bytes": moved, "flops": flops,
+            # No single PyTorch call computes one half of the backward; SDPA's
+            # forward + backward beside ours is under library_fwd_bwd_ms.
+            "library_ms": None, **fwd_bwd,
+        })
+    emit({"phase": "attention_time", "kernel": "flash_attention_backward",
+          "entries": [{k: e[k] for k in ("name", "ms", "device_ms", "plain_ms", "bound_ms")}
+                      for e in entries[1:]], **fwd_bwd})
+    return entries
+
+
 def phase_gae() -> None:
     """GAE through the kernel on the card against `scan` on the CPU."""
     gen = torch.Generator()
@@ -201,19 +374,19 @@ def phase_gae() -> None:
     emit({"phase": "gae", "shape": list(shape), "max_abs_err_vs_cpu_scan": err})
 
 
-def compose(overrides) -> dict:
-    return config_lib.compose(
-        config_lib.default_config_dir(), "default/anakin/default_ff_ppo.yaml", overrides
-    )
+def compose(overrides, root: str = "default/anakin/default_ff_ppo.yaml") -> dict:
+    return config_lib.compose(config_lib.default_config_dir(), root, overrides)
+
+
+TRANS_ROOT = "default/anakin/default_ff_trans_ppo.yaml"
+IDENTITY = ["env=identity_game", "arch.total_num_envs=64", "arch.total_timesteps=65536",
+            "arch.num_evaluation=1", "arch.num_eval_episodes=32", "arch.evaluation_greedy=True",
+            "arch.absolute_metric=False", "logger.use_console=False"]
 
 
 def phase_learn() -> None:
-    config = compose([
-        "env=identity_game", "arch.total_num_envs=64", "arch.total_timesteps=65536",
-        "arch.num_evaluation=1", "arch.num_eval_episodes=32", "arch.evaluation_greedy=True",
-        "arch.absolute_metric=False", "system.rollout_length=16", "system.epochs=4",
-        "system.multistep_impl=pallas", "logger.use_console=False",
-    ])
+    config = compose(IDENTITY + ["system.rollout_length=16", "system.epochs=4",
+                                 "system.multistep_impl=pallas"])
     start = time.perf_counter()
     final_return = ff_ppo.run_experiment(config, device="cuda")
     if not final_return > 8.0:
@@ -252,14 +425,112 @@ def phase_train(smi: str) -> int:
     return launches
 
 
+def phase_trans_learn() -> None:
+    # The JAX package's ff_trans_ppo returns 10.0 with these overrides on the CPU.
+    config = compose(IDENTITY + ["system.window_length=4", "system.num_layers=1",
+                                 "system.multistep_impl=pallas"], TRANS_ROOT)
+    start = time.perf_counter()
+    final_return = ff_trans_ppo.run_experiment(config, device="cuda")
+    if not final_return > 8.0:
+        raise AssertionError(f"ff_trans_ppo did not learn IdentityGame on the card: {final_return}")
+    emit({"phase": "trans_learn", "env": "identity_game", "final_return": final_return,
+          "seconds": time.perf_counter() - start})
+
+
+def _counts(counters) -> dict:
+    return {c.name: c.launches for c in counters}
+
+
+def phase_trans_train(smi: str) -> dict:
+    """ff_trans_ppo's main path at full width; returns each kernel's launches
+    in the run, split into the learner's and the evaluator's."""
+    fa = flash_attention
+    counters = [fa.FORWARD, fa.BACKWARD_DQ, fa.BACKWARD_DKDV, linear_recurrence.KERNEL]
+    b1 = "linear_recurrence_reverse"
+    layers = TRANS["layers"]
+    per_update = {  # the learner's launches in one update step
+        fa.FORWARD.name: 2 * layers * TRANS["rollout"] + layers
+        + 2 * layers * TRANS["epochs"] * TRANS["minibatches"],
+        fa.BACKWARD_DQ.name: 2 * layers * TRANS["epochs"] * TRANS["minibatches"],
+        fa.BACKWARD_DKDV.name: 2 * layers * TRANS["epochs"] * TRANS["minibatches"],
+        b1: 1,
+    }
+    config = compose([
+        f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
+        "arch.num_eval_episodes=16", "system.multistep_impl=pallas", "logger.use_console=False",
+    ], TRANS_ROOT)
+    if (int(config.system.num_layers), int(config.arch.total_num_envs)) != (layers, TRANS_ENVS):
+        raise AssertionError("the default ff_trans_ppo config changed; update TRANS")
+    learner = dict.fromkeys(per_update, 0)
+    original_setup = ff_trans_ppo.learner_setup
+
+    def counted_setup(env, cfg, device, seed):
+        setup = original_setup(env, cfg, device, seed)
+
+        def learn(state):
+            before = _counts(counters)
+            output = setup.learn(state)
+            for name, count in _counts(counters).items():
+                learner[name] += count - before[name]
+            return output
+
+        return setup._replace(learn=learn)
+
+    for counter in counters:
+        counter.launches = 0
+    ff_trans_ppo.learner_setup = counted_setup
+    start = time.perf_counter()
+    try:
+        final_return = ff_trans_ppo.run_experiment(config, device="cuda")
+    finally:
+        ff_trans_ppo.learner_setup = original_setup
+    seconds = time.perf_counter() - start
+    total = _counts(counters)
+
+    expected = {name: n * MAIN_UPDATES for name, n in per_update.items()}
+    if learner != expected:
+        raise AssertionError(f"learner launches {learner} != {expected} in {MAIN_UPDATES} updates")
+    evaluator = {name: total[name] - learner[name] for name in total}
+    stats = runner.LAST_RUN_STATS
+    # The stateful evaluator steps until its longest episode ends: L forward
+    # launches per step, nothing else.
+    eval_steps = sum(int(rec["episode_length/max"]) for rec in stats["history"]
+                     if rec["event"] in ("evaluator", "absolute"))
+    if evaluator != {**dict.fromkeys(total, 0), fa.FORWARD.name: layers * eval_steps}:
+        raise AssertionError(f"evaluator launches {evaluator} over {eval_steps} eval steps")
+    train = [rec for rec in stats["history"] if rec["event"] == "trainer"]
+    if not train or not all(math.isfinite(v) for rec in train for k, v in rec.items()
+                            if k not in ("event", "t", "t_eval")):
+        raise AssertionError(f"non-finite training metrics: {train}")
+    if not math.isfinite(final_return):
+        raise AssertionError(f"non-finite eval return {final_return}")
+    emit({"phase": "trans_train", "env": "cartpole", "total_num_envs": TRANS_ENVS,
+          "updates": MAIN_UPDATES, "learner_launches": learner,
+          "learner_launches_per_update": per_update, "evaluator_launches": evaluator,
+          "eval_steps": eval_steps, "final_eval_return": final_return,
+          "last_losses": train[-1], "window_seconds": stats["window_seconds"],
+          "env_steps_per_second": stats["steps_per_second"], "seconds": seconds, "card": smi})
+    return {"learner": learner, "evaluator": evaluator, "total": total}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
-    entry = phase_kernel()
+    recurrence = phase_kernel()
+    attention = phase_attention()
     phase_gae()
     phase_learn()
-    entry["launches"] = phase_train(smi)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    recurrence["launches"] = phase_train(smi)
+    phase_trans_learn()
+    trans = phase_trans_train(smi)
+    recurrence["launches_ff_trans_ppo"] = trans["total"][recurrence["name"]]
+    for entry in attention:
+        entry["launches"] = trans["total"][entry["name"]]
+        entry["learner_launches"] = trans["learner"][entry["name"]]
+        entry["evaluator_launches"] = trans["evaluator"][entry["name"]]
+    if any(entry["launches"] == 0 for entry in [recurrence, *attention]):
+        raise AssertionError("a kernel of the main path was never launched")
+    print(json.dumps({"kernels": [recurrence, *attention]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

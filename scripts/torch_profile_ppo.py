@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time of one Anakin ff_ppo update step goes in the PyTorch port,
-on one CUDA card, at the default config's full width.
+"""Where the time of one Anakin PPO update step goes in the PyTorch port, on
+one CUDA card, at the default config's full width: ff_ppo (the default) or
+ff_trans_ppo.
 
-    python3 scripts/torch_profile_ppo.py [--updates N] [--out PATH] [overrides ...]
+    python3 scripts/torch_profile_ppo.py [--system ff_trans_ppo] [--updates N] [--out PATH] \
+        [overrides ...]
 
 Builds the learner exactly as `run_experiment` does (system.multistep_impl=
 pallas unless overridden), warms it up with two update steps, then:
@@ -11,9 +13,10 @@ pallas unless overridden), warms it up with two update steps, then:
     bootstrap critic pass included), and the epochs x minibatches of updates;
   * torch.profiler over N whole update steps: the device busy time (the union
     of kernel and copy intervals), kernel launches per update, and the kernels
-    that take the most device time, B1 included. The profiler slows the host
-    many times over, so the busy share is taken against the UNPROFILED wall
-    time of an update (rollout + update phases above).
+    that take the most device time, B1 and B2 (flash attention) included.
+    The profiler slows the host many times over, so the busy share is taken
+    against the UNPROFILED wall time of an update (rollout + update phases
+    above).
 
 Prints one JSON object and writes it to --out (default
 results/torch_profile_ppo.json).
@@ -33,9 +36,11 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from stoix_tpu_torch import envs  # noqa: E402
-from stoix_tpu_torch.kernels import linear_recurrence  # noqa: E402
+from stoix_tpu_torch.kernels import flash_attention, linear_recurrence  # noqa: E402
 from stoix_tpu_torch.ops import scan_kernels, truncated_generalized_advantage_estimation  # noqa: E402
-from stoix_tpu_torch.systems.ppo.anakin import ff_ppo  # noqa: E402
+from stoix_tpu_torch.systems.ppo.anakin import ff_ppo, ff_trans_ppo  # noqa: E402
+
+SYSTEMS = {"ff_ppo": ff_ppo, "ff_trans_ppo": ff_trans_ppo}
 from stoix_tpu_torch.utils import config as config_lib  # noqa: E402
 from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps  # noqa: E402
 
@@ -59,7 +64,11 @@ def _phases(learner, state, sync):
     sync()
     t1 = time.perf_counter()
     with torch.no_grad():
-        v_t = learner.critic_apply(state.params.critic_params, traj.next_obs)
+        if hasattr(traj, "window"):  # ff_trans_ppo: the successor windows
+            next_obs = torch.cat([traj.window[:, :, 1:], traj.next_obs[:, :, None]], dim=2)
+        else:
+            next_obs = traj.next_obs
+        v_t = learner.critic_apply(state.params.critic_params, next_obs)
         truncated_generalized_advantage_estimation(
             traj.reward, learner.gamma * (1.0 - traj.done.float()), learner.gae_lambda,
             v_tm1=traj.value, v_t=v_t, truncation_t=traj.truncated.float(),
@@ -77,6 +86,7 @@ def _phases(learner, state, sync):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--system", choices=sorted(SYSTEMS), default="ff_ppo")
     parser.add_argument("--updates", type=int, default=3)
     parser.add_argument("--out", default="results/torch_profile_ppo.json")
     args, overrides = parser.parse_known_args()
@@ -87,15 +97,16 @@ def main() -> None:
     device = torch.device("cuda")
     sync = torch.cuda.synchronize
 
+    system = SYSTEMS[args.system]
     config = config_lib.compose(
-        config_lib.default_config_dir(), "default/anakin/default_ff_ppo.yaml",
+        config_lib.default_config_dir(), f"default/anakin/default_{args.system}.yaml",
         ["system.multistep_impl=pallas", "arch.num_updates=100", "arch.num_evaluation=1",
          *overrides],
     )
     scan_kernels.configure_from_config(config)
     config = check_total_timesteps(config, 1)
     env, _ = envs.make(config)
-    setup = ff_ppo.learner_setup(env, config, device, seed=int(config.arch.seed))
+    setup = system.learner_setup(env, config, device, seed=int(config.arch.seed))
     learner, state = setup.learn, setup.learner_state
     for _ in range(2):  # warm-up: cuBLAS handles, kernel build, allocator
         state, _ = learner.update_step(state)
@@ -107,7 +118,9 @@ def main() -> None:
         phases.append(phase)
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    linear_recurrence.KERNEL.launches = 0
+    counters = (linear_recurrence.KERNEL, *flash_attention.COUNTERS)
+    for counter in counters:
+        counter.launches = 0
     sync()
     start = time.perf_counter()
     with torch.profiler.profile(activities=activities) as prof:
@@ -125,7 +138,7 @@ def main() -> None:
         entry[1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in device_events])
-    b1 = {k: v for k, v in by_name.items() if "linear_recurrence" in k}
+    ours = {k: v for k, v in by_name.items() if "linear_recurrence" in k or "flash_" in k}
     steps_per_update = int(config.system.rollout_length) * int(config.arch.total_num_envs)
     unprofiled_ms = sum(
         p["rollout_ms"] + p["update_ms_including_gae"] for p in phases
@@ -137,6 +150,7 @@ def main() -> None:
     report = {
         "card": smi,
         "torch": torch.__version__,
+        "system": args.system,
         "config": {"total_num_envs": int(config.arch.total_num_envs),
                    "rollout_length": int(config.system.rollout_length),
                    "epochs": int(config.system.epochs),
@@ -153,9 +167,11 @@ def main() -> None:
         "device_busy_share_of_unprofiled_wall": (
             busy_us / args.updates / 1e3 / unprofiled_ms if device_events else "not measured"),
         "device_launches_per_update": len(device_events) / args.updates,
-        "b1_launches": linear_recurrence.KERNEL.launches,
-        "b1_device_us_per_launch": (
-            {k: v[1] / v[0] for k, v in b1.items()} if b1 else "not measured"),
+        "kernel_launches": {c.name: c.launches for c in counters},
+        "kernel_device_us_per_launch": (
+            {k[:90]: v[1] / v[0] for k, v in ours.items()} if ours else "not measured"),
+        "kernel_device_us_per_update": (
+            {k[:90]: v[1] / args.updates for k, v in ours.items()} if ours else "not measured"),
         "top_device_time": [{"name": k[:90], "count_per_update": v[0] / args.updates,
                              "us_per_update": v[1] / args.updates} for k, v in top],
     }

@@ -1,5 +1,5 @@
 """Evaluator (counterpart of stoix_tpu/evaluator.py: `get_distribution_act_fn`,
-`get_ff_evaluator_fn` and `evaluator_setup`).
+`get_ff_evaluator_fn`, `get_rnn_evaluator_fn` and `evaluator_setup`).
 
 All `num_eval_episodes` episodes run as ONE batch of envs. An episode that
 has ended is frozen (its state and timestep no longer change) while the rest
@@ -20,6 +20,8 @@ from stoix_tpu_torch.envs.types import tree_select
 
 # act_fn(params, observation, generator) -> action  (batched observation)
 ActFn = Callable[[Any, Any, torch.Generator], torch.Tensor]
+# rnn_act_fn(params, hstate, observation, done, generator) -> (hstate, action)
+RnnActFn = Callable[[Any, Any, Any, torch.Tensor, torch.Generator], Tuple[Any, torch.Tensor]]
 
 
 def get_distribution_act_fn(config: Any, actor_apply: Callable[..., Any]) -> ActFn:
@@ -64,6 +66,46 @@ def get_ff_evaluator_fn(
             "episode_return": metrics["episode_return"],
             "episode_length": metrics["episode_length"],
             "episode_finished": timestep.last().to(torch.float32),
+        }
+
+    return evaluator
+
+
+def get_rnn_evaluator_fn(
+    eval_env: Environment,
+    rnn_act_fn: RnnActFn,
+    config: Any,
+    init_hstate_fn: Callable[[int], Any],
+    eval_multiplier: int = 1,
+) -> Callable[[Any, torch.Generator], Dict[str, torch.Tensor]]:
+    """Stateful evaluator: every episode carries its own state (an RNN's hidden
+    state, or ff_trans_ppo's observation window) from `init_hstate_fn(episodes)`
+    through its steps; `rnn_act_fn` gets the episode's `done` flag to clear it.
+    As in the JAX evaluator each episode runs until it ends, and an episode
+    that has ended is frozen, its state with it."""
+    if config.env.get("eval_reset_fn"):
+        raise NotImplementedError("env.eval_reset_fn is not ported")
+    episodes = int(config.arch.num_eval_episodes) * int(eval_multiplier)
+
+    @torch.no_grad()
+    def evaluator(params: Any, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        env_state, timestep = eval_env.reset(generator, episodes)
+        hstate = init_hstate_fn(episodes)
+        while True:
+            finished = timestep.last()
+            if bool(finished.all()):  # one host sync per step
+                break
+            stepped_hstate, action = rnn_act_fn(
+                params, hstate, timestep.observation, finished, generator
+            )
+            stepped_state, stepped = eval_env.step(env_state, action)
+            hstate = tree_select(finished, hstate, stepped_hstate)
+            env_state = tree_select(finished, env_state, stepped_state)
+            timestep = tree_select(finished, timestep, stepped)
+        metrics = timestep.extras["episode_metrics"]
+        return {
+            "episode_return": metrics["episode_return"],
+            "episode_length": metrics["episode_length"],
         }
 
     return evaluator

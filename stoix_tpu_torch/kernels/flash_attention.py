@@ -1,0 +1,339 @@
+"""Flash attention: the Hopper CUDA kernels (forward, and a backward in two
+kernels), their plain PyTorch versions, the autograd function that joins them,
+and the wrappers that pick a version by the tensors' device.
+
+    o = softmax(q * scale . k^T) . v     over [B, S, H, D],   scale = D^-1/2
+
+Replaces: stoix_tpu/ops/pallas_attention.py::flash_attention (body
+`_flash_kernel`, fold `_fold_block`), the Pallas TPU kernel behind
+`best_attention` and so behind every attention layer of the transformer torso.
+On the Anakin ff_trans_ppo main path it runs at S = 16, H = 4, D = 32 float32,
+causal, for B = 1024 (rollout), 4096 (minibatch) and 16384 (bootstrap) windows.
+
+The TPU kernel is forward-only (no custom VJP, so `jax.grad` cannot pass
+through it); the port trains through its kernel, so `FlashAttention` adds a
+recompute-style backward whose kernels are hand-written too. It is held
+against `jax.grad` of the JAX package's `full_attention`, which is what that
+package differentiates wherever it trains this model.
+
+Bound on an H100: bytes. A launch reads q, k, v once and writes o once (the
+backward also reads o, dO and lse and writes dQ, dK, dV): at S = 16, D = 32
+the work is at most 4.S^2.D flops per (batch, head), about 4 flops per byte,
+far below the card's float32 balance point of 20. At B = 4096 the forward
+moves 128 MiB, about 40 µs at 3.35 TB/s.
+
+Design (csrc/flash_attention.cu): one thread per query row (forward, dQ) or
+key row (dK/dV) with the row's fp32 state in registers; K/V (or Q/dO) rows
+staged 16 at a time in shared memory; several (batch, head) pairs per block
+when S is short; ragged S masked, not padded; the causal walk bounded by the
+block's last query (and, for dK/dV, started at its first key). q, k, v are
+taken by strides, so the views of the fused qkv projection need no copy.
+
+Counters: `FORWARD`, `BACKWARD_DQ` and `BACKWARD_DKDV` each count the launches
+of one kernel, and rise nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from stoix_tpu_torch.kernels.build import CudaLibrary
+
+KEY_TILE = 16  # keys folded per online-softmax step, as csrc/flash_attention.cu stages them
+HEAD_DIMS = (16, 32, 64)  # the head dims csrc/flash_attention.cu instantiates
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# strides, batch, seq, heads, head_dim, scale, causal, stream
+_SHAPE_ARGS = [_P, _I, _I, _I, _I, _F, _I, _P]
+
+LIBRARY = CudaLibrary(
+    "flash_attention.cu",
+    {
+        "flash_attention_forward": [_I] + [_P] * 5 + _SHAPE_ARGS,
+        "flash_attention_backward_dq": [_I] + [_P] * 8 + _SHAPE_ARGS,
+        "flash_attention_backward_dkdv": [_I] + [_P] * 8 + _SHAPE_ARGS,
+    },
+    error_entry="flash_attention_error_string",
+)
+
+
+class KernelCounter:
+    """Launches of one kernel of the library."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self.launches = 0
+
+
+FORWARD = KernelCounter("flash_attention_forward")
+BACKWARD_DQ = KernelCounter("flash_attention_backward_dq")
+BACKWARD_DKDV = KernelCounter("flash_attention_backward_dkdv")
+COUNTERS = (FORWARD, BACKWARD_DQ, BACKWARD_DKDV)
+
+
+# ----------------------------------------------------------------- plain versions
+
+
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, D] -> [B, H, S, D] float32."""
+    return x.float().permute(0, 2, 1, 3)
+
+
+def _seq_first(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """[B, H, S, D] float32 -> contiguous [B, S, H, D] in `dtype`."""
+    return x.to(dtype).permute(0, 2, 1, 3).contiguous()
+
+
+def plain_flash_attention_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+    need_lse: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel's arithmetic in plain PyTorch: the online softmax
+    folded over key tiles of KEY_TILE as `_fold_block` folds its blocks.
+    Returns o [B, S, H, D] in q.dtype and, if asked, lse [B, H, S] float32."""
+    seq, head_dim = q.shape[1], q.shape[3]
+    scale = head_dim**-0.5
+    qs, kf, vf = _heads_first(q) * scale, _heads_first(k), _heads_first(v)
+    lead = qs.shape[:-1]
+    m = torch.full(lead + (1,), float("-inf"), device=q.device)
+    l = torch.zeros(lead + (1,), device=q.device)
+    acc = torch.zeros_like(qs)
+    q_pos = torch.arange(seq, device=q.device)[:, None]
+    for k0 in range(0, seq, KEY_TILE):
+        k_blk, v_blk = kf[:, :, k0:k0 + KEY_TILE], vf[:, :, k0:k0 + KEY_TILE]
+        scores = qs @ k_blk.transpose(-1, -2)
+        mask = None
+        if causal:
+            mask = q_pos >= torch.arange(k0, k0 + k_blk.shape[2], device=q.device)[None]
+            scores = torch.where(mask, scores, float("-inf"))
+        m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(scores - m_safe)
+        if mask is not None:
+            p = torch.where(mask, p, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p @ v_blk
+        m = m_new
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = _seq_first(acc / l_safe, q.dtype)
+    if not need_lse:
+        return o, None
+    lse = torch.where(l == 0.0, float("inf"), m + torch.log(l))
+    return o, lse[..., 0].contiguous()
+
+
+def _recompute_probabilities(q, k, lse, causal):
+    """P = exp(q.scale.K^T - lse) [B, H, S, S] float32, and q.scale [B, H, S, D]."""
+    seq, head_dim = q.shape[1], q.shape[3]
+    qs = _heads_first(q) * head_dim**-0.5
+    p = torch.exp(qs @ _heads_first(k).transpose(-1, -2) - lse[..., None])
+    if causal:
+        p = torch.where(torch.ones(seq, seq, dtype=torch.bool, device=q.device).tril(), p, 0.0)
+    return p, qs
+
+
+def plain_flash_attention_backward_dq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    dout: torch.Tensor, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dQ kernel's arithmetic: delta = rowsum(dO.O), P recomputed from
+    lse, dS = P.(dO V^T - delta), dQ = scale.dS K. Returns dq (contiguous
+    [B, S, H, D], q.dtype) and delta ([B, H, S] float32)."""
+    p, _ = _recompute_probabilities(q, k, lse, causal)
+    dof = _heads_first(dout)
+    delta = (dof * _heads_first(o)).sum(-1)
+    ds = p * (dof @ _heads_first(v).transpose(-1, -2) - delta[..., None])
+    dq = (ds @ _heads_first(k)) * q.shape[3] ** -0.5
+    return _seq_first(dq, q.dtype), delta
+
+
+def plain_flash_attention_backward_dkdv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+    delta: torch.Tensor, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV kernel's arithmetic: P recomputed from lse, dV = P^T dO,
+    dS = P.(dO V^T - delta), dK = dS^T (q.scale)."""
+    p, qs = _recompute_probabilities(q, k, lse, causal)
+    dof = _heads_first(dout)
+    dv = p.transpose(-1, -2) @ dof
+    ds = p * (dof @ _heads_first(v).transpose(-1, -2) - delta[..., None])
+    dk = ds.transpose(-1, -2) @ qs
+    return _seq_first(dk, q.dtype), _seq_first(dv, q.dtype)
+
+
+def plain_flash_attention_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    dout: torch.Tensor, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Both backward kernels' arithmetic, in their order; returns dq, dk, dv."""
+    dq, delta = plain_flash_attention_backward_dq(q, k, v, o, lse, dout, causal)
+    dk, dv = plain_flash_attention_backward_dkdv(q, k, v, dout, lse, delta, causal)
+    return dq, dk, dv
+
+
+# ----------------------------------------------------------------- the kernels
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(
+            f"flash attention takes q, k, v of one [B, S, H, D] shape, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash attention kernels take float32 or bfloat16 q, k, v of one dtype, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError("flash attention kernels need q, k, v on one CUDA device")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernels take head dims {HEAD_DIMS}, got {q.shape[3]}")
+    if any(x.stride(3) != 1 for x in (q, k, v)):
+        raise ValueError("flash attention kernels need the head dim of q, k, v contiguous")
+
+
+def _launch_args(q, k, v, causal):
+    batch, seq, heads, head_dim = q.shape
+    strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v) for i in range(3)))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return strides, [batch, seq, heads, head_dim, head_dim**-0.5, int(causal), stream]
+
+
+def forward_kernel(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+    need_lse: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Launch the forward kernel; o contiguous [B, S, H, D] in q.dtype and, if
+    asked, lse [B, H, S] float32."""
+    _check(q, k, v)
+    batch, seq, heads, _ = q.shape
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = None
+    if need_lse:
+        lse = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device)
+    lib = LIBRARY.load()
+    with torch.cuda.device(q.device):
+        strides, shape = _launch_args(q, k, v, causal)
+        code = lib.flash_attention_forward(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), strides, *shape,
+        )
+    LIBRARY.check(code, "flash attention forward kernel")
+    FORWARD.launches += 1
+    return o, lse
+
+
+def _check_backward(q: torch.Tensor, lse: torch.Tensor, **like_q: torch.Tensor) -> None:
+    batch, seq, heads, _ = q.shape
+    for name, x in like_q.items():
+        if (x.shape, x.dtype, x.device) != (q.shape, q.dtype, q.device) or not x.is_contiguous():
+            raise ValueError(f"flash attention backward needs a contiguous {name} like q")
+    if lse.shape != (batch, heads, seq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("flash attention backward needs a contiguous float32 lse [B, H, S]")
+
+
+def backward_dq_kernel(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    dout: torch.Tensor, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dQ kernel; returns dq and delta = rowsum(dO.O) [B, H, S]."""
+    _check(q, k, v)
+    _check_backward(q, lse, o=o, dout=dout)
+    batch, seq, heads, _ = q.shape
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device)
+    lib = LIBRARY.load()
+    with torch.cuda.device(q.device):
+        strides, shape = _launch_args(q, k, v, causal)
+        code = lib.flash_attention_backward_dq(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), strides, *shape,
+        )
+    LIBRARY.check(code, "flash attention dQ kernel")
+    BACKWARD_DQ.launches += 1
+    return dq, delta
+
+
+def backward_dkdv_kernel(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
+    delta: torch.Tensor, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dK/dV kernel (after the dQ kernel, whose delta it reads)."""
+    _check(q, k, v)
+    _check_backward(q, lse, dout=dout)
+    if delta.shape != lse.shape or delta.dtype != torch.float32 or not delta.is_contiguous():
+        raise ValueError("flash attention backward needs a contiguous float32 delta [B, H, S]")
+    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
+    lib = LIBRARY.load()
+    with torch.cuda.device(q.device):
+        strides, shape = _launch_args(q, k, v, causal)
+        code = lib.flash_attention_backward_dkdv(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, *shape,
+        )
+    LIBRARY.check(code, "flash attention dK/dV kernel")
+    BACKWARD_DKDV.launches += 1
+    return dk, dv
+
+
+def backward_kernels(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    dout: torch.Tensor, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the dQ kernel (which also writes delta) and then the dK/dV kernel."""
+    dq, delta = backward_dq_kernel(q, k, v, o, lse, dout, causal)
+    dk, dv = backward_dkdv_kernel(q, k, v, dout, lse, delta, causal)
+    return dq, dk, dv
+
+
+# ----------------------------------------------------------------- dispatch and autograd
+
+
+def _forward(q, k, v, causal, need_lse):
+    if q.device.type == "cuda":
+        return forward_kernel(q, k, v, causal, need_lse)
+    if q.device.type == "cpu":
+        return plain_flash_attention_forward(q, k, v, causal, need_lse)
+    raise ValueError(f"no flash attention kernel for device {q.device}")
+
+
+def _backward(q, k, v, o, lse, dout, causal):
+    if q.device.type == "cuda":
+        return backward_kernels(q, k, v, o, lse, dout, causal)
+    if q.device.type == "cpu":
+        return plain_flash_attention_backward(q, k, v, o, lse, dout, causal)
+    raise ValueError(f"no flash attention kernel for device {q.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a flash backward: the forward saves q, k, v, o and
+    lse; the backward recomputes the probabilities from lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = _forward(q, k, v, causal, need_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, o, lse, dout.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+) -> torch.Tensor:
+    """[B, S, H, D] -> [B, S, H, D]: the kernels on CUDA tensors (they launch
+    or raise), their plain versions on CPU tensors. lse is written only where
+    autograd will need it."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal, need_lse=False)[0]

@@ -28,32 +28,26 @@ float32.
 
 Build: at first use `nvcc -gencode arch=compute_90a,code=sm_90a` compiles the
 source into `_build/` (git-ignored), keyed by the hash of the source and the
-flags, and the plain C entry points are bound with ctypes.
+flags, and the plain C entry points are bound with ctypes (kernels/build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from typing import Optional
 
 import torch
 
-_PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PACKAGE_DIR, "csrc", "linear_recurrence.cu")
-BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+from stoix_tpu_torch.kernels.build import CudaLibrary
+
 _ENTRY = {torch.float32: "linear_recurrence_reverse_f32",
           torch.bfloat16: "linear_recurrence_reverse_bf16"}
+LIBRARY = CudaLibrary(
+    "linear_recurrence.cu",
+    {name: [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+     for name in _ENTRY.values()},
+    error_entry="linear_recurrence_error_string",
+)
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -96,63 +90,22 @@ def plain_linear_recurrence_reverse(
     return out.reshape(delta_t.shape)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    candidate = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError("nvcc not found: the linear-recurrence CUDA kernel cannot be built")
-
-
 class LinearRecurrenceKernel:
-    """The compiled kernel: built and loaded once, with a launch counter.
+    """The compiled kernel, with a launch counter.
 
     `launches` rises by one for every kernel launch and nowhere else."""
 
+    name = "linear_recurrence_reverse"
+
     def __init__(self) -> None:
         self.launches = 0
-        self._lib: Optional[ctypes.CDLL] = None
-        self._lock = threading.Lock()
 
     def library_path(self) -> str:
-        with open(SOURCE, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return os.path.join(BUILD_DIR, f"liblinear_recurrence_{digest}.so")
+        return LIBRARY.library_path()
 
     def build(self) -> ctypes.CDLL:
         """Compile (if the hashed library is absent) and load the kernel."""
-        with self._lock:
-            if self._lib is not None:
-                return self._lib
-            path = self.library_path()
-            if not os.path.exists(path):
-                os.makedirs(BUILD_DIR, exist_ok=True)
-                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-                os.close(fd)
-                try:
-                    subprocess.run(
-                        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                        check=True, capture_output=True, text=True, timeout=600,
-                    )
-                    os.replace(tmp, path)  # atomic: concurrent builds agree
-                except subprocess.CalledProcessError as err:
-                    raise RuntimeError(
-                        f"nvcc failed building {SOURCE}:\n{err.stdout}\n{err.stderr}"
-                    ) from err
-                finally:
-                    if os.path.exists(tmp):
-                        os.unlink(tmp)
-            lib = ctypes.CDLL(path)
-            for name in _ENTRY.values():
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            lib.linear_recurrence_error_string.argtypes = [ctypes.c_int]
-            lib.linear_recurrence_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-            return lib
+        return LIBRARY.load()
 
     def __call__(
         self, weight_t: torch.Tensor, delta_t: torch.Tensor, init: torch.Tensor
@@ -186,11 +139,7 @@ class LinearRecurrenceKernel:
                 weight_t.data_ptr(), delta_t.data_ptr(), init_c.data_ptr(), out.data_ptr(),
                 t_len, b_len, stream,
             )
-        if code != 0:
-            raise RuntimeError(
-                "linear recurrence kernel launch failed: "
-                + lib.linear_recurrence_error_string(code).decode()
-            )
+        LIBRARY.check(code, "linear recurrence kernel")
         self.launches += 1
         return out
 

@@ -17,6 +17,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from stoix_tpu_torch.kernels.linear_recurrence import fma_f32
 from stoix_tpu_torch.ops import scan_kernels
 
 Numeric = Union[torch.Tensor, float]
@@ -77,7 +78,12 @@ def truncated_generalized_advantage_estimation(
         truncation_t = _time_major(batch_major, truncation_t)[0]
         continue_t = 1.0 - truncation_t.to(r_t.dtype)
 
-    delta_t = r_t + discount_t * v_t - v_tm1
+    # XLA contracts the JAX package's `r_t + discount_t * v_t` into one fused
+    # multiply-add inside `jit` (where that package always runs GAE); state it.
+    if r_t.dtype == torch.float32:
+        delta_t = fma_f32(discount_t, v_t, r_t) - v_tm1
+    else:
+        delta_t = r_t + discount_t * v_t - v_tm1
     advantages = scan_kernels.linear_recurrence_reverse(
         discount_t * lam * continue_t, delta_t, torch.zeros_like(delta_t[-1]), impl
     )

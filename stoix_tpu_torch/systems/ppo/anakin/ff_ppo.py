@@ -141,6 +141,25 @@ class PPOLearner:
         state = state._replace(env_state=env_state, timestep=timestep)
         return state, tree_stack(transitions)
 
+    def policy_input(self, traj_batch: Any) -> Any:
+        """What the actor and critic saw at each step of a [T, E] trajectory."""
+        return traj_batch.obs
+
+    def bootstrap_input(self, traj_batch: Any) -> Any:
+        """What the critic reads for the bootstrap values v_t."""
+        return traj_batch.next_obs
+
+    def loss_info(
+        self, loss_actor: torch.Tensor, value_loss: torch.Tensor, entropy: torch.Tensor
+    ) -> Dict[str, torch.Tensor]:
+        """The train metrics of one minibatch, under the JAX system's names."""
+        return {
+            "total_loss": loss_actor + value_loss,
+            "actor_loss": loss_actor,
+            "value_loss": value_loss,
+            "entropy": entropy,
+        }
+
     def _update_minibatch(
         self, params: ActorCriticParams, opt_states: ActorCriticOptStates, batch: Tuple
     ) -> Tuple[ActorCriticParams, ActorCriticOptStates, Dict[str, torch.Tensor]]:
@@ -180,20 +199,14 @@ class PPOLearner:
             apply_updates(params.actor_params, actor_updates),
             apply_updates(params.critic_params, critic_updates),
         )
-        loss_actor, value_loss, entropy = (x.detach() for x in (loss_actor, value_loss, entropy))
-        loss_info = {
-            "total_loss": loss_actor + value_loss,
-            "actor_loss": loss_actor,
-            "value_loss": value_loss,
-            "entropy": entropy,
-        }
+        loss_info = self.loss_info(*(x.detach() for x in (loss_actor, value_loss, entropy)))
         return params, ActorCriticOptStates(actor_opt_state, critic_opt_state), loss_info
 
     def update(
         self,
         params: ActorCriticParams,
         opt_states: ActorCriticOptStates,
-        traj_batch: PPOTransition,
+        traj_batch: Any,
         generator: Optional[torch.Generator] = None,
         permutations: Optional[Sequence[torch.Tensor]] = None,
     ) -> UpdateResult:
@@ -202,7 +215,7 @@ class PPOLearner:
         `permutations[epoch]` when given, else a permutation drawn from
         `generator`."""
         with torch.no_grad():
-            v_t = self.critic_apply(params.critic_params, traj_batch.next_obs)
+            v_t = self.critic_apply(params.critic_params, self.bootstrap_input(traj_batch))
             d_t = self.gamma * (1.0 - traj_batch.done.to(torch.float32))
             advantages, targets = truncated_generalized_advantage_estimation(
                 traj_batch.reward * self.reward_scale,
@@ -216,8 +229,8 @@ class PPOLearner:
             )
 
         samples = (
-            traj_batch.obs, traj_batch.action, traj_batch.log_prob, traj_batch.value,
-            advantages, targets,
+            self.policy_input(traj_batch), traj_batch.action, traj_batch.log_prob,
+            traj_batch.value, advantages, targets,
         )
         flat = tree_merge_leading_dims(samples, 2)
         batch_size = advantages.numel()

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Any, Callable, Dict, NamedTuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 
 import torch
 
@@ -44,6 +44,8 @@ class AnakinSetup(NamedTuple):
 
 
 SetupFn = Callable[[envs.Environment, Any, torch.device, int], AnakinSetup]
+# (eval_env, eval_act_fn, config) -> (evaluator, absolute_metric_evaluator)
+EvaluatorSetupFn = Callable[[envs.Environment, Any, Any], Any]
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -86,9 +88,14 @@ def _synchronize(device: torch.device) -> None:
 
 
 def run_anakin_experiment(
-    config: Any, setup_fn: SetupFn, device: Union[str, torch.device] = "cuda"
+    config: Any,
+    setup_fn: SetupFn,
+    device: Union[str, torch.device] = "cuda",
+    evaluator_setup_fn: Optional[EvaluatorSetupFn] = None,
 ) -> float:
-    """Generic Anakin experiment: returns the final eval episode-return mean."""
+    """Generic Anakin experiment: returns the final eval episode-return mean.
+    A system with its own evaluator (a stateful one) passes
+    `evaluator_setup_fn`; the default is the feed-forward evaluator."""
     device = resolve_device(device)
     check_ported_arch(config)
     scan_kernels.configure_from_config(config)
@@ -99,7 +106,8 @@ def run_anakin_experiment(
     setup_seed, eval_seed = make_seeds(int(config.arch.seed), 2)
     setup = setup_fn(env, config, device, setup_seed)
     eval_generator = make_generator(eval_seed, device)
-    evaluator, absolute_evaluator = evaluator_setup(eval_env, setup.eval_act_fn, config)
+    make_evaluators = evaluator_setup_fn or evaluator_setup
+    evaluator, absolute_evaluator = make_evaluators(eval_env, setup.eval_act_fn, config)
     logger = StoixLogger(config)
 
     steps_per_eval = (

@@ -9,6 +9,21 @@ given as nested dicts of numpy arrays. The port names the same layers
     Dense_i/bias              ->  dense.i.bias
     LayerNorm_i/scale         ->  norm.i.weight
     LayerNorm_i/bias          ->  norm.i.bias
+
+The window actor and critic of ff_trans_ppo add named submodules, a
+DenseGeneral and a leaf that is neither kernel, bias nor scale:
+
+    TransformerTorso_0            ->  torso
+    CategoricalHead_0             ->  action_head
+    ScalarCriticHead_0            ->  critic_head
+    block_i                       ->  blocks.i
+    MultiHeadSelfAttention_0      ->  attention
+    qkv/kernel [F, 3, H, D]       ->  qkv.weight [3.H.D, F]  (flattened, transposed)
+    qkv/bias [3, H, D]            ->  qkv.bias [3.H.D]
+    out/kernel, out/bias          ->  out.weight (transposed), out.bias
+    positional_embedding          ->  positional_embedding
+
+Any other module name is kept as it is (`torso`, `action_head`).
 """
 
 from __future__ import annotations
@@ -20,10 +35,11 @@ import numpy as np
 import torch
 from torch import nn
 
-_LAYER = re.compile(r"^(Dense|LayerNorm)_(\d+)$")
-_LAYER_PREFIX = {"Dense": "dense", "LayerNorm": "norm"}
-_LEAF_NAME = {("Dense", "kernel"): "weight", ("Dense", "bias"): "bias",
-              ("LayerNorm", "scale"): "weight", ("LayerNorm", "bias"): "bias"}
+_NUMBERED = re.compile(r"^(Dense|LayerNorm|block)_(\d+)$")
+_NUMBERED_PREFIX = {"Dense": "dense", "LayerNorm": "norm", "block": "blocks"}
+_MODULE_NAME = {"TransformerTorso_0": "torso", "CategoricalHead_0": "action_head",
+                "ScalarCriticHead_0": "critic_head", "MultiHeadSelfAttention_0": "attention"}
+_LEAF_NAME = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
@@ -37,15 +53,29 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tupl
     return out
 
 
+def _module_name(name: str) -> str:
+    match = _NUMBERED.match(name)
+    if match is not None:
+        return f"{_NUMBERED_PREFIX[match.group(1)]}.{match.group(2)}"
+    return _MODULE_NAME.get(name, name)
+
+
 def flax_path_to_torch(path: Tuple[str, ...]) -> Tuple[str, bool]:
-    """Map one flax leaf path to (torch parameter name, transpose?)."""
-    *modules, layer, leaf = path
-    match = _LAYER.match(layer)
-    if match is None or (match.group(1), leaf) not in _LEAF_NAME:
-        raise KeyError(f"no torch counterpart for flax parameter {'/'.join(path)}")
-    kind, index = match.group(1), match.group(2)
-    name = ".".join([*modules, _LAYER_PREFIX[kind], index, _LEAF_NAME[(kind, leaf)]])
-    return name, (kind == "Dense" and leaf == "kernel")
+    """Map one flax leaf path to (torch parameter name, is it a kernel?). A
+    kernel is flattened to [in, out] and transposed to torch's [out, in]."""
+    *modules, leaf = path
+    name = ".".join([*(_module_name(m) for m in modules), _LEAF_NAME.get(leaf, leaf)])
+    return name, leaf == "kernel"
+
+
+def flax_leaf_to_torch(array: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
+    """One flax leaf in the layout of its torch parameter: a kernel
+    [in, out...] becomes [out, in], a bias [out...] becomes [out]."""
+    if path[-1] == "kernel":
+        return array.reshape(array.shape[0], -1).T
+    if path[-1] == "bias":
+        return array.reshape(-1)
+    return array
 
 
 def _unwrap(tree: Mapping[str, Any]) -> Mapping[str, Any]:
@@ -57,22 +87,16 @@ def load_flax_params(module: nn.Module, flax_params: Mapping[str, Any]) -> nn.Mo
 
     Raises ValueError naming every missing key, extra key and wrong shape."""
     own = dict(module.named_parameters())
-    incoming: Dict[str, np.ndarray] = {}
-    errors = []
-    for path, value in _flatten(_unwrap(flax_params)).items():
-        try:
-            name, transpose = flax_path_to_torch(path)
-        except KeyError as err:
-            errors.append(str(err.args[0]))
-            continue
-        array = np.asarray(value)
-        incoming[name] = array.T if transpose else array
-    errors += [f"missing flax parameter for {name}" for name in sorted(set(own) - set(incoming))]
+    incoming: Dict[str, np.ndarray] = {
+        flax_path_to_torch(path)[0]: flax_leaf_to_torch(np.asarray(value), path)
+        for path, value in _flatten(_unwrap(flax_params)).items()
+    }
+    errors = [f"missing flax parameter for {name}" for name in sorted(set(own) - set(incoming))]
     errors += [f"extra flax parameter {name}" for name in sorted(set(incoming) - set(own))]
     for name in sorted(set(own) & set(incoming)):
         if tuple(incoming[name].shape) != tuple(own[name].shape):
             errors.append(
-                f"{name}: flax shape {incoming[name].shape} (after transpose) "
+                f"{name}: flax shape {incoming[name].shape} (in torch's layout) "
                 f"!= torch shape {tuple(own[name].shape)}"
             )
     if errors:

@@ -1,0 +1,150 @@
+"""Kernel B2 (flash attention) and attention dispatch of the PyTorch port against
+the JAX package, on the CPU.
+
+- The plain forward (kernels/flash_attention.py, the CUDA kernel's arithmetic)
+  against stoix_tpu/ops/pallas_attention.py::flash_attention in interpret mode,
+  on every case of tests/test_pallas_attention.py plus the ff_trans_ppo path's
+  S=16, H=4, D=32 causal: 2e-5 (that test's own tolerance; both fold the online
+  softmax, over other tile sizes), bf16 2e-2.
+- `full_attention` against the JAX package's: 1e-6 (the same ops; the
+  reductions sum in another order).
+- The plain backward, through the autograd function, against `jax.grad` of
+  the JAX package's `full_attention` (what that package differentiates; its
+  flash kernel has no VJP): 1e-5 absolute, the reductions sum in another order.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stoix_tpu.ops.pallas_attention import flash_attention as jax_flash_attention
+from stoix_tpu.ops.ring_attention import full_attention as jax_full_attention
+from stoix_tpu_torch.kernels import flash_attention as fa
+from stoix_tpu_torch.ops import best_attention, flash_attention
+from stoix_tpu_torch.ops.ring_attention import full_attention
+from torch_parity import n, t
+
+
+def _qkv(seed, b, s, h, d, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=(b, s, h, d)).astype(np.float32).astype(dtype)
+                 for _ in range(3))
+
+
+def _jax_flash(q, k, v, causal, **blocks):
+    return np.asarray(jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          causal=causal, interpret=True, **blocks))
+
+
+# (batch, seq, heads, head_dim, causal, JAX kernel block sizes), after
+# tests/test_pallas_attention.py: full-block sequences, padded sequences,
+# several causal query blocks, and the ff_trans_ppo path's shape.
+FORWARD_CASES = [
+    (2, 128, 2, 64, False, dict(block_q=128, block_k=128)),
+    (2, 128, 2, 64, True, dict(block_q=128, block_k=128)),
+    (2, 256, 2, 64, False, dict(block_q=128, block_k=128)),
+    (2, 256, 2, 64, True, dict(block_q=128, block_k=128)),
+    (1, 100, 2, 32, False, dict(block_q=64, block_k=64)),
+    (1, 100, 2, 32, True, dict(block_q=64, block_k=64)),
+    (1, 256, 1, 32, True, dict(block_q=64, block_k=128)),
+    (8, 16, 4, 32, True, {}),
+]
+
+
+@pytest.mark.parametrize("b,s,h,d,causal,blocks", FORWARD_CASES)
+def test_plain_forward_matches_the_pallas_kernel(b, s, h, d, causal, blocks):
+    q, k, v = _qkv(s + h, b, s, h, d)
+    got, lse = fa.plain_flash_attention_forward(t(q), t(k), t(v), causal, need_lse=True)
+    want = _jax_flash(q, k, v, causal, **blocks)
+    np.testing.assert_allclose(n(got), want, atol=2e-5, rtol=2e-5)
+    # lse is the log-sum-exp of the scaled, masked scores.
+    scores = np.einsum("bqhd,bkhd->bhqk", q, k) * d**-0.5
+    if causal:
+        scores = np.where(np.tril(np.ones((s, s), bool)), scores, -np.inf)
+    np.testing.assert_allclose(n(lse), np.asarray(jax.nn.logsumexp(scores, axis=-1)),
+                               atol=2e-5, rtol=0)
+
+
+def test_plain_forward_bf16_matches_the_pallas_kernel():
+    q, k, v = _qkv(2, 1, 128, 1, 64, dtype=jnp.bfloat16)
+    got, _ = fa.plain_flash_attention_forward(t(q), t(k), t(v), causal=True)
+    want = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                               interpret=True)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(n(got), np.asarray(want.astype(jnp.float32)), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [16, 100])
+def test_full_attention_matches_jax(causal, s):
+    q, k, v = _qkv(s, 2, s, 2, 32)
+    got = full_attention(t(q), t(k), t(v), causal=causal)
+    want = jax_full_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    np.testing.assert_allclose(n(got), np.asarray(want), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [16, 100])
+def test_plain_backward_matches_jax_grad_of_full_attention(causal, s):
+    b, h, d = 2, 2, 32
+    q, k, v = _qkv(40 + s, b, s, h, d)
+    weight = np.random.default_rng(s).normal(size=(b, s, h, d)).astype(np.float32)
+
+    def loss(q, k, v):
+        return jnp.sum(jax_full_attention(q, k, v, causal=causal) * weight)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [t(x).requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal)
+    (out * t(weight)).sum().backward()
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(n(leaf.grad), np.asarray(w), atol=1e-5, rtol=0)
+
+
+def test_backward_halves_compose_to_the_full_backward():
+    q, k, v = (t(x) for x in _qkv(5, 2, 20, 2, 16))
+    dout = t(np.random.default_rng(6).normal(size=(2, 20, 2, 16)).astype(np.float32))
+    o, lse = fa.plain_flash_attention_forward(q, k, v, True, need_lse=True)
+    dq, delta = fa.plain_flash_attention_backward_dq(q, k, v, o, lse, dout, True)
+    dk, dv = fa.plain_flash_attention_backward_dkdv(q, k, v, dout, lse, delta, True)
+    assert delta.shape == (2, 2, 20) and dq.is_contiguous() and dk.shape == q.shape
+    for got, want in zip((dq, dk, dv), fa.plain_flash_attention_backward(
+            q, k, v, o, lse, dout, True)):
+        assert torch.equal(got, want)
+
+
+def test_strided_qkv_views_give_the_same_result():
+    rng = np.random.default_rng(7)
+    proj = t(rng.normal(size=(3, 16, 3, 2, 16)).astype(np.float32))
+    q, k, v = proj[:, :, 0], proj[:, :, 1], proj[:, :, 2]
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    assert torch.equal(got, want) and got.is_contiguous()
+
+
+def test_dispatch_by_device_and_counters_stay_still_on_the_cpu():
+    q, k, v = (t(x) for x in _qkv(8, 2, 16, 2, 16))
+    before = [c.launches for c in fa.COUNTERS]
+    assert torch.equal(best_attention(q, k, v, causal=True), full_attention(q, k, v, causal=True))
+    assert torch.equal(flash_attention(q, k, v, causal=True),
+                       fa.plain_flash_attention_forward(q, k, v, True)[0])
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    flash_attention(*leaves, causal=True).sum().backward()
+    assert [c.launches for c in fa.COUNTERS] == before
+    with pytest.raises(ValueError, match="device meta"):
+        best_attention(*(x.to("meta") for x in (q, k, v)))
+    with pytest.raises(ValueError, match="device meta"):
+        flash_attention(*(x.to("meta") for x in (q, k, v)))
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    # A CPU tensor takes the plain version through the dispatch; the kernel
+    # wrappers themselves launch on CUDA tensors only, and never fall back.
+    q, k, v = (t(x) for x in _qkv(9, 1, 16, 1, 16))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa.forward_kernel(q, k, v)
+    o, lse = fa.plain_flash_attention_forward(q, k, v, need_lse=True)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa.backward_kernels(q, k, v, o, lse, o)

@@ -8,6 +8,7 @@ from stoix_tpu.utils import config as jax_config
 from stoix_tpu_torch.utils import config as config_lib
 
 ROOT = "default/anakin/default_ff_ppo.yaml"
+TRANS_ROOT = "default/anakin/default_ff_trans_ppo.yaml"
 
 
 def _repointed(tree):
@@ -28,14 +29,23 @@ def _targets(tree):
                 yield from _targets(v)
 
 
-@pytest.mark.parametrize("overrides", [[], ["env=identity_game"]])
-def test_config_tree_mirrors_the_jax_package(overrides):
-    port = config_lib.compose(config_lib.default_config_dir(), ROOT, overrides).to_dict()
-    ref = jax_config.compose(jax_config.default_config_dir(), ROOT, overrides).to_dict()
+def _assert_mirrors(root, overrides):
+    port = config_lib.compose(config_lib.default_config_dir(), root, overrides).to_dict()
+    ref = jax_config.compose(jax_config.default_config_dir(), root, overrides).to_dict()
     assert port == _repointed(ref)
     for target in _targets(port):
         assert target.startswith("stoix_tpu_torch.")
         config_lib._import_target(target)
+
+
+@pytest.mark.parametrize("overrides", [[], ["env=identity_game"]])
+def test_config_tree_mirrors_the_jax_package(overrides):
+    _assert_mirrors(ROOT, overrides)
+
+
+@pytest.mark.parametrize("overrides", [[], ["env=identity_game", "system.window_length=4"]])
+def test_trans_config_tree_mirrors_the_jax_package(overrides):
+    _assert_mirrors(TRANS_ROOT, overrides)
 
 
 def test_overrides_and_instantiate_work_on_the_port_tree():

@@ -128,7 +128,8 @@ def paired_networks(
 
 def to_flax_params(params, flax_like):
     """A port `{name: tensor}` parameter dict laid out as the flax tree
-    `flax_like` (numpy leaves, kernels transposed back to [in, out])."""
+    `flax_like` (numpy leaves, kernels transposed back to [in, out] and every
+    leaf reshaped to its flax shape)."""
     from stoix_tpu_torch.utils.params import flax_path_to_torch
 
     def build(tree, prefix):
@@ -138,11 +139,73 @@ def to_flax_params(params, flax_like):
             if isinstance(value, dict):
                 out[key] = build(value, path)
             else:
-                name, transpose = flax_path_to_torch(path)
+                name, is_kernel = flax_path_to_torch(path)
                 array = params[name].detach().cpu().numpy()
-                out[key] = array.T if transpose else array
+                out[key] = (array.T if is_kernel else array).reshape(np.shape(value))
         return out
 
     if set(flax_like) == {"params"}:
         return {"params": build(flax_like["params"], ())}
     return build(flax_like, ())
+
+
+def flax_window_networks(num_actions: int, window: int, num_layers: int, num_heads: int,
+                         head_dim: int, ffn_dim: int):
+    """The JAX package's ff_trans_ppo actor and critic (defined inside its
+    `learner_setup`, stoix_tpu/systems/ppo/anakin/ff_trans_ppo.py:255-276),
+    rebuilt here module for module so a test can init and apply them."""
+    import flax.linen as nn
+
+    from stoix_tpu.networks import heads as jheads
+    from stoix_tpu.networks.attention import TransformerTorso
+
+    def make_torso():
+        return TransformerTorso(num_layers=num_layers, num_heads=num_heads, head_dim=head_dim,
+                                ffn_dim=ffn_dim, max_timesteps=window)
+
+    class WindowActor(nn.Module):
+        @nn.compact
+        def __call__(self, ctx):  # [..., W, F]
+            x = make_torso()(ctx.reshape((-1,) + ctx.shape[-2:]))
+            x = x[:, -1].reshape(ctx.shape[:-2] + (x.shape[-1],))
+            return jheads.CategoricalHead(num_actions=num_actions)(x)
+
+    class WindowCritic(nn.Module):
+        @nn.compact
+        def __call__(self, ctx):
+            x = make_torso()(ctx.reshape((-1,) + ctx.shape[-2:]))
+            x = x[:, -1].reshape(ctx.shape[:-2] + (x.shape[-1],))
+            return jheads.ScalarCriticHead()(x)
+
+    return WindowActor(), WindowCritic()
+
+
+def paired_window_networks(obs_dim: int, num_actions: int, window: int = 4, num_layers: int = 2,
+                           num_heads: int = 2, head_dim: int = 8, ffn_dim: int = 32,
+                           seed: int = 0):
+    """flax and torch window actor/critic pairs carrying IDENTICAL parameters:
+    (jax_actor, jax_actor_params, jax_critic, jax_critic_params, torch_actor,
+    torch_critic)."""
+    import jax
+
+    from stoix_tpu_torch.networks.attention import TransformerTorso
+    from stoix_tpu_torch.networks.heads import CategoricalHead, ScalarCriticHead
+    from stoix_tpu_torch.systems.ppo.anakin.ff_trans_ppo import WindowActor, WindowCritic
+    from stoix_tpu_torch.utils.params import load_flax_params
+
+    jax_actor, jax_critic = flax_window_networks(num_actions, window, num_layers, num_heads,
+                                                 head_dim, ffn_dim)
+    dummy = jax.numpy.zeros((1, window, obs_dim))
+    actor_key, critic_key = jax.random.split(jax.random.PRNGKey(seed))
+    actor_params = jax.tree.map(np.asarray, jax_actor.init(actor_key, dummy))
+    critic_params = jax.tree.map(np.asarray, jax_critic.init(critic_key, dummy))
+
+    def torso():
+        return TransformerTorso(obs_dim, num_layers, num_heads, head_dim, ffn_dim, window)
+
+    width = num_heads * head_dim
+    torch_actor = WindowActor(torso(), CategoricalHead(num_actions, width))
+    torch_critic = WindowCritic(torso(), ScalarCriticHead(width))
+    load_flax_params(torch_actor, actor_params)
+    load_flax_params(torch_critic, critic_params)
+    return jax_actor, actor_params, jax_critic, critic_params, torch_actor, torch_critic
