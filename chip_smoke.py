@@ -267,7 +267,7 @@ def phase_attention() -> list:
     for seed, (shape, causal) in enumerate([((4 * TRANS_ENVS, 16, 4, 32), True),
                                             ((2, 100, 2, 32), False)]):
         q, k, v = qkv_views(*shape, torch.float32, seed=10 + seed)
-        dout = torch.randn(shape, device="cuda")
+        dout = qkv_views(*shape, torch.float32, seed=30 + seed)[0].contiguous()
         o, lse = fa.forward_kernel(q, k, v, causal, need_lse=True)
         got = fa.backward_kernels(q, k, v, o, lse, dout, causal)
         torch.cuda.synchronize()
@@ -308,7 +308,7 @@ def phase_attention() -> list:
 
     shape, causal = (4 * TRANS_ENVS, 16, 4, 32), True
     q, k, v = qkv_views(*shape, torch.float32, seed=21)
-    dout = torch.randn(shape, device="cuda")
+    dout = qkv_views(*shape, torch.float32, seed=32)[0].contiguous()
     o, lse = fa.forward_kernel(q, k, v, causal, need_lse=True)
     _, delta = fa.backward_dq_kernel(q, k, v, o, lse, dout, causal)
     leaf = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]

@@ -100,13 +100,6 @@ class LinearRecurrenceKernel:
     def __init__(self) -> None:
         self.launches = 0
 
-    def library_path(self) -> str:
-        return LIBRARY.library_path()
-
-    def build(self) -> ctypes.CDLL:
-        """Compile (if the hashed library is absent) and load the kernel."""
-        return LIBRARY.load()
-
     def __call__(
         self, weight_t: torch.Tensor, delta_t: torch.Tensor, init: torch.Tensor
     ) -> torch.Tensor:
@@ -132,7 +125,7 @@ class LinearRecurrenceKernel:
         out = torch.empty_like(delta_t)
         if out.numel() == 0:
             return out
-        lib = self.build()
+        lib = LIBRARY.load()
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             code = getattr(lib, _ENTRY[delta_t.dtype])(

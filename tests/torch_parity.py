@@ -6,9 +6,6 @@ come back as numpy arrays for comparison.
 
 from __future__ import annotations
 
-import contextlib
-from typing import Iterator
-
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -17,29 +14,22 @@ from jax.experimental.pallas import tpu as pltpu
 from stoix_tpu.ops import scan_kernels as jax_scan_kernels
 
 
-@contextlib.contextmanager
-def _pallas_tpu_compiler_params() -> Iterator[None]:
-    """The reference kernel spells its compiler params `pltpu.TPUCompilerParams`;
-    newer JAX releases name the class `pltpu.CompilerParams`. Where only the
-    new name exists, alias it for the duration of the call so the reference
-    kernel runs in interpret mode unchanged."""
-    missing = not hasattr(pltpu, "TPUCompilerParams")
-    if missing:
-        pltpu.TPUCompilerParams = pltpu.CompilerParams
-    try:
-        yield
-    finally:
-        if missing:
-            del pltpu.TPUCompilerParams
+# The reference kernel spells its compiler params `pltpu.TPUCompilerParams`;
+# newer JAX releases name the class `pltpu.CompilerParams`. Where only the new
+# name exists, alias it once, at import, so the reference kernel runs in
+# interpret mode unchanged. An alias held only around one call would make
+# other tests of the process pass or fail by their order: the jitted kernel's
+# trace is cached, and a later call at the same shapes reuses it.
+if not hasattr(pltpu, "TPUCompilerParams"):
+    pltpu.TPUCompilerParams = pltpu.CompilerParams
 
 
 def pallas_interpret(w, d, init, block_t: int = 128) -> np.ndarray:
     """The JAX package's Pallas recurrence kernel in interpret mode, as
     tests/test_scan_kernels.py runs it on the CPU."""
-    with _pallas_tpu_compiler_params():
-        out = jax_scan_kernels.pallas_linear_recurrence_reverse(
-            jnp.asarray(w), jnp.asarray(d), jnp.asarray(init), block_t=block_t, interpret=True
-        )
+    out = jax_scan_kernels.pallas_linear_recurrence_reverse(
+        jnp.asarray(w), jnp.asarray(d), jnp.asarray(init), block_t=block_t, interpret=True
+    )
     return np.asarray(out.astype(jnp.float32) if out.dtype == jnp.bfloat16 else out)
 
 
