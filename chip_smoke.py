@@ -38,6 +38,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    learner call the learner's own launches are counted and must
                    be exact per update: 130 forward, 64 of each backward kernel,
                    1 of B1. The evaluator's launches are the rest.
+ 10. ring_kernel — B3 (flash attention over one K/V chunk) against its plain
+                   version on the card: every (rank, step) chunk of a 4-rank
+                   causal ring over ff_trans_ppo's transformer at the torso's
+                   default window (64 windows of 512, chunks [64, 128, 4, 32]
+                   float32 with global positions: future, diagonal and visible
+                   chunks), a non-causal chunk, Sq != Sk, a ragged chunk with
+                   shuffled key positions and a bfloat16 [1, 128, 1, 64]; the
+                   4 ranks' chunks folded as the ring folds them against
+                   `full_attention` on the card; each shape timed.
+ 11. ring        — a one-rank NCCL process group (a `file://` store in a
+                   temporary directory) and its mesh; the full-width torso's
+                   forward on [64, 512] with ring attention as its attention
+                   (exactly one B3 launch per layer, no B2) against the same
+                   torso through B2 and through plain attention on the CPU;
+                   timed beside the B2 torso and SDPA.
 
 Then a `{"kernels": [...]}` line, the card's `nvidia-smi` name and power
 limit, and last `{"ok": true, "device": {...}}`.
@@ -45,16 +60,25 @@ limit, and last `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import copy
+import inspect
 import json
 import math
+import os
 import statistics
 import subprocess
+import tempfile
 import time
+from functools import partial
 
 import torch
+import torch.distributed as dist
 
-from stoix_tpu_torch.kernels import build, flash_attention, linear_recurrence
+from stoix_tpu_torch import envs, parallel
+from stoix_tpu_torch.kernels import build, flash_attention, flash_attention_chunk, linear_recurrence
+from stoix_tpu_torch.networks.attention import TransformerTorso
 from stoix_tpu_torch.ops import truncated_generalized_advantage_estimation
+from stoix_tpu_torch.ops.ring_attention import fold_chunk, full_attention, ring_attention
 from stoix_tpu_torch.systems import runner
 from stoix_tpu_torch.systems.ppo.anakin import ff_ppo, ff_trans_ppo
 from stoix_tpu_torch.utils import config as config_lib
@@ -68,6 +92,10 @@ TRANS = dict(layers=2, heads=4, head_dim=32, window=16, rollout=16, epochs=4, mi
 TRANS_ENVS = 1024
 ATTENTION_SOURCE = "stoix_tpu_torch/csrc/flash_attention.cu"
 ATTENTION_REPLACES = "stoix_tpu/ops/pallas_attention.py:154"
+CHUNK_SOURCE = "stoix_tpu_torch/csrc/flash_attention_chunk.cu"
+CHUNK_REPLACES = "stoix_tpu/ops/pallas_attention.py:255"
+RING_BATCH = 64  # windows per forward in the ring phases
+RING_RANKS = 4  # the ring the ring_kernel phase emulates
 
 
 def emit(record: dict) -> None:
@@ -135,7 +163,7 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    libraries = [linear_recurrence.LIBRARY, flash_attention.LIBRARY]
+    libraries = [linear_recurrence.LIBRARY, flash_attention.LIBRARY, flash_attention_chunk.LIBRARY]
     start = time.perf_counter()
     build.build_all(libraries)
     emit({"phase": "build", "libraries": [lib.library_path() for lib in libraries],
@@ -513,6 +541,210 @@ def phase_trans_train(smi: str) -> dict:
     return {"learner": learner, "evaluator": evaluator, "total": total}
 
 
+def ring_width() -> dict:
+    """The ring phases' transformer: ff_trans_ppo's default config (layers,
+    heads, head dim, FFN, env) over the torso's default window."""
+    config = compose([], TRANS_ROOT)
+    window = inspect.signature(TransformerTorso).parameters["max_timesteps"].default
+    return dict(layers=int(config.system.num_layers), heads=int(config.system.num_heads),
+                head_dim=int(config.system.head_dim), ffn=int(config.system.ffn_dim),
+                window=int(window),
+                obs=ff_trans_ppo.observation_width(envs.make(config)[0]))
+
+
+def chunk_bound(q, k, q_pos, k_pos, causal: bool):
+    """(bound_ms, bound_by, bytes, flops) of one B3 launch on these inputs,
+    after `attention_bound`: the flops of the (query, key) pairs these
+    positions leave; q, k, v read once if any pair is left (a chunk wholly in
+    the future needs none of them), positions read once, pv, m and l written."""
+    batch, q_len, heads, head_dim = q.shape
+    visible = q_pos[:, None].long() >= k_pos[None, :].long()
+    pairs = batch * heads * (int(visible.sum()) if causal else q_len * k.shape[1])
+    stat = batch * heads * q_len * 4
+    moved = batch * q_len * heads * head_dim * 4 + 2 * stat + 4 * (q_len + k.shape[1])
+    if pairs:
+        moved += q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    flops = 4 * head_dim * pairs
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), moved, flops
+
+
+def chunk_errors(got, want):
+    """(m absolute, l and pv relative to the row's l (at least 1)) errors of
+    one chunk: pv is the unnormalised sum, so its scale is l's."""
+    pv, m, l = got
+    want_pv, want_m, want_l = want
+    scale = want_l.clamp(min=1.0)
+    return ((m - want_m).abs().max().item(), ((l - want_l).abs() / scale).max().item(),
+            ((pv - want_pv).abs() / scale.permute(0, 2, 1)[..., None]).max().item())
+
+
+def phase_ring_kernel(width: dict) -> dict:
+    """B3 against its plain version; returns its kernels-line entry (without
+    launches)."""
+    fac = flash_attention_chunk
+    # The kernel and its plain version take the same inputs widened to float32
+    # and fold the same key tiles in another summation order; both write
+    # float32, so float32 and bfloat16 inputs are held at 1e-5 (m absolute, l
+    # and pv relative to l). The fold against full attention at 2e-5, JAX's
+    # own tolerance (tests/test_pallas_attention.py).
+    tolerance, fold_tolerance = 1e-5, 2e-5
+    batch, window, heads, head_dim = RING_BATCH, width["window"], width["heads"], width["head_dim"]
+    local = window // RING_RANKS
+    q, k, v = qkv_views(batch, window, heads, head_dim, torch.float32, seed=40)
+    positions = torch.arange(window, dtype=torch.int32, device=q.device)
+    max_err = 0.0
+
+    def check(name, args, causal):
+        nonlocal max_err
+        got = fac.chunk_kernel(*args, causal=causal)
+        torch.cuda.synchronize()
+        want = fac.plain_flash_attention_chunk(*args, causal=causal)
+        errs = chunk_errors(got, want)
+        if not all(torch.isfinite(x).all() for x in got) or not max(errs) <= tolerance:
+            raise AssertionError(f"chunk kernel != plain at {name}: m, l, pv errors {errs}")
+        max_err = max(max_err, *errs)
+        emit({"phase": "ring_kernel", "case": name, "q": list(args[0].shape),
+              "k": list(args[1].shape), "dtype": str(args[0].dtype), "causal": causal,
+              "errors_m_l_pv": errs, "tolerance": tolerance})
+        return got
+
+    def chunk_args(rank, src):
+        rows, keys = slice(rank * local, (rank + 1) * local), slice(src * local, (src + 1) * local)
+        return q[:, rows], k[:, keys], v[:, keys], positions[rows], positions[keys]
+
+    outputs = []
+    for rank in range(RING_RANKS):
+        acc = (torch.full((batch, heads, local), float("-inf"), device=q.device),
+               torch.zeros((batch, heads, local), device=q.device),
+               torch.zeros((batch, local, heads, head_dim), device=q.device))
+        for step in range(RING_RANKS):  # in the ring's order: source (rank + step) % R
+            src = (rank + step) % RING_RANKS
+            kind = "future" if src > rank else "diagonal" if src == rank else "visible"
+            acc = fold_chunk(acc, *check(f"rank {rank} source {src} ({kind})",
+                                         chunk_args(rank, src), True))
+        outputs.append(acc[2] / torch.where(acc[1] == 0.0, 1.0, acc[1]).permute(0, 2, 1)[..., None])
+    fold_err = (torch.cat(outputs, dim=1) - full_attention(q, k, v, causal=True)).abs().max().item()
+    if not fold_err <= fold_tolerance:
+        raise AssertionError(f"4-rank fold of the chunk kernel != full attention: {fold_err}")
+    emit({"phase": "ring_kernel", "case": f"{RING_RANKS}-rank causal ring folded",
+          "shape": [batch, window, heads, head_dim], "max_abs_err_vs_full_attention": fold_err,
+          "tolerance": fold_tolerance})
+
+    check("non-causal chunk", chunk_args(1, 2), False)
+    check("Sq != Sk", (q[:, local:2 * local], k[:, :200], v[:, :200],
+                       positions[local:2 * local], positions[:200]), True)
+    rq, rk, rv = qkv_views(3, 77, 2, 32, torch.float32, seed=41)
+    shuffled = torch.randperm(45, generator=torch.Generator(device=q.device).manual_seed(42),
+                              device=q.device).to(torch.int32) + 10
+    check("ragged, shuffled key positions", (rq, rk[:, :45], rv[:, :45],
+                                             positions[:77], shuffled), True)
+    bq, bk, bv = qkv_views(1, 128, 1, 64, torch.bfloat16, seed=43)
+    check("bfloat16 diagonal", (bq, bk, bv, positions[:128], positions[:128]), True)
+
+    # Times: the three kinds of 4-rank chunk, and the one-rank ring's chunk
+    # (the whole window), which is what the ring phase launches.
+    shapes = []
+    for name, args in (("visible", chunk_args(1, 0)), ("diagonal", chunk_args(1, 1)),
+                       ("future", chunk_args(1, 2)), ("one-rank", (q, k, v, positions, positions))):
+        bound, bound_by, moved, flops = chunk_bound(args[0], args[1], args[3], args[4], True)
+        shapes.append({
+            "case": name, "q": list(args[0].shape), "k": list(args[1].shape),
+            "ms": cuda_ms(lambda: fac.chunk_kernel(*args, causal=True)),
+            "device_ms": graph_ms(lambda: fac.chunk_kernel(*args, causal=True)),
+            "plain_ms": cuda_ms(lambda: fac.plain_flash_attention_chunk(*args, causal=True),
+                                repeats=5, inner=3),
+            "bound_ms": bound, "bound_by": bound_by, "bytes": moved, "flops": flops,
+        })
+    emit({"phase": "ring_kernel_time", "kernel": fac.KERNEL.name, "shapes": shapes})
+    main_shape = shapes[-1]
+    return {
+        "name": fac.KERNEL.name, "route": "cuda", "source": CHUNK_SOURCE,
+        "replaces": CHUNK_REPLACES, "max_abs_err": max_err,
+        "shape": main_shape["q"],
+        **{key: main_shape[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        # No single PyTorch call returns the unnormalised pv with its stats;
+        # SDPA's time on the composed op is under the ring phase.
+        "library_ms": None,
+        "shapes": shapes,
+    }
+
+
+def phase_ring(width: dict, smi: str) -> dict:
+    """The full-width torso's forward through a one-rank NCCL ring; returns
+    B3's launches in that forward and the timings."""
+    fa, fac = flash_attention, flash_attention_chunk
+    tolerance = 1e-4
+    with tempfile.TemporaryDirectory() as tmp:
+        config = config_lib.Config.from_dict({"arch": {"distributed": {
+            "coordinator_address": "file://" + os.path.join(tmp, "store"),
+            "num_processes": 1, "process_id": 0,
+        }}})
+        parallel.maybe_initialize_distributed(config, device="cuda")
+        try:
+            mesh = parallel.create_mesh({"data": 1}, device="cuda")
+            ranks = parallel.axis_size(mesh, "data")
+
+            def torso(attention_fn=None):
+                return TransformerTorso(
+                    width["obs"], width["layers"], width["heads"], width["head_dim"],
+                    width["ffn"], attention_fn=attention_fn,
+                    generator=torch.Generator().manual_seed(0),
+                )
+
+            ring_torso = torso(partial(ring_attention, group=mesh.get_group("data"))).cuda()
+            flash_torso = torso().cuda()  # best_attention: B2 on the card
+            flash_torso.load_state_dict(ring_torso.state_dict())
+            cpu_torso = copy.deepcopy(flash_torso).cpu()  # best_attention: full attention
+            gen = torch.Generator().manual_seed(1)
+            x = torch.randn((RING_BATCH, width["window"], width["obs"]), generator=gen)
+            x_card = x.cuda()
+
+            for counter in (*fa.COUNTERS, fac.KERNEL):
+                counter.launches = 0
+            with torch.no_grad():
+                ring_out = ring_torso(x_card)
+                torch.cuda.synchronize()
+                launches = {c.name: c.launches for c in (*fa.COUNTERS, fac.KERNEL)}
+                flash_out = flash_torso(x_card)
+                cpu_out = cpu_torso(x)
+            expected = {**{c.name: 0 for c in fa.COUNTERS},
+                        fac.KERNEL.name: width["layers"] * ranks}
+            if launches != expected:
+                raise AssertionError(f"ring torso forward launched {launches}, not {expected}")
+            errs = {"ring_vs_flash": (ring_out - flash_out).abs().max().item(),
+                    "ring_vs_cpu": (ring_out.cpu() - cpu_out).abs().max().item(),
+                    "flash_vs_cpu": (flash_out.cpu() - cpu_out).abs().max().item()}
+            if not torch.isfinite(ring_out).all() or not max(errs.values()) <= tolerance:
+                raise AssertionError(f"ring torso disagrees: {errs}")
+
+            q, k, v = qkv_views(RING_BATCH, width["window"], width["heads"], width["head_dim"],
+                                torch.float32, seed=44)
+            group = mesh.get_group("data")
+            torso_ms = partial(cuda_ms, repeats=5, inner=5)
+            with torch.no_grad():
+                times = {
+                    "ring_torso_forward_ms": torso_ms(lambda: ring_torso(x_card)),
+                    "flash_torso_forward_ms": torso_ms(lambda: flash_torso(x_card)),
+                    "ring_attention_ms": cuda_ms(lambda: ring_attention(q, k, v, group, True)),
+                    "flash_attention_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, True)),
+                    "sdpa_ms": cuda_ms(lambda: sdpa(q, k, v, True)),
+                }
+        finally:
+            dist.destroy_process_group()
+    tokens = RING_BATCH * width["window"]
+    emit({"phase": "ring", "mesh": {"data": ranks}, "backend": "nccl",
+          "torso": {k: width[k] for k in ("layers", "heads", "head_dim", "ffn", "window")},
+          "batch": RING_BATCH, "launches_per_forward": launches, "max_abs_err": errs,
+          "tolerance": tolerance, **times,
+          "ring_torso_tokens_per_s": tokens / (times["ring_torso_forward_ms"] / 1e3),
+          "flash_torso_tokens_per_s": tokens / (times["flash_torso_forward_ms"] / 1e3),
+          "card": smi})
+    return {"launches": launches[fac.KERNEL.name], "sdpa_ms": times["sdpa_ms"],
+            "ring_attention_ms": times["ring_attention_ms"]}
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -528,9 +760,16 @@ def main() -> None:
         entry["launches"] = trans["total"][entry["name"]]
         entry["learner_launches"] = trans["learner"][entry["name"]]
         entry["evaluator_launches"] = trans["evaluator"][entry["name"]]
-    if any(entry["launches"] == 0 for entry in [recurrence, *attention]):
+    width = ring_width()
+    chunk = phase_ring_kernel(width)
+    ring = phase_ring(width, smi)
+    chunk["launches"] = ring["launches"]
+    chunk["composed_op"] = {"ring_attention_ms": ring["ring_attention_ms"],
+                            "sdpa_ms": ring["sdpa_ms"]}
+    kernels = [recurrence, *attention, chunk]
+    if any(entry["launches"] == 0 for entry in kernels):
         raise AssertionError("a kernel of the main path was never launched")
-    print(json.dumps({"kernels": [recurrence, *attention]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -87,27 +87,29 @@ def _seq_first(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).permute(0, 2, 1, 3).contiguous()
 
 
-def plain_flash_attention_forward(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
-    need_lse: bool = False,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The forward kernel's arithmetic in plain PyTorch: the online softmax
-    folded over key tiles of KEY_TILE as `_fold_block` folds its blocks.
-    Returns o [B, S, H, D] in q.dtype and, if asked, lse [B, H, S] float32."""
-    seq, head_dim = q.shape[1], q.shape[3]
-    scale = head_dim**-0.5
-    qs, kf, vf = _heads_first(q) * scale, _heads_first(k), _heads_first(v)
+def fold_key_tiles(
+    qs: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
+    q_positions: Optional[torch.Tensor] = None, k_positions: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernels' online softmax in plain PyTorch: keys folded KEY_TILE at a
+    time, as `_fold_block` folds its blocks. qs [B, H, Sq, D] float32 (already
+    scaled), kf, vf [B, H, Sk, D] float32. Given positions ([Sq] and [Sk]), a
+    query sees only the keys at or before its own position (causal). Returns
+    m (-inf on a row that saw no key), l [B, H, Sq, 1] and the unnormalised
+    acc [B, H, Sq, D]."""
     lead = qs.shape[:-1]
-    m = torch.full(lead + (1,), float("-inf"), device=q.device)
-    l = torch.zeros(lead + (1,), device=q.device)
+    m = torch.full(lead + (1,), float("-inf"), device=qs.device)
+    l = torch.zeros(lead + (1,), device=qs.device)
     acc = torch.zeros_like(qs)
-    q_pos = torch.arange(seq, device=q.device)[:, None]
-    for k0 in range(0, seq, KEY_TILE):
+    causal = q_positions is not None
+    if causal:
+        q_pos = q_positions[:, None]
+    for k0 in range(0, kf.shape[2], KEY_TILE):
         k_blk, v_blk = kf[:, :, k0:k0 + KEY_TILE], vf[:, :, k0:k0 + KEY_TILE]
         scores = qs @ k_blk.transpose(-1, -2)
         mask = None
         if causal:
-            mask = q_pos >= torch.arange(k0, k0 + k_blk.shape[2], device=q.device)[None]
+            mask = q_pos >= k_positions[k0:k0 + KEY_TILE][None]
             scores = torch.where(mask, scores, float("-inf"))
         m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
@@ -118,6 +120,20 @@ def plain_flash_attention_forward(
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + p @ v_blk
         m = m_new
+    return m, l, acc
+
+
+def plain_flash_attention_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
+    need_lse: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel's arithmetic in plain PyTorch: the online softmax
+    folded over key tiles of KEY_TILE as `_fold_block` folds its blocks.
+    Returns o [B, S, H, D] in q.dtype and, if asked, lse [B, H, S] float32."""
+    seq, head_dim = q.shape[1], q.shape[3]
+    qs, kf, vf = _heads_first(q) * head_dim**-0.5, _heads_first(k), _heads_first(v)
+    positions = torch.arange(seq, device=q.device) if causal else None
+    m, l, acc = fold_key_tiles(qs, kf, vf, positions, positions)
     l_safe = torch.where(l == 0.0, 1.0, l)
     o = _seq_first(acc / l_safe, q.dtype)
     if not need_lse:

@@ -1,21 +1,23 @@
 """Attention dispatch (counterpart of stoix_tpu/ops/pallas_attention.py:
-`flash_attention` and `best_attention`).
+`flash_attention`, `best_attention` and `flash_attention_chunk`).
 
 `flash_attention` is kernel B2 (kernels/flash_attention.py): the hand-written
 CUDA kernels on CUDA tensors, with a backward, and their plain versions on CPU
 tensors. `best_attention` mirrors the JAX package's dispatch, which sends
 every backend but the TPU to `full_attention`: here the kernel serves CUDA
-tensors and `full_attention` CPU tensors.
+tensors and `full_attention` CPU tensors. `flash_attention_chunk` is kernel B3
+(kernels/flash_attention_chunk.py), ring attention's per-step block.
 """
 
 from __future__ import annotations
 
 import torch
 
+from stoix_tpu_torch.kernels import flash_attention_chunk as chunk
 from stoix_tpu_torch.kernels.flash_attention import flash_attention
 from stoix_tpu_torch.ops.ring_attention import full_attention
 
-__all__ = ["best_attention", "flash_attention"]
+__all__ = ["best_attention", "flash_attention", "flash_attention_chunk"]
 
 
 def best_attention(
@@ -28,3 +30,34 @@ def best_attention(
     if q.device.type == "cpu":
         return full_attention(q, k, v, causal=causal)
     raise ValueError(f"no attention implementation for device {q.device}")
+
+
+def flash_attention_chunk(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_positions: torch.Tensor,
+    k_positions: torch.Tensor,
+    causal: bool = False,
+    block_q: int = 128,
+    block_k: int = 128,
+):
+    """Per-chunk streaming attention for ring composition.
+
+    q: [B, Sq, H, D]; k/v: [B, Sk, H, D]; q_positions [Sq] / k_positions [Sk]
+    are GLOBAL sequence positions for causal masking across rotated blocks.
+    Returns (pv [B, Sq, H, D] unnormalized fp32, m [B, H, Sq] fp32 running
+    max, l [B, H, Sq] fp32 normalizer). Kernel B3 on CUDA tensors, its plain
+    version on CPU tensors. The block sizes must divide the chunk lengths, as
+    the JAX package requires; the CUDA kernel's own tiling does not depend on
+    them.
+    """
+    s_q, s_kv = q.shape[1], k.shape[1]
+    if s_q % block_q or s_kv % block_k:
+        raise ValueError(
+            f"block sizes must divide the chunk lengths: got Sq={s_q} vs "
+            f"block_q={block_q}, Sk={s_kv} vs block_k={block_k}"
+        )
+    q_positions = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
+    k_positions = k_positions.to(device=q.device, dtype=torch.int32).contiguous()
+    return chunk.flash_attention_chunk(q, k, v, q_positions, k_positions, causal)

@@ -1,14 +1,31 @@
-"""Attention without a kernel (counterpart of stoix_tpu/ops/ring_attention.py).
+"""Ring attention: sequence-parallel exact attention over a mesh axis
+(counterpart of stoix_tpu/ops/ring_attention.py).
 
-Only `full_attention`, the single-device reference, is ported: the ring itself
-(the sequence sharded over devices, K/V blocks rotated between them) waits for
-the port's multi-device layer and for kernel B3 (ROADMAP Queue A items 10, 17;
-Queue B, B3).
+Each process holds one shard of the sequence, [B, S/R, H, D]. The key/value
+block starts as the local shard and moves one neighbour round the ring each
+step (`torch.distributed` point-to-point sends, where the JAX package uses
+`ppermute`), while each process folds its queries' attention to every block
+into an fp32 online-softmax accumulator. After R steps each process holds its
+queries' exact attention over the whole sequence, and no process ever holds
+the whole [S, S] score matrix.
+
+Public API:
+    ring_attention(q, k, v, group, causal=False, use_flash=None)  — on the
+        rank-local shards of the processes of `group`.
+    make_ring_attention(mesh, axis, causal)  — the same, bound to a mesh axis.
+    full_attention(q, k, v, causal=False)  — the single-device reference.
 """
 
 from __future__ import annotations
 
+from functools import partial
+from typing import Optional
+
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from stoix_tpu_torch.kernels import flash_attention_chunk as chunk
 
 
 def full_attention(
@@ -24,3 +41,137 @@ def full_attention(
         scores = torch.where(mask, scores, float("-inf"))
     weights = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def _block_attend(q, k, v, scale, mask: Optional[torch.Tensor]):
+    """One K/V block's contribution: returns (scores_max, exp_scores@v,
+    exp_scores row-sums) for the online-softmax accumulator."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale  # [B, H, Sq, Sk]
+    if mask is not None:
+        scores = torch.where(mask, scores, float("-inf"))
+    m = scores.amax(-1)  # [B, H, Sq]
+    # Guard fully-masked rows: exp(-inf - -inf) would be NaN.
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(scores - m_safe[..., None])  # [B, H, Sq, Sk]
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p, v)  # [B, Sq, H, D]
+    l = p.sum(-1)  # [B, H, Sq]
+    return m_safe, pv, l
+
+
+def ring_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    group: dist.ProcessGroup,
+    causal: bool = False,
+    use_flash: Optional[bool] = None,
+) -> torch.Tensor:
+    """Exact attention with the sequence sharded over the processes of
+    `group`, in the order of their ranks in it. Per-process shapes
+    [B, S_local, H, D]; returns [B, S_local, H, D] in q.dtype.
+
+    The one deviation from the JAX signature: torch has no ambient mesh axis
+    inside which a collective names its axis, so the caller passes the axis's
+    process group (`mesh.get_group(axis)`) where the JAX package passes
+    `axis_name`.
+
+    The K/V block starts as the local shard and rotates one neighbour per step
+    (sent to rank i - 1, received from rank i + 1, the next block in flight
+    while this one is folded); after R steps every process has attended to
+    every block. For causal masks the block's global offset is derived from
+    the rotating source index.
+
+    `use_flash` routes each block's contribution through kernel B3
+    (kernels/flash_attention_chunk.py), the same (m, pv, l) accumulator
+    contract; None means the kernel for a CUDA tensor and the plain
+    `_block_attend` for a CPU tensor. True on a CPU tensor runs the kernel's
+    plain version. On CUDA the kernel always runs and raises for what it
+    cannot take (head dims outside the ones it instantiates).
+    """
+    axis_size = dist.get_world_size(group)
+    my_idx = dist.get_rank(group)
+    scale = q.shape[-1] ** -0.5
+    b, s, h, d = q.shape
+    if use_flash is None:
+        use_flash = q.device.type == "cuda"
+
+    # Online-softmax accumulators, always fp32.
+    m_acc = torch.full((b, h, s), float("-inf"), dtype=torch.float32, device=q.device)
+    l_acc = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
+    o_acc = torch.zeros((b, s, h, d), dtype=torch.float32, device=q.device)
+
+    local = torch.arange(s, dtype=torch.int32, device=q.device)
+    q_pos = my_idx * s + local  # global query positions
+
+    k_blk, v_blk = k, v
+    if axis_size > 1:
+        # Sends need contiguous tensors: q, k, v may be strided views of the
+        # fused qkv projection. The copies (never the caller's k, v) and a
+        # second pair take turns receiving.
+        k_blk, v_blk = k.clone(memory_format=torch.contiguous_format), v.clone(
+            memory_format=torch.contiguous_format)
+        k_next, v_next = torch.empty_like(k_blk), torch.empty_like(v_blk)
+        send_to = dist.get_global_rank(group, (my_idx - 1) % axis_size)
+        recv_from = dist.get_global_rank(group, (my_idx + 1) % axis_size)
+
+    for r in range(axis_size):
+        # The block currently held arrived from rank (my_idx + r) % R.
+        src = (my_idx + r) % axis_size
+        k_pos = src * s + local
+        # Rotate K/V to the next neighbour while this block is folded. The
+        # last step's rotation would be discarded: skip the hop.
+        pending = []
+        if r < axis_size - 1:
+            pending = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, k_blk, send_to, group, tag=0),
+                dist.P2POp(dist.isend, v_blk, send_to, group, tag=1),
+                dist.P2POp(dist.irecv, k_next, recv_from, group, tag=0),
+                dist.P2POp(dist.irecv, v_next, recv_from, group, tag=1),
+            ])
+        if use_flash:
+            pv_blk, m_blk, l_blk = chunk.flash_attention_chunk(
+                q, k_blk, v_blk, q_pos, k_pos, causal=causal)
+        else:
+            mask = None
+            if causal:
+                mask = (q_pos[:, None] >= k_pos[None, :])[None, None]  # [1, 1, Sq, Sk]
+            m_blk, pv_blk, l_blk = _block_attend(q, k_blk, v_blk, scale, mask)
+
+        m_acc, l_acc, o_acc = fold_chunk((m_acc, l_acc, o_acc), pv_blk, m_blk, l_blk)
+
+        for request in pending:
+            request.wait()
+        if pending:
+            k_blk, k_next = k_next, k_blk
+            v_blk, v_next = v_next, v_blk
+
+    # Normalize; fully-masked rows (l == 0) return zeros.
+    l_safe = torch.where(l_acc == 0.0, 1.0, l_acc)
+    return (o_acc / _bhs_to_bshd(l_safe)).to(q.dtype)
+
+
+def fold_chunk(acc, pv_blk, m_blk, l_blk):
+    """Fold one block's (pv, m, l) into the ring's fp32 accumulators
+    acc = (m, l, o); returns the new (m, l, o)."""
+    m_acc, l_acc, o_acc = acc
+    m_new = torch.maximum(m_acc, m_blk)
+    # Rescale both accumulators onto the new max.
+    alpha = torch.exp(m_acc - m_new)  # old-acc scale
+    beta = torch.exp(m_blk - m_new)  # new-block scale
+    return (m_new, l_acc * alpha + l_blk * beta,
+            o_acc * _bhs_to_bshd(alpha) + pv_blk * _bhs_to_bshd(beta))
+
+
+def _bhs_to_bshd(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, S] -> [B, S, H, 1] for broadcasting against [B, S, H, D]."""
+    return x.permute(0, 2, 1)[..., None]
+
+
+def make_ring_attention(mesh: DeviceMesh, axis: str = "data", causal: bool = False):
+    """`ring_attention` bound to the process group of one mesh axis. The
+    callable takes and returns the rank-local shards [B, S/R, H, D]: each
+    process holds only its own shard of the sequence, in the order of its
+    coordinate on `axis`."""
+    return partial(ring_attention, group=mesh.get_group(axis), causal=causal)

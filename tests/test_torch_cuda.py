@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from stoix_tpu_torch.kernels import flash_attention as fa
+from stoix_tpu_torch.kernels import flash_attention_chunk as fac
 from stoix_tpu_torch.kernels import linear_recurrence as lr
 from stoix_tpu_torch.ops import multistep
 
@@ -169,3 +170,95 @@ def test_flash_kernels_reject_what_they_cannot_take():
         fa.forward_kernel(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="one CUDA device"):
         fa.forward_kernel(q, k, v.cpu())
+
+
+@pytest.mark.cuda
+def test_flash_forward_on_strided_views_over_200_seeds():
+    # The strided-view test above, swept over 200 seeds: the kernel's output
+    # and gradients against the plain version on the card and on the CPU.
+    device = _require_cuda()
+    failures, worst = [], 0.0
+    for seed in range(200):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        proj = torch.randn((32, 16, 3, 4, 32), generator=gen, device=device, requires_grad=True)
+        out = fa.flash_attention(proj[:, :, 0], proj[:, :, 1], proj[:, :, 2], causal=True)
+        (out * out).sum().backward()
+        views = [proj.detach()[:, :, i] for i in range(3)]
+        on_card = fa.plain_flash_attention_forward(*views, True)[0]
+        ref = proj.detach().cpu().requires_grad_(True)
+        on_cpu = fa.FlashAttention.apply(*(ref[:, :, i].contiguous() for i in range(3)), True)
+        (on_cpu * on_cpu).sum().backward()
+        errors = ((out - on_card).abs().max().item(), (out.cpu() - on_cpu).abs().max().item())
+        grad_error = (proj.grad.cpu() - ref.grad).abs().max().item()
+        worst = max(worst, *errors)
+        if max(errors) > 1e-5 or grad_error > 1e-4:
+            share = ((out.cpu() - on_cpu).abs() > 1e-5).float().mean().item()
+            failures.append((seed, errors, grad_error, share))
+    print(f"worst forward error over 200 seeds: {worst}")
+    assert not failures, failures
+
+
+def _chunk_case(batch, q_len, k_len, heads, head_dim, dtype, q_start, k_start, shuffle, seed):
+    """q, k, v as ring attention gives them to the chunk kernel: strided views
+    of one fused [B, S, 3, H, D] projection, with global positions (shuffled
+    keys, if asked: the kernel masks each key by its own position)."""
+    device = _require_cuda()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    proj = torch.randn((batch, max(q_len, k_len), 3, heads, head_dim), generator=gen,
+                       device=device).to(dtype)
+    q_pos = torch.arange(q_start, q_start + q_len, dtype=torch.int32, device=device)
+    k_pos = torch.arange(k_start, k_start + k_len, dtype=torch.int32, device=device)
+    if shuffle:
+        k_pos = k_pos[torch.randperm(k_len, generator=gen, device=device)]
+    return proj[:, :q_len, 0], proj[:, :k_len, 1], proj[:, :k_len, 2], q_pos, k_pos
+
+
+def _chunk_errors(got, want):
+    """(m absolute, l and pv relative to the row's l (at least 1)) errors."""
+    pv, m, l = got
+    want_pv, want_m, want_l = want
+    scale = want_l.clamp(min=1.0)
+    return ((m - want_m).abs().max().item(), ((l - want_l).abs() / scale).max().item(),
+            ((pv - want_pv).abs() / scale.permute(0, 2, 1)[..., None]).max().item())
+
+
+# The kernel and the plain version take the same inputs widened to float32 and
+# fold the same key tiles, summing in another order; their outputs are float32
+# for either input dtype, so both dtypes are held at 1e-5.
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,causal", [
+    ((8, 128, 128, 4, 32, torch.float32, 128, 0, False), True),     # ring step: visible
+    ((8, 128, 128, 4, 32, torch.float32, 128, 128, False), True),   # ring step: diagonal
+    ((8, 128, 128, 4, 32, torch.float32, 128, 256, False), True),   # ring step: future
+    ((8, 128, 128, 4, 32, torch.float32, 128, 256, False), False),
+    ((2, 256, 128, 2, 32, torch.float32, 0, 128, False), True),     # future for one row block
+    ((2, 100, 60, 2, 32, torch.float32, 40, 30, False), True),      # Sq != Sk
+    ((3, 33, 45, 2, 16, torch.float32, 7, 0, True), True),          # ragged, shuffled keys
+    ((5, 1, 7, 3, 64, torch.float32, 3, 0, False), True),
+    ((1, 128, 128, 1, 64, torch.bfloat16, 0, 0, False), True),
+])
+def test_chunk_kernel_matches_plain_version(case, causal):
+    q, k, v, q_pos, k_pos = _chunk_case(*case, seed=sum(case[:5]))
+    before = fac.KERNEL.launches
+    got = fac.chunk_kernel(q, k, v, q_pos, k_pos, causal)
+    torch.cuda.synchronize()
+    assert fac.KERNEL.launches == before + 1
+    want = fac.plain_flash_attention_chunk(q, k, v, q_pos, k_pos, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape and g.is_contiguous()
+    assert max(_chunk_errors(got, want)) <= 1e-5
+    if causal and case[7] >= case[6] + case[1]:  # wholly in the future: the proxy stats
+        assert not any(x.any() for x in got)
+
+
+@pytest.mark.cuda
+def test_chunk_kernel_rejects_what_it_cannot_take():
+    q, k, v, q_pos, k_pos = _chunk_case(2, 16, 16, 2, 32, torch.float32, 0, 0, False, seed=0)
+    with pytest.raises(ValueError, match="head dims"):
+        fac.chunk_kernel(*(x[..., :8] for x in (q, k, v)), q_pos, k_pos)
+    with pytest.raises(TypeError):
+        fac.chunk_kernel(q.half(), k.half(), v.half(), q_pos, k_pos)
+    with pytest.raises(ValueError, match="int32 k_positions"):
+        fac.chunk_kernel(q, k, v, q_pos, k_pos.long())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fac.chunk_kernel(q, k, v, q_pos.cpu(), k_pos)
