@@ -1,5 +1,7 @@
 """Flash attention over one K/V chunk: the Hopper CUDA kernel, its plain
-PyTorch version, and the wrapper that picks one by the tensors' device.
+PyTorch version, and the error measure that holds one against the other.
+ops/pallas_attention.py::flash_attention_chunk picks one by the tensors'
+device.
 
     m  = max_k s_qk,   l = sum_k exp(s_qk - m),   pv = sum_k exp(s_qk - m) . v
     s_qk = q * scale . k,   scale = D^-1/2,   over the keys with k_pos <= q_pos
@@ -129,14 +131,12 @@ def chunk_kernel(
     return pv, m, l
 
 
-def flash_attention_chunk(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_positions: torch.Tensor,
-    k_positions: torch.Tensor, causal: bool = False,
-) -> ChunkResult:
-    """The kernel on CUDA tensors (it launches or raises), its plain version
-    on CPU tensors; any other device raises."""
-    if q.device.type == "cuda":
-        return chunk_kernel(q, k, v, q_positions, k_positions, causal)
-    if q.device.type == "cpu":
-        return plain_flash_attention_chunk(q, k, v, q_positions, k_positions, causal)
-    raise ValueError(f"no flash attention chunk kernel for device {q.device}")
+def chunk_errors(got: ChunkResult, want: ChunkResult) -> Tuple[float, float, float]:
+    """Errors of a chunk result (pv, m, l) against another: m absolute, l and
+    pv relative to the row's l (at least 1), since pv is the unnormalised sum
+    and its scale is l's."""
+    pv, m, l = got
+    want_pv, want_m, want_l = want
+    scale = want_l.clamp(min=1.0)
+    return ((m - want_m).abs().max().item(), ((l - want_l).abs() / scale).max().item(),
+            ((pv - want_pv).abs() / scale.permute(0, 2, 1)[..., None]).max().item())

@@ -60,4 +60,8 @@ def flash_attention_chunk(
         )
     q_positions = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
     k_positions = k_positions.to(device=q.device, dtype=torch.int32).contiguous()
-    return chunk.flash_attention_chunk(q, k, v, q_positions, k_positions, causal)
+    if q.device.type == "cuda":
+        return chunk.chunk_kernel(q, k, v, q_positions, k_positions, causal)
+    if q.device.type == "cpu":
+        return chunk.plain_flash_attention_chunk(q, k, v, q_positions, k_positions, causal)
+    raise ValueError(f"no flash attention chunk kernel for device {q.device}")

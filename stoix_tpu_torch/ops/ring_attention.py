@@ -25,8 +25,6 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from stoix_tpu_torch.kernels import flash_attention_chunk as chunk
-
 
 def full_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
@@ -84,11 +82,11 @@ def ring_attention(
     the rotating source index.
 
     `use_flash` routes each block's contribution through kernel B3
-    (kernels/flash_attention_chunk.py), the same (m, pv, l) accumulator
-    contract; None means the kernel for a CUDA tensor and the plain
-    `_block_attend` for a CPU tensor. True on a CPU tensor runs the kernel's
-    plain version. On CUDA the kernel always runs and raises for what it
-    cannot take (head dims outside the ones it instantiates).
+    (ops/pallas_attention.py::flash_attention_chunk), the same (m, pv, l)
+    accumulator contract; None means the kernel for a CUDA tensor and the
+    plain `_block_attend` for a CPU tensor. True on a CPU tensor runs the
+    kernel's plain version. On CUDA the kernel always runs and raises for what
+    it cannot take (head dims outside the ones it instantiates).
     """
     axis_size = dist.get_world_size(group)
     my_idx = dist.get_rank(group)
@@ -96,6 +94,10 @@ def ring_attention(
     b, s, h, d = q.shape
     if use_flash is None:
         use_flash = q.device.type == "cuda"
+    if use_flash:
+        # pallas_attention imports this module (full_attention), as in the
+        # JAX package: import the chunk kernel's entry point here.
+        from stoix_tpu_torch.ops.pallas_attention import flash_attention_chunk
 
     # Online-softmax accumulators, always fp32.
     m_acc = torch.full((b, h, s), float("-inf"), dtype=torch.float32, device=q.device)
@@ -131,8 +133,8 @@ def ring_attention(
                 dist.P2POp(dist.irecv, v_next, recv_from, group, tag=1),
             ])
         if use_flash:
-            pv_blk, m_blk, l_blk = chunk.flash_attention_chunk(
-                q, k_blk, v_blk, q_pos, k_pos, causal=causal)
+            pv_blk, m_blk, l_blk = flash_attention_chunk(
+                q, k_blk, v_blk, q_pos, k_pos, causal=causal, block_q=s, block_k=s)
         else:
             mask = None
             if causal:

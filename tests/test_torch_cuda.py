@@ -213,15 +213,6 @@ def _chunk_case(batch, q_len, k_len, heads, head_dim, dtype, q_start, k_start, s
     return proj[:, :q_len, 0], proj[:, :k_len, 1], proj[:, :k_len, 2], q_pos, k_pos
 
 
-def _chunk_errors(got, want):
-    """(m absolute, l and pv relative to the row's l (at least 1)) errors."""
-    pv, m, l = got
-    want_pv, want_m, want_l = want
-    scale = want_l.clamp(min=1.0)
-    return ((m - want_m).abs().max().item(), ((l - want_l).abs() / scale).max().item(),
-            ((pv - want_pv).abs() / scale.permute(0, 2, 1)[..., None]).max().item())
-
-
 # The kernel and the plain version take the same inputs widened to float32 and
 # fold the same key tiles, summing in another order; their outputs are float32
 # for either input dtype, so both dtypes are held at 1e-5.
@@ -246,7 +237,7 @@ def test_chunk_kernel_matches_plain_version(case, causal):
     want = fac.plain_flash_attention_chunk(q, k, v, q_pos, k_pos, causal)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape and g.is_contiguous()
-    assert max(_chunk_errors(got, want)) <= 1e-5
+    assert max(fac.chunk_errors(got, want)) <= 1e-5
     if causal and case[7] >= case[6] + case[1]:  # wholly in the future: the proxy stats
         assert not any(x.any() for x in got)
 

@@ -56,12 +56,9 @@ def _qkv(seed, b, s, h, d):
 def assert_chunk_close(got, want, tol=TOL):
     """pv, m, l of one chunk: m within `tol`; l and pv within `tol` times the
     row's l (at least 1)."""
-    pv, m, l = (np.asarray(x, np.float64) for x in got)
-    want_pv, want_m, want_l = (np.asarray(x, np.float64) for x in want)
-    assert pv.shape == want_pv.shape and m.shape == want_m.shape == l.shape
-    scale = np.maximum(want_l, 1.0)  # [B, H, Sq]
-    errors = (np.abs(m - want_m).max(), (np.abs(l - want_l) / scale).max(),
-              (np.abs(pv - want_pv) / np.transpose(scale, (0, 2, 1))[..., None]).max())
+    got, want = ([torch.as_tensor(np.asarray(x, np.float64)) for x in r] for r in (got, want))
+    assert [x.shape for x in got] == [x.shape for x in want] and got[1].shape == got[2].shape
+    errors = chunk.chunk_errors(got, want)
     assert max(errors) <= tol, f"m, l, pv errors {errors} above {tol}"
 
 
@@ -143,7 +140,7 @@ def test_chunk_dispatch_by_device():
     with pytest.raises(ValueError, match="one CUDA device"):
         chunk.chunk_kernel(q, k, v, q_pos, k_pos)  # the kernel never takes CPU tensors
     with pytest.raises(ValueError, match="device meta"):
-        chunk.flash_attention_chunk(*(x.to("meta") for x in (q, k, v, q_pos, k_pos)))
+        flash_attention_chunk(*(x.to("meta") for x in (q, k, v, q_pos, k_pos)), True, 64, 64)
 
 
 # ---------------------------------------------------------------- the ring on 4 ranks
