@@ -1,48 +1,80 @@
-// Flash attention for Hopper (sm_90a): a forward kernel and a two-kernel
-// backward, over [B, S, H, D] self-attention (queries and keys share S).
+// Flash attention for Hopper (sm_90a): a forward kernel and a fused backward
+// kernel, over [B, S, H, D] self-attention (queries and keys share S).
 //
 //     o = softmax(q * scale . k^T) . v,     scale = D^-1/2,     optional causal mask
 //
 // Replaces the Pallas TPU kernel stoix_tpu/ops/pallas_attention.py::flash_attention
 // (body `_flash_kernel`, fold `_fold_block`). That kernel holds one (batch, head)'s
 // K/V whole in VMEM, pads S to its 128-row blocks and walks K/V blocks in a
-// sequential grid. Here:
+// sequential grid. The TPU kernel has no backward (no custom VJP); the backward
+// here is the port's own, held against jax.grad of the JAX package's
+// `full_attention`.
 //
-//   * one thread owns one query row (forward, dQ) or one key row (dK/dV) and
-//     keeps that row's fp32 state in registers; a block holds `pairs`
-//     (batch, head) pairs times `rows` rows, so short sequences (S = 16 on the
-//     ff_trans_ppo path) still fill 128-thread blocks, and a long S takes one
-//     block per 128 rows;
-//   * the other side's rows are staged 16 at a time in shared memory (widened
-//     to fp32) and read back by every thread of the pair as broadcasts;
+// Forward:
+//   * one thread owns one query row and keeps that row's fp32 state in
+//     registers; a block holds `pairs` (batch, head) pairs times `rows` rows,
+//     so short sequences (S = 16 on the ff_trans_ppo path) still fill
+//     128-thread blocks, and a long S takes one block per 128 rows;
+//   * K/V rows are staged 16 at a time in shared memory (widened to fp32) and
+//     read back by every thread of the pair as broadcasts;
 //   * ragged S is masked, never padded; a causal block stops at the last key
 //     tile that holds a key at or before its last query (`_flash_kernel`'s
-//     bound), and dK/dV starts at the first query tile that can see its keys.
+//     bound).
+//   Arithmetic follows `_fold_block`: q scaled in fp32 before the dot; per key
+//   tile the running max, `m_safe` (0 while a row has seen only masked keys),
+//   `alpha = exp(m_acc - m_safe)`, `l = l.alpha + sum p`, `acc = acc.alpha + p.v`;
+//   `l_safe = 1` where l == 0, and one rounding to the output type. expf, not
+//   __expf. When a gradient is needed the forward also writes
+//   lse = m + log(l) ([B, H, S] fp32; +inf where l == 0, so P = 0 there).
 //
-// Bound: bytes. At S = 16, D = 32 a pair's q, k, v, o are 8 KiB and its work
-// is at most 4.S^2.D = 32 K flops, about 4 flops per byte, far below the
-// card's float32 balance point (67 TFLOP/s over 3.35 TB/s = 20 flops/byte).
-// Each input row is read once per block that needs it and each output row is
-// written once. No tensor cores: a simple, exact-fp32 first version.
+// Backward, one launch for dQ, dK and dV (recompute from lse, deterministic,
+// no atomics):
+//     delta = rowsum(dO.O),  P = exp(q.k^T.scale - lse),  dS = P.(dO.v^T - delta),
+//     dV = P^T.dO,  dK = scale.dS^T.q,  dQ = scale.dS.k
+//   A block holds kBwdRows = 64 rows of each side: G pairs of R rows, R the
+//   next power of two >= S (at least 4, at most 64), G = 64 / R. A block owns
+//   one key tile of its pairs (K and V resident) and walks the query tiles that
+//   can see it (from the key tile on, when causal). For each query tile it
+//     1. copies q, o, dO rows (and lse) into shared memory, 16 bytes a thread,
+//        neighbouring threads on neighbouring pieces of a row (cp.async for
+//        fp32; bf16 widened to fp32 on the way);
+//     2. forms delta from shared memory (no trip through device memory);
+//     3. forms the R x R scores of each pair once, a thread per 2 x 2 tile of
+//        (query, key), and from them P and dS once, masked by position;
+//     4. forms dV and dK (accumulated over query tiles in registers), each
+//        thread a 4 x 4 tile of (key, d) outputs, and this tile's dQ, a 4 x 4
+//        tile of (query, d) outputs shared by 64 / D neighbouring threads and
+//        summed by shuffles;
+//     5. writes dQ out through shared memory as 16-byte coalesced stores.
+//   dK and dV go out the same way after the walk. With one key tile per pair
+//   (every S <= 64, the path's S = 16) dQ is written as it is; with several,
+//   each key tile writes its fp32 dQ partial to its own slice of a
+//   [tiles, B, S, H, D] scratch buffer, which the wrapper sums in a fixed order.
+//   At S <= 64 each operand is read once and each output written once.
 //
-// Arithmetic follows `_fold_block`: q scaled in fp32 before the dot; per key
-// tile the running max, `m_safe` (0 while a row has seen only masked keys),
-// `alpha = exp(m_acc - m_safe)`, `l = l.alpha + sum p`, `acc = acc.alpha + p.v`;
-// `l_safe = 1` where l == 0, and one rounding to the output type. expf, not
-// __expf. When a gradient is needed the forward also writes
-// lse = m + log(l) ([B, H, S] fp32; +inf where l == 0, so P = 0 there).
+// What the design does about the two-kernel backward it replaces: every global
+// load and store is a 16-byte piece of a row, coalesced across the warp (no
+// thread walks a row by itself); P and dS are computed once, not once per
+// kernel, and delta never leaves the block (13 passes over a [B, S, H, D]
+// operand become 8); a thread keeps 16 fp32 accumulators at D <= 32 (32 at
+// D = 64) across query tiles, not 4.D row registers, and is capped at 80
+// registers so three blocks share an SM; the causal walk skips query tiles
+// before the key tile, score tiles above the diagonal are skipped, and on the
+// diagonal tile each 4 x 4 product starts (dK, dV) or stops (dQ) at its own
+// diagonal, so no lane idles on masked rows of a staged tile. Rows are padded
+// and skewed in shared memory so that the rows a quarter-warp reads together
+// fall in different banks.
 //
-// Backward (recompute from lse, deterministic, no atomics):
-//   dQ kernel:    delta_i = sum_d dO.O (written out), then over key tiles
-//                 P = exp(q.scale.k - lse), dP = dO.v, dS = P.(dP - delta),
-//                 dQ = scale . sum_j dS.k
-//   dK/dV kernel: over query tiles, dV = sum_i P.dO, dK = sum_i dS.(q.scale)
-// dQ runs first: dK/dV reads its delta.
+// Bound: bytes. At [4096, 16, 4, 32] float32 causal the backward must read q,
+// k, v, o, dO and lse and write dQ, dK, dV: 269 484 032 bytes, 0.0804 ms at
+// 3.35 TB/s; its 0.73 GFLOP take 0.011 ms at 67 TFLOP/s (2.7 flops per byte).
+// Arithmetic stays fp32 FMA on the CUDA cores (no tensor cores: TF32 would miss
+// the 1e-5 parity every check holds).
 //
 // Layout: q, k and v are taken by strides (batch, seq, head; the last dim
 // contiguous), so the three views of a fused [B, S, 3, H, D] projection go in
-// as they are. o, dO, dQ, dK, dV are contiguous [B, S, H, D]; lse and delta
-// contiguous [B, H, S].
+// as they are. o, dO, dQ, dK, dV are contiguous [B, S, H, D]; lse contiguous
+// [B, H, S]. The backward needs every row of q, k, v, o, dO 16-byte aligned.
 //
 // Plain C interface, bound from Python with ctypes. Each entry point launches
 // on the given stream and returns cudaGetLastError() (0 on success).
@@ -53,10 +85,15 @@
 
 namespace {
 
-constexpr int kTile = 16;         // rows of the other side staged per step
-constexpr int kMaxThreads = 128;  // threads per block
-constexpr int kMaxPairs = 32;     // (batch, head) pairs per block
+constexpr int kTile = 16;         // rows of the other side staged per step (forward)
+constexpr int kMaxThreads = 128;  // threads per block (forward)
+constexpr int kMaxPairs = 32;     // (batch, head) pairs per block (forward)
 constexpr int kSmemFloats = 4096; // one staged operand: pairs * kTile * D <= 4096
+constexpr int kBwdRows = 64;               // rows of each side a backward block holds
+constexpr int kBwdThreads = 4 * kBwdRows;  // threads per backward block: 4 per row
+// Backward blocks an SM must hold at once: caps a thread at 80 registers, so
+// that one block's copies overlap another's arithmetic.
+constexpr int kBwdMinBlocks = 3;
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -69,7 +106,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float
 
 struct Shape {
   int batch, seq, heads;
-  int rows;   // rows of one pair per block (a power of two, at most kMaxThreads)
+  int rows;   // rows of one pair per block (a power of two)
   int pairs;  // pairs per block
   float scale;
   int causal;
@@ -110,22 +147,6 @@ __device__ __forceinline__ void stage_strided(float* dst, const T* src, long lon
     if (pair < num_pairs && row < s.seq) {
       x = widen(src[qkv_offset(sb, ss, sh, pair, row, s.heads) + d]) * mul;
     }
-    dst[idx] = x;
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void stage_contiguous(float* dst, const T* src, int first_pair, int r0,
-                                                 const Shape& s) {
-  const int total = s.pairs * kTile * D;
-  const int num_pairs = s.batch * s.heads;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int d = idx % D;
-    const int r = (idx / D) % kTile;
-    const int pair = first_pair + idx / (D * kTile);
-    const int row = r0 + r;
-    float x = 0.f;
-    if (pair < num_pairs && row < s.seq) x = widen(src[row_offset(pair, row, s, D) + d]);
     dst[idx] = x;
   }
 }
@@ -228,143 +249,318 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   if (lse != nullptr) lse[stat_offset(pair, row, s)] = l == 0.f ? INFINITY : m + logf(l);
 }
 
-// ---------------------------------------------------------------- backward: dQ and delta
+// ---------------------------------------------------------------- backward (fused)
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kMaxThreads)
-flash_backward_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ o,
-                         const T* __restrict__ dout, const float* __restrict__ lse,
-                         T* __restrict__ dq, float* __restrict__ delta, Shape s) {
-  __shared__ __align__(16) float k_s[kSmemFloats];
-  __shared__ __align__(16) float v_s[kSmemFloats];
-  const int local_pair = threadIdx.x / s.rows;
-  const int first_pair = blockIdx.x * s.pairs;
-  const int pair = first_pair + local_pair;
-  const int row = blockIdx.y * s.rows + threadIdx.x % s.rows;
-  const bool active = local_pair < s.pairs && pair < s.batch * s.heads && row < s.seq;
-
-  float qr[D], dor[D], acc[D];
-  float row_delta = 0.f, row_lse = INFINITY;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = 0.f;
-    dor[d] = 0.f;
-    acc[d] = 0.f;
-  }
-  if (active) {
-    const T* qp = q + qkv_offset(s.qb, s.qs, s.qh, pair, row, s.heads);
-    const long long r = row_offset(pair, row, s, D);
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      qr[d] = widen(qp[d]) * s.scale;
-      dor[d] = widen(dout[r + d]);
-      row_delta = fmaf(dor[d], widen(o[r + d]), row_delta);
-    }
-    row_lse = lse[stat_offset(pair, row, s)];
-    delta[stat_offset(pair, row, s)] = row_delta;
-  }
-
-  const int block_end = min(s.seq, (blockIdx.y + 1) * s.rows);
-  const int key_end = s.causal ? block_end : s.seq;
-  for (int k0 = 0; k0 < key_end; k0 += kTile) {
-    __syncthreads();
-    stage_strided<T, D>(k_s, k, s.kb, s.ks, s.kh, first_pair, k0, s, 1.f);
-    stage_strided<T, D>(v_s, v, s.vb, s.vs, s.vh, first_pair, k0, s, 1.f);
-    __syncthreads();
-    if (!active) continue;
-    const float* ks = k_s + local_pair * kTile * D;
-    const float* vs = v_s + local_pair * kTile * D;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const int key = k0 + j;
-      const bool valid = key < s.seq && (!s.causal || key <= row);
-      if (!valid) continue;
-      const float p = expf(dot_row<D>(qr, ks + j * D) - row_lse);
-      const float ds = p * (dot_row<D>(dor, vs + j * D) - row_delta);
-      axpy_row<D>(acc, ds, ks + j * D);
-    }
-  }
-  if (!active) return;
-  T* dqp = dq + row_offset(pair, row, s, D);
-#pragma unroll
-  for (int d = 0; d < D; ++d) dqp[d] = narrow<T>(acc[d] * s.scale);
+// An operand tile is [kBwdRows] rows of D + 4 floats, with 4 more floats after
+// every 8 rows: the 8 rows 2 apart that one quarter-warp reads together then
+// fall in different banks.
+template <int D>
+__device__ __forceinline__ int tile_row(int r) {
+  return r * (D + 4) + (r / 8) * 4;
 }
 
-// ---------------------------------------------------------------- backward: dK and dV
+__host__ __device__ constexpr int tile_floats(int d) {
+  return kBwdRows * (d + 4) + kBwdRows / 8 * 4;
+}
+
+// Shared-memory floats of one backward block: five operand tiles (q, k, v, o,
+// dO), P and dS ([kBwdRows][R]), lse and delta.
+__host__ __device__ constexpr int bwd_smem_floats(int d, int r) {
+  return 5 * tile_floats(d) + 2 * kBwdRows * r + 2 * kBwdRows;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const void* src, bool valid) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
+               "r"(valid ? 16 : 0));  // 0 source bytes: the 16 bytes are zero-filled
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy rows [r0, r0 + R) of each of the block's pairs from a [B, S, H, D]
+// tensor (strides sb, ss, sh; the head dim contiguous) into an fp32 operand
+// tile, one 16-byte piece a thread, neighbouring threads on neighbouring
+// pieces of a row. Rows past S or past the last pair are zeros.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, long long sb, long long ss,
+                                          long long sh, int first_pair, int r0, const Shape& s) {
+  constexpr int kElems = 16 / sizeof(T);  // elements in a 16-byte piece
+  constexpr int kPieces = D / kElems;     // pieces in a row
+  const int num_pairs = s.batch * s.heads;
+  for (int idx = threadIdx.x; idx < kBwdRows * kPieces; idx += kBwdThreads) {
+    const int slot = idx / kPieces, piece = idx % kPieces;
+    const int pair = first_pair + slot / s.rows, row = r0 + slot % s.rows;
+    const bool valid = pair < num_pairs && row < s.seq;
+    const T* from = valid ? src + qkv_offset(sb, ss, sh, pair, row, s.heads) + piece * kElems : src;
+    float* to = dst + tile_row<D>(slot) + piece * kElems;
+    if constexpr (sizeof(T) == 4) {
+      cp_async16(to, from, valid);
+    } else {
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (valid) raw = __ldg(reinterpret_cast<const uint4*>(from));
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+      const float2 c = __bfloat1622float2(h[2]), e = __bfloat1622float2(h[3]);
+      reinterpret_cast<float4*>(to)[0] = make_float4(a.x, a.y, b.x, b.y);
+      reinterpret_cast<float4*>(to)[1] = make_float4(c.x, c.y, e.x, e.y);
+    }
+  }
+}
+
+// Write an fp32 operand tile out as rows [r0, r0 + R) of the block's pairs of
+// a contiguous [B, S, H, D] tensor, one 16-byte piece a thread, rounded once to
+// OutT; rows past S or past the last pair are not written.
+template <typename OutT, int D>
+__device__ __forceinline__ void store_tile(OutT* dst, const float* src, int first_pair, int r0,
+                                           const Shape& s) {
+  constexpr int kElems = 16 / sizeof(OutT);
+  constexpr int kPieces = D / kElems;
+  const int num_pairs = s.batch * s.heads;
+  for (int idx = threadIdx.x; idx < kBwdRows * kPieces; idx += kBwdThreads) {
+    const int slot = idx / kPieces, piece = idx % kPieces;
+    const int pair = first_pair + slot / s.rows, row = r0 + slot % s.rows;
+    if (pair >= num_pairs || row >= s.seq) continue;
+    const float* from = src + tile_row<D>(slot) + piece * kElems;
+    OutT* to = dst + row_offset(pair, row, s, D) + piece * kElems;
+    if constexpr (sizeof(OutT) == 4) {
+      *reinterpret_cast<float4*>(to) = *reinterpret_cast<const float4*>(from);
+    } else {
+      __align__(16) __nv_bfloat162 h[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(from[2 * i], from[2 * i + 1]);
+      *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(h);
+    }
+  }
+}
+
+__device__ __forceinline__ float lane(const float4& x, int i) {
+  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+// acc[r][c] += a[r] * b[c]
+__device__ __forceinline__ void outer4(float (&acc)[4][4], const float4& a, const float4& b) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float x = lane(a, r);
+    acc[r][0] = fmaf(x, b.x, acc[r][0]);
+    acc[r][1] = fmaf(x, b.y, acc[r][1]);
+    acc[r][2] = fmaf(x, b.z, acc[r][2]);
+    acc[r][3] = fmaf(x, b.w, acc[r][3]);
+  }
+}
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kMaxThreads)
-flash_backward_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, const T* __restrict__ dout,
-                           const float* __restrict__ lse, const float* __restrict__ delta,
-                           T* __restrict__ dk, T* __restrict__ dv, Shape s) {
-  __shared__ __align__(16) float q_s[kSmemFloats];
-  __shared__ __align__(16) float do_s[kSmemFloats];
-  __shared__ float lse_s[kMaxPairs * kTile];
-  __shared__ float delta_s[kMaxPairs * kTile];
-  const int local_pair = threadIdx.x / s.rows;
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+flash_backward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const T* __restrict__ o, const T* __restrict__ dout,
+                      const float* __restrict__ lse, T* __restrict__ dq,
+                      float* __restrict__ dq_partial, T* __restrict__ dk, T* __restrict__ dv,
+                      Shape s) {
+  constexpr int kDg = D / 4;                        // 4-wide column groups
+  constexpr int kMicro = kBwdRows / 4 * kDg;        // 4 x 4 tiles of one [kBwdRows, D] output
+  constexpr int kKvPerThread = (2 * kMicro + kBwdThreads - 1) / kBwdThreads;  // dV, dK tiles
+  constexpr int kQSplit = kBwdThreads / kMicro;     // threads sharing one dQ tile
+  static_assert(kBwdThreads == 4 * kBwdRows, "delta takes 4 threads a row");
+  static_assert(kQSplit * kMicro == kBwdThreads, "every thread takes a part of one dQ tile");
+
+  extern __shared__ __align__(16) float smem[];
+  const int R = s.rows;
+  float* q_s = smem;
+  float* k_s = q_s + tile_floats(D);
+  float* v_s = k_s + tile_floats(D);
+  float* o_s = v_s + tile_floats(D);  // o, then this query tile's dQ
+  float* do_s = o_s + tile_floats(D);
+  float* p_s = do_s + tile_floats(D);  // [kBwdRows][R]: P of (query slot, key)
+  float* ds_s = p_s + kBwdRows * R;    // dS, likewise
+  float* lse_s = ds_s + kBwdRows * R;
+  float* delta_s = lse_s + kBwdRows;
+
   const int first_pair = blockIdx.x * s.pairs;
-  const int pair = first_pair + local_pair;
-  const int row = blockIdx.y * s.rows + threadIdx.x % s.rows;  // this thread's key
   const int num_pairs = s.batch * s.heads;
-  const bool active = local_pair < s.pairs && pair < num_pairs && row < s.seq;
+  const int key_tile = blockIdx.y;
+  const int k0 = key_tile * R;
+  const int tiles = gridDim.y;
+  const long long row_stride = static_cast<long long>(s.heads) * D;  // contiguous o, dO
 
-  float kr[D], vr[D], dk_acc[D], dv_acc[D];
+  load_tile<T, D>(k_s, k, s.kb, s.ks, s.kh, first_pair, k0, s);
+  load_tile<T, D>(v_s, v, s.vb, s.vs, s.vh, first_pair, k0, s);
+
+  float kv[kKvPerThread][4][4];  // dV then dK tiles, summed over query tiles
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    kr[d] = 0.f;
-    vr[d] = 0.f;
-    dk_acc[d] = 0.f;
-    dv_acc[d] = 0.f;
-  }
-  if (active) {
-    const T* kp = k + qkv_offset(s.kb, s.ks, s.kh, pair, row, s.heads);
-    const T* vp = v + qkv_offset(s.vb, s.vs, s.vh, pair, row, s.heads);
+  for (int n = 0; n < kKvPerThread; ++n)
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      kr[d] = widen(kp[d]);
-      vr[d] = widen(vp[d]);
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kv[n][r][c] = 0.f;
+
+  for (int query_tile = s.causal ? key_tile : 0; query_tile < tiles; ++query_tile) {
+    const int q0 = query_tile * R;
+    const bool diagonal = s.causal && query_tile == key_tile;
+    __syncthreads();  // the previous tile's dQ is out of o_s
+    load_tile<T, D>(q_s, q, s.qb, s.qs, s.qh, first_pair, q0, s);
+    load_tile<T, D>(o_s, o, s.seq * row_stride, row_stride, D, first_pair, q0, s);
+    load_tile<T, D>(do_s, dout, s.seq * row_stride, row_stride, D, first_pair, q0, s);
+    for (int slot = threadIdx.x; slot < kBwdRows; slot += kBwdThreads) {
+      const int pair = first_pair + slot / R, row = q0 + slot % R;
+      lse_s[slot] = pair < num_pairs && row < s.seq ? lse[stat_offset(pair, row, s)] : INFINITY;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    {  // delta = rowsum(dO.o), 4 threads a row
+      const int slot = threadIdx.x / 4, part = threadIdx.x % 4;
+      const float* a = do_s + tile_row<D>(slot) + part * kDg;
+      const float* b = o_s + tile_row<D>(slot) + part * kDg;
+      float sum = 0.f;
+#pragma unroll
+      for (int d = 0; d < kDg; ++d) sum = fmaf(a[d], b[d], sum);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (part == 0) delta_s[slot] = sum;
+    }
+    __syncthreads();
+
+    // P and dS, once per (query, key) of each pair: a thread per 2 x 2 tile of
+    // them (2 queries by 2 keys of one pair; neighbouring threads on
+    // neighbouring keys). Tiles inside a 4 x 4 block wholly above the causal
+    // diagonal are skipped: no product below reads them.
+    const int side = R / 2;  // 2 x 2 tiles along a pair's side
+    for (int idx = threadIdx.x; idx < kBwdRows / 2 * side; idx += kBwdThreads) {
+      const int slot0 = idx / side * 2, key0 = idx % side * 2;  // first query slot, first key
+      const int first = slot0 / R * R, query0 = slot0 % R;      // the pair's first slot
+      if (diagonal && key0 / 4 > query0 / 4) continue;
+      float sc[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      const float* q_rows[2] = {q_s + tile_row<D>(slot0), q_s + tile_row<D>(slot0 + 1)};
+      const float* do_rows[2] = {do_s + tile_row<D>(slot0), do_s + tile_row<D>(slot0 + 1)};
+      const float* k_rows[2] = {k_s + tile_row<D>(first + key0), k_s + tile_row<D>(first + key0 + 1)};
+      const float* v_rows[2] = {v_s + tile_row<D>(first + key0), v_s + tile_row<D>(first + key0 + 1)};
+#pragma unroll 2
+      for (int d4 = 0; d4 < kDg; ++d4) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float4 a = reinterpret_cast<const float4*>(q_rows[r])[d4];
+          const float4 g = reinterpret_cast<const float4*>(do_rows[r])[d4];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            sc[r][c] = dot4(a, reinterpret_cast<const float4*>(k_rows[c])[d4], sc[r][c]);
+            dp[r][c] = dot4(g, reinterpret_cast<const float4*>(v_rows[c])[d4], dp[r][c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int slot = slot0 + r, query = q0 + query0 + r;
+        const float row_lse = lse_s[slot], row_delta = delta_s[slot];
+        float p[2], ds[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = k0 + key0 + c;
+          const bool valid = query < s.seq && key < s.seq && (!s.causal || key <= query);
+          p[c] = valid ? expf(sc[r][c] * s.scale - row_lse) : 0.f;
+          ds[c] = p[c] * (dp[r][c] - row_delta);
+        }
+        *reinterpret_cast<float2*>(p_s + slot * R + key0) = make_float2(p[0], p[1]);
+        *reinterpret_cast<float2*>(ds_s + slot * R + key0) = make_float2(ds[0], ds[1]);
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T.dO and dK += dS^T.q over this tile's queries: a thread's tiles
+    // are 4 keys of one pair by 4 columns, kept in registers across query
+    // tiles; on the diagonal the sum starts at the tile's first key.
+#pragma unroll
+    for (int n = 0; n < kKvPerThread; ++n) {
+      const int task = threadIdx.x + n * kBwdThreads;
+      if (task < 2 * kMicro) {
+        const int kind = task / kMicro, micro = task % kMicro;
+        const int row0 = micro / kDg * 4, dg = micro % kDg;
+        const int first = row0 / R * R, local0 = row0 % R;
+        const float* w = kind == 0 ? p_s : ds_s;
+        const float* x = kind == 0 ? do_s : q_s;
+        for (int i = diagonal ? local0 : 0; i < R; ++i) {
+          const float4 a = *reinterpret_cast<const float4*>(w + (first + i) * R + local0);
+          const float4 b = reinterpret_cast<const float4*>(x + tile_row<D>(first + i))[dg];
+          outer4(kv[n], a, b);
+        }
+      }
+    }
+
+    // dQ = scale.dS.k over the key tile: kQSplit neighbouring threads share a
+    // tile of 4 queries by 4 columns, each summing every kQSplit-th group of 4
+    // keys (on the diagonal, up to the tile's last query); their sums are added
+    // by shuffles in a fixed order.
+    {
+      const int micro = threadIdx.x / kQSplit, part = threadIdx.x % kQSplit;
+      const int row0 = micro / kDg * 4, dg = micro % kDg;
+      const int first = row0 / R * R, local0 = row0 % R;
+      float acc[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+      const int key_end = diagonal ? local0 + 4 : R;
+      for (int j = part * 4; j < key_end; j += 4 * kQSplit) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float4 b = reinterpret_cast<const float4*>(k_s + tile_row<D>(first + j + jj))[dg];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float x = ds_s[(row0 + r) * R + j + jj];
+            acc[r][0] = fmaf(x, b.x, acc[r][0]);
+            acc[r][1] = fmaf(x, b.y, acc[r][1]);
+            acc[r][2] = fmaf(x, b.z, acc[r][2]);
+            acc[r][3] = fmaf(x, b.w, acc[r][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int lanes = 1; lanes < kQSplit; lanes *= 2)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], lanes);
+      if (part == 0) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)  // o_s is free: delta has been formed
+          reinterpret_cast<float4*>(o_s + tile_row<D>(row0 + r))[dg] =
+              make_float4(acc[r][0] * s.scale, acc[r][1] * s.scale, acc[r][2] * s.scale,
+                          acc[r][3] * s.scale);
+      }
+    }
+    __syncthreads();
+    if (tiles == 1) {
+      store_tile<T, D>(dq, o_s, first_pair, q0, s);
+    } else {
+      const long long slice = static_cast<long long>(num_pairs) * s.seq * D;
+      store_tile<float, D>(dq_partial + key_tile * slice, o_s, first_pair, q0, s);
     }
   }
 
-  // Causal: the queries that see this block's keys start at its first key.
-  const int q_begin = s.causal ? (blockIdx.y * s.rows) / kTile * kTile : 0;
-  for (int q0 = q_begin; q0 < s.seq; q0 += kTile) {
-    __syncthreads();
-    stage_strided<T, D>(q_s, q, s.qb, s.qs, s.qh, first_pair, q0, s, s.scale);
-    stage_contiguous<T, D>(do_s, dout, first_pair, q0, s);
-    for (int idx = threadIdx.x; idx < s.pairs * kTile; idx += blockDim.x) {
-      const int p = first_pair + idx / kTile;
-      const int r = q0 + idx % kTile;
-      const bool in = p < num_pairs && r < s.seq;
-      lse_s[idx] = in ? lse[stat_offset(p, r, s)] : INFINITY;
-      delta_s[idx] = in ? delta[stat_offset(p, r, s)] : 0.f;
-    }
-    __syncthreads();
-    if (!active) continue;
-    const float* qs = q_s + local_pair * kTile * D;
-    const float* dos = do_s + local_pair * kTile * D;
-    const float* lses = lse_s + local_pair * kTile;
-    const float* deltas = delta_s + local_pair * kTile;
+  // dV and dK through v_s and k_s (last read before the barrier above).
 #pragma unroll
-    for (int i = 0; i < kTile; ++i) {
-      const int query = q0 + i;
-      const bool valid = query < s.seq && (!s.causal || row <= query);
-      if (!valid) continue;
-      const float p = expf(dot_row<D>(kr, qs + i * D) - lses[i]);
-      axpy_row<D>(dv_acc, p, dos + i * D);
-      const float ds = p * (dot_row<D>(vr, dos + i * D) - deltas[i]);
-      axpy_row<D>(dk_acc, ds, qs + i * D);
+  for (int n = 0; n < kKvPerThread; ++n) {
+    const int task = threadIdx.x + n * kBwdThreads;
+    if (task < 2 * kMicro) {
+      const int kind = task / kMicro, micro = task % kMicro;
+      const int row0 = micro / kDg * 4, dg = micro % kDg;
+      float* out = kind == 0 ? v_s : k_s;
+      const float mul = kind == 0 ? 1.f : s.scale;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        reinterpret_cast<float4*>(out + tile_row<D>(row0 + r))[dg] =
+            make_float4(kv[n][r][0] * mul, kv[n][r][1] * mul, kv[n][r][2] * mul,
+                        kv[n][r][3] * mul);
     }
   }
-  if (!active) return;
-  const long long r = row_offset(pair, row, s, D);
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    dk[r + d] = narrow<T>(dk_acc[d]);
-    dv[r + d] = narrow<T>(dv_acc[d]);
-  }
+  __syncthreads();
+  store_tile<T, D>(dk, k_s, first_pair, k0, s);
+  store_tile<T, D>(dv, v_s, first_pair, k0, s);
 }
 
 // ---------------------------------------------------------------- host side
@@ -375,7 +571,7 @@ int next_pow2(int x) {
   return p;
 }
 
-// Fill the tiling; false when the shape is not one the kernels take.
+// Fill the forward's tiling; false when the shape is not one the kernels take.
 bool make_shape(Shape* s, const long long* strides, int batch, int seq, int heads,
                 int head_dim, float scale, int causal) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return false;
@@ -397,6 +593,16 @@ bool make_shape(Shape* s, const long long* strides, int batch, int seq, int head
   return true;
 }
 
+// The backward's tiling: R rows a pair (the next power of two >= S, within
+// [4, kBwdRows]) and kBwdRows / R pairs a block.
+void backward_tiling(Shape* s) {
+  int rows = next_pow2(s->seq);
+  if (rows < 4) rows = 4;
+  if (rows > kBwdRows) rows = kBwdRows;
+  s->rows = rows;
+  s->pairs = kBwdRows / rows;
+}
+
 dim3 grid_of(const Shape& s) {
   const int num_pairs = s.batch * s.heads;
   return dim3((num_pairs + s.pairs - 1) / s.pairs, (s.seq + s.rows - 1) / s.rows);
@@ -411,21 +617,26 @@ void forward_launch(const void* q, const void* k, const void* v, void* o, void* 
 }
 
 template <typename T, int D>
-void dq_launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-               const void* lse, void* dq, void* delta, const Shape& s, cudaStream_t stream) {
-  flash_backward_dq_kernel<T, D><<<grid_of(s), s.rows * s.pairs, 0, stream>>>(
+void backward_launch(const void* q, const void* k, const void* v, const void* o,
+                     const void* dout, const void* lse, void* dq, void* dq_partial, void* dk,
+                     void* dv, const Shape& s, cudaStream_t stream) {
+  // Above 48 KiB of shared memory only after opting in, for the largest tiling;
+  // a failure is left for cudaGetLastError() to report, and retried next call.
+  static bool opted = false;
+  if (!opted) {
+    if (cudaFuncSetAttribute(flash_backward_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bwd_smem_floats(D, kBwdRows) * sizeof(float))) !=
+        cudaSuccess)
+      return;
+    opted = true;
+  }
+  const size_t smem = bwd_smem_floats(D, s.rows) * sizeof(float);
+  flash_backward_kernel<T, D><<<grid_of(s), kBwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dq), static_cast<float*>(delta), s);
-}
-
-template <typename T, int D>
-void dkdv_launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                 const void* delta, void* dk, void* dv, const Shape& s, cudaStream_t stream) {
-  flash_backward_dkdv_kernel<T, D><<<grid_of(s), s.rows * s.pairs, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), s);
+      static_cast<T*>(dq), static_cast<float*>(dq_partial), static_cast<T*>(dk),
+      static_cast<T*>(dv), s);
 }
 
 // Calls LAUNCH<T, D>(args...) for the runtime dtype code (0 float32, 1 bfloat16)
@@ -466,30 +677,21 @@ extern "C" int flash_attention_forward(int dtype, const void* q, const void* k, 
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int flash_attention_backward_dq(int dtype, const void* q, const void* k,
-                                           const void* v, const void* o, const void* dout,
-                                           const void* lse, void* dq, void* delta,
-                                           const long long* strides, int batch, int seq,
-                                           int heads, int head_dim, float scale, int causal,
-                                           void* stream) {
+// dq is written when S <= 64 (one key tile a pair) and may be null otherwise;
+// dq_partial, a zeroed fp32 [ceil(S / 64), B, S, H, D], takes one dQ partial a
+// key tile when S > 64 and may be null otherwise.
+extern "C" int flash_attention_backward(int dtype, const void* q, const void* k, const void* v,
+                                        const void* o, const void* dout, const void* lse,
+                                        void* dq, void* dq_partial, void* dk, void* dv,
+                                        const long long* strides, int batch, int seq, int heads,
+                                        int head_dim, float scale, int causal, void* stream) {
   Shape s;
   if (!make_shape(&s, strides, batch, seq, heads, head_dim, scale, causal))
     return static_cast<int>(cudaErrorInvalidValue);
-  DISPATCH(dq_launch, dtype, head_dim, q, k, v, o, dout, lse, dq, delta, s,
-           static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int flash_attention_backward_dkdv(int dtype, const void* q, const void* k,
-                                             const void* v, const void* dout, const void* lse,
-                                             const void* delta, void* dk, void* dv,
-                                             const long long* strides, int batch, int seq,
-                                             int heads, int head_dim, float scale, int causal,
-                                             void* stream) {
-  Shape s;
-  if (!make_shape(&s, strides, batch, seq, heads, head_dim, scale, causal))
+  backward_tiling(&s);
+  if ((seq > kBwdRows ? dq_partial : dq) == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  DISPATCH(dkdv_launch, dtype, head_dim, q, k, v, dout, lse, delta, dk, dv, s,
+  DISPATCH(backward_launch, dtype, head_dim, q, k, v, o, dout, lse, dq, dq_partial, dk, dv, s,
            static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,10 @@ waits for all of them.
 
 Every entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `CudaLibrary.check` raises on a code other than 0.
+
+nvcc runs with `-Xptxas -v`, and a library built in this process keeps
+nvcc's output as `build_log`: the registers, spill stores and loads, and
+shared memory of every kernel instance (`ptxas_report` picks those lines).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_TIMEOUT_S = 600
 
@@ -54,6 +58,7 @@ class CudaLibrary:
         self.entries = dict(entries)
         self.error_entry = error_entry
         self._lib: Optional[ctypes.CDLL] = None
+        self.build_log: Optional[str] = None  # nvcc's output, when built in this process
         self._lock = threading.Lock()
 
     def library_path(self) -> str:
@@ -86,6 +91,7 @@ class CudaLibrary:
             output, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed building {self.source}:\n{output}")
+            self.build_log = output
             os.replace(tmp, self.library_path())  # atomic: concurrent builds agree
         except subprocess.TimeoutExpired:
             proc.kill()
@@ -110,6 +116,12 @@ class CudaLibrary:
                 error.restype = ctypes.c_char_p
                 self._lib = lib
             return self._lib
+
+    def ptxas_report(self) -> list:
+        """The `ptxas info` lines of `build_log` and their spill lines, in
+        order (empty when the library was not built in this process)."""
+        return [line.strip() for line in (self.build_log or "").splitlines()
+                if "ptxas info" in line or "spill" in line]
 
     def check(self, code: int, what: str) -> None:
         if code != 0:

@@ -1,5 +1,5 @@
-"""Flash attention: the Hopper CUDA kernels (forward, and a backward in two
-kernels), their plain PyTorch versions, the autograd function that joins them,
+"""Flash attention: the Hopper CUDA kernels (a forward and a fused backward),
+their plain PyTorch versions, the autograd function that joins them,
 and the wrappers that pick a version by the tensors' device.
 
     o = softmax(q * scale . k^T) . v     over [B, S, H, D],   scale = D^-1/2
@@ -12,25 +12,33 @@ causal, for B = 1024 (rollout), 4096 (minibatch) and 16384 (bootstrap) windows.
 
 The TPU kernel is forward-only (no custom VJP, so `jax.grad` cannot pass
 through it); the port trains through its kernel, so `FlashAttention` adds a
-recompute-style backward whose kernels are hand-written too. It is held
-against `jax.grad` of the JAX package's `full_attention`, which is what that
-package differentiates wherever it trains this model.
+recompute-style backward whose kernel is hand-written too: dQ, dK and dV in
+one launch. It is held against `jax.grad` of the JAX package's
+`full_attention`, which is what that package differentiates wherever it
+trains this model.
 
-Bound on an H100: bytes. A launch reads q, k, v once and writes o once (the
-backward also reads o, dO and lse and writes dQ, dK, dV): at S = 16, D = 32
-the work is at most 4.S^2.D flops per (batch, head), about 4 flops per byte,
-far below the card's float32 balance point of 20. At B = 4096 the forward
-moves 128 MiB, about 40 µs at 3.35 TB/s.
+Bound on an H100: bytes. The forward reads q, k, v once and writes o once;
+at S = 16, D = 32 its work is at most 4.S^2.D flops per (batch, head), about
+4 flops per byte, far below the card's float32 balance point of 20. At
+B = 4096 it moves 128 MiB, about 40 µs at 3.35 TB/s. The backward reads q, k,
+v, o, dO and lse once and writes dQ, dK, dV once: 257 MiB at B = 4096, about
+80 µs.
 
-Design (csrc/flash_attention.cu): one thread per query row (forward, dQ) or
-key row (dK/dV) with the row's fp32 state in registers; K/V (or Q/dO) rows
-staged 16 at a time in shared memory; several (batch, head) pairs per block
-when S is short; ragged S masked, not padded; the causal walk bounded by the
-block's last query (and, for dK/dV, started at its first key). q, k, v are
-taken by strides, so the views of the fused qkv projection need no copy.
+Design (csrc/flash_attention.cu). Forward: one thread per query row with the
+row's fp32 state in registers; K/V rows staged 16 at a time in shared memory;
+several (batch, head) pairs per block when S is short. Backward: a block holds
+64 rows of each side (several pairs when S is short), loads them as 16-byte
+coalesced pieces, forms delta, then P and dS once (2 x 2 register tiles kept
+in shared memory), then dV, dK and dQ as 4 x 4 register tiles, and stores
+through shared memory as 16-byte pieces.
+Past S = 64 a block owns one 64-key tile and walks the query tiles; each key
+tile then writes an fp32 dQ partial that `backward_kernel` sums in a fixed
+order (deterministic, no atomics). Both: ragged S masked, not padded; causal
+walks bounded. q, k, v are taken by strides, so the views of the fused qkv
+projection need no copy.
 
-Counters: `FORWARD`, `BACKWARD_DQ` and `BACKWARD_DKDV` each count the launches
-of one kernel, and rise nowhere else.
+Counters: `FORWARD` and `BACKWARD` each count the launches of one kernel, and
+rise nowhere else.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from stoix_tpu_torch.kernels.build import CudaLibrary
 
 KEY_TILE = 16  # keys folded per online-softmax step, as csrc/flash_attention.cu stages them
 HEAD_DIMS = (16, 32, 64)  # the head dims csrc/flash_attention.cu instantiates
+BACKWARD_TILE = 64  # rows of a key tile in the backward kernel (kBwdRows)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # strides, batch, seq, heads, head_dim, scale, causal, stream
@@ -53,8 +62,7 @@ LIBRARY = CudaLibrary(
     "flash_attention.cu",
     {
         "flash_attention_forward": [_I] + [_P] * 5 + _SHAPE_ARGS,
-        "flash_attention_backward_dq": [_I] + [_P] * 8 + _SHAPE_ARGS,
-        "flash_attention_backward_dkdv": [_I] + [_P] * 8 + _SHAPE_ARGS,
+        "flash_attention_backward": [_I] + [_P] * 10 + _SHAPE_ARGS,
     },
     error_entry="flash_attention_error_string",
 )
@@ -69,9 +77,8 @@ class KernelCounter:
 
 
 FORWARD = KernelCounter("flash_attention_forward")
-BACKWARD_DQ = KernelCounter("flash_attention_backward_dq")
-BACKWARD_DKDV = KernelCounter("flash_attention_backward_dkdv")
-COUNTERS = (FORWARD, BACKWARD_DQ, BACKWARD_DKDV)
+BACKWARD = KernelCounter("flash_attention_backward")
+COUNTERS = (FORWARD, BACKWARD)
 
 
 # ----------------------------------------------------------------- plain versions
@@ -142,53 +149,26 @@ def plain_flash_attention_forward(
     return o, lse[..., 0].contiguous()
 
 
-def _recompute_probabilities(q, k, lse, causal):
-    """P = exp(q.scale.K^T - lse) [B, H, S, S] float32, and q.scale [B, H, S, D]."""
-    seq, head_dim = q.shape[1], q.shape[3]
-    qs = _heads_first(q) * head_dim**-0.5
-    p = torch.exp(qs @ _heads_first(k).transpose(-1, -2) - lse[..., None])
-    if causal:
-        p = torch.where(torch.ones(seq, seq, dtype=torch.bool, device=q.device).tril(), p, 0.0)
-    return p, qs
-
-
-def plain_flash_attention_backward_dq(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-    dout: torch.Tensor, causal: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dQ kernel's arithmetic: delta = rowsum(dO.O), P recomputed from
-    lse, dS = P.(dO V^T - delta), dQ = scale.dS K. Returns dq (contiguous
-    [B, S, H, D], q.dtype) and delta ([B, H, S] float32)."""
-    p, _ = _recompute_probabilities(q, k, lse, causal)
-    dof = _heads_first(dout)
-    delta = (dof * _heads_first(o)).sum(-1)
-    ds = p * (dof @ _heads_first(v).transpose(-1, -2) - delta[..., None])
-    dq = (ds @ _heads_first(k)) * q.shape[3] ** -0.5
-    return _seq_first(dq, q.dtype), delta
-
-
-def plain_flash_attention_backward_dkdv(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
-    delta: torch.Tensor, causal: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dK/dV kernel's arithmetic: P recomputed from lse, dV = P^T dO,
-    dS = P.(dO V^T - delta), dK = dS^T (q.scale)."""
-    p, qs = _recompute_probabilities(q, k, lse, causal)
-    dof = _heads_first(dout)
-    dv = p.transpose(-1, -2) @ dof
-    ds = p * (dof @ _heads_first(v).transpose(-1, -2) - delta[..., None])
-    dk = ds.transpose(-1, -2) @ qs
-    return _seq_first(dk, q.dtype), _seq_first(dv, q.dtype)
-
-
 def plain_flash_attention_backward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     dout: torch.Tensor, causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Both backward kernels' arithmetic, in their order; returns dq, dk, dv."""
-    dq, delta = plain_flash_attention_backward_dq(q, k, v, o, lse, dout, causal)
-    dk, dv = plain_flash_attention_backward_dkdv(q, k, v, dout, lse, delta, causal)
-    return dq, dk, dv
+    """The backward kernel's arithmetic, in its order: delta = rowsum(dO.O);
+    P = exp(q.scale.K^T - lse) and dS = P.(dO V^T - delta), once; then
+    dQ = scale.dS K, dK = dS^T (q.scale), dV = P^T dO. Returns dq, dk, dv
+    (contiguous [B, S, H, D], q.dtype)."""
+    seq, head_dim = q.shape[1], q.shape[3]
+    scale = head_dim**-0.5
+    qs, kf, vf, dof = _heads_first(q) * scale, _heads_first(k), _heads_first(v), _heads_first(dout)
+    delta = (dof * _heads_first(o)).sum(-1)
+    p = torch.exp(qs @ kf.transpose(-1, -2) - lse[..., None])
+    if causal:
+        p = torch.where(torch.ones(seq, seq, dtype=torch.bool, device=q.device).tril(), p, 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    dq = (ds @ kf) * scale
+    dk = ds.transpose(-1, -2) @ qs
+    dv = p.transpose(-1, -2) @ dof
+    return _seq_first(dq, q.dtype), _seq_first(dk, q.dtype), _seq_first(dv, q.dtype)
 
 
 # ----------------------------------------------------------------- the kernels
@@ -253,57 +233,40 @@ def _check_backward(q: torch.Tensor, lse: torch.Tensor, **like_q: torch.Tensor) 
         raise ValueError("flash attention backward needs a contiguous float32 lse [B, H, S]")
 
 
-def backward_dq_kernel(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-    dout: torch.Tensor, causal: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dQ kernel; returns dq and delta = rowsum(dO.O) [B, H, S]."""
-    _check(q, k, v)
-    _check_backward(q, lse, o=o, dout=dout)
-    batch, seq, heads, _ = q.shape
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    delta = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device)
-    lib = LIBRARY.load()
-    with torch.cuda.device(q.device):
-        strides, shape = _launch_args(q, k, v, causal)
-        code = lib.flash_attention_backward_dq(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), delta.data_ptr(), strides, *shape,
-        )
-    LIBRARY.check(code, "flash attention dQ kernel")
-    BACKWARD_DQ.launches += 1
-    return dq, delta
-
-
-def backward_dkdv_kernel(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor,
-    delta: torch.Tensor, causal: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dK/dV kernel (after the dQ kernel, whose delta it reads)."""
-    _check(q, k, v)
-    _check_backward(q, lse, dout=dout)
-    if delta.shape != lse.shape or delta.dtype != torch.float32 or not delta.is_contiguous():
-        raise ValueError("flash attention backward needs a contiguous float32 delta [B, H, S]")
-    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
-    lib = LIBRARY.load()
-    with torch.cuda.device(q.device):
-        strides, shape = _launch_args(q, k, v, causal)
-        code = lib.flash_attention_backward_dkdv(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, *shape,
-        )
-    LIBRARY.check(code, "flash attention dK/dV kernel")
-    BACKWARD_DKDV.launches += 1
-    return dk, dv
-
-
-def backward_kernels(
+def backward_kernel(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     dout: torch.Tensor, causal: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the dQ kernel (which also writes delta) and then the dK/dV kernel."""
-    dq, delta = backward_dq_kernel(q, k, v, o, lse, dout, causal)
-    dk, dv = backward_dkdv_kernel(q, k, v, dout, lse, delta, causal)
+    """Launch the backward kernel: dq, dk, dv (contiguous [B, S, H, D],
+    q.dtype) in one launch. Past S = BACKWARD_TILE each key tile writes an
+    fp32 dQ partial, summed here in tile order."""
+    _check(q, k, v)
+    _check_backward(q, lse, o=o, dout=dout)
+    for x in (q, k, v, o, dout):  # the kernel moves rows as 16-byte pieces
+        if x.data_ptr() % 16 or any(
+            x.stride(i) * x.element_size() % 16 for i in range(3) if x.shape[i] > 1
+        ):
+            raise ValueError("flash attention backward needs 16-byte aligned rows")
+    tiles = -(-q.shape[1] // BACKWARD_TILE)
+    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
+    dq = partial = None
+    if tiles == 1:
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    else:
+        partial = torch.zeros((tiles, *q.shape), dtype=torch.float32, device=q.device)
+    lib = LIBRARY.load()
+    with torch.cuda.device(q.device):
+        strides, shape = _launch_args(q, k, v, causal)
+        code = lib.flash_attention_backward(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), None if dq is None else dq.data_ptr(),
+            None if partial is None else partial.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            strides, *shape,
+        )
+    LIBRARY.check(code, "flash attention backward kernel")
+    BACKWARD.launches += 1
+    if partial is not None:
+        dq = partial.sum(0).to(q.dtype)
     return dq, dk, dv
 
 
@@ -320,7 +283,7 @@ def _forward(q, k, v, causal, need_lse):
 
 def _backward(q, k, v, o, lse, dout, causal):
     if q.device.type == "cuda":
-        return backward_kernels(q, k, v, o, lse, dout, causal)
+        return backward_kernel(q, k, v, o, lse, dout, causal)
     if q.device.type == "cpu":
         return plain_flash_attention_backward(q, k, v, o, lse, dout, causal)
     raise ValueError(f"no flash attention kernel for device {q.device}")

@@ -11,6 +11,8 @@ the JAX package, on the CPU.
 - The plain backward, through the autograd function, against `jax.grad` of
   the JAX package's `full_attention` (what that package differentiates; its
   flash kernel has no VJP): 1e-5 absolute, the reductions sum in another order.
+  S = 130 spans three of the backward kernel's 64-key tiles.
+- The plain backward against the two-kernel composition it replaced: bitwise.
 """
 
 import jax
@@ -86,9 +88,13 @@ def test_full_attention_matches_jax(causal, s):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("s", [16, 100])
-def test_plain_backward_matches_jax_grad_of_full_attention(causal, s):
-    b, h, d = 2, 2, 32
+@pytest.mark.parametrize("s,d", [
+    pytest.param(16, 32, id="16"), pytest.param(100, 32, id="100"),
+    pytest.param(1, 32, id="1"), pytest.param(20, 32, id="20"), pytest.param(130, 32, id="130"),
+    pytest.param(20, 16, id="20-d16"), pytest.param(130, 64, id="130-d64"),
+])
+def test_plain_backward_matches_jax_grad_of_full_attention(causal, s, d):
+    b, h = 2, 2
     q, k, v = _qkv(40 + s, b, s, h, d)
     weight = np.random.default_rng(s).normal(size=(b, s, h, d)).astype(np.float32)
 
@@ -103,16 +109,34 @@ def test_plain_backward_matches_jax_grad_of_full_attention(causal, s):
         np.testing.assert_allclose(n(leaf.grad), np.asarray(w), atol=1e-5, rtol=0)
 
 
-def test_backward_halves_compose_to_the_full_backward():
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_matches_the_two_kernel_composition(causal):
+    # The backward before it was fused, computed inline: dQ and delta first,
+    # then dK and dV from that delta, P and dS formed once in each half. The
+    # fused order forms them once for all three products with the same ops on
+    # the same operands, so the results agree bitwise.
     q, k, v = (t(x) for x in _qkv(5, 2, 20, 2, 16))
     dout = t(np.random.default_rng(6).normal(size=(2, 20, 2, 16)).astype(np.float32))
-    o, lse = fa.plain_flash_attention_forward(q, k, v, True, need_lse=True)
-    dq, delta = fa.plain_flash_attention_backward_dq(q, k, v, o, lse, dout, True)
-    dk, dv = fa.plain_flash_attention_backward_dkdv(q, k, v, dout, lse, delta, True)
-    assert delta.shape == (2, 2, 20) and dq.is_contiguous() and dk.shape == q.shape
-    for got, want in zip((dq, dk, dv), fa.plain_flash_attention_backward(
-            q, k, v, o, lse, dout, True)):
-        assert torch.equal(got, want)
+    o, lse = fa.plain_flash_attention_forward(q, k, v, causal, need_lse=True)
+    scale = 16**-0.5
+    qs, kf, vf, dof, of = (x.permute(0, 2, 1, 3) for x in (q * scale, k, v, dout, o))
+    mask = torch.ones(20, 20, dtype=torch.bool)
+    if causal:
+        mask = mask.tril()
+
+    def probabilities():
+        return torch.where(mask, torch.exp(qs @ kf.transpose(-1, -2) - lse[..., None]), 0.0)
+
+    delta = (dof * of).sum(-1)
+    ds = probabilities() * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    dq = (ds @ kf) * scale
+    p = probabilities()
+    dv = p.transpose(-1, -2) @ dof
+    dk = (p * (dof @ vf.transpose(-1, -2) - delta[..., None])).transpose(-1, -2) @ qs
+    got = fa.plain_flash_attention_backward(q, k, v, o, lse, dout, causal)
+    for g, want in zip(got, (dq, dk, dv)):
+        assert g.is_contiguous() and g.shape == q.shape
+        assert torch.equal(g, want.permute(0, 2, 1, 3))
 
 
 def test_strided_qkv_views_give_the_same_result():
@@ -147,4 +171,4 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fa.forward_kernel(q, k, v)
     o, lse = fa.plain_flash_attention_forward(q, k, v, need_lse=True)
     with pytest.raises(ValueError, match="one CUDA device"):
-        fa.backward_kernels(q, k, v, o, lse, o)
+        fa.backward_kernel(q, k, v, o, lse, o)
