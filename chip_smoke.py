@@ -9,7 +9,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   2. build       — builds every kernel from the sources in stoix_tpu_torch/csrc/,
                    one nvcc per source, all started together; prints ptxas's
                    registers, spills and shared memory for every instance of
-                   the flash-attention library.
+                   both flash-attention libraries (the forward, the backward
+                   and the chunk kernel).
   3. kernel      — B1 (linear recurrence) against its plain PyTorch version on
                    the card, at the main path's shape and at a ragged shape
                    with resets, float32 (bitwise) and bfloat16; timed with CUDA
@@ -17,9 +18,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    CUDA graph.
   4. attention   — B2 (flash attention): the forward kernel against its plain
                    version at the ff_trans_ppo path's shapes ([1024|4096|16384,
-                   16, 4, 32] float32 causal, from strided qkv views), a ragged
-                   non-causal [2, 100, 2, 32] and a bfloat16 causal
-                   [1, 128, 1, 64]; the fused backward kernel against the
+                   16, 4, 32] float32 causal, from strided qkv views), the ring
+                   phase's long window [64, 512, 4, 32] causal, a ragged causal
+                   [2, 300, 2, 64], a ragged non-causal [2, 100, 2, 32] and a
+                   bfloat16 causal [1, 128, 1, 64], each also run twice and
+                   held bitwise equal; the fused backward kernel against the
                    plain backward at [4096, 16, 4, 32] causal, the ragged
                    non-causal [2, 100, 2, 32], [2, 300, 2, 64] causal (five
                    key tiles) and a bfloat16 causal [1, 128, 1, 64]; each
@@ -191,11 +194,12 @@ def phase_build() -> None:
     build.build_all(libraries)
     emit({"phase": "build", "libraries": [lib.library_path() for lib in libraries],
           "seconds": time.perf_counter() - start})
-    lines = flash_attention.LIBRARY.ptxas_report()
-    for line in lines:
-        print(line, flush=True)
-    emit({"phase": "build_ptxas", "library": ATTENTION_SOURCE,
-          "instances": ptxas_instances(lines)})
+    for library, source in ((flash_attention.LIBRARY, ATTENTION_SOURCE),
+                            (flash_attention_chunk.LIBRARY, CHUNK_SOURCE)):
+        lines = library.ptxas_report()
+        for line in lines:
+            print(line, flush=True)
+        emit({"phase": "build_ptxas", "library": source, "instances": ptxas_instances(lines)})
 
 
 def phase_kernel() -> dict:
@@ -299,13 +303,19 @@ def phase_attention() -> list:
     path = [((b, TRANS["window"], TRANS["heads"], TRANS["head_dim"]), True, torch.float32)
             for b in (TRANS_ENVS, 4 * TRANS_ENVS, TRANS["rollout"] * TRANS_ENVS)]
     errors = {"forward": 0.0, "backward": 0.0}
+    long = ((RING_BATCH, 512, TRANS["heads"], TRANS["head_dim"]), True, torch.float32)
     for seed, (shape, causal, dtype) in enumerate(path + [
+        long,
+        ((2, 300, 2, 64), True, torch.float32),
         ((2, 100, 2, 32), False, torch.float32),
         ((1, 128, 1, 64), True, torch.bfloat16),
     ]):
         q, k, v = qkv_views(*shape, dtype, seed=seed)
         got, lse = fa.forward_kernel(q, k, v, causal, need_lse=True)
+        again, lse_again = fa.forward_kernel(q, k, v, causal, need_lse=True)
         torch.cuda.synchronize()
+        if not (torch.equal(got, again) and torch.equal(lse, lse_again)):
+            raise AssertionError(f"forward kernel not deterministic at {shape} {dtype}")
         want, want_lse = fa.plain_flash_attention_forward(q, k, v, causal, need_lse=True)
         err = (got.float() - want.float()).abs().max().item()
         lse_err = (lse - want_lse).abs().max().item()
@@ -317,7 +327,7 @@ def phase_attention() -> list:
             errors["forward"] = max(errors["forward"], err)
         emit({"phase": "attention", "kernel": "flash_attention_forward", "shape": list(shape),
               "causal": causal, "dtype": str(dtype), "max_abs_err": err,
-              "lse_max_abs_err": lse_err, "tolerance": tolerance[dtype]})
+              "lse_max_abs_err": lse_err, "tolerance": tolerance[dtype], "bitwise_twice": True})
 
     # The backward: the path's shape, a ragged one, one of five 64-key tiles
     # (dQ partials summed) and a bfloat16 one. bfloat16 is also held at 2e-2
@@ -349,10 +359,10 @@ def phase_attention() -> list:
               "causal": causal, "dtype": str(dtype), "max_abs_err_dq_dk_dv": errs,
               "tolerance": tolerance[dtype], "rtol": rtol})
 
-    # Times at the path's shapes: the forward at each batch it runs at, the
-    # backward at the minibatch's.
+    # Times at the path's shapes: the forward at each batch it runs at and at
+    # the ring phase's long window, the backward at the minibatch's.
     shapes = []
-    for shape, causal, _ in path:
+    for shape, causal, _ in path + [long]:
         q, k, v = qkv_views(*shape, torch.float32, seed=20)
         bound, bound_by, moved, flops = attention_bound("forward", q, causal)
         shapes.append({

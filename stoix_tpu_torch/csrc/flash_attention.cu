@@ -10,22 +10,18 @@
 // here is the port's own, held against jax.grad of the JAX package's
 // `full_attention`.
 //
-// Forward:
-//   * one thread owns one query row and keeps that row's fp32 state in
-//     registers; a block holds `pairs` (batch, head) pairs times `rows` rows,
-//     so short sequences (S = 16 on the ff_trans_ppo path) still fill
-//     128-thread blocks, and a long S takes one block per 128 rows;
-//   * K/V rows are staged 16 at a time in shared memory (widened to fp32) and
-//     read back by every thread of the pair as broadcasts;
-//   * ragged S is masked, never padded; a causal block stops at the last key
-//     tile that holds a key at or before its last query (`_flash_kernel`'s
-//     bound).
-//   Arithmetic follows `_fold_block`: q scaled in fp32 before the dot; per key
-//   tile the running max, `m_safe` (0 while a row has seen only masked keys),
-//   `alpha = exp(m_acc - m_safe)`, `l = l.alpha + sum p`, `acc = acc.alpha + p.v`;
-//   `l_safe = 1` where l == 0, and one rounding to the output type. expf, not
-//   __expf. When a gradient is needed the forward also writes
-//   lse = m + log(l) ([B, H, S] fp32; +inf where l == 0, so P = 0 there).
+// Forward (the shared core, csrc/flash_forward.cuh): a block holds 64 query
+//   rows (4 pairs at S = 16), copies q, K and V as 16-byte coalesced pieces
+//   into padded fp32 tiles, scores each row in register tiles shared by 4
+//   lanes whose max and sum are taken by shuffles, folds the online softmax
+//   per key tile of R keys (64 past S = 64) as `_fold_block` folds a block,
+//   keeps the output as register tiles and stores it through shared memory.
+//   Ragged S is masked, never padded; a causal block stops at the key tile of
+//   its last query (`_flash_kernel`'s bound), and the query tiles with the
+//   most key tiles are launched first. `l_safe = 1` where l == 0, and one
+//   rounding to the output type. expf, not __expf. When a gradient is needed
+//   the forward also writes lse = m + log(l) ([B, H, S] fp32; +inf where
+//   l == 0, so P = 0 there).
 //
 // Backward, one launch for dQ, dK and dV (recompute from lse, deterministic,
 // no atomics):
@@ -71,38 +67,27 @@
 // Arithmetic stays fp32 FMA on the CUDA cores (no tensor cores: TF32 would miss
 // the 1e-5 parity every check holds).
 //
+// Bound of the forward: bytes. At [4096, 16, 4, 32] float32 causal it must read
+// q, k, v and write o: 134 217 728 bytes, 0.0401 ms at 3.35 TB/s, against
+// 0.29 GFLOP (0.0043 ms at 67 TFLOP/s).
+//
 // Layout: q, k and v are taken by strides (batch, seq, head; the last dim
 // contiguous), so the three views of a fused [B, S, 3, H, D] projection go in
 // as they are. o, dO, dQ, dK, dV are contiguous [B, S, H, D]; lse contiguous
-// [B, H, S]. The backward needs every row of q, k, v, o, dO 16-byte aligned.
+// [B, H, S]. Both kernels need every row of q, k, v (and o, dO) 16-byte aligned.
 //
 // Plain C interface, bound from Python with ctypes. Each entry point launches
 // on the given stream and returns cudaGetLastError() (0 on success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_forward.cuh"
 
 namespace {
 
-constexpr int kTile = 16;         // rows of the other side staged per step (forward)
-constexpr int kMaxThreads = 128;  // threads per block (forward)
-constexpr int kMaxPairs = 32;     // (batch, head) pairs per block (forward)
-constexpr int kSmemFloats = 4096; // one staged operand: pairs * kTile * D <= 4096
-constexpr int kBwdRows = 64;               // rows of each side a backward block holds
+constexpr int kBwdRows = kTileRows;        // rows of each side a backward block holds
 constexpr int kBwdThreads = 4 * kBwdRows;  // threads per backward block: 4 per row
 // Backward blocks an SM must hold at once: caps a thread at 80 registers, so
 // that one block's copies overlap another's arithmetic.
 constexpr int kBwdMinBlocks = 3;
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T narrow(float x);
-template <> __device__ __forceinline__ float narrow<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Shape {
   int batch, seq, heads;
@@ -129,154 +114,21 @@ __device__ __forceinline__ long long stat_offset(int pair, int row, const Shape&
   return static_cast<long long>(pair) * s.seq + row;
 }
 
-// Stage rows [r0, r0 + kTile) of the block's pairs from a strided [B, S, H, D]
-// tensor into shared memory as fp32 (zeros past S or past the last pair),
-// multiplied by `mul`.
-template <typename T, int D>
-__device__ __forceinline__ void stage_strided(float* dst, const T* src, long long sb, long long ss,
-                                              long long sh, int first_pair, int r0,
-                                              const Shape& s, float mul) {
-  const int total = s.pairs * kTile * D;
-  const int num_pairs = s.batch * s.heads;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int d = idx % D;
-    const int r = (idx / D) % kTile;
-    const int pair = first_pair + idx / (D * kTile);
-    const int row = r0 + r;
-    float x = 0.f;
-    if (pair < num_pairs && row < s.seq) {
-      x = widen(src[qkv_offset(sb, ss, sh, pair, row, s.heads) + d]) * mul;
-    }
-    dst[idx] = x;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ float dot_row(const float (&a)[D], const float* smem_row) {
-  const float4* b = reinterpret_cast<const float4*>(smem_row);
-  float sum = 0.f;
-#pragma unroll
-  for (int d4 = 0; d4 < D / 4; ++d4) {
-    const float4 x = b[d4];
-    sum = fmaf(a[4 * d4 + 0], x.x, sum);
-    sum = fmaf(a[4 * d4 + 1], x.y, sum);
-    sum = fmaf(a[4 * d4 + 2], x.z, sum);
-    sum = fmaf(a[4 * d4 + 3], x.w, sum);
-  }
-  return sum;
-}
-
-template <int D>
-__device__ __forceinline__ void axpy_row(float (&acc)[D], float p, const float* smem_row) {
-  const float4* b = reinterpret_cast<const float4*>(smem_row);
-#pragma unroll
-  for (int d4 = 0; d4 < D / 4; ++d4) {
-    const float4 x = b[d4];
-    acc[4 * d4 + 0] = fmaf(p, x.x, acc[4 * d4 + 0]);
-    acc[4 * d4 + 1] = fmaf(p, x.y, acc[4 * d4 + 1]);
-    acc[4 * d4 + 2] = fmaf(p, x.z, acc[4 * d4 + 2]);
-    acc[4 * d4 + 3] = fmaf(p, x.w, acc[4 * d4 + 3]);
-  }
-}
-
 // ---------------------------------------------------------------- forward
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kMaxThreads)
+template <typename T, int D, int kLanes>
+__global__ void __launch_bounds__(kThreads, min_blocks<kLanes>())
 flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, float* __restrict__ lse, Shape s) {
-  __shared__ __align__(16) float k_s[kSmemFloats];
-  __shared__ __align__(16) float v_s[kSmemFloats];
-  const int local_pair = threadIdx.x / s.rows;
-  const int first_pair = blockIdx.x * s.pairs;
-  const int pair = first_pair + local_pair;
-  const int row = blockIdx.y * s.rows + threadIdx.x % s.rows;
-  const bool active = local_pair < s.pairs && pair < s.batch * s.heads && row < s.seq;
-
-  float qr[D], acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = 0.f;
-    acc[d] = 0.f;
-  }
-  if (active) {
-    const T* qp = q + qkv_offset(s.qb, s.qs, s.qh, pair, row, s.heads);
-#pragma unroll
-    for (int d = 0; d < D; ++d) qr[d] = widen(qp[d]) * s.scale;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  const int block_end = min(s.seq, (blockIdx.y + 1) * s.rows);
-  const int key_end = s.causal ? block_end : s.seq;
-  for (int k0 = 0; k0 < key_end; k0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    stage_strided<T, D>(k_s, k, s.kb, s.ks, s.kh, first_pair, k0, s, 1.f);
-    stage_strided<T, D>(v_s, v, s.vb, s.vs, s.vh, first_pair, k0, s, 1.f);
-    __syncthreads();
-    if (!active) continue;
-    const float* ks = k_s + local_pair * kTile * D;
-    const float* vs = v_s + local_pair * kTile * D;
-    float p[kTile];
-    float m_blk = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const int key = k0 + j;
-      const bool valid = key < s.seq && (!s.causal || key <= row);
-      p[j] = valid ? dot_row<D>(qr, ks + j * D) : -INFINITY;
-      m_blk = fmaxf(m_blk, p[j]);
-    }
-    const float m_new = fmaxf(m, m_blk);
-    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-    float p_sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      p[j] = p[j] == -INFINITY ? 0.f : expf(p[j] - m_safe);
-      p_sum += p[j];
-    }
-    const float alpha = m == -INFINITY ? 0.f : expf(m - m_safe);
-    l = l * alpha + p_sum;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) axpy_row<D>(acc, p[j], vs + j * D);
-    m = m_new;
-  }
-  if (!active) return;
-  const float l_safe = l == 0.f ? 1.f : l;
-  T* op = o + row_offset(pair, row, s, D);
-#pragma unroll
-  for (int d = 0; d < D; ++d) op[d] = narrow<T>(acc[d] / l_safe);
-  if (lse != nullptr) lse[stat_offset(pair, row, s)] = l == 0.f ? INFINITY : m + logf(l);
+                     T* __restrict__ o, float* __restrict__ lse, ForwardShape s) {
+  forward_core<T, T, D, false, kLanes>(q, k, v, nullptr, nullptr, o, lse, nullptr, nullptr, s);
 }
 
 // ---------------------------------------------------------------- backward (fused)
-
-// An operand tile is [kBwdRows] rows of D + 4 floats, with 4 more floats after
-// every 8 rows: the 8 rows 2 apart that one quarter-warp reads together then
-// fall in different banks.
-template <int D>
-__device__ __forceinline__ int tile_row(int r) {
-  return r * (D + 4) + (r / 8) * 4;
-}
-
-__host__ __device__ constexpr int tile_floats(int d) {
-  return kBwdRows * (d + 4) + kBwdRows / 8 * 4;
-}
 
 // Shared-memory floats of one backward block: five operand tiles (q, k, v, o,
 // dO), P and dS ([kBwdRows][R]), lse and delta.
 __host__ __device__ constexpr int bwd_smem_floats(int d, int r) {
   return 5 * tile_floats(d) + 2 * kBwdRows * r + 2 * kBwdRows;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const void* src, bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
-               "r"(valid ? 16 : 0));  // 0 source bytes: the 16 bytes are zero-filled
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Copy rows [r0, r0 + R) of each of the block's pairs from a [B, S, H, D]
@@ -333,14 +185,6 @@ __device__ __forceinline__ void store_tile(OutT* dst, const float* src, int firs
       *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(h);
     }
   }
-}
-
-__device__ __forceinline__ float lane(const float4& x, int i) {
-  return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
-}
-
-__device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
-  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
 
 // acc[r][c] += a[r] * b[c]
@@ -565,42 +409,27 @@ flash_backward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 
 // ---------------------------------------------------------------- host side
 
-int next_pow2(int x) {
-  int p = 1;
-  while (p < x) p <<= 1;
-  return p;
-}
-
-// Fill the forward's tiling; false when the shape is not one the kernels take.
-bool make_shape(Shape* s, const long long* strides, int batch, int seq, int heads,
-                int head_dim, float scale, int causal) {
+// Fill the backward's shape and tiling: R rows a pair (the next power of two
+// >= S, within [4, kBwdRows]) and kBwdRows / R pairs a block; false when the
+// shape is not one the kernels take.
+bool make_backward_shape(Shape* s, const long long* strides, int batch, int seq, int heads,
+                         int head_dim, float scale, int causal) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return false;
   if (head_dim != 16 && head_dim != 32 && head_dim != 64) return false;
+  int rows = next_pow2(seq);
+  if (rows < 4) rows = 4;
+  if (rows > kBwdRows) rows = kBwdRows;
   s->batch = batch;
   s->seq = seq;
   s->heads = heads;
-  s->rows = next_pow2(seq < kMaxThreads ? seq : kMaxThreads);
-  int pairs = kMaxThreads / s->rows;
-  const int by_smem = kSmemFloats / (kTile * head_dim);
-  if (pairs > by_smem) pairs = by_smem;
-  if (pairs > kMaxPairs) pairs = kMaxPairs;
-  s->pairs = pairs < 1 ? 1 : pairs;
+  s->rows = rows;
+  s->pairs = kBwdRows / rows;
   s->scale = scale;
   s->causal = causal;
   s->qb = strides[0]; s->qs = strides[1]; s->qh = strides[2];
   s->kb = strides[3]; s->ks = strides[4]; s->kh = strides[5];
   s->vb = strides[6]; s->vs = strides[7]; s->vh = strides[8];
   return true;
-}
-
-// The backward's tiling: R rows a pair (the next power of two >= S, within
-// [4, kBwdRows]) and kBwdRows / R pairs a block.
-void backward_tiling(Shape* s) {
-  int rows = next_pow2(s->seq);
-  if (rows < 4) rows = 4;
-  if (rows > kBwdRows) rows = kBwdRows;
-  s->rows = rows;
-  s->pairs = kBwdRows / rows;
 }
 
 dim3 grid_of(const Shape& s) {
@@ -610,10 +439,11 @@ dim3 grid_of(const Shape& s) {
 
 template <typename T, int D>
 void forward_launch(const void* q, const void* k, const void* v, void* o, void* lse,
-                    const Shape& s, cudaStream_t stream) {
-  flash_forward_kernel<T, D><<<grid_of(s), s.rows * s.pairs, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), s);
+                    const ForwardShape& s, cudaStream_t stream) {
+  static bool opted[2] = {false, false};
+  launch_forward<D>(flash_forward_kernel<T, D, 4>, flash_forward_kernel<T, D, 16>, opted, s, stream,
+                    static_cast<const T*>(q), static_cast<const T*>(k),
+                    static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse));
 }
 
 template <typename T, int D>
@@ -669,8 +499,8 @@ extern "C" int flash_attention_forward(int dtype, const void* q, const void* k, 
                                        void* o, void* lse, const long long* strides, int batch,
                                        int seq, int heads, int head_dim, float scale,
                                        int causal, void* stream) {
-  Shape s;
-  if (!make_shape(&s, strides, batch, seq, heads, head_dim, scale, causal))
+  ForwardShape s;
+  if (!make_forward_shape(&s, strides, batch, seq, seq, heads, head_dim, scale, causal))
     return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(forward_launch, dtype, head_dim, q, k, v, o, lse, s,
            static_cast<cudaStream_t>(stream));
@@ -686,9 +516,8 @@ extern "C" int flash_attention_backward(int dtype, const void* q, const void* k,
                                         const long long* strides, int batch, int seq, int heads,
                                         int head_dim, float scale, int causal, void* stream) {
   Shape s;
-  if (!make_shape(&s, strides, batch, seq, heads, head_dim, scale, causal))
+  if (!make_backward_shape(&s, strides, batch, seq, heads, head_dim, scale, causal))
     return static_cast<int>(cudaErrorInvalidValue);
-  backward_tiling(&s);
   if ((seq > kBwdRows ? dq_partial : dq) == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(backward_launch, dtype, head_dim, q, k, v, o, dout, lse, dq, dq_partial, dk, dv, s,

@@ -1,8 +1,10 @@
 """Build the port's CUDA sources with nvcc and bind their plain C entry points.
 
 Each source under `csrc/` compiles on its own into a shared library in
-`_build/` (git-ignored), named by the hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads at once. Nothing is built at
+`_build/` (git-ignored), named by the hash of the source, of every header
+(`*.cuh`) beside it (csrc/flash_forward.cuh is the forward core both
+flash-attention sources share) and of the flags, so an edited source or
+header rebuilds and an unchanged one loads at once. Nothing is built at
 import: a library builds inside the first call that launches one of its
 kernels, or in `build_all`, which starts one nvcc per source at once and
 waits for all of them.
@@ -36,6 +38,19 @@ NVCC_FLAGS = (
 BUILD_TIMEOUT_S = 600
 
 
+def _source_bytes(path: str) -> bytes:
+    """The source and, after it, every header (`*.cuh`) in its directory, in
+    name order."""
+    directory = os.path.dirname(path)
+    headers = sorted(name for name in os.listdir(directory) if name.endswith(".cuh"))
+    parts = [path] + [os.path.join(directory, name) for name in headers]
+    out = b""
+    for part in parts:
+        with open(part, "rb") as f:
+            out += f.read()
+    return out
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -62,8 +77,8 @@ class CudaLibrary:
         self._lock = threading.Lock()
 
     def library_path(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(
+            _source_bytes(self.source) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         stem = os.path.splitext(os.path.basename(self.source))[0]
         return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 

@@ -24,18 +24,24 @@ B = 4096 it moves 128 MiB, about 40 µs at 3.35 TB/s. The backward reads q, k,
 v, o, dO and lse once and writes dQ, dK, dV once: 257 MiB at B = 4096, about
 80 µs.
 
-Design (csrc/flash_attention.cu). Forward: one thread per query row with the
-row's fp32 state in registers; K/V rows staged 16 at a time in shared memory;
-several (batch, head) pairs per block when S is short. Backward: a block holds
-64 rows of each side (several pairs when S is short), loads them as 16-byte
-coalesced pieces, forms delta, then P and dS once (2 x 2 register tiles kept
+Design. Forward (csrc/flash_forward.cuh, the core B3 shares): a block holds
+64 query rows (several (batch, head) pairs when S is short: 4 at S = 16),
+copies q, K and V as 16-byte coalesced pieces into padded fp32 tiles in
+shared memory, scores each query row in register tiles shared by 4 lanes
+whose max and sum are taken by shuffles, folds the online softmax per key
+tile of up to KEY_TILE keys as `_fold_block` folds a block, keeps the output
+in register tiles and stores it through shared memory as 16-byte pieces.
+Backward (csrc/flash_attention.cu): a block holds 64 rows of each side, loads
+them the same way, forms delta, then P and dS once (2 x 2 register tiles kept
 in shared memory), then dV, dK and dQ as 4 x 4 register tiles, and stores
 through shared memory as 16-byte pieces.
-Past S = 64 a block owns one 64-key tile and walks the query tiles; each key
-tile then writes an fp32 dQ partial that `backward_kernel` sums in a fixed
-order (deterministic, no atomics). Both: ragged S masked, not padded; causal
-walks bounded. q, k, v are taken by strides, so the views of the fused qkv
-projection need no copy.
+Past S = 64 a backward block owns one 64-key tile and walks the query tiles;
+each key tile then writes an fp32 dQ partial that `backward_kernel` sums in
+a fixed order (deterministic, no atomics). Both: ragged S masked, not padded;
+causal walks bounded. q, k, v are taken by strides, so the views of the fused
+qkv projection need no copy; every row must be 16-byte aligned, which those
+views are at every head dim the kernels take, and anything else is refused
+with a ValueError (`check_rows_aligned`).
 
 Counters: `FORWARD` and `BACKWARD` each count the launches of one kernel, and
 rise nowhere else.
@@ -50,7 +56,7 @@ import torch
 
 from stoix_tpu_torch.kernels.build import CudaLibrary
 
-KEY_TILE = 16  # keys folded per online-softmax step, as csrc/flash_attention.cu stages them
+KEY_TILE = 64  # keys folded per online-softmax step past S = 64, as the forward core folds them
 HEAD_DIMS = (16, 32, 64)  # the head dims csrc/flash_attention.cu instantiates
 BACKWARD_TILE = 64  # rows of a key tile in the backward kernel (kBwdRows)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -99,7 +105,8 @@ def fold_key_tiles(
     q_positions: Optional[torch.Tensor] = None, k_positions: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernels' online softmax in plain PyTorch: keys folded KEY_TILE at a
-    time, as `_fold_block` folds its blocks. qs [B, H, Sq, D] float32 (already
+    time, as `_fold_block` folds its blocks (the forward core folds one tile
+    of all the keys when there are at most KEY_TILE, else tiles of KEY_TILE). qs [B, H, Sq, D] float32 (already
     scaled), kf, vf [B, H, Sk, D] float32. Given positions ([Sq] and [Sk]), a
     query sees only the keys at or before its own position (causal). Returns
     m (-inf on a row that saw no key), l [B, H, Sq, 1] and the unnormalised
@@ -193,6 +200,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash attention kernels need the head dim of q, k, v contiguous")
 
 
+def check_rows_aligned(what: str, *tensors: torch.Tensor) -> None:
+    """The kernels move rows as 16-byte pieces: every tensor's start and its
+    batch, seq and head strides must be multiples of 16 bytes."""
+    for x in tensors:
+        if x.data_ptr() % 16 or any(
+            x.stride(i) * x.element_size() % 16 for i in range(3) if x.shape[i] > 1
+        ):
+            raise ValueError(f"{what} needs 16-byte aligned rows")
+
+
 def _launch_args(q, k, v, causal):
     batch, seq, heads, head_dim = q.shape
     strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v) for i in range(3)))
@@ -207,6 +224,7 @@ def forward_kernel(
     """Launch the forward kernel; o contiguous [B, S, H, D] in q.dtype and, if
     asked, lse [B, H, S] float32."""
     _check(q, k, v)
+    check_rows_aligned("flash attention forward", q, k, v)
     batch, seq, heads, _ = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = None
@@ -242,11 +260,7 @@ def backward_kernel(
     fp32 dQ partial, summed here in tile order."""
     _check(q, k, v)
     _check_backward(q, lse, o=o, dout=dout)
-    for x in (q, k, v, o, dout):  # the kernel moves rows as 16-byte pieces
-        if x.data_ptr() % 16 or any(
-            x.stride(i) * x.element_size() % 16 for i in range(3) if x.shape[i] > 1
-        ):
-            raise ValueError("flash attention backward needs 16-byte aligned rows")
+    check_rows_aligned("flash attention backward", q, k, v, o, dout)
     tiles = -(-q.shape[1] // BACKWARD_TILE)
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     dq = partial = None

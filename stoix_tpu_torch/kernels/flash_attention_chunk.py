@@ -22,14 +22,17 @@ Bound on an H100 at the ring's shapes: operations. A fully visible
 k, v and pv (5 µs at 3.35 TB/s); a diagonal chunk does half the flops; a chunk
 wholly in the queries' future needs no K/V at all.
 
-Design (csrc/flash_attention_chunk.cu): B2's forward (csrc/flash_attention.cu)
-with position inputs and stats outputs. One thread per query row with its
-fp32 state in registers, keys staged 16 at a time in shared memory with their
-positions, several (batch, head) pairs per block when the chunk is short;
-each key masked by its own position. A block whose chunk lies wholly in its
-queries' future exits at once (proxy stats and zeros, no q, K or V read), and
-a key tile wholly beyond the block's last query is skipped before its K/V
-are read. q, k, v are taken by strides. The TPU kernel's block sizes (which must
+Design (csrc/flash_attention_chunk.cu on csrc/flash_forward.cuh, the forward
+core B2's forward shares): 64 query rows a block (several (batch, head) pairs
+when the chunk is short), q, K and V copied as 16-byte coalesced pieces into
+padded fp32 tiles, scores and the online softmax in register tiles with the
+row max and sum taken by shuffles, the accumulator in register tiles, folded
+over key tiles of up to KEY_TILE keys; each key masked by its own position,
+staged with its tile. A block whose chunk lies wholly in its queries' future
+writes the proxy stats and zeros as coalesced stores without reading q, K or
+V, and a key tile wholly beyond the block's last query is skipped before its
+K/V are copied. q, k, v are taken by strides; their rows must be 16-byte
+aligned (a ValueError otherwise). The TPU kernel's block sizes (which must
 divide the chunk lengths) do not shape this kernel's tiling.
 
 Counter: `KERNEL` counts this kernel's launches and rises nowhere else.
@@ -44,7 +47,7 @@ import torch
 
 from stoix_tpu_torch.kernels.build import CudaLibrary
 from stoix_tpu_torch.kernels.flash_attention import (
-    HEAD_DIMS, KernelCounter, _heads_first, fold_key_tiles,
+    HEAD_DIMS, KernelCounter, _heads_first, check_rows_aligned, fold_key_tiles,
 )
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -113,6 +116,7 @@ def chunk_kernel(
     """Launch the kernel on CUDA tensors (or raise); returns (pv, m, l) as
     `plain_flash_attention_chunk` does."""
     _check(q, k, v, q_positions, k_positions)
+    check_rows_aligned("the chunk kernel", q, k, v)
     batch, q_len, heads, head_dim = q.shape
     pv = torch.empty((batch, q_len, heads, head_dim), dtype=torch.float32, device=q.device)
     m, l = (torch.empty((batch, heads, q_len), dtype=torch.float32, device=q.device)

@@ -1,11 +1,13 @@
 """Kernel B2 (flash attention) and attention dispatch of the PyTorch port against
 the JAX package, on the CPU.
 
-- The plain forward (kernels/flash_attention.py, the CUDA kernel's arithmetic)
-  against stoix_tpu/ops/pallas_attention.py::flash_attention in interpret mode,
-  on every case of tests/test_pallas_attention.py plus the ff_trans_ppo path's
-  S=16, H=4, D=32 causal: 2e-5 (that test's own tolerance; both fold the online
-  softmax, over other tile sizes), bf16 2e-2.
+- The plain forward (kernels/flash_attention.py, the CUDA kernel's arithmetic,
+  folding 64-key tiles) against stoix_tpu/ops/pallas_attention.py::
+  flash_attention in interpret mode, on every case of tests/
+  test_pallas_attention.py, the ff_trans_ppo path's S=16, H=4, D=32 causal and
+  S=200 (four 64-key tiles, the last ragged): 2e-5 (that test's own
+  tolerance; both fold the online softmax, over other tile sizes), bf16 2e-2.
+- The wrappers' 16-byte row alignment check, on the CPU.
 - `full_attention` against the JAX package's: 1e-6 (the same ops; the
   reductions sum in another order).
 - The plain backward, through the autograd function, against `jax.grad` of
@@ -52,6 +54,8 @@ FORWARD_CASES = [
     (1, 100, 2, 32, True, dict(block_q=64, block_k=64)),
     (1, 256, 1, 32, True, dict(block_q=64, block_k=128)),
     (8, 16, 4, 32, True, {}),
+    # Four of the plain forward's 64-key tiles, the last one ragged.
+    (1, 200, 2, 32, True, dict(block_q=64, block_k=64)),
 ]
 
 
@@ -161,6 +165,24 @@ def test_dispatch_by_device_and_counters_stay_still_on_the_cpu():
         best_attention(*(x.to("meta") for x in (q, k, v)))
     with pytest.raises(ValueError, match="device meta"):
         flash_attention(*(x.to("meta") for x in (q, k, v)))
+
+
+def test_row_alignment_check():
+    # The kernels move rows as 16-byte pieces. The views of a fused
+    # [B, S, 3, H, D] projection are aligned at every head dim they take; a
+    # view that starts 4 bytes into its buffer, or whose rows are 20 bytes
+    # apart, is refused.
+    for head_dim in fa.HEAD_DIMS:
+        proj = torch.zeros((2, 5, 3, 2, head_dim))
+        fa.check_rows_aligned("views", *(proj[:, :, i] for i in range(3)))
+    flat = torch.zeros(2 * 5 * 2 * 16 + 1)
+    shifted = flat[1:].view(2, 5, 2, 16)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fa.check_rows_aligned("the kernel", shifted)
+    padded = torch.zeros((2, 5, 2, 21))[..., :16]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fa.check_rows_aligned("the kernel", padded)
+    fa.check_rows_aligned("one row", padded[:1, :1, :1])  # a lone row moves no stride
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

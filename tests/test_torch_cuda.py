@@ -112,6 +112,9 @@ def _atol(dtype):
     ((3, 4, 2, 16), True, torch.float32),
     ((1, 300, 1, 64), True, torch.float32),
     ((5, 1, 3, 16), False, torch.float32),
+    ((64, 512, 4, 32), True, torch.float32),  # eight 64-row query tiles, the ring's window
+    ((3, 65, 2, 32), True, torch.float32),  # one full 64-key tile and one key
+    ((3, 16, 5, 32), True, torch.float32),  # 15 pairs: the last block holds 3 of 4
 ])
 def test_flash_forward_kernel_matches_plain_version(shape, causal, dtype):
     device = _require_cuda()
@@ -124,6 +127,20 @@ def test_flash_forward_kernel_matches_plain_version(shape, causal, dtype):
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_atol(dtype))
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((4096, 16, 4, 32), torch.float32),
+    ((64, 512, 4, 32), torch.float32),
+    ((2, 300, 2, 64), torch.bfloat16),
+])
+def test_flash_forward_kernel_is_deterministic(shape, dtype):
+    # No atomics, every sum in a fixed order: two calls agree bit for bit.
+    q, k, v = _qkv(shape, dtype, _require_cuda(), seed=3)
+    first = fa.forward_kernel(q, k, v, True, need_lse=True)
+    second = fa.forward_kernel(q, k, v, True, need_lse=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
@@ -239,6 +256,8 @@ def _chunk_case(batch, q_len, k_len, heads, head_dim, dtype, q_start, k_start, s
     ((3, 33, 45, 2, 16, torch.float32, 7, 0, True), True),          # ragged, shuffled keys
     ((5, 1, 7, 3, 64, torch.float32, 3, 0, False), True),
     ((1, 128, 128, 1, 64, torch.bfloat16, 0, 0, False), True),
+    ((2, 80, 100, 2, 32, torch.float32, 20, 30, True), True),       # two key tiles, shuffled
+    ((3, 33, 70, 2, 16, torch.float32, 0, 40, True), True),         # wholly future, ragged
 ])
 def test_chunk_kernel_matches_plain_version(case, causal):
     q, k, v, q_pos, k_pos = _chunk_case(*case, seed=sum(case[:5]))
@@ -252,6 +271,23 @@ def test_chunk_kernel_matches_plain_version(case, causal):
     assert max(fac.chunk_errors(got, want)) <= 1e-5
     if causal and case[7] >= case[6] + case[1]:  # wholly in the future: the proxy stats
         assert not any(x.any() for x in got)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_unaligned_rows():
+    # The kernels move rows as 16-byte pieces: a view 4 bytes into its buffer
+    # is refused before any launch, by the forward and the chunk kernel alike.
+    device = _require_cuda()
+    flat = torch.randn(2 * 16 * 2 * 32 + 1, device=device)
+    q = flat[1:].view(2, 16, 2, 32)
+    k, v = (x.contiguous() for x in (q, q))
+    positions = torch.arange(16, dtype=torch.int32, device=device)
+    before = (fa.FORWARD.launches, fac.KERNEL.launches)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fa.forward_kernel(q, k, v, True)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fac.chunk_kernel(q, k, v, positions, positions, True)
+    assert (fa.FORWARD.launches, fac.KERNEL.launches) == before
 
 
 @pytest.mark.cuda

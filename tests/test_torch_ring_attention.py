@@ -9,6 +9,9 @@ PyTorch port against the JAX package, on the CPU.
   queries' future. Tolerance 2e-5 (that test's): m absolute, l and pv relative
   to the row's l (pv is the unnormalised sum, so its scale is l's). Both fold
   the online softmax over other tile sizes.
+- B3's plain version on a chunk of two 64-key tiles with shuffled positions
+  against the JAX package's `_block_attend` (masked by each key's position):
+  2e-5, measured as above.
 - The three-chunk fold against JAX's full attention: 2e-5.
 - Ring attention on 4 gloo ranks (spawned processes, tests/torch_ring_worker.py,
   one spawn for the whole module) against JAX's ring_attention on a 4-device
@@ -30,6 +33,7 @@ from jax.sharding import PartitionSpec as P
 
 from stoix_tpu.networks.attention import TransformerTorso as JaxTransformerTorso
 from stoix_tpu.ops.pallas_attention import flash_attention_chunk as jax_flash_attention_chunk
+from stoix_tpu.ops.ring_attention import _block_attend as jax_block_attend
 from stoix_tpu.ops.ring_attention import full_attention as jax_full_attention
 from stoix_tpu.ops.ring_attention import ring_attention as jax_ring_attention
 from stoix_tpu.parallel import create_mesh as jax_create_mesh
@@ -100,6 +104,26 @@ def test_chunk_wholly_in_the_future_gives_the_proxy_stats():
     got, want = _port_chunk(*inputs, True), _jax_chunk(*inputs, True)
     for g, w in zip(got, want):
         assert not np.any(w) and np.array_equal(g, w)
+
+
+def test_plain_chunk_across_key_tiles_with_shuffled_positions_matches_jax():
+    # A chunk of 100 keys (two of the plain version's 64-key tiles, the second
+    # ragged) with shuffled global positions, against the JAX package's
+    # one-block attend (`_block_attend`, which masks each key by its own
+    # position; the Pallas kernel bounds its walk by assuming ascending
+    # positions). Some queries see no key of the chunk: m = 0, l = 0, pv = 0.
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(2, 80, 2, 32)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 100, 2, 32)).astype(np.float32) for _ in range(2))
+    q_pos = np.arange(20, 100, dtype=np.int32)
+    k_pos = rng.permutation(np.arange(30, 130)).astype(np.int32)
+    got = tuple(n(x) for x in chunk.plain_flash_attention_chunk(*map(t, (q, k, v, q_pos, k_pos)),
+                                                                 causal=True))
+    mask = jnp.asarray(q_pos[:, None] >= k_pos[None, :])[None, None]
+    m, pv, l = jax_block_attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 32**-0.5, mask)
+    assert_chunk_close(got, (pv, m, l))
+    empty = q_pos < k_pos.min()
+    assert empty.any() and not got[2][:, :, empty].any() and not got[0][:, empty].any()
 
 
 @pytest.mark.parametrize("causal", [False, True])
