@@ -9,33 +9,50 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
   2. build       — builds every kernel from the sources in stoix_tpu_torch/csrc/,
                    one nvcc per source, all started together; prints ptxas's
                    registers, spills and shared memory for every instance of
-                   both flash-attention libraries (the forward, the backward
-                   and the chunk kernel).
-  3. kernel      — B1 (linear recurrence) against its plain PyTorch version on
-                   the card, at the main path's shape and at a ragged shape
-                   with resets, float32 (bitwise) and bfloat16; timed with CUDA
-                   events, per call from Python and per launch replayed from a
-                   CUDA graph.
+                   every library (B1's entry points, B2's forward and
+                   backward, B3).
+  3. kernel      — B1's generic entry point (linear recurrence) against its
+                   plain PyTorch version on the card, bitwise: at [16, 1024],
+                   a ragged [17, 1000] with resets in float32 and bfloat16,
+                   T in {1, 15, 16, 17, 33, 63, 64, 65, 129} (row and stage
+                   edges) at 1000 columns, and a long rollout [128, 4096];
+                   timed at [16, 1024] and [128, 4096] with CUDA events, per
+                   call from Python and per launch replayed from a CUDA graph,
+                   beside an empty kernel on the same grid (the launch floor).
   4. attention   — B2 (flash attention): the forward kernel against its plain
                    version at the ff_trans_ppo path's shapes ([1024|4096|16384,
                    16, 4, 32] float32 causal, from strided qkv views), the ring
                    phase's long window [64, 512, 4, 32] causal, a ragged causal
-                   [2, 300, 2, 64], a ragged non-causal [2, 100, 2, 32] and a
-                   bfloat16 causal [1, 128, 1, 64], each also run twice and
-                   held bitwise equal; the fused backward kernel against the
-                   plain backward at [4096, 16, 4, 32] causal, the ragged
-                   non-causal [2, 100, 2, 32], [2, 300, 2, 64] causal (five
-                   key tiles) and a bfloat16 causal [1, 128, 1, 64]; each
-                   kernel timed, beside its plain version and SDPA (forward,
+                   [2, 300, 2, 64], a ragged non-causal [2, 100, 2, 32], a
+                   bfloat16 causal [1, 128, 1, 64], and head dims 8 and 128
+                   and float16 ([1024, 16, 4, 8], [2, 300, 2, 128],
+                   [1024, 16, 4, 32] float16, [2, 100, 2, 8] bfloat16), each
+                   also run twice and held bitwise equal; the fused backward
+                   kernel against the plain backward at [4096, 16, 4, 32]
+                   causal, the ragged non-causal [2, 100, 2, 32],
+                   [2, 300, 2, 64] causal (five key tiles), a bfloat16 causal
+                   [1, 128, 1, 64], [1024, 16, 4, 8], [2, 200, 2, 128] and
+                   [1024, 16, 4, 32] float16; each kernel timed at the path's
+                   shapes, beside its plain version and SDPA (forward,
                    backward alone, and both).
-  5. gae         — truncation-aware GAE through B1 on the card against the
-                   `scan` impl on the CPU, on one rollout-shaped input.
+  5. gae         — B1's GAE entry point (truncated GAE in one launch) against
+                   its plain version, bitwise, at [16, 1024] with terminations
+                   and truncations, a ragged [17, 1000] and [128, 4096]; timed
+                   at [16, 1024]. Then GAE through the dispatch on the card
+                   against the `scan` impl on the CPU (one GAE launch, no
+                   generic one), and the composed path's own run: GAE with a
+                   tensor lambda and in bfloat16, every B1 counter zeroed just
+                   before and read just after (generic launches only). The
+                   generic entry point is on neither training path: its
+                   kernels-line `launches` is 0, and its composed-path
+                   launches stand under `composed_path_launches`.
   6. learn       — ff_ppo trains IdentityGame on the card to a return above 8.0
                    (the JAX package's learning oracle, tests/test_ff_ppo.py).
   7. train       — Anakin ff_ppo on CartPole at the default config's full width
                    (1024 envs, T=16, MLP 256x256, 4 epochs x 4 minibatches) for
-                   a few updates with system.multistep_impl=pallas; B1's counter
-                   is zeroed just before and read just after (once per update).
+                   a few updates with system.multistep_impl=pallas; B1's two
+                   counters are zeroed just before and read just after: one
+                   GAE launch per update, no generic one.
   8. trans_learn — ff_trans_ppo trains IdentityGame on the card (window 4, one
                    layer) to a return above 8.0.
   9. trans_train — Anakin ff_trans_ppo on CartPole at its default config's full
@@ -44,15 +61,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    windows with system.multistep_impl=pallas. Every counter is
                    zeroed just before the run and read just after; around each
                    learner call the learner's own launches are counted and must
-                   be exact per update: 130 forward, 64 backward, 1 of B1.
-                   The evaluator's launches are the rest.
+                   be exact per update: 130 forward, 64 backward, 1 of B1's
+                   GAE entry point, 0 of its generic one. The evaluator's
+                   launches are the rest.
  10. ring_kernel — B3 (flash attention over one K/V chunk) against its plain
                    version on the card: every (rank, step) chunk of a 4-rank
                    causal ring over ff_trans_ppo's transformer at the torso's
                    default window (64 windows of 512, chunks [64, 128, 4, 32]
                    float32 with global positions: future, diagonal and visible
                    chunks), a non-causal chunk, Sq != Sk, a ragged chunk with
-                   shuffled key positions and a bfloat16 [1, 128, 1, 64]; the
+                   shuffled key positions, a bfloat16 [1, 128, 1, 64] and
+                   visible chunks at head dims 8 and 128 and in float16; the
                    4 ranks' chunks folded as the ring folds them against
                    `full_attention` on the card; each shape timed.
  11. ring        — a one-rank NCCL process group (a `file://` store in a
@@ -61,6 +80,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    (exactly one B3 launch per layer, no B2) against the same
                    torso through B2 and through plain attention on the CPU;
                    timed beside the B2 torso and SDPA.
+ 12. c6          — attention at any head dim up to 128 and in float16 runs
+                   through the kernels, as the TPU kernel takes any head dim
+                   and float dtype: `best_attention` at D = 8, 128, 24 (padded
+                   to 32) float32 and D = 32 float16, each one B2 forward
+                   launch, and the one-rank NCCL ring at D = 8, 24 and 32
+                   float16, each one B3 launch, against the CPU; then
+                   ff_trans_ppo at its CPU test's small config (head_dim 8)
+                   takes one update step on the card through B2's forward
+                   and backward, with finite losses.
 
 Then a `{"kernels": [...]}` line, the card's `nvidia-smi` name and power
 limit, and last `{"ok": true, "device": {...}}`.
@@ -68,6 +96,7 @@ limit, and last `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import inspect
 import json
@@ -86,11 +115,12 @@ import torch.distributed as dist
 from stoix_tpu_torch import envs, parallel
 from stoix_tpu_torch.kernels import build, flash_attention, flash_attention_chunk, linear_recurrence
 from stoix_tpu_torch.networks.attention import TransformerTorso
-from stoix_tpu_torch.ops import truncated_generalized_advantage_estimation
+from stoix_tpu_torch.ops import best_attention, truncated_generalized_advantage_estimation
 from stoix_tpu_torch.ops.ring_attention import fold_chunk, full_attention, ring_attention
 from stoix_tpu_torch.systems import runner
 from stoix_tpu_torch.systems.ppo.anakin import ff_ppo, ff_trans_ppo
 from stoix_tpu_torch.utils import config as config_lib
+from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor-core) peak.
 HBM_BYTES_PER_S = 3.35e12
@@ -99,6 +129,8 @@ MAIN_UPDATES = 4
 # ff_trans_ppo's default config: layers, heads, head dim, window, rollout, epochs, minibatches.
 TRANS = dict(layers=2, heads=4, head_dim=32, window=16, rollout=16, epochs=4, minibatches=4)
 TRANS_ENVS = 1024
+RECURRENCE_SOURCE = "stoix_tpu_torch/csrc/linear_recurrence.cu"
+RECURRENCE_REPLACES = "stoix_tpu/ops/scan_kernels.py:198"
 ATTENTION_SOURCE = "stoix_tpu_torch/csrc/flash_attention.cu"
 ATTENTION_REPLACES = "stoix_tpu/ops/pallas_attention.py:154"
 CHUNK_SOURCE = "stoix_tpu_torch/csrc/flash_attention_chunk.cu"
@@ -194,7 +226,8 @@ def phase_build() -> None:
     build.build_all(libraries)
     emit({"phase": "build", "libraries": [lib.library_path() for lib in libraries],
           "seconds": time.perf_counter() - start})
-    for library, source in ((flash_attention.LIBRARY, ATTENTION_SOURCE),
+    for library, source in ((linear_recurrence.LIBRARY, RECURRENCE_SOURCE),
+                            (flash_attention.LIBRARY, ATTENTION_SOURCE),
                             (flash_attention_chunk.LIBRARY, CHUNK_SOURCE)):
         lines = library.ptxas_report()
         for line in lines:
@@ -202,14 +235,58 @@ def phase_build() -> None:
         emit({"phase": "build_ptxas", "library": source, "instances": ptxas_instances(lines)})
 
 
+def launch_floor(t_len: int, b_len: int):
+    """A function that launches an empty kernel on the grid B1 takes at
+    [t_len, b_len]: the practical floor of one launch."""
+    entry = linear_recurrence.LIBRARY.load().linear_recurrence_empty
+
+    def run():
+        # The current stream, looked up at each launch: a graph captures on its own.
+        stream = torch.cuda.current_stream().cuda_stream
+        linear_recurrence.LIBRARY.check(entry(t_len, b_len, stream), "empty kernel")
+
+    return run
+
+
+def bound(moved: int, flops: int):
+    """(bound_ms, bound_by): bytes at the HBM rate or float32 flops at the
+    card's peak, whichever takes longer."""
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def recurrence_times(t_len: int, batch: int) -> dict:
+    """B1's generic entry point at [t_len, batch] float32: a call, a launch,
+    the empty-kernel floor, the plain version, the bound."""
+    w, d, init = recurrence_inputs(t_len, batch, torch.float32, False, seed=1)
+    run = partial(linear_recurrence.linear_recurrence_reverse, w, d, init)
+    moved = (2 * t_len * batch + batch + t_len * batch) * 4  # read w, d, init; write out
+    flops = 2 * t_len * batch
+    bound_ms, bound_by = bound(moved, flops)
+    return {
+        "shape": [t_len, batch], "dtype": "float32",
+        "ms": cuda_ms(run),  # per call from Python, back to back (host-bound)
+        "device_ms": graph_ms(run),  # per launch replayed from a CUDA graph
+        "empty_kernel_device_ms": graph_ms(launch_floor(t_len, batch)),
+        "plain_ms": cuda_ms(partial(linear_recurrence.plain_linear_recurrence_reverse, w, d, init),
+                            repeats=5, inner=3),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "flops": flops,
+    }
+
+
 def phase_kernel() -> dict:
-    """B1 against its plain version; returns its kernels-line entry (without launches)."""
+    """B1's generic entry point against its plain version; returns its
+    kernels-line entry (without launches)."""
     max_abs_err = 0.0
-    for t_len, batch, dtype, resets in [
-        (16, 1024, torch.float32, False),  # the main path's shape
+    cases = [
+        (16, 1024, torch.float32, False),  # the rollout's shape
         (17, 1000, torch.float32, True),
         (17, 1000, torch.bfloat16, True),
-    ]:
+        *((t_len, 1000, torch.float32, True) for t_len in (1, 15, 16, 33, 63, 64, 65, 129)),
+        (128, 4096, torch.float32, True),  # a long rollout: two stages
+    ]
+    for t_len, batch, dtype, resets in cases:
         w, d, init = recurrence_inputs(t_len, batch, dtype, resets, seed=t_len * batch)
         got = linear_recurrence.linear_recurrence_reverse(w, d, init)
         torch.cuda.synchronize()
@@ -221,40 +298,21 @@ def phase_kernel() -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"kernel != plain at {t_len}x{batch} {dtype}: max err {err}")
         max_abs_err = max(max_abs_err, err)
-        emit({"phase": "kernel", "kernel": "linear_recurrence_reverse",
+        emit({"phase": "kernel", "kernel": linear_recurrence.KERNEL.name,
               "shape": [t_len, batch], "dtype": str(dtype), "resets": resets,
               "max_abs_err": err, "bitwise": True})
 
-    w, d, init = recurrence_inputs(16, 1024, torch.float32, False, seed=1)
-    kernel_ms = cuda_ms(lambda: linear_recurrence.linear_recurrence_reverse(w, d, init))
-    device_ms = graph_ms(lambda: linear_recurrence.linear_recurrence_reverse(w, d, init))
-    plain_ms = cuda_ms(
-        lambda: linear_recurrence.plain_linear_recurrence_reverse(w, d, init), repeats=11, inner=5
-    )
-    elt = w.element_size()
-    t_len, batch = w.shape
-    moved = (2 * t_len * batch + batch + t_len * batch) * elt  # read w, d, init; write out
-    flops = 2 * t_len * batch
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
-    entry = {
-        "name": "linear_recurrence_reverse",
-        "route": "cuda",
-        "source": "stoix_tpu_torch/csrc/linear_recurrence.cu",
-        "replaces": "stoix_tpu/ops/scan_kernels.py:198",
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,  # per call from Python, back to back (host-bound)
-        "device_ms": device_ms,  # per launch replayed from a CUDA graph
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    shapes = [recurrence_times(16, 1024), recurrence_times(128, 4096)]
+    emit({"phase": "kernel_time", "kernel": linear_recurrence.KERNEL.name, "shapes": shapes})
+    main_shape = shapes[0]
+    return {
+        "name": linear_recurrence.KERNEL.name, "route": "cuda", "source": RECURRENCE_SOURCE,
+        "replaces": RECURRENCE_REPLACES, "max_abs_err": max_abs_err,
+        **{key: main_shape[key] for key in ("shape", "ms", "device_ms", "empty_kernel_device_ms",
+                                            "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,  # no single PyTorch call computes this recurrence
+        "shapes": shapes,
     }
-    emit({"phase": "kernel_time", "shape": [t_len, batch], "dtype": "float32",
-          "kernel_ms": kernel_ms, "kernel_device_ms": device_ms,
-          "plain_ms_no_yardstick": plain_ms,
-          "bound_ms": entry["bound_ms"], "bytes": moved, "flops": flops})
-    return entry
 
 
 def qkv_views(batch: int, seq: int, heads: int, head_dim: int, dtype: torch.dtype, seed: int):
@@ -298,8 +356,9 @@ def phase_attention() -> list:
     fa = flash_attention
     # Same tiles, another summation order than the plain version: float32 is
     # held at 1e-5 absolute, bfloat16 at 2e-2 (JAX's own bf16 tolerance for
-    # this kernel, tests/test_pallas_attention.py).
-    tolerance = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    # this kernel, tests/test_pallas_attention.py), float16 at 2e-3 (two
+    # float16 ulps in [1, 2)).
+    tolerance = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
     path = [((b, TRANS["window"], TRANS["heads"], TRANS["head_dim"]), True, torch.float32)
             for b in (TRANS_ENVS, 4 * TRANS_ENVS, TRANS["rollout"] * TRANS_ENVS)]
     errors = {"forward": 0.0, "backward": 0.0}
@@ -309,6 +368,11 @@ def phase_attention() -> list:
         ((2, 300, 2, 64), True, torch.float32),
         ((2, 100, 2, 32), False, torch.float32),
         ((1, 128, 1, 64), True, torch.bfloat16),
+        # Head dims 8 and 128 and float16 (C6).
+        ((TRANS_ENVS, 16, 4, 8), True, torch.float32),
+        ((2, 300, 2, 128), True, torch.float32),
+        ((TRANS_ENVS, 16, 4, 32), True, torch.float16),
+        ((2, 100, 2, 8), False, torch.bfloat16),
     ]):
         q, k, v = qkv_views(*shape, dtype, seed=seed)
         got, lse = fa.forward_kernel(q, k, v, causal, need_lse=True)
@@ -330,14 +394,18 @@ def phase_attention() -> list:
               "lse_max_abs_err": lse_err, "tolerance": tolerance[dtype], "bitwise_twice": True})
 
     # The backward: the path's shape, a ragged one, one of five 64-key tiles
-    # (dQ partials summed) and a bfloat16 one. bfloat16 is also held at 2e-2
-    # relative: above 2 a bf16 ulp is 1.6e-2 or more, and the two fp32 sums may
-    # round to neighbouring values.
+    # (dQ partials summed), a bfloat16 one, and head dims 8 and 128 and
+    # float16 (C6). The 16-bit types are also held relative, at their own
+    # tolerance: above 2 a bf16 ulp is 1.6e-2 or more (a float16 ulp 2e-3),
+    # and the two fp32 sums may round to neighbouring values.
     for seed, (shape, causal, dtype) in enumerate([
         ((4 * TRANS_ENVS, 16, 4, 32), True, torch.float32),
         ((2, 100, 2, 32), False, torch.float32),
         ((2, 300, 2, 64), True, torch.float32),
         ((1, 128, 1, 64), True, torch.bfloat16),
+        ((TRANS_ENVS, 16, 4, 8), True, torch.float32),
+        ((2, 200, 2, 128), True, torch.float32),
+        ((TRANS_ENVS, 16, 4, 32), True, torch.float16),
     ]):
         q, k, v = qkv_views(*shape, dtype, seed=10 + seed)
         dout = qkv_views(*shape, dtype, seed=30 + seed)[0].contiguous()
@@ -345,7 +413,7 @@ def phase_attention() -> list:
         got = fa.backward_kernel(q, k, v, o, lse, dout, causal)
         torch.cuda.synchronize()
         want = fa.plain_flash_attention_backward(q, k, v, o, lse, dout, causal)
-        rtol = 0.0 if dtype == torch.float32 else 2e-2
+        rtol = 0.0 if dtype == torch.float32 else tolerance[dtype]
         errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
         held = all(bool(((g.float() - w.float()).abs() <= tolerance[dtype] + rtol * w.float().abs())
                         .all()) for g, w in zip(got, want))
@@ -423,30 +491,103 @@ def phase_attention() -> list:
     return [forward_entry, backward_entry]
 
 
-def phase_gae() -> None:
-    """GAE through the kernel on the card against `scan` on the CPU."""
-    gen = torch.Generator()
-    gen.manual_seed(7)
-    shape = (16, 1024)
-    r = torch.randn(shape, generator=gen)
-    done = torch.rand(shape, generator=gen) < 0.05
-    truncated = (torch.rand(shape, generator=gen) < 0.03) & ~done
-    v_tm1, v_t = torch.randn(shape, generator=gen), torch.randn(shape, generator=gen)
-    discount = 0.99 * (1.0 - done.float())
-    args = (r, discount, 0.95)
-    kwargs = dict(v_tm1=v_tm1, v_t=v_t, truncation_t=truncated.float())
-    adv_cpu, tgt_cpu = truncated_generalized_advantage_estimation(*args, **kwargs, impl="scan")
-    cuda = lambda x: x.cuda() if isinstance(x, torch.Tensor) else x
-    before = linear_recurrence.KERNEL.launches
-    adv, tgt = truncated_generalized_advantage_estimation(
-        *map(cuda, args), **{k: cuda(v) for k, v in kwargs.items()}, impl="pallas"
-    )
-    if linear_recurrence.KERNEL.launches != before + 1:
-        raise AssertionError("GAE on CUDA tensors did not launch the kernel")
-    err = max((adv.cpu() - adv_cpu).abs().max().item(), (tgt.cpu() - tgt_cpu).abs().max().item())
-    if not err <= 1e-6:
-        raise AssertionError(f"GAE on the card disagrees with the CPU scan: {err}")
-    emit({"phase": "gae", "shape": list(shape), "max_abs_err_vs_cpu_scan": err})
+def gae_inputs(t_len: int, batch: int, seed: int, device: str = "cuda"):
+    """r, discount, v_tm1, v_t, truncation [T, B] float32 as a rollout gives
+    them: terminations zero the discount, truncations mark 1.0 elsewhere."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    shape = (t_len, batch)
+    r = torch.randn(shape, generator=gen, device=device)
+    done = torch.rand(shape, generator=gen, device=device) < 0.05
+    truncated = (torch.rand(shape, generator=gen, device=device) < 0.03) & ~done
+    v_tm1 = torch.randn(shape, generator=gen, device=device)
+    v_t = torch.randn(shape, generator=gen, device=device)
+    return r, 0.99 * (1.0 - done.float()), v_tm1, v_t, truncated.float()
+
+
+def phase_gae() -> tuple:
+    """B1's GAE entry point against its plain version, and GAE through the
+    dispatch; returns the entry point's kernels-line entry (without launches)
+    and the generic entry point's launches on the composed path's own run."""
+    lr = linear_recurrence
+    lam = 0.95
+    max_abs_err = 0.0
+    for t_len, batch in ((16, 1024), (17, 1000), (128, 4096)):
+        args = gae_inputs(t_len, batch, seed=t_len + batch)
+        got = lr.truncated_gae(*args, lam)
+        torch.cuda.synchronize()
+        want = lr.plain_truncated_gae(*args, lam)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        if any(g.shape != (t_len, batch) or not torch.isfinite(g).all() for g in got):
+            raise AssertionError(f"GAE kernel output malformed at {t_len}x{batch}")
+        # The plain version's op order and roundings: bitwise.
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"GAE kernel != plain at {t_len}x{batch}: max err {err}")
+        max_abs_err = max(max_abs_err, err)
+        emit({"phase": "gae", "kernel": lr.GAE_KERNEL.name, "shape": [t_len, batch],
+              "truncation": True, "max_abs_err": err, "bitwise": True})
+
+    # Through the dispatch: the card against `scan` on the CPU.
+    cpu = [x.cpu() for x in gae_inputs(16, 1024, seed=7)]
+    want = truncated_generalized_advantage_estimation(
+        cpu[0], cpu[1], lam, v_tm1=cpu[2], v_t=cpu[3], truncation_t=cpu[4], impl="scan")
+    card = [x.cuda() for x in cpu]
+    before = [c.launches for c in lr.COUNTERS]
+    got = truncated_generalized_advantage_estimation(
+        card[0], card[1], lam, v_tm1=card[2], v_t=card[3], truncation_t=card[4], impl="pallas")
+    if [c.launches - b for c, b in zip(lr.COUNTERS, before)] != [0, 1]:
+        raise AssertionError("GAE on CUDA tensors did not take exactly one GAE launch")
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError("GAE on the card != the CPU scan")
+    emit({"phase": "gae", "route": "dispatch, impl=pallas", "shape": [16, 1024],
+          "bitwise_vs_cpu_scan": True})
+
+    # The composed path's own run (a tensor lambda; bfloat16): the generic
+    # entry point between separate elementwise ops, each held against the CPU.
+    for counter in lr.COUNTERS:
+        counter.launches = 0
+    lam_t = torch.full((16, 1024), lam)
+    composed = {
+        "tensor lambda": (card[:2] + [lam_t.cuda()] + card[2:], cpu[:2] + [lam_t] + cpu[2:]),
+        "bfloat16": ([x.bfloat16() for x in card[:2]] + [lam] + [x.bfloat16() for x in card[2:]],
+                     [x.bfloat16() for x in cpu[:2]] + [lam] + [x.bfloat16() for x in cpu[2:]]),
+    }
+    outputs = {}
+    for name, (on_card, on_cpu) in composed.items():
+        r, discount, lam_in, v_tm1, v_t, trunc = on_card
+        outputs[name] = (truncated_generalized_advantage_estimation(
+            r, discount, lam_in, v_tm1=v_tm1, v_t=v_t, truncation_t=trunc, impl="pallas"), on_cpu)
+    composed_launches = {c.name: c.launches for c in lr.COUNTERS}
+    if composed_launches != {lr.KERNEL.name: len(composed), lr.GAE_KERNEL.name: 0}:
+        raise AssertionError(f"the composed path launched {composed_launches}")
+    for name, (got, on_cpu) in outputs.items():
+        r, discount, lam_in, v_tm1, v_t, trunc = on_cpu
+        want = truncated_generalized_advantage_estimation(
+            r, discount, lam_in, v_tm1=v_tm1, v_t=v_t, truncation_t=trunc, impl="pallas")
+        # The CPU runs the same composed path with the kernel's plain version.
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise AssertionError(f"composed GAE ({name}) on the card != on the CPU")
+    emit({"phase": "gae", "route": "composed (tensor lambda, bfloat16)",
+          "launches": composed_launches, "bitwise_vs_cpu": True})
+
+    args = gae_inputs(16, 1024, seed=8)
+    t_len, batch = args[0].shape
+    run = partial(lr.truncated_gae, *args, lam)
+    moved = (5 + 2) * t_len * batch * 4  # read r, discount, v_tm1, v_t, truncation; write 2
+    flops = 9 * t_len * batch  # 2 FMAs, 2 multiplies, 3 adds a step
+    bound_ms, bound_by = bound(moved, flops)
+    entry = {
+        "name": lr.GAE_KERNEL.name, "route": "cuda", "source": RECURRENCE_SOURCE,
+        "replaces": f"{RECURRENCE_REPLACES} with stoix_tpu/ops/multistep.py:73",
+        "max_abs_err": max_abs_err, "shape": [t_len, batch],
+        "ms": cuda_ms(run), "device_ms": graph_ms(run),
+        "empty_kernel_device_ms": graph_ms(launch_floor(t_len, batch)),
+        "plain_ms": cuda_ms(partial(lr.plain_truncated_gae, *args, lam), repeats=5, inner=3),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "flops": flops,
+        "library_ms": None,  # no single PyTorch call computes GAE
+    }
+    emit({"phase": "gae_time", **entry})
+    return entry, composed_launches[lr.KERNEL.name]
 
 
 def compose(overrides, root: str = "default/anakin/default_ff_ppo.yaml") -> dict:
@@ -471,18 +612,21 @@ def phase_learn() -> None:
 
 
 def phase_train(smi: str) -> int:
-    """The main path at full width; returns B1's launches in it."""
+    """The main path at full width; returns B1's GAE launches in it."""
+    lr = linear_recurrence
     config = compose([
         f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
         "arch.num_eval_episodes=16", "system.multistep_impl=pallas", "logger.use_console=False",
     ])
-    linear_recurrence.KERNEL.launches = 0
+    for counter in lr.COUNTERS:
+        counter.launches = 0
     start = time.perf_counter()
     final_return = ff_ppo.run_experiment(config, device="cuda")
     seconds = time.perf_counter() - start
-    launches = linear_recurrence.KERNEL.launches
-    if launches != MAIN_UPDATES:
-        raise AssertionError(f"B1 launched {launches} times over {MAIN_UPDATES} updates")
+    launches = lr.GAE_KERNEL.launches
+    if (lr.KERNEL.launches, launches) != (0, MAIN_UPDATES):
+        raise AssertionError(f"B1 launched {lr.KERNEL.launches} generic and {launches} GAE "
+                             f"times over {MAIN_UPDATES} updates, not 0 and {MAIN_UPDATES}")
     stats = runner.LAST_RUN_STATS
     train = [rec for rec in stats["history"] if rec["event"] == "trainer"]
     losses = {k: v for rec in train for k, v in rec.items() if k.endswith("loss") or k == "entropy"}
@@ -493,7 +637,8 @@ def phase_train(smi: str) -> int:
         raise AssertionError(f"non-finite eval return {final_return}")
     emit({"phase": "train", "env": "cartpole", "total_num_envs": int(config.arch.total_num_envs),
           "rollout_length": int(config.system.rollout_length), "updates": MAIN_UPDATES,
-          "b1_launches": launches, "final_eval_return": final_return, "last_losses": losses,
+          "b1_gae_launches": launches, "b1_generic_launches": lr.KERNEL.launches,
+          "final_eval_return": final_return, "last_losses": losses,
           "window_seconds": stats["window_seconds"],
           "env_steps_per_second": stats["steps_per_second"], "seconds": seconds,
           "card": smi})
@@ -519,15 +664,15 @@ def _counts(counters) -> dict:
 def phase_trans_train(smi: str) -> dict:
     """ff_trans_ppo's main path at full width; returns each kernel's launches
     in the run, split into the learner's and the evaluator's."""
-    fa = flash_attention
-    counters = [fa.FORWARD, fa.BACKWARD, linear_recurrence.KERNEL]
-    b1 = "linear_recurrence_reverse"
+    fa, lr = flash_attention, linear_recurrence
+    counters = [fa.FORWARD, fa.BACKWARD, *lr.COUNTERS]
     layers = TRANS["layers"]
     per_update = {  # the learner's launches in one update step
         fa.FORWARD.name: 2 * layers * TRANS["rollout"] + layers
         + 2 * layers * TRANS["epochs"] * TRANS["minibatches"],
         fa.BACKWARD.name: 2 * layers * TRANS["epochs"] * TRANS["minibatches"],
-        b1: 1,
+        lr.KERNEL.name: 0,  # GAE takes the GAE entry point, never the generic one
+        lr.GAE_KERNEL.name: 1,
     }
     config = compose([
         f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
@@ -679,6 +824,13 @@ def phase_ring_kernel(width: dict) -> dict:
                                              positions[:77], shuffled), True)
     bq, bk, bv = qkv_views(1, 128, 1, 64, torch.bfloat16, seed=43)
     check("bfloat16 diagonal", (bq, bk, bv, positions[:128], positions[:128]), True)
+    # Head dims 8 and 128 and float16 (C6), each at a visible 4-rank chunk.
+    for seed, (dim, dtype) in enumerate(((8, torch.float32), (128, torch.float32),
+                                         (32, torch.float16))):
+        cq, ck, cv = qkv_views(batch, 2 * local, heads, dim, dtype, seed=45 + seed)
+        check(f"visible chunk, D = {dim} {dtype}",
+              (cq[:, local:], ck[:, :local], cv[:, :local], positions[local:2 * local],
+               positions[:local]), True)
     # The one-rank ring's launch: the whole window, several query row blocks
     # per (batch, head), each with its own causal bound.
     check("one-rank window", (q, k, v, positions, positions), True)
@@ -714,11 +866,10 @@ def phase_ring_kernel(width: dict) -> dict:
     }
 
 
-def phase_ring(width: dict, smi: str) -> dict:
-    """The full-width torso's forward through a one-rank NCCL ring; returns
-    B3's launches in that forward and the timings."""
-    fa, fac = flash_attention, flash_attention_chunk
-    tolerance = 1e-4
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A one-rank NCCL process group (a `file://` store in a temporary
+    directory) and its mesh, destroyed on exit."""
     with tempfile.TemporaryDirectory() as tmp:
         config = config_lib.Config.from_dict({"arch": {"distributed": {
             "coordinator_address": "file://" + os.path.join(tmp, "store"),
@@ -726,56 +877,63 @@ def phase_ring(width: dict, smi: str) -> dict:
         }}})
         parallel.maybe_initialize_distributed(config, device="cuda")
         try:
-            mesh = parallel.create_mesh({"data": 1}, device="cuda")
-            ranks = parallel.axis_size(mesh, "data")
-
-            def torso(attention_fn=None):
-                return TransformerTorso(
-                    width["obs"], width["layers"], width["heads"], width["head_dim"],
-                    width["ffn"], attention_fn=attention_fn,
-                    generator=torch.Generator().manual_seed(0),
-                )
-
-            ring_torso = torso(partial(ring_attention, group=mesh.get_group("data"))).cuda()
-            flash_torso = torso().cuda()  # best_attention: B2 on the card
-            flash_torso.load_state_dict(ring_torso.state_dict())
-            cpu_torso = copy.deepcopy(flash_torso).cpu()  # best_attention: full attention
-            gen = torch.Generator().manual_seed(1)
-            x = torch.randn((RING_BATCH, width["window"], width["obs"]), generator=gen)
-            x_card = x.cuda()
-
-            for counter in (*fa.COUNTERS, fac.KERNEL):
-                counter.launches = 0
-            with torch.no_grad():
-                ring_out = ring_torso(x_card)
-                torch.cuda.synchronize()
-                launches = {c.name: c.launches for c in (*fa.COUNTERS, fac.KERNEL)}
-                flash_out = flash_torso(x_card)
-                cpu_out = cpu_torso(x)
-            expected = {**{c.name: 0 for c in fa.COUNTERS},
-                        fac.KERNEL.name: width["layers"] * ranks}
-            if launches != expected:
-                raise AssertionError(f"ring torso forward launched {launches}, not {expected}")
-            errs = {"ring_vs_flash": (ring_out - flash_out).abs().max().item(),
-                    "ring_vs_cpu": (ring_out.cpu() - cpu_out).abs().max().item(),
-                    "flash_vs_cpu": (flash_out.cpu() - cpu_out).abs().max().item()}
-            if not torch.isfinite(ring_out).all() or not max(errs.values()) <= tolerance:
-                raise AssertionError(f"ring torso disagrees: {errs}")
-
-            q, k, v = qkv_views(RING_BATCH, width["window"], width["heads"], width["head_dim"],
-                                torch.float32, seed=44)
-            group = mesh.get_group("data")
-            torso_ms = partial(cuda_ms, repeats=5, inner=5)
-            with torch.no_grad():
-                times = {
-                    "ring_torso_forward_ms": torso_ms(lambda: ring_torso(x_card)),
-                    "flash_torso_forward_ms": torso_ms(lambda: flash_torso(x_card)),
-                    "ring_attention_ms": cuda_ms(lambda: ring_attention(q, k, v, group, True)),
-                    "flash_attention_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, True)),
-                    "sdpa_ms": cuda_ms(lambda: sdpa(q, k, v, True)),
-                }
+            yield parallel.create_mesh({"data": 1}, device="cuda")
         finally:
             dist.destroy_process_group()
+
+
+def phase_ring(width: dict, smi: str, mesh) -> dict:
+    """The full-width torso's forward through a one-rank NCCL ring; returns
+    B3's launches in that forward and the timings."""
+    fa, fac = flash_attention, flash_attention_chunk
+    tolerance = 1e-4
+    ranks = parallel.axis_size(mesh, "data")
+
+    def torso(attention_fn=None):
+        return TransformerTorso(
+            width["obs"], width["layers"], width["heads"], width["head_dim"],
+            width["ffn"], attention_fn=attention_fn,
+            generator=torch.Generator().manual_seed(0),
+        )
+
+    ring_torso = torso(partial(ring_attention, group=mesh.get_group("data"))).cuda()
+    flash_torso = torso().cuda()  # best_attention: B2 on the card
+    flash_torso.load_state_dict(ring_torso.state_dict())
+    cpu_torso = copy.deepcopy(flash_torso).cpu()  # best_attention: full attention
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((RING_BATCH, width["window"], width["obs"]), generator=gen)
+    x_card = x.cuda()
+
+    for counter in (*fa.COUNTERS, fac.KERNEL):
+        counter.launches = 0
+    with torch.no_grad():
+        ring_out = ring_torso(x_card)
+        torch.cuda.synchronize()
+        launches = {c.name: c.launches for c in (*fa.COUNTERS, fac.KERNEL)}
+        flash_out = flash_torso(x_card)
+        cpu_out = cpu_torso(x)
+    expected = {**{c.name: 0 for c in fa.COUNTERS},
+                fac.KERNEL.name: width["layers"] * ranks}
+    if launches != expected:
+        raise AssertionError(f"ring torso forward launched {launches}, not {expected}")
+    errs = {"ring_vs_flash": (ring_out - flash_out).abs().max().item(),
+            "ring_vs_cpu": (ring_out.cpu() - cpu_out).abs().max().item(),
+            "flash_vs_cpu": (flash_out.cpu() - cpu_out).abs().max().item()}
+    if not torch.isfinite(ring_out).all() or not max(errs.values()) <= tolerance:
+        raise AssertionError(f"ring torso disagrees: {errs}")
+
+    q, k, v = qkv_views(RING_BATCH, width["window"], width["heads"], width["head_dim"],
+                        torch.float32, seed=44)
+    group = mesh.get_group("data")
+    torso_ms = partial(cuda_ms, repeats=5, inner=5)
+    with torch.no_grad():
+        times = {
+            "ring_torso_forward_ms": torso_ms(lambda: ring_torso(x_card)),
+            "flash_torso_forward_ms": torso_ms(lambda: flash_torso(x_card)),
+            "ring_attention_ms": cuda_ms(lambda: ring_attention(q, k, v, group, True)),
+            "flash_attention_ms": cuda_ms(lambda: fa.flash_attention(q, k, v, True)),
+            "sdpa_ms": cuda_ms(lambda: sdpa(q, k, v, True)),
+        }
     tokens = RING_BATCH * width["window"]
     emit({"phase": "ring", "mesh": {"data": ranks}, "backend": "nccl",
           "torso": {k: width[k] for k in ("layers", "heads", "head_dim", "ffn", "window")},
@@ -788,29 +946,105 @@ def phase_ring(width: dict, smi: str) -> dict:
             "ring_attention_ms": times["ring_attention_ms"]}
 
 
+# ff_trans_ppo at its CPU test's small config (tests/test_torch_ff_trans_ppo.py):
+# head_dim 8, a quarter of the default's 32.
+C6_TRANS = ["system.window_length=4", "system.num_layers=1", "system.num_heads=2",
+            "system.head_dim=8", "system.ffn_dim=32", "arch.total_num_envs=16",
+            "system.rollout_length=8", "system.num_minibatches=2", "env=identity_game",
+            "system.multistep_impl=pallas", "logger.use_console=False"]
+
+
+def phase_c6(mesh, smi: str) -> None:
+    """Attention at any head dim up to 128 and in float16 runs through the
+    kernels on the card (C6): `best_attention` and a one-rank NCCL ring against
+    the CPU, each launching its kernel; then ff_trans_ppo at head_dim 8 trains
+    a step there through B2."""
+    fa, fac = flash_attention, flash_attention_chunk
+    counters = (*fa.COUNTERS, fac.KERNEL)
+    # float32 at 2e-5, the attention tolerance (JAX's own); float16 against the
+    # CPU's float32 attention on the same float16 inputs at 2e-3 absolute and
+    # relative: the kernel computes in fp32 and rounds once to float16.
+    tolerance = {torch.float32: (0.0, 2e-5), torch.float16: (2e-3, 2e-3)}
+    group = mesh.get_group("data")
+    cases = [("best_attention", 8, torch.float32, fa.FORWARD),
+             ("best_attention", 128, torch.float32, fa.FORWARD),
+             ("best_attention", 32, torch.float16, fa.FORWARD),
+             ("best_attention", 24, torch.float32, fa.FORWARD),  # padded to 32
+             ("ring_attention", 8, torch.float32, fac.KERNEL),
+             ("ring_attention", 32, torch.float16, fac.KERNEL),
+             ("ring_attention", 24, torch.float32, fac.KERNEL)]
+    for seed, (name, head_dim, dtype, counter) in enumerate(cases):
+        q, k, v = qkv_views(64, 16, 4, head_dim, dtype, seed=60 + seed)
+        for each in counters:
+            each.launches = 0
+        if name == "best_attention":
+            got = best_attention(q, k, v, causal=True)
+        else:
+            got = ring_attention(q, k, v, group, causal=True)
+        torch.cuda.synchronize()
+        launches = {c.name: c.launches for c in counters}
+        want = full_attention(*(x.cpu().float() for x in (q, k, v)), causal=True)
+        rtol, atol = tolerance[dtype]
+        err = (got.cpu().float() - want).abs()
+        if launches != {c.name: int(c is counter) for c in counters}:
+            raise AssertionError(f"C6 {name} at D={head_dim} {dtype}: launches {launches}")
+        if got.dtype != dtype or got.shape != q.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"C6 {name} at D={head_dim} {dtype}: output malformed")
+        if not bool((err <= atol + rtol * want.abs()).all()):
+            raise AssertionError(f"C6 {name} at D={head_dim} {dtype}: max err {err.max().item()}")
+        emit({"phase": "c6", "case": name, "shape": list(q.shape), "dtype": str(dtype),
+              "causal": True, "max_abs_err_vs_cpu": err.max().item(), "rtol": rtol,
+              "atol": atol, "kernel_launches": launches})
+
+    config = check_total_timesteps(compose(C6_TRANS, TRANS_ROOT), 1)
+    env, _ = envs.make(config)
+    setup = ff_trans_ppo.learner_setup(env, config, torch.device("cuda"),
+                                       seed=int(config.arch.seed))
+    for counter in (*counters, *linear_recurrence.COUNTERS):
+        counter.launches = 0
+    _, (_, losses) = setup.learn.update_step(setup.learner_state)
+    torch.cuda.synchronize()
+    launches = {c.name: c.launches for c in (*counters, *linear_recurrence.COUNTERS)}
+    losses = {key: value.float().mean().item() for key, value in losses.items()}
+    if (not launches[fa.FORWARD.name] or not launches[fa.BACKWARD.name]
+            or launches[linear_recurrence.GAE_KERNEL.name] != 1):
+        raise AssertionError(f"ff_trans_ppo at head_dim 8 launched {launches}")
+    if not all(math.isfinite(value) for value in losses.values()):
+        raise AssertionError(f"ff_trans_ppo at head_dim 8: non-finite losses {losses}")
+    emit({"phase": "c6", "case": "ff_trans_ppo update step", "head_dim": 8,
+          "launches": launches, "losses": losses, "card": smi})
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
     recurrence = phase_kernel()
     attention = phase_attention()
-    phase_gae()
+    gae, recurrence["composed_path_launches"] = phase_gae()
     phase_learn()
-    recurrence["launches"] = phase_train(smi)
+    gae["launches"] = phase_train(smi)
+    gae["path"] = "ff_ppo's update, phase train"
     phase_trans_learn()
     trans = phase_trans_train(smi)
-    recurrence["launches_ff_trans_ppo"] = trans["total"][recurrence["name"]]
+    gae["launches_ff_trans_ppo"] = trans["total"][gae["name"]]
     for entry in attention:
         entry["launches"] = trans["total"][entry["name"]]
         entry["learner_launches"] = trans["learner"][entry["name"]]
         entry["evaluator_launches"] = trans["evaluator"][entry["name"]]
     width = ring_width()
     chunk = phase_ring_kernel(width)
-    ring = phase_ring(width, smi)
+    with one_rank_mesh() as mesh:
+        ring = phase_ring(width, smi, mesh)
+        phase_c6(mesh, smi)
     chunk["launches"] = ring["launches"]
+    # The generic entry point is off both training paths (their GAE takes the
+    # GAE entry point): its main-path count is 0, and its launches on GAE's
+    # composed path (phase gae) stand under their own key.
+    recurrence["launches"] = 0
     chunk["composed_op"] = {"ring_attention_ms": ring["ring_attention_ms"],
                             "sdpa_ms": ring["sdpa_ms"]}
-    kernels = [recurrence, *attention, chunk]
-    if any(entry["launches"] == 0 for entry in kernels):
+    kernels = [recurrence, gae, *attention, chunk]
+    if any(entry["launches"] == 0 for entry in kernels if entry is not recurrence):
         raise AssertionError("a kernel of the main path was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """B2's forward kernel and B3 (the chunk kernel), on the forward core they
-share, against the kernels they replaced, on one CUDA card, in turns: old,
-new, new, old.
+share, and B2's backward kernel, against an earlier version of the same
+sources, on one CUDA card, in turns: old, new, new, old.
 
     python3 scripts/torch_ab_flash_forward.py --old-source PATH --old-chunk-source PATH \
         [--updates N] [--out PATH]
@@ -10,22 +10,25 @@ The two paths are copies of the earlier `stoix_tpu_torch/csrc/flash_attention.cu
 and `stoix_tpu_torch/csrc/flash_attention_chunk.cu` (for example `git show
 <commit>:stoix_tpu_torch/csrc/flash_attention.cu` into a git-ignored directory
 of the checkout, such as `results/`), or of a variant of the current sources
-(copied with `flash_forward.cuh` beside them, one constant changed). They are
-built here with the port's nvcc flags beside the current sources. Both versions are checked
-against the plain versions (1e-5: the forward absolute, B3 relative to l)
-before anything is timed. Then, in turns, per launch replayed from a CUDA
-graph (device ms) and per call from Python (CUDA events):
+(copied with `flash_forward.cuh` beside them, one constant changed; a copy of
+a version that has the core includes that version's `flash_forward.cuh` from
+beside it). They are built here with the port's nvcc flags beside the current
+sources. Both versions are checked against the plain versions (1e-5: the
+forward and backward absolute, B3 relative to l) before anything is timed.
+Then, in turns, per launch replayed from a CUDA graph (device ms) and per
+call from Python (CUDA events):
 
   * the forward at ff_trans_ppo's three path shapes [1024 | 4096 | 16384, 16,
     4, 32] and at [64, 512, 4, 32], float32 causal, from strided views of one
     fused projection;
+  * the backward at ff_trans_ppo's minibatch shape [4096, 16, 4, 32];
   * B3 at the one-rank ring's chunk [64, 512, 4, 32] and at the visible,
     diagonal and future chunks [64, 128, 4, 32] of a 4-rank causal ring;
   * the full-width ring torso forward over a window of 512 through a one-rank
     NCCL ring (B3), and the same torso through B2's forward;
   * Anakin ff_trans_ppo's learner at its default config
-    (`system.multistep_impl=pallas`), every attention forward through one
-    version (the backward is the same kernel in both): N update steps a turn
+    (`system.multistep_impl=pallas`), every attention forward and backward
+    through one version: N update steps a turn
     (default 3, after two of warm-up) on the host clock, each ended by a
     device synchronize, and one more under torch.profiler for the device busy
     time of an update.
@@ -66,6 +69,7 @@ from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps  # noqa
 from torch_profile_ppo import _union_us  # noqa: E402
 
 FORWARD_SHAPES = [(1024, 16, 4, 32), (4096, 16, 4, 32), (16384, 16, 4, 32), (64, 512, 4, 32)]
+BACKWARD_SHAPE = (4096, 16, 4, 32)
 WINDOW, LOCAL = 512, 128  # the ring's window; the 4-rank ring's chunk length
 TURNS = ("old", "new", "new", "old")
 
@@ -81,23 +85,26 @@ def old_libraries(source: str, chunk_source: str):
 
 @contextlib.contextmanager
 def through(libraries):
-    """Every B2 forward and B3 launch goes through these libraries (the B2
-    backward keeps the current one, the same kernel in both versions)."""
-    forward, chunk_library = fa.forward_kernel, fac.LIBRARY
+    """Every B2 forward and backward and every B3 launch goes through these
+    libraries."""
+    forward, backward, chunk_library = fa.forward_kernel, fa.backward_kernel, fac.LIBRARY
 
-    def forward_kernel(*args, **kwargs):
-        current = fa.LIBRARY
-        fa.LIBRARY = libraries["forward"]
-        try:
-            return forward(*args, **kwargs)
-        finally:
-            fa.LIBRARY = current
+    def in_library(kernel):
+        def run(*args, **kwargs):
+            current = fa.LIBRARY
+            fa.LIBRARY = libraries["forward"]
+            try:
+                return kernel(*args, **kwargs)
+            finally:
+                fa.LIBRARY = current
+        return run
 
-    fa.forward_kernel, fac.LIBRARY = forward_kernel, libraries["chunk"]
+    fa.forward_kernel, fa.backward_kernel = in_library(forward), in_library(backward)
+    fac.LIBRARY = libraries["chunk"]
     try:
         yield
     finally:
-        fa.forward_kernel, fac.LIBRARY = forward, chunk_library
+        fa.forward_kernel, fa.backward_kernel, fac.LIBRARY = forward, backward, chunk_library
 
 
 def chunk_cases(q, k, v, positions):
@@ -108,11 +115,23 @@ def chunk_cases(q, k, v, positions):
     return cases
 
 
+def backward_inputs():
+    q, k, v = chip_smoke.qkv_views(*BACKWARD_SHAPE, torch.float32, seed=52)
+    dout = chip_smoke.qkv_views(*BACKWARD_SHAPE, torch.float32, seed=53)[0].contiguous()
+    o, lse = fa.forward_kernel(q, k, v, True, need_lse=True)
+    return q, k, v, o, lse, dout, True
+
+
 def check(versions, forward_inputs, chunks) -> dict:
     """Both versions against the plain versions, before any timing."""
     errors = {}
+    grads = backward_inputs()
     for name, libraries in versions.items():
         with through(libraries):
+            got = fa.backward_kernel(*grads)
+            want = fa.plain_flash_attention_backward(*grads)
+            errors[f"{name} backward {list(BACKWARD_SHAPE)}"] = max(
+                (g - w).abs().max().item() for g, w in zip(got, want))
             for shape, (q, k, v) in forward_inputs.items():
                 got, lse = fa.forward_kernel(q, k, v, True, need_lse=True)
                 want, want_lse = fa.plain_flash_attention_forward(q, k, v, True, need_lse=True)
@@ -129,9 +148,13 @@ def check(versions, forward_inputs, chunks) -> dict:
 
 def kernel_turns(versions, forward_inputs, chunks) -> list:
     turns = []
+    grads = backward_inputs()
     for name in TURNS:
         times = {}
         with through(versions[name]):
+            run = partial(fa.backward_kernel, *grads)
+            times[f"backward {list(BACKWARD_SHAPE)}"] = {"device_ms": chip_smoke.graph_ms(run),
+                                                        "ms": chip_smoke.cuda_ms(run)}
             for shape, (q, k, v) in forward_inputs.items():
                 run = partial(fa.forward_kernel, q, k, v, True)
                 times[f"forward {list(shape)}"] = {"device_ms": chip_smoke.graph_ms(run),
@@ -211,13 +234,16 @@ def update_turns(versions, updates: int) -> dict:
         busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in events]) / 1e3
         forward_ms = sum(e.time_range.elapsed_us() for e in events
                          if "flash_forward_kernel" in e.name) / 1e3
+        backward_ms = sum(e.time_range.elapsed_us() for e in events
+                          if "flash_backward_kernel" in e.name) / 1e3
         turns.append({"version": name, "update_step_ms": times, "device_busy_ms": busy_ms,
-                      "b2_forward_device_ms": forward_ms})
+                      "b2_forward_device_ms": forward_ms, "b2_backward_device_ms": backward_ms})
     steps = int(config.system.rollout_length) * int(config.arch.total_num_envs)
     mean = {name: {key: sum(sum(t[key]) if key == "update_step_ms" else t[key]
                             for t in turns if t["version"] == name)
                    / (2 * updates if key == "update_step_ms" else 2)
-                   for key in ("update_step_ms", "device_busy_ms", "b2_forward_device_ms")}
+                   for key in ("update_step_ms", "device_busy_ms", "b2_forward_device_ms",
+                               "b2_backward_device_ms")}
             for name in ("old", "new")}
     return {"env_steps_per_update": steps, "turns": turns, "mean": mean,
             "env_steps_per_second": {name: steps / (m["update_step_ms"] / 1e3)
@@ -248,6 +274,8 @@ def main() -> None:
                    for key in turns[0]["times"]} for name in versions}
     bounds = {f"forward {list(shape)}": chip_smoke.attention_bound("forward", qkv[0], True)[:2]
               for shape, qkv in forward_inputs.items()}
+    bounds[f"backward {list(BACKWARD_SHAPE)}"] = chip_smoke.attention_bound(
+        "backward", forward_inputs[BACKWARD_SHAPE][0], True)[:2]
     bounds.update({f"chunk {case}": chip_smoke.chunk_bound(a[0], a[1], a[3], a[4], True)[:2]
                    for case, a in chunks.items()})
     report = {

@@ -9,8 +9,10 @@ ff_trans_ppo.
 Builds the learner exactly as `run_experiment` does (system.multistep_impl=
 pallas unless overridden), warms it up with two update steps, then:
 
-  * host clock, each phase ended by a device synchronize: rollout, GAE (the
-    bootstrap critic pass included), and the epochs x minibatches of updates;
+  * host clock, each phase ended by a device synchronize: rollout, the
+    bootstrap critic pass, GAE (as `PPOLearner.update` forms it: the discounts,
+    the reward scale, the truncation cast and the estimator), and the update
+    (bootstrap, GAE and the epochs x minibatches of updates);
   * torch.profiler over N whole update steps: the device busy time (the union
     of kernel and copy intervals), kernel launches per update, and the kernels
     that take the most device time, B1 and B2 (flash attention) included.
@@ -57,31 +59,41 @@ def _union_us(intervals):
     return total
 
 
+def critic_pass(learner, params, traj):
+    """The learner's bootstrap critic pass, as `PPOLearner.update` runs it."""
+    with torch.no_grad():
+        return learner.critic_apply(params.critic_params, learner.bootstrap_input(traj))
+
+
+def gae(learner, traj, v_t, estimator=truncated_generalized_advantage_estimation):
+    """The learner's GAE, as `PPOLearner.update` forms it, through `estimator`."""
+    with torch.no_grad():
+        return estimator(
+            traj.reward * learner.reward_scale, learner.gamma * (1.0 - traj.done.to(torch.float32)),
+            learner.gae_lambda, v_tm1=traj.value, v_t=v_t,
+            truncation_t=traj.truncated.to(torch.float32),
+            standardize_advantages=learner.standardize_advantages, impl=learner.multistep_impl,
+        )
+
+
 def _phases(learner, state, sync):
     """One update step split into host-timed phases."""
     t0 = time.perf_counter()
     state, traj = learner.rollout(state)
     sync()
     t1 = time.perf_counter()
-    with torch.no_grad():
-        if hasattr(traj, "window"):  # ff_trans_ppo: the successor windows
-            next_obs = torch.cat([traj.window[:, :, 1:], traj.next_obs[:, :, None]], dim=2)
-        else:
-            next_obs = traj.next_obs
-        v_t = learner.critic_apply(state.params.critic_params, next_obs)
-        truncated_generalized_advantage_estimation(
-            traj.reward, learner.gamma * (1.0 - traj.done.float()), learner.gae_lambda,
-            v_tm1=traj.value, v_t=v_t, truncation_t=traj.truncated.float(),
-            standardize_advantages=learner.standardize_advantages, impl=learner.multistep_impl,
-        )
+    v_t = critic_pass(learner, state.params, traj)
     sync()
     t2 = time.perf_counter()
-    result = learner.update(state.params, state.opt_states, traj, state.generator)
+    gae(learner, traj, v_t)
     sync()
     t3 = time.perf_counter()
+    result = learner.update(state.params, state.opt_states, traj, state.generator)
+    sync()
+    t4 = time.perf_counter()
     state = state._replace(params=result.params, opt_states=result.opt_states)
-    return state, {"rollout_ms": (t1 - t0) * 1e3, "gae_ms": (t2 - t1) * 1e3,
-                   "update_ms_including_gae": (t3 - t2) * 1e3}
+    return state, {"rollout_ms": (t1 - t0) * 1e3, "critic_ms": (t2 - t1) * 1e3,
+                   "gae_ms": (t3 - t2) * 1e3, "update_ms_including_gae": (t4 - t3) * 1e3}
 
 
 def main() -> None:
@@ -118,7 +130,7 @@ def main() -> None:
         phases.append(phase)
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    counters = (linear_recurrence.KERNEL, *flash_attention.COUNTERS)
+    counters = (*linear_recurrence.COUNTERS, *flash_attention.COUNTERS)
     for counter in counters:
         counter.launches = 0
     sync()
@@ -138,7 +150,7 @@ def main() -> None:
         entry[1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in device_events])
-    ours = {k: v for k, v in by_name.items() if "linear_recurrence" in k or "flash_" in k}
+    ours = {k: v for k, v in by_name.items() if "recurrence" in k or "flash_" in k}
     steps_per_update = int(config.system.rollout_length) * int(config.arch.total_num_envs)
     unprofiled_ms = sum(
         p["rollout_ms"] + p["update_ms_including_gae"] for p in phases

@@ -33,7 +33,7 @@
 //   can see it (from the key tile on, when causal). For each query tile it
 //     1. copies q, o, dO rows (and lse) into shared memory, 16 bytes a thread,
 //        neighbouring threads on neighbouring pieces of a row (cp.async for
-//        fp32; bf16 widened to fp32 on the way);
+//        fp32; bf16 and fp16 widened to fp32 on the way);
 //     2. forms delta from shared memory (no trip through device memory);
 //     3. forms the R x R scores of each pair once, a thread per 2 x 2 tile of
 //        (query, key), and from them P and dS once, masked by position;
@@ -53,8 +53,9 @@
 // thread walks a row by itself); P and dS are computed once, not once per
 // kernel, and delta never leaves the block (13 passes over a [B, S, H, D]
 // operand become 8); a thread keeps 16 fp32 accumulators at D <= 32 (32 at
-// D = 64) across query tiles, not 4.D row registers, and is capped at 80
-// registers so three blocks share an SM; the causal walk skips query tiles
+// D = 64, 64 at D = 128) across query tiles, not 4.D row registers, and is
+// capped at 80 registers so three blocks share an SM (D = 128: one block an SM,
+// uncapped); the causal walk skips query tiles
 // before the key tile, score tiles above the diagonal are skipped, and on the
 // diagonal tile each 4 x 4 product starts (dK, dV) or stops (dQ) at its own
 // diagonal, so no lane idles on masked rows of a staged tile. Rows are padded
@@ -71,6 +72,9 @@
 // q, k, v and write o: 134 217 728 bytes, 0.0401 ms at 3.35 TB/s, against
 // 0.29 GFLOP (0.0043 ms at 67 TFLOP/s).
 //
+// Types: q, k, v (and o, dO, dQ, dK, dV) float32, bfloat16 or float16, head
+// dims 8, 16, 32, 64 and 128; arithmetic in fp32, one rounding per output.
+//
 // Layout: q, k and v are taken by strides (batch, seq, head; the last dim
 // contiguous), so the three views of a fused [B, S, 3, H, D] projection go in
 // as they are. o, dO, dQ, dK, dV are contiguous [B, S, H, D]; lse contiguous
@@ -86,8 +90,12 @@ namespace {
 constexpr int kBwdRows = kTileRows;        // rows of each side a backward block holds
 constexpr int kBwdThreads = 4 * kBwdRows;  // threads per backward block: 4 per row
 // Backward blocks an SM must hold at once: caps a thread at 80 registers, so
-// that one block's copies overlap another's arithmetic.
-constexpr int kBwdMinBlocks = 3;
+// that one block's copies overlap another's arithmetic. At D = 128 one block
+// fills an SM's shared memory (198 KiB) and a thread keeps 64 accumulators.
+template <int D>
+__host__ __device__ constexpr int bwd_min_blocks() {
+  return D > 64 ? 1 : 3;
+}
 
 struct Shape {
   int batch, seq, heads;
@@ -117,7 +125,7 @@ __device__ __forceinline__ long long stat_offset(int pair, int row, const Shape&
 // ---------------------------------------------------------------- forward
 
 template <typename T, int D, int kLanes>
-__global__ void __launch_bounds__(kThreads, min_blocks<kLanes>())
+__global__ void __launch_bounds__(kThreads, min_blocks<kLanes, D>())
 flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      T* __restrict__ o, float* __restrict__ lse, ForwardShape s) {
   forward_core<T, T, D, false, kLanes>(q, k, v, nullptr, nullptr, o, lse, nullptr, nullptr, s);
@@ -152,11 +160,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, long long sb
     } else {
       uint4 raw = make_uint4(0u, 0u, 0u, 0u);
       if (valid) raw = __ldg(reinterpret_cast<const uint4*>(from));
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-      const float2 c = __bfloat1622float2(h[2]), e = __bfloat1622float2(h[3]);
-      reinterpret_cast<float4*>(to)[0] = make_float4(a.x, a.y, b.x, b.y);
-      reinterpret_cast<float4*>(to)[1] = make_float4(c.x, c.y, e.x, e.y);
+      widen_piece<T>(to, raw, 1.f);
     }
   }
 }
@@ -179,10 +183,7 @@ __device__ __forceinline__ void store_tile(OutT* dst, const float* src, int firs
     if constexpr (sizeof(OutT) == 4) {
       *reinterpret_cast<float4*>(to) = *reinterpret_cast<const float4*>(from);
     } else {
-      __align__(16) __nv_bfloat162 h[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(from[2 * i], from[2 * i + 1]);
-      *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(h);
+      *reinterpret_cast<uint4*>(to) = round_piece<OutT>(from);
     }
   }
 }
@@ -200,7 +201,7 @@ __device__ __forceinline__ void outer4(float (&acc)[4][4], const float4& a, cons
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+__global__ void __launch_bounds__(kBwdThreads, bwd_min_blocks<D>())
 flash_backward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const T* __restrict__ o, const T* __restrict__ dout,
                       const float* __restrict__ lse, T* __restrict__ dq,
@@ -209,9 +210,11 @@ flash_backward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   constexpr int kDg = D / 4;                        // 4-wide column groups
   constexpr int kMicro = kBwdRows / 4 * kDg;        // 4 x 4 tiles of one [kBwdRows, D] output
   constexpr int kKvPerThread = (2 * kMicro + kBwdThreads - 1) / kBwdThreads;  // dV, dK tiles
-  constexpr int kQSplit = kBwdThreads / kMicro;     // threads sharing one dQ tile
+  // dQ tiles: kQSplit threads share one (D <= 64), or a thread takes kQTiles (D = 128).
+  constexpr int kQSplit = kMicro < kBwdThreads ? kBwdThreads / kMicro : 1;
+  constexpr int kQTiles = kMicro < kBwdThreads ? 1 : kMicro / kBwdThreads;
   static_assert(kBwdThreads == 4 * kBwdRows, "delta takes 4 threads a row");
-  static_assert(kQSplit * kMicro == kBwdThreads, "every thread takes a part of one dQ tile");
+  static_assert(kQSplit * kMicro == kBwdThreads * kQTiles, "every dQ tile is taken once");
 
   extern __shared__ __align__(16) float smem[];
   const int R = s.rows;
@@ -338,9 +341,10 @@ flash_backward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     // dQ = scale.dS.k over the key tile: kQSplit neighbouring threads share a
     // tile of 4 queries by 4 columns, each summing every kQSplit-th group of 4
     // keys (on the diagonal, up to the tile's last query); their sums are added
-    // by shuffles in a fixed order.
-    {
-      const int micro = threadIdx.x / kQSplit, part = threadIdx.x % kQSplit;
+    // by shuffles in a fixed order; at D = 128 a thread takes kQTiles tiles in turn.
+    for (int tile = 0; tile < kQTiles; ++tile) {
+      const int micro = threadIdx.x / kQSplit + tile * (kBwdThreads / kQSplit);
+      const int part = threadIdx.x % kQSplit;
       const int row0 = micro / kDg * 4, dg = micro % kDg;
       const int first = row0 / R * R, local0 = row0 % R;
       float acc[4][4];
@@ -415,7 +419,7 @@ flash_backward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 bool make_backward_shape(Shape* s, const long long* strides, int batch, int seq, int heads,
                          int head_dim, float scale, int causal) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return false;
-  if (head_dim != 16 && head_dim != 32 && head_dim != 64) return false;
+  if (!built_head_dim(head_dim)) return false;
   int rows = next_pow2(seq);
   if (rows < 4) rows = 4;
   if (rows > kBwdRows) rows = kBwdRows;
@@ -469,28 +473,6 @@ void backward_launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<T*>(dv), s);
 }
 
-// Calls LAUNCH<T, D>(args...) for the runtime dtype code (0 float32, 1 bfloat16)
-// and head dim; returns cudaErrorInvalidValue for anything else.
-#define DISPATCH(LAUNCH, DTYPE, HEAD_DIM, ...)                                     \
-  do {                                                                             \
-    if ((DTYPE) == 0) {                                                            \
-      switch (HEAD_DIM) {                                                          \
-        case 16: LAUNCH<float, 16>(__VA_ARGS__); break;                            \
-        case 32: LAUNCH<float, 32>(__VA_ARGS__); break;                            \
-        case 64: LAUNCH<float, 64>(__VA_ARGS__); break;                            \
-        default: return static_cast<int>(cudaErrorInvalidValue);                   \
-      }                                                                            \
-    } else if ((DTYPE) == 1) {                                                     \
-      switch (HEAD_DIM) {                                                          \
-        case 16: LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__); break;                    \
-        case 32: LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__); break;                    \
-        case 64: LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__); break;                    \
-        default: return static_cast<int>(cudaErrorInvalidValue);                   \
-      }                                                                            \
-    } else {                                                                       \
-      return static_cast<int>(cudaErrorInvalidValue);                              \
-    }                                                                              \
-  } while (0)
 
 }  // namespace
 

@@ -35,6 +35,8 @@
 // the card's 67 TFLOP/s of fp32, against 16.8 MB of q, k, v and pv, about 5 us
 // at 3.35 TB/s. No tensor cores: exact fp32 FMA, expf, not __expf.
 //
+// Types: q, k, v float32, bfloat16 or float16, head dims 8, 16, 32, 64 and 128.
+//
 // Layout: q, k and v are taken by strides (batch, seq, head; the last dim
 // contiguous; rows 16-byte aligned), so the views of a fused [B, S, 3, H, D]
 // projection go in as they are. Positions are contiguous int32 [Sq] and [Sk];
@@ -48,7 +50,7 @@
 namespace {
 
 template <typename T, int D, int kLanes>
-__global__ void __launch_bounds__(kThreads, min_blocks<kLanes>())
+__global__ void __launch_bounds__(kThreads, min_blocks<kLanes, D>())
 flash_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
                    float* __restrict__ pv, float* __restrict__ m_out, float* __restrict__ l_out,
@@ -70,7 +72,7 @@ void chunk_launch(const void* q, const void* k, const void* v, const void* q_pos
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v); pv, m, l are float32 either way.
+// dtype: 0 float32, 1 bfloat16, 2 float16 (q, k, v); pv, m, l are float32 either way.
 extern "C" int flash_attention_chunk(int dtype, const void* q, const void* k, const void* v,
                                      const void* q_pos, const void* k_pos, void* pv, void* m,
                                      void* l, const long long* strides, int batch, int q_len,
@@ -79,22 +81,8 @@ extern "C" int flash_attention_chunk(int dtype, const void* q, const void* k, co
   ForwardShape s;
   if (!make_forward_shape(&s, strides, batch, q_len, k_len, heads, head_dim, scale, causal))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    switch (head_dim) {
-      case 16: chunk_launch<float, 16>(q, k, v, q_pos, k_pos, pv, m, l, s, st); break;
-      case 32: chunk_launch<float, 32>(q, k, v, q_pos, k_pos, pv, m, l, s, st); break;
-      default: chunk_launch<float, 64>(q, k, v, q_pos, k_pos, pv, m, l, s, st); break;
-    }
-  } else if (dtype == 1) {
-    switch (head_dim) {
-      case 16: chunk_launch<__nv_bfloat16, 16>(q, k, v, q_pos, k_pos, pv, m, l, s, st); break;
-      case 32: chunk_launch<__nv_bfloat16, 32>(q, k, v, q_pos, k_pos, pv, m, l, s, st); break;
-      default: chunk_launch<__nv_bfloat16, 64>(q, k, v, q_pos, k_pos, pv, m, l, s, st); break;
-    }
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  DISPATCH(chunk_launch, dtype, head_dim, q, k, v, q_pos, k_pos, pv, m, l, s,
+           static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,8 +10,8 @@
 // Per key tile, kThreads = 256 threads:
 //   1. copy the tile's K and V rows into padded, skewed fp32 tiles in shared
 //      memory, one 16-byte piece a thread, neighbouring threads on
-//      neighbouring pieces of a row (cp.async for fp32, bf16 widened on the
-//      way; past S the piece is zero-filled). q goes with the first tile;
+//      neighbouring pieces of a row (cp.async for fp32, bf16 and fp16 widened
+//      on the way; past S the piece is zero-filled). q goes with the first tile;
 //   2. scores and the online softmax: 4 neighbouring lanes share a query row
 //      (R <= 16), or 16 share 4 rows (R > 16), each lane a register tile of
 //      its rows by R / 4 or R / 16 keys (q scaled in fp32 before the dot, as
@@ -20,10 +20,13 @@
 //      m_safe (0 while the row has seen only masked keys),
 //      alpha = exp(m - m_safe) (0 while m is -inf), l = l.alpha + sum p;
 //      P goes to shared memory;
-//   3. acc = acc.alpha + P.V, each thread a register tile of D / 16 rows by
-//      4 columns (R <= 16), or a share of a 4 x 4 tile whose keys 64 / D or
-//      more lanes split and sum by shuffles at the end (R > 16), up to the last
-//      key any of its rows sees.
+//   3. acc = acc.alpha + P.V, each thread a register tile of max(1, D / 16)
+//      rows by 4 columns (R <= 16), or of max(4, D / 16) rows by 4 columns
+//      (R > 16); where the tiles are fewer than the threads, 2 or more lanes
+//      split a tile's keys and sum by shuffles at the end; up to the last key
+//      any of its rows sees.
+// Head dims 8, 16, 32, 64 and 128 are built (a 16-byte piece is a whole row
+// of 8 16-bit values); q, k, v are float32, bfloat16 or float16.
 // The epilogue writes the accumulator out through shared memory as 16-byte
 // coalesced stores (normalised and rounded once to the output type for B2,
 // raw fp32 pv for B3) and the row statistics as coalesced rows.
@@ -41,6 +44,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -74,6 +78,43 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 
+// The 16-bit input types (bfloat16, float16): a 16-byte piece of eight is
+// widened to fp32 (times `mul`) on the way into a tile, and eight fp32 values
+// are rounded once each into a piece on the way out.
+template <typename T>
+struct Narrow;
+template <>
+struct Narrow<__nv_bfloat16> {
+  using Pair = __nv_bfloat162;
+  static __device__ __forceinline__ float2 widen(Pair x) { return __bfloat1622float2(x); }
+  static __device__ __forceinline__ Pair round(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+};
+template <>
+struct Narrow<__half> {
+  using Pair = __half2;
+  static __device__ __forceinline__ float2 widen(Pair x) { return __half22float2(x); }
+  static __device__ __forceinline__ Pair round(float a, float b) { return __floats2half2_rn(a, b); }
+};
+
+template <typename T>
+__device__ __forceinline__ void widen_piece(float* to, uint4 raw, float mul) {
+  const typename Narrow<T>::Pair* h = reinterpret_cast<const typename Narrow<T>::Pair*>(&raw);
+  const float2 a = Narrow<T>::widen(h[0]), b = Narrow<T>::widen(h[1]);
+  const float2 c = Narrow<T>::widen(h[2]), e = Narrow<T>::widen(h[3]);
+  reinterpret_cast<float4*>(to)[0] = make_float4(a.x * mul, a.y * mul, b.x * mul, b.y * mul);
+  reinterpret_cast<float4*>(to)[1] = make_float4(c.x * mul, c.y * mul, e.x * mul, e.y * mul);
+}
+
+template <typename T>
+__device__ __forceinline__ uint4 round_piece(const float* x) {
+  __align__(16) typename Narrow<T>::Pair h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = Narrow<T>::round(x[2 * i], x[2 * i + 1]);
+  return *reinterpret_cast<const uint4*>(h);
+}
+
 __device__ __forceinline__ float lane(const float4& x, int i) {
   return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
 }
@@ -81,6 +122,9 @@ __device__ __forceinline__ float lane(const float4& x, int i) {
 __device__ __forceinline__ float dot4(const float4& a, const float4& b, float acc) {
   return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
 }
+
+// The head dims the kernels are built for (kernels/flash_attention.py::HEAD_DIMS).
+inline bool built_head_dim(int d) { return d == 8 || d == 16 || d == 32 || d == 64 || d == 128; }
 
 inline int next_pow2(int x) {
   int p = 1;
@@ -104,7 +148,7 @@ struct ForwardShape {
 inline bool make_forward_shape(ForwardShape* s, const long long* strides, int batch, int q_len,
                                int k_len, int heads, int head_dim, float scale, int causal) {
   if (batch <= 0 || q_len <= 0 || k_len <= 0 || heads <= 0) return false;
-  if (head_dim != 16 && head_dim != 32 && head_dim != 64) return false;
+  if (!built_head_dim(head_dim)) return false;
   int rows = next_pow2(q_len > k_len ? q_len : k_len);
   if (rows < 4) rows = 4;
   if (rows > kTileRows) rows = kTileRows;
@@ -138,8 +182,8 @@ inline dim3 forward_grid(const ForwardShape& s) {
 // Copy rows [r0, r0 + R) of each of the block's pairs (row `base[g] + row *
 // row_stride` of pair g; rows at or past `len`, and pairs at or past
 // `num_pairs`, zero) into an fp32 operand tile, one 16-byte piece a thread,
-// neighbouring threads on neighbouring pieces of a row. bf16 is widened and
-// multiplied by `mul` on the way; fp32 goes by cp.async as it is (the caller
+// neighbouring threads on neighbouring pieces of a row. bf16 and fp16 are
+// widened and multiplied by `mul` on the way; fp32 goes by cp.async as it is (the caller
 // scales it after the wait, `scale_tile`).
 template <typename T, int D>
 __device__ __forceinline__ void copy_tile(float* dst, const T* src, const long long* base,
@@ -158,11 +202,7 @@ __device__ __forceinline__ void copy_tile(float* dst, const T* src, const long l
     } else {
       uint4 raw = make_uint4(0u, 0u, 0u, 0u);
       if (valid) raw = __ldg(reinterpret_cast<const uint4*>(from));
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-      const float2 c = __bfloat1622float2(h[2]), e = __bfloat1622float2(h[3]);
-      reinterpret_cast<float4*>(to)[0] = make_float4(a.x * mul, a.y * mul, b.x * mul, b.y * mul);
-      reinterpret_cast<float4*>(to)[1] = make_float4(c.x * mul, c.y * mul, e.x * mul, e.y * mul);
+      widen_piece<T>(to, raw, mul);
     }
   }
 }
@@ -199,10 +239,7 @@ __device__ __forceinline__ void store_tile_rows(OutT* dst, const float* src, con
     if constexpr (sizeof(OutT) == 4) {
       *reinterpret_cast<float4*>(to) = make_float4(x[0], x[1], x[2], x[3]);
     } else {
-      __align__(16) __nv_bfloat162 h[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-      *reinterpret_cast<uint4*>(to) = *reinterpret_cast<const uint4*>(h);
+      *reinterpret_cast<uint4*>(to) = round_piece<OutT>(x);
     }
   }
 }
@@ -214,13 +251,15 @@ __device__ __forceinline__ void store_tile_rows(OutT* dst, const float* src, con
 constexpr int kSmallRows = 16;
 constexpr int kMaxKeysPT = 4;  // keys of a score tile, at most
 // Resident blocks an SM must hold: caps a thread's registers (64 for the short
-// sequences, whose copies need many blocks in flight; 128 for the long).
+// sequences, whose copies need many blocks in flight; 128 for the long). At
+// D = 128 shared memory holds two short blocks or one long one an SM, and a
+// thread keeps 32 accumulators: 128 and 255 registers.
 constexpr int kSmallMinBlocks = 4;
 constexpr int kLargeMinBlocks = 2;
 
-template <int kLanes>
+template <int kLanes, int D>
 __host__ __device__ constexpr int min_blocks() {
-  return kLanes == 4 ? kSmallMinBlocks : kLargeMinBlocks;
+  return D > 64 ? (kLanes == 4 ? 2 : 1) : (kLanes == 4 ? kSmallMinBlocks : kLargeMinBlocks);
 }
 
 
@@ -240,9 +279,9 @@ __device__ __forceinline__ void forward_core(const T* __restrict__ q, const T* _
   constexpr int kRT = kLanes / 4;   // query rows of a score tile
   constexpr int kCols = D / 4;      // 4-wide column groups of a row
   // Output tiles: kRowsPT rows by 4 columns, each shared by kSplit neighbouring
-  // lanes that take every kSplit-th group of 4 keys (4 x 4 tiles for long
-  // sequences: 8 shared-memory reads for 64 FMA).
-  constexpr int kRowsPT = kLanes == 4 ? D / 16 : 4;
+  // lanes that take every kSplit-th group of 4 keys (4 x 4 tiles or taller for
+  // long sequences: 8 shared-memory reads for 64 FMA).
+  constexpr int kRowsPT = kLanes == 4 ? (D >= 16 ? D / 16 : 1) : (D >= 64 ? D / 16 : 4);
   constexpr int kSplit = kThreads / (kTileRows / kRowsPT * kCols);
   static_assert(kTileRows / kRT * kLanes == kThreads, "one score tile a thread");
   static_assert(kSplit * (kTileRows / kRowsPT * kCols) == kThreads, "a tile's share a thread");
@@ -324,7 +363,7 @@ __device__ __forceinline__ void forward_core(const T* __restrict__ q, const T* _
 
   // q goes out with the first key tile's K and V: one wait for the three.
   copy_tile<T, D>(q_s, q, q_base, s.qs, q0, s.q_len, num_pairs, s, s.scale);
-  bool q_scaled = sizeof(T) != 4;  // bf16 is scaled on the way in
+  bool q_scaled = sizeof(T) != 4;  // bf16 and fp16 are scaled on the way in
 
   // Score role: rows slot0 .. slot0 + kRT - 1 by keys key0 .. key0 + keys_pt - 1.
   const int part = tid % kLanes, slot0 = tid / kLanes * kRT;
@@ -546,7 +585,7 @@ __device__ __forceinline__ void forward_core(const T* __restrict__ q, const T* _
 
 // Launch `kernel` for a shape: the variant for short sequences when R <=
 // kSmallRows, else the one for long ones; each opts in to its largest block's
-// dynamic shared memory once (above 48 KiB at D = 64). A failure is left for
+// dynamic shared memory once (above 48 KiB from D = 64). A failure is left for
 // cudaGetLastError() to report, and retried next call.
 template <int D, typename Kernel, typename... Args>
 void launch_forward(Kernel small, Kernel large, bool (&opted)[2], const ForwardShape& s,
@@ -564,5 +603,29 @@ void launch_forward(Kernel small, Kernel large, bool (&opted)[2], const ForwardS
   const size_t smem = forward_smem_floats(D, s.rows) * sizeof(float);
   kernel<<<forward_grid(s), kThreads, smem, stream>>>(args..., s);
 }
+
+// Calls LAUNCH<T, D>(args...) for the runtime dtype code (0 float32, 1 bfloat16,
+// 2 float16) and head dim; returns cudaErrorInvalidValue for anything else.
+#define DISPATCH_HEAD_DIM(LAUNCH, T, HEAD_DIM, ...)                                \
+  switch (HEAD_DIM) {                                                              \
+    case 8: LAUNCH<T, 8>(__VA_ARGS__); break;                                      \
+    case 16: LAUNCH<T, 16>(__VA_ARGS__); break;                                    \
+    case 32: LAUNCH<T, 32>(__VA_ARGS__); break;                                    \
+    case 64: LAUNCH<T, 64>(__VA_ARGS__); break;                                    \
+    case 128: LAUNCH<T, 128>(__VA_ARGS__); break;                                  \
+    default: return static_cast<int>(cudaErrorInvalidValue);                       \
+  }
+#define DISPATCH(LAUNCH, DTYPE, HEAD_DIM, ...)                                     \
+  do {                                                                             \
+    if ((DTYPE) == 0) {                                                            \
+      DISPATCH_HEAD_DIM(LAUNCH, float, HEAD_DIM, __VA_ARGS__)                      \
+    } else if ((DTYPE) == 1) {                                                     \
+      DISPATCH_HEAD_DIM(LAUNCH, __nv_bfloat16, HEAD_DIM, __VA_ARGS__)              \
+    } else if ((DTYPE) == 2) {                                                     \
+      DISPATCH_HEAD_DIM(LAUNCH, __half, HEAD_DIM, __VA_ARGS__)                     \
+    } else {                                                                       \
+      return static_cast<int>(cudaErrorInvalidValue);                              \
+    }                                                                              \
+  } while (0)
 
 }  // namespace

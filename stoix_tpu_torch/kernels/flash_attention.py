@@ -43,6 +43,13 @@ qkv projection need no copy; every row must be 16-byte aligned, which those
 views are at every head dim the kernels take, and anything else is refused
 with a ValueError (`check_rows_aligned`).
 
+Head dims and dtypes: the kernels are built for HEAD_DIMS (8 to 128) in
+float32, bfloat16 and float16, as the TPU kernel takes any head dim and
+float dtype. `flash_attention` runs any other head dim up to 128 on the card
+zero-padded to the next built one (`kernel_head_dim`, `padded_flash_attention`):
+the zero columns add nothing to q.k, the scale stays D^-1/2 of the true D,
+and the output's padded columns are cut off. Past 128 the card raises.
+
 Counters: `FORWARD` and `BACKWARD` each count the launches of one kernel, and
 rise nowhere else.
 """
@@ -53,13 +60,14 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from stoix_tpu_torch.kernels.build import CudaLibrary
 
 KEY_TILE = 64  # keys folded per online-softmax step past S = 64, as the forward core folds them
-HEAD_DIMS = (16, 32, 64)  # the head dims csrc/flash_attention.cu instantiates
+HEAD_DIMS = (8, 16, 32, 64, 128)  # the head dims csrc/flash_forward.cuh::built_head_dim names
 BACKWARD_TILE = 64  # rows of a key tile in the backward kernel (kBwdRows)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # strides, batch, seq, heads, head_dim, scale, causal, stream
 _SHAPE_ARGS = [_P, _I, _I, _I, _I, _F, _I, _P]
@@ -139,13 +147,15 @@ def fold_key_tiles(
 
 def plain_flash_attention_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
-    need_lse: bool = False,
+    need_lse: bool = False, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The forward kernel's arithmetic in plain PyTorch: the online softmax
     folded over key tiles of KEY_TILE as `_fold_block` folds its blocks.
-    Returns o [B, S, H, D] in q.dtype and, if asked, lse [B, H, S] float32."""
-    seq, head_dim = q.shape[1], q.shape[3]
-    qs, kf, vf = _heads_first(q) * head_dim**-0.5, _heads_first(k), _heads_first(v)
+    `scale` defaults to D^-1/2. Returns o [B, S, H, D] in q.dtype and, if
+    asked, lse [B, H, S] float32."""
+    seq = q.shape[1]
+    scale = q.shape[3] ** -0.5 if scale is None else scale
+    qs, kf, vf = _heads_first(q) * scale, _heads_first(k), _heads_first(v)
     positions = torch.arange(seq, device=q.device) if causal else None
     m, l, acc = fold_key_tiles(qs, kf, vf, positions, positions)
     l_safe = torch.where(l == 0.0, 1.0, l)
@@ -158,14 +168,14 @@ def plain_flash_attention_forward(
 
 def plain_flash_attention_backward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-    dout: torch.Tensor, causal: bool = False,
+    dout: torch.Tensor, causal: bool = False, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel's arithmetic, in its order: delta = rowsum(dO.O);
     P = exp(q.scale.K^T - lse) and dS = P.(dO V^T - delta), once; then
-    dQ = scale.dS K, dK = dS^T (q.scale), dV = P^T dO. Returns dq, dk, dv
-    (contiguous [B, S, H, D], q.dtype)."""
-    seq, head_dim = q.shape[1], q.shape[3]
-    scale = head_dim**-0.5
+    dQ = scale.dS K, dK = dS^T (q.scale), dV = P^T dO (scale defaults to
+    D^-1/2). Returns dq, dk, dv (contiguous [B, S, H, D], q.dtype)."""
+    seq = q.shape[1]
+    scale = q.shape[3] ** -0.5 if scale is None else scale
     qs, kf, vf, dof = _heads_first(q) * scale, _heads_first(k), _heads_first(v), _heads_first(dout)
     delta = (dof * _heads_first(o)).sum(-1)
     p = torch.exp(qs @ kf.transpose(-1, -2) - lse[..., None])
@@ -181,15 +191,31 @@ def plain_flash_attention_backward(
 # ----------------------------------------------------------------- the kernels
 
 
+def kernel_head_dim(head_dim: int) -> int:
+    """The head dim the kernels (B2 and B3) run `head_dim` at: itself if they
+    are built for it, else the next one they are built for, to which the
+    dispatch zero-pads q, k and v. Past HEAD_DIMS[-1] raises."""
+    for width in HEAD_DIMS:
+        if width >= head_dim:
+            return width
+    raise ValueError(
+        f"flash attention kernels take head dims up to {HEAD_DIMS[-1]}, got {head_dim}")
+
+
+def pad_head_dim(width: int, *tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensors with their last dim zero-padded to `width` (differentiable)."""
+    return tuple(F.pad(x, (0, width - x.shape[-1])) for x in tensors)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
             f"flash attention takes q, k, v of one [B, S, H, D] shape, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash attention kernels take float32 or bfloat16 q, k, v of one dtype, got "
+            f"flash attention kernels take float32, bfloat16 or float16 q, k, v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
@@ -210,19 +236,20 @@ def check_rows_aligned(what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what} needs 16-byte aligned rows")
 
 
-def _launch_args(q, k, v, causal):
+def _launch_args(q, k, v, causal, scale):
     batch, seq, heads, head_dim = q.shape
     strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v) for i in range(3)))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    return strides, [batch, seq, heads, head_dim, head_dim**-0.5, int(causal), stream]
+    scale = head_dim**-0.5 if scale is None else scale
+    return strides, [batch, seq, heads, head_dim, scale, int(causal), stream]
 
 
 def forward_kernel(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
-    need_lse: bool = False,
+    need_lse: bool = False, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the forward kernel; o contiguous [B, S, H, D] in q.dtype and, if
-    asked, lse [B, H, S] float32."""
+    asked, lse [B, H, S] float32. `scale` defaults to D^-1/2."""
     _check(q, k, v)
     check_rows_aligned("flash attention forward", q, k, v)
     batch, seq, heads, _ = q.shape
@@ -232,9 +259,9 @@ def forward_kernel(
         lse = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device)
     lib = LIBRARY.load()
     with torch.cuda.device(q.device):
-        strides, shape = _launch_args(q, k, v, causal)
+        strides, shape = _launch_args(q, k, v, causal, scale)
         code = lib.flash_attention_forward(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(), strides, *shape,
         )
     LIBRARY.check(code, "flash attention forward kernel")
@@ -253,11 +280,12 @@ def _check_backward(q: torch.Tensor, lse: torch.Tensor, **like_q: torch.Tensor) 
 
 def backward_kernel(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
-    dout: torch.Tensor, causal: bool = False,
+    dout: torch.Tensor, causal: bool = False, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernel: dq, dk, dv (contiguous [B, S, H, D],
-    q.dtype) in one launch. Past S = BACKWARD_TILE each key tile writes an
-    fp32 dQ partial, summed here in tile order."""
+    q.dtype) in one launch (`scale` defaults to D^-1/2). Past S =
+    BACKWARD_TILE each key tile writes an fp32 dQ partial, summed here in
+    tile order."""
     _check(q, k, v)
     _check_backward(q, lse, o=o, dout=dout)
     check_rows_aligned("flash attention backward", q, k, v, o, dout)
@@ -270,9 +298,9 @@ def backward_kernel(
         partial = torch.zeros((tiles, *q.shape), dtype=torch.float32, device=q.device)
     lib = LIBRARY.load()
     with torch.cuda.device(q.device):
-        strides, shape = _launch_args(q, k, v, causal)
+        strides, shape = _launch_args(q, k, v, causal, scale)
         code = lib.flash_attention_backward(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), None if dq is None else dq.data_ptr(),
             None if partial is None else partial.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             strides, *shape,
@@ -287,46 +315,66 @@ def backward_kernel(
 # ----------------------------------------------------------------- dispatch and autograd
 
 
-def _forward(q, k, v, causal, need_lse):
+def _forward(q, k, v, causal, need_lse, scale):
     if q.device.type == "cuda":
-        return forward_kernel(q, k, v, causal, need_lse)
+        return forward_kernel(q, k, v, causal, need_lse, scale)
     if q.device.type == "cpu":
-        return plain_flash_attention_forward(q, k, v, causal, need_lse)
+        return plain_flash_attention_forward(q, k, v, causal, need_lse, scale)
     raise ValueError(f"no flash attention kernel for device {q.device}")
 
 
-def _backward(q, k, v, o, lse, dout, causal):
+def _backward(q, k, v, o, lse, dout, causal, scale):
     if q.device.type == "cuda":
-        return backward_kernel(q, k, v, o, lse, dout, causal)
+        return backward_kernel(q, k, v, o, lse, dout, causal, scale)
     if q.device.type == "cpu":
-        return plain_flash_attention_backward(q, k, v, o, lse, dout, causal)
+        return plain_flash_attention_backward(q, k, v, o, lse, dout, causal, scale)
     raise ValueError(f"no flash attention kernel for device {q.device}")
 
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with a flash backward: the forward saves q, k, v, o and
-    lse; the backward recomputes the probabilities from lse."""
+    lse; the backward recomputes the probabilities from lse. `scale` None
+    means D^-1/2."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = _forward(q, k, v, causal, need_lse=True)
+    def forward(ctx, q, k, v, causal, scale=None):
+        o, lse = _forward(q, k, v, causal, True, scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.scale = causal, scale
         return o
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, o, lse, dout.contiguous(), ctx.causal)
-        return dq, dk, dv, None
+        dq, dk, dv = _backward(q, k, v, o, lse, dout.contiguous(), ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def _attend(q, k, v, causal, scale):
+    # lse is written only where autograd will need it.
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, scale)
+    return _forward(q, k, v, causal, False, scale)[0]
+
+
+def padded_flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, width: int
+) -> torch.Tensor:
+    """Attention at q's head dim D computed at head dim `width` >= D: q, k, v
+    zero-padded to it, the scale D^-1/2, and the output's padded columns cut
+    off. The kernels on CUDA tensors, their plain versions on CPU tensors."""
+    head_dim = q.shape[-1]
+    return _attend(*pad_head_dim(width, q, k, v), causal, head_dim**-0.5)[..., :head_dim]
 
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> torch.Tensor:
     """[B, S, H, D] -> [B, S, H, D]: the kernels on CUDA tensors (they launch
-    or raise), their plain versions on CPU tensors. lse is written only where
-    autograd will need it."""
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return FlashAttention.apply(q, k, v, causal)
-    return _forward(q, k, v, causal, need_lse=False)[0]
+    or raise), their plain versions on CPU tensors. On CUDA a head dim the
+    kernels are not built for runs padded to the next one that is
+    (`kernel_head_dim`); past 128 it raises."""
+    head_dim = q.shape[-1]
+    if q.device.type == "cuda" and head_dim not in HEAD_DIMS:
+        return padded_flash_attention(q, k, v, causal, kernel_head_dim(head_dim))
+    return _attend(q, k, v, causal, None)

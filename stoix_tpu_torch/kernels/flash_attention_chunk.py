@@ -32,7 +32,10 @@ staged with its tile. A block whose chunk lies wholly in its queries' future
 writes the proxy stats and zeros as coalesced stores without reading q, K or
 V, and a key tile wholly beyond the block's last query is skipped before its
 K/V are copied. q, k, v are taken by strides; their rows must be 16-byte
-aligned (a ValueError otherwise). The TPU kernel's block sizes (which must
+aligned (a ValueError otherwise). They may be float32, bfloat16 or float16,
+at the head dims B2 is built for (HEAD_DIMS, 8 to 128); the dispatch
+(ops/pallas_attention.py::flash_attention_chunk) zero-pads any other head dim
+up to 128 and passes the true D^-1/2 as `scale`. The TPU kernel's block sizes (which must
 divide the chunk lengths) do not shape this kernel's tiling.
 
 Counter: `KERNEL` counts this kernel's launches and rises nowhere else.
@@ -41,16 +44,15 @@ Counter: `KERNEL` counts this kernel's launches and rises nowhere else.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from stoix_tpu_torch.kernels.build import CudaLibrary
 from stoix_tpu_torch.kernels.flash_attention import (
-    HEAD_DIMS, KernelCounter, _heads_first, check_rows_aligned, fold_key_tiles,
+    DTYPE_CODES, HEAD_DIMS, KernelCounter, _heads_first, check_rows_aligned, fold_key_tiles,
 )
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 LIBRARY = CudaLibrary(
@@ -69,13 +71,13 @@ ChunkResult = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 def plain_flash_attention_chunk(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_positions: torch.Tensor,
-    k_positions: torch.Tensor, causal: bool = False,
+    k_positions: torch.Tensor, causal: bool = False, scale: Optional[float] = None,
 ) -> ChunkResult:
     """The kernel's arithmetic in plain PyTorch: the chunk's keys folded
     KEY_TILE at a time into an fp32 online softmax, each masked by its global
-    position. Returns (pv [B, Sq, H, D], m [B, H, Sq], l [B, H, Sq]), float32,
-    with m = 0 on a row that saw no key."""
-    qs = _heads_first(q) * q.shape[3] ** -0.5
+    position (`scale` defaults to D^-1/2). Returns (pv [B, Sq, H, D],
+    m [B, H, Sq], l [B, H, Sq]), float32, with m = 0 on a row that saw no key."""
+    qs = _heads_first(q) * (q.shape[3] ** -0.5 if scale is None else scale)
     positions = (q_positions, k_positions) if causal else (None, None)
     m, l, acc = fold_key_tiles(qs, _heads_first(k), _heads_first(v), *positions)
     m = torch.where(torch.isfinite(m), m, 0.0)
@@ -90,9 +92,9 @@ def _check(q, k, v, q_positions, k_positions) -> None:
             f"the chunk kernel takes q [B, Sq, H, D] and k, v [B, Sk, H, D], got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"the chunk kernel takes float32 or bfloat16 q, k, v of one dtype, got "
+            f"the chunk kernel takes float32, bfloat16 or float16 q, k, v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
     tensors = (q, k, v, q_positions, k_positions)
@@ -111,7 +113,7 @@ def _check(q, k, v, q_positions, k_positions) -> None:
 
 def chunk_kernel(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_positions: torch.Tensor,
-    k_positions: torch.Tensor, causal: bool = False,
+    k_positions: torch.Tensor, causal: bool = False, scale: Optional[float] = None,
 ) -> ChunkResult:
     """Launch the kernel on CUDA tensors (or raise); returns (pv, m, l) as
     `plain_flash_attention_chunk` does."""
@@ -125,10 +127,11 @@ def chunk_kernel(
     with torch.cuda.device(q.device):
         strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v) for i in range(3)))
         code = lib.flash_attention_chunk(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             q_positions.data_ptr(), k_positions.data_ptr(), pv.data_ptr(), m.data_ptr(),
             l.data_ptr(), strides, batch, q_len, k.shape[1], heads, head_dim,
-            head_dim**-0.5, int(causal), torch.cuda.current_stream(q.device).cuda_stream,
+            head_dim**-0.5 if scale is None else scale, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     LIBRARY.check(code, "flash attention chunk kernel")
     KERNEL.launches += 1

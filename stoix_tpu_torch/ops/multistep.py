@@ -4,6 +4,10 @@ stoix_tpu/ops/multistep.py, the truncation-aware GAE subset).
 The estimator reduces to ONE reverse linear recurrence over time
 (acc_t = delta_t + w_t * acc_{t+1}), evaluated by ops/scan_kernels.py under
 `system.multistep_impl` (`scan`, `assoc`, or `pallas`, the Hopper kernel).
+Under `pallas`, float32 inputs with a scalar lambda take the kernel's GAE
+entry point instead: delta, weights, the recurrence and the targets in one
+launch on CUDA tensors (its plain version on CPU tensors), in the same
+roundings. bfloat16 and a tensor lambda keep the composed path.
 
 Truncation contract: `truncation_t == 1` marks steps whose successor starts a
 new episode WITHOUT a terminal discount (time-limit truncation). The current
@@ -17,6 +21,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from stoix_tpu_torch.kernels import linear_recurrence
 from stoix_tpu_torch.kernels.linear_recurrence import fma_f32
 from stoix_tpu_torch.ops import scan_kernels
 
@@ -36,6 +41,27 @@ def _broadcast_param(param: Numeric, like: torch.Tensor, batch_major: bool) -> t
     if batch_major and param.dim() >= 2:
         param = param.transpose(0, 1)
     return torch.broadcast_to(param, like.shape)
+
+
+def _composed_gae(r_t, discount_t, v_tm1, v_t, truncation_t, lambda_, batch_major, impl):
+    """GAE's elementwise ops around ONE recurrence, each op on its own, in the
+    JAX package's order. Returns (advantages, targets), time-major."""
+    lam = _broadcast_param(lambda_, r_t, batch_major)
+    if truncation_t is None:
+        continue_t = torch.ones_like(r_t)
+    else:
+        continue_t = 1.0 - truncation_t.to(r_t.dtype)
+
+    # XLA contracts the JAX package's `r_t + discount_t * v_t` into one fused
+    # multiply-add inside `jit` (where that package always runs GAE); state it.
+    if r_t.dtype == torch.float32:
+        delta_t = fma_f32(discount_t, v_t, r_t) - v_tm1
+    else:
+        delta_t = r_t + discount_t * v_t - v_tm1
+    advantages = scan_kernels.linear_recurrence_reverse(
+        discount_t * lam * continue_t, delta_t, torch.zeros_like(delta_t[-1]), impl
+    )
+    return advantages, v_tm1 + advantages
 
 
 def truncated_generalized_advantage_estimation(
@@ -71,23 +97,26 @@ def truncated_generalized_advantage_estimation(
     if len(shapes) != 1:
         raise ValueError(f"GAE inputs disagree in shape: {sorted(shapes)}")
 
-    lam = _broadcast_param(lambda_, r_t, batch_major)
-    if truncation_t is None:
-        continue_t = torch.ones_like(r_t)
-    else:
+    if truncation_t is not None:
         truncation_t = _time_major(batch_major, truncation_t)[0]
-        continue_t = 1.0 - truncation_t.to(r_t.dtype)
-
-    # XLA contracts the JAX package's `r_t + discount_t * v_t` into one fused
-    # multiply-add inside `jit` (where that package always runs GAE); state it.
-    if r_t.dtype == torch.float32:
-        delta_t = fma_f32(discount_t, v_t, r_t) - v_tm1
-    else:
-        delta_t = r_t + discount_t * v_t - v_tm1
-    advantages = scan_kernels.linear_recurrence_reverse(
-        discount_t * lam * continue_t, delta_t, torch.zeros_like(delta_t[-1]), impl
+    fused = (
+        scan_kernels.resolve_impl(impl) == "pallas"
+        and isinstance(lambda_, (int, float))
+        and all(x.dtype == torch.float32 for x in (r_t, discount_t, v_tm1, v_t))
     )
-    targets = v_tm1 + advantages
+    if fused:
+        # The kernel takes contiguous float32 inputs: batch-major views are
+        # copied here, once; time-major rollouts pass through untouched.
+        if truncation_t is not None:
+            truncation_t = truncation_t.to(torch.float32)
+        advantages, targets = linear_recurrence.truncated_gae(
+            *(None if x is None else x.contiguous()
+              for x in (r_t, discount_t, v_tm1, v_t, truncation_t)),
+            lambda_,
+        )
+    else:
+        advantages, targets = _composed_gae(
+            r_t, discount_t, v_tm1, v_t, truncation_t, lambda_, batch_major, impl)
 
     if batch_major:
         advantages, targets = advantages.transpose(0, 1), targets.transpose(0, 1)

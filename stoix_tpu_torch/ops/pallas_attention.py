@@ -3,10 +3,13 @@
 
 `flash_attention` is kernel B2 (kernels/flash_attention.py): the hand-written
 CUDA kernels on CUDA tensors, with a backward, and their plain versions on CPU
-tensors. `best_attention` mirrors the JAX package's dispatch, which sends
-every backend but the TPU to `full_attention`: here the kernel serves CUDA
-tensors and `full_attention` CPU tensors. `flash_attention_chunk` is kernel B3
-(kernels/flash_attention_chunk.py), ring attention's per-step block.
+tensors. `best_attention` mirrors the JAX package's dispatch, which sends the
+TPU's tensors to its kernel and every other backend's to `full_attention`:
+here the card's tensors go to the kernel, and CPU tensors to
+`full_attention`. `flash_attention_chunk` is kernel B3
+(kernels/flash_attention_chunk.py), ring attention's per-step block. On the
+card both run a head dim they are not built for zero-padded to the next one
+they are (`kernel_head_dim`, up to 128).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from stoix_tpu_torch.kernels import flash_attention_chunk as chunk
-from stoix_tpu_torch.kernels.flash_attention import flash_attention
+from stoix_tpu_torch.kernels.flash_attention import flash_attention, kernel_head_dim, pad_head_dim
 from stoix_tpu_torch.ops.ring_attention import full_attention
 
 __all__ = ["best_attention", "flash_attention", "flash_attention_chunk"]
@@ -23,8 +26,8 @@ __all__ = ["best_attention", "flash_attention", "flash_attention_chunk"]
 def best_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> torch.Tensor:
-    """The flash kernel for a CUDA tensor, plain full attention for a CPU
-    tensor; any other device raises."""
+    """The flash kernels on the card (they launch or raise), plain full
+    attention on the CPU; any other device raises."""
     if q.device.type == "cuda":
         return flash_attention(q, k, v, causal=causal)
     if q.device.type == "cpu":
@@ -47,7 +50,8 @@ def flash_attention_chunk(
     q: [B, Sq, H, D]; k/v: [B, Sk, H, D]; q_positions [Sq] / k_positions [Sk]
     are GLOBAL sequence positions for causal masking across rotated blocks.
     Returns (pv [B, Sq, H, D] unnormalized fp32, m [B, H, Sq] fp32 running
-    max, l [B, H, Sq] fp32 normalizer). Kernel B3 on CUDA tensors, its plain
+    max, l [B, H, Sq] fp32 normalizer). Kernel B3 on CUDA tensors (a head
+    dim it is not built for zero-padded to `kernel_head_dim`), its plain
     version on CPU tensors. The block sizes must divide the chunk lengths, as
     the JAX package requires; the CUDA kernel's own tiling does not depend on
     them.
@@ -61,7 +65,13 @@ def flash_attention_chunk(
     q_positions = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
     k_positions = k_positions.to(device=q.device, dtype=torch.int32).contiguous()
     if q.device.type == "cuda":
-        return chunk.chunk_kernel(q, k, v, q_positions, k_positions, causal)
+        head_dim = q.shape[-1]
+        width = kernel_head_dim(head_dim)
+        if width == head_dim:
+            return chunk.chunk_kernel(q, k, v, q_positions, k_positions, causal)
+        pv, m, l = chunk.chunk_kernel(*pad_head_dim(width, q, k, v), q_positions, k_positions,
+                                      causal, scale=head_dim**-0.5)
+        return pv[..., :head_dim], m, l
     if q.device.type == "cpu":
         return chunk.plain_flash_attention_chunk(q, k, v, q_positions, k_positions, causal)
     raise ValueError(f"no flash attention chunk kernel for device {q.device}")

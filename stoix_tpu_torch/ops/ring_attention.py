@@ -85,8 +85,8 @@ def ring_attention(
     (ops/pallas_attention.py::flash_attention_chunk), the same (m, pv, l)
     accumulator contract; None means the kernel for a CUDA tensor and the
     plain `_block_attend` for a CPU tensor. True on a CPU tensor runs the
-    kernel's plain version. On CUDA the kernel always runs and raises for what
-    it cannot take (head dims outside the ones it instantiates).
+    kernel's plain version. On CUDA the kernel always runs (a head dim it is
+    not built for zero-padded, up to 128) and raises for what it cannot take.
     """
     axis_size = dist.get_world_size(group)
     my_idx = dist.get_rank(group)

@@ -9,8 +9,8 @@ One update step, in the JAX package's order:
      log-probs;
   2. ONE batched critic pass over the [T, E] `extras["next_obs"]` for the
      bootstrap values;
-  3. truncation-aware GAE, whose recurrence runs through the Hopper kernel
-     under `system.multistep_impl: pallas`;
+  3. truncation-aware GAE, in one launch of the Hopper kernel's GAE entry
+     point under `system.multistep_impl: pallas`;
   4. `epochs` times: a permutation of the T·E samples, then
      `num_minibatches` clipped-PPO updates, each an actor and a critic
      gradient pass and a global-norm clip + Adam step.

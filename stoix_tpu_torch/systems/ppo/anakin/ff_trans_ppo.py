@@ -13,7 +13,8 @@ an auto-reset. One update step, in the JAX package's order:
      next observations;
   2. ONE batched critic pass over the successor windows (each stored window
      shifted by one with `next_obs` pushed last) for the bootstrap values;
-  3. truncation-aware GAE under `system.multistep_impl` (`pallas`: kernel B1);
+  3. truncation-aware GAE under `system.multistep_impl` (`pallas`: one
+     launch of kernel B1's GAE entry point);
   4. `epochs` times: a permutation of the T.E windows, then `num_minibatches`
      clipped-PPO updates, actor and critic grads both taken from the
      pre-update params, each a global-norm clip + Adam step.

@@ -15,6 +15,9 @@ the JAX package, on the CPU.
   flash kernel has no VJP): 1e-5 absolute, the reductions sum in another order.
   S = 130 spans three of the backward kernel's 64-key tiles.
 - The plain backward against the two-kernel composition it replaced: bitwise.
+- The padded route for head dims the kernels are not built for (zero-padded
+  to the next built one) against the Pallas kernel and jax.grad, and the
+  float16 plain forward against the Pallas kernel.
 """
 
 import jax
@@ -26,6 +29,7 @@ import torch
 from stoix_tpu.ops.pallas_attention import flash_attention as jax_flash_attention
 from stoix_tpu.ops.ring_attention import full_attention as jax_full_attention
 from stoix_tpu_torch.kernels import flash_attention as fa
+from stoix_tpu_torch.kernels import flash_attention_chunk as fac
 from stoix_tpu_torch.ops import best_attention, flash_attention
 from stoix_tpu_torch.ops.ring_attention import full_attention
 from torch_parity import n, t
@@ -165,6 +169,70 @@ def test_dispatch_by_device_and_counters_stay_still_on_the_cpu():
         best_attention(*(x.to("meta") for x in (q, k, v)))
     with pytest.raises(ValueError, match="device meta"):
         flash_attention(*(x.to("meta") for x in (q, k, v)))
+
+
+@pytest.mark.parametrize("head_dim,width", [
+    (1, 8), (8, 8), (9, 16), (24, 32), (32, 32), (48, 64), (100, 128), (128, 128),
+])
+def test_kernel_head_dim_is_the_next_built_one(head_dim, width):
+    # On the card a head dim the kernels are not built for runs zero-padded to
+    # the next one they are built for.
+    assert fa.kernel_head_dim(head_dim) == width and width in fa.HEAD_DIMS
+
+
+@pytest.mark.parametrize("head_dim", [129, 256])
+def test_kernel_head_dim_refuses_past_the_widest(head_dim):
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        fa.kernel_head_dim(head_dim)
+
+
+# The padded route (q, k, v zero-padded to the next built head dim, the scale
+# of the true one, the padded columns cut off) through the kernels' plain
+# versions, against the Pallas kernel at the true head dim in interpret mode
+# (2e-5, as above) and its gradients against jax.grad of `full_attention`
+# (1e-5 as above, and 1e-5 relative: at D = 100 the gradients reach 10, where
+# the two orders of summation part by more than 1e-5).
+@pytest.mark.parametrize("d,causal", [(5, True), (24, True), (24, False), (100, True)])
+def test_padded_route_matches_the_pallas_kernel(d, causal):
+    q, k, v = _qkv(d, 2, 20, 2, d)
+    width = fa.kernel_head_dim(d)
+    got = fa.padded_flash_attention(t(q), t(k), t(v), causal, width)
+    assert got.shape == (2, 20, 2, d)
+    np.testing.assert_allclose(n(got), _jax_flash(q, k, v, causal), atol=2e-5, rtol=2e-5)
+    leaves = [t(x).requires_grad_(True) for x in (q, k, v)]
+    (fa.padded_flash_attention(*leaves, causal, width) ** 2).sum().backward()
+
+    def loss(a, b, c):
+        return (jax_full_attention(a, b, c, causal=causal) ** 2).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(n(leaf.grad), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+
+def test_padded_chunk_matches_the_chunk_at_its_own_head_dim():
+    # B3's padded route (ops/pallas_attention.py::flash_attention_chunk on the
+    # card) through the kernel's plain version: the same fold over the same
+    # keys, with zero columns added to each dot product; 1e-6.
+    q, k, v = (t(x) for x in _qkv(12, 2, 24, 2, 12))
+    q_pos = torch.arange(24, 48, dtype=torch.int32)
+    k_pos = torch.arange(0, 48, 2, dtype=torch.int32)
+    want = fac.plain_flash_attention_chunk(q, k, v, q_pos, k_pos, True)
+    pv, m, l = fac.plain_flash_attention_chunk(*fa.pad_head_dim(16, q, k, v), q_pos, k_pos,
+                                               True, scale=12**-0.5)
+    assert pv.shape == (2, 24, 2, 16) and not pv[..., 12:].any()
+    for g, w in zip((pv[..., :12], m, l), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+
+
+def test_plain_forward_float16_matches_the_pallas_kernel():
+    # float16 q, k, v, which the kernels take: both widen to fp32 and round
+    # the output once to float16; 2e-3, two float16 ulps in [1, 2).
+    q, k, v = _qkv(16, 2, 40, 2, 32, dtype=np.float16)
+    got = fa.plain_flash_attention_forward(t(q), t(k), t(v), True)[0]
+    assert got.dtype == torch.float16
+    want = _jax_flash(q, k, v, True, block_q=64, block_k=64)
+    np.testing.assert_allclose(n(got.float()), want.astype(np.float32), atol=2e-3, rtol=2e-3)
 
 
 def test_row_alignment_check():

@@ -10,11 +10,16 @@ that has only PyTorch and the CUDA toolkit:
 
 import pytest
 import torch
+import torch.distributed as dist
 
+from stoix_tpu_torch import parallel
 from stoix_tpu_torch.kernels import flash_attention as fa
 from stoix_tpu_torch.kernels import flash_attention_chunk as fac
 from stoix_tpu_torch.kernels import linear_recurrence as lr
-from stoix_tpu_torch.ops import multistep
+from stoix_tpu_torch.networks.attention import TransformerTorso
+from stoix_tpu_torch.ops import best_attention, full_attention, multistep
+from stoix_tpu_torch.ops.ring_attention import ring_attention
+from stoix_tpu_torch.utils.config import Config
 
 
 def _require_cuda() -> torch.device:
@@ -33,9 +38,17 @@ def _recurrence(t_len, batch, dtype, device, seed=0):
     return w.to(dtype), d.to(dtype), init.to(dtype)
 
 
+# The kernel cuts time into one 16-row stage over 8 warps (T <= 16) or 64-row
+# stages over 4 warps, rows interleaved over the warps, and columns into
+# blocks of 32: the shapes below cross each of those edges.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t_len,batch", [(16, 1024), (17, 1000), (1, 1), (300, 129)])
+@pytest.mark.parametrize("t_len,batch", [
+    (16, 1024), (17, 1000), (1, 1), (300, 129),
+    *((t_len, 1000) for t_len in (1, 15, 33, 63, 64, 65, 129)),
+    (128, 4096),  # a long rollout: two stages
+    (5, 31), (70, 33),  # one ragged column block; two stages over two column blocks
+])
 def test_cuda_kernel_matches_plain_version_bitwise(dtype, t_len, batch):
     device = _require_cuda()
     w, d, init = _recurrence(t_len, batch, dtype, device)
@@ -81,14 +94,61 @@ def test_gae_on_the_card_matches_the_cpu():
     discount = 0.99 * (1.0 - done.float())
     cpu = multistep.truncated_generalized_advantage_estimation(
         r, discount, 0.95, v_tm1=v_tm1, v_t=v_t, truncation_t=trunc, impl="scan")
-    before = lr.KERNEL.launches
+    before = (lr.KERNEL.launches, lr.GAE_KERNEL.launches)
     cuda = multistep.truncated_generalized_advantage_estimation(
         *(x.to(device) for x in (r, discount)), 0.95, v_tm1=v_tm1.to(device),
         v_t=v_t.to(device), truncation_t=trunc.to(device), impl="pallas")
-    assert lr.KERNEL.launches == before + 1
+    # float32 with a scalar lambda: the GAE entry point, one launch, and the
+    # generic recurrence not at all.
+    assert (lr.KERNEL.launches, lr.GAE_KERNEL.launches) == (before[0], before[1] + 1)
     for a, b in zip(cpu, cuda):
         # Elementwise IEEE ops and the same FMA recurrence: bitwise.
         assert torch.equal(a, b.cpu())
+
+
+def _gae_inputs(t_len, batch, device, seed, truncation=True):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (t_len, batch)
+    r, v_tm1, v_t = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
+    done = torch.rand(shape, generator=gen, device=device) < 0.05
+    trunc = ((torch.rand(shape, generator=gen, device=device) < 0.03) & ~done).float()
+    discount = 0.99 * (1.0 - done.float())
+    return r, discount, v_tm1, v_t, trunc if truncation else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_len,batch,truncation", [
+    (16, 1024, True), (16, 1024, False), (17, 1000, True), (128, 4096, True), (65, 33, True),
+])
+def test_gae_kernel_matches_plain_version_bitwise(t_len, batch, truncation):
+    device = _require_cuda()
+    args = _gae_inputs(t_len, batch, device, seed=t_len + batch, truncation=truncation)
+    before = lr.GAE_KERNEL.launches
+    got = lr.truncated_gae(*args, 0.95)
+    torch.cuda.synchronize()
+    assert lr.GAE_KERNEL.launches == before + 1
+    want = lr.plain_truncated_gae(*args, 0.95)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (t_len, batch)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_gae_kernel_rejects_what_it_cannot_take():
+    device = _require_cuda()
+    r, discount, v_tm1, v_t, trunc = _gae_inputs(8, 16, device, seed=0)
+    before = lr.GAE_KERNEL.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        lr.GAE_KERNEL(r.t().contiguous().t(), discount, v_tm1, v_t, trunc, 0.95)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        lr.GAE_KERNEL(r, discount, v_tm1.cpu(), v_t, trunc, 0.95)
+    with pytest.raises(TypeError, match="float32"):
+        lr.GAE_KERNEL(r, discount, v_tm1, v_t, trunc.bool(), 0.95)
+    with pytest.raises(TypeError, match="float32"):
+        lr.GAE_KERNEL(*(x.bfloat16() for x in (r, discount, v_tm1, v_t, trunc)), 0.95)
+    with pytest.raises(ValueError, match="shape"):
+        lr.GAE_KERNEL(r, discount, v_tm1, v_t, trunc[:, :8], 0.95)
+    assert lr.GAE_KERNEL.launches == before
 
 
 def _qkv(shape, dtype, device, seed=0):
@@ -98,9 +158,10 @@ def _qkv(shape, dtype, device, seed=0):
 
 # The kernels and the plain versions fold the same tiles but sum in another
 # order: float32 is held at 1e-5 absolute, bfloat16 at 2e-2 (JAX's own bf16
-# tolerance for this kernel, tests/test_pallas_attention.py).
+# tolerance for this kernel, tests/test_pallas_attention.py), float16 at 2e-3
+# (two float16 ulps in [1, 2)).
 def _atol(dtype):
-    return 1e-5 if dtype == torch.float32 else 2e-2
+    return {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}[dtype]
 
 
 @pytest.mark.cuda
@@ -115,6 +176,13 @@ def _atol(dtype):
     ((64, 512, 4, 32), True, torch.float32),  # eight 64-row query tiles, the ring's window
     ((3, 65, 2, 32), True, torch.float32),  # one full 64-key tile and one key
     ((3, 16, 5, 32), True, torch.float32),  # 15 pairs: the last block holds 3 of 4
+    # Head dims 8 and 128 and float16 (C6): short and long sequences.
+    ((64, 16, 4, 8), True, torch.float32),
+    ((2, 100, 2, 8), True, torch.bfloat16),
+    ((16, 16, 2, 128), True, torch.float32),
+    ((2, 300, 2, 128), True, torch.float32),
+    ((64, 16, 4, 32), True, torch.float16),
+    ((2, 100, 2, 128), False, torch.float16),
 ])
 def test_flash_forward_kernel_matches_plain_version(shape, causal, dtype):
     device = _require_cuda()
@@ -134,6 +202,7 @@ def test_flash_forward_kernel_matches_plain_version(shape, causal, dtype):
     ((4096, 16, 4, 32), torch.float32),
     ((64, 512, 4, 32), torch.float32),
     ((2, 300, 2, 64), torch.bfloat16),
+    ((2, 300, 2, 128), torch.float16),
 ])
 def test_flash_forward_kernel_is_deterministic(shape, dtype):
     # No atomics, every sum in a fixed order: two calls agree bit for bit.
@@ -151,6 +220,13 @@ def test_flash_forward_kernel_is_deterministic(shape, dtype):
     ((2, 300, 2, 64), True, torch.float32),  # five 64-key tiles: dQ partials summed
     ((5, 1, 3, 16), False, torch.float32),
     ((1, 128, 1, 64), True, torch.bfloat16),
+    # Head dims 8 and 128 and float16 (C6): one key tile and several.
+    ((64, 16, 4, 8), True, torch.float32),
+    ((2, 100, 2, 8), False, torch.float32),
+    ((16, 16, 2, 128), True, torch.float32),
+    ((2, 200, 2, 128), True, torch.float32),
+    ((64, 16, 4, 32), True, torch.float16),
+    ((1, 128, 1, 128), True, torch.float16),
 ])
 def test_flash_backward_kernels_match_plain_version(shape, causal, dtype):
     device = _require_cuda()
@@ -164,9 +240,10 @@ def test_flash_backward_kernels_match_plain_version(shape, causal, dtype):
     want = fa.plain_flash_attention_backward(q, k, v, o, lse, dout, causal)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == q.shape and g.is_contiguous()
-        # bf16 also relative: a gradient above 2 is a bf16 ulp of 1.6e-2 or more
-        # apart wherever the two fp32 sums round to neighbouring values.
-        rtol = 0 if dtype == torch.float32 else 2e-2
+        # 16-bit types also relative: a gradient above 2 is a bf16 ulp of 1.6e-2
+        # (a float16 ulp of 2e-3) or more apart wherever the two fp32 sums
+        # round to neighbouring values.
+        rtol = 0 if dtype == torch.float32 else _atol(dtype)
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=_atol(dtype))
     # Deterministic: no atomics, partials summed in a fixed order.
     for g, again in zip(got, fa.backward_kernel(q, k, v, o, lse, dout, causal)):
@@ -193,10 +270,10 @@ def test_flash_attention_takes_strided_qkv_views_and_trains():
 def test_flash_kernels_reject_what_they_cannot_take():
     device = _require_cuda()
     q, k, v = _qkv((2, 16, 2, 32), torch.float32, device)
-    with pytest.raises(ValueError, match="head dims"):
-        fa.forward_kernel(*(x[..., :8] for x in (q, k, v)))
+    with pytest.raises(ValueError, match="head dims"):  # the dispatch pads 24 to 32
+        fa.forward_kernel(*(x[..., :24] for x in (q, k, v)))
     with pytest.raises(TypeError):
-        fa.forward_kernel(q.half(), k.half(), v.half())
+        fa.forward_kernel(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="one CUDA device"):
         fa.forward_kernel(q, k, v.cpu())
 
@@ -258,6 +335,12 @@ def _chunk_case(batch, q_len, k_len, heads, head_dim, dtype, q_start, k_start, s
     ((1, 128, 128, 1, 64, torch.bfloat16, 0, 0, False), True),
     ((2, 80, 100, 2, 32, torch.float32, 20, 30, True), True),       # two key tiles, shuffled
     ((3, 33, 70, 2, 16, torch.float32, 0, 40, True), True),         # wholly future, ragged
+    # Head dims 8 and 128 and float16 (C6).
+    ((8, 128, 128, 4, 8, torch.float32, 128, 0, False), True),
+    ((2, 80, 100, 2, 8, torch.bfloat16, 20, 30, True), True),
+    ((2, 128, 128, 2, 128, torch.float32, 128, 128, False), True),
+    ((2, 100, 60, 2, 128, torch.float16, 40, 30, False), False),
+    ((8, 128, 128, 4, 32, torch.float16, 128, 0, False), True),
 ])
 def test_chunk_kernel_matches_plain_version(case, causal):
     q, k, v, q_pos, k_pos = _chunk_case(*case, seed=sum(case[:5]))
@@ -293,11 +376,92 @@ def test_kernels_refuse_unaligned_rows():
 @pytest.mark.cuda
 def test_chunk_kernel_rejects_what_it_cannot_take():
     q, k, v, q_pos, k_pos = _chunk_case(2, 16, 16, 2, 32, torch.float32, 0, 0, False, seed=0)
-    with pytest.raises(ValueError, match="head dims"):
-        fac.chunk_kernel(*(x[..., :8] for x in (q, k, v)), q_pos, k_pos)
+    with pytest.raises(ValueError, match="head dims"):  # the dispatch pads 24 to 32
+        fac.chunk_kernel(*(x[..., :24] for x in (q, k, v)), q_pos, k_pos)
     with pytest.raises(TypeError):
-        fac.chunk_kernel(q.half(), k.half(), v.half(), q_pos, k_pos)
+        fac.chunk_kernel(q.double(), k.double(), v.double(), q_pos, k_pos)
     with pytest.raises(ValueError, match="int32 k_positions"):
         fac.chunk_kernel(q, k, v, q_pos, k_pos.long())
     with pytest.raises(ValueError, match="one CUDA device"):
         fac.chunk_kernel(q, k, v, q_pos.cpu(), k_pos)
+
+
+# C6: on CUDA, attention at every head dim up to 128 and in float16 runs
+# through the kernels, as the TPU kernel takes any head dim and float dtype:
+# head dims 8 to 128 as built, any other zero-padded to the next built one.
+# float32 is held at 2e-5 against the CPU's full attention, the attention
+# tolerance; float16 against the CPU's float32 attention on the same float16
+# inputs at 2e-3 absolute and relative (the kernel computes in fp32 and rounds
+# once to float16: within a float16 ulp).
+def _c6_want(q, k, v):
+    return full_attention(*(x.cpu().float() for x in (q, k, v)), causal=True)
+
+
+def _c6_tolerance(dtype):
+    return {"rtol": 0.0, "atol": 2e-5} if dtype == torch.float32 else {"rtol": 2e-3, "atol": 2e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,dtype", [(8, torch.float32), (32, torch.float16),
+                                            (128, torch.float32), (24, torch.float32),
+                                            (100, torch.float16)])
+def test_best_attention_at_any_head_dim_runs_the_kernel_on_the_card(head_dim, dtype):
+    device = _require_cuda()
+    q, k, v = _qkv((4, 16, 2, head_dim), dtype, device, seed=head_dim)
+    before = fa.FORWARD.launches
+    got = best_attention(q, k, v, causal=True)
+    assert fa.FORWARD.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.cpu().float(), _c6_want(q, k, v), **_c6_tolerance(dtype))
+
+
+@pytest.mark.cuda
+def test_best_attention_past_head_dim_128_raises_on_the_card():
+    q, k, v = _qkv((2, 4, 1, 129), torch.float32, _require_cuda())
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        best_attention(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [8, 24])
+def test_transformer_torso_trains_through_the_kernels_at_small_head_dims(head_dim):
+    device = _require_cuda()
+    torso = TransformerTorso(5, 1, 2, head_dim, 32, generator=torch.Generator().manual_seed(0))
+    x = torch.randn((3, 4, 5), generator=torch.Generator().manual_seed(1))
+    want = torso(x)
+    (want ** 2).sum().backward()
+    want_grads = [p.grad.clone() for p in torso.parameters()]
+    torso.zero_grad()
+    before = [c.launches for c in fa.COUNTERS]
+    got = torso.to(device)(x.to(device))
+    (got ** 2).sum().backward()
+    assert [c.launches - b for c, b in zip(fa.COUNTERS, before)] == [1, 1]
+    # Dense layers sum in another order on the card: 1e-4, chip_smoke.py's torso tolerance.
+    torch.testing.assert_close(got.cpu(), want.detach(), rtol=0, atol=1e-4)
+    for p, w in zip(torso.parameters(), want_grads):
+        torch.testing.assert_close(p.grad.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,dtype", [(8, torch.float32), (32, torch.float16),
+                                            (24, torch.float32)])
+def test_one_rank_ring_at_any_head_dim_runs_the_chunk_kernel_on_the_card(
+        tmp_path, head_dim, dtype):
+    device = _require_cuda()
+    config = Config.from_dict({"arch": {"distributed": {
+        "coordinator_address": f"file://{tmp_path / 'store'}", "num_processes": 1,
+        "process_id": 0}}})
+    parallel.maybe_initialize_distributed(config, device="cuda")
+    try:
+        group = parallel.create_mesh({"data": 1}, device="cuda").get_group("data")
+        q, k, v = _qkv((2, 32, 2, head_dim), dtype, device, seed=head_dim + 1)
+        before = fac.KERNEL.launches
+        got = ring_attention(q, k, v, group, causal=True)
+        assert fac.KERNEL.launches == before + 1
+        with pytest.raises(ValueError, match="head dims"):  # past 128, explicitly or not
+            wide = torch.zeros((2, 32, 2, 129), device=device)
+            ring_attention(wide, wide, wide, group, causal=True, use_flash=True)
+    finally:
+        dist.destroy_process_group()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.cpu().float(), _c6_want(q, k, v), **_c6_tolerance(dtype))

@@ -245,7 +245,7 @@ def test_two_update_smoke_on_cpu():
 
 def test_pallas_trains_bitwise_like_scan_on_cpu():
     outcomes = {}
-    before = [c.launches for c in (*flash_attention.COUNTERS, linear_recurrence.KERNEL)]
+    before = [c.launches for c in (*flash_attention.COUNTERS, *linear_recurrence.COUNTERS)]
     for impl in ("scan", "pallas"):
         cfg = check_total_timesteps(make_config(SMALL + [
             "arch.total_num_envs=8", "arch.num_updates=1", "system.rollout_length=4",
@@ -260,7 +260,7 @@ def test_pallas_trains_bitwise_like_scan_on_cpu():
         for k, v in outcomes["scan"][1][part].items():
             assert torch.equal(v, outcomes["pallas"][1][part][k]), k
     # The CPU takes the plain versions: no kernel launched.
-    assert [c.launches for c in (*flash_attention.COUNTERS, linear_recurrence.KERNEL)] == before
+    assert [c.launches for c in (*flash_attention.COUNTERS, *linear_recurrence.COUNTERS)] == before
 
 
 def test_entry_point_defaults_to_cuda_and_never_falls_back(monkeypatch):
