@@ -90,6 +90,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    takes one update step on the card through B2's forward
                    and backward, with finite losses.
 
+ 13. c8          — head dims up to 256 run through the kernels (C8): B2's forward
+                   and backward and B3 at D = 256 in float32, bfloat16 and
+                   float16 against their plain versions ([1024, 16, 4, 256]
+                   causal, the ragged [2, 300, 2, 256]); `best_attention` at
+                   D = 200 (padded to 256) and `TransformerTorso` forward and
+                   gradients at D = 256 against the CPU; one ff_trans_ppo
+                   update at 4 heads x 256 through B2 (130 forward, 64
+                   backward launches); D = 257 refused; the D = 256 forward and
+                   backward timed (a launch, a call) beside their bounds.
+ 14. knobs       — ff_ppo at full width with every main-path knob on
+                   (normalize_observations, update_guard=skip, fused_update,
+                   update_batch_size=2, use_cached_auto_reset, the json and
+                   wandb-offline sinks, save_model) for 2 eval windows:
+                   env-steps/s, one B1 GAE launch an update at U = 2, device
+                   launches per update (torch.profiler); a resume from window
+                   1 bitwise equal to the unbroken run's final state; a
+                   poisoned loss under skip ending with finite params and
+                   skipped updates; IdentityGame with the same knobs above 8.0.
+
 Then a `{"kernels": [...]}` line, the card's `nvidia-smi` name and power
 limit, and last `{"ok": true, "device": {...}}`.
 """
@@ -98,6 +117,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import glob
 import inspect
 import json
 import math
@@ -1015,6 +1035,273 @@ def phase_c6(mesh, smi: str) -> None:
           "launches": launches, "losses": losses, "card": smi})
 
 
+C8_WIDTH = 256  # the widest head dim the kernels are built for (C8)
+
+
+def phase_c8(smi: str) -> dict:
+    """Head dims up to 256 run through the kernels on the card (C8): B2's
+    forward and backward and B3 at D = 256 in float32, bfloat16 and float16
+    against their plain versions; `best_attention` at D = 200 (padded to 256)
+    and `TransformerTorso` forward and gradients at D = 256 against the CPU;
+    one ff_trans_ppo update at 4 heads x 256 through B2; D = 257 refused; the
+    D = 256 forward and backward timed beside their bounds. Returns the
+    timing records."""
+    fa, fac = flash_attention, flash_attention_chunk
+    width = C8_WIDTH
+    # As phase attention: float32 1e-5 absolute, bfloat16 2e-2, float16 2e-3;
+    # the backward's 16-bit types also relative at those; B3 1e-5 relative to l.
+    tolerance = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
+    shapes = [((TRANS_ENVS, 16, 4, width), True), ((2, 300, 2, width), True)]
+    for seed, ((shape, causal), dtype) in enumerate(
+            (case, dtype) for case in shapes for dtype in tolerance):
+        q, k, v = qkv_views(*shape, dtype, seed=70 + seed)
+        dout = qkv_views(*shape, dtype, seed=90 + seed)[0].contiguous()
+        o, lse = fa.forward_kernel(q, k, v, causal, need_lse=True)
+        grads = fa.backward_kernel(q, k, v, o, lse, dout, causal)
+        positions = torch.arange(shape[1], dtype=torch.int32, device="cuda")
+        chunk = fac.chunk_kernel(q, k, v, positions, positions, causal)
+        torch.cuda.synchronize()
+        want_o, want_lse = fa.plain_flash_attention_forward(q, k, v, causal, need_lse=True)
+        want_grads = fa.plain_flash_attention_backward(q, k, v, o, lse, dout, causal)
+        want_chunk = fac.plain_flash_attention_chunk(q, k, v, positions, positions, causal)
+        atol = tolerance[dtype]
+        rtol = 0.0 if dtype == torch.float32 else atol
+        forward_err = (o.float() - want_o.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        backward_errs = [(g.float() - w.float()).abs().max().item()
+                         for g, w in zip(grads, want_grads)]
+        chunk_errs = fac.chunk_errors(chunk, want_chunk)
+        outputs = (o, *grads, *chunk)
+        if any(not torch.isfinite(x).all() for x in outputs) or o.shape != q.shape:
+            raise AssertionError(f"C8 kernels' output malformed at {shape} {dtype}")
+        if not (forward_err <= atol and lse_err <= 1e-5):
+            raise AssertionError(f"C8 forward != plain at {shape} {dtype}: {forward_err}, "
+                                 f"lse {lse_err}")
+        if not all(bool(((g.float() - w.float()).abs() <= atol + rtol * w.float().abs()).all())
+                   for g, w in zip(grads, want_grads)):
+            raise AssertionError(f"C8 backward != plain at {shape} {dtype}: {backward_errs}")
+        if not max(chunk_errs) <= 1e-5:
+            raise AssertionError(f"C8 chunk != plain at {shape} {dtype}: {chunk_errs}")
+        emit({"phase": "c8", "case": "kernels", "shape": list(shape), "dtype": str(dtype),
+              "causal": causal, "forward_max_abs_err": forward_err, "lse_max_abs_err": lse_err,
+              "backward_max_abs_err_dq_dk_dv": backward_errs, "chunk_errors_m_l_pv": chunk_errs,
+              "tolerance": atol, "rtol": rtol})
+
+    # Against the CPU (2e-5, the attention tolerance): best_attention at a
+    # padded head dim, one forward launch. The torso's forward and gradients
+    # at D = 256, one forward and one backward launch: the output at 1e-4, the
+    # torso tolerance of phase ring; the gradients at 5e-4 absolute and 1e-4
+    # relative, since its 512-wide layers sum in another order on the card
+    # (tests/test_torch_cuda.py, the torso at wide head dims).
+    q, k, v = qkv_views(64, 16, 4, 200, torch.float32, seed=80)
+    for counter in fa.COUNTERS:
+        counter.launches = 0
+    got = best_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = _counts(fa.COUNTERS)
+    err = (got.cpu() - full_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)).abs().max().item()
+    if launches != {fa.FORWARD.name: 1, fa.BACKWARD.name: 0} or not err <= 2e-5:
+        raise AssertionError(f"C8 best_attention at D=200: launches {launches}, err {err}")
+    emit({"phase": "c8", "case": "best_attention", "shape": list(q.shape), "padded_to": width,
+          "max_abs_err_vs_cpu": err, "tolerance": 2e-5, "kernel_launches": launches})
+
+    torso = TransformerTorso(5, 1, 2, width, 32, generator=torch.Generator().manual_seed(0))
+    x = torch.randn((3, 4, 5), generator=torch.Generator().manual_seed(1))
+    want = torso(x)
+    (want ** 2).sum().backward()
+    want_grads = [p.grad.clone() for p in torso.parameters()]
+    torso.zero_grad()
+    for counter in fa.COUNTERS:
+        counter.launches = 0
+    got = torso.to("cuda")(x.to("cuda"))
+    (got ** 2).sum().backward()
+    torch.cuda.synchronize()
+    launches = _counts(fa.COUNTERS)
+    out_err = (got.detach().cpu() - want.detach()).abs().max().item()
+    grad_err = max(((p.grad.cpu() - w).abs() - 1e-4 * w.abs()).max().item()
+                   for p, w in zip(torso.parameters(), want_grads))
+    if launches != {fa.FORWARD.name: 1, fa.BACKWARD.name: 1} or not (out_err <= 1e-4
+                                                                    and grad_err <= 5e-4):
+        raise AssertionError(f"C8 torso at D=256: launches {launches}, errors {out_err}, "
+                             f"{grad_err}")
+    emit({"phase": "c8", "case": "transformer_torso", "head_dim": width,
+          "max_abs_err_vs_cpu": out_err, "grad_err_past_1e-4_relative": grad_err,
+          "tolerance": 1e-4, "grad_tolerance": 5e-4,
+          "kernel_launches": launches})
+
+    wide = torch.zeros((2, 4, 1, width + 1), device="cuda")
+    try:
+        best_attention(wide, wide, wide)
+    except ValueError as refused:
+        emit({"phase": "c8", "case": "refused", "head_dim": width + 1, "error": str(refused)})
+    else:
+        raise AssertionError(f"attention at head dim {width + 1} was not refused on the card")
+
+    config = check_total_timesteps(compose([f"system.head_dim={width}", "system.num_heads=4",
+                                            "system.multistep_impl=pallas",
+                                            "logger.use_console=False"], TRANS_ROOT), 1)
+    env, _ = envs.make(config)
+    setup = ff_trans_ppo.learner_setup(env, config, torch.device("cuda"),
+                                       seed=int(config.arch.seed))
+    for counter in fa.COUNTERS:
+        counter.launches = 0
+    start = time.perf_counter()
+    _, (_, losses) = setup.learn.update_step(setup.learner_state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = _counts(fa.COUNTERS)
+    layers = int(config.system.num_layers)
+    expected = {fa.FORWARD.name: 2 * layers * TRANS["rollout"] + layers
+                + 2 * layers * TRANS["epochs"] * TRANS["minibatches"],
+                fa.BACKWARD.name: 2 * layers * TRANS["epochs"] * TRANS["minibatches"]}
+    losses = {key: value.float().mean().item() for key, value in losses.items()}
+    if launches != expected or not all(math.isfinite(value) for value in losses.values()):
+        raise AssertionError(f"ff_trans_ppo at head_dim {width}: launches {launches} (expected "
+                             f"{expected}), losses {losses}")
+    emit({"phase": "c8", "case": "ff_trans_ppo update step", "heads": 4, "head_dim": width,
+          "total_num_envs": int(config.arch.total_num_envs), "launches": launches,
+          "losses": losses, "seconds": seconds, "card": smi})
+
+    # Times at the path-like shape, float32: a launch (graph replay) and a call.
+    shape, causal = (TRANS_ENVS, 16, 4, width), True
+    q, k, v = qkv_views(*shape, torch.float32, seed=81)
+    dout = qkv_views(*shape, torch.float32, seed=82)[0].contiguous()
+    o, lse = fa.forward_kernel(q, k, v, causal, need_lse=True)
+    times = []
+    for kind, run, plain in (
+        ("forward", lambda: fa.forward_kernel(q, k, v, causal),
+         lambda: fa.plain_flash_attention_forward(q, k, v, causal)),
+        ("backward", lambda: fa.backward_kernel(q, k, v, o, lse, dout, causal),
+         lambda: fa.plain_flash_attention_backward(q, k, v, o, lse, dout, causal)),
+    ):
+        bound_ms, bound_by, moved, flops = attention_bound(kind, q, causal)
+        record = {"phase": "c8_time", "kernel": f"flash_attention_{kind}", "shape": list(shape),
+                  "dtype": "torch.float32", "causal": causal, "ms": cuda_ms(run),
+                  "device_ms": graph_ms(run), "plain_ms": cuda_ms(plain, repeats=5, inner=3),
+                  "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "flops": flops,
+                  "card": smi}
+        times.append(record)
+        emit(record)
+    return {"times": times}
+
+
+# ff_ppo's main-path knobs, all on (phase knobs).
+KNOBS = ["system.normalize_observations=true", "system.update_guard=skip",
+         "system.fused_update=true", "arch.update_batch_size=2",
+         "env.wrapper.use_cached_auto_reset=true", "logger.use_json=true",
+         "logger.use_wandb=true", "logger.checkpointing.save_model=true",
+         "logger.checkpointing.save_args.max_to_keep=~", "system.multistep_impl=pallas",
+         "logger.use_console=False"]
+
+
+def _saved_state(uid: str, step: int) -> dict:
+    """A checkpoint's leaves, as utils/checkpointing.py wrote them."""
+    from stoix_tpu_torch.utils import checkpointing
+
+    path = os.path.join("checkpoints", uid, "ff_ppo", str(step), checkpointing.STATE_FILE)
+    return torch.load(path, weights_only=True)
+
+
+def _device_launches(learner, state) -> int:
+    """Device kernel launches of one update step, counted by torch.profiler."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        learner.update_step(state)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase_knobs(smi: str) -> None:
+    """ff_ppo with every main-path knob on at the default config's full width
+    (1024 CartPole envs, MLP 256x256, T=16, 4 x 4 minibatches): env-steps/s,
+    B1 launches and device launches per update; a resume from window 1
+    against the unbroken run, bitwise; a poisoned loss under skip; and
+    IdentityGame with the same knobs above 8.0. Checkpoints and logs go to a
+    temporary directory."""
+    from stoix_tpu_torch.ops import losses
+
+    lr = linear_recurrence
+    full = KNOBS + ["arch.num_eval_episodes=16"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_knobs_") as tmp, contextlib.chdir(tmp):
+        def run(overrides, uid):
+            config = compose(full + [f"logger.checkpointing.save_args.checkpoint_uid={uid}",
+                                     f"logger.base_exp_path={tmp}/results", *overrides])
+            return ff_ppo.run_experiment(config, device="cuda"), config
+
+        for counter in lr.COUNTERS:
+            counter.launches = 0
+        start = time.perf_counter()
+        final_return, config = run([f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2"],
+                                   "unbroken")
+        seconds = time.perf_counter() - start
+        stats = copy.deepcopy(runner.LAST_RUN_STATS)
+        gae_launches = {c.name: c.launches for c in lr.COUNTERS}
+        if gae_launches != {lr.KERNEL.name: 0, lr.GAE_KERNEL.name: MAIN_UPDATES}:
+            raise AssertionError(f"B1 launched {gae_launches} in {MAIN_UPDATES} updates at "
+                                 "update_batch_size=2, not one GAE launch an update")
+        steps = int(config.arch.total_timesteps)
+        files = sorted(os.path.relpath(path, tmp) for path in glob.glob(
+            os.path.join(tmp, "results", "**", "*.json*"), recursive=True))
+        if not any(f.endswith("metrics.json") for f in files) or not any(
+                f.endswith("wandb-history.jsonl") for f in files):
+            raise AssertionError(f"the json and wandb sinks wrote {files}")
+
+        # Resume: window 1 saved by a run of one window, then loaded and continued.
+        run([f"arch.num_updates={MAIN_UPDATES // 2}", "arch.num_evaluation=1"], "first")
+        run([f"arch.num_updates={MAIN_UPDATES // 2}", "arch.num_evaluation=1",
+             "logger.checkpointing.load_model=true",
+             "logger.checkpointing.load_args.checkpoint_uid=first"], "resumed")
+        unbroken, resumed = _saved_state("unbroken", steps), _saved_state("resumed", steps)
+        differ = [key for key, value in unbroken.items() if not (
+            torch.equal(value, resumed[key]) if isinstance(value, torch.Tensor) else
+            torch.equal(value["generator_state"], resumed[key]["generator_state"])
+            if isinstance(value, dict) else value == resumed[key])]
+        if unbroken.keys() != resumed.keys() or differ:
+            raise AssertionError(f"the resumed run differs from the unbroken one at {differ}")
+
+        # A poisoned loss (NaN, and NaN gradients, at its second call) under skip.
+        clip, calls = losses.ppo_clip_loss, {"n": 0}
+
+        def poisoned(*args, **kwargs):
+            calls["n"] += 1
+            loss = clip(*args, **kwargs)
+            return loss * float("nan") if calls["n"] == 2 else loss
+
+        losses.ppo_clip_loss = poisoned
+        try:
+            run([f"arch.num_updates={MAIN_UPDATES // 2}", "arch.num_evaluation=1"], "poisoned")
+        finally:
+            losses.ppo_clip_loss = clip
+        skipped = runner.LAST_RUN_STATS["resilience"]["skipped_updates"]
+        poisoned_state = _saved_state("poisoned", steps // 2)
+        finite = all(bool(torch.isfinite(v).all()) for k, v in poisoned_state.items()
+                     if k.startswith("params/"))
+        if not (skipped > 0 and finite):
+            raise AssertionError(f"skip left skipped_updates {skipped}, finite params {finite}")
+
+        learn_return, _ = run(IDENTITY + ["system.rollout_length=16", "system.epochs=4"],
+                              "identity")
+        if not learn_return > 8.0:
+            raise AssertionError(f"IdentityGame with every knob on returned {learn_return}")
+
+        env, _ = envs.make(config)
+        setup = ff_ppo.learner_setup(env, config, torch.device("cuda"),
+                                     seed=int(config.arch.seed))
+        state, _ = setup.learn.update_step(setup.learner_state)  # warm-up
+        launches = _device_launches(setup.learn, state)
+    emit({"phase": "knobs", "env": "cartpole", "total_num_envs": int(config.arch.total_num_envs),
+          "update_batch_size": 2, "updates": MAIN_UPDATES, "knobs": KNOBS,
+          "b1_gae_launches_per_update": gae_launches[lr.GAE_KERNEL.name] / MAIN_UPDATES,
+          "device_launches_per_update": launches,
+          "env_steps_per_second": stats["steps_per_second"],
+          "window_seconds": stats["window_seconds"], "final_eval_return": final_return,
+          "resume_bitwise": True, "resumed_leaves": len(unbroken),
+          "poisoned_skipped_updates": skipped, "poisoned_params_finite": finite,
+          "identity_game_return": learn_return, "sink_files": files, "seconds": seconds,
+          "card": smi})
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1036,6 +1323,8 @@ def main() -> None:
     with one_rank_mesh() as mesh:
         ring = phase_ring(width, smi, mesh)
         phase_c6(mesh, smi)
+    phase_c8(smi)
+    phase_knobs(smi)
     chunk["launches"] = ring["launches"]
     # The generic entry point is off both training paths (their GAE takes the
     # GAE entry point): its main-path count is 0, and its launches on GAE's

@@ -27,14 +27,17 @@
 // no atomics):
 //     delta = rowsum(dO.O),  P = exp(q.k^T.scale - lse),  dS = P.(dO.v^T - delta),
 //     dV = P^T.dO,  dK = scale.dS^T.q,  dQ = scale.dS.k
-//   A block holds kBwdRows = 64 rows of each side: G pairs of R rows, R the
-//   next power of two >= S (at least 4, at most 64), G = 64 / R. A block owns
+//   A block holds N = bwd_rows(D) rows of each side (64; 32 at D = 256, where
+//   five 64-row fp32 operand tiles, 333 KiB, would outgrow a block's 227 KiB):
+//   G pairs of R rows, R the next power of two >= S (at least 4, at most N),
+//   G = N / R. A block owns
 //   one key tile of its pairs (K and V resident) and walks the query tiles that
 //   can see it (from the key tile on, when causal). For each query tile it
 //     1. copies q, o, dO rows (and lse) into shared memory, 16 bytes a thread,
 //        neighbouring threads on neighbouring pieces of a row (cp.async for
 //        fp32; bf16 and fp16 widened to fp32 on the way);
-//     2. forms delta from shared memory (no trip through device memory);
+//     2. forms delta from shared memory (no trip through device memory), 256 / N
+//        threads a row;
 //     3. forms the R x R scores of each pair once, a thread per 2 x 2 tile of
 //        (query, key), and from them P and dS once, masked by position;
 //     4. forms dV and dK (accumulated over query tiles in registers), each
@@ -43,18 +46,20 @@
 //        summed by shuffles;
 //     5. writes dQ out through shared memory as 16-byte coalesced stores.
 //   dK and dV go out the same way after the walk. With one key tile per pair
-//   (every S <= 64, the path's S = 16) dQ is written as it is; with several,
+//   (every S <= N, the path's S = 16) dQ is written as it is; with several,
 //   each key tile writes its fp32 dQ partial to its own slice of a
 //   [tiles, B, S, H, D] scratch buffer, which the wrapper sums in a fixed order.
-//   At S <= 64 each operand is read once and each output written once.
+//   At S <= N each operand is read once and each output written once. At
+//   D = 256 (N = 32) a thread's work is D = 128's: 16 dV and 16 dK tiles and
+//   2 dQ tiles of 4 x 4, in 171 KiB of shared memory, one block an SM.
 //
 // What the design does about the two-kernel backward it replaces: every global
 // load and store is a 16-byte piece of a row, coalesced across the warp (no
 // thread walks a row by itself); P and dS are computed once, not once per
 // kernel, and delta never leaves the block (13 passes over a [B, S, H, D]
 // operand become 8); a thread keeps 16 fp32 accumulators at D <= 32 (32 at
-// D = 64, 64 at D = 128) across query tiles, not 4.D row registers, and is
-// capped at 80 registers so three blocks share an SM (D = 128: one block an SM,
+// D = 64, 64 at D >= 128) across query tiles, not 4.D row registers, and is
+// capped at 80 registers so three blocks share an SM (D >= 128: one block an SM,
 // uncapped); the causal walk skips query tiles
 // before the key tile, score tiles above the diagonal are skipped, and on the
 // diagonal tile each 4 x 4 product starts (dK, dV) or stops (dQ) at its own
@@ -73,7 +78,7 @@
 // 0.29 GFLOP (0.0043 ms at 67 TFLOP/s).
 //
 // Types: q, k, v (and o, dO, dQ, dK, dV) float32, bfloat16 or float16, head
-// dims 8, 16, 32, 64 and 128; arithmetic in fp32, one rounding per output.
+// dims 8, 16, 32, 64, 128 and 256; arithmetic in fp32, one rounding per output.
 //
 // Layout: q, k and v are taken by strides (batch, seq, head; the last dim
 // contiguous), so the three views of a fused [B, S, 3, H, D] projection go in
@@ -87,11 +92,14 @@
 
 namespace {
 
-constexpr int kBwdRows = kTileRows;        // rows of each side a backward block holds
-constexpr int kBwdThreads = 4 * kBwdRows;  // threads per backward block: 4 per row
+// Rows of each side a backward block holds: 64, or 32 at D = 256, whose five
+// operand tiles would otherwise outgrow a block's shared memory.
+__host__ __device__ constexpr int bwd_rows(int d) { return d > 128 ? 32 : kTileRows; }
+constexpr int kBwdThreads = kThreads;  // threads per backward block: 4 a row (8 at D = 256)
 // Backward blocks an SM must hold at once: caps a thread at 80 registers, so
 // that one block's copies overlap another's arithmetic. At D = 128 one block
-// fills an SM's shared memory (198 KiB) and a thread keeps 64 accumulators.
+// fills an SM's shared memory (198 KiB; 171 KiB at D = 256) and a thread keeps
+// 64 accumulators.
 template <int D>
 __host__ __device__ constexpr int bwd_min_blocks() {
   return D > 64 ? 1 : 3;
@@ -134,9 +142,9 @@ flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 // ---------------------------------------------------------------- backward (fused)
 
 // Shared-memory floats of one backward block: five operand tiles (q, k, v, o,
-// dO), P and dS ([kBwdRows][R]), lse and delta.
+// dO) of bwd_rows(d) rows, P and dS ([bwd_rows(d)][R]), lse and delta.
 __host__ __device__ constexpr int bwd_smem_floats(int d, int r) {
-  return 5 * tile_floats(d) + 2 * kBwdRows * r + 2 * kBwdRows;
+  return 5 * tile_floats(d, bwd_rows(d)) + 2 * bwd_rows(d) * r + 2 * bwd_rows(d);
 }
 
 // Copy rows [r0, r0 + R) of each of the block's pairs from a [B, S, H, D]
@@ -149,7 +157,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, long long sb
   constexpr int kElems = 16 / sizeof(T);  // elements in a 16-byte piece
   constexpr int kPieces = D / kElems;     // pieces in a row
   const int num_pairs = s.batch * s.heads;
-  for (int idx = threadIdx.x; idx < kBwdRows * kPieces; idx += kBwdThreads) {
+  for (int idx = threadIdx.x; idx < bwd_rows(D) * kPieces; idx += kBwdThreads) {
     const int slot = idx / kPieces, piece = idx % kPieces;
     const int pair = first_pair + slot / s.rows, row = r0 + slot % s.rows;
     const bool valid = pair < num_pairs && row < s.seq;
@@ -174,7 +182,7 @@ __device__ __forceinline__ void store_tile(OutT* dst, const float* src, int firs
   constexpr int kElems = 16 / sizeof(OutT);
   constexpr int kPieces = D / kElems;
   const int num_pairs = s.batch * s.heads;
-  for (int idx = threadIdx.x; idx < kBwdRows * kPieces; idx += kBwdThreads) {
+  for (int idx = threadIdx.x; idx < bwd_rows(D) * kPieces; idx += kBwdThreads) {
     const int slot = idx / kPieces, piece = idx % kPieces;
     const int pair = first_pair + slot / s.rows, row = r0 + slot % s.rows;
     if (pair >= num_pairs || row >= s.seq) continue;
@@ -207,26 +215,30 @@ flash_backward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
                       const float* __restrict__ lse, T* __restrict__ dq,
                       float* __restrict__ dq_partial, T* __restrict__ dk, T* __restrict__ dv,
                       Shape s) {
+  constexpr int kRows = bwd_rows(D);               // rows of each side
   constexpr int kDg = D / 4;                        // 4-wide column groups
-  constexpr int kMicro = kBwdRows / 4 * kDg;        // 4 x 4 tiles of one [kBwdRows, D] output
+  constexpr int kMicro = kRows / 4 * kDg;           // 4 x 4 tiles of one [kRows, D] output
   constexpr int kKvPerThread = (2 * kMicro + kBwdThreads - 1) / kBwdThreads;  // dV, dK tiles
-  // dQ tiles: kQSplit threads share one (D <= 64), or a thread takes kQTiles (D = 128).
+  // dQ tiles: kQSplit threads share one (D <= 64), or a thread takes kQTiles (D >= 128).
   constexpr int kQSplit = kMicro < kBwdThreads ? kBwdThreads / kMicro : 1;
   constexpr int kQTiles = kMicro < kBwdThreads ? 1 : kMicro / kBwdThreads;
-  static_assert(kBwdThreads == 4 * kBwdRows, "delta takes 4 threads a row");
+  constexpr int kDeltaLanes = kBwdThreads / kRows;  // threads summing one row's delta
+  constexpr int kDeltaCols = D / kDeltaLanes;       // columns each of them sums
+  static_assert(kDeltaLanes * kRows == kBwdThreads, "delta takes whole rows of threads");
   static_assert(kQSplit * kMicro == kBwdThreads * kQTiles, "every dQ tile is taken once");
 
   extern __shared__ __align__(16) float smem[];
   const int R = s.rows;
+  constexpr int kTile = tile_floats(D, kRows);
   float* q_s = smem;
-  float* k_s = q_s + tile_floats(D);
-  float* v_s = k_s + tile_floats(D);
-  float* o_s = v_s + tile_floats(D);  // o, then this query tile's dQ
-  float* do_s = o_s + tile_floats(D);
-  float* p_s = do_s + tile_floats(D);  // [kBwdRows][R]: P of (query slot, key)
-  float* ds_s = p_s + kBwdRows * R;    // dS, likewise
-  float* lse_s = ds_s + kBwdRows * R;
-  float* delta_s = lse_s + kBwdRows;
+  float* k_s = q_s + kTile;
+  float* v_s = k_s + kTile;
+  float* o_s = v_s + kTile;  // o, then this query tile's dQ
+  float* do_s = o_s + kTile;
+  float* p_s = do_s + kTile;        // [kRows][R]: P of (query slot, key)
+  float* ds_s = p_s + kRows * R;    // dS, likewise
+  float* lse_s = ds_s + kRows * R;
+  float* delta_s = lse_s + kRows;
 
   const int first_pair = blockIdx.x * s.pairs;
   const int num_pairs = s.batch * s.heads;
@@ -253,22 +265,23 @@ flash_backward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     load_tile<T, D>(q_s, q, s.qb, s.qs, s.qh, first_pair, q0, s);
     load_tile<T, D>(o_s, o, s.seq * row_stride, row_stride, D, first_pair, q0, s);
     load_tile<T, D>(do_s, dout, s.seq * row_stride, row_stride, D, first_pair, q0, s);
-    for (int slot = threadIdx.x; slot < kBwdRows; slot += kBwdThreads) {
+    for (int slot = threadIdx.x; slot < kRows; slot += kBwdThreads) {
       const int pair = first_pair + slot / R, row = q0 + slot % R;
       lse_s[slot] = pair < num_pairs && row < s.seq ? lse[stat_offset(pair, row, s)] : INFINITY;
     }
     cp_async_wait_all();
     __syncthreads();
 
-    {  // delta = rowsum(dO.o), 4 threads a row
-      const int slot = threadIdx.x / 4, part = threadIdx.x % 4;
-      const float* a = do_s + tile_row<D>(slot) + part * kDg;
-      const float* b = o_s + tile_row<D>(slot) + part * kDg;
+    {  // delta = rowsum(dO.o), kDeltaLanes threads a row
+      const int slot = threadIdx.x / kDeltaLanes, part = threadIdx.x % kDeltaLanes;
+      const float* a = do_s + tile_row<D>(slot) + part * kDeltaCols;
+      const float* b = o_s + tile_row<D>(slot) + part * kDeltaCols;
       float sum = 0.f;
 #pragma unroll
-      for (int d = 0; d < kDg; ++d) sum = fmaf(a[d], b[d], sum);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      for (int d = 0; d < kDeltaCols; ++d) sum = fmaf(a[d], b[d], sum);
+#pragma unroll
+      for (int lanes = 1; lanes < kDeltaLanes; lanes *= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, lanes);
       if (part == 0) delta_s[slot] = sum;
     }
     __syncthreads();
@@ -278,7 +291,7 @@ flash_backward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     // neighbouring keys). Tiles inside a 4 x 4 block wholly above the causal
     // diagonal are skipped: no product below reads them.
     const int side = R / 2;  // 2 x 2 tiles along a pair's side
-    for (int idx = threadIdx.x; idx < kBwdRows / 2 * side; idx += kBwdThreads) {
+    for (int idx = threadIdx.x; idx < kRows / 2 * side; idx += kBwdThreads) {
       const int slot0 = idx / side * 2, key0 = idx % side * 2;  // first query slot, first key
       const int first = slot0 / R * R, query0 = slot0 % R;      // the pair's first slot
       if (diagonal && key0 / 4 > query0 / 4) continue;
@@ -341,7 +354,7 @@ flash_backward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     // dQ = scale.dS.k over the key tile: kQSplit neighbouring threads share a
     // tile of 4 queries by 4 columns, each summing every kQSplit-th group of 4
     // keys (on the diagonal, up to the tile's last query); their sums are added
-    // by shuffles in a fixed order; at D = 128 a thread takes kQTiles tiles in turn.
+    // by shuffles in a fixed order; at D >= 128 a thread takes kQTiles tiles in turn.
     for (int tile = 0; tile < kQTiles; ++tile) {
       const int micro = threadIdx.x / kQSplit + tile * (kBwdThreads / kQSplit);
       const int part = threadIdx.x % kQSplit;
@@ -414,20 +427,21 @@ flash_backward_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 // ---------------------------------------------------------------- host side
 
 // Fill the backward's shape and tiling: R rows a pair (the next power of two
-// >= S, within [4, kBwdRows]) and kBwdRows / R pairs a block; false when the
-// shape is not one the kernels take.
+// >= S, within [4, bwd_rows(D)]) and bwd_rows(D) / R pairs a block; false when
+// the shape is not one the kernels take.
 bool make_backward_shape(Shape* s, const long long* strides, int batch, int seq, int heads,
                          int head_dim, float scale, int causal) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return false;
   if (!built_head_dim(head_dim)) return false;
+  const int block_rows = bwd_rows(head_dim);
   int rows = next_pow2(seq);
   if (rows < 4) rows = 4;
-  if (rows > kBwdRows) rows = kBwdRows;
+  if (rows > block_rows) rows = block_rows;
   s->batch = batch;
   s->seq = seq;
   s->heads = heads;
   s->rows = rows;
-  s->pairs = kBwdRows / rows;
+  s->pairs = block_rows / rows;
   s->scale = scale;
   s->causal = causal;
   s->qb = strides[0]; s->qs = strides[1]; s->qh = strides[2];
@@ -460,7 +474,7 @@ void backward_launch(const void* q, const void* k, const void* v, const void* o,
   if (!opted) {
     if (cudaFuncSetAttribute(flash_backward_kernel<T, D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bwd_smem_floats(D, kBwdRows) * sizeof(float))) !=
+                             static_cast<int>(bwd_smem_floats(D, bwd_rows(D)) * sizeof(float))) !=
         cudaSuccess)
       return;
     opted = true;
@@ -489,9 +503,10 @@ extern "C" int flash_attention_forward(int dtype, const void* q, const void* k, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// dq is written when S <= 64 (one key tile a pair) and may be null otherwise;
-// dq_partial, a zeroed fp32 [ceil(S / 64), B, S, H, D], takes one dQ partial a
-// key tile when S > 64 and may be null otherwise.
+// dq is written when S <= bwd_rows(D) (one key tile a pair: 64, or 32 at
+// D = 256) and may be null otherwise; dq_partial, a zeroed fp32
+// [ceil(S / bwd_rows(D)), B, S, H, D], takes one dQ partial a key tile past it
+// and may be null otherwise.
 extern "C" int flash_attention_backward(int dtype, const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const void* lse,
                                         void* dq, void* dq_partial, void* dk, void* dv,
@@ -500,7 +515,7 @@ extern "C" int flash_attention_backward(int dtype, const void* q, const void* k,
   Shape s;
   if (!make_backward_shape(&s, strides, batch, seq, heads, head_dim, scale, causal))
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((seq > kBwdRows ? dq_partial : dq) == nullptr)
+  if ((seq > bwd_rows(head_dim) ? dq_partial : dq) == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(backward_launch, dtype, head_dim, q, k, v, o, dout, lse, dq, dq_partial, dk, dv, s,
            static_cast<cudaStream_t>(stream));

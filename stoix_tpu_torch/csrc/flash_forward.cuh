@@ -25,8 +25,10 @@
 //      (R > 16); where the tiles are fewer than the threads, 2 or more lanes
 //      split a tile's keys and sum by shuffles at the end; up to the last key
 //      any of its rows sees.
-// Head dims 8, 16, 32, 64 and 128 are built (a 16-byte piece is a whole row
-// of 8 16-bit values); q, k, v are float32, bfloat16 or float16.
+// Head dims 8, 16, 32, 64, 128 and 256 are built (a 16-byte piece is a whole
+// row of 8 16-bit values); q, k, v are float32, bfloat16 or float16. At
+// D = 256 the three 64-row tiles and P take 212 KiB, so one block fills an SM
+// and a thread keeps 64 accumulators (16 rows by 4 columns).
 // The epilogue writes the accumulator out through shared memory as 16-byte
 // coalesced stores (normalised and rounded once to the output type for B2,
 // raw fp32 pv for B3) and the row statistics as coalesced rows.
@@ -63,8 +65,8 @@ __device__ __forceinline__ int tile_row(int r) {
   return r * (D + 4) + (r / 8) * 4;
 }
 
-__host__ __device__ constexpr int tile_floats(int d) {
-  return kTileRows * (d + 4) + kTileRows / 8 * 4;
+__host__ __device__ constexpr int tile_floats(int d, int rows = kTileRows) {
+  return rows * (d + 4) + rows / 8 * 4;
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const void* src, bool valid) {
@@ -124,7 +126,9 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b, float ac
 }
 
 // The head dims the kernels are built for (kernels/flash_attention.py::HEAD_DIMS).
-inline bool built_head_dim(int d) { return d == 8 || d == 16 || d == 32 || d == 64 || d == 128; }
+inline bool built_head_dim(int d) {
+  return d == 8 || d == 16 || d == 32 || d == 64 || d == 128 || d == 256;
+}
 
 inline int next_pow2(int x) {
   int p = 1;
@@ -150,7 +154,11 @@ inline bool make_forward_shape(ForwardShape* s, const long long* strides, int ba
   if (batch <= 0 || q_len <= 0 || k_len <= 0 || heads <= 0) return false;
   if (!built_head_dim(head_dim)) return false;
   int rows = next_pow2(q_len > k_len ? q_len : k_len);
-  if (rows < 4) rows = 4;
+  // A thread's output tile is max(1, D / 16) rows of ONE pair (v_first), so a
+  // pair must hold at least that many rows: R >= 8 at D = 128, 16 at D = 256
+  // (the rows past the sequence are masked).
+  const int min_rows = head_dim / 16 > 4 ? head_dim / 16 : 4;
+  if (rows < min_rows) rows = min_rows;
   if (rows > kTileRows) rows = kTileRows;
   s->batch = batch;
   s->q_len = q_len;
@@ -253,13 +261,16 @@ constexpr int kMaxKeysPT = 4;  // keys of a score tile, at most
 // Resident blocks an SM must hold: caps a thread's registers (64 for the short
 // sequences, whose copies need many blocks in flight; 128 for the long). At
 // D = 128 shared memory holds two short blocks or one long one an SM, and a
-// thread keeps 32 accumulators: 128 and 255 registers.
+// thread keeps 32 accumulators: 128 and 255 registers. At D = 256 one block of
+// either variant fills an SM's shared memory: 255 registers for both.
 constexpr int kSmallMinBlocks = 4;
 constexpr int kLargeMinBlocks = 2;
 
 template <int kLanes, int D>
 __host__ __device__ constexpr int min_blocks() {
-  return D > 64 ? (kLanes == 4 ? 2 : 1) : (kLanes == 4 ? kSmallMinBlocks : kLargeMinBlocks);
+  return D > 128 ? 1
+         : D > 64 ? (kLanes == 4 ? 2 : 1)
+                  : (kLanes == 4 ? kSmallMinBlocks : kLargeMinBlocks);
 }
 
 
@@ -613,6 +624,7 @@ void launch_forward(Kernel small, Kernel large, bool (&opted)[2], const ForwardS
     case 32: LAUNCH<T, 32>(__VA_ARGS__); break;                                    \
     case 64: LAUNCH<T, 64>(__VA_ARGS__); break;                                    \
     case 128: LAUNCH<T, 128>(__VA_ARGS__); break;                                  \
+    case 256: LAUNCH<T, 256>(__VA_ARGS__); break;                                  \
     default: return static_cast<int>(cudaErrorInvalidValue);                       \
   }
 #define DISPATCH(LAUNCH, DTYPE, HEAD_DIM, ...)                                     \

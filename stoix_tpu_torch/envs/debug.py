@@ -3,7 +3,7 @@ stoix_tpu/envs/debug.py, the IdentityGame subset)."""
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,6 +23,8 @@ class IdentityState(NamedTuple):
     generator: torch.Generator
     target: torch.Tensor  # [N] int64
     step_count: torch.Tensor  # [N] int32
+    # [N] int64 targets pinned by reset_to_level; None: a random target each step
+    level: Optional[torch.Tensor] = None
 
 
 class IdentityGame(Environment):
@@ -30,6 +32,8 @@ class IdentityGame(Environment):
 
     Optimal return over an episode of length `episode_length` is exactly
     `episode_length` — a learner failing to reach it has a plumbing bug.
+    `reset_to_level(level, generator)` pins each env's target to its level
+    for the whole episode (fixed evaluation levels, `env.eval_reset_fn`).
     """
 
     def __init__(self, num_actions: int = 4, episode_length: int = 10):
@@ -70,10 +74,22 @@ class IdentityGame(Environment):
         )
         return state, restart(self._obs(state), num_envs, device)
 
+    def reset_to_level(self, level: torch.Tensor, generator: torch.Generator
+                       ) -> Tuple[IdentityState, TimeStep]:
+        """Reset every env to its level ([N] integers): its target, fixed."""
+        device = generator.device
+        level = level.to(device=device, dtype=torch.int64)
+        num_envs = level.shape[0]
+        state = IdentityState(
+            generator, level, torch.zeros((num_envs,), dtype=torch.int32, device=device), level)
+        return state, restart(self._obs(state), num_envs, device)
+
     def step(self, state: IdentityState, action: torch.Tensor) -> Tuple[IdentityState, TimeStep]:
         reward = (action == state.target).to(torch.float32)
         target = self._draw_targets(state.generator, state.target.shape[0])
-        next_state = IdentityState(state.generator, target, state.step_count + 1)
+        if state.level is not None:
+            target = state.level
+        next_state = IdentityState(state.generator, target, state.step_count + 1, state.level)
         obs = self._obs(next_state)
         done = next_state.step_count >= self._episode_length
         return next_state, select_step(done, termination(reward, obs), transition(reward, obs))

@@ -8,11 +8,10 @@ from stoix_tpu_torch.envs import classic, debug
 from stoix_tpu_torch.envs.core import Environment
 from stoix_tpu_torch.envs.wrappers import (
     EpisodeStepLimit,
+    FlattenObservationWrapper,
     RecordEpisodeMetrics,
     apply_core_wrappers,
 )
-
-_UNPORTED_WRAPPERS = ("use_optimistic_reset", "use_cached_auto_reset", "flatten_observation")
 
 # scenario name -> constructor(**env_kwargs)
 ENV_REGISTRY: Dict[str, Callable[..., Environment]] = {
@@ -36,23 +35,29 @@ def make(config: Any) -> Tuple[Environment, Environment]:
     Config fields:
         env.scenario.name        — registry key
         env.kwargs               — ctor kwargs (optional)
-        env.wrapper              — dict(max_episode_steps) (optional; the JAX
-                                   package's other wrapper keys raise)
+        env.wrapper              — max_episode_steps, flatten_observation,
+                                   use_optimistic_reset (with reset_ratio),
+                                   use_cached_auto_reset (all optional)
     """
     env_cfg = config.env
     kwargs = dict(env_cfg.get("kwargs") or {})
     scenario = env_cfg.scenario.name
     wrapper_cfg = dict(env_cfg.get("wrapper") or {})
-    unported = [f"env.wrapper.{k}" for k in _UNPORTED_WRAPPERS if wrapper_cfg.get(k, False)]
-    if unported:
-        raise NotImplementedError("not ported: " + ", ".join(unported))
-
+    train_env = make_single(scenario, **kwargs)
+    eval_env = make_single(scenario, **kwargs)
+    if wrapper_cfg.get("flatten_observation", False):
+        train_env = FlattenObservationWrapper(train_env)
+        eval_env = FlattenObservationWrapper(eval_env)
     train_env = apply_core_wrappers(
-        make_single(scenario, **kwargs), max_episode_steps=wrapper_cfg.get("max_episode_steps")
+        train_env,
+        num_envs=int(config.arch.total_num_envs),
+        max_episode_steps=wrapper_cfg.get("max_episode_steps"),
+        use_optimistic_reset=bool(wrapper_cfg.get("use_optimistic_reset", False)),
+        reset_ratio=int(wrapper_cfg.get("reset_ratio", 16)),
+        use_cached_auto_reset=bool(wrapper_cfg.get("use_cached_auto_reset", False)),
     )
     # Eval env: metrics + step limit only; episodes must genuinely end (no
     # auto-reset) because the evaluator runs each episode until its LAST step.
-    eval_env = make_single(scenario, **kwargs)
     if wrapper_cfg.get("max_episode_steps"):
         eval_env = EpisodeStepLimit(eval_env, wrapper_cfg["max_episode_steps"])
     return train_env, RecordEpisodeMetrics(eval_env)

@@ -1,5 +1,6 @@
 """Evaluator (counterpart of stoix_tpu/evaluator.py: `get_distribution_act_fn`,
-`get_ff_evaluator_fn`, `get_rnn_evaluator_fn` and `evaluator_setup`).
+`get_ff_evaluator_fn`, `get_rnn_evaluator_fn`, `evaluator_setup` and the
+evaluation-reset hooks `make_tiled_eval_reset_fn` and `env.eval_reset_fn`).
 
 All `num_eval_episodes` episodes run as ONE batch of envs. An episode that
 has ended is frozen (its state and timestep no longer change) while the rest
@@ -7,16 +8,25 @@ run on, which is what the JAX evaluator's vmapped while-loop does. Without
 `arch.eval_max_steps` the loop stops when every episode has ended; with it,
 after exactly that many steps, and episodes still running at the cap report
 their running return with `episode_finished` 0.
+
+`env.eval_reset_fn` (a config target) replaces the eval env's reset for the
+episodes: `hook(env, generator, episode_index)` with `episode_index` the
+[N] global episode indices, returning the batched (state, timestep), as the
+JAX package's three-argument hook does per episode. Its two-argument form
+`hook(env, key)` resets one episode from a key and has no batched
+counterpart: the port refuses it.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 from stoix_tpu_torch.envs.core import Environment
 from stoix_tpu_torch.envs.types import tree_select
+from stoix_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # act_fn(params, observation, generator) -> action  (batched observation)
 ActFn = Callable[[Any, Any, torch.Generator], torch.Tensor]
@@ -35,19 +45,72 @@ def get_distribution_act_fn(config: Any, actor_apply: Callable[..., Any]) -> Act
     return act
 
 
+ResetFn = Callable[[torch.Generator, int], Tuple[Any, Any]]
+
+
+def _make_eval_reset_fn(eval_env: Environment, config: Any) -> ResetFn:
+    """The episodes' reset: (generator, episodes) -> (state, timestep). The
+    env's own reset unless `env.eval_reset_fn` names a hook."""
+    hook_cfg = config.env.get("eval_reset_fn")
+    if not hook_cfg:
+        return eval_env.reset
+    from stoix_tpu_torch.utils.config import instantiate
+
+    hook = instantiate(hook_cfg)
+    if len(inspect.signature(hook).parameters) < 3:
+        raise NotImplementedError(
+            "env.eval_reset_fn: the port takes hook(env, generator, episode_index); the "
+            "two-argument hook(env, key) resets one episode and has no batched counterpart")
+
+    def reset(generator: torch.Generator, episodes: int):
+        index = torch.arange(episodes, device=generator.device)
+        return hook(eval_env, generator, index)
+
+    return reset
+
+
+def make_tiled_eval_reset_fn(levels: Any):
+    """An eval-reset hook that cycles a fixed list of levels across episodes:
+    episode i resets to level i % n_levels through the env's
+    `reset_to_level(level, generator)`. `levels` is a sequence of per-level
+    values (numbers, tensors, or trees of them) or one tree whose leaves have
+    a leading level axis."""
+    if isinstance(levels, (list, tuple)):
+        stacked = tree_map(lambda *xs: torch.stack(xs), *(_tensors(level) for level in levels))
+        n_levels = len(levels)
+    else:
+        stacked = levels
+        n_levels = int(tree_leaves(levels)[0].shape[0])
+
+    def hook(env: Environment, generator: torch.Generator, episode_index: torch.Tensor):
+        slot = episode_index % n_levels
+        level = tree_map(lambda x: x.to(slot.device)[slot], stacked)
+        return env.reset_to_level(level, generator)
+
+    return hook
+
+
+def _tensors(tree: Any) -> Any:
+    """A level as tensors: numbers and arrays converted, trees recursed."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_tensors(x) for x in tree))
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.as_tensor(tree)
+
+
 def get_ff_evaluator_fn(
     eval_env: Environment, act_fn: ActFn, config: Any, eval_multiplier: int = 1
 ) -> Callable[[Any, torch.Generator], Dict[str, torch.Tensor]]:
     """Build the evaluator: (params, generator) -> episode metrics dict with
     tensors shaped [num_eval_episodes * eval_multiplier]."""
-    if config.env.get("eval_reset_fn"):
-        raise NotImplementedError("env.eval_reset_fn is not ported")
+    reset_fn = _make_eval_reset_fn(eval_env, config)
     episodes = int(config.arch.num_eval_episodes) * int(eval_multiplier)
     eval_max_steps = config.arch.get("eval_max_steps")
 
     @torch.no_grad()
     def evaluator(params: Any, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        env_state, timestep = eval_env.reset(generator, episodes)
+        env_state, timestep = reset_fn(generator, episodes)
         steps = 0
         while True:
             finished = timestep.last()
@@ -83,13 +146,12 @@ def get_rnn_evaluator_fn(
     through its steps; `rnn_act_fn` gets the episode's `done` flag to clear it.
     As in the JAX evaluator each episode runs until it ends, and an episode
     that has ended is frozen, its state with it."""
-    if config.env.get("eval_reset_fn"):
-        raise NotImplementedError("env.eval_reset_fn is not ported")
+    reset_fn = _make_eval_reset_fn(eval_env, config)
     episodes = int(config.arch.num_eval_episodes) * int(eval_multiplier)
 
     @torch.no_grad()
     def evaluator(params: Any, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        env_state, timestep = eval_env.reset(generator, episodes)
+        env_state, timestep = reset_fn(generator, episodes)
         hstate = init_hstate_fn(episodes)
         while True:
             finished = timestep.last()

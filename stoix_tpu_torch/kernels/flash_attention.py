@@ -31,24 +31,27 @@ shared memory, scores each query row in register tiles shared by 4 lanes
 whose max and sum are taken by shuffles, folds the online softmax per key
 tile of up to KEY_TILE keys as `_fold_block` folds a block, keeps the output
 in register tiles and stores it through shared memory as 16-byte pieces.
-Backward (csrc/flash_attention.cu): a block holds 64 rows of each side, loads
-them the same way, forms delta, then P and dS once (2 x 2 register tiles kept
-in shared memory), then dV, dK and dQ as 4 x 4 register tiles, and stores
-through shared memory as 16-byte pieces.
-Past S = 64 a backward block owns one 64-key tile and walks the query tiles;
-each key tile then writes an fp32 dQ partial that `backward_kernel` sums in
-a fixed order (deterministic, no atomics). Both: ragged S masked, not padded;
+Backward (csrc/flash_attention.cu): a block holds `backward_tile(D)` rows of
+each side (64; 32 at D = 256, whose 64-row tiles would outgrow shared memory),
+loads them the same way, forms delta, then P and dS once (2 x 2 register
+tiles kept in shared memory), then dV, dK and dQ as 4 x 4 register tiles, and
+stores through shared memory as 16-byte pieces.
+Past S = `backward_tile(D)` a backward block owns one key tile of that many
+keys and walks the query tiles; each key tile then writes an fp32 dQ partial
+that `backward_kernel` sums in a fixed order (deterministic, no atomics). Both: ragged S masked, not padded;
 causal walks bounded. q, k, v are taken by strides, so the views of the fused
 qkv projection need no copy; every row must be 16-byte aligned, which those
 views are at every head dim the kernels take, and anything else is refused
 with a ValueError (`check_rows_aligned`).
 
-Head dims and dtypes: the kernels are built for HEAD_DIMS (8 to 128) in
+Head dims and dtypes: the kernels are built for HEAD_DIMS (8 to 256) in
 float32, bfloat16 and float16, as the TPU kernel takes any head dim and
-float dtype. `flash_attention` runs any other head dim up to 128 on the card
+float dtype. `flash_attention` runs any other head dim up to 256 on the card
 zero-padded to the next built one (`kernel_head_dim`, `padded_flash_attention`):
 the zero columns add nothing to q.k, the scale stays D^-1/2 of the true D,
-and the output's padded columns are cut off. Past 128 the card raises.
+and the output's padded columns are cut off. Past 256 the card raises: the
+forward core's 64-row q tile and 64-key K/V tiles would need 32-row tiles
+there.
 
 Counters: `FORWARD` and `BACKWARD` each count the launches of one kernel, and
 rise nowhere else.
@@ -65,8 +68,14 @@ import torch.nn.functional as F
 from stoix_tpu_torch.kernels.build import CudaLibrary
 
 KEY_TILE = 64  # keys folded per online-softmax step past S = 64, as the forward core folds them
-HEAD_DIMS = (8, 16, 32, 64, 128)  # the head dims csrc/flash_forward.cuh::built_head_dim names
-BACKWARD_TILE = 64  # rows of a key tile in the backward kernel (kBwdRows)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # csrc/flash_forward.cuh::built_head_dim's
+
+
+def backward_tile(head_dim: int) -> int:
+    """Rows of each side a backward block holds at `head_dim`
+    (csrc/flash_attention.cu::bwd_rows): 64, or 32 at D = 256."""
+    return 32 if head_dim > 128 else 64
+
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # strides, batch, seq, heads, head_dim, scale, causal, stream
@@ -284,12 +293,12 @@ def backward_kernel(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernel: dq, dk, dv (contiguous [B, S, H, D],
     q.dtype) in one launch (`scale` defaults to D^-1/2). Past S =
-    BACKWARD_TILE each key tile writes an fp32 dQ partial, summed here in
-    tile order."""
+    `backward_tile(D)` each key tile writes an fp32 dQ partial, summed here
+    in tile order."""
     _check(q, k, v)
     _check_backward(q, lse, o=o, dout=dout)
     check_rows_aligned("flash attention backward", q, k, v, o, dout)
-    tiles = -(-q.shape[1] // BACKWARD_TILE)
+    tiles = -(-q.shape[1] // backward_tile(q.shape[3]))
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     dq = partial = None
     if tiles == 1:
@@ -373,7 +382,7 @@ def flash_attention(
     """[B, S, H, D] -> [B, S, H, D]: the kernels on CUDA tensors (they launch
     or raise), their plain versions on CPU tensors. On CUDA a head dim the
     kernels are not built for runs padded to the next one that is
-    (`kernel_head_dim`); past 128 it raises."""
+    (`kernel_head_dim`); past 256 it raises."""
     head_dim = q.shape[-1]
     if q.device.type == "cuda" and head_dim not in HEAD_DIMS:
         return padded_flash_attention(q, k, v, causal, kernel_head_dim(head_dim))

@@ -33,9 +33,9 @@ writes the proxy stats and zeros as coalesced stores without reading q, K or
 V, and a key tile wholly beyond the block's last query is skipped before its
 K/V are copied. q, k, v are taken by strides; their rows must be 16-byte
 aligned (a ValueError otherwise). They may be float32, bfloat16 or float16,
-at the head dims B2 is built for (HEAD_DIMS, 8 to 128); the dispatch
+at the head dims B2 is built for (HEAD_DIMS, 8 to 256); the dispatch
 (ops/pallas_attention.py::flash_attention_chunk) zero-pads any other head dim
-up to 128 and passes the true D^-1/2 as `scale`. The TPU kernel's block sizes (which must
+up to 256 and passes the true D^-1/2 as `scale`. The TPU kernel's block sizes (which must
 divide the chunk lengths) do not shape this kernel's tiling.
 
 Counter: `KERNEL` counts this kernel's launches and rises nowhere else.

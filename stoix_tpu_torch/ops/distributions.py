@@ -1,7 +1,7 @@
 """Categorical policy distribution (counterpart of
 stoix_tpu/ops/distributions.py::Categorical).
 
-    d.sample(generator)   d.log_prob(x)   d.entropy()   d.mode()
+    d.sample(generator)   d.log_prob(x)   d.entropy()   d.mode()   d.kl_divergence(q)
 
 Sampling is Gumbel-max, as `jax.random.categorical`; it draws from an
 explicit `torch.Generator` on the logits' device.
@@ -44,3 +44,8 @@ class Categorical:
 
     def mode(self) -> torch.Tensor:
         return torch.argmax(self.logits, dim=-1)
+
+    def kl_divergence(self, other: "Categorical") -> torch.Tensor:
+        """KL(self || other) over the last axis."""
+        p = self.probs
+        return torch.sum(p * torch.where(p > 0, self.logits - other.logits, 0.0), dim=-1)

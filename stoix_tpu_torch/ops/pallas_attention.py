@@ -9,7 +9,7 @@ here the card's tensors go to the kernel, and CPU tensors to
 `full_attention`. `flash_attention_chunk` is kernel B3
 (kernels/flash_attention_chunk.py), ring attention's per-step block. On the
 card both run a head dim they are not built for zero-padded to the next one
-they are (`kernel_head_dim`, up to 128).
+they are (`kernel_head_dim`, up to 256).
 """
 
 from __future__ import annotations

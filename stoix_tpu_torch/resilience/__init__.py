@@ -1,6 +1,6 @@
-"""Fault-tolerance layer (counterpart of stoix_tpu/resilience); only the typed
-errors the ported modules raise so far."""
+"""Fault-tolerance layer (counterpart of stoix_tpu/resilience): the typed
+errors the ported modules raise and the update guard (`guards`)."""
 
-from stoix_tpu_torch.resilience.errors import ConfigValidationError
+from stoix_tpu_torch.resilience.errors import ConfigValidationError, DivergenceError
 
-__all__ = ["ConfigValidationError"]
+__all__ = ["ConfigValidationError", "DivergenceError"]

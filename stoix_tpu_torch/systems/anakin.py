@@ -55,7 +55,7 @@ def make_generator(seed: int, device: torch.device) -> torch.Generator:
 def reset_envs_for_anakin(
     env: envs.Environment, config: Any, generator: torch.Generator
 ) -> Tuple[Any, Any]:
-    """Reset all `arch.total_num_envs` envs on the generator's device."""
-    if int(config.arch.get("update_batch_size", 1)) != 1:
-        raise NotImplementedError("arch.update_batch_size > 1 is not ported")
+    """Reset all `arch.total_num_envs` envs on the generator's device. Under
+    `arch.update_batch_size` U they are U groups of `total_num_envs // U`
+    along the env axis, replica u's the u-th."""
     return env.reset(generator, int(config.arch.total_num_envs))

@@ -1,28 +1,46 @@
 """Anakin PPO, discrete actions (counterpart of
-stoix_tpu/systems/ppo/anakin/ff_ppo.py on its two-pass, single-replica,
-single-device path).
+stoix_tpu/systems/ppo/anakin/ff_ppo.py on its single-device path).
 
 One update step, in the JAX package's order:
 
   1. rollout: `rollout_length` steps of every env (a Python loop where the
      JAX package scans), storing raw observations, actions, values and
      log-probs;
-  2. ONE batched critic pass over the [T, E] `extras["next_obs"]` for the
+  2. with `system.normalize_observations`, the trajectory's observations
+     normalised with the pre-update statistics, then the raw ones folded in;
+  3. ONE batched critic pass over the [T, E] `extras["next_obs"]` for the
      bootstrap values;
-  3. truncation-aware GAE, in one launch of the Hopper kernel's GAE entry
+  4. truncation-aware GAE, in one launch of the Hopper kernel's GAE entry
      point under `system.multistep_impl: pallas`;
-  4. `epochs` times: a permutation of the T·E samples, then
+  5. `epochs` times: a permutation of the T·E samples, then
      `num_minibatches` clipped-PPO updates, each an actor and a critic
-     gradient pass and a global-norm clip + Adam step.
+     gradient pass (one joint pass under `system.fused_update`), the
+     divergence guard under `system.update_guard`, and a global-norm
+     clip + Adam step;
+  6. with `system.adaptive_kl_beta`, β doubled or halved around
+     `system.kl_target` from the KL between the rollout's policy and the
+     updated one.
+
+`arch.update_batch_size` U > 1 runs U replicas, as the JAX package's
+`vmap(axis_name="batch")` does: params and optimizer states carry a leading
+[U] axis, the envs split into U groups of `total_num_envs // U` (replica u
+owns columns u·E to (u+1)·E of every [T, U·E] tensor), each replica samples
+and shuffles from its own generator and standardises its own advantages,
+and every gradient is averaged over the U replicas before the clip and Adam,
+so the replicas stay identical. GAE runs once over the whole [T, U·E]
+trajectory (its columns are independent): one B1 launch an update at any U.
+The observation statistics and β are held once: the JAX package's psum and
+pmean over "batch" make them the same on every replica.
 
 Parameters are `{name: tensor}` dicts applied with
 `torch.func.functional_call`; updates build new dicts and never write in
-place, so a window's eval params need no copy.
+place, so a window's eval params need no copy. No tensor of the update path
+is read back to the host: the guard and β select on the device.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.func import functional_call
@@ -35,7 +53,8 @@ from stoix_tpu_torch.base_types import (
     PPOTransition,
 )
 from stoix_tpu_torch.evaluator import get_distribution_act_fn
-from stoix_tpu_torch.ops import losses, truncated_generalized_advantage_estimation
+from stoix_tpu_torch.ops import losses, running_statistics, truncated_generalized_advantage_estimation
+from stoix_tpu_torch.resilience import guards
 from stoix_tpu_torch.systems import anakin
 from stoix_tpu_torch.systems.runner import AnakinSetup, run_anakin_experiment
 from stoix_tpu_torch.utils import config as config_lib
@@ -44,47 +63,57 @@ from stoix_tpu_torch.utils.tree import tree_map, tree_merge_leading_dims, tree_s
 
 
 class PPOLearnerState(NamedTuple):
-    params: ActorCriticParams
-    opt_states: ActorCriticOptStates
-    generator: torch.Generator  # actions and shuffles; the envs carry their own
+    params: ActorCriticParams  # every tensor [U, ...] when arch.update_batch_size U > 1
+    opt_states: ActorCriticOptStates  # likewise
+    generator: Any  # actions and shuffles: a torch.Generator, or a tuple of one a replica
     env_state: Any
     timestep: envs.TimeStep
+    obs_stats: Any  # running_statistics.RunningStatisticsState
+    kl_beta: Any  # float32 scalar tensor, the KL-penalty coefficient
 
 
 class UpdateResult(NamedTuple):
     params: ActorCriticParams
     opt_states: ActorCriticOptStates
-    loss_info: Dict[str, torch.Tensor]  # each [epochs, num_minibatches]
+    loss_info: Dict[str, torch.Tensor]  # each [epochs, num_minibatches] (and [U] per replica)
     advantages: torch.Tensor  # [T, E]
     targets: torch.Tensor  # [T, E]
+    kl_beta: Any = None  # the adapted β under system.adaptive_kl_beta, else as given
 
 
-def check_ported_system(config: Any) -> None:
-    """Raise NotImplementedError, naming the key, for a system setting this
-    slice of the port does not implement."""
-    system = config.system
-    unported = []
-    if system.get("normalize_observations", False):
-        unported.append("system.normalize_observations=true")
-    # YAML reads the default `off` as False.
-    if system.get("update_guard", False) not in (False, None, "off"):
-        unported.append("system.update_guard != off")
-    if system.get("adaptive_kl_beta", False):
-        unported.append("system.adaptive_kl_beta")
-    if system.get("fused_update", False):
-        unported.append("system.fused_update=true")
-    if unported:
-        raise NotImplementedError("not ported: " + ", ".join(unported))
+def adapt_kl_beta(kl_beta: torch.Tensor, measured_kl: torch.Tensor,
+                  kl_target: float) -> torch.Tensor:
+    """Adaptive-KL PPO's rule (Schulman et al. 2017 §4; the JAX package's
+    ff_ppo.py:421-423): double β when the measured KL is above 1.5 times the
+    target, halve it when below the target / 1.5, clip to [1e-3, 1e3]. On the
+    device, with no host branch."""
+    kl_beta = torch.where(measured_kl > 1.5 * kl_target, kl_beta * 2.0, kl_beta)
+    kl_beta = torch.where(measured_kl < kl_target / 1.5, kl_beta / 2.0, kl_beta)
+    return torch.clamp(kl_beta, 1e-3, 1e3)
 
 
 def _leaf_copies(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().requires_grad_(True) for k, v in params.items()}
 
 
+def _cat(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(list(parts), dim=dim)
+
+
+def replica(tree: Any, index: int) -> Any:
+    """Replica `index` of a tree whose tensors carry a leading [U] axis."""
+    return tree_map(lambda x: x[index], tree)
+
+
 class PPOLearner:
     """The learner function: `learner(state) -> ExperimentOutput` runs
     `arch.num_updates_per_eval` update steps. `rollout` and `update` are the
-    two halves of one step, callable on their own."""
+    two halves of one step, callable on their own.
+
+    `policy_loss_fn(dist, action, old_log_prob, gae, config, behavior_dist=,
+    beta=) -> (loss, entropy)` replaces the clip objective, as the JAX
+    package's hook does; `behavior_dist` is the rollout's policy on the same
+    observations."""
 
     def __init__(
         self,
@@ -92,12 +121,23 @@ class PPOLearner:
         apply_fns: Tuple[Callable, Callable],
         update_fns: Tuple[ClipAdam, ClipAdam],
         config: Any,
+        policy_loss_fn: Optional[Callable] = None,
     ):
-        check_ported_system(config)
         self.env = env
         self.actor_apply, self.critic_apply = apply_fns
         self.actor_optim, self.critic_optim = update_fns
+        self.config = config
+        self.policy_loss_fn = policy_loss_fn
         system = config.system
+        self.adaptive_kl = bool(system.get("adaptive_kl_beta", False))
+        if self.adaptive_kl and not getattr(policy_loss_fn, "uses_kl_beta", False):
+            # As the JAX package: adapting β for a loss that discards it would
+            # log a "working" kl_beta while changing nothing.
+            raise ValueError(
+                "system.adaptive_kl_beta=true requires a policy loss that consumes "
+                "kl_beta (the PPO-penalty loss); the configured loss does not."
+            )
+        self.kl_target = float(system.get("kl_target", 0.01))
         self.gamma = float(system.gamma)
         self.reward_scale = float(system.get("reward_scale", 1.0))
         self.gae_lambda = float(system.gae_lambda)
@@ -107,23 +147,78 @@ class PPOLearner:
         self.clip_value = bool(system.get("clip_value", True))
         self.standardize_advantages = bool(system.get("standardize_advantages", True))
         self.multistep_impl = str(system.get("multistep_impl", "scan"))
+        self.normalize_obs = bool(system.get("normalize_observations", False))
+        self.guard_mode = guards.resolve_mode(config)
+        self.fused_update = bool(system.get("fused_update", False))
         self.rollout_length = int(system.rollout_length)
         self.epochs = int(system.epochs)
         self.num_minibatches = int(system.num_minibatches)
         self.num_updates_per_eval = int(config.arch.num_updates_per_eval)
+        self.update_batch = int(config.arch.get("update_batch_size", 1))
+
+    # ------------------------------------------------------------ replicas
+
+    def replicas(self, tree: Any) -> List[Any]:
+        """The U replicas of a [U]-leading tree (the tree itself at U = 1)."""
+        if self.update_batch == 1:
+            return [tree]
+        return [replica(tree, u) for u in range(self.update_batch)]
+
+    def join(self, trees: Sequence[Any]) -> Any:
+        """The inverse of `replicas`."""
+        return trees[0] if self.update_batch == 1 else tree_stack(trees)
+
+    def generators(self, generator: Any) -> List[Optional[torch.Generator]]:
+        if self.update_batch == 1:
+            return [generator]
+        return list(generator) if generator is not None else [None] * self.update_batch
+
+    def group(self, tree: Any, index: int, dim: int) -> Any:
+        """Replica `index`'s env columns of every tensor (envs along `dim`)."""
+        if self.update_batch == 1:
+            return tree
+
+        def cut(x: torch.Tensor) -> torch.Tensor:
+            width = x.shape[dim] // self.update_batch
+            return x.narrow(dim, index * width, width)
+
+        return tree_map(cut, tree)
+
+    def eval_params(self, params: ActorCriticParams) -> Dict[str, torch.Tensor]:
+        """Replica 0's actor params, which the evaluator takes."""
+        return self.replicas(params)[0].actor_params
+
+    # ------------------------------------------------------------ rollout
+
+    def normalized(self, observation: Any, obs_stats: Any) -> Any:
+        if not self.normalize_obs:
+            return observation
+        return running_statistics.normalize_observation(observation, obs_stats)
+
+    def act(self, params: List[ActorCriticParams], generators: Sequence[Any],
+            inputs: Any) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Each replica's policy and value on its group of envs; the action
+        drawn from its generator. Returns action, value, log-prob over every env."""
+        outs = []
+        for u, (p, generator) in enumerate(zip(params, generators)):
+            x = self.group(inputs, u, 0)
+            policy = self.actor_apply(p.actor_params, x)
+            value = self.critic_apply(p.critic_params, x)
+            action = policy.sample(generator)
+            outs.append((action, value, policy.log_prob(action)))
+        return tuple(_cat(parts, 0) for parts in zip(*outs))
 
     @torch.no_grad()
     def rollout(self, state: PPOLearnerState) -> Tuple[PPOLearnerState, PPOTransition]:
-        """`rollout_length` env steps; the transitions stacked to [T, E, ...]."""
-        params = state.params
+        """`rollout_length` env steps; the transitions stacked to [T, E, ...],
+        observations raw."""
+        params, generators = self.replicas(state.params), self.generators(state.generator)
         env_state, timestep = state.env_state, state.timestep
         transitions = []
         for _ in range(self.rollout_length):
             observation = timestep.observation
-            policy = self.actor_apply(params.actor_params, observation)
-            value = self.critic_apply(params.critic_params, observation)
-            action = policy.sample(state.generator)
-            log_prob = policy.log_prob(action)
+            action, value, log_prob = self.act(
+                params, generators, self.normalized(observation, state.obs_stats))
             env_state, timestep = self.env.step(env_state, action)
             transitions.append(
                 PPOTransition(
@@ -160,62 +255,143 @@ class PPOLearner:
             "entropy": entropy,
         }
 
-    def _update_minibatch(
-        self, params: ActorCriticParams, opt_states: ActorCriticOptStates, batch: Tuple
-    ) -> Tuple[ActorCriticParams, ActorCriticOptStates, Dict[str, torch.Tensor]]:
-        obs, action, old_log_prob, old_value, advantages, targets = batch
-        with torch.enable_grad():
-            actor_params = _leaf_copies(params.actor_params)
-            policy = self.actor_apply(actor_params, obs)
+    # ------------------------------------------------------------ update
+
+    def actor_loss(self, actor_params, behavior_params, obs, action, old_log_prob, advantages,
+                   kl_beta):
+        """(actor total, actor loss, entropy), as the JAX `_actor_loss_fn`."""
+        policy = self.actor_apply(actor_params, obs)
+        if self.policy_loss_fn is not None:
+            with torch.no_grad():
+                behavior = self.actor_apply(behavior_params, obs)
+            loss_actor, entropy = self.policy_loss_fn(
+                policy, action, old_log_prob, advantages, self.config,
+                behavior_dist=behavior, beta=kl_beta,
+            )
+        else:
             loss_actor = losses.ppo_clip_loss(
                 policy.log_prob(action), old_log_prob, advantages, self.clip_eps
             )
             entropy = policy.entropy().mean()
-            actor_total = loss_actor - self.ent_coef * entropy
-            actor_grads = dict(
-                zip(actor_params, torch.autograd.grad(actor_total, list(actor_params.values())))
-            )
+        return loss_actor - self.ent_coef * entropy, loss_actor, entropy
 
-            critic_params = _leaf_copies(params.critic_params)
-            value = self.critic_apply(critic_params, obs)
-            if self.clip_value:
-                value_loss = losses.clipped_value_loss(value, old_value, targets, self.clip_eps)
-            else:
-                value_loss = torch.mean((value - targets) ** 2)
-            critic_grads = dict(
-                zip(
-                    critic_params,
-                    torch.autograd.grad(self.vf_coef * value_loss, list(critic_params.values())),
+    def critic_loss(self, critic_params, obs, targets, old_value) -> torch.Tensor:
+        value = self.critic_apply(critic_params, obs)
+        if self.clip_value:
+            return losses.clipped_value_loss(value, old_value, targets, self.clip_eps)
+        return torch.mean((value - targets) ** 2)
+
+    def gradients(self, params: ActorCriticParams, batch: Tuple, behavior_params: Any,
+                  kl_beta: Any):
+        """One replica's actor and critic gradients on one minibatch: two
+        backward passes, or one over the joint loss under `fused_update` (the
+        losses share no parameters, so the gradients are the same)."""
+        obs, action, old_log_prob, old_value, advantages, targets = batch
+        with torch.enable_grad():
+            actor_params = _leaf_copies(params.actor_params)
+            actor_total, loss_actor, entropy = self.actor_loss(
+                actor_params, behavior_params, obs, action, old_log_prob, advantages, kl_beta)
+            if not self.fused_update:
+                actor_grads = dict(
+                    zip(actor_params, torch.autograd.grad(actor_total,
+                                                          list(actor_params.values())))
                 )
-            )
+            critic_params = _leaf_copies(params.critic_params)
+            value_loss = self.critic_loss(critic_params, obs, targets, old_value)
+            if self.fused_update:
+                leaves = list(actor_params.values()) + list(critic_params.values())
+                joint = torch.autograd.grad(actor_total + self.vf_coef * value_loss, leaves)
+                actor_grads = dict(zip(actor_params, joint[:len(actor_params)]))
+                critic_grads = dict(zip(critic_params, joint[len(actor_params):]))
+            else:
+                critic_grads = dict(
+                    zip(critic_params,
+                        torch.autograd.grad(self.vf_coef * value_loss,
+                                            list(critic_params.values())))
+                )
+        return actor_grads, critic_grads, (loss_actor.detach(), value_loss.detach(),
+                                           entropy.detach())
 
-        actor_updates, actor_opt_state = self.actor_optim.update(
-            actor_grads, opt_states.actor_opt_state
-        )
-        critic_updates, critic_opt_state = self.critic_optim.update(
-            critic_grads, opt_states.critic_opt_state
-        )
-        params = ActorCriticParams(
-            apply_updates(params.actor_params, actor_updates),
-            apply_updates(params.critic_params, critic_updates),
-        )
-        loss_info = self.loss_info(*(x.detach() for x in (loss_actor, value_loss, entropy)))
-        return params, ActorCriticOptStates(actor_opt_state, critic_opt_state), loss_info
+    def _update_minibatch(self, params: List[ActorCriticParams],
+                          opt_states: List[ActorCriticOptStates], batches: Sequence[Tuple],
+                          behavior: Sequence[Any], kl_beta: Any):
+        """One minibatch update of every replica: the replicas' gradients
+        averaged, then each replica's clip + Adam step, then the guard."""
+        per_replica = [self.gradients(p, batch, b, kl_beta)
+                       for p, batch, b in zip(params, batches, behavior)]
+        if len(per_replica) == 1:
+            actor_grads, critic_grads, terms = per_replica[0]
+        else:
+            actor_grads, critic_grads = (
+                {k: torch.stack([g[side][k] for g in per_replica]).mean(0) for k in
+                 per_replica[0][side]} for side in (0, 1))
+            terms = tuple(torch.stack(parts) for parts in zip(*(g[2] for g in per_replica)))
+        new_params, new_opt = [], []
+        for p, opt in zip(params, opt_states):
+            actor_updates, actor_opt_state = self.actor_optim.update(
+                actor_grads, opt.actor_opt_state)
+            critic_updates, critic_opt_state = self.critic_optim.update(
+                critic_grads, opt.critic_opt_state)
+            new_params.append(ActorCriticParams(
+                apply_updates(p.actor_params, actor_updates),
+                apply_updates(p.critic_params, critic_updates),
+            ))
+            new_opt.append(ActorCriticOptStates(actor_opt_state, critic_opt_state))
+        loss_actor, value_loss, entropy = terms
+        info = self.loss_info(loss_actor, value_loss, entropy)
+        if self.guard_mode != "off":  # off adds no op
+            (new_params, new_opt), guard_metrics = guards.guard_update(
+                self.guard_mode, new=(new_params, new_opt), old=(params, opt_states),
+                loss=(loss_actor + value_loss).mean(), grads=(actor_grads, critic_grads),
+            )
+            info.update(guard_metrics)
+        return new_params, new_opt, info
+
+    def standardized(self, advantages: torch.Tensor) -> torch.Tensor:
+        """Each replica's advantages standardised over its own [T, E] batch
+        (population std, as jnp.std)."""
+        t_len, n = advantages.shape[:2]
+        per = advantages.reshape(t_len, self.update_batch, n // self.update_batch)
+        mean = per.mean(dim=(0, 2), keepdim=True)
+        std = per.std(dim=(0, 2), correction=0, keepdim=True)
+        return ((per - mean) / (std + 1e-8)).reshape(advantages.shape)
+
+    def measured_kl(self, behavior: Any, params: ActorCriticParams, obs: Any,
+                    traj_batch: Any) -> torch.Tensor:
+        """KL(behavior || updated policy) over one replica's rollout batch, or
+        the JAX package's log-ratio estimate where the distribution has no
+        analytic KL."""
+        new_dist = self.actor_apply(params.actor_params, obs)
+        behavior_dist = self.actor_apply(behavior, obs)
+        try:
+            return torch.mean(behavior_dist.kl_divergence(new_dist))
+        except (AttributeError, NotImplementedError):
+            log_ratio = torch.clamp(
+                new_dist.log_prob(traj_batch.action) - traj_batch.log_prob,
+                -losses._LOG_RATIO_CLAMP, losses._LOG_RATIO_CLAMP,
+            )
+            return torch.mean(torch.exp(log_ratio) - 1.0 - log_ratio)
 
     def update(
         self,
         params: ActorCriticParams,
         opt_states: ActorCriticOptStates,
         traj_batch: Any,
-        generator: Optional[torch.Generator] = None,
-        permutations: Optional[Sequence[torch.Tensor]] = None,
+        generator: Any = None,
+        permutations: Optional[Sequence[Any]] = None,
+        kl_beta: Any = None,
     ) -> UpdateResult:
         """Bootstrap values, GAE, then epochs × minibatches of PPO updates on
-        one [T, E] trajectory. Each epoch shuffles the T·E samples with
-        `permutations[epoch]` when given, else a permutation drawn from
-        `generator`."""
+        one [T, E] trajectory (observations as the networks take them). Each
+        epoch shuffles every replica's T·E samples with `permutations[epoch]`
+        when given (a tensor at U = 1, else one a replica), else with a
+        permutation drawn from the replica's generator."""
+        replica_params, replica_opt = self.replicas(params), self.replicas(opt_states)
+        generators = self.generators(generator)
         with torch.no_grad():
-            v_t = self.critic_apply(params.critic_params, self.bootstrap_input(traj_batch))
+            boot = self.bootstrap_input(traj_batch)
+            v_t = _cat([self.critic_apply(p.critic_params, self.group(boot, u, 1))
+                        for u, p in enumerate(replica_params)], 1)
             d_t = self.gamma * (1.0 - traj_batch.done.to(torch.float32))
             advantages, targets = truncated_generalized_advantage_estimation(
                 traj_batch.reward * self.reward_scale,
@@ -224,44 +400,86 @@ class PPOLearner:
                 v_tm1=traj_batch.value,
                 v_t=v_t,
                 truncation_t=traj_batch.truncated.to(torch.float32),
-                standardize_advantages=self.standardize_advantages,
+                standardize_advantages=self.standardize_advantages and self.update_batch == 1,
                 impl=self.multistep_impl,
             )
+            if self.standardize_advantages and self.update_batch > 1:
+                advantages = self.standardized(advantages)
 
         samples = (
             self.policy_input(traj_batch), traj_batch.action, traj_batch.log_prob,
             traj_batch.value, advantages, targets,
         )
-        flat = tree_merge_leading_dims(samples, 2)
-        batch_size = advantages.numel()
+        flat = [tree_merge_leading_dims(self.group(samples, u, 1), 2)
+                for u in range(self.update_batch)]
+        batch_size = advantages.numel() // self.update_batch
+        # The rollout's actor params: the anchor of a KL penalty, fixed across epochs.
+        behavior = [p.actor_params for p in replica_params]
         per_epoch = []
         for epoch in range(self.epochs):
-            if permutations is not None:
-                permutation = permutations[epoch].to(advantages.device)
-            else:
-                permutation = torch.randperm(
-                    batch_size, generator=generator, device=advantages.device
-                )
-            minibatches = tree_map(
-                lambda x: x.index_select(0, permutation).reshape(
-                    (self.num_minibatches, -1) + x.shape[1:]
-                ),
-                flat,
-            )
+            minibatches = []
+            for u in range(self.update_batch):
+                if permutations is not None:
+                    given = permutations[epoch]
+                    permutation = (given if self.update_batch == 1 else given[u]).to(
+                        advantages.device)
+                else:
+                    permutation = torch.randperm(
+                        batch_size, generator=generators[u], device=advantages.device
+                    )
+                minibatches.append(tree_map(
+                    lambda x: x.index_select(0, permutation).reshape(
+                        (self.num_minibatches, -1) + x.shape[1:]
+                    ),
+                    flat[u],
+                ))
             per_minibatch = []
             for i in range(self.num_minibatches):
-                batch = tree_map(lambda x: x[i], minibatches)
-                params, opt_states, loss_info = self._update_minibatch(params, opt_states, batch)
+                batches = [tree_map(lambda x: x[i], mb) for mb in minibatches]
+                replica_params, replica_opt, loss_info = self._update_minibatch(
+                    replica_params, replica_opt, batches, behavior, kl_beta)
                 per_minibatch.append(loss_info)
             per_epoch.append(tree_stack(per_minibatch))
-        return UpdateResult(params, opt_states, tree_stack(per_epoch), advantages, targets)
+        loss_info = tree_stack(per_epoch)
+
+        if self.adaptive_kl:
+            with torch.no_grad():
+                obs = self.policy_input(traj_batch)
+                measured = torch.stack([
+                    self.measured_kl(b, p, self.group(obs, u, 1), self.group(traj_batch, u, 1))
+                    for u, (b, p) in enumerate(zip(behavior, replica_params))
+                ]).mean()
+                kl_beta = adapt_kl_beta(kl_beta, measured, self.kl_target)
+            loss_info = {**loss_info, "measured_kl": measured, "kl_beta": kl_beta}
+        return UpdateResult(self.join(replica_params), self.join(replica_opt), loss_info,
+                            advantages, targets, kl_beta)
 
     def update_step(
         self, state: PPOLearnerState
     ) -> Tuple[PPOLearnerState, Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
         state, traj_batch = self.rollout(state)
-        result = self.update(state.params, state.opt_states, traj_batch, state.generator)
+        if self.normalize_obs:
+            # Normalise with the PRE-update statistics (what the rollout's
+            # log-probs and values used), THEN fold the raw observations in,
+            # summed over the replicas (ff_ppo.py:355-372 of the JAX package).
+            stats = state.obs_stats
+            raw = traj_batch.obs
+            traj_batch = traj_batch._replace(
+                obs=running_statistics.normalize_observation(raw, stats),
+                next_obs=running_statistics.normalize_observation(traj_batch.next_obs, stats),
+            )
+            view = raw.agent_view
+            replica_axis = None
+            if self.update_batch > 1:
+                view = view.reshape(view.shape[:1] + (self.update_batch, -1) + view.shape[2:])
+                replica_axis = 1
+            state = state._replace(obs_stats=running_statistics.update(
+                stats, view, replica_axis=replica_axis, std_min_value=5e-4, std_max_value=5e4))
+        result = self.update(state.params, state.opt_states, traj_batch, state.generator,
+                             kl_beta=getattr(state, "kl_beta", None))
         state = state._replace(params=result.params, opt_states=result.opt_states)
+        if self.adaptive_kl:
+            state = state._replace(kl_beta=result.kl_beta)
         return state, (traj_batch.info, result.loss_info)
 
     def __call__(self, state: PPOLearnerState) -> ExperimentOutput:
@@ -282,8 +500,9 @@ def get_learner_fn(
     apply_fns: Tuple[Callable, Callable],
     update_fns: Tuple[ClipAdam, ClipAdam],
     config: Any,
+    policy_loss_fn: Optional[Callable] = None,
 ) -> PPOLearner:
-    return PPOLearner(env, apply_fns, update_fns, config)
+    return PPOLearner(env, apply_fns, update_fns, config, policy_loss_fn)
 
 
 def make_apply_fn(network: torch.nn.Module) -> Callable[[Dict[str, torch.Tensor], Any], Any]:
@@ -317,8 +536,42 @@ def build_networks(env: envs.Environment, config: Any, generator: torch.Generato
     return actor_network, critic_network
 
 
+def make_optimizers(config: Any) -> Tuple[ClipAdam, ClipAdam]:
+    """The actor's and the critic's clip + Adam."""
+    epochs, num_minibatches = int(config.system.epochs), int(config.system.num_minibatches)
+    max_grad_norm = float(config.system.max_grad_norm)
+    return tuple(
+        ClipAdam(make_learning_rate(float(config.system[key]), config, epochs, num_minibatches),
+                 max_grad_norm, eps=1e-5)
+        for key in ("actor_lr", "critic_lr")
+    )
+
+
+def initial_train_state(
+    actor_network: torch.nn.Module, critic_network: torch.nn.Module,
+    optims: Tuple[ClipAdam, ClipAdam], config: Any, device: torch.device, step_seed: int,
+) -> Tuple[ActorCriticParams, ActorCriticOptStates, Any]:
+    """Params, optimizer states and the step generator(s): unbatched at
+    U = 1; with a leading [U] axis (U identical copies) and one generator a
+    replica past it."""
+    params = ActorCriticParams(
+        {k: v.detach() for k, v in actor_network.named_parameters()},
+        {k: v.detach() for k, v in critic_network.named_parameters()},
+    )
+    opt_states = ActorCriticOptStates(optims[0].init(params.actor_params),
+                                      optims[1].init(params.critic_params))
+    update_batch = int(config.arch.get("update_batch_size", 1))
+    if update_batch == 1:
+        return params, opt_states, anakin.make_generator(step_seed, device)
+    broadcast = lambda tree: tree_stack([tree] * update_batch)  # noqa: E731
+    generators = tuple(anakin.make_generator(seed, device)
+                       for seed in anakin.make_seeds(step_seed, update_batch))
+    return broadcast(params), broadcast(opt_states), generators
+
+
 def learner_setup(
-    env: envs.Environment, config: Any, device: torch.device, seed: int
+    env: envs.Environment, config: Any, device: torch.device, seed: int,
+    policy_loss_fn: Optional[Callable] = None,
 ) -> AnakinSetup:
     """Build the networks (initialised on the CPU from `seed`, then moved to
     `device`), the optimizers, the learner and its initial state."""
@@ -330,39 +583,44 @@ def learner_setup(
     )
     actor_network.to(device)
     critic_network.to(device)
-    epochs, num_minibatches = int(config.system.epochs), int(config.system.num_minibatches)
-    max_grad_norm = float(config.system.max_grad_norm)
-    actor_optim = ClipAdam(
-        make_learning_rate(float(config.system.actor_lr), config, epochs, num_minibatches),
-        max_grad_norm, eps=1e-5,
-    )
-    critic_optim = ClipAdam(
-        make_learning_rate(float(config.system.critic_lr), config, epochs, num_minibatches),
-        max_grad_norm, eps=1e-5,
-    )
-    actor_params = {k: v.detach() for k, v in actor_network.named_parameters()}
-    critic_params = {k: v.detach() for k, v in critic_network.named_parameters()}
-
+    optims = make_optimizers(config)
     actor_apply, critic_apply = make_apply_fn(actor_network), make_apply_fn(critic_network)
-    learner = get_learner_fn(env, (actor_apply, critic_apply), (actor_optim, critic_optim), config)
+    learner = get_learner_fn(env, (actor_apply, critic_apply), optims, config, policy_loss_fn)
+    params, opt_states, generator = initial_train_state(
+        actor_network, critic_network, optims, config, device, step_seed)
 
     env_state, timestep = anakin.reset_envs_for_anakin(
         env, config, anakin.make_generator(env_seed, device)
     )
     learner_state = PPOLearnerState(
-        params=ActorCriticParams(actor_params, critic_params),
-        opt_states=ActorCriticOptStates(
-            actor_optim.init(actor_params), critic_optim.init(critic_params)
-        ),
-        generator=anakin.make_generator(step_seed, device),
+        params=params,
+        opt_states=opt_states,
+        generator=generator,
         env_state=env_state,
         timestep=timestep,
+        obs_stats=running_statistics.init_state(
+            env.observation_value().agent_view.to(device)),
+        # 3.0, the penalty loss's default, keeps a KL penalty active when the
+        # config names no kl_beta; the clip loss never reads it.
+        kl_beta=torch.tensor(float(config.system.get("kl_beta", 3.0)), device=device),
     )
+    if learner.normalize_obs:
+        # The evaluator takes replica 0's actor params with the statistics.
+        def eval_apply(bundle, observation):
+            actor_params, stats = bundle
+            return actor_apply(actor_params,
+                               running_statistics.normalize_observation(observation, stats))
+
+        eval_act_fn = get_distribution_act_fn(config, eval_apply)
+        eval_params_fn = lambda s: (learner.eval_params(s.params), s.obs_stats)  # noqa: E731
+    else:
+        eval_act_fn = get_distribution_act_fn(config, actor_apply)
+        eval_params_fn = lambda s: learner.eval_params(s.params)  # noqa: E731
     return AnakinSetup(
         learn=learner,
         learner_state=learner_state,
-        eval_act_fn=get_distribution_act_fn(config, actor_apply),
-        eval_params_fn=lambda s: s.params.actor_params,
+        eval_act_fn=eval_act_fn,
+        eval_params_fn=eval_params_fn,
     )
 
 

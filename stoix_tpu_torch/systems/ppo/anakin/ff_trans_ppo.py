@@ -1,7 +1,13 @@
 """Anakin Transformer-PPO (counterpart of
-stoix_tpu/systems/ppo/anakin/ff_trans_ppo.py on its single-replica,
-single-device path): PPO whose actor and critic attend causally over a window
-of each env's last W observations and read its final position.
+stoix_tpu/systems/ppo/anakin/ff_trans_ppo.py on its single-device path): PPO
+whose actor and critic attend causally over a window of each env's last W
+observations and read its final position.
+
+`arch.update_batch_size`, checkpointing, the logger's sinks, the env wrappers
+and `env.eval_reset_fn` apply as in ff_ppo. The JAX package's ff_trans_ppo
+reads none of `system.normalize_observations`, `update_guard`, `fused_update`
+or `adaptive_kl_beta` (it ignores them, ROADMAP C9); the port refuses each,
+naming it, rather than apply it through ff_ppo's learner.
 
 Each env carries a window [W, F] (zeros are padding, and are attended to: the
 JAX package does not mask them). Acting pushes the observation into the
@@ -39,17 +45,44 @@ from stoix_tpu_torch.evaluator import get_rnn_evaluator_fn
 from stoix_tpu_torch.networks.attention import TransformerTorso
 from stoix_tpu_torch.networks.heads import CategoricalHead, ScalarCriticHead
 from stoix_tpu_torch.systems import anakin
-from stoix_tpu_torch.systems.ppo.anakin.ff_ppo import PPOLearner, make_apply_fn
+from stoix_tpu_torch.systems.ppo.anakin.ff_ppo import (
+    PPOLearner,
+    initial_train_state,
+    make_apply_fn,
+    make_optimizers,
+)
 from stoix_tpu_torch.systems.runner import AnakinSetup, run_anakin_experiment
 from stoix_tpu_torch.utils import config as config_lib
-from stoix_tpu_torch.utils.training import ClipAdam, make_learning_rate
+from stoix_tpu_torch.utils.training import ClipAdam
 from stoix_tpu_torch.utils.tree import tree_stack
 
 
+# ff_ppo's knobs the JAX package's ff_trans_ppo does not read (ROADMAP C9).
+_IGNORED_BY_THE_REFERENCE = (
+    ("normalize_observations", "system.normalize_observations"),
+    ("update_guard", "system.update_guard"),
+    ("fused_update", "system.fused_update"),
+    ("adaptive_kl_beta", "system.adaptive_kl_beta"),
+)
+
+
+def check_ported_system(config: Any) -> None:
+    """Raise NotImplementedError, naming each key, for an ff_ppo knob that
+    the JAX package's ff_trans_ppo ignores: the port does not apply it
+    silently either."""
+    system = config.system
+    refused = [name for key, name in _IGNORED_BY_THE_REFERENCE
+               if system.get(key, False) not in (False, None, "off")]
+    if refused:
+        raise NotImplementedError(
+            "not ported for ff_trans_ppo (the JAX package's ff_trans_ppo ignores it): "
+            + ", ".join(refused))
+
+
 class TransPPOLearnerState(NamedTuple):
-    params: ActorCriticParams
+    params: ActorCriticParams  # every tensor [U, ...] when arch.update_batch_size U > 1
     opt_states: ActorCriticOptStates
-    generator: torch.Generator  # actions and shuffles; the envs carry their own
+    generator: Any  # actions and shuffles: a torch.Generator, or a tuple of one a replica
     env_state: Any
     timestep: envs.TimeStep
     window: torch.Tensor  # [E, W, F] past-observation context (zeros = padding)
@@ -119,6 +152,7 @@ class TransPPOLearner(PPOLearner):
         update_fns: Tuple[ClipAdam, ClipAdam],
         config: Any,
     ):
+        check_ported_system(config)
         super().__init__(env, apply_fns, update_fns, config)
         self.reward_scale = 1.0  # the JAX ff_trans_ppo reads no system.reward_scale
 
@@ -127,15 +161,12 @@ class TransPPOLearner(PPOLearner):
         self, state: TransPPOLearnerState
     ) -> Tuple[TransPPOLearnerState, TransPPOTransition]:
         """`rollout_length` env steps; the transitions stacked to [T, E, ...]."""
-        params = state.params
+        params, generators = self.replicas(state.params), self.generators(state.generator)
         env_state, timestep, window = state.env_state, state.timestep, state.window
         transitions = []
         for _ in range(self.rollout_length):
             ctx = push(window, flat_view(timestep.observation))
-            policy = self.actor_apply(params.actor_params, ctx)
-            value = self.critic_apply(params.critic_params, ctx)
-            action = policy.sample(state.generator)
-            log_prob = policy.log_prob(action)
+            action, value, log_prob = self.act(params, generators, ctx)
             env_state, timestep = self.env.step(env_state, action)
             last = timestep.last()
             # Episode boundary: clear the context so attention never spans an auto-reset.
@@ -226,32 +257,20 @@ def learner_setup(
     )
     actor_network.to(device)
     critic_network.to(device)
-    epochs, num_minibatches = int(config.system.epochs), int(config.system.num_minibatches)
-    max_grad_norm = float(config.system.max_grad_norm)
-    actor_optim = ClipAdam(
-        make_learning_rate(float(config.system.actor_lr), config, epochs, num_minibatches),
-        max_grad_norm, eps=1e-5,
-    )
-    critic_optim = ClipAdam(
-        make_learning_rate(float(config.system.critic_lr), config, epochs, num_minibatches),
-        max_grad_norm, eps=1e-5,
-    )
-    actor_params = {k: v.detach() for k, v in actor_network.named_parameters()}
-    critic_params = {k: v.detach() for k, v in critic_network.named_parameters()}
-
+    optims = make_optimizers(config)
     actor_apply, critic_apply = make_apply_fn(actor_network), make_apply_fn(critic_network)
-    learner = get_learner_fn(env, (actor_apply, critic_apply), (actor_optim, critic_optim), config)
+    learner = get_learner_fn(env, (actor_apply, critic_apply), optims, config)
+    params, opt_states, generator = initial_train_state(
+        actor_network, critic_network, optims, config, device, step_seed)
 
     env_state, timestep = anakin.reset_envs_for_anakin(
         env, config, anakin.make_generator(env_seed, device)
     )
     num_envs = timestep.reward.shape[0]
     learner_state = TransPPOLearnerState(
-        params=ActorCriticParams(actor_params, critic_params),
-        opt_states=ActorCriticOptStates(
-            actor_optim.init(actor_params), critic_optim.init(critic_params)
-        ),
-        generator=anakin.make_generator(step_seed, device),
+        params=params,
+        opt_states=opt_states,
+        generator=generator,
         env_state=env_state,
         timestep=timestep,
         window=torch.zeros((num_envs, window, observation_width(env)), device=device),
@@ -270,7 +289,7 @@ def learner_setup(
         learn=learner,
         learner_state=learner_state,
         eval_act_fn=window_act_fn,
-        eval_params_fn=lambda s: s.params.actor_params,
+        eval_params_fn=lambda s: learner.eval_params(s.params),
     )
 
 

@@ -9,8 +9,16 @@ the last window, the absolute metric evaluates the best params over
 `arch.pipelined_loop` is read and this synchronous loop serves both values:
 the JAX package pins the trajectory bit-identical either way, and PyTorch
 gains nothing from a one-window-deep dispatch that its eager launches do not
-already overlap. The JAX package's resilience, fleet, integrity, preflight,
-checkpoint and telemetry layers are not ported; their knobs raise.
+already overlap.
+
+Checkpointing (utils/checkpointing.py), as the JAX runner wires it: with
+`logger.checkpointing.load_model` the saved state is restored into the freshly
+built one before the evaluators are made, and the run's steps count on from
+the restored step; with `save_model` each window's state is saved after its
+evaluation. The update guard's host half (resilience/guards.py) reads each
+window's train metrics once they are on the host. The JAX package's fleet,
+integrity, preflight, fault-injection and telemetry layers are not ported;
+their knobs raise.
 """
 
 from __future__ import annotations
@@ -24,13 +32,16 @@ import torch
 from stoix_tpu_torch import envs
 from stoix_tpu_torch.evaluator import evaluator_setup
 from stoix_tpu_torch.ops import scan_kernels
+from stoix_tpu_torch.resilience import guards
 from stoix_tpu_torch.systems.anakin import make_generator, make_seeds
+from stoix_tpu_torch.utils.checkpointing import checkpointer_from_config, loader_from_config
 from stoix_tpu_torch.utils.logger import LogEvent, StoixLogger
 from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
 
 # Stats of the most recent run_anakin_experiment call in this process, as
 # the JAX runner's LAST_RUN_STATS: per-window wall seconds and env-steps/s,
-# the logger's records, and the device the run used.
+# the logger's records, the device the run used, and the resilience block
+# (the guard's mode and skipped updates, the restored step).
 LAST_RUN_STATS: Dict[str, Any] = {}
 
 
@@ -65,8 +76,6 @@ def check_ported_arch(config: Any) -> None:
     this slice of the port does not implement."""
     arch = config.arch
     unported = []
-    if int(arch.get("update_batch_size", 1)) != 1:
-        unported.append("arch.update_batch_size > 1")
     if int((arch.get("mesh") or {}).get("data", -1)) not in (-1, 1):
         unported.append("arch.mesh.data > 1")
     for block in ("fleet", "integrity", "preflight"):
@@ -74,10 +83,6 @@ def check_ported_arch(config: Any) -> None:
             unported.append(f"arch.{block}.enabled")
     if arch.get("fault_spec"):
         unported.append("arch.fault_spec")
-    ckpt = config.logger.get("checkpointing") or {}
-    for key in ("save_model", "load_model"):
-        if ckpt.get(key, False):
-            unported.append(f"logger.checkpointing.{key}")
     if unported:
         raise NotImplementedError("not ported: " + ", ".join(unported))
 
@@ -98,6 +103,7 @@ def run_anakin_experiment(
     `evaluator_setup_fn`; the default is the feed-forward evaluator."""
     device = resolve_device(device)
     check_ported_arch(config)
+    guard_mode = guards.resolve_mode(config)
     scan_kernels.configure_from_config(config)
     config = check_total_timesteps(config, 1)
     config.logger.system_name = config.system.system_name
@@ -105,55 +111,74 @@ def run_anakin_experiment(
     env, eval_env = envs.make(config)
     setup_seed, eval_seed = make_seeds(int(config.arch.seed), 2)
     setup = setup_fn(env, config, device, setup_seed)
+    learner_state = setup.learner_state
+    # Resume: the saved state restored into the freshly built one, before
+    # the evaluators (the JAX runner's order).
+    start_step = 0
+    if config.logger.checkpointing.get("load_model", False):
+        loader = loader_from_config(config, config.system.system_name)
+        loader.check_version()
+        load_args = config.logger.checkpointing.get("load_args") or {}
+        learner_state, start_step = loader.restore(learner_state, load_args.get("timestep"))
     eval_generator = make_generator(eval_seed, device)
     make_evaluators = evaluator_setup_fn or evaluator_setup
     evaluator, absolute_evaluator = make_evaluators(eval_env, setup.eval_act_fn, config)
     logger = StoixLogger(config)
+    checkpointer = checkpointer_from_config(config, config.system.system_name)
 
     steps_per_eval = (
         int(config.system.rollout_length)
         * int(config.arch.total_num_envs)
         * int(config.arch.num_updates_per_eval)
     )
-    learner_state = setup.learner_state
     best_params = setup.eval_params_fn(learner_state)
     best_return = -math.inf
     final_return = 0.0
     window_seconds = []
-    for eval_idx in range(int(config.arch.num_evaluation)):
-        start = time.perf_counter()
-        output = setup.learn(learner_state)
-        _synchronize(device)
-        wall = time.perf_counter() - start
-        window_seconds.append(wall)
-        learner_state = output.learner_state
-        t = (eval_idx + 1) * steps_per_eval
+    skipped_base = guards.skipped_counter().value()
+    try:
+        for eval_idx in range(int(config.arch.num_evaluation)):
+            start = time.perf_counter()
+            output = setup.learn(learner_state)
+            _synchronize(device)
+            wall = time.perf_counter() - start
+            window_seconds.append(wall)
+            learner_state = output.learner_state
+            t = start_step + (eval_idx + 1) * steps_per_eval
 
-        # Parameters are never updated in place, so the eval params need no copy.
-        eval_params = setup.eval_params_fn(learner_state)
-        eval_metrics = evaluator(eval_params, eval_generator)
-        logger.log(
-            {**envs.get_final_step_metrics(output.episode_metrics),
-             "steps_per_second": steps_per_eval / wall},
-            t, eval_idx, LogEvent.ACT,
-        )
-        logger.log(
-            {k: v.mean() for k, v in output.train_metrics.items()}, t, eval_idx, LogEvent.TRAIN
-        )
-        logger.log(eval_metrics, t, eval_idx, LogEvent.EVAL)
-        mean_return = float(eval_metrics["episode_return"].mean())
-        final_return = mean_return
-        if mean_return >= best_return:
-            best_return = mean_return
-            best_params = eval_params
+            # Parameters are never updated in place, so the eval params need no copy.
+            eval_params = setup.eval_params_fn(learner_state)
+            eval_metrics = evaluator(eval_params, eval_generator)
+            # The guard's host half: the window's metrics are on the host here;
+            # update_guard=halt raises DivergenceError, naming the step.
+            guards.publish_guard_metrics(guard_mode, output.train_metrics, t)
+            logger.log(
+                {**envs.get_final_step_metrics(output.episode_metrics),
+                 "steps_per_second": steps_per_eval / wall},
+                t, eval_idx, LogEvent.ACT,
+            )
+            logger.log(
+                {k: v.mean() for k, v in output.train_metrics.items()}, t, eval_idx,
+                LogEvent.TRAIN,
+            )
+            logger.log(eval_metrics, t, eval_idx, LogEvent.EVAL)
+            mean_return = float(eval_metrics["episode_return"].mean())
+            final_return = mean_return
+            if mean_return >= best_return:
+                best_return = mean_return
+                best_params = eval_params
+            if checkpointer is not None:
+                checkpointer.save(t, learner_state, mean_return)
 
-    if bool(config.arch.get("absolute_metric", True)):
-        abs_metrics = absolute_evaluator(best_params, eval_generator)
-        logger.log(
-            abs_metrics, int(config.arch.total_timesteps), int(config.arch.num_evaluation),
-            LogEvent.ABSOLUTE,
-        )
-        final_return = float(abs_metrics["episode_return"].mean())
+        if bool(config.arch.get("absolute_metric", True)):
+            abs_metrics = absolute_evaluator(best_params, eval_generator)
+            logger.log(
+                abs_metrics, start_step + int(config.arch.total_timesteps),
+                int(config.arch.num_evaluation), LogEvent.ABSOLUTE,
+            )
+            final_return = float(abs_metrics["episode_return"].mean())
+    finally:
+        logger.close()
 
     LAST_RUN_STATS.clear()
     LAST_RUN_STATS.update(
@@ -162,6 +187,12 @@ def run_anakin_experiment(
             "window_seconds": window_seconds,
             "steps_per_second": [steps_per_eval / w for w in window_seconds],
             "history": logger.history,
+            "resilience": {
+                "update_guard": guard_mode,
+                "skipped_updates": guards.skipped_counter().value() - skipped_base,
+                "resume_capable": checkpointer is not None,
+                "restored_step": start_step,
+            },
         }
     )
     return final_return

@@ -3,7 +3,7 @@ what `jax.tree.map` and friends give the JAX package."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, List, Sequence
 
 import torch
 
@@ -20,6 +20,17 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     return tree
+
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensor leaves of `tree`, depth first."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (list, tuple)):  # NamedTuples are tuples
+        return []
+    return [leaf for child in tree for leaf in tree_leaves(child)]
 
 
 def tree_stack(trees: Sequence[Any]) -> Any:

@@ -173,6 +173,7 @@ def test_dispatch_by_device_and_counters_stay_still_on_the_cpu():
 
 @pytest.mark.parametrize("head_dim,width", [
     (1, 8), (8, 8), (9, 16), (24, 32), (32, 32), (48, 64), (100, 128), (128, 128),
+    (129, 256), (200, 256), (256, 256),
 ])
 def test_kernel_head_dim_is_the_next_built_one(head_dim, width):
     # On the card a head dim the kernels are not built for runs zero-padded to
@@ -180,9 +181,9 @@ def test_kernel_head_dim_is_the_next_built_one(head_dim, width):
     assert fa.kernel_head_dim(head_dim) == width and width in fa.HEAD_DIMS
 
 
-@pytest.mark.parametrize("head_dim", [129, 256])
+@pytest.mark.parametrize("head_dim", [257, 512])
 def test_kernel_head_dim_refuses_past_the_widest(head_dim):
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    with pytest.raises(ValueError, match="head dims up to 256"):
         fa.kernel_head_dim(head_dim)
 
 
@@ -208,6 +209,32 @@ def test_padded_route_matches_the_pallas_kernel(d, causal):
     want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     for leaf, w in zip(leaves, want):
         np.testing.assert_allclose(n(leaf.grad), np.asarray(w), atol=1e-5, rtol=1e-5)
+
+
+# C8: head dims 200 (padded to 256) and 256 (as built) through the kernels'
+# plain versions, against the Pallas kernel in interpret mode (2e-5, as above)
+# and jax.grad of `full_attention`. The gradients reach 15 to 20 here, and dQ
+# and dK are sums over 200 to 256 columns taken in another order than XLA's:
+# they are held at 5e-6 of the tensor's largest gradient (about 40 float32
+# ulps of it), which also covers the entries whose exact value is 0 (the first
+# causal row's dQ) and that both sides compute as a roundoff.
+@pytest.mark.parametrize("d", [200, 256])
+def test_wide_padded_route_matches_the_pallas_kernel(d):
+    q, k, v = _qkv(d, 2, 20, 2, d)
+    width = fa.kernel_head_dim(d)
+    assert width == 256
+    got = fa.padded_flash_attention(t(q), t(k), t(v), True, width)
+    np.testing.assert_allclose(n(got), _jax_flash(q, k, v, True), atol=2e-5, rtol=2e-5)
+    leaves = [t(x).requires_grad_(True) for x in (q, k, v)]
+    (fa.padded_flash_attention(*leaves, True, width) ** 2).sum().backward()
+
+    def loss(a, b, c):
+        return (jax_full_attention(a, b, c, causal=True) ** 2).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for leaf, w in zip(leaves, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(n(leaf.grad), w, rtol=0, atol=5e-6 * np.abs(w).max())
 
 
 def test_padded_chunk_matches_the_chunk_at_its_own_head_dim():

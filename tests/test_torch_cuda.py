@@ -183,6 +183,15 @@ def _atol(dtype):
     ((2, 300, 2, 128), True, torch.float32),
     ((64, 16, 4, 32), True, torch.float16),
     ((2, 100, 2, 128), False, torch.float16),
+    # Head dim 256 (C8): short and long sequences, in all three dtypes.
+    ((64, 16, 4, 256), True, torch.float32),
+    # Pairs shorter than a thread's output rows (D / 16): R is raised to them.
+    ((16, 4, 2, 128), True, torch.float32),
+    ((8, 3, 2, 256), True, torch.float32),
+    ((8, 7, 2, 256), False, torch.bfloat16),
+    ((2, 300, 2, 256), True, torch.float32),
+    ((2, 300, 2, 256), True, torch.bfloat16),
+    ((2, 100, 2, 256), False, torch.float16),
 ])
 def test_flash_forward_kernel_matches_plain_version(shape, causal, dtype):
     device = _require_cuda()
@@ -203,6 +212,7 @@ def test_flash_forward_kernel_matches_plain_version(shape, causal, dtype):
     ((64, 512, 4, 32), torch.float32),
     ((2, 300, 2, 64), torch.bfloat16),
     ((2, 300, 2, 128), torch.float16),
+    ((2, 300, 2, 256), torch.float32),
 ])
 def test_flash_forward_kernel_is_deterministic(shape, dtype):
     # No atomics, every sum in a fixed order: two calls agree bit for bit.
@@ -227,6 +237,12 @@ def test_flash_forward_kernel_is_deterministic(shape, dtype):
     ((2, 200, 2, 128), True, torch.float32),
     ((64, 16, 4, 32), True, torch.float16),
     ((1, 128, 1, 128), True, torch.float16),
+    # Head dim 256 (C8): 32-row tiles; one key tile (S <= 32) and several.
+    ((64, 16, 4, 256), True, torch.float32),
+    ((2, 33, 2, 256), True, torch.float32),
+    ((2, 300, 2, 256), True, torch.float32),
+    ((2, 100, 2, 256), False, torch.bfloat16),
+    ((16, 16, 2, 256), True, torch.float16),
 ])
 def test_flash_backward_kernels_match_plain_version(shape, causal, dtype):
     device = _require_cuda()
@@ -341,6 +357,12 @@ def _chunk_case(batch, q_len, k_len, heads, head_dim, dtype, q_start, k_start, s
     ((2, 128, 128, 2, 128, torch.float32, 128, 128, False), True),
     ((2, 100, 60, 2, 128, torch.float16, 40, 30, False), False),
     ((8, 128, 128, 4, 32, torch.float16, 128, 0, False), True),
+    # Head dim 256 (C8), in all three dtypes; a 4-row chunk at D = 128 and 256.
+    ((2, 128, 128, 2, 256, torch.float32, 128, 128, False), True),
+    ((4, 4, 4, 2, 128, torch.float32, 4, 0, False), True),
+    ((4, 4, 8, 2, 256, torch.float32, 4, 0, False), True),
+    ((2, 80, 100, 2, 256, torch.bfloat16, 20, 30, True), True),
+    ((2, 100, 60, 2, 256, torch.float16, 40, 30, False), False),
 ])
 def test_chunk_kernel_matches_plain_version(case, causal):
     q, k, v, q_pos, k_pos = _chunk_case(*case, seed=sum(case[:5]))
@@ -386,9 +408,10 @@ def test_chunk_kernel_rejects_what_it_cannot_take():
         fac.chunk_kernel(q, k, v, q_pos.cpu(), k_pos)
 
 
-# C6: on CUDA, attention at every head dim up to 128 and in float16 runs
-# through the kernels, as the TPU kernel takes any head dim and float dtype:
-# head dims 8 to 128 as built, any other zero-padded to the next built one.
+# C6 and C8: on CUDA, attention at every head dim up to 256 and in float16
+# runs through the kernels, as the TPU kernel takes any head dim and float
+# dtype: head dims 8 to 256 as built, any other zero-padded to the next built
+# one.
 # float32 is held at 2e-5 against the CPU's full attention, the attention
 # tolerance; float16 against the CPU's float32 attention on the same float16
 # inputs at 2e-3 absolute and relative (the kernel computes in fp32 and rounds
@@ -404,7 +427,8 @@ def _c6_tolerance(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim,dtype", [(8, torch.float32), (32, torch.float16),
                                             (128, torch.float32), (24, torch.float32),
-                                            (100, torch.float16)])
+                                            (100, torch.float16), (200, torch.float32),
+                                            (256, torch.float32), (256, torch.float16)])
 def test_best_attention_at_any_head_dim_runs_the_kernel_on_the_card(head_dim, dtype):
     device = _require_cuda()
     q, k, v = _qkv((4, 16, 2, head_dim), dtype, device, seed=head_dim)
@@ -417,8 +441,10 @@ def test_best_attention_at_any_head_dim_runs_the_kernel_on_the_card(head_dim, dt
 
 @pytest.mark.cuda
 def test_best_attention_past_head_dim_128_raises_on_the_card():
-    q, k, v = _qkv((2, 4, 1, 129), torch.float32, _require_cuda())
-    with pytest.raises(ValueError, match="head dims up to 128"):
+    # The edge moved from 128 to 256 when the kernels were built for D = 256
+    # (C8): past it the card still raises.
+    q, k, v = _qkv((2, 4, 1, 257), torch.float32, _require_cuda())
+    with pytest.raises(ValueError, match="head dims up to 256"):
         best_attention(q, k, v)
 
 
@@ -442,9 +468,33 @@ def test_transformer_torso_trains_through_the_kernels_at_small_head_dims(head_di
         torch.testing.assert_close(p.grad.cpu(), w, rtol=1e-4, atol=1e-4)
 
 
+# C8: the torso at head dims 200 (padded to 256) and 256, 2 heads: its layers
+# are 400 to 512 wide, 25 to 32 times D = 8's, and the card's sums in another
+# order (the dense layers' and the kernels') part the gradients by up to about
+# 1.5e-4 from the CPU's: 5e-4 absolute and 1e-4 relative; the output at 1e-4.
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [200, 256])
+def test_transformer_torso_trains_through_the_kernels_at_wide_head_dims(head_dim):
+    device = _require_cuda()
+    torso = TransformerTorso(5, 1, 2, head_dim, 32, generator=torch.Generator().manual_seed(0))
+    x = torch.randn((3, 4, 5), generator=torch.Generator().manual_seed(1))
+    want = torso(x)
+    (want ** 2).sum().backward()
+    want_grads = [p.grad.clone() for p in torso.parameters()]
+    torso.zero_grad()
+    before = [c.launches for c in fa.COUNTERS]
+    got = torso.to(device)(x.to(device))
+    (got ** 2).sum().backward()
+    assert [c.launches - b for c, b in zip(fa.COUNTERS, before)] == [1, 1]
+    torch.testing.assert_close(got.cpu(), want.detach(), rtol=0, atol=1e-4)
+    for p, w in zip(torso.parameters(), want_grads):
+        torch.testing.assert_close(p.grad.cpu(), w, rtol=1e-4, atol=5e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim,dtype", [(8, torch.float32), (32, torch.float16),
-                                            (24, torch.float32)])
+                                            (24, torch.float32), (200, torch.float32),
+                                            (256, torch.float16)])
 def test_one_rank_ring_at_any_head_dim_runs_the_chunk_kernel_on_the_card(
         tmp_path, head_dim, dtype):
     device = _require_cuda()
@@ -458,10 +508,56 @@ def test_one_rank_ring_at_any_head_dim_runs_the_chunk_kernel_on_the_card(
         before = fac.KERNEL.launches
         got = ring_attention(q, k, v, group, causal=True)
         assert fac.KERNEL.launches == before + 1
-        with pytest.raises(ValueError, match="head dims"):  # past 128, explicitly or not
-            wide = torch.zeros((2, 32, 2, 129), device=device)
+        with pytest.raises(ValueError, match="head dims"):  # past 256, explicitly or not
+            wide = torch.zeros((2, 32, 2, 257), device=device)
             ring_attention(wide, wide, wide, group, causal=True, use_flash=True)
     finally:
         dist.destroy_process_group()
     assert got.dtype == dtype
     torch.testing.assert_close(got.cpu().float(), _c6_want(q, k, v), **_c6_tolerance(dtype))
+
+
+# A7b on the card: ff_ppo with the main path's knobs on (U = 2), saved after
+# window 1, loaded and continued, ends bitwise equal to the unbroken run; one
+# GAE launch an update at U = 2.
+@pytest.mark.cuda
+def test_knobs_resume_is_bitwise_the_unbroken_run_on_the_card(tmp_path, monkeypatch):
+    _require_cuda()
+    from stoix_tpu_torch.systems.ppo.anakin import ff_ppo
+    from stoix_tpu_torch.utils import checkpointing
+    from stoix_tpu_torch.utils import config as config_lib
+
+    monkeypatch.chdir(tmp_path)
+    base = ["env=identity_game", "arch.total_num_envs=16", "arch.num_eval_episodes=4",
+            "arch.absolute_metric=False", "system.rollout_length=4", "system.epochs=2",
+            "system.num_minibatches=2", "logger.use_console=False",
+            "system.multistep_impl=pallas", "system.normalize_observations=true",
+            "arch.update_batch_size=2", "system.update_guard=skip", "system.fused_update=true",
+            "logger.checkpointing.save_model=true", "logger.checkpointing.save_args.max_to_keep=~"]
+
+    def run(uid, updates, windows, *extra):
+        config = config_lib.compose(config_lib.default_config_dir(),
+                                    "default/anakin/default_ff_ppo.yaml", base + [
+            f"logger.checkpointing.save_args.checkpoint_uid={uid}",
+            f"arch.num_updates={updates}", f"arch.num_evaluation={windows}", *extra])
+        ff_ppo.run_experiment(config, device="cuda")
+
+    before = lr.GAE_KERNEL.launches
+    run("unbroken", 4, 2)
+    assert lr.GAE_KERNEL.launches - before == 4
+    run("first", 2, 1)
+    run("resumed", 2, 1, "logger.checkpointing.load_model=true",
+        "logger.checkpointing.load_args.checkpoint_uid=first")
+    step = 4 * 4 * 16
+    load = lambda uid: torch.load(  # noqa: E731
+        tmp_path / "checkpoints" / uid / "ff_ppo" / str(step) / checkpointing.STATE_FILE,
+        weights_only=True)
+    unbroken, resumed = load("unbroken"), load("resumed")
+    assert unbroken.keys() == resumed.keys()
+    for key, value in unbroken.items():
+        if isinstance(value, torch.Tensor):
+            assert torch.equal(value, resumed[key]), key
+        elif isinstance(value, dict):
+            assert torch.equal(value["generator_state"], resumed[key]["generator_state"]), key
+        else:
+            assert value == resumed[key], key

@@ -246,20 +246,12 @@ def test_entry_point_defaults_to_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("override,key", [
-    ("arch.update_batch_size=2", "arch.update_batch_size"),
     ("arch.mesh.data=2", "arch.mesh.data"),
-    ("system.normalize_observations=true", "system.normalize_observations"),
-    ("system.update_guard=skip", "system.update_guard"),
-    ("system.adaptive_kl_beta=true", "system.adaptive_kl_beta"),
-    ("system.fused_update=true", "system.fused_update"),
     ("arch.fleet.enabled=true", "arch.fleet.enabled"),
     ("arch.integrity.enabled=true", "arch.integrity.enabled"),
     ("arch.preflight.enabled=true", "arch.preflight.enabled"),
-    ("logger.checkpointing.save_model=true", "logger.checkpointing.save_model"),
-    ("logger.checkpointing.load_model=true", "logger.checkpointing.load_model"),
     ("arch.fault_spec=nan_loss:1", "arch.fault_spec"),
-    ("env.wrapper.use_optimistic_reset=true", "env.wrapper.use_optimistic_reset"),
-    ("logger.use_json=true", "logger.use_json"),
+    ("logger.telemetry.enabled=true", "logger.telemetry.enabled"),
 ])
 def test_unported_knobs_raise_naming_the_key(override, key):
     cfg = make_config(["env=identity_game", "arch.total_num_envs=8", "arch.num_updates=1",

@@ -270,10 +270,13 @@ def test_entry_point_defaults_to_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("override,key", [
-    ("arch.update_batch_size=2", "arch.update_batch_size"),
     ("arch.mesh.data=2", "arch.mesh.data"),
     ("arch.fault_spec=nan_loss:1", "arch.fault_spec"),
-    ("logger.checkpointing.save_model=true", "logger.checkpointing.save_model"),
+    # ff_ppo's knobs that the JAX package's ff_trans_ppo ignores (ROADMAP C9).
+    ("system.normalize_observations=true", "system.normalize_observations"),
+    ("system.update_guard=skip", "system.update_guard"),
+    ("system.fused_update=true", "system.fused_update"),
+    ("system.adaptive_kl_beta=true", "system.adaptive_kl_beta"),
 ])
 def test_unported_knobs_raise_naming_the_key(override, key):
     cfg = make_config(["env=identity_game", "arch.total_num_envs=8", "arch.num_updates=1",
