@@ -10,13 +10,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    one nvcc per source, all started together; prints ptxas's
                    registers, spills and shared memory for every instance of
                    every library (B1's entry points, B2's forward and
-                   backward, B3).
+                   backward, B3, and the wide route past head dim 256).
   3. kernel      — B1's generic entry point (linear recurrence) against its
-                   plain PyTorch version on the card, bitwise: at [16, 1024],
+                   plain PyTorch version on the card, bitwise: at ff_pqn's
+                   [8, 1024] with resets, [16, 1024],
                    a ragged [17, 1000] with resets in float32 and bfloat16,
                    T in {1, 15, 16, 17, 33, 63, 64, 65, 129} (row and stage
                    edges) at 1000 columns, and a long rollout [128, 4096];
-                   timed at [16, 1024] and [128, 4096] with CUDA events, per
+                   timed at [8, 1024], [16, 1024] and [128, 4096] with CUDA events, per
                    call from Python and per launch replayed from a CUDA graph,
                    beside an empty kernel on the same grid (the launch floor).
   4. attention   — B2 (flash attention): the forward kernel against its plain
@@ -97,8 +98,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    D = 200 (padded to 256) and `TransformerTorso` forward and
                    gradients at D = 256 against the CPU; one ff_trans_ppo
                    update at 4 heads x 256 through B2 (130 forward, 64
-                   backward launches); D = 257 refused; the D = 256 forward and
-                   backward timed (a launch, a call) beside their bounds.
+                   backward launches); the D = 256 forward, backward and B3
+                   timed (a launch, a call) beside their bounds and SDPA.
  14. knobs       — ff_ppo at full width with every main-path knob on
                    (normalize_observations, update_guard=skip, fused_update,
                    update_batch_size=2, use_cached_auto_reset, the json and
@@ -108,6 +109,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    1 bitwise equal to the unbroken run's final state; a
                    poisoned loss under skip ending with finite params and
                    skipped updates; IdentityGame with the same knobs above 8.0.
+ 15. c8_wide     — head dims past 256 through the wide kernels: the forward,
+                   backward and chunk kernels against their plain versions at
+                   D = 257, 384 and 1000 in three dtypes; `best_attention` at
+                   D = 257 and the torso at D = 384 against the CPU; then
+                   their paths, every counter zeroed just before and read just
+                   after: one ff_trans_ppo update at 2 heads x 512 (130 wide
+                   forward and 64 wide backward launches, nothing narrow) and
+                   a one-rank ring at D = 384 (one wide chunk launch); the
+                   three against their plain versions at the update's
+                   minibatch shape [4096, 16, 2, 384] and [..., 512], then
+                   timed there beside their bounds and SDPA. (Runs inside the mesh of phase ring,
+                   after c6 and c8.)
+ 16. q_learn     — ff_dqn and ff_pqn (multistep_impl=pallas) train IdentityGame
+                   on the card above 8.0 (the JAX package's oracles).
+ 17. q_train     — ff_dqn and ff_pqn at their default configs' full width on
+                   CartPole, 4 updates in 2 windows: env-steps/s per window,
+                   device launches an update (torch.profiler); B1's counters
+                   zeroed just before ff_pqn's run and read just after:
+                   exactly one generic launch an update (Q(lambda)), no GAE
+                   one; then ff_ddqn, ff_dqn_reg, ff_mdqn, ff_c51 and
+                   ff_qr_dqn one window each at their default widths, finite.
 
 Then a `{"kernels": [...]}` line, the card's `nvidia-smi` name and power
 limit, and last `{"ok": true, "device": {...}}`.
@@ -133,12 +155,17 @@ import torch
 import torch.distributed as dist
 
 from stoix_tpu_torch import envs, parallel
-from stoix_tpu_torch.kernels import build, flash_attention, flash_attention_chunk, linear_recurrence
+from stoix_tpu_torch.kernels import (
+    build, flash_attention, flash_attention_chunk, flash_attention_wide, linear_recurrence,
+)
 from stoix_tpu_torch.networks.attention import TransformerTorso
 from stoix_tpu_torch.ops import best_attention, truncated_generalized_advantage_estimation
 from stoix_tpu_torch.ops.ring_attention import fold_chunk, full_attention, ring_attention
 from stoix_tpu_torch.systems import runner
 from stoix_tpu_torch.systems.ppo.anakin import ff_ppo, ff_trans_ppo
+from stoix_tpu_torch.systems.q_learning import (
+    ff_c51, ff_ddqn, ff_dqn, ff_dqn_reg, ff_mdqn, ff_pqn, ff_qr_dqn, q_family,
+)
 from stoix_tpu_torch.utils import config as config_lib
 from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
 
@@ -155,8 +182,25 @@ ATTENTION_SOURCE = "stoix_tpu_torch/csrc/flash_attention.cu"
 ATTENTION_REPLACES = "stoix_tpu/ops/pallas_attention.py:154"
 CHUNK_SOURCE = "stoix_tpu_torch/csrc/flash_attention_chunk.cu"
 CHUNK_REPLACES = "stoix_tpu/ops/pallas_attention.py:255"
+WIDE_SOURCE = "stoix_tpu_torch/csrc/flash_attention_wide.cu"
 RING_BATCH = 64  # windows per forward in the ring phases
 RING_RANKS = 4  # the ring the ring_kernel phase emulates
+
+
+def cpu_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The causal reference on the host in float64, rounded to float32. The
+    card's host rounds float32 batched matmuls off by up to 8.6e-5 in about
+    one process of eight (PERF.md §7): the references are exact instead."""
+    return full_attention(*(x.detach().cpu().double() for x in (q, k, v)), causal=True).float()
+
+
+def cpu_torso_reference(torso: torch.nn.Module, x: torch.Tensor):
+    """A torso's output and parameter gradients of (out ** 2).sum() on the
+    host in float64 (see `cpu_attention`), rounded to float32."""
+    ref = copy.deepcopy(torso).cpu().double()
+    out = ref(x.cpu().double())
+    (out ** 2).sum().backward()
+    return out.detach().float(), [p.grad.float() for p in ref.parameters()]
 
 
 def emit(record: dict) -> None:
@@ -241,14 +285,16 @@ def ptxas_instances(lines: list) -> list:
 
 
 def phase_build() -> None:
-    libraries = [linear_recurrence.LIBRARY, flash_attention.LIBRARY, flash_attention_chunk.LIBRARY]
+    sources = ((linear_recurrence.LIBRARY, RECURRENCE_SOURCE),
+               (flash_attention.LIBRARY, ATTENTION_SOURCE),
+               (flash_attention_chunk.LIBRARY, CHUNK_SOURCE),
+               (flash_attention_wide.LIBRARY, WIDE_SOURCE))
+    libraries = [library for library, _ in sources]
     start = time.perf_counter()
     build.build_all(libraries)
     emit({"phase": "build", "libraries": [lib.library_path() for lib in libraries],
           "seconds": time.perf_counter() - start})
-    for library, source in ((linear_recurrence.LIBRARY, RECURRENCE_SOURCE),
-                            (flash_attention.LIBRARY, ATTENTION_SOURCE),
-                            (flash_attention_chunk.LIBRARY, CHUNK_SOURCE)):
+    for library, source in sources:
         lines = library.ptxas_report()
         for line in lines:
             print(line, flush=True)
@@ -297,10 +343,11 @@ def recurrence_times(t_len: int, batch: int) -> dict:
 
 def phase_kernel() -> dict:
     """B1's generic entry point against its plain version; returns its
-    kernels-line entry (without launches)."""
+    kernels-line entry (without launches), at ff_pqn's [8, 1024]."""
     max_abs_err = 0.0
     cases = [
-        (16, 1024, torch.float32, False),  # the rollout's shape
+        (8, 1024, torch.float32, True),  # ff_pqn's Q(lambda): [rollout, envs], truncations reset
+        (16, 1024, torch.float32, False),
         (17, 1000, torch.float32, True),
         (17, 1000, torch.bfloat16, True),
         *((t_len, 1000, torch.float32, True) for t_len in (1, 15, 16, 33, 63, 64, 65, 129)),
@@ -322,9 +369,9 @@ def phase_kernel() -> dict:
               "shape": [t_len, batch], "dtype": str(dtype), "resets": resets,
               "max_abs_err": err, "bitwise": True})
 
-    shapes = [recurrence_times(16, 1024), recurrence_times(128, 4096)]
+    shapes = [recurrence_times(8, 1024), recurrence_times(16, 1024), recurrence_times(128, 4096)]
     emit({"phase": "kernel_time", "kernel": linear_recurrence.KERNEL.name, "shapes": shapes})
-    main_shape = shapes[0]
+    main_shape = shapes[0]  # the training path's (ff_pqn, phase q_train)
     return {
         "name": linear_recurrence.KERNEL.name, "route": "cuda", "source": RECURRENCE_SOURCE,
         "replaces": RECURRENCE_REPLACES, "max_abs_err": max_abs_err,
@@ -919,7 +966,7 @@ def phase_ring(width: dict, smi: str, mesh) -> dict:
     ring_torso = torso(partial(ring_attention, group=mesh.get_group("data"))).cuda()
     flash_torso = torso().cuda()  # best_attention: B2 on the card
     flash_torso.load_state_dict(ring_torso.state_dict())
-    cpu_torso = copy.deepcopy(flash_torso).cpu()  # best_attention: full attention
+    cpu_torso = copy.deepcopy(flash_torso).cpu().double()  # float64 full attention
     gen = torch.Generator().manual_seed(1)
     x = torch.randn((RING_BATCH, width["window"], width["obs"]), generator=gen)
     x_card = x.cuda()
@@ -931,7 +978,7 @@ def phase_ring(width: dict, smi: str, mesh) -> dict:
         torch.cuda.synchronize()
         launches = {c.name: c.launches for c in (*fa.COUNTERS, fac.KERNEL)}
         flash_out = flash_torso(x_card)
-        cpu_out = cpu_torso(x)
+        cpu_out = cpu_torso(x.double()).float()
     expected = {**{c.name: 0 for c in fa.COUNTERS},
                 fac.KERNEL.name: width["layers"] * ranks}
     if launches != expected:
@@ -1003,7 +1050,7 @@ def phase_c6(mesh, smi: str) -> None:
             got = ring_attention(q, k, v, group, causal=True)
         torch.cuda.synchronize()
         launches = {c.name: c.launches for c in counters}
-        want = full_attention(*(x.cpu().float() for x in (q, k, v)), causal=True)
+        want = cpu_attention(*(x.float() for x in (q, k, v)))
         rtol, atol = tolerance[dtype]
         err = (got.cpu().float() - want).abs()
         if launches != {c.name: int(c is counter) for c in counters}:
@@ -1099,7 +1146,7 @@ def phase_c8(smi: str) -> dict:
     got = best_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     launches = _counts(fa.COUNTERS)
-    err = (got.cpu() - full_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)).abs().max().item()
+    err = (got.cpu() - cpu_attention(q, k, v)).abs().max().item()
     if launches != {fa.FORWARD.name: 1, fa.BACKWARD.name: 0} or not err <= 2e-5:
         raise AssertionError(f"C8 best_attention at D=200: launches {launches}, err {err}")
     emit({"phase": "c8", "case": "best_attention", "shape": list(q.shape), "padded_to": width,
@@ -1107,10 +1154,7 @@ def phase_c8(smi: str) -> dict:
 
     torso = TransformerTorso(5, 1, 2, width, 32, generator=torch.Generator().manual_seed(0))
     x = torch.randn((3, 4, 5), generator=torch.Generator().manual_seed(1))
-    want = torso(x)
-    (want ** 2).sum().backward()
-    want_grads = [p.grad.clone() for p in torso.parameters()]
-    torso.zero_grad()
+    want, want_grads = cpu_torso_reference(torso, x)
     for counter in fa.COUNTERS:
         counter.launches = 0
     got = torso.to("cuda")(x.to("cuda"))
@@ -1128,14 +1172,6 @@ def phase_c8(smi: str) -> dict:
           "max_abs_err_vs_cpu": out_err, "grad_err_past_1e-4_relative": grad_err,
           "tolerance": 1e-4, "grad_tolerance": 5e-4,
           "kernel_launches": launches})
-
-    wide = torch.zeros((2, 4, 1, width + 1), device="cuda")
-    try:
-        best_attention(wide, wide, wide)
-    except ValueError as refused:
-        emit({"phase": "c8", "case": "refused", "head_dim": width + 1, "error": str(refused)})
-    else:
-        raise AssertionError(f"attention at head dim {width + 1} was not refused on the card")
 
     config = check_total_timesteps(compose([f"system.head_dim={width}", "system.num_heads=4",
                                             "system.multistep_impl=pallas",
@@ -1163,26 +1199,255 @@ def phase_c8(smi: str) -> dict:
           "losses": losses, "seconds": seconds, "card": smi})
 
     # Times at the path-like shape, float32: a launch (graph replay) and a call.
-    shape, causal = (TRANS_ENVS, 16, 4, width), True
-    q, k, v = qkv_views(*shape, torch.float32, seed=81)
-    dout = qkv_views(*shape, torch.float32, seed=82)[0].contiguous()
-    o, lse = fa.forward_kernel(q, k, v, causal, need_lse=True)
+    times = timed_kernels(NARROW_ROUTE, (TRANS_ENVS, 16, 4, width), 81, smi, "c8_time")
+    return {"times": times}
+
+
+def sdpa_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            dout: torch.Tensor) -> dict:
+    """SDPA's forward and its backward alone on these inputs, or the error
+    that refuses them."""
+    try:
+        leaf = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        out = sdpa(*leaf, causal)
+        return {"forward": cuda_ms(lambda: sdpa(q, k, v, causal)),
+                "backward": cuda_ms(lambda: torch.autograd.grad(out, leaf, dout,
+                                                                retain_graph=True),
+                                    repeats=11, inner=20)}
+    except RuntimeError as refused:
+        return {"forward": None, "backward": None, "refused": str(refused)}
+
+
+NARROW_ROUTE = {
+    "forward": (flash_attention.forward_kernel, flash_attention.plain_flash_attention_forward),
+    "backward": (flash_attention.backward_kernel, flash_attention.plain_flash_attention_backward),
+    "chunk": (flash_attention_chunk.chunk_kernel,
+              flash_attention_chunk.plain_flash_attention_chunk),
+}
+WIDE_ROUTE = {
+    "forward": (flash_attention_wide.forward_kernel, flash_attention_wide.plain_wide_forward),
+    "backward": (flash_attention_wide.backward_kernel, flash_attention_wide.plain_wide_backward),
+    "chunk": (flash_attention_wide.chunk_kernel, flash_attention_wide.plain_wide_chunk),
+}
+
+
+def route_errors(kind: str, got, want, relative_backward: bool) -> tuple:
+    """A kernel's largest |kernel - plain| over its outputs, and whether it
+    holds (`timed_kernels`): the forward's output and lse within 1e-5; the
+    backward's dQ, dK, dV within 1e-5 or, with `relative_backward` (the wide
+    route's gradients reach tens), 1e-5 of the tensor's largest (at least 1);
+    the chunk's `chunk_errors` (m absolute, l and pv relative to l) within
+    1e-5."""
+    abs_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+    if kind == "chunk":
+        return abs_err, max(flash_attention_chunk.chunk_errors(got, want)) <= 1e-5
+    scale = max(1.0, *(w.abs().max().item() for w in want)) if (
+        kind == "backward" and relative_backward) else 1.0
+    return abs_err, abs_err <= 1e-5 * scale
+
+
+def timed_kernels(route: dict, shape, seed: int, smi: str, phase: str,
+                  relative_backward: bool = False) -> list:
+    """A route's forward, backward and chunk kernels (`NARROW_ROUTE`,
+    `WIDE_ROUTE`: each kind's kernel and plain version) at one float32 causal
+    shape: first each held against its plain version on the same inputs
+    (`route_errors`), then timed: a call, a launch replayed from a CUDA
+    graph, the plain version, the bound and SDPA (forward; backward alone; B3
+    has none)."""
+    causal = True
+    q, k, v = qkv_views(*shape, torch.float32, seed=seed)
+    dout = qkv_views(*shape, torch.float32, seed=seed + 1)[0].contiguous()
+    o, lse = route["forward"][0](q, k, v, causal, need_lse=True)
+    positions = torch.arange(shape[1], dtype=torch.int32, device="cuda")
+    args = {"forward": (q, k, v, causal), "backward": (q, k, v, o, lse, dout, causal),
+            "chunk": (q, k, v, positions, positions, causal)}
+    errors = {}
+    for kind, (kernel, plain) in route.items():
+        extra = {"need_lse": True} if kind == "forward" else {}
+        got = kernel(*args[kind], **extra)
+        torch.cuda.synchronize()
+        want = plain(*args[kind], **extra)
+        if any(not torch.isfinite(x).all() for x in got):
+            raise AssertionError(f"{phase}: {kind} kernel's output malformed at {shape}")
+        errors[kind], held = route_errors(kind, got, want, relative_backward)
+        if not held:
+            raise AssertionError(f"{phase}: {kind} kernel != plain at {shape}: {errors[kind]}")
+        del got, want
+    library = sdpa_ms(q, k, v, causal, dout)
     times = []
-    for kind, run, plain in (
-        ("forward", lambda: fa.forward_kernel(q, k, v, causal),
-         lambda: fa.plain_flash_attention_forward(q, k, v, causal)),
-        ("backward", lambda: fa.backward_kernel(q, k, v, o, lse, dout, causal),
-         lambda: fa.plain_flash_attention_backward(q, k, v, o, lse, dout, causal)),
-    ):
-        bound_ms, bound_by, moved, flops = attention_bound(kind, q, causal)
-        record = {"phase": "c8_time", "kernel": f"flash_attention_{kind}", "shape": list(shape),
-                  "dtype": "torch.float32", "causal": causal, "ms": cuda_ms(run),
-                  "device_ms": graph_ms(run), "plain_ms": cuda_ms(plain, repeats=5, inner=3),
-                  "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "flops": flops,
-                  "card": smi}
+    for kind, (kernel, plain) in route.items():
+        if kind == "chunk":
+            bound_ms, bound_by, moved, flops = chunk_bound(q, k, positions, positions, causal)
+        else:
+            bound_ms, bound_by, moved, flops = attention_bound(kind, q, causal)
+        record = {"phase": phase, "kernel": kind, "shape": list(shape), "dtype": "torch.float32",
+                  "causal": causal, "max_abs_err": errors[kind],
+                  "backward_tolerance_relative": relative_backward,
+                  "ms": cuda_ms(lambda: kernel(*args[kind])),
+                  "device_ms": graph_ms(lambda: kernel(*args[kind])),
+                  "plain_ms": cuda_ms(lambda: plain(*args[kind]), repeats=5, inner=3),
+                  "library_ms": library.get(kind), "bound_ms": bound_ms, "bound_by": bound_by,
+                  "bytes": moved, "flops": flops, "card": smi}
+        if "refused" in library and kind != "chunk":
+            record["library_refused"] = library["refused"]
         times.append(record)
         emit(record)
-    return {"times": times}
+    return times
+
+
+WIDE_DIMS = (257, 384, 1000)  # a last head-dim chunk of one column; 6 chunks; 16 chunks
+WIDE_TRANS = dict(heads=2, head_dim=512)  # phase c8_wide's ff_trans_ppo update
+
+
+def phase_c8_wide(mesh, smi: str) -> list:
+    """Head dims past 256 run through the wide kernels (C8): each against its
+    plain version at D = 257, 384 and 1000 in three dtypes; `best_attention`
+    at D = 257 and the torso's forward and gradients at D = 384 against the
+    CPU; then the two paths the kernels serve, each with every counter zeroed
+    just before and read just after: one ff_trans_ppo update at 2 heads x 512
+    (wide forward and backward) and a one-rank ring over [64, 128, 2, 384]
+    (wide chunk); then, at the update's minibatch shape [4096, 16, 2, D] for
+    D = 384 and 512, each against its plain version and timed. Returns the
+    three kernels-line entries, at D = 512."""
+    fa, wide = flash_attention, flash_attention_wide
+    counters = (*fa.COUNTERS, flash_attention_chunk.KERNEL, *wide.COUNTERS)
+    tolerance = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
+    errors = {"forward": 0.0, "backward": 0.0, "chunk": 0.0}
+    for seed, (d, dtype) in enumerate((d, dtype) for d in WIDE_DIMS for dtype in tolerance):
+        q, k, v = qkv_views(4, 40, 2, d, dtype, seed=100 + seed)
+        dout = qkv_views(4, 40, 2, d, dtype, seed=200 + seed)[0].contiguous()
+        q_pos = torch.arange(24, 64, dtype=torch.int32, device="cuda")
+        k_pos = torch.randperm(40, generator=torch.Generator().manual_seed(seed)).to(
+            device="cuda", dtype=torch.int32)
+        o, lse = wide.forward_kernel(q, k, v, True, need_lse=True)
+        grads = wide.backward_kernel(q, k, v, o, lse, dout, True)
+        chunk = wide.chunk_kernel(q, k, v, q_pos, k_pos, True)
+        torch.cuda.synchronize()
+        want_o, want_lse = wide.plain_wide_forward(q, k, v, True, need_lse=True)
+        want_grads = wide.plain_wide_backward(q, k, v, o, lse, dout, True)
+        want_chunk = wide.plain_wide_chunk(q, k, v, q_pos, k_pos, True)
+        tol = tolerance[dtype]
+        forward_err = (o.float() - want_o.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        # The gradients reach tens: float32 within 1e-5 of the largest (at
+        # least 1), the 16-bit types also relative at their tolerance.
+        backward_errs = [((g.float() - w.float()).abs().max()
+                          / max(1.0, w.float().abs().max().item())).item()
+                         for g, w in zip(grads, want_grads)]
+        rtol = 0.0 if dtype == torch.float32 else tol
+        held = all(bool(((g.float() - w.float()).abs() <= tol * max(1.0, w.float().abs().max()
+                                                                    .item())
+                         + rtol * w.float().abs()).all()) for g, w in zip(grads, want_grads))
+        chunk_errs = flash_attention_chunk.chunk_errors(chunk, want_chunk)
+        if any(not torch.isfinite(x).all() for x in (o, *grads, *chunk)):
+            raise AssertionError(f"wide kernels' output malformed at D={d} {dtype}")
+        if not (forward_err <= tol and lse_err <= 1e-5 and held and max(chunk_errs) <= 1e-5):
+            raise AssertionError(f"wide kernels != plain at D={d} {dtype}: forward {forward_err}, "
+                                 f"lse {lse_err}, backward {backward_errs}, chunk {chunk_errs}")
+        if dtype == torch.float32:
+            errors = {"forward": max(errors["forward"], forward_err),
+                      "backward": max(errors["backward"], *(
+                          (g - w).abs().max().item() for g, w in zip(grads, want_grads))),
+                      "chunk": max(errors["chunk"], *chunk_errs)}
+        emit({"phase": "c8_wide", "case": "kernels", "shape": [4, 40, 2, d], "dtype": str(dtype),
+              "causal": True, "forward_max_abs_err": forward_err, "lse_max_abs_err": lse_err,
+              "backward_err_of_largest_dq_dk_dv": backward_errs,
+              "chunk_errors_m_l_pv": chunk_errs, "tolerance": tol, "rtol": rtol})
+
+    # best_attention at D = 257: one wide forward launch, nothing narrow; 2e-5 of the CPU.
+    q, k, v = qkv_views(64, 16, 2, 257, torch.float32, seed=300)
+    for counter in counters:
+        counter.launches = 0
+    got = best_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = _counts(counters)
+    err = (got.cpu() - cpu_attention(q, k, v)).abs().max().item()
+    if launches != {**dict.fromkeys(launches, 0), wide.FORWARD.name: 1} or not err <= 2e-5:
+        raise AssertionError(f"best_attention at D=257: launches {launches}, err {err}")
+    emit({"phase": "c8_wide", "case": "best_attention", "shape": list(q.shape),
+          "max_abs_err_vs_cpu": err, "tolerance": 2e-5, "kernel_launches": launches})
+
+    # The torso at D = 384 (tolerances of phase c8's torso).
+    torso = TransformerTorso(5, 1, 2, 384, 32, generator=torch.Generator().manual_seed(0))
+    x = torch.randn((3, 4, 5), generator=torch.Generator().manual_seed(1))
+    want, want_grads = cpu_torso_reference(torso, x)
+    for counter in counters:
+        counter.launches = 0
+    got = torso.to("cuda")(x.to("cuda"))
+    (got ** 2).sum().backward()
+    torch.cuda.synchronize()
+    launches = _counts(counters)
+    out_err = (got.detach().cpu() - want.detach()).abs().max().item()
+    grad_err = max(((p.grad.cpu() - w).abs() - 1e-4 * w.abs()).max().item()
+                   for p, w in zip(torso.parameters(), want_grads))
+    expected = {**dict.fromkeys(launches, 0), wide.FORWARD.name: 1, wide.BACKWARD.name: 1}
+    if launches != expected or not (out_err <= 1e-4 and grad_err <= 5e-4):
+        raise AssertionError(f"torso at D=384: launches {launches}, errors {out_err}, {grad_err}")
+    emit({"phase": "c8_wide", "case": "transformer_torso", "head_dim": 384,
+          "max_abs_err_vs_cpu": out_err, "grad_err_past_1e-4_relative": grad_err,
+          "tolerance": 1e-4, "grad_tolerance": 5e-4, "kernel_launches": launches})
+
+    # Path 1: ff_trans_ppo's update at 2 heads x 512 (d_model 1024).
+    config = check_total_timesteps(compose([
+        f"system.head_dim={WIDE_TRANS['head_dim']}", f"system.num_heads={WIDE_TRANS['heads']}",
+        "system.multistep_impl=pallas", "logger.use_console=False"], TRANS_ROOT), 1)
+    env, _ = envs.make(config)
+    setup = ff_trans_ppo.learner_setup(env, config, torch.device("cuda"),
+                                       seed=int(config.arch.seed))
+    for counter in counters:
+        counter.launches = 0
+    start = time.perf_counter()
+    _, (_, losses) = setup.learn.update_step(setup.learner_state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    update_launches = _counts(counters)
+    layers = int(config.system.num_layers)
+    expected = {**dict.fromkeys(update_launches, 0),
+                wide.FORWARD.name: 2 * layers * TRANS["rollout"] + layers
+                + 2 * layers * TRANS["epochs"] * TRANS["minibatches"],
+                wide.BACKWARD.name: 2 * layers * TRANS["epochs"] * TRANS["minibatches"]}
+    losses = {key: value.float().mean().item() for key, value in losses.items()}
+    if update_launches != expected or not all(math.isfinite(x) for x in losses.values()):
+        raise AssertionError(f"ff_trans_ppo at {WIDE_TRANS}: launches {update_launches} "
+                             f"(expected {expected}), losses {losses}")
+    emit({"phase": "c8_wide", "case": "ff_trans_ppo update step", **WIDE_TRANS,
+          "total_num_envs": int(config.arch.total_num_envs), "launches": update_launches,
+          "losses": losses, "seconds": seconds, "card": smi})
+    del setup
+
+    # Path 2: the one-rank ring at D = 384, one wide chunk launch, 2e-5 of the CPU.
+    q, k, v = qkv_views(RING_BATCH, 128, 2, 384, torch.float32, seed=301)
+    for counter in counters:
+        counter.launches = 0
+    got = ring_attention(q, k, v, mesh.get_group("data"), causal=True)
+    torch.cuda.synchronize()
+    ring_launches = _counts(counters)
+    err = (got.cpu() - cpu_attention(q, k, v)).abs().max().item()
+    if ring_launches != {**dict.fromkeys(ring_launches, 0), wide.CHUNK.name: 1} or not err <= 2e-5:
+        raise AssertionError(f"one-rank ring at D=384: launches {ring_launches}, err {err}")
+    emit({"phase": "c8_wide", "case": "one-rank ring", "shape": list(q.shape),
+          "max_abs_err_vs_cpu": err, "tolerance": 2e-5, "kernel_launches": ring_launches})
+
+    # Held against the plain versions and timed at the update's minibatch
+    # shape (both the forward and the backward run there).
+    times = {d: timed_kernels(WIDE_ROUTE, (4 * TRANS_ENVS, 16, WIDE_TRANS["heads"], d), 400 + d,
+                              smi, "c8_wide_time", relative_backward=True)
+             for d in (384, WIDE_TRANS["head_dim"])}
+    entries = []
+    for index, (counter, kind, replaces, launches) in enumerate((
+            (wide.FORWARD, "forward", ATTENTION_REPLACES, update_launches),
+            (wide.BACKWARD, "backward", ATTENTION_REPLACES, update_launches),
+            (wide.CHUNK, "chunk", CHUNK_REPLACES, ring_launches))):
+        main_time = times[WIDE_TRANS["head_dim"]][index]
+        entries.append({
+            "name": counter.name, "route": "cuda", "source": WIDE_SOURCE, "replaces": replaces,
+            "launches": launches[counter.name],
+            **{key: main_time[key] for key in ("shape", "max_abs_err", "ms", "device_ms",
+                                                "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "max_abs_err_small_shapes": errors[kind],
+            "shapes": [times[d][index] for d in times],
+        })
+    return entries
 
 
 # ff_ppo's main-path knobs, all on (phase knobs).
@@ -1302,6 +1567,91 @@ def phase_knobs(smi: str) -> None:
           "card": smi})
 
 
+# The value-based family: the JAX package's IdentityGame oracles (10.0 on the
+# CPU with these overrides); ff_pqn at 32768 steps, where the JAX package
+# returns 10.0 on every seed tried (at 16384 it misses 8.0 on two of four).
+Q_IDENTITY = ["env=identity_game", "arch.total_num_envs=16", "arch.num_evaluation=1",
+              "arch.num_eval_episodes=32", "logger.use_console=False"]
+Q_LEARN = {
+    "ff_dqn": (ff_dqn, ["arch.total_timesteps=16384", "system.total_buffer_size=4096",
+                        "system.total_batch_size=64"]),
+    "ff_pqn": (ff_pqn, ["arch.total_timesteps=32768", "system.decay_epsilon=false",
+                        "system.num_minibatches=2", "system.multistep_impl=pallas"]),
+}
+Q_SYSTEMS = {"ff_dqn": ff_dqn, "ff_ddqn": ff_ddqn, "ff_dqn_reg": ff_dqn_reg, "ff_mdqn": ff_mdqn,
+             "ff_c51": ff_c51, "ff_qr_dqn": ff_qr_dqn, "ff_pqn": ff_pqn}
+
+
+def phase_q_learn() -> None:
+    for name, (module, overrides) in Q_LEARN.items():
+        config = compose(Q_IDENTITY + overrides, f"default/anakin/default_{name}.yaml")
+        start = time.perf_counter()
+        final_return = module.run_experiment(config, device="cuda")
+        if not final_return > 8.0:
+            raise AssertionError(f"{name} did not learn IdentityGame on the card: {final_return}")
+        emit({"phase": "q_learn", "system": name, "env": "identity_game",
+              "final_return": final_return, "seconds": time.perf_counter() - start})
+
+
+def phase_q_train(smi: str) -> int:
+    """ff_dqn and ff_pqn (multistep_impl=pallas) at their default configs'
+    full width on CartPole, MAIN_UPDATES updates in 2 eval windows: env-steps/s
+    per window and device launches an update (torch.profiler, after a
+    warm-up step); B1's counters zeroed just before ff_pqn's run and read
+    just after: exactly one generic launch an update, no GAE one. Then the
+    other five systems one window each at their default widths, each
+    finite. Returns B1 generic's launches in ff_pqn's run."""
+    lr = linear_recurrence
+    pallas_launches = None
+    for name, module in Q_SYSTEMS.items():
+        full = name in ("ff_dqn", "ff_pqn")
+        config = compose([f"arch.num_updates={MAIN_UPDATES if full else 2}",
+                          f"arch.num_evaluation={2 if full else 1}", "arch.num_eval_episodes=16",
+                          "system.multistep_impl=pallas", "logger.use_console=False"],
+                         f"default/anakin/default_{name}.yaml")
+        for counter in lr.COUNTERS:
+            counter.launches = 0
+        start = time.perf_counter()
+        final_return = module.run_experiment(config, device="cuda")
+        seconds = time.perf_counter() - start
+        b1 = _counts(lr.COUNTERS)
+        stats = copy.deepcopy(runner.LAST_RUN_STATS)
+        train = [rec for rec in stats["history"] if rec["event"] == "trainer"]
+        if not math.isfinite(final_return) or not train or not all(
+                math.isfinite(v) for rec in train for k, v in rec.items()
+                if k not in ("event", "t", "t_eval")):
+            raise AssertionError(f"{name}: non-finite return {final_return} or metrics {train}")
+        record = {"phase": "q_train", "system": name, "env": "cartpole",
+                  "total_num_envs": int(config.arch.total_num_envs),
+                  "rollout_length": int(config.system.rollout_length),
+                  "updates": int(config.arch.num_updates), "final_eval_return": final_return,
+                  "last_train_metrics": train[-1], "b1_launches": b1,
+                  "window_seconds": stats["window_seconds"],
+                  "env_steps_per_second": stats["steps_per_second"], "seconds": seconds,
+                  "card": smi}
+        if name == "ff_pqn":
+            pallas_launches = b1[lr.KERNEL.name]
+            if b1 != {lr.KERNEL.name: int(config.arch.num_updates), lr.GAE_KERNEL.name: 0}:
+                raise AssertionError(f"ff_pqn launched B1 {b1} in {config.arch.num_updates} "
+                                     "updates, not one generic launch an update")
+            record["b1_generic_launches_per_update"] = pallas_launches / MAIN_UPDATES
+        if full:
+            config = check_total_timesteps(config, 1)
+            env, _ = envs.make(config)
+            device, seed = torch.device("cuda"), int(config.arch.seed)
+            if name == "ff_pqn":
+                setup = ff_pqn.learner_setup(env, config, device, seed)
+                state = setup.learner_state
+            else:
+                setup, warmup = q_family.q_learner_setup(env, config, device, seed,
+                                                         ff_dqn.dqn_loss)
+                state = warmup(setup.learner_state)
+            state, _ = setup.learn.update_step(state)  # warm-up
+            record["device_launches_per_update"] = _device_launches(setup.learn, state)
+        emit(record)
+    return pallas_launches
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1323,17 +1673,20 @@ def main() -> None:
     with one_rank_mesh() as mesh:
         ring = phase_ring(width, smi, mesh)
         phase_c6(mesh, smi)
-    phase_c8(smi)
+        phase_c8(smi)
+        wide = phase_c8_wide(mesh, smi)
     phase_knobs(smi)
+    phase_q_learn()
+    # The generic entry point is off both PPO paths (their GAE takes the GAE
+    # entry point); ff_pqn's Q(lambda) is its training path (phase q_train),
+    # and its launches on GAE's composed path (phase gae) stand under their own key.
+    recurrence["launches"] = phase_q_train(smi)
+    recurrence["path"] = "ff_pqn's update (Q(lambda)), phase q_train"
     chunk["launches"] = ring["launches"]
-    # The generic entry point is off both training paths (their GAE takes the
-    # GAE entry point): its main-path count is 0, and its launches on GAE's
-    # composed path (phase gae) stand under their own key.
-    recurrence["launches"] = 0
     chunk["composed_op"] = {"ring_attention_ms": ring["ring_attention_ms"],
                             "sdpa_ms": ring["sdpa_ms"]}
-    kernels = [recurrence, gae, *attention, chunk]
-    if any(entry["launches"] == 0 for entry in kernels if entry is not recurrence):
+    kernels = [recurrence, gae, *attention, chunk, *wide]
+    if any(entry["launches"] == 0 for entry in kernels):
         raise AssertionError("a kernel of the main path was never launched")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,5 +1,7 @@
 """Shared type vocabulary (counterpart of stoix_tpu/base_types.py, the subset
-the Anakin PPO slice uses), as NamedTuples of tensors.
+the Anakin PPO and value-based slices use), as NamedTuples of tensors. Where
+the JAX package's learner states carry a PRNG `key`, the port's carry the
+`generator` (a torch.Generator, or a tuple of one a replica).
 
 Parameters are plain `{name: tensor}` dicts, as `nn.Module.named_parameters`
 gives them, applied with `torch.func.functional_call`.
@@ -28,6 +30,28 @@ class ActorCriticOptStates(NamedTuple):
     critic_opt_state: OptStates
 
 
+class OnlineAndTarget(NamedTuple):
+    online: Parameters
+    target: Parameters
+
+
+class OnPolicyLearnerState(NamedTuple):
+    params: Any
+    opt_states: Any
+    generator: Any
+    env_state: Any
+    timestep: TimeStep
+
+
+class OffPolicyLearnerState(NamedTuple):
+    params: Any
+    opt_states: Any
+    buffer_state: Any  # an ItemBufferState, or a tuple of one a replica
+    generator: Any
+    env_state: Any
+    timestep: TimeStep
+
+
 class PPOTransition(NamedTuple):
     done: torch.Tensor
     truncated: torch.Tensor
@@ -36,6 +60,17 @@ class PPOTransition(NamedTuple):
     reward: torch.Tensor
     log_prob: torch.Tensor
     obs: Any
+    next_obs: Any
+    info: Dict[str, Any]
+
+
+class Transition(NamedTuple):
+    """Generic off-policy transition (DQN family)."""
+
+    obs: Any
+    action: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
     next_obs: Any
     info: Dict[str, Any]
 

@@ -35,7 +35,8 @@
 // the card's 67 TFLOP/s of fp32, against 16.8 MB of q, k, v and pv, about 5 us
 // at 3.35 TB/s. No tensor cores: exact fp32 FMA, expf, not __expf.
 //
-// Types: q, k, v float32, bfloat16 or float16, head dims 8, 16, 32, 64 and 128.
+// Types: q, k, v float32, bfloat16 or float16, head dims 8, 16, 32, 64, 128 and
+// 256 (wider ones run on csrc/flash_attention_wide.cu).
 //
 // Layout: q, k and v are taken by strides (batch, seq, head; the last dim
 // contiguous; rows 16-byte aligned), so the views of a fused [B, S, 3, H, D]

@@ -42,6 +42,10 @@ class Environment:
         """A dummy (unbatched) observation for sizing networks."""
         return spaces.tree_generate_value(self.observation_space())
 
+    def action_value(self) -> Any:
+        """A dummy (unbatched) action, as the action space generates it."""
+        return spaces.tree_generate_value(self.action_space())
+
     @property
     def num_actions(self) -> int:
         return spaces.num_actions(self.action_space())

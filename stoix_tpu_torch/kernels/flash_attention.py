@@ -49,9 +49,10 @@ float32, bfloat16 and float16, as the TPU kernel takes any head dim and
 float dtype. `flash_attention` runs any other head dim up to 256 on the card
 zero-padded to the next built one (`kernel_head_dim`, `padded_flash_attention`):
 the zero columns add nothing to q.k, the scale stays D^-1/2 of the true D,
-and the output's padded columns are cut off. Past 256 the card raises: the
-forward core's 64-row q tile and 64-key K/V tiles would need 32-row tiles
-there.
+and the output's padded columns are cut off. Past 256, where the forward
+core's whole-head-dim tiles outgrow shared memory, every head dim takes the
+wide route (`takes_wide_route`, kernels/flash_attention_wide.py), whose
+kernels stream the head dim in chunks.
 
 Counters: `FORWARD` and `BACKWARD` each count the launches of one kernel, and
 rise nowhere else.
@@ -65,9 +66,13 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from stoix_tpu_torch.kernels.attention_common import (
+    DTYPE_CODES, KEY_TILE, KernelCounter, check_rows_aligned, fold_key_tiles, heads_first,
+    seq_first,
+)
 from stoix_tpu_torch.kernels.build import CudaLibrary
+from stoix_tpu_torch.kernels.flash_attention_wide import wide_flash_attention
 
-KEY_TILE = 64  # keys folded per online-softmax step past S = 64, as the forward core folds them
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # csrc/flash_forward.cuh::built_head_dim's
 
 
@@ -76,7 +81,6 @@ def backward_tile(head_dim: int) -> int:
     (csrc/flash_attention.cu::bwd_rows): 64, or 32 at D = 256."""
     return 32 if head_dim > 128 else 64
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # strides, batch, seq, heads, head_dim, scale, causal, stream
 _SHAPE_ARGS = [_P, _I, _I, _I, _I, _F, _I, _P]
@@ -91,67 +95,12 @@ LIBRARY = CudaLibrary(
 )
 
 
-class KernelCounter:
-    """Launches of one kernel of the library."""
-
-    def __init__(self, name: str) -> None:
-        self.name = name
-        self.launches = 0
-
-
 FORWARD = KernelCounter("flash_attention_forward")
 BACKWARD = KernelCounter("flash_attention_backward")
 COUNTERS = (FORWARD, BACKWARD)
 
 
 # ----------------------------------------------------------------- plain versions
-
-
-def _heads_first(x: torch.Tensor) -> torch.Tensor:
-    """[B, S, H, D] -> [B, H, S, D] float32."""
-    return x.float().permute(0, 2, 1, 3)
-
-
-def _seq_first(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """[B, H, S, D] float32 -> contiguous [B, S, H, D] in `dtype`."""
-    return x.to(dtype).permute(0, 2, 1, 3).contiguous()
-
-
-def fold_key_tiles(
-    qs: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
-    q_positions: Optional[torch.Tensor] = None, k_positions: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernels' online softmax in plain PyTorch: keys folded KEY_TILE at a
-    time, as `_fold_block` folds its blocks (the forward core folds one tile
-    of all the keys when there are at most KEY_TILE, else tiles of KEY_TILE). qs [B, H, Sq, D] float32 (already
-    scaled), kf, vf [B, H, Sk, D] float32. Given positions ([Sq] and [Sk]), a
-    query sees only the keys at or before its own position (causal). Returns
-    m (-inf on a row that saw no key), l [B, H, Sq, 1] and the unnormalised
-    acc [B, H, Sq, D]."""
-    lead = qs.shape[:-1]
-    m = torch.full(lead + (1,), float("-inf"), device=qs.device)
-    l = torch.zeros(lead + (1,), device=qs.device)
-    acc = torch.zeros_like(qs)
-    causal = q_positions is not None
-    if causal:
-        q_pos = q_positions[:, None]
-    for k0 in range(0, kf.shape[2], KEY_TILE):
-        k_blk, v_blk = kf[:, :, k0:k0 + KEY_TILE], vf[:, :, k0:k0 + KEY_TILE]
-        scores = qs @ k_blk.transpose(-1, -2)
-        mask = None
-        if causal:
-            mask = q_pos >= k_positions[k0:k0 + KEY_TILE][None]
-            scores = torch.where(mask, scores, float("-inf"))
-        m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
-        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        p = torch.exp(scores - m_safe)
-        if mask is not None:
-            p = torch.where(mask, p, 0.0)
-        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + p @ v_blk
-        m = m_new
-    return m, l, acc
 
 
 def plain_flash_attention_forward(
@@ -164,11 +113,11 @@ def plain_flash_attention_forward(
     asked, lse [B, H, S] float32."""
     seq = q.shape[1]
     scale = q.shape[3] ** -0.5 if scale is None else scale
-    qs, kf, vf = _heads_first(q) * scale, _heads_first(k), _heads_first(v)
+    qs, kf, vf = heads_first(q) * scale, heads_first(k), heads_first(v)
     positions = torch.arange(seq, device=q.device) if causal else None
     m, l, acc = fold_key_tiles(qs, kf, vf, positions, positions)
     l_safe = torch.where(l == 0.0, 1.0, l)
-    o = _seq_first(acc / l_safe, q.dtype)
+    o = seq_first(acc / l_safe, q.dtype)
     if not need_lse:
         return o, None
     lse = torch.where(l == 0.0, float("inf"), m + torch.log(l))
@@ -185,8 +134,8 @@ def plain_flash_attention_backward(
     D^-1/2). Returns dq, dk, dv (contiguous [B, S, H, D], q.dtype)."""
     seq = q.shape[1]
     scale = q.shape[3] ** -0.5 if scale is None else scale
-    qs, kf, vf, dof = _heads_first(q) * scale, _heads_first(k), _heads_first(v), _heads_first(dout)
-    delta = (dof * _heads_first(o)).sum(-1)
+    qs, kf, vf, dof = heads_first(q) * scale, heads_first(k), heads_first(v), heads_first(dout)
+    delta = (dof * heads_first(o)).sum(-1)
     p = torch.exp(qs @ kf.transpose(-1, -2) - lse[..., None])
     if causal:
         p = torch.where(torch.ones(seq, seq, dtype=torch.bool, device=q.device).tril(), p, 0.0)
@@ -194,7 +143,7 @@ def plain_flash_attention_backward(
     dq = (ds @ kf) * scale
     dk = ds.transpose(-1, -2) @ qs
     dv = p.transpose(-1, -2) @ dof
-    return _seq_first(dq, q.dtype), _seq_first(dk, q.dtype), _seq_first(dv, q.dtype)
+    return seq_first(dq, q.dtype), seq_first(dk, q.dtype), seq_first(dv, q.dtype)
 
 
 # ----------------------------------------------------------------- the kernels
@@ -208,7 +157,8 @@ def kernel_head_dim(head_dim: int) -> int:
         if width >= head_dim:
             return width
     raise ValueError(
-        f"flash attention kernels take head dims up to {HEAD_DIMS[-1]}, got {head_dim}")
+        f"flash attention kernels take head dims up to {HEAD_DIMS[-1]}, got {head_dim} "
+        "(wider head dims take the wide route, `takes_wide_route`)")
 
 
 def pad_head_dim(width: int, *tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -233,16 +183,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash attention kernels take head dims {HEAD_DIMS}, got {q.shape[3]}")
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("flash attention kernels need the head dim of q, k, v contiguous")
-
-
-def check_rows_aligned(what: str, *tensors: torch.Tensor) -> None:
-    """The kernels move rows as 16-byte pieces: every tensor's start and its
-    batch, seq and head strides must be multiples of 16 bytes."""
-    for x in tensors:
-        if x.data_ptr() % 16 or any(
-            x.stride(i) * x.element_size() % 16 for i in range(3) if x.shape[i] > 1
-        ):
-            raise ValueError(f"{what} needs 16-byte aligned rows")
 
 
 def _launch_args(q, k, v, causal, scale):
@@ -376,14 +316,22 @@ def padded_flash_attention(
     return _attend(*pad_head_dim(width, q, k, v), causal, head_dim**-0.5)[..., :head_dim]
 
 
+def takes_wide_route(head_dim: int) -> bool:
+    """Whether attention at `head_dim` goes to the wide route
+    (kernels/flash_attention_wide.py): every head dim past HEAD_DIMS[-1]."""
+    return head_dim > HEAD_DIMS[-1]
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> torch.Tensor:
     """[B, S, H, D] -> [B, S, H, D]: the kernels on CUDA tensors (they launch
-    or raise), their plain versions on CPU tensors. On CUDA a head dim the
-    kernels are not built for runs padded to the next one that is
-    (`kernel_head_dim`); past 256 it raises."""
+    or raise), their plain versions on CPU tensors. On CUDA a head dim up to
+    256 the kernels are not built for runs padded to the next one that is
+    (`kernel_head_dim`); past 256 every device takes the wide route."""
     head_dim = q.shape[-1]
+    if takes_wide_route(head_dim):
+        return wide_flash_attention(q, k, v, causal)
     if q.device.type == "cuda" and head_dim not in HEAD_DIMS:
         return padded_flash_attention(q, k, v, causal, kernel_head_dim(head_dim))
     return _attend(q, k, v, causal, None)

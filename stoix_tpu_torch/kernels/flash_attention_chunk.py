@@ -35,7 +35,8 @@ K/V are copied. q, k, v are taken by strides; their rows must be 16-byte
 aligned (a ValueError otherwise). They may be float32, bfloat16 or float16,
 at the head dims B2 is built for (HEAD_DIMS, 8 to 256); the dispatch
 (ops/pallas_attention.py::flash_attention_chunk) zero-pads any other head dim
-up to 256 and passes the true D^-1/2 as `scale`. The TPU kernel's block sizes (which must
+up to 256 and passes the true D^-1/2 as `scale`, and sends any wider one to the
+wide chunk kernel (kernels/flash_attention_wide.py). The TPU kernel's block sizes (which must
 divide the chunk lengths) do not shape this kernel's tiling.
 
 Counter: `KERNEL` counts this kernel's launches and rises nowhere else.
@@ -48,10 +49,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from stoix_tpu_torch.kernels.build import CudaLibrary
-from stoix_tpu_torch.kernels.flash_attention import (
-    DTYPE_CODES, HEAD_DIMS, KernelCounter, _heads_first, check_rows_aligned, fold_key_tiles,
+from stoix_tpu_torch.kernels.attention_common import (
+    DTYPE_CODES, KernelCounter, check_rows_aligned, fold_key_tiles, heads_first,
 )
+from stoix_tpu_torch.kernels.build import CudaLibrary
+from stoix_tpu_torch.kernels.flash_attention import HEAD_DIMS
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -77,9 +79,9 @@ def plain_flash_attention_chunk(
     KEY_TILE at a time into an fp32 online softmax, each masked by its global
     position (`scale` defaults to D^-1/2). Returns (pv [B, Sq, H, D],
     m [B, H, Sq], l [B, H, Sq]), float32, with m = 0 on a row that saw no key."""
-    qs = _heads_first(q) * (q.shape[3] ** -0.5 if scale is None else scale)
+    qs = heads_first(q) * (q.shape[3] ** -0.5 if scale is None else scale)
     positions = (q_positions, k_positions) if causal else (None, None)
-    m, l, acc = fold_key_tiles(qs, _heads_first(k), _heads_first(v), *positions)
+    m, l, acc = fold_key_tiles(qs, heads_first(k), heads_first(v), *positions)
     m = torch.where(torch.isfinite(m), m, 0.0)
     return acc.permute(0, 2, 1, 3).contiguous(), m[..., 0].contiguous(), l[..., 0].contiguous()
 

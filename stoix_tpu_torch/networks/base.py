@@ -21,11 +21,12 @@ class FeedForwardActor(nn.Module):
         self.input_layer = input_layer
         self._head_takes_mask = "action_mask" in inspect.signature(action_head.forward).parameters
 
-    def forward(self, observation: Any) -> Any:
+    def forward(self, observation: Any, *head_args: Any, **head_kwargs: Any) -> Any:
+        """Extra arguments go to the head (a Q head's epsilon)."""
         embedding = self.torso(self.input_layer(observation))
         if isinstance(observation, Observation) and self._head_takes_mask:
-            return self.action_head(embedding, action_mask=observation.action_mask)
-        return self.action_head(embedding)
+            head_kwargs.setdefault("action_mask", observation.action_mask)
+        return self.action_head(embedding, *head_args, **head_kwargs)
 
 
 class FeedForwardCritic(nn.Module):

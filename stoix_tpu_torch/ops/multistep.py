@@ -1,7 +1,8 @@
 """Multistep return estimators, time-major (counterpart of
-stoix_tpu/ops/multistep.py, the truncation-aware GAE subset).
+stoix_tpu/ops/multistep.py: truncation-aware GAE, `lambda_returns` and
+`q_lambda`).
 
-The estimator reduces to ONE reverse linear recurrence over time
+Each estimator reduces to ONE reverse linear recurrence over time
 (acc_t = delta_t + w_t * acc_{t+1}), evaluated by ops/scan_kernels.py under
 `system.multistep_impl` (`scan`, `assoc`, or `pallas`, the Hopper kernel).
 Under `pallas`, float32 inputs with a scalar lambda take the kernel's GAE
@@ -126,3 +127,43 @@ def truncated_generalized_advantage_estimation(
     if stop_target_gradients:
         return advantages.detach(), targets.detach()
     return advantages, targets
+
+
+def lambda_returns(
+    r_t: torch.Tensor,
+    discount_t: torch.Tensor,
+    v_t: torch.Tensor,
+    lambda_: Numeric = 1.0,
+    stop_target_gradients: bool = False,
+    batch_major: bool = False,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """TD(lambda) returns: G_t = r_t + g_t [(1 - lambda_t) v_t + lambda_t G_{t+1}],
+    through ONE `linear_recurrence_reverse` (B1's generic entry point under
+    `pallas`) with weights g_t lambda_t, deltas r_t + g_t (1 - lambda_t) v_t and
+    G_T's bootstrap v_t[-1]. In float32 the delta is one fused multiply-add,
+    as XLA contracts it inside `jit`."""
+    r_t, discount_t, v_t = _time_major(batch_major, r_t, discount_t, v_t)
+    lam = _broadcast_param(lambda_, r_t, batch_major)
+    if r_t.dtype == torch.float32:
+        delta = fma_f32(discount_t * (1.0 - lam), v_t, r_t)
+    else:
+        delta = r_t + discount_t * (1.0 - lam) * v_t
+    returns = scan_kernels.linear_recurrence_reverse(discount_t * lam, delta, v_t[-1], impl)
+    if batch_major:
+        returns = returns.transpose(0, 1)
+    return returns.detach() if stop_target_gradients else returns
+
+
+def q_lambda(
+    r_t: torch.Tensor,
+    discount_t: torch.Tensor,
+    q_t: torch.Tensor,
+    lambda_: Numeric,
+    stop_target_gradients: bool = True,
+    batch_major: bool = True,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Peng's Q(lambda) targets: lambda returns over max_a Q(s_t, a)."""
+    return lambda_returns(r_t, discount_t, torch.amax(q_t, dim=-1), lambda_,
+                          stop_target_gradients, batch_major=batch_major, impl=impl)

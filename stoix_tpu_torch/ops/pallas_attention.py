@@ -9,7 +9,8 @@ here the card's tensors go to the kernel, and CPU tensors to
 `full_attention`. `flash_attention_chunk` is kernel B3
 (kernels/flash_attention_chunk.py), ring attention's per-step block. On the
 card both run a head dim they are not built for zero-padded to the next one
-they are (`kernel_head_dim`, up to 256).
+they are (`kernel_head_dim`, up to 256); past 256 both take the wide route
+(kernels/flash_attention_wide.py) on the card and on the CPU.
 """
 
 from __future__ import annotations
@@ -17,7 +18,10 @@ from __future__ import annotations
 import torch
 
 from stoix_tpu_torch.kernels import flash_attention_chunk as chunk
-from stoix_tpu_torch.kernels.flash_attention import flash_attention, kernel_head_dim, pad_head_dim
+from stoix_tpu_torch.kernels import flash_attention_wide as wide
+from stoix_tpu_torch.kernels.flash_attention import (
+    flash_attention, kernel_head_dim, pad_head_dim, takes_wide_route,
+)
 from stoix_tpu_torch.ops.ring_attention import full_attention
 
 __all__ = ["best_attention", "flash_attention", "flash_attention_chunk"]
@@ -52,7 +56,8 @@ def flash_attention_chunk(
     Returns (pv [B, Sq, H, D] unnormalized fp32, m [B, H, Sq] fp32 running
     max, l [B, H, Sq] fp32 normalizer). Kernel B3 on CUDA tensors (a head
     dim it is not built for zero-padded to `kernel_head_dim`), its plain
-    version on CPU tensors. The block sizes must divide the chunk lengths, as
+    version on CPU tensors; past head dim 256 the wide chunk kernel or its
+    plain version. The block sizes must divide the chunk lengths, as
     the JAX package requires; the CUDA kernel's own tiling does not depend on
     them.
     """
@@ -64,6 +69,8 @@ def flash_attention_chunk(
         )
     q_positions = q_positions.to(device=q.device, dtype=torch.int32).contiguous()
     k_positions = k_positions.to(device=q.device, dtype=torch.int32).contiguous()
+    if takes_wide_route(q.shape[-1]):
+        return wide.wide_flash_attention_chunk(q, k, v, q_positions, k_positions, causal)
     if q.device.type == "cuda":
         head_dim = q.shape[-1]
         width = kernel_head_dim(head_dim)

@@ -86,7 +86,8 @@ def ring_attention(
     accumulator contract; None means the kernel for a CUDA tensor and the
     plain `_block_attend` for a CPU tensor. True on a CPU tensor runs the
     kernel's plain version. On CUDA the kernel always runs (a head dim it is
-    not built for zero-padded, up to 256) and raises for what it cannot take.
+    not built for zero-padded up to 256, any wider one through the wide chunk
+    kernel) and raises for what it cannot take.
     """
     axis_size = dist.get_world_size(group)
     my_idx = dist.get_rank(group)

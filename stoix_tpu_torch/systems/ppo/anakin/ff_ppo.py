@@ -100,11 +100,6 @@ def _cat(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(list(parts), dim=dim)
 
 
-def replica(tree: Any, index: int) -> Any:
-    """Replica `index` of a tree whose tensors carry a leading [U] axis."""
-    return tree_map(lambda x: x[index], tree)
-
-
 class PPOLearner:
     """The learner function: `learner(state) -> ExperimentOutput` runs
     `arch.num_updates_per_eval` update steps. `rollout` and `update` are the
@@ -160,29 +155,20 @@ class PPOLearner:
 
     def replicas(self, tree: Any) -> List[Any]:
         """The U replicas of a [U]-leading tree (the tree itself at U = 1)."""
-        if self.update_batch == 1:
-            return [tree]
-        return [replica(tree, u) for u in range(self.update_batch)]
+        return anakin.split_replicas(tree, self.update_batch)
 
     def join(self, trees: Sequence[Any]) -> Any:
         """The inverse of `replicas`."""
-        return trees[0] if self.update_batch == 1 else tree_stack(trees)
+        return anakin.join_replicas(trees)
 
     def generators(self, generator: Any) -> List[Optional[torch.Generator]]:
-        if self.update_batch == 1:
-            return [generator]
-        return list(generator) if generator is not None else [None] * self.update_batch
+        if generator is None:
+            return [None] * self.update_batch
+        return anakin.per_replica(generator, self.update_batch)
 
     def group(self, tree: Any, index: int, dim: int) -> Any:
         """Replica `index`'s env columns of every tensor (envs along `dim`)."""
-        if self.update_batch == 1:
-            return tree
-
-        def cut(x: torch.Tensor) -> torch.Tensor:
-            width = x.shape[dim] // self.update_batch
-            return x.narrow(dim, index * width, width)
-
-        return tree_map(cut, tree)
+        return anakin.env_group(tree, index, self.update_batch, dim)
 
     def eval_params(self, params: ActorCriticParams) -> Dict[str, torch.Tensor]:
         """Replica 0's actor params, which the evaluator takes."""
@@ -319,12 +305,11 @@ class PPOLearner:
         averaged, then each replica's clip + Adam step, then the guard."""
         per_replica = [self.gradients(p, batch, b, kl_beta)
                        for p, batch, b in zip(params, batches, behavior)]
+        actor_grads, critic_grads = (anakin.mean_gradients([g[side] for g in per_replica])
+                                     for side in (0, 1))
         if len(per_replica) == 1:
-            actor_grads, critic_grads, terms = per_replica[0]
+            terms = per_replica[0][2]
         else:
-            actor_grads, critic_grads = (
-                {k: torch.stack([g[side][k] for g in per_replica]).mean(0) for k in
-                 per_replica[0][side]} for side in (0, 1))
             terms = tuple(torch.stack(parts) for parts in zip(*(g[2] for g in per_replica)))
         new_params, new_opt = [], []
         for p, opt in zip(params, opt_states):
@@ -561,12 +546,9 @@ def initial_train_state(
     opt_states = ActorCriticOptStates(optims[0].init(params.actor_params),
                                       optims[1].init(params.critic_params))
     update_batch = int(config.arch.get("update_batch_size", 1))
-    if update_batch == 1:
-        return params, opt_states, anakin.make_generator(step_seed, device)
-    broadcast = lambda tree: tree_stack([tree] * update_batch)  # noqa: E731
-    generators = tuple(anakin.make_generator(seed, device)
-                       for seed in anakin.make_seeds(step_seed, update_batch))
-    return broadcast(params), broadcast(opt_states), generators
+    return (anakin.broadcast_to_update_batch(params, update_batch),
+            anakin.broadcast_to_update_batch(opt_states, update_batch),
+            anakin.make_step_generators(step_seed, device, update_batch))
 
 
 def learner_setup(

@@ -97,10 +97,14 @@ def run_anakin_experiment(
     setup_fn: SetupFn,
     device: Union[str, torch.device] = "cuda",
     evaluator_setup_fn: Optional[EvaluatorSetupFn] = None,
+    warmup_fn: Optional[Callable[[Any], Any]] = None,
 ) -> float:
     """Generic Anakin experiment: returns the final eval episode-return mean.
     A system with its own evaluator (a stateful one) passes
-    `evaluator_setup_fn`; the default is the feed-forward evaluator."""
+    `evaluator_setup_fn`; the default is the feed-forward evaluator. An
+    off-policy system passes `warmup_fn` (learner_state -> learner_state, its
+    buffer pre-fill), run once on the fresh state before a restore and the
+    first window, as the JAX runner runs it."""
     device = resolve_device(device)
     check_ported_arch(config)
     guard_mode = guards.resolve_mode(config)
@@ -112,6 +116,8 @@ def run_anakin_experiment(
     setup_seed, eval_seed = make_seeds(int(config.arch.seed), 2)
     setup = setup_fn(env, config, device, setup_seed)
     learner_state = setup.learner_state
+    if warmup_fn is not None:
+        learner_state = warmup_fn(learner_state)
     # Resume: the saved state restored into the freshly built one, before
     # the evaluators (the JAX runner's order).
     start_step = 0

@@ -23,7 +23,11 @@ DenseGeneral and a leaf that is neither kernel, bias nor scale:
     out/kernel, out/bias          ->  out.weight (transposed), out.bias
     positional_embedding          ->  positional_embedding
 
-Any other module name is kept as it is (`torso`, `action_head`).
+Any other module name is kept as it is (`torso`, `action_head`). The Q heads
+(DiscreteQNetworkHead, DistributionalDiscreteQNetwork, QuantileDiscreteQNetwork)
+are one Dense under `action_head` (`action_head.dense.0`); the distributional
+ones reshape its A.M or N.A outputs in flax's row-major order, so the carried
+weights need no reordering.
 """
 
 from __future__ import annotations

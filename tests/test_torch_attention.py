@@ -18,6 +18,9 @@ the JAX package, on the CPU.
 - The padded route for head dims the kernels are not built for (zero-padded
   to the next built one) against the Pallas kernel and jax.grad, and the
   float16 plain forward against the Pallas kernel.
+- The wide route past head dim 256 (kernels/flash_attention_wide.py): its
+  plain forward against the Pallas kernel (2e-5) and its plain backward
+  against jax.grad of `full_attention` (5e-6 of the largest gradient).
 """
 
 import jax
@@ -30,6 +33,7 @@ from stoix_tpu.ops.pallas_attention import flash_attention as jax_flash_attentio
 from stoix_tpu.ops.ring_attention import full_attention as jax_full_attention
 from stoix_tpu_torch.kernels import flash_attention as fa
 from stoix_tpu_torch.kernels import flash_attention_chunk as fac
+from stoix_tpu_torch.kernels import flash_attention_wide as wide
 from stoix_tpu_torch.ops import best_attention, flash_attention
 from stoix_tpu_torch.ops.ring_attention import full_attention
 from torch_parity import n, t
@@ -156,6 +160,23 @@ def test_strided_qkv_views_give_the_same_result():
     assert torch.equal(got, want) and got.is_contiguous()
 
 
+@pytest.mark.parametrize("shape", [(32, 16, 4, 32), (4, 40, 2, 384)])
+def test_cpu_float32_route_matches_a_float64_reference(shape):
+    # The float32 route on CPU tensors (the plain versions: narrow, and wide
+    # past head dim 256) against causal softmax attention in float64, 1e-5,
+    # twice and bitwise the same. A host that rounds this wrongly now and then
+    # (ROADMAP.md Queue C, C9; scripts/torch_cpu_attention_probe.py) fails it.
+    q, k, v = (t(x) for x in _qkv(11, *shape))
+    qd, kd, vd = (x.double().permute(0, 2, 1, 3) for x in (q, k, v))
+    scores = (qd @ kd.transpose(-1, -2)) * shape[3] ** -0.5
+    scores = scores.masked_fill(~torch.ones(shape[1], shape[1], dtype=torch.bool).tril(),
+                                float("-inf"))
+    want = (scores.softmax(-1) @ vd).permute(0, 2, 1, 3)
+    got = flash_attention(q, k, v, causal=True)
+    assert torch.equal(got, flash_attention(q, k, v, causal=True))
+    np.testing.assert_allclose(n(got).astype(np.float64), want.numpy(), atol=1e-5, rtol=0)
+
+
 def test_dispatch_by_device_and_counters_stay_still_on_the_cpu():
     q, k, v = (t(x) for x in _qkv(8, 2, 16, 2, 16))
     before = [c.launches for c in fa.COUNTERS]
@@ -181,10 +202,84 @@ def test_kernel_head_dim_is_the_next_built_one(head_dim, width):
     assert fa.kernel_head_dim(head_dim) == width and width in fa.HEAD_DIMS
 
 
-@pytest.mark.parametrize("head_dim", [257, 512])
+@pytest.mark.parametrize("head_dim", [257, 384, 1000])
 def test_kernel_head_dim_refuses_past_the_widest(head_dim):
+    # The narrow kernels stop at 256 and never pad past it: every wider head
+    # dim takes the wide route (kernels/flash_attention_wide.py), through the
+    # same dispatch on every device, here its plain version on the CPU.
     with pytest.raises(ValueError, match="head dims up to 256"):
         fa.kernel_head_dim(head_dim)
+    assert fa.takes_wide_route(head_dim) and not fa.takes_wide_route(256)
+    q, k, v = (t(x) for x in _qkv(head_dim, 1, 5, 1, head_dim))
+    before = [c.launches for c in fa.COUNTERS + wide.COUNTERS]
+    assert torch.equal(flash_attention(q, k, v, causal=True),
+                       wide.plain_wide_forward(q, k, v, True)[0])
+    assert [c.launches for c in fa.COUNTERS + wide.COUNTERS] == before
+
+
+# The wide route's plain versions (the wide kernels' arithmetic: 16-row and
+# 32-key tiles, scores summed over the head dim 64 columns at a time) at head
+# dims 257 (a last chunk of one column), 384 and 1000: the forward against the
+# Pallas kernel in interpret mode (2e-5, as above), the backward against
+# jax.grad of `full_attention`. The gradients reach 14 to 45 here and dQ and
+# dK sum over up to 1000 columns in another order than XLA's: the port is up
+# to 7.2e-5 off jax.grad, and jax.grad itself up to 3.9e-5 off a float64
+# reference (scripts/torch_wide_backward_error.py), so 1e-5 absolute cannot
+# hold. The largest error is 2.0e-6 of the tensor's largest gradient (dQ at
+# D = 257); they are held at 5e-6 of it, 2.5 times that, as at D = 256 above.
+# S = 40 spans two key tiles and three query tiles, the last of each ragged.
+WIDE_DIMS = [257, 384, 1000]
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_route_forward_matches_the_pallas_kernel(d, causal):
+    q, k, v = _qkv(d + 1, 2, 40, 2, d)
+    got, lse = wide.plain_wide_forward(t(q), t(k), t(v), causal, need_lse=True)
+    np.testing.assert_allclose(n(got), _jax_flash(q, k, v, causal), atol=2e-5, rtol=2e-5)
+    scores = np.einsum("bqhd,bkhd->bhqk", q, k) * d**-0.5
+    if causal:
+        scores = np.where(np.tril(np.ones((40, 40), bool)), scores, -np.inf)
+    np.testing.assert_allclose(n(lse), np.asarray(jax.nn.logsumexp(scores, axis=-1)),
+                               atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_route_backward_matches_jax_grad(d):
+    q, k, v = _qkv(d + 2, 2, 40, 2, d)
+    leaves = [t(x).requires_grad_(True) for x in (q, k, v)]
+    (flash_attention(*leaves, causal=True) ** 2).sum().backward()
+
+    def loss(a, b, c):
+        return (jax_full_attention(a, b, c, causal=True) ** 2).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for leaf, w in zip(leaves, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(n(leaf.grad), w, rtol=0, atol=5e-6 * np.abs(w).max())
+
+
+def test_wide_plain_backward_sums_tiles_in_order():
+    # dV over query tiles of 16 and dQ over key tiles of 32, in order: equal
+    # to the unsplit products within float32 reassociation (1e-5 relative).
+    q, k, v, dout = (t(x) for x in _qkv(5, 1, 40, 1, 300) + _qkv(6, 1, 40, 1, 300)[:1])
+    o, lse = wide.plain_wide_forward(q, k, v, True, need_lse=True)
+    got = wide.plain_wide_backward(q, k, v, o, lse, dout, True)
+    want = fa.plain_flash_attention_backward(q, k, v, o, lse, dout, True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_wide_kernel_wrappers_refuse_cpu_tensors():
+    q, k, v = (t(x) for x in _qkv(9, 1, 16, 1, 300))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        wide.forward_kernel(q, k, v)
+    o, lse = wide.plain_wide_forward(q, k, v, need_lse=True)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        wide.backward_kernel(q, k, v, o, lse, o)
+    pos = torch.arange(16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        wide.chunk_kernel(q, k, v, pos, pos)
 
 
 # The padded route (q, k, v zero-padded to the next built head dim, the scale

@@ -48,6 +48,18 @@ def test_trans_config_tree_mirrors_the_jax_package(overrides):
     _assert_mirrors(TRANS_ROOT, overrides)
 
 
+# The value-based family's roots (each composes its system/q_learning and
+# network/mlp_{dqn,pqn,c51,qr_dqn} groups).
+Q_ROOTS = [f"default/anakin/default_ff_{name}.yaml"
+           for name in ("dqn", "ddqn", "dqn_reg", "mdqn", "c51", "qr_dqn", "pqn")]
+
+
+@pytest.mark.parametrize("root", Q_ROOTS)
+@pytest.mark.parametrize("overrides", [[], ["env=identity_game", "system.multistep_impl=pallas"]])
+def test_q_family_config_trees_mirror_the_jax_package(root, overrides):
+    _assert_mirrors(root, overrides)
+
+
 def test_overrides_and_instantiate_work_on_the_port_tree():
     cfg = config_lib.compose(config_lib.default_config_dir(), ROOT,
                              ["system.gamma=0.5", "arch.seed=7"])

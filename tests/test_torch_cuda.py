@@ -15,11 +15,26 @@ import torch.distributed as dist
 from stoix_tpu_torch import parallel
 from stoix_tpu_torch.kernels import flash_attention as fa
 from stoix_tpu_torch.kernels import flash_attention_chunk as fac
+from stoix_tpu_torch.kernels import flash_attention_wide as wide
 from stoix_tpu_torch.kernels import linear_recurrence as lr
 from stoix_tpu_torch.networks.attention import TransformerTorso
 from stoix_tpu_torch.ops import best_attention, full_attention, multistep
 from stoix_tpu_torch.ops.ring_attention import ring_attention
 from stoix_tpu_torch.utils.config import Config
+
+
+# The attention references on the host run in float64 (rounded to float32 to
+# compare): the host of an H100 machine has computed a float32 plain
+# attention 8.6e-5 off in one process of eight (ROADMAP.md C11);
+# `test_host_float32_route_on_card_drawn_inputs_matches_float64` watches for it.
+def _torso_reference(torso, x):
+    """The torso's output and parameter gradients of (out ** 2).sum() in
+    float64 on the host, rounded to float32."""
+    import copy
+    ref = copy.deepcopy(torso).double()
+    out = ref(x.double())
+    (out ** 2).sum().backward()
+    return out.detach().float(), [p.grad.float() for p in ref.parameters()]
 
 
 def _require_cuda() -> torch.device:
@@ -274,12 +289,31 @@ def test_flash_attention_takes_strided_qkv_views_and_trains():
     q, k, v = proj[:, :, 0], proj[:, :, 1], proj[:, :, 2]
     out = fa.flash_attention(q, k, v, causal=True)
     (out * out).sum().backward()
-    ref = proj.detach().clone().requires_grad_(True)
-    rq, rk, rv = (ref[:, :, i].contiguous() for i in range(3))
-    want = fa.FlashAttention.apply(rq.cpu(), rk.cpu(), rv.cpu(), True)
+    ref = proj.detach().cpu().double().requires_grad_(True)
+    want = full_attention(ref[:, :, 0], ref[:, :, 1], ref[:, :, 2], causal=True)
     (want * want).sum().backward()
-    torch.testing.assert_close(out.cpu(), want.detach(), rtol=0, atol=1e-5)
-    torch.testing.assert_close(proj.grad.cpu(), ref.grad.cpu(), rtol=0, atol=1e-4)
+    torch.testing.assert_close(out.cpu(), want.detach().float(), rtol=0, atol=1e-5)
+    torch.testing.assert_close(proj.grad.cpu(), ref.grad.float(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_host_float32_route_on_card_drawn_inputs_matches_float64():
+    # The strided-view test's inputs, drawn on the card, through the port's
+    # float32 route on CPU tensors (the plain versions, forward and backward)
+    # against float64: 1e-5 and 1e-4, as above. On the host of an H100
+    # machine this route once missed by 1.1e-4 (ROADMAP.md C11); this test
+    # keeps that fault visible.
+    device = _require_cuda()
+    gen = torch.Generator(device=device).manual_seed(2)
+    proj = torch.randn((32, 16, 3, 4, 32), generator=gen, device=device).cpu()
+    leaf = proj.clone().requires_grad_(True)
+    got = fa.FlashAttention.apply(*(leaf[:, :, i].contiguous() for i in range(3)), True)
+    (got * got).sum().backward()
+    ref = proj.double().requires_grad_(True)
+    want = full_attention(ref[:, :, 0], ref[:, :, 1], ref[:, :, 2], causal=True)
+    (want * want).sum().backward()
+    torch.testing.assert_close(got.detach(), want.detach().float(), rtol=0, atol=1e-5)
+    torch.testing.assert_close(leaf.grad, ref.grad.float(), rtol=0, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -417,7 +451,7 @@ def test_chunk_kernel_rejects_what_it_cannot_take():
 # inputs at 2e-3 absolute and relative (the kernel computes in fp32 and rounds
 # once to float16: within a float16 ulp).
 def _c6_want(q, k, v):
-    return full_attention(*(x.cpu().float() for x in (q, k, v)), causal=True)
+    return full_attention(*(x.cpu().double() for x in (q, k, v)), causal=True).float()
 
 
 def _c6_tolerance(dtype):
@@ -439,13 +473,91 @@ def test_best_attention_at_any_head_dim_runs_the_kernel_on_the_card(head_dim, dt
     torch.testing.assert_close(got.cpu().float(), _c6_want(q, k, v), **_c6_tolerance(dtype))
 
 
+# C8 past 256: every wider head dim runs the wide kernels
+# (kernels/flash_attention_wide.py), one forward launch a call, nothing of the
+# narrow kernels, within 2e-5 of the CPU's float32 attention.
 @pytest.mark.cuda
-def test_best_attention_past_head_dim_128_raises_on_the_card():
-    # The edge moved from 128 to 256 when the kernels were built for D = 256
-    # (C8): past it the card still raises.
-    q, k, v = _qkv((2, 4, 1, 257), torch.float32, _require_cuda())
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        best_attention(q, k, v)
+@pytest.mark.parametrize("head_dim", [257, 384, 512, 1000])
+def test_best_attention_past_head_dim_256_runs_the_wide_kernel_on_the_card(head_dim):
+    device = _require_cuda()
+    q, k, v = _qkv((2, 20, 2, head_dim), torch.float32, device, seed=head_dim)
+    before = [c.launches for c in fa.COUNTERS + wide.COUNTERS]
+    got = best_attention(q, k, v, causal=True)
+    assert [c.launches - b for c, b in zip(fa.COUNTERS + wide.COUNTERS, before)] == [
+        0, 0, 1, 0, 0]
+    torch.testing.assert_close(got.cpu(), _c6_want(q, k, v), rtol=0, atol=2e-5)
+
+
+# Each wide kernel against its plain version on the same inputs (the plain
+# version on CPU copies), at head dims 257 (a last chunk of one column), 384,
+# 512 and 1000, in the three dtypes, causal, with ragged tiles (S = 40: three
+# 16-row and two 32-key tiles). Tolerances as the narrow kernels' (`_atol`);
+# the backward's 16-bit outputs also relative, B3's pv and l relative to l.
+WIDE_CASES = [(d, dtype) for d in (257, 384, 512, 1000)
+              for dtype in (torch.float32, torch.bfloat16, torch.float16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,dtype", WIDE_CASES)
+def test_wide_kernels_match_plain_versions(head_dim, dtype):
+    device = _require_cuda()
+    q, k, v = _qkv((2, 40, 2, head_dim), dtype, device, seed=head_dim)
+    cpu = [x.cpu() for x in (q, k, v)]
+    o, lse = wide.forward_kernel(q, k, v, True, need_lse=True)
+    want_o, want_lse = wide.plain_wide_forward(*cpu, True, need_lse=True)
+    torch.testing.assert_close(o.cpu().float(), want_o.float(), rtol=0, atol=_atol(dtype))
+    torch.testing.assert_close(lse.cpu(), want_lse, rtol=0, atol=1e-5)
+    dout = torch.randn(q.shape, generator=torch.Generator(device=device).manual_seed(3),
+                       device=device).to(dtype)
+    got = wide.backward_kernel(q, k, v, o, lse, dout, True)
+    want = wide.plain_wide_backward(*cpu, o.cpu(), lse.cpu(), dout.cpu(), True)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == q.shape
+        tol = 1e-5 if dtype == torch.float32 else _atol(dtype)
+        torch.testing.assert_close(g.cpu().float(), w.float(), rtol=tol,
+                                   atol=tol * max(1.0, w.float().abs().max().item()))
+    q_pos = torch.arange(24, 64, dtype=torch.int32)
+    k_pos = torch.randperm(40, generator=torch.Generator().manual_seed(1)).to(torch.int32)
+    got = wide.chunk_kernel(q, k, v, q_pos.to(device), k_pos.to(device), True)
+    want = wide.plain_wide_chunk(*cpu, q_pos, k_pos, True)
+    assert max(fac.chunk_errors(tuple(x.cpu() for x in got), want)) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_wide_kernels_are_deterministic_and_reject_what_they_cannot_take():
+    device = _require_cuda()
+    q, k, v = _qkv((4, 70, 2, 300), torch.float32, device)
+    o, lse = wide.forward_kernel(q, k, v, True, need_lse=True)
+    assert torch.equal(o, wide.forward_kernel(q, k, v, True)[0])
+    first = wide.backward_kernel(q, k, v, o, lse, o, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, wide.backward_kernel(
+        q, k, v, o, lse, o, True)))
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        wide.forward_kernel(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="head dim of q, k, v contiguous"):
+        wide.forward_kernel(q.transpose(1, 3), k.transpose(1, 3), v.transpose(1, 3))
+    with pytest.raises(ValueError, match="contiguous float32 lse"):
+        wide.backward_kernel(q, k, v, o, lse[:, :, :10], o)
+
+
+# The torso and the one-rank ring at D = 384 through the wide kernels (one
+# forward and one backward launch a torso step, one chunk launch a ring step),
+# against the CPU, tolerances as at D = 256 above.
+@pytest.mark.cuda
+def test_transformer_torso_trains_through_the_wide_kernels():
+    device = _require_cuda()
+    torso = TransformerTorso(5, 1, 2, 384, 32, generator=torch.Generator().manual_seed(0))
+    x = torch.randn((3, 4, 5), generator=torch.Generator().manual_seed(1))
+    want, want_grads = _torso_reference(torso, x)
+    before = [c.launches for c in fa.COUNTERS + wide.COUNTERS]
+    got = torso.to(device)(x.to(device))
+    (got ** 2).sum().backward()
+    assert [c.launches - b for c, b in zip(fa.COUNTERS + wide.COUNTERS, before)] == [
+        0, 0, 1, 1, 0]
+    torch.testing.assert_close(got.cpu(), want.detach(), rtol=0, atol=1e-4)
+    for p, w in zip(torso.parameters(), want_grads):
+        torch.testing.assert_close(p.grad.cpu(), w, rtol=1e-4, atol=5e-4)
 
 
 @pytest.mark.cuda
@@ -454,10 +566,7 @@ def test_transformer_torso_trains_through_the_kernels_at_small_head_dims(head_di
     device = _require_cuda()
     torso = TransformerTorso(5, 1, 2, head_dim, 32, generator=torch.Generator().manual_seed(0))
     x = torch.randn((3, 4, 5), generator=torch.Generator().manual_seed(1))
-    want = torso(x)
-    (want ** 2).sum().backward()
-    want_grads = [p.grad.clone() for p in torso.parameters()]
-    torso.zero_grad()
+    want, want_grads = _torso_reference(torso, x)
     before = [c.launches for c in fa.COUNTERS]
     got = torso.to(device)(x.to(device))
     (got ** 2).sum().backward()
@@ -478,10 +587,7 @@ def test_transformer_torso_trains_through_the_kernels_at_wide_head_dims(head_dim
     device = _require_cuda()
     torso = TransformerTorso(5, 1, 2, head_dim, 32, generator=torch.Generator().manual_seed(0))
     x = torch.randn((3, 4, 5), generator=torch.Generator().manual_seed(1))
-    want = torso(x)
-    (want ** 2).sum().backward()
-    want_grads = [p.grad.clone() for p in torso.parameters()]
-    torso.zero_grad()
+    want, want_grads = _torso_reference(torso, x)
     before = [c.launches for c in fa.COUNTERS]
     got = torso.to(device)(x.to(device))
     (got ** 2).sum().backward()
@@ -494,7 +600,8 @@ def test_transformer_torso_trains_through_the_kernels_at_wide_head_dims(head_dim
 @pytest.mark.cuda
 @pytest.mark.parametrize("head_dim,dtype", [(8, torch.float32), (32, torch.float16),
                                             (24, torch.float32), (200, torch.float32),
-                                            (256, torch.float16)])
+                                            (256, torch.float16), (257, torch.float32),
+                                            (384, torch.float32), (1000, torch.float16)])
 def test_one_rank_ring_at_any_head_dim_runs_the_chunk_kernel_on_the_card(
         tmp_path, head_dim, dtype):
     device = _require_cuda()
@@ -505,12 +612,10 @@ def test_one_rank_ring_at_any_head_dim_runs_the_chunk_kernel_on_the_card(
     try:
         group = parallel.create_mesh({"data": 1}, device="cuda").get_group("data")
         q, k, v = _qkv((2, 32, 2, head_dim), dtype, device, seed=head_dim + 1)
-        before = fac.KERNEL.launches
+        kernel = wide.CHUNK if head_dim > 256 else fac.KERNEL
+        before = kernel.launches
         got = ring_attention(q, k, v, group, causal=True)
-        assert fac.KERNEL.launches == before + 1
-        with pytest.raises(ValueError, match="head dims"):  # past 256, explicitly or not
-            wide = torch.zeros((2, 32, 2, 257), device=device)
-            ring_attention(wide, wide, wide, group, causal=True, use_flash=True)
+        assert kernel.launches == before + 1
     finally:
         dist.destroy_process_group()
     assert got.dtype == dtype
@@ -561,3 +666,127 @@ def test_knobs_resume_is_bitwise_the_unbroken_run_on_the_card(tmp_path, monkeypa
             assert torch.equal(value["generator_state"], resumed[key]["generator_state"]), key
         else:
             assert value == resumed[key], key
+
+
+# ----------------------------------------------------------------- the value-based family
+
+
+def _q_network(head_kind: str = "dqn", use_layer_norm: bool = False):
+    from stoix_tpu_torch.networks import base, heads, inputs, torso
+    gen = torch.Generator().manual_seed(0)
+    head = {"dqn": lambda: heads.DiscreteQNetworkHead(3, 16, generator=gen),
+            "c51": lambda: heads.DistributionalDiscreteQNetwork(3, 16, num_atoms=11, vmin=-5.0,
+                                                                vmax=5.0, generator=gen)}[head_kind]
+    return base.FeedForwardActor(head(), torso.MLPTorso(5, (16, 16), use_layer_norm=use_layer_norm,
+                                                        generator=gen), inputs.ObservationInput())
+
+
+def _observations(lead, seed):
+    from stoix_tpu_torch.envs.types import Observation
+    gen = torch.Generator().manual_seed(seed)
+    return Observation(torch.randn(lead + (5,), generator=gen), torch.ones(lead + (3,)),
+                       torch.zeros(lead, dtype=torch.int32))
+
+
+def _to(tree, device):
+    from stoix_tpu_torch.utils.tree import tree_map
+    return tree_map(lambda x: x.to(device), tree)
+
+
+@pytest.mark.cuda
+def test_item_buffer_on_the_card_matches_the_cpu():
+    from stoix_tpu_torch.buffers import make_item_buffer
+    device = _require_cuda()
+    buf = make_item_buffer(max_length=50, min_length=8, sample_batch_size=64)
+    item = {"obs": torch.zeros(3), "action": torch.zeros((), dtype=torch.int32)}
+    on_card, on_cpu = buf.init(_to(item, device)), buf.init(item)
+    gen = torch.Generator().manual_seed(0)
+    for size in (20, 12, 12, 12, 7):
+        batch = {"obs": torch.randn((size, 3), generator=gen),
+                 "action": torch.randint(0, 4, (size,), generator=gen, dtype=torch.int32)}
+        on_card, on_cpu = buf.add(on_card, _to(batch, device)), buf.add(on_cpu, batch)
+    assert (on_card.insert_pos, on_card.num_added) == (on_cpu.insert_pos, on_cpu.num_added)
+    indices = buf.sample_indices(on_card, torch.Generator(device=device).manual_seed(1))
+    assert indices.device.type == "cuda" and int(indices.max()) < 50
+    got = buf.gather(on_card, indices).experience
+    want = buf.gather(on_cpu, indices.cpu()).experience
+    assert all(torch.equal(got[k].cpu(), want[k]) for k in want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_kind", ["dqn", "c51"])
+def test_dqn_update_step_on_the_card_matches_the_cpu(head_kind):
+    # One update_from_batch (loss, gradients, clip + Adam, Polyak) of ff_dqn
+    # and of ff_c51 on the same explicit batch and params: 1e-5 absolute (the
+    # dense layers sum in another order on the card; the MLP torso computes
+    # in float32, so this reference stays float32).
+    from stoix_tpu_torch.base_types import OnlineAndTarget, Transition
+    from stoix_tpu_torch.systems.q_learning import ff_c51, ff_dqn, q_family
+    from stoix_tpu_torch.utils import config as config_lib
+    from stoix_tpu_torch.utils.training import ClipAdam
+    device = _require_cuda()
+    name = "ff_dqn" if head_kind == "dqn" else "ff_c51"
+    loss_fn = ff_dqn.dqn_loss if head_kind == "dqn" else ff_c51.c51_loss
+    cfg = config_lib.compose(config_lib.default_config_dir(),
+                             f"default/anakin/default_{name}.yaml", [])
+    gen = torch.Generator().manual_seed(2)
+    batch = Transition(_observations((64,), 3), torch.randint(0, 3, (64,), generator=gen),
+                       torch.randn(64, generator=gen), torch.rand(64, generator=gen) < 0.2,
+                       _observations((64,), 4), {})
+    results = []
+    for dev in ("cpu", device):
+        net = _q_network(head_kind).to(dev)
+        online = {k: v.detach() for k, v in net.named_parameters()}
+        target = {k: v * 0.5 for k, v in online.items()}
+        optim = ClipAdam(1e-3, 0.5, eps=1e-5)
+        update = q_family.QUpdate(loss_fn, q_family.make_q_apply(net), optim, cfg)
+        params, opt = [OnlineAndTarget(online, target)], [optim.init(online)]
+        for _ in range(2):
+            params, opt, info = update(params, opt, [_to(batch, dev)])
+        results.append((params[0], info["q_loss"]))
+    (cpu_params, cpu_loss), (card_params, card_loss) = results
+    torch.testing.assert_close(card_loss.cpu(), cpu_loss, rtol=1e-5, atol=0)
+    for side in (0, 1):
+        for k, v in cpu_params[side].items():
+            torch.testing.assert_close(card_params[side][k].cpu(), v, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_pqn_update_step_on_the_card_matches_the_cpu():
+    # ff_pqn's update on one explicit trajectory with given permutations:
+    # Q(lambda) targets through B1's generic kernel (one launch) on the card
+    # against `scan` on the CPU (1e-6: the network's max Q in another
+    # summation order), then 2 x 2 clip + RAdam steps: params 1e-5 absolute.
+    from stoix_tpu_torch.systems.q_learning import ff_pqn, q_family
+    from stoix_tpu_torch.utils import config as config_lib
+    from stoix_tpu_torch.utils.training import ClipRAdam
+    device = _require_cuda()
+    cfg = config_lib.compose(config_lib.default_config_dir(), "default/anakin/default_ff_pqn.yaml",
+                             ["system.epochs=2", "system.num_minibatches=2", "arch.num_updates=4",
+                              "arch.num_updates_per_eval=1"])
+    gen = torch.Generator().manual_seed(5)
+    discount = (torch.rand((8, 16), generator=gen) > 0.2).float()
+    traj = ff_pqn.PQNTransition(
+        _observations((8, 16), 6), torch.randint(0, 3, (8, 16), generator=gen),
+        torch.randn((8, 16), generator=gen), discount,
+        (torch.rand((8, 16), generator=gen) < 0.2) & (discount != 0), _observations((8, 16), 7),
+        {})
+    perms = [torch.randperm(128, generator=gen) for _ in range(2)]
+    results = []
+    for dev, impl in (("cpu", "scan"), (device, "pallas")):
+        net = _q_network(use_layer_norm=True).to(dev)
+        optim = ClipRAdam(5e-3, 0.5)
+        learner = ff_pqn.PQNLearner(None, q_family.make_q_apply(net), optim, cfg)
+        params = {k: v.detach() for k, v in net.named_parameters()}
+        before = lr.KERNEL.launches
+        with multistep.scan_kernels.use_impl(impl):
+            out = learner.update(params, (optim.init(params), ff_pqn.PQNStepCount(0)),
+                                 _to(traj, dev), None, permutations=perms)
+        results.append(out)
+        if dev == device:
+            assert lr.KERNEL.launches == before + 1
+    (cpu_params, _, _, cpu_targets), (card_params, card_opt, _, card_targets) = results
+    torch.testing.assert_close(card_targets.cpu(), cpu_targets, rtol=0, atol=1e-6)
+    for k, v in cpu_params.items():
+        torch.testing.assert_close(card_params[k].cpu(), v, rtol=0, atol=1e-5)
+    assert ff_pqn.find_step_count(card_opt) == 4

@@ -270,6 +270,11 @@ def test_port_imports_nothing_of_jax():
         "('jax', 'jaxlib', 'flax', 'optax', 'chex', 'orbax') or k == 'stoix_tpu' "
         "or k.startswith('stoix_tpu.'))\n"
         "print(len([k for k in sys.modules if k.startswith('stoix_tpu_torch')]), bad)\n"
+        "slice8 = ['buffers.buffers', 'systems.off_policy_core', 'kernels.flash_attention_wide',\n"
+        "          'kernels.attention_common',\n"
+        "          *('systems.q_learning.' + m for m in ('q_family', 'ff_dqn', 'ff_ddqn',\n"
+        "            'ff_dqn_reg', 'ff_mdqn', 'ff_c51', 'ff_qr_dqn', 'ff_pqn'))]\n"
+        "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice8)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, timeout=120, check=True)

@@ -39,6 +39,7 @@ from stoix_tpu.ops.ring_attention import ring_attention as jax_ring_attention
 from stoix_tpu.parallel import create_mesh as jax_create_mesh
 from stoix_tpu.parallel import shard_map
 from stoix_tpu_torch.kernels import flash_attention_chunk as chunk
+from stoix_tpu_torch.kernels import flash_attention_wide as wide
 from stoix_tpu_torch.ops.pallas_attention import flash_attention_chunk
 from stoix_tpu_torch.ops.ring_attention import full_attention
 from torch_parity import n, t
@@ -95,6 +96,24 @@ def test_plain_chunk_matches_the_pallas_kernel(causal, c):
     assert chunk.KERNEL.launches == before  # a CPU tensor takes the plain version
     assert got[0].dtype == got[1].dtype == got[2].dtype == np.float32
     assert_chunk_close(got, _jax_chunk(*inputs, causal))
+
+
+# B3 past head dim 256: the wide chunk kernel's plain version (32-key tiles,
+# scores summed 64 columns at a time) through the dispatch, against the Pallas
+# chunk kernel in interpret mode, a visible, a diagonal and a future chunk of
+# 64 keys (two key tiles) at head dims 257, 384 and 1000; 2e-5 as above.
+@pytest.mark.parametrize("d", [257, 384, 1000])
+@pytest.mark.parametrize("q_start,k_start", [(64, 0), (64, 64), (0, 64)])
+def test_wide_plain_chunk_matches_the_pallas_kernel(d, q_start, k_start):
+    q, k, v = _qkv(d, 1, 64, 2, d)
+    q_pos = np.arange(q_start, q_start + 64, dtype=np.int32)
+    k_pos = np.arange(k_start, k_start + 64, dtype=np.int32)
+    before = [c.launches for c in wide.COUNTERS]
+    got = _port_chunk(q, k, v, q_pos, k_pos, True)
+    assert [c.launches for c in wide.COUNTERS] == before
+    assert_chunk_close(got, _jax_chunk(q, k, v, q_pos, k_pos, True))
+    want = wide.plain_wide_chunk(*map(t, (q, k, v, q_pos, k_pos)), True)
+    assert all(np.array_equal(g, n(w)) for g, w in zip(got, want))
 
 
 def test_chunk_wholly_in_the_future_gives_the_proxy_stats():
