@@ -111,16 +111,18 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    skipped updates; IdentityGame with the same knobs above 8.0.
  15. c8_wide     — head dims past 256 through the wide kernels: the forward,
                    backward and chunk kernels against their plain versions at
-                   D = 257, 384 and 1000 in three dtypes; `best_attention` at
-                   D = 257 and the torso at D = 384 against the CPU; then
-                   their paths, every counter zeroed just before and read just
-                   after: one ff_trans_ppo update at 2 heads x 512 (130 wide
-                   forward and 64 wide backward launches, nothing narrow) and
-                   a one-rank ring at D = 384 (one wide chunk launch); the
-                   three against their plain versions at the update's
-                   minibatch shape [4096, 16, 2, 384] and [..., 512], then
-                   timed there beside their bounds and SDPA. (Runs inside the mesh of phase ring,
-                   after c6 and c8.)
+                   D = 257, 384, 512, 513 and 1000 (both sides of the 512-column
+                   slice boundary) in three dtypes, causal and not, at S = 40;
+                   `best_attention` at D = 257 and the torso at D = 384
+                   against the CPU; then their paths, every counter zeroed
+                   just before and read just after: one ff_trans_ppo update
+                   at 2 heads x 512 (130 wide forward and 64 wide backward
+                   launches, nothing narrow) and a one-rank ring at D = 384
+                   (one wide chunk launch); the three against their plain
+                   versions at the update's minibatch shape [4096, 16, 2, 384]
+                   and [..., 512], then timed there beside their bounds and
+                   SDPA. (Runs inside the mesh of phase ring, after c6 and
+                   c8.)
  16. q_learn     — ff_dqn and ff_pqn (multistep_impl=pallas) train IdentityGame
                    on the card above 8.0 (the JAX package's oracles).
  17. q_train     — ff_dqn and ff_pqn at their default configs' full width on
@@ -1295,13 +1297,16 @@ def timed_kernels(route: dict, shape, seed: int, smi: str, phase: str,
     return times
 
 
-WIDE_DIMS = (257, 384, 1000)  # a last head-dim chunk of one column; 6 chunks; 16 chunks
+# Rows that are not whole 16-byte pieces; 6 chunks; the widest one-slice head
+# dim; two 512-column output slices, the second one column wide; 16 chunks.
+WIDE_DIMS = (257, 384, 512, 513, 1000)
 WIDE_TRANS = dict(heads=2, head_dim=512)  # phase c8_wide's ff_trans_ppo update
 
 
 def phase_c8_wide(mesh, smi: str) -> list:
     """Head dims past 256 run through the wide kernels (C8): each against its
-    plain version at D = 257, 384 and 1000 in three dtypes; `best_attention`
+    plain version at D = 257, 384, 512, 513 and 1000 (both sides of the
+    512-column slice boundary) in three dtypes, causal and not; `best_attention`
     at D = 257 and the torso's forward and gradients at D = 384 against the
     CPU; then the two paths the kernels serve, each with every counter zeroed
     just before and read just after: one ff_trans_ppo update at 2 heads x 512
@@ -1313,19 +1318,21 @@ def phase_c8_wide(mesh, smi: str) -> list:
     counters = (*fa.COUNTERS, flash_attention_chunk.KERNEL, *wide.COUNTERS)
     tolerance = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
     errors = {"forward": 0.0, "backward": 0.0, "chunk": 0.0}
-    for seed, (d, dtype) in enumerate((d, dtype) for d in WIDE_DIMS for dtype in tolerance):
+    cases = [(d, dtype, causal) for d in WIDE_DIMS for dtype in tolerance
+             for causal in (True, False)]
+    for seed, (d, dtype, causal) in enumerate(cases):
         q, k, v = qkv_views(4, 40, 2, d, dtype, seed=100 + seed)
         dout = qkv_views(4, 40, 2, d, dtype, seed=200 + seed)[0].contiguous()
         q_pos = torch.arange(24, 64, dtype=torch.int32, device="cuda")
         k_pos = torch.randperm(40, generator=torch.Generator().manual_seed(seed)).to(
             device="cuda", dtype=torch.int32)
-        o, lse = wide.forward_kernel(q, k, v, True, need_lse=True)
-        grads = wide.backward_kernel(q, k, v, o, lse, dout, True)
-        chunk = wide.chunk_kernel(q, k, v, q_pos, k_pos, True)
+        o, lse = wide.forward_kernel(q, k, v, causal, need_lse=True)
+        grads = wide.backward_kernel(q, k, v, o, lse, dout, causal)
+        chunk = wide.chunk_kernel(q, k, v, q_pos, k_pos, causal)
         torch.cuda.synchronize()
-        want_o, want_lse = wide.plain_wide_forward(q, k, v, True, need_lse=True)
-        want_grads = wide.plain_wide_backward(q, k, v, o, lse, dout, True)
-        want_chunk = wide.plain_wide_chunk(q, k, v, q_pos, k_pos, True)
+        want_o, want_lse = wide.plain_wide_forward(q, k, v, causal, need_lse=True)
+        want_grads = wide.plain_wide_backward(q, k, v, o, lse, dout, causal)
+        want_chunk = wide.plain_wide_chunk(q, k, v, q_pos, k_pos, causal)
         tol = tolerance[dtype]
         forward_err = (o.float() - want_o.float()).abs().max().item()
         lse_err = (lse - want_lse).abs().max().item()
@@ -1340,17 +1347,18 @@ def phase_c8_wide(mesh, smi: str) -> list:
                          + rtol * w.float().abs()).all()) for g, w in zip(grads, want_grads))
         chunk_errs = flash_attention_chunk.chunk_errors(chunk, want_chunk)
         if any(not torch.isfinite(x).all() for x in (o, *grads, *chunk)):
-            raise AssertionError(f"wide kernels' output malformed at D={d} {dtype}")
+            raise AssertionError(f"wide kernels' output malformed at D={d} {dtype} {causal}")
         if not (forward_err <= tol and lse_err <= 1e-5 and held and max(chunk_errs) <= 1e-5):
-            raise AssertionError(f"wide kernels != plain at D={d} {dtype}: forward {forward_err}, "
-                                 f"lse {lse_err}, backward {backward_errs}, chunk {chunk_errs}")
+            raise AssertionError(f"wide kernels != plain at D={d} {dtype} causal={causal}: "
+                                 f"forward {forward_err}, lse {lse_err}, backward "
+                                 f"{backward_errs}, chunk {chunk_errs}")
         if dtype == torch.float32:
             errors = {"forward": max(errors["forward"], forward_err),
                       "backward": max(errors["backward"], *(
                           (g - w).abs().max().item() for g, w in zip(grads, want_grads))),
                       "chunk": max(errors["chunk"], *chunk_errs)}
         emit({"phase": "c8_wide", "case": "kernels", "shape": [4, 40, 2, d], "dtype": str(dtype),
-              "causal": True, "forward_max_abs_err": forward_err, "lse_max_abs_err": lse_err,
+              "causal": causal, "forward_max_abs_err": forward_err, "lse_max_abs_err": lse_err,
               "backward_err_of_largest_dq_dk_dv": backward_errs,
               "chunk_errors_m_l_pv": chunk_errs, "tolerance": tol, "rtol": rtol})
 

@@ -17,11 +17,17 @@ modes separate the suspects:
   file_cuda_1t   the same, on one torch thread;
   file_cuda_nodnn  the same, with oneDNN (mkldnn) off;
   card           the inputs drawn on the card and copied to the host (as the
-                 card tests and chip_smoke.py drew them).
+                 card tests and chip_smoke.py drew them);
+  bmm_first      file_cuda, with the batched float32 q.k^T alone as the
+                 process's first computation, before any attention (its error
+                 is `bmm_error`; past 1e-4 it counts as wrong);
+  env_1t         file_cuda, with OMP_NUM_THREADS=1 and MKL_NUM_THREADS=1 in the
+                 child's environment (not only torch.set_num_threads(1)).
 
 The modes with CUDA need a card. Prints one JSON line a process and, last, a
 JSON summary: per mode, the processes, those whose attention passed 1e-5 of
-the float64 reference, and those whose three attentions differed.
+the float64 reference, those whose batched q.k^T passed 1e-4 of it, and
+those whose three attentions differed.
 """
 
 from __future__ import annotations
@@ -38,7 +44,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (32, 16, 3, 4, 32)  # [B, S, q|k|v, H, D]
 SEED = 2
 LIMIT = 1e-5
-MODES = ("file", "file_cuda", "file_cuda_1t", "file_cuda_nodnn", "card")
+BMM_LIMIT = 1e-4
+MODES = ("file", "file_cuda", "file_cuda_1t", "file_cuda_nodnn", "card", "bmm_first", "env_1t")
+# The child's environment in each mode, beside the parent's.
+ENVIRONMENT = {"env_1t": {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}}
 
 
 def draw_on_card():
@@ -63,18 +72,25 @@ def one_process(mode: str, path: str) -> dict:
         torch.cuda.init()
     proj = draw_on_card() if mode == "card" else torch.load(path)
     q, k, v = (proj[:, :, i].contiguous() for i in range(3))
+    qs, ks = q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3)
+
+    def bmm_error() -> float:
+        return ((qs @ ks.transpose(-1, -2)).double()
+                - qs.double() @ ks.double().transpose(-1, -2)).abs().max().item()
+
+    first = bmm_error() if mode == "bmm_first" else None
     want = reference(q, k, v)
     outs = [fa.flash_attention(q, k, v, causal=True) for _ in range(3)]
     errors = [(o.double() - want).abs().max().item() for o in outs]
-    qs, ks = q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3)
-    bmm = ((qs @ ks.transpose(-1, -2)).double()
-           - qs.double() @ ks.double().transpose(-1, -2)).abs().max().item()
+    bmm = first if first is not None else bmm_error()
     return {"mode": mode, "errors": errors, "repeats_equal": all(torch.equal(o, outs[0])
                                                                  for o in outs),
-            "bmm_error": bmm, "threads": torch.get_num_threads(),
-            "mkldnn": torch.backends.mkldnn.enabled,
+            "bmm_error": bmm, "bmm_first": first is not None,
+            "threads": torch.get_num_threads(), "mkldnn": torch.backends.mkldnn.enabled,
+            "environment": {key: os.environ.get(key) for key in ("OMP_NUM_THREADS",
+                                                                 "MKL_NUM_THREADS")},
             "address_mod_64": [x.data_ptr() % 64 for x in (q, k, v)],
-            "wrong": max(errors) > LIMIT}
+            "wrong": max(errors) > LIMIT or bmm > BMM_LIMIT}
 
 
 def reference(q, k, v):
@@ -109,7 +125,8 @@ def main() -> None:
 
         def run(mode: str) -> dict:
             proc = subprocess.run([sys.executable, __file__, "--child", mode, path],
-                                  capture_output=True, text=True, timeout=300)
+                                  capture_output=True, text=True, timeout=300,
+                                  env={**os.environ, **ENVIRONMENT.get(mode, {})})
             if proc.returncode:
                 return {"mode": mode, "failed": proc.stderr[-2000:]}
             return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -124,11 +141,17 @@ def main() -> None:
                       "repeats_differ": sum(r["mode"] == mode and r.get("repeats_equal") is False
                                             for r in results),
                       "failed": sum(r["mode"] == mode and "failed" in r for r in results),
+                      "bmm_wrong": sum(r["mode"] == mode and r.get("bmm_error", 0.0) > BMM_LIMIT
+                                       for r in results),
                       "largest_error": max([max(r["errors"])
                                             for r in results
-                                            if r["mode"] == mode and "errors" in r] or [None])}
+                                            if r["mode"] == mode and "errors" in r] or [None]),
+                      "largest_bmm_error": max([r["bmm_error"] for r in results
+                                                if r["mode"] == mode and "bmm_error" in r]
+                                               or [None])}
                for mode in modes}
-    print(json.dumps({"probe": "cpu_attention", "limit": LIMIT, "summary": summary}), flush=True)
+    print(json.dumps({"probe": "cpu_attention", "limit": LIMIT, "bmm_limit": BMM_LIMIT,
+                      "summary": summary}), flush=True)
 
 
 if __name__ == "__main__":

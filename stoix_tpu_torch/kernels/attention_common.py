@@ -44,28 +44,38 @@ def seq_first(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).permute(0, 2, 1, 3).contiguous()
 
 
-def chunked_products(a: torch.Tensor, b: torch.Tensor, chunk: Optional[int]) -> torch.Tensor:
-    """a @ b^T over the last dim, summed `chunk` columns at a time in order
-    (the wide kernels' order); in one product when `chunk` is None."""
-    if chunk is None:
+def sliced_products(a: torch.Tensor, b: torch.Tensor, parts: Optional[int]) -> torch.Tensor:
+    """a @ b^T over the last dim as the wide kernels sum it: `parts` partial
+    sums, part i over the 4-column groups g with g % parts == i, added
+    pairwise in the order the kernels' shuffles add them
+    ((p0 + p1) + (p2 + p3)) + ...; in one product when `parts` is None."""
+    if parts is None:
         return a @ b.transpose(-1, -2)
-    out = None
-    for c0 in range(0, a.shape[-1], chunk):
-        part = a[..., c0:c0 + chunk] @ b[..., c0:c0 + chunk].transpose(-1, -2)
-        out = part if out is None else out + part
-    return out
+    width = 4 * parts
+    pad = -a.shape[-1] % width  # zero columns add exact zeros
+    groups = (a.shape[-1] + pad) // width
+
+    def split(x: torch.Tensor) -> torch.Tensor:  # [..., n, D] -> [..., parts, n, 4 * groups]
+        x = torch.nn.functional.pad(x, (0, pad)).reshape(*x.shape[:-1], groups, parts, 4)
+        return x.movedim(-2, -4).reshape(*x.shape[:-4], parts, x.shape[-4], 4 * groups)
+
+    sa, sb = split(a), split(b)
+    partial = [sa[..., i, :, :] @ sb[..., i, :, :].transpose(-1, -2) for i in range(parts)]
+    while len(partial) > 1:
+        partial = [partial[i] + partial[i + 1] for i in range(0, len(partial), 2)]
+    return partial[0]
 
 
 def fold_key_tiles(
     qs: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
     q_positions: Optional[torch.Tensor] = None, k_positions: Optional[torch.Tensor] = None,
-    key_tile: int = KEY_TILE, chunk: Optional[int] = None,
+    key_tile: int = KEY_TILE, parts: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernels' online softmax in plain PyTorch: keys folded `key_tile` at
     a time, as `_fold_block` folds its blocks (the forward core folds one tile
     of all the keys when there are at most KEY_TILE, else tiles of KEY_TILE;
-    the wide kernels fold tiles of 32 and sum each score over the head dim
-    `chunk` columns at a time). qs [B, H, Sq, D] float32 (already
+    the wide kernels fold tiles of 16 and sum each score over the head dim in
+    `parts` partial sums, `sliced_products`). qs [B, H, Sq, D] float32 (already
     scaled), kf, vf [B, H, Sk, D] float32. Given positions ([Sq] and [Sk]), a
     query sees only the keys at or before its own position (causal). Returns
     m (-inf on a row that saw no key), l [B, H, Sq, 1] and the unnormalised
@@ -79,7 +89,7 @@ def fold_key_tiles(
         q_pos = q_positions[:, None]
     for k0 in range(0, kf.shape[2], key_tile):
         k_blk, v_blk = kf[:, :, k0:k0 + key_tile], vf[:, :, k0:k0 + key_tile]
-        scores = chunked_products(qs, k_blk, chunk)
+        scores = sliced_products(qs, k_blk, parts)
         mask = None
         if causal:
             mask = q_pos >= k_positions[k0:k0 + key_tile][None]

@@ -1,7 +1,7 @@
 """Flash attention past head dim 256: the Hopper CUDA kernels of the wide route
-(B2's forward and backward and B3 with the head dim streamed through shared
-memory), their plain PyTorch versions, and the wrappers and autograd function
-that pick a version by the tensors' device.
+(B2's forward and backward and B3 at any head dim), their plain PyTorch
+versions, and the wrappers and autograd function that pick a version by the
+tensors' device.
 
     forward   o = softmax(q * scale . k^T) . v   over [B, S, H, D]
     backward  dq, dk, dv
@@ -16,22 +16,26 @@ and stop at 256. The dispatch (`kernels/flash_attention.py::flash_attention`,
 `ops/pallas_attention.py::flash_attention_chunk`) sends every head dim past
 HEAD_DIMS[-1] here, on the card and on the CPU.
 
-Bound on an H100: bytes, as for the narrow kernels (about 4 flops a byte at
-S = 16 in float32). This first version is simple: tiles of 16 query rows
-(WIDE_ROWS) and 32 keys (WIDE_KEYS), the scores summed over the head dim 64
-columns (WIDE_CHUNK) at a time, and the fp32 accumulators (acc, pv, dQ, dK,
-dV) in device memory, each row owned by one block, updated a chunk at a
-time. So the head dim has no bound but the tensors' memory. The backward is
-three device kernels in one entry point (delta; dK and dV by key tile; dQ by
-query tile), deterministic, without atomics. See csrc/flash_attention_wide.cu.
+Bound on an H100: bytes (about 2 flops a byte at S = 16 in float32). The
+kernels (csrc/flash_attention_wide.cu) keep their accumulators in registers,
+copy 16-byte pieces by cp.async in a ring of stages, and take tiles of 16
+query rows (WIDE_ROWS) and 16 keys (WIDE_KEYS) by 64 head-dim columns
+(WIDE_CHUNK). A block's outputs cover at most WIDE_SLICE = 512 columns: head
+dims up to 512 take one slice; past it the output columns are split into
+slices of 512, each recomputing its scores over the whole head dim. The
+forward block holds 2 pairs; the backward is one launch (delta, P and dS in
+the block) whose block owns a key tile of one pair; with several key tiles a
+pair (S > 16) each writes an fp32 dQ partial that `backward_kernel` sums in
+tile order. Deterministic, without atomics.
 
-The plain versions fold the same tiles in the same order: scores summed
-chunk by chunk (`chunked_products`), key tiles of 32 for the online softmax
+The plain versions fold the same tiles in the same order: each score summed
+over the head dim as FORWARD_PARTS (forward, B3) or BACKWARD_PARTS (the
+backward's q.k^T and dO.v^T) partial sums added pairwise
+(`attention_common.sliced_products`), key tiles of 16 for the online softmax
 and dQ, query tiles of 16 for dK and dV.
 
 Counters: FORWARD, BACKWARD and CHUNK each count one entry point's launches
-(the backward's three device kernels are one launch of the entry point) and
-rise nowhere else.
+and rise nowhere else.
 """
 
 from __future__ import annotations
@@ -42,11 +46,14 @@ from typing import Optional, Tuple
 import torch
 
 from stoix_tpu_torch.kernels.attention_common import (
-    DTYPE_CODES, KernelCounter, chunked_products, fold_key_tiles, heads_first, seq_first,
+    DTYPE_CODES, KernelCounter, fold_key_tiles, heads_first, seq_first, sliced_products,
 )
 from stoix_tpu_torch.kernels.build import CudaLibrary
 
-WIDE_ROWS, WIDE_KEYS, WIDE_CHUNK = 16, 32, 64  # csrc/flash_attention_wide.cu's kRows, kKeys, kChunk
+# csrc/flash_attention_wide.cu's kRows, kKeys, kChunk, kSliceChunks * kChunk,
+# kFwdParts and kBwdParts.
+WIDE_ROWS, WIDE_KEYS, WIDE_CHUNK, WIDE_SLICE = 16, 16, 64, 512
+FORWARD_PARTS, BACKWARD_PARTS = 8, 16
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # strides, batch, seq, heads, head_dim, scale, causal, stream
@@ -55,10 +62,10 @@ _SHAPE_ARGS = [_P, _I, _I, _I, _I, _F, _I, _P]
 LIBRARY = CudaLibrary(
     "flash_attention_wide.cu",
     {
-        # dtype, q, k, v, work, o, lse
-        "flash_attention_wide_forward": [_I] + [_P] * 6 + _SHAPE_ARGS,
-        # dtype, q, k, v, o, dout, lse, delta, dq_work, dk_work, dv_work, dq, dk, dv
-        "flash_attention_wide_backward": [_I] + [_P] * 13 + _SHAPE_ARGS,
+        # dtype, q, k, v, o, lse
+        "flash_attention_wide_forward": [_I] + [_P] * 5 + _SHAPE_ARGS,
+        # dtype, q, k, v, o, dout, lse, dq, dq_partial, dk, dv
+        "flash_attention_wide_backward": [_I] + [_P] * 10 + _SHAPE_ARGS,
         # dtype, q, k, v, q_pos, k_pos, pv, m, l, strides, batch, q_len, k_len,
         # heads, head_dim, scale, causal, stream
         "flash_attention_wide_chunk": [_I] + [_P] * 9 + [_I] * 5 + [_F, _I, _P],
@@ -81,14 +88,15 @@ def plain_wide_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False,
     need_lse: bool = False, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The wide forward's arithmetic: o [B, S, H, D] in q.dtype and, if
-    asked, lse [B, H, S] float32 (`scale` defaults to D^-1/2)."""
+    """The wide forward's arithmetic: o = acc . (1 / l) [B, S, H, D] in
+    q.dtype and, if asked, lse [B, H, S] float32 (`scale` defaults to
+    D^-1/2)."""
     seq = q.shape[1]
     scale = q.shape[3] ** -0.5 if scale is None else scale
     qs, kf, vf = heads_first(q) * scale, heads_first(k), heads_first(v)
     positions = torch.arange(seq, device=q.device) if causal else None
-    m, l, acc = fold_key_tiles(qs, kf, vf, positions, positions, WIDE_KEYS, WIDE_CHUNK)
-    o = seq_first(acc / torch.where(l == 0.0, 1.0, l), q.dtype)
+    m, l, acc = fold_key_tiles(qs, kf, vf, positions, positions, WIDE_KEYS, FORWARD_PARTS)
+    o = seq_first(acc * (1.0 / torch.where(l == 0.0, 1.0, l)), q.dtype)
     if not need_lse:
         return o, None
     lse = torch.where(l == 0.0, float("inf"), m + torch.log(l))
@@ -100,29 +108,31 @@ def plain_wide_backward(
     dout: torch.Tensor, causal: bool = False, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The wide backward's arithmetic: P = exp(q.scale.K^T - lse) and
-    dS = P.(dO V^T - delta), scores and dO V^T summed chunk by chunk; dV and dK
-    summed over query tiles of WIDE_ROWS in order, dQ over key tiles of
-    WIDE_KEYS in order, times scale at the end. Returns dq, dk, dv
-    (contiguous [B, S, H, D], q.dtype)."""
+    dS = P.(dO V^T - delta), both products as BACKWARD_PARTS partial sums;
+    dV and dK summed over query tiles of WIDE_ROWS in order (dK times scale
+    at the end), dQ as one partial a key tile of WIDE_KEYS (times scale),
+    summed in tile order. Returns dq, dk, dv (contiguous [B, S, H, D],
+    q.dtype)."""
     seq = q.shape[1]
     scale = q.shape[3] ** -0.5 if scale is None else scale
-    qs, kf, vf, dof = heads_first(q) * scale, heads_first(k), heads_first(v), heads_first(dout)
+    qs, qf, kf, vf = heads_first(q) * scale, heads_first(q), heads_first(k), heads_first(v)
+    dof = heads_first(dout)
     delta = (dof * heads_first(o)).sum(-1)
-    p = torch.exp(chunked_products(qs, kf, WIDE_CHUNK) - lse[..., None])
+    p = torch.exp(sliced_products(qs, kf, BACKWARD_PARTS) - lse[..., None])
     if causal:
         p = torch.where(torch.ones(seq, seq, dtype=torch.bool, device=q.device).tril(), p, 0.0)
-    ds = p * (chunked_products(dof, vf, WIDE_CHUNK) - delta[..., None])
+    ds = p * (sliced_products(dof, vf, BACKWARD_PARTS) - delta[..., None])
     dq = dk = dv = None
     for k0 in range(0, seq, WIDE_KEYS):
-        part = ds[..., k0:k0 + WIDE_KEYS] @ kf[:, :, k0:k0 + WIDE_KEYS]
+        part = (ds[..., k0:k0 + WIDE_KEYS] @ kf[:, :, k0:k0 + WIDE_KEYS]) * scale
         dq = part if dq is None else dq + part
     for q0 in range(0, seq, WIDE_ROWS):
         rows = slice(q0, q0 + WIDE_ROWS)
         part_v = p[:, :, rows].transpose(-1, -2) @ dof[:, :, rows]
-        part_k = ds[:, :, rows].transpose(-1, -2) @ qs[:, :, rows]
+        part_k = ds[:, :, rows].transpose(-1, -2) @ qf[:, :, rows]
         dv = part_v if dv is None else dv + part_v
         dk = part_k if dk is None else dk + part_k
-    return seq_first(dq * scale, q.dtype), seq_first(dk, q.dtype), seq_first(dv, q.dtype)
+    return seq_first(dq, q.dtype), seq_first(dk * scale, q.dtype), seq_first(dv, q.dtype)
 
 
 def plain_wide_chunk(
@@ -134,7 +144,7 @@ def plain_wide_chunk(
     qs = heads_first(q) * (q.shape[3] ** -0.5 if scale is None else scale)
     positions = (q_positions, k_positions) if causal else (None, None)
     m, l, acc = fold_key_tiles(qs, heads_first(k), heads_first(v), *positions,
-                               WIDE_KEYS, WIDE_CHUNK)
+                               WIDE_KEYS, FORWARD_PARTS)
     m = torch.where(torch.isfinite(m), m, 0.0)
     return acc.permute(0, 2, 1, 3).contiguous(), m[..., 0].contiguous(), l[..., 0].contiguous()
 
@@ -176,15 +186,13 @@ def forward_kernel(
     _check("the wide forward", q, k, v)
     batch, seq, heads, head_dim = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    work = o if q.dtype == torch.float32 else torch.empty(q.shape, dtype=torch.float32,
-                                                           device=q.device)
     lse = torch.empty((batch, heads, seq), dtype=torch.float32, device=q.device) if need_lse \
         else None
     lib = LIBRARY.load()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_wide_forward(
-            DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), work.data_ptr(),
-            o.data_ptr(), None if lse is None else lse.data_ptr(), _strides(q, k, v),
+            DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), _strides(q, k, v),
             batch, seq, heads, head_dim, _scale(head_dim, scale), int(causal),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -197,7 +205,9 @@ def backward_kernel(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     dout: torch.Tensor, causal: bool = False, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the wide backward: dq, dk, dv (contiguous [B, S, H, D], q.dtype)."""
+    """Launch the wide backward: dq, dk, dv (contiguous [B, S, H, D], q.dtype).
+    Past S = WIDE_KEYS each key tile writes an fp32 dQ partial, summed here in
+    tile order."""
     _check("the wide backward", q, k, v)
     batch, seq, heads, head_dim = q.shape
     for name, x in (("k", k), ("v", v), ("o", o), ("dout", dout)):
@@ -208,22 +218,30 @@ def backward_kernel(
             raise ValueError(f"the wide backward needs a contiguous {name} like q")
     if lse.shape != (batch, heads, seq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("the wide backward needs a contiguous float32 lse [B, H, S]")
-    grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)]
-    works = grads if q.dtype == torch.float32 else [
-        torch.empty(q.shape, dtype=torch.float32, device=q.device) for _ in range(3)]
-    delta = torch.empty((batch, seq, heads), dtype=torch.float32, device=q.device)
+    tiles = -(-seq // WIDE_KEYS)
+    dq = dq_partial = None
+    if tiles == 1:
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    else:
+        dq_partial = torch.zeros((tiles, *q.shape), dtype=torch.float32, device=q.device)
+    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     lib = LIBRARY.load()
     with torch.cuda.device(q.device):
         code = lib.flash_attention_wide_backward(
             DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            *(x.data_ptr() for x in works), *(x.data_ptr() for x in grads),
+            dout.data_ptr(), lse.data_ptr(), None if dq is None else dq.data_ptr(),
+            None if dq_partial is None else dq_partial.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _strides(q, k, v), batch, seq, heads, head_dim, _scale(head_dim, scale),
             int(causal), torch.cuda.current_stream(q.device).cuda_stream,
         )
     LIBRARY.check(code, "wide flash attention backward kernel")
     BACKWARD.launches += 1
-    return tuple(grads)
+    if dq_partial is not None:
+        dq = dq_partial[0]
+        for part in dq_partial[1:]:
+            dq = dq + part
+        dq = dq.to(q.dtype)
+    return dq, dk, dv
 
 
 def chunk_kernel(

@@ -20,7 +20,9 @@ the JAX package, on the CPU.
   float16 plain forward against the Pallas kernel.
 - The wide route past head dim 256 (kernels/flash_attention_wide.py): its
   plain forward against the Pallas kernel (2e-5) and its plain backward
-  against jax.grad of `full_attention` (5e-6 of the largest gradient).
+  against jax.grad of `full_attention` (5e-6 of the largest gradient), on
+  both sides of its 512-column slice boundary; the partial sums its scores
+  are taken in (`sliced_products`), bitwise.
 """
 
 import jax
@@ -34,6 +36,7 @@ from stoix_tpu.ops.ring_attention import full_attention as jax_full_attention
 from stoix_tpu_torch.kernels import flash_attention as fa
 from stoix_tpu_torch.kernels import flash_attention_chunk as fac
 from stoix_tpu_torch.kernels import flash_attention_wide as wide
+from stoix_tpu_torch.kernels.attention_common import sliced_products
 from stoix_tpu_torch.ops import best_attention, flash_attention
 from stoix_tpu_torch.ops.ring_attention import full_attention
 from torch_parity import n, t
@@ -218,40 +221,45 @@ def test_kernel_head_dim_refuses_past_the_widest(head_dim):
 
 
 # The wide route's plain versions (the wide kernels' arithmetic: 16-row and
-# 32-key tiles, scores summed over the head dim 64 columns at a time) at head
-# dims 257 (a last chunk of one column), 384 and 1000: the forward against the
-# Pallas kernel in interpret mode (2e-5, as above), the backward against
-# jax.grad of `full_attention`. The gradients reach 14 to 45 here and dQ and
-# dK sum over up to 1000 columns in another order than XLA's: the port is up
-# to 7.2e-5 off jax.grad, and jax.grad itself up to 3.9e-5 off a float64
-# reference (scripts/torch_wide_backward_error.py), so 1e-5 absolute cannot
-# hold. The largest error is 2.0e-6 of the tensor's largest gradient (dQ at
-# D = 257); they are held at 5e-6 of it, 2.5 times that, as at D = 256 above.
-# S = 40 spans two key tiles and three query tiles, the last of each ragged.
-WIDE_DIMS = [257, 384, 1000]
+# 16-key tiles, each score summed over the head dim as 8 (forward) or 16
+# (backward) partial sums added pairwise) at head dims 257 (rows that are not
+# whole 16-byte pieces), 384, 512 (the widest one-slice head dim), 513 (the
+# first of two 512-column output slices, the second one column wide) and 1000:
+# the forward against the Pallas kernel in interpret mode (2e-5, as above),
+# the backward against jax.grad of `full_attention`. The gradients reach 45
+# here and dQ and dK sum over up to 1000 columns in another order than XLA's:
+# the port is up to 5.0e-5 off jax.grad, and jax.grad itself up to 3.9e-5 off
+# a float64 reference (scripts/torch_wide_backward_error.py), so 1e-5
+# absolute cannot hold. The largest error is 1.6e-6 of the tensor's largest
+# gradient (dK at D = 512, causal); they are held at 5e-6 of it, 3 times
+# that, as at D = 256 above. S = 40 spans three query and key tiles, S = 100
+# seven, the last of each ragged.
+WIDE_DIMS = [257, 384, wide.WIDE_SLICE, wide.WIDE_SLICE + 1, 1000]
 
 
 @pytest.mark.parametrize("d", WIDE_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
-def test_wide_route_forward_matches_the_pallas_kernel(d, causal):
-    q, k, v = _qkv(d + 1, 2, 40, 2, d)
+@pytest.mark.parametrize("s", [40, 100])
+def test_wide_route_forward_matches_the_pallas_kernel(d, causal, s):
+    q, k, v = _qkv(d + s, 2, s, 2, d)
     got, lse = wide.plain_wide_forward(t(q), t(k), t(v), causal, need_lse=True)
     np.testing.assert_allclose(n(got), _jax_flash(q, k, v, causal), atol=2e-5, rtol=2e-5)
     scores = np.einsum("bqhd,bkhd->bhqk", q, k) * d**-0.5
     if causal:
-        scores = np.where(np.tril(np.ones((40, 40), bool)), scores, -np.inf)
+        scores = np.where(np.tril(np.ones((s, s), bool)), scores, -np.inf)
     np.testing.assert_allclose(n(lse), np.asarray(jax.nn.logsumexp(scores, axis=-1)),
                                atol=2e-5, rtol=0)
 
 
 @pytest.mark.parametrize("d", WIDE_DIMS)
-def test_wide_route_backward_matches_jax_grad(d):
-    q, k, v = _qkv(d + 2, 2, 40, 2, d)
+@pytest.mark.parametrize("causal,s", [(True, 40), (False, 100)])
+def test_wide_route_backward_matches_jax_grad(d, causal, s):
+    q, k, v = _qkv(d + 2, 2, s, 2, d)
     leaves = [t(x).requires_grad_(True) for x in (q, k, v)]
-    (flash_attention(*leaves, causal=True) ** 2).sum().backward()
+    (flash_attention(*leaves, causal=causal) ** 2).sum().backward()
 
     def loss(a, b, c):
-        return (jax_full_attention(a, b, c, causal=True) ** 2).sum()
+        return (jax_full_attention(a, b, c, causal=causal) ** 2).sum()
 
     want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     for leaf, w in zip(leaves, want):
@@ -259,9 +267,29 @@ def test_wide_route_backward_matches_jax_grad(d):
         np.testing.assert_allclose(n(leaf.grad), w, rtol=0, atol=5e-6 * np.abs(w).max())
 
 
+@pytest.mark.parametrize("parts", [8, 16])
+@pytest.mark.parametrize("d", [64, 257, 1000])
+def test_sliced_products_sum_the_kernels_parts_in_order(parts, d):
+    # Part i sums the 4-column groups g with g % parts == i, chunk by chunk;
+    # the parts are added pairwise as the kernels' shuffles add them. In
+    # float64 against the product itself, and in float32 bitwise against the
+    # same sums written out.
+    a, b = (torch.from_numpy(x) for x in _qkv(d, 3, 5, 1, d)[:2])
+    a, b = a[:, :, 0].double(), b[:, :, 0].double()
+    torch.testing.assert_close(sliced_products(a, b, parts), a @ b.transpose(-1, -2),
+                               rtol=0, atol=1e-12)
+    a, b = a.float(), b.float()
+    groups = torch.arange(d) // 4 % parts
+    sums = [a[..., groups == i] @ b[..., groups == i].transpose(-1, -2) for i in range(parts)]
+    while len(sums) > 1:
+        sums = [sums[i] + sums[i + 1] for i in range(0, len(sums), 2)]
+    assert torch.equal(sliced_products(a, b, parts), sums[0])
+
+
 def test_wide_plain_backward_sums_tiles_in_order():
-    # dV over query tiles of 16 and dQ over key tiles of 32, in order: equal
-    # to the unsplit products within float32 reassociation (1e-5 relative).
+    # dV and dK over query tiles of 16 and dQ over key tiles of 16, in order:
+    # equal to the unsplit products within float32 reassociation (1e-5
+    # relative).
     q, k, v, dout = (t(x) for x in _qkv(5, 1, 40, 1, 300) + _qkv(6, 1, 40, 1, 300)[:1])
     o, lse = wide.plain_wide_forward(q, k, v, True, need_lse=True)
     got = wide.plain_wide_backward(q, k, v, o, lse, dout, True)

@@ -489,28 +489,40 @@ def test_best_attention_past_head_dim_256_runs_the_wide_kernel_on_the_card(head_
 
 
 # Each wide kernel against its plain version on the same inputs (the plain
-# version on CPU copies), at head dims 257 (a last chunk of one column), 384,
-# 512 and 1000, in the three dtypes, causal, with ragged tiles (S = 40: three
-# 16-row and two 32-key tiles). Tolerances as the narrow kernels' (`_atol`);
-# the backward's 16-bit outputs also relative, B3's pv and l relative to l.
-WIDE_CASES = [(d, dtype) for d in (257, 384, 512, 1000)
+# version on CPU copies), at head dims 257 (rows that are not whole 16-byte
+# pieces: the element-wise copies), 384, 512 (the widest one-slice head dim),
+# 513 (two 512-column output slices) and 1000, in the three dtypes, causal and
+# not, with ragged tiles (S = 40: three 16-row and 16-key tiles), q, k, v
+# strided views of one fused projection. Tolerances as the narrow kernels'
+# (`_atol`); the backward's 16-bit outputs also relative, B3's pv and l
+# relative to l.
+WIDE_CASES = [(d, dtype) for d in (257, 384, wide.WIDE_SLICE, wide.WIDE_SLICE + 1, 1000)
               for dtype in (torch.float32, torch.bfloat16, torch.float16)]
 
 
+def _qkv_views(shape, dtype, device, seed=0):
+    """q, k, v as the main path gives them: views of one [B, S, 3, H, D] projection."""
+    batch, seq, heads, head_dim = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    proj = torch.randn((batch, seq, 3, heads, head_dim), generator=gen, device=device).to(dtype)
+    return proj[:, :, 0], proj[:, :, 1], proj[:, :, 2]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("head_dim,dtype", WIDE_CASES)
-def test_wide_kernels_match_plain_versions(head_dim, dtype):
+def test_wide_kernels_match_plain_versions(head_dim, dtype, causal):
     device = _require_cuda()
-    q, k, v = _qkv((2, 40, 2, head_dim), dtype, device, seed=head_dim)
+    q, k, v = _qkv_views((2, 40, 2, head_dim), dtype, device, seed=head_dim)
     cpu = [x.cpu() for x in (q, k, v)]
-    o, lse = wide.forward_kernel(q, k, v, True, need_lse=True)
-    want_o, want_lse = wide.plain_wide_forward(*cpu, True, need_lse=True)
+    o, lse = wide.forward_kernel(q, k, v, causal, need_lse=True)
+    want_o, want_lse = wide.plain_wide_forward(*cpu, causal, need_lse=True)
     torch.testing.assert_close(o.cpu().float(), want_o.float(), rtol=0, atol=_atol(dtype))
     torch.testing.assert_close(lse.cpu(), want_lse, rtol=0, atol=1e-5)
     dout = torch.randn(q.shape, generator=torch.Generator(device=device).manual_seed(3),
                        device=device).to(dtype)
-    got = wide.backward_kernel(q, k, v, o, lse, dout, True)
-    want = wide.plain_wide_backward(*cpu, o.cpu(), lse.cpu(), dout.cpu(), True)
+    got = wide.backward_kernel(q, k, v, o, lse, dout, causal)
+    want = wide.plain_wide_backward(*cpu, o.cpu(), lse.cpu(), dout.cpu(), causal)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == q.shape
         tol = 1e-5 if dtype == torch.float32 else _atol(dtype)
@@ -518,8 +530,8 @@ def test_wide_kernels_match_plain_versions(head_dim, dtype):
                                    atol=tol * max(1.0, w.float().abs().max().item()))
     q_pos = torch.arange(24, 64, dtype=torch.int32)
     k_pos = torch.randperm(40, generator=torch.Generator().manual_seed(1)).to(torch.int32)
-    got = wide.chunk_kernel(q, k, v, q_pos.to(device), k_pos.to(device), True)
-    want = wide.plain_wide_chunk(*cpu, q_pos, k_pos, True)
+    got = wide.chunk_kernel(q, k, v, q_pos.to(device), k_pos.to(device), causal)
+    want = wide.plain_wide_chunk(*cpu, q_pos, k_pos, causal)
     assert max(fac.chunk_errors(tuple(x.cpu() for x in got), want)) <= 1e-5
     torch.cuda.synchronize()
 
@@ -533,12 +545,41 @@ def test_wide_kernels_are_deterministic_and_reject_what_they_cannot_take():
     first = wide.backward_kernel(q, k, v, o, lse, o, True)
     assert all(torch.equal(a, b) for a, b in zip(first, wide.backward_kernel(
         q, k, v, o, lse, o, True)))
+    pos = torch.arange(70, dtype=torch.int32, device=device)
+    first = wide.chunk_kernel(q, k, v, pos, pos, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, wide.chunk_kernel(q, k, v, pos, pos, True)))
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         wide.forward_kernel(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="head dim of q, k, v contiguous"):
         wide.forward_kernel(q.transpose(1, 3), k.transpose(1, 3), v.transpose(1, 3))
     with pytest.raises(ValueError, match="contiguous float32 lse"):
         wide.backward_kernel(q, k, v, o, lse[:, :, :10], o)
+
+
+# The path the wide route serves: one ff_trans_ppo update at its default
+# width with 2 heads of 512 (d_model 1024) launches 130 wide forwards and 64
+# wide backwards and nothing of the narrow kernels or the chunk kernels.
+@pytest.mark.cuda
+def test_ff_trans_ppo_update_at_two_heads_of_512_runs_only_the_wide_kernels():
+    from stoix_tpu_torch import envs
+    from stoix_tpu_torch.systems.ppo.anakin import ff_trans_ppo
+    from stoix_tpu_torch.utils import config as config_lib
+    from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
+    device = _require_cuda()
+    config = check_total_timesteps(config_lib.compose(
+        config_lib.default_config_dir(), "default/anakin/default_ff_trans_ppo.yaml",
+        ["system.head_dim=512", "system.num_heads=2", "system.multistep_impl=pallas",
+         "logger.use_console=False"]), 1)
+    env, _ = envs.make(config)
+    setup = ff_trans_ppo.learner_setup(env, config, device, seed=int(config.arch.seed))
+    counters = fa.COUNTERS + (fac.KERNEL,) + wide.COUNTERS
+    before = [c.launches for c in counters]
+    _, (_, losses) = setup.learn.update_step(setup.learner_state)
+    torch.cuda.synchronize()
+    launches = {c.name: c.launches - b for c, b in zip(counters, before)}
+    assert launches == {**dict.fromkeys(launches, 0), wide.FORWARD.name: 130,
+                        wide.BACKWARD.name: 64}
+    assert all(bool(torch.isfinite(x).all()) for x in losses.values())
 
 
 # The torso and the one-rank ring at D = 384 through the wide kernels (one

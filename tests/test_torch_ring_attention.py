@@ -98,11 +98,12 @@ def test_plain_chunk_matches_the_pallas_kernel(causal, c):
     assert_chunk_close(got, _jax_chunk(*inputs, causal))
 
 
-# B3 past head dim 256: the wide chunk kernel's plain version (32-key tiles,
-# scores summed 64 columns at a time) through the dispatch, against the Pallas
-# chunk kernel in interpret mode, a visible, a diagonal and a future chunk of
-# 64 keys (two key tiles) at head dims 257, 384 and 1000; 2e-5 as above.
-@pytest.mark.parametrize("d", [257, 384, 1000])
+# B3 past head dim 256: the wide chunk kernel's plain version (16-key tiles,
+# each score summed over the head dim as 8 partial sums) through the
+# dispatch, against the Pallas chunk kernel in interpret mode, a visible, a
+# diagonal and a future chunk of 64 keys (four key tiles) at head dims 257,
+# 384, 512 (one 512-column output slice), 513 (two) and 1000; 2e-5 as above.
+@pytest.mark.parametrize("d", [257, 384, wide.WIDE_SLICE, wide.WIDE_SLICE + 1, 1000])
 @pytest.mark.parametrize("q_start,k_start", [(64, 0), (64, 64), (0, 64)])
 def test_wide_plain_chunk_matches_the_pallas_kernel(d, q_start, k_start):
     q, k, v = _qkv(d, 1, 64, 2, d)
