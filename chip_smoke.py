@@ -133,6 +133,30 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    one; then ff_ddqn, ff_dqn_reg, ff_mdqn, ff_c51 and
                    ff_qr_dqn one window each at their default widths, finite.
 
+ 18. cont_learn  — ff_ppo_penalty with adaptive beta trains IdentityGame above
+                   4.0 (the JAX package's oracle), and ff_ppo_continuous trains
+                   Pendulum (64 envs, 524 288 steps, reward_scale 0.1) above
+                   the midpoint of uniform random actions' return and the JAX
+                   package's under the same overrides, fixed beforehand by
+                   scripts/jax_oracle_thresholds.py.
+ 19. cont_train  — ff_ppo_continuous at its default config's full width (1024
+                   Pendulum envs, T=16, MLP 256x256, the tanh-Gaussian head on
+                   [-2, 2], 4 x 4 minibatches), 4 updates in 2 eval windows
+                   with system.multistep_impl=pallas: B1's counters zeroed just
+                   before and read just after (one GAE launch an update, no
+                   generic one), env-steps/s, device launches an update; then
+                   ff_ppo_penalty (CartPole, adaptive beta),
+                   ff_ppo_penalty_continuous, ff_dpo_continuous (4 x 16
+                   minibatches), and the Beta and diagonal-Gaussian heads, one
+                   window each at their default widths, each with one GAE
+                   launch an update.
+ 20. rec_learn   — rec_ppo trains IdentityGame above 8.0 (64 envs, 32 768
+                   steps, where the JAX package's rec_ppo returns 10.0).
+ 21. rec_train   — rec_ppo at its default config's full width (1024 CartPole
+                   envs, T=16, GRU 128 between torsos of 128, 4 x 4 minibatches
+                   of env sequences), 4 updates in 2 eval windows: one GAE
+                   launch an update, env-steps/s, device launches an update.
+
 Then a `{"kernels": [...]}` line, the card's `nvidia-smi` name and power
 limit, and last `{"ok": true, "device": {...}}`.
 """
@@ -1660,6 +1684,168 @@ def phase_q_train(smi: str) -> int:
     return pallas_launches
 
 
+# ---------------------------------------------------- the continuous PPO family and rec_ppo
+
+CONT_ROOT = "default/anakin/default_ff_ppo_continuous.yaml"
+REC_ROOT = "default/anakin/default_rec_ppo.yaml"
+# Pendulum's learning oracle, fixed before any card run of these systems by
+# scripts/jax_oracle_thresholds.py on the CPU: uniform random actions return
+# -1221.52 (4096 episodes); the JAX package's ff_ppo_continuous under these
+# overrides returns -247.88 (seeds 1 and 2: -215.59, -127.38); the threshold
+# is their midpoint.
+PENDULUM = ["arch.total_num_envs=64", "arch.total_timesteps=524288", "arch.num_evaluation=4",
+            "arch.num_eval_episodes=32", "arch.evaluation_greedy=True",
+            "arch.absolute_metric=False", "system.reward_scale=0.1",
+            "system.multistep_impl=pallas", "logger.use_console=False"]
+PENDULUM_RANDOM_RETURN, PENDULUM_JAX_RETURN = -1221.5223388671875, -247.8776092529297
+PENDULUM_THRESHOLD = (PENDULUM_RANDOM_RETURN + PENDULUM_JAX_RETURN) / 2
+# ff_ppo_penalty with adaptive beta: tests/test_ff_ppo.py::test_ppo_penalty_adaptive_kl_beta_runs.
+PENALTY_IDENTITY = ["env=identity_game", "arch.total_num_envs=64", "arch.total_timesteps=65536",
+                    "arch.num_evaluation=1", "arch.num_eval_episodes=32",
+                    "arch.absolute_metric=False", "system.rollout_length=16",
+                    "system.adaptive_kl_beta=true", "system.kl_target=0.01",
+                    "system.multistep_impl=pallas", "logger.use_console=False"]
+# rec_ppo's IdentityGame oracle: the JAX package's rec_ppo returns 10.0 under
+# these overrides on the CPU (scripts/jax_oracle_thresholds.py).
+REC_IDENTITY = ["env=identity_game", "arch.total_num_envs=64", "arch.total_timesteps=32768",
+                "arch.num_evaluation=1", "arch.num_eval_episodes=32",
+                "arch.evaluation_greedy=True", "arch.absolute_metric=False",
+                "system.multistep_impl=pallas", "logger.use_console=False"]
+
+
+def _finite_run(name: str, final_return: float) -> list:
+    """The run's trainer records, after checking they and the return are finite."""
+    train = [rec for rec in runner.LAST_RUN_STATS["history"] if rec["event"] == "trainer"]
+    if not math.isfinite(final_return) or not train or not all(
+            math.isfinite(v) for rec in train for k, v in rec.items()
+            if k not in ("event", "t", "t_eval")):
+        raise AssertionError(f"{name}: non-finite return {final_return} or metrics {train}")
+    return train
+
+
+def phase_cont_learn() -> None:
+    """ff_ppo_penalty with adaptive beta on IdentityGame above 4.0 (the JAX
+    package's oracle), then ff_ppo_continuous on Pendulum above the
+    threshold fixed beforehand."""
+    from stoix_tpu_torch.systems.ppo.anakin import ff_ppo_continuous, ff_ppo_penalty
+
+    for name, module, root, overrides, limit in (
+            ("ff_ppo_penalty", ff_ppo_penalty, "default/anakin/default_ff_ppo_penalty.yaml",
+             PENALTY_IDENTITY, 4.0),
+            ("ff_ppo_continuous", ff_ppo_continuous, CONT_ROOT, PENDULUM, PENDULUM_THRESHOLD)):
+        start = time.perf_counter()
+        final_return = module.run_experiment(compose(overrides, root), device="cuda")
+        if not final_return > limit:
+            raise AssertionError(f"{name} returned {final_return}, not above {limit}")
+        emit({"phase": "cont_learn", "system": name, "final_return": final_return,
+              "threshold": limit, "window_seconds": runner.LAST_RUN_STATS["window_seconds"],
+              "seconds": time.perf_counter() - start})
+
+
+def _b1_path_run(name: str, module, root: str, overrides: list, smi: str,
+                 device_launches: bool) -> dict:
+    """One system's run with B1's counters zeroed just before and read just
+    after: exactly one GAE launch an update and no generic one; finite.
+    With `device_launches`, one more update step is profiled after a warm-up."""
+    lr = linear_recurrence
+    config = compose(overrides, root)
+    for counter in lr.COUNTERS:
+        counter.launches = 0
+    start = time.perf_counter()
+    final_return = module.run_experiment(config, device="cuda")
+    seconds = time.perf_counter() - start
+    b1 = _counts(lr.COUNTERS)
+    stats = copy.deepcopy(runner.LAST_RUN_STATS)
+    train = _finite_run(name, final_return)
+    config = check_total_timesteps(config, 1)
+    updates = int(config.arch.num_updates)
+    if b1 != {lr.KERNEL.name: 0, lr.GAE_KERNEL.name: updates}:
+        raise AssertionError(f"{name} launched B1 {b1} in {updates} updates, not one GAE "
+                             "launch an update and no generic one")
+    record = {"system": name, "env": config.env.scenario.name,
+              "total_num_envs": int(config.arch.total_num_envs),
+              "rollout_length": int(config.system.rollout_length),
+              "epochs": int(config.system.epochs),
+              "num_minibatches": int(config.system.num_minibatches), "updates": updates,
+              "head": config.network.actor_network.action_head["_target_"].rsplit(".", 1)[-1],
+              "b1_gae_launches_per_update": b1[lr.GAE_KERNEL.name] / updates,
+              "b1_generic_launches": b1[lr.KERNEL.name], "final_eval_return": final_return,
+              "last_train_metrics": train[-1], "window_seconds": stats["window_seconds"],
+              "env_steps_per_second": stats["steps_per_second"], "seconds": seconds,
+              "card": smi}
+    if device_launches:
+        env, _ = envs.make(config)
+        setup = module.learner_setup(env, config, torch.device("cuda"), int(config.arch.seed))
+        state, _ = setup.learn.update_step(setup.learner_state)  # warm-up
+        record["device_launches_per_update"] = _device_launches(setup.learn, state)
+    return record
+
+
+def phase_cont_train(smi: str) -> int:
+    """ff_ppo_continuous at its default config's full width (1024 Pendulum
+    envs, T=16, 4 x 4 minibatches, MLP 256x256 silu, the tanh-Gaussian head
+    on [-2, 2]), MAIN_UPDATES updates in 2 eval windows; then ff_ppo_penalty
+    (CartPole, adaptive beta), ff_ppo_penalty_continuous, ff_dpo_continuous
+    (4 x 16 minibatches) and ff_ppo_continuous with the Beta and the
+    diagonal-Gaussian heads, one window of 2 updates each at their default
+    widths. Returns B1's GAE launches in the first run."""
+    from stoix_tpu_torch.systems.ppo.anakin import (
+        ff_dpo_continuous, ff_ppo_continuous, ff_ppo_penalty, ff_ppo_penalty_continuous,
+    )
+
+    common = ["arch.num_eval_episodes=16", "system.multistep_impl=pallas",
+              "logger.use_console=False"]
+    main_run = [f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2", *common]
+    short = ["arch.num_updates=2", "arch.num_evaluation=1", *common]
+    beta_head = ("network.actor_network.action_head._target_="
+                 "stoix_tpu_torch.networks.heads.BetaDistributionHead")
+    runs = [
+        ("ff_ppo_continuous", ff_ppo_continuous, CONT_ROOT, main_run, True),
+        ("ff_ppo_penalty", ff_ppo_penalty, "default/anakin/default_ff_ppo_penalty.yaml",
+         short + ["system.adaptive_kl_beta=true"], False),
+        ("ff_ppo_penalty_continuous", ff_ppo_penalty_continuous,
+         "default/anakin/default_ff_ppo_penalty_continuous.yaml", short, False),
+        ("ff_dpo_continuous", ff_dpo_continuous, "default/anakin/default_ff_dpo_continuous.yaml",
+         short, False),
+        ("ff_ppo_continuous", ff_ppo_continuous, CONT_ROOT, short + [beta_head], False),
+        ("ff_ppo_continuous", ff_ppo_continuous, CONT_ROOT,
+         short + ["network=mlp_mvn_continuous"], False),
+    ]
+    launches = None
+    for name, module, root, overrides, full in runs:
+        record = _b1_path_run(name, module, root, overrides, smi, device_launches=full)
+        if launches is None:
+            launches = int(record["b1_gae_launches_per_update"] * record["updates"])
+        emit({"phase": "cont_train", **record})
+    return launches
+
+
+def phase_rec_learn() -> None:
+    from stoix_tpu_torch.systems.ppo.anakin import rec_ppo
+
+    start = time.perf_counter()
+    final_return = rec_ppo.run_experiment(compose(REC_IDENTITY, REC_ROOT), device="cuda")
+    if not final_return > 8.0:
+        raise AssertionError(f"rec_ppo did not learn IdentityGame on the card: {final_return}")
+    emit({"phase": "rec_learn", "env": "identity_game", "final_return": final_return,
+          "seconds": time.perf_counter() - start})
+
+
+def phase_rec_train(smi: str) -> int:
+    """rec_ppo at its default config's full width (1024 CartPole envs, T=16,
+    GRU 128 between pre- and post-torsos of 128, 4 x 4 minibatches of env
+    sequences), MAIN_UPDATES updates in 2 eval windows: one B1 GAE launch an
+    update, env-steps/s, device launches an update. Returns B1's GAE
+    launches in the run."""
+    from stoix_tpu_torch.systems.ppo.anakin import rec_ppo
+
+    record = _b1_path_run("rec_ppo", rec_ppo, REC_ROOT, [
+        f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2", "arch.num_eval_episodes=16",
+        "system.multistep_impl=pallas", "logger.use_console=False"], smi, device_launches=True)
+    emit({"phase": "rec_train", **record})
+    return int(record["b1_gae_launches_per_update"] * record["updates"])
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1690,6 +1876,10 @@ def main() -> None:
     # and its launches on GAE's composed path (phase gae) stand under their own key.
     recurrence["launches"] = phase_q_train(smi)
     recurrence["path"] = "ff_pqn's update (Q(lambda)), phase q_train"
+    phase_cont_learn()
+    gae["launches_ff_ppo_continuous"] = phase_cont_train(smi)
+    phase_rec_learn()
+    gae["launches_rec_ppo"] = phase_rec_train(smi)
     chunk["launches"] = ring["launches"]
     chunk["composed_op"] = {"ring_attention_ms": ring["ring_attention_ms"],
                             "sdpa_ms": ring["sdpa_ms"]}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one Anakin PPO update step goes in the PyTorch port, on
-one CUDA card, at the default config's full width: ff_ppo (the default) or
-ff_trans_ppo.
+one CUDA card, at the default config's full width: ff_ppo (the default),
+ff_trans_ppo, ff_ppo_continuous or rec_ppo.
 
     python3 scripts/torch_profile_ppo.py [--system ff_trans_ppo] [--updates N] [--out PATH] \
         [overrides ...]
@@ -12,7 +12,8 @@ pallas unless overridden), warms it up with two update steps, then:
   * host clock, each phase ended by a device synchronize: rollout, the
     bootstrap critic pass, GAE (as `PPOLearner.update` forms it: the discounts,
     the reward scale, the truncation cast and the estimator), and the update
-    (bootstrap, GAE and the epochs x minibatches of updates);
+    (bootstrap, GAE and the epochs x minibatches of updates); rec_ppo reads
+    its bootstrap values in the rollout, so its critic phase is empty;
   * torch.profiler over N whole update steps: the device busy time (the union
     of kernel and copy intervals), kernel launches per update, and the kernels
     that take the most device time, B1 and B2 (flash attention) included.
@@ -40,9 +41,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from stoix_tpu_torch import envs  # noqa: E402
 from stoix_tpu_torch.kernels import flash_attention, linear_recurrence  # noqa: E402
 from stoix_tpu_torch.ops import scan_kernels, truncated_generalized_advantage_estimation  # noqa: E402
-from stoix_tpu_torch.systems.ppo.anakin import ff_ppo, ff_trans_ppo  # noqa: E402
+from stoix_tpu_torch.systems.ppo.anakin import (  # noqa: E402
+    ff_ppo, ff_ppo_continuous, ff_trans_ppo, rec_ppo,
+)
 
-SYSTEMS = {"ff_ppo": ff_ppo, "ff_trans_ppo": ff_trans_ppo}
+SYSTEMS = {"ff_ppo": ff_ppo, "ff_trans_ppo": ff_trans_ppo,
+           "ff_ppo_continuous": ff_ppo_continuous, "rec_ppo": rec_ppo}
 from stoix_tpu_torch.utils import config as config_lib  # noqa: E402
 from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps  # noqa: E402
 
@@ -60,7 +64,10 @@ def _union_us(intervals):
 
 
 def critic_pass(learner, params, traj):
-    """The learner's bootstrap critic pass, as `PPOLearner.update` runs it."""
+    """The learner's bootstrap critic pass, as `PPOLearner.update` runs it
+    (rec_ppo's values, read step by step in its rollout, as they are)."""
+    if isinstance(learner, rec_ppo.RecPPOLearner):
+        return traj.bootstrap_value
     with torch.no_grad():
         return learner.critic_apply(params.critic_params, learner.bootstrap_input(traj))
 

@@ -1,5 +1,5 @@
 """Shared type vocabulary (counterpart of stoix_tpu/base_types.py, the subset
-the Anakin PPO and value-based slices use), as NamedTuples of tensors. Where
+the Anakin PPO, recurrent PPO and value-based slices use), as NamedTuples of tensors. Where
 the JAX package's learner states carry a PRNG `key`, the port's carry the
 `generator` (a torch.Generator, or a tuple of one a replica).
 
@@ -41,6 +41,18 @@ class OnPolicyLearnerState(NamedTuple):
     generator: Any
     env_state: Any
     timestep: TimeStep
+
+
+class RNNLearnerState(NamedTuple):
+    params: Any
+    opt_states: Any
+    generator: Any
+    env_state: Any
+    timestep: TimeStep
+    done: torch.Tensor  # [E] the last step's termination, the RNN's next reset
+    truncated: torch.Tensor  # [E] the last step's truncation, likewise
+    hstates: Any  # (actor, critic) carries after the last step, each [E, H] (LSTM: a pair)
+    obs_stats: Any = None  # observation running statistics (rec_ppo)
 
 
 class OffPolicyLearnerState(NamedTuple):

@@ -1,10 +1,11 @@
 """Classic-control environments as batched tensor code (counterpart of
-stoix_tpu/envs/classic.py, the CartPole subset).
+stoix_tpu/envs/classic.py: CartPole, Pendulum and MountainCarContinuous).
 
-All physics is elementwise float32 math on a `[num_envs, 4]` state, in the
+All physics is elementwise float32 math on a `[num_envs, D]` state, in the
 JAX package's op order, so one step of every env is a handful of tensor ops
 on the device. Step limits are emitted as truncations (discount stays 1) so
-GAE bootstraps through them.
+GAE bootstraps through them. A continuous env takes its actions as
+`[num_envs, 1]` (or `[num_envs]`) float tensors.
 """
 
 from __future__ import annotations
@@ -43,19 +44,26 @@ class _ClassicEnv(Environment):
     def observation_space(self) -> Observation:
         return Observation(
             agent_view=spaces.Array((self._obs_dim,), torch.float32),
-            action_mask=spaces.Array((self._num_actions,), torch.float32),
+            action_mask=spaces.Array((self._action_mask_dim(),), torch.float32),
             step_count=spaces.Array((), torch.int32),
         )
+
+    def _action_mask_dim(self) -> int:
+        return self._num_actions
 
     def _observe(self, state: PhysicsState) -> Observation:
         physics = state.physics
         return Observation(
-            agent_view=physics,
+            agent_view=self._agent_view(physics),
             action_mask=torch.ones(
-                (physics.shape[0], self._num_actions), dtype=torch.float32, device=physics.device
+                (physics.shape[0], self._action_mask_dim()), dtype=torch.float32,
+                device=physics.device,
             ),
             step_count=state.step_count,
         )
+
+    def _agent_view(self, physics: torch.Tensor) -> torch.Tensor:
+        return physics
 
     def reset(self, generator: torch.Generator, num_envs: int) -> Tuple[PhysicsState, TimeStep]:
         device = generator.device
@@ -135,3 +143,92 @@ class CartPole(_ClassicEnv):
         next_physics = torch.stack([x, x_dot, theta, theta_dot], dim=-1)
         terminated = (x.abs() > self._x_threshold) | (theta.abs() > self._theta_threshold)
         return next_physics, torch.ones_like(x), terminated
+
+
+def _per_env(action: torch.Tensor, num_envs: int) -> torch.Tensor:
+    """One float per env from an [E, 1] (or [E]) action."""
+    return action.reshape(num_envs).to(torch.float32)
+
+
+class Pendulum(_ClassicEnv):
+    """Pendulum-v1: continuous torque control; 200-step episodes, no
+    termination. The state is [theta, thdot]; the observation
+    [cos theta, sin theta, thdot]."""
+
+    _obs_dim = 3
+    _num_actions = 1
+
+    def __init__(self, max_steps: int = 200):
+        self._max_steps = int(max_steps)
+        self._max_speed = 8.0
+        self._max_torque = 2.0
+        self._dt = 0.05
+        self._g = 10.0
+        self._m = 1.0
+        self._l = 1.0
+
+    def action_space(self) -> spaces.Box:
+        return spaces.Box(low=-self._max_torque, high=self._max_torque, shape=(1,))
+
+    def _action_mask_dim(self) -> int:
+        return 1
+
+    def _init_physics(self, generator: torch.Generator, num_envs: int) -> torch.Tensor:
+        u = torch.rand((num_envs, 2), generator=generator, device=generator.device)
+        theta = u[:, 0] * (2 * math.pi) - math.pi
+        thdot = u[:, 1] * 2.0 - 1.0
+        return torch.stack([theta, thdot], dim=-1)
+
+    def _agent_view(self, physics: torch.Tensor) -> torch.Tensor:
+        theta, thdot = physics.unbind(-1)
+        return torch.stack([torch.cos(theta), torch.sin(theta), thdot], dim=-1)
+
+    def _dynamics(
+        self, physics: torch.Tensor, action: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        theta, thdot = physics.unbind(-1)
+        u = torch.clamp(_per_env(action, physics.shape[0]), -self._max_torque, self._max_torque)
+        # A floor-mod, as jnp's `%`: torch.remainder takes the divisor's sign.
+        angle_norm = torch.remainder(theta + math.pi, 2 * math.pi) - math.pi
+        cost = angle_norm**2 + 0.1 * thdot**2 + 0.001 * u**2
+        newthdot = thdot + (
+            3 * self._g / (2 * self._l) * torch.sin(theta) + 3.0 / (self._m * self._l**2) * u
+        ) * self._dt
+        newthdot = torch.clamp(newthdot, -self._max_speed, self._max_speed)
+        newtheta = theta + newthdot * self._dt
+        terminated = torch.zeros_like(theta, dtype=torch.bool)
+        return torch.stack([newtheta, newthdot], dim=-1), -cost, terminated
+
+
+class MountainCarContinuous(_ClassicEnv):
+    """MountainCarContinuous-v0: continuous force, +100 at the goal, an
+    action cost; 999-step episodes."""
+
+    _obs_dim = 2
+    _num_actions = 1
+
+    def __init__(self, max_steps: int = 999):
+        self._max_steps = int(max_steps)
+
+    def action_space(self) -> spaces.Box:
+        return spaces.Box(low=-1.0, high=1.0, shape=(1,))
+
+    def _action_mask_dim(self) -> int:
+        return 1
+
+    def _init_physics(self, generator: torch.Generator, num_envs: int) -> torch.Tensor:
+        u = torch.rand((num_envs,), generator=generator, device=generator.device)
+        pos = u * 0.2 - 0.6
+        return torch.stack([pos, torch.zeros_like(pos)], dim=-1)
+
+    def _dynamics(
+        self, physics: torch.Tensor, action: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        pos, vel = physics.unbind(-1)
+        force = torch.clamp(_per_env(action, physics.shape[0]), -1.0, 1.0)
+        vel = torch.clamp(vel + force * 0.0015 + torch.cos(3 * pos) * (-0.0025), -0.07, 0.07)
+        pos = torch.clamp(pos + vel, -1.2, 0.6)
+        vel = torch.where((pos <= -1.2) & (vel < 0), 0.0, vel)
+        terminated = (pos >= 0.45) & (vel >= 0.0)
+        reward = torch.where(terminated, 100.0, 0.0) - 0.1 * force**2
+        return torch.stack([pos, vel], dim=-1), reward, terminated

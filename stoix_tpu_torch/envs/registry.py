@@ -16,6 +16,8 @@ from stoix_tpu_torch.envs.wrappers import (
 # scenario name -> constructor(**env_kwargs)
 ENV_REGISTRY: Dict[str, Callable[..., Environment]] = {
     "CartPole-v1": classic.CartPole,
+    "Pendulum-v1": classic.Pendulum,
+    "MountainCarContinuous-v0": classic.MountainCarContinuous,
     "IdentityGame": debug.IdentityGame,
 }
 

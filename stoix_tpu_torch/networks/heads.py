@@ -1,7 +1,13 @@
 """Network heads (counterpart of stoix_tpu/networks/heads.py:
-CategoricalHead, ScalarCriticHead and the value-based family's
+CategoricalHead, ScalarCriticHead, the continuous family's
+NormalAffineTanhDistributionHead, BetaDistributionHead and
+MultivariateNormalDiagHead, and the value-based family's
 DiscreteQNetworkHead, DistributionalDiscreteQNetwork and
 QuantileDiscreteQNetwork).
+
+A continuous head is two Denses, flax's Dense_0 (the loc, or alpha) and
+Dense_1 (the scale, or beta), as `dense.0` and `dense.1`; its `minimum` and
+`maximum` come from the env's Box (`systems/anakin.py::head_kwargs_for_env`).
 
 The distributional heads are one Dense of A.M (C51) or N.A (QR-DQN) outputs
 reshaped to [..., A, M] or [..., N, A] in row-major order, as flax reshapes
@@ -9,13 +15,21 @@ them, so carried-across weights mean the same thing."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from stoix_tpu_torch.networks.torso import init_linear
-from stoix_tpu_torch.ops.distributions import Categorical, EpsilonGreedy
+from stoix_tpu_torch.ops.distributions import (
+    AffineBeta,
+    Categorical,
+    EpsilonGreedy,
+    Independent,
+    MultivariateNormalDiag,
+    TanhNormal,
+    softplus,
+)
 
 Epsilon = Union[float, torch.Tensor, None]
 
@@ -35,6 +49,74 @@ class CategoricalHead(nn.Module):
         self, embedding: torch.Tensor, action_mask: Optional[torch.Tensor] = None
     ) -> Categorical:
         return Categorical(self.dense[0](embedding), mask=action_mask)
+
+
+def _set_bounds(head: nn.Module, minimum: Any, maximum: Any) -> None:
+    """A number stays a float; a per-dimension bound is a buffer, so it moves
+    with the head to its device once, not at every forward."""
+    for name, value in (("minimum", minimum), ("maximum", maximum)):
+        if isinstance(value, (int, float)):
+            setattr(head, name, float(value))
+        else:
+            head.register_buffer(name, torch.as_tensor(value, dtype=torch.float32),
+                                 persistent=False)
+
+
+def _two_denses(input_dim: int, action_dim: int,
+                generator: Optional[torch.Generator]) -> nn.ModuleList:
+    return nn.ModuleList(
+        [init_linear(nn.Linear(input_dim, action_dim), 0.01, generator) for _ in range(2)])
+
+
+class NormalAffineTanhDistributionHead(nn.Module):
+    """Squashed-Gaussian policy on [minimum, maximum]: loc from Dense_0, scale
+    softplus(Dense_1) + min_scale."""
+
+    def __init__(self, action_dim: int, input_dim: int, minimum: Any = -1.0,
+                 maximum: Any = 1.0, min_scale: float = 1e-3,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _set_bounds(self, minimum, maximum)
+        self.min_scale = float(min_scale)
+        self.dense = _two_denses(input_dim, action_dim, generator)
+
+    def forward(self, embedding: torch.Tensor) -> Independent:
+        loc = self.dense[0](embedding)
+        scale = softplus(self.dense[1](embedding)) + self.min_scale
+        return Independent(TanhNormal(loc, scale, self.minimum, self.maximum), 1)
+
+
+class BetaDistributionHead(nn.Module):
+    """Beta policy on [minimum, maximum]; softplus(.) + 1 keeps alpha and
+    beta above 1 (unimodal)."""
+
+    def __init__(self, action_dim: int, input_dim: int, minimum: Any = -1.0,
+                 maximum: Any = 1.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _set_bounds(self, minimum, maximum)
+        self.dense = _two_denses(input_dim, action_dim, generator)
+
+    def forward(self, embedding: torch.Tensor) -> AffineBeta:
+        alpha = softplus(self.dense[0](embedding)) + 1.0
+        beta = softplus(self.dense[1](embedding)) + 1.0
+        return AffineBeta(alpha, beta, self.minimum, self.maximum)
+
+
+class MultivariateNormalDiagHead(nn.Module):
+    """Unsquashed diagonal Gaussian: scale softplus(Dense_1) . init_scale /
+    softplus(0), plus min_scale."""
+
+    def __init__(self, action_dim: int, input_dim: int, init_scale: float = 0.3,
+                 min_scale: float = 1e-6, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.init_scale, self.min_scale = float(init_scale), float(min_scale)
+        self.dense = _two_denses(input_dim, action_dim, generator)
+
+    def forward(self, embedding: torch.Tensor) -> MultivariateNormalDiag:
+        loc = self.dense[0](embedding)
+        raw_scale = self.dense[1](embedding)
+        scale = softplus(raw_scale) * self.init_scale / softplus(raw_scale.new_zeros(()))
+        return MultivariateNormalDiag(loc, scale + self.min_scale)
 
 
 class ScalarCriticHead(nn.Module):

@@ -1,5 +1,6 @@
-"""Activation registry (counterpart of stoix_tpu/networks/utils.py; flax's
-`normalise` entry is not ported)."""
+"""Activation and RNN-cell registries (counterpart of
+stoix_tpu/networks/utils.py; flax's `normalise` activation is not ported,
+and of the RNN cells only `gru` and `lstm` are)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,8 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from stoix_tpu_torch.networks.cells import GRUCell, LSTMCell
 
 
 ACTIVATIONS = {
@@ -32,3 +35,22 @@ def parse_activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name not in ACTIVATIONS:
         raise ValueError(f"Unknown activation '{name}'. Known: {sorted(ACTIVATIONS)}")
     return ACTIVATIONS[name]
+
+
+RNN_CELLS = {
+    "gru": GRUCell,
+    "lstm": LSTMCell,
+}
+# The JAX package's other cells (flax's OptimizedLSTMCell, MGUCell and
+# SimpleCell), still to be ported (ROADMAP Queue A9).
+UNPORTED_RNN_CELLS = ("optimised_lstm", "mgu", "simple")
+
+
+def parse_rnn_cell(name: str) -> Callable:
+    if name in UNPORTED_RNN_CELLS:
+        raise ValueError(f"network.rnn_cell_type={name!r}: the {name} cell is not ported; "
+                         f"ported: {sorted(RNN_CELLS)}")
+    if name not in RNN_CELLS:
+        raise ValueError(f"Unknown RNN cell '{name}'. Known: "
+                         f"{sorted((*RNN_CELLS, *UNPORTED_RNN_CELLS))}")
+    return RNN_CELLS[name]

@@ -1,5 +1,6 @@
 """RL losses (counterpart of stoix_tpu/ops/losses.py): the PPO losses
-(`_safe_ratio`, `ppo_clip_loss`, `clipped_value_loss`) and the value-based
+(`_safe_ratio`, `ppo_clip_loss`, `ppo_penalty_loss`, `dpo_loss`,
+`clipped_value_loss`) and the value-based
 family's (`huber_loss`, `q_learning`, `double_q_learning`,
 `munchausen_q_learning`, `categorical_l2_project`,
 `categorical_double_q_learning`, `quantile_regression_loss`,
@@ -8,6 +9,8 @@ scalar mean. `jax.lax.stop_gradient` is `detach`.
 """
 
 from __future__ import annotations
+
+from typing import Union
 
 import torch
 
@@ -29,6 +32,31 @@ def ppo_clip_loss(
     unclipped = ratio * advantage
     clipped = torch.clamp(ratio, 1.0 - epsilon, 1.0 + epsilon) * advantage
     return -torch.mean(torch.minimum(unclipped, clipped))
+
+
+def ppo_penalty_loss(
+    log_prob: torch.Tensor, old_log_prob: torch.Tensor, advantage: torch.Tensor,
+    beta: Union[float, torch.Tensor], kl_approx: torch.Tensor,
+) -> torch.Tensor:
+    """PPO with a KL penalty instead of clipping."""
+    ratio = _safe_ratio(log_prob, old_log_prob)
+    return -torch.mean(ratio * advantage - beta * kl_approx)
+
+
+def dpo_loss(
+    log_prob: torch.Tensor, old_log_prob: torch.Tensor, advantage: torch.Tensor,
+    alpha: float, beta: float,
+) -> torch.Tensor:
+    """Drift-based PPO alternative (DPO, Garcin et al.): asymmetric drift
+    penalties replace the hard clip."""
+    log_ratio = torch.clamp(log_prob - old_log_prob, -_LOG_RATIO_CLAMP, _LOG_RATIO_CLAMP)
+    ratio = torch.exp(log_ratio)
+    drift_pos = torch.relu(
+        (ratio - 1.0) * advantage - alpha * torch.tanh((ratio - 1.0) * advantage / alpha))
+    drift_neg = torch.relu(
+        log_ratio * advantage - beta * torch.tanh(log_ratio * advantage / beta))
+    drift = torch.where(advantage >= 0.0, drift_pos, drift_neg)
+    return -torch.mean(ratio * advantage - drift)
 
 
 def clipped_value_loss(

@@ -1,5 +1,9 @@
-"""Anakin PPO, discrete actions (counterpart of
-stoix_tpu/systems/ppo/anakin/ff_ppo.py on its single-device path).
+"""Anakin PPO (counterpart of stoix_tpu/systems/ppo/anakin/ff_ppo.py on its
+single-device path), the learner of the whole ff PPO family: discrete
+actions from a Categorical head, or continuous ones, float [E, A], from a
+continuous head (ff_ppo_continuous), carried through the rollout, the
+trajectory, the minibatch gather and `log_prob` alike; the penalty and DPO
+systems swap the clip objective through `policy_loss_fn`.
 
 One update step, in the JAX package's order:
 
@@ -344,13 +348,14 @@ class PPOLearner:
     def measured_kl(self, behavior: Any, params: ActorCriticParams, obs: Any,
                     traj_batch: Any) -> torch.Tensor:
         """KL(behavior || updated policy) over one replica's rollout batch, or
-        the JAX package's log-ratio estimate where the distribution has no
-        analytic KL."""
+        the JAX package's k3 estimate exp(r) - 1 - r of the clamped log-ratio
+        where the distribution has no analytic KL (its `kl_divergence`
+        raises NotImplementedError: TanhNormal, Beta)."""
         new_dist = self.actor_apply(params.actor_params, obs)
         behavior_dist = self.actor_apply(behavior, obs)
         try:
             return torch.mean(behavior_dist.kl_divergence(new_dist))
-        except (AttributeError, NotImplementedError):
+        except NotImplementedError:
             log_ratio = torch.clamp(
                 new_dist.log_prob(traj_batch.action) - traj_batch.log_prob,
                 -losses._LOG_RATIO_CLAMP, losses._LOG_RATIO_CLAMP,
@@ -439,6 +444,18 @@ class PPOLearner:
         return UpdateResult(self.join(replica_params), self.join(replica_opt), loss_info,
                             advantages, targets, kl_beta)
 
+    def folded_statistics(self, stats: Any, raw: Any) -> Any:
+        """The observation statistics with a [T, U.E] trajectory's raw
+        observations folded in, summed over the replicas (the JAX package's
+        psum over "batch")."""
+        view = raw.agent_view
+        replica_axis = None
+        if self.update_batch > 1:
+            view = view.reshape(view.shape[:1] + (self.update_batch, -1) + view.shape[2:])
+            replica_axis = 1
+        return running_statistics.update(stats, view, replica_axis=replica_axis,
+                                         std_min_value=5e-4, std_max_value=5e4)
+
     def update_step(
         self, state: PPOLearnerState
     ) -> Tuple[PPOLearnerState, Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]]:
@@ -447,19 +464,12 @@ class PPOLearner:
             # Normalise with the PRE-update statistics (what the rollout's
             # log-probs and values used), THEN fold the raw observations in,
             # summed over the replicas (ff_ppo.py:355-372 of the JAX package).
-            stats = state.obs_stats
-            raw = traj_batch.obs
+            stats, raw = state.obs_stats, traj_batch.obs
             traj_batch = traj_batch._replace(
                 obs=running_statistics.normalize_observation(raw, stats),
                 next_obs=running_statistics.normalize_observation(traj_batch.next_obs, stats),
             )
-            view = raw.agent_view
-            replica_axis = None
-            if self.update_batch > 1:
-                view = view.reshape(view.shape[:1] + (self.update_batch, -1) + view.shape[2:])
-                replica_axis = 1
-            state = state._replace(obs_stats=running_statistics.update(
-                stats, view, replica_axis=replica_axis, std_min_value=5e-4, std_max_value=5e4))
+            state = state._replace(obs_stats=self.folded_statistics(stats, raw))
         result = self.update(state.params, state.opt_states, traj_batch, state.generator,
                              kl_beta=getattr(state, "kl_beta", None))
         state = state._replace(params=result.params, opt_states=result.opt_states)

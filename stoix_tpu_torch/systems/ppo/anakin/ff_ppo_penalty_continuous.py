@@ -1,0 +1,35 @@
+"""Anakin PPO-penalty with continuous actions (counterpart of
+stoix_tpu/systems/ppo/anakin/ff_ppo_penalty_continuous.py): ff_ppo_penalty's
+learner on the continuous head (the default tanh-Gaussian has no analytic KL,
+so the penalty takes the k3 estimator)."""
+
+from __future__ import annotations
+
+from typing import Any, Union
+
+import torch
+
+from stoix_tpu_torch.systems.ppo.anakin.ff_ppo_penalty import learner_setup  # noqa: F401
+from stoix_tpu_torch.systems.runner import run_anakin_experiment
+from stoix_tpu_torch.utils import config as config_lib
+
+
+def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> float:
+    """Train Anakin PPO-penalty on continuous actions; returns the final
+    evaluation episode-return mean. Runs on CUDA unless the caller asks for
+    another device."""
+    return run_anakin_experiment(config, learner_setup, device)
+
+
+def main() -> float:
+    import sys
+
+    config = config_lib.compose(
+        config_lib.default_config_dir(),
+        "default/anakin/default_ff_ppo_penalty_continuous.yaml", sys.argv[1:],
+    )
+    return run_experiment(config)
+
+
+if __name__ == "__main__":
+    main()

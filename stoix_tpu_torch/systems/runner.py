@@ -1,5 +1,6 @@
 """Shared Anakin host loop (counterpart of
-stoix_tpu/systems/runner.py::run_anakin_experiment, synchronous only).
+stoix_tpu/systems/runner.py::run_anakin_experiment, synchronous only, and
+of its recurrent form `run_rnn_anakin_experiment`).
 
 Per eval window: run `num_updates_per_eval` learner updates, wait for the
 device, evaluate the new actor params, log, and keep the best params; after
@@ -30,7 +31,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 import torch
 
 from stoix_tpu_torch import envs
-from stoix_tpu_torch.evaluator import evaluator_setup
+from stoix_tpu_torch.evaluator import evaluator_setup, get_rnn_evaluator_fn
 from stoix_tpu_torch.ops import scan_kernels
 from stoix_tpu_torch.resilience import guards
 from stoix_tpu_torch.systems.anakin import make_generator, make_seeds
@@ -202,3 +203,30 @@ def run_anakin_experiment(
         }
     )
     return final_return
+
+
+def run_rnn_anakin_experiment(
+    config: Any, setup_fn: SetupFn, device: Union[str, torch.device] = "cuda"
+) -> float:
+    """The Anakin host loop for recurrent systems: `run_anakin_experiment`
+    with the stateful evaluator, each episode carrying its own RNN carry from
+    the cell's fresh (zero) carry. `setup_fn`'s eval_act_fn has the
+    rnn_act_fn signature."""
+    from stoix_tpu_torch.networks.base import ScannedRNN
+
+    hidden_size = int(config.network.get("rnn_hidden_size", 128))
+    cell_type = str(config.network.get("rnn_cell_type", "gru"))
+    carry_device = resolve_device(device)
+
+    def rnn_evaluator_setup(eval_env, act_fn, cfg):
+        def init_hstate(episodes: int) -> Any:
+            return ScannedRNN.initialize_carry(cell_type, hidden_size, (episodes,), carry_device)
+
+        evaluator = get_rnn_evaluator_fn(eval_env, act_fn, cfg, init_hstate)
+        absolute = get_rnn_evaluator_fn(
+            eval_env, act_fn, cfg, init_hstate,
+            eval_multiplier=int(cfg.arch.get("absolute_metric_multiplier", 10)),
+        )
+        return evaluator, absolute
+
+    return run_anakin_experiment(config, setup_fn, device, evaluator_setup_fn=rnn_evaluator_setup)

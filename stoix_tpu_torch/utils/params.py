@@ -23,6 +23,18 @@ DenseGeneral and a leaf that is neither kernel, bias nor scale:
     out/kernel, out/bias          ->  out.weight (transposed), out.bias
     positional_embedding          ->  positional_embedding
 
+The continuous heads are two Denses under `action_head`: Dense_0 (the loc,
+or alpha) and Dense_1 (the scale, or beta) become `action_head.dense.0` and
+`action_head.dense.1`. The recurrent actor and critic keep flax's
+attribute names (`pre_torso`, `rnn`, `post_torso`, `action_head`,
+`critic_head`); ScannedRNN's cell, flax's `GRUCell_0` or `LSTMCell_0`, is
+`rnn.cell`, and each gate keeps its flax name:
+
+    GRUCell_0/{ir,iz,in}/{kernel,bias}, {hr,hz}/kernel, hn/{kernel,bias}
+        ->  rnn.cell.{ir,iz,in,hr,hz,hn}.{weight,bias}
+    LSTMCell_0/{ii,if,ig,io}/kernel, {hi,hf,hg,ho}/{kernel,bias}
+        ->  rnn.cell.{ii,if,ig,io,hi,hf,hg,ho}.{weight,bias}
+
 Any other module name is kept as it is (`torso`, `action_head`). The Q heads
 (DiscreteQNetworkHead, DistributionalDiscreteQNetwork, QuantileDiscreteQNetwork)
 are one Dense under `action_head` (`action_head.dense.0`); the distributional
@@ -42,7 +54,8 @@ from torch import nn
 _NUMBERED = re.compile(r"^(Dense|LayerNorm|block)_(\d+)$")
 _NUMBERED_PREFIX = {"Dense": "dense", "LayerNorm": "norm", "block": "blocks"}
 _MODULE_NAME = {"TransformerTorso_0": "torso", "CategoricalHead_0": "action_head",
-                "ScalarCriticHead_0": "critic_head", "MultiHeadSelfAttention_0": "attention"}
+                "ScalarCriticHead_0": "critic_head", "MultiHeadSelfAttention_0": "attention",
+                "GRUCell_0": "cell", "LSTMCell_0": "cell"}
 _LEAF_NAME = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
 

@@ -66,3 +66,21 @@ def test_overrides_and_instantiate_work_on_the_port_tree():
     assert cfg.system.gamma == 0.5 and cfg.arch.seed == 7
     head = config_lib.instantiate(cfg.network.critic_network.critic_head, input_dim=4)
     assert type(head).__module__ == "stoix_tpu_torch.networks.heads"
+
+
+# The continuous and penalty PPO family and recurrent PPO: each root as it
+# is, and with `multistep_impl=pallas` and its other groups and options.
+PPO_FAMILY = {
+    "ff_ppo_continuous": ["network=mlp_mvn_continuous", "env=mountain_car_continuous"],
+    "ff_ppo_penalty": ["env=identity_game", "system.adaptive_kl_beta=true"],
+    "ff_ppo_penalty_continuous": ["network=mlp_mvn_continuous"],
+    "ff_dpo_continuous": ["env=mountain_car_continuous"],
+    "rec_ppo": ["env=identity_game", "network.rnn_cell_type=lstm"],
+}
+
+
+@pytest.mark.parametrize("name", list(PPO_FAMILY))
+@pytest.mark.parametrize("overridden", [False, True])
+def test_ppo_family_config_trees_mirror_the_jax_package(name, overridden):
+    overrides = PPO_FAMILY[name] + ["system.multistep_impl=pallas"] if overridden else []
+    _assert_mirrors(f"default/anakin/default_{name}.yaml", overrides)

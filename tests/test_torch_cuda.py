@@ -831,3 +831,177 @@ def test_pqn_update_step_on_the_card_matches_the_cpu():
     for k, v in cpu_params.items():
         torch.testing.assert_close(card_params[k].cpu(), v, rtol=0, atol=1e-5)
     assert ff_pqn.find_step_count(card_opt) == 4
+
+
+# ------------------------------------------------- the continuous PPO family and rec_ppo
+
+
+def _continuous_actor_critic(head_name: str):
+    from stoix_tpu_torch.networks import base, heads, inputs, torso
+    gen = torch.Generator().manual_seed(0)
+    kwargs = {} if head_name == "MultivariateNormalDiagHead" else dict(minimum=-2.0, maximum=2.0)
+    actor = base.FeedForwardActor(getattr(heads, head_name)(2, 16, generator=gen, **kwargs),
+                                  torso.MLPTorso(5, (16, 16), generator=gen),
+                                  inputs.ObservationInput())
+    critic = base.FeedForwardCritic(heads.ScalarCriticHead(16, generator=gen),
+                                    torso.MLPTorso(5, (16, 16), generator=gen),
+                                    inputs.ObservationInput())
+    return actor, critic
+
+
+def _ppo_family_update(system: str, device, head_name: str):
+    """One ff_ppo-learner update of `system` on an explicit [8, 16]
+    trajectory of float actions with given permutations, under
+    multistep_impl pallas on the card and scan on the CPU."""
+    from stoix_tpu_torch.base_types import ActorCriticOptStates, ActorCriticParams, PPOTransition
+    from stoix_tpu_torch.systems.ppo.anakin import ff_dpo_continuous, ff_ppo, ff_ppo_penalty
+    from stoix_tpu_torch.utils import config as config_lib
+    loss_fn = {"ff_ppo_continuous": None, "ff_ppo_penalty_continuous":
+               ff_ppo_penalty.penalty_policy_loss,
+               "ff_dpo_continuous": ff_dpo_continuous.dpo_policy_loss}[system]
+    impl = "pallas" if torch.device(device).type == "cuda" else "scan"
+    cfg = config_lib.compose(config_lib.default_config_dir(),
+                             f"default/anakin/default_{system}.yaml",
+                             ["system.epochs=2", "system.num_minibatches=2",
+                              "arch.num_updates_per_eval=1", f"system.multistep_impl={impl}"])
+    gen = torch.Generator().manual_seed(5)
+    done = torch.rand((8, 16), generator=gen) < 0.1
+    traj = PPOTransition(done, (torch.rand((8, 16), generator=gen) < 0.1) & ~done,
+                         torch.rand((8, 16, 2), generator=gen) * 3.8 - 1.9,
+                         torch.randn((8, 16), generator=gen), torch.randn((8, 16), generator=gen),
+                         torch.zeros((8, 16)), _observations((8, 16), 6), _observations((8, 16), 7),
+                         {})
+    actor, critic = (net.to(device) for net in _continuous_actor_critic(head_name))
+    apply = (ff_ppo.make_apply_fn(actor), ff_ppo.make_apply_fn(critic))
+    with torch.no_grad():
+        traj = traj._replace(log_prob=apply[0]({k: v for k, v in actor.named_parameters()},
+                                               _to(traj.obs, device)).log_prob(
+            traj.action.to(device)).cpu())
+    params = ActorCriticParams({k: v.detach() for k, v in actor.named_parameters()},
+                               {k: v.detach() for k, v in critic.named_parameters()})
+    optims = ff_ppo.make_optimizers(cfg)
+    opt = ActorCriticOptStates(optims[0].init(params.actor_params),
+                               optims[1].init(params.critic_params))
+    learner = ff_ppo.get_learner_fn(None, apply, optims, cfg, loss_fn)
+    perms = [torch.randperm(128, generator=gen) for _ in range(2)]
+    return learner.update(params, opt, _to(traj, device), permutations=perms,
+                          kl_beta=torch.tensor(3.0, device=device))
+
+
+def _assert_update_matches(card, cpu):
+    torch.testing.assert_close(card.advantages.cpu(), cpu.advantages, rtol=0, atol=1e-6)
+    for key, value in cpu.loss_info.items():
+        torch.testing.assert_close(card.loss_info[key].cpu(), value, rtol=1e-5, atol=1e-7)
+    for side in (0, 1):
+        for k, v in cpu.params[side].items():
+            torch.testing.assert_close(card.params[side][k].cpu(), v, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system,head_name", [
+    ("ff_ppo_continuous", "NormalAffineTanhDistributionHead"),
+    ("ff_ppo_penalty_continuous", "NormalAffineTanhDistributionHead"),
+    ("ff_ppo_penalty_continuous", "MultivariateNormalDiagHead"),
+    ("ff_dpo_continuous", "BetaDistributionHead"),
+])
+def test_continuous_update_step_on_the_card_matches_the_cpu(system, head_name):
+    # As the ff_pqn card test: advantages 1e-6 absolute (B1's GAE entry, one
+    # launch, against `scan` on the CPU), losses 1e-5 relative, params 1e-5
+    # absolute after 2 x 2 clip + Adam steps.
+    device = _require_cuda()
+    cpu = _ppo_family_update(system, "cpu", head_name)
+    before = (lr.KERNEL.launches, lr.GAE_KERNEL.launches)
+    card = _ppo_family_update(system, device, head_name)
+    assert (lr.KERNEL.launches, lr.GAE_KERNEL.launches) == (before[0], before[1] + 1)
+    _assert_update_matches(card, cpu)
+
+
+def _rec_update(device, cell_type: str, update_batch: int):
+    """One rec_ppo update on an explicit [8, 8 U] trajectory of sequences
+    (stored carries, reset flags, the actor's own log-probs) with given env
+    permutations, multistep_impl pallas on the card and scan on the CPU."""
+    from stoix_tpu_torch.base_types import ActorCriticOptStates, ActorCriticParams
+    from stoix_tpu_torch.networks import base, heads, inputs, torso
+    from stoix_tpu_torch.systems.ppo.anakin import ff_ppo, rec_ppo
+    from stoix_tpu_torch.utils import config as config_lib
+    from stoix_tpu_torch.utils.tree import tree_stack
+    impl = "pallas" if torch.device(device).type == "cuda" else "scan"
+    cfg = config_lib.compose(config_lib.default_config_dir(), "default/anakin/default_rec_ppo.yaml",
+                             ["system.epochs=2", "system.num_minibatches=2",
+                              "arch.num_updates_per_eval=1", f"system.multistep_impl={impl}",
+                              f"arch.update_batch_size={update_batch}"])
+    gen = torch.Generator().manual_seed(0)
+
+    def network(kind):
+        head = (heads.CategoricalHead(3, 16, generator=gen) if kind == "actor"
+                else heads.ScalarCriticHead(16, generator=gen))
+        parts = (base.ScannedRNN(16, 16, cell_type, generator=gen),
+                 torso.MLPTorso(5, (16,), generator=gen), torso.MLPTorso(16, (16,), generator=gen),
+                 inputs.ObservationInput())
+        cls = base.RecurrentActor if kind == "actor" else base.RecurrentCritic
+        return cls(head, *parts).to(device)
+
+    actor, critic = network("actor"), network("critic")
+    t_len, n_envs = 8, 8 * update_batch
+    data = torch.Generator().manual_seed(4)
+    carry = lambda: torch.randn((t_len, n_envs, 16), generator=data)  # noqa: E731
+    hstates = tuple((carry(), carry()) if cell_type == "lstm" else carry() for _ in range(2))
+    entering = torch.rand((t_len, n_envs), generator=data) < 0.15
+    done = torch.rand((t_len, n_envs), generator=data) < 0.1
+    obs = _observations((t_len, n_envs), 8)
+    action = torch.randint(0, 3, (t_len, n_envs), generator=data)
+    apply = (rec_ppo.make_apply_fn(actor), rec_ppo.make_apply_fn(critic))
+    actor_params = {k: v.detach() for k, v in actor.named_parameters()}
+    with torch.no_grad():  # the actor's own log-probs, on the CPU for both runs
+        cpu_actor = network("actor").cpu()
+        cpu_actor.load_state_dict({k: v.cpu() for k, v in actor.state_dict().items()})
+        h0 = hstates[0][0] if cell_type == "gru" else tuple(h[0] for h in hstates[0])
+        log_prob = cpu_actor(h0, (obs, entering))[1].log_prob(action)
+    traj = rec_ppo.RNNPPOTransition(
+        done, (torch.rand((t_len, n_envs), generator=data) < 0.1) & ~done, entering, action,
+        torch.randn((t_len, n_envs), generator=data), torch.randn((t_len, n_envs), generator=data),
+        torch.randn((t_len, n_envs), generator=data), log_prob, obs, hstates, {})
+    params = ActorCriticParams(actor_params, {k: v.detach() for k, v in critic.named_parameters()})
+    optims = ff_ppo.make_optimizers(cfg)
+    opt = ActorCriticOptStates(optims[0].init(params.actor_params),
+                               optims[1].init(params.critic_params))
+    if update_batch > 1:
+        params, opt = tree_stack([params] * update_batch), tree_stack([opt] * update_batch)
+    learner = rec_ppo.get_learner_fn(None, apply, optims, cfg)
+    perm = torch.Generator().manual_seed(9)
+    perms = [torch.randperm(8, generator=perm) if update_batch == 1 else
+             [torch.randperm(8, generator=perm) for _ in range(update_batch)] for _ in range(2)]
+    return learner.update(params, opt, _to(traj, device), permutations=perms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell_type,update_batch", [("gru", 1), ("gru", 2), ("lstm", 1)])
+def test_rec_ppo_update_step_on_the_card_matches_the_cpu(cell_type, update_batch):
+    # The re-unrolled GRU/LSTM losses, GAE through B1's GAE entry (one launch
+    # an update at any U), 2 x 2 clip + Adam steps: as the test above.
+    device = _require_cuda()
+    cpu = _rec_update("cpu", cell_type, update_batch)
+    before = (lr.KERNEL.launches, lr.GAE_KERNEL.launches)
+    card = _rec_update(device, cell_type, update_batch)
+    assert (lr.KERNEL.launches, lr.GAE_KERNEL.launches) == (before[0], before[1] + 1)
+    _assert_update_matches(card, cpu)
+
+
+@pytest.mark.cuda
+def test_beta_sampling_with_a_cuda_generator_repeats_from_its_seed():
+    # torch._standard_gamma draws from the CUDA generator it is given: the
+    # same seed gives the same draws, another seed other draws, and the
+    # draws' mean is the Beta's (five standard errors).
+    from stoix_tpu_torch.ops.distributions import AffineBeta
+    device = _require_cuda()
+    alpha = torch.tensor([0.7, 2.0, 5.0], device=device).expand(100_000, 3)
+    beta = torch.tensor([0.6, 2.0, 1.2], device=device).expand(100_000, 3)
+    dist = AffineBeta(alpha, beta, -2.0, 2.0)
+    draw = lambda seed: dist.sample(torch.Generator(device=device).manual_seed(seed))  # noqa: E731
+    first = draw(3)
+    assert first.device.type == "cuda"
+    assert torch.equal(first, draw(3)) and not torch.equal(first, draw(4))
+    mean = alpha[0] / (alpha[0] + beta[0])
+    var = mean * (1 - mean) / (alpha[0] + beta[0] + 1)
+    unit = (first.double() + 2.0) / 4.0
+    assert bool(((unit.mean(0) - mean).abs() < 5 * (var / 100_000).sqrt()).all())

@@ -6,11 +6,16 @@ only its semantics are checked: `extras["next_obs"]` is the true terminal
 observation, the observation restarts, and step limits keep discount 1.
 
 Tolerance: CartPole physics 1e-5 absolute (sin/cos differ by an ulp between
-XLA and PyTorch); everything else exact.
+XLA and PyTorch); everything else exact. The continuous envs (Pendulum,
+MountainCarContinuous) are held on explicit states and actions, one step and
+a short horizon from each: Pendulum's physics, observation and reward 1e-5
+relative (1e-5 absolute near zero), MountainCarContinuous's 1e-6 absolute,
+step types, discounts and terminations exact.
 """
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from stoix_tpu.envs import classic as jclassic, debug as jdebug, wrappers as jwrappers
@@ -135,3 +140,100 @@ def test_identity_game_matches_jax_rewards_and_episode_ends():
     assert np.all(n(tts.discount) == 0.0)
     np.testing.assert_array_equal(n(tts.extras["episode_metrics"]["episode_return"]),
                                   np.where(np.arange(N) % 2 == 0, 10.0, 0.0))
+
+
+def _continuous_states(name, count, seed):
+    rng = np.random.default_rng(seed)
+    if name == "Pendulum-v1":
+        # Angles past +-pi on both sides, where the floor-mod matters.
+        theta = rng.uniform(-3 * np.pi, 3 * np.pi, size=count)
+        thdot = rng.uniform(-8.0, 8.0, size=count)
+        return np.stack([theta, thdot], -1).astype(np.float32), 2.0
+    pos = rng.uniform(-1.2, 0.6, size=count)
+    vel = rng.uniform(-0.07, 0.07, size=count)
+    return np.stack([pos, vel], -1).astype(np.float32), 1.0
+
+
+@pytest.mark.parametrize("name", ["Pendulum-v1", "MountainCarContinuous-v0"])
+def test_continuous_env_steps_match_jax_on_explicit_states(name):
+    from stoix_tpu.envs.registry import make_single as jax_make_single
+    from stoix_tpu_torch.envs.registry import make_single
+
+    jenv, tenv = jax_make_single(name, max_steps=8), make_single(name, max_steps=8)
+    physics, bound = _continuous_states(name, 64, seed=0)
+    actions = np.random.default_rng(1).uniform(-1.5 * bound, 1.5 * bound,
+                                               size=(8, 64, 1)).astype(np.float32)
+    tol = dict(rtol=1e-5, atol=1e-5) if name == "Pendulum-v1" else dict(rtol=0, atol=1e-6)
+    jstate = jclassic.PhysicsState(jax.random.split(jax.random.PRNGKey(0), 64),
+                                   jax.numpy.asarray(physics), jax.numpy.zeros(64, jax.numpy.int32))
+    tstate = classic.PhysicsState(torch.Generator().manual_seed(0), t(physics),
+                                  torch.zeros(64, dtype=torch.int32))
+    jstep = jax.jit(jax.vmap(jenv.step))
+    for step in range(8):
+        # Both from the same state each step, so an ulp never compounds.
+        jstate, jts = jstep(jstate, jax.numpy.asarray(actions[step]))
+        tstate, tts = tenv.step(tstate, t(actions[step]))
+        np.testing.assert_allclose(n(tstate.physics), np.asarray(jstate.physics), **tol)
+        np.testing.assert_allclose(n(tts.observation.agent_view),
+                                   np.asarray(jts.observation.agent_view), **tol)
+        np.testing.assert_allclose(n(tts.reward), np.asarray(jts.reward), **tol)
+        for field in ("step_type", "discount"):
+            np.testing.assert_array_equal(n(getattr(tts, field)), np.asarray(getattr(jts, field)))
+        np.testing.assert_array_equal(n(tts.extras["truncation"]),
+                                      np.asarray(jts.extras["truncation"]))
+        tstate = tstate._replace(physics=t(np.asarray(jstate.physics)))
+    # The 8th step is the step limit: a truncation that keeps discount 1
+    # (tests/test_envs.py::test_pendulum_truncates_with_discount_one), unless
+    # the car reached the flag.
+    truncated = n(tts.extras["truncation"])
+    assert np.all(n(tts.step_type) == StepType.LAST)
+    assert np.all(n(tts.discount)[truncated] == 1.0)
+    assert np.all(n(tts.discount)[~truncated] == 0.0)
+    if name == "Pendulum-v1":
+        assert truncated.all()
+
+
+@pytest.mark.parametrize("name", ["Pendulum-v1", "MountainCarContinuous-v0"])
+def test_continuous_env_short_horizon_matches_jax(name):
+    """Ten steps from the same states under the same actions, each side on
+    its own state: the errors compound no further than the tolerance."""
+    from stoix_tpu.envs.registry import make_single as jax_make_single
+    from stoix_tpu_torch.envs.registry import make_single
+
+    jenv, tenv = jax_make_single(name), make_single(name)
+    physics, bound = _continuous_states(name, 32, seed=2)
+    actions = np.random.default_rng(3).uniform(-bound, bound, size=(10, 32, 1)).astype(np.float32)
+    jstate = jclassic.PhysicsState(jax.random.split(jax.random.PRNGKey(0), 32),
+                                   jax.numpy.asarray(physics), jax.numpy.zeros(32, jax.numpy.int32))
+    tstate = classic.PhysicsState(torch.Generator().manual_seed(0), t(physics),
+                                  torch.zeros(32, dtype=torch.int32))
+    jstep = jax.jit(jax.vmap(jenv.step))
+    returns = np.zeros((2, 32), np.float32)
+    for step in range(10):
+        jstate, jts = jstep(jstate, jax.numpy.asarray(actions[step]))
+        tstate, tts = tenv.step(tstate, t(actions[step]))
+        returns += np.stack([np.asarray(jts.reward), n(tts.reward)])
+    np.testing.assert_allclose(n(tstate.physics), np.asarray(jstate.physics), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(returns[1], returns[0], rtol=1e-4, atol=1e-4)
+
+
+def test_continuous_envs_reset_inside_their_ranges_and_register():
+    from stoix_tpu_torch.envs import spaces
+    from stoix_tpu_torch.envs.registry import make_single
+
+    pendulum = make_single("Pendulum-v1")
+    _, ts = pendulum.reset(torch.Generator().manual_seed(0), 256)
+    cos, sin, thdot = n(ts.observation.agent_view).T
+    np.testing.assert_allclose(cos**2 + sin**2, 1.0, atol=1e-6)
+    assert np.all(np.abs(thdot) <= 1.0)
+    assert pendulum.observation_value().agent_view.shape == (3,)
+    assert pendulum.observation_value().action_mask.shape == (1,)
+    car = make_single("MountainCarContinuous-v0")
+    state, ts = car.reset(torch.Generator().manual_seed(0), 256)
+    pos = n(state.physics)[:, 0]
+    assert np.all((pos >= -0.6) & (pos <= -0.4)) and np.all(n(state.physics)[:, 1] == 0.0)
+    for env, high in ((pendulum, 2.0), (car, 1.0)):
+        space = env.action_space()
+        assert isinstance(space, spaces.Box) and space.shape == (1,)
+        assert float(space.high) == high and env.num_actions == 1

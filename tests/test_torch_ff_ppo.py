@@ -275,6 +275,10 @@ def test_port_imports_nothing_of_jax():
         "          *('systems.q_learning.' + m for m in ('q_family', 'ff_dqn', 'ff_ddqn',\n"
         "            'ff_dqn_reg', 'ff_mdqn', 'ff_c51', 'ff_qr_dqn', 'ff_pqn'))]\n"
         "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice8)\n"
+        "slice10 = ['networks.cells', *('systems.ppo.anakin.' + m for m in (\n"
+        "    'ff_ppo_continuous', 'ff_ppo_penalty', 'ff_ppo_penalty_continuous',\n"
+        "    'ff_dpo_continuous', 'rec_ppo'))]\n"
+        "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice10)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, timeout=120, check=True)

@@ -3,7 +3,9 @@ the SAME parameters carried across by utils/params.py::load_flax_params.
 
 Tolerance: 1e-5 relative (1e-6 absolute floor) in float32 — the matmuls and
 silu reduce and round in another order than XLA's. bf16 compute is bitwise:
-the port rounds where flax rounds.
+the port rounds where flax rounds. The continuous heads' log-probs,
+entropies and modes: 1e-5 relative, with an absolute floor of 1e-5 of each
+output's largest entry (a Beta log-density is a difference of lgammas).
 """
 
 import jax.numpy as jnp
@@ -143,3 +145,92 @@ def test_feedforward_modules_compose_like_flax():
         assert actor.torso(tobs.agent_view).shape == (7, 8)
     with pytest.raises(ValueError, match="Unknown activation"):
         parse_activation_fn("nope")
+
+
+# ------------------------------------------------------- continuous heads and RNN cells
+
+CONTINUOUS_HEADS = {  # name -> head kwargs
+    "NormalAffineTanhDistributionHead": dict(minimum=[-2.0, -1.0, 0.0], maximum=[2.0, 3.0, 0.5]),
+    "BetaDistributionHead": dict(minimum=-2.0, maximum=2.0),
+    "MultivariateNormalDiagHead": dict(init_scale=0.5),
+}
+
+
+@pytest.mark.parametrize("name", list(CONTINUOUS_HEADS))
+def test_continuous_heads_with_carried_flax_params_match_flax(name):
+    """Dense_0 (the loc, or alpha) and Dense_1 (the scale, or beta) carried
+    across; the distributions' log-probs, entropies and modes agree, with
+    embeddings large enough to put softplus past 20 and tanh at its bounds."""
+    import jax
+
+    from stoix_tpu.networks import heads as jheads
+
+    kwargs = CONTINUOUS_HEADS[name]
+    jhead = getattr(jheads, name)(3, **kwargs)
+    rng = np.random.default_rng(0)
+    emb = rng.normal(size=(16, 8)).astype(np.float32)
+    params = jax.tree.map(np.asarray, jhead.init(jax.random.PRNGKey(1), jnp.asarray(emb)))
+    params = jax.tree.map(lambda x: x * 300.0, params)  # |pre-activations| past 20
+    thead = getattr(heads, name)(3, 8, **kwargs)
+    load_flax_params(thead, params)
+    assert sorted(n for n, _ in thead.named_parameters()) == [
+        "dense.0.bias", "dense.0.weight", "dense.1.bias", "dense.1.weight"]
+    jdist, tdist = jhead.apply(params, jnp.asarray(emb)), thead(torch.from_numpy(emb))
+    value = np.clip(np.asarray(jdist.mode()) + rng.normal(scale=0.1, size=(16, 3)),
+                    -1.9, 1.9).astype(np.float32)
+    value = np.clip(value, np.asarray(kwargs.get("minimum", -1.9)) + 0.01,
+                    np.asarray(kwargs.get("maximum", 1.9)) - 0.01).astype(np.float32)
+    for got, want in ((tdist.mode(), jdist.mode()), (tdist.entropy(), jdist.entropy()),
+                      (tdist.log_prob(torch.from_numpy(value)), jdist.log_prob(jnp.asarray(value)))):
+        want = np.asarray(want)
+        np.testing.assert_allclose(n(got), want, rtol=RTOL, atol=1e-5 * np.abs(want).max())
+    back = to_flax_params(dict(thead.named_parameters()), params)
+    jax.tree.map(lambda g, w: np.testing.assert_array_equal(g, w), back, params)
+
+
+@pytest.mark.parametrize("cell_type", ["gru", "lstm"])
+def test_rnn_cells_carry_flax_params_one_to_one(cell_type):
+    """flax's GRUCell (ir, iz, in with a bias; hr, hz without; hn with) and
+    LSTMCell (ii, if, ig, io without a bias; hi, hf, hg, ho with) map gate for
+    gate onto the port's cells; a missing or misshapen gate raises."""
+    import flax.linen as fnn
+    import jax
+
+    from stoix_tpu_torch.networks.cells import GRUCell, LSTMCell
+
+    flax_cell = {"gru": fnn.GRUCell, "lstm": fnn.LSTMCell}[cell_type](features=6)
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(5, 4)).astype(np.float32)
+    carry = flax_cell.initialize_carry(jax.random.PRNGKey(0), x.shape)
+    carry = jax.tree.map(lambda c: jnp.asarray(rng.normal(size=c.shape).astype(np.float32)), carry)
+    params = jax.tree.map(np.asarray, flax_cell.init(jax.random.PRNGKey(1), carry, jnp.asarray(x)))
+    cell = {"gru": GRUCell, "lstm": LSTMCell}[cell_type](4, 6)
+    load_flax_params(cell, params)
+    (want_carry, want_out) = flax_cell.apply(params, carry, jnp.asarray(x))
+    got_carry, got_out = cell(jax.tree.map(lambda c: torch.tensor(np.asarray(c)), carry),
+                              torch.from_numpy(x))
+    np.testing.assert_allclose(n(got_out), np.asarray(want_out), rtol=RTOL, atol=ATOL)
+    for got, want in zip(jax.tree.leaves(got_carry), jax.tree.leaves(want_carry)):
+        np.testing.assert_allclose(n(got), np.asarray(want), rtol=RTOL, atol=ATOL)
+    gates = {"gru": ("hn", "hr", "hz", "in", "ir", "iz"),
+             "lstm": ("hf", "hg", "hi", "ho", "if", "ig", "ii", "io")}[cell_type]
+    assert sorted(params["params"]) == list(gates)
+    first = gates[0]
+    missing = {"params": {k: v for k, v in params["params"].items() if k != first}}
+    with pytest.raises(ValueError, match=f"missing flax parameter for {first}"):
+        load_flax_params(cell, missing)
+    wrong = {"params": {**params["params"], first: {
+        k: np.zeros((7,) + v.shape[1:], np.float32) for k, v in params["params"][first].items()}}}
+    with pytest.raises(ValueError, match="shape"):
+        load_flax_params(cell, wrong)
+
+
+def test_rnn_cell_registry_refuses_the_unported_cells_naming_the_key():
+    from stoix_tpu_torch.networks.utils import RNN_CELLS, parse_rnn_cell
+
+    assert sorted(RNN_CELLS) == ["gru", "lstm"]
+    for name in ("optimised_lstm", "mgu", "simple"):
+        with pytest.raises(ValueError, match=rf"network\.rnn_cell_type='{name}'"):
+            parse_rnn_cell(name)
+    with pytest.raises(ValueError, match="Unknown RNN cell"):
+        parse_rnn_cell("transformer")
