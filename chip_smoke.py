@@ -156,6 +156,25 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    envs, T=16, GRU 128 between torsos of 128, 4 x 4 minibatches
                    of env sequences), 4 updates in 2 eval windows: one GAE
                    launch an update, env-steps/s, device launches an update.
+ 22. data_parallel — data-parallel Anakin training through `run_experiment`
+                   at full width (ff_ppo: CartPole, 1024 envs, 4 updates in 2
+                   windows, multistep_impl=pallas, normalize_observations on,
+                   so the statistics are reduced too), B1's counters zeroed
+                   just before each run and read just after:
+                   (a) a one-rank NCCL group that the runner forms itself from
+                   `arch.distributed.*`, against the same run with no group:
+                   params, optimizer states and statistics bitwise equal,
+                   one GAE launch an update; the same for ff_pqn (one generic
+                   launch an update);
+                   (b) two ranks, started by this script as subprocesses
+                   (`--data-parallel-rank`): NCCL with one card each when
+                   the host has two, else both ranks on the one card over a
+                   gloo group that the ranks form themselves; identical params,
+                   optimizer states and statistics on both ranks after the
+                   run, one GAE launch an update on each, epochs x minibatches
+                   gradient all-reduces an update. Each case prints the
+                   backend, the ranks, the envs a rank, the all-reduces an
+                   update, env-steps/s a rank and in total, and the card.
 
 Then a `{"kernels": [...]}` line, the card's `nvidia-smi` name and power
 limit, and last `{"ok": true, "device": {...}}`.
@@ -173,6 +192,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from functools import partial
@@ -187,7 +207,7 @@ from stoix_tpu_torch.kernels import (
 from stoix_tpu_torch.networks.attention import TransformerTorso
 from stoix_tpu_torch.ops import best_attention, truncated_generalized_advantage_estimation
 from stoix_tpu_torch.ops.ring_attention import fold_chunk, full_attention, ring_attention
-from stoix_tpu_torch.systems import runner
+from stoix_tpu_torch.systems import anakin, runner
 from stoix_tpu_torch.systems.ppo.anakin import ff_ppo, ff_trans_ppo
 from stoix_tpu_torch.systems.q_learning import (
     ff_c51, ff_ddqn, ff_dqn, ff_dqn_reg, ff_mdqn, ff_pqn, ff_qr_dqn, q_family,
@@ -1846,6 +1866,206 @@ def phase_rec_train(smi: str) -> int:
     return int(record["b1_gae_launches_per_update"] * record["updates"])
 
 
+# ---------------------------------------------------- data parallelism
+
+DP_OVERRIDES = [f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
+                "arch.num_eval_episodes=16", "system.multistep_impl=pallas",
+                "logger.use_console=False",
+                "logger.checkpointing.save_model=true",
+                "logger.checkpointing.save_args.max_to_keep=~"]
+# ff_ppo's runs fold the observation statistics, so they are reduced too.
+DP_PPO = ("ff_ppo", ff_ppo, "default/anakin/default_ff_ppo.yaml",
+          ["system.normalize_observations=true"])
+DP_PQN = ("ff_pqn", ff_pqn, "default/anakin/default_ff_pqn.yaml", [])
+DP_RANKS = 2
+REPLICATED = ("params/", "opt_states/", "obs_stats/")
+
+
+def _distributed(store: str, world: int, rank: int) -> list:
+    """The overrides that have the runner form the process group itself."""
+    return [f"arch.distributed.coordinator_address=file://{store}",
+            f"arch.distributed.num_processes={world}", f"arch.distributed.process_id={rank}"]
+
+
+def _allreduces() -> dict:
+    counter = anakin.allreduce_counter()
+    return {kind: counter.value({"kind": kind})
+            for kind in ("gradients", "statistics", "kl", "metrics")}
+
+
+def _dp_run(module, root: str, uid: str, extra: list) -> tuple:
+    """One `run_experiment` at DP_OVERRIDES; B1's counters zeroed just before
+    and read just after. Returns (record, this rank's saved final state)."""
+    lr = linear_recurrence
+    config = compose(DP_OVERRIDES + [f"logger.checkpointing.save_args.checkpoint_uid={uid}",
+                                     *extra], root)
+    for counter in lr.COUNTERS:
+        counter.launches = 0
+    before = _allreduces()
+    start = time.perf_counter()
+    final_return = module.run_experiment(config, device="cuda")
+    seconds = time.perf_counter() - start
+    b1 = _counts(lr.COUNTERS)
+    reduces = {k: v - before[k] for k, v in _allreduces().items()}
+    stats = copy.deepcopy(runner.LAST_RUN_STATS)
+    if not math.isfinite(final_return):
+        raise AssertionError(f"{uid}: non-finite eval return {final_return}")
+    world = stats["mesh"]["data"]
+    step = int(config.arch.total_timesteps)
+    name = config.system.system_name
+    from stoix_tpu_torch.utils import checkpointing
+
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    path = os.path.join("checkpoints", uid, name, str(step),
+                        checkpointing.state_file(rank, world))
+    updates = int(config.arch.num_updates)
+    total_sps = stats["steps_per_second"]
+    record = {"system": name, "ranks": world, "envs_per_rank": stats["num_envs_per_rank"],
+              "updates": updates, "b1_launches": b1,
+              "allreduces_per_update": {k: v / updates for k, v in reduces.items()},
+              "expected_gradient_allreduces_per_update":
+                  int(config.system.epochs) * int(config.system.num_minibatches),
+              "env_steps_per_second_total": total_sps,
+              "env_steps_per_second_per_rank": [v / world for v in total_sps],
+              "window_seconds": stats["window_seconds"], "final_eval_return": final_return,
+              "seconds": seconds}
+    return record, torch.load(path, weights_only=True)
+
+
+def _assert_same(label: str, got: dict, want: dict) -> int:
+    """The replicated leaves of two saved states bitwise equal; returns how many."""
+    keys = [k for k in want if k.startswith(REPLICATED)]
+    if not keys or set(keys) != {k for k in got if k.startswith(REPLICATED)}:
+        raise AssertionError(f"{label}: replicated leaves differ in name: {sorted(keys)[:4]}")
+    for key in keys:
+        if isinstance(want[key], torch.Tensor):
+            same = torch.equal(got[key], want[key])
+        else:
+            same = got[key] == want[key]
+        if not same:
+            raise AssertionError(f"{label}: {key} differs")
+    return len(keys)
+
+
+def dp_rank(rank: int, world: int, store: str, backend: str, out: str) -> None:
+    """One rank of case (b) (`--data-parallel-rank`): the run, then its record
+    to `out`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    extra = _distributed(store, world, rank)
+    if backend == "gloo":
+        # Both ranks on the one card: NCCL refuses two ranks on one device,
+        # so the ranks form a gloo group themselves, which the runner keeps.
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world,
+                                rank=rank)
+        extra = []
+    try:
+        _, module, root, knobs = DP_PPO
+        record, _ = _dp_run(module, root, "dp_two_ranks", knobs + extra)
+        record["backend"] = dist.get_backend()
+        record["rank"] = dist.get_rank()
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(record, f)
+
+
+def phase_data_parallel(smi: str) -> dict:
+    """Case (a) for ff_ppo and ff_pqn, then case (b); returns B1's launches
+    in each run, by case."""
+    launches = {}
+    for name, module, root, knobs in (DP_PPO, DP_PQN):
+        plain, plain_state = _dp_run(module, root, f"dp_{name}_no_group", knobs)
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                grouped, grouped_state = _dp_run(
+                    module, root, f"dp_{name}_one_rank",
+                    knobs + _distributed(os.path.join(tmp, "store"), 1, 0))
+                backend = dist.get_backend()
+            finally:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+        compared = _assert_same(f"{name} one-rank group", grouped_state, plain_state)
+        entry = "GAE" if name == "ff_ppo" else "generic"
+        kernel = linear_recurrence.GAE_KERNEL if name == "ff_ppo" else linear_recurrence.KERNEL
+        for run in (plain, grouped):
+            if run["b1_launches"][kernel.name] != run["updates"] or sum(
+                    run["b1_launches"].values()) != run["updates"]:
+                raise AssertionError(f"{name}: B1 launched {run['b1_launches']} in "
+                                     f"{run['updates']} updates, not one {entry} launch each")
+        if grouped["allreduces_per_update"]["gradients"] != \
+                grouped["expected_gradient_allreduces_per_update"]:
+            raise AssertionError(f"{name}: {grouped['allreduces_per_update']} all-reduces an "
+                                 "update, not one a minibatch")
+        launches[f"a_{name}"] = grouped["b1_launches"][kernel.name]
+        emit({"phase": "data_parallel", "case": "a", "backend": backend, **grouped,
+              "bitwise_equal_leaves": compared,
+              "no_group_env_steps_per_second": plain["env_steps_per_second_total"],
+              "card": smi})
+
+    backend = "nccl" if torch.cuda.device_count() >= DP_RANKS else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(DP_RANKS)]
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(DP_RANKS)]
+        procs = []
+        for rank in range(DP_RANKS):
+            with open(logs[rank], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--data-parallel-rank",
+                     str(rank), str(DP_RANKS), os.path.join(tmp, "store"), backend, outs[rank]],
+                    stdout=log, stderr=subprocess.STDOUT))
+        try:
+            deadline = time.monotonic() + 600
+            while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+                if any(p.returncode for p in procs):
+                    break  # one rank failed: the other would wait on it forever
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=60)
+        if any(p.returncode for p in procs):
+            text = "\n".join(f"--- rank {r} (exit {p.returncode}) ---\n{open(log).read()[-6000:]}"
+                             for r, (p, log) in enumerate(zip(procs, logs)))
+            raise AssertionError(f"a data-parallel rank failed:\n{text}")
+        records = []
+        for out in outs:
+            with open(out) as f:
+                records.append(json.load(f))
+    step = MAIN_UPDATES * int(compose(DP_OVERRIDES).system.rollout_length) * 1024
+    from stoix_tpu_torch.utils import checkpointing
+
+    states = [torch.load(os.path.join("checkpoints", "dp_two_ranks", "ff_ppo", str(step),
+                                      checkpointing.state_file(r, DP_RANKS)), weights_only=True)
+              for r in range(DP_RANKS)]
+    compared = _assert_same("two ranks", states[1], states[0])
+    gae = linear_recurrence.GAE_KERNEL.name
+    for record in records:
+        if record["b1_launches"] != {gae: record["updates"], linear_recurrence.KERNEL.name: 0}:
+            raise AssertionError(f"rank {record['rank']}: B1 launched {record['b1_launches']} "
+                                 f"in {record['updates']} updates, not one GAE launch each")
+        if record["allreduces_per_update"]["gradients"] != \
+                record["expected_gradient_allreduces_per_update"]:
+            raise AssertionError(f"rank {record['rank']}: {record['allreduces_per_update']}")
+        if record["envs_per_rank"] != 1024 // DP_RANKS or record["ranks"] != DP_RANKS:
+            raise AssertionError(f"rank {record['rank']}: not one {DP_RANKS}-shard run: {record}")
+    launches["b_per_rank"] = [record["b1_launches"][gae] for record in records]
+    emit({"phase": "data_parallel", "case": "b", "backend": records[0]["backend"],
+          "ranks": DP_RANKS, "cards": torch.cuda.device_count(),
+          "envs_per_rank": records[0]["envs_per_rank"],
+          "allreduces_per_update": records[0]["allreduces_per_update"],
+          "expected_gradient_allreduces_per_update":
+              records[0]["expected_gradient_allreduces_per_update"],
+          "env_steps_per_second_total": records[0]["env_steps_per_second_total"],
+          "env_steps_per_second_per_rank": records[0]["env_steps_per_second_per_rank"],
+          "b1_gae_launches_per_rank": launches["b_per_rank"], "identical_leaves": compared,
+          "final_eval_return": records[0]["final_eval_return"],
+          "seconds": [record["seconds"] for record in records], "card": smi})
+    return launches
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1880,6 +2100,10 @@ def main() -> None:
     gae["launches_ff_ppo_continuous"] = phase_cont_train(smi)
     phase_rec_learn()
     gae["launches_rec_ppo"] = phase_rec_train(smi)
+    data_parallel = phase_data_parallel(smi)
+    gae["launches_data_parallel"] = {"a_one_rank_ff_ppo": data_parallel["a_ff_ppo"],
+                                     "b_per_rank": data_parallel["b_per_rank"]}
+    recurrence["launches_data_parallel"] = {"a_one_rank_ff_pqn": data_parallel["a_ff_pqn"]}
     chunk["launches"] = ring["launches"]
     chunk["composed_op"] = {"ring_attention_ms": ring["ring_attention_ms"],
                             "sdpa_ms": ring["sdpa_ms"]}
@@ -1894,4 +2118,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--data-parallel-rank"]:
+        dp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
+    else:
+        main()

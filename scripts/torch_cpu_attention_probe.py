@@ -22,7 +22,15 @@ modes separate the suspects:
                  process's first computation, before any attention (its error
                  is `bmm_error`; past 1e-4 it counts as wrong);
   env_1t         file_cuda, with OMP_NUM_THREADS=1 and MKL_NUM_THREADS=1 in the
-                 child's environment (not only torch.set_num_threads(1)).
+                 child's environment (not only torch.set_num_threads(1));
+  amax_first, exp_first, pv_first
+                 file_cuda (the host's default threads), with one op that the
+                 attention runs after q.k^T alone as the process's first
+                 computation, on float32 inputs the parent made in float64:
+                 the row max of the causal scores (exact against float64),
+                 exp of the scores less their row max (1e-6 against float64)
+                 or the second product p.v (1e-5 against float64); its error
+                 is `first_error`, and past its limit it counts as wrong.
 
 The modes with CUDA need a card. Prints one JSON line a process and, last, a
 JSON summary: per mode, the processes, those whose attention passed 1e-5 of
@@ -45,7 +53,10 @@ SHAPE = (32, 16, 3, 4, 32)  # [B, S, q|k|v, H, D]
 SEED = 2
 LIMIT = 1e-5
 BMM_LIMIT = 1e-4
-MODES = ("file", "file_cuda", "file_cuda_1t", "file_cuda_nodnn", "card", "bmm_first", "env_1t")
+# The ops after q.k^T, each run alone first in its mode: (op, its limit).
+FIRST_OPS = {"amax_first": ("amax", 0.0), "exp_first": ("exp", 1e-6), "pv_first": ("pv", 1e-5)}
+MODES = ("file", "file_cuda", "file_cuda_1t", "file_cuda_nodnn", "card", "bmm_first", "env_1t",
+         *FIRST_OPS)
 # The child's environment in each mode, beside the parent's.
 ENVIRONMENT = {"env_1t": {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}}
 
@@ -55,6 +66,34 @@ def draw_on_card():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     return torch.randn(SHAPE, generator=gen, device="cuda").cpu()
+
+
+def op_inputs(proj):
+    """The inputs of the ops after q.k^T, in float32 from float64 arithmetic
+    (no float32 product or exp): the masked causal scores [B, H, S, S], the
+    scores less their row max, the probabilities and v, heads first."""
+    import torch
+
+    q, k, v = (proj[:, :, i].double().permute(0, 2, 1, 3) for i in range(3))
+    seq = q.shape[2]
+    scores = q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5
+    scores = scores.masked_fill(~torch.ones(seq, seq, dtype=torch.bool).tril(), float("-inf"))
+    shifted = scores - scores.amax(-1, keepdim=True)
+    return {"scores": scores.float(), "shifted": shifted.float(),
+            "p": torch.exp(shifted).float(), "v": v.float().contiguous()}
+
+
+def first_op(op: str, inputs: dict) -> float:
+    """The op alone in float32, its largest error against float64."""
+    if op == "amax":
+        x = inputs["scores"]
+        return (x.amax(-1, keepdim=True).double() - x.double().amax(-1, keepdim=True)
+                ).abs().max().item()
+    if op == "exp":
+        x = inputs["shifted"]
+        return (x.exp().double() - x.double().exp()).abs().max().item()
+    p, v = inputs["p"], inputs["v"]
+    return ((p @ v).double() - p.double() @ v.double()).abs().max().item()
 
 
 def one_process(mode: str, path: str) -> dict:
@@ -71,6 +110,10 @@ def one_process(mode: str, path: str) -> dict:
     if mode != "file":
         torch.cuda.init()
     proj = draw_on_card() if mode == "card" else torch.load(path)
+    op, op_limit = FIRST_OPS.get(mode, (None, None))
+    first_op_error = None
+    if op is not None:
+        first_op_error = first_op(op, torch.load(os.path.join(os.path.dirname(path), "ops.pt")))
     q, k, v = (proj[:, :, i].contiguous() for i in range(3))
     qs, ks = q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3)
 
@@ -90,7 +133,10 @@ def one_process(mode: str, path: str) -> dict:
             "environment": {key: os.environ.get(key) for key in ("OMP_NUM_THREADS",
                                                                  "MKL_NUM_THREADS")},
             "address_mod_64": [x.data_ptr() % 64 for x in (q, k, v)],
-            "wrong": max(errors) > LIMIT or bmm > BMM_LIMIT}
+            "first_op": op, "first_error": first_op_error,
+            "first_wrong": op is not None and first_op_error > op_limit,
+            "wrong": (max(errors) > LIMIT or bmm > BMM_LIMIT
+                      or (op is not None and first_op_error > op_limit))}
 
 
 def reference(q, k, v):
@@ -120,8 +166,10 @@ def main() -> None:
     modes = args.modes.split(",")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "proj.pt")
-        torch.save(draw_on_card() if torch.cuda.is_available() else
-                   torch.randn(SHAPE, generator=torch.Generator().manual_seed(SEED)), path)
+        proj = (draw_on_card() if torch.cuda.is_available() else
+                torch.randn(SHAPE, generator=torch.Generator().manual_seed(SEED)))
+        torch.save(proj, path)
+        torch.save(op_inputs(proj), os.path.join(tmp, "ops.pt"))
 
         def run(mode: str) -> dict:
             proc = subprocess.run([sys.executable, __file__, "--child", mode, path],
@@ -143,6 +191,12 @@ def main() -> None:
                       "failed": sum(r["mode"] == mode and "failed" in r for r in results),
                       "bmm_wrong": sum(r["mode"] == mode and r.get("bmm_error", 0.0) > BMM_LIMIT
                                        for r in results),
+                      "first_op_wrong": sum(r["mode"] == mode and bool(r.get("first_wrong"))
+                                            for r in results),
+                      "largest_first_error": max([r["first_error"] for r in results
+                                                  if r["mode"] == mode
+                                                  and r.get("first_error") is not None]
+                                                 or [None]),
                       "largest_error": max([max(r["errors"])
                                             for r in results
                                             if r["mode"] == mode and "errors" in r] or [None]),

@@ -6,6 +6,7 @@ from typing import Any, Callable, Dict, Tuple
 
 from stoix_tpu_torch.envs import classic, debug
 from stoix_tpu_torch.envs.core import Environment
+from stoix_tpu_torch.parallel.distributed import process_count
 from stoix_tpu_torch.envs.wrappers import (
     EpisodeStepLimit,
     FlattenObservationWrapper,
@@ -52,7 +53,8 @@ def make(config: Any) -> Tuple[Environment, Environment]:
         eval_env = FlattenObservationWrapper(eval_env)
     train_env = apply_core_wrappers(
         train_env,
-        num_envs=int(config.arch.total_num_envs),
+        # This process's share of the global envs (all of them in one process).
+        num_envs=int(config.arch.total_num_envs) // process_count(),
         max_episode_steps=wrapper_cfg.get("max_episode_steps"),
         use_optimistic_reset=bool(wrapper_cfg.get("use_optimistic_reset", False)),
         reset_ratio=int(wrapper_cfg.get("reset_ratio", 16)),

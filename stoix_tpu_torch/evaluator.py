@@ -15,6 +15,13 @@ episodes: `hook(env, generator, episode_index)` with `episode_index` the
 JAX package's three-argument hook does per episode. Its two-argument form
 `hook(env, key)` resets one episode from a key and has no batched
 counterpart: the port refuses it.
+
+Over N data-parallel ranks the episodes are split as the JAX evaluator
+shards them (stoix_tpu/evaluator.py:119-122): the global count rounded up to
+a multiple of N, each rank running its contiguous share of the global
+episode indices with its own generator. The evaluator returns this rank's
+episodes; the runner gathers them (`parallel.fetch_global`), so every rank
+sees the same global arrays.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 
 from stoix_tpu_torch.envs.core import Environment
 from stoix_tpu_torch.envs.types import tree_select
+from stoix_tpu_torch.systems.anakin import data_rank_and_size
 from stoix_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # act_fn(params, observation, generator) -> action  (batched observation)
@@ -48,9 +56,20 @@ def get_distribution_act_fn(config: Any, actor_apply: Callable[..., Any]) -> Act
 ResetFn = Callable[[torch.Generator, int], Tuple[Any, Any]]
 
 
-def _make_eval_reset_fn(eval_env: Environment, config: Any) -> ResetFn:
+def rank_episodes(config: Any, eval_multiplier: int = 1) -> Tuple[int, int]:
+    """(this rank's episode count, its first global episode index): the
+    global `num_eval_episodes * eval_multiplier` rounded up to a multiple of
+    the N data ranks, split evenly (all of them, from 0, in one process)."""
+    rank, size = data_rank_and_size()
+    episodes = int(config.arch.num_eval_episodes) * int(eval_multiplier)
+    per_rank = -(-episodes // size)
+    return per_rank, rank * per_rank
+
+
+def _make_eval_reset_fn(eval_env: Environment, config: Any, first_episode: int = 0) -> ResetFn:
     """The episodes' reset: (generator, episodes) -> (state, timestep). The
-    env's own reset unless `env.eval_reset_fn` names a hook."""
+    env's own reset unless `env.eval_reset_fn` names a hook, which gets the
+    global indices of the episodes from `first_episode` on."""
     hook_cfg = config.env.get("eval_reset_fn")
     if not hook_cfg:
         return eval_env.reset
@@ -63,7 +82,7 @@ def _make_eval_reset_fn(eval_env: Environment, config: Any) -> ResetFn:
             "two-argument hook(env, key) resets one episode and has no batched counterpart")
 
     def reset(generator: torch.Generator, episodes: int):
-        index = torch.arange(episodes, device=generator.device)
+        index = torch.arange(first_episode, first_episode + episodes, device=generator.device)
         return hook(eval_env, generator, index)
 
     return reset
@@ -103,9 +122,10 @@ def get_ff_evaluator_fn(
     eval_env: Environment, act_fn: ActFn, config: Any, eval_multiplier: int = 1
 ) -> Callable[[Any, torch.Generator], Dict[str, torch.Tensor]]:
     """Build the evaluator: (params, generator) -> episode metrics dict with
-    tensors shaped [num_eval_episodes * eval_multiplier]."""
-    reset_fn = _make_eval_reset_fn(eval_env, config)
-    episodes = int(config.arch.num_eval_episodes) * int(eval_multiplier)
+    tensors shaped [num_eval_episodes * eval_multiplier] (this rank's share
+    over several ranks)."""
+    episodes, first_episode = rank_episodes(config, eval_multiplier)
+    reset_fn = _make_eval_reset_fn(eval_env, config, first_episode)
     eval_max_steps = config.arch.get("eval_max_steps")
 
     @torch.no_grad()
@@ -145,9 +165,10 @@ def get_rnn_evaluator_fn(
     state, or ff_trans_ppo's observation window) from `init_hstate_fn(episodes)`
     through its steps; `rnn_act_fn` gets the episode's `done` flag to clear it.
     As in the JAX evaluator each episode runs until it ends, and an episode
-    that has ended is frozen, its state with it."""
-    reset_fn = _make_eval_reset_fn(eval_env, config)
-    episodes = int(config.arch.num_eval_episodes) * int(eval_multiplier)
+    that has ended is frozen, its state with it. Over several ranks each
+    runs its share of the episodes, as `get_ff_evaluator_fn`."""
+    episodes, first_episode = rank_episodes(config, eval_multiplier)
+    reset_fn = _make_eval_reset_fn(eval_env, config, first_episode)
 
     @torch.no_grad()
     def evaluator(params: Any, generator: torch.Generator) -> Dict[str, torch.Tensor]:

@@ -6,6 +6,9 @@ update-batch vmap and the mesh) so that every replica holds the same
 statistics. Here the replicas are an axis of the batch itself:
 `replica_axis` names it, each replica's sums are taken first and then summed
 over the replicas, in the psum's order, and one set of statistics comes out.
+The mesh's "data" axis is a process group: with `group`, those sums are then
+summed over its ranks (two all-reduces, since the second sum needs the new
+mean), as the JAX package's `axis_names=("batch", "data")` sums them.
 Statistics are trees shaped like the observation (a tensor, or NamedTuples,
 dicts, lists of tensors), float32.
 """
@@ -15,6 +18,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from stoix_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -51,6 +55,7 @@ def update(
     batch: Any,
     *,
     replica_axis: Optional[int] = None,
+    group: Optional[dist.ProcessGroup] = None,
     std_min_value: float = 1e-6,
     std_max_value: float = 1e6,
 ) -> RunningStatisticsState:
@@ -58,24 +63,31 @@ def update(
     [leading..., *feature_shape]; every leading axis is reduced. With
     `replica_axis` (a leading axis holding the update-batch replicas), each
     replica's sums are taken first and then summed, as the JAX package's psum
-    over the "batch" axis sums them."""
+    over the "batch" axis sums them; with `group` (the "data" axis), the
+    count and sums are then summed over its ranks."""
+    from stoix_tpu_torch.systems.anakin import data_sum
+
     feature_ndim = tree_leaves(state.mean)[0].ndim
     leaf = tree_leaves(batch)[0]
     lead_shape = leaf.shape[: leaf.ndim - feature_ndim]
     batch_count = 1
     for size in lead_shape:
         batch_count *= int(size)
-    new_count = state.count + float(batch_count)
+    diff_sums = tree_map(lambda mean, b: _sum(b - mean, mean.ndim, replica_axis),
+                         state.mean, batch)
+    if group is None:
+        new_count = state.count + float(batch_count)
+    else:
+        count = torch.tensor(float(batch_count), device=state.count.device)
+        count, diff_sums = data_sum((count, diff_sums), group)
+        new_count = state.count + count
 
-    def new_mean(mean: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return mean + _sum(b - mean, mean.ndim, replica_axis) / new_count
-
-    means = tree_map(new_mean, state.mean, batch)
-
-    def new_summed_variance(mean, mean_new, svar, b):
-        return svar + _sum((b - mean) * (b - mean_new), mean.ndim, replica_axis)
-
-    summed = tree_map(new_summed_variance, state.mean, means, state.summed_variance, batch)
+    means = tree_map(lambda mean, diff: mean + diff / new_count, state.mean, diff_sums)
+    squares = tree_map(lambda mean, mean_new, b: _sum((b - mean) * (b - mean_new), mean.ndim,
+                                                      replica_axis),
+                       state.mean, means, batch)
+    squares = data_sum(squares, group)
+    summed = tree_map(lambda svar, square: svar + square, state.summed_variance, squares)
     stds = tree_map(
         lambda svar: torch.clamp(torch.sqrt(svar / new_count), std_min_value, std_max_value),
         summed,

@@ -84,6 +84,12 @@ def maybe_initialize_distributed(config: Optional[Any] = None, device: str = "cu
                             world_size=int(num_processes or 1), rank=rank)
 
 
+def process_count() -> int:
+    """The processes of the default group (1 with none), as
+    `jax.process_count()`."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def is_coordinator() -> bool:
     """True on process 0 (and in a single process): gate logging,
     checkpointing and eval printing on this."""

@@ -1,23 +1,33 @@
-"""The process mesh (counterpart of stoix_tpu/parallel/mesh.py: `create_mesh`
-and `axis_size`).
+"""The process mesh (counterpart of stoix_tpu/parallel/mesh.py: `create_mesh`,
+`axis_size`, `shard_leading_axis`, `replicate`, `fetch_global` and
+`materialize`).
 
 The JAX package builds one `jax.sharding.Mesh` over every chip of the job
 with named axes ("data" first). The port builds a
 `torch.distributed.device_mesh.DeviceMesh` over the processes of the
 initialised process group (one card each), with the same axis names and the
 same size arithmetic. A collective on one axis takes that axis's process
-group, `mesh.get_group(axis)`. The rest of the JAX module (sharding helpers,
-global fetches, `assemble_global_array`) serves data-parallel training and
-Sebulba and is not ported yet.
+group, `mesh.get_group(axis)`.
+
+A process holds only its own shard, so where the JAX package places a global
+array with a sharding, the port takes the rank's slice (`shard_leading_axis`)
+or broadcasts rank 0's copy (`replicate`); `replicated_sharding` and
+`data_sharding` name placements and have no counterpart. `fetch_global`
+gathers every rank's shard along an axis to the host, as the JAX one brings
+a sharded global array to every host. `assemble_global_array` is Sebulba's
+and is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+from stoix_tpu_torch.utils.tree import tree_map
 
 
 def mesh_shape(axes: Optional[Dict[str, int]], world_size: int) -> Dict[str, int]:
@@ -60,3 +70,68 @@ def create_mesh(axes: Optional[Dict[str, int]] = None, device: str = "cuda") -> 
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
     return int(mesh.size(mesh.mesh_dim_names.index(axis)))
+
+
+def _rank_and_size(mesh: DeviceMesh, axis: str):
+    group = mesh.get_group(axis)
+    return group, dist.get_rank(group), dist.get_world_size(group)
+
+
+def shard_leading_axis(tree: Any, mesh: DeviceMesh, axis: str = "data", dim: int = 0) -> Any:
+    """This rank's shard of every tensor leaf: axis `dim` cut into as many
+    equal parts as `axis` has ranks, the rank's index-th (the JAX package
+    places the global array sharded over `axis` instead)."""
+    _, rank, size = _rank_and_size(mesh, axis)
+
+    def cut(x: torch.Tensor) -> torch.Tensor:
+        if x.shape[dim] % size:
+            raise ValueError(f"axis {dim} of size {x.shape[dim]} does not split over "
+                             f"{size} ranks of mesh axis {axis!r}")
+        width = x.shape[dim] // size
+        return x.narrow(dim, rank * width, width)
+
+    return tree_map(cut, tree)
+
+
+def _on_backend(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """Where `group`'s backend takes the tensor: NCCL on the card, gloo on the host."""
+    return x.contiguous() if dist.get_backend(group) == "nccl" else x.detach().cpu()
+
+
+def replicate(tree: Any, mesh: DeviceMesh, axis: str = "data") -> Any:
+    """Every tensor leaf as the first rank of `axis` holds it, on each rank's
+    own device."""
+    group, _, _ = _rank_and_size(mesh, axis)
+    source = dist.get_global_rank(group, 0)
+
+    def broadcast(x: torch.Tensor) -> torch.Tensor:
+        y = _on_backend(x, group).clone()
+        dist.broadcast(y, src=source, group=group)
+        return y.to(x.device)
+
+    return tree_map(broadcast, tree)
+
+
+def materialize(tree: Any) -> Any:
+    """Every tensor leaf as a numpy array on the host."""
+    return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def fetch_global(tree: Any, mesh: Optional[DeviceMesh] = None, axis: str = "data",
+                 dim: int = 0) -> Any:
+    """The global arrays of a tree of per-rank shards, as numpy on every
+    rank: each tensor leaf gathered over `axis` and concatenated along `dim`
+    in rank order. With no mesh (a single process) the tree as it is, as the
+    JAX package's `fetch_global_async` returns it. Every rank must call it:
+    it runs a collective."""
+    if mesh is None:
+        return tree
+    group, _, size = _rank_and_size(mesh, axis)
+
+    def gather(x: torch.Tensor) -> np.ndarray:
+        local = _on_backend(x, group)
+        parts = [torch.empty_like(local) for _ in range(size)]
+        dist.all_gather(parts, local, group=group)
+        return materialize(torch.cat(parts, dim=dim))
+
+    return tree_map(gather, tree)

@@ -16,11 +16,13 @@ test of the LOSS and the GLOBAL GRAD-NORM, selected by `system.update_guard`:
          step, the loss and the offending metric once the window's metrics
          are materialised (`publish_guard_metrics`)
 
-Update-batch replicas: the caller passes the replicas' mean loss and the
-gradients already averaged over them, so every replica makes the same
-decision, as the JAX package's pmean over ("batch", "data") makes it. The
-flag is emitted once per minibatch update, not once per replica, so the host
-sum counts each skipped update once.
+Update-batch replicas and data ranks: the caller passes the loss and the
+gradients already averaged over the replicas and then over the data ranks
+(one all-reduce, systems/anakin.py::data_mean), so every replica of every
+rank makes the same decision, as the JAX package's pmean over ("batch",
+"data") makes it. The flag is emitted once per minibatch update, not once per
+replica, so the host sum counts each skipped update once; the window's
+metrics are averaged over the ranks, so the host half decides alike on each.
 
 The JAX guard's fault-injection half (`nan_loss:N` through `arch.fault_spec`)
 is not ported; the runner refuses `arch.fault_spec`.

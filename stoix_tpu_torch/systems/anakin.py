@@ -1,21 +1,37 @@
 """Anakin learner-construction helpers shared by system files (counterpart of
-stoix_tpu/systems/anakin.py: `head_kwargs_for_env`, `reset_envs_for_anakin`
-and `broadcast_to_update_batch`, plus the seeding the JAX package does with
-`jax.random.split` and the replica loop that stands in for its
-`vmap(axis_name="batch")` over `arch.update_batch_size`)."""
+stoix_tpu/systems/anakin.py: `head_kwargs_for_env`, `reset_envs_for_anakin`,
+`broadcast_to_update_batch` and `make_step_keys`, plus the seeding the JAX
+package does with `jax.random.split`, the replica loop that stands in for its
+`vmap(axis_name="batch")` over `arch.update_batch_size`, and the collectives
+over the mesh's "data" axis that its learners run under `shard_map`).
+
+Data parallelism: one process a card, one shard a process. The "data" axis
+is every rank of the default process group (the runner refuses any other
+mesh axis), so a rank holds what a JAX shard holds: its own
+`total_num_envs // N` envs, generators, trajectory and buffer, and a
+replicated copy of params, optimizer states, observation statistics and β.
+Nothing is placed; the learners call `data_mean` and `data_sum` where the
+JAX learners call `pmean` and `psum` over "data". With no process group
+both return their input untouched, so one process runs exactly the ops it
+ran before data parallelism was ported.
+"""
 
 from __future__ import annotations
 
 import inspect
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from stoix_tpu_torch import envs
 from stoix_tpu_torch.envs import spaces as env_spaces
+from stoix_tpu_torch.observability import get_registry
 from stoix_tpu_torch.utils.config import _import_target
-from stoix_tpu_torch.utils.tree import tree_map, tree_stack
+from stoix_tpu_torch.utils.tree import tree_leaves, tree_map, tree_stack
+
+ALLREDUCE_COUNTER = "stoix_tpu_data_allreduces_total"
 
 
 def head_kwargs_for_env(head_cfg: Any, env: envs.Environment) -> dict:
@@ -54,13 +70,82 @@ def make_generator(seed: int, device: torch.device) -> torch.Generator:
     return generator
 
 
+# ---------------------------------------------------------------- the data axis
+
+
+def data_group() -> Optional[dist.ProcessGroup]:
+    """The process group of the mesh's "data" axis: the default group when
+    one is initialised, else None (a single process)."""
+    return dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+
+
+def data_rank_and_size() -> Tuple[int, int]:
+    """(this rank's index on the "data" axis, the axis size): (0, 1) with no group."""
+    group = data_group()
+    return (0, 1) if group is None else (dist.get_rank(group), dist.get_world_size(group))
+
+
+def rank_seed(seed: int) -> int:
+    """This rank's seed of a per-shard stream: the r-th of N seeds split from
+    `seed` on N ranks, and `seed` itself on one (so one process draws the
+    stream it always drew)."""
+    rank, size = data_rank_and_size()
+    return int(seed) if size == 1 else make_seeds(seed, size)[rank]
+
+
+def allreduce_counter():
+    return get_registry().counter(
+        ALLREDUCE_COUNTER, "All-reduces over the mesh's data axis, by what they reduce (kind)")
+
+
+def _all_reduce_sum(tree: Any, group: dist.ProcessGroup, kind: str) -> Any:
+    """`tree` summed over `group`: its tensor leaves flattened into one bucket
+    a dtype, one SUM all-reduce each. NCCL reduces on the card; any other
+    backend (gloo) on host copies."""
+    leaves = tree_leaves(tree)
+    out: List[torch.Tensor] = list(leaves)
+    by_dtype: Dict[torch.dtype, List[int]] = {}
+    for i, leaf in enumerate(leaves):
+        by_dtype.setdefault(leaf.dtype, []).append(i)
+    on_host = dist.get_backend(group) != "nccl"
+    for index in by_dtype.values():
+        bucket = torch.cat([leaves[i].reshape(-1) for i in index])
+        device = bucket.device
+        if on_host:
+            bucket = bucket.cpu()
+        dist.all_reduce(bucket, op=dist.ReduceOp.SUM, group=group)
+        allreduce_counter().inc(labels={"kind": kind})
+        parts = bucket.to(device).split([leaves[i].numel() for i in index])
+        for i, part in zip(index, parts):
+            out[i] = part.view(leaves[i].shape)
+    rebuilt = iter(out)
+    return tree_map(lambda _: next(rebuilt), tree)
+
+
+def data_sum(tree: Any, group: Optional[dist.ProcessGroup], kind: str = "statistics") -> Any:
+    """The JAX package's psum over "data": `tree`'s tensor leaves summed over
+    the ranks, in one all-reduce a dtype; `tree` itself with no group."""
+    return tree if group is None else _all_reduce_sum(tree, group, kind)
+
+
+def data_mean(tree: Any, group: Optional[dist.ProcessGroup], kind: str = "gradients") -> Any:
+    """The JAX package's pmean over "data": the sum over the ranks divided by
+    their count, in one all-reduce a dtype (a gradient dict, several of
+    them, or a scalar); `tree` itself with no group."""
+    if group is None:
+        return tree
+    size = dist.get_world_size(group)
+    return tree_map(lambda x: x / size, _all_reduce_sum(tree, group, kind))
+
+
 def reset_envs_for_anakin(
     env: envs.Environment, config: Any, generator: torch.Generator
 ) -> Tuple[Any, Any]:
-    """Reset all `arch.total_num_envs` envs on the generator's device. Under
-    `arch.update_batch_size` U they are U groups of `total_num_envs // U`
-    along the env axis, replica u's the u-th."""
-    return env.reset(generator, int(config.arch.total_num_envs))
+    """Reset this rank's `arch.total_num_envs // N` envs (all of them in one
+    process) on the generator's device; the caller seeds the generator with
+    `rank_seed`. Under `arch.update_batch_size` U they are U groups along the
+    env axis, replica u's the u-th."""
+    return env.reset(generator, int(config.arch.total_num_envs) // data_rank_and_size()[1])
 
 
 # ---------------------------------------------------------------- replicas
@@ -107,10 +192,17 @@ def mean_gradients(grads: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, torch.
 
 
 def make_step_generators(seed: int, device: torch.device, update_batch: int) -> Any:
-    """The step generator, or a tuple of one a replica from independent seeds."""
-    if update_batch == 1:
+    """The step generator, or a tuple of one a replica (the JAX package's
+    `make_step_keys`, [N, U] keys): rank r's U generators are the r-th U of
+    N·U seeds split from `seed`. One process with one replica draws from
+    `seed` itself."""
+    rank, size = data_rank_and_size()
+    if size * update_batch == 1:
         return make_generator(seed, device)
-    return tuple(make_generator(s, device) for s in make_seeds(seed, update_batch))
+    seeds = make_seeds(seed, size * update_batch)[rank * update_batch:(rank + 1) * update_batch]
+    if update_batch == 1:
+        return make_generator(seeds[0], device)
+    return tuple(make_generator(s, device) for s in seeds)
 
 
 def env_group(tree: Any, index: int, update_batch: int, dim: int) -> Any:

@@ -18,6 +18,12 @@ One update step, in the JAX package's order, for every replica:
 kernels are ctypes launches, which `torch.func.vmap` cannot batch): params
 and optimizer states with a leading [U] axis, one generator, one group of
 `total_num_envs // U` envs and one buffer a replica.
+
+Over N data-parallel ranks (systems/anakin.py) each rank rolls out, fills
+and samples its own buffers from its `total_num_envs // N` envs (the warm-up
+too), the buffer and batch sizes divided over N × U as the JAX package
+divides them; the system averages the gradients over the ranks, and the
+window's train metrics are averaged over them.
 """
 
 from __future__ import annotations
@@ -73,12 +79,13 @@ def dummy_transition(env: envs.Environment, discrete_actions: bool = False,
 def build_buffer(env: envs.Environment, config: Any, device: Any,
                  discrete_actions: bool = False) -> Tuple[ItemBuffer, Any]:
     """The per-replica item buffer of `system.replay.impl: local` and one
-    replica's initial state: the global buffer and batch sizes divided over the
-    U replicas, as the JAX package divides them over shards and replicas.
+    replica's initial state: the global buffer and batch sizes divided over
+    the N data ranks and U replicas, as the JAX package divides them over
+    shards and replicas (stoix_tpu/systems/off_policy_core.py:67-71).
     `sharded` (the cross-shard replay service) is not ported."""
-    update_batch = int(config.arch.get("update_batch_size", 1))
-    buffer_size = max(1, int(config.system.total_buffer_size) // update_batch)
-    batch_size = max(1, int(config.system.total_batch_size) // update_batch)
+    shards = anakin.data_rank_and_size()[1] * int(config.arch.get("update_batch_size", 1))
+    buffer_size = max(1, int(config.system.total_buffer_size) // shards)
+    batch_size = max(1, int(config.system.total_batch_size) // shards)
     impl = str(dict(config.system.get("replay") or {}).get("impl", "local"))
     if impl == "sharded":
         raise NotImplementedError("not ported: system.replay.impl=sharded (the sharded replay "
@@ -105,6 +112,7 @@ class OffPolicyLearner:
         self.epochs = int(config.system.epochs)
         self.num_updates_per_eval = int(config.arch.num_updates_per_eval)
         self.update_batch = int(config.arch.get("update_batch_size", 1))
+        self.data_group = anakin.data_group()
 
     def add(self, buffers: List[Any], traj: Transition) -> List[Any]:
         """Each replica's [T, E_u] transitions added to its buffer, time-major."""
@@ -165,4 +173,5 @@ class OffPolicyLearner:
             state, (episodes, losses_) = self.update_step(state)
             episode_info.append(episodes)
             loss_info.append(losses_)
-        return ExperimentOutput(state, tree_stack(episode_info), tree_stack(loss_info))
+        return ExperimentOutput(state, tree_stack(episode_info), anakin.data_mean(
+            tree_stack(loss_info), self.data_group, kind="metrics"))

@@ -36,6 +36,14 @@ trajectory (its columns are independent): one B1 launch an update at any U.
 The observation statistics and β are held once: the JAX package's psum and
 pmean over "batch" make them the same on every replica.
 
+Over N data-parallel ranks (systems/anakin.py) each rank runs this learner on
+its own `total_num_envs // N` envs, and the learner reduces over the "data"
+axis where the JAX learner calls `pmean` or `psum` over it: each minibatch's
+gradients (after the replicas' mean, before the clip) in one flat
+all-reduce, with the guard's loss in the same bucket; the observation sums;
+the measured KL; and, once a window, the train metrics. Advantages stay
+standardised over the rank's own batch, as inside the JAX shard.
+
 Parameters are `{name: tensor}` dicts applied with
 `torch.func.functional_call`; updates build new dicts and never write in
 place, so a window's eval params need no copy. No tensor of the update path
@@ -154,6 +162,7 @@ class PPOLearner:
         self.num_minibatches = int(system.num_minibatches)
         self.num_updates_per_eval = int(config.arch.num_updates_per_eval)
         self.update_batch = int(config.arch.get("update_batch_size", 1))
+        self.data_group = anakin.data_group()
 
     # ------------------------------------------------------------ replicas
 
@@ -306,7 +315,8 @@ class PPOLearner:
                           opt_states: List[ActorCriticOptStates], batches: Sequence[Tuple],
                           behavior: Sequence[Any], kl_beta: Any):
         """One minibatch update of every replica: the replicas' gradients
-        averaged, then each replica's clip + Adam step, then the guard."""
+        averaged, then over the data ranks, then each replica's clip + Adam
+        step, then the guard."""
         per_replica = [self.gradients(p, batch, b, kl_beta)
                        for p, batch, b in zip(params, batches, behavior)]
         actor_grads, critic_grads = (anakin.mean_gradients([g[side] for g in per_replica])
@@ -315,6 +325,11 @@ class PPOLearner:
             terms = per_replica[0][2]
         else:
             terms = tuple(torch.stack(parts) for parts in zip(*(g[2] for g in per_replica)))
+        guard_loss = None
+        if self.guard_mode != "off":  # off adds no op
+            guard_loss = (terms[0] + terms[1]).mean()
+        actor_grads, critic_grads, guard_loss = anakin.data_mean(
+            (actor_grads, critic_grads, guard_loss), self.data_group)
         new_params, new_opt = [], []
         for p, opt in zip(params, opt_states):
             actor_updates, actor_opt_state = self.actor_optim.update(
@@ -328,10 +343,10 @@ class PPOLearner:
             new_opt.append(ActorCriticOptStates(actor_opt_state, critic_opt_state))
         loss_actor, value_loss, entropy = terms
         info = self.loss_info(loss_actor, value_loss, entropy)
-        if self.guard_mode != "off":  # off adds no op
+        if self.guard_mode != "off":
             (new_params, new_opt), guard_metrics = guards.guard_update(
                 self.guard_mode, new=(new_params, new_opt), old=(params, opt_states),
-                loss=(loss_actor + value_loss).mean(), grads=(actor_grads, critic_grads),
+                loss=guard_loss, grads=(actor_grads, critic_grads),
             )
             info.update(guard_metrics)
         return new_params, new_opt, info
@@ -439,6 +454,7 @@ class PPOLearner:
                     self.measured_kl(b, p, self.group(obs, u, 1), self.group(traj_batch, u, 1))
                     for u, (b, p) in enumerate(zip(behavior, replica_params))
                 ]).mean()
+                measured = anakin.data_mean(measured, self.data_group, kind="kl")
                 kl_beta = adapt_kl_beta(kl_beta, measured, self.kl_target)
             loss_info = {**loss_info, "measured_kl": measured, "kl_beta": kl_beta}
         return UpdateResult(self.join(replica_params), self.join(replica_opt), loss_info,
@@ -446,14 +462,15 @@ class PPOLearner:
 
     def folded_statistics(self, stats: Any, raw: Any) -> Any:
         """The observation statistics with a [T, U.E] trajectory's raw
-        observations folded in, summed over the replicas (the JAX package's
-        psum over "batch")."""
+        observations folded in, summed over the replicas and then the data
+        ranks (the JAX package's psum over ("batch", "data"))."""
         view = raw.agent_view
         replica_axis = None
         if self.update_batch > 1:
             view = view.reshape(view.shape[:1] + (self.update_batch, -1) + view.shape[2:])
             replica_axis = 1
         return running_statistics.update(stats, view, replica_axis=replica_axis,
+                                         group=self.data_group,
                                          std_min_value=5e-4, std_max_value=5e4)
 
     def update_step(
@@ -486,7 +503,9 @@ class PPOLearner:
         return ExperimentOutput(
             learner_state=state,
             episode_metrics=tree_stack(episode_info),
-            train_metrics=tree_stack(loss_info),
+            # The ranks' means, so every rank's host reads the same metrics.
+            train_metrics=anakin.data_mean(tree_stack(loss_info), self.data_group,
+                                           kind="metrics"),
         )
 
 
@@ -582,7 +601,7 @@ def learner_setup(
         actor_network, critic_network, optims, config, device, step_seed)
 
     env_state, timestep = anakin.reset_envs_for_anakin(
-        env, config, anakin.make_generator(env_seed, device)
+        env, config, anakin.make_generator(anakin.rank_seed(env_seed), device)
     )
     learner_state = PPOLearnerState(
         params=params,

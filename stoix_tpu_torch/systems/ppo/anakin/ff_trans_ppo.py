@@ -264,7 +264,7 @@ def learner_setup(
         actor_network, critic_network, optims, config, device, step_seed)
 
     env_state, timestep = anakin.reset_envs_for_anakin(
-        env, config, anakin.make_generator(env_seed, device)
+        env, config, anakin.make_generator(anakin.rank_seed(env_seed), device)
     )
     num_envs = timestep.reward.shape[0]
     learner_state = TransPPOLearnerState(

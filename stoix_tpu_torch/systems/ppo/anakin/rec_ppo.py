@@ -350,8 +350,8 @@ def learner_setup(env: envs.Environment, config: Any, device: torch.device,
         actor_network, critic_network, optims, config, device, step_seed)
 
     env_state, timestep = anakin.reset_envs_for_anakin(
-        env, config, anakin.make_generator(env_seed, device))
-    num_envs = int(config.arch.total_num_envs)
+        env, config, anakin.make_generator(anakin.rank_seed(env_seed), device))
+    num_envs = timestep.reward.shape[0]  # this rank's envs
 
     def fresh_carry() -> Any:
         return ScannedRNN.initialize_carry(cell_type, hidden_size, (num_envs,), device)

@@ -12,7 +12,12 @@ buffer-free parallel Q-learning. One update step:
      generic recurrence an update at any `arch.update_batch_size`;
   3. `epochs` times: a permutation of each replica's T.E samples, then
      `num_minibatches` updates of 0.5 . mean((Q(s, a) - target)^2), the
-     replicas' gradients averaged, then each replica's clip + RAdam step.
+     replicas' gradients averaged, then over the data ranks, then each
+     replica's clip + RAdam step.
+
+Over N data-parallel ranks (systems/anakin.py) each rank runs its own
+`total_num_envs // N` envs and its own Q(lambda) launch; the window's train
+metrics are averaged over the ranks.
 
 The gradient-step counter is its own optimizer state (`PQNStepCount`, found
 by type, as the JAX package's `count_gradient_steps` state is), a host int.
@@ -85,6 +90,7 @@ class PQNLearner:
                                  * int(config.arch.num_updates))
         self.num_updates_per_eval = int(config.arch.num_updates_per_eval)
         self.update_batch = int(config.arch.get("update_batch_size", 1))
+        self.data_group = anakin.data_group()
 
     def epsilon(self, opt_states: Any):
         """1.0 annealed to `training_epsilon` by the gradient-step count, in
@@ -147,7 +153,8 @@ class PQNLearner:
                 loss, info = self.loss(leaves, obs, action, target)
                 grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
             per_replica.append((grads, info))
-        grads = anakin.mean_gradients([g[0] for g in per_replica])
+        grads = anakin.data_mean(anakin.mean_gradients([g[0] for g in per_replica]),
+                                 self.data_group)
         info = per_replica[0][1] if len(per_replica) == 1 else tree_stack(
             [g[1] for g in per_replica])
         new_params, new_opt = [], []
@@ -207,7 +214,8 @@ class PQNLearner:
             state, (episodes, losses_) = self.update_step(state)
             episode_info.append(episodes)
             loss_info.append(losses_)
-        return ExperimentOutput(state, tree_stack(episode_info), tree_stack(loss_info))
+        return ExperimentOutput(state, tree_stack(episode_info), anakin.data_mean(
+            tree_stack(loss_info), self.data_group, kind="metrics"))
 
 
 def learner_setup(env: envs.Environment, config: Any, device: torch.device,
@@ -229,7 +237,7 @@ def learner_setup(env: envs.Environment, config: Any, device: torch.device,
     params = {k: v.detach() for k, v in q_network.named_parameters()}
     opt_state = (optim.init(params), PQNStepCount(0))
     env_state, timestep = anakin.reset_envs_for_anakin(
-        env, config, anakin.make_generator(env_seed, device))
+        env, config, anakin.make_generator(anakin.rank_seed(env_seed), device))
     learner_state = OnPolicyLearnerState(
         params=anakin.broadcast_to_update_batch(params, update_batch),
         opt_states=anakin.broadcast_to_update_batch(opt_state, update_batch),

@@ -4,7 +4,8 @@ stoix_tpu/systems/q_learning/q_family.py).
 Each system file supplies a `QLossFn` and head kwargs; the buffer, the
 warmup fill, the rollout and the update loop come from off_policy_core. The
 update of one sampled batch: the loss's gradients with respect to the online
-params (averaged over the replicas), a global-norm clip and Adam (eps 1e-5),
+params (averaged over the replicas, then over the data ranks, the JAX
+package's `pmean_grads`), a global-norm clip and Adam (eps 1e-5),
 the Polyak target update `tau . online + (1 - tau) . target`, and the
 divergence guard under `system.update_guard`. Acting is epsilon-greedy; with
 `system.epsilon_decay_steps` epsilon decays linearly from
@@ -118,6 +119,7 @@ class QUpdate:
         self.loss_fn, self.q_apply, self.optim, self.config = loss_fn, q_apply, optim, config
         self.tau = float(config.system.tau)
         self.guard_mode = guards.resolve_mode(config)
+        self.data_group = anakin.data_group()
 
     def gradients(self, params: OnlineAndTarget, batch: Transition):
         with torch.enable_grad():
@@ -135,6 +137,8 @@ class QUpdate:
         else:
             loss = torch.stack([g[1] for g in per_replica])
             info = tree_stack([g[2] for g in per_replica])
+        guard_loss = loss.mean() if self.guard_mode != "off" else None  # off adds no op
+        grads, guard_loss = anakin.data_mean((grads, guard_loss), self.data_group)
         new_params, new_opt = [], []
         for p, opt in zip(params, opt_states):
             updates, opt = self.optim.update(grads, opt)
@@ -142,10 +146,10 @@ class QUpdate:
             new_params.append(OnlineAndTarget(online, incremental_update(online, p.target,
                                                                          self.tau)))
             new_opt.append(opt)
-        if self.guard_mode != "off":  # off adds no op
+        if self.guard_mode != "off":
             (new_params, new_opt), guard_metrics = guards.guard_update(
                 self.guard_mode, new=(new_params, new_opt), old=(params, opt_states),
-                loss=loss.mean(), grads=(grads,))
+                loss=guard_loss, grads=(grads,))
             info = {**info, **guard_metrics}
         return new_params, new_opt, info
 
@@ -184,7 +188,7 @@ def q_learner_setup(
     learner = core.OffPolicyLearner(
         env, buffer, config, QUpdate(loss_fn, q_apply, optim, config), act_in_env)
     env_state, timestep = anakin.reset_envs_for_anakin(
-        env, config, anakin.make_generator(env_seed, device))
+        env, config, anakin.make_generator(anakin.rank_seed(env_seed), device))
     learner_state = OffPolicyLearnerState(
         params=anakin.broadcast_to_update_batch(OnlineAndTarget(online, online), update_batch),
         opt_states=anakin.broadcast_to_update_batch(optim.init(online), update_batch),

@@ -20,6 +20,19 @@ evaluation. The update guard's host half (resilience/guards.py) reads each
 window's train metrics once they are on the host. The JAX package's fleet,
 integrity, preflight, fault-injection and telemetry layers are not ported;
 their knobs raise.
+
+Data parallelism, as the JAX runner's `maybe_initialize_distributed`, mesh
+and `check_total_timesteps(config, mesh.shape["data"])`: under `torchrun
+--nproc-per-node N` (or `arch.distributed.*`) the runner joins the process
+group, builds the mesh from `arch.mesh` (only its "data" axis; `-1` is every
+process) and runs ONE run sharded over the N ranks, each with
+`total_num_envs // N` envs. The learners average gradients over the ranks
+(systems/anakin.py). Every host decision reads values that are the same on
+every rank: the train metrics are averaged over the ranks and the episode
+and eval metrics gathered (`parallel.fetch_global`), so the guard, the best
+params and the return decide alike everywhere; a rank-local decision would
+deadlock the next collective. Only the coordinator logs and writes the
+store's metadata. One process with no group runs as it always did.
 """
 
 from __future__ import annotations
@@ -33,16 +46,20 @@ import torch
 from stoix_tpu_torch import envs
 from stoix_tpu_torch.evaluator import evaluator_setup, get_rnn_evaluator_fn
 from stoix_tpu_torch.ops import scan_kernels
+from stoix_tpu_torch.parallel import (
+    create_mesh, fetch_global, maybe_initialize_distributed, mesh_shape, process_count,
+)
 from stoix_tpu_torch.resilience import guards
-from stoix_tpu_torch.systems.anakin import make_generator, make_seeds
+from stoix_tpu_torch.systems.anakin import make_generator, make_seeds, rank_seed
 from stoix_tpu_torch.utils.checkpointing import checkpointer_from_config, loader_from_config
 from stoix_tpu_torch.utils.logger import LogEvent, StoixLogger
 from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
 
 # Stats of the most recent run_anakin_experiment call in this process, as
-# the JAX runner's LAST_RUN_STATS: per-window wall seconds and env-steps/s,
-# the logger's records, the device the run used, and the resilience block
-# (the guard's mode and skipped updates, the restored step).
+# the JAX runner's LAST_RUN_STATS: per-window wall seconds and env-steps/s
+# (of the whole run), the logger's records, the device the run used, the
+# mesh and this rank's env count, and the resilience block (the guard's mode
+# and skipped updates, the restored step). Every rank keeps its own.
 LAST_RUN_STATS: Dict[str, Any] = {}
 
 
@@ -77,8 +94,12 @@ def check_ported_arch(config: Any) -> None:
     this slice of the port does not implement."""
     arch = config.arch
     unported = []
-    if int((arch.get("mesh") or {}).get("data", -1)) not in (-1, 1):
-        unported.append("arch.mesh.data > 1")
+    # Only the data axis: the JAX package's `group` axis is gossip (ROADMAP A17).
+    unported += [f"arch.mesh.{axis}" for axis in (arch.get("mesh") or {}) if axis != "data"]
+    if arch.get("roles") not in (None, "~"):
+        # Anakin colocates every role on the whole mesh; the role split is
+        # Sebulba's (ROADMAP A15).
+        unported.append("arch.roles")
     for block in ("fleet", "integrity", "preflight"):
         if (arch.get(block) or {}).get("enabled", False):
             unported.append(f"arch.{block}.enabled")
@@ -110,7 +131,18 @@ def run_anakin_experiment(
     check_ported_arch(config)
     guard_mode = guards.resolve_mode(config)
     scan_kernels.configure_from_config(config)
-    config = check_total_timesteps(config, 1)
+    maybe_initialize_distributed(config, device.type)
+    mesh_axes = dict(config.arch.get("mesh") or {"data": -1})
+    try:
+        data_shards = mesh_shape(mesh_axes, process_count())["data"]
+    except ValueError as error:
+        raise ValueError(f"arch.mesh.data={mesh_axes.get('data')}: {error}") from None
+    mesh = None
+    if torch.distributed.is_initialized():
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = create_mesh(mesh_axes, device.type)
+    config = check_total_timesteps(config, data_shards)
     config.logger.system_name = config.system.system_name
 
     env, eval_env = envs.make(config)
@@ -127,7 +159,7 @@ def run_anakin_experiment(
         loader.check_version()
         load_args = config.logger.checkpointing.get("load_args") or {}
         learner_state, start_step = loader.restore(learner_state, load_args.get("timestep"))
-    eval_generator = make_generator(eval_seed, device)
+    eval_generator = make_generator(rank_seed(eval_seed), device)
     make_evaluators = evaluator_setup_fn or evaluator_setup
     evaluator, absolute_evaluator = make_evaluators(eval_env, setup.eval_act_fn, config)
     logger = StoixLogger(config)
@@ -155,12 +187,14 @@ def run_anakin_experiment(
 
             # Parameters are never updated in place, so the eval params need no copy.
             eval_params = setup.eval_params_fn(learner_state)
-            eval_metrics = evaluator(eval_params, eval_generator)
+            eval_metrics = fetch_global(evaluator(eval_params, eval_generator), mesh)
             # The guard's host half: the window's metrics are on the host here;
             # update_guard=halt raises DivergenceError, naming the step.
             guards.publish_guard_metrics(guard_mode, output.train_metrics, t)
+            # Envs along the last axis of the [updates, T, envs] episode metrics.
+            episode_metrics = fetch_global(output.episode_metrics, mesh, dim=-1)
             logger.log(
-                {**envs.get_final_step_metrics(output.episode_metrics),
+                {**envs.get_final_step_metrics(episode_metrics),
                  "steps_per_second": steps_per_eval / wall},
                 t, eval_idx, LogEvent.ACT,
             )
@@ -178,7 +212,7 @@ def run_anakin_experiment(
                 checkpointer.save(t, learner_state, mean_return)
 
         if bool(config.arch.get("absolute_metric", True)):
-            abs_metrics = absolute_evaluator(best_params, eval_generator)
+            abs_metrics = fetch_global(absolute_evaluator(best_params, eval_generator), mesh)
             logger.log(
                 abs_metrics, start_step + int(config.arch.total_timesteps),
                 int(config.arch.num_evaluation), LogEvent.ABSOLUTE,
@@ -191,6 +225,8 @@ def run_anakin_experiment(
     LAST_RUN_STATS.update(
         {
             "device": str(device),
+            "mesh": {"data": data_shards},
+            "num_envs_per_rank": int(config.arch.total_num_envs) // data_shards,
             "window_seconds": window_seconds,
             "steps_per_second": [steps_per_eval / w for w in window_seconds],
             "history": logger.history,

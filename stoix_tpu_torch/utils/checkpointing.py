@@ -22,6 +22,16 @@ are checked for shape and dtype and moved to the template's device, and each
 generator takes its saved state in place. Files are written to a temporary
 name and renamed, so a store never holds half a step.
 
+Over N data-parallel processes each rank's state holds its own leaves (env
+state, timestep, generators, buffers) beside replicated ones, so each rank
+writes its whole state to `<step>/state.<rank>-of-<N>.pt` (one process
+keeps `state.pt`), in a store that every rank sees (one host, or a shared
+file system). The coordinator alone writes the metadata; after a barrier
+it alone writes `metrics.json` and prunes, and a second barrier holds every rank until it is
+done, so each rank's next save decision reads the same store. A restore
+reads the rank's own file; a step saved by another number of processes
+raises, naming both counts.
+
 Not ported (ROADMAP A19): the fleet's emergency stores (a `load_path` that
 names one raises, naming `arch.fleet`), topology-elastic re-placement, the
 per-leaf digests and the fallback walk past a corrupt step.
@@ -35,6 +45,7 @@ import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 # 3.0 is the JAX package's (PPOLearnerState carries kl_beta). A major version
 # that differs refuses to restore.
@@ -45,6 +56,24 @@ METADATA_FILE = "metadata.json"
 FLEET_MANIFEST = "fleet_manifest.json"  # stoix_tpu/resilience/fleet.py::MANIFEST_NAME
 
 Path = Tuple[str, ...]
+
+
+def state_file(rank: int, world: int) -> str:
+    """The file of rank `rank`'s state in a step saved by `world` processes."""
+    return STATE_FILE if world == 1 else f"state.{rank}-of-{world}.pt"
+
+
+def saved_world(step_dir: str) -> Optional[int]:
+    """How many processes saved the complete step in `step_dir`; None when
+    it is incomplete. One process renames `state.pt` into place last; several
+    write `metrics.json` last, after every rank's file."""
+    if os.path.isfile(os.path.join(step_dir, STATE_FILE)):
+        return 1
+    if not os.path.isfile(os.path.join(step_dir, METRICS_FILE)):
+        return None
+    counts = {int(name.split("-of-")[1][:-len(".pt")]) for name in os.listdir(step_dir)
+              if name.startswith("state.") and name.endswith(".pt") and "-of-" in name}
+    return counts.pop() if len(counts) == 1 else None
 
 
 def _children(tree: Any) -> Optional[Iterator[Tuple[str, Any]]]:
@@ -104,6 +133,9 @@ class Checkpointer:
         self._keep_period = None if keep_period is None else int(keep_period)
         self._metadata = dict(metadata or {})
         self._metadata["checkpointer_version"] = CHECKPOINTER_VERSION
+        initialized = dist.is_available() and dist.is_initialized()
+        self._rank = dist.get_rank() if initialized else 0
+        self._world = dist.get_world_size() if initialized else 1
 
     # ------------------------------------------------------------ the store
 
@@ -113,7 +145,7 @@ class Checkpointer:
             return []
         return sorted(int(name) for name in os.listdir(self.directory)
                       if name.isdigit()
-                      and os.path.isfile(os.path.join(self.directory, name, STATE_FILE)))
+                      and saved_world(os.path.join(self.directory, name)) is not None)
 
     def get_metadata(self) -> dict:
         with open(os.path.join(self.directory, METADATA_FILE)) as f:
@@ -156,22 +188,32 @@ class Checkpointer:
     def save(self, timestep: int, state: Any, episode_return: float = 0.0,
              force: bool = False) -> bool:
         """Write `state` as step `timestep` when the policy takes it (always
-        with `force`); returns whether it was written. Synchronous: the file
-        is complete on return."""
+        with `force`); returns whether it was written. Synchronous: the files
+        are complete on return. Over several processes every rank calls it
+        with its own state and the same `episode_return`."""
         if not force and not self.should_save(timestep):
             return False
         step_dir = os.path.join(self.directory, str(int(timestep)))
         os.makedirs(step_dir, exist_ok=True)
         metadata_path = os.path.join(self.directory, METADATA_FILE)
-        if not os.path.exists(metadata_path):
+        if self._rank == 0 and not os.path.exists(metadata_path):
             _write_json(metadata_path, self._metadata)
         payload = {"/".join(path): _saveable(leaf) for path, leaf in flatten_state(state)}
-        tmp = os.path.join(step_dir, STATE_FILE + ".tmp")
+        name = state_file(self._rank, self._world)
+        tmp = os.path.join(step_dir, name + ".tmp")
         torch.save(payload, tmp)
-        _write_json(os.path.join(step_dir, METRICS_FILE),
-                    {"episode_return": float(episode_return), "step": int(timestep)})
-        os.replace(tmp, os.path.join(step_dir, STATE_FILE))
-        self._prune()
+        metrics = {"episode_return": float(episode_return), "step": int(timestep)}
+        if self._world == 1:
+            _write_json(os.path.join(step_dir, METRICS_FILE), metrics)
+            os.replace(tmp, os.path.join(step_dir, STATE_FILE))
+            self._prune()
+            return True
+        os.replace(tmp, os.path.join(step_dir, name))
+        dist.barrier()  # every rank's file is in place
+        if self._rank == 0:
+            _write_json(os.path.join(step_dir, METRICS_FILE), metrics)
+            self._prune()
+        dist.barrier()  # the store is whole again before any rank reads it
         return True
 
     def restore(self, template: Any, timestep: Optional[int] = None) -> Tuple[Any, int]:
@@ -189,7 +231,14 @@ class Checkpointer:
             step = steps[-1]
         else:
             raise FileNotFoundError(f"No checkpoints under {self.directory}")
-        saved = torch.load(os.path.join(self.directory, str(step), STATE_FILE),
+        step_dir = os.path.join(self.directory, str(step))
+        world = saved_world(step_dir)
+        if world != self._world:
+            raise ValueError(
+                f"checkpoint step {step} under {self.directory} was saved by {world} "
+                f"process(es) and this run has {self._world}: restoring under another "
+                "number of processes (elastic re-placement) is not ported")
+        saved = torch.load(os.path.join(step_dir, state_file(self._rank, self._world)),
                            map_location="cpu", weights_only=True)
         paths = {"/".join(path) for path, _ in flatten_state(template)}
         if paths != set(saved):

@@ -11,6 +11,11 @@ neptune (`use_neptune`) sinks, which the JAX package writes when those
 packages are absent; the port always writes those directories and never
 calls the packages. Every logged record is also kept in
 `StoixLogger.history`. `logger.telemetry.enabled` is not ported and raises.
+
+Over several processes only the coordinator (rank 0) has sinks, as the JAX
+runner logs only on its coordinator: the other ranks write no file and print
+nothing, and keep `history` all the same (the runner logs global metrics,
+the same on every rank).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from stoix_tpu_torch.parallel.distributed import is_coordinator
 
 
 class LogEvent(enum.Enum):
@@ -251,6 +258,11 @@ class StoixLogger:
             f"seed_{seed}_{stamp}",
         )
         self._sinks: List[BaseSink] = []
+        threshold = config.env.get("solved_return_threshold")
+        self._solve_threshold: Optional[float] = None if threshold is None else float(threshold)
+        self.history: List[Dict[str, Any]] = []
+        if not is_coordinator():
+            return
         if logger_cfg.get("use_console", True):
             self._sinks.append(ConsoleSink())
         if logger_cfg.get("use_json", False):
@@ -272,9 +284,6 @@ class StoixLogger:
             kwargs.setdefault("architecture_name",
                               (config.get("arch") or {}).get("architecture_name", "anakin"))
             self._sinks.append(NeptuneSink(os.path.join(self.exp_dir, "neptune"), **kwargs))
-        threshold = config.env.get("solved_return_threshold")
-        self._solve_threshold: Optional[float] = None if threshold is None else float(threshold)
-        self.history: List[Dict[str, Any]] = []
 
     def log(self, metrics: Dict[str, Any], t: int, t_eval: int, event: LogEvent) -> None:
         processed: Dict[str, float] = {}

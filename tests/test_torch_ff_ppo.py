@@ -246,7 +246,8 @@ def test_entry_point_defaults_to_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("override,key", [
-    ("arch.mesh.data=2", "arch.mesh.data"),
+    # Anakin colocates every role; the role split is Sebulba's (ROADMAP A15).
+    ("arch.roles.learn.device_ids=[0]", "arch.roles"),
     ("arch.fleet.enabled=true", "arch.fleet.enabled"),
     ("arch.integrity.enabled=true", "arch.integrity.enabled"),
     ("arch.preflight.enabled=true", "arch.preflight.enabled"),

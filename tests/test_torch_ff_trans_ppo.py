@@ -270,7 +270,8 @@ def test_entry_point_defaults_to_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("override,key", [
-    ("arch.mesh.data=2", "arch.mesh.data"),
+    # A mesh axis other than "data" (the JAX package's gossip groups, ROADMAP A17).
+    ("arch.mesh.group=2", "arch.mesh.group"),
     ("arch.fault_spec=nan_loss:1", "arch.fault_spec"),
     # ff_ppo's knobs that the JAX package's ff_trans_ppo ignores (ROADMAP C9).
     ("system.normalize_observations=true", "system.normalize_observations"),

@@ -408,12 +408,13 @@ def test_normalize_observations_scores_with_the_rollouts_statistics_then_folds(u
     ("system.adaptive_kl_beta=true", "system.adaptive_kl_beta"),
     ("system.reward_scale=0.1", "system.reward_scale"),
     ("network.rnn_cell_type=mgu", "network.rnn_cell_type"),
+    # Two data shards in one process: JAX's create_mesh ValueError ("do not cover").
     ("arch.mesh.data=2", "arch.mesh.data"),
 ])
 def test_knobs_the_reference_ignores_raise_naming_the_key(override, key):
     """ROADMAP C12: the JAX rec_ppo silently ignores update_guard,
     fused_update, adaptive_kl_beta and reward_scale; the port refuses each,
-    as it refuses an unported cell and data parallelism."""
+    as it refuses an unported cell, and a mesh its processes do not cover."""
     cfg = _config(["arch.num_updates=1", "arch.num_evaluation=1", override])
     with pytest.raises((NotImplementedError, ValueError), match=key.replace(".", r"\.")):
         rec_ppo.run_experiment(cfg, device="cpu")

@@ -6,12 +6,34 @@ come back as numpy arrays for comparison.
 
 from __future__ import annotations
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from stoix_tpu.ops import scan_kernels as jax_scan_kernels
+
+# The port's CPU tests run torch on one intra-op thread. The suite runs
+# several pytest-xdist workers side by side, and torch's default of one thread
+# a core in each oversubscribes the host: one small learning run once took
+# 438.6 s there against 16.7 s alone. Every torch test module imports this
+# one, so the pin holds in every worker. `host_threads` gives a test back the
+# host's default (ROADMAP C11's test of the multi-threaded float32 route).
+HOST_THREADS = torch.get_num_threads()
+torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def host_threads():
+    """Run the body at the host's default intra-op thread count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(HOST_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 # The reference kernel spells its compiler params `pltpu.TPUCompilerParams`;

@@ -1,5 +1,6 @@
 """Multi-process CPU harness for the PyTorch port's distributed tests
-(tests/test_torch_ring_attention.py, tests/test_torch_parallel.py).
+(tests/test_torch_ring_attention.py, tests/test_torch_parallel.py,
+tests/test_torch_data_parallel.py).
 
 `spawn_ranks(jobs, world, tmp_dir)` starts `world` processes of
 
@@ -9,8 +10,8 @@ Each rank joins one gloo process group through
 `stoix_tpu_torch.parallel.maybe_initialize_distributed`, with a `file://`
 store in TMP_DIR (no network), runs every job of `jobs` in order, and returns
 {job name: result}. A job is (name, kind, keyword arguments): the kinds are
-the functions in `KINDS`. This module imports no JAX, so each rank starts in
-about a second.
+the functions in `KINDS`, the data-parallel ones in tests/torch_dp_worker.py.
+This module imports no JAX, so each rank starts in about a second.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from stoix_tpu_torch.parallel import (
 )
 from stoix_tpu_torch.utils.config import Config
 from stoix_tpu_torch.utils.params import load_flax_params
+from torch_dp_worker import DP_KINDS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPAWN_TIMEOUT_S = 240.0
@@ -91,7 +93,8 @@ def _collectives(mesh_for):
     }
 
 
-KINDS = {"ring": _ring, "torso": _torso, "mesh": _mesh, "collectives": _collectives}
+KINDS = {"ring": _ring, "torso": _torso, "mesh": _mesh, "collectives": _collectives,
+         **DP_KINDS}
 
 
 def main(rank: int, world: int, tmp_dir: str) -> None:
