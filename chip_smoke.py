@@ -156,7 +156,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    envs, T=16, GRU 128 between torsos of 128, 4 x 4 minibatches
                    of env sequences), 4 updates in 2 eval windows: one GAE
                    launch an update, env-steps/s, device launches an update.
- 22. data_parallel — data-parallel Anakin training through `run_experiment`
+ 22. rainbow_learn — ff_rainbow trains IdentityGame above 8.0 (16 envs,
+                   65 536 steps, C51 on [0, 10]; the JAX package returns
+                   10.0 there, scripts/jax_oracle_thresholds.py).
+ 23. rainbow_train — ff_rainbow at its default config's full width (128
+                   CartPole envs, T = 8, a prioritised buffer of 100 000
+                   steps of 4-step sequences, 4 epochs of 256, MLP 256 then
+                   the noisy dueling C51 head with 128-wide streams and 51
+                   atoms on [0, 500]), MAIN_UPDATES updates in 2 windows
+                   through `run_experiment`, every kernel counter zeroed just
+                   before and read just after (no kernel is on this path:
+                   each count must stay 0); env-steps/s, device launches an
+                   update (torch.profiler), the buffers' device bytes, the
+                   duplicate indices `set_priorities` collapsed, one update
+                   on the card against the same update on the CPU (loss and
+                   priorities 1e-5 relative, params 1e-5 absolute) and
+                   `set_priorities` on the card twice on indices with
+                   duplicates (bitwise both times, the last occurrence of
+                   every index written, on the card and on the CPU).
+ 24. r2d2_learn  — rec_r2d2 trains IdentityGame above 8.0 (16 envs, 131 072
+                   steps; the JAX package returns 8.99 there).
+ 25. r2d2_train  — rec_r2d2 at its default config's full width (1024
+                   CartPole envs, T = 16, a GRU of 128 between silu torsos
+                   of 128, 64 sequences of 8 burn-in + 8 trained steps at
+                   period 4, 2 epochs): as rainbow_train.
+ 26. data_parallel — data-parallel Anakin training through `run_experiment`
                    at full width (ff_ppo: CartPole, 1024 envs, 4 updates in 2
                    windows, multistep_impl=pallas, normalize_observations on,
                    so the statistics are reduced too), B1's counters zeroed
@@ -201,6 +225,7 @@ import torch
 import torch.distributed as dist
 
 from stoix_tpu_torch import envs, parallel
+from stoix_tpu_torch.buffers.buffers import duplicate_indices
 from stoix_tpu_torch.kernels import (
     build, flash_attention, flash_attention_chunk, flash_attention_wide, linear_recurrence,
 )
@@ -214,6 +239,7 @@ from stoix_tpu_torch.systems.q_learning import (
 )
 from stoix_tpu_torch.utils import config as config_lib
 from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
+from stoix_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor-core) peak.
 HBM_BYTES_PER_S = 3.35e12
@@ -1866,6 +1892,208 @@ def phase_rec_train(smi: str) -> int:
     return int(record["b1_gae_launches_per_update"] * record["updates"])
 
 
+# ---------------------------------------------------- sequence replay: ff_rainbow and rec_r2d2
+
+SEQUENCE_ROOTS = {"ff_rainbow": "default/anakin/default_ff_rainbow.yaml",
+                  "rec_r2d2": "default/anakin/default_rec_r2d2.yaml"}
+SEQUENCE_PHASE = {"ff_rainbow": "rainbow", "rec_r2d2": "r2d2"}
+# The IdentityGame oracles, fixed before any card run of these systems by
+# scripts/jax_oracle_thresholds.py on the CPU: the JAX package's ff_rainbow
+# returns 10.0 (seeds 42 and 1) and its rec_r2d2 8.9875 and 8.9937 under
+# these overrides, where uniform random actions return 2.5 (4 actions, 10
+# steps); the threshold is the family's 8.0.
+SEQUENCE_IDENTITY = {
+    "ff_rainbow": ["env=identity_game", "arch.total_num_envs=16", "arch.num_evaluation=1",
+                   "arch.num_eval_episodes=32", "arch.total_timesteps=65536",
+                   "system.total_buffer_size=4096", "system.total_batch_size=64",
+                   "system.vmin=0.0", "system.vmax=10.0", "logger.use_console=False"],
+    "rec_r2d2": ["env=identity_game", "arch.total_num_envs=16", "arch.num_evaluation=1",
+                 "arch.num_eval_episodes=32", "arch.total_timesteps=131072",
+                 "system.total_buffer_size=4096", "system.total_batch_size=16",
+                 "logger.use_console=False"],
+}
+SEQUENCE_THRESHOLD = 8.0
+
+
+def _sequence_module(name: str):
+    from stoix_tpu_torch.systems.q_learning import ff_rainbow, rec_r2d2
+
+    return {"ff_rainbow": ff_rainbow, "rec_r2d2": rec_r2d2}[name]
+
+
+def _kernel_counters() -> tuple:
+    """Every kernel's launch counter: B1's two entry points, B2's forward and
+    backward, B3, and the wide route's three."""
+    return (*linear_recurrence.COUNTERS, *flash_attention.COUNTERS, flash_attention_chunk.KERNEL,
+            *flash_attention_wide.COUNTERS)
+
+
+def phase_sequence_learn(name: str) -> None:
+    """`name` trains IdentityGame on the card above the threshold."""
+    start = time.perf_counter()
+    final_return = _sequence_module(name).run_experiment(
+        compose(SEQUENCE_IDENTITY[name], SEQUENCE_ROOTS[name]), device="cuda")
+    if not final_return > SEQUENCE_THRESHOLD:
+        raise AssertionError(f"{name} did not learn IdentityGame on the card: {final_return}")
+    emit({"phase": f"{SEQUENCE_PHASE[name]}_learn", "system": name, "env": "identity_game",
+          "final_return": final_return, "threshold": SEQUENCE_THRESHOLD,
+          "window_seconds": runner.LAST_RUN_STATS["window_seconds"],
+          "seconds": time.perf_counter() - start})
+
+
+def _sequence_setup(name: str, config, device: torch.device, seed: int):
+    """(the system's setup, its learner state ready to update) on `device`."""
+    setup = _sequence_module(name).learner_setup(envs.make(config)[0], config, device, seed)
+    if name == "ff_rainbow":  # (setup, its warmup fill)
+        setup, warmup = setup
+        return setup, warmup(setup.learner_state)
+    return setup, setup.learner_state
+
+
+def _tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def _relative(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(((got.cpu() - want).abs() / want.abs().clamp_min(1e-30)).max())
+
+
+def _update_on_card_and_cpu(name: str, config, setup, state) -> dict:
+    """One update epoch on a PrioritisedSample drawn on the card, run by the
+    card's learner and by the same learner built on the CPU, from the same
+    params (Rainbow's three noise draws made on the card and given to both):
+    the loss 1e-5 relative, the params 1e-5 absolute, the new priorities
+    1e-5 relative."""
+    cpu = torch.device("cpu")
+    cpu_setup, _ = _sequence_setup(name, config, cpu, int(config.arch.seed))
+    sample = setup.learn.buffer.sample(state.buffer_state, state.generator)
+    params, opt = state.params, state.opt_states
+    updates = {"card": setup.learn.update_from_batch, "cpu": cpu_setup.learn.update_from_batch}
+    if name == "ff_rainbow":
+        draws = [updates["card"].q_apply.draw_noise(state.generator) for _ in range(3)]
+        given = {"card": draws, "cpu": tree_map(lambda x: x.cpu(), draws)}
+        for side, update in updates.items():
+            queue = list(given[side])
+            update.q_apply.draw_noise = lambda generator, queue=queue: queue.pop(0)
+    out = {}
+    for side, update in updates.items():
+        move = (lambda x: x) if side == "card" else (lambda x: x.cpu())
+        out[side] = update([tree_map(move, params)], [tree_map(move, opt)],
+                           [tree_map(move, sample)], [None])
+    (card_params, _, card_info, card_prio), (cpu_params, _, cpu_info, cpu_prio) = (
+        out["card"], out["cpu"])
+    loss_err = _relative(card_info["q_loss"], cpu_info["q_loss"])
+    param_err = max(float((a.cpu() - b).abs().max()) for side in (0, 1)
+                    for a, b in zip(card_params[0][side].values(), cpu_params[0][side].values()))
+    prio_err = _relative(card_prio[0], cpu_prio[0])
+    if not (loss_err <= 1e-5 and param_err <= 1e-5 and prio_err <= 1e-5):
+        raise AssertionError(f"{name}'s update on the card is not the CPU's: loss {loss_err}, "
+                             f"params {param_err}, priorities {prio_err}")
+    return {"loss_relative_err": loss_err, "params_abs_err": param_err,
+            "priorities_relative_err": prio_err, "sample_batch": int(sample.indices.shape[0])}
+
+
+def _set_priorities_on_card(buffer, state, exponent: float) -> dict:
+    """`set_priorities` on the card, twice from the same table, on indices with
+    duplicates: bitwise equal both times; on the card and on the CPU every
+    written entry is, bitwise, that device's (|p| + 1e-6) ** a of the LAST
+    occurrence of its index, and the rest of the table is untouched; the two
+    devices agree to 1e-6 relative (their `pow` may round an ulp apart)."""
+    priorities = state.buffer_state.priorities
+    rows, slots = priorities.shape
+    gen = torch.Generator().manual_seed(7)
+    indices = torch.stack([torch.randint(0, rows, (4096,), generator=gen),
+                           torch.randint(0, min(slots, 8), (4096,), generator=gen)], -1)
+    values = torch.randn(4096, generator=gen)
+    last = {}  # (row, slot) -> the position of its last occurrence
+    for position, (row, slot) in enumerate(indices.tolist()):
+        last[(row, slot)] = position
+    written = torch.tensor(list(last.keys()))
+    positions = torch.tensor(list(last.values()))
+    results = []
+    for device in ("cuda", "cuda", "cpu"):
+        table = state.buffer_state._replace(priorities=priorities.clone().to(device))
+        out = buffer.set_priorities(table, indices.to(device), values.to(device)).priorities
+        # The same elementwise power over the same vector (a CPU `pow` may
+        # round a vector lane and a scalar tail apart), then each index's
+        # last occurrence.
+        powered = torch.pow(values.to(device).abs() + 1e-6, exponent)
+        want = priorities.clone().to(device)
+        want[written[:, 0], written[:, 1]] = powered[positions.to(device)]
+        if not torch.equal(out, want):
+            raise AssertionError(f"set_priorities on {device} did not keep the last occurrence")
+        results.append(out.cpu())
+    if not torch.equal(results[0], results[1]):
+        raise AssertionError("set_priorities on the card differs between two runs")
+    across = _relative(results[0], results[2])
+    if not across <= 1e-6:
+        raise AssertionError(f"set_priorities on the card is {across} from the CPU's")
+    return {"indices": 4096, "duplicates": duplicate_indices(indices), "bitwise_twice": True,
+            "last_wins_on_card_and_cpu": True, "card_vs_cpu_relative_err": across}
+
+
+def phase_sequence_train(name: str, smi: str) -> dict:
+    """`name` at its default config's full width on CartPole, MAIN_UPDATES
+    updates in 2 eval windows through `run_experiment`, every kernel counter
+    zeroed just before and read just after (no kernel is on this path:
+    every count must stay 0); then, on the same config: device launches an
+    update (torch.profiler, after a warm-up step), the duplicate indices that
+    `set_priorities` collapsed over two more updates, the buffers' device
+    bytes, an update on the card against the CPU, and `set_priorities` on
+    the card against itself and the CPU."""
+    module = _sequence_module(name)
+    config = compose([f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
+                      "arch.num_eval_episodes=16", "logger.use_console=False"],
+                     SEQUENCE_ROOTS[name])
+    counters = _kernel_counters()
+    for counter in counters:
+        counter.launches = 0
+    start = time.perf_counter()
+    final_return = module.run_experiment(config, device="cuda")
+    seconds = time.perf_counter() - start
+    launches = _counts(counters)
+    stats = copy.deepcopy(runner.LAST_RUN_STATS)
+    train = _finite_run(name, final_return)
+    if any(launches.values()):
+        raise AssertionError(f"{name} launched kernels {launches}; none is on its path")
+
+    config = check_total_timesteps(config, 1)
+    setup, state = _sequence_setup(name, config, torch.device("cuda"), int(config.arch.seed))
+    state, _ = setup.learn.update_step(state)  # warm-up
+    device_launches = _device_launches(setup.learn, state)
+    recorded = []
+    buffer = setup.learn.buffer
+
+    def recording(buffer_state, indices, priorities):
+        recorded.append(indices.clone())
+        return buffer.set_priorities(buffer_state, indices, priorities)
+
+    setup.learn.buffer = buffer._replace(set_priorities=recording)
+    for _ in range(2):
+        state, _ = setup.learn.update_step(state)
+    setup.learn.buffer = buffer
+    duplicates = [duplicate_indices(i) for i in recorded]
+    record = {
+        "phase": f"{SEQUENCE_PHASE[name]}_train", "system": name, "env": "cartpole",
+        "total_num_envs": int(config.arch.total_num_envs),
+        "rollout_length": int(config.system.rollout_length),
+        "epochs": int(config.system.epochs), "updates": MAIN_UPDATES,
+        "kernel_launches": launches, "final_eval_return": final_return,
+        "last_train_metrics": train[-1], "window_seconds": stats["window_seconds"],
+        "env_steps_per_second": stats["steps_per_second"], "seconds": seconds,
+        "device_launches_per_update": device_launches,
+        "buffer_device_bytes": _tree_bytes(state.buffer_state),
+        "priority_slots": list(state.buffer_state.priorities.shape),
+        "set_priorities_calls": len(recorded), "duplicate_indices_per_call": duplicates,
+        "update_on_card_vs_cpu": _update_on_card_and_cpu(name, config, setup, state),
+        "set_priorities_on_card": _set_priorities_on_card(
+            buffer, state, float(config.system.priority_exponent)),
+        "card": smi,
+    }
+    emit(record)
+    return launches
+
+
 # ---------------------------------------------------- data parallelism
 
 DP_OVERRIDES = [f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
@@ -2100,6 +2328,12 @@ def main() -> None:
     gae["launches_ff_ppo_continuous"] = phase_cont_train(smi)
     phase_rec_learn()
     gae["launches_rec_ppo"] = phase_rec_train(smi)
+    # Sequence replay runs no kernel: each entry records its 0 launches there.
+    for name in SEQUENCE_ROOTS:
+        phase_sequence_learn(name)
+        sequence = phase_sequence_train(name, smi)
+        for entry in (recurrence, gae, *attention, chunk, *wide):
+            entry.setdefault("launches_sequence_replay", {})[name] = sequence[entry["name"]]
     data_parallel = phase_data_parallel(smi)
     gae["launches_data_parallel"] = {"a_one_rank_ff_ppo": data_parallel["a_ff_ppo"],
                                      "b_per_rank": data_parallel["b_per_rank"]}

@@ -30,7 +30,20 @@ modes separate the suspects:
                  the row max of the causal scores (exact against float64),
                  exp of the scores less their row max (1e-6 against float64)
                  or the second product p.v (1e-5 against float64); its error
-                 is `first_error`, and past its limit it counts as wrong.
+                 is `first_error`, and past its limit it counts as wrong;
+  chain_first    file_cuda (the host's default threads), with the plain
+                 forward's own chain on the probe's inputs as the process's
+                 first computation, one op at a time, every intermediate
+                 kept: q scaled, q.k^T, the causal mask, the row max, exp of
+                 the scores less it, the row sum, p.v and the division (the
+                 single key tile of `attention_common.fold_key_tiles` at
+                 S = 16). Each intermediate is held against the same op in
+                 float64 on its own float32 inputs (`step_errors`, each
+                 within its limit, STEP_LIMITS) and against the float64
+                 chain from the inputs (`chain_errors`); `first_wrong_step`
+                 names the first op past its limit. The chain's output must
+                 equal the port's attention bitwise, and past LIMIT of the
+                 float64 reference the process counts as wrong.
 
 The modes with CUDA need a card. Prints one JSON line a process and, last, a
 JSON summary: per mode, the processes, those whose attention passed 1e-5 of
@@ -56,7 +69,11 @@ BMM_LIMIT = 1e-4
 # The ops after q.k^T, each run alone first in its mode: (op, its limit).
 FIRST_OPS = {"amax_first": ("amax", 0.0), "exp_first": ("exp", 1e-6), "pv_first": ("pv", 1e-5)}
 MODES = ("file", "file_cuda", "file_cuda_1t", "file_cuda_nodnn", "card", "bmm_first", "env_1t",
-         *FIRST_OPS)
+         *FIRST_OPS, "chain_first")
+# chain_first: each op's limit against the same op in float64 on its float32
+# inputs (absolute; the scores are O(10), p and the sums O(1) to O(16)).
+STEP_LIMITS = {"scaled_q": 1e-6, "scores": 1e-4, "masked": 0.0, "row_max": 0.0, "exp": 1e-6,
+               "row_sum": 1e-5, "pv": 1e-5, "out": 1e-6}
 # The child's environment in each mode, beside the parent's.
 ENVIRONMENT = {"env_1t": {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}}
 
@@ -96,6 +113,61 @@ def first_op(op: str, inputs: dict) -> float:
     return ((p @ v).double() - p.double() @ v.double()).abs().max().item()
 
 
+def plain_chain(q, k, v) -> dict:
+    """The plain forward's chain for one key tile (`fold_key_tiles` at S <=
+    KEY_TILE, then the division), op by op in q's dtype, every
+    intermediate kept. q, k, v: [B, S, H, D]."""
+    import torch
+
+    scale = q.shape[3] ** -0.5
+    qs = q.permute(0, 2, 1, 3) * scale
+    kf, vf = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    seq = q.shape[1]
+    positions = torch.arange(seq)
+    mask = positions[:, None] >= positions[None]
+    scores = qs @ kf.transpose(-1, -2)
+    masked = torch.where(mask, scores, float("-inf"))
+    row_max = torch.maximum(torch.full_like(masked[..., :1], float("-inf")),
+                            masked.amax(-1, keepdim=True))
+    p = torch.where(mask, torch.exp(masked - row_max), 0.0)
+    row_sum = p.sum(-1, keepdim=True)
+    pv = p @ vf
+    out = pv / row_sum
+    return {"scaled_q": qs, "scores": scores, "masked": masked, "row_max": row_max, "exp": p,
+            "row_sum": row_sum, "pv": pv, "out": out}
+
+
+def chain_probe(q, k, v) -> dict:
+    """`plain_chain` in float32 as the process's first computation, then each
+    intermediate against float64: the same op on its float32 inputs (the
+    step's own error) and the float64 chain from the inputs."""
+    chain = plain_chain(q, k, v)  # first: nothing else has run in this process
+    whole = plain_chain(q.double(), k.double(), v.double())
+    steps = {
+        "scaled_q": lambda: q.double().permute(0, 2, 1, 3) * q.shape[3] ** -0.5,
+        "scores": lambda: chain["scaled_q"].double() @ k.double().permute(0, 2, 3, 1),
+        "masked": lambda: chain["masked"].double(),  # a select: exact
+        "row_max": lambda: chain["masked"].double().amax(-1, keepdim=True),
+        "exp": lambda: (chain["masked"].double() - chain["row_max"].double()).exp().nan_to_num(
+            0.0),
+        "row_sum": lambda: chain["exp"].double().sum(-1, keepdim=True),
+        "pv": lambda: chain["exp"].double() @ v.double().permute(0, 2, 1, 3),
+        "out": lambda: chain["pv"].double() / chain["row_sum"].double(),
+    }
+
+    def error(a, b) -> float:
+        a, b = a.double(), b.double()
+        finite = b.isfinite()
+        return float((a[finite] - b[finite]).abs().max()) if bool(finite.any()) else 0.0
+
+    step_errors = {name: error(chain[name], want()) for name, want in steps.items()}
+    first_wrong = next((name for name in steps if step_errors[name] > STEP_LIMITS[name]), None)
+    return {"chain_out": chain["out"].permute(0, 2, 1, 3),
+            "step_errors": step_errors,
+            "chain_errors": {name: error(chain[name], whole[name]) for name in chain},
+            "first_wrong_step": first_wrong}
+
+
 def one_process(mode: str, path: str) -> dict:
     """The probe in this process (`--child`)."""
     import torch
@@ -116,6 +188,7 @@ def one_process(mode: str, path: str) -> dict:
         first_op_error = first_op(op, torch.load(os.path.join(os.path.dirname(path), "ops.pt")))
     q, k, v = (proj[:, :, i].contiguous() for i in range(3))
     qs, ks = q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3)
+    chain = chain_probe(q, k, v) if mode == "chain_first" else None
 
     def bmm_error() -> float:
         return ((qs @ ks.transpose(-1, -2)).double()
@@ -126,7 +199,14 @@ def one_process(mode: str, path: str) -> dict:
     outs = [fa.flash_attention(q, k, v, causal=True) for _ in range(3)]
     errors = [(o.double() - want).abs().max().item() for o in outs]
     bmm = first if first is not None else bmm_error()
-    return {"mode": mode, "errors": errors, "repeats_equal": all(torch.equal(o, outs[0])
+    chain_fields = {}
+    if chain is not None:
+        chain_out = chain.pop("chain_out")
+        chain_error = (chain_out.double() - want).abs().max().item()
+        chain_fields = {**chain, "chain_error": chain_error,
+                        "chain_equals_attention": bool(torch.equal(chain_out, outs[0]))}
+        errors = [chain_error] + errors
+    return {**chain_fields,"mode": mode, "errors": errors, "repeats_equal": all(torch.equal(o, outs[0])
                                                                  for o in outs),
             "bmm_error": bmm, "bmm_first": first is not None,
             "threads": torch.get_num_threads(), "mkldnn": torch.backends.mkldnn.enabled,
@@ -193,6 +273,12 @@ def main() -> None:
                                        for r in results),
                       "first_op_wrong": sum(r["mode"] == mode and bool(r.get("first_wrong"))
                                             for r in results),
+                      "first_wrong_steps": sorted({r["first_wrong_step"] for r in results
+                                                   if r["mode"] == mode
+                                                   and r.get("first_wrong_step")}),
+                      "chain_differs_from_attention": sum(
+                          r["mode"] == mode and r.get("chain_equals_attention") is False
+                          for r in results),
                       "largest_first_error": max([r["first_error"] for r in results
                                                   if r["mode"] == mode
                                                   and r.get("first_error") is not None]

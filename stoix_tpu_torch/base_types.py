@@ -1,5 +1,6 @@
 """Shared type vocabulary (counterpart of stoix_tpu/base_types.py, the subset
-the Anakin PPO, recurrent PPO and value-based slices use), as NamedTuples of tensors. Where
+the Anakin PPO, recurrent PPO and value-based slices use, recurrent
+off-policy replay included), as NamedTuples of tensors. Where
 the JAX package's learner states carry a PRNG `key`, the port's carry the
 `generator` (a torch.Generator, or a tuple of one a replica).
 
@@ -62,6 +63,20 @@ class OffPolicyLearnerState(NamedTuple):
     generator: Any
     env_state: Any
     timestep: TimeStep
+
+
+class RNNOffPolicyLearnerState(NamedTuple):
+    """The off-policy learner state of a recurrent system (rec_r2d2)."""
+
+    params: Any
+    opt_states: Any
+    buffer_state: Any  # a PrioritisedTrajectoryBufferState, or a tuple of one a replica
+    generator: Any
+    env_state: Any
+    timestep: TimeStep
+    done: torch.Tensor  # [E] the last step's termination, the RNN's next reset
+    truncated: torch.Tensor  # [E] the last step's truncation, likewise
+    hstates: Any  # the Q-network's carry after the last step, [E, H] (LSTM: a pair)
 
 
 class PPOTransition(NamedTuple):

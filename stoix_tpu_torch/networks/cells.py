@@ -1,12 +1,16 @@
-"""Recurrent cells (counterpart of flax.linen's GRUCell and LSTMCell, which
-stoix_tpu/networks/utils.py::RNN_CELLS names `gru` and `lstm`).
+"""Recurrent cells (counterpart of flax.linen's GRUCell, LSTMCell,
+OptimizedLSTMCell, MGUCell and SimpleCell, which
+stoix_tpu/networks/utils.py::RNN_CELLS names `gru`, `lstm`,
+`optimised_lstm`, `mgu` and `simple`).
 
 Each gate is its own Linear under flax's name, so a carried flax tree maps
 one to one (`utils/params.py`): the GRU's `ir`, `iz`, `in` with a bias, `hr`
-and `hz` without one, `hn` with one; the LSTM's `ii`, `if`, `ig`, `io`
-without a bias and `hi`, `hf`, `hg`, `ho` with one. Initialisation follows
+and `hz` without one, `hn` with one; the LSTM's (and the optimised LSTM's)
+`ii`, `if`, `ig`, `io` without a bias and `hi`, `hf`, `hg`, `ho` with one;
+the MGU's `if` and `in` with a bias, `hf` without one, `hn` with one; the
+simple cell's `i` with a bias and `h` without one. Initialisation follows
 flax's: input kernels LeCun normal (truncated), recurrent kernels
-orthogonal, biases zero. A fresh carry is zeros.
+orthogonal, biases zero (the MGU's forget bias one). A fresh carry is zeros.
 
     cell(carry, x) -> (new_carry, output)
     Cell.initialize_carry(features, batch_shape, device) -> fresh carry
@@ -18,6 +22,7 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # flax's truncated-normal variance scaling divides the stddev by this, the
@@ -57,6 +62,11 @@ class _GatedCell(nn.Module):
     def gate(self, name: str, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         return self._modules["i" + name](x) + self._modules["h" + name](h)
 
+    @staticmethod
+    def initialize_carry(features: int, batch_shape: Sequence[int],
+                         device: Optional[torch.device] = None) -> torch.Tensor:
+        return torch.zeros(tuple(batch_shape) + (int(features),), device=device)
+
 
 class GRUCell(_GatedCell):
     """r = σ(ir(x) + hr(h)), z = σ(iz(x) + hz(h)), n = tanh(in(x) + r·hn(h)),
@@ -66,11 +76,6 @@ class GRUCell(_GatedCell):
                  generator: Optional[torch.Generator] = None):
         super().__init__(input_dim, features, ("r", "z", "n"), True, (False, False, True),
                          generator)
-
-    @staticmethod
-    def initialize_carry(features: int, batch_shape: Sequence[int],
-                         device: Optional[torch.device] = None) -> torch.Tensor:
-        return torch.zeros(tuple(batch_shape) + (int(features),), device=device)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         r = torch.sigmoid(self.gate("r", x, h))
@@ -106,3 +111,51 @@ class LSTMCell(_GatedCell):
         new_c = f * c + i * g
         new_h = o * torch.tanh(new_c)
         return (new_c, new_h), new_h
+
+
+class OptimizedLSTMCell(LSTMCell):
+    """flax's OptimizedLSTMCell: the LSTM's gates and parameters, each side's
+    four kernels applied as ONE product (the hidden side with its four
+    biases) and split, then i, f, o = σ(h* + i*), g = tanh(h* + i*)."""
+
+    def forward(self, carry: Tuple[torch.Tensor, torch.Tensor],
+                x: torch.Tensor) -> Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+        c, h = carry
+        gates = ("i", "f", "g", "o")
+        hidden = F.linear(h, torch.cat([self._modules["h" + g].weight for g in gates]),
+                          torch.cat([self._modules["h" + g].bias for g in gates]))
+        inputs = F.linear(x, torch.cat([self._modules["i" + g].weight for g in gates]))
+        (hi, hf, hg, ho), (ii, if_, ig, io) = hidden.chunk(4, -1), inputs.chunk(4, -1)
+        i, f = torch.sigmoid(hi + ii), torch.sigmoid(hf + if_)
+        g, o = torch.tanh(hg + ig), torch.sigmoid(ho + io)
+        new_c = f * c + i * g
+        new_h = o * torch.tanh(new_c)
+        return (new_c, new_h), new_h
+
+
+class MGUCell(_GatedCell):
+    """The minimal gated unit: f = σ(if(x) + hf(h)), n = tanh(in(x) + f·hn(h)),
+    h' = (1 - f)·n + f·h."""
+
+    def __init__(self, input_dim: int, features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(input_dim, features, ("f", "n"), True, (False, True), generator)
+        nn.init.ones_(self._modules["if"].bias)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        f = torch.sigmoid(self.gate("f", x, h))
+        n = torch.tanh(self._modules["in"](x) + self._modules["hn"](h) * f)
+        new_h = (1.0 - f) * n + f * h
+        return new_h, new_h
+
+
+class SimpleCell(_GatedCell):
+    """h' = tanh(i(x) + h(h))."""
+
+    def __init__(self, input_dim: int, features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(input_dim, features, ("",), True, (False,), generator)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        new_h = torch.tanh(self.gate("", x, h))
+        return new_h, new_h

@@ -1,4 +1,5 @@
-"""Torso networks (counterpart of stoix_tpu/networks/torso.py::MLPTorso).
+"""Torso networks (counterpart of stoix_tpu/networks/torso.py::MLPTorso and
+NoisyMLPTorso).
 
 flax infers a Dense layer's input width at init; an `nn.Linear` needs it up
 front, so every module here takes `input_dim` (`build_networks` passes it
@@ -13,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from stoix_tpu_torch.networks.layers import Noise, NoisyLinear
 from stoix_tpu_torch.networks.utils import parse_activation_fn
 
 
@@ -88,3 +90,39 @@ class MLPTorso(nn.Module):
             if i < n_layers - 1 or self._activate_final:
                 x = self._act(x)
         return x.to(torch.float32)
+
+
+class NoisyMLPTorso(nn.Module):
+    """NoisyLinear -> (LayerNorm) -> activation, per layer size (NoisyNets).
+    `noise` is one (e_in, e_out) pair a layer (layers/noisy_layers order), or
+    None for the noise-free forward (flax's layer with no "noise" rng)."""
+
+    def __init__(
+        self,
+        input_dim: int,
+        layer_sizes: Sequence[int] = (256, 256),
+        activation: str = "relu",
+        use_layer_norm: bool = False,
+        activate_final: bool = True,
+        sigma_zero: float = 0.5,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        sizes = [int(input_dim)] + [int(s) for s in layer_sizes]
+        self.layers = nn.ModuleList(
+            NoisyLinear(i, o, sigma_zero, generator) for i, o in zip(sizes[:-1], sizes[1:]))
+        self.norm = nn.ModuleList(
+            nn.LayerNorm(o, eps=1e-6) for o in sizes[1:] if use_layer_norm)
+        self.output_dim = sizes[-1]
+        self._activate_final = bool(activate_final)
+        self._act = parse_activation_fn(activation)
+
+    def forward(self, x: torch.Tensor, noise: Optional[Sequence[Noise]] = None) -> torch.Tensor:
+        n_layers = len(self.layers)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, None if noise is None else noise[i])
+            if len(self.norm):
+                x = self.norm[i](x)
+            if i < n_layers - 1 or self._activate_final:
+                x = self._act(x)
+        return x

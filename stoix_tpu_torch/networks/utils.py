@@ -1,6 +1,5 @@
 """Activation and RNN-cell registries (counterpart of
-stoix_tpu/networks/utils.py; flax's `normalise` activation is not ported,
-and of the RNN cells only `gru` and `lstm` are)."""
+stoix_tpu/networks/utils.py)."""
 
 from __future__ import annotations
 
@@ -9,7 +8,18 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from stoix_tpu_torch.networks.cells import GRUCell, LSTMCell
+from stoix_tpu_torch.networks.cells import (
+    GRUCell, LSTMCell, MGUCell, OptimizedLSTMCell, SimpleCell,
+)
+
+
+def standardize(x: torch.Tensor, epsilon: float = 1e-5) -> torch.Tensor:
+    """flax's `standardize` over the last axis: (x - mean) . rsqrt(var + eps),
+    the variance mean(x^2) - mean^2 clipped at 0, as flax computes it."""
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    variance = torch.clamp(torch.mean(torch.square(x), dim=-1, keepdim=True)
+                           - torch.square(mean), min=0.0)
+    return (x - mean) * torch.rsqrt(variance + epsilon)
 
 
 ACTIVATIONS = {
@@ -26,6 +36,7 @@ ACTIVATIONS = {
     "leaky_relu": F.leaky_relu,
     "identity": lambda x: x,
     "none": lambda x: x,
+    "normalise": standardize,
 }
 
 
@@ -38,19 +49,15 @@ def parse_activation_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 RNN_CELLS = {
-    "gru": GRUCell,
     "lstm": LSTMCell,
+    "optimised_lstm": OptimizedLSTMCell,
+    "gru": GRUCell,
+    "mgu": MGUCell,
+    "simple": SimpleCell,
 }
-# The JAX package's other cells (flax's OptimizedLSTMCell, MGUCell and
-# SimpleCell), still to be ported (ROADMAP Queue A9).
-UNPORTED_RNN_CELLS = ("optimised_lstm", "mgu", "simple")
 
 
 def parse_rnn_cell(name: str) -> Callable:
-    if name in UNPORTED_RNN_CELLS:
-        raise ValueError(f"network.rnn_cell_type={name!r}: the {name} cell is not ported; "
-                         f"ported: {sorted(RNN_CELLS)}")
     if name not in RNN_CELLS:
-        raise ValueError(f"Unknown RNN cell '{name}'. Known: "
-                         f"{sorted((*RNN_CELLS, *UNPORTED_RNN_CELLS))}")
+        raise ValueError(f"Unknown RNN cell '{name}'. Known: {sorted(RNN_CELLS)}")
     return RNN_CELLS[name]

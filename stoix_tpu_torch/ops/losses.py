@@ -132,10 +132,19 @@ def categorical_l2_project(z_p: torch.Tensor, probs: torch.Tensor,
     two neighbouring target atoms. Returns [B, N]. The JAX package adds row by
     row under vmap (every lower share, then every upper share); here two
     batched `scatter_add`s in the same order, which may sum a target atom's
-    shares in another order (within float32 reassociation)."""
+    shares in another order (within float32 reassociation).
+
+    In float32 the grid step (vmax - vmin) / (n - 1) can round down, so the
+    top atom's fractional index lands just past n - 1 (at 16 atoms on
+    [0, 500]; at 51 on [0, 10] where the step is a product with the rounded
+    reciprocal, as CUDA divides by a host number): its upper neighbour is
+    then atom n, outside the support. JAX's `.at[].add` drops a share at an
+    index outside the array; here every such share is dropped too (its
+    weight zeroed, its index clamped), on every device. The step is a true
+    division of two device tensors, so the card and the CPU round it alike."""
     vmin, vmax = z_q[0], z_q[-1]
     n = z_q.shape[0]
-    delta_z = (vmax - vmin) / (n - 1)
+    delta_z = (vmax - vmin) / z_q.new_full((), float(n - 1))
     clipped = torch.clamp(z_p, vmin, vmax)
     bj = (clipped - vmin) / delta_z
     lower, upper = torch.floor(bj), torch.ceil(bj)
@@ -143,8 +152,11 @@ def categorical_l2_project(z_p: torch.Tensor, probs: torch.Tensor,
     lower_w = (upper - bj) + eq
     upper_w = bj - lower
     out = torch.zeros(probs.shape[:-1] + (n,), dtype=probs.dtype, device=probs.device)
-    out = out.scatter_add(-1, lower.long(), probs * lower_w)
-    return out.scatter_add(-1, upper.long(), probs * upper_w)
+    for index, weight in ((lower, lower_w), (upper, upper_w)):
+        inside = (index >= 0) & (index <= n - 1)
+        out = out.scatter_add(-1, index.long().clamp(0, n - 1),
+                              probs * torch.where(inside, weight, 0.0))
+    return out
 
 
 def categorical_double_q_learning(

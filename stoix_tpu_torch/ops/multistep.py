@@ -167,3 +167,62 @@ def q_lambda(
     """Peng's Q(lambda) targets: lambda returns over max_a Q(s_t, a)."""
     return lambda_returns(r_t, discount_t, torch.amax(q_t, dim=-1), lambda_,
                           stop_target_gradients, batch_major=batch_major, impl=impl)
+
+
+def n_step_bootstrapped_returns(
+    r_t: torch.Tensor,
+    discount_t: torch.Tensor,
+    v_t: torch.Tensor,
+    n: int,
+    lambda_t: Numeric = 1.0,
+    stop_target_gradients: bool = True,
+    batch_major: bool = True,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Strided n-step bootstrapped returns, batch-major [B, T] by default (as
+    the off-policy systems sample their buffers):
+
+        G_t = r_{t+1} + g_{t+1}(r_{t+2} + g_{t+2}( ... (r_{t+n} + g_{t+n} v_{t+n}))),
+
+    with lambda mixing in the value at each step; sequences shorter than n at
+    the tail bootstrap from the final value. A WINDOW of exactly n affine maps
+    per output, not a suffix recurrence, so no kernel runs here: under `scan`
+    the n unrolled vector passes of the JAX package (in float32 each pass
+    rounded as `jax.jit` rounds it, two fused multiply-adds); under `assoc` and
+    `pallas` (which has no windowed kernel, in the JAX package either)
+    `scan_kernels.affine_window_fold`'s O(log n) shifted compositions."""
+    r_t, discount_t, v_t = _time_major(batch_major, r_t, discount_t, v_t)
+    seq_len = r_t.shape[0]
+    lam = _broadcast_param(lambda_t, r_t, batch_major)
+
+    pad = n - 1
+    # The bootstrap targets start n-1 steps ahead; the tail repeats the last value.
+    tail = v_t[-1:].expand((min(pad, seq_len),) + tuple(v_t.shape[1:]))
+    targets = torch.cat([v_t[pad:], tail])
+
+    def padded(x: torch.Tensor, fill: torch.Tensor) -> torch.Tensor:
+        return torch.cat([x, fill.expand((pad,) + tuple(x.shape[1:]))])
+
+    zero, one = r_t.new_zeros(()), r_t.new_ones(())
+    r_pad, g_pad, l_pad = padded(r_t, zero), padded(discount_t, one), padded(lam, one)
+    v_pad = padded(v_t, v_t[-1:])
+
+    if scan_kernels.resolve_impl(impl) == "scan":
+        for i in reversed(range(n)):
+            r, g, lam_i, v = (x[i:i + seq_len] for x in (r_pad, g_pad, l_pad, v_pad))
+            if targets.dtype == torch.float32:
+                # XLA contracts both the mix and the step into fused
+                # multiply-adds inside `jit`: fma(1 - lambda, v, lambda.G) and
+                # fma(g, mix, r). State them.
+                targets = fma_f32(g, fma_f32(1.0 - lam_i, v, lam_i * targets), r)
+            else:
+                targets = r + g * ((1.0 - lam_i) * v + lam_i * targets)
+    else:
+        # Per-step affine maps f_j(x) = d_j + w_j.x; the identity padding
+        # (w = 1, d = 0) past seq_len is the scan's r = 0, g = 1, lambda = 1.
+        weight = g_pad * l_pad
+        delta = r_pad + g_pad * (1.0 - l_pad) * v_pad
+        targets = scan_kernels.affine_window_fold(weight, delta, targets, n)
+    if batch_major:
+        targets = targets.transpose(0, 1)
+    return targets.detach() if stop_target_gradients else targets

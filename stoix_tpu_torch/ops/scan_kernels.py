@@ -20,7 +20,7 @@ The process-wide default is set once per run from `system.multistep_impl`
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Iterator, Optional
+from typing import Any, Iterator, Optional, Tuple
 
 import torch
 
@@ -123,3 +123,44 @@ def linear_recurrence_reverse(
             weight_t.contiguous(), delta_t.contiguous(), init
         )
     return _scan_reverse(weight_t, delta_t, init)
+
+
+# ---------------------------------------------------------------------------
+# windowed n-step folds: binary doubling over the window length
+# ---------------------------------------------------------------------------
+
+
+def _shift_maps(w: torch.Tensor, d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Maps advanced k steps toward the future, identity-padded at the tail."""
+    if k == 0:
+        return w, d
+    ones = torch.ones((k,) + tuple(w.shape[1:]), dtype=w.dtype, device=w.device)
+    zeros = torch.zeros((k,) + tuple(d.shape[1:]), dtype=d.dtype, device=d.device)
+    return torch.cat([w[k:], ones]), torch.cat([d[k:], zeros])
+
+
+def affine_window_fold(weight: torch.Tensor, delta: torch.Tensor, boot: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """targets[t] = (f_t ∘ f_{t+1} ∘ ... ∘ f_{t+n-1})(boot[t]) with
+    f_j(x) = delta[j] + weight[j]·x, maps past the end identity, in
+    O(log n) passes of binary doubling. `weight`/`delta` are time-major of
+    length L ≥ len(boot); the output has `boot`'s length. Plain tensor ops:
+    this windowed fold has no kernel in the JAX package either. It equals
+    the n unrolled passes of `scan` up to float reassociation."""
+    out_len = boot.shape[0]
+    # R: the window's composed prefix (span r_span); P: the stride-doubling maps.
+    r_w, r_d, r_span = torch.ones_like(weight), torch.zeros_like(delta), 0
+    p_w, p_d, p_span = weight, delta, 1
+    remaining = int(n)
+    while remaining:
+        if remaining & 1:
+            # Append P after R's span: R'[t] = R[t] ∘ P[t + r_span].
+            s_w, s_d = _shift_maps(p_w, p_d, r_span)
+            r_w, r_d = r_w * s_w, r_d + r_w * s_d
+            r_span += p_span
+        remaining >>= 1
+        if remaining:
+            s_w, s_d = _shift_maps(p_w, p_d, p_span)
+            p_w, p_d = p_w * s_w, p_d + p_w * s_d
+            p_span *= 2
+    return r_d[:out_len] + r_w[:out_len] * boot

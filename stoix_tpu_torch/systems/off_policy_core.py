@@ -1,18 +1,26 @@
 """Anakin off-policy scaffolding (counterpart of
 stoix_tpu/systems/off_policy_core.py: `make_transition`, `dummy_transition`,
-`build_buffer`, and `OffPolicyLearner`, its `standard_off_policy_learner`).
+`build_buffer`, `trajectory_buffer_sizing`, `require_first_add_samplable`,
+and `OffPolicyLearner`, its `standard_off_policy_learner` and the loop the
+sequence-replay systems ff_rainbow and rec_r2d2 write out).
 
 One update step, in the JAX package's order, for every replica:
 
   1. rollout: `rollout_length` env steps, each action from
      `act_in_env(params, observation, generator, buffer_state)` (the buffer
-     state lets a system key its epsilon schedule on `num_added`);
-  2. the [T, E] transitions added to the replica's item buffer, time-major
-     merged to T.E items;
+     state lets a system key its epsilon schedule on `num_added`), each step
+     stored as `store(last_timestep, action, timestep)` gives it (a
+     `Transition` by default);
+  2. the [T, E] steps added to the replica's buffer: an item buffer takes
+     them time-major merged to T.E items; a trajectory buffer takes them as
+     [E_u, T] trajectories, without their episode `info`;
   3. `epochs` times: one batch sampled from the replica's buffer, then
      `update_from_batch` on every replica's batch at once (the system
      averages the replicas' gradients, as the JAX package's pmean over
-     "batch" does).
+     "batch" does). From a prioritised trajectory buffer the update gets the
+     whole `PrioritisedSample`s and the replicas' generators, and returns
+     each replica's new priorities, which are written back
+     (`set_priorities`) before the next epoch samples.
 
 `arch.update_batch_size` U > 1 runs U replicas as a Python loop (the CUDA
 kernels are ctypes launches, which `torch.func.vmap` cannot batch): params
@@ -34,15 +42,21 @@ import torch
 
 from stoix_tpu_torch import envs
 from stoix_tpu_torch.base_types import ExperimentOutput, OffPolicyLearnerState, Transition
-from stoix_tpu_torch.buffers import ItemBuffer, make_item_buffer
+from stoix_tpu_torch.buffers import (
+    ItemBuffer, PrioritisedTrajectoryBuffer, TrajectoryBuffer, make_item_buffer,
+)
 from stoix_tpu_torch.systems import anakin
 from stoix_tpu_torch.utils.tree import tree_map, tree_merge_leading_dims, tree_stack
 
 # update_from_batch(params, opt_states, batches) -> (params, opt_states, metrics):
-# lists of one entry a replica.
-UpdateFn = Callable[[List[Any], List[Any], List[Transition]], Tuple[List[Any], List[Any], Dict]]
+# lists of one entry a replica. From a prioritised trajectory buffer:
+# update_from_batch(params, opt_states, samples, generators)
+#     -> (params, opt_states, metrics, priorities).
+UpdateFn = Callable[..., Tuple]
 # act_in_env(params, observation, generator, buffer_state) -> action
 ActFn = Callable[[Any, Any, torch.Generator, Any], torch.Tensor]
+# store(last_timestep, action, timestep) -> what the buffer keeps of one step
+StoreFn = Callable[[Any, torch.Tensor, Any], Any]
 
 
 def make_transition(last_timestep: Any, action: torch.Tensor, timestep: Any) -> Transition:
@@ -97,25 +111,71 @@ def build_buffer(env: envs.Environment, config: Any, device: Any,
     return buffer, buffer.init(dummy_transition(env, discrete_actions, device))
 
 
+def trajectory_buffer_sizing(config: Any, min_length_time_axis: int) -> Tuple[int, int, int]:
+    """(local_envs, sample_batch_size, max_length_time_axis) of a replica's
+    sequence buffer: the global env, batch and buffer totals divided over
+    the N data ranks x U replicas, as the JAX package divides them over data
+    shards x update batch (stoix_tpu/systems/off_policy_core.py:180-204)."""
+    denom = anakin.data_rank_and_size()[1] * int(config.arch.get("update_batch_size", 1))
+    local_envs = int(config.arch.total_num_envs) // denom
+    if local_envs == 0:
+        raise ValueError(
+            f"arch.total_num_envs ({config.arch.total_num_envs}) must be >= "
+            f"num_data_shards * update_batch_size ({denom})")
+    sample_batch = max(1, int(config.system.total_batch_size) // denom)
+    max_length = max(int(config.system.total_buffer_size) // (denom * local_envs),
+                     int(min_length_time_axis))
+    return local_envs, sample_batch, max_length
+
+
+def require_first_add_samplable(config: Any) -> None:
+    """Refuse a warmup-less sequence-replay config whose first rollout add
+    holds no full sequence: the trajectory buffer would silently serve
+    zero-filled sequences to every epoch of the first update."""
+    seq = int(config.system.get("sample_sequence_length", 8))
+    rollout = int(config.system.rollout_length)
+    if rollout - seq + 1 <= 0:
+        raise ValueError(
+            f"system.sample_sequence_length ({seq}) must be <= "
+            f"system.rollout_length ({rollout}) for warmup-less replay "
+            "learners: the first buffer add must already contain a full "
+            "sequence, or early updates silently train on zero-filled samples")
+
+
+def episode_info(traj: Any) -> Any:
+    """The episode metrics of stored steps: a Transition's `info`, or a
+    dict's "info" entry."""
+    return traj["info"] if isinstance(traj, dict) else traj.info
+
+
 class OffPolicyLearner:
     """The standard off-policy learner: `learner(state) -> ExperimentOutput`
     runs `arch.num_updates_per_eval` update steps; `rollout` and `update` are
     the two halves of one step."""
 
-    def __init__(self, env: envs.Environment, buffer: ItemBuffer, config: Any,
-                 update_from_batch: UpdateFn, act_in_env: ActFn):
+    def __init__(self, env: envs.Environment, buffer: Any, config: Any,
+                 update_from_batch: UpdateFn, act_in_env: ActFn,
+                 store: StoreFn = make_transition):
         self.env = env
         self.buffer = buffer
         self.update_from_batch = update_from_batch
         self.act_in_env = act_in_env
+        self.store = store
+        self.sequences = isinstance(buffer, (TrajectoryBuffer, PrioritisedTrajectoryBuffer))
+        self.prioritised = isinstance(buffer, PrioritisedTrajectoryBuffer)
         self.rollout_length = int(config.system.rollout_length)
         self.epochs = int(config.system.epochs)
         self.num_updates_per_eval = int(config.arch.num_updates_per_eval)
         self.update_batch = int(config.arch.get("update_batch_size", 1))
         self.data_group = anakin.data_group()
 
-    def add(self, buffers: List[Any], traj: Transition) -> List[Any]:
-        """Each replica's [T, E_u] transitions added to its buffer, time-major."""
+    def add(self, buffers: List[Any], traj: Any) -> List[Any]:
+        """Each replica's [T, E_u] steps added to its buffer: time-major
+        merged items, or [E_u, T] trajectories without their `info`."""
+        if self.sequences:
+            stored = {k: v for k, v in traj.items() if k != "info"}
+            return [self.buffer.add(b, tree_map(lambda x: x.transpose(0, 1), anakin.env_group(
+                stored, u, self.update_batch, 1))) for u, b in enumerate(buffers)]
         return [self.buffer.add(b, tree_merge_leading_dims(
             anakin.env_group(traj, u, self.update_batch, 1), 2)) for u, b in enumerate(buffers)]
 
@@ -139,33 +199,42 @@ class OffPolicyLearner:
                      for u, (p, g, b) in enumerate(zip(params, generators, buffers))]
             action = parts[0] if len(parts) == 1 else torch.cat(parts)
             env_state, next_timestep = self.env.step(env_state, action)
-            transitions.append(make_transition(timestep, action, next_timestep))
+            transitions.append(self.store(timestep, action, next_timestep))
             timestep = next_timestep
         traj = tree_stack(transitions)
         buffers = self.add(buffers, traj)
         return state._replace(buffer_state=anakin.join_per_replica(buffers), env_state=env_state,
                               timestep=timestep), traj
 
-    def update(self, state: OffPolicyLearnerState) -> Tuple[OffPolicyLearnerState, Dict]:
+    def update(self, state: Any) -> Tuple[Any, Dict]:
         """`epochs` times: a batch from each replica's buffer, then one
-        update of every replica."""
+        update of every replica (and, from a prioritised buffer, the new
+        priorities written back)."""
         params = anakin.split_replicas(state.params, self.update_batch)
         opt_states = anakin.split_replicas(state.opt_states, self.update_batch)
         generators = anakin.per_replica(state.generator, self.update_batch)
         buffers = anakin.per_replica(state.buffer_state, self.update_batch)
         per_epoch = []
         for _ in range(self.epochs):
-            batches = [self.buffer.sample(b, g).experience for b, g in zip(buffers, generators)]
-            params, opt_states, metrics = self.update_from_batch(params, opt_states, batches)
+            samples = [self.buffer.sample(b, g) for b, g in zip(buffers, generators)]
+            if self.prioritised:
+                params, opt_states, metrics, priorities = self.update_from_batch(
+                    params, opt_states, samples, generators)
+                buffers = [self.buffer.set_priorities(b, s.indices, p)
+                           for b, s, p in zip(buffers, samples, priorities)]
+            else:
+                params, opt_states, metrics = self.update_from_batch(
+                    params, opt_states, [s.experience for s in samples])
             per_epoch.append(metrics)
         state = state._replace(params=anakin.join_replicas(params),
-                               opt_states=anakin.join_replicas(opt_states))
+                               opt_states=anakin.join_replicas(opt_states),
+                               buffer_state=anakin.join_per_replica(buffers))
         return state, tree_stack(per_epoch)
 
-    def update_step(self, state: OffPolicyLearnerState) -> Tuple[OffPolicyLearnerState, Tuple]:
+    def update_step(self, state: Any) -> Tuple[Any, Tuple]:
         state, traj = self.rollout(state)
         state, loss_info = self.update(state)
-        return state, (traj.info, loss_info)
+        return state, (episode_info(traj), loss_info)
 
     def __call__(self, state: OffPolicyLearnerState) -> ExperimentOutput:
         episode_info, loss_info = [], []

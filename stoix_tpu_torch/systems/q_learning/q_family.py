@@ -121,16 +121,23 @@ class QUpdate:
         self.guard_mode = guards.resolve_mode(config)
         self.data_group = anakin.data_group()
 
-    def gradients(self, params: OnlineAndTarget, batch: Transition):
+    def gradients(self, params: OnlineAndTarget, batch: Any, *loss_args: Any):
+        """One replica's (gradients, loss, metrics) on its batch; `loss_args`
+        follow the config in the loss's arguments."""
         with torch.enable_grad():
             online = {k: v.detach().requires_grad_(True) for k, v in params.online.items()}
-            loss, info = self.loss_fn(online, params.target, batch, self.q_apply, self.config)
+            loss, info = self.loss_fn(online, params.target, batch, self.q_apply, self.config,
+                                      *loss_args)
             grads = dict(zip(online, torch.autograd.grad(loss, list(online.values()))))
         return grads, loss.detach(), {k: v.detach() for k, v in info.items()}
 
     def __call__(self, params: List[OnlineAndTarget], opt_states: List[Any],
                  batches: List[Transition]):
-        per_replica = [self.gradients(p, b) for p, b in zip(params, batches)]
+        return self.step(params, opt_states, [self.gradients(p, b) for p, b in zip(params, batches)])
+
+    def step(self, params: List[OnlineAndTarget], opt_states: List[Any], per_replica: List):
+        """The replicas' gradients averaged (over the replicas, then the data
+        ranks), then each replica's clip + Adam step, Polyak update and the guard."""
         grads = anakin.mean_gradients([g[0] for g in per_replica])
         if len(per_replica) == 1:
             _, loss, info = per_replica[0]
@@ -152,6 +159,30 @@ class QUpdate:
                 loss=guard_loss, grads=(grads,))
             info = {**info, **guard_metrics}
         return new_params, new_opt, info
+
+
+class PrioritisedQUpdate(QUpdate):
+    """`update_from_batch` of the sequence-replay systems (ff_rainbow,
+    rec_r2d2): the loss takes each replica's `PrioritisedSample` and its
+    generator, `loss_fn(online, target, sample, q_apply, config, generator)
+    -> (loss, metrics)`, with the sample's new priorities under the metrics'
+    "priorities" key, which are returned a replica, not averaged into the
+    metrics."""
+
+    def __call__(self, params: List[OnlineAndTarget], opt_states: List[Any],
+                 samples: List[Any], generators: List[torch.Generator]):
+        per_replica = [self.gradients(p, s, g) for p, s, g in zip(params, samples, generators)]
+        priorities = [info.pop("priorities") for _, _, info in per_replica]
+        return (*self.step(params, opt_states, per_replica), priorities)
+
+
+def refuse_ignored_knobs(config: Any, system_name: str) -> None:
+    """Raise NotImplementedError, naming the key, for `system.update_guard`
+    set away from off in a system whose JAX counterpart does not read it
+    (ff_rainbow, rec_r2d2): the port does not apply it silently either."""
+    if guards.resolve_mode(config) != "off":
+        raise NotImplementedError(f"not ported for {system_name} (the JAX package's "
+                                  f"{system_name} ignores it): system.update_guard")
 
 
 def q_learner_setup(

@@ -35,6 +35,17 @@ attribute names (`pre_torso`, `rnn`, `post_torso`, `action_head`,
     LSTMCell_0/{ii,if,ig,io}/kernel, {hi,hf,hg,ho}/{kernel,bias}
         ->  rnn.cell.{ii,if,ig,io,hi,hf,hg,ho}.{weight,bias}
 
+and likewise OptimizedLSTMCell_0 (the LSTM's gates), MGUCell_0 ({if,in}
+with a bias, hf without, hn with) and SimpleCell_0 (i with a bias, h
+without).
+
+The dueling heads (networks/dueling.py) hold two torsos, flax's MLPTorso_i
+or NoisyMLPTorso_i, as `torsos.i`; a noisy torso's NoisyLinear_j is
+`layers.j`, whose leaves keep flax's names and layout:
+
+    NoisyLinear_j/{mu_w,sigma_w} [in, out]  ->  layers.j.{mu_w,sigma_w} [in, out]
+    NoisyLinear_j/{mu_b,sigma_b} [out]      ->  layers.j.{mu_b,sigma_b}
+
 Any other module name is kept as it is (`torso`, `action_head`). The Q heads
 (DiscreteQNetworkHead, DistributionalDiscreteQNetwork, QuantileDiscreteQNetwork)
 are one Dense under `action_head` (`action_head.dense.0`); the distributional
@@ -51,11 +62,13 @@ import numpy as np
 import torch
 from torch import nn
 
-_NUMBERED = re.compile(r"^(Dense|LayerNorm|block)_(\d+)$")
-_NUMBERED_PREFIX = {"Dense": "dense", "LayerNorm": "norm", "block": "blocks"}
+_NUMBERED = re.compile(r"^(Dense|LayerNorm|block|NoisyLinear|MLPTorso|NoisyMLPTorso)_(\d+)$")
+_NUMBERED_PREFIX = {"Dense": "dense", "LayerNorm": "norm", "block": "blocks",
+                    "NoisyLinear": "layers", "MLPTorso": "torsos", "NoisyMLPTorso": "torsos"}
 _MODULE_NAME = {"TransformerTorso_0": "torso", "CategoricalHead_0": "action_head",
                 "ScalarCriticHead_0": "critic_head", "MultiHeadSelfAttention_0": "attention",
-                "GRUCell_0": "cell", "LSTMCell_0": "cell"}
+                **{f"{cell}_0": "cell" for cell in ("GRUCell", "LSTMCell", "OptimizedLSTMCell",
+                                                    "MGUCell", "SimpleCell")}}
 _LEAF_NAME = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
 

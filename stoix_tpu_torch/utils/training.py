@@ -151,15 +151,20 @@ def incremental_update(new: Params, old: Params, step_size: float) -> Params:
     """optax.incremental_update, the Polyak target update
     `step_size * new + (1 - step_size) * old`: in float32 one fused
     multiply-add, fma(step_size, new, (1 - step_size) * old), as XLA contracts
-    it inside `jit`."""
+    it inside `jit`, over all float32 leaves at once (one flat vector: the
+    same elementwise result in a handful of launches, not a handful a leaf)."""
     out = {}
+    wide = [k for k, n in new.items() if n.dtype == torch.float32]
     for k, n in new.items():
-        rest = (1.0 - step_size) * old[k]
-        if n.dtype == torch.float32:
-            out[k] = fma_f32(torch.full_like(n, step_size), n, rest)
-        else:
-            out[k] = step_size * n + rest
-    return out
+        if n.dtype != torch.float32:
+            out[k] = step_size * n + (1.0 - step_size) * old[k]
+    if wide:
+        flat_new = torch.cat([new[k].reshape(-1) for k in wide])
+        rest = (1.0 - step_size) * torch.cat([old[k].reshape(-1) for k in wide])
+        flat = fma_f32(torch.full_like(flat_new, step_size), flat_new, rest)
+        for k, part in zip(wide, flat.split([new[k].numel() for k in wide])):
+            out[k] = part.view(new[k].shape)
+    return {k: out[k] for k in new}
 
 
 def apply_updates(params: Params, updates: Params) -> Params:

@@ -84,3 +84,18 @@ PPO_FAMILY = {
 def test_ppo_family_config_trees_mirror_the_jax_package(name, overridden):
     overrides = PPO_FAMILY[name] + ["system.multistep_impl=pallas"] if overridden else []
     _assert_mirrors(f"default/anakin/default_{name}.yaml", overrides)
+
+
+# The sequence-replay systems: ff_rainbow (network/noisy_dueling) and
+# rec_r2d2 (network/rnn), each root as it is and with other groups and options.
+SEQUENCE_REPLAY = {
+    "ff_rainbow": ["env=identity_game", "system.vmin=0.0", "system.vmax=10.0"],
+    "rec_r2d2": ["env=identity_game", "network.rnn_cell_type=mgu", "system.period=2"],
+}
+
+
+@pytest.mark.parametrize("name", list(SEQUENCE_REPLAY))
+@pytest.mark.parametrize("overridden", [False, True])
+def test_sequence_replay_config_trees_mirror_the_jax_package(name, overridden):
+    overrides = SEQUENCE_REPLAY[name] + ["system.multistep_impl=pallas"] if overridden else []
+    _assert_mirrors(f"default/anakin/default_{name}.yaml", overrides)

@@ -1005,3 +1005,175 @@ def test_beta_sampling_with_a_cuda_generator_repeats_from_its_seed():
     var = mean * (1 - mean) / (alpha[0] + beta[0] + 1)
     unit = (first.double() + 2.0) / 4.0
     assert bool(((unit.mean(0) - mean).abs() < 5 * (var / 100_000).sqrt()).all())
+
+
+# ------------------------------------------------- sequence replay: ff_rainbow and rec_r2d2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("period", [1, 4])
+def test_prioritised_buffer_on_the_card_matches_the_cpu(period):
+    # Adds with wraparound, add's max-priority slots, and a sample from the
+    # same uniforms on a table whose float32 sums are exact (small integers,
+    # quarters): everything exact but the probabilities (1e-6 relative).
+    from stoix_tpu_torch.buffers import make_prioritised_trajectory_buffer
+    device = _require_cuda()
+    buf = make_prioritised_trajectory_buffer(add_batch_size=3, sample_batch_size=256,
+                                             sample_sequence_length=4, period=period,
+                                             max_length_time_axis=16)
+    item = {"obs": torch.zeros(2), "carry": (torch.zeros(3), torch.zeros((), dtype=torch.int32))}
+    on_card, on_cpu = buf.init(_to(item, device)), buf.init(item)
+    gen = torch.Generator().manual_seed(0)
+    for length in (3, 5, 8, 9, 20):
+        chunk = {"obs": torch.randn((3, length, 2), generator=gen),
+                 "carry": (torch.randn((3, length, 3), generator=gen),
+                           torch.randint(0, 9, (3, length), generator=gen, dtype=torch.int32))}
+        on_card, on_cpu = buf.add(on_card, _to(chunk, device)), buf.add(on_cpu, chunk)
+        assert torch.equal(on_card.priorities.cpu(), on_cpu.priorities)
+    table = (torch.randint(0, 6, on_cpu.priorities.shape, generator=gen) * 0.25).float()
+    on_card = on_card._replace(priorities=table.to(device))
+    on_cpu = on_cpu._replace(priorities=table)
+    uniforms = torch.rand(256, generator=gen)
+    got = buf.sample_from_uniforms(on_card, uniforms.to(device))
+    want = buf.sample_from_uniforms(on_cpu, uniforms)
+    assert torch.equal(got.indices.cpu(), want.indices)
+    for g, w in zip(_leaves(got.experience), _leaves(want.experience)):
+        assert torch.equal(g.cpu(), w)
+    torch.testing.assert_close(got.probabilities.cpu(), want.probabilities, rtol=1e-6, atol=0)
+
+
+def _leaves(tree):
+    from stoix_tpu_torch.utils.tree import tree_leaves
+    return tree_leaves(tree)
+
+
+@pytest.mark.cuda
+def test_set_priorities_on_the_card_is_bitwise_and_keeps_the_last_occurrence():
+    # 4096 indices over 24 (row, slot) pairs: twice bitwise on the card; each
+    # written entry is the card's power of its LAST occurrence's value (the
+    # same vector's power: a CPU pow may round a vector lane and a scalar tail
+    # apart, so each device is held to its own); the card and the CPU agree
+    # to 1e-6 relative.
+    from stoix_tpu_torch.buffers import make_prioritised_trajectory_buffer
+    device = _require_cuda()
+    buf = make_prioritised_trajectory_buffer(add_batch_size=3, sample_batch_size=8,
+                                             sample_sequence_length=2, period=1,
+                                             max_length_time_axis=16, priority_exponent=0.6)
+    gen = torch.Generator().manual_seed(1)
+    indices = torch.stack([torch.randint(0, 3, (4096,), generator=gen),
+                           torch.randint(0, 8, (4096,), generator=gen)], -1)
+    values = torch.randn(4096, generator=gen) * 3
+    last = {}
+    for position, key in enumerate(map(tuple, indices.tolist())):
+        last[key] = position
+    written, positions = torch.tensor(list(last)), torch.tensor(list(last.values()))
+    outs = []
+    for dev in (device, device, "cpu"):
+        state = buf.init({"x": torch.zeros((), device=dev)})
+        out = buf.set_priorities(state, indices.to(dev), values.to(dev)).priorities
+        want = torch.zeros_like(out)
+        want[written[:, 0], written[:, 1]] = torch.pow(
+            values.to(dev).abs() + 1e-6, 0.6)[positions.to(dev)]
+        assert torch.equal(out, want)
+        outs.append(out.cpu())
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0], outs[2], rtol=1e-6, atol=0)
+
+
+def _sequence_update(device, system: str, cell_type: str = "gru"):
+    """One ff_rainbow or rec_r2d2 update epoch (twice) on explicit
+    PrioritisedSamples from fixed params; Rainbow's noise drawn on the CPU
+    and given to both runs."""
+    from stoix_tpu_torch.base_types import OnlineAndTarget
+    from stoix_tpu_torch.buffers import PrioritisedSample
+    from stoix_tpu_torch.networks import base, dueling, heads, inputs, torso
+    from stoix_tpu_torch.networks.layers import draw_noise
+    from stoix_tpu_torch.systems.q_learning import ff_rainbow, q_family, rec_r2d2
+    from stoix_tpu_torch.utils import config as config_lib
+    from stoix_tpu_torch.utils.training import ClipAdam
+    gen = torch.Generator().manual_seed(0)
+    data = torch.Generator().manual_seed(3)
+    batch = 32
+    if system == "ff_rainbow":
+        net = base.FeedForwardActor(
+            dueling.NoisyDistributionalDuelingQNetwork(3, 16, num_atoms=11, vmin=0.0, vmax=10.0,
+                                                       layer_sizes=(16,), generator=gen),
+            torso.MLPTorso(5, (16,), activation="relu", generator=gen), inputs.ObservationInput())
+        noise = [draw_noise(net, torch.Generator().manual_seed(10 + k)) for k in range(6)]
+
+        class Given(ff_rainbow.NoisyQApply):
+            def draw_noise(self, generator):
+                return _to(noise.pop(0), device)
+
+        apply, loss_fn, lead, overrides = Given(net.to(device)), ff_rainbow.rainbow_loss, (
+            batch, 4), []
+    else:
+        net = rec_r2d2.RecurrentQNetwork(
+            heads.DiscreteQNetworkHead(3, 16, generator=gen),
+            base.ScannedRNN(16, 16, cell_type, generator=gen),
+            torso.MLPTorso(5, (16,), generator=gen), torso.MLPTorso(16, (16,), generator=gen),
+            inputs.ObservationInput()).to(device)
+        apply, loss_fn, lead = rec_r2d2.make_apply_fn(net), rec_r2d2.r2d2_loss, (batch, 16)
+        overrides = [f"network.rnn_cell_type={cell_type}"]
+    cfg = config_lib.compose(config_lib.default_config_dir(),
+                             f"default/anakin/default_{system}.yaml", overrides)
+    optim = ClipAdam(1e-3, 0.5, eps=1e-5)
+    update = q_family.PrioritisedQUpdate(loss_fn, apply, optim, cfg)
+    online = {k: v.detach() for k, v in net.named_parameters()}
+    params = [OnlineAndTarget(online, {k: v * 0.5 for k, v in online.items()})]
+    opt = [optim.init(online)]
+    out = []
+    for _ in range(2):
+        experience = {"obs": _observations(lead, 5), "action": torch.randint(0, 3, lead,
+                                                                              generator=data),
+                      "reward": torch.randn(lead, generator=data),
+                      "discount": (torch.rand(lead, generator=data) > 0.1).float()}
+        if system == "rec_r2d2":
+            carry = lambda: torch.randn(lead + (16,), generator=data)  # noqa: E731
+            experience["done"] = torch.rand(lead, generator=data) < 0.1
+            experience["hstate"] = (carry(), carry()) if cell_type == "lstm" else carry()
+        sample = PrioritisedSample(experience, torch.zeros((batch, 2), dtype=torch.long),
+                                   torch.rand(batch, generator=data) * 0.01 + 1e-4)
+        params, opt, info, priorities = update(params, opt, [_to(sample, device)], [None])
+        out.append((info["q_loss"], priorities[0]))
+    return params[0], out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system,cell_type", [("ff_rainbow", "gru"), ("rec_r2d2", "gru"),
+                                              ("rec_r2d2", "lstm")])
+def test_sequence_replay_update_on_the_card_matches_the_cpu(system, cell_type):
+    # The loss and the new priorities 1e-5 relative, online and target params
+    # 1e-5 absolute, after two epochs; no kernel launches on either path.
+    device = _require_cuda()
+    cpu_params, cpu_out = _sequence_update("cpu", system, cell_type)
+    before = {c.name: c.launches for c in lr.COUNTERS}
+    card_params, card_out = _sequence_update(device, system, cell_type)
+    assert {c.name: c.launches for c in lr.COUNTERS} == before
+    for (card_loss, card_prio), (cpu_loss, cpu_prio) in zip(card_out, cpu_out):
+        torch.testing.assert_close(card_loss.cpu(), cpu_loss, rtol=1e-5, atol=0)
+        torch.testing.assert_close(card_prio.cpu(), cpu_prio, rtol=1e-5, atol=1e-7)
+    for side in (0, 1):
+        for k, v in cpu_params[side].items():
+            torch.testing.assert_close(card_params[side][k].cpu(), v, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vmin,vmax,atoms", [(0.0, 10.0, 51), (0.0, 500.0, 16), (0.0, 500.0, 51)])
+def test_categorical_projection_on_the_card_matches_the_cpu(vmin, vmax, atoms):
+    # ROADMAP C16: source atoms past vmax (clipped to it) on supports whose
+    # float32 step rounds down: the card once indexed one past the support
+    # (a device-side assert at 51 atoms on [0, 10], Rainbow's IdentityGame
+    # run); the share past it is dropped, as JAX drops it, and the card
+    # matches the CPU to 1e-6 absolute.
+    from stoix_tpu_torch.ops.losses import categorical_l2_project
+    device = _require_cuda()
+    gen = torch.Generator().manual_seed(atoms)
+    z_q = torch.linspace(vmin, vmax, atoms)
+    z_p = torch.cat([torch.rand((30, atoms), generator=gen) * vmax * 1.3 + vmin,
+                     torch.full((2, atoms), vmax * 2.0)])
+    probs = torch.softmax(torch.randn((32, atoms), generator=gen), -1)
+    got = categorical_l2_project(z_p.to(device), probs.to(device), z_q.to(device))
+    want = categorical_l2_project(z_p, probs, z_q)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)

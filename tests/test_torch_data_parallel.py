@@ -34,6 +34,14 @@ the 4-rank update step.
    restoring a 2-rank store in one process raises, naming both counts.
 5. The learning oracle: ff_ppo on IdentityGame over 2 ranks at the JAX
    test's config (tests/test_ff_ppo.py: 64 envs) returns above 8.0.
+7. One ff_rainbow and one rec_r2d2 update epoch (twice) on 2 ranks, each on
+   its own PrioritisedSample (the same noise draws on both, as JAX's one
+   trace feeds every shard), against their compositions under `shard_map`
+   over "data" with `pmean_grads`: losses and new priorities 1e-5 relative,
+   online and target params 1e-5 absolute, the importance weights
+   normalised by each shard's own batch maximum; and each rank's
+   prioritised buffer sized over N x U as `trajectory_buffer_sizing` sizes
+   it.
 6. parallel/mesh.py's `shard_leading_axis`, `fetch_global` and `replicate`
    on 2 ranks: a rank's slice, the slices gathered back, rank 0's copy
    (exact).
@@ -64,6 +72,8 @@ from stoix_tpu.utils import config as jax_config
 from stoix_tpu_torch.utils import checkpointing
 from test_torch_ff_ppo import IDENTITY_OVERRIDES, _trajectory, make_config
 from test_torch_q_ops import paired_q_networks
+import test_torch_r2d2
+import test_torch_rainbow
 from torch_parity import paired_networks, to_flax_params
 from torch_ring_worker import spawn_ranks
 
@@ -153,6 +163,49 @@ def _q_networks():
     return jax_net, online, target, port_online, port_target
 
 
+RAINBOW = ["env=identity_game", "system.q_lr=1e-3"]
+R2D2 = ["env=identity_game", *test_torch_r2d2.SEQ]
+BUFFERS = ["arch.total_num_envs=16", "system.total_buffer_size=4096",
+           "system.total_batch_size=64"]
+
+
+def _sequence_inputs(system):
+    """(flax net, online, target, the port's numpy online and target, the
+    [epoch][rank] samples, the [epoch] noise draws (numpy, JAX's order) and
+    the same as port pairs) of a 2-rank update of `system`."""
+    if system == "ff_rainbow":
+        jax_net, online, target, torch_net, port_online, port_target = (
+            test_torch_rainbow.paired_rainbow_networks())
+        samples = [[test_torch_rainbow._sample(100 + 10 * epoch + rank) for rank in range(2)]
+                   for epoch in range(2)]
+        draws, pairs = [], []
+        for epoch in range(2):
+            epoch_draws, epoch_pairs = [], []
+            for k in range(3):
+                d, p = test_torch_rainbow.noise_draws(torch_net, seed=200 + 10 * epoch + k)
+                epoch_draws += d
+                epoch_pairs.append([(a.numpy(), b.numpy()) for a, b in p])
+            draws.append(epoch_draws)
+            pairs.append(epoch_pairs)
+    else:
+        jax_net, online, target, torch_net, port_online, port_target = (
+            test_torch_r2d2.paired_networks("gru"))
+        samples = [[test_torch_r2d2._sample(100 + 10 * epoch + rank, "gru") for rank in range(2)]
+                   for epoch in range(2)]
+        draws, pairs = [[] for _ in range(2)], None
+    numpy = lambda p: {k: v.numpy() for k, v in p.items()}  # noqa: E731
+    return jax_net, online, target, numpy(port_online), numpy(port_target), samples, draws, pairs
+
+
+def _sequence_job(system):
+    _, _, _, online, target, samples, _, pairs = _sequence_inputs(system)
+    kwargs = dict(system=system, overrides=RAINBOW if system == "ff_rainbow" else R2D2,
+                  online=online, target=target, samples=samples)
+    if pairs is not None:
+        kwargs["noise"] = pairs
+    return system, "sequence_step", kwargs
+
+
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     root = tmp_path_factory.mktemp("dp2")
@@ -177,6 +230,11 @@ def two_ranks(tmp_path_factory):
             store=os.path.join(run_dir, "checkpoints", uid, "ff_ppo"), step=2 * WINDOW))
           for uid in ("unbroken", "resumed")),
         ("oracle", "run", dict(system="ff_ppo", cwd=run_dir, overrides=IDENTITY_OVERRIDES)),
+        _sequence_job("ff_rainbow"),
+        _sequence_job("rec_r2d2"),
+        *((f"{system}_buffer", "sequence_buffer", dict(
+            system=system, overrides=["env=identity_game", *BUFFERS]))
+          for system in ("ff_rainbow", "rec_r2d2")),
     ]
     return root, spawn_ranks(jobs, 2, root)
 
@@ -463,3 +521,71 @@ def test_mesh_helpers_shard_gather_and_replicate(two_ranks):
         np.testing.assert_array_equal(got["gathered"], MESH_ARRAY)
         np.testing.assert_array_equal(got["gathered_last"], MESH_ARRAY.T)
         np.testing.assert_array_equal(got["replicated"], MESH_ARRAY)
+
+
+@pytest.mark.parametrize("system", ["ff_rainbow", "rec_r2d2"])
+def test_sequence_replay_step_on_two_ranks_matches_shard_map(two_ranks, system):
+    root = "default/anakin/default_" + system + ".yaml"
+    jcfg = jax_config.compose(jax_config.default_config_dir(), root,
+                              RAINBOW if system == "ff_rainbow" else R2D2)
+    jax_net, online, target, _, _, samples, draws, _ = _sequence_inputs(system)
+    module = test_torch_rainbow if system == "ff_rainbow" else test_torch_r2d2
+    optim = optax.chain(optax.clip_by_global_norm(float(jcfg.system.max_grad_norm)),
+                        optax.adam(float(jcfg.system.q_lr), eps=1e-5))
+    update = module._jax_update(jax_net, jcfg, optim, axes=("batch", "data"))
+    mesh = jax_create_mesh({"data": 2}, devices=jax.devices()[:2])
+
+    def shard(seqs, probs):
+        def replica(seq, prob):
+            params, opt_state = JaxOnlineAndTarget(online, target), optim.init(online)
+            losses, priorities = [], []
+            for epoch in range(2):
+                (params, opt_state), (loss, prio) = update(
+                    params, opt_state, jax.tree.map(lambda x: x[epoch], seq), prob[epoch],
+                    draws[epoch])
+                losses.append(loss)
+                priorities.append(prio)
+            return params, jnp.stack(losses), jnp.stack(priorities)
+
+        out = jax.vmap(replica, axis_name="batch")(
+            jax.tree.map(lambda x: x[0][None], seqs), probs[0][None])
+        return jax.tree.map(lambda x: x[None], out)
+
+    # [rank, epoch, ...] inputs, split over "data".
+    seqs = jax.tree.map(lambda *xs: jnp.stack(xs), *[
+        jax.tree.map(lambda *ys: jnp.stack(ys), *[
+            module._jax_experience(samples[epoch][rank][0]) for epoch in range(2)])
+        for rank in range(2)])
+    probs = jnp.stack([jnp.stack([jnp.asarray(samples[epoch][rank][1]) for epoch in range(2)])
+                       for rank in range(2)])
+    want_params, want_losses, want_prio = jax.jit(shard_map(
+        shard, mesh=mesh, in_specs=(P("data"), P("data")), out_specs=P("data"),
+        check_vma=False))(seqs, probs)
+    for rank, result in enumerate(two_ranks[1]):
+        got = result[system]
+        np.testing.assert_allclose(got["losses"], np.asarray(want_losses)[rank, 0], rtol=1e-5)
+        np.testing.assert_allclose(np.stack(got["priorities"]), np.asarray(want_prio)[rank, 0],
+                                   rtol=1e-5, atol=1e-6)
+        for side, name in ((0, "online"), (1, "target")):
+            got_tree = to_flax_params({k: torch.from_numpy(v) for k, v in got[name].items()},
+                                      online)
+            want_tree = jax.tree.map(lambda x: np.asarray(x)[rank, 0], want_params[side])
+            jax.tree.map(lambda g, w: np.testing.assert_allclose(g, w, rtol=0, atol=1e-5),
+                         got_tree, want_tree)
+    # Both ranks end with the same params: one data-mean gradient an epoch.
+    for name in ("online", "target"):
+        for key, value in two_ranks[1][0][system][name].items():
+            np.testing.assert_array_equal(value, two_ranks[1][1][system][name][key])
+    # Each rank's buffer, sized over the 2 data shards as the JAX package sizes it.
+    jbuffer_cfg = jax_config.compose(jax_config.default_config_dir(), root,
+                                     ["env=identity_game", *BUFFERS])
+    min_length = (2 * int(jbuffer_cfg.system.rollout_length) if system == "ff_rainbow" else
+                  2 * (int(jbuffer_cfg.system.burn_in_length) +
+                       int(jbuffer_cfg.system.train_length)))
+    local_envs, batch, length = jcore.trajectory_buffer_sizing(jbuffer_cfg, mesh, min_length)
+    period = 1 if system == "ff_rainbow" else int(jbuffer_cfg.system.period)
+    for result in two_ranks[1]:
+        got = result[f"{system}_buffer"]
+        assert got["reward"] == (local_envs, length) and local_envs == 16 // 2
+        assert got["priorities"] == (local_envs, length // period)
+        assert got["sample_batch"] == batch == 64 // 2

@@ -280,6 +280,9 @@ def test_port_imports_nothing_of_jax():
         "    'ff_ppo_continuous', 'ff_ppo_penalty', 'ff_ppo_penalty_continuous',\n"
         "    'ff_dpo_continuous', 'rec_ppo'))]\n"
         "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice10)\n"
+        "slice12 = ['networks.layers', 'networks.dueling', 'ops.value_transforms',\n"
+        "           'systems.q_learning.ff_rainbow', 'systems.q_learning.rec_r2d2']\n"
+        "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice12)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, timeout=120, check=True)

@@ -188,23 +188,38 @@ def test_continuous_heads_with_carried_flax_params_match_flax(name):
     jax.tree.map(lambda g, w: np.testing.assert_array_equal(g, w), back, params)
 
 
-@pytest.mark.parametrize("cell_type", ["gru", "lstm"])
+# flax's cells and their gates: the GRU's and the MGU's and the simple
+# cell's hidden state is one tensor, the two LSTMs' a (c, h) pair.
+CELLS = {
+    "gru": ("GRUCell", ("hn", "hr", "hz", "in", "ir", "iz")),
+    "lstm": ("LSTMCell", ("hf", "hg", "hi", "ho", "if", "ig", "ii", "io")),
+    "optimised_lstm": ("OptimizedLSTMCell", ("hf", "hg", "hi", "ho", "if", "ig", "ii", "io")),
+    "mgu": ("MGUCell", ("hf", "hn", "if", "in")),
+    "simple": ("SimpleCell", ("h", "i")),
+}
+
+
+@pytest.mark.parametrize("cell_type", list(CELLS))
 def test_rnn_cells_carry_flax_params_one_to_one(cell_type):
-    """flax's GRUCell (ir, iz, in with a bias; hr, hz without; hn with) and
-    LSTMCell (ii, if, ig, io without a bias; hi, hf, hg, ho with) map gate for
-    gate onto the port's cells; a missing or misshapen gate raises."""
+    """flax's GRUCell (ir, iz, in with a bias; hr, hz without; hn with),
+    LSTMCell and OptimizedLSTMCell (ii, if, ig, io without a bias; hi, hf,
+    hg, ho with), MGUCell (if, in with a bias; hf without; hn with) and
+    SimpleCell (i with a bias; h without) map gate for gate onto the port's
+    cells: one step from a random carry 1e-5 relative; a missing or
+    misshapen gate raises."""
     import flax.linen as fnn
     import jax
 
-    from stoix_tpu_torch.networks.cells import GRUCell, LSTMCell
+    from stoix_tpu_torch.networks.utils import RNN_CELLS
 
-    flax_cell = {"gru": fnn.GRUCell, "lstm": fnn.LSTMCell}[cell_type](features=6)
+    flax_name, gates = CELLS[cell_type]
+    flax_cell = getattr(fnn, flax_name)(features=6)
     rng = np.random.default_rng(2)
     x = rng.normal(size=(5, 4)).astype(np.float32)
     carry = flax_cell.initialize_carry(jax.random.PRNGKey(0), x.shape)
     carry = jax.tree.map(lambda c: jnp.asarray(rng.normal(size=c.shape).astype(np.float32)), carry)
     params = jax.tree.map(np.asarray, flax_cell.init(jax.random.PRNGKey(1), carry, jnp.asarray(x)))
-    cell = {"gru": GRUCell, "lstm": LSTMCell}[cell_type](4, 6)
+    cell = RNN_CELLS[cell_type](4, 6)
     load_flax_params(cell, params)
     (want_carry, want_out) = flax_cell.apply(params, carry, jnp.asarray(x))
     got_carry, got_out = cell(jax.tree.map(lambda c: torch.tensor(np.asarray(c)), carry),
@@ -212,9 +227,12 @@ def test_rnn_cells_carry_flax_params_one_to_one(cell_type):
     np.testing.assert_allclose(n(got_out), np.asarray(want_out), rtol=RTOL, atol=ATOL)
     for got, want in zip(jax.tree.leaves(got_carry), jax.tree.leaves(want_carry)):
         np.testing.assert_allclose(n(got), np.asarray(want), rtol=RTOL, atol=ATOL)
-    gates = {"gru": ("hn", "hr", "hz", "in", "ir", "iz"),
-             "lstm": ("hf", "hg", "hi", "ho", "if", "ig", "ii", "io")}[cell_type]
     assert sorted(params["params"]) == list(gates)
+    # A fresh port carry has flax's structure and zeros.
+    fresh = RNN_CELLS[cell_type].initialize_carry(6, (5,))
+    for got, want in zip(jax.tree.leaves(fresh), jax.tree.leaves(
+            flax_cell.initialize_carry(jax.random.PRNGKey(0), x.shape))):
+        np.testing.assert_array_equal(n(got), np.asarray(want))
     first = gates[0]
     missing = {"params": {k: v for k, v in params["params"].items() if k != first}}
     with pytest.raises(ValueError, match=f"missing flax parameter for {first}"):
@@ -226,11 +244,30 @@ def test_rnn_cells_carry_flax_params_one_to_one(cell_type):
 
 
 def test_rnn_cell_registry_refuses_the_unported_cells_naming_the_key():
+    """Every cell of the JAX package's registry is ported (ROADMAP A9b); an
+    unknown name still raises, naming the registry."""
+    from stoix_tpu.networks.utils import RNN_CELLS as JAX_RNN_CELLS
     from stoix_tpu_torch.networks.utils import RNN_CELLS, parse_rnn_cell
 
-    assert sorted(RNN_CELLS) == ["gru", "lstm"]
+    assert sorted(RNN_CELLS) == sorted(JAX_RNN_CELLS) == sorted(CELLS)
     for name in ("optimised_lstm", "mgu", "simple"):
-        with pytest.raises(ValueError, match=rf"network\.rnn_cell_type='{name}'"):
-            parse_rnn_cell(name)
+        assert parse_rnn_cell(name) is RNN_CELLS[name]
     with pytest.raises(ValueError, match="Unknown RNN cell"):
         parse_rnn_cell("transformer")
+
+
+@pytest.mark.parametrize("shape", [(5, 8), (3, 4, 16), (2, 1)])
+def test_normalise_activation_matches_flax_standardize(shape):
+    """ACTIVATIONS["normalise"] is flax's `standardize` (the variance
+    mean(x^2) - mean^2 clipped at 0, then rsqrt): 1e-5 relative, 1e-6 floor;
+    a constant row (variance 0) stays finite as in flax."""
+    import flax.linen as fnn
+
+    from stoix_tpu_torch.networks.utils import parse_activation_fn
+
+    x = (np.random.default_rng(3).normal(size=shape) * 4 + 1).astype(np.float32)
+    x[0] = 2.5
+    got = parse_activation_fn("normalise")(torch.from_numpy(x))
+    want = np.asarray(fnn.standardize(jnp.asarray(x)))
+    np.testing.assert_allclose(n(got), want, rtol=RTOL, atol=ATOL)
+    assert np.isfinite(n(got)).all()

@@ -203,6 +203,28 @@ def test_categorical_l2_project_matches_jax():
     np.testing.assert_allclose(n(got).sum(-1), 1.0, atol=1e-5)
 
 
+@pytest.mark.parametrize("vmin,vmax,atoms", [(0.0, 500.0, 16), (-7.0, 7.0, 24), (0.0, 10.0, 51)])
+def test_categorical_l2_project_drops_a_share_past_the_support_as_jax(vmin, vmax, atoms):
+    """ROADMAP C16: where the float32 grid step rounds down (16 atoms on
+    [0, 500], 24 on [-7, 7]), a source atom clipped to vmax has its upper
+    neighbour one past the support. JAX's `.at[].add` drops that share; the
+    port dropped nothing and indexed past the array (an IndexError on the
+    CPU, a device-side assert on the card, where 51 atoms on [0, 10] overflow
+    too). It now drops the share as JAX does: 1e-6 absolute against the JAX
+    projection run eagerly, whose grid step is a true division, as the
+    port's (inside `jit` XLA rounds the step another way, as the test above
+    does not see either)."""
+    rng = np.random.default_rng(atoms)
+    z_q = np.linspace(vmin, vmax, atoms).astype(np.float32)
+    z_p = np.concatenate([rng.uniform(vmin, vmax * 1.2, (6, atoms)),
+                          np.full((2, atoms), vmax * 2, np.float32)]).astype(np.float32)
+    probs = rng.dirichlet(np.ones(atoms), 8).astype(np.float32)
+    got = tlosses.categorical_l2_project(t(z_p), t(probs), t(z_q))
+    want = jlosses.categorical_l2_project(jnp.asarray(z_p), jnp.asarray(probs), jnp.asarray(z_q))
+    _close(got, want, rtol=0, atol=1e-6)
+    assert (n(got).sum(-1) <= 1.0 + 1e-6).all()
+
+
 def test_categorical_double_q_learning_matches_jax():
     x = _loss_inputs(3)
     atoms = np.linspace(0.0, 10.0, M).astype(np.float32)

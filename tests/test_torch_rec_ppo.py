@@ -53,10 +53,10 @@ def _tensor_tree(tree):
 def _random_carry(cell_type, hidden, batch_shape, rng):
     shape = tuple(batch_shape) + (hidden,)
     draw = lambda: rng.normal(size=shape).astype(np.float32)  # noqa: E731
-    return (draw(), draw()) if cell_type == "lstm" else draw()
+    return (draw(), draw()) if cell_type in ("lstm", "optimised_lstm") else draw()
 
 
-@pytest.mark.parametrize("cell_type", ["gru", "lstm"])
+@pytest.mark.parametrize("cell_type", ["gru", "lstm", "optimised_lstm", "mgu", "simple"])
 def test_scanned_rnn_with_resets_matches_flax(cell_type):
     """T = 16 steps from a non-zero carry, with resets at t = 0 and later:
     every output and the final carry against flax, and the reset oracle of
@@ -407,17 +407,29 @@ def test_normalize_observations_scores_with_the_rollouts_statistics_then_folds(u
     ("system.fused_update=true", "system.fused_update"),
     ("system.adaptive_kl_beta=true", "system.adaptive_kl_beta"),
     ("system.reward_scale=0.1", "system.reward_scale"),
-    ("network.rnn_cell_type=mgu", "network.rnn_cell_type"),
     # Two data shards in one process: JAX's create_mesh ValueError ("do not cover").
     ("arch.mesh.data=2", "arch.mesh.data"),
 ])
 def test_knobs_the_reference_ignores_raise_naming_the_key(override, key):
     """ROADMAP C12: the JAX rec_ppo silently ignores update_guard,
     fused_update, adaptive_kl_beta and reward_scale; the port refuses each,
-    as it refuses an unported cell, and a mesh its processes do not cover."""
+    and a mesh its processes do not cover."""
     cfg = _config(["arch.num_updates=1", "arch.num_evaluation=1", override])
     with pytest.raises((NotImplementedError, ValueError), match=key.replace(".", r"\.")):
         rec_ppo.run_experiment(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("cell_type", ["optimised_lstm", "mgu", "simple"])
+def test_rec_ppo_runs_every_rnn_cell(cell_type):
+    """`network.rnn_cell_type` takes the three cells that were refused before
+    ROADMAP A9b: one update of rec_ppo through each, finite, with the
+    evaluator's carries of the cell's structure."""
+    cfg = _config(["arch.num_updates=1", "arch.num_evaluation=1", "arch.num_eval_episodes=4",
+                   f"network.rnn_cell_type={cell_type}"])
+    assert np.isfinite(rec_ppo.run_experiment(cfg, device="cpu"))
+    train = [r for r in runner.LAST_RUN_STATS["history"] if r["event"] == "trainer"]
+    assert train and all(np.isfinite(v) for r in train for k, v in r.items()
+                         if k not in ("event", "t", "t_eval"))
 
 
 def test_rec_ppo_learns_identity_game_on_cpu():

@@ -16,15 +16,17 @@ from stoix_tpu_torch import envs
 from stoix_tpu_torch.base_types import (
     ActorCriticOptStates, ActorCriticParams, OnlineAndTarget, PPOTransition, Transition,
 )
+from stoix_tpu_torch.buffers import PrioritisedSample
 from stoix_tpu_torch.envs.types import Observation
-from stoix_tpu_torch.networks import base, heads, inputs, torso
+from stoix_tpu_torch.networks import base, dueling, heads, inputs, torso
 from stoix_tpu_torch.ops import running_statistics
 from stoix_tpu_torch.parallel import fetch_global, replicate, shard_leading_axis
 from stoix_tpu_torch.systems import anakin, off_policy_core, runner
 from stoix_tpu_torch.systems.ppo.anakin import ff_ppo
-from stoix_tpu_torch.systems.q_learning import ff_dqn, q_family
+from stoix_tpu_torch.systems.q_learning import ff_dqn, ff_rainbow, q_family, rec_r2d2
 from stoix_tpu_torch.utils import checkpointing
 from stoix_tpu_torch.utils import config as config_lib
+from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
 from stoix_tpu_torch.utils.training import ClipAdam
 
 
@@ -153,12 +155,105 @@ def dqn_step(mesh_for, overrides, obs_dim, num_actions, online, target, batches)
             "sample_size": int(sample.reward.shape[0])}
 
 
+# The small networks of the sequence-replay parity tests (tests/test_torch_rainbow.py,
+# tests/test_torch_r2d2.py), which load the JAX package's flax params into them.
+Q_OBS, Q_ACTIONS = 5, 3
+
+
+def rainbow_network() -> base.FeedForwardActor:
+    return base.FeedForwardActor(
+        dueling.NoisyDistributionalDuelingQNetwork(Q_ACTIONS, 16, num_atoms=11, vmin=0.0,
+                                                   vmax=10.0, layer_sizes=(8,)),
+        torso.MLPTorso(Q_OBS, (16,), activation="relu"), inputs.ObservationInput())
+
+
+def r2d2_network(cell_type: str, hidden: int) -> rec_r2d2.RecurrentQNetwork:
+    return rec_r2d2.RecurrentQNetwork(
+        heads.DiscreteQNetworkHead(Q_ACTIONS, 8), base.ScannedRNN(8, hidden, cell_type),
+        torso.MLPTorso(Q_OBS, (8,)), torso.MLPTorso(hidden, (8,)), inputs.ObservationInput())
+
+
+def prioritised_sample(raw: dict, probabilities: np.ndarray) -> PrioritisedSample:
+    """A PrioritisedSample of numpy sequences (`obs` an Observation's three
+    arrays; `hstate` an array or a pair)."""
+    def leaf(key, value):
+        if key.endswith("obs"):
+            return Observation(*(torch.from_numpy(np.ascontiguousarray(v)) for v in value))
+        if isinstance(value, tuple):
+            return tuple(torch.from_numpy(np.ascontiguousarray(v)) for v in value)
+        return torch.from_numpy(np.ascontiguousarray(value))
+
+    experience = {k: leaf(k, v) for k, v in raw.items()}
+    batch = int(probabilities.shape[0])
+    return PrioritisedSample(experience, torch.zeros((batch, 2), dtype=torch.long),
+                             torch.from_numpy(probabilities))
+
+
+class GivenNoise(ff_rainbow.NoisyQApply):
+    """Rainbow's apply with its noise draws replaced by given pairs, in order."""
+
+    def __init__(self, network, pairs):
+        super().__init__(network)
+        self.pairs = list(pairs)
+
+    def draw_noise(self, generator):
+        return self.pairs.pop(0)
+
+
+def sequence_step(mesh_for, system, overrides, online, target, samples, noise=None,
+                  cell_type="gru", hidden=6):
+    """This rank's ff_rainbow or rec_r2d2 update epoch on its own
+    PrioritisedSample (`samples[epoch][rank]`), once an epoch: the losses,
+    the new priorities and the params after the epochs. `noise` is each
+    epoch's three noise draws (lists of (e_in, e_out) numpy pairs), the same
+    on every rank."""
+    rank = dist.get_rank()
+    cfg = _config(system, overrides)
+    if system == "ff_rainbow":
+        net = rainbow_network()
+        pairs = [[(torch.from_numpy(a), torch.from_numpy(b)) for a, b in draw]
+                 for epoch in noise for draw in epoch]
+        q_apply, loss_fn = GivenNoise(net, pairs), ff_rainbow.rainbow_loss
+    else:
+        net = r2d2_network(cell_type, hidden)
+        q_apply, loss_fn = rec_r2d2.make_apply_fn(net), rec_r2d2.r2d2_loss
+    optim = ClipAdam(float(cfg.system.q_lr), float(cfg.system.max_grad_norm), eps=1e-5)
+    update = q_family.PrioritisedQUpdate(loss_fn, q_apply, optim, cfg)
+    params = [OnlineAndTarget(_tensors(online), _tensors(target))]
+    opt = [optim.init(params[0].online)]
+    losses, priorities = [], []
+    for epoch in samples:
+        params, opt, info, new = update(params, opt, [prioritised_sample(*epoch[rank])], [None])
+        losses.append(float(info["q_loss"]))
+        priorities.append(new[0].numpy())
+    return {"online": _numpy(params[0].online), "target": _numpy(params[0].target),
+            "losses": losses, "priorities": priorities}
+
+
+def sequence_buffer(mesh_for, system, overrides):
+    """The sizes of the prioritised buffer a rank of `system` builds."""
+    cfg = check_total_timesteps(_config(system, overrides), dist.get_world_size())
+    env, _ = envs.make(cfg)
+    module = {"ff_rainbow": ff_rainbow, "rec_r2d2": rec_r2d2}[system]
+    setup = module.learner_setup(env, cfg, torch.device("cpu"), seed=1)
+    if system == "ff_rainbow":
+        setup = setup[0]  # (setup, warmup)
+    buffer_state = setup.learner_state.buffer_state
+    return {"priorities": tuple(buffer_state.priorities.shape),
+            "reward": tuple(buffer_state.experience["reward"].shape),
+            "sample_batch": int(setup.learn.buffer.sample(
+                buffer_state._replace(num_added=10 ** 6), torch.Generator()
+            ).probabilities.shape[0])}
+
+
 def run(mesh_for, system, overrides, cwd):
     """One `run_experiment` of `system` on every rank, from `cwd` (so
     checkpoints land under it): the return and the runner's stats."""
     os.makedirs(cwd, exist_ok=True)
     os.chdir(cwd)
-    entry = {"ff_ppo": ff_ppo.run_experiment, "ff_dqn": ff_dqn.run_experiment}[system]
+    entry = {"ff_ppo": ff_ppo.run_experiment, "ff_dqn": ff_dqn.run_experiment,
+             "ff_rainbow": ff_rainbow.run_experiment,
+             "rec_r2d2": rec_r2d2.run_experiment}[system]
     final_return = entry(_config(system, overrides), device="cpu")
     stats = runner.LAST_RUN_STATS
     return {"return": final_return, "mesh": stats["mesh"],
@@ -189,5 +284,6 @@ def mesh_helpers(mesh_for, x):
             "replicated": replicate((full + rank,), mesh)[0].numpy()}
 
 
-DP_KINDS = {"mesh_helpers": mesh_helpers, "ppo_step": ppo_step, "statistics": statistics, "dqn_step": dqn_step, "run": run,
-            "saved_state": saved_state}
+DP_KINDS = {"mesh_helpers": mesh_helpers, "ppo_step": ppo_step, "statistics": statistics,
+            "dqn_step": dqn_step, "sequence_step": sequence_step,
+            "sequence_buffer": sequence_buffer, "run": run, "saved_state": saved_state}

@@ -221,3 +221,40 @@ def paired_window_networks(obs_dim: int, num_actions: int, window: int = 4, num_
     load_flax_params(torch_actor, actor_params)
     load_flax_params(torch_critic, critic_params)
     return jax_actor, actor_params, jax_critic, critic_params, torch_actor, torch_critic
+
+
+@contextlib.contextmanager
+def fed_normals(draws):
+    """Within the body, `jax.random.normal` returns the arrays of `draws`
+    (numpy, consumed in call order) instead of drawing from its key: the JAX
+    package's NoisyLinear then runs on the standard normals a test also gives
+    the port. Under `jax.jit` the arrays enter as constants at trace time,
+    where the calls happen in the same order."""
+    import jax
+
+    queue = list(draws)
+    original = jax.random.normal
+
+    def normal(key, shape=(), dtype=None):
+        value = queue.pop(0)
+        assert tuple(value.shape) == tuple(shape), (value.shape, shape)
+        return jnp.asarray(value)
+
+    jax.random.normal = normal
+    try:
+        yield queue
+    finally:
+        jax.random.normal = original
+
+
+def noise_draws(module, seed: int):
+    """(numpy draws for `fed_normals`, the same as the port's noise list) for
+    the noisy layers of a port module, from a numpy seed."""
+    from stoix_tpu_torch.networks.layers import noisy_layers
+
+    rng = np.random.default_rng(seed)
+    draws = [rng.normal(size=size).astype(np.float32) for layer in noisy_layers(module)
+             for size in (layer.in_features, layer.features)]
+    pairs = [(torch.from_numpy(draws[i]), torch.from_numpy(draws[i + 1]))
+             for i in range(0, len(draws), 2)]
+    return draws, pairs
