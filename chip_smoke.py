@@ -230,7 +230,9 @@ from stoix_tpu_torch.kernels import (
     build, flash_attention, flash_attention_chunk, flash_attention_wide, linear_recurrence,
 )
 from stoix_tpu_torch.networks.attention import TransformerTorso
-from stoix_tpu_torch.ops import best_attention, truncated_generalized_advantage_estimation
+from stoix_tpu_torch.ops import (
+    best_attention, scan_kernels, truncated_generalized_advantage_estimation,
+)
 from stoix_tpu_torch.ops.ring_attention import fold_chunk, full_attention, ring_attention
 from stoix_tpu_torch.systems import anakin, runner
 from stoix_tpu_torch.systems.ppo.anakin import ff_ppo, ff_trans_ppo
@@ -441,7 +443,22 @@ def phase_kernel() -> dict:
               "shape": [t_len, batch], "dtype": str(dtype), "resets": resets,
               "max_abs_err": err, "bitwise": True})
 
-    shapes = [recurrence_times(8, 1024), recurrence_times(16, 1024), recurrence_times(128, 4096)]
+    # ff_awr's launch: [7, 256] fed from a batch-major [256, 7] view, which the
+    # dispatch makes contiguous once before the kernel.
+    w, d, _ = recurrence_inputs(256, 7, torch.float32, True, seed=77)
+    w_view, d_view, init = w.T, d.T, d[:, -1].contiguous()
+    got = scan_kernels.linear_recurrence_reverse(w_view, d_view, init, "pallas")
+    torch.cuda.synchronize()
+    want = linear_recurrence.plain_linear_recurrence_reverse(w_view.contiguous(),
+                                                             d_view.contiguous(), init)
+    if got.shape != (7, 256) or not torch.equal(got, want):
+        raise AssertionError("kernel != plain at ff_awr's batch-major [7, 256]")
+    emit({"phase": "kernel", "kernel": linear_recurrence.KERNEL.name, "shape": [7, 256],
+          "from": "a transposed [256, 7] view", "dtype": "torch.float32", "resets": True,
+          "max_abs_err": 0.0, "bitwise": True})
+
+    shapes = [recurrence_times(8, 1024), recurrence_times(16, 1024), recurrence_times(128, 4096),
+              recurrence_times(7, 256)]
     emit({"phase": "kernel_time", "kernel": linear_recurrence.KERNEL.name, "shapes": shapes})
     main_shape = shapes[0]  # the training path's (ff_pqn, phase q_train)
     return {
@@ -651,11 +668,13 @@ def phase_gae() -> tuple:
     lr = linear_recurrence
     lam = 0.95
     max_abs_err = 0.0
-    for t_len, batch in ((16, 1024), (17, 1000), (128, 4096)):
+    # ff_reinforce's launch is [32, 1024] at lambda 1.0.
+    for t_len, batch, case_lam in ((16, 1024, lam), (17, 1000, lam), (128, 4096, lam),
+                                   (32, 1024, 1.0)):
         args = gae_inputs(t_len, batch, seed=t_len + batch)
-        got = lr.truncated_gae(*args, lam)
+        got = lr.truncated_gae(*args, case_lam)
         torch.cuda.synchronize()
-        want = lr.plain_truncated_gae(*args, lam)
+        want = lr.plain_truncated_gae(*args, case_lam)
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
         if any(g.shape != (t_len, batch) or not torch.isfinite(g).all() for g in got):
             raise AssertionError(f"GAE kernel output malformed at {t_len}x{batch}")
@@ -664,7 +683,7 @@ def phase_gae() -> tuple:
             raise AssertionError(f"GAE kernel != plain at {t_len}x{batch}: max err {err}")
         max_abs_err = max(max_abs_err, err)
         emit({"phase": "gae", "kernel": lr.GAE_KERNEL.name, "shape": [t_len, batch],
-              "truncation": True, "max_abs_err": err, "bitwise": True})
+              "lambda": case_lam, "truncation": True, "max_abs_err": err, "bitwise": True})
 
     # Through the dispatch: the card against `scan` on the CPU.
     cpu = [x.cpu() for x in gae_inputs(16, 1024, seed=7)]
@@ -725,6 +744,16 @@ def phase_gae() -> tuple:
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved, "flops": flops,
         "library_ms": None,  # no single PyTorch call computes GAE
     }
+    # ff_reinforce's shape, [32, 1024] at lambda 1.0.
+    args = gae_inputs(32, 1024, seed=9)
+    run = partial(lr.truncated_gae, *args, 1.0)
+    moved, flops = 7 * 32 * 1024 * 4, 9 * 32 * 1024
+    reinforce_bound = bound(moved, flops)
+    entry["shapes"] = [{"shape": [32, 1024], "lambda": 1.0, "ms": cuda_ms(run),
+                        "device_ms": graph_ms(run),
+                        "plain_ms": cuda_ms(partial(lr.plain_truncated_gae, *args, 1.0),
+                                            repeats=5, inner=3),
+                        "bound_ms": reinforce_bound[0], "bound_by": reinforce_bound[1]}]
     emit({"phase": "gae_time", **entry})
     return entry, composed_launches[lr.KERNEL.name]
 
@@ -1758,6 +1787,31 @@ REC_IDENTITY = ["env=identity_game", "arch.total_num_envs=64", "arch.total_times
                 "arch.evaluation_greedy=True", "arch.absolute_metric=False",
                 "system.multistep_impl=pallas", "logger.use_console=False"]
 
+# The continuous actor-critics' learning oracle: ff_sac on Pendulum (64 envs,
+# 393 216 steps, 768 updates of 4 epochs), fixed before any card run of it by
+# scripts/jax_oracle_thresholds.py on the CPU: the JAX package's ff_sac under
+# these overrides returns -191.12 (seed 1: -176.37), uniform random actions
+# -1221.52; the threshold is their midpoint.
+SAC_PENDULUM = ["arch.total_num_envs=64", "arch.total_timesteps=393216", "arch.num_evaluation=4",
+                "arch.num_eval_episodes=32", "arch.evaluation_greedy=True",
+                "arch.absolute_metric=False", "logger.use_console=False"]
+SAC_JAX_RETURN = -191.12234497070312
+SAC_THRESHOLD = (PENDULUM_RANDOM_RETURN + SAC_JAX_RETURN) / 2
+# ff_reinforce's and ff_awr's IdentityGame oracles (64 envs; 65 536 and 32 768
+# steps): the JAX package returns 10.0 there (scripts/jax_oracle_thresholds.py,
+# seeds 42 and 1), uniform random actions 2.5; the threshold is the family's 8.0.
+VPG_IDENTITY = ["env=identity_game", "arch.total_num_envs=64", "arch.total_timesteps=65536",
+                "arch.num_evaluation=1", "arch.num_eval_episodes=32",
+                "arch.evaluation_greedy=True", "arch.absolute_metric=False",
+                "system.multistep_impl=pallas", "logger.use_console=False"]
+AWR_IDENTITY = [o if o != "arch.total_timesteps=65536" else "arch.total_timesteps=32768"
+                for o in VPG_IDENTITY]
+PG_THRESHOLD = 8.0
+AC_ROOTS = {name: f"default/anakin/default_{name}.yaml"
+            for name in ("ff_ddpg", "ff_td3", "ff_d4pg", "ff_sac")}
+VPG_ROOT = "default/anakin/default_ff_reinforce.yaml"
+AWR_ROOT = "default/anakin/default_ff_awr.yaml"
+
 
 def _finite_run(name: str, final_return: float) -> list:
     """The run's trainer records, after checking they and the return are finite."""
@@ -2094,6 +2148,190 @@ def phase_sequence_train(name: str, smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------- A12: actor-critics, REINFORCE, AWR
+
+
+def _a12_module(name: str):
+    import importlib
+
+    package = {"ff_ddpg": "ddpg", "ff_td3": "ddpg", "ff_d4pg": "ddpg", "ff_sac": "sac",
+               "ff_reinforce": "vpg", "ff_reinforce_continuous": "vpg", "ff_awr": "awr",
+               "ff_awr_continuous": "awr"}[name]
+    return importlib.import_module(f"stoix_tpu_torch.systems.{package}.{name}")
+
+
+def _path_run(name: str, root: str, overrides: list, want: dict, phase: str, smi: str,
+              device_launches: bool) -> dict:
+    """One `run_experiment` of `name`, every kernel counter zeroed just
+    before and read just after: each must equal `want` (name -> launches an
+    update; the rest 0). With `device_launches`, one more update step of a
+    fresh setup is profiled after a warm-up step (and its warm-up fill)."""
+    module = _a12_module(name)
+    config = compose(overrides, root)
+    counters = _kernel_counters()
+    for counter in counters:
+        counter.launches = 0
+    start = time.perf_counter()
+    final_return = module.run_experiment(config, device="cuda")
+    seconds = time.perf_counter() - start
+    launches = _counts(counters)
+    stats = copy.deepcopy(runner.LAST_RUN_STATS)
+    train = _finite_run(name, final_return)
+    config = check_total_timesteps(config, 1)
+    updates = int(config.arch.num_updates)
+    expected = {c.name: want.get(c.name, 0) * updates for c in counters}
+    if launches != expected:
+        raise AssertionError(f"{name} launched {launches} in {updates} updates, not {expected}")
+    record = {"phase": phase, "system": name, "env": config.env.scenario.name,
+              "total_num_envs": int(config.arch.total_num_envs),
+              "rollout_length": int(config.system.rollout_length), "updates": updates,
+              "kernel_launches": launches, "final_eval_return": final_return,
+              "last_train_metrics": train[-1], "window_seconds": stats["window_seconds"],
+              "env_steps_per_second": stats["steps_per_second"], "seconds": seconds, "card": smi}
+    if device_launches:
+        setup = module.learner_setup(envs.make(config)[0], config, torch.device("cuda"),
+                                     int(config.arch.seed))
+        setup, state = (setup, setup.learner_state) if hasattr(setup, "learner_state") else (
+            setup[0], setup[1](setup[0].learner_state))
+        state, _ = setup.learn.update_step(state)  # warm-up
+        record["device_launches_per_update"] = _device_launches(setup.learn, state)
+        if hasattr(state, "buffer_state"):
+            record["buffer_device_bytes"] = _tree_bytes(state.buffer_state)
+        record["_setup_state"] = (setup, state, config)
+    return record
+
+
+def _max_err(got, want) -> float:
+    return max(float((a.cpu() - b).abs().max()) for a, b in zip(tree_leaves(got),
+                                                                 tree_leaves(want)))
+
+
+def _ac_update_on_card_and_cpu(name: str, config, setup, state) -> dict:
+    """One `update_from_batch` of an actor-critic on a batch sampled on the
+    card, with noise drawn on the card, run by the card's update and by the
+    same update built on the CPU, from the same params: losses 1e-5
+    relative, params 1e-5 absolute. ff_td3 takes two steps from its count
+    (a policy step, then an off step), compared after each."""
+    cpu_setup, _ = _a12_module(name).learner_setup(envs.make(config)[0], config,
+                                                   torch.device("cpu"), int(config.arch.seed))
+    generator = state.generator
+    batch = setup.learn.buffer.sample(state.buffer_state, generator).experience
+    card_update, cpu_update = setup.learn.update_from_batch, cpu_setup.learn.update_from_batch
+    sides = {"card": ([state.params], [state.opt_states]),
+             "cpu": ([tree_map(lambda x: x.cpu(), state.params)],
+                     [tree_map(lambda x: x.cpu(), state.opt_states)])}
+    steps = []
+    if name == "ff_td3":
+        count, adam = state.opt_states.count, state.opt_states.opt_states.actor_opt_state.count
+    for _ in range(2 if name == "ff_td3" else 1):
+        noise = card_update.draw_noise(batch, generator)
+        out = {}
+        for side, update in (("card", card_update), ("cpu", cpu_update)):
+            move = (lambda x: x) if side == "card" else (lambda x: x.cpu())
+            params, opts = sides[side]
+            out[side] = update.step(params, opts, [tree_map(move, batch)],
+                                    [tree_map(move, noise)])
+            sides[side] = out[side][:2]
+        (card_params, card_opts, card_info), (cpu_params, _, cpu_info) = out["card"], out["cpu"]
+        loss_err = max(_relative(card_info[k], cpu_info[k]) for k in cpu_info
+                       if k.endswith("loss"))
+        param_err = _max_err(card_params, cpu_params)
+        if not (loss_err <= 1e-5 and param_err <= 1e-5):
+            raise AssertionError(f"{name}'s update on the card is not the CPU's: loss {loss_err}, "
+                                 f"params {param_err}")
+        step = {"loss_relative_err": loss_err, "params_abs_err": param_err}
+        if name == "ff_td3":
+            # A policy step where count % policy_frequency == 0: the actor's
+            # Adam steps there and nowhere else.
+            policy = count % int(config.system.policy_frequency) == 0
+            new_adam = card_opts[0].opt_states.actor_opt_state.count
+            if new_adam != adam + int(policy):
+                raise AssertionError(f"ff_td3 at count {count}: actor Adam {adam} -> {new_adam}")
+            step.update(count=count, policy_step=policy, actor_adam_count=new_adam)
+            count, adam = card_opts[0].count, new_adam
+        steps.append(step)
+    return {"sample_batch": int(batch.reward.shape[0]), "steps": steps}
+
+
+def phase_ac_train(smi: str) -> dict:
+    """ff_ddpg, ff_td3, ff_d4pg and ff_sac at their default configs' full
+    width (64 Pendulum envs, T = 8, 32 warm-up steps, 4 epochs of 512 from
+    a 200 000-item buffer, MLPs of 256 x 256), MAIN_UPDATES updates in 2
+    windows through `run_experiment`, every kernel counter zeroed just
+    before and read just after (no kernel is on these paths); then device
+    launches an update, the buffer's device bytes and an update on the card
+    against the CPU. Returns each system's kernel launches."""
+    launches = {}
+    for name, root in AC_ROOTS.items():
+        record = _path_run(name, root, [f"arch.num_updates={MAIN_UPDATES}",
+                                        "arch.num_evaluation=2", "arch.num_eval_episodes=16",
+                                        "logger.use_console=False"], {}, "ac_train", smi, True)
+        setup, state, config = record.pop("_setup_state")
+        record["update_on_card_vs_cpu"] = _ac_update_on_card_and_cpu(name, config, setup, state)
+        emit(record)
+        launches[name] = record["kernel_launches"]
+    return launches
+
+
+def phase_sac_learn() -> None:
+    """ff_sac on Pendulum above the threshold fixed beforehand."""
+    start = time.perf_counter()
+    final_return = _a12_module("ff_sac").run_experiment(
+        compose(SAC_PENDULUM, AC_ROOTS["ff_sac"]), device="cuda")
+    if not final_return > SAC_THRESHOLD:
+        raise AssertionError(f"ff_sac returned {final_return}, not above {SAC_THRESHOLD}")
+    emit({"phase": "sac_learn", "system": "ff_sac", "env": "pendulum",
+          "final_return": final_return, "threshold": SAC_THRESHOLD,
+          "window_seconds": runner.LAST_RUN_STATS["window_seconds"],
+          "seconds": time.perf_counter() - start})
+
+
+def phase_pg_learn(name: str, root: str, overrides: list, phase: str) -> None:
+    """`name` on IdentityGame above PG_THRESHOLD."""
+    start = time.perf_counter()
+    final_return = _a12_module(name).run_experiment(compose(overrides, root), device="cuda")
+    if not final_return > PG_THRESHOLD:
+        raise AssertionError(f"{name} returned {final_return}, not above {PG_THRESHOLD}")
+    emit({"phase": phase, "system": name, "env": "identity_game", "final_return": final_return,
+          "threshold": PG_THRESHOLD, "window_seconds": runner.LAST_RUN_STATS["window_seconds"],
+          "seconds": time.perf_counter() - start})
+
+
+def phase_pg_train(smi: str, family: str) -> dict:
+    """ff_reinforce (1024 CartPole envs, T = 32; one B1 GAE launch an
+    update at lambda 1.0) or ff_awr (64 CartPole envs, T = 8, a 100 000-step
+    trajectory buffer, 4 epochs of 256 sequences of 8; one B1 generic launch
+    an epoch) at its default config's full width, MAIN_UPDATES updates in 2
+    windows with `system.multistep_impl=pallas`; then its continuous variant
+    (Pendulum) one window. Every kernel counter zeroed just before each run
+    and read just after. Returns the main run's launches."""
+    lr = linear_recurrence
+    if family == "vpg":
+        runs = (("ff_reinforce", VPG_ROOT), ("ff_reinforce_continuous",
+                                             "default/anakin/default_ff_reinforce_continuous.yaml"))
+        want = {lr.GAE_KERNEL.name: 1}
+    else:
+        runs = (("ff_awr", AWR_ROOT), ("ff_awr_continuous",
+                                       "default/anakin/default_ff_awr_continuous.yaml"))
+        want = {lr.KERNEL.name: 4}  # system.epochs
+    common = ["arch.num_eval_episodes=16", "system.multistep_impl=pallas",
+              "logger.use_console=False"]
+    main_launches = None
+    for index, (name, root) in enumerate(runs):
+        windows = ([f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2"] if index == 0
+                   else ["arch.num_updates=2", "arch.num_evaluation=1"])
+        record = _path_run(name, root, windows + common, want, f"{family}_train", smi,
+                           index == 0)
+        record.pop("_setup_state", None)
+        record["b1_launches_per_update"] = {k: v / record["updates"]
+                                            for k, v in record["kernel_launches"].items()
+                                            if k in (lr.KERNEL.name, lr.GAE_KERNEL.name)}
+        emit(record)
+        if main_launches is None:
+            main_launches = record["kernel_launches"]
+    return main_launches
+
+
 # ---------------------------------------------------- data parallelism
 
 DP_OVERRIDES = [f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
@@ -2334,6 +2572,19 @@ def main() -> None:
         sequence = phase_sequence_train(name, smi)
         for entry in (recurrence, gae, *attention, chunk, *wide):
             entry.setdefault("launches_sequence_replay", {})[name] = sequence[entry["name"]]
+    # A12's first half: the actor-critics run no kernel; ff_reinforce's update
+    # is one GAE launch (lambda 1.0), ff_awr's epoch one generic launch.
+    actor_critics = phase_ac_train(smi)
+    phase_sac_learn()
+    vpg = phase_pg_train(smi, "vpg")
+    phase_pg_learn("ff_reinforce", VPG_ROOT, VPG_IDENTITY, "vpg_learn")
+    awr = phase_pg_train(smi, "awr")
+    phase_pg_learn("ff_awr", AWR_ROOT, AWR_IDENTITY, "awr_learn")
+    for entry in (recurrence, gae, *attention, chunk, *wide):
+        entry["launches_actor_critics"] = {name: counts[entry["name"]]
+                                           for name, counts in actor_critics.items()}
+        entry["launches_ff_reinforce"] = vpg[entry["name"]]
+        entry["launches_ff_awr"] = awr[entry["name"]]
     data_parallel = phase_data_parallel(smi)
     gae["launches_data_parallel"] = {"a_one_rank_ff_ppo": data_parallel["a_ff_ppo"],
                                      "b_per_rank": data_parallel["b_per_rank"]}

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """The learning oracles of chip_smoke.py's cont_learn, rec_learn,
-rainbow_learn and r2d2_learn phases, computed from the JAX package on the
-CPU:
+rainbow_learn, r2d2_learn, sac_learn, vpg_learn and awr_learn phases,
+computed from the JAX package on the CPU:
 
     JAX_PLATFORMS=cpu python scripts/jax_oracle_thresholds.py [--seeds 42 1 2]
-        [--oracles pendulum rec rainbow r2d2]
+        [--oracles pendulum rec rainbow r2d2 sac reinforce awr]
 
 - Pendulum: the mean return of uniform random actions over 4096 episodes of
   the JAX package's Pendulum-v1 (`jax.random` key 0), and the JAX package's
@@ -15,6 +15,11 @@ CPU:
   chip_smoke.py's REC_IDENTITY overrides for each seed, and its ff_rainbow
   and rec_r2d2 returns under SEQUENCE_IDENTITY's (the threshold there is
   the family's 8.0, which these show the reference reaches).
+- SAC on Pendulum: the JAX package's ff_sac under chip_smoke.py's
+  SAC_PENDULUM overrides for each seed; the threshold is the midpoint of
+  the random return (as above) and the first seed's.
+- REINFORCE and AWR on IdentityGame: the JAX package's ff_reinforce and
+  ff_awr under VPG_IDENTITY and AWR_IDENTITY (threshold PG_THRESHOLD, 8.0).
 
 Prints one JSON line. The JAX runs take about a minute each on 8 CPU cores.
 """
@@ -73,16 +78,18 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--episodes", type=int, default=4096)
-    parser.add_argument("--oracles", nargs="+", default=["pendulum", "rec", "rainbow", "r2d2"],
-                        choices=["pendulum", "rec", "rainbow", "r2d2"])
+    oracles = ["pendulum", "rec", "rainbow", "r2d2", "sac", "reinforce", "awr"]
+    parser.add_argument("--oracles", nargs="+", default=oracles, choices=oracles)
     args = parser.parse_args()
     out = {}
-    if "pendulum" in args.oracles:
+    if "pendulum" in args.oracles or "sac" in args.oracles:
         random_return = random_pendulum_return(args.episodes)
+        out["pendulum_random_return"] = random_return
+    if "pendulum" in args.oracles:
         pendulum = [final_return("stoix_tpu.systems.ppo.anakin.ff_ppo_continuous",
                                  chip_smoke.CONT_ROOT, chip_smoke.PENDULUM, seed)
                     for seed in args.seeds]
-        out.update({"pendulum_random_return": random_return, "pendulum_jax": pendulum,
+        out.update({"pendulum_jax": pendulum,
                     "pendulum_threshold": (random_return + pendulum[0]["final_return"]) / 2,
                     "pendulum_overrides": chip_smoke.PENDULUM})
     if "rec" in args.oracles:
@@ -100,6 +107,21 @@ def main() -> None:
             out[f"{name}_identity_overrides"] = chip_smoke.SEQUENCE_IDENTITY[system]
     if "rainbow" in args.oracles or "r2d2" in args.oracles:
         out["sequence_threshold"] = chip_smoke.SEQUENCE_THRESHOLD
+    if "sac" in args.oracles:
+        sac = [final_return("stoix_tpu.systems.sac.ff_sac", chip_smoke.AC_ROOTS["ff_sac"],
+                            chip_smoke.SAC_PENDULUM, seed) for seed in args.seeds]
+        out.update({"sac_pendulum_jax": sac,
+                    "sac_threshold": (random_return + sac[0]["final_return"]) / 2,
+                    "sac_overrides": chip_smoke.SAC_PENDULUM})
+    for name, module, root, overrides in (
+            ("reinforce", "stoix_tpu.systems.vpg.ff_reinforce", chip_smoke.VPG_ROOT,
+             chip_smoke.VPG_IDENTITY),
+            ("awr", "stoix_tpu.systems.awr.ff_awr", chip_smoke.AWR_ROOT, chip_smoke.AWR_IDENTITY)):
+        if name in args.oracles:
+            out[f"{name}_identity_jax"] = [final_return(module, root, overrides, seed)
+                                           for seed in args.seeds]
+            out[f"{name}_identity_overrides"] = overrides
+            out["pg_threshold"] = chip_smoke.PG_THRESHOLD
     print(json.dumps(out))
 
 

@@ -43,7 +43,23 @@ modes separate the suspects:
                  chain from the inputs (`chain_errors`); `first_wrong_step`
                  names the first op past its limit. The chain's output must
                  equal the port's attention bitwise, and past LIMIT of the
-                 float64 reference the process counts as wrong.
+                 float64 reference the process counts as wrong. When exp is
+                 off (`exp_elements`): every element whose float32 exp is past
+                 EXP_ELEMENT_LIMIT of exp in float64 on the same float32 input
+                 (its flat index, the input, the output, the float64 value, up
+                 to KEPT_ELEMENTS of them), the index span, the 8-thread chunk
+                 each index falls in (an even split of the flat range) and its
+                 lane (index mod 16); then exp rerun on the same input in the
+                 same process (bitwise the first? its own error) and on one
+                 thread (its error).
+  chain_exp_1t   chain_first with only exp run on one torch thread (the
+                 thread count set to 1 around it, the host's default around
+                 every other op).
+
+Since C11's repair (ROADMAP) the port's plain attention takes its exp on
+one thread on the CPU (`kernels/attention_common.py::plain_exp`): the
+modes that run the port's attention test the repaired route, while the
+chain modes keep the unrepaired chain as the fault's witness.
 
 The modes with CUDA need a card. Prints one JSON line a process and, last, a
 JSON summary: per mode, the processes, those whose attention passed 1e-5 of
@@ -69,7 +85,12 @@ BMM_LIMIT = 1e-4
 # The ops after q.k^T, each run alone first in its mode: (op, its limit).
 FIRST_OPS = {"amax_first": ("amax", 0.0), "exp_first": ("exp", 1e-6), "pv_first": ("pv", 1e-5)}
 MODES = ("file", "file_cuda", "file_cuda_1t", "file_cuda_nodnn", "card", "bmm_first", "env_1t",
-         *FIRST_OPS, "chain_first")
+         *FIRST_OPS, "chain_first", "chain_exp_1t")
+CHAIN_MODES = ("chain_first", "chain_exp_1t")
+# An exp element counts as wrong past this, against exp in float64 on its own
+# float32 input (a correctly rounded float32 exp of x <= 0 is within 6e-8).
+EXP_ELEMENT_LIMIT = 1e-6
+KEPT_ELEMENTS = 64
 # chain_first: each op's limit against the same op in float64 on its float32
 # inputs (absolute; the scores are O(10), p and the sums O(1) to O(16)).
 STEP_LIMITS = {"scaled_q": 1e-6, "scores": 1e-4, "masked": 0.0, "row_max": 0.0, "exp": 1e-6,
@@ -113,10 +134,12 @@ def first_op(op: str, inputs: dict) -> float:
     return ((p @ v).double() - p.double() @ v.double()).abs().max().item()
 
 
-def plain_chain(q, k, v) -> dict:
+def plain_chain(q, k, v, exp_one_thread: bool = False) -> dict:
     """The plain forward's chain for one key tile (`fold_key_tiles` at S <=
     KEY_TILE, then the division), op by op in q's dtype, every
-    intermediate kept. q, k, v: [B, S, H, D]."""
+    intermediate kept (exp's input `shifted` and raw output `exp_raw` too).
+    With `exp_one_thread` exp alone runs on one torch thread. q, k, v:
+    [B, S, H, D]."""
     import torch
 
     scale = q.shape[3] ** -0.5
@@ -129,19 +152,63 @@ def plain_chain(q, k, v) -> dict:
     masked = torch.where(mask, scores, float("-inf"))
     row_max = torch.maximum(torch.full_like(masked[..., :1], float("-inf")),
                             masked.amax(-1, keepdim=True))
-    p = torch.where(mask, torch.exp(masked - row_max), 0.0)
+    shifted = masked - row_max
+    if exp_one_thread:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        exp_raw = torch.exp(shifted)
+        torch.set_num_threads(threads)
+    else:
+        exp_raw = torch.exp(shifted)
+    p = torch.where(mask, exp_raw, 0.0)
     row_sum = p.sum(-1, keepdim=True)
     pv = p @ vf
     out = pv / row_sum
-    return {"scaled_q": qs, "scores": scores, "masked": masked, "row_max": row_max, "exp": p,
-            "row_sum": row_sum, "pv": pv, "out": out}
+    return {"scaled_q": qs, "scores": scores, "masked": masked, "row_max": row_max,
+            "shifted": shifted, "exp_raw": exp_raw, "exp": p, "row_sum": row_sum, "pv": pv,
+            "out": out}
 
 
-def chain_probe(q, k, v) -> dict:
+def exp_elements(shifted, exp_raw) -> dict:
+    """Where the float32 exp is off exp in float64 on the same float32 input:
+    the wrong elements (up to KEPT_ELEMENTS), their span, 8-thread chunks and
+    lanes; then exp rerun on the same input, with the host's threads and on
+    one thread, each held against the first output and float64."""
+    import torch
+
+    x = shifted.reshape(-1)
+    want = x.double().exp().nan_to_num(0.0)
+    error = (exp_raw.reshape(-1).double() - want).abs()
+    wrong = torch.nonzero(error > EXP_ELEMENT_LIMIT).reshape(-1)
+    n = x.numel()
+    chunk = -(-n // 8)
+    kept = wrong[:KEPT_ELEMENTS].tolist()
+    again = torch.exp(shifted)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    one_thread = torch.exp(shifted)
+    torch.set_num_threads(threads)
+    span = (int(wrong.min()), int(wrong.max())) if wrong.numel() else None
+    return {
+        "wrong": int(wrong.numel()), "elements": n,
+        "kept": [{"index": i, "input": float(x[i]), "output": float(exp_raw.reshape(-1)[i]),
+                  "float64": float(want[i]), "error": float(error[i])} for i in kept],
+        "index_span": span,
+        "contiguous": bool(wrong.numel()) and span[1] - span[0] + 1 == int(wrong.numel()),
+        "chunks_of_8": sorted({i // chunk for i in wrong.tolist()}),
+        "lanes_mod_16": sorted({i % 16 for i in wrong.tolist()}),
+        "rerun_equals_first": bool(torch.equal(again, exp_raw)),
+        "rerun_error": float((again.reshape(-1).double() - want).abs().max()),
+        "one_thread_error": float((one_thread.reshape(-1).double() - want).abs().max()),
+    }
+
+
+def chain_probe(q, k, v, exp_one_thread: bool = False) -> dict:
     """`plain_chain` in float32 as the process's first computation, then each
     intermediate against float64: the same op on its float32 inputs (the
-    step's own error) and the float64 chain from the inputs."""
-    chain = plain_chain(q, k, v)  # first: nothing else has run in this process
+    step's own error) and the float64 chain from the inputs; and, when exp
+    is off, where (`exp_elements`)."""
+    chain = plain_chain(q, k, v, exp_one_thread)  # first: nothing else has run in this process
     whole = plain_chain(q.double(), k.double(), v.double())
     steps = {
         "scaled_q": lambda: q.double().permute(0, 2, 1, 3) * q.shape[3] ** -0.5,
@@ -162,10 +229,13 @@ def chain_probe(q, k, v) -> dict:
 
     step_errors = {name: error(chain[name], want()) for name, want in steps.items()}
     first_wrong = next((name for name in steps if step_errors[name] > STEP_LIMITS[name]), None)
-    return {"chain_out": chain["out"].permute(0, 2, 1, 3),
-            "step_errors": step_errors,
-            "chain_errors": {name: error(chain[name], whole[name]) for name in chain},
-            "first_wrong_step": first_wrong}
+    out = {"chain_out": chain["out"].permute(0, 2, 1, 3),
+           "step_errors": step_errors,
+           "chain_errors": {name: error(chain[name], whole[name]) for name in chain},
+           "first_wrong_step": first_wrong}
+    if step_errors["exp"] > STEP_LIMITS["exp"]:
+        out["exp_elements"] = exp_elements(chain["shifted"], chain["exp_raw"])
+    return out
 
 
 def one_process(mode: str, path: str) -> dict:
@@ -188,7 +258,8 @@ def one_process(mode: str, path: str) -> dict:
         first_op_error = first_op(op, torch.load(os.path.join(os.path.dirname(path), "ops.pt")))
     q, k, v = (proj[:, :, i].contiguous() for i in range(3))
     qs, ks = q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3)
-    chain = chain_probe(q, k, v) if mode == "chain_first" else None
+    chain = (chain_probe(q, k, v, exp_one_thread=mode == "chain_exp_1t")
+             if mode in CHAIN_MODES else None)
 
     def bmm_error() -> float:
         return ((qs @ ks.transpose(-1, -2)).double()
@@ -206,8 +277,8 @@ def one_process(mode: str, path: str) -> dict:
         chain_fields = {**chain, "chain_error": chain_error,
                         "chain_equals_attention": bool(torch.equal(chain_out, outs[0]))}
         errors = [chain_error] + errors
-    return {**chain_fields,"mode": mode, "errors": errors, "repeats_equal": all(torch.equal(o, outs[0])
-                                                                 for o in outs),
+    return {**chain_fields, "mode": mode, "errors": errors,
+            "repeats_equal": all(torch.equal(o, outs[0]) for o in outs),
             "bmm_error": bmm, "bmm_first": first is not None,
             "threads": torch.get_num_threads(), "mkldnn": torch.backends.mkldnn.enabled,
             "environment": {key: os.environ.get(key) for key in ("OMP_NUM_THREADS",
@@ -276,6 +347,11 @@ def main() -> None:
                       "first_wrong_steps": sorted({r["first_wrong_step"] for r in results
                                                    if r["mode"] == mode
                                                    and r.get("first_wrong_step")}),
+                      "exp_wrong_elements": [r["exp_elements"]["wrong"] for r in results
+                                             if r["mode"] == mode and "exp_elements" in r],
+                      "exp_rerun_equals_first": [r["exp_elements"]["rerun_equals_first"]
+                                                 for r in results if r["mode"] == mode
+                                                 and "exp_elements" in r],
                       "chain_differs_from_attention": sum(
                           r["mode"] == mode and r.get("chain_equals_attention") is False
                           for r in results),

@@ -9,7 +9,7 @@ wrappers read shapes without running the env.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +54,21 @@ class Box(Space):
         mid = (np.asarray(self.low, np.float64) + np.asarray(self.high, np.float64)) / 2.0
         mid = np.where(np.isfinite(mid), mid, 0.0)
         return torch.as_tensor(np.broadcast_to(mid, self.shape).copy(), dtype=self.dtype)
+
+    def sample(self, generator: torch.Generator, batch: Tuple[int, ...] = (),
+               uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`batch` values uniform on [low, high): low + u (high - low), u from
+        `generator` on its device unless given, as the JAX package's
+        `Box.sample` forms them."""
+        device = generator.device if uniform is None else uniform.device
+        low = torch.as_tensor(np.broadcast_to(np.asarray(self.low), self.shape).copy(),
+                              dtype=self.dtype).to(device)
+        high = torch.as_tensor(np.broadcast_to(np.asarray(self.high), self.shape).copy(),
+                               dtype=self.dtype).to(device)
+        if uniform is None:
+            uniform = torch.rand(tuple(batch) + tuple(self.shape), generator=generator,
+                                 device=device, dtype=self.dtype)
+        return low + uniform * (high - low)
 
 
 @dataclasses.dataclass(frozen=True)

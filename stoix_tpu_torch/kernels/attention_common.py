@@ -3,7 +3,8 @@ entry points take, the launch counter, the row-alignment check, and the plain
 PyTorch arithmetic of the online softmax (`fold_key_tiles`) that the plain
 versions of B2's forward, B3 and the wide route fold their tiles with
 (kernels/flash_attention.py, kernels/flash_attention_chunk.py,
-kernels/flash_attention_wide.py).
+kernels/flash_attention_wide.py), and the exp every plain version takes
+(`plain_exp`).
 """
 
 from __future__ import annotations
@@ -42,6 +43,23 @@ def heads_first(x: torch.Tensor) -> torch.Tensor:
 def seq_first(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """[B, H, S, D] float32 -> contiguous [B, S, H, D] in `dtype`."""
     return x.to(dtype).permute(0, 2, 1, 3).contiguous()
+
+
+def plain_exp(x: torch.Tensor) -> torch.Tensor:
+    """torch.exp, on one intra-op thread for a CPU tensor (ROADMAP C11): on
+    the H100 machine's host one worker thread's first float32 exp in a
+    process has come out about 1e-4 relative off over that thread's whole
+    chunk of the tensor (3 of 80 processes at 8 threads), while the same exp
+    on the same input rerun, or on one thread, was right. An exp is
+    elementwise, so one thread computes the same values."""
+    threads = torch.get_num_threads()
+    if x.device.type != "cpu" or threads == 1:
+        return torch.exp(x)
+    torch.set_num_threads(1)
+    try:
+        return torch.exp(x)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def sliced_products(a: torch.Tensor, b: torch.Tensor, parts: Optional[int]) -> torch.Tensor:
@@ -96,10 +114,10 @@ def fold_key_tiles(
             scores = torch.where(mask, scores, float("-inf"))
         m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        p = torch.exp(scores - m_safe)
+        p = plain_exp(scores - m_safe)
         if mask is not None:
             p = torch.where(mask, p, 0.0)
-        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        alpha = torch.where(torch.isfinite(m), plain_exp(m - m_safe), 0.0)
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + p @ v_blk
         m = m_new

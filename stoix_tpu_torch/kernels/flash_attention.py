@@ -68,7 +68,7 @@ import torch.nn.functional as F
 
 from stoix_tpu_torch.kernels.attention_common import (
     DTYPE_CODES, KEY_TILE, KernelCounter, check_rows_aligned, fold_key_tiles, heads_first,
-    seq_first,
+    plain_exp, seq_first,
 )
 from stoix_tpu_torch.kernels.build import CudaLibrary
 from stoix_tpu_torch.kernels.flash_attention_wide import wide_flash_attention
@@ -136,7 +136,7 @@ def plain_flash_attention_backward(
     scale = q.shape[3] ** -0.5 if scale is None else scale
     qs, kf, vf, dof = heads_first(q) * scale, heads_first(k), heads_first(v), heads_first(dout)
     delta = (dof * heads_first(o)).sum(-1)
-    p = torch.exp(qs @ kf.transpose(-1, -2) - lse[..., None])
+    p = plain_exp(qs @ kf.transpose(-1, -2) - lse[..., None])
     if causal:
         p = torch.where(torch.ones(seq, seq, dtype=torch.bool, device=q.device).tril(), p, 0.0)
     ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])

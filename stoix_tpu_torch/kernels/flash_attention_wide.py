@@ -46,7 +46,8 @@ from typing import Optional, Tuple
 import torch
 
 from stoix_tpu_torch.kernels.attention_common import (
-    DTYPE_CODES, KernelCounter, fold_key_tiles, heads_first, seq_first, sliced_products,
+    DTYPE_CODES, KernelCounter, fold_key_tiles, heads_first, plain_exp, seq_first,
+    sliced_products,
 )
 from stoix_tpu_torch.kernels.build import CudaLibrary
 
@@ -118,7 +119,7 @@ def plain_wide_backward(
     qs, qf, kf, vf = heads_first(q) * scale, heads_first(q), heads_first(k), heads_first(v)
     dof = heads_first(dout)
     delta = (dof * heads_first(o)).sum(-1)
-    p = torch.exp(sliced_products(qs, kf, BACKWARD_PARTS) - lse[..., None])
+    p = plain_exp(sliced_products(qs, kf, BACKWARD_PARTS) - lse[..., None])
     if causal:
         p = torch.where(torch.ones(seq, seq, dtype=torch.bool, device=q.device).tril(), p, 0.0)
     ds = p * (sliced_products(dof, vf, BACKWARD_PARTS) - delta[..., None])

@@ -1,6 +1,6 @@
 """Actor and critic compositions (counterpart of stoix_tpu/networks/base.py:
-FeedForwardActor, FeedForwardCritic, ScannedRNN, RecurrentActor and
-RecurrentCritic)."""
+FeedForwardActor, FeedForwardCritic, MultiNetwork, ScannedRNN,
+RecurrentActor and RecurrentCritic)."""
 
 from __future__ import annotations
 
@@ -38,7 +38,8 @@ def _head_takes_mask(head: nn.Module) -> bool:
 
 
 class FeedForwardCritic(nn.Module):
-    """input -> torso -> critic head, returning values."""
+    """input -> torso -> critic head, returning values. Extra inputs go to the
+    input layer (a Q(s, a) critic's action)."""
 
     def __init__(self, critic_head: nn.Module, torso: nn.Module, input_layer: nn.Module):
         super().__init__()
@@ -46,8 +47,20 @@ class FeedForwardCritic(nn.Module):
         self.torso = torso
         self.input_layer = input_layer
 
-    def forward(self, observation: Any) -> Any:
-        return self.critic_head(self.torso(self.input_layer(observation)))
+    def forward(self, observation: Any, *inputs: Any) -> Any:
+        return self.critic_head(self.torso(self.input_layer(observation, *inputs)))
+
+
+class MultiNetwork(nn.Module):
+    """Networks run on the same inputs, their outputs stacked on a new last
+    axis (twin Q critics); flax's `networks_i` are `networks.i`."""
+
+    def __init__(self, networks: Sequence[nn.Module]):
+        super().__init__()
+        self.networks = nn.ModuleList(networks)
+
+    def forward(self, *args: Any) -> torch.Tensor:
+        return torch.stack([network(*args) for network in self.networks], dim=-1)
 
 
 class ScannedRNN(nn.Module):

@@ -1,9 +1,9 @@
 """Network heads (counterpart of stoix_tpu/networks/heads.py:
 CategoricalHead, ScalarCriticHead, the continuous family's
 NormalAffineTanhDistributionHead, BetaDistributionHead and
-MultivariateNormalDiagHead, and the value-based family's
-DiscreteQNetworkHead, DistributionalDiscreteQNetwork and
-QuantileDiscreteQNetwork).
+MultivariateNormalDiagHead, the deterministic policy's DeterministicHead,
+the value-based family's DiscreteQNetworkHead, DistributionalDiscreteQNetwork
+and QuantileDiscreteQNetwork, and D4PG's DistributionalContinuousQNetwork).
 
 A continuous head is two Denses, flax's Dense_0 (the loc, or alpha) and
 Dense_1 (the scale, or beta), as `dense.0` and `dense.1`; its `minimum` and
@@ -24,6 +24,7 @@ from stoix_tpu_torch.networks.torso import init_linear
 from stoix_tpu_torch.ops.distributions import (
     AffineBeta,
     Categorical,
+    Deterministic,
     EpsilonGreedy,
     Independent,
     MultivariateNormalDiag,
@@ -119,6 +120,21 @@ class MultivariateNormalDiagHead(nn.Module):
         return MultivariateNormalDiag(loc, scale + self.min_scale)
 
 
+class DeterministicHead(nn.Module):
+    """Deterministic policy (DDPG, TD3): tanh(Dense_0) scaled to [minimum,
+    maximum] by the host floats half_width and mid, as flax forms them."""
+
+    def __init__(self, action_dim: int, input_dim: int, minimum: float = -1.0,
+                 maximum: float = 1.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.half_width = (float(maximum) - float(minimum)) / 2.0
+        self.mid = (float(maximum) + float(minimum)) / 2.0
+        self.dense = nn.ModuleList([init_linear(nn.Linear(input_dim, action_dim), 0.01, generator)])
+
+    def forward(self, embedding: torch.Tensor) -> Deterministic:
+        return Deterministic(torch.tanh(self.dense[0](embedding)) * self.half_width + self.mid)
+
+
 class ScalarCriticHead(nn.Module):
     def __init__(self, input_dim: int, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -168,6 +184,28 @@ class DistributionalDiscreteQNetwork(nn.Module):
         q_values = torch.sum(torch.softmax(logits, dim=-1) * atoms, dim=-1)
         eps = self.epsilon if epsilon is None else epsilon
         return EpsilonGreedy(q_values, eps, mask=action_mask), logits, atoms
+
+
+class DistributionalContinuousQNetwork(nn.Module):
+    """D4PG critic head: (expected Q [...], atom logits [..., M], atoms [M])
+    over the fixed support linspace(vmin, vmax, M). The support is
+    `torch.linspace`'s, within one float32 ulp of every `jnp.linspace` (XLA
+    itself rounds it apart eagerly, compiled and constant-folded: ROADMAP
+    C17)."""
+
+    def __init__(self, input_dim: int, num_atoms: int = 51, vmin: float = -10.0,
+                 vmax: float = 10.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_atoms, self.vmin, self.vmax = int(num_atoms), float(vmin), float(vmax)
+        self.dense = nn.ModuleList([init_linear(nn.Linear(input_dim, self.num_atoms), 1.0,
+                                                generator)])
+
+    def forward(self, embedding: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        atoms = torch.linspace(self.vmin, self.vmax, self.num_atoms, device=embedding.device)
+        logits = self.dense[0](embedding)
+        q_value = torch.sum(torch.softmax(logits, dim=-1) * atoms, dim=-1)
+        return q_value, logits, atoms
 
 
 class QuantileDiscreteQNetwork(nn.Module):

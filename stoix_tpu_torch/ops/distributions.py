@@ -1,7 +1,8 @@
 """Policy distributions (counterpart of stoix_tpu/ops/distributions.py):
 the Categorical policy, the value-based family's epsilon-greedy and greedy
-distributions over Q-values, and the continuous family's Normal,
-Independent, MultivariateNormalDiag, TanhNormal, Beta and AffineBeta.
+distributions over Q-values, the continuous family's Normal,
+Independent, MultivariateNormalDiag, TanhNormal, Beta and AffineBeta, and
+the deterministic policy's point mass, Deterministic.
 
     d.sample(generator)   d.sample_and_log_prob(generator)   d.log_prob(x)
     d.entropy()   d.mode()   d.mean()   d.stddev()   d.kl_divergence(q)
@@ -226,6 +227,32 @@ class MultivariateNormalDiag(Independent):
         super().__init__(Normal(loc, scale_diag), 1)
         self.loc = loc
         self.scale_diag = scale_diag
+
+
+class Deterministic(Distribution):
+    """A point mass at `loc` (DDPG, TD3): `sample` draws nothing and returns
+    `loc`; `log_prob` and `entropy` are zeros over `loc.shape[:-1]`."""
+
+    def __init__(self, loc: torch.Tensor):
+        self.loc = loc
+
+    def sample(self, generator: Optional[torch.Generator] = None, **kwargs: Any) -> torch.Tensor:
+        return self.loc
+
+    def _zeros(self) -> torch.Tensor:
+        return self.loc.new_zeros(self.loc.shape[:-1] if self.loc.dim() else ())
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return self._zeros()
+
+    def entropy(self) -> torch.Tensor:
+        return self._zeros()
+
+    def mode(self) -> torch.Tensor:
+        return self.loc
+
+    def mean(self) -> torch.Tensor:
+        return self.loc
 
 
 Bound = Union[float, torch.Tensor]

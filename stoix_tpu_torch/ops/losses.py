@@ -4,8 +4,10 @@
 family's (`huber_loss`, `q_learning`, `double_q_learning`,
 `munchausen_q_learning`, `categorical_l2_project`,
 `categorical_double_q_learning`, `quantile_regression_loss`,
-`quantile_q_learning`). Batched over a leading [B] axis; each returns a
-scalar mean. `jax.lax.stop_gradient` is `detach`.
+`quantile_q_learning`), and the value-learning losses `td_learning` and
+`categorical_td_learning` (no JAX system calls these two). Batched over a
+leading [B] axis; each returns a scalar mean. `jax.lax.stop_gradient` is
+`detach`.
 """
 
 from __future__ import annotations
@@ -106,6 +108,13 @@ def double_q_learning(
     return _td_loss(td, use_huber, huber_delta)
 
 
+def td_learning(v_tm1: torch.Tensor, r_t: torch.Tensor, d_t: torch.Tensor, v_t: torch.Tensor,
+                use_huber: bool = False) -> torch.Tensor:
+    """One-step TD learning of a state value: target r + d v(s')."""
+    td = (r_t + d_t * v_t).detach() - v_tm1
+    return _td_loss(td, use_huber, 1.0)
+
+
 def munchausen_q_learning(
     q_tm1: torch.Tensor, a_tm1: torch.Tensor, r_t: torch.Tensor, d_t: torch.Tensor,
     q_t_target: torch.Tensor, q_tm1_target: torch.Tensor, entropy_temperature: float,
@@ -177,6 +186,18 @@ def categorical_double_q_learning(
     target = categorical_l2_project(target_z, pick(probs_t, best_a), z_q)
     logits_a = pick(q_logits_tm1, a_tm1)
     ce = -torch.sum(target.detach() * torch.log_softmax(logits_a, dim=-1), dim=-1)
+    return torch.mean(ce)
+
+
+def categorical_td_learning(
+    v_logits_tm1: torch.Tensor, v_atoms: torch.Tensor, r_t: torch.Tensor, d_t: torch.Tensor,
+    v_logits_t: torch.Tensor,
+) -> torch.Tensor:
+    """Distributional TD: r + d z projected onto the support `v_atoms` [M]
+    from softmax(v_logits_t), cross-entropy against log-softmax(v_logits_tm1)."""
+    target_z = r_t[..., None] + d_t[..., None] * v_atoms
+    target = categorical_l2_project(target_z, torch.softmax(v_logits_t, dim=-1), v_atoms)
+    ce = -torch.sum(target.detach() * torch.log_softmax(v_logits_tm1, dim=-1), dim=-1)
     return torch.mean(ce)
 
 

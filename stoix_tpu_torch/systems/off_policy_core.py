@@ -1,8 +1,9 @@
 """Anakin off-policy scaffolding (counterpart of
 stoix_tpu/systems/off_policy_core.py: `make_transition`, `dummy_transition`,
-`build_buffer`, `trajectory_buffer_sizing`, `require_first_add_samplable`,
-and `OffPolicyLearner`, its `standard_off_policy_learner` and the loop the
-sequence-replay systems ff_rainbow and rec_r2d2 write out).
+`build_buffer`, `get_random_warmup_fn`, `trajectory_buffer_sizing`,
+`require_first_add_samplable`, `pmean_grads`, and `OffPolicyLearner`, its
+`standard_off_policy_learner` and the loop the sequence-replay systems
+ff_rainbow and rec_r2d2 write out).
 
 One update step, in the JAX package's order, for every replica:
 
@@ -17,10 +18,12 @@ One update step, in the JAX package's order, for every replica:
   3. `epochs` times: one batch sampled from the replica's buffer, then
      `update_from_batch` on every replica's batch at once (the system
      averages the replicas' gradients, as the JAX package's pmean over
-     "batch" does). From a prioritised trajectory buffer the update gets the
-     whole `PrioritisedSample`s and the replicas' generators, and returns
-     each replica's new priorities, which are written back
-     (`set_priorities`) before the next epoch samples.
+     "batch" does). An update that draws noise (TD3's target smoothing,
+     SAC's actions) also gets the replicas' generators, where the JAX
+     package passes `update_key`. From a prioritised trajectory buffer the
+     update gets the whole `PrioritisedSample`s and the replicas'
+     generators, and returns each replica's new priorities, which are
+     written back (`set_priorities`) before the next epoch samples.
 
 `arch.update_batch_size` U > 1 runs U replicas as a Python loop (the CUDA
 kernels are ctypes launches, which `torch.func.vmap` cannot batch): params
@@ -46,10 +49,12 @@ from stoix_tpu_torch.buffers import (
     ItemBuffer, PrioritisedTrajectoryBuffer, TrajectoryBuffer, make_item_buffer,
 )
 from stoix_tpu_torch.systems import anakin
-from stoix_tpu_torch.utils.tree import tree_map, tree_merge_leading_dims, tree_stack
+from stoix_tpu_torch.utils.tree import tree_leaves, tree_map, tree_merge_leading_dims, tree_stack
 
 # update_from_batch(params, opt_states, batches) -> (params, opt_states, metrics):
-# lists of one entry a replica. From a prioritised trajectory buffer:
+# lists of one entry a replica; with `update_takes_generators`, also the
+# replicas' generators: update_from_batch(params, opt_states, batches,
+# generators). From a prioritised trajectory buffer:
 # update_from_batch(params, opt_states, samples, generators)
 #     -> (params, opt_states, metrics, priorities).
 UpdateFn = Callable[..., Tuple]
@@ -111,6 +116,42 @@ def build_buffer(env: envs.Environment, config: Any, device: Any,
     return buffer, buffer.init(dummy_transition(env, discrete_actions, device))
 
 
+def get_random_warmup_fn(learner: "OffPolicyLearner", env: envs.Environment, config: Any
+                         ) -> Callable[[OffPolicyLearnerState], OffPolicyLearnerState]:
+    """The learner's rollout for `system.warmup_steps` steps of every env on
+    uniform random actions of the env's Box (`low + u (high - low)`, each
+    replica's uniforms from its generator), added to its buffer as merged
+    [T.E] items (stoix_tpu/systems/off_policy_core.py:115-141)."""
+    space = env.action_space()
+
+    def uniform(params: Any, observation: Any, generator: torch.Generator,
+                buffer_state: Any) -> torch.Tensor:
+        return space.sample(generator, (tree_leaves(observation)[0].shape[0],))
+
+    def warmup(state: OffPolicyLearnerState) -> OffPolicyLearnerState:
+        return learner.rollout(state, int(config.system.warmup_steps), uniform)[0]
+
+    return warmup
+
+
+def pmean_grads(grads: List[Dict[str, torch.Tensor]], group: Any) -> Dict[str, torch.Tensor]:
+    """The replicas' gradients averaged, then over the data ranks (the JAX
+    package's `pmean_grads`: pmean over "batch", then over "data")."""
+    return anakin.data_mean(anakin.mean_gradients(grads), group)
+
+
+def value_and_grad(loss_fn: Callable[..., Tuple[torch.Tensor, Any]],
+                   params: Dict[str, torch.Tensor], *args: Any
+                   ) -> Tuple[Dict[str, torch.Tensor], Any]:
+    """(gradients of `loss_fn(params, *args)`'s loss with respect to
+    `params`, its auxiliary output detached): `jax.grad(..., has_aux=True)`."""
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss, aux = loss_fn(leaves, *args)
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    return grads, tree_map(lambda x: x.detach(), aux)
+
+
 def trajectory_buffer_sizing(config: Any, min_length_time_axis: int) -> Tuple[int, int, int]:
     """(local_envs, sample_batch_size, max_length_time_axis) of a replica's
     sequence buffer: the global env, batch and buffer totals divided over
@@ -155,10 +196,11 @@ class OffPolicyLearner:
 
     def __init__(self, env: envs.Environment, buffer: Any, config: Any,
                  update_from_batch: UpdateFn, act_in_env: ActFn,
-                 store: StoreFn = make_transition):
+                 store: StoreFn = make_transition, update_takes_generators: bool = False):
         self.env = env
         self.buffer = buffer
         self.update_from_batch = update_from_batch
+        self.update_takes_generators = update_takes_generators
         self.act_in_env = act_in_env
         self.store = store
         self.sequences = isinstance(buffer, (TrajectoryBuffer, PrioritisedTrajectoryBuffer))
@@ -223,8 +265,10 @@ class OffPolicyLearner:
                 buffers = [self.buffer.set_priorities(b, s.indices, p)
                            for b, s, p in zip(buffers, samples, priorities)]
             else:
+                batches = [s.experience for s in samples]
+                extra = (generators,) if self.update_takes_generators else ()
                 params, opt_states, metrics = self.update_from_batch(
-                    params, opt_states, [s.experience for s in samples])
+                    params, opt_states, batches, *extra)
             per_epoch.append(metrics)
         state = state._replace(params=anakin.join_replicas(params),
                                opt_states=anakin.join_replicas(opt_states),

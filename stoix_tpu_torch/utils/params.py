@@ -46,6 +46,11 @@ or NoisyMLPTorso_i, as `torsos.i`; a noisy torso's NoisyLinear_j is
     NoisyLinear_j/{mu_w,sigma_w} [in, out]  ->  layers.j.{mu_w,sigma_w} [in, out]
     NoisyLinear_j/{mu_b,sigma_b} [out]      ->  layers.j.{mu_b,sigma_b}
 
+MultiNetwork's members, flax's `networks_i` (each a FeedForwardCritic),
+are `networks.i`; a Q(s, a) critic's EmbeddingActionInput holds no params.
+DeterministicHead and DistributionalContinuousQNetwork are one Dense
+(`action_head.dense.0`, `critic_head.dense.0`).
+
 Any other module name is kept as it is (`torso`, `action_head`). The Q heads
 (DiscreteQNetworkHead, DistributionalDiscreteQNetwork, QuantileDiscreteQNetwork)
 are one Dense under `action_head` (`action_head.dense.0`); the distributional
@@ -62,9 +67,11 @@ import numpy as np
 import torch
 from torch import nn
 
-_NUMBERED = re.compile(r"^(Dense|LayerNorm|block|NoisyLinear|MLPTorso|NoisyMLPTorso)_(\d+)$")
+_NUMBERED = re.compile(
+    r"^(Dense|LayerNorm|block|NoisyLinear|MLPTorso|NoisyMLPTorso|networks)_(\d+)$")
 _NUMBERED_PREFIX = {"Dense": "dense", "LayerNorm": "norm", "block": "blocks",
-                    "NoisyLinear": "layers", "MLPTorso": "torsos", "NoisyMLPTorso": "torsos"}
+                    "NoisyLinear": "layers", "MLPTorso": "torsos", "NoisyMLPTorso": "torsos",
+                    "networks": "networks"}
 _MODULE_NAME = {"TransformerTorso_0": "torso", "CategoricalHead_0": "action_head",
                 "ScalarCriticHead_0": "critic_head", "MultiHeadSelfAttention_0": "attention",
                 **{f"{cell}_0": "cell" for cell in ("GRUCell", "LSTMCell", "OptimizedLSTMCell",

@@ -29,7 +29,7 @@ float32 numbers (as optax computes them in float32) and nothing syncs.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -69,11 +69,13 @@ class ClipAdamState(NamedTuple):
 
 
 class ClipAdam:
-    """Global-norm clip followed by Adam, on parameter dicts."""
+    """Global-norm clip followed by Adam, on parameter dicts; with
+    `max_grad_norm` None, plain `optax.adam` (no clip)."""
 
-    def __init__(self, learning_rate: LearningRate, max_grad_norm: float, eps: float = 1e-5):
+    def __init__(self, learning_rate: LearningRate, max_grad_norm: Optional[float],
+                 eps: float = 1e-5):
         self.learning_rate = learning_rate
-        self.max_grad_norm = float(max_grad_norm)
+        self.max_grad_norm = None if max_grad_norm is None else float(max_grad_norm)
         self.eps = float(eps)
 
     def init(self, params: Params) -> ClipAdamState:
@@ -83,7 +85,8 @@ class ClipAdam:
 
     def update(self, grads: Params, state: ClipAdamState) -> Tuple[Params, ClipAdamState]:
         """Returns (updates to add to the params, next state)."""
-        clipped = clip_by_global_norm(grads, self.max_grad_norm)
+        clipped = (grads if self.max_grad_norm is None
+                   else clip_by_global_norm(grads, self.max_grad_norm))
         count = state.count + 1
         b1, b2 = ADAM_B1, ADAM_B2
         # Bias corrections in float32 on the host, as optax computes decay**count.

@@ -36,7 +36,7 @@ from stoix_tpu.ops.ring_attention import full_attention as jax_full_attention
 from stoix_tpu_torch.kernels import flash_attention as fa
 from stoix_tpu_torch.kernels import flash_attention_chunk as fac
 from stoix_tpu_torch.kernels import flash_attention_wide as wide
-from stoix_tpu_torch.kernels.attention_common import sliced_products
+from stoix_tpu_torch.kernels.attention_common import plain_exp, sliced_products
 from stoix_tpu_torch.ops import best_attention, flash_attention
 from stoix_tpu_torch.ops.ring_attention import full_attention
 from torch_parity import host_threads, n, t
@@ -181,6 +181,18 @@ def test_cpu_float32_route_matches_a_float64_reference(shape):
         got = flash_attention(q, k, v, causal=True)
         assert torch.equal(got, flash_attention(q, k, v, causal=True))
     np.testing.assert_allclose(n(got).astype(np.float64), want.numpy(), atol=1e-5, rtol=0)
+
+
+def test_plain_exp_is_torch_exp_on_one_thread_and_keeps_the_thread_count():
+    # C11's repair: every plain attention's exp on one intra-op thread on the
+    # CPU; elementwise, so the values are the single-thread exp's, and the
+    # caller's thread count is back afterwards.
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(64, 4, 33, 65)).astype(np.float32))
+    with host_threads():
+        threads = torch.get_num_threads()
+        got = plain_exp(x)
+        assert torch.get_num_threads() == threads
+    assert torch.equal(got, torch.exp(x))  # the suite's own one thread
 
 
 def test_dispatch_by_device_and_counters_stay_still_on_the_cpu():

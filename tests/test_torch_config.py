@@ -99,3 +99,23 @@ SEQUENCE_REPLAY = {
 def test_sequence_replay_config_trees_mirror_the_jax_package(name, overridden):
     overrides = SEQUENCE_REPLAY[name] + ["system.multistep_impl=pallas"] if overridden else []
     _assert_mirrors(f"default/anakin/default_{name}.yaml", overrides)
+
+
+# The continuous actor-critics, REINFORCE and AWR (A12's first half): each
+# root as it is, and with other groups and options.
+A12 = {
+    "ff_ddpg": ["env=mountain_car_continuous", "system.exploration_sigma=0.3"],
+    "ff_td3": ["system.policy_frequency=3", "arch.update_batch_size=2"],
+    "ff_d4pg": ["system.vmin=-1700.0", "system.vmax=0.0"],
+    "ff_sac": ["system.autotune_alpha=false", "system.init_alpha=0.2"],
+    "ff_reinforce": ["env=identity_game", "system.multistep_impl=pallas"],
+    "ff_reinforce_continuous": ["network=mlp_mvn_continuous"],
+    "ff_awr": ["env=identity_game", "system.multistep_impl=pallas"],
+    "ff_awr_continuous": ["system.sample_period=2"],
+}
+
+
+@pytest.mark.parametrize("name", list(A12))
+@pytest.mark.parametrize("overridden", [False, True])
+def test_a12_config_trees_mirror_the_jax_package(name, overridden):
+    _assert_mirrors(f"default/anakin/default_{name}.yaml", A12[name] if overridden else [])

@@ -1177,3 +1177,144 @@ def test_categorical_projection_on_the_card_matches_the_cpu(vmin, vmax, atoms):
     want = categorical_l2_project(z_p, probs, z_q)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------- A12: the continuous actor-critics,
+# REINFORCE and AWR (one update on the card against the same update on the CPU)
+
+A12_SMALL = ["network.actor_network.pre_torso.layer_sizes=[32,32]",
+             "network.critic_network.pre_torso.layer_sizes=[32,32]", "arch.total_num_envs=8",
+             "system.total_buffer_size=512", "system.total_batch_size=64",
+             "arch.num_updates_per_eval=1", "system.multistep_impl=pallas"]
+
+
+def _a12_setup(system, device, overrides=()):
+    """The system's learner setup on `device` (its params initialised on the
+    CPU from one seed, so both devices start alike) and its warm state."""
+    import importlib
+
+    from stoix_tpu_torch import envs
+    from stoix_tpu_torch.utils import config as config_lib
+    from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
+    package = {"ff_ddpg": "ddpg", "ff_td3": "ddpg", "ff_d4pg": "ddpg", "ff_sac": "sac",
+               "ff_reinforce": "vpg", "ff_awr": "awr"}[system]
+    module = importlib.import_module(f"stoix_tpu_torch.systems.{package}.{system}")
+    cfg = check_total_timesteps(config_lib.compose(
+        config_lib.default_config_dir(), f"default/anakin/default_{system}.yaml",
+        A12_SMALL + list(overrides)), 1)
+    setup = module.learner_setup(envs.make(cfg)[0], cfg, torch.device(device), 3)
+    if not hasattr(setup, "learner_state"):  # (setup, warmup)
+        setup, warmup = setup
+        return setup, warmup(setup.learner_state)
+    return setup, setup.learner_state
+
+
+def _a12_batch(system):
+    """A CPU batch in the system's layout: a Transition of Pendulum's shapes,
+    an [E, T] trajectory of CartPole's, or [B, L] sequences."""
+    from stoix_tpu_torch.base_types import Transition
+    from stoix_tpu_torch.envs.types import Observation
+    gen = torch.Generator().manual_seed(7)
+
+    def obs(lead, dim, actions):
+        return Observation(torch.randn(lead + (dim,), generator=gen), torch.ones(lead + (actions,)),
+                           torch.zeros(lead, dtype=torch.int32))
+
+    if system == "ff_reinforce":
+        lead = (32, 8)
+        done = torch.rand(lead, generator=gen) < 0.1
+        return {"obs": obs(lead, 4, 2), "next_obs": obs(lead, 4, 2),
+                "action": torch.randint(0, 2, lead, generator=gen),
+                "reward": torch.randn(lead, generator=gen), "discount": (~done).float(),
+                "truncated": (torch.rand(lead, generator=gen) < 0.1) & ~done, "info": {}}
+    if system == "ff_awr":
+        lead = (64, 8)
+        return {"obs": obs(lead, 4, 2), "action": torch.randint(0, 2, lead, generator=gen,
+                                                                  dtype=torch.int32),
+                "reward": torch.randn(lead, generator=gen) * 0.05,
+                "discount": (torch.rand(lead, generator=gen) > 0.1).float()}
+    lead = (64,)
+    return Transition(obs(lead, 3, 1), torch.rand(lead + (1,), generator=gen) * 4 - 2,
+                      torch.randn(lead, generator=gen) - 5, torch.rand(lead, generator=gen) < 0.1,
+                      obs(lead, 3, 1), {})
+
+
+def _a12_update(system, device, overrides=()):
+    """One update of `system` on `device` from the same state and batch:
+    (params, metrics); the off-policy systems' noise drawn on the CPU."""
+    from stoix_tpu_torch.systems import anakin
+    setup, state = _a12_setup(system, device, overrides)
+    learner, batch = setup.learn, _to(_a12_batch(system), device)
+    if system == "ff_reinforce":
+        params, _, metrics = learner.update(state.params, state.opt_states, batch)
+        return params, metrics
+    params = anakin.split_replicas(state.params, 1)
+    opts = anakin.split_replicas(state.opt_states, 1)
+    update = learner.update_from_batch
+    if system == "ff_awr":
+        params, _, metrics = update(params, opts, [batch])
+        return params[0], metrics
+    noise = update.draw_noise(_a12_batch(system), torch.Generator().manual_seed(5))
+    params, _, metrics = update.step(params, opts, [batch], [_to(noise, device)])
+    return params[0], metrics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system,overrides", [
+    ("ff_ddpg", []), ("ff_td3", []), ("ff_d4pg", []), ("ff_sac", []),
+    ("ff_sac", ["system.autotune_alpha=false"]), ("ff_reinforce", ["env=cartpole"]),
+    ("ff_awr", ["env=cartpole"])])
+def test_a12_update_on_the_card_matches_the_cpu(system, overrides):
+    # Losses 1e-5 relative, params 1e-5 absolute; on the card REINFORCE's
+    # update launches B1's GAE entry once and AWR's epoch its generic entry
+    # once; the actor-critics launch no kernel.
+    from stoix_tpu_torch.utils.tree import tree_leaves
+    device = _require_cuda()
+    cpu_params, cpu_metrics = _a12_update(system, "cpu", overrides)
+    before = {c.name: c.launches for c in lr.COUNTERS}
+    card_params, card_metrics = _a12_update(system, device, overrides)
+    torch.cuda.synchronize()
+    launched = {c.name: c.launches - before[c.name] for c in lr.COUNTERS}
+    assert launched == {lr.KERNEL.name: int(system == "ff_awr"),
+                        lr.GAE_KERNEL.name: int(system == "ff_reinforce")}
+    for key, value in cpu_metrics.items():
+        torch.testing.assert_close(card_metrics[key].cpu(), value, rtol=1e-5, atol=1e-7)
+    for card, cpu in zip(tree_leaves(card_params), tree_leaves(cpu_params)):
+        torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_b1_gae_entry_at_reinforce_lambda_one_matches_plain_version_bitwise():
+    # ff_reinforce's launch: [32, 1024], lambda 1.0, terminations and truncations.
+    device = _require_cuda()
+    gen = torch.Generator(device=device).manual_seed(4)
+    shape = (32, 1024)
+    r, v_tm1, v_t = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
+    done = torch.rand(shape, generator=gen, device=device) < 0.05
+    discount = 0.99 * (~done).float()
+    trunc = ((torch.rand(shape, generator=gen, device=device) < 0.05) & ~done).float()
+    before = lr.GAE_KERNEL.launches
+    got = lr.truncated_gae(r, discount, v_tm1, v_t, trunc, 1.0)
+    torch.cuda.synchronize()
+    assert lr.GAE_KERNEL.launches == before + 1
+    for g, w in zip(got, lr.plain_truncated_gae(r, discount, v_tm1, v_t, trunc, 1.0)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_b1_generic_entry_from_awr_batch_major_view_matches_plain_version_bitwise():
+    # ff_awr's launch: lambda returns over [7, 256] from a [256, 8] batch-major
+    # sample, through `lambda_returns(batch_major=True)` (one launch), against
+    # the plain recurrence on the same contiguous weights and deltas.
+    device = _require_cuda()
+    gen = torch.Generator(device=device).manual_seed(6)
+    reward, value = (torch.randn((256, 8), generator=gen, device=device) for _ in range(2))
+    discount = (torch.rand((256, 8), generator=gen, device=device) > 0.1).float()
+    before = lr.KERNEL.launches
+    got = multistep.lambda_returns(reward[:, :-1], 0.99 * discount[:, :-1], value[:, 1:], 0.95,
+                                   batch_major=True, impl="pallas")
+    torch.cuda.synchronize()
+    assert lr.KERNEL.launches == before + 1 and got.shape == (256, 7)
+    want = multistep.lambda_returns(reward[:, :-1].cpu(), 0.99 * discount[:, :-1].cpu(),
+                                    value[:, 1:].cpu(), 0.95, batch_major=True, impl="scan")
+    assert torch.equal(got.cpu(), want)

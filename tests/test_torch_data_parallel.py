@@ -45,6 +45,14 @@ the 4-rank update step.
 6. parallel/mesh.py's `shard_leading_axis`, `fetch_global` and `replicate`
    on 2 ranks: a rank's slice, the slices gathered back, rank 0's copy
    (exact).
+8. One ff_sac update (twice, the same two normals a step on both ranks, as
+   JAX's one trace feeds every shard) and one ff_reinforce update step on 2
+   ranks, each on its own batch or trajectory, against the JAX package's
+   `update_from_batch` (ff_sac) and ff_reinforce.py's composition under
+   `shard_map` over "data" with the gradients pmeaned over "batch" then
+   "data": losses 1e-5 relative (REINFORCE's with an absolute floor of
+   1e-6), params and `log_alpha` 1e-5 absolute; REINFORCE's actor and
+   critic gradients in one all-reduce.
 """
 
 import os
@@ -72,8 +80,11 @@ from stoix_tpu.utils import config as jax_config
 from stoix_tpu_torch.utils import checkpointing
 from test_torch_ff_ppo import IDENTITY_OVERRIDES, _trajectory, make_config
 from test_torch_q_ops import paired_q_networks
+import test_torch_ddpg
 import test_torch_r2d2
 import test_torch_rainbow
+import test_torch_reinforce
+from test_torch_continuous import _paired_actor_critic, _trajectory as _pg_trajectory
 from torch_parity import paired_networks, to_flax_params
 from torch_ring_worker import spawn_ranks
 
@@ -206,6 +217,55 @@ def _sequence_job(system):
     return system, "sequence_step", kwargs
 
 
+SAC = ["system.init_alpha=0.5", "system.alpha_lr=1e-2"]
+REINFORCE = ["system.ent_coef=0.05", "arch.num_updates_per_eval=1"]
+PG_OBS, PG_ACTIONS, PG_T, PG_ENVS = 5, 3, 6, 8
+
+
+def _sac_inputs():
+    """The JAX package's ff_sac update, its params (critic target
+    perturbed) and optimizer states, the port's numpy params, each rank's
+    batch pair and the normals of two steps."""
+    cfg, jcfg = test_torch_ddpg.configs("ff_sac", SAC)
+    with pytest.MonkeyPatch.context() as patch:
+        jupdate, _, jparams, jopt = test_torch_ddpg.jax_system("ff_sac", jcfg, patch)
+    jparams = jparams._replace(q_params=jparams.q_params._replace(
+        target=test_torch_ddpg.perturbed(jparams.q_params.target, 2)))
+    actor, q_network, _ = test_torch_ddpg.port_networks("ff_sac", cfg, jparams.actor_params,
+                                                        jparams.q_params.online)
+    numpy = lambda p, net: {k: v.numpy() for k, v in  # noqa: E731
+                            test_torch_ddpg.as_port(p, net).items()}
+    port = dict(actor=numpy(jparams.actor_params, actor),
+                q_online=numpy(jparams.q_params.online, q_network),
+                q_target=numpy(jparams.q_params.target, q_network),
+                log_alpha=float(np.asarray(jparams.log_alpha)))
+    pairs = [test_torch_ddpg.batch_pair(50 + rank) for rank in range(2)]
+    rng = np.random.default_rng(12)
+    normals = [[rng.normal(size=(test_torch_ddpg.BATCH, 1)).astype(np.float32)
+                for _ in range(2)] for _ in range(2)]
+    return jupdate, jparams, jopt, port, pairs, normals
+
+
+def _port_batch(transition):
+    """A port Transition as the worker's numpy dict."""
+    obs = lambda o: {k: getattr(o, k).numpy() for k in o._fields}  # noqa: E731
+    return {"obs": obs(transition.obs), "next_obs": obs(transition.next_obs),
+            **{k: getattr(transition, k).numpy() for k in ("action", "reward", "done")},
+            "info": {k: v.numpy() for k, v in transition.info.items()}}
+
+
+def _pg_inputs():
+    """The flax and port actor/critic and each rank's [T, E] trajectory."""
+    nets = _paired_actor_critic(True, PG_OBS, PG_ACTIONS, 4)
+    ja, jap = nets[0], nets[1]
+    trajs = []
+    for rank in range(2):
+        traj = _pg_trajectory(30 + rank, PG_T, PG_ENVS, PG_OBS, PG_ACTIONS, True, ja, jap)
+        traj["discount"] = (~traj.pop("done")).astype(np.float32)
+        trajs.append(traj)
+    return nets, trajs
+
+
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     root = tmp_path_factory.mktemp("dp2")
@@ -235,8 +295,25 @@ def two_ranks(tmp_path_factory):
         *((f"{system}_buffer", "sequence_buffer", dict(
             system=system, overrides=["env=identity_game", *BUFFERS]))
           for system in ("ff_rainbow", "rec_r2d2")),
+        _sac_job(),
+        _reinforce_job(),
     ]
     return root, spawn_ranks(jobs, 2, root)
+
+
+def _sac_job():
+    _, _, _, port, pairs, normals = _sac_inputs()
+    return "sac", "sac_step", dict(overrides=test_torch_ddpg.SMALL + SAC, **port,
+                                   batches=[_port_batch(p[1]) for p in pairs], noises=normals)
+
+
+def _reinforce_job():
+    (_, _, _, _, ta, tc), trajs = _pg_inputs()
+    numpy = lambda module: {k: v.detach().numpy() for k, v in module.named_parameters()}  # noqa
+    keep = ("obs", "next_obs", "action", "reward", "discount", "truncated")
+    return "reinforce", "reinforce_step", dict(
+        overrides=REINFORCE, obs_dim=PG_OBS, num_actions=PG_ACTIONS, actor_params=numpy(ta),
+        critic_params=numpy(tc), trajs=[{k: tr[k] for k in keep} for tr in trajs])
 
 
 @pytest.fixture(scope="module")
@@ -589,3 +666,72 @@ def test_sequence_replay_step_on_two_ranks_matches_shard_map(two_ranks, system):
         assert got["reward"] == (local_envs, length) and local_envs == 16 // 2
         assert got["priorities"] == (local_envs, length // period)
         assert got["sample_batch"] == batch == 64 // 2
+
+
+def test_sac_step_on_two_ranks_matches_shard_map(two_ranks):
+    jupdate, jparams, jopt, _, pairs, normals = _sac_inputs()
+    mesh = jax_create_mesh({"data": 2}, devices=jax.devices()[:2])
+    lead = lambda tree: jax.tree.map(lambda x: jnp.asarray(x)[None], tree)  # noqa: E731
+    params, opt = lead(jparams), lead(jopt)  # [U = 1, ...], replicated
+    batch = jax.tree.map(lambda *xs: jnp.stack(xs), *[p[0] for p in pairs])  # [N, ...]
+    keys = jax.random.split(jax.random.PRNGKey(11), 2)
+
+    def shard(params, opt, batch, key):
+        out = jax.vmap(jupdate, axis_name="batch")(params, opt, batch, key)
+        return jax.tree.map(lambda x: x[None], out)
+
+    want = []
+    for step_normals in normals:
+        fn = jax.jit(shard_map(shard, mesh=mesh, in_specs=(P(), P(), P("data"), P("data")),
+                               out_specs=P("data"), check_vma=False))
+        with test_torch_ddpg.fed_normals(step_normals):
+            (new_params, new_opt), metrics = fn(params, opt, batch, keys)
+        want.append(jax.tree.map(np.asarray, metrics))
+        # Each shard's replica is its own from here on: keep rank 0's as the
+        # replicated input (the ranks' params stay equal, pmean'd gradients).
+        params, opt = (jax.tree.map(lambda x: x[0], new_params),
+                       jax.tree.map(lambda x: x[0], new_opt))
+        final = new_params
+    for rank, result in enumerate(two_ranks[1]):
+        got = result["sac"]
+        for step, metrics in enumerate(got["metrics"]):
+            for key, value in metrics.items():
+                np.testing.assert_allclose(value, want[step][key][rank, 0], rtol=1e-5, atol=1e-7)
+        for name, tree, like in (("actor", final.actor_params, jparams.actor_params),
+                                 ("q_online", final.q_params.online, jparams.q_params.online),
+                                 ("q_target", final.q_params.target, jparams.q_params.online)):
+            got_tree = to_flax_params({k: torch.from_numpy(v) for k, v in got[name].items()},
+                                      like)
+            jax.tree.map(lambda g, w: np.testing.assert_allclose(
+                g, np.asarray(w)[rank, 0], rtol=0, atol=1e-5), got_tree, tree)
+        np.testing.assert_allclose(got["log_alpha"], np.asarray(final.log_alpha)[rank, 0],
+                                   rtol=0, atol=1e-5)
+    assert two_ranks[1][0]["sac"]["actor"].keys() == two_ranks[1][1]["sac"]["actor"].keys()
+
+
+def test_reinforce_step_on_two_ranks_matches_shard_map(two_ranks):
+    (ja, jap, jc, jcp, _, _), trajs = _pg_inputs()
+    jcfg = jax_config.compose(jax_config.default_config_dir(),
+                              "default/anakin/default_ff_reinforce.yaml", REINFORCE)
+    update, (aopt, copt) = test_torch_reinforce.jax_update_fn(ja, jc, jcfg, ("batch", "data"))
+    mesh = jax_create_mesh({"data": 2}, devices=jax.devices()[:2])
+    stacked = jax.tree.map(lambda *xs: np.stack(xs), *trajs)  # [N, T, E, ...]
+
+    def shard(tr):
+        out = jax.vmap(update, axis_name="batch", in_axes=(None, None, 0))(
+            (jap, jcp), (aopt.init(jap), copt.init(jcp)), tr)
+        return jax.tree.map(lambda x: x[None], (out[0], out[2]))
+
+    (want_params, want_losses) = jax.jit(shard_map(shard, mesh=mesh, in_specs=P("data"),
+                                                   out_specs=P("data"), check_vma=False))(stacked)
+    for rank, result in enumerate(two_ranks[1]):
+        got = result["reinforce"]
+        losses = [got["metrics"][k] for k in ("actor_loss", "entropy", "value_loss")]
+        np.testing.assert_allclose(losses, np.asarray(want_losses)[rank, 0], rtol=1e-5,
+                                   atol=1e-6)
+        for side, name, like in ((0, "actor", jap), (1, "critic", jcp)):
+            got_tree = to_flax_params({k: torch.from_numpy(v) for k, v in got[name].items()},
+                                      like)
+            jax.tree.map(lambda g, w: np.testing.assert_allclose(
+                g, np.asarray(w)[rank, 0], rtol=0, atol=1e-5), got_tree, want_params[side])
+        assert got["allreduces"] == 1

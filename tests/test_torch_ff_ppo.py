@@ -283,6 +283,10 @@ def test_port_imports_nothing_of_jax():
         "slice12 = ['networks.layers', 'networks.dueling', 'ops.value_transforms',\n"
         "           'systems.q_learning.ff_rainbow', 'systems.q_learning.rec_r2d2']\n"
         "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice12)\n"
+        "slice13 = ['systems.' + m for m in ('ddpg.ff_ddpg', 'ddpg.ff_td3', 'ddpg.ff_d4pg',\n"
+        "           'sac.ff_sac', 'vpg.ff_reinforce', 'vpg.ff_reinforce_continuous',\n"
+        "           'awr.ff_awr', 'awr.ff_awr_continuous')]\n"
+        "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice13)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, timeout=120, check=True)

@@ -271,3 +271,120 @@ def test_normalise_activation_matches_flax_standardize(shape):
     want = np.asarray(fnn.standardize(jnp.asarray(x)))
     np.testing.assert_allclose(n(got), want, rtol=RTOL, atol=ATOL)
     assert np.isfinite(n(got)).all()
+
+
+# ------------------------------------------------------- the continuous actor-critics' networks
+
+
+def _q_critic_pair(head="ScalarCriticHead", num=2, obs_dim=5, action_dim=2, seed=3, **head_kwargs):
+    """flax's MultiNetwork of `num` Q(s, a) critics (or one critic, num=0)
+    and the port's, carrying the same params: (jax net, params, port net)."""
+    import jax
+
+    from stoix_tpu.networks import base as jbase, heads as jheads, inputs as jinputs
+    from stoix_tpu.networks import torso as jtorso
+    from stoix_tpu_torch.networks.base import MultiNetwork
+
+    def jcritic():
+        return jbase.FeedForwardCritic(
+            critic_head=getattr(jheads, head)(**head_kwargs),
+            torso=jtorso.MLPTorso((32, 32), activation="relu"),
+            input_layer=jinputs.EmbeddingActionInput())
+
+    def tcritic():
+        return FeedForwardCritic(getattr(heads, head)(input_dim=32, **head_kwargs),
+                                 torso.MLPTorso(obs_dim + action_dim, (32, 32), activation="relu"),
+                                 inputs.EmbeddingActionInput())
+
+    jnet = jbase.MultiNetwork([jcritic() for _ in range(num)]) if num else jcritic()
+    tnet = MultiNetwork([tcritic() for _ in range(num)]) if num else tcritic()
+    jobs, _ = observations(0, 1, obs_dim, 1)
+    params = jax.tree.map(np.asarray, jnet.init(jax.random.PRNGKey(seed), jobs,
+                                                jnp.zeros((1, action_dim))))
+    load_flax_params(tnet, params)
+    return jnet, params, tnet
+
+
+def test_twin_q_critics_on_embedding_action_input_match_flax():
+    """MultiNetwork of two FeedForwardCritics on EmbeddingActionInput: flax's
+    networks_0 and networks_1 carried across; Q(s, a) [B, 2] stacked on the
+    last axis; the params map back to flax's tree exactly."""
+    import jax
+
+    jnet, params, tnet = _q_critic_pair()
+    assert sorted({name.split(".")[1] for name, _ in tnet.named_parameters()}) == ["0", "1"]
+    jobs, tobs = observations(4, 16, 5, 1)
+    action = np.random.default_rng(5).uniform(-2, 2, size=(16, 2)).astype(np.float32)
+    want = np.asarray(jax.jit(jnet.apply)(params, jobs, jnp.asarray(action)))
+    with torch.no_grad():
+        got = n(tnet(tobs, torch.from_numpy(action)))
+    assert got.shape == want.shape == (16, 2)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    back = to_flax_params(dict(tnet.named_parameters()), params)
+    jax.tree.map(lambda g, w: np.testing.assert_array_equal(g, w), back, params)
+
+
+def test_load_flax_params_refuses_a_twin_critic_tree_that_does_not_fit():
+    import copy
+
+    _, params, tnet = _q_critic_pair()
+    missing = copy.deepcopy(params)
+    del missing["params"]["networks_1"]["critic_head"]
+    with pytest.raises(ValueError, match="missing flax parameter for networks.1.critic_head"):
+        load_flax_params(tnet, missing)
+    extra = copy.deepcopy(params)
+    extra["params"]["networks_2"] = copy.deepcopy(extra["params"]["networks_0"])
+    with pytest.raises(ValueError, match="extra flax parameter networks.2"):
+        load_flax_params(tnet, extra)
+    wrong = copy.deepcopy(params)
+    wrong["params"]["networks_0"]["torso"]["Dense_0"]["kernel"] = np.zeros((6, 32), np.float32)
+    with pytest.raises(ValueError, match="networks.0.torso.dense.0.weight"):
+        load_flax_params(tnet, wrong)
+
+
+@pytest.mark.parametrize("bounds", [(-2.0, 2.0), (-0.7, 1.9)])
+def test_deterministic_head_matches_flax(bounds):
+    """tanh(Dense_0) . half_width + mid, the host floats as flax forms them,
+    against the jitted flax head; log_prob and entropy zeros over [B]."""
+    import jax
+
+    from stoix_tpu.networks import heads as jheads
+
+    lo, hi = bounds
+    jhead = jheads.DeterministicHead(3, minimum=lo, maximum=hi)
+    emb = np.random.default_rng(7).normal(size=(16, 8)).astype(np.float32)
+    params = jax.tree.map(np.asarray, jhead.init(jax.random.PRNGKey(2), jnp.asarray(emb)))
+    params = jax.tree.map(lambda x: x * 100.0, params)  # tanh near its bounds too
+    thead = load_flax_params(heads.DeterministicHead(3, 8, minimum=lo, maximum=hi), params)
+    want = jax.jit(lambda p, x: jhead.apply(p, x).mode())(params, jnp.asarray(emb))
+    tdist = thead(torch.from_numpy(emb))
+    for got in (tdist.mode(), tdist.mean(), tdist.sample(torch.Generator().manual_seed(0))):
+        np.testing.assert_allclose(n(got), np.asarray(want), rtol=RTOL, atol=ATOL)
+    assert np.abs(n(tdist.mode())).max() > 0.9 * max(abs(lo), abs(hi))
+    assert n(tdist.log_prob(tdist.mode())).tolist() == [0.0] * 16
+    assert n(tdist.entropy()).shape == (16,)
+
+
+def test_distributional_continuous_q_head_matches_flax():
+    """D4PG's critic head (51 atoms on [-100, 100]) with carried params:
+    expected Q and logits against the jitted flax head; the support within
+    one float32 ulp of 100 of `jnp.linspace` eager and jitted (ROADMAP C17:
+    XLA's support is not correctly rounded, eager and jitted apart on some
+    supports, while `torch.linspace` gives every multiple of 4 exactly)."""
+    import jax
+
+    jnet, params, tnet = _q_critic_pair("DistributionalContinuousQNetwork", num=0, num_atoms=51,
+                                        vmin=-100.0, vmax=100.0)
+    jobs, tobs = observations(8, 16, 5, 1)
+    action = np.random.default_rng(9).uniform(-2, 2, size=(16, 2)).astype(np.float32)
+    want = jax.jit(jnet.apply)(params, jobs, jnp.asarray(action))
+    with torch.no_grad():
+        got = tnet(tobs, torch.from_numpy(action))
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(n(g), np.asarray(w), rtol=RTOL, atol=1e-5)
+    assert n(got[1]).shape == (16, 51)
+    atoms = n(got[2])
+    for reference in (jnp.linspace(-100.0, 100.0, 51),
+                      jax.jit(lambda: jnp.linspace(-100.0, 100.0, 51))(), want[2]):
+        assert np.abs(atoms - np.asarray(reference)).max() <= np.spacing(np.float32(100.0))
+    np.testing.assert_array_equal(atoms, np.arange(-100, 101, 4, dtype=np.float32))

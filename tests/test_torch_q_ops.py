@@ -341,3 +341,51 @@ def test_polyak_update_bitwise_optax():
         got = incremental_update({k: t(v) for k, v in new.items()},
                                  {k: t(v) for k, v in old.items()}, tau)
         assert np.array_equal(n(got["w"]), np.asarray(want["w"]))
+
+
+# ------------------------------------------------------- A12's ops: Deterministic, TD losses
+
+
+def test_deterministic_distribution_matches_jax():
+    loc = np.random.default_rng(0).normal(size=(6, 2)).astype(np.float32)
+    jd, td = jdist.Deterministic(jnp.asarray(loc)), tdist.Deterministic(t(loc))
+    for got, want in ((td.mode(), jd.mode()), (td.mean(), jd.mean()),
+                      (td.sample(torch.Generator().manual_seed(0)),
+                       jd.sample(seed=jax.random.PRNGKey(0))),
+                      (td.log_prob(t(loc) + 1.0), jd.log_prob(jnp.asarray(loc) + 1.0)),
+                      (td.entropy(), jd.entropy())):
+        np.testing.assert_array_equal(n(got), np.asarray(want))
+    assert n(td.entropy()).shape == (6,)
+    assert n(tdist.Deterministic(torch.tensor(1.5)).log_prob(torch.tensor(0.0))).shape == ()
+
+
+@pytest.mark.parametrize("use_huber", [False, True])
+def test_td_learning_and_its_gradient_match_jax(use_huber):
+    rng = np.random.default_rng(1)
+    v_tm1, r, v_t = (rng.normal(size=32).astype(np.float32) * 3 for _ in range(3))
+    d = (0.99 * (rng.random(32) > 0.2)).astype(np.float32)
+    want, want_grad = jax.value_and_grad(
+        lambda v: jlosses.td_learning(v, jnp.asarray(r), jnp.asarray(d), jnp.asarray(v_t),
+                                      use_huber))(jnp.asarray(v_tm1))
+    v = t(v_tm1).requires_grad_(True)
+    got = tlosses.td_learning(v, t(r), t(d), t(v_t), use_huber)
+    got.backward()
+    np.testing.assert_allclose(n(got), np.asarray(want), rtol=1e-6)
+    np.testing.assert_allclose(n(v.grad), np.asarray(want_grad), rtol=1e-6, atol=1e-8)
+
+
+def test_categorical_td_learning_and_its_gradient_match_jax():
+    rng = np.random.default_rng(2)
+    logits_tm1, logits_t = (rng.normal(size=(32, 21)).astype(np.float32) for _ in range(2))
+    atoms = np.linspace(-5.0, 5.0, 21).astype(np.float32)
+    r = rng.normal(size=32).astype(np.float32)
+    d = (0.9 * (rng.random(32) > 0.2)).astype(np.float32)
+    want, want_grad = jax.jit(jax.value_and_grad(
+        lambda x: jlosses.categorical_td_learning(x, jnp.asarray(atoms), jnp.asarray(r),
+                                                  jnp.asarray(d), jnp.asarray(logits_t))))(
+        jnp.asarray(logits_tm1))
+    x = t(logits_tm1).requires_grad_(True)
+    got = tlosses.categorical_td_learning(x, t(atoms), t(r), t(d), t(logits_t))
+    got.backward()
+    np.testing.assert_allclose(n(got), np.asarray(want), rtol=1e-6)
+    np.testing.assert_allclose(n(x.grad), np.asarray(want_grad), rtol=0, atol=1e-7)

@@ -284,6 +284,74 @@ def mesh_helpers(mesh_for, x):
             "replicated": replicate((full + rank,), mesh)[0].numpy()}
 
 
+def _transition(b: dict) -> Transition:
+    return Transition(_observation(b["obs"]), *(torch.from_numpy(b[k])
+                                                for k in ("action", "reward", "done")),
+                      _observation(b["next_obs"]), {k: torch.from_numpy(v)
+                                                    for k, v in b["info"].items()})
+
+
+def sac_step(mesh_for, overrides, actor, q_online, q_target, log_alpha, batches, noises):
+    """This rank's ff_sac `update_from_batch` on its own batch
+    (`batches[rank]`), once a step of `noises` (the same two normals on
+    every rank, as JAX's one trace feeds every shard): params and metrics."""
+    from stoix_tpu_torch.systems.ddpg import ff_ddpg
+    from stoix_tpu_torch.systems.sac import ff_sac
+
+    rank = dist.get_rank()
+    cfg = _config("ff_sac", overrides)
+    env, _ = envs.make(cfg)
+    cfg.system.action_dim = env.num_actions
+    actor_net, q_net, _ = ff_sac.build_networks(env, cfg, torch.Generator())
+    optims = ff_sac.make_optimizers(cfg)
+    update = ff_sac.SACUpdate(ff_ddpg.make_apply(actor_net), ff_ddpg.make_apply(q_net), optims,
+                              cfg)
+    actor_p, q_p = _tensors(actor), _tensors(q_online)
+    alpha = torch.tensor(float(log_alpha))
+    params = [ff_sac.SACParams(actor_p, OnlineAndTarget(q_p, _tensors(q_target)), alpha)]
+    opts = [ff_sac.SACOptStates(optims[0].init(actor_p), optims[1].init(q_p),
+                                optims[2].init({"log_alpha": alpha}))]
+    metrics = []
+    for step_noise in noises:
+        noise = tuple(torch.from_numpy(x) for x in step_noise)
+        params, opts, info = update.step(params, opts, [_transition(batches[rank])], [noise])
+        metrics.append({k: float(v) for k, v in info.items()})
+    return {"actor": _numpy(params[0].actor_params), "q_online": _numpy(params[0].q_params.online),
+            "q_target": _numpy(params[0].q_params.target),
+            "log_alpha": float(params[0].log_alpha), "metrics": metrics}
+
+
+def reinforce_step(mesh_for, overrides, obs_dim, num_actions, actor_params, critic_params,
+                   trajs):
+    """This rank's ff_reinforce update on its own [T, E] trajectory
+    (`trajs[rank]`): params, metrics and its gradient all-reduces."""
+    from stoix_tpu_torch.systems.vpg import ff_reinforce
+
+    rank = dist.get_rank()
+    cfg = _config("ff_reinforce", overrides)
+    actor = base.FeedForwardActor(heads.CategoricalHead(num_actions, 16),
+                                  torso.MLPTorso(obs_dim, (16, 16)), inputs.ObservationInput())
+    critic = base.FeedForwardCritic(heads.ScalarCriticHead(16), torso.MLPTorso(obs_dim, (16, 16)),
+                                    inputs.ObservationInput())
+    optims = tuple(ClipAdam(float(cfg.system[k]), float(cfg.system.max_grad_norm), eps=1e-5)
+                   for k in ("actor_lr", "critic_lr"))
+    learner = ff_reinforce.ReinforceLearner(
+        None, (ff_ppo.make_apply_fn(actor), ff_ppo.make_apply_fn(critic)), optims, cfg)
+    params = ActorCriticParams(_tensors(actor_params), _tensors(critic_params))
+    opt = ActorCriticOptStates(optims[0].init(params.actor_params),
+                               optims[1].init(params.critic_params))
+    tr = trajs[rank]
+    traj = {"obs": _observation(tr["obs"]), "next_obs": _observation(tr["next_obs"]),
+            **{k: torch.from_numpy(tr[k]) for k in ("action", "reward", "discount", "truncated")}}
+    counter = anakin.allreduce_counter()
+    before = counter.value(labels={"kind": "gradients"})
+    params, _, metrics = learner.update(params, opt, traj)
+    return {"actor": _numpy(params.actor_params), "critic": _numpy(params.critic_params),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "allreduces": counter.value(labels={"kind": "gradients"}) - before}
+
+
 DP_KINDS = {"mesh_helpers": mesh_helpers, "ppo_step": ppo_step, "statistics": statistics,
             "dqn_step": dqn_step, "sequence_step": sequence_step,
-            "sequence_buffer": sequence_buffer, "run": run, "saved_state": saved_state}
+            "sequence_buffer": sequence_buffer, "run": run, "saved_state": saved_state,
+            "sac_step": sac_step, "reinforce_step": reinforce_step}
