@@ -19,7 +19,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    edges) at 1000 columns, and a long rollout [128, 4096];
                    timed at [8, 1024], [16, 1024] and [128, 4096] with CUDA events, per
                    call from Python and per launch replayed from a CUDA graph,
-                   beside an empty kernel on the same grid (the launch floor).
+                   beside an empty kernel on the same grid (the launch floor);
+                   then from batch-major views at ff_awr's [7, 256] and
+                   ff_mpo's and ff_mpo_continuous's Retrace shapes [6, 128]
+                   and [14, 256], bitwise and timed (also a call through the
+                   dispatch from the views).
   4. attention   — B2 (flash attention): the forward kernel against its plain
                    version at the ff_trans_ppo path's shapes ([1024|4096|16384,
                    16, 4, 32] float32 causal, from strided qkv views), the ring
@@ -46,7 +50,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    before and read just after (generic launches only). The
                    generic entry point is on neither training path: its
                    kernels-line `launches` is 0, and its composed-path
-                   launches stand under `composed_path_launches`.
+                   launches stand under `composed_path_launches`. Then the
+                   five estimators that reach B1 through its generic entry
+                   (the general off-policy return, Retrace at ff_mpo's
+                   [128, 8] sequences, discounted returns, the importance-
+                   corrected TD errors, V-trace) through the dispatch on the
+                   card against the CPU's `scan`, bitwise, one generic launch
+                   each (`estimator_launches`).
   6. learn       — ff_ppo trains IdentityGame on the card to a return above 8.0
                    (the JAX package's learning oracle, tests/test_ff_ppo.py).
   7. train       — Anakin ff_ppo on CartPole at the default config's full width
@@ -200,7 +210,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    backend, the ranks, the envs a rank, the all-reduces an
                    update, env-steps/s a rank and in total, and the card.
 
-Then a `{"kernels": [...]}` line, the card's `nvidia-smi` name and power
+ 27. mpo_train   — ff_mpo (64 CartPole envs, T = 8, a 100 000-step trajectory
+                   buffer, 4 epochs of 128 sequences of 8) and
+                   ff_mpo_continuous (64 Pendulum envs, 32 epochs of 256
+                   sequences of 16, 128 action samples, MLPs 4 x 256) at their
+                   default configs, MAIN_UPDATES updates in 2 windows with
+                   multistep_impl=pallas, every kernel counter zeroed just
+                   before and read just after: exactly 4 and 32 launches of
+                   B1's generic entry an update (Retrace, one an epoch), 0 of
+                   every other kernel; env-steps/s a window, device launches
+                   an update (torch.profiler), the buffer's device bytes, an
+                   update's peak device bytes, and one epoch on the card
+                   against the CPU (losses 1e-5 relative, params 1e-5
+                   absolute).
+ 28. mpo_learn   — ff_mpo trains IdentityGame above 8.0 (16 envs, 16 384 steps;
+                   the JAX package returns 10.0 there).
+ 29. vmpo_train  — ff_vmpo (1024 CartPole envs, T = 32, 16 full-batch epochs)
+                   and ff_vmpo_continuous (1024 Pendulum envs), as mpo_train:
+                   exactly 16 launches of B1's GAE entry an update (one an
+                   epoch); the epoch on the card against the CPU also compares
+                   the top halves index for index.
+ 30. vmpo_learn  — ff_vmpo trains IdentityGame above 8.0 (64 envs, 32 768
+                   steps; the JAX package returns 10.0 there).
+
+The learning oracles (learn, trans_learn, q_learn, cont_learn, rec_learn,
+rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
+vmpo_learn) run last, after every timed phase, each in a child process of
+this script (`--learn-phase NAME`), LEARN_WORKERS at a time, the longest
+first; a `learn_all` line gives their wall time. Then a `{"kernels": [...]}` line, the card's `nvidia-smi` name and power
 limit, and last `{"ok": true, "device": {...}}`.
 """
 
@@ -257,6 +294,9 @@ ATTENTION_REPLACES = "stoix_tpu/ops/pallas_attention.py:154"
 CHUNK_SOURCE = "stoix_tpu_torch/csrc/flash_attention_chunk.cu"
 CHUNK_REPLACES = "stoix_tpu/ops/pallas_attention.py:255"
 WIDE_SOURCE = "stoix_tpu_torch/csrc/flash_attention_wide.cu"
+# B1's generic launches from batch-major sequence views: ff_awr's lambda
+# returns, ff_mpo's and ff_mpo_continuous's Retrace ([L - 2, B]).
+BATCH_MAJOR_SHAPES = ((7, 256), (6, 128), (14, 256))
 RING_BATCH = 64  # windows per forward in the ring phases
 RING_RANKS = 4  # the ring the ring_kernel phase emulates
 
@@ -396,15 +436,22 @@ def bound(moved: int, flops: int):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def recurrence_times(t_len: int, batch: int) -> dict:
+def recurrence_times(t_len: int, batch: int, view: bool = False) -> dict:
     """B1's generic entry point at [t_len, batch] float32: a call, a launch,
-    the empty-kernel floor, the plain version, the bound."""
+    the empty-kernel floor, the plain version, the bound; with `view`, also
+    a call through the dispatch from batch-major [batch, t_len] views (the
+    contiguous copies included), as the sequence-replay systems make it."""
     w, d, init = recurrence_inputs(t_len, batch, torch.float32, False, seed=1)
     run = partial(linear_recurrence.linear_recurrence_reverse, w, d, init)
     moved = (2 * t_len * batch + batch + t_len * batch) * 4  # read w, d, init; write out
     flops = 2 * t_len * batch
     bound_ms, bound_by = bound(moved, flops)
-    return {
+    extra = {}
+    if view:
+        w_view, d_view = w.T.contiguous().T, d.T.contiguous().T
+        extra["view_call_ms"] = cuda_ms(partial(scan_kernels.linear_recurrence_reverse, w_view,
+                                                d_view, init, "pallas"))
+    return {**extra,
         "shape": [t_len, batch], "dtype": "float32",
         "ms": cuda_ms(run),  # per call from Python, back to back (host-bound)
         "device_ms": graph_ms(run),  # per launch replayed from a CUDA graph
@@ -443,22 +490,24 @@ def phase_kernel() -> dict:
               "shape": [t_len, batch], "dtype": str(dtype), "resets": resets,
               "max_abs_err": err, "bitwise": True})
 
-    # ff_awr's launch: [7, 256] fed from a batch-major [256, 7] view, which the
-    # dispatch makes contiguous once before the kernel.
-    w, d, _ = recurrence_inputs(256, 7, torch.float32, True, seed=77)
-    w_view, d_view, init = w.T, d.T, d[:, -1].contiguous()
-    got = scan_kernels.linear_recurrence_reverse(w_view, d_view, init, "pallas")
-    torch.cuda.synchronize()
-    want = linear_recurrence.plain_linear_recurrence_reverse(w_view.contiguous(),
-                                                             d_view.contiguous(), init)
-    if got.shape != (7, 256) or not torch.equal(got, want):
-        raise AssertionError("kernel != plain at ff_awr's batch-major [7, 256]")
-    emit({"phase": "kernel", "kernel": linear_recurrence.KERNEL.name, "shape": [7, 256],
-          "from": "a transposed [256, 7] view", "dtype": "torch.float32", "resets": True,
-          "max_abs_err": 0.0, "bitwise": True})
+    # Launches fed from batch-major [B, T] views, which the dispatch makes
+    # contiguous once before the kernel: ff_awr's [7, 256], ff_mpo's Retrace
+    # [6, 128] and ff_mpo_continuous's [14, 256].
+    for t_len, batch in BATCH_MAJOR_SHAPES:
+        w, d, _ = recurrence_inputs(batch, t_len, torch.float32, True, seed=77 + t_len)
+        w_view, d_view, init = w.T, d.T, d[:, -1].contiguous()
+        got = scan_kernels.linear_recurrence_reverse(w_view, d_view, init, "pallas")
+        torch.cuda.synchronize()
+        want = linear_recurrence.plain_linear_recurrence_reverse(w_view.contiguous(),
+                                                                 d_view.contiguous(), init)
+        if got.shape != (t_len, batch) or not torch.equal(got, want):
+            raise AssertionError(f"kernel != plain at the batch-major [{t_len}, {batch}]")
+        emit({"phase": "kernel", "kernel": linear_recurrence.KERNEL.name,
+              "shape": [t_len, batch], "from": f"a transposed [{batch}, {t_len}] view",
+              "dtype": "torch.float32", "resets": True, "max_abs_err": 0.0, "bitwise": True})
 
     shapes = [recurrence_times(8, 1024), recurrence_times(16, 1024), recurrence_times(128, 4096),
-              recurrence_times(7, 256)]
+              *(recurrence_times(t_len, batch, view=True) for t_len, batch in BATCH_MAJOR_SHAPES)]
     emit({"phase": "kernel_time", "kernel": linear_recurrence.KERNEL.name, "shapes": shapes})
     main_shape = shapes[0]  # the training path's (ff_pqn, phase q_train)
     return {
@@ -727,6 +776,7 @@ def phase_gae() -> tuple:
             raise AssertionError(f"composed GAE ({name}) on the card != on the CPU")
     emit({"phase": "gae", "route": "composed (tensor lambda, bfloat16)",
           "launches": composed_launches, "bitwise_vs_cpu": True})
+    estimator_launches = phase_estimators()
 
     args = gae_inputs(16, 1024, seed=8)
     t_len, batch = args[0].shape
@@ -755,7 +805,59 @@ def phase_gae() -> tuple:
                                             repeats=5, inner=3),
                         "bound_ms": reinforce_bound[0], "bound_by": reinforce_bound[1]}]
     emit({"phase": "gae_time", **entry})
-    return entry, composed_launches[lr.KERNEL.name]
+    return entry, composed_launches[lr.KERNEL.name], estimator_launches
+
+
+def phase_estimators() -> dict:
+    """The estimators that reach B1 only through its generic entry (the
+    general off-policy return, Retrace at ff_mpo's [128, 8] sequences,
+    discounted returns, the importance-corrected TD errors, V-trace), each
+    through the dispatch on CUDA tensors against the CPU's `scan`, bitwise,
+    with every B1 counter zeroed just before and read just after: one
+    generic launch each, no GAE launch. Returns the launches by estimator."""
+    from stoix_tpu_torch.ops import multistep
+
+    lr = linear_recurrence
+    gen = torch.Generator().manual_seed(9)
+    rand = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
+    discount = 0.99 * (torch.rand((128, 8), generator=gen) > 0.1).float()
+    time_major = discount.T.contiguous()
+    cases = {
+        "general_off_policy_returns_from_q_and_v": (
+            multistep.general_off_policy_returns_from_q_and_v, {},
+            (rand(128, 7), rand(128, 8), rand(128, 8), discount,
+             torch.rand((128, 7), generator=gen))),
+        "retrace_continuous": (multistep.retrace_continuous, {"lambda_": 0.95},
+                               (rand(128, 7), rand(128, 6), rand(128, 7), rand(128, 7),
+                                discount[:, :7], rand(128, 6) * 0.8)),
+        "discounted_returns": (multistep.discounted_returns, {},
+                               (rand(8, 128), time_major, rand(8, 128))),
+        "importance_corrected_td_errors": (
+            lambda r, d, rho, values, impl: multistep.importance_corrected_td_errors(
+                r, d, rho, 0.9, values, impl=impl), {},
+            (rand(8, 128), time_major, torch.exp(rand(8, 128) * 0.5), rand(9, 128))),
+        "vtrace_td_error_and_advantage": (
+            multistep.vtrace_td_error_and_advantage, {},
+            (rand(8, 128), rand(8, 128), rand(8, 128), time_major,
+             torch.exp(rand(8, 128) * 0.5))),
+    }
+    launches = {}
+    for name, (fn, kwargs, args) in cases.items():
+        want = fn(*args, **kwargs, impl="scan")
+        for counter in lr.COUNTERS:
+            counter.launches = 0
+        got = fn(*(a.cuda() for a in args), **kwargs, impl="pallas")
+        torch.cuda.synchronize()
+        launches[name] = _counts(lr.COUNTERS)
+        if launches[name] != {lr.KERNEL.name: 1, lr.GAE_KERNEL.name: 0}:
+            raise AssertionError(f"{name} on CUDA tensors launched {launches[name]}")
+        pairs = zip(*(x if isinstance(x, tuple) else (x,) for x in (got, want)))
+        if not all(torch.equal(g.cpu(), w) for g, w in pairs):
+            raise AssertionError(f"{name} on the card != the CPU scan")
+        emit({"phase": "gae", "route": "dispatch, impl=pallas", "estimator": name,
+              "shape": list(args[0].shape), "launches": launches[name],
+              "bitwise_vs_cpu_scan": True})
+    return {name: counts[lr.KERNEL.name] for name, counts in launches.items()}
 
 
 def compose(overrides, root: str = "default/anakin/default_ff_ppo.yaml") -> dict:
@@ -1807,6 +1909,22 @@ VPG_IDENTITY = ["env=identity_game", "arch.total_num_envs=64", "arch.total_times
 AWR_IDENTITY = [o if o != "arch.total_timesteps=65536" else "arch.total_timesteps=32768"
                 for o in VPG_IDENTITY]
 PG_THRESHOLD = 8.0
+# ff_mpo's and ff_vmpo's IdentityGame oracles (16 envs, 16 384 steps, a
+# 4 096-step buffer, batches of 64; 64 envs, 32 768 steps): the JAX package
+# returns 10.0 there for seeds 42 and 1 (scripts/jax_oracle_thresholds.py
+# --oracles mpo vmpo), uniform random actions 2.5; the threshold is 8.0.
+MPO_IDENTITY = ["env=identity_game", "arch.total_num_envs=16", "arch.total_timesteps=16384",
+                "system.total_buffer_size=4096", "system.total_batch_size=64",
+                "arch.num_evaluation=1", "arch.num_eval_episodes=32",
+                "arch.evaluation_greedy=True", "arch.absolute_metric=False",
+                "system.multistep_impl=pallas", "logger.use_console=False"]
+VMPO_IDENTITY = ["env=identity_game", "arch.total_num_envs=64", "arch.total_timesteps=32768",
+                 "arch.num_evaluation=1", "arch.num_eval_episodes=32",
+                 "arch.evaluation_greedy=True", "arch.absolute_metric=False",
+                 "system.multistep_impl=pallas", "logger.use_console=False"]
+MPO_THRESHOLD = 8.0
+MPO_ROOTS = {name: f"default/anakin/default_{name}.yaml"
+             for name in ("ff_mpo", "ff_mpo_continuous", "ff_vmpo", "ff_vmpo_continuous")}
 AC_ROOTS = {name: f"default/anakin/default_{name}.yaml"
             for name in ("ff_ddpg", "ff_td3", "ff_d4pg", "ff_sac")}
 VPG_ROOT = "default/anakin/default_ff_reinforce.yaml"
@@ -2156,7 +2274,7 @@ def _a12_module(name: str):
 
     package = {"ff_ddpg": "ddpg", "ff_td3": "ddpg", "ff_d4pg": "ddpg", "ff_sac": "sac",
                "ff_reinforce": "vpg", "ff_reinforce_continuous": "vpg", "ff_awr": "awr",
-               "ff_awr_continuous": "awr"}[name]
+               "ff_awr_continuous": "awr", **dict.fromkeys(MPO_ROOTS, "mpo")}[name]
     return importlib.import_module(f"stoix_tpu_torch.systems.{package}.{name}")
 
 
@@ -2286,14 +2404,15 @@ def phase_sac_learn() -> None:
           "seconds": time.perf_counter() - start})
 
 
-def phase_pg_learn(name: str, root: str, overrides: list, phase: str) -> None:
-    """`name` on IdentityGame above PG_THRESHOLD."""
+def phase_pg_learn(name: str, root: str, overrides: list, phase: str,
+                   threshold: float = PG_THRESHOLD) -> None:
+    """`name` on IdentityGame above `threshold`."""
     start = time.perf_counter()
     final_return = _a12_module(name).run_experiment(compose(overrides, root), device="cuda")
-    if not final_return > PG_THRESHOLD:
-        raise AssertionError(f"{name} returned {final_return}, not above {PG_THRESHOLD}")
+    if not final_return > threshold:
+        raise AssertionError(f"{name} returned {final_return}, not above {threshold}")
     emit({"phase": phase, "system": name, "env": "identity_game", "final_return": final_return,
-          "threshold": PG_THRESHOLD, "window_seconds": runner.LAST_RUN_STATS["window_seconds"],
+          "threshold": threshold, "window_seconds": runner.LAST_RUN_STATS["window_seconds"],
           "seconds": time.perf_counter() - start})
 
 
@@ -2330,6 +2449,120 @@ def phase_pg_train(smi: str, family: str) -> dict:
         if main_launches is None:
             main_launches = record["kernel_launches"]
     return main_launches
+
+
+# ---------------------------------------------------- A12: MPO and V-MPO
+
+
+def _mpo_b1_want(name: str) -> dict:
+    """B1's launches an update on `name`'s default config: one generic
+    launch an epoch (Retrace) on MPO, one GAE launch an epoch on V-MPO."""
+    lr = linear_recurrence
+    return {"ff_mpo": {lr.KERNEL.name: 4}, "ff_mpo_continuous": {lr.KERNEL.name: 32},
+            "ff_vmpo": {lr.GAE_KERNEL.name: 16},
+            "ff_vmpo_continuous": {lr.GAE_KERNEL.name: 16}}[name]
+
+
+def _update_peak_bytes(setup, state) -> dict:
+    """The device's peak allocated bytes during one update step, and the
+    part above what was allocated before it (the state, buffer included)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    setup.learn.update_step(state)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"peak_bytes": peak, "above_state_bytes": peak - before}
+
+
+def _mpo_update_on_card_and_cpu(name: str, config, setup, state) -> dict:
+    """One MPO epoch on sequences sampled on the card (its normals drawn on
+    the card), or one V-MPO epoch on a rollout made on the card, run by the
+    card's learner and by the same learner built on the CPU, from the same
+    params: losses 1e-5 relative, params and duals 1e-5 absolute, and B1's
+    launches on the card (one generic, or one GAE); V-MPO's top halves
+    compared index for index."""
+    from stoix_tpu_torch.systems.mpo.ff_vmpo import top_half
+
+    lr = linear_recurrence
+    cpu_setup = _a12_module(name).learner_setup(envs.make(config)[0], config,
+                                                torch.device("cpu"), int(config.arch.seed))
+    move = partial(tree_map, lambda x: x.cpu())
+    params, opts = [state.params], [state.opt_states]
+    record = {}
+    if name.startswith("ff_vmpo"):
+        state, traj = setup.learn.rollout(state)
+        card_adv = setup.learn.advantages(params, traj)[0]
+        cpu_adv = cpu_setup.learn.advantages(move(params), move(traj))[0]
+        # The card's critic values round apart from the CPU's by ulps, so
+        # near-equal advantages may trade places: count both the positions
+        # and the members that differ.
+        top = [top_half(a.reshape(-1)) for a in (card_adv.cpu(), cpu_adv)]
+        members = set(top[0].tolist()) ^ set(top[1].tolist())
+        record["top_half"] = {"k": int(top[0].numel()),
+                              "positions_differing": int((top[0] != top[1]).sum()),
+                              "members_differing": len(members) // 2}
+        before = _counts(lr.COUNTERS)
+        card = setup.learn.epoch(params, opts, traj)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _counts(lr.COUNTERS).items()}
+        cpu = cpu_setup.learn.epoch(move(params), move(opts), move(traj))
+    else:
+        update = setup.learn.update_from_batch
+        batch = setup.learn.buffer.sample(state.buffer_state, state.generator).experience
+        noise = update.draw_noise(batch, state.generator)
+        before = _counts(lr.COUNTERS)
+        card = update.step(params, opts, [batch], [noise])
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _counts(lr.COUNTERS).items()}
+        cpu = cpu_setup.learn.update_from_batch.step(move(params), move(opts), [move(batch)],
+                                                     [move(noise)])
+        record["sample_batch"] = list(batch["reward"].shape)
+    want = {lr.KERNEL.name: int(not name.startswith("ff_vmpo")),
+            lr.GAE_KERNEL.name: int(name.startswith("ff_vmpo"))}
+    if launched != want:
+        raise AssertionError(f"{name}'s epoch on the card launched {launched}, not {want}")
+    (card_params, _, card_info), (cpu_params, _, cpu_info) = card, cpu
+    loss_err = max(_relative(card_info[k], cpu_info[k]) for k in cpu_info if k.endswith("loss"))
+    param_err = _max_err(card_params, cpu_params)
+    if not (loss_err <= 1e-5 and param_err <= 1e-5):
+        raise AssertionError(f"{name}'s epoch on the card is not the CPU's: loss {loss_err}, "
+                             f"params {param_err}")
+    return {**record, "b1_launches": launched, "loss_relative_err": loss_err,
+            "params_abs_err": param_err}
+
+
+def phase_mpo_train(smi: str, family: str) -> dict:
+    """ff_mpo (64 CartPole envs, T = 8, a 100 000-step trajectory buffer, 4
+    epochs of 128 sequences of 8) and ff_mpo_continuous (64 Pendulum envs,
+    32 epochs of 256 sequences of 16, 128 action samples, MLPs 4 x 256), or
+    ff_vmpo (1024 CartPole envs, T = 32, 16 full-batch epochs) and
+    ff_vmpo_continuous (1024 Pendulum envs), at their default configs,
+    MAIN_UPDATES updates in 2 windows through `run_experiment` with
+    `system.multistep_impl=pallas`, every kernel counter zeroed just before
+    and read just after (B1's generic entry once an MPO epoch, its GAE entry
+    once a V-MPO epoch, nothing else); then device launches an update, the
+    buffer's device bytes, an update's peak device bytes and one epoch on
+    the card against the CPU. Returns each system's launches."""
+    lr = linear_recurrence
+    names = (("ff_mpo", "ff_mpo_continuous") if family == "mpo" else
+             ("ff_vmpo", "ff_vmpo_continuous"))
+    common = [f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
+              "arch.num_eval_episodes=16", "system.multistep_impl=pallas",
+              "logger.use_console=False"]
+    launches = {}
+    for name in names:
+        record = _path_run(name, MPO_ROOTS[name], common, _mpo_b1_want(name),
+                           f"{family}_train", smi, True)
+        setup, state, config = record.pop("_setup_state")
+        record["b1_launches_per_update"] = {k: v / record["updates"]
+                                            for k, v in record["kernel_launches"].items()
+                                            if k in (lr.KERNEL.name, lr.GAE_KERNEL.name)}
+        record["update_device_bytes"] = _update_peak_bytes(setup, state)
+        record["epoch_on_card_vs_cpu"] = _mpo_update_on_card_and_cpu(name, config, setup, state)
+        emit(record)
+        launches[name] = record["kernel_launches"]
+    return launches
 
 
 # ---------------------------------------------------- data parallelism
@@ -2532,16 +2765,90 @@ def phase_data_parallel(smi: str) -> dict:
     return launches
 
 
+# The learning oracles: phase name -> the phase. Each runs in a child process
+# (`chip_smoke.py --learn-phase NAME`) after every timed phase, LEARN_WORKERS
+# at a time, the longest first; together they were 70% of the run when they
+# ran in turn (PERF.md, Findings).
+LEARN_PHASES = {
+    "cont_learn": phase_cont_learn,
+    "sac_learn": phase_sac_learn,
+    "r2d2_learn": partial(phase_sequence_learn, "rec_r2d2"),
+    "rainbow_learn": partial(phase_sequence_learn, "ff_rainbow"),
+    "rec_learn": phase_rec_learn,
+    "q_learn": phase_q_learn,
+    "trans_learn": phase_trans_learn,
+    "mpo_learn": partial(phase_pg_learn, "ff_mpo", MPO_ROOTS["ff_mpo"], MPO_IDENTITY,
+                         "mpo_learn", MPO_THRESHOLD),
+    "learn": phase_learn,
+    "vmpo_learn": partial(phase_pg_learn, "ff_vmpo", MPO_ROOTS["ff_vmpo"], VMPO_IDENTITY,
+                          "vmpo_learn", MPO_THRESHOLD),
+    "awr_learn": partial(phase_pg_learn, "ff_awr", AWR_ROOT, AWR_IDENTITY, "awr_learn"),
+    "vpg_learn": partial(phase_pg_learn, "ff_reinforce", VPG_ROOT, VPG_IDENTITY, "vpg_learn"),
+}
+LEARN_WORKERS = 4
+LEARN_TIMEOUT_S = 480
+
+
+def learn_child(name: str) -> None:
+    """One learning oracle (`--learn-phase NAME`), on the card as the parent
+    sets it up; its JSON lines go to stdout."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)  # LEARN_WORKERS children share the host's cores
+    LEARN_PHASES[name]()
+
+
+def phase_learn_all() -> None:
+    """Every learning oracle in a child process, LEARN_WORKERS at a time:
+    each child's lines are printed when it ends, and any failure (or a child
+    past LEARN_TIMEOUT_S) stops the rest and raises."""
+    pending = list(LEARN_PHASES)
+    running = {}
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_learn_") as tmp:
+        try:
+            while pending or running:
+                while pending and len(running) < LEARN_WORKERS:
+                    name = pending.pop(0)
+                    log = open(os.path.join(tmp, f"{name}.log"), "w+")
+                    proc = subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__), "--learn-phase", name],
+                        stdout=log, stderr=subprocess.STDOUT)
+                    running[name] = (proc, log, time.monotonic())
+                for name, (proc, log, began) in list(running.items()):
+                    if proc.poll() is None:
+                        if time.monotonic() - began > LEARN_TIMEOUT_S:
+                            raise AssertionError(f"{name} ran past {LEARN_TIMEOUT_S} s")
+                        continue
+                    del running[name]
+                    log.seek(0)
+                    text = log.read()
+                    log.close()
+                    if proc.returncode:
+                        raise AssertionError(f"{name} failed (exit {proc.returncode}):\n"
+                                             f"{text[-6000:]}")
+                    for line in text.splitlines():
+                        if line.startswith("{"):
+                            print(line, flush=True)
+                time.sleep(0.2)
+        finally:
+            for proc, log, _ in running.values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait(timeout=60)
+                log.close()
+    emit({"phase": "learn_all", "phases": list(LEARN_PHASES), "workers": LEARN_WORKERS,
+          "seconds": time.perf_counter() - start})
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
     recurrence = phase_kernel()
     attention = phase_attention()
-    gae, recurrence["composed_path_launches"] = phase_gae()
-    phase_learn()
+    gae, recurrence["composed_path_launches"], recurrence["estimator_launches"] = phase_gae()
     gae["launches"] = phase_train(smi)
     gae["path"] = "ff_ppo's update, phase train"
-    phase_trans_learn()
     trans = phase_trans_train(smi)
     gae["launches_ff_trans_ppo"] = trans["total"][gae["name"]]
     for entry in attention:
@@ -2556,39 +2863,41 @@ def main() -> None:
         phase_c8(smi)
         wide = phase_c8_wide(mesh, smi)
     phase_knobs(smi)
-    phase_q_learn()
     # The generic entry point is off both PPO paths (their GAE takes the GAE
     # entry point); ff_pqn's Q(lambda) is its training path (phase q_train),
     # and its launches on GAE's composed path (phase gae) stand under their own key.
     recurrence["launches"] = phase_q_train(smi)
     recurrence["path"] = "ff_pqn's update (Q(lambda)), phase q_train"
-    phase_cont_learn()
     gae["launches_ff_ppo_continuous"] = phase_cont_train(smi)
-    phase_rec_learn()
     gae["launches_rec_ppo"] = phase_rec_train(smi)
     # Sequence replay runs no kernel: each entry records its 0 launches there.
     for name in SEQUENCE_ROOTS:
-        phase_sequence_learn(name)
         sequence = phase_sequence_train(name, smi)
         for entry in (recurrence, gae, *attention, chunk, *wide):
             entry.setdefault("launches_sequence_replay", {})[name] = sequence[entry["name"]]
     # A12's first half: the actor-critics run no kernel; ff_reinforce's update
     # is one GAE launch (lambda 1.0), ff_awr's epoch one generic launch.
     actor_critics = phase_ac_train(smi)
-    phase_sac_learn()
     vpg = phase_pg_train(smi, "vpg")
-    phase_pg_learn("ff_reinforce", VPG_ROOT, VPG_IDENTITY, "vpg_learn")
     awr = phase_pg_train(smi, "awr")
-    phase_pg_learn("ff_awr", AWR_ROOT, AWR_IDENTITY, "awr_learn")
+    # A12's second half: an MPO epoch is one generic launch (Retrace), a
+    # V-MPO epoch one GAE launch.
+    mpo = phase_mpo_train(smi, "mpo")
+    vmpo = phase_mpo_train(smi, "vmpo")
     for entry in (recurrence, gae, *attention, chunk, *wide):
         entry["launches_actor_critics"] = {name: counts[entry["name"]]
                                            for name, counts in actor_critics.items()}
         entry["launches_ff_reinforce"] = vpg[entry["name"]]
         entry["launches_ff_awr"] = awr[entry["name"]]
+        entry["launches_mpo_family"] = {name: counts[entry["name"]]
+                                        for name, counts in {**mpo, **vmpo}.items()}
     data_parallel = phase_data_parallel(smi)
     gae["launches_data_parallel"] = {"a_one_rank_ff_ppo": data_parallel["a_ff_ppo"],
                                      "b_per_rank": data_parallel["b_per_rank"]}
     recurrence["launches_data_parallel"] = {"a_one_rank_ff_pqn": data_parallel["a_ff_pqn"]}
+    # The learning oracles last, LEARN_WORKERS at a time, each in a process
+    # of its own: no timed phase shares the card or the host with them.
+    phase_learn_all()
     chunk["launches"] = ring["launches"]
     chunk["composed_op"] = {"ring_attention_ms": ring["ring_attention_ms"],
                             "sdpa_ms": ring["sdpa_ms"]}
@@ -2605,5 +2914,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         dp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
+    elif sys.argv[1:2] == ["--learn-phase"]:
+        learn_child(sys.argv[2])
     else:
         main()

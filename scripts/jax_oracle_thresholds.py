@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """The learning oracles of chip_smoke.py's cont_learn, rec_learn,
-rainbow_learn, r2d2_learn, sac_learn, vpg_learn and awr_learn phases,
-computed from the JAX package on the CPU:
+rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn and
+vmpo_learn phases, computed from the JAX package on the CPU:
 
     JAX_PLATFORMS=cpu python scripts/jax_oracle_thresholds.py [--seeds 42 1 2]
-        [--oracles pendulum rec rainbow r2d2 sac reinforce awr]
+        [--oracles pendulum rec rainbow r2d2 sac reinforce awr mpo vmpo]
 
 - Pendulum: the mean return of uniform random actions over 4096 episodes of
   the JAX package's Pendulum-v1 (`jax.random` key 0), and the JAX package's
@@ -20,6 +20,10 @@ computed from the JAX package on the CPU:
   the random return (as above) and the first seed's.
 - REINFORCE and AWR on IdentityGame: the JAX package's ff_reinforce and
   ff_awr under VPG_IDENTITY and AWR_IDENTITY (threshold PG_THRESHOLD, 8.0).
+- MPO and V-MPO on IdentityGame: the JAX package's ff_mpo and ff_vmpo under
+  MPO_IDENTITY and VMPO_IDENTITY (threshold MPO_THRESHOLD: 8.0 where the
+  JAX package reaches 10.0, else the midpoint of random actions' 2.5 and
+  its return).
 
 Prints one JSON line. The JAX runs take about a minute each on 8 CPU cores.
 """
@@ -78,7 +82,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--episodes", type=int, default=4096)
-    oracles = ["pendulum", "rec", "rainbow", "r2d2", "sac", "reinforce", "awr"]
+    oracles = ["pendulum", "rec", "rainbow", "r2d2", "sac", "reinforce", "awr", "mpo", "vmpo"]
     parser.add_argument("--oracles", nargs="+", default=oracles, choices=oracles)
     args = parser.parse_args()
     out = {}
@@ -122,6 +126,15 @@ def main() -> None:
                                            for seed in args.seeds]
             out[f"{name}_identity_overrides"] = overrides
             out["pg_threshold"] = chip_smoke.PG_THRESHOLD
+    for name, overrides in (("mpo", chip_smoke.MPO_IDENTITY),
+                            ("vmpo", chip_smoke.VMPO_IDENTITY)):
+        if name in args.oracles:
+            runs = [final_return(f"stoix_tpu.systems.mpo.ff_{name}",
+                                 chip_smoke.MPO_ROOTS[f"ff_{name}"], overrides, seed)
+                    for seed in args.seeds]
+            first = runs[0]["final_return"]
+            out.update({f"{name}_identity_jax": runs, f"{name}_identity_overrides": overrides,
+                        f"{name}_threshold": 8.0 if first >= 10.0 else (2.5 + first) / 2})
     print(json.dumps(out))
 
 

@@ -1,14 +1,23 @@
 """Multistep return estimators, time-major (counterpart of
-stoix_tpu/ops/multistep.py: truncation-aware GAE, `lambda_returns` and
-`q_lambda`).
+stoix_tpu/ops/multistep.py: truncation-aware GAE, `lambda_returns`,
+`discounted_returns`, `n_step_bootstrapped_returns`, the general off-policy
+return and Retrace, the importance-corrected TD errors, `q_lambda` and
+V-trace, with the JAX module's `batch_*` aliases).
 
-Each estimator reduces to ONE reverse linear recurrence over time
-(acc_t = delta_t + w_t * acc_{t+1}), evaluated by ops/scan_kernels.py under
-`system.multistep_impl` (`scan`, `assoc`, or `pallas`, the Hopper kernel).
+Each estimator but the n-step window reduces to ONE reverse linear
+recurrence over time (acc_t = delta_t + w_t * acc_{t+1}), evaluated by
+ops/scan_kernels.py under `system.multistep_impl` (`scan`, `assoc`, or
+`pallas`, the Hopper kernel's generic entry point).
 Under `pallas`, float32 inputs with a scalar lambda take the kernel's GAE
 entry point instead: delta, weights, the recurrence and the targets in one
 launch on CUDA tensors (its plain version on CPU tensors), in the same
 roundings. bfloat16 and a tensor lambda keep the composed path.
+
+In float32 the elementwise ops around the recurrence round as `jax.jit`
+rounds the JAX package's: every multiply-add that XLA contracts into one
+fused multiply-add is stated with `fma_f32`, and Retrace's exp of the
+log-ratios is XLA's own float32 exp (`xla_exp_f32`), which is not correctly
+rounded.
 
 Truncation contract: `truncation_t == 1` marks steps whose successor starts a
 new episode WITHOUT a terminal discount (time-limit truncation). The current
@@ -18,6 +27,7 @@ extras["next_obs"]), but accumulation does not flow across the boundary.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -33,6 +43,53 @@ def _time_major(batch_major: bool, *tensors: torch.Tensor) -> Tuple[torch.Tensor
     if not batch_major:
         return tensors
     return tuple(t.transpose(0, 1) if t.dim() >= 2 else t for t in tensors)
+
+
+def _stop(x: torch.Tensor, stop: bool) -> torch.Tensor:
+    return x.detach() if stop else x
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """`a * b + c`: in float32 one fused multiply-add, as XLA contracts it
+    inside `jit`; in other dtypes a multiply and an add."""
+    if c.dtype == torch.float32:
+        shape = torch.broadcast_shapes(a.shape, b.shape, c.shape)
+        return fma_f32(*(torch.broadcast_to(x, shape) for x in (a, b, c)))
+    return a * b + c
+
+
+# XLA's float32 exp on the CPU (Cephes' polynomial on x = n ln 2 + a, each
+# step one fused multiply-add), which `jax.jit` and eager JAX both use: about
+# one value in ten differs by an ulp from a correctly rounded exp.
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+             1.6666665459e-1, 5.0000001201e-1)
+_EXP_ZERO_BELOW = -87.33654  # the smallest float32 x whose exp XLA leaves above 0
+_EXP_INF_FROM = 88.72284  # the smallest float32 x whose exp XLA makes inf
+
+
+def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp of a float32 tensor, bitwise XLA's: n = min(floor(x log2(e) + 1/2), 127),
+    a = x - n (0.693359375 - 2.12194440e-4), Cephes' degree-5 polynomial
+    p(a) with exp(a) = p(a) a^2 + a + 1, times 2^n; 0 below the smallest
+    normal's log and inf from the largest float's."""
+    def const(value: float) -> torch.Tensor:
+        return torch.full_like(x, value)
+
+    clamped = torch.clamp(x, min=-87.8, max=88.8)
+    # n stops at 127 (2^127 is float32's largest power of two): near the top
+    # the polynomial then runs past ln(2) / 2, as XLA's does.
+    n = torch.clamp(torch.floor(fma_f32(clamped, const(1.44269504088896341), const(0.5))),
+                    max=127.0)
+    a = fma_f32(n, const(-0.693359375), clamped)
+    a = fma_f32(n, const(2.12194440e-4), a)
+    y = const(_EXP_POLY[0])
+    for coefficient in _EXP_POLY[1:]:
+        y = fma_f32(y, a, const(coefficient))
+    y = fma_f32(y, a * a, a) + 1.0
+    # y . 2^n is exact in float64 (2^128 alone is past float32's range).
+    out = torch.ldexp(y.double(), n.double()).float()
+    out = torch.where(x < _EXP_ZERO_BELOW, 0.0, out)
+    return torch.where(x >= _EXP_INF_FROM, math.inf, out)
 
 
 def _broadcast_param(param: Numeric, like: torch.Tensor, batch_major: bool) -> torch.Tensor:
@@ -226,3 +283,142 @@ def n_step_bootstrapped_returns(
     if batch_major:
         targets = targets.transpose(0, 1)
     return targets.detach() if stop_target_gradients else targets
+
+
+def discounted_returns(
+    r_t: torch.Tensor,
+    discount_t: torch.Tensor,
+    v_t: Numeric,
+    stop_target_gradients: bool = False,
+    batch_major: bool = False,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Monte-Carlo discounted returns bootstrapped with `v_t` at the sequence
+    end: `lambda_returns` at lambda = 1 on `v_t` broadcast to `r_t`'s shape."""
+    bootstrapped = torch.broadcast_to(
+        torch.as_tensor(v_t, dtype=r_t.dtype, device=r_t.device), r_t.shape)
+    return lambda_returns(r_t, discount_t, bootstrapped, 1.0, stop_target_gradients,
+                          batch_major, impl)
+
+
+def general_off_policy_returns_from_q_and_v(
+    q_t: torch.Tensor,
+    v_t: torch.Tensor,
+    r_t: torch.Tensor,
+    discount_t: torch.Tensor,
+    c_t: torch.Tensor,
+    stop_target_gradients: bool = False,
+    batch_major: bool = True,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """The general off-policy return G_t = r_t + g_t (v_t - c_t q_t + c_t G_{t+1})
+    (Munos et al. 2016; c_t picks IS, Q(lambda), Tree-Backup or Retrace).
+    q_t and c_t cover times [1, K-1]; v_t, r_t and discount_t cover [1, K].
+    ONE recurrence over the first K-1 steps with weights g_t c_t from
+    G_K = r_K + g_K v_K; batch-major [B, K] by default, as the off-policy
+    systems sample sequences."""
+    q_t, v_t, r_t, discount_t, c_t = _time_major(batch_major, q_t, v_t, r_t, discount_t, c_t)
+    g_last = _fma(discount_t[-1], v_t[-1], r_t[-1])
+    delta = _fma(discount_t[:-1], _fma(-c_t, q_t, v_t[:-1]), r_t[:-1])
+    returns = scan_kernels.linear_recurrence_reverse(discount_t[:-1] * c_t, delta, g_last, impl)
+    returns = torch.cat([returns, g_last[None]])
+    if batch_major:
+        returns = returns.transpose(0, 1)
+    return _stop(returns, stop_target_gradients)
+
+
+def retrace_continuous(
+    q_tm1: torch.Tensor,
+    q_t: torch.Tensor,
+    v_t: torch.Tensor,
+    r_t: torch.Tensor,
+    discount_t: torch.Tensor,
+    log_rhos: torch.Tensor,
+    lambda_: Numeric,
+    stop_target_gradients: bool = True,
+    batch_major: bool = True,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """The Retrace error for continuous control, the general off-policy
+    return at c_t = lambda min(1, exp(log_rhos)) minus q_tm1 (the target's
+    gradient stopped by default)."""
+    rho = xla_exp_f32(log_rhos) if log_rhos.dtype == torch.float32 else torch.exp(log_rhos)
+    c_t = torch.clamp(rho, max=1.0) * lambda_
+    target = general_off_policy_returns_from_q_and_v(
+        q_t, v_t, r_t, discount_t, c_t, stop_target_gradients=False, batch_major=batch_major,
+        impl=impl)
+    return _stop(target, stop_target_gradients) - q_tm1
+
+
+def importance_corrected_td_errors(
+    r_t: torch.Tensor,
+    discount_t: torch.Tensor,
+    rho_tm1: torch.Tensor,
+    lambda_: Numeric,
+    values: torch.Tensor,
+    truncation_t: Optional[torch.Tensor] = None,
+    stop_target_gradients: bool = False,
+    impl: Optional[str] = None,
+) -> torch.Tensor:
+    """Per-decision importance-sampled multistep TD errors (Sutton et al.
+    2014), time-major: values over [0, T], the rest over [1, T] (trailing
+    batch axes allowed, where the JAX function is vmapped); a truncation
+    resets the accumulation as in GAE."""
+    v_tm1, v_t = values[:-1], values[1:]
+    rho_t = torch.cat([rho_tm1[1:], torch.ones_like(rho_tm1[:1])])
+    lam = torch.broadcast_to(torch.as_tensor(lambda_, dtype=r_t.dtype, device=r_t.device),
+                             r_t.shape)
+    continue_t = (torch.ones_like(r_t) if truncation_t is None
+                  else 1.0 - truncation_t.to(r_t.dtype))
+    delta = _fma(discount_t, v_t, r_t) - v_tm1
+    errors = scan_kernels.linear_recurrence_reverse(
+        discount_t * rho_t * lam * continue_t, delta, torch.zeros_like(delta[-1]), impl)
+    if stop_target_gradients:
+        # (rho . errors + v_tm1) - v_tm1, its first sum one multiply-add as
+        # XLA contracts it.
+        return _fma(rho_tm1, errors, v_tm1).detach() - v_tm1
+    return rho_tm1 * errors
+
+
+def vtrace_td_error_and_advantage(
+    v_tm1: torch.Tensor,
+    v_t: torch.Tensor,
+    r_t: torch.Tensor,
+    discount_t: torch.Tensor,
+    rho_tm1: torch.Tensor,
+    lambda_: Numeric = 1.0,
+    clip_rho_threshold: float = 1.0,
+    clip_pg_rho_threshold: float = 1.0,
+    stop_target_gradients: bool = True,
+    impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """V-trace (IMPALA, Espeholt et al. 2018), time-major over [0, T-1] and
+    [1, T] (trailing batch axes allowed): (errors = vs - v_tm1, pg_advantage =
+    min(clip_pg, rho) (r + g vs_{t+1} - v_tm1), q_estimate = r + g vs_{t+1}),
+    with vs - v_tm1 ONE recurrence with weights g lambda min(1, rho) over the
+    deltas min(clip_rho, rho) (r + g v_t - v_tm1)."""
+    rho_clipped = torch.clamp(rho_tm1, max=clip_rho_threshold)
+    lam = torch.broadcast_to(torch.as_tensor(lambda_, dtype=r_t.dtype, device=r_t.device),
+                             r_t.shape)
+    c_t = lam * torch.clamp(rho_tm1, max=1.0)
+    delta = rho_clipped * (_fma(discount_t, v_t, r_t) - v_tm1)
+    corrections = scan_kernels.linear_recurrence_reverse(
+        discount_t * c_t, delta, torch.zeros_like(delta[-1]), impl)
+    vs = corrections + v_tm1
+    vs_t = torch.cat([vs[1:], v_t[-1:]])
+    pg_rho = torch.clamp(rho_tm1, max=clip_pg_rho_threshold)
+    q_estimate = _fma(discount_t, vs_t, r_t)
+    pg_advantage = pg_rho * (q_estimate - v_tm1)
+    if stop_target_gradients:
+        return vs.detach() - v_tm1, pg_advantage.detach(), q_estimate.detach()
+    return vs - v_tm1, pg_advantage, q_estimate
+
+
+# The JAX module's batched names, so system files read as their counterparts.
+batch_truncated_generalized_advantage_estimation = truncated_generalized_advantage_estimation
+batch_lambda_returns = lambda_returns
+batch_discounted_returns = discounted_returns
+batch_n_step_bootstrapped_returns = n_step_bootstrapped_returns
+batch_general_off_policy_returns_from_q_and_v = general_off_policy_returns_from_q_and_v
+batch_retrace_continuous = retrace_continuous
+batch_q_lambda = q_lambda

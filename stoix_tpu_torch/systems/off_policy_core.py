@@ -11,7 +11,8 @@ One update step, in the JAX package's order, for every replica:
      `act_in_env(params, observation, generator, buffer_state)` (the buffer
      state lets a system key its epsilon schedule on `num_added`), each step
      stored as `store(last_timestep, action, timestep)` gives it (a
-     `Transition` by default);
+     `Transition` by default; an `act_in_env` that returns (action, extras)
+     has the extras handed to `store` too);
   2. the [T, E] steps added to the replica's buffer: an item buffer takes
      them time-major merged to T.E items; a trajectory buffer takes them as
      [E_u, T] trajectories, without their episode `info`;
@@ -58,10 +59,12 @@ from stoix_tpu_torch.utils.tree import tree_leaves, tree_map, tree_merge_leading
 # update_from_batch(params, opt_states, samples, generators)
 #     -> (params, opt_states, metrics, priorities).
 UpdateFn = Callable[..., Tuple]
-# act_in_env(params, observation, generator, buffer_state) -> action
-ActFn = Callable[[Any, Any, torch.Generator, Any], torch.Tensor]
-# store(last_timestep, action, timestep) -> what the buffer keeps of one step
-StoreFn = Callable[[Any, torch.Tensor, Any], Any]
+# act_in_env(params, observation, generator, buffer_state) -> action, or
+# (action, extras): a dict of per-env tensors the acting computed (MPO's
+# behaviour log-prob) that the step stores beside the action
+ActFn = Callable[[Any, Any, torch.Generator, Any], Any]
+# store(last_timestep, action, timestep[, extras]) -> what the buffer keeps of one step
+StoreFn = Callable[..., Any]
 
 
 def make_transition(last_timestep: Any, action: torch.Tensor, timestep: Any) -> Transition:
@@ -239,9 +242,14 @@ class OffPolicyLearner:
             parts = [act_in_env(p, anakin.env_group(observation, u, self.update_batch, 0),
                                      g, b)
                      for u, (p, g, b) in enumerate(zip(params, generators, buffers))]
+            extras = ()
+            if isinstance(parts[0], tuple):  # (action, what the acting also stores)
+                parts, acted = zip(*parts)
+                extras = (tree_map(lambda *xs: xs[0] if len(xs) == 1 else torch.cat(xs),
+                                   *acted),)
             action = parts[0] if len(parts) == 1 else torch.cat(parts)
             env_state, next_timestep = self.env.step(env_state, action)
-            transitions.append(self.store(timestep, action, next_timestep))
+            transitions.append(self.store(timestep, action, next_timestep, *extras))
             timestep = next_timestep
         traj = tree_stack(transitions)
         buffers = self.add(buffers, traj)

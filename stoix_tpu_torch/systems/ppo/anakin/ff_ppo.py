@@ -524,29 +524,38 @@ def make_apply_fn(network: torch.nn.Module) -> Callable[[Dict[str, torch.Tensor]
     return lambda params, observation: functional_call(network, params, (observation,))
 
 
-def build_networks(env: envs.Environment, config: Any, generator: torch.Generator):
-    """Actor/critic construction from the network config. Each module takes
-    its input width from the one before it; the weights draw from `generator`."""
-    from stoix_tpu_torch.networks.base import FeedForwardActor, FeedForwardCritic
-
-    net_cfg = config.network
-    dummy_obs = env.observation_value()
-
-    def build(cfg: Any, head_key: str, head_kwargs: dict):
-        input_layer = config_lib.instantiate(cfg.input_layer)
-        in_dim = int(input_layer(dummy_obs).shape[-1])
-        torso = config_lib.instantiate(cfg.pre_torso, input_dim=in_dim, generator=generator)
-        head = config_lib.instantiate(
-            cfg[head_key], input_dim=torso.output_dim, generator=generator, **head_kwargs
-        )
-        return head, torso, input_layer
-
-    actor_cfg = net_cfg.actor_network
-    actor_network = FeedForwardActor(
-        *build(actor_cfg, "action_head",
-               anakin.head_kwargs_for_env(actor_cfg.action_head, env))
+def _build(env: envs.Environment, cfg: Any, head_key: str, head_kwargs: dict,
+           generator: torch.Generator):
+    """(head, torso, input layer) of one network config, each module taking
+    its input width from the one before it."""
+    input_layer = config_lib.instantiate(cfg.input_layer)
+    in_dim = int(input_layer(env.observation_value()).shape[-1])
+    torso = config_lib.instantiate(cfg.pre_torso, input_dim=in_dim, generator=generator)
+    head = config_lib.instantiate(
+        cfg[head_key], input_dim=torso.output_dim, generator=generator, **head_kwargs
     )
-    critic_network = FeedForwardCritic(*build(net_cfg.critic_network, "critic_head", {}))
+    return head, torso, input_layer
+
+
+def build_actor(env: envs.Environment, config: Any, generator: torch.Generator):
+    """The FeedForwardActor of `network.actor_network`, its head taking the
+    env's action space; the weights draw from `generator`."""
+    from stoix_tpu_torch.networks.base import FeedForwardActor
+
+    actor_cfg = config.network.actor_network
+    return FeedForwardActor(*_build(env, actor_cfg, "action_head",
+                                    anakin.head_kwargs_for_env(actor_cfg.action_head, env),
+                                    generator))
+
+
+def build_networks(env: envs.Environment, config: Any, generator: torch.Generator):
+    """Actor/critic construction from the network config; the weights draw
+    from `generator`, the actor's first."""
+    from stoix_tpu_torch.networks.base import FeedForwardCritic
+
+    actor_network = build_actor(env, config, generator)
+    critic_network = FeedForwardCritic(*_build(env, config.network.critic_network,
+                                               "critic_head", {}, generator))
     return actor_network, critic_network
 
 

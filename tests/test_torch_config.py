@@ -101,8 +101,9 @@ def test_sequence_replay_config_trees_mirror_the_jax_package(name, overridden):
     _assert_mirrors(f"default/anakin/default_{name}.yaml", overrides)
 
 
-# The continuous actor-critics, REINFORCE and AWR (A12's first half): each
-# root as it is, and with other groups and options.
+# The continuous actor-critics, REINFORCE and AWR (A12's first half) and
+# MPO and V-MPO (its second half): each root as it is, and with other groups
+# and options.
 A12 = {
     "ff_ddpg": ["env=mountain_car_continuous", "system.exploration_sigma=0.3"],
     "ff_td3": ["system.policy_frequency=3", "arch.update_batch_size=2"],
@@ -112,6 +113,10 @@ A12 = {
     "ff_reinforce_continuous": ["network=mlp_mvn_continuous"],
     "ff_awr": ["env=identity_game", "system.multistep_impl=pallas"],
     "ff_awr_continuous": ["system.sample_period=2"],
+    "ff_mpo": ["env=identity_game", "system.multistep_impl=pallas", "system.num_samples=8"],
+    "ff_mpo_continuous": ["system.retrace_lambda=0.9", "arch.update_batch_size=2"],
+    "ff_vmpo": ["env=identity_game", "system.actor_target_period=10"],
+    "ff_vmpo_continuous": ["network=mlp_mpo_continuous", "system.multistep_impl=pallas"],
 }
 
 

@@ -1318,3 +1318,130 @@ def test_b1_generic_entry_from_awr_batch_major_view_matches_plain_version_bitwis
     want = multistep.lambda_returns(reward[:, :-1].cpu(), 0.99 * discount[:, :-1].cpu(),
                                     value[:, 1:].cpu(), 0.95, batch_major=True, impl="scan")
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------- MPO and V-MPO
+
+MPO_SMALL = ["network.actor_network.pre_torso.layer_sizes=[32,32]",
+             "network.critic_network.pre_torso.layer_sizes=[32,32]", "arch.total_num_envs=8",
+             "system.total_buffer_size=512", "system.total_batch_size=32",
+             "system.num_samples=8", "system.epochs=2", "system.actor_target_period=2",
+             "arch.num_updates_per_eval=1", "system.multistep_impl=pallas"]
+
+
+def _mpo_update(system, device):
+    """One MPO update (one `step` on [B, L] sequences, the normals drawn on
+    the CPU) or V-MPO update (two epochs on a [T, E] trajectory) on `device`
+    from the same params: (params, metrics)."""
+    import importlib
+
+    from stoix_tpu_torch import envs
+    from stoix_tpu_torch.envs.types import Observation
+    from stoix_tpu_torch.systems import anakin
+    from stoix_tpu_torch.utils import config as config_lib
+    from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
+    module = importlib.import_module(f"stoix_tpu_torch.systems.mpo.{system}")
+    cfg = check_total_timesteps(config_lib.compose(
+        config_lib.default_config_dir(), f"default/anakin/default_{system}.yaml", MPO_SMALL), 1)
+    setup = module.learner_setup(envs.make(cfg)[0], cfg, torch.device(device), 3)
+    continuous = system.endswith("continuous")
+    obs_dim, actions = (3, 1) if continuous else (4, 2)
+    gen = torch.Generator().manual_seed(7)
+
+    def obs(lead):
+        return Observation(torch.randn(lead + (obs_dim,), generator=gen),
+                           torch.ones(lead + (actions,)), torch.zeros(lead, dtype=torch.int32))
+
+    def action(lead):
+        if continuous:
+            return torch.rand(lead + (1,), generator=gen) * 3.8 - 1.9
+        return torch.randint(0, actions, lead, generator=gen, dtype=torch.int32)
+
+    state = setup.learner_state
+    if system.startswith("ff_vmpo"):
+        lead = (32, 8)
+        done = torch.rand(lead, generator=gen) < 0.1
+        traj = {"obs": obs(lead), "next_obs": obs(lead), "action": action(lead),
+                "reward": torch.randn(lead, generator=gen), "discount": (~done).float(),
+                "truncated": (torch.rand(lead, generator=gen) < 0.1) & ~done}
+        params, _, metrics = setup.learn.update(state.params, state.opt_states, _to(traj, device))
+        return params, metrics
+    lead = (32, int(cfg.system.sample_sequence_length))
+    batch = {"obs": obs(lead), "action": action(lead),
+             "log_prob": torch.randn(lead, generator=gen) * 0.5 - 1.0,
+             "reward": torch.randn(lead, generator=gen),
+             "discount": (torch.rand(lead, generator=gen) > 0.1).float()}
+    update = setup.learn.update_from_batch
+    noise = update.draw_noise(batch, torch.Generator().manual_seed(5))
+    params, _, metrics = update.step(anakin.split_replicas(state.params, 1),
+                                     anakin.split_replicas(state.opt_states, 1),
+                                     [_to(batch, device)], [_to(noise, device)])
+    return params[0], metrics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system", ["ff_mpo", "ff_mpo_continuous", "ff_vmpo",
+                                    "ff_vmpo_continuous"])
+def test_mpo_family_update_on_the_card_matches_the_cpu(system):
+    # Losses 1e-5 relative, params and duals 1e-5 absolute; an MPO step
+    # launches B1's generic entry once (Retrace), a V-MPO epoch its GAE entry
+    # once; nothing else.
+    from stoix_tpu_torch.utils.tree import tree_leaves
+    device = _require_cuda()
+    cpu_params, cpu_metrics = _mpo_update(system, "cpu")
+    before = {c.name: c.launches for c in lr.COUNTERS}
+    card_params, card_metrics = _mpo_update(system, device)
+    torch.cuda.synchronize()
+    launched = {c.name: c.launches - before[c.name] for c in lr.COUNTERS}
+    vmpo = system.startswith("ff_vmpo")
+    assert launched == {lr.KERNEL.name: int(not vmpo), lr.GAE_KERNEL.name: 2 * int(vmpo)}
+    for key, value in cpu_metrics.items():
+        torch.testing.assert_close(card_metrics[key].cpu(), value, rtol=1e-5, atol=1e-7)
+    for card, cpu in zip(tree_leaves(card_params), tree_leaves(cpu_params)):
+        torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("estimator", ["general", "retrace", "discounted", "importance",
+                                       "vtrace"])
+def test_new_estimators_on_the_card_match_the_cpu_scan_bitwise(estimator):
+    # Each through the dispatch (`pallas`): one launch of B1's generic entry
+    # on the card, bitwise the CPU's `scan`; Retrace at ff_mpo's [128, 8]
+    # sequences (a [6, 128] recurrence) with XLA's float32 exp on the card.
+    device = _require_cuda()
+    gen = torch.Generator().manual_seed(9)
+    rand = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
+    discount = 0.99 * (torch.rand((128, 8), generator=gen) > 0.1).float()
+    inputs = {
+        "general": (lambda *a, impl: multistep.general_off_policy_returns_from_q_and_v(
+            *a, impl=impl), (rand(128, 7), rand(128, 8), rand(128, 8), discount,
+                             torch.rand((128, 7), generator=gen))),
+        "retrace": (lambda *a, impl: multistep.retrace_continuous(*a, 0.95, impl=impl),
+                    (rand(128, 7), rand(128, 6), rand(128, 7), rand(128, 7), discount[:, :7],
+                     rand(128, 6) * 0.8)),
+        "discounted": (lambda *a, impl: multistep.discounted_returns(*a, impl=impl),
+                       (rand(8, 128), discount.T.contiguous(), rand(8, 128))),
+        "importance": (lambda *a, impl: multistep.importance_corrected_td_errors(
+            a[0], a[1], a[2], 0.9, a[3], impl=impl),
+            (rand(8, 128), discount.T.contiguous(), torch.exp(rand(8, 128) * 0.5), rand(9, 128))),
+        "vtrace": (lambda *a, impl: multistep.vtrace_td_error_and_advantage(*a, impl=impl),
+                   (rand(8, 128), rand(8, 128), rand(8, 128), discount.T.contiguous(),
+                    torch.exp(rand(8, 128) * 0.5))),
+    }
+    fn, args = inputs[estimator]
+    want = fn(*args, impl="scan")
+    before = (lr.KERNEL.launches, lr.GAE_KERNEL.launches)
+    got = fn(*(a.to(device) for a in args), impl="pallas")
+    torch.cuda.synchronize()
+    assert (lr.KERNEL.launches, lr.GAE_KERNEL.launches) == (before[0] + 1, before[1])
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_xla_exp_on_the_card_is_the_cpu_one_bitwise():
+    device = _require_cuda()
+    x = torch.cat([torch.randn(200_000, generator=torch.Generator().manual_seed(3)) * 3,
+                   torch.linspace(-120.0, 100.0, 20_001)])
+    assert torch.equal(multistep.xla_exp_f32(x.to(device)).cpu(), multistep.xla_exp_f32(x))

@@ -53,6 +53,13 @@ the 4-rank update step.
    "data": losses 1e-5 relative (REINFORCE's with an absolute floor of
    1e-6), params and `log_alpha` 1e-5 absolute; REINFORCE's actor and
    critic gradients in one all-reduce.
+9. Two epochs of the discrete ff_mpo (`MPOUpdate.step`) and of ff_vmpo
+   (`VMPOLearner.epoch`, `actor_target_period` 2) on 2 ranks, each on its
+   own sequences or trajectory, against the JAX package's own
+   `_update_epoch` under `shard_map` over "data" with `vmap` over "batch":
+   losses 1e-5 relative, params, targets and duals 1e-5 absolute, one
+   gradient all-reduce an epoch (the critic's, the actor's and the duals'
+   gradients in one).
 """
 
 import os
@@ -81,9 +88,11 @@ from stoix_tpu_torch.utils import checkpointing
 from test_torch_ff_ppo import IDENTITY_OVERRIDES, _trajectory, make_config
 from test_torch_q_ops import paired_q_networks
 import test_torch_ddpg
+import test_torch_mpo
 import test_torch_r2d2
 import test_torch_rainbow
 import test_torch_reinforce
+import test_torch_vmpo
 from test_torch_continuous import _paired_actor_critic, _trajectory as _pg_trajectory
 from torch_parity import paired_networks, to_flax_params
 from torch_ring_worker import spawn_ranks
@@ -266,6 +275,64 @@ def _pg_inputs():
     return nets, trajs
 
 
+MPO_EPOCHS = 2
+MPO = {"ff_mpo": test_torch_vmpo.SMALL + [
+           "arch.total_num_envs=8", f"system.sample_sequence_length={test_torch_mpo.SEQ}",
+           "system.total_buffer_size=1024", "system.total_batch_size=32"],
+       "ff_vmpo": test_torch_vmpo.SMALL + ["arch.total_num_envs=8",
+                                           "system.actor_target_period=2"]}
+
+
+def _mpo_inputs(system):
+    """The JAX package's `_update_epoch` of `system` (discrete), its params
+    (targets perturbed), the port's numpy params and each rank's sequences
+    (ff_mpo) or trajectory (ff_vmpo)."""
+    from stoix_tpu_torch import envs as port_envs
+    from stoix_tpu_torch.systems.mpo import ff_mpo
+    from stoix_tpu_torch.systems.ppo.anakin import ff_ppo
+    from stoix_tpu_torch.utils import config as port_config
+    from stoix_tpu_torch.utils.params import load_flax_params
+
+    root = f"default/anakin/default_{system}.yaml"
+    cfg = port_config.compose(port_config.default_config_dir(), root, MPO[system])
+    jcfg = jax_config.compose(jax_config.default_config_dir(), root, MPO[system])
+    tests = test_torch_mpo if system == "ff_mpo" else test_torch_vmpo
+    with pytest.MonkeyPatch.context() as patch:
+        update_epoch, jparams, jopt = tests.jax_learner(jcfg, patch)
+    actor = jparams.actor_params
+    jparams = jparams._replace(actor_params=actor._replace(
+        target=test_torch_ddpg.perturbed(actor.target, 1)))
+    env, _ = port_envs.make(cfg)
+    cfg.system.action_dim = env.num_actions
+
+    def numpy(network, flax_params):
+        load_flax_params(network, flax_params)
+        return {k: v.detach().numpy().copy() for k, v in network.named_parameters()}
+
+    if system == "ff_mpo":
+        jparams = jparams._replace(q_params=jparams.q_params._replace(
+            target=test_torch_ddpg.perturbed(jparams.q_params.target, 2)))
+        actor_net, q_net = ff_mpo.build_networks(env, cfg, torch.Generator(), False)
+        port = {"q": {side: numpy(q_net, getattr(jparams.q_params, side))
+                      for side in ("online", "target")}}
+        batches = [test_torch_mpo.sequences(40 + rank, env, False) for rank in range(2)]
+    else:
+        actor_net, critic_net = ff_ppo.build_networks(env, cfg, torch.Generator())
+        port = {"critic": numpy(critic_net, jparams.critic_params)}
+        batches = [test_torch_vmpo.trajectory(40 + rank, env, True) for rank in range(2)]
+    port["actor"] = {side: numpy(actor_net, getattr(jparams.actor_params, side))
+                     for side in ("online", "target")}
+    port.update(log_temperature=float(np.asarray(jparams.log_temperature)),
+                log_alpha=float(np.asarray(jparams.log_alpha)))
+    return update_epoch, jparams, jopt, port, batches
+
+
+def _mpo_job(system):
+    _, _, _, port, batches = _mpo_inputs(system)
+    return system, "mpo_step", dict(system=system, overrides=MPO[system], params=port,
+                                    batches=batches, epochs=MPO_EPOCHS)
+
+
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     root = tmp_path_factory.mktemp("dp2")
@@ -297,6 +364,8 @@ def two_ranks(tmp_path_factory):
           for system in ("ff_rainbow", "rec_r2d2")),
         _sac_job(),
         _reinforce_job(),
+        _mpo_job("ff_mpo"),
+        _mpo_job("ff_vmpo"),
     ]
     return root, spawn_ranks(jobs, 2, root)
 
@@ -735,3 +804,54 @@ def test_reinforce_step_on_two_ranks_matches_shard_map(two_ranks):
             jax.tree.map(lambda g, w: np.testing.assert_allclose(
                 g, np.asarray(w)[rank, 0], rtol=0, atol=1e-5), got_tree, want_params[side])
         assert got["allreduces"] == 1
+
+
+@pytest.mark.parametrize("system", ["ff_mpo", "ff_vmpo"])
+def test_mpo_family_epochs_on_two_ranks_match_shard_map(two_ranks, system):
+    update_epoch, jparams, jopt, _, batches = _mpo_inputs(system)
+    mesh = jax_create_mesh({"data": 2}, devices=jax.devices()[:2])
+    two = lambda tree: jax.tree.map(lambda x: jnp.stack([jnp.asarray(x)] * 2), tree)  # noqa
+    if system == "ff_mpo":
+        data = [test_torch_mpo.jax_sequences(b) for b in batches]
+        keys = (jax.random.split(jax.random.PRNGKey(11), 2),)
+    else:
+        data, keys = [test_torch_vmpo.jax_trajectory(b) for b in batches], ()
+    carry = (two(jparams), two(jopt), jax.tree.map(lambda *xs: jnp.stack(xs), *data), *keys)
+
+    def shard(carry):
+        return jax.vmap(update_epoch, axis_name="batch")(carry, None)
+
+    fn = jax.jit(shard_map(shard, mesh=mesh, in_specs=(P("data"),), out_specs=P("data"),
+                           check_vma=False))
+    want = []
+    for _ in range(MPO_EPOCHS):
+        carry, metrics = fn(carry)
+        want.append(jax.tree.map(np.asarray, metrics))
+    final = carry[0]
+    for rank, result in enumerate(two_ranks[1]):
+        got = result[system]
+        for epoch, metrics in enumerate(got["metrics"]):
+            for key, value in metrics.items():
+                np.testing.assert_allclose(value, want[epoch][key][rank], rtol=1e-5, atol=1e-7,
+                                           err_msg=key)
+        pairs = [("actor", final.actor_params, jparams.actor_params.online)]
+        if system == "ff_mpo":
+            pairs.append(("q", final.q_params, jparams.q_params.online))
+        else:
+            np.testing.assert_equal(int(got["params"]["step_count"]), MPO_EPOCHS)
+            got_tree = to_flax_params({k: torch.from_numpy(v) for k, v in
+                                       got["params"]["critic_params"].items()},
+                                      jparams.critic_params)
+            jax.tree.map(lambda g, w: np.testing.assert_allclose(
+                g, np.asarray(w)[rank], rtol=0, atol=1e-5), got_tree, final.critic_params)
+        for name, tree, like in pairs:
+            for side in ("online", "target"):
+                got_tree = to_flax_params(
+                    {k: torch.from_numpy(v) for k, v in
+                     getattr(got["params"][f"{name}_params"], side).items()}, like)
+                jax.tree.map(lambda g, w: np.testing.assert_allclose(
+                    g, np.asarray(w)[rank], rtol=0, atol=1e-5), got_tree, getattr(tree, side))
+        for name in ("log_temperature", "log_alpha"):
+            np.testing.assert_allclose(got["params"][name], np.asarray(getattr(final, name))[rank],
+                                       rtol=0, atol=1e-5)
+        assert got["allreduces"] == MPO_EPOCHS

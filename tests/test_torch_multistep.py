@@ -134,3 +134,166 @@ def test_shape_mismatch_raises():
         tms.truncated_generalized_advantage_estimation(
             t(r), t(discount), 0.95, v_tm1=t(v_tm1), v_t=t(v_t[:-1])
         )
+
+
+# ---------------------------------------------------------------- the other estimators
+#
+# The rest of the JAX module: the general off-policy return, Retrace,
+# discounted returns, the importance-corrected TD errors and V-trace, each
+# against `jax.jit` of its JAX counterpart (the 1-D V-trace and
+# importance-corrected errors under `jax.vmap` over the batch axis), under
+# the port's `scan` and `pallas` (on the CPU the kernel's plain version):
+# bitwise, every fused multiply-add XLA contracts stated, and Retrace's exp
+# of the log-ratios XLA's own float32 exp.
+
+
+def _sequences(seed, batch=130, k=17):
+    rng = np.random.default_rng(seed)
+    normal = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+    discount = (0.99 * (rng.uniform(size=(batch, k)) > 0.1)).astype(np.float32)
+    return normal, rng, discount
+
+
+def _count_generic_calls(monkeypatch):
+    from stoix_tpu_torch.kernels import linear_recurrence
+
+    calls = []
+    original = linear_recurrence.linear_recurrence_reverse
+
+    def counted(weight, delta, init):
+        calls.append(tuple(weight.shape))
+        return original(weight, delta, init)
+
+    monkeypatch.setattr(linear_recurrence, "linear_recurrence_reverse", counted)
+    return calls
+
+
+@pytest.mark.parametrize("batch_major", [True, False])
+@pytest.mark.parametrize("impl", ["scan", "pallas"])
+def test_general_off_policy_returns_and_retrace_match_jax_bitwise(impl, batch_major,
+                                                                  monkeypatch):
+    normal, rng, discount = _sequences(11)
+    q_tm1, q_t, v_t, r_t = normal(130, 17), normal(130, 16), normal(130, 17), normal(130, 17)
+    c_t = rng.uniform(size=(130, 16)).astype(np.float32)
+    log_rhos = normal(130, 16) * 0.8
+    inputs = dict(general=(q_t, v_t, r_t, discount, c_t),
+                  retrace=(q_tm1[:, :-1], q_t[:, :-1], v_t[:, 1:], r_t[:, :-1],
+                           discount[:, :-1], log_rhos[:, :-1]))
+    if not batch_major:
+        inputs = {k: tuple(x.T.copy() for x in v) for k, v in inputs.items()}
+    calls = _count_generic_calls(monkeypatch)
+    want = jax.jit(functools.partial(jms.general_off_policy_returns_from_q_and_v,
+                                     batch_major=batch_major, impl="scan"))(*inputs["general"])
+    got = tms.general_off_policy_returns_from_q_and_v(*map(t, inputs["general"]),
+                                                      batch_major=batch_major, impl=impl)
+    np.testing.assert_array_equal(n(got), np.asarray(want))
+    want = jax.jit(functools.partial(jms.retrace_continuous, lambda_=0.95,
+                                     batch_major=batch_major, impl="scan"))(*inputs["retrace"])
+    got = tms.retrace_continuous(*map(t, inputs["retrace"]), 0.95, batch_major=batch_major,
+                                 impl=impl)
+    np.testing.assert_array_equal(n(got), np.asarray(want))
+    assert got.shape == inputs["retrace"][0].shape
+    # One recurrence each, over K - 1 steps of the time-major view.
+    assert calls == ([(16, 130), (15, 130)] if impl == "pallas" else [])
+
+
+def test_retrace_target_carries_no_gradient_and_q_tm1_does():
+    normal, _, discount = _sequences(12, batch=4, k=6)
+    q_tm1 = t(normal(4, 5)).requires_grad_(True)
+    q_t = t(normal(4, 4)).requires_grad_(True)
+    errors = tms.retrace_continuous(q_tm1, q_t, t(normal(4, 5)), t(normal(4, 5)),
+                                    t(discount[:, :5]), t(normal(4, 4)), 0.9)
+    errors.sum().backward()
+    assert q_t.grad is None
+    assert np.array_equal(n(q_tm1.grad), -np.ones((4, 5), np.float32))
+
+
+def test_xla_exp_is_jax_exp_bitwise():
+    """XLA's float32 exp is not correctly rounded; the port states its
+    algorithm, bitwise on 200 000 normals, through the underflow edge, the
+    overflow edge and the specials."""
+    rng = np.random.default_rng(3)
+    x = np.concatenate([
+        (rng.normal(size=200_000) * 3).astype(np.float32),
+        np.linspace(-120.0, 100.0, 20_001, dtype=np.float32),
+        np.array([0.0, -0.0, 1e-30, -87.33654, -87.33655, 88.72283, 88.72284, np.inf,
+                  -np.inf], np.float32)])
+    want = np.asarray(jax.jit(jnp.exp)(x))
+    got = n(tms.xla_exp_f32(t(x)))
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(n(tms.xla_exp_f32(t(np.array([np.nan], np.float32))))).all()
+
+
+@pytest.mark.parametrize("batch_major", [False, True])
+@pytest.mark.parametrize("impl", ["scan", "pallas"])
+def test_discounted_returns_match_jax_bitwise(impl, batch_major):
+    normal, rng, _ = _sequences(13)
+    r = normal(17, 40)
+    discount = (0.9 * (rng.uniform(size=(17, 40)) > 0.1)).astype(np.float32)
+    if batch_major:
+        r, discount = r.T.copy(), discount.T.copy()
+    for v_t in (0.5, normal(*r.shape)):
+        want = jax.jit(lambda a, b, v: jms.discounted_returns(a, b, v, batch_major=batch_major,
+                                                              impl="scan"))(r, discount, v_t)
+        got = tms.discounted_returns(t(r), t(discount), v_t if isinstance(v_t, float) else t(v_t),
+                                     batch_major=batch_major, impl=impl)
+        np.testing.assert_array_equal(n(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("stop", [False, True])
+@pytest.mark.parametrize("impl", ["scan", "pallas"])
+def test_importance_corrected_td_errors_match_vmapped_jax_bitwise(impl, stop):
+    normal, rng, _ = _sequences(14)
+    r, values = normal(17, 40), normal(18, 40)
+    discount = (0.9 * (rng.uniform(size=(17, 40)) > 0.1)).astype(np.float32)
+    rho = np.exp(normal(17, 40) * 0.5).astype(np.float32)
+    truncation = (rng.uniform(size=(17, 40)) < 0.1).astype(np.float32)
+    for trunc in (truncation, None):
+        fn = jax.vmap(lambda a, b, c, d, e: jms.importance_corrected_td_errors(
+            a, b, c, 0.9, d, e, stop_target_gradients=stop, impl="scan"), in_axes=1, out_axes=1)
+        want = jax.jit(fn)(r, discount, rho, values, truncation if trunc is None else trunc)
+        if trunc is None:
+            want = jax.jit(jax.vmap(lambda a, b, c, d: jms.importance_corrected_td_errors(
+                a, b, c, 0.9, d, stop_target_gradients=stop, impl="scan"), in_axes=1,
+                out_axes=1))(r, discount, rho, values)
+        got = tms.importance_corrected_td_errors(
+            t(r), t(discount), t(rho), 0.9, t(values), None if trunc is None else t(trunc),
+            stop_target_gradients=stop, impl=impl)
+        np.testing.assert_array_equal(n(got), np.asarray(want))
+    # The 1-D form is the JAX function's own.
+    want = jax.jit(lambda a, b, c, d: jms.importance_corrected_td_errors(
+        a, b, c, 0.9, d, stop_target_gradients=stop))(r[:, 0], discount[:, 0], rho[:, 0],
+                                                      values[:, 0])
+    got = tms.importance_corrected_td_errors(t(r[:, 0]), t(discount[:, 0]), t(rho[:, 0]), 0.9,
+                                             t(values[:, 0]), stop_target_gradients=stop,
+                                             impl=impl)
+    np.testing.assert_array_equal(n(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("stop", [True, False])
+@pytest.mark.parametrize("impl", ["scan", "pallas"])
+def test_vtrace_matches_vmapped_jax_bitwise(impl, stop):
+    normal, rng, _ = _sequences(15)
+    v_tm1, v_t, r = normal(17, 40), normal(17, 40), normal(17, 40)
+    discount = (0.99 * (rng.uniform(size=(17, 40)) > 0.1)).astype(np.float32)
+    rho = np.exp(normal(17, 40) * 0.7).astype(np.float32)
+    want = jax.jit(jax.vmap(lambda a, b, c, d, e: jms.vtrace_td_error_and_advantage(
+        a, b, c, d, e, 0.95, 1.2, 0.8, stop, impl="scan"), in_axes=1, out_axes=1))(
+        v_tm1, v_t, r, discount, rho)
+    got = tms.vtrace_td_error_and_advantage(t(v_tm1), t(v_t), t(r), t(discount), t(rho), 0.95,
+                                            1.2, 0.8, stop, impl=impl)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(n(g), np.asarray(w))
+
+
+def test_port_exports_every_estimator_of_the_jax_module():
+    import stoix_tpu.ops as jax_ops
+    import stoix_tpu_torch.ops as port_ops
+
+    names = [k for k in dir(jms) if not k.startswith("_") and callable(getattr(jms, k))
+             and getattr(getattr(jms, k), "__module__", "") == jms.__name__]
+    assert len(names) >= 16
+    for name in names:
+        assert callable(getattr(tms, name)), name
+        if name in jax_ops.__all__:
+            assert name in port_ops.__all__, name

@@ -351,7 +351,59 @@ def reinforce_step(mesh_for, overrides, obs_dim, num_actions, actor_params, crit
             "allreduces": counter.value(labels={"kind": "gradients"}) - before}
 
 
+def _mpo_batch(d: dict) -> dict:
+    return {"obs": _observation(d["obs"]),
+            **{k: torch.from_numpy(v) for k, v in d.items() if k not in ("obs", "next_obs")},
+            **({"next_obs": _observation(d["next_obs"])} if "next_obs" in d else {})}
+
+
+def mpo_step(mesh_for, system, overrides, params, batches, epochs):
+    """`epochs` epochs of this rank's discrete ff_mpo (`MPOUpdate.step`, on
+    `batches[rank]`) or ff_vmpo (`VMPOLearner.epoch`, on the trajectory
+    `batches[rank]`) from the given port params: params, duals, metrics
+    and the gradient all-reduces."""
+    from stoix_tpu_torch.systems.ddpg import ff_ddpg
+    from stoix_tpu_torch.systems.mpo import ff_mpo, ff_vmpo
+
+    rank = dist.get_rank()
+    cfg = check_total_timesteps(_config(system, overrides), dist.get_world_size())
+    env, _ = envs.make(cfg)
+    cfg.system.action_dim = env.num_actions
+    duals = (torch.tensor(params["log_temperature"]), torch.tensor(params["log_alpha"]))
+    pair = lambda key: OnlineAndTarget(_tensors(params[key]["online"]),  # noqa: E731
+                                       _tensors(params[key]["target"]))
+    batch = _mpo_batch(batches[rank])
+    if system == "ff_mpo":
+        actor, q_network = ff_mpo.build_networks(env, cfg, torch.Generator(), False)
+        optims = ff_mpo.make_optimizers(cfg)
+        update = ff_mpo.MPOUpdate(ff_ddpg.make_apply(actor), ff_ddpg.make_apply(q_network),
+                                  optims, cfg, False)
+        state = ff_mpo.MPOParams(pair("actor"), pair("q"), *duals)
+        opt = ff_mpo.MPOOptStates(optims[0].init(state.actor_params.online),
+                                  optims[1].init(state.q_params.online),
+                                  optims[2].init(ff_mpo.dual_params(*duals)))
+        step = lambda p, o: update.step(p, o, [batch], [None])  # noqa: E731
+    else:
+        actor, critic = ff_ppo.build_networks(env, cfg, torch.Generator())
+        optims = ff_vmpo.make_optimizers(cfg)
+        learner = ff_vmpo.VMPOLearner(env, (ff_ppo.make_apply_fn(actor),
+                                            ff_ppo.make_apply_fn(critic)), optims, cfg, False)
+        state = ff_vmpo.VMPOParams(pair("actor"), _tensors(params["critic"]), *duals, 0)
+        opt = ff_vmpo.VMPOOptStates(optims[0].init(state.actor_params.online),
+                                    optims[1].init(state.critic_params),
+                                    optims[2].init(ff_vmpo.dual_params(*duals)))
+        step = lambda p, o: learner.epoch(p, o, batch)  # noqa: E731
+    counter = anakin.allreduce_counter()
+    before = counter.value(labels={"kind": "gradients"})
+    states, opts, metrics = [state], [opt], []
+    for _ in range(epochs):
+        states, opts, info = step(states, opts)
+        metrics.append({k: float(v) for k, v in info.items()})
+    return {"params": _numpy(states[0]._asdict()), "metrics": metrics,
+            "allreduces": counter.value(labels={"kind": "gradients"}) - before}
+
+
 DP_KINDS = {"mesh_helpers": mesh_helpers, "ppo_step": ppo_step, "statistics": statistics,
             "dqn_step": dqn_step, "sequence_step": sequence_step,
             "sequence_buffer": sequence_buffer, "run": run, "saved_state": saved_state,
-            "sac_step": sac_step, "reinforce_step": reinforce_step}
+            "sac_step": sac_step, "reinforce_step": reinforce_step, "mpo_step": mpo_step}
