@@ -232,13 +232,41 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    the top halves index for index.
  30. vmpo_learn  — ff_vmpo trains IdentityGame above 8.0 (64 envs, 32 768
                    steps; the JAX package returns 10.0 there).
+ 31. mcts        — the batched MCTS (stoix_tpu_torch/search/mcts.py) on the
+                   card against the same calls on the CPU: a random tabular
+                   MDP from a numpy seed, B = 64, A = 4, 50 simulations,
+                   max_depth 50 and 4, muzero_policy and gumbel_muzero_policy;
+                   the tree's integer arrays and the actions equal, its float
+                   arrays, weights and values within 1e-6 (whether bitwise is
+                   printed); device launches a search (torch.profiler).
+ 32. search_train — ff_az (64 CartPole envs, T = 8, 16 simulations, MLPs
+                   256 x 256), also with search_method=gumbel and with
+                   use_replay_buffer=true, ff_mz (25 simulations, a world model
+                   of 64 with an LSTM, 601 atoms), ff_sampled_az and
+                   ff_sampled_mz (64 Pendulum envs, 50 simulations, K = 8) at
+                   their default configs, SEARCH_UPDATES updates in 2 windows
+                   with multistep_impl=pallas, every kernel counter zeroed just
+                   before and read just after: exactly 1, 1, 4, 0, 64 and 0
+                   launches of B1's GAE entry an update, 0 of every other
+                   kernel; env-steps/s a window, device launches a searched
+                   step and an update, the buffer's device bytes, an update's
+                   peak device bytes, one update or epoch on the card against
+                   the CPU (losses 1e-5 relative, params 1e-5 absolute). Then
+                   B1's GAE entry timed at ff_az's [8, 64] and at the replay
+                   paths' [7, 32] from a batch-major view.
+ 33. az_learn    — ff_az trains IdentityGame above 8.0 (64 envs, 16 384 steps,
+                   8 simulations; the JAX package returns 10.0 there).
+ 34. mz_learn    — ff_mz trains IdentityGame above 8.0 (16 envs, 16 384 steps,
+                   8 simulations, 16 epochs of sequences of 3 at lr 1e-2; the
+                   JAX package returns 10.0 there).
 
 The learning oracles (learn, trans_learn, q_learn, cont_learn, rec_learn,
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
-vmpo_learn) run last, after every timed phase, each in a child process of
-this script (`--learn-phase NAME`), LEARN_WORKERS at a time, the longest
-first; a `learn_all` line gives their wall time. Then a `{"kernels": [...]}` line, the card's `nvidia-smi` name and power
-limit, and last `{"ok": true, "device": {...}}`.
+vmpo_learn, az_learn, mz_learn) run last, after every timed phase, each in a
+child process of this script (`--learn-phase NAME`), LEARN_WORKERS at a
+time, the longest first; a `learn_all` line gives their wall time. Then a
+`{"kernels": [...]}` line, the card's `nvidia-smi` name and power limit, and
+last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -278,7 +306,7 @@ from stoix_tpu_torch.systems.q_learning import (
 )
 from stoix_tpu_torch.utils import config as config_lib
 from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
-from stoix_tpu_torch.utils.tree import tree_leaves, tree_map
+from stoix_tpu_torch.utils.tree import tree_leaves, tree_map, tree_stack
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor-core) peak.
 HBM_BYTES_PER_S = 3.35e12
@@ -317,8 +345,12 @@ def cpu_torso_reference(torso: torch.nn.Module, x: torch.Tensor):
     return out.detach().float(), [p.grad.float() for p in ref.parameters()]
 
 
+START = time.perf_counter()
+
+
 def emit(record: dict) -> None:
-    print(json.dumps(record), flush=True)
+    """One JSON line, with the seconds since this process started."""
+    print(json.dumps({**record, "elapsed_s": time.perf_counter() - START}), flush=True)
 
 
 def cuda_ms(fn, repeats: int = 21, inner: int = 50, warmup: int = 10) -> float:
@@ -2274,7 +2306,8 @@ def _a12_module(name: str):
 
     package = {"ff_ddpg": "ddpg", "ff_td3": "ddpg", "ff_d4pg": "ddpg", "ff_sac": "sac",
                "ff_reinforce": "vpg", "ff_reinforce_continuous": "vpg", "ff_awr": "awr",
-               "ff_awr_continuous": "awr", **dict.fromkeys(MPO_ROOTS, "mpo")}[name]
+               "ff_awr_continuous": "awr", **dict.fromkeys(MPO_ROOTS, "mpo"),
+               **dict.fromkeys(SEARCH_ROOTS, "search")}[name]
     return importlib.import_module(f"stoix_tpu_torch.systems.{package}.{name}")
 
 
@@ -2565,6 +2598,305 @@ def phase_mpo_train(smi: str, family: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------- A13: batched MCTS and search
+
+SEARCH_ROOTS = {name: f"default/anakin/default_{name}.yaml"
+                for name in ("ff_az", "ff_mz", "ff_sampled_az", "ff_sampled_mz")}
+# ff_az's and ff_mz's IdentityGame oracles at the sweep's 8 simulations (64
+# envs, 16 384 steps; 16 envs, 16 384 steps, a 4 096-step buffer, batches of
+# 64 sequences of 3, lr 1e-2, 16 epochs): the JAX package returns 10.0 there
+# for seeds 42 and 1 (scripts/jax_oracle_thresholds.py --oracles az mz),
+# uniform random actions 2.5; the threshold is 8.0.
+AZ_IDENTITY = ["env=identity_game", "arch.total_num_envs=64", "arch.total_timesteps=16384",
+               "system.num_simulations=8", "arch.num_evaluation=1",
+               "arch.num_eval_episodes=32", "arch.evaluation_greedy=True",
+               "arch.absolute_metric=False", "system.multistep_impl=pallas",
+               "logger.use_console=False"]
+MZ_IDENTITY = ["env=identity_game", "arch.total_num_envs=16", "arch.total_timesteps=16384",
+               "system.total_buffer_size=4096", "system.total_batch_size=64",
+               "system.sample_sequence_length=3", "system.lr=1e-2", "system.epochs=16",
+               "system.num_simulations=8", "arch.num_evaluation=1",
+               "arch.num_eval_episodes=32", "arch.evaluation_greedy=True",
+               "arch.absolute_metric=False", "system.multistep_impl=pallas",
+               "logger.use_console=False"]
+SEARCH_THRESHOLD = 8.0
+# The search paths: (label, system, overrides, B1 GAE launches an update).
+SEARCH_RUNS = (("ff_az", "ff_az", [], 1),
+               ("ff_az_gumbel", "ff_az", ["system.search_method=gumbel"], 1),
+               ("ff_az_replay", "ff_az", ["system.use_replay_buffer=true"], 4),
+               ("ff_mz", "ff_mz", [], 0),
+               ("ff_sampled_az", "ff_sampled_az", [], 64),
+               ("ff_sampled_mz", "ff_sampled_mz", [], 0))
+SEARCH_UPDATES = 2  # one a window: a sampled path's update takes 15-18 s
+MCTS_BATCH, MCTS_ACTIONS, MCTS_SIMULATIONS, MCTS_STATES = 64, 4, 50, 16
+
+
+def _search_module(name: str):
+    import importlib
+
+    return importlib.import_module(f"stoix_tpu_torch.systems.search.{name}")
+
+
+def _tabular(device, seed: int = 0):
+    """A random tabular MDP (numpy `seed`) and B roots on `device`: (root,
+    recurrent_fn)."""
+    import numpy as np
+
+    from stoix_tpu_torch.search import mcts
+
+    rng = np.random.default_rng(seed)
+    b, a, n = MCTS_BATCH, MCTS_ACTIONS, MCTS_STATES
+    table = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in dict(
+        T=rng.integers(0, n, (n, a)), R=rng.normal(size=(n, a)).astype(np.float32),
+        D=((rng.random((n, a)) > 0.2) * 0.99).astype(np.float32),
+        L=rng.normal(size=(n, a)).astype(np.float32),
+        V=rng.normal(size=n).astype(np.float32)).items()}
+    root = mcts.RootFnOutput(
+        torch.from_numpy(rng.normal(size=(b, a)).astype(np.float32)).to(device),
+        torch.from_numpy(rng.normal(size=b).astype(np.float32)).to(device),
+        torch.from_numpy(rng.integers(0, n, b)).to(device))
+
+    def recurrent_fn(params, noise, action, state):
+        nxt = table["T"][state, action]
+        return mcts.RecurrentFnOutput(table["R"][state, action], table["D"][state, action],
+                                      table["L"][nxt], table["V"][nxt]), nxt
+
+    return root, recurrent_fn
+
+
+def _tabular_search(device, policy: str, max_depth: int):
+    """(the searched tree, the policy's output) on `device`, the noise drawn
+    on the CPU from seed 1."""
+    from stoix_tpu_torch.search import mcts
+
+    root, recurrent_fn = _tabular(device)
+    noise = mcts.draw_noise(torch.Generator().manual_seed(1), MCTS_BATCH, MCTS_ACTIONS, 0.25)
+    noise = mcts.SearchNoise(*(x if x is None else x.to(device) for x in noise))
+    if policy == "muzero":
+        out = mcts.muzero_policy(None, noise, root, recurrent_fn, MCTS_SIMULATIONS,
+                                 max_depth=max_depth)
+        searched = mcts._root_with_noise(root, noise.dirichlet, 0.25)
+    else:
+        out = mcts.gumbel_muzero_policy(None, noise, root, recurrent_fn, MCTS_SIMULATIONS,
+                                        max_depth=max_depth)
+        perturbed = noise.gumbel + root.prior_logits
+        threshold = perturbed.sort(-1).values[..., -MCTS_ACTIONS][..., None]
+        searched = root._replace(prior_logits=torch.where(perturbed >= threshold,
+                                                          root.prior_logits, -math.inf))
+    tree = mcts.search(None, searched, recurrent_fn, MCTS_SIMULATIONS, max_depth, 1.25, 19652.0)
+    return tree, out, (root, recurrent_fn, noise)
+
+
+def phase_mcts(smi: str) -> None:
+    """The batched MCTS on the card against the same calls on the CPU: a
+    random tabular MDP from a numpy seed, B = 64, A = 4, 50 simulations,
+    max_depth 50 and 4, muzero_policy and gumbel_muzero_policy; the tree's
+    integer arrays and the actions equal, its float arrays and the weights
+    and values within 1e-6 (recorded: whether bitwise); then device launches
+    a search (torch.profiler) and its time."""
+    from stoix_tpu_torch.search import mcts
+
+    for max_depth in (MCTS_SIMULATIONS, 4):
+        for policy in ("muzero", "gumbel"):
+            cpu_tree, cpu_out, _ = _tabular_search(torch.device("cpu"), policy, max_depth)
+            card_tree, card_out, (root, recurrent_fn, noise) = _tabular_search(
+                torch.device("cuda"), policy, max_depth)
+            torch.cuda.synchronize()
+            for name in ("visits", "parent", "action_from_parent", "children", "embeddings"):
+                if not torch.equal(getattr(card_tree, name).cpu(), getattr(cpu_tree, name)):
+                    raise AssertionError(f"mcts {policy} depth {max_depth}: {name} differs")
+            if not torch.equal(card_out.action.cpu(), cpu_out.action):
+                raise AssertionError(f"mcts {policy} depth {max_depth}: actions differ")
+            floats = {name: (getattr(card_tree, name).cpu(), getattr(cpu_tree, name))
+                      for name in ("values", "priors", "rewards", "discounts")}
+            floats.update({name: (getattr(card_out, name).cpu(), getattr(cpu_out, name))
+                           for name in ("action_weights", "search_value")})
+            errors = {name: float((g - w).abs().max()) for name, (g, w) in floats.items()}
+            if max(errors.values()) > 1e-6:
+                raise AssertionError(f"mcts {policy} depth {max_depth}: {errors}")
+            fn = partial(mcts.muzero_policy if policy == "muzero" else mcts.gumbel_muzero_policy,
+                         None, noise, root, recurrent_fn, MCTS_SIMULATIONS, max_depth=max_depth)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            launches = sum(1 for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+            emit({"phase": "mcts", "policy": policy, "batch": MCTS_BATCH,
+                  "actions": MCTS_ACTIONS, "simulations": MCTS_SIMULATIONS,
+                  "max_depth": max_depth, "integer_arrays_equal": True,
+                  "float_max_abs_err": errors,
+                  "bitwise": all(torch.equal(g, w) for g, w in floats.values()),
+                  "orphans": int(((cpu_tree.visits == 0) & (cpu_tree.parent >= 0)).sum()),
+                  "device_launches_per_search": launches, "seconds_per_search": seconds,
+                  "card": smi})
+
+
+def _search_update_parts(setup, state) -> tuple:
+    """One searched env step, then the rest of an update on T copies of its
+    output (the buffer's add and the epochs, or the on-policy update), each
+    counted by torch.profiler (device launches) and their peak device bytes
+    read: (record, the state with the steps added, the [T, E] trajectory)."""
+    learner = setup.learn
+
+    def count(fn):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA), out
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step, (state, data) = count(lambda: learner.env_step(state))
+    traj = tree_stack([data] * learner.rollout_length)
+    if hasattr(state, "buffer_state"):
+        def rest():
+            buffers = learner.add(anakin.per_replica(state.buffer_state, learner.update_batch),
+                                  traj)
+            added = state._replace(buffer_state=anakin.join_per_replica(buffers))
+            return added, learner.update(added)
+        update, (state, _) = count(rest)
+    else:
+        update, _ = count(lambda: learner.update(state.params, state.opt_states, traj,
+                                                 state.generator))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    record = {"device_launches": {"env_step": step, "update": update,
+                                  "per_update": learner.rollout_length * step + update},
+              "update_device_bytes": {"peak_bytes": peak, "above_state_bytes": peak - before}}
+    return record, state, traj
+
+
+def _search_update_on_card_and_cpu(name: str, config, setup, state, traj) -> dict:
+    """ff_az's on-policy update (fixed permutations) on `traj`, or one
+    replay epoch on sequences sampled on the card, run by the card's
+    learner and by the same learner built on the CPU, from the same params:
+    losses 1e-5 relative, params 1e-5 absolute, and B1's launches on the
+    card."""
+    lr = linear_recurrence
+    module = _search_module(name)
+    cpu_setup = module.learner_setup(envs.make(config)[0], config, torch.device("cpu"),
+                                     int(config.arch.seed))
+    move = partial(tree_map, lambda x: x.cpu())
+    if not hasattr(state, "buffer_state"):
+        perms = [torch.randperm(traj.reward.numel(), generator=torch.Generator().manual_seed(e))
+                 for e in range(int(config.system.epochs))]
+        before = _counts(lr.COUNTERS)
+        card = setup.learn.update(state.params, state.opt_states, traj,
+                                  permutations=[p.cuda() for p in perms])
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _counts(lr.COUNTERS).items()}
+        cpu = cpu_setup.learn.update(move(state.params), move(state.opt_states), move(traj),
+                                     permutations=perms)
+        card, cpu = (card[0], card[2]), (cpu[0], cpu[2])
+        shape = list(traj.reward.shape)
+    else:
+        batch = setup.learn.buffer.sample(state.buffer_state, state.generator).experience
+        before = _counts(lr.COUNTERS)
+        out = setup.learn.update_from_batch([state.params], [state.opt_states], [batch])
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in _counts(lr.COUNTERS).items()}
+        ref = cpu_setup.learn.update_from_batch([move(state.params)], [move(state.opt_states)],
+                                                [move(batch)])
+        card, cpu = (out[0][0], out[2]), (ref[0][0], ref[2])
+        shape = list(batch["reward"].shape)
+    want = {lr.KERNEL.name: 0, lr.GAE_KERNEL.name: int(name.endswith("az"))}
+    if launched != want:
+        raise AssertionError(f"{name}'s update on the card launched {launched}, not {want}")
+    loss_err = max(_relative(card[1][k], cpu[1][k]) for k in cpu[1] if k.endswith("loss"))
+    param_err = _max_err(card[0], cpu[0])
+    if not (loss_err <= 1e-5 and param_err <= 1e-5):
+        raise AssertionError(f"{name}'s update on the card is not the CPU's: loss {loss_err}, "
+                             f"params {param_err}")
+    return {"batch_shape": shape, "b1_launches": launched, "loss_relative_err": loss_err,
+            "params_abs_err": param_err}
+
+
+def phase_search_train(smi: str) -> dict:
+    """ff_az (64 CartPole envs, T = 8, 16 simulations, MLPs 256 x 256; also
+    with `search_method=gumbel` and with `use_replay_buffer=true`), ff_mz (25
+    simulations in a world model of 64 with an LSTM and 601 atoms), and
+    ff_sampled_az and ff_sampled_mz (64 Pendulum envs, 50 simulations, K = 8)
+    at their default configs, SEARCH_UPDATES updates in 2 windows through
+    `run_experiment` with `system.multistep_impl=pallas`, every kernel counter
+    zeroed just before and read just after: B1's GAE entry 1 / 1 / 4 / 0 /
+    64 / 0 launches an update, nothing else; env-steps/s a window, device
+    launches an update (a searched step's and the rest's, torch.profiler),
+    B1's launches an update, the buffer's device bytes, the peak device
+    bytes of a step and the rest of an update, and one update or epoch on
+    the card against the CPU. Returns each path's kernel launches."""
+    lr = linear_recurrence
+    common = [f"arch.num_updates={SEARCH_UPDATES}", "arch.num_evaluation=2",
+              "arch.num_eval_episodes=16", "system.multistep_impl=pallas",
+              "logger.use_console=False"]
+    launches = {}
+    for label, name, extra, gae_launches in SEARCH_RUNS:
+        want = {lr.GAE_KERNEL.name: gae_launches} if gae_launches else {}
+        record = _path_run(name, SEARCH_ROOTS[name], common + extra, want, "search_train", smi,
+                           False)
+        record["path"] = label
+        config = check_total_timesteps(compose(common + extra, SEARCH_ROOTS[name]), 1)
+        setup = _search_module(name).learner_setup(envs.make(config)[0], config,
+                                                   torch.device("cuda"), int(config.arch.seed))
+        parts, state, traj = _search_update_parts(setup, setup.learner_state)
+        record.update(parts)
+        record["b1_launches_per_update"] = {k: v / record["updates"]
+                                            for k, v in record["kernel_launches"].items()
+                                            if k in (lr.KERNEL.name, lr.GAE_KERNEL.name)}
+        if hasattr(state, "buffer_state"):
+            record["buffer_device_bytes"] = _tree_bytes(state.buffer_state)
+        record["update_on_card_vs_cpu"] = _search_update_on_card_and_cpu(name, config, setup,
+                                                                         state, traj)
+        emit(record)
+        launches[label] = record["kernel_launches"]
+    return launches
+
+
+def search_gae_shapes() -> list:
+    """B1's GAE entry at the search paths' shapes: ff_az's [8, 64] (a
+    rollout) and the replay paths' [7, 32] from a batch-major [32, 8] view
+    (the dispatch's contiguous copies included in its call), each a launch
+    replayed from a CUDA graph and a call from Python, beside the empty
+    kernel on the same grid, the plain version and the bound."""
+    lr = linear_recurrence
+    shapes = []
+    for t_len, batch, view in ((8, 64, False), (7, 32, True)):
+        args = gae_inputs(t_len, batch, seed=t_len * batch)
+        run = partial(lr.truncated_gae, *args, 0.95)
+        moved, flops = 7 * t_len * batch * 4, 9 * t_len * batch
+        bound_ms, bound_by = bound(moved, flops)
+        record = {"shape": [t_len, batch], "lambda": 0.95, "ms": cuda_ms(run),
+                  "device_ms": graph_ms(run),
+                  "empty_kernel_device_ms": graph_ms(launch_floor(t_len, batch)),
+                  "plain_ms": cuda_ms(partial(lr.plain_truncated_gae, *args, 0.95), repeats=5,
+                                      inner=3),
+                  "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved}
+        if view:
+            # Sampled [B, T + 1] sequences, their first T steps as the replay
+            # learners slice them (a strided view the dispatch copies once).
+            r, discount, v_tm1, v_t, trunc = (
+                torch.cat([x.T, x.T[:, -1:]], 1)[:, :-1] for x in args)
+            call = partial(truncated_generalized_advantage_estimation, r, discount, 0.95,
+                           v_tm1=v_tm1, v_t=v_t, truncation_t=trunc, batch_major=True,
+                           impl="pallas")
+            got = call()
+            want = lr.plain_truncated_gae(*args, 0.95)
+            if not all(torch.equal(g.T, w) for g, w in zip(got, want)):
+                raise AssertionError("GAE from the batch-major view != the plain version")
+            record.update(batch_major_view=[batch, t_len + 1], view_call_ms=cuda_ms(call),
+                          view_bitwise=True)
+        emit({"phase": "gae_time", "path": "search", **record})
+        shapes.append(record)
+    return shapes
+
+
 # ---------------------------------------------------- data parallelism
 
 DP_OVERRIDES = [f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
@@ -2770,6 +3102,8 @@ def phase_data_parallel(smi: str) -> dict:
 # at a time, the longest first; together they were 70% of the run when they
 # ran in turn (PERF.md, Findings).
 LEARN_PHASES = {
+    "mz_learn": partial(phase_pg_learn, "ff_mz", SEARCH_ROOTS["ff_mz"], MZ_IDENTITY, "mz_learn",
+                        SEARCH_THRESHOLD),
     "cont_learn": phase_cont_learn,
     "sac_learn": phase_sac_learn,
     "r2d2_learn": partial(phase_sequence_learn, "rec_r2d2"),
@@ -2784,6 +3118,8 @@ LEARN_PHASES = {
                           "vmpo_learn", MPO_THRESHOLD),
     "awr_learn": partial(phase_pg_learn, "ff_awr", AWR_ROOT, AWR_IDENTITY, "awr_learn"),
     "vpg_learn": partial(phase_pg_learn, "ff_reinforce", VPG_ROOT, VPG_IDENTITY, "vpg_learn"),
+    "az_learn": partial(phase_pg_learn, "ff_az", SEARCH_ROOTS["ff_az"], AZ_IDENTITY, "az_learn",
+                        SEARCH_THRESHOLD),
 }
 LEARN_WORKERS = 4
 LEARN_TIMEOUT_S = 480
@@ -2891,6 +3227,14 @@ def main() -> None:
         entry["launches_ff_awr"] = awr[entry["name"]]
         entry["launches_mpo_family"] = {name: counts[entry["name"]]
                                         for name, counts in {**mpo, **vmpo}.items()}
+    # A13's first half: the batched MCTS, then the four search systems; B1's
+    # GAE entry is ff_az's (on-policy and replay) and ff_sampled_az's path.
+    phase_mcts(smi)
+    search = phase_search_train(smi)
+    for entry in (recurrence, gae, *attention, chunk, *wide):
+        entry["launches_search"] = {label: counts[entry["name"]]
+                                    for label, counts in search.items()}
+    gae["shapes"] += search_gae_shapes()
     data_parallel = phase_data_parallel(smi)
     gae["launches_data_parallel"] = {"a_one_rank_ff_ppo": data_parallel["a_ff_ppo"],
                                      "b_per_rank": data_parallel["b_per_rank"]}

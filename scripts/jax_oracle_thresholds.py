@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The learning oracles of chip_smoke.py's cont_learn, rec_learn,
-rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn and
-vmpo_learn phases, computed from the JAX package on the CPU:
+rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
+vmpo_learn, az_learn and mz_learn phases, computed from the JAX package on
+the CPU:
 
     JAX_PLATFORMS=cpu python scripts/jax_oracle_thresholds.py [--seeds 42 1 2]
-        [--oracles pendulum rec rainbow r2d2 sac reinforce awr mpo vmpo]
+        [--oracles pendulum rec rainbow r2d2 sac reinforce awr mpo vmpo az mz]
 
 - Pendulum: the mean return of uniform random actions over 4096 episodes of
   the JAX package's Pendulum-v1 (`jax.random` key 0), and the JAX package's
@@ -24,6 +25,9 @@ vmpo_learn phases, computed from the JAX package on the CPU:
   MPO_IDENTITY and VMPO_IDENTITY (threshold MPO_THRESHOLD: 8.0 where the
   JAX package reaches 10.0, else the midpoint of random actions' 2.5 and
   its return).
+- AlphaZero and MuZero on IdentityGame at the sweep's 8 simulations: the
+  JAX package's ff_az and ff_mz under AZ_IDENTITY and MZ_IDENTITY (threshold
+  SEARCH_THRESHOLD by the same rule as MPO's).
 
 Prints one JSON line. The JAX runs take about a minute each on 8 CPU cores.
 """
@@ -82,7 +86,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--episodes", type=int, default=4096)
-    oracles = ["pendulum", "rec", "rainbow", "r2d2", "sac", "reinforce", "awr", "mpo", "vmpo"]
+    oracles = ["pendulum", "rec", "rainbow", "r2d2", "sac", "reinforce", "awr", "mpo", "vmpo",
+               "az", "mz"]
     parser.add_argument("--oracles", nargs="+", default=oracles, choices=oracles)
     args = parser.parse_args()
     out = {}
@@ -131,6 +136,14 @@ def main() -> None:
         if name in args.oracles:
             runs = [final_return(f"stoix_tpu.systems.mpo.ff_{name}",
                                  chip_smoke.MPO_ROOTS[f"ff_{name}"], overrides, seed)
+                    for seed in args.seeds]
+            first = runs[0]["final_return"]
+            out.update({f"{name}_identity_jax": runs, f"{name}_identity_overrides": overrides,
+                        f"{name}_threshold": 8.0 if first >= 10.0 else (2.5 + first) / 2})
+    for name, overrides in (("az", chip_smoke.AZ_IDENTITY), ("mz", chip_smoke.MZ_IDENTITY)):
+        if name in args.oracles:
+            runs = [final_return(f"stoix_tpu.systems.search.ff_{name}",
+                                 chip_smoke.SEARCH_ROOTS[f"ff_{name}"], overrides, seed)
                     for seed in args.seeds]
             first = runs[0]["final_return"]
             out.update({f"{name}_identity_jax": runs, f"{name}_identity_overrides": overrides,

@@ -30,7 +30,7 @@ from torch import nn
 _TRUNCATED_STDDEV = 0.87962566103423978
 
 
-def _lecun_normal(layer: nn.Linear, generator: Optional[torch.Generator]) -> nn.Linear:
+def lecun_normal(layer: nn.Linear, generator: Optional[torch.Generator]) -> nn.Linear:
     std = math.sqrt(1.0 / layer.in_features) / _TRUNCATED_STDDEV
     with torch.no_grad():
         nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
@@ -51,7 +51,7 @@ class _GatedCell(nn.Module):
                  generator: Optional[torch.Generator]):
         super().__init__()
         for gate, h_bias in zip(gates, hidden_bias):
-            i_layer = _lecun_normal(nn.Linear(input_dim, features, bias=input_bias), generator)
+            i_layer = lecun_normal(nn.Linear(input_dim, features, bias=input_bias), generator)
             h_layer = _orthogonal(nn.Linear(features, features, bias=h_bias), generator)
             for layer in (i_layer, h_layer):
                 if layer.bias is not None:

@@ -3,7 +3,8 @@ CategoricalHead, ScalarCriticHead, the continuous family's
 NormalAffineTanhDistributionHead, BetaDistributionHead and
 MultivariateNormalDiagHead, the deterministic policy's DeterministicHead,
 the value-based family's DiscreteQNetworkHead, DistributionalDiscreteQNetwork
-and QuantileDiscreteQNetwork, and D4PG's DistributionalContinuousQNetwork).
+and QuantileDiscreteQNetwork, D4PG's DistributionalContinuousQNetwork, and the
+MuZero family's MLPLogitsHead).
 
 A continuous head is two Denses, flax's Dense_0 (the loc, or alpha) and
 Dense_1 (the scale, or beta), as `dense.0` and `dense.1`; its `minimum` and
@@ -20,7 +21,8 @@ from typing import Any, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from stoix_tpu_torch.networks.torso import init_linear
+from stoix_tpu_torch.networks.cells import lecun_normal
+from stoix_tpu_torch.networks.torso import MLPTorso, init_linear
 from stoix_tpu_torch.ops.distributions import (
     AffineBeta,
     Categorical,
@@ -230,3 +232,24 @@ class QuantileDiscreteQNetwork(nn.Module):
         tau = torch.broadcast_to(tau, embedding.shape[:-1] + (self.num_quantiles,))
         eps = self.epsilon if epsilon is None else epsilon
         return EpsilonGreedy(q_values, eps, mask=action_mask), q_dist, tau
+
+
+class MLPLogitsHead(nn.Module):
+    """An MLP torso, then raw logits: MuZero's 601-atom value and reward
+    heads over a transformed support (decoded by
+    ops/value_transforms.py::muzero_pair, never softmaxed here). flax's
+    `MLPTorso_0` and `Dense_0` (`torsos.0`, `dense.0`); the logits layer
+    takes flax's default init (LeCun normal, zero bias)."""
+
+    def __init__(self, num_outputs: int, input_dim: int, hidden_sizes: Tuple[int, ...] = (64,),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        torso = MLPTorso(input_dim, tuple(hidden_sizes), generator=generator)
+        self.torsos = nn.ModuleList([torso])
+        linear = lecun_normal(nn.Linear(torso.output_dim, int(num_outputs)), generator)
+        nn.init.zeros_(linear.bias)
+        self.dense = nn.ModuleList([linear])
+        self.output_dim = int(num_outputs)
+
+    def forward(self, embedding: torch.Tensor) -> torch.Tensor:
+        return self.dense[0](self.torsos[0](embedding))

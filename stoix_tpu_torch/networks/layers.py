@@ -1,6 +1,7 @@
 """NoisyLinear, the factorised-Gaussian noisy layer of NoisyNets (counterpart
 of stoix_tpu/networks/layers.py::NoisyLinear), and the helpers that draw its
-noise.
+noise; StackedRNN, the world model's stack of recurrent cells (the same
+module's StackedRNN).
 
     y = x (mu_w' + sigma_w . f(e_in) f(e_out)^T) + mu_b' + sigma_b . f(e_out),
     f(e) = sign(e) sqrt(|e|),
@@ -23,11 +24,13 @@ generator in ONE draw.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from stoix_tpu_torch.networks.utils import parse_rnn_cell
 
 Noise = Tuple[torch.Tensor, torch.Tensor]
 
@@ -93,3 +96,33 @@ def split_noise(noise: Optional[Sequence[Noise]], counts: Sequence[int]
         out.append(noise[start:start + count])
         start += count
     return out
+
+
+class StackedRNN(nn.Module):
+    """`num_layers` cells of `cell_type` (networks/utils.py::RNN_CELLS)
+    applied in turn at one step, each feeding its output to the next; the
+    carry is the tuple of the cells' carries. The cells are flax's
+    `cells_i` (`cells.i`)."""
+
+    def __init__(self, input_dim: int, hidden_size: int, num_layers: int = 2,
+                 cell_type: str = "lstm", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cell = parse_rnn_cell(cell_type)
+        self.hidden_size, self.cell_type = int(hidden_size), str(cell_type)
+        self.cells = nn.ModuleList(
+            cell(int(input_dim) if i == 0 else self.hidden_size, self.hidden_size,
+                 generator=generator)
+            for i in range(int(num_layers)))
+
+    def forward(self, states: Sequence[Any], x: torch.Tensor) -> Tuple[Tuple[Any, ...], torch.Tensor]:
+        new_states = []
+        for cell, state in zip(self.cells, states):
+            state, x = cell(state, x)
+            new_states.append(state)
+        return tuple(new_states), x
+
+    def initialize_carry(self, batch_shape: Sequence[int],
+                         device: Optional[torch.device] = None) -> Tuple[Any, ...]:
+        """Zero carries: (c, h) pairs for the LSTMs, one tensor otherwise."""
+        return tuple(type(cell).initialize_carry(self.hidden_size, batch_shape, device)
+                     for cell in self.cells)

@@ -28,7 +28,7 @@ extras["next_obs"]), but accumulation does not flow across the boundary.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -67,29 +67,74 @@ _EXP_ZERO_BELOW = -87.33654  # the smallest float32 x whose exp XLA leaves above
 _EXP_INF_FROM = 88.72284  # the smallest float32 x whose exp XLA makes inf
 
 
-def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
+FusedMultiplyAdd = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def xla_exp_f32(x: torch.Tensor, fma: FusedMultiplyAdd = fma_f32) -> torch.Tensor:
     """exp of a float32 tensor, bitwise XLA's: n = min(floor(x log2(e) + 1/2), 127),
     a = x - n (0.693359375 - 2.12194440e-4), Cephes' degree-5 polynomial
     p(a) with exp(a) = p(a) a^2 + a + 1, times 2^n; 0 below the smallest
-    normal's log and inf from the largest float's."""
+    normal's log and inf from the largest float's. `fma(a, b, c)` rounds
+    a . b + c once (`fma_f32`, exact on any device, by default)."""
     def const(value: float) -> torch.Tensor:
         return torch.full_like(x, value)
 
     clamped = torch.clamp(x, min=-87.8, max=88.8)
     # n stops at 127 (2^127 is float32's largest power of two): near the top
     # the polynomial then runs past ln(2) / 2, as XLA's does.
-    n = torch.clamp(torch.floor(fma_f32(clamped, const(1.44269504088896341), const(0.5))),
+    n = torch.clamp(torch.floor(fma(clamped, const(1.44269504088896341), const(0.5))),
                     max=127.0)
-    a = fma_f32(n, const(-0.693359375), clamped)
-    a = fma_f32(n, const(2.12194440e-4), a)
+    a = fma(n, const(-0.693359375), clamped)
+    a = fma(n, const(2.12194440e-4), a)
     y = const(_EXP_POLY[0])
     for coefficient in _EXP_POLY[1:]:
-        y = fma_f32(y, a, const(coefficient))
-    y = fma_f32(y, a * a, a) + 1.0
+        y = fma(y, a, const(coefficient))
+    y = fma(y, a * a, a) + 1.0
     # y . 2^n is exact in float64 (2^128 alone is past float32's range).
     out = torch.ldexp(y.double(), n.double()).float()
     out = torch.where(x < _EXP_ZERO_BELOW, 0.0, out)
     return torch.where(x >= _EXP_INF_FROM, math.inf, out)
+
+
+# XLA's float32 log on the CPU (Cephes' logf: x = m 2^e with m in
+# [sqrt(1/2), sqrt(2)), a degree-8 polynomial in m - 1): like its exp, not
+# correctly rounded (about one value in nine differs from a correctly rounded
+# log by an ulp).
+_LOG_POLY = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+             1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+             3.3333331174e-1)
+_FLOAT32_MIN_NORMAL = 1.1754943508222875e-38
+
+
+def xla_log_f32(x: torch.Tensor, fma: FusedMultiplyAdd = fma_f32) -> torch.Tensor:
+    """log of a float32 tensor, bitwise XLA's: the mantissa m in [1/2, 1)
+    and exponent e of max(x, smallest normal), m -> 2m - 1 and e -> e - 1
+    below sqrt(1/2) else m - 1, the polynomial in three interleaved parts,
+    then y = p x^3 - 2.12194440e-4 e, x - x^2 / 2 + y + 0.693359375 e, each
+    multiply-add one fused multiply-add (`fma`, as in `xla_exp_f32`); -inf
+    at 0, inf at inf, NaN below 0."""
+    def const(value: float) -> torch.Tensor:
+        return torch.full_like(x, value)
+
+    bits = torch.clamp(x, min=_FLOAT32_MIN_NORMAL).view(torch.int32)
+    e = (bits >> 23).to(torch.float32) - 126.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    below = m < 0.7071067811865476
+    a = (m - 1.0) + torch.where(below, m, 0.0)
+    e = e - below.to(torch.float32)
+    a2 = a * a
+    a3 = a2 * a
+    p = (fma(a, const(_LOG_POLY[0]), const(_LOG_POLY[1])),
+         fma(a, const(_LOG_POLY[3]), const(_LOG_POLY[4])),
+         fma(a, const(_LOG_POLY[6]), const(_LOG_POLY[7])))
+    p = (fma(p[0], a, const(_LOG_POLY[2])), fma(p[1], a, const(_LOG_POLY[5])),
+         fma(p[2], a, const(_LOG_POLY[8])))
+    y = fma(fma(p[0], a3, p[1]), a3, p[2])
+    y = fma(y, a3, -2.12194440e-4 * e)
+    out = fma(const(0.693359375), e, fma(const(-0.5), a2, a) + y)
+    out = torch.where(x == 0, -math.inf, out)
+    out = torch.where(x == math.inf, math.inf, out)
+    return torch.where(x < 0, math.nan, out)
 
 
 def _broadcast_param(param: Numeric, like: torch.Tensor, batch_major: bool) -> torch.Tensor:

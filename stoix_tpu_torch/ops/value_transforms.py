@@ -123,12 +123,21 @@ def muzero_pair(num_atoms: int = 601, vmin: float = -300.0, vmax: float = 300.0,
     support (the training target); logits -> softmax expectation -> tx^-1
     (the scalar read)."""
     atoms = torch.linspace(vmin, vmax, num_atoms)
+    # The support on each device it is used on, copied there once (a copy
+    # from the host at every call would wait for the device: the search
+    # decodes values and rewards once a simulation).
+    on_device = {atoms.device: atoms}
+
+    def support(device: torch.device) -> torch.Tensor:
+        if device not in on_device:
+            on_device[device] = atoms.to(device)
+        return on_device[device]
 
     def apply(scalar: torch.Tensor) -> torch.Tensor:
-        return twohot(tx_pair.apply(scalar), atoms.to(scalar.device))
+        return twohot(tx_pair.apply(scalar), support(scalar.device))
 
     def apply_inv(logits: torch.Tensor) -> torch.Tensor:
         probs = torch.softmax(logits, dim=-1)
-        return tx_pair.apply_inv(torch.sum(probs * atoms.to(logits.device), dim=-1))
+        return tx_pair.apply_inv(torch.sum(probs * support(logits.device), dim=-1))
 
     return CategoricalTxPair(apply=apply, apply_inv=apply_inv, num_atoms=num_atoms)

@@ -51,6 +51,14 @@ are `networks.i`; a Q(s, a) critic's EmbeddingActionInput holds no params.
 DeterministicHead and DistributionalContinuousQNetwork are one Dense
 (`action_head.dense.0`, `critic_head.dense.0`).
 
+The MuZero family's modules: the world model keeps flax's `obs_encoder`,
+`obs_to_hidden`, `reward_head` and `action_embedder`, and its stacked RNN's
+cells, flax's `dynamics/cells_i`, are `dynamics.cells.i` (each gate under
+its flax name, as above); an MLPLogitsHead's `MLPTorso_0` and `Dense_0` are
+`torsos.0` and `dense.0`; a LatentPolicy's `MLPTorso_0` is `torsos.0` and
+its `CategoricalHead_0` or `NormalAffineTanhDistributionHead_0` is
+`action_head`.
+
 Any other module name is kept as it is (`torso`, `action_head`). The Q heads
 (DiscreteQNetworkHead, DistributionalDiscreteQNetwork, QuantileDiscreteQNetwork)
 are one Dense under `action_head` (`action_head.dense.0`); the distributional
@@ -68,12 +76,13 @@ import torch
 from torch import nn
 
 _NUMBERED = re.compile(
-    r"^(Dense|LayerNorm|block|NoisyLinear|MLPTorso|NoisyMLPTorso|networks)_(\d+)$")
+    r"^(Dense|LayerNorm|block|NoisyLinear|MLPTorso|NoisyMLPTorso|networks|cells)_(\d+)$")
 _NUMBERED_PREFIX = {"Dense": "dense", "LayerNorm": "norm", "block": "blocks",
                     "NoisyLinear": "layers", "MLPTorso": "torsos", "NoisyMLPTorso": "torsos",
-                    "networks": "networks"}
+                    "networks": "networks", "cells": "cells"}
 _MODULE_NAME = {"TransformerTorso_0": "torso", "CategoricalHead_0": "action_head",
                 "ScalarCriticHead_0": "critic_head", "MultiHeadSelfAttention_0": "attention",
+                "NormalAffineTanhDistributionHead_0": "action_head",
                 **{f"{cell}_0": "cell" for cell in ("GRUCell", "LSTMCell", "OptimizedLSTMCell",
                                                     "MGUCell", "SimpleCell")}}
 _LEAF_NAME = {"kernel": "weight", "scale": "weight", "bias": "bias"}

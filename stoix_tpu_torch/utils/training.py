@@ -1,5 +1,6 @@
-"""Learning-rate schedule, the clip + Adam and clip + RAdam optimizers and
-the Polyak target update (counterpart of stoix_tpu/utils/training.py and of
+"""Learning-rate schedule, the clip + Adam and clip + RAdam optimizers, the
+Polyak target update and `scale_gradient` (counterpart of
+stoix_tpu/utils/training.py, of stoix_tpu/utils/jax_utils.py::scale_gradient and of
 the JAX systems' `optax.chain(optax.clip_by_global_norm(max_norm),
 optax.adam(lr, eps=eps))`, ff_pqn's `optax.chain(clip_by_global_norm,
 optax.radam(lr))` and `optax.incremental_update`).
@@ -173,3 +174,9 @@ def incremental_update(new: Params, old: Params, step_size: float) -> Params:
 def apply_updates(params: Params, updates: Params) -> Params:
     """optax.apply_updates: a new dict of `param + update`."""
     return {k: p + updates[k] for k, p in params.items()}
+
+
+def scale_gradient(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Identity forward, the gradient scaled by `scale` on the way back:
+    x . scale + stop_gradient(x) . (1 - scale), as the JAX package writes it."""
+    return x * scale + x.detach() * (1.0 - scale)

@@ -124,3 +124,20 @@ A12 = {
 @pytest.mark.parametrize("overridden", [False, True])
 def test_a12_config_trees_mirror_the_jax_package(name, overridden):
     _assert_mirrors(f"default/anakin/default_{name}.yaml", A12[name] if overridden else [])
+
+
+# The search systems (A13's first half): each root as it is, and with other
+# groups and options.
+SEARCH = {
+    "ff_az": ["env=identity_game", "system.search_method=gumbel",
+              "system.use_replay_buffer=true"],
+    "ff_mz": ["env=identity_game", "system.num_simulations=8", "system.wm_cell_type=gru"],
+    "ff_sampled_az": ["system.num_sampled_actions=4", "system.multistep_impl=pallas"],
+    "ff_sampled_mz": ["system.max_depth=4", "arch.update_batch_size=2"],
+}
+
+
+@pytest.mark.parametrize("name", list(SEARCH))
+@pytest.mark.parametrize("overridden", [False, True])
+def test_search_config_trees_mirror_the_jax_package(name, overridden):
+    _assert_mirrors(f"default/anakin/default_{name}.yaml", SEARCH[name] if overridden else [])

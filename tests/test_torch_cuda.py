@@ -1445,3 +1445,196 @@ def test_xla_exp_on_the_card_is_the_cpu_one_bitwise():
     x = torch.cat([torch.randn(200_000, generator=torch.Generator().manual_seed(3)) * 3,
                    torch.linspace(-120.0, 100.0, 20_001)])
     assert torch.equal(multistep.xla_exp_f32(x.to(device)).cpu(), multistep.xla_exp_f32(x))
+
+
+@pytest.mark.cuda
+def test_xla_log_on_the_card_is_the_cpu_one_bitwise():
+    device = _require_cuda()
+    gen = torch.Generator().manual_seed(4)
+    x = torch.cat([torch.rand(200_000, generator=gen), torch.exp(torch.randn(200_000,
+                                                                            generator=gen) * 20),
+                   torch.tensor([0.0, float("inf"), 1.0, 1e-9])])
+    assert torch.equal(multistep.xla_log_f32(x.to(device)).cpu(), multistep.xla_log_f32(x))
+
+
+def _tabular_search(device, policy, max_depth, batch=64, actions=4, simulations=50, states=16):
+    """A search over a random tabular MDP (numpy seed 0) on `device`, its
+    noise drawn on the CPU: (the tree, the policy's output)."""
+    import numpy as np
+
+    from stoix_tpu_torch.search import mcts
+    rng = np.random.default_rng(0)
+    table = {k: torch.from_numpy(v).to(device) for k, v in dict(
+        T=rng.integers(0, states, (states, actions)), R=rng.normal(size=(states, actions)),
+        D=(rng.random((states, actions)) > 0.2) * 0.99, L=rng.normal(size=(states, actions)),
+        V=rng.normal(size=states)).items()}
+    table = {k: v if k == "T" else v.float() for k, v in table.items()}
+    root = mcts.RootFnOutput(torch.from_numpy(rng.normal(size=(batch, actions))).float().to(device),
+                             torch.from_numpy(rng.normal(size=batch)).float().to(device),
+                             torch.from_numpy(rng.integers(0, states, batch)).to(device))
+
+    def recurrent_fn(params, noise, action, state):
+        nxt = table["T"][state, action]
+        return mcts.RecurrentFnOutput(table["R"][state, action], table["D"][state, action],
+                                      table["L"][nxt], table["V"][nxt]), nxt
+
+    noise = mcts.draw_noise(torch.Generator().manual_seed(1), batch, actions, 0.25)
+    noise = mcts.SearchNoise(*(x if x is None else x.to(device) for x in noise))
+    fn = mcts.muzero_policy if policy == "muzero" else mcts.gumbel_muzero_policy
+    out = fn(None, noise, root, recurrent_fn, simulations, max_depth=max_depth)
+    if policy == "gumbel":  # the tree the Gumbel policy searches
+        k = min(16, actions)
+        perturbed = noise.gumbel + root.prior_logits
+        threshold = perturbed.sort(-1).values[..., -k][..., None]
+        root = root._replace(prior_logits=torch.where(perturbed >= threshold, root.prior_logits,
+                                                      float("-inf")))
+        tree = mcts.search(None, root, recurrent_fn, simulations, max_depth, 1.25, 19652.0)
+    else:
+        tree = mcts.search(None, mcts._root_with_noise(root, noise.dirichlet, 0.25),
+                           recurrent_fn, simulations, max_depth, 1.25, 19652.0)
+    return tree, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["muzero", "gumbel"])
+@pytest.mark.parametrize("max_depth", [50, 4])
+def test_tabular_search_on_the_card_matches_the_cpu(policy, max_depth):
+    # B = 64, A = 4, 50 simulations: the tree's integer arrays and the
+    # actions equal, its float arrays and the weights within 1e-6 (every op
+    # is exact but the softmax's 4-term sum, whose order may differ).
+    device = _require_cuda()
+    cpu_tree, cpu_out = _tabular_search("cpu", policy, max_depth)
+    card_tree, card_out = _tabular_search(device, policy, max_depth)
+    for name in ("visits", "parent", "action_from_parent", "children", "embeddings"):
+        assert torch.equal(getattr(card_tree, name).cpu(), getattr(cpu_tree, name)), name
+    for name in ("values", "priors", "rewards", "discounts"):
+        torch.testing.assert_close(getattr(card_tree, name).cpu(), getattr(cpu_tree, name),
+                                   rtol=0, atol=1e-6)
+    assert torch.equal(card_out.action.cpu(), cpu_out.action)
+    for name in ("action_weights", "search_value"):
+        torch.testing.assert_close(getattr(card_out, name).cpu(), getattr(cpu_out, name),
+                                   rtol=0, atol=1e-6)
+    if max_depth == 4:
+        assert bool(((cpu_tree.visits == 0) & (cpu_tree.parent >= 0)).any())  # orphans
+
+
+SEARCH_SMALL = ["network.actor_network.pre_torso.layer_sizes=[32,32]",
+                "network.critic_network.pre_torso.layer_sizes=[32,32]",
+                "system.wm_hidden_size=32", "arch.total_num_envs=16", "system.rollout_length=8",
+                "system.num_simulations=8", "system.multistep_impl=pallas",
+                "system.total_buffer_size=2048", "system.total_batch_size=16"]
+SEARCH_CASES = {"ff_az": ("ff_az", []), "ff_az_replay": ("ff_az", ["system.use_replay_buffer=true"]),
+                "ff_mz": ("ff_mz", []), "ff_sampled_az": ("ff_sampled_az", []),
+                "ff_sampled_mz": ("ff_sampled_mz", [])}
+
+
+def _search_update(case, device):
+    """One update (ff_az on-policy: `update` on a CPU-made rollout with fixed
+    permutations) or epoch (the replay systems: `update_from_batch` on a
+    CPU-made sample) of `case` on `device` from the same initial state:
+    (params, metrics)."""
+    import importlib
+
+    from stoix_tpu_torch import envs
+    from stoix_tpu_torch.systems import anakin
+    from stoix_tpu_torch.utils import config as config_lib
+    from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
+    system, extra = SEARCH_CASES[case]
+    module = importlib.import_module(f"stoix_tpu_torch.systems.search.{system}")
+    cfg = check_total_timesteps(config_lib.compose(
+        config_lib.default_config_dir(), f"default/anakin/default_{system}.yaml",
+        SEARCH_SMALL + extra), 1)
+    cpu = module.learner_setup(envs.make(cfg)[0], cfg, torch.device("cpu"), 3)
+    state, traj = cpu.learn.rollout(cpu.learner_state)  # made on the CPU
+    setup = module.learner_setup(envs.make(cfg)[0], cfg, torch.device(device), 3)
+    params = _to(state.params, device)
+    opts = _to(state.opt_states, device)
+    if case == "ff_az":
+        perms = [torch.randperm(128, generator=torch.Generator().manual_seed(e))
+                 for e in range(int(cfg.system.epochs))]
+        params, _, metrics = setup.learn.update(params, opts, _to(traj, device),
+                                                permutations=perms)
+        return params, metrics
+    batch = cpu.learn.buffer.sample(state.buffer_state, torch.Generator().manual_seed(2))
+    params, _, metrics = setup.learn.update_from_batch(
+        anakin.split_replicas(params, 1), anakin.split_replicas(opts, 1),
+        [_to(batch.experience, device)])
+    return params[0], metrics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SEARCH_CASES))
+def test_search_update_on_the_card_matches_the_cpu(case):
+    # Losses 1e-5 relative, params 1e-5 absolute; ff_az's update and the
+    # AZ-family epochs launch B1's GAE entry once, the MuZero family none.
+    from stoix_tpu_torch.utils.tree import tree_leaves
+    device = _require_cuda()
+    cpu_params, cpu_metrics = _search_update(case, "cpu")
+    before = {c.name: c.launches for c in lr.COUNTERS}
+    card_params, card_metrics = _search_update(case, device)
+    torch.cuda.synchronize()
+    launched = {c.name: c.launches - before[c.name] for c in lr.COUNTERS}
+    assert launched == {lr.KERNEL.name: 0, lr.GAE_KERNEL.name: int("_mz" not in case)}
+    for key, value in cpu_metrics.items():
+        torch.testing.assert_close(card_metrics[key].cpu(), value, rtol=1e-5, atol=1e-7)
+    for card, cpu in zip(tree_leaves(card_params), tree_leaves(cpu_params)):
+        torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system", ["ff_az", "ff_sampled_az"])
+def test_search_step_on_the_card_matches_the_cpu(system):
+    # One search from the same envs' core states and noise (drawn on the
+    # CPU): the actions and visit weights equal, the root values 1e-5.
+    import importlib
+
+    from stoix_tpu_torch import envs
+    from stoix_tpu_torch.systems.search import ff_az
+    from stoix_tpu_torch.utils import config as config_lib
+    from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
+    module = importlib.import_module(f"stoix_tpu_torch.systems.search.{system}")
+    device = _require_cuda()
+    cfg = check_total_timesteps(config_lib.compose(
+        config_lib.default_config_dir(), f"default/anakin/default_{system}.yaml", SEARCH_SMALL), 1)
+    cpu = module.learner_setup(envs.make(cfg)[0], cfg, torch.device("cpu"), 3)
+    state = cpu.learner_state
+    outs = []
+    for where in ("cpu", device):
+        setup = module.learner_setup(envs.make(cfg)[0], cfg, torch.device(where), 3)
+        search = getattr(setup.learn, "acting", None) or setup.learn.search
+        noise = search.draw_noise(torch.Generator().manual_seed(6), 16)
+        generator = torch.Generator(device=where)
+        sim_state = ff_az.simulator_state(_to(state.env_state, where), 0, 1, generator)
+        obs = _to(state.timestep.observation, where)
+        params = _to(state.params, where)
+        if system == "ff_az":
+            _, out = search(params, _to(noise, where), sim_state, obs)
+            outs.append((out.action, out.action_weights, out.search_value))
+        else:
+            action, extras = search.act(params, _to(noise, where), sim_state, obs)
+            outs.append((action, extras["search_policy"], extras["search_value"]))
+    (cpu_action, cpu_weights, cpu_value), (card_action, card_weights, card_value) = outs
+    assert torch.equal(card_weights.cpu(), cpu_weights)
+    torch.testing.assert_close(card_action.cpu(), cpu_action, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(card_value.cpu(), cpu_value, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_search_fused_multiply_add_on_the_card_is_fma_f32_bitwise():
+    # torch.addcmul on the card, one fmaf: bitwise the CPU's exact FMA on
+    # random operands, on products whose sum is near a halfway point, and
+    # through XLA's exp and log.
+    from stoix_tpu_torch.kernels.linear_recurrence import fma_f32
+    from stoix_tpu_torch.search.mcts import fused_multiply_add
+    device = _require_cuda()
+    gen = torch.Generator().manual_seed(8)
+    a, b, c = (torch.randn(1_000_000, generator=gen) * 10 for _ in range(3))
+    c[::2] = -(a[::2].double() * b[::2].double()).float()  # cancellations
+    got = fused_multiply_add(a.to(device), b.to(device), c.to(device)).cpu()
+    assert torch.equal(got, fma_f32(a, b, c))
+    x = torch.randn(200_000, generator=gen) * 20
+    assert torch.equal(multistep.xla_exp_f32(x.to(device), fused_multiply_add).cpu(),
+                       multistep.xla_exp_f32(x))
+    y = torch.exp(torch.randn(200_000, generator=gen) * 10)
+    assert torch.equal(multistep.xla_log_f32(y.to(device), fused_multiply_add).cpu(),
+                       multistep.xla_log_f32(y))

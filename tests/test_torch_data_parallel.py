@@ -62,6 +62,7 @@ the 4-rank update step.
    gradients in one).
 """
 
+import inspect
 import os
 
 import jax
@@ -88,9 +89,12 @@ from stoix_tpu_torch.utils import checkpointing
 from test_torch_ff_ppo import IDENTITY_OVERRIDES, _trajectory, make_config
 from test_torch_q_ops import paired_q_networks
 import test_torch_ddpg
+import test_torch_az
 import test_torch_mpo
+import test_torch_mz
 import test_torch_r2d2
 import test_torch_rainbow
+import test_torch_sampled_search
 import test_torch_reinforce
 import test_torch_vmpo
 from test_torch_continuous import _paired_actor_critic, _trajectory as _pg_trajectory
@@ -333,6 +337,58 @@ def _mpo_job(system):
                                     batches=batches, epochs=MPO_EPOCHS)
 
 
+AZ = test_torch_az.SMALL + ["env=identity_game", "arch.total_num_envs=8",
+                            "system.multistep_impl=pallas", "system.actor_lr=1e-3",
+                            "system.critic_lr=1e-3", "system.ent_coef=0.05"]
+MZ = test_torch_mz.SMALL + ["arch.total_num_envs=8", "system.total_buffer_size=1024",
+                            "system.total_batch_size=12", "system.lr=1e-3"]
+AZ_T, AZ_ENVS = 6, 8
+
+
+def _search_inputs(system):
+    """The JAX package's ff_az `_update_step` (its update composed by
+    test_torch_az.jax_update_fn) or ff_mz `_update_epoch`, its first
+    replica's params and optimizer states, the port's numpy params and each
+    rank's trajectory and permutations (ff_az) or sequences (ff_mz)."""
+    from stoix_tpu.systems.search import ff_az as jax_az, ff_mz as jax_mz
+    from stoix_tpu_torch import envs as port_envs
+    from stoix_tpu_torch.utils import config as port_config
+
+    root = f"default/anakin/default_{system}.yaml"
+    overrides = AZ if system == "ff_az" else MZ
+    cfg = port_config.compose(port_config.default_config_dir(), root, overrides)
+    jcfg = jax_config.compose(jax_config.default_config_dir(), root, overrides)
+    module, index = (jax_az, None) if system == "ff_az" else (jax_mz, 3)
+    with pytest.MonkeyPatch.context() as patch:
+        jsetup, update_step = test_torch_az.jax_learner(module, "get_learner_fn", index, jcfg,
+                                                        patch)
+    jparams = test_torch_az.replica(jsetup.learner_state.params)
+    jopt = test_torch_az.replica(jsetup.learner_state.opt_states)
+    env, _ = port_envs.make(cfg)
+    cfg.system.action_dim = env.num_actions
+    numpy = lambda params: {k: v.numpy().copy() for k, v in params.items()}  # noqa: E731
+    if system == "ff_az":
+        _, _, params = test_torch_az.port_actor_critic(env, cfg, jparams)
+        port = {"actor": numpy(params.actor_params), "critic": numpy(params.critic_params)}
+        data = [test_torch_az.trajectory(40 + rank, AZ_T, AZ_ENVS, 4, 4) for rank in range(2)]
+        rng = np.random.default_rng(7)
+        perms = [np.stack([rng.permutation(AZ_T * AZ_ENVS) for _ in range(int(cfg.system.epochs))])
+                 for _ in range(2)]
+        return update_step, jcfg, jparams, jopt, port, data, perms
+    _, params = test_torch_sampled_search.mz_networks(env, cfg, jparams, False)
+    port = {f: numpy(getattr(params, f)) for f in params._fields}
+    seq_len = int(cfg.system.sample_sequence_length)
+    data = [test_torch_mz.sequences(60 + rank, 6, seq_len, 4, 4) for rank in range(2)]
+    return update_step, jcfg, jparams, jopt, port, data, None
+
+
+def _search_job(system):
+    _, _, _, _, port, data, perms = _search_inputs(system)
+    if system == "ff_az":
+        return "az", "az_step", dict(overrides=AZ, params=port, trajs=data, perms=perms)
+    return "mz", "mz_epoch", dict(overrides=MZ, params=port, batches=data, epochs=MPO_EPOCHS)
+
+
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     root = tmp_path_factory.mktemp("dp2")
@@ -366,6 +422,8 @@ def two_ranks(tmp_path_factory):
         _reinforce_job(),
         _mpo_job("ff_mpo"),
         _mpo_job("ff_vmpo"),
+        _search_job("ff_az"),
+        _search_job("ff_mz"),
     ]
     return root, spawn_ranks(jobs, 2, root)
 
@@ -854,4 +912,65 @@ def test_mpo_family_epochs_on_two_ranks_match_shard_map(two_ranks, system):
         for name in ("log_temperature", "log_alpha"):
             np.testing.assert_allclose(got["params"][name], np.asarray(getattr(final, name))[rank],
                                        rtol=0, atol=1e-5)
+        assert got["allreduces"] == MPO_EPOCHS
+
+
+def test_az_update_step_on_two_ranks_matches_shard_map(two_ranks):
+    update_step, jcfg, jparams, jopt, _, trajs, perms = _search_inputs("ff_az")
+    step = test_torch_az.jax_update_fn(update_step, jcfg)
+    mesh = jax_create_mesh({"data": 2}, devices=jax.devices()[:2])
+    two = lambda tree: jax.tree.map(lambda x: jnp.stack([jnp.asarray(x)] * 2), tree)  # noqa
+    data = jax.tree.map(lambda *xs: jnp.stack(xs), *[test_torch_az.jax_transition(tr)
+                                                      for tr in trajs])
+
+    def shard(params, opt, traj, perm):  # a shard's [1, ...]: its one replica
+        out = jax.vmap(step, axis_name="batch")(params, opt, traj, perm)
+        return out[0], out[2]
+
+    fn = jax.jit(shard_map(shard, mesh=mesh, in_specs=P("data"), out_specs=P("data"),
+                           check_vma=False))
+    want_params, want_info = fn(two(jparams), two(jopt), data, jnp.asarray(np.stack(perms)))
+    for rank, result in enumerate(two_ranks[1]):
+        got = result["az"]
+        for key in ("actor_loss", "value_loss", "entropy"):
+            np.testing.assert_allclose(got["metrics"][key], np.asarray(want_info[key])[rank],
+                                       rtol=1e-5, atol=1e-6, err_msg=key)
+        for name, like, want in (("actor", jparams.actor_params, want_params.actor_params),
+                                 ("critic", jparams.critic_params, want_params.critic_params)):
+            got_tree = to_flax_params({k: torch.from_numpy(v) for k, v in got[name].items()},
+                                      like)
+            jax.tree.map(lambda g, w: np.testing.assert_allclose(
+                g, np.asarray(w)[rank], rtol=0, atol=1e-5), got_tree, want)
+        minibatch_steps = int(jcfg.system.epochs) * int(jcfg.system.num_minibatches)
+        assert got["allreduces"] == minibatch_steps  # actor and critic gradients in one
+
+
+def test_mz_epochs_on_two_ranks_match_shard_map(two_ranks):
+    update_step, _, jparams, jopt, _, seqs, _ = _search_inputs("ff_mz")
+    update_epoch = inspect.getclosurevars(update_step).nonlocals["_update_epoch"]
+    mesh = jax_create_mesh({"data": 2}, devices=jax.devices()[:2])
+    two = lambda tree: jax.tree.map(lambda x: jnp.stack([jnp.asarray(x)] * 2), tree)  # noqa
+    carry = (two(jparams), two(jopt), jax.tree.map(lambda *xs: jnp.stack(xs), *seqs),
+             jax.random.split(jax.random.PRNGKey(11), 2))
+
+    def shard(carry):
+        return jax.vmap(update_epoch, axis_name="batch")(carry, None)
+
+    fn = jax.jit(shard_map(shard, mesh=mesh, in_specs=(P("data"),), out_specs=P("data"),
+                           check_vma=False))
+    want = []
+    for _ in range(MPO_EPOCHS):
+        carry, metrics = fn(carry)
+        want.append(jax.tree.map(np.asarray, metrics))
+    for rank, result in enumerate(two_ranks[1]):
+        got = result["mz"]
+        for epoch, metrics in enumerate(got["metrics"]):
+            for key, value in metrics.items():
+                np.testing.assert_allclose(value, want[epoch][key][rank], rtol=1e-5, atol=1e-6,
+                                           err_msg=key)
+        for field in ("world_model", "policy_head", "value_head"):
+            got_tree = to_flax_params({k: torch.from_numpy(v) for k, v in
+                                       got["params"][field].items()}, getattr(jparams, field))
+            jax.tree.map(lambda g, w: np.testing.assert_allclose(
+                g, np.asarray(w)[rank], rtol=0, atol=1e-5), got_tree, getattr(carry[0], field))
         assert got["allreduces"] == MPO_EPOCHS

@@ -403,7 +403,67 @@ def mpo_step(mesh_for, system, overrides, params, batches, epochs):
             "allreduces": counter.value(labels={"kind": "gradients"}) - before}
 
 
+def az_step(mesh_for, overrides, params, trajs, perms):
+    """This rank's ff_az on-policy `update` on its own [T, E] searched
+    trajectory `trajs[rank]` with its permutations [epochs, T.E], from the
+    given port params: params, loss info and gradient all-reduces."""
+    from stoix_tpu_torch.systems.search import ff_az
+
+    rank = dist.get_rank()
+    cfg = check_total_timesteps(_config("ff_az", overrides), dist.get_world_size())
+    env, _ = envs.make(cfg)
+    cfg.system.action_dim = env.num_actions
+    actor, critic = ff_ppo.build_networks(env, cfg, torch.Generator())
+    optims = ff_ppo.make_optimizers(cfg)
+    learner = ff_az.AZLearner(None, None, (ff_ppo.make_apply_fn(actor),
+                                           ff_ppo.make_apply_fn(critic)), optims, cfg)
+    state = ActorCriticParams(_tensors(params["actor"]), _tensors(params["critic"]))
+    opt = ActorCriticOptStates(optims[0].init(state.actor_params),
+                               optims[1].init(state.critic_params))
+    tr = trajs[rank]
+    traj = ff_az.ExItTransition(
+        **{k: torch.from_numpy(v) for k, v in tr.items() if k not in ("obs", "next_obs", "info")},
+        obs=_observation(tr["obs"]), next_obs=_observation(tr["next_obs"]), info={})
+    counter = anakin.allreduce_counter()
+    before = counter.value(labels={"kind": "gradients"})
+    state, _, info = learner.update(state, opt, traj,
+                                    permutations=[torch.from_numpy(p) for p in perms[rank]])
+    return {"actor": _numpy(state.actor_params), "critic": _numpy(state.critic_params),
+            "metrics": _numpy(info),
+            "allreduces": counter.value(labels={"kind": "gradients"}) - before}
+
+
+def mz_epoch(mesh_for, overrides, params, batches, epochs):
+    """`epochs` epochs of this rank's ff_mz (`MuZeroUpdate`) on its own
+    [B, L] sequences `batches[rank]` from the given port params: params,
+    metrics and gradient all-reduces."""
+    from stoix_tpu_torch.networks.heads import CategoricalHead
+    from stoix_tpu_torch.networks.model_based import ActionOneHot
+    from stoix_tpu_torch.systems.search import ff_mz
+
+    rank = dist.get_rank()
+    cfg = check_total_timesteps(_config("ff_mz", overrides), dist.get_world_size())
+    env, _ = envs.make(cfg)
+    cfg.system.action_dim = env.num_actions
+    nets = ff_mz.build_networks(env, cfg, torch.Generator(), ActionOneHot(env.num_actions),
+                                lambda width: CategoricalHead(env.num_actions, width))
+    state = ff_mz.MZParams(*(_tensors(params[f]) for f in ff_mz.MZParams._fields))
+    optim = ClipAdam(float(cfg.system.lr), float(cfg.system.max_grad_norm), eps=1e-5)
+    update = ff_mz.MuZeroUpdate(nets, optim, cfg)
+    states, opts = [state], [ff_mz.MZOptStates(optim.init(ff_mz.flat_params(state)))]
+    batch = {k: torch.from_numpy(v) for k, v in batches[rank].items()}
+    counter = anakin.allreduce_counter()
+    before = counter.value(labels={"kind": "gradients"})
+    metrics = []
+    for _ in range(epochs):
+        states, opts, info = update(states, opts, [batch])
+        metrics.append({k: float(v) for k, v in info.items()})
+    return {"params": _numpy(states[0]._asdict()), "metrics": metrics,
+            "allreduces": counter.value(labels={"kind": "gradients"}) - before}
+
+
 DP_KINDS = {"mesh_helpers": mesh_helpers, "ppo_step": ppo_step, "statistics": statistics,
             "dqn_step": dqn_step, "sequence_step": sequence_step,
             "sequence_buffer": sequence_buffer, "run": run, "saved_state": saved_state,
-            "sac_step": sac_step, "reinforce_step": reinforce_step, "mpo_step": mpo_step}
+            "sac_step": sac_step, "reinforce_step": reinforce_step, "mpo_step": mpo_step,
+            "az_step": az_step, "mz_epoch": mz_epoch}
