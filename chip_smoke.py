@@ -245,6 +245,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    of 64 with an LSTM, 601 atoms), ff_sampled_az and
                    ff_sampled_mz (64 Pendulum envs, 50 simulations, K = 8) at
                    their default configs, SEARCH_UPDATES updates in 2 windows
+                   (the sampled paths one update in one window)
                    with multistep_impl=pallas, every kernel counter zeroed just
                    before and read just after: exactly 1, 1, 4, 0, 64 and 0
                    launches of B1's GAE entry an update, 0 of every other
@@ -260,11 +261,49 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    8 simulations, 16 epochs of sequences of 3 at lr 1e-2; the
                    JAX package returns 10.0 there).
 
+ 35. spo_train   — ff_spo (64 CartPole envs, T = 32, 16 particles over a
+                   horizon of 4, MLPs 256 x 256, 64 epochs of 32 sequences of
+                   32) and ff_spo_continuous (64 Pendulum envs) at their default
+                   configs, SPO_UPDATES updates in 2 windows with
+                   multistep_impl=pallas, every kernel counter zeroed just
+                   before and read just after: exactly 64 launches of B1's GAE
+                   entry an update (one an epoch), 0 of every other kernel;
+                   env-steps/s a window, device launches a searched step and an
+                   update, the buffer's device bytes, an update's peak device
+                   bytes; one epoch on the card against the CPU (losses 1e-5
+                   relative, params and duals 1e-5 absolute) and one searched
+                   step from draws made on the CPU (resampling decisions and
+                   choices exact, particle actions exact or 1e-6 on Pendulum,
+                   weights 1e-6).
+ 36. disco_train — ff_disco103 at its default config's full width (1024
+                   CartPole envs, T = 16, 2 epochs x 4 env-minibatches, MLP
+                   256 x 256, LSTM 128, 51 bins) in grounded mode, MAIN_UPDATES
+                   updates in 2 windows, no kernel on the path (every count
+                   0); env-steps/s, device launches an update, peak device
+                   bytes; then one update in meta mode from an npz the phase
+                   writes with the port's `flatten_meta_params`; in each mode
+                   one minibatch step on the card against the CPU (losses 1e-5
+                   relative, params and the EMA params 1e-5 absolute). Then
+                   B1's GAE entry timed at SPO's [32, 32] from the batch-major
+                   sequences (a launch, a call, a call through the dispatch,
+                   the empty kernel on the same grid).
+ 37. spo_learn   — ff_spo trains IdentityGame above 8.0 (64 envs, 16 384 steps,
+                   16 epochs; the JAX package returns 10.0 there).
+ 38. disco_learn — ff_disco103 trains IdentityGame above 8.0 (64 envs, 131 072
+                   steps, policy temperature 16; the JAX package returns 10.0).
+ 39. spo_continuous_learn, vmpo_continuous_learn — ff_spo_continuous (64
+                   envs, 393 216 steps, 16 epochs) and ff_vmpo_continuous (64
+                   envs, 1 048 576 steps) train Pendulum above the midpoint of
+                   uniform random actions' return and the JAX package's under
+                   the same overrides (PENDULUM_ORACLES, PENDULUM_THRESHOLDS).
+
 The learning oracles (learn, trans_learn, q_learn, cont_learn, rec_learn,
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
-vmpo_learn, az_learn, mz_learn) run last, after every timed phase, each in a
-child process of this script (`--learn-phase NAME`), LEARN_WORKERS at a
-time, the longest first; a `learn_all` line gives their wall time. Then a
+vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn, spo_continuous_learn,
+vmpo_continuous_learn) run last, after every timed phase, each in a child
+process of this script (`--learn-phase NAME`), LEARN_WORKERS at a time (four
+at least, more where the host has the cores; `host_cpus` is printed), the
+longest first; a `learn_all` line gives their wall time. Then a
 `{"kernels": [...]}` line, the card's `nvidia-smi` name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -408,7 +447,7 @@ def phase_device() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count(), "nvidia_smi": smi,
+          "count": torch.cuda.device_count(), "nvidia_smi": smi, "host_cpus": os.cpu_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     return smi
 
@@ -2307,7 +2346,8 @@ def _a12_module(name: str):
     package = {"ff_ddpg": "ddpg", "ff_td3": "ddpg", "ff_d4pg": "ddpg", "ff_sac": "sac",
                "ff_reinforce": "vpg", "ff_reinforce_continuous": "vpg", "ff_awr": "awr",
                "ff_awr_continuous": "awr", **dict.fromkeys(MPO_ROOTS, "mpo"),
-               **dict.fromkeys(SEARCH_ROOTS, "search")}[name]
+               **dict.fromkeys(SEARCH_ROOTS, "search"), **dict.fromkeys(SPO_ROOTS, "spo"),
+               "ff_disco103": "disco"}[name]
     return importlib.import_module(f"stoix_tpu_torch.systems.{package}.{name}")
 
 
@@ -2627,14 +2667,10 @@ SEARCH_RUNS = (("ff_az", "ff_az", [], 1),
                ("ff_mz", "ff_mz", [], 0),
                ("ff_sampled_az", "ff_sampled_az", [], 64),
                ("ff_sampled_mz", "ff_sampled_mz", [], 0))
-SEARCH_UPDATES = 2  # one a window: a sampled path's update takes 15-18 s
+SEARCH_UPDATES = 2  # one a window
+# A sampled path's update takes 15-18 s of host dispatch: one, in one window.
+SAMPLED_SEARCH_WINDOWS = ["arch.num_updates=1", "arch.num_evaluation=1"]
 MCTS_BATCH, MCTS_ACTIONS, MCTS_SIMULATIONS, MCTS_STATES = 64, 4, 50, 16
-
-
-def _search_module(name: str):
-    import importlib
-
-    return importlib.import_module(f"stoix_tpu_torch.systems.search.{name}")
 
 
 def _tabular(device, seed: int = 0):
@@ -2776,14 +2812,14 @@ def _search_update_parts(setup, state) -> tuple:
 
 def _search_update_on_card_and_cpu(name: str, config, setup, state, traj) -> dict:
     """ff_az's on-policy update (fixed permutations) on `traj`, or one
-    replay epoch on sequences sampled on the card, run by the card's
-    learner and by the same learner built on the CPU, from the same params:
-    losses 1e-5 relative, params 1e-5 absolute, and B1's launches on the
-    card."""
+    replay epoch (the search systems' and SPO's) on sequences sampled on the
+    card, run by the card's learner and by the same learner built on the
+    CPU, from the same params: losses 1e-5 relative, params (SPO's targets
+    and duals too) 1e-5 absolute, and B1's launches on the card (one GAE
+    launch on the AZ family and SPO, none on the MuZero family)."""
     lr = linear_recurrence
-    module = _search_module(name)
-    cpu_setup = module.learner_setup(envs.make(config)[0], config, torch.device("cpu"),
-                                     int(config.arch.seed))
+    cpu_setup = _a12_module(name).learner_setup(envs.make(config)[0], config,
+                                                torch.device("cpu"), int(config.arch.seed))
     move = partial(tree_map, lambda x: x.cpu())
     if not hasattr(state, "buffer_state"):
         perms = [torch.randperm(traj.reward.numel(), generator=torch.Generator().manual_seed(e))
@@ -2807,7 +2843,8 @@ def _search_update_on_card_and_cpu(name: str, config, setup, state, traj) -> dic
                                                 [move(batch)])
         card, cpu = (out[0][0], out[2]), (ref[0][0], ref[2])
         shape = list(batch["reward"].shape)
-    want = {lr.KERNEL.name: 0, lr.GAE_KERNEL.name: int(name.endswith("az"))}
+    gae = name.endswith("az") or name.startswith("ff_spo")
+    want = {lr.KERNEL.name: 0, lr.GAE_KERNEL.name: int(gae)}
     if launched != want:
         raise AssertionError(f"{name}'s update on the card launched {launched}, not {want}")
     loss_err = max(_relative(card[1][k], cpu[1][k]) for k in cpu[1] if k.endswith("loss"))
@@ -2824,7 +2861,8 @@ def phase_search_train(smi: str) -> dict:
     with `search_method=gumbel` and with `use_replay_buffer=true`), ff_mz (25
     simulations in a world model of 64 with an LSTM and 601 atoms), and
     ff_sampled_az and ff_sampled_mz (64 Pendulum envs, 50 simulations, K = 8)
-    at their default configs, SEARCH_UPDATES updates in 2 windows through
+    at their default configs, SEARCH_UPDATES updates in 2 windows (the
+    sampled paths one in one window) through
     `run_experiment` with `system.multistep_impl=pallas`, every kernel counter
     zeroed just before and read just after: B1's GAE entry 1 / 1 / 4 / 0 /
     64 / 0 launches an update, nothing else; env-steps/s a window, device
@@ -2833,17 +2871,19 @@ def phase_search_train(smi: str) -> dict:
     bytes of a step and the rest of an update, and one update or epoch on
     the card against the CPU. Returns each path's kernel launches."""
     lr = linear_recurrence
-    common = [f"arch.num_updates={SEARCH_UPDATES}", "arch.num_evaluation=2",
-              "arch.num_eval_episodes=16", "system.multistep_impl=pallas",
+    common = ["arch.num_eval_episodes=16", "system.multistep_impl=pallas",
               "logger.use_console=False"]
     launches = {}
     for label, name, extra, gae_launches in SEARCH_RUNS:
+        windows = (SAMPLED_SEARCH_WINDOWS if name.startswith("ff_sampled") else
+                   [f"arch.num_updates={SEARCH_UPDATES}", "arch.num_evaluation=2"])
+        overrides = windows + common + extra
         want = {lr.GAE_KERNEL.name: gae_launches} if gae_launches else {}
-        record = _path_run(name, SEARCH_ROOTS[name], common + extra, want, "search_train", smi,
+        record = _path_run(name, SEARCH_ROOTS[name], overrides, want, "search_train", smi,
                            False)
         record["path"] = label
-        config = check_total_timesteps(compose(common + extra, SEARCH_ROOTS[name]), 1)
-        setup = _search_module(name).learner_setup(envs.make(config)[0], config,
+        config = check_total_timesteps(compose(overrides, SEARCH_ROOTS[name]), 1)
+        setup = _a12_module(name).learner_setup(envs.make(config)[0], config,
                                                    torch.device("cuda"), int(config.arch.seed))
         parts, state, traj = _search_update_parts(setup, setup.learner_state)
         record.update(parts)
@@ -2895,6 +2935,247 @@ def search_gae_shapes() -> list:
         emit({"phase": "gae_time", "path": "search", **record})
         shapes.append(record)
     return shapes
+
+
+# ---------------------------------------------------- A13: SPO and Disco-RL
+
+SPO_ROOTS = {name: f"default/anakin/default_{name}.yaml"
+             for name in ("ff_spo", "ff_spo_continuous")}
+DISCO_ROOT = "default/anakin/default_ff_disco103.yaml"
+# ff_spo's and ff_disco103's IdentityGame oracles (64 envs; 16 384 steps at 16
+# epochs; 131 072 steps at a policy temperature of 16 over [-20, 20] with 2
+# minibatches): the JAX package returns 10.0 there for seeds 42 and 1
+# (scripts/jax_oracle_thresholds.py --oracles spo disco), uniform random
+# actions 2.5; the threshold is 8.0. At the default temperature of 0.25 the
+# JAX ff_disco103 returns 2.69 and 2.5 at this budget (ROADMAP C23).
+SPO_IDENTITY = ["env=identity_game", "arch.total_timesteps=16384", "system.epochs=16",
+                "arch.num_evaluation=1", "arch.num_eval_episodes=32",
+                "arch.evaluation_greedy=True", "arch.absolute_metric=False",
+                "system.multistep_impl=pallas", "logger.use_console=False"]
+DISCO_IDENTITY = ["env=identity_game", "arch.total_num_envs=64", "arch.total_timesteps=131072",
+                  "system.vmax=20.0", "system.num_minibatches=2",
+                  "system.policy_temperature=16.0", "arch.num_evaluation=1",
+                  "arch.num_eval_episodes=32", "arch.evaluation_greedy=True",
+                  "arch.absolute_metric=False", "logger.use_console=False"]
+A13_THRESHOLD = 8.0
+# The Pendulum budgets of the continuous SPO, MPO and V-MPO systems: name ->
+# (system, root, overrides), each run by scripts/jax_oracle_thresholds.py
+# on the CPU (seeds 42 and 1). Where the JAX package learns there, the
+# threshold is the midpoint of uniform random actions' -1221.52 and its
+# seed-42 return, and the oracle runs on the card (PENDULUM_THRESHOLDS);
+# elsewhere the budget and its JAX returns stand in PERF.md section 7.
+PENDULUM_EVAL = ["arch.num_evaluation=4", "arch.num_eval_episodes=32",
+                 "arch.evaluation_greedy=True", "arch.absolute_metric=False",
+                 "system.multistep_impl=pallas", "logger.use_console=False"]
+PENDULUM_ORACLES = {
+    "spo_continuous": ("ff_spo_continuous", "default/anakin/default_ff_spo_continuous.yaml",
+                       ["arch.total_timesteps=393216", "system.epochs=16", *PENDULUM_EVAL]),
+    "vmpo_continuous": ("ff_vmpo_continuous", "default/anakin/default_ff_vmpo_continuous.yaml",
+                        ["arch.total_num_envs=64", "arch.total_timesteps=1048576",
+                         *PENDULUM_EVAL]),
+    "mpo_continuous": ("ff_mpo_continuous", "default/anakin/default_ff_mpo_continuous.yaml",
+                       ["arch.total_timesteps=8192", *PENDULUM_EVAL]),
+}
+# The JAX package returns -243.01 (seed 1: -201.04) on ff_spo_continuous
+# and -284.57 (seed 1: -160.77) on ff_vmpo_continuous under their budgets.
+PENDULUM_THRESHOLDS = {"spo_continuous": -732.2672271728516,
+                       "vmpo_continuous": -753.0486450195312}
+SPO_UPDATES = 2  # one a window
+SPO_GAE = 64  # B1 GAE launches an SPO update: one an epoch (system.epochs)
+SPO_GAE_SHAPE = (32, 32)  # [L, B]: sequences of 32, 32 a batch (the default config)
+
+
+def _spo_search_on_card_and_cpu(name: str, setup, state, cpu_setup) -> dict:
+    """One searched step of every env from draws made on the CPU (seed 7),
+    on the card and on the CPU from the same params, env states and
+    observations: the particles' root actions (Pendulum's floats 1e-6), every
+    resampling decision and the chosen particle exact, the weights and the
+    advantage sums 1e-5 relative."""
+    from stoix_tpu_torch.systems.search import ff_az
+    from stoix_tpu_torch.systems.spo import ff_spo
+
+    move = partial(tree_map, lambda x: x.cpu())
+    search, cpu_search = setup.learn.acting.search, cpu_setup.learn.acting.search
+    observation = state.timestep.observation
+    noise = search.draw_noise(torch.Generator().manual_seed(7), observation.agent_view.shape[0])
+    outs = []
+    for run, device, params, obs in ((search, "cuda", state.params, observation),
+                                     (cpu_search, "cpu", move(state.params), move(observation))):
+        sim_state = ff_az.simulator_state(state.env_state, 0, 1, None)
+        sim_state = move(sim_state) if device == "cpu" else sim_state
+        drawn = ff_spo.SPONoise(*(x.to(device) for x in noise))
+        out = run(params, drawn, sim_state, obs)
+        outs.append((out, ff_spo.choose(out.particle_actions, out.weights, drawn.choice)[1]))
+    (card, card_choice), (cpu, cpu_choice) = outs
+    torch.cuda.synchronize()
+    actions_err = float((card.particle_actions.cpu().float() - cpu.particle_actions.float())
+                        .abs().max())
+    record = {
+        "resampled_equal": bool(torch.equal(card.resampled.cpu(), cpu.resampled)),
+        "resampled_share": float(cpu.resampled.float().mean()),
+        "choice_equal": bool(torch.equal(card_choice.cpu(), cpu_choice)),
+        "actions_abs_err": actions_err,
+        "actions_bitwise": bool(torch.equal(card.particle_actions.cpu(), cpu.particle_actions)),
+        "weights_abs_err": float((card.weights.cpu() - cpu.weights).abs().max()),
+        "advantages_relative_err": _relative(card.raw_advantages, cpu.raw_advantages),
+    }
+    actions_ok = actions_err <= (1e-6 if search.continuous else 0.0)
+    if not (record["resampled_equal"] and record["choice_equal"] and actions_ok
+            and record["weights_abs_err"] <= 1e-6 and record["advantages_relative_err"] <= 1e-5):
+        raise AssertionError(f"{name}'s search on the card is not the CPU's: {record}")
+    return record
+
+
+def phase_spo_train(smi: str) -> dict:
+    """ff_spo (64 CartPole envs, T = 32, 16 particles over a horizon of 4,
+    MLPs 256 x 256, 64 epochs of 32 sequences of 32) and ff_spo_continuous
+    (64 Pendulum envs) at their default configs, SPO_UPDATES updates in 2
+    windows through `run_experiment` with `system.multistep_impl=pallas`,
+    every kernel counter zeroed just before and read just after: exactly 64
+    launches of B1's GAE entry an update (one an epoch), 0 of every other
+    kernel; env-steps/s a window, device launches a searched step and an
+    update (torch.profiler), the buffer's device bytes, an update's peak
+    device bytes, one epoch and one searched step on the card against the
+    CPU. Returns each system's launches."""
+    lr = linear_recurrence
+    common = [f"arch.num_updates={SPO_UPDATES}", "arch.num_evaluation=2",
+              "arch.num_eval_episodes=16", "system.multistep_impl=pallas",
+              "logger.use_console=False"]
+    launches = {}
+    for name, root in SPO_ROOTS.items():
+        record = _path_run(name, root, common, {lr.GAE_KERNEL.name: SPO_GAE}, "spo_train", smi,
+                           False)
+        config = check_total_timesteps(compose(common, root), 1)
+        module = _a12_module(name)
+        setup = module.learner_setup(envs.make(config)[0], config, torch.device("cuda"),
+                                     int(config.arch.seed))
+        parts, state, _ = _search_update_parts(setup, setup.learner_state)
+        record.update(parts)
+        record["b1_launches_per_update"] = {k: v / record["updates"]
+                                            for k, v in record["kernel_launches"].items()
+                                            if k in (lr.KERNEL.name, lr.GAE_KERNEL.name)}
+        record["buffer_device_bytes"] = _tree_bytes(state.buffer_state)
+        record["epoch_on_card_vs_cpu"] = _search_update_on_card_and_cpu(name, config, setup,
+                                                                        state, None)
+        cpu_setup = module.learner_setup(envs.make(config)[0], config, torch.device("cpu"),
+                                         int(config.arch.seed))
+        record["search_on_card_vs_cpu"] = _spo_search_on_card_and_cpu(name, setup, state,
+                                                                      cpu_setup)
+        emit(record)
+        launches[name] = record["kernel_launches"]
+    return launches
+
+
+def _disco_minibatch_on_card_and_cpu(config, setup, state) -> dict:
+    """One ff_disco103 minibatch step (the first E / M envs of a rollout
+    made on the card), by the card's learner and by the same learner built
+    on the CPU, from the same params and meta-state: the rule's losses 1e-5
+    relative, params and the meta-state's EMA params 1e-5 absolute, its
+    update count exact, no B1 launch."""
+    from stoix_tpu_torch.systems.disco import ff_disco103
+
+    lr = linear_recurrence
+    move = partial(tree_map, lambda x: x.cpu())
+    cpu_setup = ff_disco103.learner_setup(envs.make(config)[0], config, torch.device("cpu"),
+                                          int(config.arch.seed))
+    _, traj = setup.learn.rollout(state)
+    size = traj.reward.shape[1] // int(config.system.num_minibatches)
+    batch = tree_map(lambda x: x[:, :size], traj._replace(info=None))
+    args = ([state.params], [state.opt_states], [state.meta_state], [batch])
+    before = _counts(lr.COUNTERS)
+    card = setup.learn.update_minibatch(*args)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _counts(lr.COUNTERS).items()}
+    cpu = cpu_setup.learn.update_minibatch(*move(args))
+    if any(launched.values()):
+        raise AssertionError(f"ff_disco103's minibatch step launched {launched}")
+    loss_err = max(_relative(card[3][k], cpu[3][k]) for k in cpu[3])
+    param_err = _max_err(card[0][0], cpu[0][0])
+    meta_err = _max_err(card[2][0].target_params, cpu[2][0].target_params)
+    if not (loss_err <= 1e-5 and param_err <= 1e-5 and meta_err <= 1e-5
+            and int(card[2][0].num_updates) == int(cpu[2][0].num_updates)):
+        raise AssertionError(f"ff_disco103's minibatch step on the card is not the CPU's: loss "
+                             f"{loss_err}, params {param_err}, meta-state {meta_err}")
+    return {"minibatch": list(batch.reward.shape), "loss_relative_err": loss_err,
+            "params_abs_err": param_err, "meta_state_abs_err": meta_err}
+
+
+def phase_disco_train(smi: str) -> dict:
+    """ff_disco103 at its default config's full width (1024 CartPole envs,
+    T = 16, 2 epochs x 4 env-minibatches, MLP 256 x 256, LSTM 128, 51 bins)
+    in `grounded` mode, MAIN_UPDATES updates in 2 windows through
+    `run_experiment`, every kernel counter zeroed just before and read just
+    after (no kernel is on this path: each count must stay 0); env-steps/s,
+    device launches an update (torch.profiler), an update's peak device
+    bytes and one minibatch step on the card against the CPU. Then one
+    update in `meta` mode from an npz this phase writes with the port's
+    `flatten_meta_params` (loaded as pretrained), and its minibatch step on
+    the card against the CPU. Returns each mode's launches."""
+    import numpy as np
+
+    from stoix_tpu_torch.systems.disco import ff_disco103, update_rule
+
+    common = ["arch.num_eval_episodes=16", "logger.use_console=False"]
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_disco_") as tmp:
+        path = os.path.join(tmp, "meta.npz")
+        rule = ff_disco103.make_rule(compose([], DISCO_ROOT), 2, "cpu")
+        np.savez(path, **update_rule.flatten_meta_params(
+            rule.init_params(torch.Generator().manual_seed(5))))
+        if not update_rule.load_meta_params(rule, torch.Generator(), path)[1]:
+            raise AssertionError("the port's meta-params npz does not load back")
+        for mode, windows in (("grounded", [f"arch.num_updates={MAIN_UPDATES}",
+                                            "arch.num_evaluation=2"]),
+                              ("meta", ["arch.num_updates=1", "arch.num_evaluation=1",
+                                        "system.rule_mode=meta",
+                                        f"system.meta_params_path={path}"])):
+            record = _path_run("ff_disco103", DISCO_ROOT, windows + common, {}, "disco_train",
+                               smi, mode == "grounded")
+            record["rule_mode"] = mode
+            config = check_total_timesteps(compose(windows + common, DISCO_ROOT), 1)
+            if mode == "grounded":
+                setup, state, _ = record.pop("_setup_state")
+                record["update_device_bytes"] = _update_peak_bytes(setup, state)
+            else:
+                setup = ff_disco103.learner_setup(envs.make(config)[0], config,
+                                                  torch.device("cuda"), int(config.arch.seed))
+                state = setup.learner_state
+            record["minibatch_on_card_vs_cpu"] = _disco_minibatch_on_card_and_cpu(config, setup,
+                                                                                  state)
+            emit(record)
+            launches[f"ff_disco103_{mode}"] = record["kernel_launches"]
+    return launches
+
+
+def spo_gae_shape() -> dict:
+    """B1's GAE entry at SPO's [32, 32] (sequences of 32, 32 a batch): a
+    launch replayed from a CUDA graph, a call from Python, and a call through
+    the dispatch from the batch-major [B, L] sequences (the copies it makes
+    included), bitwise the plain version; beside the empty kernel on the same
+    grid, the plain version and the bound."""
+    lr = linear_recurrence
+    t_len, batch = SPO_GAE_SHAPE
+    args = gae_inputs(t_len, batch, seed=t_len * batch + 1)
+    run = partial(lr.truncated_gae, *args, 0.95)
+    moved, flops = 7 * t_len * batch * 4, 9 * t_len * batch
+    bound_ms, bound_by = bound(moved, flops)
+    sequences = [x.T.contiguous() for x in args]  # [B, L], as sampled
+    call = partial(truncated_generalized_advantage_estimation, sequences[0], sequences[1], 0.95,
+                   v_tm1=sequences[2], v_t=sequences[3], truncation_t=sequences[4],
+                   batch_major=True, impl="pallas")
+    got = call()
+    want = lr.plain_truncated_gae(*args, 0.95)
+    if not all(torch.equal(g.T, w) for g, w in zip(got, want)):
+        raise AssertionError("GAE from SPO's batch-major sequences != the plain version")
+    record = {"shape": [t_len, batch], "batch_major_view": [batch, t_len], "lambda": 0.95,
+              "ms": cuda_ms(run), "device_ms": graph_ms(run),
+              "empty_kernel_device_ms": graph_ms(launch_floor(t_len, batch)),
+              "view_call_ms": cuda_ms(call), "view_bitwise": True,
+              "plain_ms": cuda_ms(partial(lr.plain_truncated_gae, *args, 0.95), repeats=5,
+                                  inner=3),
+              "bound_ms": bound_ms, "bound_by": bound_by, "bytes": moved}
+    emit({"phase": "gae_time", "path": "spo", **record})
+    return record
 
 
 # ---------------------------------------------------- data parallelism
@@ -3097,11 +3378,28 @@ def phase_data_parallel(smi: str) -> dict:
     return launches
 
 
+def phase_pendulum_learn(name: str) -> None:
+    """`PENDULUM_ORACLES[name]`'s system on Pendulum above its threshold,
+    fixed before any card run by scripts/jax_oracle_thresholds.py."""
+    system, root, overrides = PENDULUM_ORACLES[name]
+    threshold = PENDULUM_THRESHOLDS[name]
+    start = time.perf_counter()
+    final_return = _a12_module(system).run_experiment(compose(overrides, root), device="cuda")
+    if not final_return > threshold:
+        raise AssertionError(f"{system} returned {final_return}, not above {threshold}")
+    emit({"phase": f"{name}_learn", "system": system, "env": "pendulum",
+          "final_return": final_return, "threshold": threshold,
+          "window_seconds": runner.LAST_RUN_STATS["window_seconds"],
+          "seconds": time.perf_counter() - start})
+
+
 # The learning oracles: phase name -> the phase. Each runs in a child process
 # (`chip_smoke.py --learn-phase NAME`) after every timed phase, LEARN_WORKERS
 # at a time, the longest first; together they were 70% of the run when they
 # ran in turn (PERF.md, Findings).
 LEARN_PHASES = {
+    **{f"{name}_learn": partial(phase_pendulum_learn, name)
+       for name in PENDULUM_THRESHOLDS},
     "mz_learn": partial(phase_pg_learn, "ff_mz", SEARCH_ROOTS["ff_mz"], MZ_IDENTITY, "mz_learn",
                         SEARCH_THRESHOLD),
     "cont_learn": phase_cont_learn,
@@ -3120,8 +3418,14 @@ LEARN_PHASES = {
     "vpg_learn": partial(phase_pg_learn, "ff_reinforce", VPG_ROOT, VPG_IDENTITY, "vpg_learn"),
     "az_learn": partial(phase_pg_learn, "ff_az", SEARCH_ROOTS["ff_az"], AZ_IDENTITY, "az_learn",
                         SEARCH_THRESHOLD),
+    "spo_learn": partial(phase_pg_learn, "ff_spo", SPO_ROOTS["ff_spo"], SPO_IDENTITY, "spo_learn",
+                         A13_THRESHOLD),
+    "disco_learn": partial(phase_pg_learn, "ff_disco103", DISCO_ROOT, DISCO_IDENTITY,
+                           "disco_learn", A13_THRESHOLD),
 }
-LEARN_WORKERS = 4
+# The oracles share the card and the host's cores: one worker a core with
+# two left over, between four and six (six on an 8-core host).
+LEARN_WORKERS = max(4, min(6, (os.cpu_count() or 8) - 2))
 LEARN_TIMEOUT_S = 480
 
 
@@ -3130,7 +3434,8 @@ def learn_child(name: str) -> None:
     sets it up; its JSON lines go to stdout."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.set_num_threads(2)  # LEARN_WORKERS children share the host's cores
+    # LEARN_WORKERS children share the host's cores.
+    torch.set_num_threads(max(1, (os.cpu_count() or 8) // LEARN_WORKERS))
     LEARN_PHASES[name]()
 
 
@@ -3174,6 +3479,7 @@ def phase_learn_all() -> None:
                 proc.wait(timeout=60)
                 log.close()
     emit({"phase": "learn_all", "phases": list(LEARN_PHASES), "workers": LEARN_WORKERS,
+          "host_cpus": os.cpu_count(),
           "seconds": time.perf_counter() - start})
 
 
@@ -3235,6 +3541,14 @@ def main() -> None:
         entry["launches_search"] = {label: counts[entry["name"]]
                                     for label, counts in search.items()}
     gae["shapes"] += search_gae_shapes()
+    # A13's second half: an SPO epoch is one GAE launch (64 an update); the
+    # Disco rule launches no kernel, in either mode.
+    spo = phase_spo_train(smi)
+    disco = phase_disco_train(smi)
+    for entry in (recurrence, gae, *attention, chunk, *wide):
+        entry["launches_spo_disco"] = {label: counts[entry["name"]]
+                                       for label, counts in {**spo, **disco}.items()}
+    gae["shapes"].append(spo_gae_shape())
     data_parallel = phase_data_parallel(smi)
     gae["launches_data_parallel"] = {"a_one_rank_ff_ppo": data_parallel["a_ff_ppo"],
                                      "b_per_rank": data_parallel["b_per_rank"]}

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The learning oracles of chip_smoke.py's cont_learn, rec_learn,
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
-vmpo_learn, az_learn and mz_learn phases, computed from the JAX package on
-the CPU:
+vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn and Pendulum oracle
+phases, computed from the JAX package on the CPU:
 
     JAX_PLATFORMS=cpu python scripts/jax_oracle_thresholds.py [--seeds 42 1 2]
-        [--oracles pendulum rec rainbow r2d2 sac reinforce awr mpo vmpo az mz]
+        [--oracles pendulum rec rainbow r2d2 sac reinforce awr mpo vmpo az mz spo disco
+                   spo_continuous mpo_continuous vmpo_continuous]
 
 - Pendulum: the mean return of uniform random actions over 4096 episodes of
   the JAX package's Pendulum-v1 (`jax.random` key 0), and the JAX package's
@@ -28,6 +29,17 @@ the CPU:
 - AlphaZero and MuZero on IdentityGame at the sweep's 8 simulations: the
   JAX package's ff_az and ff_mz under AZ_IDENTITY and MZ_IDENTITY (threshold
   SEARCH_THRESHOLD by the same rule as MPO's).
+- SPO and Disco-RL on IdentityGame: the JAX package's ff_spo and ff_disco103
+  under SPO_IDENTITY and DISCO_IDENTITY (the same rule as MPO's). The JAX
+  ff_disco103 reads its meta-params from a local npz this script writes (the
+  grounded rule does not use them); a download is refused, never tried.
+- SPO, MPO and V-MPO with continuous actions on Pendulum: the JAX package's
+  ff_spo_continuous, ff_mpo_continuous and ff_vmpo_continuous under
+  chip_smoke.py's PENDULUM_ORACLES overrides; the threshold is the midpoint
+  of the random return (as above) and the first seed's.
+
+`--extra o1 o2 ...` appends overrides to every run (a larger budget to try;
+later overrides win over the oracle's own).
 
 Prints one JSON line. The JAX runs take about a minute each on 8 CPU cores.
 """
@@ -38,7 +50,9 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
+import urllib.request
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -71,10 +85,13 @@ def random_pendulum_return(episodes: int) -> float:
     return float(jax.jit(jax.vmap(episode))(keys).mean())
 
 
+EXTRA: list = []  # --extra: overrides appended to every run (a budget to try)
+
+
 def final_return(module: str, root: str, overrides: list, seed: int) -> dict:
     import importlib
 
-    overrides = [o for o in overrides if not o.startswith("system.multistep_impl")]
+    overrides = [o for o in overrides if not o.startswith("system.multistep_impl")] + EXTRA
     config = config_lib.compose(config_lib.default_config_dir(), root,
                                 overrides + [f"arch.seed={seed}"])
     start = time.perf_counter()
@@ -87,11 +104,14 @@ def main() -> None:
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--episodes", type=int, default=4096)
     oracles = ["pendulum", "rec", "rainbow", "r2d2", "sac", "reinforce", "awr", "mpo", "vmpo",
-               "az", "mz"]
+               "az", "mz", "spo", "disco", *chip_smoke.PENDULUM_ORACLES]
     parser.add_argument("--oracles", nargs="+", default=oracles, choices=oracles)
+    parser.add_argument("--extra", nargs="*", default=[],
+                        help="overrides appended to every run, e.g. a budget to try")
     args = parser.parse_args()
-    out = {}
-    if "pendulum" in args.oracles or "sac" in args.oracles:
+    EXTRA.extend(args.extra)
+    out = {"extra_overrides": args.extra} if args.extra else {}
+    if {"pendulum", "sac", *chip_smoke.PENDULUM_ORACLES} & set(args.oracles):
         random_return = random_pendulum_return(args.episodes)
         out["pendulum_random_return"] = random_return
     if "pendulum" in args.oracles:
@@ -148,7 +168,47 @@ def main() -> None:
             first = runs[0]["final_return"]
             out.update({f"{name}_identity_jax": runs, f"{name}_identity_overrides": overrides,
                         f"{name}_threshold": 8.0 if first >= 10.0 else (2.5 + first) / 2})
+    if "spo" in args.oracles:
+        runs = [final_return("stoix_tpu.systems.spo.ff_spo", chip_smoke.SPO_ROOTS["ff_spo"],
+                             chip_smoke.SPO_IDENTITY, seed) for seed in args.seeds]
+        first = runs[0]["final_return"]
+        out.update({"spo_identity_jax": runs, "spo_identity_overrides": chip_smoke.SPO_IDENTITY,
+                    "spo_threshold": 8.0 if first >= 10.0 else (2.5 + first) / 2})
+    if "disco" in args.oracles:
+        runs = disco_returns(args.seeds)
+        first = runs[0]["final_return"]
+        out.update({"disco_identity_jax": runs,
+                    "disco_identity_overrides": chip_smoke.DISCO_IDENTITY,
+                    "disco_threshold": 8.0 if first >= 10.0 else (2.5 + first) / 2})
+    for name, (system, root, overrides) in chip_smoke.PENDULUM_ORACLES.items():
+        if name in args.oracles:
+            package = "spo" if system.startswith("ff_spo") else "mpo"
+            runs = [final_return(f"stoix_tpu.systems.{package}.{system}", root, overrides, seed)
+                    for seed in args.seeds]
+            out.update({f"{name}_pendulum_jax": runs, f"{name}_pendulum_overrides": overrides,
+                        f"{name}_threshold": (random_return + runs[0]["final_return"]) / 2})
     print(json.dumps(out))
+
+
+def disco_returns(seeds: list) -> list:
+    """The JAX ff_disco103 under DISCO_IDENTITY, its meta-params read from a
+    local npz (its grounded rule does not use them): the package's loader
+    would otherwise try a download, which is refused here."""
+    import numpy as np
+
+    from stoix_tpu.systems.disco import update_rule
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("no download: the oracle reads its meta-params from a local file")
+
+    urllib.request.urlretrieve = refuse
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "meta.npz")
+        rule = update_rule.DiscoUpdateRule(num_actions=4, num_bins=51)
+        np.savez(path, **update_rule.flatten_meta_params(rule.init_params(jax.random.PRNGKey(0))))
+        return [final_return("stoix_tpu.systems.disco.ff_disco103", chip_smoke.DISCO_ROOT,
+                             chip_smoke.DISCO_IDENTITY + [f"system.meta_params_path={path}"],
+                             seed) for seed in seeds]
 
 
 if __name__ == "__main__":

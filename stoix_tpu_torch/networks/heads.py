@@ -3,8 +3,8 @@ CategoricalHead, ScalarCriticHead, the continuous family's
 NormalAffineTanhDistributionHead, BetaDistributionHead and
 MultivariateNormalDiagHead, the deterministic policy's DeterministicHead,
 the value-based family's DiscreteQNetworkHead, DistributionalDiscreteQNetwork
-and QuantileDiscreteQNetwork, D4PG's DistributionalContinuousQNetwork, and the
-MuZero family's MLPLogitsHead).
+and QuantileDiscreteQNetwork, D4PG's DistributionalContinuousQNetwork, the
+MuZero family's MLPLogitsHead, and the raw LinearHead of the Disco agent).
 
 A continuous head is two Denses, flax's Dense_0 (the loc, or alpha) and
 Dense_1 (the scale, or beta), as `dense.0` and `dense.1`; its `minimum` and
@@ -253,3 +253,20 @@ class MLPLogitsHead(nn.Module):
 
     def forward(self, embedding: torch.Tensor) -> torch.Tensor:
         return self.dense[0](self.torsos[0](embedding))
+
+
+class LinearHead(nn.Module):
+    """A raw linear projection, flax's `Dense_0` (`dense.0`, orthogonal
+    init of gain 1, zero bias), its last axis squeezed when `output_dim` is 1
+    (the Disco agent's five heads)."""
+
+    def __init__(self, output_dim: int, input_dim: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.output_dim = int(output_dim)
+        self.dense = nn.ModuleList([init_linear(nn.Linear(input_dim, self.output_dim), 1.0,
+                                                generator)])
+
+    def forward(self, embedding: torch.Tensor) -> torch.Tensor:
+        out = self.dense[0](embedding)
+        return out[..., 0] if self.output_dim == 1 else out

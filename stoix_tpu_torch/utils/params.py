@@ -59,6 +59,13 @@ its flax name, as above); an MLPLogitsHead's `MLPTorso_0` and `Dense_0` are
 its `CategoricalHead_0` or `NormalAffineTanhDistributionHead_0` is
 `action_head`.
 
+The Disco agent's modules keep their flax names (`shared_torso`,
+`action_conditional_torso` with its `root_cell`, its root MLP's `Dense_i` as
+`dense.i` and its `action_lstm` cell, and the five heads `logits_head`,
+`q_head`, `y_head`, `z_head`, `aux_pi_head`, each a LinearHead's `Dense_0`);
+so do the Disco meta-network's (`meta_lstm`, `Dense_0` to `Dense_4` as
+`dense.0` to `dense.4`).
+
 Any other module name is kept as it is (`torso`, `action_head`). The Q heads
 (DiscreteQNetworkHead, DistributionalDiscreteQNetwork, QuantileDiscreteQNetwork)
 are one Dense under `action_head` (`action_head.dense.0`); the distributional

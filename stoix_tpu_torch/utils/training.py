@@ -3,7 +3,8 @@ Polyak target update and `scale_gradient` (counterpart of
 stoix_tpu/utils/training.py, of stoix_tpu/utils/jax_utils.py::scale_gradient and of
 the JAX systems' `optax.chain(optax.clip_by_global_norm(max_norm),
 optax.adam(lr, eps=eps))`, ff_pqn's `optax.chain(clip_by_global_norm,
-optax.radam(lr))` and `optax.incremental_update`).
+optax.radam(lr))`, ff_disco103's `optax.chain(optax.clip(max_delta),
+optax.adam(lr, eps=eps))` and `optax.incremental_update`).
 
 The optimizers are functional over `{name: tensor}` parameter dicts and
 reproduce optax's arithmetic step for step. Clip + Adam:
@@ -103,6 +104,20 @@ class ClipAdam:
             nu_hat = nu[k] / correction2
             updates[k] = (mu_hat / (torch.sqrt(nu_hat) + self.eps)) * -lr
         return updates, ClipAdamState(count, mu, nu)
+
+
+class ElementClipAdam(ClipAdam):
+    """Each gradient element clipped to [-max_delta, max_delta]
+    (`optax.clip`), then Adam: ff_disco103's optimizer, where ClipAdam
+    clips by the global norm."""
+
+    def __init__(self, learning_rate: LearningRate, max_delta: float, eps: float = 1e-5):
+        super().__init__(learning_rate, None, eps)
+        self.max_delta = float(max_delta)
+
+    def update(self, grads: Params, state: ClipAdamState) -> Tuple[Params, ClipAdamState]:
+        return super().update({k: torch.clamp(g, -self.max_delta, self.max_delta)
+                               for k, g in grads.items()}, state)
 
 
 def clip_by_global_norm(grads: Params, max_norm: float) -> Params:

@@ -141,3 +141,18 @@ SEARCH = {
 @pytest.mark.parametrize("overridden", [False, True])
 def test_search_config_trees_mirror_the_jax_package(name, overridden):
     _assert_mirrors(f"default/anakin/default_{name}.yaml", SEARCH[name] if overridden else [])
+
+
+# The rest of A13: SPO (discrete and continuous) and Disco-RL, each root as it
+# is and with other groups and options.
+A13_REST = {
+    "ff_spo": ["env=identity_game", "system.num_particles=8", "system.ess_threshold=0.3"],
+    "ff_spo_continuous": ["system.search_horizon=3", "system.multistep_impl=pallas"],
+    "ff_disco103": ["env=identity_game", "system.rule_mode=meta", "system.num_bins=11"],
+}
+
+
+@pytest.mark.parametrize("name", list(A13_REST))
+@pytest.mark.parametrize("overridden", [False, True])
+def test_spo_and_disco_config_trees_mirror_the_jax_package(name, overridden):
+    _assert_mirrors(f"default/anakin/default_{name}.yaml", A13_REST[name] if overridden else [])

@@ -1638,3 +1638,147 @@ def test_search_fused_multiply_add_on_the_card_is_fma_f32_bitwise():
     y = torch.exp(torch.randn(200_000, generator=gen) * 10)
     assert torch.equal(multistep.xla_log_f32(y.to(device), fused_multiply_add).cpu(),
                        multistep.xla_log_f32(y))
+
+
+# ---------------------------------------------------------------- SPO and Disco-RL
+
+SPO_SMALL = ["network.actor_network.pre_torso.layer_sizes=[32,32]",
+             "network.critic_network.pre_torso.layer_sizes=[32,32]", "arch.total_num_envs=16",
+             "system.rollout_length=8", "system.sample_sequence_length=8",
+             "system.num_particles=8", "system.search_horizon=4", "system.ess_threshold=0.85",
+             "system.init_log_temperature=-1.5", "system.multistep_impl=pallas",
+             "system.total_buffer_size=2048", "system.total_batch_size=16"]
+
+
+def _spo_setups(system, device):
+    """(the CPU setup after a CPU-made rollout, its state, the setup on `device`)."""
+    import importlib
+
+    from stoix_tpu_torch import envs
+    from stoix_tpu_torch.utils import config as config_lib
+    from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
+    module = importlib.import_module(f"stoix_tpu_torch.systems.spo.{system}")
+    cfg = check_total_timesteps(config_lib.compose(
+        config_lib.default_config_dir(), f"default/anakin/default_{system}.yaml", SPO_SMALL), 1)
+    cpu = module.learner_setup(envs.make(cfg)[0], cfg, torch.device("cpu"), 3)
+    state, _ = cpu.learn.rollout(cpu.learner_state)
+    return cpu, state, module.learner_setup(envs.make(cfg)[0], cfg, torch.device(device), 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system", ["ff_spo", "ff_spo_continuous"])
+def test_spo_search_on_the_card_matches_the_cpu(system):
+    # One SMC search of every env from the same core states, params and
+    # draws (made on the CPU): the resampling decisions and the chosen
+    # particles exact, the particles' root actions exact (Pendulum's floats
+    # 1e-6), the weights 1e-6, the advantage sums 1e-5 relative.
+    from stoix_tpu_torch.systems.search import ff_az
+    from stoix_tpu_torch.systems.spo import ff_spo
+    device = _require_cuda()
+    cpu, state, card = _spo_setups(system, device)
+    outs = []
+    for setup, where in ((cpu, "cpu"), (card, device)):
+        search = setup.learn.acting.search
+        noise = _to(search.draw_noise(torch.Generator().manual_seed(6), 16), where)
+        sim_state = ff_az.simulator_state(_to(state.env_state, where), 0, 1,
+                                          torch.Generator(device=where))
+        out = search(_to(state.params, where), noise, sim_state,
+                     _to(state.timestep.observation, where))
+        outs.append((out, ff_spo.choose(out.particle_actions, out.weights, noise.choice)[1]))
+    (cpu_out, cpu_choice), (card_out, card_choice) = outs
+    assert torch.equal(card_out.resampled.cpu(), cpu_out.resampled)
+    assert torch.equal(card_choice.cpu(), cpu_choice)
+    atol = 1e-6 if system == "ff_spo_continuous" else 0.0
+    torch.testing.assert_close(card_out.particle_actions.cpu(), cpu_out.particle_actions,
+                               rtol=0, atol=atol)
+    torch.testing.assert_close(card_out.weights.cpu(), cpu_out.weights, rtol=0, atol=1e-6)
+    torch.testing.assert_close(card_out.raw_advantages.cpu(), cpu_out.raw_advantages, rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system", ["ff_spo", "ff_spo_continuous"])
+def test_spo_epoch_on_the_card_matches_the_cpu(system):
+    # One epoch on a CPU-made sample from the same params: losses 1e-5
+    # relative, params, targets and duals 1e-5 absolute; one launch of B1's
+    # GAE entry (batch-major), nothing else.
+    from stoix_tpu_torch.utils.tree import tree_leaves
+    device = _require_cuda()
+    cpu, state, card = _spo_setups(system, device)
+    batch = cpu.learn.buffer.sample(state.buffer_state, torch.Generator().manual_seed(2))
+    cpu_params, _, cpu_metrics = cpu.learn.update_from_batch(
+        [state.params], [state.opt_states], [batch.experience])
+    before = {c.name: c.launches for c in lr.COUNTERS}
+    card_params, _, card_metrics = card.learn.update_from_batch(
+        [_to(state.params, device)], [_to(state.opt_states, device)],
+        [_to(batch.experience, device)])
+    torch.cuda.synchronize()
+    launched = {c.name: c.launches - before[c.name] for c in lr.COUNTERS}
+    assert launched == {lr.KERNEL.name: 0, lr.GAE_KERNEL.name: 1}
+    for key, value in cpu_metrics.items():
+        torch.testing.assert_close(card_metrics[key].cpu(), value, rtol=1e-5, atol=1e-7)
+    for got, want in zip(tree_leaves(card_params[0]), tree_leaves(cpu_params[0])):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["grounded", "meta"])
+def test_disco_minibatch_step_on_the_card_matches_the_cpu(mode, tmp_path):
+    # One minibatch step on a CPU-made rollout from the same params and
+    # meta-state (meta mode: meta-params from an npz the port writes): the
+    # rule's losses 1e-5 relative, params and the EMA params 1e-5 absolute,
+    # no B1 launch.
+    import numpy as np
+
+    from stoix_tpu_torch import envs
+    from stoix_tpu_torch.systems.disco import ff_disco103, update_rule
+    from stoix_tpu_torch.utils import config as config_lib
+    from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
+    from stoix_tpu_torch.utils.tree import tree_leaves, tree_map
+    device = _require_cuda()
+    path = tmp_path / "meta.npz"
+    overrides = ["network.agent_network.shared_torso.layer_sizes=[32,32]",
+                 "network.agent_network.action_conditional_torso.lstm_size=16",
+                 "arch.total_num_envs=32", f"system.rule_mode={mode}",
+                 f"system.meta_params_path={path}"]
+    cfg = check_total_timesteps(config_lib.compose(
+        config_lib.default_config_dir(), "default/anakin/default_ff_disco103.yaml", overrides), 1)
+    rule = ff_disco103.make_rule(cfg, 2, "cpu")
+    np.savez(path, **update_rule.flatten_meta_params(rule.init_params(torch.Generator())))
+    setups = [ff_disco103.learner_setup(envs.make(cfg)[0], cfg, torch.device(where), 3)
+              for where in ("cpu", device)]
+    state, traj = setups[0].learn.rollout(setups[0].learner_state)
+    batch = tree_map(lambda x: x[:, :8], traj._replace(info=None))
+    args = ([state.params], [state.opt_states], [state.meta_state], [batch])
+    cpu = setups[0].learn.update_minibatch(*args)
+    before = {c.name: c.launches for c in lr.COUNTERS}
+    card = setups[1].learn.update_minibatch(*_to(args, device))
+    torch.cuda.synchronize()
+    assert all(c.launches == before[c.name] for c in lr.COUNTERS)
+    for key, value in cpu[3].items():
+        torch.testing.assert_close(card[3][key].cpu(), value, rtol=1e-5, atol=1e-7)
+    for got, want in zip(tree_leaves((card[0], card[2])), tree_leaves((cpu[0], cpu[2]))):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_b1_gae_entry_from_spo_batch_major_sequences_matches_plain_version_bitwise():
+    # ff_spo's launch: truncated GAE over [32, 32] sampled [B, L] sequences
+    # (the dispatch's view, one launch), against the plain version on the
+    # time-major tensors.
+    device = _require_cuda()
+    gen = torch.Generator(device=device).manual_seed(9)
+    reward, v_tm1, v_t = (torch.randn((32, 32), generator=gen, device=device) for _ in range(3))
+    done = torch.rand((32, 32), generator=gen, device=device) < 0.05
+    trunc = ((torch.rand((32, 32), generator=gen, device=device) < 0.03) & ~done).float()
+    discount = 0.99 * (1.0 - done.float())
+    before = lr.GAE_KERNEL.launches
+    got = multistep.truncated_generalized_advantage_estimation(
+        reward, discount, 0.95, v_tm1=v_tm1, v_t=v_t, truncation_t=trunc, batch_major=True,
+        impl="pallas")
+    torch.cuda.synchronize()
+    assert lr.GAE_KERNEL.launches == before + 1
+    want = lr.plain_truncated_gae(*(x.T.contiguous() for x in (reward, discount, v_tm1, v_t,
+                                                                trunc)), 0.95)
+    for g, w in zip(got, want):
+        assert torch.equal(g.T, w)

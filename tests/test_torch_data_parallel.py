@@ -60,10 +60,20 @@ the 4-rank update step.
    losses 1e-5 relative, params, targets and duals 1e-5 absolute, one
    gradient all-reduce an epoch (the critic's, the actor's and the duals'
    gradients in one).
+10. Two epochs of the discrete ff_spo (`SPOUpdate`) and one ff_disco103
+   minibatch step (grounded rule) on 2 ranks, each on its own sequences or
+   minibatch, against the JAX package's own `_update_epoch` and
+   `_update_minibatch` under `shard_map` over "data" with `vmap` over
+   "batch": losses 1e-5 relative, params, targets, duals and the
+   meta-state's EMA params 1e-5 absolute, one gradient all-reduce an epoch
+   or step.
 """
 
 import inspect
 import os
+import pathlib
+import tempfile
+import urllib.request
 
 import jax
 import jax.numpy as jnp
@@ -95,6 +105,9 @@ import test_torch_mz
 import test_torch_r2d2
 import test_torch_rainbow
 import test_torch_sampled_search
+import test_torch_disco_update
+import test_torch_spo
+import test_torch_spo_update
 import test_torch_reinforce
 import test_torch_vmpo
 from test_torch_continuous import _paired_actor_critic, _trajectory as _pg_trajectory
@@ -389,6 +402,78 @@ def _search_job(system):
     return "mz", "mz_epoch", dict(overrides=MZ, params=port, batches=data, epochs=MPO_EPOCHS)
 
 
+SPO_DP = test_torch_spo.SMALL + ["arch.total_num_envs=8", "system.multistep_impl=pallas",
+                                  "system.total_buffer_size=1024", "system.total_batch_size=12",
+                                  "system.num_particles=6", "system.actor_lr=1e-3",
+                                  "system.critic_lr=1e-3"]
+DISCO_DP = test_torch_disco_update.SMALL + ["arch.total_num_envs=16", "system.lr=3e-3",
+                                            "system.max_abs_update=0.05"]
+
+
+def _spo_inputs():
+    """The JAX package's ff_spo `_update_epoch`, its params (targets
+    perturbed) and optimizer states, the port's numpy params and each
+    rank's sequences."""
+    from stoix_tpu.systems.spo import ff_spo as jax_spo
+    from stoix_tpu_torch import envs as port_envs
+
+    cfg, jcfg = test_torch_spo.compose("ff_spo", SPO_DP)
+    with pytest.MonkeyPatch.context() as patch:
+        jsetup, update_step = test_torch_az.jax_learner(jax_spo, "get_learner_fn", 4, jcfg,
+                                                        patch)
+    jparams = test_torch_spo_update.perturbed_targets(
+        test_torch_az.replica(jsetup.learner_state.params), 5)
+    jopt = test_torch_az.replica(jsetup.learner_state.opt_states)
+    env, _ = port_envs.make(cfg)
+    cfg.system.action_dim = env.num_actions
+    _, _, params = test_torch_spo.port_networks(env, cfg, jparams)
+    numpy = lambda tree: {k: v.numpy().copy() for k, v in tree.items()}  # noqa: E731
+    port = {name: {side: numpy(getattr(getattr(params, f"{name}_params"), side))
+                   for side in ("online", "target")} for name in ("actor", "critic")}
+    port.update(log_temperature=float(np.asarray(jparams.log_temperature)),
+                log_alpha=float(np.asarray(jparams.log_alpha)))
+    seqs = [test_torch_spo_update.sequences(70 + rank, 6, 8, env, 6, False) for rank in range(2)]
+    update_epoch = inspect.getclosurevars(update_step).nonlocals["_update_epoch"]
+    return update_epoch, jparams, jopt, port, seqs
+
+
+def _disco_inputs():
+    """The JAX package's ff_disco103 `_update_minibatch` (its meta-params
+    from a local npz; no download is tried), its params, optimizer state and
+    meta-state (the EMA params perturbed), the port's numpy params and each
+    rank's [T, E_mb] minibatch."""
+    from stoix_tpu.systems.disco import ff_disco103 as jax_disco
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a test tried a download")
+
+    with tempfile.TemporaryDirectory() as tmp, pytest.MonkeyPatch.context() as patch:
+        patch.setattr(urllib.request, "urlretrieve", refuse)
+        cfg, jcfg = test_torch_disco_update.compose(DISCO_DP, pathlib.Path(tmp))
+        jsetup, update_step = test_torch_az.jax_learner(jax_disco, "get_learner_fn", None, jcfg,
+                                                        patch)
+    update_epoch = inspect.getclosurevars(update_step).nonlocals["_update_epoch"]
+    update_minibatch = inspect.getclosurevars(update_epoch).nonlocals["_update_minibatch"]
+    state = jsetup.learner_state
+    jparams, jopt = test_torch_az.replica(state.params), test_torch_az.replica(state.opt_states)
+    jmeta = test_torch_az.replica(state.meta_state)
+    jmeta = jmeta._replace(target_params=test_torch_ddpg.perturbed(jmeta.target_params, 3))
+    _, params = test_torch_disco_update.port_learner(cfg, jparams)
+    _, target = test_torch_disco_update.port_learner(cfg, jmeta.target_params)
+    numpy = lambda tree: {k: v.numpy().copy() for k, v in tree.items()}  # noqa: E731
+    batches = [test_torch_disco_update.trajectory(80 + rank, 6, 4, 11) for rank in range(2)]
+    return update_minibatch, jparams, jopt, jmeta, numpy(params), numpy(target), batches
+
+
+def _a13_jobs():
+    _, _, _, port, seqs = _spo_inputs()
+    _, _, _, _, params, target, batches = _disco_inputs()
+    return [("spo", "spo_epoch", dict(overrides=SPO_DP, params=port, batches=seqs,
+                                      epochs=MPO_EPOCHS)),
+            ("disco", "disco_step", dict(overrides=DISCO_DP, params=params,
+                                         target_params=target, batches=batches))]
+
+
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     root = tmp_path_factory.mktemp("dp2")
@@ -424,6 +509,7 @@ def two_ranks(tmp_path_factory):
         _mpo_job("ff_vmpo"),
         _search_job("ff_az"),
         _search_job("ff_mz"),
+        *_a13_jobs(),
     ]
     return root, spawn_ranks(jobs, 2, root)
 
@@ -974,3 +1060,77 @@ def test_mz_epochs_on_two_ranks_match_shard_map(two_ranks):
             jax.tree.map(lambda g, w: np.testing.assert_allclose(
                 g, np.asarray(w)[rank], rtol=0, atol=1e-5), got_tree, getattr(carry[0], field))
         assert got["allreduces"] == MPO_EPOCHS
+
+
+def test_spo_epochs_on_two_ranks_match_shard_map(two_ranks):
+    update_epoch, jparams, jopt, _, seqs = _spo_inputs()
+    mesh = jax_create_mesh({"data": 2}, devices=jax.devices()[:2])
+    two = lambda tree: jax.tree.map(lambda x: jnp.stack([jnp.asarray(x)] * 2), tree)  # noqa
+    data = jax.tree.map(lambda *xs: jnp.stack(xs)[:, None],
+                        *[test_torch_spo_update.as_jax(s) for s in seqs])
+    carry = (jax.tree.map(lambda x: x[:, None], (two(jparams), two(jopt))) + (
+        data, jax.random.split(jax.random.PRNGKey(11), 2)[:, None]))
+
+    def shard(carry):  # a shard's [1, 1, ...]: its one replica
+        return jax.vmap(update_epoch, axis_name="batch")(
+            jax.tree.map(lambda x: x[0], carry), None)
+
+    fn = jax.jit(shard_map(lambda c: jax.tree.map(lambda x: x[None], shard(c)), mesh=mesh,
+                           in_specs=(P("data"),), out_specs=P("data"), check_vma=False))
+    want = []
+    for _ in range(MPO_EPOCHS):
+        carry, metrics = fn(carry)
+        want.append(jax.tree.map(np.asarray, metrics))
+    final = jax.tree.map(lambda x: x[:, 0], carry[0])
+    for rank, result in enumerate(two_ranks[1]):
+        got = result["spo"]
+        for epoch, metrics in enumerate(got["metrics"]):
+            for key, value in metrics.items():
+                np.testing.assert_allclose(value, want[epoch][key][rank, 0], rtol=1e-5,
+                                           atol=1e-7, err_msg=key)
+        for name in ("actor", "critic"):
+            for side in ("online", "target"):
+                like = getattr(getattr(jparams, f"{name}_params"), side)
+                got_tree = to_flax_params({k: torch.from_numpy(v) for k, v in
+                                           getattr(got["params"][f"{name}_params"], side).items()},
+                                          like)
+                jax.tree.map(lambda g, w: np.testing.assert_allclose(
+                    g, np.asarray(w)[rank], rtol=0, atol=1e-5), got_tree,
+                    getattr(getattr(final, f"{name}_params"), side))
+        for name in ("log_temperature", "log_alpha"):
+            np.testing.assert_allclose(got["params"][name], np.asarray(getattr(final, name))[rank],
+                                       rtol=0, atol=1e-5)
+        assert got["allreduces"] == MPO_EPOCHS
+
+
+def test_disco_minibatch_step_on_two_ranks_matches_shard_map(two_ranks):
+    update_minibatch, jparams, jopt, jmeta, _, _, batches = _disco_inputs()
+    mesh = jax_create_mesh({"data": 2}, devices=jax.devices()[:2])
+    two = lambda tree: jax.tree.map(lambda x: jnp.stack([jnp.asarray(x)] * 2)[:, None],  # noqa
+                                    tree)
+    train = (two(jparams), two(jopt), two(jmeta),
+             jax.random.split(jax.random.PRNGKey(5), 2)[:, None])
+    data = jax.tree.map(lambda *xs: jnp.stack(xs)[:, None],
+                        *[test_torch_disco_update.as_jax(b) for b in batches])
+
+    def shard(train, minibatch):  # a shard's [1, 1, ...]: its one replica
+        out = jax.vmap(update_minibatch, axis_name="batch")(
+            *jax.tree.map(lambda x: x[0], (train, minibatch)))
+        return jax.tree.map(lambda x: x[None], out)
+
+    fn = jax.jit(shard_map(shard, mesh=mesh, in_specs=(P("data"), P("data")),
+                           out_specs=P("data"), check_vma=False))
+    (params, _, meta, _), logs = fn(train, data)
+    for rank, result in enumerate(two_ranks[1]):
+        got = result["disco"]
+        for key, value in got["logs"].items():
+            np.testing.assert_allclose(value, np.asarray(logs[key])[rank, 0], rtol=1e-5,
+                                       atol=1e-6, err_msg=key)
+        for name, want in (("params", params), ("target_params", meta.target_params)):
+            like = jax.tree.map(lambda x: np.asarray(x)[rank, 0], want)
+            got_tree = to_flax_params({k: torch.from_numpy(v) for k, v in got[name].items()},
+                                      like)
+            jax.tree.map(lambda g, w: np.testing.assert_allclose(g, w, rtol=0, atol=1e-5),
+                         got_tree, like)
+        assert got["num_updates"] == int(np.asarray(meta.num_updates)[rank, 0]) == 1
+        assert got["allreduces"] == 1

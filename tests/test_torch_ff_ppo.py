@@ -287,6 +287,9 @@ def test_port_imports_nothing_of_jax():
         "           'sac.ff_sac', 'vpg.ff_reinforce', 'vpg.ff_reinforce_continuous',\n"
         "           'awr.ff_awr', 'awr.ff_awr_continuous')]\n"
         "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice13)\n"
+        "slice16 = ['networks.disco', 'systems.spo.ff_spo', 'systems.spo.ff_spo_continuous',\n"
+        "           'systems.disco.update_rule', 'systems.disco.ff_disco103']\n"
+        "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice16)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, timeout=120, check=True)

@@ -27,7 +27,7 @@ from stoix_tpu_torch.systems.q_learning import ff_dqn, ff_rainbow, q_family, rec
 from stoix_tpu_torch.utils import checkpointing
 from stoix_tpu_torch.utils import config as config_lib
 from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
-from stoix_tpu_torch.utils.training import ClipAdam
+from stoix_tpu_torch.utils.training import ClipAdam, ElementClipAdam
 
 
 def _config(root: str, overrides) -> config_lib.Config:
@@ -462,8 +462,75 @@ def mz_epoch(mesh_for, overrides, params, batches, epochs):
             "allreduces": counter.value(labels={"kind": "gradients"}) - before}
 
 
+def spo_epoch(mesh_for, overrides, params, batches, epochs):
+    """`epochs` epochs of this rank's discrete ff_spo (`SPOUpdate`) on its
+    own [B, L] sequences `batches[rank]` from the given port params: params,
+    duals, metrics and the gradient all-reduces."""
+    from stoix_tpu_torch.systems.spo import ff_spo
+
+    rank = dist.get_rank()
+    cfg = check_total_timesteps(_config("ff_spo", overrides), dist.get_world_size())
+    env, _ = envs.make(cfg)
+    cfg.system.action_dim = env.num_actions
+    actor, critic = ff_ppo.build_networks(env, cfg, torch.Generator())
+    optims = ff_spo.make_optimizers(cfg)
+    update = ff_spo.SPOUpdate((ff_ppo.make_apply_fn(actor), ff_ppo.make_apply_fn(critic)),
+                              optims, cfg, False)
+    pair = lambda key: OnlineAndTarget(_tensors(params[key]["online"]),  # noqa: E731
+                                       _tensors(params[key]["target"]))
+    duals = (torch.tensor(params["log_temperature"]), torch.tensor(params["log_alpha"]))
+    state = ff_spo.SPOParams(pair("actor"), pair("critic"), *duals)
+    opt = ff_spo.SPOOptStates(optims[0].init(state.actor_params.online),
+                              optims[1].init(state.critic_params.online),
+                              optims[2].init(ff_spo.dual_params(*duals)))
+    batch = _mpo_batch(batches[rank])
+    counter = anakin.allreduce_counter()
+    before = counter.value(labels={"kind": "gradients"})
+    states, opts, metrics = [state], [opt], []
+    for _ in range(epochs):
+        states, opts, info = update(states, opts, [batch])
+        metrics.append({k: float(v) for k, v in info.items()})
+    return {"params": _numpy(states[0]._asdict()), "metrics": metrics,
+            "allreduces": counter.value(labels={"kind": "gradients"}) - before}
+
+
+def disco_step(mesh_for, overrides, params, target_params, batches):
+    """One ff_disco103 minibatch step (grounded rule) of this rank on its own
+    [T, E_mb] minibatch `batches[rank]` from the given port params and
+    meta-state: params, the meta-state, the logs and the gradient all-reduces."""
+    from stoix_tpu_torch.networks.disco import DiscoAgentOutput
+    from stoix_tpu_torch.systems.disco import ff_disco103
+    from stoix_tpu_torch.systems.disco.update_rule import MetaState
+
+    rank = dist.get_rank()
+    cfg = check_total_timesteps(_config("ff_disco103", overrides), dist.get_world_size())
+    env, _ = envs.make(cfg)
+    cfg.system.action_dim = env.num_actions
+    rule = ff_disco103.make_rule(cfg, env.num_actions, "cpu")
+    network = ff_disco103.build_network(env, cfg, torch.Generator(), rule.num_bins)
+    optim = ElementClipAdam(float(cfg.system.lr), float(cfg.system.max_abs_update))
+    learner = ff_disco103.DiscoLearner(env, ff_ppo.make_apply_fn(network), optim, rule,
+                                       rule.init_params(torch.Generator()), cfg)
+    b = batches[rank]
+    batch = ff_disco103.DiscoTransition(
+        **{k: torch.from_numpy(b[k]) for k in ("done", "truncated", "action", "reward")},
+        obs=_observation(b["obs"]), info={},
+        agent_out=DiscoAgentOutput(**{k: torch.from_numpy(v) for k, v in b["agent_out"].items()}))
+    state = _tensors(params)
+    meta = MetaState(_tensors(target_params), torch.tensor(0, dtype=torch.int32))
+    counter = anakin.allreduce_counter()
+    before = counter.value(labels={"kind": "gradients"})
+    new_params, _, metas, logs = learner.update_minibatch([state], [optim.init(state)], [meta],
+                                                          [batch])
+    return {"params": _numpy(new_params[0]), "target_params": _numpy(metas[0].target_params),
+            "num_updates": int(metas[0].num_updates),
+            "logs": {k: float(v) for k, v in logs.items()},
+            "allreduces": counter.value(labels={"kind": "gradients"}) - before}
+
+
 DP_KINDS = {"mesh_helpers": mesh_helpers, "ppo_step": ppo_step, "statistics": statistics,
             "dqn_step": dqn_step, "sequence_step": sequence_step,
             "sequence_buffer": sequence_buffer, "run": run, "saved_state": saved_state,
             "sac_step": sac_step, "reinforce_step": reinforce_step, "mpo_step": mpo_step,
-            "az_step": az_step, "mz_epoch": mz_epoch}
+            "az_step": az_step, "mz_epoch": mz_epoch, "spo_epoch": spo_epoch,
+            "disco_step": disco_step}
