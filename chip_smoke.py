@@ -297,10 +297,43 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    uniform random actions' return and the JAX package's under
                    the same overrides (PENDULUM_ORACLES, PENDULUM_THRESHOLDS).
 
+ 40. vision_train — ff_ppo on 84x84x4 pixel Breakout (env=breakout_pixel_jax)
+                   with the Nature CNN (network=cnn_atari: conv 32/8/4, 64/4/2,
+                   64/3/1, dense 512, actor and critic) at the default config's
+                   full width (1024 envs, T = 16, 4 epochs x 4 minibatches),
+                   MAIN_UPDATES updates in 2 windows with
+                   multistep_impl=pallas, every kernel counter zeroed just
+                   before and read just after: exactly one launch of B1's GAE
+                   entry an update, 0 of every other kernel; env-steps/s a
+                   window, device launches an env step and an update
+                   (torch.profiler), an update's peak device bytes, finite
+                   losses.
+ 41. minatar_train — one window each at the default arch: ff_ppo + cnn on
+                   Breakout-, Asterix-, Freeway- and SpaceInvaders-minatar,
+                   ff_ppo + visual_resnet on Breakout-minatar, ff_ppo +
+                   mlp_resnet on CartPole (one GAE launch an update each),
+                   ff_dqn + cnn_dqn and ff_c51 + cnn_c51 on Breakout-minatar
+                   (no kernel launch); finite.
+ 42. vision_parity — TF32 off for matmuls and cuDNN: 50 steps of pixel
+                   Breakout and of each MinAtar game (64 envs, no auto-reset)
+                   on the card and on the CPU from the same reset draws and
+                   actions, every timestep equal; at 32 envs, from the same
+                   rollout, params and permutations on the card and on the
+                   CPU: one ff_ppo update with visual_resnet
+                   (Breakout-minatar; losses 1e-5 relative, params 1e-5
+                   absolute) and one update of one minibatch with cnn_atari
+                   (pixel Breakout, one Adam step: over 16 the Nature CNN's
+                   float32 sums part the params by 2.9e-4); the losses'
+                   absolute floor 1e-6 (the clip loss sits near 0).
+ 43. catch_learn — ff_ppo + cnn trains Catch (bsuite, 64 envs, CATCH) above
+                   CATCH_THRESHOLD, the midpoint of uniform random actions'
+                   return and the JAX package's under the same overrides,
+                   fixed beforehand by scripts/jax_oracle_thresholds.py.
+
 The learning oracles (learn, trans_learn, q_learn, cont_learn, rec_learn,
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
 vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn, spo_continuous_learn,
-vmpo_continuous_learn) run last, after every timed phase, each in a child
+vmpo_continuous_learn, catch_learn) run last, after every timed phase, each in a child
 process of this script (`--learn-phase NAME`), LEARN_WORKERS at a time (four
 at least, more where the host has the cores; `host_cpus` is printed), the
 longest first; a `learn_all` line gives their wall time. Then a
@@ -1749,10 +1782,15 @@ def _saved_state(uid: str, step: int) -> dict:
 
 def _device_launches(learner, state) -> int:
     """Device kernel launches of one update step, counted by torch.profiler."""
+    return _device_launches_of(lambda: learner.update_step(state))
+
+
+def _device_launches_of(fn) -> int:
+    """Device kernel launches of one call of `fn`, counted by torch.profiler."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
-        learner.update_step(state)
+        fn()
         torch.cuda.synchronize()
     return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
 
@@ -2347,7 +2385,8 @@ def _a12_module(name: str):
                "ff_reinforce": "vpg", "ff_reinforce_continuous": "vpg", "ff_awr": "awr",
                "ff_awr_continuous": "awr", **dict.fromkeys(MPO_ROOTS, "mpo"),
                **dict.fromkeys(SEARCH_ROOTS, "search"), **dict.fromkeys(SPO_ROOTS, "spo"),
-               "ff_disco103": "disco"}[name]
+               "ff_disco103": "disco", "ff_ppo": "ppo.anakin", "ff_dqn": "q_learning",
+               "ff_c51": "q_learning"}[name]
     return importlib.import_module(f"stoix_tpu_torch.systems.{package}.{name}")
 
 
@@ -3178,6 +3217,208 @@ def spo_gae_shape() -> dict:
     return record
 
 
+# ---------------------------------------------------- vision (A14's first half)
+
+PPO_ROOT = "default/anakin/default_ff_ppo.yaml"
+PIXEL = ["env=breakout_pixel_jax", "network=cnn_atari"]
+VISION_COMMON = ["arch.num_eval_episodes=16", "system.multistep_impl=pallas",
+                 "logger.use_console=False"]
+# minatar_train's runs, one window each at the default arch: label ->
+# (system, root, overrides, B1 GAE launches an update).
+MINATAR_RUNS = {
+    **{f"{game}_cnn": ("ff_ppo", PPO_ROOT, [f"env={game}", "network=cnn"], 1)
+       for game in ("breakout_jax", "asterix", "freeway", "space_invaders")},
+    "breakout_jax_visual_resnet": ("ff_ppo", PPO_ROOT,
+                                   ["env=breakout_jax", "network=visual_resnet"], 1),
+    "cartpole_mlp_resnet": ("ff_ppo", PPO_ROOT, ["network=mlp_resnet"], 1),
+    "breakout_jax_cnn_dqn": ("ff_dqn", "default/anakin/default_ff_dqn.yaml",
+                             ["env=breakout_jax", "network=cnn_dqn"], 0),
+    "breakout_jax_cnn_c51": ("ff_c51", "default/anakin/default_ff_c51.yaml",
+                             ["env=breakout_jax", "network=cnn_c51"], 0),
+}
+VISION_ENV_STEPS = 50  # steps of each env on the card and on the CPU
+VISION_PARITY_ENVS = 32  # the card-against-CPU update's env count
+# Catch with ff_ppo + cnn (catch_learn): the budget, and the threshold fixed
+# before any card run by scripts/jax_oracle_thresholds.py --oracles catch:
+# the midpoint of uniform random actions' return and the JAX package's
+# lower return of seeds 42 and 1 under CATCH.
+CATCH = ["env=catch", "network=cnn", "arch.total_num_envs=64", "arch.total_timesteps=98304",
+         "arch.num_evaluation=1", "arch.num_eval_episodes=256", "arch.evaluation_greedy=True",
+         "arch.absolute_metric=False", "logger.use_console=False"]
+CATCH_RANDOM_RETURN = -0.58349609375  # 4096 episodes, jax.random key 0
+CATCH_JAX_RETURN = 1.0  # seeds 42 and 1 both
+CATCH_THRESHOLD = (CATCH_RANDOM_RETURN + CATCH_JAX_RETURN) / 2
+
+
+def phase_vision_train(smi: str) -> dict:
+    """ff_ppo on 84x84x4 pixel Breakout with the Nature CNN (cnn_atari) at
+    the default config's full width (1024 envs, T = 16, 4 epochs x 4
+    minibatches, [1024, 84, 84, 4] float32 observations), MAIN_UPDATES
+    updates in 2 eval windows through `run_experiment`, every kernel counter
+    zeroed just before and read just after: exactly one launch of B1's GAE
+    entry an update, 0 of every other kernel; env-steps/s a window, device
+    launches an env step and an update (torch.profiler), an update's peak
+    device bytes, finite losses. Returns the run's launches."""
+    lr = linear_recurrence
+    overrides = PIXEL + [f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
+                         *VISION_COMMON]
+    record = _path_run("ff_ppo", PPO_ROOT, overrides, {lr.GAE_KERNEL.name: 1}, "vision_train",
+                       smi, True)
+    setup, state, config = record.pop("_setup_state")
+    record["b1_gae_launches_per_update"] = record["kernel_launches"][lr.GAE_KERNEL.name] / \
+        record["updates"]
+    record["update_device_bytes"] = _update_peak_bytes(setup, state)
+    record["device_launches_per_env_step"] = _device_launches_of(
+        lambda: setup.learn.env.step(state.env_state, torch.ones(
+            (int(config.arch.total_num_envs),), dtype=torch.int64, device="cuda")))
+    record["observation_bytes"] = {
+        "state_frames": _tree_bytes(state.timestep.observation.agent_view),
+        "rollout_obs": int(config.system.rollout_length)
+        * _tree_bytes(state.timestep.observation.agent_view)}
+    emit(record)
+    return record["kernel_launches"]
+
+
+def phase_minatar_train(smi: str) -> dict:
+    """One eval window each, at the default arch, of MINATAR_RUNS: ff_ppo +
+    cnn on the four MinAtar games, ff_ppo + visual_resnet on Breakout-minatar,
+    ff_ppo + mlp_resnet on CartPole, ff_dqn + cnn_dqn and ff_c51 + cnn_c51 on
+    Breakout-minatar; every kernel counter zeroed just before each run and
+    read just after (one GAE launch an ff_ppo update, nothing else), finite.
+    Returns each run's launches."""
+    lr = linear_recurrence
+    launches = {}
+    for label, (system, root, overrides, gae) in MINATAR_RUNS.items():
+        windows = ["arch.num_updates=2", "arch.num_evaluation=1", *VISION_COMMON]
+        record = _path_run(system, root, overrides + windows, {lr.GAE_KERNEL.name: gae},
+                           "minatar_train", smi, False)
+        record["run"] = label
+        record["network"] = next(o for o in overrides if o.startswith("network=")).split("=")[1]
+        emit(record)
+        launches[label] = record["kernel_launches"]
+    return launches
+
+
+def _envs_on_card_and_cpu() -> dict:
+    """VISION_ENV_STEPS steps of pixel Breakout and of each MinAtar game on
+    the card and on the CPU, from the same reset draws (the CPU's) and the
+    same actions, with no auto-reset: every timestep equal."""
+    import numpy as np
+
+    from stoix_tpu_torch.envs import breakout_pixel, minatar
+
+    games = {"Breakout-atari": (breakout_pixel.BreakoutPixel(), lambda s: s.serves - 1),
+             "Breakout-minatar": (minatar.Breakout(), lambda s: s.ball_c == 0),
+             "Asterix-minatar": (minatar.Asterix(), None),
+             "Freeway-minatar": (minatar.Freeway(), None),
+             "SpaceInvaders-minatar": (minatar.SpaceInvaders(), None)}
+    out = {}
+    for name, (env, draws_of) in games.items():
+        num_envs = 64
+        cpu_state, cpu_ts = env.reset(torch.Generator().manual_seed(3), num_envs)
+        card_gen = torch.Generator(device="cuda").manual_seed(3)
+        card_state, card_ts = (env.reset(card_gen, num_envs) if draws_of is None else
+                               env.reset_from_draws(draws_of(cpu_state).cuda(), card_gen))
+        rng = np.random.default_rng(3)
+        ended = torch.zeros((num_envs,), dtype=torch.bool)
+        for step in range(VISION_ENV_STEPS + 1):
+            pairs = [(cpu_ts.step_type, card_ts.step_type), (cpu_ts.reward, card_ts.reward),
+                     (cpu_ts.discount, card_ts.discount),
+                     *zip(cpu_ts.observation, card_ts.observation),
+                     (cpu_ts.extras["truncation"], card_ts.extras["truncation"])]
+            if not all(torch.equal(a, b.cpu()) for a, b in pairs):
+                raise AssertionError(f"{name} on the card differs from the CPU at step {step}")
+            ended |= cpu_ts.last()
+            if step == VISION_ENV_STEPS:
+                break
+            action = torch.from_numpy(rng.integers(0, env.num_actions, size=num_envs))
+            cpu_state, cpu_ts = env.step(cpu_state, action)
+            card_state, card_ts = env.step(card_state, action.cuda())
+        # An env that ended goes on stepping past its end (as the evaluator's do).
+        out[name] = {"envs": num_envs, "steps": VISION_ENV_STEPS,
+                     "envs_ended": int(ended.sum()), "exact": True}
+    return out
+
+
+def _ppo_update_on_card_and_cpu(overrides: list) -> dict:
+    """One ff_ppo update at VISION_PARITY_ENVS envs: a rollout on the card,
+    then `PPOLearner.update` on it on the card and on the CPU from the same
+    params with the same explicit permutations: every minibatch's losses
+    within 1e-5 relative with a 1e-6 absolute floor, params 1e-5 absolute.
+    The floor is for the clip loss: a mean of ratio x advantage terms of
+    order 1 (standardised advantages) that nearly cancel, so its value sits
+    near 1e-3 while its rounding follows its terms' scale."""
+    config = check_total_timesteps(compose(overrides + [
+        f"arch.total_num_envs={VISION_PARITY_ENVS}", *VISION_COMMON], PPO_ROOT), 1)
+    seed = int(config.arch.seed)
+    setups = {side: ff_ppo.learner_setup(envs.make(config)[0], config, torch.device(side), seed)
+              for side in ("cuda", "cpu")}
+    card = setups["cuda"]
+    state, traj = card.learn.rollout(card.learner_state)
+    samples = int(config.system.rollout_length) * VISION_PARITY_ENVS
+    permutations = [torch.randperm(samples, generator=torch.Generator().manual_seed(e))
+                    for e in range(int(config.system.epochs))]
+    results = {}
+    for side, setup in setups.items():
+        move = (lambda x: x) if side == "cuda" else (lambda x: x.cpu())
+        results[side] = setup.learn.update(
+            tree_map(move, state.params), tree_map(move, state.opt_states), tree_map(move, traj),
+            permutations=[p.to(side) for p in permutations])
+    got, want = results["cuda"], results["cpu"]
+    diffs = {k: ((got.loss_info[k].cpu() - want.loss_info[k]).abs(), want.loss_info[k].abs())
+             for k in ("actor_loss", "value_loss", "entropy")}
+    losses_within = all(bool((d <= 1e-5 * w + 1e-6).all()) for d, w in diffs.values())
+    param_err = _max_err(got.params, want.params)
+    record = {"envs": VISION_PARITY_ENVS, "rollout_length": int(config.system.rollout_length),
+              "epochs": int(config.system.epochs),
+              "num_minibatches": int(config.system.num_minibatches),
+              "loss_relative_err": {k: float((d / w.clamp_min(1e-30)).max())
+                                    for k, (d, w) in diffs.items()},
+              "loss_abs_err": {k: float(d.max()) for k, (d, _) in diffs.items()},
+              "params_abs_err": param_err}
+    if not (losses_within and param_err <= 1e-5):
+        raise AssertionError(f"the ff_ppo update ({overrides}) on the card is not the CPU's: "
+                             f"{record}")
+    return record
+
+
+def phase_vision_parity(smi: str) -> None:
+    """The vision path on the card against the CPU, TF32 off for matmuls and
+    cuDNN (phase device): the envs exact; one ff_ppo update with
+    visual_resnet (Breakout-minatar, 4 epochs x 4 minibatches) and one
+    update of one minibatch (one Adam step) with cnn_atari (pixel Breakout),
+    each within 1e-5."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on; the card-against-CPU bars assume float32 products")
+    start = time.perf_counter()
+    emit({"phase": "vision_parity", "envs": _envs_on_card_and_cpu(),
+          # The Nature CNN's float32 sums (7744 terms into the dense layer,
+          # up to 576 in the convs) round in another order in cuDNN than on
+          # the CPU: its gradients part by up to 5.8e-5 of their scale (also
+          # with cudnn.deterministic or cuDNN off), and Adam, whose steps
+          # near a zero gradient scale a gradient's error by lr / eps = 25,
+          # carries that to 2.9e-4 in the params over an update's 16 steps
+          # (PERF.md, PR 17). So one Adam step here.
+          "cnn_atari_update": _ppo_update_on_card_and_cpu(
+              PIXEL + ["system.epochs=1", "system.num_minibatches=1"]),
+          "visual_resnet_update": _ppo_update_on_card_and_cpu(
+              ["env=breakout_jax", "network=visual_resnet"]),
+          "seconds": time.perf_counter() - start, "card": smi})
+
+
+def phase_catch_learn() -> None:
+    """ff_ppo + cnn learns Catch above CATCH_THRESHOLD."""
+    start = time.perf_counter()
+    final_return = ff_ppo.run_experiment(compose(CATCH, PPO_ROOT), device="cuda")
+    if not final_return > CATCH_THRESHOLD:
+        raise AssertionError(f"ff_ppo + cnn returned {final_return} on Catch, not above "
+                             f"{CATCH_THRESHOLD}")
+    emit({"phase": "catch_learn", "system": "ff_ppo", "network": "cnn", "env": "catch",
+          "final_return": final_return, "threshold": CATCH_THRESHOLD,
+          "window_seconds": runner.LAST_RUN_STATS["window_seconds"],
+          "seconds": time.perf_counter() - start})
+
+
 # ---------------------------------------------------- data parallelism
 
 DP_OVERRIDES = [f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
@@ -3422,6 +3663,7 @@ LEARN_PHASES = {
                          A13_THRESHOLD),
     "disco_learn": partial(phase_pg_learn, "ff_disco103", DISCO_ROOT, DISCO_IDENTITY,
                            "disco_learn", A13_THRESHOLD),
+    "catch_learn": phase_catch_learn,
 }
 # The oracles share the card and the host's cores: one worker a core with
 # two left over, between four and six (six on an 8-core host).
@@ -3549,6 +3791,13 @@ def main() -> None:
         entry["launches_spo_disco"] = {label: counts[entry["name"]]
                                        for label, counts in {**spo, **disco}.items()}
     gae["shapes"].append(spo_gae_shape())
+    # A14's first half: one GAE launch an ff_ppo update on every vision path,
+    # nothing on ff_dqn's and ff_c51's.
+    vision = {"vision_train": phase_vision_train(smi), **phase_minatar_train(smi)}
+    phase_vision_parity(smi)
+    for entry in (recurrence, gae, *attention, chunk, *wide):
+        entry["launches_vision"] = {label: counts[entry["name"]]
+                                    for label, counts in vision.items()}
     data_parallel = phase_data_parallel(smi)
     gae["launches_data_parallel"] = {"a_one_rank_ff_ppo": data_parallel["a_ff_ppo"],
                                      "b_per_rank": data_parallel["b_per_rank"]}

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """The learning oracles of chip_smoke.py's cont_learn, rec_learn,
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
-vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn and Pendulum oracle
-phases, computed from the JAX package on the CPU:
+vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn, catch_learn and
+Pendulum oracle phases, computed from the JAX package on the CPU:
 
     JAX_PLATFORMS=cpu python scripts/jax_oracle_thresholds.py [--seeds 42 1 2]
         [--oracles pendulum rec rainbow r2d2 sac reinforce awr mpo vmpo az mz spo disco
-                   spo_continuous mpo_continuous vmpo_continuous]
+                   catch spo_continuous mpo_continuous vmpo_continuous]
 
 - Pendulum: the mean return of uniform random actions over 4096 episodes of
   the JAX package's Pendulum-v1 (`jax.random` key 0), and the JAX package's
@@ -33,6 +33,11 @@ phases, computed from the JAX package on the CPU:
   under SPO_IDENTITY and DISCO_IDENTITY (the same rule as MPO's). The JAX
   ff_disco103 reads its meta-params from a local npz this script writes (the
   grounded rule does not use them); a download is refused, never tried.
+- ff_ppo with network=cnn on Catch (bsuite, 10x5x1 boards): the mean return
+  of uniform random actions over 4096 episodes of the JAX package's Catch
+  (`jax.random` key 0), and the JAX package's ff_ppo under chip_smoke.py's
+  CATCH overrides for each seed; the threshold is the midpoint of the random
+  return and the seeds' lowest.
 - SPO, MPO and V-MPO with continuous actions on Pendulum: the JAX package's
   ff_spo_continuous, ff_mpo_continuous and ff_vmpo_continuous under
   chip_smoke.py's PENDULUM_ORACLES overrides; the threshold is the midpoint
@@ -61,7 +66,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from stoix_tpu.envs.classic import Pendulum  # noqa: E402
+from stoix_tpu.envs.classic import Catch, Pendulum  # noqa: E402
 from stoix_tpu.utils import config as config_lib  # noqa: E402
 
 
@@ -88,6 +93,27 @@ def random_pendulum_return(episodes: int) -> float:
 EXTRA: list = []  # --extra: overrides appended to every run (a budget to try)
 
 
+def random_catch_return(episodes: int) -> float:
+    env = Catch()
+
+    def episode(key):
+        reset_key, act_key = jax.random.split(key)
+        state, _ = env.reset(reset_key)
+
+        def step(carry, k):
+            state, ret, done = carry
+            state, ts = env.step(state, jax.random.randint(k, (), 0, 3))
+            return (state, ret + jnp.where(done, 0.0, ts.reward), done | ts.last()), None
+
+        # A Catch episode is rows - 1 = 9 steps long.
+        (_, ret, _), _ = jax.lax.scan(step, (state, jnp.zeros(()), jnp.zeros((), bool)),
+                                      jax.random.split(act_key, 9))
+        return ret
+
+    keys = jax.random.split(jax.random.PRNGKey(0), episodes)
+    return float(jnp.mean(jax.jit(jax.vmap(episode))(keys)))
+
+
 def final_return(module: str, root: str, overrides: list, seed: int) -> dict:
     import importlib
 
@@ -104,7 +130,7 @@ def main() -> None:
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--episodes", type=int, default=4096)
     oracles = ["pendulum", "rec", "rainbow", "r2d2", "sac", "reinforce", "awr", "mpo", "vmpo",
-               "az", "mz", "spo", "disco", *chip_smoke.PENDULUM_ORACLES]
+               "az", "mz", "spo", "disco", "catch", *chip_smoke.PENDULUM_ORACLES]
     parser.add_argument("--oracles", nargs="+", default=oracles, choices=oracles)
     parser.add_argument("--extra", nargs="*", default=[],
                         help="overrides appended to every run, e.g. a budget to try")
@@ -180,6 +206,14 @@ def main() -> None:
         out.update({"disco_identity_jax": runs,
                     "disco_identity_overrides": chip_smoke.DISCO_IDENTITY,
                     "disco_threshold": 8.0 if first >= 10.0 else (2.5 + first) / 2})
+    if "catch" in args.oracles:
+        random_catch = random_catch_return(args.episodes)
+        runs = [final_return("stoix_tpu.systems.ppo.anakin.ff_ppo", chip_smoke.PPO_ROOT,
+                             chip_smoke.CATCH, seed) for seed in args.seeds]
+        lowest = min(run["final_return"] for run in runs)
+        out.update({"catch_random_return": random_catch, "catch_jax": runs,
+                    "catch_overrides": chip_smoke.CATCH,
+                    "catch_threshold": (random_catch + lowest) / 2})
     for name, (system, root, overrides) in chip_smoke.PENDULUM_ORACLES.items():
         if name in args.oracles:
             package = "spo" if system.startswith("ff_spo") else "mpo"

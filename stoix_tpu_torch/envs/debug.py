@@ -1,5 +1,5 @@
 """Debug environments for correctness testing (counterpart of
-stoix_tpu/envs/debug.py, the IdentityGame subset)."""
+stoix_tpu/envs/debug.py: IdentityGame and SequenceGame)."""
 
 from __future__ import annotations
 
@@ -93,3 +93,62 @@ class IdentityGame(Environment):
         obs = self._obs(next_state)
         done = next_state.step_count >= self._episode_length
         return next_state, select_step(done, termination(reward, obs), transition(reward, obs))
+
+
+class SequenceState(NamedTuple):
+    generator: torch.Generator
+    cue: torch.Tensor  # [N] int64
+    step_count: torch.Tensor  # [N] int32
+
+
+class SequenceGame(Environment):
+    """Memory task: the cue is visible only in the first observation; the
+    agent earns reward 1 at the final step by repeating it. Needs recurrence
+    for `delay` > 0. `reset_from_draws(cue, generator)` resets to given cues
+    ([N] integers), so the tests can feed the JAX package's draws."""
+
+    def __init__(self, num_actions: int = 4, delay: int = 4):
+        self._num_actions = int(num_actions)
+        self._delay = int(delay)
+
+    def observation_space(self) -> Observation:
+        return Observation(
+            agent_view=spaces.Array((self._num_actions,), torch.float32),
+            action_mask=spaces.Array((self._num_actions,), torch.float32),
+            step_count=spaces.Array((), torch.int32),
+        )
+
+    def action_space(self) -> spaces.Discrete:
+        return spaces.Discrete(self._num_actions)
+
+    def _obs(self, state: SequenceState) -> Observation:
+        cue = state.cue
+        visible = (state.step_count == 0)[:, None]
+        view = torch.nn.functional.one_hot(cue, self._num_actions).to(torch.float32)
+        return Observation(
+            agent_view=torch.where(visible, view, 0.0),
+            action_mask=torch.ones((cue.shape[0], self._num_actions), dtype=torch.float32,
+                                   device=cue.device),
+            step_count=state.step_count,
+        )
+
+    def reset(self, generator: torch.Generator, num_envs: int) -> Tuple[SequenceState, TimeStep]:
+        cue = torch.randint(0, self._num_actions, (num_envs,), generator=generator,
+                            device=generator.device)
+        return self.reset_from_draws(cue, generator)
+
+    def reset_from_draws(self, cue: torch.Tensor, generator: torch.Generator
+                         ) -> Tuple[SequenceState, TimeStep]:
+        cue = cue.to(device=generator.device, dtype=torch.int64)
+        num_envs = cue.shape[0]
+        state = SequenceState(generator, cue,
+                              torch.zeros((num_envs,), dtype=torch.int32, device=cue.device))
+        return state, restart(self._obs(state), num_envs, cue.device)
+
+    def step(self, state: SequenceState, action: torch.Tensor) -> Tuple[SequenceState, TimeStep]:
+        next_count = state.step_count + 1
+        at_end = next_count >= self._delay + 1
+        reward = (at_end & (action == state.cue)).to(torch.float32)
+        next_state = SequenceState(state.generator, state.cue, next_count)
+        obs = self._obs(next_state)
+        return next_state, select_step(at_end, termination(reward, obs), transition(reward, obs))

@@ -2,9 +2,9 @@
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
-from stoix_tpu_torch.envs import classic, debug
+from stoix_tpu_torch.envs import breakout_pixel, classic, debug, minatar
 from stoix_tpu_torch.envs.core import Environment
 from stoix_tpu_torch.parallel.distributed import process_count
 from stoix_tpu_torch.envs.wrappers import (
@@ -18,13 +18,33 @@ from stoix_tpu_torch.envs.wrappers import (
 ENV_REGISTRY: Dict[str, Callable[..., Environment]] = {
     "CartPole-v1": classic.CartPole,
     "Pendulum-v1": classic.Pendulum,
+    "Acrobot-v1": classic.Acrobot,
+    "MountainCar-v0": classic.MountainCar,
     "MountainCarContinuous-v0": classic.MountainCarContinuous,
+    "Catch-bsuite": classic.Catch,
+    "Breakout-minatar": minatar.Breakout,
+    "Breakout-atari": breakout_pixel.BreakoutPixel,
+    "Asterix-minatar": minatar.Asterix,
+    "Freeway-minatar": minatar.Freeway,
+    "SpaceInvaders-minatar": minatar.SpaceInvaders,
     "IdentityGame": debug.IdentityGame,
+    "SequenceGame": debug.SequenceGame,
 }
 
+# The JAX package's external suites (its envs/suites.py SUITE_MAKERS): an
+# `env.env_name` naming one builds that suite's adapter there, never the
+# first-party env of the same scenario name, and the port has no adapters.
+EXTERNAL_SUITES = ("gymnax", "brax", "jumanji", "popgym_arcade", "popjym", "craftax",
+                   "xland_minigrid", "navix", "kinetix", "mujoco_playground", "jaxarc")
 
-def make_single(scenario: str, **env_kwargs: Any) -> Environment:
-    """Construct a raw (unwrapped) batched environment."""
+
+def make_single(scenario: str, suite: Optional[str] = None, **env_kwargs: Any) -> Environment:
+    """Construct a raw (unwrapped) batched environment. `suite` is the
+    config's `env.env_name`; an external suite's name is refused."""
+    if suite in EXTERNAL_SUITES:
+        raise NotImplementedError(
+            f"env.env_name={suite!r} names an external suite, which is not ported: the JAX "
+            f"package builds its adapter for {scenario!r}, not the first-party env")
     if scenario not in ENV_REGISTRY:
         raise NotImplementedError(
             f"env.scenario.name={scenario!r} is not ported; ported: {sorted(ENV_REGISTRY)}"
@@ -37,6 +57,7 @@ def make(config: Any) -> Tuple[Environment, Environment]:
 
     Config fields:
         env.scenario.name        — registry key
+        env.env_name             — the suite (an external one is refused)
         env.kwargs               — ctor kwargs (optional)
         env.wrapper              — max_episode_steps, flatten_observation,
                                    use_optimistic_reset (with reset_ratio),
@@ -45,9 +66,10 @@ def make(config: Any) -> Tuple[Environment, Environment]:
     env_cfg = config.env
     kwargs = dict(env_cfg.get("kwargs") or {})
     scenario = env_cfg.scenario.name
+    suite = env_cfg.get("env_name")
     wrapper_cfg = dict(env_cfg.get("wrapper") or {})
-    train_env = make_single(scenario, **kwargs)
-    eval_env = make_single(scenario, **kwargs)
+    train_env = make_single(scenario, suite, **kwargs)
+    eval_env = make_single(scenario, suite, **kwargs)
     if wrapper_cfg.get("flatten_observation", False):
         train_env = FlattenObservationWrapper(train_env)
         eval_env = FlattenObservationWrapper(eval_env)

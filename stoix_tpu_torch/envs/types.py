@@ -12,7 +12,7 @@ Truncation semantics:
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,6 +106,23 @@ def tree_select(flag: torch.Tensor, a: Any, b: Any) -> Any:
     return b
 
 
+def put_inside(board: torch.Tensor, index: Tuple[torch.Tensor, ...], value: Any) -> None:
+    """`board[index] = value` in place, with the writes whose index is out
+    of range dropped, as XLA drops them from a scatter (`.at[].set`): an env
+    stepped past its end (the evaluator steps finished envs and discards
+    the result) may index past the board."""
+    inside = True
+    clamped = []
+    for axis, idx in enumerate(index):
+        if isinstance(idx, torch.Tensor):  # an int index is the caller's constant
+            size = board.shape[axis]
+            inside = inside & (idx >= 0) & (idx < size)
+            idx = torch.clamp(idx, 0, size - 1)
+        clamped.append(idx)
+    clamped = tuple(clamped)
+    board[clamped] = torch.where(inside, value, board[clamped])
+
+
 def select_step(done: torch.Tensor, terminal_ts: TimeStep, mid_ts: TimeStep) -> TimeStep:
     """Per-env select between terminal and mid timesteps."""
     return tree_select(done, terminal_ts, mid_ts)
@@ -114,7 +131,9 @@ def select_step(done: torch.Tensor, terminal_ts: TimeStep, mid_ts: TimeStep) -> 
 class Observation(NamedTuple):
     """Canonical structured observation.
 
-    agent_view:  the raw observable features [N, obs_dim].
+    agent_view:  the raw observable features: [N, obs_dim] vectors, or
+                 images [N, H, W, C] (NHWC, as the JAX package's) for the
+                 grid and pixel envs.
     action_mask: legal-action mask [N, num_actions] (all-ones when unmasked).
     step_count:  steps elapsed in the current episode [N].
     """

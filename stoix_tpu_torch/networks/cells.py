@@ -30,8 +30,10 @@ from torch import nn
 _TRUNCATED_STDDEV = 0.87962566103423978
 
 
-def lecun_normal(layer: nn.Linear, generator: Optional[torch.Generator]) -> nn.Linear:
-    std = math.sqrt(1.0 / layer.in_features) / _TRUNCATED_STDDEV
+def lecun_normal(layer: nn.Module, generator: Optional[torch.Generator]) -> nn.Module:
+    """flax's lecun_normal on a Linear's or a Conv2d's weight: fan-in is one
+    output unit's weights (in, or in.kh.kw)."""
+    std = math.sqrt(1.0 / layer.weight[0].numel()) / _TRUNCATED_STDDEV
     with torch.no_grad():
         nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
     return layer

@@ -57,6 +57,17 @@ def head_kwargs_for_env(head_cfg: Any, env: envs.Environment) -> dict:
     return {k: v for k, v in kwargs.items() if k not in head_cfg}
 
 
+def torso_input_kwargs(torso_cfg: Any, example: torch.Tensor) -> dict:
+    """The input size a torso config's module takes, from one env's input
+    `example` (what the input layer makes of the observation): the conv
+    torsos (an `input_shape` parameter) its whole shape, the MLP torsos
+    (`input_dim`) its last dimension."""
+    params = inspect.signature(_import_target(torso_cfg["_target_"])).parameters
+    if "input_shape" in params:
+        return {"input_shape": tuple(int(s) for s in example.shape)}
+    return {"input_dim": int(example.shape[-1])}
+
+
 def make_seeds(seed: int, count: int) -> List[int]:
     """`count` independent 63-bit seeds derived from one run seed (the
     port's `jax.random.split`)."""

@@ -527,10 +527,11 @@ def make_apply_fn(network: torch.nn.Module) -> Callable[[Dict[str, torch.Tensor]
 def _build(env: envs.Environment, cfg: Any, head_key: str, head_kwargs: dict,
            generator: torch.Generator):
     """(head, torso, input layer) of one network config, each module taking
-    its input width from the one before it."""
+    its input size from the one before it."""
     input_layer = config_lib.instantiate(cfg.input_layer)
-    in_dim = int(input_layer(env.observation_value()).shape[-1])
-    torso = config_lib.instantiate(cfg.pre_torso, input_dim=in_dim, generator=generator)
+    torso = config_lib.instantiate(
+        cfg.pre_torso, generator=generator,
+        **anakin.torso_input_kwargs(cfg.pre_torso, input_layer(env.observation_value())))
     head = config_lib.instantiate(
         cfg[head_key], input_dim=torso.output_dim, generator=generator, **head_kwargs
     )

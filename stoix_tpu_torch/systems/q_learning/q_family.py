@@ -69,8 +69,9 @@ def build_q_network(env: envs.Environment, config: Any, generator: torch.Generat
 
     net_cfg = config.network.actor_network
     input_layer = config_lib.instantiate(net_cfg.input_layer)
-    in_dim = int(input_layer(env.observation_value()).shape[-1])
-    torso = config_lib.instantiate(net_cfg.pre_torso, input_dim=in_dim, generator=generator)
+    torso = config_lib.instantiate(
+        net_cfg.pre_torso, generator=generator,
+        **anakin.torso_input_kwargs(net_cfg.pre_torso, input_layer(env.observation_value())))
     head_kwargs = dict(action_dim=env.num_actions,
                        epsilon=float(config.system.evaluation_epsilon))
     head_kwargs.update(extra_head_kwargs)

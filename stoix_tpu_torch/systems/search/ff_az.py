@@ -110,6 +110,7 @@ def make_simulator(config: Any) -> envs.Environment:
     wrapper (no step limit, no auto-reset), so the search never resets."""
     scenario = config.env.scenario
     return envs.make_single(scenario.name if hasattr(scenario, "name") else scenario,
+                            config.env.get("env_name"),
                             **dict(config.env.get("kwargs", {}) or {}))
 
 

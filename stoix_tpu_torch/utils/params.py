@@ -66,6 +66,12 @@ The Disco agent's modules keep their flax names (`shared_torso`,
 so do the Disco meta-network's (`meta_lstm`, `Dense_0` to `Dense_4` as
 `dense.0` to `dense.4`).
 
+The conv torsos (networks/torso.py::CNNTorso, networks/resnet.py) keep
+flax's numbering: `Conv_i` is `conv.i`, `ResidualBlock_i` and
+`MLPResidualBlock_i` are `blocks.i`, and a conv kernel changes layout:
+
+    Conv_i/kernel [kh, kw, in, out]  ->  conv.i.weight [out, in, kh, kw]
+
 Any other module name is kept as it is (`torso`, `action_head`). The Q heads
 (DiscreteQNetworkHead, DistributionalDiscreteQNetwork, QuantileDiscreteQNetwork)
 are one Dense under `action_head` (`action_head.dense.0`); the distributional
@@ -83,8 +89,10 @@ import torch
 from torch import nn
 
 _NUMBERED = re.compile(
-    r"^(Dense|LayerNorm|block|NoisyLinear|MLPTorso|NoisyMLPTorso|networks|cells)_(\d+)$")
-_NUMBERED_PREFIX = {"Dense": "dense", "LayerNorm": "norm", "block": "blocks",
+    r"^(Dense|LayerNorm|Conv|block|ResidualBlock|MLPResidualBlock|NoisyLinear|MLPTorso|"
+    r"NoisyMLPTorso|networks|cells)_(\d+)$")
+_NUMBERED_PREFIX = {"Dense": "dense", "LayerNorm": "norm", "Conv": "conv", "block": "blocks",
+                    "ResidualBlock": "blocks", "MLPResidualBlock": "blocks",
                     "NoisyLinear": "layers", "MLPTorso": "torsos", "NoisyMLPTorso": "torsos",
                     "networks": "networks", "cells": "cells"}
 _MODULE_NAME = {"TransformerTorso_0": "torso", "CategoricalHead_0": "action_head",
@@ -122,8 +130,11 @@ def flax_path_to_torch(path: Tuple[str, ...]) -> Tuple[str, bool]:
 
 
 def flax_leaf_to_torch(array: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
-    """One flax leaf in the layout of its torch parameter: a kernel
+    """One flax leaf in the layout of its torch parameter: a Conv_i kernel
+    [kh, kw, in, out] becomes Conv2d's [out, in, kh, kw], any other kernel
     [in, out...] becomes [out, in], a bias [out...] becomes [out]."""
+    if path[-1] == "kernel" and len(path) > 1 and path[-2].startswith("Conv_"):
+        return array.transpose(3, 2, 0, 1)
     if path[-1] == "kernel":
         return array.reshape(array.shape[0], -1).T
     if path[-1] == "bias":

@@ -156,3 +156,27 @@ A13_REST = {
 @pytest.mark.parametrize("overridden", [False, True])
 def test_spo_and_disco_config_trees_mirror_the_jax_package(name, overridden):
     _assert_mirrors(f"default/anakin/default_{name}.yaml", A13_REST[name] if overridden else [])
+
+
+# Vision and the rest of classic.py and debug.py (A14's first half): every
+# new env and network group on the root that trains on it.
+VISION = {
+    "breakout_pixel_jax": ("ff_ppo", ["env=breakout_pixel_jax", "network=cnn_atari"]),
+    "breakout_jax": ("ff_ppo", ["env=breakout_jax", "network=cnn"]),
+    "asterix": ("ff_ppo", ["env=asterix", "network=cnn"]),
+    "freeway": ("ff_ppo", ["env=freeway", "network=cnn"]),
+    "space_invaders": ("ff_ppo", ["env=space_invaders", "network=visual_resnet"]),
+    "catch": ("ff_ppo", ["env=catch", "network=cnn"]),
+    "acrobot": ("ff_ppo", ["env=acrobot", "network=mlp_resnet"]),
+    "mountain_car": ("ff_ppo", ["env=mountain_car"]),
+    "sequence_game": ("rec_ppo", ["env=sequence_game"]),
+    "sequence_game_long": ("rec_ppo", ["env=sequence_game_long"]),
+    "cnn_dqn": ("ff_dqn", ["env=breakout_jax", "network=cnn_dqn"]),
+    "cnn_c51": ("ff_c51", ["env=breakout_jax", "network=cnn_c51"]),
+}
+
+
+@pytest.mark.parametrize("group", list(VISION))
+def test_vision_config_trees_mirror_the_jax_package(group):
+    name, overrides = VISION[group]
+    _assert_mirrors(f"default/anakin/default_{name}.yaml", overrides)

@@ -1782,3 +1782,74 @@ def test_b1_gae_entry_from_spo_batch_major_sequences_matches_plain_version_bitwi
                                                                 trunc)), 0.95)
     for g, w in zip(got, want):
         assert torch.equal(g.T, w)
+
+
+# ---------------------------------------------------- vision (A14's first half)
+
+def _vision_env(name):
+    from stoix_tpu_torch.envs import breakout_pixel, minatar
+
+    return {"Breakout-atari": (breakout_pixel.BreakoutPixel(), lambda s: s.serves - 1),
+            "Breakout-minatar": (minatar.Breakout(), lambda s: s.ball_c == 0),
+            "Asterix-minatar": (minatar.Asterix(), None),
+            "Freeway-minatar": (minatar.Freeway(), None),
+            "SpaceInvaders-minatar": (minatar.SpaceInvaders(), None)}[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Breakout-atari", "Breakout-minatar", "Asterix-minatar",
+                                  "Freeway-minatar", "SpaceInvaders-minatar"])
+def test_vision_env_on_the_card_matches_the_cpu_exactly(name):
+    """40 steps from the CPU's reset draws, with no auto-reset (ended envs
+    step past their end): every timestep equal."""
+    device = _require_cuda()
+    env, draws_of = _vision_env(name)
+    cpu_state, cpu_ts = env.reset(torch.Generator().manual_seed(1), 16)
+    gen = torch.Generator(device=device).manual_seed(1)
+    card_state, card_ts = (env.reset(gen, 16) if draws_of is None
+                           else env.reset_from_draws(draws_of(cpu_state).to(device), gen))
+    actions = torch.Generator().manual_seed(2)
+    for _ in range(40):
+        for a, b in ((cpu_ts.step_type, card_ts.step_type), (cpu_ts.reward, card_ts.reward),
+                     (cpu_ts.discount, card_ts.discount),
+                     *zip(cpu_ts.observation, card_ts.observation)):
+            assert torch.equal(a, b.cpu())
+        action = torch.randint(0, env.num_actions, (16,), generator=actions)
+        cpu_state, cpu_ts = env.step(cpu_state, action)
+        card_state, card_ts = env.step(card_state, action.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cnn_atari", "visual_resnet", "mlp_resnet"])
+def test_vision_torso_forward_and_gradients_on_the_card_match_the_cpu(kind):
+    """The torso's output and the gradients of (out ** 2).sum() on the card
+    against the CPU, TF32 off: 1e-5 relative to each tensor's scale."""
+    import copy
+
+    from stoix_tpu_torch.networks import resnet, torso
+
+    device = _require_cuda()
+    gen = torch.Generator().manual_seed(0)
+    module, shape = {
+        "cnn_atari": (lambda: torso.CNNTorso((84, 84, 4), (32, 64, 64), (8, 4, 3), (4, 2, 1),
+                                             hidden_sizes=(512,), generator=gen), (8, 84, 84, 4)),
+        "visual_resnet": (lambda: resnet.VisualResNetTorso(
+            (10, 10, 4), (16, 32), (2, 2), generator=gen), (2, 8, 10, 10, 4)),
+        "mlp_resnet": (lambda: resnet.MLPResNetTorso(4, generator=gen), (32, 4)),
+    }[kind]
+    cpu = module()
+    card = copy.deepcopy(cpu).to(device)
+    x = torch.rand(shape, generator=gen)
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        outs = []
+        for net, inp in ((cpu, x), (card, x.to(device))):
+            out = net(inp)
+            (out ** 2).sum().backward()
+            outs.append([out.detach().cpu()] + [p.grad.cpu() for p in net.parameters()])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    for want, got in zip(*outs):
+        scale = float(want.abs().max().clamp_min(1e-30))
+        assert float((got - want).abs().max()) <= 1e-5 * scale

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import contextlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -153,7 +154,11 @@ def to_flax_params(params, flax_like):
             else:
                 name, is_kernel = flax_path_to_torch(path)
                 array = params[name].detach().cpu().numpy()
-                out[key] = (array.T if is_kernel else array).reshape(np.shape(value))
+                if is_kernel and np.ndim(value) == 4 and path[-2].startswith("Conv_"):
+                    array = array.transpose(2, 3, 1, 0)  # [out, in, kh, kw] -> flax's
+                elif is_kernel:
+                    array = array.T
+                out[key] = array.reshape(np.shape(value))
         return out
 
     if set(flax_like) == {"params"}:
@@ -258,3 +263,65 @@ def noise_draws(module, seed: int):
     pairs = [(torch.from_numpy(draws[i]), torch.from_numpy(draws[i + 1]))
              for i in range(0, len(draws), 2)]
     return draws, pairs
+
+
+def env_lockstep(jax_env, port_env, draws_of, num_actions: int, steps: int = 200,
+                 num_envs: int = 8, seed: int = 0, compare=None, actions=None) -> int:
+    """Step a JAX env (vmapped and jitted) and its port twin in lockstep on
+    the same actions for `steps` steps, across episode ends: an ended env is
+    reset on both sides, the port's from the draws `draws_of(jax_reset_state)`
+    reads from JAX's reset (None: the env draws nothing, so a plain reset).
+    `compare(jax_ts, port_ts)` checks every timestep, the resets' included
+    (default: `assert_timesteps_equal`). `actions(step, rng)` gives the
+    step's [num_envs] actions (default uniform). Returns the episode ends."""
+    from stoix_tpu_torch.envs.types import tree_select
+
+    compare = compare or assert_timesteps_equal
+    reset, step = jax.jit(jax.vmap(jax_env.reset)), jax.jit(jax.vmap(jax_env.step))
+    generator = torch.Generator().manual_seed(seed)
+
+    def port_reset(jax_state):
+        if draws_of is None:
+            return port_env.reset(generator, num_envs)
+        return port_env.reset_from_draws(t(draws_of(jax_state)), generator)
+
+    key = jax.random.PRNGKey(seed)
+    key, sub = jax.random.split(key)
+    jstate, jts = reset(jax.random.split(sub, num_envs))
+    pstate, pts = port_reset(jstate)
+    compare(jts, pts)
+    rng = np.random.default_rng(seed)
+    ends = 0
+    for i in range(steps):
+        act = (rng.integers(0, num_actions, size=num_envs) if actions is None
+               else np.asarray(actions(i, rng)))
+        jstate, jts = step(jstate, jnp.asarray(act, jnp.int32))
+        pstate, pts = port_env.step(pstate, torch.as_tensor(act, dtype=torch.int64))
+        compare(jts, pts)
+        done = np.asarray(jts.step_type) == 2
+        if done.any():
+            ends += int(done.sum())
+            key, sub = jax.random.split(key)
+            rstate, rts = reset(jax.random.split(sub, num_envs))
+            flag = jnp.asarray(done)
+            jstate = jax.tree.map(
+                lambda r, s: jnp.where(flag.reshape(flag.shape + (1,) * (s.ndim - 1)), r, s),
+                rstate, jstate)
+            prstate, prts = port_reset(rstate)
+            compare(rts, prts)
+            pstate = tree_select(torch.from_numpy(done), prstate, pstate)
+    return ends
+
+
+def assert_timesteps_equal(jax_ts, port_ts) -> None:
+    """Step types, rewards, discounts, observations and (where the env sets
+    it) the truncation flag, exactly."""
+    np.testing.assert_array_equal(n(port_ts.step_type), np.asarray(jax_ts.step_type))
+    np.testing.assert_array_equal(n(port_ts.reward), np.asarray(jax_ts.reward))
+    np.testing.assert_array_equal(n(port_ts.discount), np.asarray(jax_ts.discount))
+    for field in ("agent_view", "action_mask", "step_count"):
+        np.testing.assert_array_equal(n(getattr(port_ts.observation, field)),
+                                      np.asarray(getattr(jax_ts.observation, field)))
+    if "truncation" in jax_ts.extras:
+        np.testing.assert_array_equal(n(port_ts.extras["truncation"]),
+                                      np.asarray(jax_ts.extras["truncation"]))
