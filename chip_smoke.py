@@ -329,14 +329,41 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    CATCH_THRESHOLD, the midpoint of uniform random actions'
                    return and the JAX package's under the same overrides,
                    fixed beforehand by scripts/jax_oracle_thresholds.py.
+ 44. loco_train — ff_ppo_continuous on Ant (env=ant,
+                   normalize_observations on) at the default config's full
+                   width (1024 envs, T = 16, 4 epochs x 4 minibatches, MLPs
+                   256 x 256, 27-dim observations, 8 actions), MAIN_UPDATES
+                   updates in 2 windows with multistep_impl=pallas, every
+                   kernel counter zeroed just before and read just after:
+                   exactly one launch of B1's GAE entry an update, 0 of every
+                   other kernel; env-steps/s a window, device launches a
+                   control step and an update, an update's peak device bytes,
+                   finite losses. Then ff_sac on Ant at its default config
+                   (64 envs, T = 8, 32 warm-up steps, 4 epochs of 512): no
+                   kernel launch. Episodes cut to LOCO_MAX_STEPS control
+                   steps, no absolute metric (LOCO_COMMON).
+ 45. loco_envs   — one window each of ff_ppo_continuous on Hopper, Walker2d
+                   and HalfCheetah (one GAE launch an update), then the four
+                   robots on the card against the CPU: LOCO_PARITY_STEPS
+                   control steps, each from the CPU's state, within 1e-5.
+ 46. grid_train  — one window each at the default arch: ff_dqn, ff_c51 and
+                   ff_dqn + cnn_dqn on Snake (no kernel launch), ff_ppo on
+                   Snake, 2048 and DoorKey (one GAE launch an update), finite;
+                   then the three games on the card against the CPU from the
+                   same draws, every timestep equal for GRID_ENV_STEPS steps.
+ 47. snake_learn — ff_ppo trains Snake (6x6, 64 envs, SNAKE) above
+                   SNAKE_THRESHOLD, the midpoint of uniform random legal
+                   actions' return and the JAX package's under the same
+                   overrides, fixed beforehand by
+                   scripts/jax_oracle_thresholds.py.
 
 The learning oracles (learn, trans_learn, q_learn, cont_learn, rec_learn,
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
 vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn, spo_continuous_learn,
-vmpo_continuous_learn, catch_learn) run last, after every timed phase, each in a child
-process of this script (`--learn-phase NAME`), LEARN_WORKERS at a time (four
-at least, more where the host has the cores; `host_cpus` is printed), the
-longest first; a `learn_all` line gives their wall time. Then a
+vmpo_continuous_learn, catch_learn, snake_learn) run last, after every timed
+phase, each in a child process of this script (`--learn-phase NAME`),
+LEARN_WORKERS at a time (four at least, more where the host has the cores;
+`host_cpus` is printed), the longest first; a `learn_all` line gives their wall time. Then a
 `{"kernels": [...]}` line, the card's `nvidia-smi` name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -2385,8 +2412,8 @@ def _a12_module(name: str):
                "ff_reinforce": "vpg", "ff_reinforce_continuous": "vpg", "ff_awr": "awr",
                "ff_awr_continuous": "awr", **dict.fromkeys(MPO_ROOTS, "mpo"),
                **dict.fromkeys(SEARCH_ROOTS, "search"), **dict.fromkeys(SPO_ROOTS, "spo"),
-               "ff_disco103": "disco", "ff_ppo": "ppo.anakin", "ff_dqn": "q_learning",
-               "ff_c51": "q_learning"}[name]
+               "ff_disco103": "disco", "ff_ppo": "ppo.anakin", "ff_ppo_continuous": "ppo.anakin",
+               "ff_dqn": "q_learning", "ff_c51": "q_learning"}[name]
     return importlib.import_module(f"stoix_tpu_torch.systems.{package}.{name}")
 
 
@@ -3249,6 +3276,18 @@ CATCH_RANDOM_RETURN = -0.58349609375  # 4096 episodes, jax.random key 0
 CATCH_JAX_RETURN = 1.0  # seeds 42 and 1 both
 CATCH_THRESHOLD = (CATCH_RANDOM_RETURN + CATCH_JAX_RETURN) / 2
 
+# ff_ppo on Snake (6x6, flattened, the MLP networks) for snake_learn: the
+# budget, and the threshold fixed before any card run by
+# scripts/jax_oracle_thresholds.py --oracles snake: the midpoint of uniform
+# random legal actions' return and the JAX package's lower return of seeds
+# 42 and 1 under SNAKE.
+SNAKE = ["env=snake", "arch.total_num_envs=64", "arch.total_timesteps=262144",
+         "arch.num_evaluation=1", "arch.num_eval_episodes=64", "arch.evaluation_greedy=True",
+         "arch.absolute_metric=False", "system.multistep_impl=pallas", "logger.use_console=False"]
+SNAKE_RANDOM_RETURN = 0.145263671875  # 4096 episodes, jax.random key 0
+SNAKE_JAX_RETURN = 12.234375  # seed 42 (seed 1: 13.34375)
+SNAKE_THRESHOLD = (SNAKE_RANDOM_RETURN + SNAKE_JAX_RETURN) / 2
+
 
 def phase_vision_train(smi: str) -> dict:
     """ff_ppo on 84x84x4 pixel Breakout with the Nature CNN (cnn_atari) at
@@ -3415,6 +3454,212 @@ def phase_catch_learn() -> None:
                              f"{CATCH_THRESHOLD}")
     emit({"phase": "catch_learn", "system": "ff_ppo", "network": "cnn", "env": "catch",
           "final_return": final_return, "threshold": CATCH_THRESHOLD,
+          "window_seconds": runner.LAST_RUN_STATS["window_seconds"],
+          "seconds": time.perf_counter() - start})
+
+
+# ------------------------------------------- grid games and locomotion
+
+# The locomotion phases cut an episode to LOCO_MAX_STEPS control steps
+# (env.kwargs.max_steps; the JAX package's limit is 1000) and take no
+# absolute metric: a control step is 16 substeps, about 2 600 launches on the
+# card, so one evaluation window of 1000-step episodes would take about a
+# minute of host dispatch (at 50, an Ant evaluation window takes about 4 s).
+# The widths, the truncation path and every network stay the default
+# config's.
+LOCO_MAX_STEPS = 50
+LOCO_COMMON = [f"env.kwargs.max_steps={LOCO_MAX_STEPS}", "arch.absolute_metric=False",
+               "arch.num_eval_episodes=16", "system.multistep_impl=pallas",
+               "logger.use_console=False"]
+ANT = ["env=ant", "system.normalize_observations=true"]
+LOCO_ENVS = ("hopper", "walker2d", "halfcheetah")
+# grid_train's runs, one window each at the default arch: label -> (system,
+# root, overrides, B1 GAE launches an update).
+GRID_RUNS = {
+    "snake_dqn": ("ff_dqn", "default/anakin/default_ff_dqn.yaml", ["env=snake"], 0),
+    "snake_c51": ("ff_c51", "default/anakin/default_ff_c51.yaml", ["env=snake"], 0),
+    "snake_cnn_dqn": ("ff_dqn", "default/anakin/default_ff_dqn.yaml",
+                      ["env=snake", "network=cnn_dqn", "env.wrapper.flatten_observation=false"],
+                      0),
+    "snake_ppo": ("ff_ppo", PPO_ROOT, ["env=snake"], 1),
+    "game2048_ppo": ("ff_ppo", PPO_ROOT, ["env=game_2048"], 1),
+    "doorkey_ppo": ("ff_ppo", PPO_ROOT, ["env=doorkey"], 1),
+}
+GRID_ENV_STEPS = 50  # steps of each grid game on the card and on the CPU
+LOCO_PARITY_STEPS = 12  # control steps of each robot, each from the CPU's state
+
+
+def phase_loco_train(smi: str) -> dict:
+    """ff_ppo_continuous on Ant at the default config's full width (1024
+    envs, T = 16, 4 epochs x 4 minibatches, MLPs 256 x 256, 27-dim
+    observations normalised, 8 actions), MAIN_UPDATES updates in 2 eval
+    windows through `run_experiment`, every kernel counter zeroed just
+    before and read just after: exactly one launch of B1's GAE entry an
+    update, 0 of every other kernel; env-steps/s a window, device launches
+    a control step and an update (torch.profiler), an update's peak device
+    bytes, finite losses. Then ff_sac on Ant at its default config (64 envs,
+    T = 8, 32 warm-up steps, 4 epochs of 512): no kernel launch, env-steps/s
+    a window. Both with LOCO_COMMON. Returns each run's launches."""
+    lr = linear_recurrence
+    windows = [f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2", *LOCO_COMMON]
+    record = _path_run("ff_ppo_continuous", CONT_ROOT, ANT + windows, {lr.GAE_KERNEL.name: 1},
+                       "loco_train", smi, True)
+    setup, state, config = record.pop("_setup_state")
+    record["b1_gae_launches_per_update"] = record["kernel_launches"][lr.GAE_KERNEL.name] / \
+        record["updates"]
+    record["update_device_bytes"] = _update_peak_bytes(setup, state)
+    record["device_launches_per_env_step"] = _device_launches_of(
+        lambda: setup.learn.env.step(state.env_state, torch.zeros(
+            (int(config.arch.total_num_envs), 8), device="cuda")))
+    record["episode_limit"] = LOCO_MAX_STEPS
+    emit(record)
+    sac = _path_run("ff_sac", AC_ROOTS["ff_sac"], ["env=ant", *windows], {}, "loco_train", smi,
+                    False)
+    sac["episode_limit"] = LOCO_MAX_STEPS
+    emit(sac)
+    return {"ff_ppo_continuous_ant": record["kernel_launches"],
+            "ff_sac_ant": sac["kernel_launches"]}
+
+
+def _loco_envs_on_card_and_cpu() -> dict:
+    """LOCO_PARITY_STEPS control steps of each robot (16 envs, a step limit
+    of 8), each from the CPU's state under the same random actions: step
+    types, discounts and truncations equal; rewards within 1e-5 relative
+    (floor 1e-6 of their scale), observations and bodies within 1e-5
+    relative with a floor of 1e-5 of each field's scale, the bar
+    tests/test_torch_locomotion.py holds against the JAX package."""
+    from stoix_tpu_torch.envs import locomotion
+
+    out = {}
+    for name in ("Ant", "Hopper", "Walker2d", "HalfCheetah"):
+        env = getattr(locomotion, name)(max_steps=8)
+        cpu_state, _ = env.reset(torch.Generator().manual_seed(4), 16)
+        gen, worst = torch.Generator().manual_seed(5), 0.0
+
+        def ratio(got, want, floor):
+            bound = 1e-5 * want.abs() + floor * want.abs().max()
+            return float(((got.cpu() - want).abs() / bound.clamp_min(1e-30)).max())
+
+        for _ in range(LOCO_PARITY_STEPS):
+            action = torch.rand((16, env._nj), generator=gen) * 2 - 1
+            card_state = cpu_state._replace(generator=torch.Generator(device="cuda"),
+                                            body=tree_map(lambda x: x.cuda(), cpu_state.body),
+                                            step_count=cpu_state.step_count.cuda())
+            cpu_state, cpu_ts = env.step(cpu_state, action)
+            card_state, card_ts = env.step(card_state, action.cuda())
+            if not all(torch.equal(a, b.cpu()) for a, b in (
+                    (cpu_ts.step_type, card_ts.step_type), (cpu_ts.discount, card_ts.discount),
+                    (cpu_ts.extras["truncation"], card_ts.extras["truncation"]))):
+                raise AssertionError(f"{name}: step types differ on the card")
+            worst = max(worst, ratio(card_ts.reward, cpu_ts.reward, 1e-6),
+                        ratio(card_ts.observation.agent_view, cpu_ts.observation.agent_view,
+                              1e-5),
+                        *(ratio(g, w, 1e-5) for g, w in zip(card_state.body, cpu_state.body)))
+        if not worst <= 1.0:
+            raise AssertionError(f"{name} on the card is {worst}x the bound from the CPU")
+        out[name] = {"envs": 16, "control_steps": LOCO_PARITY_STEPS,
+                     "worst_error_over_bound": worst}
+    return out
+
+
+def phase_loco_envs(smi: str) -> dict:
+    """One eval window each of ff_ppo_continuous on Hopper, Walker2d and
+    HalfCheetah at the default config's full width, LOCO_COMMON, one B1 GAE
+    launch an update; then the four robots on the card against the CPU.
+    Returns each run's launches."""
+    lr = linear_recurrence
+    launches = {}
+    for env_name in LOCO_ENVS:
+        windows = ["arch.num_updates=2", "arch.num_evaluation=1", *LOCO_COMMON]
+        record = _path_run("ff_ppo_continuous", CONT_ROOT, [f"env={env_name}", *windows],
+                           {lr.GAE_KERNEL.name: 1}, "loco_envs", smi, False)
+        record["episode_limit"] = LOCO_MAX_STEPS
+        emit(record)
+        launches[f"ff_ppo_continuous_{env_name}"] = record["kernel_launches"]
+    emit({"phase": "loco_envs", "on_card_vs_cpu": _loco_envs_on_card_and_cpu(), "card": smi})
+    return launches
+
+
+def _grid_envs_on_card_and_cpu() -> dict:
+    """GRID_ENV_STEPS steps of Snake, 2048 and DoorKey (64 envs) on the card
+    and on the CPU from the same reset draws and step draws (made on the
+    CPU), with no auto-reset: every timestep, action masks included, equal."""
+    from stoix_tpu_torch.envs import doorkey, game2048, snake
+
+    gen, num_envs, out = torch.Generator().manual_seed(9), 64, {}
+    games = {
+        "Snake-v1": (snake.Snake(6, 6), lambda: (torch.randint(0, 36, (num_envs,), generator=gen),
+                                                 snake.gumbel(gen, (num_envs, 36))),
+                     lambda: snake.gumbel(gen, (num_envs, 36))),
+        "Game2048-v1": (game2048.Game2048(), lambda: game2048.Game2048()._draws(
+            gen, (num_envs, 2)), lambda: game2048.Game2048()._draws(gen, (num_envs,))),
+        "DoorKey-v0": (doorkey.DoorKey(6), lambda: doorkey.DoorKeyDraws(
+            torch.randint(2, 4, (num_envs,), generator=gen),
+            torch.randint(1, 5, (num_envs,), generator=gen),
+            *(snake.gumbel(gen, (num_envs, 36)) for _ in range(3)),
+            torch.randint(0, 4, (num_envs,), generator=gen)), None),
+    }
+    to_card = partial(tree_map, lambda x: x.cuda())
+    for name, (env, reset_draws, step_draws) in games.items():
+        draws = reset_draws()
+        cpu_state, cpu_ts = env.reset_from_draws(draws, torch.Generator())
+        card_state, card_ts = env.reset_from_draws(to_card(draws),
+                                                   torch.Generator(device="cuda"))
+        ended = torch.zeros((num_envs,), dtype=torch.bool)
+        for step in range(GRID_ENV_STEPS + 1):
+            pairs = [(cpu_ts.step_type, card_ts.step_type), (cpu_ts.reward, card_ts.reward),
+                     (cpu_ts.discount, card_ts.discount),
+                     *zip(cpu_ts.observation, card_ts.observation),
+                     (cpu_ts.extras["truncation"], card_ts.extras["truncation"])]
+            if not all(torch.equal(a, b.cpu()) for a, b in pairs):
+                raise AssertionError(f"{name} on the card differs from the CPU at step {step}")
+            ended |= cpu_ts.last()
+            if step == GRID_ENV_STEPS:
+                break
+            action = torch.randint(0, env.num_actions, (num_envs,), generator=gen)
+            if step_draws is None:
+                cpu_state, cpu_ts = env.step(cpu_state, action)
+                card_state, card_ts = env.step(card_state, action.cuda())
+            else:
+                given = step_draws()
+                cpu_state, cpu_ts = env.step_from_draws(cpu_state, action, given)
+                card_state, card_ts = env.step_from_draws(card_state, action.cuda(),
+                                                          to_card(given))
+        out[name] = {"envs": num_envs, "steps": GRID_ENV_STEPS,
+                     "envs_ended": int(ended.sum()), "exact": True}
+    return out
+
+
+def phase_grid_train(smi: str) -> dict:
+    """One eval window each, at the default arch, of GRID_RUNS: ff_dqn and
+    ff_c51 with the flattened MLP networks, ff_dqn + cnn_dqn on the 6x6x5
+    grid, ff_ppo on Snake, 2048 and DoorKey; every kernel counter zeroed
+    just before each run and read just after (one GAE launch an ff_ppo
+    update, nothing else), finite. Then the three games on the card against
+    the CPU. Returns each run's launches."""
+    launches = {}
+    for label, (system, root, overrides, gae) in GRID_RUNS.items():
+        windows = ["arch.num_updates=2", "arch.num_evaluation=1", "arch.num_eval_episodes=16",
+                   "arch.absolute_metric=False", "system.multistep_impl=pallas",
+                   "logger.use_console=False"]
+        record = _path_run(system, root, overrides + windows,
+                           {linear_recurrence.GAE_KERNEL.name: gae}, "grid_train", smi, False)
+        record["run"] = label
+        emit(record)
+        launches[label] = record["kernel_launches"]
+    emit({"phase": "grid_train", "on_card_vs_cpu": _grid_envs_on_card_and_cpu(), "card": smi})
+    return launches
+
+
+def phase_snake_learn() -> None:
+    """ff_ppo learns Snake above SNAKE_THRESHOLD."""
+    start = time.perf_counter()
+    final_return = ff_ppo.run_experiment(compose(SNAKE, PPO_ROOT), device="cuda")
+    if not final_return > SNAKE_THRESHOLD:
+        raise AssertionError(f"ff_ppo returned {final_return} on Snake, not above "
+                             f"{SNAKE_THRESHOLD}")
+    emit({"phase": "snake_learn", "system": "ff_ppo", "env": "snake",
+          "final_return": final_return, "threshold": SNAKE_THRESHOLD,
           "window_seconds": runner.LAST_RUN_STATS["window_seconds"],
           "seconds": time.perf_counter() - start})
 
@@ -3664,6 +3909,7 @@ LEARN_PHASES = {
     "disco_learn": partial(phase_pg_learn, "ff_disco103", DISCO_ROOT, DISCO_IDENTITY,
                            "disco_learn", A13_THRESHOLD),
     "catch_learn": phase_catch_learn,
+    "snake_learn": phase_snake_learn,
 }
 # The oracles share the card and the host's cores: one worker a core with
 # two left over, between four and six (six on an 8-core host).
@@ -3798,6 +4044,12 @@ def main() -> None:
     for entry in (recurrence, gae, *attention, chunk, *wide):
         entry["launches_vision"] = {label: counts[entry["name"]]
                                     for label, counts in vision.items()}
+    # A14b's first part: one GAE launch an update on every PPO path over the
+    # locomotion envs and the grid games, nothing on ff_sac's or the Q family's.
+    loco_grid = {**phase_loco_train(smi), **phase_loco_envs(smi), **phase_grid_train(smi)}
+    for entry in (recurrence, gae, *attention, chunk, *wide):
+        entry["launches_loco_grid"] = {label: counts[entry["name"]]
+                                       for label, counts in loco_grid.items()}
     data_parallel = phase_data_parallel(smi)
     gae["launches_data_parallel"] = {"a_one_rank_ff_ppo": data_parallel["a_ff_ppo"],
                                      "b_per_rank": data_parallel["b_per_rank"]}

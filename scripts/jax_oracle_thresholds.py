@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """The learning oracles of chip_smoke.py's cont_learn, rec_learn,
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
-vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn, catch_learn and
-Pendulum oracle phases, computed from the JAX package on the CPU:
+vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn, catch_learn,
+snake_learn and Pendulum oracle phases, computed from the JAX package on the
+CPU:
 
     JAX_PLATFORMS=cpu python scripts/jax_oracle_thresholds.py [--seeds 42 1 2]
         [--oracles pendulum rec rainbow r2d2 sac reinforce awr mpo vmpo az mz spo disco
-                   catch spo_continuous mpo_continuous vmpo_continuous]
+                   catch snake spo_continuous mpo_continuous vmpo_continuous]
 
 - Pendulum: the mean return of uniform random actions over 4096 episodes of
   the JAX package's Pendulum-v1 (`jax.random` key 0), and the JAX package's
@@ -38,6 +39,12 @@ Pendulum oracle phases, computed from the JAX package on the CPU:
   (`jax.random` key 0), and the JAX package's ff_ppo under chip_smoke.py's
   CATCH overrides for each seed; the threshold is the midpoint of the random
   return and the seeds' lowest.
+- ff_ppo on Snake (6x6, flattened, the MLP networks): the mean return of
+  uniform random legal actions over 4096 episodes of the JAX package's Snake
+  (`jax.random` key 0; an episode ends at death or its 500-step limit), and
+  the JAX package's ff_ppo under chip_smoke.py's SNAKE overrides for each
+  seed; the threshold is the midpoint of the random return and the seeds'
+  lowest.
 - SPO, MPO and V-MPO with continuous actions on Pendulum: the JAX package's
   ff_spo_continuous, ff_mpo_continuous and ff_vmpo_continuous under
   chip_smoke.py's PENDULUM_ORACLES overrides; the threshold is the midpoint
@@ -67,6 +74,7 @@ import jax.numpy as jnp  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from stoix_tpu.envs.classic import Catch, Pendulum  # noqa: E402
+from stoix_tpu.envs.snake import Snake  # noqa: E402
 from stoix_tpu.utils import config as config_lib  # noqa: E402
 
 
@@ -114,6 +122,28 @@ def random_catch_return(episodes: int) -> float:
     return float(jnp.mean(jax.jit(jax.vmap(episode))(keys)))
 
 
+def random_snake_return(episodes: int) -> float:
+    """Uniform random legal actions on the 6x6 Snake of env=snake."""
+    env = Snake(num_rows=6, num_cols=6)
+
+    def episode(key):
+        reset_key, act_key = jax.random.split(key)
+        state, ts = env.reset(reset_key)
+
+        def step(carry, k):
+            state, ts, ret, done = carry
+            action = jax.random.categorical(k, jnp.log(ts.observation.action_mask))
+            state, ts = env.step(state, action)
+            return (state, ts, ret + jnp.where(done, 0.0, ts.reward), done | ts.last()), None
+
+        (_, _, ret, _), _ = jax.lax.scan(
+            step, (state, ts, jnp.zeros(()), jnp.zeros((), bool)), jax.random.split(act_key, 500))
+        return ret
+
+    keys = jax.random.split(jax.random.PRNGKey(0), episodes)
+    return float(jnp.mean(jax.jit(jax.vmap(episode))(keys)))
+
+
 def final_return(module: str, root: str, overrides: list, seed: int) -> dict:
     import importlib
 
@@ -130,7 +160,7 @@ def main() -> None:
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--episodes", type=int, default=4096)
     oracles = ["pendulum", "rec", "rainbow", "r2d2", "sac", "reinforce", "awr", "mpo", "vmpo",
-               "az", "mz", "spo", "disco", "catch", *chip_smoke.PENDULUM_ORACLES]
+               "az", "mz", "spo", "disco", "catch", "snake", *chip_smoke.PENDULUM_ORACLES]
     parser.add_argument("--oracles", nargs="+", default=oracles, choices=oracles)
     parser.add_argument("--extra", nargs="*", default=[],
                         help="overrides appended to every run, e.g. a budget to try")
@@ -214,6 +244,14 @@ def main() -> None:
         out.update({"catch_random_return": random_catch, "catch_jax": runs,
                     "catch_overrides": chip_smoke.CATCH,
                     "catch_threshold": (random_catch + lowest) / 2})
+    if "snake" in args.oracles:
+        random_snake = random_snake_return(args.episodes)
+        runs = [final_return("stoix_tpu.systems.ppo.anakin.ff_ppo", chip_smoke.PPO_ROOT,
+                             chip_smoke.SNAKE, seed) for seed in args.seeds]
+        lowest = min(run["final_return"] for run in runs)
+        out.update({"snake_random_return": random_snake, "snake_jax": runs,
+                    "snake_overrides": chip_smoke.SNAKE,
+                    "snake_threshold": (random_snake + lowest) / 2})
     for name, (system, root, overrides) in chip_smoke.PENDULUM_ORACLES.items():
         if name in args.oracles:
             package = "spo" if system.startswith("ff_spo") else "mpo"

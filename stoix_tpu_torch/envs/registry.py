@@ -4,7 +4,9 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
-from stoix_tpu_torch.envs import breakout_pixel, classic, debug, minatar
+from stoix_tpu_torch.envs import (
+    breakout_pixel, classic, debug, doorkey, game2048, locomotion, minatar, snake,
+)
 from stoix_tpu_torch.envs.core import Environment
 from stoix_tpu_torch.parallel.distributed import process_count
 from stoix_tpu_torch.envs.wrappers import (
@@ -22,14 +24,27 @@ ENV_REGISTRY: Dict[str, Callable[..., Environment]] = {
     "MountainCar-v0": classic.MountainCar,
     "MountainCarContinuous-v0": classic.MountainCarContinuous,
     "Catch-bsuite": classic.Catch,
+    "Ant": locomotion.Ant,
+    "Hopper": locomotion.Hopper,
+    "Walker2d": locomotion.Walker2d,
+    "HalfCheetah": locomotion.HalfCheetah,
     "Breakout-minatar": minatar.Breakout,
     "Breakout-atari": breakout_pixel.BreakoutPixel,
     "Asterix-minatar": minatar.Asterix,
     "Freeway-minatar": minatar.Freeway,
     "SpaceInvaders-minatar": minatar.SpaceInvaders,
+    "Snake-v1": snake.Snake,
+    "Game2048-v1": game2048.Game2048,
+    "DoorKey-v0": doorkey.DoorKey,
     "IdentityGame": debug.IdentityGame,
     "SequenceGame": debug.SequenceGame,
 }
+
+
+def register(name: str, ctor: Callable[..., Environment]) -> None:
+    """Add (or replace) a scenario of the registry."""
+    ENV_REGISTRY[name] = ctor
+
 
 # The JAX package's external suites (its envs/suites.py SUITE_MAKERS): an
 # `env.env_name` naming one builds that suite's adapter there, never the

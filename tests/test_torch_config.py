@@ -180,3 +180,28 @@ VISION = {
 def test_vision_config_trees_mirror_the_jax_package(group):
     name, overrides = VISION[group]
     _assert_mirrors(f"default/anakin/default_{name}.yaml", overrides)
+
+
+# The first-party grid games and locomotion (A14b's first part): every new env
+# tree on the roots that train on it on the card.
+LOCO_GRID = {
+    "ant": ("ff_ppo_continuous", ["env=ant", "system.normalize_observations=true",
+                                  "system.multistep_impl=pallas"]),
+    "hopper": ("ff_ppo_continuous", ["env=hopper"]),
+    "walker2d": ("ff_ppo_continuous", ["env=walker2d"]),
+    "halfcheetah": ("ff_ppo_continuous", ["env=halfcheetah"]),
+    "ant_sac": ("ff_sac", ["env=ant"]),
+    "snake_dqn": ("ff_dqn", ["env=snake"]),
+    "snake_c51": ("ff_c51", ["env=snake"]),
+    "snake_cnn_dqn": ("ff_dqn", ["env=snake", "network=cnn_dqn",
+                                 "env.wrapper.flatten_observation=false"]),
+    "snake_ppo": ("ff_ppo", ["env=snake", "system.multistep_impl=pallas"]),
+    "game_2048": ("ff_ppo", ["env=game_2048"]),
+    "doorkey": ("ff_ppo", ["env=doorkey"]),
+}
+
+
+@pytest.mark.parametrize("case", list(LOCO_GRID))
+def test_loco_grid_config_trees_mirror_the_jax_package(case):
+    name, overrides = LOCO_GRID[case]
+    _assert_mirrors(f"default/anakin/default_{name}.yaml", overrides)

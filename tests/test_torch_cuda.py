@@ -1853,3 +1853,277 @@ def test_vision_torso_forward_and_gradients_on_the_card_match_the_cpu(kind):
     for want, got in zip(*outs):
         scale = float(want.abs().max().clamp_min(1e-30))
         assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+# ------------------------------------------------- grid games and locomotion
+
+
+def _grid_game(name):
+    """(env, draws for its reset, draws for a step or None) of a grid game,
+    the draws made on the CPU."""
+    from stoix_tpu_torch.envs import doorkey, game2048, snake
+
+    gen = torch.Generator().manual_seed(9)
+    if name == "Snake-v1":
+        env = snake.Snake(6, 6, max_steps=30)
+        return (env, lambda e: (torch.randint(0, 36, (e,), generator=gen),
+                                snake.gumbel(gen, (e, 36))),
+                lambda e: snake.gumbel(gen, (e, 36)))
+    if name == "Game2048-v1":
+        env = game2048.Game2048(max_steps=30)
+        return env, lambda e: env._draws(gen, (e, 2)), lambda e: env._draws(gen, (e,))
+    return doorkey.DoorKey(6, max_steps=30), lambda e: doorkey.DoorKeyDraws(
+        torch.randint(2, 4, (e,), generator=gen), torch.randint(1, 5, (e,), generator=gen),
+        *(snake.gumbel(gen, (e, 36)) for _ in range(3)),
+        torch.randint(0, 4, (e,), generator=gen)), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Snake-v1", "Game2048-v1", "DoorKey-v0"])
+def test_grid_game_on_the_card_matches_the_cpu_exactly(name):
+    """40 steps from the same reset draws and step draws (made on the CPU),
+    with no auto-reset (ended envs step past their end): every timestep,
+    action masks included, equal."""
+    device = _require_cuda()
+    env, reset_draws, step_draws = _grid_game(name)
+    draws = reset_draws(16)
+    cpu_state, cpu_ts = env.reset_from_draws(draws, torch.Generator())
+    card_state, card_ts = env.reset_from_draws(_to(draws, device),
+                                               torch.Generator(device=device))
+    actions = torch.Generator().manual_seed(2)
+    for _ in range(40):
+        for a, b in ((cpu_ts.step_type, card_ts.step_type), (cpu_ts.reward, card_ts.reward),
+                     (cpu_ts.discount, card_ts.discount),
+                     *zip(cpu_ts.observation, card_ts.observation)):
+            assert torch.equal(a, b.cpu())
+        action = torch.randint(0, env.num_actions, (16,), generator=actions)
+        if step_draws is None:
+            cpu_state, cpu_ts = env.step(cpu_state, action)
+            card_state, card_ts = env.step(card_state, action.to(device))
+        else:
+            step = step_draws(16)
+            cpu_state, cpu_ts = env.step_from_draws(cpu_state, action, step)
+            card_state, card_ts = env.step_from_draws(card_state, action.to(device),
+                                                      _to(step, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Ant", "Hopper", "Walker2d", "HalfCheetah"])
+def test_locomotion_control_step_on_the_card_matches_the_cpu(name):
+    """From the same reset draws, 12 control steps, each from the CPU's state
+    under the same random actions: step types, discounts and truncations
+    exact; rewards 1e-5 relative (floor 1e-6 of their scale); bodies and
+    observations 1e-5 relative with a floor of 1e-5 of the field's scale
+    (tests/test_torch_locomotion.py's bar against JAX)."""
+    from stoix_tpu_torch.envs import locomotion
+    device = _require_cuda()
+    env = getattr(locomotion, name)(max_steps=8)
+    cpu_state, _ = env.reset(torch.Generator().manual_seed(4), 16)
+    gen = torch.Generator().manual_seed(5)
+
+    def close(got, want, floor):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                   atol=floor * float(want.abs().max()))
+
+    for _ in range(12):
+        action = torch.rand((16, env._nj), generator=gen) * 2 - 1
+        card_state = cpu_state._replace(generator=torch.Generator(device=device),
+                                        body=_to(cpu_state.body, device),
+                                        step_count=cpu_state.step_count.to(device))
+        cpu_state, cpu_ts = env.step(cpu_state, action)
+        card_state, card_ts = env.step(card_state, action.to(device))
+        for a, b in ((cpu_ts.step_type, card_ts.step_type), (cpu_ts.discount, card_ts.discount),
+                     (cpu_ts.extras["truncation"], card_ts.extras["truncation"])):
+            assert torch.equal(a, b.cpu())
+        close(card_ts.reward, cpu_ts.reward, 1e-6)
+        close(card_ts.observation.agent_view, cpu_ts.observation.agent_view, 1e-5)
+        for want, got in zip(cpu_state.body, card_state.body):
+            close(got, want, 1e-5)
+
+
+@pytest.mark.cuda
+def test_rigid_body_accumulation_and_fma_on_the_card_are_the_cpus_bitwise():
+    """The contributions' rounds on the card, twice, bitwise equal to each
+    other and to the CPU's (the same adds in the same order); the engine's
+    fused multiply-add bitwise `fma_f32`."""
+    from stoix_tpu_torch.envs import locomotion, rigid_body
+    device = _require_cuda()
+    sys = locomotion.Ant()._sys
+    gen = torch.Generator().manual_seed(0)
+    values = torch.randn((1024, 16, 6), generator=gen) * 10.0 ** torch.randint(
+        -4, 8, (1024, 16, 6), generator=gen)
+    want = rigid_body.accumulate(values, sys.joint_rounds)
+    rounds = sys.joint_rounds.to(device)
+    first = rigid_body.accumulate(values.to(device), rounds)
+    second = rigid_body.accumulate(values.to(device), rounds)
+    assert torch.equal(first, second) and torch.equal(first.cpu(), want)
+    a, b, c = (torch.randn(100003, generator=gen) for _ in range(3))
+    got = rigid_body.fused_multiply_add(a.to(device), b.to(device), c.to(device))
+    assert torch.equal(got.cpu(), lr.fma_f32(a, b, c))
+
+
+LOCO_GRID_PPO = {
+    # case: (system, overrides)
+    "ant": ("ff_ppo_continuous", ["env=ant", "system.normalize_observations=true",
+                                  "env.kwargs.max_steps=6"]),
+    "snake": ("ff_ppo", ["env=snake"]),
+    "game_2048": ("ff_ppo", ["env=game_2048"]),
+    "doorkey": ("ff_ppo", ["env=doorkey"]),
+}
+
+
+def _loco_grid_ppo_update(case, device, card_state=None, traj=None):
+    """The learner setup of the case on `device` (16 envs, T = 8, 2 x 2
+    minibatches, multistep_impl=pallas) and, given the card's state and
+    rollout, one update of it on `device` with fixed permutations."""
+    import importlib
+
+    from stoix_tpu_torch import envs
+    from stoix_tpu_torch.utils import config as config_lib
+    from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
+    system, overrides = LOCO_GRID_PPO[case]
+    module = importlib.import_module(f"stoix_tpu_torch.systems.ppo.anakin.{system}")
+    cfg = check_total_timesteps(config_lib.compose(
+        config_lib.default_config_dir(), f"default/anakin/default_{system}.yaml",
+        overrides + ["arch.total_num_envs=16", "system.rollout_length=8", "system.epochs=2",
+                     "system.num_minibatches=2", "system.multistep_impl=pallas",
+                     "logger.use_console=False"]), 1)
+    setup = module.learner_setup(envs.make(cfg)[0], cfg, torch.device(device), 3)
+    if card_state is None:
+        return setup
+    perms = [torch.randperm(128, generator=torch.Generator().manual_seed(e)).to(device)
+             for e in range(2)]
+    state = _to(card_state, device)
+    return setup.learn.update(state.params, state.opt_states, _to(traj, device),
+                              permutations=perms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(LOCO_GRID_PPO))
+def test_loco_grid_ppo_update_on_the_card_matches_the_cpu(case):
+    """A rollout on the card, then one update of it on the card and on the
+    CPU from the card's params: exactly one B1 GAE launch on the card;
+    targets 1e-5 of their scale (the critic's 256-wide float32 sums part
+    card and CPU by about 1e-6 of it: DoorKey's by 5.96e-7 of 0.44); the
+    standardised advantages 1e-5 of the targets' scale carried through the
+    standardisation (max |targets| over the raw advantages' std: DoorKey's
+    near-constant rewards make that std small, and its card and CPU
+    advantages part by 4.4e-6, 1e-6 of its targets' scale times that gain
+    of 4.4); losses 1e-5 relative, params 1e-5 absolute."""
+    device = _require_cuda()
+    from stoix_tpu_torch.utils.tree import tree_map
+    card = _loco_grid_ppo_update(case, device)
+    state, traj = card.learn.rollout(card.learner_state)
+    host_state = state._replace(
+        params=tree_map(lambda x: x.cpu(), state.params),
+        opt_states=tree_map(lambda x: x.cpu(), state.opt_states))
+    cpu = _loco_grid_ppo_update(case, "cpu", host_state, tree_map(lambda x: x.cpu(), traj))
+    before = lr.GAE_KERNEL.launches
+    on_card = _loco_grid_ppo_update(case, device, state, traj)
+    torch.cuda.synchronize()
+    assert lr.GAE_KERNEL.launches == before + 1
+    scale = float(cpu.targets.abs().max())
+    gain = scale / float((cpu.targets - traj.value.cpu()).std())
+    torch.testing.assert_close(on_card.targets.cpu(), cpu.targets, rtol=0, atol=1e-5 * scale)
+    torch.testing.assert_close(on_card.advantages.cpu(), cpu.advantages, rtol=0,
+                               atol=1e-5 * gain)
+    for key, value in cpu.loss_info.items():
+        torch.testing.assert_close(on_card.loss_info[key].cpu(), value, rtol=1e-5, atol=1e-7)
+    for side in (0, 1):
+        for k, v in cpu.params[side].items():
+            torch.testing.assert_close(on_card.params[side][k].cpu(), v, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sac_update_on_ant_on_the_card_matches_the_cpu():
+    """ff_sac's update_from_batch on an Ant-shaped batch (27-dim
+    observations, 8 actions) with the same noise: no kernel launch; losses
+    1e-5 relative, params 1e-5 absolute."""
+    from stoix_tpu_torch.base_types import Transition
+    from stoix_tpu_torch.envs.types import Observation
+    from stoix_tpu_torch.systems import anakin
+    from stoix_tpu_torch.utils.tree import tree_leaves
+    device = _require_cuda()
+    gen = torch.Generator().manual_seed(6)
+
+    def obs():
+        return Observation(torch.randn((64, 27), generator=gen), torch.ones((64, 8)),
+                           torch.zeros((64,), dtype=torch.int32))
+
+    batch = Transition(obs(), torch.rand((64, 8), generator=gen) * 2 - 1,
+                       torch.randn(64, generator=gen), torch.rand(64, generator=gen) < 0.1,
+                       obs(), {})
+    results = []
+    for dev in ("cpu", device):
+        setup, state = _a12_setup("ff_sac", dev, ["env=ant", "env.kwargs.max_steps=8"])
+        update = setup.learn.update_from_batch
+        params = anakin.split_replicas(state.params, 1)
+        opts = anakin.split_replicas(state.opt_states, 1)
+        noise = update.draw_noise(batch, torch.Generator().manual_seed(5))
+        before = {c.name: c.launches for c in lr.COUNTERS}
+        params, _, metrics = update.step(params, opts, [_to(batch, dev)], [_to(noise, dev)])
+        assert {c.name: c.launches - before[c.name] for c in lr.COUNTERS} == {
+            c.name: 0 for c in lr.COUNTERS}
+        results.append((params[0], metrics))
+    (cpu_params, cpu_metrics), (card_params, card_metrics) = results
+    for key, value in cpu_metrics.items():
+        torch.testing.assert_close(card_metrics[key].cpu(), value, rtol=1e-5, atol=1e-7)
+    for card, cpu in zip(tree_leaves(card_params), tree_leaves(cpu_params)):
+        torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,overrides", [
+    ("ff_dqn", []), ("ff_c51", []),
+    ("ff_dqn", ["network=cnn_dqn", "env.wrapper.flatten_observation=false"])])
+def test_q_update_on_snake_on_the_card_matches_the_cpu(name, overrides):
+    """Two update_from_batch steps of the Q network the config builds for
+    Snake, on a batch of masked Snake observations, TF32 off (cnn_dqn's
+    convolutions): loss 1e-5 relative, online and target params 1e-5
+    absolute; no kernel launch."""
+    from stoix_tpu_torch import envs
+    from stoix_tpu_torch.base_types import OnlineAndTarget, Transition
+    from stoix_tpu_torch.envs.types import Observation
+    from stoix_tpu_torch.systems.q_learning import ff_c51, ff_dqn, q_family
+    from stoix_tpu_torch.utils import config as config_lib
+    from stoix_tpu_torch.utils.training import ClipAdam
+    device = _require_cuda()
+    cfg = config_lib.compose(config_lib.default_config_dir(), f"default/anakin/default_{name}.yaml",
+                             ["env=snake"] + overrides)
+    env = envs.make(cfg)[0]
+    loss_fn = ff_dqn.dqn_loss if name == "ff_dqn" else ff_c51.c51_loss
+    shape = tuple(env.observation_space().agent_view.shape)
+    gen = torch.Generator().manual_seed(3)
+
+    def obs():
+        mask = (torch.rand((64, 4), generator=gen) > 0.25).float()
+        mask[:, 0] = 1.0
+        return Observation((torch.rand((64,) + shape, generator=gen) > 0.8).float(), mask,
+                           torch.zeros((64,), dtype=torch.int32))
+
+    batch = Transition(obs(), torch.randint(0, 4, (64,), generator=gen),
+                       torch.randn(64, generator=gen), torch.rand(64, generator=gen) < 0.2,
+                       obs(), {})
+    results = []
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", device):
+            net = q_family.build_q_network(env, cfg, torch.Generator().manual_seed(0)).to(dev)
+            online = {k: v.detach() for k, v in net.named_parameters()}
+            target = {k: v * 0.5 for k, v in online.items()}
+            optim = ClipAdam(1e-3, 0.5, eps=1e-5)
+            update = q_family.QUpdate(loss_fn, q_family.make_q_apply(net), optim, cfg)
+            params, opt = [OnlineAndTarget(online, target)], [optim.init(online)]
+            before = {c.name: c.launches for c in lr.COUNTERS}
+            for _ in range(2):
+                params, opt, info = update(params, opt, [_to(batch, dev)])
+            assert all(c.launches == before[c.name] for c in lr.COUNTERS)
+            results.append((params[0], info["q_loss"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    (cpu_params, cpu_loss), (card_params, card_loss) = results
+    torch.testing.assert_close(card_loss.cpu(), cpu_loss, rtol=1e-5, atol=0)
+    for side in (0, 1):
+        for k, v in cpu_params[side].items():
+            torch.testing.assert_close(card_params[side][k].cpu(), v, rtol=0, atol=1e-5)

@@ -290,6 +290,9 @@ def test_port_imports_nothing_of_jax():
         "slice16 = ['networks.disco', 'systems.spo.ff_spo', 'systems.spo.ff_spo_continuous',\n"
         "           'systems.disco.update_rule', 'systems.disco.ff_disco103']\n"
         "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice16)\n"
+        "slice18 = ['envs.' + m for m in ('rigid_body', 'locomotion', 'snake', 'game2048',\n"
+        "           'doorkey')]\n"
+        "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice18)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, timeout=120, check=True)

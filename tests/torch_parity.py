@@ -266,11 +266,16 @@ def noise_draws(module, seed: int):
 
 
 def env_lockstep(jax_env, port_env, draws_of, num_actions: int, steps: int = 200,
-                 num_envs: int = 8, seed: int = 0, compare=None, actions=None) -> int:
+                 num_envs: int = 8, seed: int = 0, compare=None, actions=None,
+                 reset_draws=None, step_draws=None) -> int:
     """Step a JAX env (vmapped and jitted) and its port twin in lockstep on
     the same actions for `steps` steps, across episode ends: an ended env is
     reset on both sides, the port's from the draws `draws_of(jax_reset_state)`
-    reads from JAX's reset (None: the env draws nothing, so a plain reset).
+    reads from JAX's reset (None: the env draws nothing, so a plain reset),
+    or `reset_draws(reset_keys)` rebuilds from the keys JAX's reset split.
+    An env that draws inside its step takes `step_draws(jax_state)`, the
+    draws JAX's step makes from the key in its state, through
+    `port_env.step_from_draws`. Draws may be tuples of arrays.
     `compare(jax_ts, port_ts)` checks every timestep, the resets' included
     (default: `assert_timesteps_equal`). `actions(step, rng)` gives the
     step's [num_envs] actions (default uniform). Returns the episode ends."""
@@ -280,34 +285,48 @@ def env_lockstep(jax_env, port_env, draws_of, num_actions: int, steps: int = 200
     reset, step = jax.jit(jax.vmap(jax_env.reset)), jax.jit(jax.vmap(jax_env.step))
     generator = torch.Generator().manual_seed(seed)
 
-    def port_reset(jax_state):
+    def as_port(draws):
+        if isinstance(draws, tuple):
+            parts = [as_port(d) for d in draws]
+            return type(draws)(*parts) if hasattr(draws, "_fields") else tuple(parts)
+        return t(draws)
+
+    def port_reset(jax_state, keys):
+        if reset_draws is not None:
+            return port_env.reset_from_draws(as_port(reset_draws(keys)), generator)
         if draws_of is None:
             return port_env.reset(generator, num_envs)
-        return port_env.reset_from_draws(t(draws_of(jax_state)), generator)
+        return port_env.reset_from_draws(as_port(draws_of(jax_state)), generator)
 
     key = jax.random.PRNGKey(seed)
     key, sub = jax.random.split(key)
-    jstate, jts = reset(jax.random.split(sub, num_envs))
-    pstate, pts = port_reset(jstate)
+    keys = jax.random.split(sub, num_envs)
+    jstate, jts = reset(keys)
+    pstate, pts = port_reset(jstate, keys)
     compare(jts, pts)
     rng = np.random.default_rng(seed)
     ends = 0
     for i in range(steps):
         act = (rng.integers(0, num_actions, size=num_envs) if actions is None
                else np.asarray(actions(i, rng)))
+        action = torch.as_tensor(act, dtype=torch.int64)
+        if step_draws is None:
+            pstate, pts = port_env.step(pstate, action)
+        else:
+            pstate, pts = port_env.step_from_draws(pstate, action, as_port(step_draws(jstate)))
         jstate, jts = step(jstate, jnp.asarray(act, jnp.int32))
-        pstate, pts = port_env.step(pstate, torch.as_tensor(act, dtype=torch.int64))
         compare(jts, pts)
         done = np.asarray(jts.step_type) == 2
         if done.any():
             ends += int(done.sum())
             key, sub = jax.random.split(key)
-            rstate, rts = reset(jax.random.split(sub, num_envs))
+            keys = jax.random.split(sub, num_envs)
+            rstate, rts = reset(keys)
             flag = jnp.asarray(done)
             jstate = jax.tree.map(
                 lambda r, s: jnp.where(flag.reshape(flag.shape + (1,) * (s.ndim - 1)), r, s),
                 rstate, jstate)
-            prstate, prts = port_reset(rstate)
+            prstate, prts = port_reset(rstate, keys)
             compare(rts, prts)
             pstate = tree_select(torch.from_numpy(done), prstate, pstate)
     return ends
