@@ -68,7 +68,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    layer) to a return above 8.0.
   9. trans_train — Anakin ff_trans_ppo on CartPole at its default config's full
                    width (1024 envs, T=16, window 16, 2 layers of 4 heads x 32,
-                   FFN 256, 4 epochs x 4 minibatches), 4 updates in 2 eval
+                   FFN 256, 4 epochs x 4 minibatches), MAIN_UPDATES updates in 2 eval
                    windows with system.multistep_impl=pallas. Every counter is
                    zeroed just before the run and read just after; around each
                    learner call the learner's own launches are counted and must
@@ -118,7 +118,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    launches per update (torch.profiler); a resume from window
                    1 bitwise equal to the unbroken run's final state; a
                    poisoned loss under skip ending with finite params and
-                   skipped updates; IdentityGame with the same knobs above 8.0.
+                   skipped updates. IdentityGame with the same knobs above 8.0
+                   runs with the oracles (knobs_learn).
  15. c8_wide     — head dims past 256 through the wide kernels: the forward,
                    backward and chunk kernels against their plain versions at
                    D = 257, 384, 512, 513 and 1000 (both sides of the 512-column
@@ -136,7 +137,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
  16. q_learn     — ff_dqn and ff_pqn (multistep_impl=pallas) train IdentityGame
                    on the card above 8.0 (the JAX package's oracles).
  17. q_train     — ff_dqn and ff_pqn at their default configs' full width on
-                   CartPole, 4 updates in 2 windows: env-steps/s per window,
+                   CartPole, MAIN_UPDATES updates in 2 windows: env-steps/s per window,
                    device launches an update (torch.profiler); B1's counters
                    zeroed just before ff_pqn's run and read just after:
                    exactly one generic launch an update (Q(lambda)), no GAE
@@ -151,7 +152,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    scripts/jax_oracle_thresholds.py.
  19. cont_train  — ff_ppo_continuous at its default config's full width (1024
                    Pendulum envs, T=16, MLP 256x256, the tanh-Gaussian head on
-                   [-2, 2], 4 x 4 minibatches), 4 updates in 2 eval windows
+                   [-2, 2], 4 x 4 minibatches), MAIN_UPDATES updates in 2 eval windows
                    with system.multistep_impl=pallas: B1's counters zeroed just
                    before and read just after (one GAE launch an update, no
                    generic one), env-steps/s, device launches an update; then
@@ -164,7 +165,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    steps, where the JAX package's rec_ppo returns 10.0).
  21. rec_train   — rec_ppo at its default config's full width (1024 CartPole
                    envs, T=16, GRU 128 between torsos of 128, 4 x 4 minibatches
-                   of env sequences), 4 updates in 2 eval windows: one GAE
+                   of env sequences), MAIN_UPDATES updates in 2 eval windows: one GAE
                    launch an update, env-steps/s, device launches an update.
  22. rainbow_learn — ff_rainbow trains IdentityGame above 8.0 (16 envs,
                    65 536 steps, C51 on [0, 10]; the JAX package returns
@@ -191,7 +192,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    of 128, 64 sequences of 8 burn-in + 8 trained steps at
                    period 4, 2 epochs): as rainbow_train.
  26. data_parallel — data-parallel Anakin training through `run_experiment`
-                   at full width (ff_ppo: CartPole, 1024 envs, 4 updates in 2
+                   at full width (ff_ppo: CartPole, 1024 envs, MAIN_UPDATES updates in 2
                    windows, multistep_impl=pallas, normalize_observations on,
                    so the statistics are reduced too), B1's counters zeroed
                    just before each run and read just after:
@@ -244,8 +245,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    use_replay_buffer=true, ff_mz (25 simulations, a world model
                    of 64 with an LSTM, 601 atoms), ff_sampled_az and
                    ff_sampled_mz (64 Pendulum envs, 50 simulations, K = 8) at
-                   their default configs, SEARCH_UPDATES updates in 2 windows
-                   (the sampled paths one update in one window)
+                   their default configs, SEARCH_UPDATES updates, one a window
+                   (the sampled paths one in one window)
                    with multistep_impl=pallas, every kernel counter zeroed just
                    before and read just after: exactly 1, 1, 4, 0, 64 and 0
                    launches of B1's GAE entry an update, 0 of every other
@@ -356,11 +357,44 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    actions' return and the JAX package's under the same
                    overrides, fixed beforehand by
                    scripts/jax_oracle_thresholds.py.
+ 48. sebulba_train — Sebulba (actor threads, the rollout pipeline, the
+                   parameter server, the asynchronous evaluator, the native
+                   C++ env pool built with g++ in phase build) with every role
+                   on the card: ff_ppo at the JAX package's tracked shape (512
+                   cvec CartPole envs in 2 actors, T = 64, MLP 256 x 256, 4 x 4
+                   minibatches, multistep_impl=pallas), SEBULBA_UPDATES
+                   updates in 2 windows, every kernel counter zeroed just
+                   before and read just after: exactly one launch of B1's GAE
+                   entry an update at [64, 512], 0 of every other kernel;
+                   exactly that many learn steps, no actor crash, supervisor
+                   restart or evaluator error; steady env-steps/s and fps, the
+                   learner's rollout get-wait, the actors' inference and
+                   env-step means, a learn step's device launches and peak
+                   bytes. Then default_ff_ppo.yaml as it is (64 CartPole envs
+                   on the host through the stateful wrapper), one window.
+ 49. sebulba_pixel — ff_ppo on the pool's 84x84x4 pixel Breakout with
+                   cnn_atari (128 envs, T = 32), 4 updates in 2 windows, one
+                   GAE launch an update, the run's peak device bytes.
+ 50. sebulba_envs — ff_ppo on the pool's Pendulum (continuous, a negative
+                   return; one GAE launch an update), ff_impala and
+                   ff_impala_shared_torso at their defaults (64 cvec CartPole
+                   envs, T = 16): exactly 4 generic B1 launches an update at
+                   [16, 16], no GAE launch.
+ 51. sebulba_parity — a learn step of each Sebulba system on the card against
+                   the CPU (losses 1e-5 relative, 1e-6 floor; params 1e-5
+                   absolute); B1's two entries at the Sebulba shapes bitwise
+                   against their plain versions; the tree an actor holds
+                   bitwise unchanged after the learner's next two updates.
+ 52. sebulba_ppo_learn, sebulba_impala_learn — Sebulba ff_ppo and ff_impala
+                   learn IdentityGame (SEBULBA_IDENTITY) above
+                   SEBULBA_THRESHOLD, 8.0: the JAX package returns 10.0 for
+                   seeds 42 and 1 in both (scripts/jax_oracle_thresholds.py).
 
-The learning oracles (learn, trans_learn, q_learn, cont_learn, rec_learn,
+The learning oracles (learn, knobs_learn, trans_learn, q_learn, cont_learn, rec_learn,
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
 vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn, spo_continuous_learn,
-vmpo_continuous_learn, catch_learn, snake_learn) run last, after every timed
+vmpo_continuous_learn, catch_learn, snake_learn, sebulba_ppo_learn,
+sebulba_impala_learn) run last, after every timed
 phase, each in a child process of this script (`--learn-phase NAME`),
 LEARN_WORKERS at a time (four at least, more where the host has the cores;
 `host_cpus` is printed), the longest first; a `learn_all` line gives their wall time. Then a
@@ -410,7 +444,9 @@ from stoix_tpu_torch.utils.tree import tree_leaves, tree_map, tree_stack
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor-core) peak.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-MAIN_UPDATES = 4
+# The full-width paths' updates, one an eval window (2, not 4, so that the
+# Sebulba phases fit in the script's time).
+MAIN_UPDATES = 2
 # ff_trans_ppo's default config: layers, heads, head dim, window, rollout, epochs, minibatches.
 TRANS = dict(layers=2, heads=4, head_dim=32, window=16, rollout=16, epochs=4, minibatches=4)
 TRANS_ENVS = 1024
@@ -530,6 +566,8 @@ def ptxas_instances(lines: list) -> list:
 
 
 def phase_build() -> None:
+    from stoix_tpu_torch.envs import cvec
+
     sources = ((linear_recurrence.LIBRARY, RECURRENCE_SOURCE),
                (flash_attention.LIBRARY, ATTENTION_SOURCE),
                (flash_attention_chunk.LIBRARY, CHUNK_SOURCE),
@@ -537,8 +575,15 @@ def phase_build() -> None:
     libraries = [library for library, _ in sources]
     start = time.perf_counter()
     build.build_all(libraries)
+    seconds = time.perf_counter() - start
+    # The native env pool (Sebulba's), with g++, after the kernels.
+    gxx = subprocess.run(["g++", "--version"], check=True, capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()[0]
+    pool_start = time.perf_counter()
+    pool = cvec.ensure_built()
     emit({"phase": "build", "libraries": [lib.library_path() for lib in libraries],
-          "seconds": time.perf_counter() - start})
+          "seconds": seconds, "gxx": gxx, "env_pool_library": pool,
+          "env_pool_seconds": time.perf_counter() - pool_start})
     for library, source in sources:
         lines = library.ptxas_report()
         for line in lines:
@@ -1826,9 +1871,9 @@ def phase_knobs(smi: str) -> None:
     """ff_ppo with every main-path knob on at the default config's full width
     (1024 CartPole envs, MLP 256x256, T=16, 4 x 4 minibatches): env-steps/s,
     B1 launches and device launches per update; a resume from window 1
-    against the unbroken run, bitwise; a poisoned loss under skip; and
-    IdentityGame with the same knobs above 8.0. Checkpoints and logs go to a
-    temporary directory."""
+    against the unbroken run, bitwise; a poisoned loss under skip (the
+    IdentityGame oracle with the same knobs is knobs_learn). Checkpoints and
+    logs go to a temporary directory."""
     from stoix_tpu_torch.ops import losses
 
     lr = linear_recurrence
@@ -1890,11 +1935,6 @@ def phase_knobs(smi: str) -> None:
         if not (skipped > 0 and finite):
             raise AssertionError(f"skip left skipped_updates {skipped}, finite params {finite}")
 
-        learn_return, _ = run(IDENTITY + ["system.rollout_length=16", "system.epochs=4"],
-                              "identity")
-        if not learn_return > 8.0:
-            raise AssertionError(f"IdentityGame with every knob on returned {learn_return}")
-
         env, _ = envs.make(config)
         setup = ff_ppo.learner_setup(env, config, torch.device("cuda"),
                                      seed=int(config.arch.seed))
@@ -1908,8 +1948,24 @@ def phase_knobs(smi: str) -> None:
           "window_seconds": stats["window_seconds"], "final_eval_return": final_return,
           "resume_bitwise": True, "resumed_leaves": len(unbroken),
           "poisoned_skipped_updates": skipped, "poisoned_params_finite": finite,
-          "identity_game_return": learn_return, "sink_files": files, "seconds": seconds,
-          "card": smi})
+          "sink_files": files, "seconds": seconds, "card": smi})
+
+
+def phase_knobs_learn() -> None:
+    """IdentityGame with every main-path knob on (KNOBS) above 8.0, in the
+    pool of oracles (it was phase knobs' last run, in the script's timed
+    part); its checkpoints and logs go to a temporary directory."""
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_knobs_") as tmp, contextlib.chdir(tmp):
+        config = compose(KNOBS + IDENTITY + [
+            "arch.num_eval_episodes=16", "system.rollout_length=16", "system.epochs=4",
+            "logger.checkpointing.save_args.checkpoint_uid=identity",
+            f"logger.base_exp_path={tmp}/results"])
+        learn_return = ff_ppo.run_experiment(config, device="cuda")
+    if not learn_return > 8.0:
+        raise AssertionError(f"IdentityGame with every knob on returned {learn_return}")
+    emit({"phase": "knobs_learn", "env": "identity_game", "knobs": KNOBS,
+          "final_return": learn_return, "seconds": time.perf_counter() - start})
 
 
 # The value-based family: the JAX package's IdentityGame oracles (10.0 on the
@@ -2733,7 +2789,9 @@ SEARCH_RUNS = (("ff_az", "ff_az", [], 1),
                ("ff_mz", "ff_mz", [], 0),
                ("ff_sampled_az", "ff_sampled_az", [], 64),
                ("ff_sampled_mz", "ff_sampled_mz", [], 0))
-SEARCH_UPDATES = 2  # one a window
+# One a window; one, not 2, to keep the whole script inside its time with
+# the Sebulba phases.
+SEARCH_UPDATES = 1
 # A sampled path's update takes 15-18 s of host dispatch: one, in one window.
 SAMPLED_SEARCH_WINDOWS = ["arch.num_updates=1", "arch.num_evaluation=1"]
 MCTS_BATCH, MCTS_ACTIONS, MCTS_SIMULATIONS, MCTS_STATES = 64, 4, 50, 16
@@ -2927,8 +2985,8 @@ def phase_search_train(smi: str) -> dict:
     with `search_method=gumbel` and with `use_replay_buffer=true`), ff_mz (25
     simulations in a world model of 64 with an LSTM and 601 atoms), and
     ff_sampled_az and ff_sampled_mz (64 Pendulum envs, 50 simulations, K = 8)
-    at their default configs, SEARCH_UPDATES updates in 2 windows (the
-    sampled paths one in one window) through
+    at their default configs, SEARCH_UPDATES updates, one a window (the
+    sampled paths one in one window), through
     `run_experiment` with `system.multistep_impl=pallas`, every kernel counter
     zeroed just before and read just after: B1's GAE entry 1 / 1 / 4 / 0 /
     64 / 0 launches an update, nothing else; env-steps/s a window, device
@@ -2942,7 +3000,8 @@ def phase_search_train(smi: str) -> dict:
     launches = {}
     for label, name, extra, gae_launches in SEARCH_RUNS:
         windows = (SAMPLED_SEARCH_WINDOWS if name.startswith("ff_sampled") else
-                   [f"arch.num_updates={SEARCH_UPDATES}", "arch.num_evaluation=2"])
+                   [f"arch.num_updates={SEARCH_UPDATES}",
+                    f"arch.num_evaluation={SEARCH_UPDATES}"])
         overrides = windows + common + extra
         want = {lr.GAE_KERNEL.name: gae_launches} if gae_launches else {}
         record = _path_run(name, SEARCH_ROOTS[name], overrides, want, "search_train", smi,
@@ -3464,10 +3523,10 @@ def phase_catch_learn() -> None:
 # (env.kwargs.max_steps; the JAX package's limit is 1000) and take no
 # absolute metric: a control step is 16 substeps, about 2 600 launches on the
 # card, so one evaluation window of 1000-step episodes would take about a
-# minute of host dispatch (at 50, an Ant evaluation window takes about 4 s).
-# The widths, the truncation path and every network stay the default
-# config's.
-LOCO_MAX_STEPS = 50
+# minute of host dispatch (at 50, an Ant evaluation window takes about 4 s;
+# 25 makes room for the Sebulba phases). The widths, the truncation path and
+# every network stay the default config's.
+LOCO_MAX_STEPS = 25
 LOCO_COMMON = [f"env.kwargs.max_steps={LOCO_MAX_STEPS}", "arch.absolute_metric=False",
                "arch.num_eval_episodes=16", "system.multistep_impl=pallas",
                "logger.use_console=False"]
@@ -3879,6 +3938,333 @@ def phase_pendulum_learn(name: str) -> None:
           "seconds": time.perf_counter() - start})
 
 
+# ------------------------------------------- Sebulba
+
+SEBULBA_ROOTS = {name: f"default/sebulba/default_{name}.yaml"
+                 for name in ("ff_ppo", "ff_impala", "ff_impala_shared_torso")}
+# The host has one card: every Sebulba run shares it between the roles.
+ONE_CARD = ["arch.actor.device_ids=[0]", "arch.learner.device_ids=[0]",
+            "arch.evaluator_device_id=0"]
+# Sebulba ff_ppo and ff_impala on IdentityGame (sebulba_ppo_learn,
+# sebulba_impala_learn): the budgets, and the thresholds fixed before any card
+# run by scripts/jax_oracle_thresholds.py --oracles sebulba_ppo sebulba_impala:
+# 8.0 where the JAX package returns 10.0 for seeds 42 and 1, else the
+# midpoint of random actions' 2.5 and its lower return.
+SEBULBA_IDENTITY = ["env=identity_game", "arch.total_num_envs=16", "arch.total_timesteps=8192",
+                    "arch.num_evaluation=1", "arch.num_eval_episodes=32",
+                    "arch.evaluation_greedy=True", "system.rollout_length=8",
+                    "logger.use_console=False", *ONE_CARD]
+SEBULBA_ORACLES = {"sebulba_ppo": ("ff_ppo", SEBULBA_IDENTITY),
+                   "sebulba_impala": ("ff_impala", SEBULBA_IDENTITY)}
+SEBULBA_THRESHOLD = 8.0  # the JAX package returns 10.0 for seeds 42 and 1 in both
+# The Sebulba paths (phases sebulba_train, sebulba_pixel, sebulba_envs): each
+# label -> (system, overrides, B1 GAE launches an update, generic launches an
+# update). Every role on device 0, the actors' pools on the host.
+SEBULBA_UPDATES = 6  # sebulba_train's ff_ppo at the JAX package's tracked shape
+SEBULBA_PATHS = {
+    # bench.py:1876-1894's shape: 512 cvec CartPole envs in 2 actors, T = 64.
+    "ff_ppo_cartpole": ("ff_ppo", ["env=cartpole", "env.backend=cvec", "arch.total_num_envs=512",
+                                   "system.rollout_length=64",
+                                   f"arch.num_updates={SEBULBA_UPDATES}",
+                                   "arch.num_evaluation=2", "system.multistep_impl=pallas"], 1, 0),
+    # default_ff_ppo.yaml as it is: 64 CartPole envs on the CPU through the
+    # stateful wrapper (env.backend jax), multistep_impl scan.
+    "ff_ppo_default": ("ff_ppo", ["arch.num_updates=4", "arch.num_evaluation=1"], 0, 0),
+    # bench.py --pixel's shape (bench.py:805-812): 128 envs, T = 32.
+    "ff_ppo_pixel": ("ff_ppo", ["env=breakout_pixel", "network=cnn_atari",
+                                "arch.total_num_envs=128", "system.rollout_length=32",
+                                "arch.num_updates=4", "arch.num_evaluation=2",
+                                "system.multistep_impl=pallas"], 1, 0),
+    # tests/test_sebulba.py:100-127 at the default arch's 64 envs.
+    "ff_ppo_pendulum": ("ff_ppo", ["env=pendulum", "env.backend=cvec", "network=mlp_continuous",
+                                   "env.kwargs.max_steps=200", "arch.total_timesteps=2048",
+                                   "arch.num_evaluation=1", "system.rollout_length=8",
+                                   "system.num_minibatches=2", "system.multistep_impl=pallas"],
+                        1, 0),
+    # The IMPALAs' defaults: 64 cvec CartPole envs, T = 16, 4 env-minibatches.
+    **{system: (system, ["env=cartpole", "env.backend=cvec", "arch.num_updates=4",
+                         "arch.num_evaluation=1", "system.multistep_impl=pallas"], 0, 4)
+       for system in ("ff_impala", "ff_impala_shared_torso")},
+}
+SEBULBA_COMMON = [*ONE_CARD, "arch.num_eval_episodes=16", "logger.use_console=False"]
+
+
+def _sebulba_module(system: str):
+    from stoix_tpu_torch.systems.impala.sebulba import ff_impala, ff_impala_shared_torso
+    from stoix_tpu_torch.systems.ppo.sebulba import ff_ppo as sebulba_ppo
+
+    return {"ff_ppo": sebulba_ppo, "ff_impala": ff_impala,
+            "ff_impala_shared_torso": ff_impala_shared_torso}[system]
+
+
+def _sebulba_run(label: str, phase: str, smi: str) -> dict:
+    """One Sebulba `run_experiment` of SEBULBA_PATHS[label] on the card, every
+    kernel counter zeroed just before and read just after: B1's launches an
+    update as the path says, 0 of every other kernel; exactly `num_updates`
+    learn steps; no actor crash, supervisor restart or evaluator error; the
+    run's peak device bytes."""
+    system, overrides, gae, generic = SEBULBA_PATHS[label]
+    module = _sebulba_module(system)
+    config = compose(SEBULBA_COMMON + overrides, SEBULBA_ROOTS[system])
+    counters = _kernel_counters()
+    for counter in counters:
+        counter.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    final_return = module.run_experiment(config, device="cuda")
+    seconds = time.perf_counter() - start
+    launches = _counts(counters)
+    # The three systems share the Sebulba runner and its stats.
+    stats = copy.deepcopy(dict(_sebulba_module("ff_ppo").LAST_RUN_STATS))
+    updates = int(config.arch.num_updates)
+    lr = linear_recurrence
+    expected = {c.name: 0 for c in counters}
+    expected[lr.GAE_KERNEL.name] = gae * updates
+    expected[lr.KERNEL.name] = generic * updates
+    if launches != expected:
+        raise AssertionError(f"{label} launched {launches} in {updates} updates, not {expected}")
+    resilience = stats["resilience"]
+    faults = {k: resilience[k] for k in ("actor_crashes", "supervisor_restarts",
+                                         "evaluator_errors")}
+    if stats["learn_steps"] != updates or any(faults.values()):
+        raise AssertionError(f"{label}: {stats['learn_steps']} learn steps of {updates}, "
+                             f"faults {faults}")
+    train = [rec for rec in stats["history"] if rec["event"] == "trainer"]
+    if not math.isfinite(final_return) or not train or not all(
+            math.isfinite(v) for rec in train for k, v in rec.items()
+            if k not in ("event", "t", "t_eval")):
+        raise AssertionError(f"{label}: non-finite return {final_return} or metrics {train}")
+    timings = stats["timings"]
+    actors = range(stats["num_actors"])
+    return {"phase": phase, "run": label, "system": system, "env": config.env.scenario.name,
+            "backend": str(config.env.get("backend", "jax")),
+            "total_num_envs": int(config.arch.total_num_envs), "num_actors": stats["num_actors"],
+            "rollout_length": int(config.system.rollout_length), "updates": updates,
+            "learn_steps": stats["learn_steps"], "kernel_launches": launches, "faults": faults,
+            "final_eval_return": final_return, "last_train_metrics": train[-1],
+            "steps_per_sec_steady": stats.get("steps_per_sec_steady"), "fps": stats.get("fps"),
+            "learner_rollout_get_mean_s": timings.get("learner_rollout_get_time"),
+            "learner_learn_mean_s": timings.get("learner_learn_time"),
+            "actor_inference_mean_s": [timings.get(f"actor{a}_inference_time") for a in actors],
+            "actor_env_step_mean_s": [timings.get(f"actor{a}_env_step_time") for a in actors],
+            "run_peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "seconds": seconds, "card": smi}
+
+
+def _sebulba_batch(env, t_len: int, num_envs: int, device, seed: int):
+    """A [T, E] PPOTransition shaped as `env`'s rollouts give it, from a
+    seed: observations N(0, 1), actions uniform, terminations 5%,
+    truncations 3%."""
+    from stoix_tpu_torch.base_types import PPOTransition
+    from stoix_tpu_torch.envs import spaces
+
+    gen = torch.Generator().manual_seed(seed)
+    value = env.observation_value()
+    shape = (t_len, num_envs)
+
+    def observation():
+        return envs.Observation(
+            torch.randn(shape + tuple(value.agent_view.shape), generator=gen),
+            torch.ones(shape + tuple(value.action_mask.shape)),
+            torch.zeros(shape, dtype=torch.int32))
+
+    space = env.action_space()
+    if isinstance(space, spaces.Discrete):
+        action = torch.randint(0, env.num_actions, shape, generator=gen)
+    else:
+        action = torch.rand(shape + tuple(space.shape), generator=gen) * 3.8 - 1.9
+    done = torch.rand(shape, generator=gen) < 0.05
+    batch = PPOTransition(
+        done=done, truncated=(torch.rand(shape, generator=gen) < 0.03) & ~done, action=action,
+        value=torch.randn(shape, generator=gen), reward=torch.randn(shape, generator=gen),
+        log_prob=torch.log(torch.rand(shape, generator=gen) * 0.6 + 0.2),
+        obs=observation(), next_obs=observation(), info={})
+    return tree_map(lambda x: x.to(device), batch)
+
+
+def _sebulba_learner(label: str, device: str):
+    """(config, learner_setup on `device`, a probe env) of SEBULBA_PATHS[label]."""
+    from stoix_tpu_torch.envs.factory import make_factory
+
+    system, overrides, _, _ = SEBULBA_PATHS[label]
+    module = _sebulba_module(system)
+    config = compose(SEBULBA_COMMON + overrides, SEBULBA_ROOTS[system])
+    if config.arch.get("num_updates") in (None, "~"):
+        config.arch.num_updates = 4
+    probe = make_factory(config)(1)
+    builders = (None, None)  # ff_ppo's: its networks and learn step
+    if system == "ff_impala":
+        builders = (None, module.get_impala_learn_step)
+    elif system == "ff_impala_shared_torso":
+        builders = (module.build_shared_networks, module.get_shared_impala_learn_step)
+    setup = _sebulba_module("ff_ppo").learner_setup(config, probe, [torch.device(device)],
+                                                      *builders)
+    return config, setup, probe
+
+
+def _sebulba_learn_step_costs(label: str) -> dict:
+    """One learn step of SEBULBA_PATHS[label] at its [T, E] on a batch from a
+    seed, with no actor thread beside it: device launches (torch.profiler,
+    after a warm-up step), host seconds (three steps, each ended by a
+    synchronize) and the step's peak device bytes."""
+    config, setup, probe = _sebulba_learner(label, "cuda")
+    t_len, num_envs = int(config.system.rollout_length), int(config.arch.total_num_envs)
+    batch = [_sebulba_batch(probe, t_len, num_envs, "cuda", 0)]
+    state, _ = setup.learn_step(setup.state, batch)  # warm-up
+    launches = _device_launches_of(lambda: setup.learn_step(state, batch))
+    torch.cuda.synchronize()
+    alone = []
+    for _ in range(3):  # the learn step with no actor thread beside it
+        begin = time.perf_counter()
+        setup.learn_step(state, batch)
+        torch.cuda.synchronize()
+        alone.append(time.perf_counter() - begin)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    setup.learn_step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"learn_step_device_launches": launches, "learn_step_shape": [t_len, num_envs],
+            "learn_step_alone_s": alone,
+            "learn_step_peak_bytes": peak, "learn_step_above_state_bytes": peak - before,
+            "batch_bytes": _tree_bytes(batch)}
+
+
+def phase_sebulba_train(smi: str) -> dict:
+    """Sebulba ff_ppo at the JAX package's tracked shape (512 cvec CartPole
+    envs in 2 actors, T = 64, MLP 256 x 256, 4 x 4 minibatches, pallas):
+    SEBULBA_UPDATES updates in 2 windows, one GAE launch an update at
+    [64, 512]; steady env-steps/s and fps, the learner's rollout get-wait,
+    the actors' inference and env-step means; a learn step's device launches
+    and peak bytes. Then default_ff_ppo.yaml as it is (64 CartPole envs on
+    the CPU through the stateful wrapper, the learner on the card), one
+    window. Returns each run's launches."""
+    launches = {}
+    record = _sebulba_run("ff_ppo_cartpole", "sebulba_train", smi)
+    record.update(_sebulba_learn_step_costs("ff_ppo_cartpole"))
+    emit(record)
+    launches["ff_ppo_cartpole"] = record["kernel_launches"]
+    record = _sebulba_run("ff_ppo_default", "sebulba_train", smi)
+    emit(record)
+    launches["ff_ppo_default"] = record["kernel_launches"]
+    return launches
+
+
+def phase_sebulba_pixel(smi: str) -> dict:
+    """Sebulba ff_ppo on the pool's 84x84x4 pixel Breakout with the Nature
+    CNN at bench.py --pixel's shape (128 envs in 2 actors, T = 32), 4 updates
+    in 2 windows, one GAE launch an update; the run's peak device bytes
+    (about 0.9 GB of float32 obs and next_obs a rollout)."""
+    record = _sebulba_run("ff_ppo_pixel", "sebulba_pixel", smi)
+    emit(record)
+    return {"ff_ppo_pixel": record["kernel_launches"]}
+
+
+def phase_sebulba_envs(smi: str) -> dict:
+    """Sebulba ff_ppo on the pool's Pendulum (continuous, one window, a
+    finite negative return, one GAE launch an update) and ff_impala and
+    ff_impala_shared_torso at their defaults on the pool's CartPole (one
+    window, exactly 4 generic B1 launches an update at [16, 16], no GAE)."""
+    launches = {}
+    for label in ("ff_ppo_pendulum", "ff_impala", "ff_impala_shared_torso"):
+        record = _sebulba_run(label, "sebulba_envs", smi)
+        if label == "ff_ppo_pendulum" and not record["final_eval_return"] < 0.0:
+            raise AssertionError(f"Pendulum's return {record['final_eval_return']} is not negative")
+        emit(record)
+        launches[label] = record["kernel_launches"]
+    return launches
+
+
+def phase_sebulba_parity(smi: str) -> None:
+    """A learn step of each Sebulba system on the card against the same step
+    on the CPU from the same params and batch (ff_ppo with the same explicit
+    permutations): losses 1e-5 relative with a 1e-6 floor, params 1e-5
+    absolute; B1's GAE entry at ff_ppo's [64, 512] and its generic entry at
+    the IMPALAs' [16, 16], each bitwise against its plain version on the same
+    card inputs; and the tree the ParameterServer handed to an actor bitwise
+    unchanged after the learner's next two updates."""
+    from stoix_tpu_torch.sebulba.core import ParameterServer
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on; the card-against-CPU bars assume float32 products")
+    start = time.perf_counter()
+    record = {"phase": "sebulba_parity", "card": smi}
+    for label in ("ff_ppo_cartpole", "ff_impala", "ff_impala_shared_torso"):
+        config, card, probe = _sebulba_learner(label, "cuda")
+        _, cpu, _ = _sebulba_learner(label, "cpu")
+        t_len, num_envs = int(config.system.rollout_length), int(config.arch.total_num_envs)
+        batch = _sebulba_batch(probe, t_len, num_envs, "cpu", 1)
+        kwargs = {}
+        if label == "ff_ppo_cartpole":
+            gen = torch.Generator().manual_seed(2)
+            kwargs["permutations"] = [torch.randperm(t_len * num_envs, generator=gen)
+                                      for _ in range(int(config.system.epochs))]
+        got_state, got = card.learn_step(card.state, [tree_map(lambda x: x.cuda(), batch)],
+                                         **kwargs)
+        want_state, want = cpu.learn_step(cpu.state, [batch], **kwargs)
+        diffs = {k: ((got[k].cpu() - want[k]).abs(), want[k].abs())
+                 for k in ("actor_loss", "value_loss", "entropy")}
+        within = all(bool((d <= 1e-5 * w + 1e-6).all()) for d, w in diffs.values())
+        param_err = _max_err(got_state.params, want_state.params)
+        record[label] = {"shape": [t_len, num_envs],
+                         "loss_abs_err": {k: float(d.max()) for k, (d, _) in diffs.items()},
+                         "loss_relative_err": {k: float((d / w.clamp_min(1e-30)).max())
+                                               for k, (d, w) in diffs.items()},
+                         "params_abs_err": param_err}
+        if not (within and param_err <= 1e-5):
+            raise AssertionError(f"{label}'s learn step on the card is not the CPU's: "
+                                 f"{record[label]}")
+        if label == "ff_ppo_cartpole":
+            # The actor's tree after the learner's next two updates.
+            server = ParameterServer([torch.device("cuda")], 2)
+            server.distribute_params((card.state.params, card.state.obs_stats))
+            held = server.get_params(0, timeout=10.0)
+            snapshot = tree_map(lambda x: x.clone(), held)
+            state = card.state
+            for seed in (3, 4):
+                state, _ = card.learn_step(state, [_sebulba_batch(probe, t_len, num_envs,
+                                                                  "cuda", seed)])
+                server.distribute_params((state.params, state.obs_stats))
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(tree_leaves(held),
+                                                        tree_leaves(snapshot))):
+                raise AssertionError("a parameter version held by an actor changed under it")
+            record["actor_tree_unchanged"] = True
+    lr = linear_recurrence
+    args = gae_inputs(64, 512, 5)
+    got, want = lr.truncated_gae(*args, 0.95), lr.plain_truncated_gae(*args, 0.95)
+    w, d, init = recurrence_inputs(16, 16, torch.float32, True, 6)
+    generic = lr.linear_recurrence_reverse(w, d, init)
+    bitwise = {"gae_64x512": all(torch.equal(a, b) for a, b in zip(got, want)),
+               "generic_16x16": torch.equal(generic,
+                                            lr.plain_linear_recurrence_reverse(w, d, init))}
+    record["b1_bitwise"] = bitwise
+    if not all(bitwise.values()):
+        raise AssertionError(f"B1 on the Sebulba shapes is not its plain version: {bitwise}")
+    record["seconds"] = time.perf_counter() - start
+    emit(record)
+
+
+def phase_sebulba_learn(oracle: str) -> None:
+    """SEBULBA_ORACLES[oracle] learns IdentityGame above SEBULBA_THRESHOLD on
+    the card, with no actor crash."""
+    system, overrides = SEBULBA_ORACLES[oracle]
+    module = _sebulba_module(system)
+    start = time.perf_counter()
+    final_return = module.run_experiment(compose(overrides, SEBULBA_ROOTS[system]),
+                                         device="cuda")
+    stats = _sebulba_module("ff_ppo").LAST_RUN_STATS
+    if not final_return > SEBULBA_THRESHOLD or stats["resilience"]["actor_crashes"]:
+        raise AssertionError(f"Sebulba {system} returned {final_return} on IdentityGame "
+                             f"(threshold {SEBULBA_THRESHOLD}), {stats['resilience']}")
+    emit({"phase": f"{oracle}_learn", "system": system, "env": "identity_game",
+          "final_return": final_return, "threshold": SEBULBA_THRESHOLD,
+          "fps": stats.get("fps"), "seconds": time.perf_counter() - start})
+
+
+
+
 # The learning oracles: phase name -> the phase. Each runs in a child process
 # (`chip_smoke.py --learn-phase NAME`) after every timed phase, LEARN_WORKERS
 # at a time, the longest first; together they were 70% of the run when they
@@ -3898,6 +4284,7 @@ LEARN_PHASES = {
     "mpo_learn": partial(phase_pg_learn, "ff_mpo", MPO_ROOTS["ff_mpo"], MPO_IDENTITY,
                          "mpo_learn", MPO_THRESHOLD),
     "learn": phase_learn,
+    "knobs_learn": phase_knobs_learn,
     "vmpo_learn": partial(phase_pg_learn, "ff_vmpo", MPO_ROOTS["ff_vmpo"], VMPO_IDENTITY,
                           "vmpo_learn", MPO_THRESHOLD),
     "awr_learn": partial(phase_pg_learn, "ff_awr", AWR_ROOT, AWR_IDENTITY, "awr_learn"),
@@ -3910,6 +4297,7 @@ LEARN_PHASES = {
                            "disco_learn", A13_THRESHOLD),
     "catch_learn": phase_catch_learn,
     "snake_learn": phase_snake_learn,
+    **{f"{oracle}_learn": partial(phase_sebulba_learn, oracle) for oracle in SEBULBA_ORACLES},
 }
 # The oracles share the card and the host's cores: one worker a core with
 # two left over, between four and six (six on an 8-core host).
@@ -4051,6 +4439,14 @@ def main() -> None:
         entry["launches_loco_grid"] = {label: counts[entry["name"]]
                                        for label, counts in loco_grid.items()}
     data_parallel = phase_data_parallel(smi)
+    # A15's first part: Sebulba. One GAE launch an update on its ff_ppo paths,
+    # 4 generic launches (V-trace, one a minibatch) an update on the IMPALAs.
+    sebulba = {**phase_sebulba_train(smi), **phase_sebulba_pixel(smi),
+               **phase_sebulba_envs(smi)}
+    phase_sebulba_parity(smi)
+    for entry in (recurrence, gae, *attention, chunk, *wide):
+        entry["launches_sebulba"] = {label: counts[entry["name"]]
+                                     for label, counts in sebulba.items()}
     gae["launches_data_parallel"] = {"a_one_rank_ff_ppo": data_parallel["a_ff_ppo"],
                                      "b_per_rank": data_parallel["b_per_rank"]}
     recurrence["launches_data_parallel"] = {"a_one_rank_ff_pqn": data_parallel["a_ff_pqn"]}

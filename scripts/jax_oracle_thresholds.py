@@ -2,12 +2,13 @@
 """The learning oracles of chip_smoke.py's cont_learn, rec_learn,
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
 vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn, catch_learn,
-snake_learn and Pendulum oracle phases, computed from the JAX package on the
-CPU:
+snake_learn, sebulba_ppo_learn, sebulba_impala_learn and Pendulum oracle
+phases, computed from the JAX package on the CPU:
 
     JAX_PLATFORMS=cpu python scripts/jax_oracle_thresholds.py [--seeds 42 1 2]
         [--oracles pendulum rec rainbow r2d2 sac reinforce awr mpo vmpo az mz spo disco
-                   catch snake spo_continuous mpo_continuous vmpo_continuous]
+                   catch snake spo_continuous mpo_continuous vmpo_continuous
+                   sebulba_ppo sebulba_impala]
 
 - Pendulum: the mean return of uniform random actions over 4096 episodes of
   the JAX package's Pendulum-v1 (`jax.random` key 0), and the JAX package's
@@ -45,6 +46,10 @@ CPU:
   the JAX package's ff_ppo under chip_smoke.py's SNAKE overrides for each
   seed; the threshold is the midpoint of the random return and the seeds'
   lowest.
+- Sebulba ff_ppo and ff_impala on IdentityGame: the JAX package's Sebulba
+  systems under chip_smoke.py's SEBULBA_ORACLES overrides (every role on
+  device 0), for each seed; the threshold is 8.0 where every seed returns
+  10.0, else the midpoint of random actions' 2.5 and the seeds' lowest.
 - SPO, MPO and V-MPO with continuous actions on Pendulum: the JAX package's
   ff_spo_continuous, ff_mpo_continuous and ff_vmpo_continuous under
   chip_smoke.py's PENDULUM_ORACLES overrides; the threshold is the midpoint
@@ -160,7 +165,8 @@ def main() -> None:
     parser.add_argument("--seeds", type=int, nargs="+", default=[42])
     parser.add_argument("--episodes", type=int, default=4096)
     oracles = ["pendulum", "rec", "rainbow", "r2d2", "sac", "reinforce", "awr", "mpo", "vmpo",
-               "az", "mz", "spo", "disco", "catch", "snake", *chip_smoke.PENDULUM_ORACLES]
+               "az", "mz", "spo", "disco", "catch", "snake", *chip_smoke.PENDULUM_ORACLES,
+               *chip_smoke.SEBULBA_ORACLES]
     parser.add_argument("--oracles", nargs="+", default=oracles, choices=oracles)
     parser.add_argument("--extra", nargs="*", default=[],
                         help="overrides appended to every run, e.g. a budget to try")
@@ -259,6 +265,15 @@ def main() -> None:
                     for seed in args.seeds]
             out.update({f"{name}_pendulum_jax": runs, f"{name}_pendulum_overrides": overrides,
                         f"{name}_threshold": (random_return + runs[0]["final_return"]) / 2})
+    for name, (system, overrides) in chip_smoke.SEBULBA_ORACLES.items():
+        if name in args.oracles:
+            package = "ppo" if system == "ff_ppo" else "impala"
+            runs = [final_return(f"stoix_tpu.systems.{package}.sebulba.{system}",
+                                 chip_smoke.SEBULBA_ROOTS[system], overrides, seed)
+                    for seed in args.seeds]
+            lowest = min(run["final_return"] for run in runs)
+            out.update({f"{name}_identity_jax": runs, f"{name}_identity_overrides": overrides,
+                        f"{name}_threshold": 8.0 if lowest >= 10.0 else (2.5 + lowest) / 2})
     print(json.dumps(out))
 
 

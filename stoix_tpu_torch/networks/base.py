@@ -1,6 +1,6 @@
 """Actor and critic compositions (counterpart of stoix_tpu/networks/base.py:
-FeedForwardActor, FeedForwardCritic, MultiNetwork, ScannedRNN,
-RecurrentActor and RecurrentCritic)."""
+FeedForwardActor, FeedForwardCritic, FeedForwardActorCritic, MultiNetwork,
+ScannedRNN, RecurrentActor and RecurrentCritic)."""
 
 from __future__ import annotations
 
@@ -49,6 +49,20 @@ class FeedForwardCritic(nn.Module):
 
     def forward(self, observation: Any, *inputs: Any) -> Any:
         return self.critic_head(self.torso(self.input_layer(observation, *inputs)))
+
+
+class FeedForwardActorCritic(nn.Module):
+    """input -> torso -> a shared head (a PolicyValueHead), returning
+    (distribution, value)."""
+
+    def __init__(self, shared_head: nn.Module, torso: nn.Module, input_layer: nn.Module):
+        super().__init__()
+        self.shared_head = shared_head
+        self.torso = torso
+        self.input_layer = input_layer
+
+    def forward(self, observation: Any) -> Tuple[Any, torch.Tensor]:
+        return self.shared_head(self.torso(self.input_layer(observation)))
 
 
 class MultiNetwork(nn.Module):

@@ -2,8 +2,9 @@
 CategoricalHead, ScalarCriticHead, the continuous family's
 NormalAffineTanhDistributionHead, BetaDistributionHead and
 MultivariateNormalDiagHead, the deterministic policy's DeterministicHead,
-the value-based family's DiscreteQNetworkHead, DistributionalDiscreteQNetwork
-and QuantileDiscreteQNetwork, D4PG's DistributionalContinuousQNetwork, the
+the shared-torso PolicyValueHead, the value-based family's
+DiscreteQNetworkHead, DistributionalDiscreteQNetwork and
+QuantileDiscreteQNetwork, D4PG's DistributionalContinuousQNetwork, the
 MuZero family's MLPLogitsHead, and the raw LinearHead of the Disco agent).
 
 A continuous head is two Denses, flax's Dense_0 (the loc, or alpha) and
@@ -146,6 +147,20 @@ class ScalarCriticHead(nn.Module):
 
     def forward(self, embedding: torch.Tensor) -> torch.Tensor:
         return self.dense[0](embedding)[..., 0]
+
+
+class PolicyValueHead(nn.Module):
+    """A shared torso's policy and scalar value (Sebulba IMPALA's shared
+    torso): (the action head's distribution, the critic head's value)."""
+
+    def __init__(self, action_head: nn.Module, critic_head: nn.Module):
+        super().__init__()
+        self.action_head = action_head
+        self.critic_head = critic_head
+
+    def forward(self, embedding: torch.Tensor, *args: Any,
+                **kwargs: Any) -> Tuple[Any, torch.Tensor]:
+        return self.action_head(embedding, *args, **kwargs), self.critic_head(embedding)
 
 
 class DiscreteQNetworkHead(nn.Module):

@@ -14,8 +14,10 @@ array with a sharding, the port takes the rank's slice (`shard_leading_axis`)
 or broadcasts rank 0's copy (`replicate`); `replicated_sharding` and
 `data_sharding` name placements and have no counterpart. `fetch_global`
 gathers every rank's shard along an axis to the host, as the JAX one brings
-a sharded global array to every host. `assemble_global_array` is Sebulba's
-and is not ported yet.
+a sharded global array to every host. Sebulba's `assemble_global_array`
+has no counterpart here: in one process the learner's "global array" is its
+list of per-device shards, each the actors' payloads concatenated on the env
+axis (systems/ppo/sebulba/ff_ppo.py::assemble_batch).
 """
 
 from __future__ import annotations

@@ -1,0 +1,226 @@
+"""MeshRoles (counterpart of stoix_tpu/parallel/roles.py): ONE description of
+which devices play which role.
+
+It is constructed once from `arch.mesh` + `arch.roles` (derived from the
+legacy Sebulba keys `arch.actor.device_ids`, `arch.learner.device_ids` and
+`arch.evaluator_device_id`, or from the architecture name, when
+`arch.roles` is absent) and validated as a whole: ids in range, act and
+learn either colocated (identical sets) or disjoint, never a partial
+overlap, and every finding in one error. `resolve_assignments` is the JAX
+package's, line for line, so the same config gives the same device ids and
+the same findings' text.
+
+The port's devices are `torch.device`s: `MeshRoles.from_config(config)`
+takes `cuda:0` to `cuda:N-1` of the visible cards, and a caller may pass its
+own list (`devices=[torch.device("cpu")] * 2` runs a two-learner Sebulba
+split on the CPU). Where the JAX package builds a `jax.sharding.Mesh` over a
+role's devices, the port's `role_mesh` is the role's device list: in one
+process the learner's "global array" is its list of per-device shards
+(systems/ppo/sebulba/ff_ppo.py::assemble_batch). `elastic_mesh_axes` belongs
+to the population runner and waits for it (ROADMAP A17).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+ROLE_ACT = "act"
+ROLE_LEARN = "learn"
+ROLE_EVALUATE = "evaluate"
+ROLE_SERVE = "serve"
+ROLE_NAMES = (ROLE_ACT, ROLE_LEARN, ROLE_EVALUATE, ROLE_SERVE)
+
+# Primary roles partition the compute; rider roles may alias any device.
+PRIMARY_ROLES = (ROLE_ACT, ROLE_LEARN)
+
+
+class MeshRolesError(ValueError):
+    """A role assignment that cannot be satisfied; carries ALL findings."""
+
+    def __init__(self, findings: Sequence[str]):
+        self.findings = list(findings)
+        super().__init__(
+            "mesh-role assignment invalid:\n  - " + "\n  - ".join(self.findings)
+        )
+
+
+class RoleAssignment(NamedTuple):
+    """One role's share of the job: which device ids it owns (None = all
+    devices in the job) and which mesh axes its programs run over."""
+
+    role: str
+    device_ids: Optional[Tuple[int, ...]]  # None = every device
+    axes: Dict[str, int]
+
+    def resolved_ids(self, device_count: int) -> Tuple[int, ...]:
+        if self.device_ids is None:
+            return tuple(range(device_count))
+        return self.device_ids
+
+
+def _as_id_tuple(raw: Any) -> Optional[Tuple[int, ...]]:
+    if raw is None:
+        return None
+    return tuple(int(i) for i in raw)
+
+
+def resolve_assignments(
+    config: Any, device_count: Optional[int] = None
+) -> Dict[str, RoleAssignment]:
+    """Resolve `arch.roles` (or the legacy per-architecture keys) into role
+    assignments, validating the partition invariants against `device_count`
+    when one is given.
+
+    Raises MeshRolesError listing EVERY finding at once (the preflight
+    discipline: one run reports the whole config's problems).
+    """
+    arch = config.get("arch") or {}
+    mesh_axes = dict(arch.get("mesh") or {"data": -1})
+    arch_name = str(arch.get("architecture_name", "anakin"))
+    explicit = arch.get("roles") or None
+
+    findings: List[str] = []
+    assignments: Dict[str, RoleAssignment] = {}
+
+    if explicit:
+        for role, spec in dict(explicit).items():
+            if role not in ROLE_NAMES:
+                findings.append(
+                    f"arch.roles names unknown role '{role}' "
+                    f"(known: {', '.join(ROLE_NAMES)})"
+                )
+                continue
+            spec = spec or {}
+            axes = dict(spec.get("mesh") or {})
+            if role == ROLE_LEARN and not axes:
+                axes = dict(mesh_axes)
+            assignments[role] = RoleAssignment(
+                role, _as_id_tuple(spec.get("device_ids")), axes
+            )
+        if ROLE_LEARN not in assignments:
+            findings.append("arch.roles must assign the 'learn' role")
+    elif arch_name == "sebulba":
+        actor_ids = _as_id_tuple((arch.get("actor") or {}).get("device_ids")) or ()
+        learner_ids = _as_id_tuple((arch.get("learner") or {}).get("device_ids")) or ()
+        eval_id = int(arch.get("evaluator_device_id", 0))
+        if not actor_ids or not learner_ids:
+            findings.append(
+                "arch.actor.device_ids and arch.learner.device_ids must both "
+                "be non-empty"
+            )
+        assignments[ROLE_ACT] = RoleAssignment(ROLE_ACT, actor_ids, {})
+        assignments[ROLE_LEARN] = RoleAssignment(
+            ROLE_LEARN, learner_ids, {"data": -1}
+        )
+        assignments[ROLE_EVALUATE] = RoleAssignment(
+            ROLE_EVALUATE, (eval_id,), {"data": 1}
+        )
+    elif arch_name == "serve":
+        # Serving owns one device by default: device 0.
+        assignments[ROLE_SERVE] = RoleAssignment(ROLE_SERVE, (0,), {})
+    else:
+        # Anakin / population: every role colocated on the whole mesh.
+        for role in (ROLE_ACT, ROLE_LEARN, ROLE_EVALUATE):
+            assignments[role] = RoleAssignment(role, None, dict(mesh_axes))
+
+    # --- invariants, against the probed count when one is known -------------
+    if device_count is not None:
+        bad = sorted(
+            {
+                i
+                for a in assignments.values()
+                if a.device_ids is not None
+                for i in a.device_ids
+                if not 0 <= i < device_count
+            }
+        )
+        if bad:
+            by_role = {
+                a.role: list(a.device_ids)
+                for a in assignments.values()
+                if a.device_ids is not None
+            }
+            findings.append(
+                f"device ids {bad} out of range for the {device_count} probed "
+                f"devices (roles: {by_role})"
+            )
+
+    act = assignments.get(ROLE_ACT)
+    learn = assignments.get(ROLE_LEARN)
+    if act is not None and learn is not None:
+        # device_ids=None means "every device": resolvable against a known
+        # device count, and against an explicit peer it is the full range —
+        # so the only unresolvable pairing is one-None with no count.
+        act_ids = learn_ids = None
+        if act.device_ids is not None and learn.device_ids is not None:
+            act_ids, learn_ids = set(act.device_ids), set(learn.device_ids)
+        elif device_count is not None:
+            act_ids = set(act.resolved_ids(device_count))
+            learn_ids = set(learn.resolved_ids(device_count))
+        if act_ids is not None and act_ids != learn_ids and act_ids & learn_ids:
+            findings.append(
+                f"act and learn roles partially overlap on device ids "
+                f"{sorted(act_ids & learn_ids)} — primary roles must be "
+                "either colocated (identical sets) or disjoint"
+            )
+
+    for a in assignments.values():
+        sizes = list(a.axes.values())
+        if sizes.count(-1) > 1:
+            findings.append(
+                f"role '{a.role}': at most one mesh axis may be -1, got {a.axes}"
+            )
+
+    if findings:
+        raise MeshRolesError(findings)
+    return assignments
+
+
+class MeshRoles:
+    """Materialised role -> devices mapping for this process's job: the
+    Sebulba split's act, learn and evaluate devices."""
+
+    def __init__(self, assignments: Dict[str, RoleAssignment], devices: Sequence[Any]):
+        self._assignments = dict(assignments)
+        self._devices = list(devices)
+
+    @classmethod
+    def from_config(cls, config: Any, devices: Optional[Sequence[Any]] = None) -> "MeshRoles":
+        """`devices` defaults to every visible card, `cuda:0` to `cuda:N-1`."""
+        if devices is None:
+            import torch
+
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        devices = list(devices)
+        return cls(resolve_assignments(config, device_count=len(devices)), devices)
+
+    # -- queries --------------------------------------------------------------
+    @property
+    def roles(self) -> Tuple[str, ...]:
+        return tuple(self._assignments)
+
+    def assignment(self, role: str) -> RoleAssignment:
+        if role not in self._assignments:
+            raise MeshRolesError(
+                [f"role '{role}' is not assigned (assigned: {', '.join(self.roles)})"]
+            )
+        return self._assignments[role]
+
+    def role_device_ids(self, role: str) -> Tuple[int, ...]:
+        return self.assignment(role).resolved_ids(len(self._devices))
+
+    def role_devices(self, role: str) -> List[Any]:
+        return [self._devices[i] for i in self.role_device_ids(role)]
+
+    def device(self, role: str) -> Any:
+        return self.role_devices(role)[0]
+
+    def role_mesh(self, role: str) -> List[Any]:
+        """The role's "mesh": its devices, in order (one shard each)."""
+        return self.role_devices(role)
+
+    def learn_mesh(self) -> List[Any]:
+        return self.role_mesh(ROLE_LEARN)
+
+    def colocated(self, role_a: str, role_b: str) -> bool:
+        return set(self.role_device_ids(role_a)) == set(self.role_device_ids(role_b))

@@ -1,12 +1,15 @@
 """Typed failures (counterpart of stoix_tpu/resilience/errors.py).
 
 `ConfigValidationError` (`parallel/distributed.py` raises it for a
-half-configured multi-process launch) and `DivergenceError` (the update
-guard's `halt`, resilience/guards.py). This module imports nothing from the
-rest of the package.
+half-configured multi-process launch), `DivergenceError` (the update
+guard's `halt`, resilience/guards.py), and Sebulba's `ComponentFailure` and
+`EvaluatorStallError` (sebulba/core.py, resilience/supervisor.py). This
+module imports nothing from the rest of the package.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 
 class DivergenceError(RuntimeError):
@@ -38,3 +41,33 @@ class ConfigValidationError(RuntimeError):
         super().__init__(
             f"config validation failed with {len(self.findings)} finding(s):\n{lines}"
         )
+
+
+class ComponentFailure(RuntimeError):
+    """Poison-pill for Sebulba: a component (actor thread, evaluator) failed
+    unrecoverably. Propagated through the OnPolicyPipeline and
+    ParameterServer queues so the peer FAILS FAST on its next get instead of
+    burning a full collect timeout against a dead producer."""
+
+    def __init__(self, component: str, reason: str, cause: Optional[BaseException] = None):
+        self.component = component
+        self.reason = reason
+        self.__cause__ = cause
+        detail = f": {type(cause).__name__}: {cause}" if cause is not None else ""
+        super().__init__(f"{component} failed unrecoverably ({reason}){detail}")
+
+
+class EvaluatorStallError(RuntimeError):
+    """AsyncEvaluator.wait_until_idle timed out: evaluation work is still in
+    flight (or wedged) at shutdown. Carries the evaluator's last-heartbeat
+    age so the caller can tell slow-but-alive from dead."""
+
+    def __init__(self, timeout: float, heartbeat_age: Optional[float], pending: int):
+        self.timeout = float(timeout)
+        self.heartbeat_age = heartbeat_age
+        self.pending = int(pending)
+        age = ("never completed an evaluation" if heartbeat_age is None
+               else f"last finished one {heartbeat_age:.1f}s ago")
+        super().__init__(
+            f"async evaluator still busy after {timeout:.0f}s ({pending} request(s) "
+            f"queued; {age}) — shutdown would drop in-flight evaluation work")

@@ -1,0 +1,298 @@
+"""Sebulba actor supervision (counterpart of
+stoix_tpu/resilience/supervisor.py): restart crashed actors, fail fast on
+the rest. The supervisor owns the actor threads:
+
+  * a crash is reported by the dying thread (rollout_thread); the supervisor
+    respawns a replacement — fresh thread, fresh env instance (the thread
+    factory re-invokes the env factory), re-fetched params (the param queue
+    is re-primed with the latest distributed params so the replacement never
+    deadlocks against a learner that is itself blocked waiting for the
+    replacement's rollout) — with bounded exponential backoff;
+  * past `max_restarts`, the failure is UNRECOVERABLE: a typed
+    ComponentFailure poison-pill goes through the OnPolicyPipeline so the
+    learner raises on its next collect instead of timing out;
+  * the heartbeat watchdog (observability/health.py's HeartbeatBoard) detects the silent-wedge
+    case — an actor thread that is alive but has stopped beating for
+    `wedge_timeout_s` — and routes it down the same poison-pill path
+    (a Python thread cannot be killed, so a wedge is never restartable).
+
+Restarts change WHICH env steps feed the learner (the replacement re-seeds
+its envs), so supervision never fires on a healthy run — with no crashes the
+training stream is untouched.
+
+The JAX supervisor also writes to the flight recorder and the goodput
+ledger; neither is ported (ROADMAP A19), so those two calls have no
+counterpart here. Its crash and restart counters keep their names.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import Any, Callable, Dict, Optional
+
+from stoix_tpu_torch.observability import HeartbeatBoard, get_registry
+from stoix_tpu_torch.resilience.errors import ComponentFailure
+
+ThreadFactory = Callable[[], threading.Thread]
+
+
+class ActorSupervisor:
+    def __init__(
+        self,
+        lifetime: Any,
+        pipeline: Any,
+        param_server: Any = None,
+        max_restarts: int = 2,
+        backoff_base_s: float = 0.5,
+        backoff_max_s: float = 10.0,
+        wedge_timeout_s: float = 0.0,
+    ) -> None:
+        self._lifetime = lifetime
+        self._pipeline = pipeline
+        self._param_server = param_server
+        self.max_restarts = int(max_restarts)
+        self.backoff_base_s = float(backoff_base_s)
+        self.backoff_max_s = float(backoff_max_s)
+        self.wedge_timeout_s = float(wedge_timeout_s)
+        self._lock = threading.Lock()
+        self._factories: Dict[int, ThreadFactory] = {}
+        self._threads: Dict[int, threading.Thread] = {}
+        self._restarts: Dict[int, int] = {}
+        self._spawned_at: Dict[int, float] = {}
+        self._failed: set = set()
+        self._watchdog: Optional[threading.Thread] = None
+        registry = get_registry()
+        self._restart_counter = registry.counter(
+            "stoix_tpu_resilience_actor_restarts_total",
+            "Crashed Sebulba actors respawned by the supervisor",
+        )
+        self._failure_counter = registry.counter(
+            "stoix_tpu_resilience_component_failures_total",
+            "Unrecoverable component failures propagated as poison-pills",
+        )
+        self._log = logging.getLogger("stoix_tpu_torch.resilience")
+
+    # -- thread ownership ----------------------------------------------------
+    def register(self, actor_id: int, factory: ThreadFactory) -> threading.Thread:
+        """Own and start actor `actor_id`; `factory` must build a FRESH
+        (unstarted) thread each call — it is re-invoked on every restart."""
+        thread = factory()
+        with self._lock:
+            self._factories[actor_id] = factory
+            self._threads[actor_id] = thread
+            self._spawned_at[actor_id] = time.monotonic()
+        thread.start()
+        return thread
+
+    def threads(self) -> Dict[int, threading.Thread]:
+        with self._lock:
+            return dict(self._threads)
+
+    def restart_count(self, actor_id: Optional[int] = None) -> int:
+        with self._lock:
+            if actor_id is not None:
+                return self._restarts.get(actor_id, 0)
+            return sum(self._restarts.values())
+
+    def join_all(self, timeout: float = 10.0) -> None:
+        deadline = time.monotonic() + timeout
+        for thread in self.threads().values():
+            thread.join(timeout=max(0.0, deadline - time.monotonic()))
+
+    # -- crash path ----------------------------------------------------------
+    def report_crash(self, actor_id: int, exc: BaseException) -> None:
+        """Called from the dying actor thread. Either schedules a supervised
+        restart (bounded exponential backoff, off the dying thread) or
+        propagates an unrecoverable ComponentFailure."""
+        if self._lifetime.should_stop():
+            return  # orderly shutdown already in progress; not a failure
+        with self._lock:
+            if actor_id in self._failed:
+                return
+            attempt = self._restarts.get(actor_id, 0)
+            if attempt >= self.max_restarts:
+                self._failed.add(actor_id)
+                give_up = True
+            else:
+                self._restarts[actor_id] = attempt + 1
+                give_up = False
+        if give_up:
+            self._propagate(
+                actor_id,
+                ComponentFailure(
+                    f"actor-{actor_id}",
+                    f"crashed {attempt + 1} time(s), max_restarts={self.max_restarts} exhausted",
+                    exc,
+                ),
+            )
+            return
+        delay = min(self.backoff_base_s * (2.0 ** attempt), self.backoff_max_s)
+        self._log.warning(
+            "[supervisor] actor-%d crashed (%s: %s) — restarting in %.2fs "
+            "(attempt %d/%d)",
+            actor_id, type(exc).__name__, exc, delay, attempt + 1, self.max_restarts,
+        )
+        threading.Thread(
+            target=self._respawn,
+            args=(actor_id, delay),
+            name=f"supervisor-respawn-{actor_id}",
+            daemon=True,
+        ).start()
+
+    def _respawn(self, actor_id: int, delay: float) -> None:
+        # The respawn thread OWNS the restart obligation: if anything below
+        # raises (a reprime against a torn-down param server, a factory whose
+        # env construction fails), dying silently would leave the learner
+        # blocked in collect_rollouts until its 180 s timeout with no
+        # evidence. Convert any failure into the ComponentFailure poison-pill.
+        try:
+            self._respawn_inner(actor_id, delay)
+        except Exception as exc:  # noqa: BLE001 — every respawn failure must
+            # surface as a typed poison-pill, whatever raised it
+            with self._lock:
+                already = actor_id in self._failed
+                self._failed.add(actor_id)
+            if not already:
+                self._propagate(
+                    actor_id,
+                    ComponentFailure(
+                        f"actor-{actor_id}",
+                        f"respawn failed ({type(exc).__name__}: {exc})",
+                        exc,
+                    ),
+                )
+
+    def _respawn_inner(self, actor_id: int, delay: float) -> None:
+        deadline = time.monotonic() + delay
+        while time.monotonic() < deadline:
+            if self._lifetime.should_stop():
+                return
+            time.sleep(0.02)
+        if self._lifetime.should_stop():
+            return
+        # Re-prime params FIRST: the learner may already be blocked in
+        # collect_rollouts waiting for this very actor, in which case it will
+        # never push params again — the replacement must not deadlock on an
+        # empty param queue.
+        if self._param_server is not None:
+            self._param_server.reprime(actor_id)
+        with self._lock:
+            factory = self._factories.get(actor_id)
+        if factory is None:
+            return
+        thread = factory()
+        with self._lock:
+            self._threads[actor_id] = thread
+            self._spawned_at[actor_id] = time.monotonic()
+        thread.start()
+        self._restart_counter.inc(labels={"actor": str(actor_id)})
+        self._log.warning(
+            "[supervisor] actor-%d restarted (fresh env instance, re-primed params)",
+            actor_id,
+        )
+
+    def _propagate(self, actor_id: int, failure: ComponentFailure) -> None:
+        self._failure_counter.inc(labels={"component": failure.component})
+        self._log.error("[supervisor] %s", failure)
+        # Learner side: poison the rollout hand-off so collect_rollouts
+        # raises instead of burning its timeout.
+        self._pipeline.fail(actor_id, failure)
+        # Actor side: poison the failed actor's OWN param queue — a wedged
+        # actor blocked in get_params dies with the typed failure instead of
+        # lingering until process exit.
+        if self._param_server is not None:
+            self._param_server.fail(failure, actor_id=actor_id)
+
+    # -- wedge path ----------------------------------------------------------
+    def start_watchdog(self, heartbeats: HeartbeatBoard, poll_interval_s: float = 0.5) -> None:
+        """Poll heartbeat ages for owned actors; an actor that is ALIVE but
+        silent for `wedge_timeout_s` is wedged — unrestartable (threads can't
+        be killed), so it goes straight down the poison-pill path. No-op when
+        wedge_timeout_s <= 0. Actors that have not beaten since their latest
+        (re)spawn get 4x the budget measured from that spawn: first-rollout
+        compile can dwarf the steady-state cadence, and a freshly RESTARTED
+        actor must not be judged against the stale pre-crash beat."""
+        if self.wedge_timeout_s <= 0 or self._watchdog is not None:
+            return
+
+        def _watch() -> None:
+            while not self._lifetime.should_stop():
+                time.sleep(poll_interval_s)
+                try:
+                    self._watch_once(heartbeats)
+                except Exception:  # noqa: BLE001 — a poll that raises must
+                    # not silently disarm wedge detection for the rest of
+                    # the run; log, count, keep polling.
+                    import traceback
+
+                    get_registry().counter(
+                        "stoix_tpu_resilience_watchdog_errors_total",
+                        "Supervisor wedge-watchdog polls that raised",
+                    ).inc()
+                    self._log.error(
+                        "[supervisor] wedge-watchdog poll FAILED "
+                        "(detection still armed):\n%s", traceback.format_exc(),
+                    )
+
+        self._watchdog = threading.Thread(
+            target=_watch, name="supervisor-watchdog", daemon=True
+        )
+        self._watchdog.start()
+
+    def _watch_once(self, heartbeats: HeartbeatBoard) -> None:
+        for actor_id, thread in self.threads().items():
+            with self._lock:
+                if actor_id in self._failed:
+                    continue
+                spawned_at = self._spawned_at.get(actor_id)
+            if not thread.is_alive():
+                continue  # crash path owns dead threads
+            age = heartbeats.age(f"actor-{actor_id}")
+            since_spawn = (
+                time.monotonic() - spawned_at
+                if spawned_at is not None
+                else age
+            )
+            if age is None or (since_spawn is not None and age > since_spawn):
+                # No beat since the latest (re)spawn: grade the fresh
+                # thread on its own clock, with compile headroom.
+                age = since_spawn if since_spawn is not None else 0.0
+                budget = 4.0 * self.wedge_timeout_s
+            else:
+                budget = self.wedge_timeout_s
+            if age <= budget:
+                continue
+            with self._lock:
+                if actor_id in self._failed:
+                    continue
+                self._failed.add(actor_id)
+            self._propagate(
+                actor_id,
+                ComponentFailure(
+                    f"actor-{actor_id}",
+                    f"wedged: thread alive but silent for {age:.1f}s "
+                    f"(wedge_timeout_s={self.wedge_timeout_s})",
+                ),
+            )
+
+
+def supervisor_from_config(
+    config: Any, lifetime: Any, pipeline: Any, param_server: Any = None
+) -> Optional[ActorSupervisor]:
+    """Build from the `arch.supervision` block; None when disabled. Defaults
+    (enabled, 2 restarts, no wedge detection) are safe for healthy runs:
+    supervision only acts when a component actually fails."""
+    sup_cfg = config.arch.get("supervision") or {}
+    if not bool(sup_cfg.get("enabled", True)):
+        return None
+    return ActorSupervisor(
+        lifetime,
+        pipeline,
+        param_server=param_server,
+        max_restarts=int(sup_cfg.get("max_restarts", 2)),
+        backoff_base_s=float(sup_cfg.get("backoff_base_s", 0.5)),
+        backoff_max_s=float(sup_cfg.get("backoff_max_s", 10.0)),
+        wedge_timeout_s=float(sup_cfg.get("wedge_timeout_s", 0.0) or 0.0),
+    )

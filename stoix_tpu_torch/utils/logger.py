@@ -37,6 +37,7 @@ class LogEvent(enum.Enum):
     TRAIN = "trainer"
     EVAL = "evaluator"
     ABSOLUTE = "absolute"
+    MISC = "misc"  # Sebulba's timings
 
 
 def _to_numpy(x: Any) -> np.ndarray:

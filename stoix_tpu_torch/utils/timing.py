@@ -1,0 +1,62 @@
+"""Rolling-window wall-clock timers, the Sebulba profiling backbone
+(counterpart of stoix_tpu/utils/timing.py): per name, the last `maxlen`
+durations, their mean and nearest-rank percentiles."""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from contextlib import contextmanager
+from typing import Dict, Iterator
+
+
+class TimingTracker:
+    def __init__(self, maxlen: int = 10):
+        self._maxlen = maxlen
+        self._times: Dict[str, deque] = {}
+
+    @contextmanager
+    def time(self, name: str) -> Iterator[None]:
+        start = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._times.setdefault(name, deque(maxlen=self._maxlen)).append(
+                time.perf_counter() - start
+            )
+
+    def mean(self, name: str) -> float:
+        times = self._times.get(name)
+        return sum(times) / len(times) if times else 0.0
+
+    def all_means(self, prefix: str = "") -> Dict[str, float]:
+        return {f"{prefix}{k}_time": self.mean(k) for k in self._times}
+
+    def percentiles(self, name: str) -> Dict[str, float]:
+        """p50/p95/p99/max over the current rolling window (nearest-rank on
+        the sorted window: p50 of a single sample is that sample). p99 exists
+        for the serving SLOs (docs/DESIGN.md §2.8) — tail latency is the
+        metric a latency SLO is written against. Empty window -> {} so
+        callers can `.update()` unconditionally."""
+        times = self._times.get(name)
+        if not times:
+            return {}
+        ordered = sorted(times)
+        n = len(ordered)
+
+        def rank(q: float) -> float:
+            return ordered[min(n - 1, max(0, int(q * n + 0.5) - 1))]
+
+        return {
+            "p50": rank(0.50),
+            "p95": rank(0.95),
+            "p99": rank(0.99),
+            "max": ordered[-1],
+        }
+
+    def all_percentiles(self, prefix: str = "") -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        for name in self._times:
+            for stat, value in self.percentiles(name).items():
+                out[f"{prefix}{name}_{stat}"] = value
+        return out

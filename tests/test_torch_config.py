@@ -205,3 +205,19 @@ LOCO_GRID = {
 def test_loco_grid_config_trees_mirror_the_jax_package(case):
     name, overrides = LOCO_GRID[case]
     _assert_mirrors(f"default/anakin/default_{name}.yaml", overrides)
+
+
+# Sebulba: the three on-policy roots, each as it is and with the
+# native pool's envs (env=breakout, env=breakout_pixel with cnn_atari,
+# Pendulum on the pool with the continuous head).
+SEBULBA = {
+    "ff_ppo": ["env=breakout_pixel", "network=cnn_atari", "arch.learner.device_ids=[0]"],
+    "ff_impala": ["env=breakout", "system.multistep_impl=pallas"],
+    "ff_impala_shared_torso": ["env=pendulum", "env.backend=cvec", "network=mlp_continuous"],
+}
+
+
+@pytest.mark.parametrize("name", list(SEBULBA))
+@pytest.mark.parametrize("overridden", [False, True])
+def test_sebulba_config_trees_mirror_the_jax_package(name, overridden):
+    _assert_mirrors(f"default/sebulba/default_{name}.yaml", SEBULBA[name] if overridden else [])

@@ -246,7 +246,7 @@ def test_entry_point_defaults_to_cuda_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("override,key", [
-    # Anakin colocates every role; the role split is Sebulba's (ROADMAP A15).
+    # Anakin colocates every role; only the Sebulba runner splits them.
     ("arch.roles.learn.device_ids=[0]", "arch.roles"),
     ("arch.fleet.enabled=true", "arch.fleet.enabled"),
     ("arch.integrity.enabled=true", "arch.integrity.enabled"),
@@ -293,6 +293,12 @@ def test_port_imports_nothing_of_jax():
         "slice18 = ['envs.' + m for m in ('rigid_body', 'locomotion', 'snake', 'game2048',\n"
         "           'doorkey')]\n"
         "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice18)\n"
+        "slice19 = ['utils.timing', 'observability.health', 'observability.trace',\n"
+        "           'resilience.supervisor', 'parallel.roles', 'sebulba.core', 'envs.factory',\n"
+        "           'envs.cvec', 'systems.ppo.sebulba.ff_ppo',\n"
+        "           'systems.impala.sebulba.ff_impala',\n"
+        "           'systems.impala.sebulba.ff_impala_shared_torso']\n"
+        "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice19)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, timeout=120, check=True)

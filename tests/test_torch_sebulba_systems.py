@@ -1,0 +1,132 @@
+"""The three Sebulba systems of the PyTorch port end to end on the CPU, and
+their refusals.
+
+1. Sebulba ff_ppo, ff_impala and ff_impala_shared_torso through their
+   `run_experiment` at tests/test_sebulba.py's BASE (IdentityGame, 8 envs,
+   2048 steps, two actor threads), every role on device 0 (a one-card host's
+   shape): finite, exactly `num_updates` learn steps, one B1 call an update
+   (GAE) on ff_ppo and `num_minibatches` (V-trace) on the IMPALAs, no actor
+   crash, restart or evaluator error. Also ff_ppo on the native pool
+   (CartPole) and on Pendulum (continuous, a negative return), and with
+   two learner "devices".
+2. The entry points default to CUDA and never fall back to the CPU.
+3. Every refusal raises NotImplementedError naming its key: IMPACT, the
+   gymnasium and envpool backends, `system.replay.impl: sharded`, the
+   fleet, integrity and preflight layers and `arch.fault_spec`, and ROADMAP
+   C24's unread knobs (`system.fused_update`, `system.clip_value` on ff_ppo,
+   `system.update_guard` on the shared torso); the default arch's learner on
+   device 1 is refused on a one-card host with the JAX package's findings.
+"""
+
+import math
+
+import pytest
+import torch
+
+from stoix_tpu_torch.parallel.roles import MeshRolesError
+from stoix_tpu_torch.systems.impala.sebulba import ff_impala, ff_impala_shared_torso
+from stoix_tpu_torch.systems.ppo.sebulba import ff_ppo
+from stoix_tpu_torch.utils import config as config_lib
+from test_torch_continuous import _count_b1_calls
+
+BASE = ["env=identity_game", "arch.total_num_envs=8", "arch.total_timesteps=2048",
+        "arch.num_evaluation=1", "arch.num_eval_episodes=8", "system.rollout_length=8",
+        "logger.use_console=False", "arch.actor.device_ids=[0]",
+        "arch.learner.device_ids=[0]", "system.multistep_impl=pallas"]
+SYSTEMS = {"ff_ppo": ff_ppo, "ff_impala": ff_impala,
+           "ff_impala_shared_torso": ff_impala_shared_torso}
+
+
+def compose(system, overrides):
+    return config_lib.compose(config_lib.default_config_dir(),
+                              f"default/sebulba/default_{system}.yaml", overrides)
+
+
+def _assert_clean_run(ret, updates):
+    stats = ff_ppo.LAST_RUN_STATS
+    assert math.isfinite(ret)
+    assert stats["learn_steps"] == updates
+    resilience = stats["resilience"]
+    assert (resilience["actor_crashes"], resilience["actor_restarts"],
+            resilience["evaluator_errors"]) == (0, 0, 0)
+    assert stats["fps"] > 0
+
+
+@pytest.mark.parametrize("system", list(SYSTEMS))
+def test_each_system_runs_end_to_end(system, monkeypatch):
+    cfg = compose(system, BASE)
+    calls = _count_b1_calls(monkeypatch)
+    ret = SYSTEMS[system].run_experiment(cfg, device="cpu")
+    updates = 2048 // (8 * 8)
+    _assert_clean_run(ret, updates)
+    if system == "ff_ppo":
+        assert calls == {"gae": updates, "generic": 0}
+    else:
+        assert calls == {"gae": 0, "generic": 4 * updates}
+    assert ff_ppo.LAST_RUN_STATS["num_actors"] == 2
+    assert ff_ppo.LAST_RUN_STATS["envs_per_actor"] == 4
+
+
+@pytest.mark.parametrize("overrides", [
+    ["env=cartpole", "env.backend=cvec"],
+    ["arch.learner.device_ids=[1,2]", "arch.evaluator_device_id=3",
+     "system.num_minibatches=2"],
+])
+def test_ppo_on_the_pool_and_over_two_learner_devices(overrides):
+    cfg = compose("ff_ppo", [*BASE, "arch.total_timesteps=512", *overrides])
+    _assert_clean_run(ff_ppo.run_experiment(cfg, device="cpu"), 8)
+
+
+def test_ppo_continuous_on_the_native_pool():
+    """tests/test_sebulba.py:100-127: Pendulum through the pool's continuous
+    entry, the tanh-Gaussian head inferred from its Box."""
+    cfg = compose("ff_ppo", ["env=pendulum", "env.backend=cvec", "env.kwargs.max_steps=200",
+                             "network=mlp_continuous", "arch.total_num_envs=8",
+                             "arch.total_timesteps=2048", "arch.num_evaluation=1",
+                             "arch.num_eval_episodes=4", "system.rollout_length=8",
+                             "system.num_minibatches=2", "logger.use_console=False",
+                             "arch.actor.device_ids=[0]", "arch.actor.actor_per_device=1",
+                             "arch.learner.device_ids=[0]"])
+    ret = ff_ppo.run_experiment(cfg, device="cpu")
+    _assert_clean_run(ret, 32)
+    assert ret < 0.0
+
+
+@pytest.mark.parametrize("system", list(SYSTEMS))
+def test_entry_point_defaults_to_cuda_and_never_falls_back(system, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        SYSTEMS[system].run_experiment(compose(system, BASE))
+
+
+REFUSALS = [
+    ("ff_ppo", "system.impact.enabled=true", "system.impact.enabled"),
+    ("ff_ppo", "env.backend=gymnasium", "env.backend=gymnasium"),
+    ("ff_impala", "env.backend=envpool", "env.backend=envpool"),
+    ("ff_ppo", "system.replay.impl=sharded", "system.replay.impl=sharded"),
+    ("ff_impala", "arch.fleet.enabled=true", "arch.fleet.enabled"),
+    ("ff_ppo", "arch.integrity.enabled=true", "arch.integrity.enabled"),
+    ("ff_impala_shared_torso", "arch.preflight.enabled=true", "arch.preflight.enabled"),
+    ("ff_ppo", "arch.fault_spec=actor_crash:1", "arch.fault_spec"),
+    ("ff_ppo", "logger.telemetry.enabled=true", "logger.telemetry.enabled"),
+    # ROADMAP C24: knobs the JAX Sebulba learners never read.
+    ("ff_ppo", "system.fused_update=true", "system.fused_update"),
+    ("ff_ppo", "system.clip_value=false", "system.clip_value"),
+    ("ff_impala_shared_torso", "system.update_guard=skip", "system.update_guard"),
+]
+
+
+@pytest.mark.parametrize("system,override,key", REFUSALS)
+def test_refusals_raise_naming_the_key(system, override, key):
+    cfg = compose(system, [*BASE, override])
+    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+        SYSTEMS[system].run_experiment(cfg, device="cpu")
+
+
+def test_default_learner_device_is_refused_on_one_card(monkeypatch):
+    """The default arch puts the learner on device 1: a one-card host
+    refuses it with every finding, as the JAX package's roles do."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(MeshRolesError, match=r"device ids \[1\] out of range for the 1 probed"):
+        ff_ppo.run_experiment(compose("ff_ppo", ["env=identity_game"]))
