@@ -389,12 +389,48 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    learn IdentityGame (SEBULBA_IDENTITY) above
                    SEBULBA_THRESHOLD, 8.0: the JAX package returns 10.0 for
                    seeds 42 and 1 in both (scripts/jax_oracle_thresholds.py).
+ 53. sebulba_replay — the sharded replay service alone at bench.py --replay's
+                   shape (REPLAY_BENCH: 64-float observations, 4 096 slots,
+                   batches of 512, chunks of 2 048, prioritized), one shard
+                   on the card: sampled items/s over 64 add -> sample ->
+                   set_priorities cycles, the ledger (ingested bytes against
+                   sampled bytes crossed), the ring's device bytes, a cycle's
+                   device launches, no kernel launch; one sample and one
+                   set_priorities against a CPU copy of the ring from the
+                   same uniforms (indices and rows exact, probabilities and
+                   priorities 1e-6).
+ 54. sebulba_dqn_train — Sebulba ff_dqn at default_ff_dqn.yaml (64 CartPole
+                   envs in 2 actors, T = 8, 8 epochs of 512 from a 100 000-
+                   item ring, min_fill 1 024, MLP 256 x 256), uniform then
+                   prioritized, SEBULBA_DQN_UPDATES updates in 2 windows,
+                   every kernel counter zeroed just before and read just
+                   after: no launch; steady env-steps/s and fps, the
+                   learner's ingest and learn means, the actors' means, the
+                   ring's device bytes, the replay ledger, no actor crash,
+                   restart or evaluator error; a learn step's device
+                   launches and peak bytes above the state.
+ 55. sebulba_impact_train — Sebulba ff_ppo with IMPACT at the tracked shape
+                   (512 cvec CartPole envs, T = 64, 4 x 4 minibatches,
+                   pallas), SEBULBA_UPDATES updates: exactly one B1 GAE
+                   launch an update at [64, 512], the impact stats (fresh and
+                   reused updates, staleness, at least one target refresh).
+ 56. sebulba_offpolicy_parity — TF32 off: an ff_dqn learn step, uniform (8
+                   epochs) and prioritized (one epoch from non-dyadic
+                   priorities), and an IMPACT learn step on the card against
+                   the CPU from the same ring, params, uniforms, batch,
+                   permutations and target (losses 1e-5 relative, 1e-6
+                   floor; params 1e-5 absolute; priorities 1e-6); the IMPACT
+                   step's one GAE launch, B1 bitwise on its inputs.
+ 57. sebulba_dqn_learn, sebulba_impact_learn — Sebulba ff_dqn
+                   (SEBULBA_DQN_IDENTITY: a 4 096-item uniform ring) and
+                   IMPACT learn IdentityGame above 8.0: the JAX package
+                   returns 10.0 for seeds 42 and 1 in both.
 
 The learning oracles (learn, knobs_learn, trans_learn, q_learn, cont_learn, rec_learn,
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
 vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn, spo_continuous_learn,
 vmpo_continuous_learn, catch_learn, snake_learn, sebulba_ppo_learn,
-sebulba_impala_learn) run last, after every timed
+sebulba_impala_learn, sebulba_dqn_learn, sebulba_impact_learn) run last, after every timed
 phase, each in a child process of this script (`--learn-phase NAME`),
 LEARN_WORKERS at a time (four at least, more where the host has the cores;
 `host_cpus` is printed), the longest first; a `learn_all` line gives their wall time. Then a
@@ -3941,7 +3977,7 @@ def phase_pendulum_learn(name: str) -> None:
 # ------------------------------------------- Sebulba
 
 SEBULBA_ROOTS = {name: f"default/sebulba/default_{name}.yaml"
-                 for name in ("ff_ppo", "ff_impala", "ff_impala_shared_torso")}
+                 for name in ("ff_ppo", "ff_impala", "ff_impala_shared_torso", "ff_dqn")}
 # The host has one card: every Sebulba run shares it between the roles.
 ONE_CARD = ["arch.actor.device_ids=[0]", "arch.learner.device_ids=[0]",
             "arch.evaluator_device_id=0"]
@@ -3954,13 +3990,20 @@ SEBULBA_IDENTITY = ["env=identity_game", "arch.total_num_envs=16", "arch.total_t
                     "arch.num_evaluation=1", "arch.num_eval_episodes=32",
                     "arch.evaluation_greedy=True", "system.rollout_length=8",
                     "logger.use_console=False", *ONE_CARD]
+# Sebulba ff_dqn on IdentityGame (sebulba_dqn_learn): a 4 096-item ring of
+# uniform replay filled to 128 before the first sample, batches of 64.
+SEBULBA_DQN_IDENTITY = [*SEBULBA_IDENTITY, "system.total_buffer_size=4096",
+                        "system.total_batch_size=64", "system.replay.min_fill=128"]
 SEBULBA_ORACLES = {"sebulba_ppo": ("ff_ppo", SEBULBA_IDENTITY),
-                   "sebulba_impala": ("ff_impala", SEBULBA_IDENTITY)}
+                   "sebulba_impala": ("ff_impala", SEBULBA_IDENTITY),
+                   "sebulba_dqn": ("ff_dqn", SEBULBA_DQN_IDENTITY),
+                   "sebulba_impact": ("ff_ppo", [*SEBULBA_IDENTITY, "system.impact.enabled=true"])}
 SEBULBA_THRESHOLD = 8.0  # the JAX package returns 10.0 for seeds 42 and 1 in both
 # The Sebulba paths (phases sebulba_train, sebulba_pixel, sebulba_envs): each
 # label -> (system, overrides, B1 GAE launches an update, generic launches an
 # update). Every role on device 0, the actors' pools on the host.
 SEBULBA_UPDATES = 6  # sebulba_train's ff_ppo at the JAX package's tracked shape
+SEBULBA_DQN_UPDATES = 16  # sebulba_dqn_train's ff_dqn runs, in 2 windows
 SEBULBA_PATHS = {
     # bench.py:1876-1894's shape: 512 cvec CartPole envs in 2 actors, T = 64.
     "ff_ppo_cartpole": ("ff_ppo", ["env=cartpole", "env.backend=cvec", "arch.total_num_envs=512",
@@ -3985,6 +4028,20 @@ SEBULBA_PATHS = {
     **{system: (system, ["env=cartpole", "env.backend=cvec", "arch.num_updates=4",
                          "arch.num_evaluation=1", "system.multistep_impl=pallas"], 0, 4)
        for system in ("ff_impala", "ff_impala_shared_torso")},
+    # IMPACT at the tracked shape: one GAE launch an update, fresh or reused.
+    "ff_ppo_impact": ("ff_ppo", ["env=cartpole", "env.backend=cvec", "arch.total_num_envs=512",
+                                 "system.rollout_length=64",
+                                 f"arch.num_updates={SEBULBA_UPDATES}", "arch.num_evaluation=2",
+                                 "system.multistep_impl=pallas", "system.impact.enabled=true"],
+                      1, 0),
+    # default_ff_dqn.yaml as it is (64 CartPole envs in 2 actors, T = 8, 8
+    # epochs of 512 from a 100 000-item ring filled to 1 024 first, MLP 256 x
+    # 256), uniform and prioritized: no kernel on the path.
+    **{f"ff_dqn_{mode}": ("ff_dqn", [f"arch.num_updates={SEBULBA_DQN_UPDATES}",
+                                     "arch.num_evaluation=2",
+                                     f"system.replay.prioritized={mode == 'prioritized'}"],
+                          0, 0)
+       for mode in ("uniform", "prioritized")},
 }
 SEBULBA_COMMON = [*ONE_CARD, "arch.num_eval_episodes=16", "logger.use_console=False"]
 
@@ -3992,9 +4049,17 @@ SEBULBA_COMMON = [*ONE_CARD, "arch.num_eval_episodes=16", "logger.use_console=Fa
 def _sebulba_module(system: str):
     from stoix_tpu_torch.systems.impala.sebulba import ff_impala, ff_impala_shared_torso
     from stoix_tpu_torch.systems.ppo.sebulba import ff_ppo as sebulba_ppo
+    from stoix_tpu_torch.systems.q_learning.sebulba import ff_dqn as sebulba_dqn
 
     return {"ff_ppo": sebulba_ppo, "ff_impala": ff_impala,
-            "ff_impala_shared_torso": ff_impala_shared_torso}[system]
+            "ff_impala_shared_torso": ff_impala_shared_torso, "ff_dqn": sebulba_dqn}[system]
+
+
+def _sebulba_stats(system: str) -> dict:
+    """The last run's stats: ff_dqn's own, the others' those of the runner
+    they share (ff_ppo's)."""
+    module = _sebulba_module("ff_dqn" if system == "ff_dqn" else "ff_ppo")
+    return copy.deepcopy(dict(module.LAST_RUN_STATS))
 
 
 def _sebulba_run(label: str, phase: str, smi: str) -> dict:
@@ -4015,8 +4080,7 @@ def _sebulba_run(label: str, phase: str, smi: str) -> dict:
     final_return = module.run_experiment(config, device="cuda")
     seconds = time.perf_counter() - start
     launches = _counts(counters)
-    # The three systems share the Sebulba runner and its stats.
-    stats = copy.deepcopy(dict(_sebulba_module("ff_ppo").LAST_RUN_STATS))
+    stats = _sebulba_stats(system)
     updates = int(config.arch.num_updates)
     lr = linear_recurrence
     expected = {c.name: 0 for c in counters}
@@ -4037,7 +4101,15 @@ def _sebulba_run(label: str, phase: str, smi: str) -> dict:
         raise AssertionError(f"{label}: non-finite return {final_return} or metrics {train}")
     timings = stats["timings"]
     actors = range(stats["num_actors"])
-    return {"phase": phase, "run": label, "system": system, "env": config.env.scenario.name,
+    extra = {}
+    if system == "ff_dqn":
+        extra = {"replay": stats["replay"], "ring_device_bytes": stats["ring_bytes"],
+                 "prioritized": bool(config.system.replay.prioritized),
+                 "learner_ingest_mean_s": timings.get("learner_ingest_time")}
+    elif stats.get("impact") is not None:
+        extra = {"impact": stats["impact"]}
+    return {**extra, "phase": phase, "run": label, "system": system,
+            "env": config.env.scenario.name,
             "backend": str(config.env.get("backend", "jax")),
             "total_num_envs": int(config.arch.total_num_envs), "num_actors": stats["num_actors"],
             "rollout_length": int(config.system.rollout_length), "updates": updates,
@@ -4093,7 +4165,13 @@ def _sebulba_learner(label: str, device: str):
     if config.arch.get("num_updates") in (None, "~"):
         config.arch.num_updates = 4
     probe = make_factory(config)(1)
+    if system == "ff_dqn":
+        config.system.action_dim = probe.num_actions
+        return config, module.learner_setup(config, probe, [torch.device(device)]), probe
     builders = (None, None)  # ff_ppo's: its networks and learn step
+    impact = module.impact_settings_from_config(config) if system == "ff_ppo" else None
+    if impact is not None:
+        builders = (None, partial(module.get_impact_learn_step, rho_clip=impact.rho_clip))
     if system == "ff_impala":
         builders = (None, module.get_impala_learn_step)
     elif system == "ff_impala_shared_torso":
@@ -4246,6 +4324,318 @@ def phase_sebulba_parity(smi: str) -> None:
     emit(record)
 
 
+# bench.py --replay's shape (bench.py:1149-1200): 64-float observations, a
+# ring of 4 096 slots, batches of 512, chunks of 2 048, prioritized, 64 add ->
+# sample -> set_priorities cycles a repetition; one shard, on the card.
+REPLAY_BENCH = dict(obs_dim=64, capacity=4096, batch=512, chunk=2048, cycles=64, reps=3)
+
+
+def _replay_rows(size: int, obs_dim: int, seed: int) -> dict:
+    gen = torch.Generator().manual_seed(seed)
+    return {"obs": torch.randn((size, obs_dim), generator=gen),
+            "action": torch.randint(0, 4, (size,), generator=gen, dtype=torch.int32),
+            "reward": torch.randn((size,), generator=gen),
+            "done": torch.zeros((size,), dtype=torch.bool),
+            "next_obs": torch.randn((size, obs_dim), generator=gen)}
+
+
+def _cpu_twin(service):
+    """A service on the CPU holding a copy of `service`'s rings."""
+    from stoix_tpu_torch.replay import ShardedReplayService
+
+    twin = ShardedReplayService(["cpu"] * service.num_shards,
+                                tree_map(lambda x: x[0].cpu(), service.state[0].experience),
+                                capacity_per_shard=service.capacity_per_shard,
+                                sample_batch_size=service.sample_batch_size,
+                                prioritized=service.prioritized,
+                                priority_exponent=service.core.priority_exponent,
+                                min_fill=service.core.min_fill)
+    twin.commit([s._replace(experience=tree_map(lambda x: x.cpu().clone(), s.experience),
+                            priorities=s.priorities.cpu().clone()) for s in service.state])
+    return twin
+
+
+def _samples_equal(got, want) -> dict:
+    """Card samples against CPU samples: indices and rows exact,
+    probabilities' largest relative error."""
+    indices = all(torch.equal(g.indices.cpu(), w.indices) for g, w in zip(got, want))
+    rows = all(torch.equal(a.cpu(), b) for g, w in zip(got, want)
+               for a, b in zip(tree_leaves(g.experience), tree_leaves(w.experience)))
+    probs = max(_relative(g.probabilities, w.probabilities) for g, w in zip(got, want))
+    return {"indices_equal": indices, "rows_equal": rows, "probabilities_rel_err": probs}
+
+
+def phase_sebulba_replay(smi: str) -> dict:
+    """The sharded replay service alone at bench.py --replay's shape, one
+    shard on the card: sampled items/s over REPLAY_BENCH's cycles (each rep
+    ended by a synchronize), the transport ledger, the ring's device bytes,
+    a cycle's device launches (no kernel of the repo on it: every count 0);
+    then one sample and one set_priorities on the card against the same ops
+    on a CPU copy of the ring from the same uniforms and priorities (indices
+    and rows exact, probabilities and priorities 1e-6 relative)."""
+    from stoix_tpu_torch.replay import ShardedReplayService
+
+    b = REPLAY_BENCH
+    start = time.perf_counter()
+    svc = ShardedReplayService([torch.device("cuda", 0)],
+                               tree_map(lambda x: x[0].cuda(), _replay_rows(1, b["obs_dim"], 0)),
+                               capacity_per_shard=b["capacity"], sample_batch_size=b["batch"],
+                               prioritized=True, priority_exponent=0.6)
+    base = svc.stats()
+    chunk = tree_map(lambda x: x.cuda(), _replay_rows(b["chunk"], b["obs_dim"], 1))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def cycle():
+        svc.add([chunk])
+        drawn = svc.sample(gen)
+        svc.set_priorities([drawn[0].indices], [drawn[0].probabilities.abs() + 0.5])
+        return drawn
+
+    cycle()  # warm-up
+    counters = _kernel_counters()
+    for counter in counters:
+        counter.launches = 0
+    rates = []
+    for _ in range(b["reps"]):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        for _ in range(b["cycles"]):
+            cycle()
+        torch.cuda.synchronize()
+        rates.append(b["cycles"] * b["batch"] / (time.perf_counter() - begin))
+    launches = _counts(counters)
+    if any(launches.values()):
+        raise AssertionError(f"the replay service launched a kernel of the repo: {launches}")
+    cycle_launches = _device_launches_of(cycle)
+    stats = {k: v - base[k] for k, v in svc.stats().items()}
+    if not stats["sampled_bytes_crossed"] < stats["ingested_bytes_total"]:
+        raise AssertionError(f"sampled bytes not below ingested bytes: {stats}")
+
+    # The card against the CPU from the same ring.
+    twin = _cpu_twin(svc)
+    uniforms = torch.rand((b["batch"],), generator=torch.Generator().manual_seed(3))
+    sample = _samples_equal(svc.sample(uniforms=uniforms.cuda()), twin.sample(uniforms=uniforms))
+    indices = torch.randint(0, b["capacity"], (b["batch"],), generator=torch.Generator()
+                            .manual_seed(4), dtype=torch.int32)
+    values = torch.rand((b["batch"],), generator=torch.Generator().manual_seed(5)) * 3.0
+    svc.set_priorities([indices.cuda()], [values.cuda()])
+    twin.set_priorities([indices], [values])
+    prio_err = _relative(svc.state[0].priorities, twin.state[0].priorities)
+    parity = {**sample, "set_priorities_rel_err": prio_err,
+              "set_priorities_bitwise": torch.equal(svc.state[0].priorities.cpu(),
+                                                    twin.state[0].priorities)}
+    if not (sample["indices_equal"] and sample["rows_equal"]
+            and sample["probabilities_rel_err"] <= 1e-6 and prio_err <= 1e-6):
+        raise AssertionError(f"the service on the card is not the CPU's: {parity}")
+    record = {"phase": "sebulba_replay", "shape": b, "shards": 1,
+              "sampled_items_per_s": max(rates), "sampled_items_per_s_reps": rates,
+              "ledger": stats, "ring_device_bytes": svc.ring_bytes(),
+              "cycle_device_launches": cycle_launches, "kernel_launches": launches,
+              "card_vs_cpu": parity, "seconds": time.perf_counter() - start, "card": smi}
+    emit(record)
+    return launches
+
+
+def _dqn_learn_step_costs(label: str) -> dict:
+    """One Sebulba ff_dqn learn step (default config: 8 epochs of 512) on
+    the card from a ring filled with random transitions (min_fill's worth):
+    device launches (torch.profiler, after a warm-up), host seconds (three,
+    each ended by a synchronize) and its peak device bytes above the state."""
+    config, setup, probe = _sebulba_learner(label, "cuda")
+    _fill_dqn_ring(setup.service, probe, int(config.system.replay.min_fill), 0)
+    state = setup.state
+    state, replay, _ = setup.learn_step(state, setup.service.state)  # warm-up
+    launches = _device_launches_of(lambda: setup.learn_step(state, setup.service.state))
+    alone = []
+    for _ in range(3):
+        begin = time.perf_counter()
+        setup.learn_step(state, setup.service.state)
+        torch.cuda.synchronize()
+        alone.append(time.perf_counter() - begin)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    setup.learn_step(state, setup.service.state)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"learn_step_device_launches": launches, "learn_step_alone_s": alone,
+            "learn_step_peak_bytes": peak, "learn_step_above_state_bytes": peak - before,
+            "epochs": int(config.system.epochs), "batch": int(config.system.total_batch_size)}
+
+
+def _fill_dqn_ring(service, probe, items: int, seed: int) -> None:
+    """`items` random transitions of `probe`'s shapes added to every shard
+    of `service` (observations N(0, 1), valid actions, 10% terminal)."""
+    from stoix_tpu_torch.base_types import Transition
+
+    gen = torch.Generator().manual_seed(seed)
+    view = probe.observation_value()
+    per_shard = items // service.num_shards
+
+    def observation():
+        return envs.Observation(
+            torch.randn((per_shard,) + tuple(view.agent_view.shape), generator=gen),
+            torch.ones((per_shard,) + tuple(view.action_mask.shape)),
+            torch.zeros((per_shard,), dtype=torch.int32))
+
+    shards = []
+    for device in service.devices:
+        batch = Transition(obs=observation(), action=torch.randint(
+            0, probe.num_actions, (per_shard,), generator=gen, dtype=torch.int32),
+            reward=torch.randn((per_shard,), generator=gen),
+            done=torch.rand((per_shard,), generator=gen) < 0.1, next_obs=observation(), info={})
+        shards.append(tree_map(lambda x, d=device: x.to(d), batch))
+    service.add(shards)
+
+
+def phase_sebulba_dqn_train(smi: str) -> dict:
+    """Sebulba ff_dqn at default_ff_dqn.yaml (64 CartPole envs in 2 actors,
+    T = 8, 8 epochs of 512 from a 100 000-item ring, MLP 256 x 256), uniform
+    then prioritized, SEBULBA_DQN_UPDATES updates in 2 windows each, every
+    kernel counter zeroed just before and read just after (no kernel on the
+    path: every count 0); steady env-steps/s and fps, the learner's ingest
+    and learn means, the actors' means, the ring's device bytes, the replay
+    ledger; a learn step's device launches and peak bytes above the state."""
+    launches = {}
+    for mode in ("uniform", "prioritized"):
+        label = f"ff_dqn_{mode}"
+        record = _sebulba_run(label, "sebulba_dqn_train", smi)
+        record.update(_dqn_learn_step_costs(label))
+        emit(record)
+        launches[label] = record["kernel_launches"]
+    return launches
+
+
+def phase_sebulba_impact_train(smi: str) -> dict:
+    """Sebulba ff_ppo with IMPACT at the tracked shape (512 cvec CartPole
+    envs in 2 actors, T = 64, MLP 256 x 256, 4 x 4 minibatches, pallas),
+    SEBULBA_UPDATES updates in 2 windows: exactly one B1 GAE launch an
+    update at [64, 512], fresh or reused; the impact stats with at least
+    one target refresh; env-steps/s."""
+    record = _sebulba_run("ff_ppo_impact", "sebulba_impact_train", smi)
+    impact = record["impact"]
+    if impact["target_refreshes"] < 1 or impact["updates"] != record["updates"]:
+        raise AssertionError(f"IMPACT's stats are off: {impact}")
+    emit(record)
+    return {"ff_ppo_impact": record["kernel_launches"]}
+
+
+def _dqn_step_on_card_and_cpu(mode: str) -> dict:
+    """One ff_dqn learn step on the card and on the CPU from the same ring
+    (4 096 random transitions), params and uniforms: q_loss and mean Q 1e-5
+    relative, online and target params 1e-5 absolute, the ring's priorities
+    1e-6 relative (1e-6 floor). Prioritized: one epoch, from non-dyadic
+    priorities set alike on both rings first (a second epoch would draw from
+    priorities that the card's and the CPU's float32 sums part by an ulp)."""
+    label = f"ff_dqn_{mode}"
+    system, overrides, gae, generic = SEBULBA_PATHS[label]
+    if mode == "prioritized":
+        SEBULBA_PATHS[label] = (system, [*overrides, "system.epochs=1"], gae, generic)
+    try:
+        _, card, probe = _sebulba_learner(label, "cuda")
+        config, cpu, _ = _sebulba_learner(label, "cpu")
+    finally:
+        SEBULBA_PATHS[label] = (system, overrides, gae, generic)
+    for setup in (card, cpu):
+        _fill_dqn_ring(setup.service, probe, 4096, 7)
+    if mode == "prioritized":
+        gen = torch.Generator().manual_seed(8)
+        idx = torch.arange(4096, dtype=torch.int32)
+        values = torch.rand((4096,), generator=gen) * 2.0
+        for setup in (card, cpu):
+            device = setup.service.devices[0]
+            setup.service.set_priorities([idx.to(device)], [values.to(device)])
+    uniforms = [torch.rand((int(config.system.total_batch_size),),
+                           generator=torch.Generator().manual_seed(9 + e))
+                for e in range(int(config.system.epochs))]
+    got_state, got_replay, got = card.learn_step(card.state, card.service.state,
+                                                 uniforms=[u.cuda() for u in uniforms])
+    want_state, want_replay, want = cpu.learn_step(cpu.state, cpu.service.state,
+                                                   uniforms=uniforms)
+    losses = {k: ((got[k].cpu() - want[k]).abs(), want[k].abs()) for k in ("q_loss", "mean_q")}
+    within = all(bool((d <= 1e-5 * w + 1e-6).all()) for d, w in losses.values())
+    param_err = _max_err(got_state.params, want_state.params)
+    prio_diff = (got_replay[0].priorities.cpu() - want_replay[0].priorities).abs()
+    prio_ok = bool((prio_diff <= 1e-6 * want_replay[0].priorities.abs() + 1e-6).all())
+    out = {"epochs": int(config.system.epochs),
+           "loss_relative_err": {k: float((d / w.clamp_min(1e-30)).max())
+                                 for k, (d, w) in losses.items()},
+           "params_abs_err": param_err, "priorities_abs_err": float(prio_diff.max())}
+    if not (within and param_err <= 1e-5 and prio_ok):
+        raise AssertionError(f"ff_dqn's {mode} learn step on the card is not the CPU's: {out}")
+    return out
+
+
+def phase_sebulba_offpolicy_parity(smi: str) -> None:
+    """TF32 off. One ff_dqn learn step (uniform and prioritized) and one
+    IMPACT learn step (from the same batch, permutations and target params)
+    on the card against the CPU, losses 1e-5 relative with a 1e-6 floor,
+    params 1e-5 absolute; the IMPACT step's one B1 GAE launch, and B1's GAE
+    entry bitwise against its plain version on that step's inputs."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on; the card-against-CPU bars assume float32 products")
+    start = time.perf_counter()
+    record = {"phase": "sebulba_offpolicy_parity", "card": smi}
+    for mode in ("uniform", "prioritized"):
+        record[f"ff_dqn_{mode}"] = _dqn_step_on_card_and_cpu(mode)
+    record["ff_ppo_impact"] = _impact_step_on_card_and_cpu()
+    record["seconds"] = time.perf_counter() - start
+    emit(record)
+
+
+def _impact_step_on_card_and_cpu() -> dict:
+    """One IMPACT learn step at the tracked shape ([64, 512], 4 x 4
+    minibatches) on the card and on the CPU from the same batch,
+    permutations and target params (the params after one update): losses
+    1e-5 relative (1e-6 floor), params 1e-5 absolute; exactly one B1 GAE
+    launch, and B1's GAE entry bitwise against its plain version on the
+    step's inputs."""
+    config, card, probe = _sebulba_learner("ff_ppo_impact", "cuda")
+    _, cpu, _ = _sebulba_learner("ff_ppo_impact", "cpu")
+    t_len, num_envs = int(config.system.rollout_length), int(config.arch.total_num_envs)
+    batch = _sebulba_batch(probe, t_len, num_envs, "cpu", 11)
+    gen = torch.Generator().manual_seed(12)
+    permutations = [torch.randperm(t_len * num_envs, generator=gen)
+                    for _ in range(int(config.system.epochs))]
+    # The target: the params after one plain update, so that it differs from
+    # the online params and the behaviour log-probs.
+    target_state, _ = cpu.learn_step(cpu.state, cpu.state.params, [batch],
+                                     permutations=permutations)
+    target = target_state.params
+    counters = _kernel_counters()
+    for counter in counters:
+        counter.launches = 0
+    got_state, got = card.learn_step(card.state, tree_map(lambda x: x.cuda(), target),
+                                     [tree_map(lambda x: x.cuda(), batch)],
+                                     permutations=permutations)
+    launches = _counts(counters)
+    want_state, want = cpu.learn_step(cpu.state, target, [batch], permutations=permutations)
+    expected = {c.name: 0 for c in counters}
+    expected[linear_recurrence.GAE_KERNEL.name] = 1
+    diffs = {k: ((got[k].cpu() - want[k]).abs(), want[k].abs())
+             for k in ("actor_loss", "value_loss", "entropy")}
+    param_err = _max_err(got_state.params, want_state.params)
+    impact = {"shape": [t_len, num_envs], "kernel_launches": launches,
+              "loss_relative_err": {k: float((d / w.clamp_min(1e-30)).max())
+                                    for k, (d, w) in diffs.items()},
+              "params_abs_err": param_err}
+    if launches != expected or not (all(bool((d <= 1e-5 * w + 1e-6).all())
+                                        for d, w in diffs.values()) and param_err <= 1e-5):
+        raise AssertionError(f"IMPACT's learn step on the card is not the CPU's: {impact}")
+    # B1 on this step's GAE inputs (the card's bootstrap values).
+    shard = tree_map(lambda x: x.cuda(), batch)
+    with torch.no_grad():
+        v_t = card.learn_step.critic_apply(card.state.params.critic_params, shard.next_obs)
+    lr = linear_recurrence
+    args = (shard.reward, 0.99 * (1.0 - shard.done.float()), shard.value, v_t,
+            shard.truncated.float())
+    got_gae = lr.truncated_gae(*args, float(config.system.gae_lambda))
+    want_gae = lr.plain_truncated_gae(*args, float(config.system.gae_lambda))
+    impact["b1_gae_bitwise"] = all(torch.equal(a, b) for a, b in zip(got_gae, want_gae))
+    if not impact["b1_gae_bitwise"]:
+        raise AssertionError("B1's GAE entry on the IMPACT step's inputs is not its plain version")
+    return impact
+
+
 def phase_sebulba_learn(oracle: str) -> None:
     """SEBULBA_ORACLES[oracle] learns IdentityGame above SEBULBA_THRESHOLD on
     the card, with no actor crash."""
@@ -4254,7 +4644,7 @@ def phase_sebulba_learn(oracle: str) -> None:
     start = time.perf_counter()
     final_return = module.run_experiment(compose(overrides, SEBULBA_ROOTS[system]),
                                          device="cuda")
-    stats = _sebulba_module("ff_ppo").LAST_RUN_STATS
+    stats = _sebulba_stats(system)
     if not final_return > SEBULBA_THRESHOLD or stats["resilience"]["actor_crashes"]:
         raise AssertionError(f"Sebulba {system} returned {final_return} on IdentityGame "
                              f"(threshold {SEBULBA_THRESHOLD}), {stats['resilience']}")
@@ -4300,8 +4690,9 @@ LEARN_PHASES = {
     **{f"{oracle}_learn": partial(phase_sebulba_learn, oracle) for oracle in SEBULBA_ORACLES},
 }
 # The oracles share the card and the host's cores: one worker a core with
-# two left over, between four and six (six on an 8-core host).
-LEARN_WORKERS = max(4, min(6, (os.cpu_count() or 8) - 2))
+# one left over for this process (which only waits on them), between four
+# and seven (seven on an 8-core host: the pool was the run's longest phase).
+LEARN_WORKERS = max(4, min(7, (os.cpu_count() or 8) - 1))
 LEARN_TIMEOUT_S = 480
 
 
@@ -4447,6 +4838,14 @@ def main() -> None:
     for entry in (recurrence, gae, *attention, chunk, *wide):
         entry["launches_sebulba"] = {label: counts[entry["name"]]
                                      for label, counts in sebulba.items()}
+    # A16 and A15b: Sebulba's off-policy half. The replay service and ff_dqn
+    # launch no kernel; IMPACT one GAE launch an update.
+    offpolicy = {"sebulba_replay": phase_sebulba_replay(smi), **phase_sebulba_dqn_train(smi),
+                 **phase_sebulba_impact_train(smi)}
+    phase_sebulba_offpolicy_parity(smi)
+    for entry in (recurrence, gae, *attention, chunk, *wide):
+        entry["launches_sebulba_offpolicy"] = {label: counts[entry["name"]]
+                                               for label, counts in offpolicy.items()}
     gae["launches_data_parallel"] = {"a_one_rank_ff_ppo": data_parallel["a_ff_ppo"],
                                      "b_per_rank": data_parallel["b_per_rank"]}
     recurrence["launches_data_parallel"] = {"a_one_rank_ff_pqn": data_parallel["a_ff_pqn"]}

@@ -8,7 +8,7 @@ phases, computed from the JAX package on the CPU:
     JAX_PLATFORMS=cpu python scripts/jax_oracle_thresholds.py [--seeds 42 1 2]
         [--oracles pendulum rec rainbow r2d2 sac reinforce awr mpo vmpo az mz spo disco
                    catch snake spo_continuous mpo_continuous vmpo_continuous
-                   sebulba_ppo sebulba_impala]
+                   sebulba_ppo sebulba_impala sebulba_dqn sebulba_impact]
 
 - Pendulum: the mean return of uniform random actions over 4096 episodes of
   the JAX package's Pendulum-v1 (`jax.random` key 0), and the JAX package's
@@ -267,7 +267,7 @@ def main() -> None:
                         f"{name}_threshold": (random_return + runs[0]["final_return"]) / 2})
     for name, (system, overrides) in chip_smoke.SEBULBA_ORACLES.items():
         if name in args.oracles:
-            package = "ppo" if system == "ff_ppo" else "impala"
+            package = {"ff_ppo": "ppo", "ff_dqn": "q_learning"}.get(system, "impala")
             runs = [final_return(f"stoix_tpu.systems.{package}.sebulba.{system}",
                                  chip_smoke.SEBULBA_ROOTS[system], overrides, seed)
                     for seed in args.seeds]

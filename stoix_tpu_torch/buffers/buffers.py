@@ -371,9 +371,7 @@ def make_prioritised_trajectory_buffer(
         from run to run, with no host synchronisation."""
         flat = indices[:, 0] * num_slots + indices[:, 1]
         values = torch.pow(torch.abs(priorities) + 1e-6, priority_exponent)
-        sorted_flat, order = torch.sort(flat, stable=True)
-        last = torch.searchsorted(sorted_flat, flat, right=True) - 1
-        state.priorities.view(-1).index_put_((flat,), values[order][last])
+        set_last_of_duplicates(state.priorities.view(-1), flat, values)
         return state
 
     def can_sample(state: PrioritisedTrajectoryBufferState) -> bool:
@@ -381,6 +379,20 @@ def make_prioritised_trajectory_buffer(
 
     return PrioritisedTrajectoryBuffer(init, add, sample, set_priorities, can_sample,
                                        sample_from_uniforms)
+
+
+def set_last_of_duplicates(table: torch.Tensor, index: torch.Tensor,
+                           values: torch.Tensor) -> torch.Tensor:
+    """`table[index] = values` in place, the LAST occurrence winning where an
+    index repeats, as JAX's `.at[].set` on the CPU. A scatter with duplicate
+    indices has no defined winner on the card, so every duplicate first
+    takes the value of the last occurrence of its index (a stable sort of
+    the indices; the end of each run of equal ones found by a right-sided
+    search): any winner then writes the same bits, on any device, with no
+    host synchronisation."""
+    sorted_index, order = torch.sort(index, stable=True)
+    last = torch.searchsorted(sorted_index, index, right=True) - 1
+    return table.index_put_((index,), values[order][last])
 
 
 def duplicate_indices(indices: torch.Tensor) -> int:

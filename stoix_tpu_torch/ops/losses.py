@@ -1,6 +1,6 @@
 """RL losses (counterpart of stoix_tpu/ops/losses.py): the PPO losses
-(`_safe_ratio`, `ppo_clip_loss`, `ppo_penalty_loss`, `dpo_loss`,
-`clipped_value_loss`) and the value-based
+(`_safe_ratio`, `ppo_clip_loss`, IMPACT's `impact_loss`, `ppo_penalty_loss`,
+`dpo_loss`, `clipped_value_loss`) and the value-based
 family's (`huber_loss`, `q_learning`, `double_q_learning`,
 `munchausen_q_learning`, `categorical_l2_project`,
 `categorical_double_q_learning`, `quantile_regression_loss`,
@@ -33,6 +33,28 @@ def ppo_clip_loss(
     ratio = _safe_ratio(log_prob, old_log_prob)
     unclipped = ratio * advantage
     clipped = torch.clamp(ratio, 1.0 - epsilon, 1.0 + epsilon) * advantage
+    return -torch.mean(torch.minimum(unclipped, clipped))
+
+
+def impact_loss(
+    log_prob: torch.Tensor, behavior_log_prob: torch.Tensor, target_log_prob: torch.Tensor,
+    advantage: torch.Tensor, epsilon: float, rho_clip: float,
+) -> torch.Tensor:
+    """IMPACT surrogate (Luo et al. 2019, arXiv:1912.00167): PPO's clipped
+    objective taken against a slow-moving TARGET policy, importance-weighted
+    from the BEHAVIOR policy that collected the (possibly stale) trajectory:
+
+        rho  = min(exp(log pi_target - log pi_behavior), rho_clip)
+        r    = exp(log pi_theta - log pi_target)
+        L    = -E[ min(rho * r * A, rho * clip(r, 1-eps, 1+eps) * A) ]
+
+    Neither policy in `rho` is the online one, so it carries no gradient.
+    Where target and behavior coincide (rho_clip >= 1) rho is exactly 1.0
+    and the loss is `ppo_clip_loss`'s, bitwise."""
+    ratio = _safe_ratio(log_prob, target_log_prob)
+    is_ratio = torch.clamp(_safe_ratio(target_log_prob, behavior_log_prob), max=rho_clip)
+    unclipped = is_ratio * ratio * advantage
+    clipped = is_ratio * torch.clamp(ratio, 1.0 - epsilon, 1.0 + epsilon) * advantage
     return -torch.mean(torch.minimum(unclipped, clipped))
 
 

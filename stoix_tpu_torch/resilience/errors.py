@@ -3,7 +3,8 @@
 `ConfigValidationError` (`parallel/distributed.py` raises it for a
 half-configured multi-process launch), `DivergenceError` (the update
 guard's `halt`, resilience/guards.py), and Sebulba's `ComponentFailure` and
-`EvaluatorStallError` (sebulba/core.py, resilience/supervisor.py). This
+`EvaluatorStallError` (sebulba/core.py, resilience/supervisor.py), and
+`InjectedFault` (resilience/faultinject.py). This
 module imports nothing from the rest of the package.
 """
 
@@ -71,3 +72,9 @@ class EvaluatorStallError(RuntimeError):
         super().__init__(
             f"async evaluator still busy after {timeout:.0f}s ({pending} request(s) "
             f"queued; {age}) — shutdown would drop in-flight evaluation work")
+
+
+class InjectedFault(RuntimeError):
+    """Raised by the fault-injection harness (resilience/faultinject.py) at an
+    armed injection point. Distinct from real failures so supervision tests
+    can assert the recovery path fired on THIS fault and not a genuine bug."""

@@ -25,7 +25,9 @@ replica, so the host sum counts each skipped update once; the window's
 metrics are averaged over the ranks, so the host half decides alike on each.
 
 The JAX guard's fault-injection half (`nan_loss:N` through `arch.fault_spec`)
-is not ported; the runner refuses `arch.fault_spec`.
+waits for the Anakin faults (ROADMAP A19): the Anakin runner refuses
+`arch.fault_spec`, and the Sebulba runners take only `actor_crash` and
+`queue_stall` (resilience/faultinject.py).
 """
 
 from __future__ import annotations

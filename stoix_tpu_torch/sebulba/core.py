@@ -1,10 +1,13 @@
-"""Sebulba host-side plumbing (counterpart of stoix_tpu/sebulba/core.py's
-on-policy half): threads and bounded queues between the actor devices and
-the learner devices.
+"""Sebulba host-side plumbing (counterpart of stoix_tpu/sebulba/core.py):
+threads and bounded queues between the actor devices and the learner
+devices.
 
   - ThreadLifetime: the cooperative stop signal;
   - OnPolicyPipeline: one queue.Queue(maxsize=1) per actor; the learner
     collects from ALL actors each update (backpressure by construction);
+  - OffPolicyPipeline: one bounded queue of (actor_id, payload) pairs that
+    every actor pushes to; the learner polls whatever has arrived and never
+    waits on a particular actor (Sebulba ff_dqn and IMPACT);
   - ParameterServer: pushes each new version of the learner's params to
     every actor queue, placed ONCE per device (`.to(device)`); `None` is the
     shutdown sentinel, and `reprime` re-feeds a restarted actor;
@@ -26,7 +29,6 @@ tensors (utils/training.py's ClipAdam and `apply_updates`, the guard's
 (`tests/test_torch_sebulba_core.py`). Every thread launches on the device's
 default stream, so work is ordered by issue: no side stream is used.
 
-IMPACT's OffPolicyPipeline waits for A15's second part (ROADMAP).
 """
 
 from __future__ import annotations
@@ -167,6 +169,114 @@ class OnPolicyPipeline:
             except queue.Empty:
                 break
         return drained
+
+
+class OffPolicyPipeline:
+    """Off-policy ingestion: actors PUSH payloads whenever a rollout chunk is
+    ready; the learner POLLS whatever has arrived and samples its replay
+    (or re-steps a buffered batch) independently, so one slow or restarting
+    actor never stalls it.
+
+    One bounded queue carries (actor_id, payload) pairs from every actor: a
+    full queue back-pressures the producers (their put blocks), an empty
+    one never blocks the learner past the timeout it chose. The supervisor
+    injects a typed ComponentFailure poison-pill for an unrecoverable actor,
+    and the learner raises it on its next poll."""
+
+    def __init__(self, num_actors: int, depth_per_actor: int = 2):
+        self.num_actors = num_actors
+        self._queue: queue.Queue = queue.Queue(maxsize=max(1, num_actors * depth_per_actor))
+        self.heartbeats = HeartbeatBoard()
+        self._depth, self._put_wait, self._get_wait = _queue_instruments()
+        self._failures: Dict[int, ComponentFailure] = {}
+        self._failure_lock = threading.Lock()
+
+    def _check_failures(self) -> None:
+        with self._failure_lock:
+            for failure in self._failures.values():
+                raise failure
+
+    def fail(self, actor_id: int, failure: ComponentFailure) -> None:
+        """Poison-pill injection (the supervisor's path): record the failure
+        and wake a learner blocked in wait_for_data. A full queue drops one
+        healthy payload to make room (the learner consults the failures
+        before blocking, so a lost put is never a lost failure)."""
+        with self._failure_lock:
+            self._failures[actor_id] = failure
+        try:
+            self._queue.put_nowait(failure)
+        except queue.Full:
+            try:
+                self._queue.get_nowait()
+                self._queue.put_nowait(failure)
+            except (queue.Empty, queue.Full):
+                pass
+
+    def push(self, actor_id: int, payload: Any, timeout: Optional[float] = None) -> None:
+        labels = {"queue": "transitions", "actor": str(actor_id)}
+        start = time.perf_counter()
+        try:
+            with span("offpolicy_push", actor=actor_id):
+                self._queue.put((actor_id, payload), timeout=timeout)
+        finally:
+            # A queue.Full timeout is the worst backpressure sample there is.
+            self._put_wait.observe(time.perf_counter() - start, labels)
+            self._depth.set(self._queue.qsize(), labels)
+        self.heartbeats.beat(f"actor-{actor_id}")
+
+    def poll(self, max_items: int = 64, timeout: float = 0.0) -> List[Any]:
+        """Up to `max_items` pending (actor_id, payload) pairs. Only the
+        first get may block (up to `timeout`); the rest do not. Raises the
+        typed ComponentFailure of an actor that is gone for good."""
+        self._check_failures()
+        labels = {"queue": "transitions", "actor": "learner"}
+        items: List[Any] = []
+        start = time.perf_counter()
+        with span("offpolicy_poll"):
+            while len(items) < max_items:
+                try:
+                    got = self._queue.get(timeout=timeout if not items else 0.0)
+                except queue.Empty:
+                    break
+                if isinstance(got, ComponentFailure):
+                    raise got
+                items.append(got)
+        if items:
+            self._get_wait.observe(time.perf_counter() - start, labels)
+            self._depth.set(self._queue.qsize(), labels)
+            self.heartbeats.beat("learner")
+        return items
+
+    def wait_for_data(self, timeout: float = COLLECT_TIMEOUT_S) -> List[Any]:
+        """Block until at least one payload arrives. A timeout raises
+        ActorStarvationError naming the stalest actor (one that never beat
+        first, else the oldest heartbeat) and its heartbeat's age."""
+        detector = StallDetector(self.heartbeats, stale_after_s=max(1.0, timeout / 4))
+        items = self.poll(timeout=timeout)
+        if not items:
+            stalest, stalest_age = 0, -1.0
+            for actor_id in range(self.num_actors):
+                actor_age = self.heartbeats.age(f"actor-{actor_id}")
+                if actor_age is None:
+                    stalest, stalest_age = actor_id, None
+                    break
+                if stalest_age is not None and actor_age > stalest_age:
+                    stalest, stalest_age = actor_id, actor_age
+            raise ActorStarvationError(stalest, timeout,
+                                       detector.diagnose(waiting_on=f"actor-{stalest}"),
+                                       stalest_age)
+        return items
+
+    def drain(self, timeout: float = 0.5) -> int:
+        """Shutdown's drain: unblock producers stuck in put(), recording no
+        wait, depth or heartbeat. Returns the items drained."""
+        drained = 0
+        while True:
+            try:
+                self._queue.get(timeout=timeout)
+                drained += 1
+            except queue.Empty:
+                return drained
 
 
 class VersionedParams(NamedTuple):

@@ -47,7 +47,7 @@ import torch
 from stoix_tpu_torch import envs
 from stoix_tpu_torch.base_types import ExperimentOutput, OffPolicyLearnerState, Transition
 from stoix_tpu_torch.buffers import (
-    ItemBuffer, PrioritisedTrajectoryBuffer, TrajectoryBuffer, make_item_buffer,
+    PrioritisedTrajectoryBuffer, TrajectoryBuffer, make_item_buffer,
 )
 from stoix_tpu_torch.systems import anakin
 from stoix_tpu_torch.utils.tree import tree_leaves, tree_map, tree_merge_leading_dims, tree_stack
@@ -99,23 +99,51 @@ def dummy_transition(env: envs.Environment, discrete_actions: bool = False,
 
 
 def build_buffer(env: envs.Environment, config: Any, device: Any,
-                 discrete_actions: bool = False) -> Tuple[ItemBuffer, Any]:
-    """The per-replica item buffer of `system.replay.impl: local` and one
-    replica's initial state: the global buffer and batch sizes divided over
-    the N data ranks and U replicas, as the JAX package divides them over
-    shards and replicas (stoix_tpu/systems/off_policy_core.py:67-71).
-    `sharded` (the cross-shard replay service) is not ported."""
-    shards = anakin.data_rank_and_size()[1] * int(config.arch.get("update_batch_size", 1))
+                 discrete_actions: bool = False) -> Tuple[Any, Any]:
+    """The per-replica item buffer and one replica's initial state: the
+    global buffer and batch sizes divided over the N data ranks and U
+    replicas, as the JAX package divides them over shards and replicas
+    (stoix_tpu/systems/off_policy_core.py:67-105). `system.replay.impl`:
+
+      local    (default) each replica samples its own ring uniformly;
+      sharded  the facade over the sharded core (replay/compat.py): the
+               same interface, each rank one shard of a ring of
+               `buffer_size` a replica, a batch of `batch_size x N` drawn
+               GLOBALLY (rank 0's uniforms on every rank), each rank taking
+               its `batch_size`; sampling waits for
+               `max(batch_size x N, replay.min_fill)` items over the ranks.
+               `replay.prioritized` is refused, with the JAX message."""
+    n_shards = anakin.data_rank_and_size()[1]
+    shards = n_shards * int(config.arch.get("update_batch_size", 1))
     buffer_size = max(1, int(config.system.total_buffer_size) // shards)
     batch_size = max(1, int(config.system.total_batch_size) // shards)
-    impl = str(dict(config.system.get("replay") or {}).get("impl", "local"))
-    if impl == "sharded":
-        raise NotImplementedError("not ported: system.replay.impl=sharded (the sharded replay "
-                                  "service); use system.replay.impl=local")
-    if impl != "local":
+    replay_cfg = dict(config.system.get("replay") or {})
+    impl = str(replay_cfg.get("impl", "local"))
+    if impl == "local":
+        buffer = make_item_buffer(max_length=buffer_size, min_length=batch_size,
+                                  sample_batch_size=batch_size)
+    elif impl == "sharded":
+        from stoix_tpu_torch.replay.compat import make_sharded_item_buffer
+
+        if bool(replay_cfg.get("prioritized", False)):
+            # The item buffer's interface has no set_priorities seam: the
+            # priorities would freeze at the insert value and the draw stay
+            # uniform, so the knob is refused rather than silently ignored.
+            raise ValueError(
+                "system.replay.prioritized=true is not supported on the "
+                "Anakin item-buffer path (no set_priorities seam in the "
+                "ItemBuffer interface); use the Sebulba off-policy path "
+                "(systems/q_learning/sebulba/ff_dqn.py) for distributed "
+                "prioritized replay")
+        min_fill = replay_cfg.get("min_fill")
+        buffer = make_sharded_item_buffer(
+            capacity_per_shard=buffer_size, sample_batch_size=batch_size * n_shards,
+            num_shards=n_shards,
+            min_fill=max(batch_size * n_shards,
+                         int(batch_size * n_shards if min_fill in (None, "~") else min_fill)),
+            group=anakin.data_group())
+    else:
         raise ValueError(f"system.replay.impl must be 'local' or 'sharded', got {impl!r}")
-    buffer = make_item_buffer(max_length=buffer_size, min_length=batch_size,
-                              sample_batch_size=batch_size)
     return buffer, buffer.init(dummy_transition(env, discrete_actions, device))
 
 

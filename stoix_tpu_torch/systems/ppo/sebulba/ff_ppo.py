@@ -1,5 +1,5 @@
-"""Sebulba PPO (counterpart of stoix_tpu/systems/ppo/sebulba/ff_ppo.py on its
-on-policy path), and the Sebulba runner that Sebulba IMPALA shares.
+"""Sebulba PPO and IMPACT (counterpart of stoix_tpu/systems/ppo/sebulba/ff_ppo.py),
+and the Sebulba runner that Sebulba IMPALA shares.
 
 Actor/learner disaggregation for stateful envs: actor THREADS run inference
 on their actor devices and step stateful env batches (the native C++ pool,
@@ -49,20 +49,40 @@ logs a failed evaluation and carries on, as in the JAX package: the counters
 `stoix_tpu_resilience_actor_restarts_total` and
 `stoix_tpu_sebulba_evaluator_errors_total` record both.
 
-Refused by name: IMPACT (`system.impact.enabled`), the gymnasium and
-envpool backends, `system.replay.impl: sharded`, the fleet, integrity,
-preflight and fault-injection layers, and (ROADMAP C24) the knobs this
-learner never reads: `system.fused_update` and `system.clip_value`.
+IMPACT (`system.impact.enabled`, arXiv:1912.00167): actors fetch their
+params WITH the version (`get_params_versioned`) and push `(version,
+payload)` through an OffPolicyPipeline; `ImpactIngest` hands the learner a
+full set of fresh payloads when one is there, else re-steps the newest
+buffered batch within `max_staleness` and `max_reuse`, and blocks only when
+there is neither. The learn step (`ImpactLearnStep`) is PPO's with a third
+input, the target params (refreshed on the host every
+`target_update_interval` updates), and `losses.impact_loss` as the actor
+loss, the target's log-probs taken with no gradient; GAE runs on every
+update, fresh or reused (one B1 GAE launch), and the gradients are summed
+over the shards as above. `LAST_RUN_STATS["impact"]` counts the fresh and
+reused updates, the staleness and the target refreshes.
+
+Fault injection (resilience/faultinject.py): `arch.fault_spec` or
+`STOIX_TPU_FAULT` may arm `actor_crash:N` and `queue_stall:N` (actor 0, at
+the top of rollout N); any other fault is refused naming it.
+
+Refused by name: the gymnasium and envpool backends, the fleet, integrity
+and preflight layers, and (ROADMAP C24) the knobs these learners never
+read: `system.replay.impl: sharded` (the JAX Sebulba PPO and IMPALA never
+read `system.replay`), and on PPO `system.fused_update` and
+`system.clip_value`.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import logging
 import queue
 import sys
 import threading
 import time
+from functools import partial
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -75,13 +95,14 @@ from stoix_tpu_torch.observability import RunStats, annotate, get_registry, span
 from stoix_tpu_torch.ops import losses, running_statistics, scan_kernels
 from stoix_tpu_torch.ops import truncated_generalized_advantage_estimation
 from stoix_tpu_torch.parallel.roles import MeshRoles
-from stoix_tpu_torch.resilience import guards
+from stoix_tpu_torch.resilience import faultinject, guards
 from stoix_tpu_torch.resilience.errors import EvaluatorStallError
 from stoix_tpu_torch.resilience.supervisor import supervisor_from_config
 from stoix_tpu_torch.sebulba.core import (
     EVALUATOR_ERRORS,
     PUT_TIMEOUT_S,
     AsyncEvaluator,
+    OffPolicyPipeline,
     OnPolicyPipeline,
     ParameterServer,
     ThreadLifetime,
@@ -250,7 +271,15 @@ class PPOLearnStep:
                 advantages = [standardize(a) for a in advantages]
         return shards, obs_stats, advantages, targets
 
-    def shard_gradients(self, params: ActorCriticParams, batch: Tuple) -> Tuple:
+    def policy_loss(self, policy: Any, obs: Any, action: torch.Tensor,
+                    old_log_prob: torch.Tensor, advantages: torch.Tensor,
+                    target: Optional[ActorCriticParams]) -> torch.Tensor:
+        """The clipped surrogate (`target`, IMPACT's, is unused here)."""
+        return losses.ppo_clip_loss(policy.log_prob(action), old_log_prob, advantages,
+                                    self.clip_eps)
+
+    def shard_gradients(self, params: ActorCriticParams, batch: Tuple,
+                        target: Optional[ActorCriticParams] = None) -> Tuple:
         """One shard's actor and critic gradients on one minibatch, two
         backward passes, and its (guard loss, actor loss, value loss,
         entropy)."""
@@ -258,8 +287,7 @@ class PPOLearnStep:
         with torch.enable_grad():
             actor_params = _leaf_copies(params.actor_params)
             policy = self.actor_apply(actor_params, obs)
-            loss_actor = losses.ppo_clip_loss(policy.log_prob(action), old_log_prob, advantages,
-                                              self.clip_eps)
+            loss_actor = self.policy_loss(policy, obs, action, old_log_prob, advantages, target)
             entropy = policy.entropy().mean()
             actor_total = loss_actor - self.ent_coef * entropy
             actor_grads = dict(zip(actor_params, torch.autograd.grad(
@@ -276,11 +304,12 @@ class PPOLearnStep:
 
     @annotate("ppo_minibatch")
     def minibatch(self, params: ActorCriticParams, opt_states: ActorCriticOptStates,
-                  batches: Sequence[Tuple]):
+                  batches: Sequence[Tuple], target: Optional[ActorCriticParams] = None):
         """Every shard's gradients on its minibatch, summed over the shards
         (ROADMAP C25), then one clip + Adam step and the guard."""
         home = self.devices[0]
-        per_shard = [self.shard_gradients(place(params, d), batch)
+        per_shard = [self.shard_gradients(place(params, d), batch,
+                                          None if target is None else place(target, d))
                      for batch, d in zip(batches, self.devices)]
         actor_grads = shard_sum([g[0] for g in per_shard], home)
         critic_grads = shard_sum([g[1] for g in per_shard], home)
@@ -301,6 +330,11 @@ class PPOLearnStep:
 
     def __call__(self, state: CoreLearnerState, shards: Sequence[PPOTransition],
                  permutations: Optional[Sequence[torch.Tensor]] = None):
+        return self.run(state, shards, permutations)
+
+    def run(self, state: CoreLearnerState, shards: Sequence[PPOTransition],
+            permutations: Optional[Sequence[torch.Tensor]] = None,
+            target: Optional[ActorCriticParams] = None):
         shards, obs_stats, advantages, targets = self.prepare(state, shards)
         flat = [tree_merge_leading_dims((s.obs, s.action, s.log_prob, s.value, a, g), 2)
                 for s, a, g in zip(shards, advantages, targets)]
@@ -319,7 +353,8 @@ class PPOLearnStep:
             per_minibatch = []
             for i in range(self.num_minibatches):
                 params, opt_states, metrics = self.minibatch(
-                    params, opt_states, [tree_map(lambda x: x[i], mb) for mb in minibatches])
+                    params, opt_states, [tree_map(lambda x: x[i], mb) for mb in minibatches],
+                    target)
                 per_minibatch.append(metrics)
             per_epoch.append(tree_stack(per_minibatch))
         return (CoreLearnerState(params, opt_states, state.generator, obs_stats),
@@ -328,6 +363,150 @@ class PPOLearnStep:
 
 def get_learn_step(actor_apply, critic_apply, optims, config, learner_devices) -> PPOLearnStep:
     return PPOLearnStep(actor_apply, critic_apply, optims, config, learner_devices)
+
+
+class ImpactLearnStep(PPOLearnStep):
+    """`step(state, target_params, shards, permutations=None)`: the IMPACT
+    update (the JAX package's `get_impact_learn_step`): PPO's learn step
+    with the target params as a third input and `losses.impact_loss`, taken
+    against the target policy and weighted by the clipped target/behaviour
+    ratio, as the actor loss. `log_prob` in the batch is the BEHAVIOUR
+    log-prob of whichever version collected it, which is what makes
+    re-stepping a buffered batch sound."""
+
+    def __init__(self, actor_apply: Callable, critic_apply: Callable, optims: Tuple[Any, Any],
+                 config: Any, learner_devices: Sequence[torch.device], rho_clip: float):
+        super().__init__(actor_apply, critic_apply, optims, config, learner_devices)
+        self.rho_clip = float(rho_clip)
+
+    def policy_loss(self, policy, obs, action, behavior_log_prob, advantages, target):
+        # The target policy's log-probs on the same (normalised) obs, with no
+        # gradient into them.
+        with torch.no_grad():
+            target_log_prob = self.actor_apply(target.actor_params, obs).log_prob(action)
+        return losses.impact_loss(policy.log_prob(action), behavior_log_prob, target_log_prob,
+                                  advantages, self.clip_eps, self.rho_clip)
+
+    def __call__(self, state: CoreLearnerState, target_params: ActorCriticParams,
+                 shards: Sequence[PPOTransition],
+                 permutations: Optional[Sequence[torch.Tensor]] = None):
+        return self.run(state, shards, permutations, target=target_params)
+
+
+def get_impact_learn_step(actor_apply, critic_apply, optims, config, learner_devices,
+                          rho_clip: float) -> ImpactLearnStep:
+    return ImpactLearnStep(actor_apply, critic_apply, optims, config, learner_devices, rho_clip)
+
+
+# ---------------------------------------------------------------- IMPACT scheduling
+
+
+class ImpactSettings(NamedTuple):
+    """Validated `system.impact` knobs (IMPACT stale-trajectory reuse)."""
+
+    target_update_interval: int
+    rho_clip: float
+    max_staleness: int
+    max_reuse: int
+    buffer_size: int
+
+
+def impact_settings_from_config(config: Any) -> Optional[ImpactSettings]:
+    """None unless `system.impact.enabled`; the JAX package's three
+    ValueErrors for settings out of range."""
+    raw = dict(config.system.get("impact") or {})
+    if not bool(raw.get("enabled", False)):
+        return None
+    settings = ImpactSettings(
+        target_update_interval=int(raw.get("target_update_interval", 4)),
+        rho_clip=float(raw.get("rho_clip", 2.0)),
+        max_staleness=int(raw.get("max_staleness", 4)),
+        max_reuse=int(raw.get("max_reuse", 2)),
+        buffer_size=int(raw.get("buffer_size", 4)),
+    )
+    if settings.target_update_interval < 1:
+        raise ValueError("system.impact.target_update_interval must be >= 1 "
+                         f"(got {settings.target_update_interval})")
+    if settings.rho_clip < 1.0:
+        raise ValueError("system.impact.rho_clip must be >= 1.0 — clipping the IS ratio "
+                         f"below 1 would down-weight FRESH data (got {settings.rho_clip})")
+    if settings.max_staleness < 1 or settings.max_reuse < 0 or settings.buffer_size < 1:
+        raise ValueError("system.impact: max_staleness/buffer_size must be >= 1 and "
+                         f"max_reuse >= 0 (got {settings})")
+    return settings
+
+
+class ImpactBatch(NamedTuple):
+    """One learner step's worth of data on the IMPACT path."""
+
+    batch: Any  # the assembled batch: one [T, E/n] shard a learner device
+    behavior_version: int  # the oldest param version that collected it
+    fresh: bool  # False when re-stepping a buffered batch
+
+
+class ImpactIngest:
+    """Fresh/stale scheduling for the IMPACT learner. It prefers a FULL set
+    of fresh payloads (`need` of them, from any mix of actors: their shapes
+    are the same); when fresh data is late it re-steps the newest buffered
+    batch instead of blocking; only with nothing to re-step does it block in
+    wait_for_data. A buffered batch retires once its reuse budget is spent,
+    and the buffer is dropped once its newest entry lags the learner by more
+    than `max_staleness` versions."""
+
+    def __init__(self, pipeline: Any, need: int, settings: ImpactSettings):
+        self._pipeline = pipeline
+        self._need = need
+        self._settings = settings
+        self._pending: List[Any] = []  # (behavior_version, payload), oldest first
+        # [behavior_version, batch, reuse_left]; an append past capacity
+        # retires the oldest (stalest) entry.
+        self._buffer: collections.deque = collections.deque(maxlen=settings.buffer_size)
+        registry = get_registry()
+        self._reused = registry.counter(
+            "stoix_tpu_impact_reused_batches_total",
+            "Learner updates that re-stepped a buffered stale batch because fresh "
+            "rollouts were late")
+        self._dropped = registry.counter(
+            "stoix_tpu_impact_dropped_batches_total",
+            "Buffered batches retired for exceeding system.impact.max_staleness")
+
+    def _ingest(self, items: List[Any]) -> None:
+        for _actor_id, (version, payload) in items:
+            self._pending.append((version, payload))
+
+    def _pop_reusable(self, current_version: int) -> Optional[ImpactBatch]:
+        while self._buffer:
+            # Newest first: if IT is too stale, everything behind it is too.
+            version, batch, reuse_left = self._buffer[-1]
+            if current_version - version > self._settings.max_staleness:
+                self._dropped.inc(len(self._buffer))
+                self._buffer.clear()
+                return None
+            if reuse_left <= 0:
+                self._buffer.pop()
+                continue
+            self._buffer[-1][2] = reuse_left - 1
+            self._reused.inc()
+            return ImpactBatch(batch, version, fresh=False)
+        return None
+
+    def next_batch(self, assemble: Callable[[List[Any]], Any], current_version: int,
+                   timeout: float = 180.0) -> ImpactBatch:
+        """One update's batch: fresh when a full payload set is there (or
+        arrives while nothing can be re-stepped), else a buffered one."""
+        self._ingest(self._pipeline.poll(max_items=4 * self._need, timeout=0.0))
+        if len(self._pending) < self._need:
+            reusable = self._pop_reusable(current_version)
+            if reusable is not None:
+                return reusable
+            while len(self._pending) < self._need:
+                self._ingest(self._pipeline.wait_for_data(timeout=timeout))
+        take, self._pending = self._pending[:self._need], self._pending[self._need:]
+        version = min(v for v, _ in take)
+        batch = assemble([p for _, p in take])
+        if self._settings.max_reuse > 0:
+            self._buffer.append([version, batch, self._settings.max_reuse])
+        return ImpactBatch(batch, version, fresh=True)
 
 
 # ---------------------------------------------------------------- networks
@@ -344,16 +523,25 @@ def ppo_networks(config: Any, env: Any, generator: torch.Generator):
 
 
 def check_ported(config: Any) -> None:
-    """NotImplementedError, naming the keys, for everything the Sebulba path
-    of the port does not run."""
+    """NotImplementedError, naming the keys, for everything the Sebulba
+    runners of the port do not run; then arms the fault plan
+    (`STOIX_TPU_FAULT` over `arch.fault_spec`), refusing any fault but
+    `actor_crash` and `queue_stall`, naming it."""
     unported = unported_arch_keys(config)
-    if bool((config.system.get("impact") or {}).get("enabled", False)):
-        unported.append("system.impact.enabled (IMPACT waits for A15's second part)")
-    if str((config.system.get("replay") or {}).get("impl", "local")) == "sharded":
-        unported.append("system.replay.impl=sharded (ROADMAP A16)")
     if unported:
         raise NotImplementedError("not ported: " + ", ".join(unported))
     backend_of(config)
+    faultinject.check_sebulba_plan(faultinject.configure(config.arch.get("fault_spec")))
+
+
+def refuse_replay_impl(config: Any) -> None:
+    """ROADMAP C24: the JAX Sebulba PPO and IMPALA never read
+    `system.replay`; the port refuses `replay.impl: sharded` there rather
+    than ignore it."""
+    if str((config.system.get("replay") or {}).get("impl", "local")) == "sharded":
+        raise NotImplementedError(
+            "system.replay.impl=sharded: the JAX package's Sebulba PPO and IMPALA never read "
+            "system.replay (ROADMAP C24); the sharded replay serves Sebulba ff_dqn")
 
 
 def ppo_refusals(config: Any) -> None:
@@ -371,14 +559,16 @@ def ppo_refusals(config: Any) -> None:
 # ---------------------------------------------------------------- the actor
 
 
-def _await_params(param_server: ParameterServer, actor_id: int, lifetime: ThreadLifetime):
-    """The actor's next param version, polled so a stop is noticed; None on
-    the shutdown sentinel or a stop. Raises queue.Empty past
-    PARAMS_TIMEOUT_S."""
+def await_params(param_server: ParameterServer, actor_id: int, lifetime: ThreadLifetime,
+                 versioned: bool = False):
+    """The actor's next param version (a VersionedParams with `versioned`),
+    polled so a stop is noticed; None on the shutdown sentinel or a stop.
+    Raises queue.Empty past PARAMS_TIMEOUT_S."""
+    get = param_server.get_params_versioned if versioned else param_server.get_params
     deadline = time.monotonic() + PARAMS_TIMEOUT_S
     while True:
         try:
-            return param_server.get_params(actor_id, timeout=0.5)
+            return get(actor_id, timeout=0.5)
         except queue.Empty:
             if lifetime.should_stop():
                 return None
@@ -386,15 +576,13 @@ def _await_params(param_server: ParameterServer, actor_id: int, lifetime: Thread
                 raise
 
 
-def rollout_thread(actor_id: int, actor_device: torch.device, env_factory: Any,
-                   apply_fns: Callable[[torch.device], Tuple[Callable, Callable]], config: Any,
-                   pipeline: OnPolicyPipeline, param_server: ParameterServer,
-                   learner_devices: Sequence[torch.device], lifetime: ThreadLifetime,
-                   seed: int, metrics_sink: "queue.Queue", supervisor: Any = None) -> None:
-    timer = TimingTracker()
+def supervised_actor(body: Callable[..., None], actor_id: int, lifetime: ThreadLifetime,
+                     supervisor: Any, *args: Any) -> None:
+    """An actor thread's `body(*args)`: a crash is counted, logged, and
+    reported to the supervisor (which restarts the actor or fails the run),
+    or stops the run where there is none."""
     try:
-        _rollout_body(actor_id, actor_device, env_factory, apply_fns, config, pipeline,
-                      param_server, learner_devices, lifetime, seed, metrics_sink, timer)
+        body(*args)
     except Exception as exc:  # noqa: BLE001 — every crash is counted and supervised
         import traceback
 
@@ -407,11 +595,24 @@ def rollout_thread(actor_id: int, actor_device: torch.device, env_factory: Any,
             lifetime.stop()
 
 
+def rollout_thread(actor_id: int, actor_device: torch.device, env_factory: Any,
+                   apply_fns: Callable[[torch.device], Tuple[Callable, Callable]], config: Any,
+                   pipeline: Any, param_server: ParameterServer,
+                   learner_devices: Sequence[torch.device], lifetime: ThreadLifetime,
+                   seed: int, metrics_sink: "queue.Queue", supervisor: Any = None) -> None:
+    supervised_actor(_rollout_body, actor_id, lifetime, supervisor, actor_id, actor_device,
+                     env_factory, apply_fns, config, pipeline, param_server, learner_devices,
+                     lifetime, seed, metrics_sink, TimingTracker())
+
+
 def _rollout_body(actor_id, actor_device, env_factory, apply_fns, config, pipeline,
                   param_server, learner_devices, lifetime, seed, metrics_sink, timer):
     envs_per_actor = int(config.arch.actor.envs_per_actor)
     rollout_length = int(config.system.rollout_length)
     normalize_obs = bool(config.system.get("normalize_observations", False))
+    # IMPACT: params come with their version, and every payload is tagged
+    # with the version that collected it (the learner's staleness).
+    impact_on = impact_settings_from_config(config) is not None
     envs = env_factory(envs_per_actor)
     timestep = envs.reset(seed=seed)
     generator = anakin.make_generator(seed, actor_device)
@@ -429,19 +630,24 @@ def _rollout_body(actor_id, actor_device, env_factory, apply_fns, config, pipeli
         action = policy.sample(generator)
         return action, policy.log_prob(action), value
 
-    bundle = _await_params(param_server, actor_id, lifetime)
-    if bundle is None:
+    versioned = await_params(param_server, actor_id, lifetime, versioned=True)
+    if versioned is None:
         return
+    behavior_version, bundle = versioned
     rollout_idx = 0
     n_learners = len(learner_devices)
     while not lifetime.should_stop():
+        # Chaos injection points (no-ops unless a fault plan is armed).
+        faultinject.maybe_crash_actor(actor_id, rollout_idx)
+        faultinject.maybe_stall_queue(actor_id, rollout_idx, should_abort=lifetime.should_stop)
         # Pipelining: the second rollout skips the fetch, so the actors run
         # one rollout ahead while the learner computes.
         if rollout_idx > 1:
             with timer.time("get_params"):
-                bundle = _await_params(param_server, actor_id, lifetime)
-            if bundle is None:
+                versioned = await_params(param_server, actor_id, lifetime, versioned=True)
+            if versioned is None:
                 break
+            behavior_version, bundle = versioned
         traj: List[PPOTransition] = []
         infos = []
         with span("actor_rollout", actor=actor_id, idx=rollout_idx), timer.time("rollout"):
@@ -471,7 +677,10 @@ def _rollout_body(actor_id, actor_device, env_factory, apply_fns, config, pipeli
                                 stacked) for i, d in enumerate(learner_devices)]
         with timer.time("queue_put"):
             try:
-                pipeline.send_rollout(actor_id, payload, timeout=PUT_TIMEOUT_S)
+                if impact_on:
+                    pipeline.push(actor_id, (behavior_version, payload), timeout=PUT_TIMEOUT_S)
+                else:
+                    pipeline.send_rollout(actor_id, payload, timeout=PUT_TIMEOUT_S)
             except queue.Full:
                 if lifetime.should_stop():
                     break
@@ -553,10 +762,125 @@ def sebulba_devices(config: Any, device: Union[str, torch.device]) -> List[torch
     return [device] * (max(ids) + 1)
 
 
-def _synchronize(devices: Sequence[torch.device]) -> None:
+def synchronize(devices: Sequence[torch.device]) -> None:
     for d in {torch.device(d) for d in devices}:
         if d.type == "cuda":
             torch.cuda.synchronize(d)
+
+
+def sebulba_budget(config: Any, num_actors: int) -> int:
+    """The JAX package's Sebulba budget accounting, written into `config`:
+    each actor's envs, `num_updates` from `total_timesteps` when unset,
+    `total_timesteps` rounded to whole updates, the updates an eval window.
+    Returns the env steps an update."""
+    config.arch.actor.envs_per_actor = int(config.arch.total_num_envs) // num_actors
+    steps_per_update = int(config.system.rollout_length) * int(config.arch.total_num_envs)
+    if config.arch.get("num_updates") in (None, "~"):
+        config.arch.num_updates = max(
+            1, int(float(config.arch.total_timesteps)) // steps_per_update)
+    config.arch.total_timesteps = int(config.arch.num_updates) * steps_per_update
+    num_evaluation = max(1, int(config.arch.get("num_evaluation", 1)))
+    config.arch.num_updates_per_eval = max(1, int(config.arch.num_updates) // num_evaluation)
+    config.logger.system_name = config.system.system_name
+    return steps_per_update
+
+
+def make_evaluator(config: Any, eval_apply: Callable) -> Callable:
+    """The feed-forward evaluator over the registry's single env of the
+    run's scenario, acting through `eval_apply(params, observation)`."""
+    from stoix_tpu_torch.envs.registry import make_single
+    from stoix_tpu_torch.envs.wrappers import RecordEpisodeMetrics
+
+    eval_env = RecordEpisodeMetrics(make_single(
+        config.env.scenario.name, config.env.get("env_name"),
+        **dict(config.env.get("kwargs", {}) or {})))
+    return get_ff_evaluator_fn(eval_env, get_distribution_act_fn(config, eval_apply), config)
+
+
+def resilience_counters() -> Tuple[Dict[str, Any], Dict[str, float]]:
+    """The actor-crash, restart and evaluator-error counters, and their
+    values now (a run reports what it adds)."""
+    registry = get_registry()
+    counters = {name: registry.counter(name) for name in (ACTOR_CRASHES, ACTOR_RESTARTS,
+                                                          EVALUATOR_ERRORS)}
+    return counters, {name: c.total() for name, c in counters.items()}
+
+
+def resilience_stats(guard_mode: str, skipped_base: float, supervisor: Any,
+                     counters: Dict[str, Any], base: Dict[str, float]) -> Dict[str, Any]:
+    """`LAST_RUN_STATS["resilience"]` of a Sebulba run."""
+    return {
+        "update_guard": guard_mode,
+        "skipped_updates": guards.skipped_counter().value() - skipped_base,
+        "actor_restarts": supervisor.restart_count() if supervisor is not None else 0,
+        "actor_crashes": counters[ACTOR_CRASHES].total() - base[ACTOR_CRASHES],
+        "supervisor_restarts": counters[ACTOR_RESTARTS].total() - base[ACTOR_RESTARTS],
+        "evaluator_errors": counters[EVALUATOR_ERRORS].total() - base[EVALUATOR_ERRORS],
+        "resume_capable": False,
+    }
+
+
+def start_actors(make_thread: Callable[[int, Any], threading.Thread], actor_devices: List[Any],
+                 actors_per_device: int, supervisor: Any, heartbeats: Any
+                 ) -> List[threading.Thread]:
+    """Every actor thread, `make_thread(actor_id, device)`, under the
+    supervisor when there is one (it starts them and restarts a crashed
+    one), else started here; returns the unsupervised threads."""
+    threads: List[threading.Thread] = []
+    for d_idx, actor_device in enumerate(actor_devices):
+        for a_idx in range(actors_per_device):
+            actor_id = d_idx * actors_per_device + a_idx
+            make = partial(make_thread, actor_id, actor_device)
+            if supervisor is not None:
+                supervisor.register(actor_id, make)
+            else:
+                thread = make()
+                thread.start()
+                threads.append(thread)
+    if supervisor is not None:
+        supervisor.start_watchdog(heartbeats)
+    return threads
+
+
+def drain_episodes(metrics_sink: "queue.Queue", timings: Dict[str, float]) -> List[float]:
+    """The returns of the episodes the actors finished since the last drain;
+    their latest timings go into `timings`."""
+    returns: List[float] = []
+    while not metrics_sink.empty():
+        m = metrics_sink.get_nowait()
+        em = m["episode_metrics"]
+        mask = em["is_terminal_step"].reshape(-1)
+        if mask.any():
+            returns.extend(em["episode_return"].reshape(-1)[mask].tolist())
+        timings.update(m["timings"])
+    return returns
+
+
+def shut_down(lifetime: ThreadLifetime, param_server: ParameterServer, pipeline: Any,
+              supervisor: Any, actor_threads: List[threading.Thread],
+              async_evaluator: AsyncEvaluator) -> None:
+    """Stop the actors, unblock their puts, join them, and wait for the
+    evaluator's last work (an evaluator still busy while another failure
+    propagates is logged, not raised over it)."""
+    lifetime.stop()
+    param_server.shutdown()
+    for _ in range(2):
+        if pipeline.drain(timeout=0.5) == 0:
+            break
+    if supervisor is not None:
+        supervisor.join_all(timeout=10.0)
+    for thread in actor_threads:
+        thread.join(timeout=10.0)
+    failure_propagating = sys.exc_info()[0] is not None
+    try:
+        async_evaluator.wait_until_idle(timeout=120.0)
+    except EvaluatorStallError:
+        # Raising here would replace the failure that brought us here.
+        if not failure_propagating:
+            raise
+        _LOG.error("[shutdown] evaluator still busy while handling another failure — "
+                   "dropping its in-flight work")
+    async_evaluator.thread.join(timeout=10.0)
 
 
 def run_experiment(
@@ -566,12 +890,21 @@ def run_experiment(
     networks_builder: Optional[Callable] = None,
     refusals: Callable[[Any], None] = ppo_refusals,
 ) -> float:
-    """Train a Sebulba system (PPO by default; IMPALA passes its learn step
-    and networks); returns the last evaluation's mean return. The roles'
-    devices are cards unless the caller asks for the CPU."""
+    """Train a Sebulba system (PPO by default, IMPACT with
+    `system.impact.enabled`; IMPALA passes its learn step and networks);
+    returns the last evaluation's mean return. The roles' devices are cards
+    unless the caller asks for the CPU."""
     LAST_RUN_STATS.clear()
     check_ported(config)
+    refuse_replay_impl(config)
     refusals(config)
+    impact = impact_settings_from_config(config)
+    if impact is not None and learn_step_builder is not None:
+        raise ValueError("system.impact.enabled is incompatible with a custom "
+                         "learn_step_builder: the IMPACT update takes (state, "
+                         "target_params, batch), not (state, batch)")
+    if impact is not None:
+        learn_step_builder = partial(get_impact_learn_step, rho_clip=impact.rho_clip)
     guard_mode = guards.resolve_mode(config)
     scan_kernels.configure_from_config(config)
     roles = MeshRoles.from_config(config, devices=sebulba_devices(config, device))
@@ -581,16 +914,7 @@ def run_experiment(
 
     actors_per_device = int(config.arch.actor.actor_per_device)
     num_actors = len(actor_devices) * actors_per_device
-    config.arch.actor.envs_per_actor = int(config.arch.total_num_envs) // num_actors
-    # Budget accounting (the JAX package's Sebulba branch).
-    steps_per_update = int(config.system.rollout_length) * int(config.arch.total_num_envs)
-    if config.arch.get("num_updates") in (None, "~"):
-        config.arch.num_updates = max(
-            1, int(float(config.arch.total_timesteps)) // steps_per_update)
-    config.arch.total_timesteps = int(config.arch.num_updates) * steps_per_update
-    num_evaluation = max(1, int(config.arch.get("num_evaluation", 1)))
-    config.arch.num_updates_per_eval = max(1, int(config.arch.num_updates) // num_evaluation)
-    config.logger.system_name = config.system.system_name
+    steps_per_update = sebulba_budget(config, num_actors)
 
     env_factory = make_factory(config)
     probe_envs = env_factory(1)
@@ -608,13 +932,7 @@ def run_experiment(
                                                                                 stats))
         return eval_actor_apply(payload, observation)
 
-    from stoix_tpu_torch.envs.registry import make_single
-    from stoix_tpu_torch.envs.wrappers import RecordEpisodeMetrics
-
-    eval_env = RecordEpisodeMetrics(make_single(
-        config.env.scenario.name, config.env.get("env_name"),
-        **dict(config.env.get("kwargs", {}) or {})))
-    eval_fn = get_ff_evaluator_fn(eval_env, get_distribution_act_fn(config, eval_apply), config)
+    eval_fn = make_evaluator(config, eval_apply)
     eval_generator = anakin.make_generator(setup.eval_seed, evaluator_device)
 
     logger = StoixLogger(config)
@@ -625,7 +943,9 @@ def run_experiment(
             logger.log(metrics, t, t_eval, event)
 
     lifetime = ThreadLifetime()
-    pipeline = OnPolicyPipeline(num_actors)
+    # IMPACT's learner never waits on a particular actor: the actors push to
+    # one shared queue and ImpactIngest takes any full set.
+    pipeline = OnPolicyPipeline(num_actors) if impact is None else OffPolicyPipeline(num_actors)
     param_server = ParameterServer(actor_devices, actors_per_device,
                                    heartbeats=pipeline.heartbeats)
     metrics_sink: "queue.Queue" = queue.Queue()
@@ -636,40 +956,39 @@ def run_experiment(
         eval_results.append(float(metrics["episode_return"].float().mean()))
 
     registry = get_registry()
-    counters = {name: registry.counter(name) for name in (ACTOR_CRASHES, ACTOR_RESTARTS,
-                                                          EVALUATOR_ERRORS)}
-    counter_base = {name: c.total() for name, c in counters.items()}
+    counters, counter_base = resilience_counters()
     async_evaluator = AsyncEvaluator(eval_fn, lifetime, on_eval_result,
                                      heartbeats=pipeline.heartbeats)
     async_evaluator.thread.start()
     param_server.distribute_params((state.params, state.obs_stats))
 
     supervisor = supervisor_from_config(config, lifetime, pipeline, param_server)
-    actor_threads: List[threading.Thread] = []
 
-    def actor_factory(actor_id: int, actor_device) -> Callable[[], threading.Thread]:
-        def make() -> threading.Thread:
-            return threading.Thread(
-                target=rollout_thread,
-                args=(actor_id, actor_device, env_factory, thread_apply_fns, config,
-                      pipeline, param_server, learner_devices, lifetime,
-                      int(config.arch.seed) + 7919 * actor_id, metrics_sink, supervisor),
-                name=f"actor-{actor_id}", daemon=True)
+    def make_thread(actor_id: int, actor_device) -> threading.Thread:
+        return threading.Thread(
+            target=rollout_thread,
+            args=(actor_id, actor_device, env_factory, thread_apply_fns, config,
+                  pipeline, param_server, learner_devices, lifetime,
+                  int(config.arch.seed) + 7919 * actor_id, metrics_sink, supervisor),
+            name=f"actor-{actor_id}", daemon=True)
 
-        return make
+    actor_threads = start_actors(make_thread, actor_devices, actors_per_device, supervisor,
+                                 pipeline.heartbeats)
 
-    for d_idx, actor_device in enumerate(actor_devices):
-        for a_idx in range(actors_per_device):
-            actor_id = d_idx * actors_per_device + a_idx
-            make = actor_factory(actor_id, actor_device)
-            if supervisor is not None:
-                supervisor.register(actor_id, make)
-            else:
-                thread = make()
-                thread.start()
-                actor_threads.append(thread)
-    if supervisor is not None:
-        supervisor.start_watchdog(pipeline.heartbeats)
+    ingest, target_params, impact_stats = None, None, None
+    if impact is not None:
+        ingest = ImpactIngest(pipeline, num_actors, impact)
+        # The target network: a recent online version, refreshed on the host
+        # every target_update_interval updates.
+        target_params = state.params
+        staleness_gauge = registry.gauge(
+            "stoix_tpu_impact_batch_staleness",
+            "Param-version lag (learner version minus behavior version) of the batch "
+            "consumed by the most recent IMPACT update")
+        refreshes = registry.counter("stoix_tpu_impact_target_refreshes_total",
+                                     "IMPACT target-network refreshes from the online params")
+        impact_stats = {"updates": 0, "fresh_updates": 0, "reused_updates": 0,
+                        "staleness_sum": 0, "max_staleness_seen": 0, "target_refreshes": 0}
 
     timer = TimingTracker()
     t_steps = 0
@@ -682,27 +1001,46 @@ def run_experiment(
     steady_end_time = run_start_time
     try:
         for update_idx in range(int(config.arch.num_updates)):
-            with timer.time("rollout_get"):
-                payloads = pipeline.collect_rollouts()
-            with span("learner_assemble", update=update_idx), timer.time("assemble"):
-                batch = assemble_batch(payloads)
+            fresh = True
+            if ingest is None:
+                with timer.time("rollout_get"):
+                    payloads = pipeline.collect_rollouts()
+                with span("learner_assemble", update=update_idx), timer.time("assemble"):
+                    batch = assemble_batch(payloads)
+            else:
+                with span("impact_next_batch", update=update_idx), timer.time("rollout_get"):
+                    got = ingest.next_batch(assemble_batch, param_server.version)
+                batch, fresh = got.batch, got.fresh
+                # The learner's version (the params it just trained) minus the
+                # OLDEST behaviour version in the batch; it grows each time
+                # the same buffered batch is re-stepped.
+                staleness = param_server.version - got.behavior_version
+                staleness_gauge.set(staleness)
+                impact_stats["updates"] += 1
+                impact_stats["fresh_updates" if fresh else "reused_updates"] += 1
+                impact_stats["staleness_sum"] += staleness
+                impact_stats["max_staleness_seen"] = max(impact_stats["max_staleness_seen"],
+                                                         staleness)
             with span("learner_update", update=update_idx), timer.time("learn"):
-                state, train_metrics = learn_step(state, batch)
-                _synchronize(learner_devices)
+                if ingest is None:
+                    state, train_metrics = learn_step(state, batch)
+                else:
+                    state, train_metrics = learn_step(state, target_params, batch)
+                synchronize(learner_devices)
             learn_steps += 1
             param_server.distribute_params((state.params, state.obs_stats))
-            t_steps += steps_per_update
+            if ingest is not None and impact_stats["updates"] % impact.target_update_interval == 0:
+                target_params = state.params
+                impact_stats["target_refreshes"] += 1
+                refreshes.inc()
+            if fresh:
+                # A re-stepped batch holds no NEW env frames: t_steps counts
+                # env frames, not gradient steps.
+                t_steps += steps_per_update
             guards.publish_guard_metrics(guard_mode, train_metrics, t_steps)
 
             if (update_idx + 1) % int(config.arch.num_updates_per_eval) == 0:
-                ep_returns = []
-                while not metrics_sink.empty():
-                    m = metrics_sink.get_nowait()
-                    em = m["episode_metrics"]
-                    mask = em["is_terminal_step"].reshape(-1)
-                    if mask.any():
-                        ep_returns.extend(em["episode_return"].reshape(-1)[mask].tolist())
-                    timings.update(m["timings"])
+                ep_returns = drain_episodes(metrics_sink, timings)
                 if ep_returns:
                     log({"episode_return": np.asarray(ep_returns)}, t_steps, update_idx,
                         LogEvent.ACT)
@@ -722,26 +1060,7 @@ def run_experiment(
         # must not deflate the steady-state number.
         steady_end_time = time.perf_counter()
     finally:
-        lifetime.stop()
-        param_server.shutdown()
-        # Unblock actors waiting to enqueue.
-        for _ in range(2):
-            if pipeline.drain(timeout=0.5) == 0:
-                break
-        if supervisor is not None:
-            supervisor.join_all(timeout=10.0)
-        for thread in actor_threads:
-            thread.join(timeout=10.0)
-        failure_propagating = sys.exc_info()[0] is not None
-        try:
-            async_evaluator.wait_until_idle(timeout=120.0)
-        except EvaluatorStallError:
-            # Raising here would replace the failure that brought us here.
-            if not failure_propagating:
-                raise
-            _LOG.error("[shutdown] evaluator still busy while handling another failure — "
-                       "dropping its in-flight work")
-        async_evaluator.thread.join(timeout=10.0)
+        shut_down(lifetime, param_server, pipeline, supervisor, actor_threads, async_evaluator)
         logger.close()
 
     if steady_start_time is not None and t_steps > steady_start_steps:
@@ -756,7 +1075,6 @@ def run_experiment(
                        "Whole-run env-steps/sec (incl. compile) of the most recent run").set(fps)
         LAST_RUN_STATS["fps"] = fps
         LAST_RUN_STATS["total_env_steps"] = t_steps
-    restarts = supervisor.restart_count() if supervisor is not None else 0
     LAST_RUN_STATS.update({
         "learn_steps": learn_steps,
         "num_actors": num_actors,
@@ -767,18 +1085,21 @@ def run_experiment(
         "timings": timings,
         "eval_returns": list(eval_results),
         "history": logger.history,
-        "resilience": {
-            "update_guard": guard_mode,
-            "skipped_updates": guards.skipped_counter().value() - skipped_base,
-            "actor_restarts": restarts,
-            "actor_crashes": counters[ACTOR_CRASHES].total() - counter_base[ACTOR_CRASHES],
-            "supervisor_restarts": (counters[ACTOR_RESTARTS].total()
-                                    - counter_base[ACTOR_RESTARTS]),
-            "evaluator_errors": (counters[EVALUATOR_ERRORS].total()
-                                 - counter_base[EVALUATOR_ERRORS]),
-            "resume_capable": False,
+        "resilience": resilience_stats(guard_mode, skipped_base, supervisor, counters,
+                                       counter_base),
+        # None when IMPACT is off, as in the JAX package.
+        "impact": None if impact is None else {
+            "rho_clip": impact.rho_clip,
+            "target_update_interval": impact.target_update_interval,
+            "max_staleness": impact.max_staleness,
+            "max_reuse": impact.max_reuse,
+            "updates": impact_stats["updates"],
+            "fresh_updates": impact_stats["fresh_updates"],
+            "reused_updates": impact_stats["reused_updates"],
+            "mean_staleness": impact_stats["staleness_sum"] / max(1, impact_stats["updates"]),
+            "max_staleness_seen": impact_stats["max_staleness_seen"],
+            "target_refreshes": impact_stats["target_refreshes"],
         },
-        "impact": None,
     })
     return eval_results[-1] if eval_results else 0.0
 

@@ -207,13 +207,17 @@ def test_loco_grid_config_trees_mirror_the_jax_package(case):
     _assert_mirrors(f"default/anakin/default_{name}.yaml", overrides)
 
 
-# Sebulba: the three on-policy roots, each as it is and with the
+# Sebulba: the three on-policy roots and ff_dqn, each as it is and with the
 # native pool's envs (env=breakout, env=breakout_pixel with cnn_atari,
-# Pendulum on the pool with the continuous head).
+# Pendulum on the pool with the continuous head), IMPACT on, or prioritized
+# replay.
 SEBULBA = {
-    "ff_ppo": ["env=breakout_pixel", "network=cnn_atari", "arch.learner.device_ids=[0]"],
+    "ff_ppo": ["env=breakout_pixel", "network=cnn_atari", "arch.learner.device_ids=[0]",
+               "system.impact.enabled=true"],
     "ff_impala": ["env=breakout", "system.multistep_impl=pallas"],
     "ff_impala_shared_torso": ["env=pendulum", "env.backend=cvec", "network=mlp_continuous"],
+    "ff_dqn": ["env=identity_game", "system.replay.prioritized=true",
+               "arch.learner.device_ids=[0]"],
 }
 
 

@@ -2127,3 +2127,81 @@ def test_q_update_on_snake_on_the_card_matches_the_cpu(name, overrides):
     for side in (0, 1):
         for k, v in cpu_params[side].items():
             torch.testing.assert_close(card_params[side][k].cpu(), v, rtol=0, atol=1e-5)
+
+
+# ----------------------------------------------------------------- Sebulba's off-policy half
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2])
+def test_replay_service_on_the_card_matches_the_cpu(shards):
+    """The sharded service (prioritized) on the card against the same one on
+    the CPU: adds, `set_priorities` with duplicate indices across shards,
+    then one draw from the same uniforms; indices and rows exact,
+    probabilities and priorities 1e-6 relative."""
+    from stoix_tpu_torch.replay import ShardedReplayService
+
+    device = _require_cuda()
+    gen = torch.Generator().manual_seed(0)
+    item = {"obs": torch.zeros(64), "action": torch.zeros((), dtype=torch.int32),
+            "done": torch.zeros((), dtype=torch.bool)}
+    services = [ShardedReplayService([dev] * shards, {k: v.to(dev) for k, v in item.items()},
+                                     capacity_per_shard=512, sample_batch_size=256,
+                                     prioritized=True) for dev in ("cpu", device)]
+    for _ in range(3):  # 3 x 400 items a shard through 512 slots: the rings wrap
+        chunk = [{"obs": torch.randn((400, 64), generator=gen),
+                  "action": torch.randint(0, 4, (400,), generator=gen, dtype=torch.int32),
+                  "done": torch.rand((400,), generator=gen) < 0.1} for _ in range(shards)]
+        for svc in services:
+            svc.add([{k: v.to(svc.devices[0]) for k, v in c.items()} for c in chunk])
+    idx = torch.randint(0, 512 * shards, (256,), generator=gen, dtype=torch.int32)
+    values = torch.rand((256,), generator=gen) * 4.0
+    for svc in services:
+        dev = svc.devices[0]
+        svc.set_priorities(list(idx.to(dev).chunk(shards)), list(values.to(dev).chunk(shards)))
+    uniforms = torch.rand((256,), generator=gen)
+    want, got = (svc.sample(uniforms=uniforms.to(svc.devices[0])) for svc in services)
+    for w, g in zip(want, got):
+        assert torch.equal(g.indices.cpu(), w.indices)
+        for k in item:
+            assert torch.equal(g.experience[k].cpu(), w.experience[k])
+        torch.testing.assert_close(g.probabilities.cpu(), w.probabilities, rtol=1e-6, atol=0)
+    for w, g in zip(services[0].state, services[1].state):
+        torch.testing.assert_close(g.priorities.cpu(), w.priorities, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["uniform", "prioritized"])
+def test_sebulba_dqn_learn_step_on_the_card_matches_the_cpu(mode):
+    """chip_smoke.py's sebulba_offpolicy_parity case: one ff_dqn learn step
+    at the default config from the same ring, params and uniforms (losses
+    1e-5 relative, params 1e-5 absolute, priorities 1e-6); no kernel
+    launch."""
+    import chip_smoke
+
+    _require_cuda()
+    before = {c.name: c.launches for c in lr.COUNTERS}
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        chip_smoke._dqn_step_on_card_and_cpu(mode)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    assert all(c.launches == before[c.name] for c in lr.COUNTERS)
+
+
+@pytest.mark.cuda
+def test_impact_learn_step_on_the_card_matches_the_cpu():
+    """chip_smoke.py's IMPACT case: one learn step at [64, 512] through one
+    B1 GAE launch, against the CPU (losses 1e-5 relative, params 1e-5
+    absolute), B1 bitwise against its plain version on its inputs."""
+    import chip_smoke
+
+    _require_cuda()
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        result = chip_smoke._impact_step_on_card_and_cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    assert result["b1_gae_bitwise"] and result["kernel_launches"][lr.GAE_KERNEL.name] == 1

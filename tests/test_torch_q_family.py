@@ -15,8 +15,9 @@ CPU.
    CartPole from the same states: the buffer exact but the physics
    (1e-5, as tests/test_torch_envs.py).
 4. The epsilon schedule against JAX's float32 formula (exact), its
-   ValueError, `system.replay.impl=sharded` refused naming the key, and the
-   divergence guard (skip, halt) keeping the pre-update state.
+   ValueError, `system.replay.impl=sharded` building the sharded facade and
+   `replay.prioritized` on it refused naming the key, and the divergence
+   guard (skip, halt) keeping the pre-update state.
 5. ff_pqn's update step (Q(lambda) targets once over [T, E], epochs x
    minibatches of clip + RAdam and the step counter) against JAX's
    composition with the same permutations: targets 1e-6 absolute (the
@@ -65,7 +66,7 @@ from stoix_tpu_torch.systems.q_learning import ff_dqn, ff_pqn, q_family
 from stoix_tpu_torch.utils import config as config_lib
 from stoix_tpu_torch.utils.training import ClipAdam, ClipRAdam
 from stoix_tpu_torch.utils.params import load_flax_params
-from stoix_tpu_torch.utils.tree import tree_leaves
+from stoix_tpu_torch.utils.tree import tree_leaves, tree_map
 from test_torch_envs import _cartpole_state_to_port, _jax_env
 from test_torch_q_ops import paired_q_networks
 from torch_parity import n, t, to_flax_params
@@ -301,10 +302,28 @@ def test_epsilon_schedule_matches_jax_and_refuses_a_decay_that_changes_nothing()
 
 
 def test_sharded_replay_is_refused_naming_the_key():
-    cfg, _ = _configs("dqn", ["system.replay.impl=sharded"])
-    cfg.system.action_dim = 3
-    with pytest.raises(NotImplementedError, match="system.replay.impl=sharded"):
-        core.build_buffer(wrappers.apply_core_wrappers(classic.CartPole()), cfg, "cpu", True)
+    """`system.replay.impl=sharded` builds the facade over the sharded core
+    (one process: one shard of the whole ring, the whole batch; sampling
+    waits for a batch's worth), and `replay.prioritized` on it is still
+    refused, naming the key, with the JAX package's message."""
+    from stoix_tpu_torch.replay.compat import ShardedItemBuffer
+
+    env = wrappers.apply_core_wrappers(classic.CartPole())
+    cfg, _ = _configs("dqn", ["system.replay.impl=sharded", "system.total_buffer_size=64",
+                              "system.total_batch_size=16"])
+    cfg.system.action_dim = 2
+    buffer, state = core.build_buffer(env, cfg, "cpu", True)
+    assert isinstance(buffer, ShardedItemBuffer)
+    assert tuple(state.priorities.shape) == (64,) and not buffer.can_sample(state)
+    items = tree_map(lambda x: x.expand((16,) + tuple(x.shape)).clone(),
+                          core.dummy_transition(env, True))
+    state = buffer.add(state, items)
+    assert buffer.can_sample(state)
+    assert buffer.sample(state, torch.Generator().manual_seed(0)).experience.reward.shape == (16,)
+    cfg, _ = _configs("dqn", ["system.replay.impl=sharded", "system.replay.prioritized=true"])
+    cfg.system.action_dim = 2
+    with pytest.raises(ValueError, match=r"system\.replay\.prioritized=true .*set_priorities"):
+        core.build_buffer(env, cfg, "cpu", True)
 
 
 # ----------------------------------------------------------------- PQN

@@ -1,21 +1,25 @@
-"""The three Sebulba systems of the PyTorch port end to end on the CPU, and
+"""The four Sebulba systems of the PyTorch port end to end on the CPU, and
 their refusals.
 
-1. Sebulba ff_ppo, ff_impala and ff_impala_shared_torso through their
-   `run_experiment` at tests/test_sebulba.py's BASE (IdentityGame, 8 envs,
-   2048 steps, two actor threads), every role on device 0 (a one-card host's
-   shape): finite, exactly `num_updates` learn steps, one B1 call an update
-   (GAE) on ff_ppo and `num_minibatches` (V-trace) on the IMPALAs, no actor
-   crash, restart or evaluator error. Also ff_ppo on the native pool
-   (CartPole) and on Pendulum (continuous, a negative return), and with
-   two learner "devices".
+1. Sebulba ff_ppo, ff_impala, ff_impala_shared_torso and ff_dqn through
+   their `run_experiment` at tests/test_sebulba.py's BASE (IdentityGame, 8
+   envs, 2048 steps, two actor threads), every role on device 0 (a one-card
+   host's shape): finite, exactly `num_updates` learn steps, one B1 call an
+   update (GAE) on ff_ppo, `num_minibatches` (V-trace) on the IMPALAs and
+   none on ff_dqn, no actor crash, restart or evaluator error. Also ff_ppo
+   on the native pool (CartPole) and on Pendulum (continuous, a negative
+   return), and with two learner "devices".
 2. The entry points default to CUDA and never fall back to the CPU.
-3. Every refusal raises NotImplementedError naming its key: IMPACT, the
-   gymnasium and envpool backends, `system.replay.impl: sharded`, the
-   fleet, integrity and preflight layers and `arch.fault_spec`, and ROADMAP
-   C24's unread knobs (`system.fused_update`, `system.clip_value` on ff_ppo,
-   `system.update_guard` on the shared torso); the default arch's learner on
-   device 1 is refused on a one-card host with the JAX package's findings.
+3. Every refusal raises NotImplementedError naming its key: the gymnasium
+   and envpool backends, the fleet, integrity and preflight layers, a fault
+   the Sebulba runners do not inject (`arch.fault_spec=bitflip:1`,
+   `sigterm:1`; they take `actor_crash` and `queue_stall`), and ROADMAP
+   C24's unread knobs (`system.replay.impl: sharded`, which the JAX
+   Sebulba PPO never reads, `system.fused_update`, `system.clip_value` on
+   ff_ppo, `system.update_guard` on the shared torso); IMPACT's settings
+   out of range raise the JAX package's ValueErrors; the default arch's
+   learner on device 1 is refused on a one-card host with the JAX
+   package's findings.
 """
 
 import math
@@ -26,6 +30,7 @@ import torch
 from stoix_tpu_torch.parallel.roles import MeshRolesError
 from stoix_tpu_torch.systems.impala.sebulba import ff_impala, ff_impala_shared_torso
 from stoix_tpu_torch.systems.ppo.sebulba import ff_ppo
+from stoix_tpu_torch.systems.q_learning.sebulba import ff_dqn
 from stoix_tpu_torch.utils import config as config_lib
 from test_torch_continuous import _count_b1_calls
 
@@ -34,7 +39,10 @@ BASE = ["env=identity_game", "arch.total_num_envs=8", "arch.total_timesteps=2048
         "logger.use_console=False", "arch.actor.device_ids=[0]",
         "arch.learner.device_ids=[0]", "system.multistep_impl=pallas"]
 SYSTEMS = {"ff_ppo": ff_ppo, "ff_impala": ff_impala,
-           "ff_impala_shared_torso": ff_impala_shared_torso}
+           "ff_impala_shared_torso": ff_impala_shared_torso, "ff_dqn": ff_dqn}
+# B1 calls an update: (GAE, generic).
+B1_CALLS = {"ff_ppo": (1, 0), "ff_impala": (0, 4), "ff_impala_shared_torso": (0, 4),
+            "ff_dqn": (0, 0)}
 
 
 def compose(system, overrides):
@@ -42,8 +50,13 @@ def compose(system, overrides):
                               f"default/sebulba/default_{system}.yaml", overrides)
 
 
-def _assert_clean_run(ret, updates):
-    stats = ff_ppo.LAST_RUN_STATS
+def _stats(system):
+    """The run stats of `system` (the on-policy systems share ff_ppo's runner)."""
+    return (ff_dqn if system == "ff_dqn" else ff_ppo).LAST_RUN_STATS
+
+
+def _assert_clean_run(ret, updates, system="ff_ppo"):
+    stats = _stats(system)
     assert math.isfinite(ret)
     assert stats["learn_steps"] == updates
     resilience = stats["resilience"]
@@ -58,13 +71,11 @@ def test_each_system_runs_end_to_end(system, monkeypatch):
     calls = _count_b1_calls(monkeypatch)
     ret = SYSTEMS[system].run_experiment(cfg, device="cpu")
     updates = 2048 // (8 * 8)
-    _assert_clean_run(ret, updates)
-    if system == "ff_ppo":
-        assert calls == {"gae": updates, "generic": 0}
-    else:
-        assert calls == {"gae": 0, "generic": 4 * updates}
-    assert ff_ppo.LAST_RUN_STATS["num_actors"] == 2
-    assert ff_ppo.LAST_RUN_STATS["envs_per_actor"] == 4
+    _assert_clean_run(ret, updates, system)
+    gae, generic = B1_CALLS[system]
+    assert calls == {"gae": gae * updates, "generic": generic * updates}
+    assert _stats(system)["num_actors"] == 2
+    assert _stats(system)["envs_per_actor"] == 4
 
 
 @pytest.mark.parametrize("overrides", [
@@ -100,16 +111,18 @@ def test_entry_point_defaults_to_cuda_and_never_falls_back(system, monkeypatch):
 
 
 REFUSALS = [
-    ("ff_ppo", "system.impact.enabled=true", "system.impact.enabled"),
     ("ff_ppo", "env.backend=gymnasium", "env.backend=gymnasium"),
     ("ff_impala", "env.backend=envpool", "env.backend=envpool"),
-    ("ff_ppo", "system.replay.impl=sharded", "system.replay.impl=sharded"),
     ("ff_impala", "arch.fleet.enabled=true", "arch.fleet.enabled"),
     ("ff_ppo", "arch.integrity.enabled=true", "arch.integrity.enabled"),
     ("ff_impala_shared_torso", "arch.preflight.enabled=true", "arch.preflight.enabled"),
-    ("ff_ppo", "arch.fault_spec=actor_crash:1", "arch.fault_spec"),
+    # Faults of layers not ported: the Sebulba runners inject actor_crash
+    # and queue_stall only.
+    ("ff_ppo", "arch.fault_spec=bitflip:1", "bitflip"),
+    ("ff_dqn", "arch.fault_spec=sigterm:1", "sigterm"),
     ("ff_ppo", "logger.telemetry.enabled=true", "logger.telemetry.enabled"),
     # ROADMAP C24: knobs the JAX Sebulba learners never read.
+    ("ff_ppo", "system.replay.impl=sharded", "system.replay.impl=sharded"),
     ("ff_ppo", "system.fused_update=true", "system.fused_update"),
     ("ff_ppo", "system.clip_value=false", "system.clip_value"),
     ("ff_impala_shared_torso", "system.update_guard=skip", "system.update_guard"),
@@ -121,6 +134,17 @@ def test_refusals_raise_naming_the_key(system, override, key):
     cfg = compose(system, [*BASE, override])
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         SYSTEMS[system].run_experiment(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override,match", [
+    ("system.impact.rho_clip=0.5", "rho_clip"),
+    ("system.impact.target_update_interval=0", "target_update_interval"),
+    ("system.impact.max_reuse=-1", "max_reuse"),
+])
+def test_impact_settings_out_of_range_are_refused(override, match):
+    cfg = compose("ff_ppo", [*BASE, "system.impact.enabled=true", override])
+    with pytest.raises(ValueError, match=match):
+        ff_ppo.run_experiment(cfg, device="cpu")
 
 
 def test_default_learner_device_is_refused_on_one_card(monkeypatch):

@@ -528,7 +528,33 @@ def disco_step(mesh_for, overrides, params, target_params, batches):
             "allreduces": counter.value(labels={"kind": "gradients"}) - before}
 
 
-DP_KINDS = {"mesh_helpers": mesh_helpers, "ppo_step": ppo_step, "statistics": statistics,
+def sharded_item_buffer(mesh_for, chunks, uniforms, capacity, batch, min_fill, item):
+    """The Anakin facade over the sharded replay (replay/compat.py) with this
+    rank as one shard of the world: this rank's chunks added, can_sample
+    before and after, and one draw whose uniforms this rank's generator
+    would give as `uniforms[rank]` (the facade must use rank 0's)."""
+    from stoix_tpu_torch.replay import compat
+
+    rank = dist.get_rank()
+    buf = compat.make_sharded_item_buffer(capacity, batch, dist.get_world_size(), min_fill,
+                                          group=dist.group.WORLD)
+    state = buf.init({k: torch.from_numpy(np.array(v)) for k, v in item.items()})
+    before = buf.can_sample(state)
+    for c in chunks[rank]:
+        state = buf.add(state, {k: torch.from_numpy(np.array(v)) for k, v in c.items()})
+    drawn = torch.from_numpy(np.array(uniforms[rank]))
+    real_rand = torch.rand
+    torch.rand = lambda *args, **kwargs: drawn.clone()
+    try:
+        sample = buf.sample(state, torch.Generator().manual_seed(rank))
+    finally:
+        torch.rand = real_rand
+    return {"experience": _numpy(sample.experience), "can_sample_before": before,
+            "can_sample": buf.can_sample(state)}
+
+
+DP_KINDS = {"mesh_helpers": mesh_helpers, "sharded_item_buffer": sharded_item_buffer,
+            "ppo_step": ppo_step, "statistics": statistics,
             "dqn_step": dqn_step, "sequence_step": sequence_step,
             "sequence_buffer": sequence_buffer, "run": run, "saved_state": saved_state,
             "sac_step": sac_step, "reinforce_step": reinforce_step, "mpo_step": mpo_step,

@@ -344,3 +344,53 @@ def assert_timesteps_equal(jax_ts, port_ts) -> None:
     if "truncation" in jax_ts.extras:
         np.testing.assert_array_equal(n(port_ts.extras["truncation"]),
                                       np.asarray(jax_ts.extras["truncation"]))
+
+
+def jax_tree_as_port(tree, like):
+    """`tree` (numpy or JAX leaves) in the structure of the port tree `like`."""
+    if isinstance(like, torch.Tensor):
+        return torch.from_numpy(np.array(tree)).to(like.dtype)
+    if isinstance(like, dict):
+        return {k: jax_tree_as_port(tree[k], v) for k, v in like.items()}
+    return type(like)(*(jax_tree_as_port(getattr(tree, f), getattr(like, f)) for f in like._fields))
+
+
+def port_tree_as_jax(tree, like):
+    """The port tree `tree` as numpy leaves in the structure of the JAX tree `like`."""
+    if hasattr(like, "shape"):
+        return np.asarray(tree.detach().cpu().numpy())
+    if isinstance(like, dict):
+        return {k: port_tree_as_jax(tree[k], v) for k, v in like.items()}
+    return type(like)(*(port_tree_as_jax(getattr(tree, f), getattr(like, f)) for f in like._fields))
+
+
+def replay_state_to_port(jax_state, port_like) -> list:
+    """A JAX `ShardedReplayState` (numpy or JAX leaves, with a leading shard
+    axis or without) as a list of the port's per-shard states, one shard for
+    a state without the axis. `port_like` is a port state of the same ring
+    (the experience's structure and dtypes)."""
+    priorities = np.asarray(jax_state.priorities)
+    sharded = priorities.ndim == 2
+    shards = priorities.shape[0] if sharded else 1
+    states = []
+    for k in range(shards):
+        part = jax.tree.map(lambda x: np.asarray(x)[k], jax_state) if sharded else jax_state
+        states.append(port_like._replace(
+            experience=jax_tree_as_port(part.experience, port_like.experience),
+            priorities=torch.from_numpy(np.array(part.priorities, np.float32)),
+            insert_pos=int(part.insert_pos), num_added=int(part.num_added)))
+    return states
+
+
+def replay_state_to_jax(port_states, jax_like):
+    """The port's per-shard states as the JAX package's `ShardedReplayState`
+    with numpy leaves: a leading shard axis when `jax_like` has one."""
+    parts = [type(jax_like)(
+        experience=port_tree_as_jax(s.experience, jax.tree.map(
+            lambda x: x[0], jax_like.experience) if np.ndim(jax_like.priorities) == 2
+            else jax_like.experience),
+        priorities=s.priorities.cpu().numpy(), insert_pos=np.int32(s.insert_pos),
+        num_added=np.int32(s.num_added)) for s in port_states]
+    if np.ndim(jax_like.priorities) == 2:
+        return jax.tree.map(lambda *xs: np.stack(xs), *parts)
+    return parts[0]
