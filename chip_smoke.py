@@ -425,6 +425,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    (SEBULBA_DQN_IDENTITY: a 4 096-item uniform ring) and
                    IMPACT learn IdentityGame above 8.0: the JAX package
                    returns 10.0 for seeds 42 and 1 in both.
+ 58. gossip_train — TF32 off, gossip-grouped Anakin ff_ppo at
+                   default/gossip/default_ff_ppo.yaml (CartPole, 1024 envs
+                   a group, T = 16, 4 x 4 minibatches, MLP 256 x 256,
+                   pallas), MAIN_UPDATES updates in 2 windows: (a) one group
+                   is every leaf of every window bitwise the plain Anakin
+                   run, no round dispatched; (b) two groups, ring, w = 0.5,
+                   as two ranks on the one card over gloo
+                   (`--gossip-rank`): a round a window, the groups' params
+                   different before each round and their mean kept by it
+                   (GOSSIP_MEAN_TOLERANCE), one B1 GAE launch an update on
+                   each rank, every gradient all-reduce on the rank's own
+                   group (epochs x minibatches an update), env-steps/s per
+                   group and in total, the gossip step's wall ms.
+ 59. sebulba_adapters — Sebulba ff_ppo with cnn_atari through
+                   `EnvPoolAdapter` over AtariDoublePool (envpool's surface:
+                   84x84x4 frames, lives, elapsed_step, partial steps by env
+                   ids) at sebulba_pixel's shape, one GAE launch an update;
+                   its task id has no tensor-env twin, so it evaluates
+                   through `get_stateful_evaluator_fn` (the episodes and host
+                   steps of each evaluation); then Sebulba ff_dqn on the
+                   pool's RAM frames, one window, no launch.
+ 60. ring_grad    — C27: a one-rank NCCL ring's output and q, k, v
+                   gradients on card-drawn [64, 512, 4, 32], causal and not,
+                   against float64 full attention on the host (RING_GRAD_
+                   TOLERANCE of each gradient's largest entry; the output
+                   2e-5), timed beside full attention's; `use_flash=True`
+                   under grad refused naming C5; the tensor-parallel block
+                   on one model shard against `reference_block`.
 
 The learning oracles (learn, knobs_learn, trans_learn, q_learn, cont_learn, rec_learn,
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
@@ -455,6 +483,7 @@ import tempfile
 import time
 from functools import partial
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -3864,6 +3893,39 @@ def dp_rank(rank: int, world: int, store: str, backend: str, out: str) -> None:
         json.dump(record, f)
 
 
+def run_rank_children(flag: str, world: int, extra_args: list, tmp: str,
+                      timeout: float = 600) -> list:
+    """`world` children of this script (`flag RANK WORLD STORE *extra_args
+    OUT`), a `file://` store in `tmp`; returns each rank's OUT path in rank
+    order once all exit 0. A failed rank stops the others and raises with
+    every rank's log."""
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+    logs = [os.path.join(tmp, f"rank{r}.log") for r in range(world)]
+    procs = []
+    for rank in range(world):
+        with open(logs[rank], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), flag, str(rank), str(world),
+                 os.path.join(tmp, "store"), *extra_args, outs[rank]],
+                stdout=log, stderr=subprocess.STDOUT))
+    try:
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.returncode for p in procs):
+                break  # one rank failed: the others would wait on it forever
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+    if any(p.returncode for p in procs):
+        text = "\n".join(f"--- rank {r} (exit {p.returncode}) ---\n{open(log).read()[-6000:]}"
+                         for r, (p, log) in enumerate(zip(procs, logs)))
+        raise AssertionError(f"{flag}: a rank failed:\n{text}")
+    return outs
+
+
 def phase_data_parallel(smi: str) -> dict:
     """Case (a) for ff_ppo and ff_pqn, then case (b); returns B1's launches
     in each run, by case."""
@@ -3899,32 +3961,8 @@ def phase_data_parallel(smi: str) -> dict:
 
     backend = "nccl" if torch.cuda.device_count() >= DP_RANKS else "gloo"
     with tempfile.TemporaryDirectory() as tmp:
-        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(DP_RANKS)]
-        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(DP_RANKS)]
-        procs = []
-        for rank in range(DP_RANKS):
-            with open(logs[rank], "w") as log:
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__), "--data-parallel-rank",
-                     str(rank), str(DP_RANKS), os.path.join(tmp, "store"), backend, outs[rank]],
-                    stdout=log, stderr=subprocess.STDOUT))
-        try:
-            deadline = time.monotonic() + 600
-            while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
-                if any(p.returncode for p in procs):
-                    break  # one rank failed: the other would wait on it forever
-                time.sleep(0.2)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait(timeout=60)
-        if any(p.returncode for p in procs):
-            text = "\n".join(f"--- rank {r} (exit {p.returncode}) ---\n{open(log).read()[-6000:]}"
-                             for r, (p, log) in enumerate(zip(procs, logs)))
-            raise AssertionError(f"a data-parallel rank failed:\n{text}")
         records = []
-        for out in outs:
+        for out in run_rank_children("--data-parallel-rank", DP_RANKS, [backend], tmp):
             with open(out) as f:
                 records.append(json.load(f))
     step = MAIN_UPDATES * int(compose(DP_OVERRIDES).system.rollout_length) * 1024
@@ -4042,6 +4080,17 @@ SEBULBA_PATHS = {
                                      f"system.replay.prioritized={mode == 'prioritized'}"],
                           0, 0)
        for mode in ("uniform", "prioritized")},
+    # Phase sebulba_adapters: the envpool adapter over chip_smoke's
+    # AtariDoublePool (no tensor-env twin: the stateful evaluator). Pixels at
+    # sebulba_pixel's shape; ff_dqn's default MLP on 128-byte RAM frames.
+    "ff_ppo_envpool": ("ff_ppo", ["env.backend=envpool", "env.scenario.name=Breakout-v5",
+                                  "network=cnn_atari",
+                                  "arch.total_num_envs=128", "system.rollout_length=32",
+                                  "arch.num_updates=4", "arch.num_evaluation=2",
+                                  "system.multistep_impl=pallas"], 1, 0),
+    "ff_dqn_envpool": ("ff_dqn", ["env.backend=envpool", "env.scenario.name=Breakout-ram-v5",
+                                  f"arch.num_updates={SEBULBA_DQN_UPDATES // 2}",
+                                  "arch.num_evaluation=1"], 0, 0),
 }
 SEBULBA_COMMON = [*ONE_CARD, "arch.num_eval_episodes=16", "logger.use_console=False"]
 
@@ -4659,6 +4708,442 @@ def phase_sebulba_learn(oracle: str) -> None:
 # (`chip_smoke.py --learn-phase NAME`) after every timed phase, LEARN_WORKERS
 # at a time, the longest first; together they were 70% of the run when they
 # ran in turn (PERF.md, Findings).
+# ---------------------------------------------------------------- gossip groups,
+# the envpool adapter and the stateful evaluator, the ring's gradients
+
+GOSSIP_ROOT = "default/gossip/default_ff_ppo.yaml"
+GOSSIP_RANKS = 2  # phase gossip_train (b): two learner groups of one rank each
+GOSSIP_OVERRIDES = [f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
+                    "arch.num_eval_episodes=16", "system.multistep_impl=pallas",
+                    "logger.use_console=False"]
+GOSSIP_MEAN_TOLERANCE = 1e-6  # of each leaf's largest entry (at least 1)
+
+
+@contextlib.contextmanager
+def recorded_reduces():
+    """Every `torch.distributed.all_reduce` inside the block, as the sorted
+    global ranks of the group it reduced over."""
+    ranks = []
+    all_reduce = dist.all_reduce
+
+    def recording(tensor, *args, group=None, **kwargs):
+        ranks.append(tuple(sorted(dist.get_process_group_ranks(group or dist.group.WORLD))))
+        return all_reduce(tensor, *args, group=group, **kwargs)
+
+    dist.all_reduce = recording
+    try:
+        yield ranks
+    finally:
+        dist.all_reduce = all_reduce
+
+
+def _host_params(params) -> dict:
+    """An ActorCriticParams as one {side/name: host tensor} dict."""
+    return {f"{side}/{k}": v.detach().cpu().clone() for side, tree in zip(("actor", "critic"), params)
+            for k, v in tree.items()}
+
+
+def _gossip_run(root: str, extra: list) -> dict:
+    """One Anakin ff_ppo `run_experiment` on the card from `root` at
+    GOSSIP_OVERRIDES, B1's counters zeroed just before and read just after:
+    each window's params after the learn step and, where a round ran, after
+    it; the ranks of every all-reduce; the runner's stats."""
+    lr = linear_recurrence
+    config = compose(GOSSIP_OVERRIDES + extra, root)
+    learned, mixed = [], []
+    setup_fn = ff_ppo.learner_setup
+
+    def recording_setup(*args, **kwargs):
+        setup = setup_fn(*args, **kwargs)
+        learn = setup.learn
+
+        def recorded_learn(state):
+            out = learn(state)
+            learned.append(_host_params(out.learner_state.params))
+            return out
+
+        plan = setup.gossip
+        if plan is not None and plan.step is not None:
+            step = plan.step
+
+            def recorded_step(state, round_idx):
+                out = step(state, round_idx)
+                mixed.append(_host_params(out.params))
+                return out
+
+            plan = plan._replace(step=recorded_step)
+        return setup._replace(learn=recorded_learn, gossip=plan)
+
+    for counter in lr.COUNTERS:
+        counter.launches = 0
+    before = _allreduces()
+    ff_ppo.learner_setup = recording_setup
+    try:
+        with recorded_reduces() as reduces:
+            start = time.perf_counter()
+            final_return = ff_ppo.run_experiment(config, device="cuda")
+            seconds = time.perf_counter() - start
+    finally:
+        ff_ppo.learner_setup = setup_fn
+    stats = copy.deepcopy({k: v for k, v in runner.LAST_RUN_STATS.items() if k != "history"})
+    if not math.isfinite(final_return):
+        raise AssertionError(f"{root} {extra}: non-finite eval return {final_return}")
+    updates = int(config.arch.num_updates)
+    return {"learned": learned, "mixed": mixed, "b1_launches": _counts(lr.COUNTERS),
+            "reduce_ranks": sorted(set(reduces)), "updates": updates, "stats": stats,
+            "allreduces_per_update": {k: (v - before[k]) / updates
+                                      for k, v in _allreduces().items()},
+            "expected_gradient_allreduces_per_update":
+                int(config.system.epochs) * int(config.system.num_minibatches),
+            "final_eval_return": final_return, "seconds": seconds}
+
+
+def _check_b1_per_update(label: str, run: dict) -> None:
+    lr = linear_recurrence
+    want = {lr.GAE_KERNEL.name: run["updates"], lr.KERNEL.name: 0}
+    if run["b1_launches"] != want:
+        raise AssertionError(f"{label}: B1 launched {run['b1_launches']} in {run['updates']} "
+                             "updates, not one GAE launch each")
+
+
+def gossip_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of phase gossip_train's case (b) (`--gossip-rank`): both
+    ranks on the one card in a gloo group (NCCL refuses two ranks on one
+    device), one learner group each; its record to `out` (JSON) and its
+    params to `out`.pt."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
+    try:
+        run = _gossip_run(GOSSIP_ROOT, [f"arch.mesh.group={world}"])
+        run["backend"] = dist.get_backend()
+        run["rank"] = dist.get_rank()
+    finally:
+        dist.destroy_process_group()
+    torch.save({"learned": run.pop("learned"), "mixed": run.pop("mixed")}, out + ".pt")
+    with open(out, "w") as f:
+        json.dump(run, f)
+
+
+def phase_gossip_train(smi: str) -> dict:
+    """Gossip-grouped Anakin ff_ppo at default/gossip/default_ff_ppo.yaml's
+    full width (CartPole, 1024 envs a group, T = 16, 4 x 4 minibatches, MLP
+    256 x 256, pallas), MAIN_UPDATES updates in 2 windows: (a) one group is
+    every leaf of every window bitwise the plain run, no round; (b) two
+    groups as two ranks on the card, ring, w = 0.5. Returns B1's launches by
+    case."""
+    plain = _gossip_run(PPO_ROOT, [])
+    one = _gossip_run(GOSSIP_ROOT, [])
+    for label, run in (("plain", plain), ("group=1", one)):
+        _check_b1_per_update(f"gossip_train (a) {label}", run)
+    if one["mixed"] or one["stats"]["gossip"]["rounds"] != 0:
+        raise AssertionError(f"one group dispatched a round: {one['stats']['gossip']}")
+    compared = 0
+    for window, (a, b) in enumerate(zip(plain["learned"], one["learned"])):
+        if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"gossip group=1 differs from the plain run at window {window}")
+        compared += len(a)
+    emit({"phase": "gossip_train", "case": "a", "groups": 1,
+          "windows": len(one["learned"]), "bitwise_equal_leaves": compared,
+          "b1_launches": one["b1_launches"], "gossip": one["stats"]["gossip"],
+          "env_steps_per_second": one["stats"]["steps_per_second"],
+          "plain_env_steps_per_second": plain["stats"]["steps_per_second"],
+          "seconds": one["seconds"], "card": smi})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = run_rank_children("--gossip-rank", GOSSIP_RANKS, [], tmp)
+        records, params = [], []
+        for out in outs:
+            with open(out) as f:
+                records.append(json.load(f))
+            params.append(torch.load(out + ".pt", weights_only=True))
+    windows = len(params[0]["learned"])
+    per_update = records[0]["expected_gradient_allreduces_per_update"]
+    worst_mean = 0.0
+    for record in records:
+        rank = record["rank"]
+        _check_b1_per_update(f"gossip_train (b) rank {rank}", record)
+        gossip = record["stats"]["gossip"]
+        if gossip["rounds"] != windows or gossip["num_groups"] != GOSSIP_RANKS:
+            raise AssertionError(f"rank {rank}: {gossip} over {windows} windows")
+        # Each rank is a group of one: every all-reduce stays on it, the
+        # gradients' one a minibatch.
+        if record["reduce_ranks"] != [[rank]] or \
+                record["allreduces_per_update"]["gradients"] != per_update:
+            raise AssertionError(f"rank {rank}: all-reduces over {record['reduce_ranks']}, "
+                                 f"{record['allreduces_per_update']} an update, not {per_update} "
+                                 "gradient all-reduces on its own group")
+    for window in range(windows):
+        pre = [p["learned"][window] for p in params]
+        post = [p["mixed"][window] for p in params]
+        if all(torch.equal(pre[0][k], pre[1][k]) for k in pre[0]):
+            raise AssertionError(f"the groups' params are equal before round {window}")
+        for k in pre[0]:
+            scale = max(1.0, float(pre[0][k].abs().max()), float(pre[1][k].abs().max()))
+            err = float(((post[0][k] + post[1][k]) / 2 - (pre[0][k] + pre[1][k]) / 2)
+                        .abs().max()) / scale
+            worst_mean = max(worst_mean, err)
+    if not worst_mean <= GOSSIP_MEAN_TOLERANCE:
+        raise AssertionError(f"a round moved the group mean by {worst_mean}")
+    sps = [r["stats"]["steps_per_second"] for r in records]
+    gossip_s = [r["stats"]["phase_breakdown"]["gossip_s"] for r in records]
+    emit({"phase": "gossip_train", "case": "b", "groups": GOSSIP_RANKS, "backend": "gloo",
+          "cards": torch.cuda.device_count(), "topology": "ring", "mixing_weight": 0.5,
+          "windows": windows, "rounds": [r["stats"]["gossip"]["rounds"] for r in records],
+          "b1_gae_launches_per_rank": [r["b1_launches"][linear_recurrence.GAE_KERNEL.name]
+                                       for r in records],
+          "allreduces_per_update": records[0]["allreduces_per_update"],
+          "allreduce_groups_per_rank": [r["reduce_ranks"] for r in records],
+          "group_mean_max_relative_change": worst_mean, "tolerance": GOSSIP_MEAN_TOLERANCE,
+          "env_steps_per_second_per_group": sps,
+          "env_steps_per_second_total": [sum(w) for w in zip(*sps)],
+          "gossip_step_ms_per_rank": [1e3 * g / windows for g in gossip_s],
+          "window_seconds": [r["stats"]["window_seconds"] for r in records],
+          "final_eval_return": records[0]["final_eval_return"],
+          "seconds": [r["seconds"] for r in records], "card": smi})
+    gae = linear_recurrence.GAE_KERNEL.name
+    return {"a_group_1": one["b1_launches"][gae],
+            "b_per_rank": [r["b1_launches"][gae] for r in records]}
+
+
+class AtariDoublePool:
+    """A pool with envpool's surface (gymnasium API with
+    `gym_reset_return_info`, partial steps by env ids,
+    `spec.config.max_episode_steps`, `info["elapsed_step"]`,
+    `info["lives"]`), vectorised in numpy: envpool's autoreset (the step
+    after a done resets the env and advances nothing), LIVES lives, each
+    life ending with probability DEATH a step from a seeded generator,
+    elapsed steps counted a life, +1 reward a step. Observations are frames
+    of `obs_shape` whose values encode (env, game, step in life)."""
+
+    LIVES, DEATH, MAX_STEPS, ACTIONS = 3, 0.05, 64, 4
+
+    def __init__(self, num_envs: int, obs_shape=(84, 84, 4), seed: int = 0):
+        class Spec:
+            class config:
+                max_episode_steps = AtariDoublePool.MAX_STEPS
+
+        class ActionSpace:
+            n = AtariDoublePool.ACTIONS
+
+        self.spec, self.action_space = Spec(), ActionSpace()
+        self._n, self._shape = num_envs, tuple(obs_shape)
+        self._rng = np.random.default_rng(seed)
+        self._game = np.zeros(num_envs, np.int64)
+        self._life_step = np.zeros(num_envs, np.int64)
+        self._elapsed = np.zeros(num_envs, np.int64)
+        self._lives = np.full(num_envs, self.LIVES, np.int64)
+        self._needs_reset = np.zeros(num_envs, bool)
+        self.steps = 0  # whole-pool steps
+        self.truncations = 0  # lives cut at the step limit
+
+    def _obs(self, ids):
+        value = (np.arange(self._n)[ids] * 7 + self._game[ids] * 31 + self._life_step[ids]) % 256
+        return np.broadcast_to(value[:, None].astype(np.float32),
+                               (len(ids), int(np.prod(self._shape)))
+                               ).reshape((len(ids),) + self._shape).copy()
+
+    def reset(self):
+        self._game[:] = 0
+        self._life_step[:] = 0
+        self._elapsed[:] = 0
+        self._lives[:] = self.LIVES
+        self._needs_reset[:] = False
+        return self._obs(np.arange(self._n)), {}
+
+    def step(self, action, env_ids=None):
+        ids = np.arange(self._n) if env_ids is None else np.asarray(env_ids)
+        self.steps += env_ids is None
+        resetting = self._needs_reset[ids]
+        moving = ids[~resetting]
+        restart = ids[resetting]
+        self._needs_reset[restart] = False
+        self._life_step[restart] = 0
+        self._elapsed[restart] = 0
+        over = restart[self._lives[restart] <= 0]
+        self._lives[over] = self.LIVES
+        self._game[over] += 1
+        self._life_step[moving] += 1
+        self._elapsed[moving] += 1
+        reward = np.where(resetting, 0.0, 1.0).astype(np.float32)
+        dies = np.zeros(len(ids), bool)
+        dies[~resetting] = self._rng.random(len(moving)) < self.DEATH
+        self._lives[ids[dies]] -= 1
+        self._needs_reset[ids[dies]] = True
+        limit = ~dies & ~resetting & (self._elapsed[ids] >= self.MAX_STEPS)
+        self._needs_reset[ids[limit]] = True
+        self.truncations += int(limit.sum())
+        info = {"elapsed_step": self._elapsed[ids].copy(), "lives": self._lives[ids].copy(),
+                "reward": reward.copy()}
+        return self._obs(ids), reward, dies, np.zeros(len(ids), bool), info
+
+    def close(self):
+        pass
+
+
+@contextlib.contextmanager
+def envpool_double(obs_shape):
+    """Sebulba's env factory replaced by `EnvPoolAdapter`s over
+    AtariDoublePools of `obs_shape`, and its stateful evaluator recorded:
+    yields {"pools": every pool made, "evaluations": [(episodes, nan, host
+    steps)]}."""
+    from stoix_tpu_torch.envs.envpool_adapter import EnvPoolAdapter
+    from stoix_tpu_torch.envs.factory import EnvFactory
+    from stoix_tpu_torch.systems.ppo.sebulba import ff_ppo as sebulba_ppo
+    from stoix_tpu_torch.systems.q_learning.sebulba import ff_dqn as sebulba_dqn
+
+    seen = {"pools": [], "evaluations": []}
+
+    class DoubleFactory(EnvFactory):
+        def __call__(self, num_envs: int):
+            pool = AtariDoublePool(num_envs, obs_shape, seed=self._next_seed(num_envs))
+            seen["pools"].append(pool)
+            return EnvPoolAdapter(pool)
+
+    stateful = sebulba_ppo.get_stateful_evaluator_fn
+
+    def recorded_stateful(env_factory, act_fn, config, device="cpu"):
+        pools = []
+
+        def factory(num_envs):
+            adapter = env_factory(num_envs)
+            pools.append(adapter._env)
+            return adapter
+
+        evaluate = stateful(factory, act_fn, config, device)
+
+        def evaluator(params, generator):
+            before = pools[0].steps
+            metrics = evaluate(params, generator)
+            returns = metrics["episode_return"]
+            seen["evaluations"].append((int(returns.numel()), bool(torch.isnan(returns).any()),
+                                        pools[0].steps - before))
+            return metrics
+
+        return evaluator
+
+    patched = [(sebulba_ppo, "make_factory"), (sebulba_dqn, "make_factory"),
+               (sebulba_ppo, "get_stateful_evaluator_fn")]
+    saved = [getattr(module, name) for module, name in patched]
+    sebulba_ppo.make_factory = sebulba_dqn.make_factory = lambda config: DoubleFactory(
+        "envpool-double", int(config.arch.seed))
+    sebulba_ppo.get_stateful_evaluator_fn = recorded_stateful
+    try:
+        yield seen
+    finally:
+        for (module, name), value in zip(patched, saved):
+            setattr(module, name, value)
+
+
+def phase_sebulba_adapters(smi: str) -> dict:
+    """Sebulba ff_ppo with cnn_atari through `EnvPoolAdapter` on an
+    in-script pool with envpool's surface (84x84x4 frames, lives,
+    elapsed_step truncation, partial steps by env ids), at
+    phase_sebulba_pixel's shape (128 envs in 2 actors, T = 32), 4 updates in
+    2 windows: one GAE launch an update; its task id (Breakout-v5) has no
+    tensor-env twin, so it evaluates through `get_stateful_evaluator_fn`.
+    Then Sebulba ff_dqn (default_ff_dqn.yaml's MLP) on the pool's 128-byte
+    RAM observations (Breakout-ram-v5), one window. Returns each run's
+    kernel launches."""
+    from stoix_tpu_torch.envs.registry import ENV_REGISTRY
+
+    launches = {}
+    for label, obs_shape in (("ff_ppo_envpool", (84, 84, 4)), ("ff_dqn_envpool", (128,))):
+        scenario = next(o.split("=")[1] for o in SEBULBA_PATHS[label][1]
+                        if o.startswith("env.scenario.name="))
+        if scenario in ENV_REGISTRY:
+            raise AssertionError(f"{scenario} has a tensor-env twin")
+        with envpool_double(obs_shape) as seen:
+            record = _sebulba_run(label, "sebulba_adapters", smi)
+        evaluations = seen["evaluations"]
+        episodes = int(compose(SEBULBA_COMMON).arch.num_eval_episodes)
+        if not evaluations or any(n != episodes or nan for n, nan, _ in evaluations):
+            raise AssertionError(f"{label}: the stateful evaluator gave {evaluations}, not "
+                                 f"{episodes} concluded episodes each time")
+        emit({**record, "adapter": "EnvPoolAdapter", "obs_shape": list(obs_shape),
+              "evaluator": "get_stateful_evaluator_fn",
+              "evaluations": [{"episodes": n, "host_steps": steps}
+                              for n, _, steps in evaluations],
+              "pools": len(seen["pools"]),
+              "truncations": sum(p.truncations for p in seen["pools"])})
+        launches[label] = record["kernel_launches"]
+    return launches
+
+
+RING_GRAD_TOLERANCE = 1e-5  # of each gradient's largest entry; the output 2e-5
+
+
+def phase_ring_grad(smi: str, mesh) -> None:
+    """C27 on the card: a one-rank NCCL ring's forward and q, k, v gradients
+    of sum(out * w) on card-drawn inputs [64, 512, 4, 32] (RING_BATCH, the
+    ring phases' window), causal and not, against float64 full attention on
+    the host; `use_flash=True` under grad refused (C5); the ring's forward
+    and backward timed beside full attention's. Then the tensor-parallel
+    block on one model shard (256 -> 1024 -> 256 over 4096 rows) against
+    `reference_block`, forward and gradients."""
+    from stoix_tpu_torch.parallel import tp
+
+    group = mesh.get_group("data")
+    b, s, h, d = RING_BATCH, 512, 4, 32
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for causal in (False, True):
+        q, k, v, w = (torch.randn((b, s, h, d), generator=gen, device="cuda") for _ in range(4))
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = ring_attention(*leaves, group, causal=causal)
+        (out * w).sum().backward()
+        ref = [x.detach().cpu().double().requires_grad_(True) for x in (q, k, v)]
+        want = full_attention(*ref, causal=causal)
+        (want * w.cpu().double()).sum().backward()
+        out_err = float((out.detach().cpu().double() - want.detach()).abs().max())
+        grad_err = {name: float((x.grad.cpu().double() - r.grad).abs().max()
+                                / r.grad.abs().max())
+                    for name, x, r in zip(("dq", "dk", "dv"), leaves, ref)}
+        if not out_err <= 2e-5 or not max(grad_err.values()) <= RING_GRAD_TOLERANCE:
+            raise AssertionError(f"ring gradients (causal={causal}): output {out_err}, "
+                                 f"{grad_err}")
+
+        def ring_step(fn):
+            def run():
+                for x in leaves:
+                    x.grad = None
+                (fn(*leaves) * w).sum().backward()
+            return run
+
+        times = {"ring_forward_backward_ms": cuda_ms(ring_step(
+                     lambda *x: ring_attention(*x, group, causal=causal)), repeats=5, inner=5),
+                 "full_attention_forward_backward_ms": cuda_ms(ring_step(
+                     lambda *x: full_attention(*x, causal=causal)), repeats=5, inner=5)}
+        emit({"phase": "ring_grad", "shape": [b, s, h, d], "causal": causal, "ranks": 1,
+              "backend": "nccl", "output_max_abs_err": out_err,
+              "gradient_max_err_relative_to_largest": grad_err,
+              "tolerance": RING_GRAD_TOLERANCE, **times, "card": smi})
+    try:
+        ring_attention(*leaves, group, causal=True, use_flash=True)
+        raise AssertionError("use_flash=True under grad was not refused")
+    except NotImplementedError as error:
+        if "C5" not in str(error):
+            raise
+
+    params = tp.init_column_row_params(torch.Generator(device="cuda").manual_seed(3), 256,
+                                       1024, 256, num_shards=1)
+    x = torch.randn((4096, 256), generator=gen, device="cuda")
+    shard = tp.ColumnRowParams(*(p.clone().requires_grad_(True)
+                                 for p in tp.shard_params(params, 0)))
+    full = tp.ColumnRowParams(*(p.clone().requires_grad_(True) for p in params))
+    got = tp.column_row_block(shard, x, group)
+    want = tp.reference_block(full, x)
+    (got ** 2).mean().backward()
+    (want ** 2).mean().backward()
+    errs = {"forward": float((got - want).detach().abs().max()),
+            **{name: float((a.grad - b.grad).abs().max())
+               for name, a, b in zip(tp.ColumnRowParams._fields, shard, full)}}
+    if max(errs.values()) > 1e-6:
+        raise AssertionError(f"the one-shard block differs from reference_block: {errs}")
+    emit({"phase": "ring_grad", "case": "tp_block_one_shard", "shape": [4096, 256, 1024, 256],
+          "max_abs_err": errs, "card": smi})
+
+
 LEARN_PHASES = {
     **{f"{name}_learn": partial(phase_pendulum_learn, name)
        for name in PENDULUM_THRESHOLDS},
@@ -4846,6 +5331,17 @@ def main() -> None:
     for entry in (recurrence, gae, *attention, chunk, *wide):
         entry["launches_sebulba_offpolicy"] = {label: counts[entry["name"]]
                                                for label, counts in offpolicy.items()}
+    # A17a, A15b and C27: gossip groups (one GAE launch an update on each
+    # group's rank), Sebulba through the envpool adapter and the stateful
+    # evaluator (one an update on ff_ppo, none on ff_dqn), the ring's
+    # gradients and the tensor-parallel block (no kernel).
+    gae["launches_gossip"] = phase_gossip_train(smi)
+    adapters = phase_sebulba_adapters(smi)
+    for entry in (recurrence, gae, *attention, chunk, *wide):
+        entry["launches_sebulba_adapters"] = {label: counts[entry["name"]]
+                                              for label, counts in adapters.items()}
+    with one_rank_mesh() as mesh:
+        phase_ring_grad(smi, mesh)
     gae["launches_data_parallel"] = {"a_one_rank_ff_ppo": data_parallel["a_ff_ppo"],
                                      "b_per_rank": data_parallel["b_per_rank"]}
     recurrence["launches_data_parallel"] = {"a_one_rank_ff_pqn": data_parallel["a_ff_pqn"]}
@@ -4868,6 +5364,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         dp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
+    elif sys.argv[1:2] == ["--gossip-rank"]:
+        gossip_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     elif sys.argv[1:2] == ["--learn-phase"]:
         learn_child(sys.argv[2])
     else:

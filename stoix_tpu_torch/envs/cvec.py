@@ -94,7 +94,8 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def _host(x: np.ndarray) -> torch.Tensor:
+def host_tensor(x: np.ndarray) -> torch.Tensor:
+    """A host tensor holding a copy of `x` (the pool's buffers are reused)."""
     return torch.from_numpy(np.ascontiguousarray(x).copy())
 
 
@@ -157,9 +158,9 @@ class CVecPool:
 
     def _observation(self, view: np.ndarray, counts: np.ndarray) -> Observation:
         return Observation(
-            agent_view=_host(view.reshape((self._n,) + self._obs_shape)),
+            agent_view=host_tensor(view.reshape((self._n,) + self._obs_shape)),
             action_mask=torch.ones((self._n, self._num_actions), dtype=torch.float32),
-            step_count=_host(counts.astype(np.int32)),
+            step_count=host_tensor(counts.astype(np.int32)),
         )
 
     def _timestep(self, first: bool) -> TimeStep:
@@ -170,17 +171,17 @@ class CVecPool:
         step_type = (np.zeros((self._n,), np.int8) if first
                      else np.where(last, np.int8(2), np.int8(1)).astype(np.int8))
         return TimeStep(
-            step_type=_host(step_type),
-            reward=_host(self._reward),
-            discount=_host(np.where(done, 0.0, 1.0).astype(np.float32)),
+            step_type=host_tensor(step_type),
+            reward=host_tensor(self._reward),
+            discount=host_tensor(np.where(done, 0.0, 1.0).astype(np.float32)),
             observation=self._observation(self._obs, counts),
             extras={
                 "next_obs": self._observation(self._next_obs, self._ep_length),
-                "truncation": _host(trunc),
+                "truncation": host_tensor(trunc),
                 "episode_metrics": {
-                    "episode_return": _host(self._ep_return),
-                    "episode_length": _host(self._ep_length),
-                    "is_terminal_step": _host(last),
+                    "episode_return": host_tensor(self._ep_return),
+                    "episode_length": host_tensor(self._ep_length),
+                    "is_terminal_step": host_tensor(last),
                 },
             },
         )

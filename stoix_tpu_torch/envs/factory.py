@@ -1,6 +1,6 @@
 """Stateful environment factories, the Sebulba env seam (counterpart of
-stoix_tpu/envs/factory.py: `EnvFactory`, `JaxToStateful`, `JaxEnvFactory`
-and `make_factory`).
+stoix_tpu/envs/factory.py: `EnvFactory`, `JaxToStateful`, `JaxEnvFactory`,
+`EnvPoolFactory` and `make_factory`).
 
 Sebulba actors consume STATEFUL batched envs: `envs.reset(seed=)` and
 `envs.step(action)` return a TimeStep, the state living inside the object.
@@ -9,9 +9,11 @@ Sebulba actors consume STATEFUL batched envs: `envs.reset(seed=)` and
 with its own `torch.Generator`; like the JAX package's `JaxEnvFactory` it
 defaults to the CPU: in Sebulba the envs live on the host, and inference
 and learning run on the card. `env.backend: jax` keeps its name and selects
-it; `env.backend: cvec` selects the native C++ pool (envs/cvec.py). The
-gymnasium and envpool adapters wait for A15's second part and are refused.
-Seeds are handed out under a lock, so every actor thread draws unique envs.
+it; `env.backend: cvec` selects the native C++ pool (envs/cvec.py),
+`gymnasium` a SyncVectorEnv behind envs/gymnasium_adapter.py and `envpool`
+an envpool pool behind envs/envpool_adapter.py; both packages are optional
+and imported only when their factory makes envs. Seeds are handed out under
+a lock, so every actor thread draws unique envs.
 """
 
 from __future__ import annotations
@@ -24,8 +26,6 @@ import torch
 from stoix_tpu_torch.envs.core import Environment
 from stoix_tpu_torch.envs.types import TimeStep
 from stoix_tpu_torch.envs.wrappers import AutoResetWrapper, RecordEpisodeMetrics
-
-UNPORTED_BACKENDS = ("gymnasium", "envpool")
 
 
 class EnvFactory:
@@ -113,25 +113,46 @@ class TensorEnvFactory(EnvFactory):
         return TensorToStateful(env, num_envs, seed, self._device)
 
 
-def backend_of(config: Any) -> str:
-    """`env.backend` ("jax" when unset); the unported adapters raise."""
-    backend = str(config.env.get("backend", "jax"))
-    if backend in UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"env.backend={backend} is not ported: the {backend} adapter and the stateful "
-            "evaluator wait for A15's second part; env.backend=cvec or jax")
-    return backend
+class EnvPoolFactory(EnvFactory):
+    """EnvPool (C++ vectorised envs) pools behind `EnvPoolAdapter`; needs the
+    optional `envpool` package and raises a clear error without it."""
+
+    def __call__(self, num_envs: int) -> Any:
+        try:
+            import envpool
+        except ImportError as e:
+            raise ImportError(
+                "EnvPoolFactory requires the optional 'envpool' package, which "
+                "is not installed in this environment. Use TensorEnvFactory, or "
+                "the native CVecEnvFactory (stoix_tpu_torch/envs/cvec.py) for the "
+                "first-party C++ vectorized envs."
+            ) from e
+        from stoix_tpu_torch.envs.envpool_adapter import EnvPoolAdapter
+
+        seed = self._next_seed(num_envs)
+        # gym_reset_return_info: reset() -> (obs, info), the API the adapter takes.
+        return EnvPoolAdapter(envpool.make(self._task_id, env_type="gymnasium",
+                                           num_envs=num_envs, seed=seed,
+                                           gym_reset_return_info=True, **self._kwargs))
 
 
 def make_factory(config: Any) -> EnvFactory:
-    """The Sebulba env factory of `config`: the native pool under
-    `env.backend: cvec`, else the port's tensor env on the CPU."""
+    """The Sebulba env factory of `config`, by `env.backend`: the native pool
+    (cvec), the gymnasium or envpool adapters, else the port's tensor env on
+    the CPU (jax, the default)."""
     scenario = (config.env.scenario.name if hasattr(config.env.scenario, "name")
                 else config.env.scenario)
     kwargs = dict(config.env.get("kwargs", {}) or {})
+    backend = str(config.env.get("backend", "jax"))
     seed = int(config.arch.seed)
-    if backend_of(config) == "cvec":
+    if backend == "envpool":
+        return EnvPoolFactory(scenario, seed, **kwargs)
+    if backend == "cvec":
         from stoix_tpu_torch.envs.cvec import CVecEnvFactory
 
         return CVecEnvFactory(scenario, seed, **kwargs)
+    if backend == "gymnasium":
+        from stoix_tpu_torch.envs.gymnasium_adapter import GymnasiumFactory
+
+        return GymnasiumFactory(scenario, seed, **kwargs)
     return TensorEnvFactory(scenario, seed, suite=config.env.get("env_name"), **kwargs)

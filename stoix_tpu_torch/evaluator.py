@@ -1,6 +1,7 @@
 """Evaluator (counterpart of stoix_tpu/evaluator.py: `get_distribution_act_fn`,
-`get_ff_evaluator_fn`, `get_rnn_evaluator_fn`, `evaluator_setup` and the
-evaluation-reset hooks `make_tiled_eval_reset_fn` and `env.eval_reset_fn`).
+`get_ff_evaluator_fn`, `get_rnn_evaluator_fn`, `get_stateful_evaluator_fn`,
+`evaluator_setup` and the evaluation-reset hooks `make_tiled_eval_reset_fn`
+and `env.eval_reset_fn`).
 
 All `num_eval_episodes` episodes run as ONE batch of envs. An episode that
 has ended is frozen (its state and timestep no longer change) while the rest
@@ -190,6 +191,42 @@ def get_rnn_evaluator_fn(
             "episode_return": metrics["episode_return"],
             "episode_length": metrics["episode_length"],
         }
+
+    return evaluator
+
+
+def get_stateful_evaluator_fn(env_factory: Any, act_fn: ActFn, config: Any,
+                              device: Any = "cpu"
+                              ) -> Callable[[Any, torch.Generator], Dict[str, torch.Tensor]]:
+    """The evaluator of a stateful env backend with no tensor-env twin (the
+    gymnasium and envpool adapters): it drives one pool of
+    `arch.num_eval_episodes` envs from the factory on the host until that
+    many episodes conclude, at most `arch.eval_max_steps` (default 100 000)
+    host steps, acting through `act_fn` on `device` (the evaluator's) with
+    the observations moved there. It returns the metrics contract
+    ({"episode_return": [episodes]}, float32 on the host); when no episode
+    concludes, [nan], visible in the logs and never zero."""
+    episodes_needed = int(config.arch.num_eval_episodes)
+    envs = env_factory(episodes_needed)
+    device = torch.device(device)
+    max_host_steps = int(config.arch.get("eval_max_steps") or 0) or 100_000
+
+    @torch.no_grad()
+    def evaluator(params: Any, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        timestep = envs.reset()
+        returns: list = []
+        for _ in range(max_host_steps):
+            if len(returns) >= episodes_needed:
+                break
+            observation = tree_map(lambda x: x.to(device), timestep.observation)
+            action = act_fn(params, observation, generator)
+            timestep = envs.step(action.cpu())
+            metrics = timestep.extras["episode_metrics"]
+            concluded = metrics["is_terminal_step"].to(torch.bool).cpu()
+            returns.extend(metrics["episode_return"].cpu()[concluded].tolist())
+        if not returns:
+            returns = [float("nan")]
+        return {"episode_return": torch.tensor(returns[:episodes_needed], dtype=torch.float32)}
 
     return evaluator
 

@@ -83,18 +83,67 @@ def ring_attention(
 
     `use_flash` routes each block's contribution through kernel B3
     (ops/pallas_attention.py::flash_attention_chunk), the same (m, pv, l)
-    accumulator contract; None means the kernel for a CUDA tensor and the
-    plain `_block_attend` for a CPU tensor. True on a CPU tensor runs the
-    kernel's plain version. On CUDA the kernel always runs (a head dim it is
-    not built for zero-padded up to 256, any wider one through the wide chunk
-    kernel) and raises for what it cannot take.
+    accumulator contract; True on a CPU tensor runs the kernel's plain
+    version. On CUDA the kernel always runs (a head dim it is not built for
+    zero-padded up to 256, any wider one through the wide chunk kernel) and
+    raises for what it cannot take. B3 is forward only, as the Pallas chunk
+    kernel is (ROADMAP C5), so the choice is made from the tensors:
+
+    - None: the kernel for CUDA tensors that need no gradient, the plain
+      blocks otherwise; when any of q, k, v requires a gradient (and grad
+      mode is on) the plain ring runs under `RingAttention`, whose backward
+      is a second ring pass (the JAX package's `use_flash=False` ring, which
+      `jax.grad` differentiates through `ppermute`'s transpose);
+    - True with a gradient required raises, naming C5;
+    - False: the plain blocks, differentiable the same way.
     """
+    needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    if use_flash is None:
+        use_flash = q.device.type == "cuda" and not needs_grad
+    if use_flash and needs_grad:
+        raise NotImplementedError(
+            "ring_attention(use_flash=True) is forward only: kernel B3, like the Pallas "
+            "chunk kernel it ports, has no backward (ROADMAP C5); pass use_flash=None or "
+            "False to differentiate the ring")
+    if needs_grad:
+        return RingAttention.apply(q, k, v, group, causal)
+    return _ring_forward(q, k, v, group, causal, use_flash)[0]
+
+
+def _ring_peers(group: dist.ProcessGroup, my_idx: int, axis_size: int):
+    """(the global rank a block is sent to, the one it is received from)."""
+    return (dist.get_global_rank(group, (my_idx - 1) % axis_size),
+            dist.get_global_rank(group, (my_idx + 1) % axis_size))
+
+
+def _contiguous(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy, never the caller's tensor (sends need contiguous
+    tensors: q, k, v may be strided views of the fused qkv projection)."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _exchange(sends, recvs, send_to: int, recv_from: int, group, tag: int) -> list:
+    """Start sending `sends` to `send_to` and receiving `recvs` from
+    `recv_from`, tags from `tag` on; returns the requests to wait on."""
+    ops = [dist.P2POp(dist.isend, x, send_to, group, tag=tag + i) for i, x in enumerate(sends)]
+    ops += [dist.P2POp(dist.irecv, x, recv_from, group, tag=tag + i)
+            for i, x in enumerate(recvs)]
+    return dist.batch_isend_irecv(ops)
+
+
+def _causal_mask(my_idx: int, src: int, s: int, device) -> torch.Tensor:
+    """[1, 1, Sq, Sk]: query (my_idx's shard) at or after key (src's shard)."""
+    local = torch.arange(s, dtype=torch.int32, device=device)
+    return ((my_idx * s + local)[:, None] >= (src * s + local)[None, :])[None, None]
+
+
+def _ring_forward(q, k, v, group, causal: bool, use_flash: bool):
+    """The ring's fold: (output in q.dtype, the rows' final max m and
+    normaliser l, each [B, H, S] float32)."""
     axis_size = dist.get_world_size(group)
     my_idx = dist.get_rank(group)
     scale = q.shape[-1] ** -0.5
     b, s, h, d = q.shape
-    if use_flash is None:
-        use_flash = q.device.type == "cuda"
     if use_flash:
         # pallas_attention imports this module (full_attention), as in the
         # JAX package: import the chunk kernel's entry point here.
@@ -110,14 +159,11 @@ def ring_attention(
 
     k_blk, v_blk = k, v
     if axis_size > 1:
-        # Sends need contiguous tensors: q, k, v may be strided views of the
-        # fused qkv projection. The copies (never the caller's k, v) and a
-        # second pair take turns receiving.
-        k_blk, v_blk = k.clone(memory_format=torch.contiguous_format), v.clone(
-            memory_format=torch.contiguous_format)
+        # The copies (never the caller's k, v) and a second pair take turns
+        # receiving.
+        k_blk, v_blk = _contiguous(k), _contiguous(v)
         k_next, v_next = torch.empty_like(k_blk), torch.empty_like(v_blk)
-        send_to = dist.get_global_rank(group, (my_idx - 1) % axis_size)
-        recv_from = dist.get_global_rank(group, (my_idx + 1) % axis_size)
+        send_to, recv_from = _ring_peers(group, my_idx, axis_size)
 
     for r in range(axis_size):
         # The block currently held arrived from rank (my_idx + r) % R.
@@ -127,19 +173,12 @@ def ring_attention(
         # last step's rotation would be discarded: skip the hop.
         pending = []
         if r < axis_size - 1:
-            pending = dist.batch_isend_irecv([
-                dist.P2POp(dist.isend, k_blk, send_to, group, tag=0),
-                dist.P2POp(dist.isend, v_blk, send_to, group, tag=1),
-                dist.P2POp(dist.irecv, k_next, recv_from, group, tag=0),
-                dist.P2POp(dist.irecv, v_next, recv_from, group, tag=1),
-            ])
+            pending = _exchange((k_blk, v_blk), (k_next, v_next), send_to, recv_from, group, 0)
         if use_flash:
             pv_blk, m_blk, l_blk = flash_attention_chunk(
                 q, k_blk, v_blk, q_pos, k_pos, causal=causal, block_q=s, block_k=s)
         else:
-            mask = None
-            if causal:
-                mask = (q_pos[:, None] >= k_pos[None, :])[None, None]  # [1, 1, Sq, Sk]
+            mask = _causal_mask(my_idx, src, s, q.device) if causal else None
             m_blk, pv_blk, l_blk = _block_attend(q, k_blk, v_blk, scale, mask)
 
         m_acc, l_acc, o_acc = fold_chunk((m_acc, l_acc, o_acc), pv_blk, m_blk, l_blk)
@@ -152,7 +191,80 @@ def ring_attention(
 
     # Normalize; fully-masked rows (l == 0) return zeros.
     l_safe = torch.where(l_acc == 0.0, 1.0, l_acc)
-    return (o_acc / _bhs_to_bshd(l_safe)).to(q.dtype)
+    return (o_acc / _bhs_to_bshd(l_safe)).to(q.dtype), m_acc, l_acc
+
+
+class RingAttention(torch.autograd.Function):
+    """The plain ring (`use_flash=False`) with its gradients across ranks.
+
+    Autograd does not cross the ring's sends, so the backward is a ring pass
+    of its own: a flash-style backward on the global row statistics. Each
+    rank keeps its queries' final max m and normaliser l from the forward,
+    so a block's probabilities are recomputed as exp(s - m) / l with no
+    second softmax. The K/V blocks rotate as in the forward (contiguous
+    copies, the last hop skipped), and each block's dK/dV accumulators
+    travel with it: a rank adds its queries' contribution and passes them
+    on, and one last hop after the R-th fold brings them home, so every rank
+    ends holding the full gradient of its own K/V shard. dQ stays local. All
+    of it accumulates in float32 and returns in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, group, causal):
+        out, m, l = _ring_forward(q, k, v, group, causal, use_flash=False)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.group, ctx.causal = group, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, m, l = ctx.saved_tensors
+        group, causal = ctx.group, ctx.causal
+        axis_size = dist.get_world_size(group)
+        my_idx = dist.get_rank(group)
+        s = q.shape[1]
+        scale = q.shape[-1] ** -0.5
+        qf, dof = q.float(), d_out.float()
+        # D_i = rowsum(dO_i * O_i), [B, H, S].
+        delta = (dof * out.float()).sum(-1).permute(0, 2, 1)
+        inv_l = torch.where(l == 0.0, 0.0, 1.0 / torch.where(l == 0.0, 1.0, l))
+        d_q = torch.zeros_like(qf)
+
+        k_blk, v_blk = _contiguous(k.float()), _contiguous(v.float())
+        dk_blk, dv_blk = torch.zeros_like(k_blk), torch.zeros_like(v_blk)
+        if axis_size > 1:
+            k_next, v_next = torch.empty_like(k_blk), torch.empty_like(v_blk)
+            dk_next, dv_next = torch.empty_like(dk_blk), torch.empty_like(dv_blk)
+            send_to, recv_from = _ring_peers(group, my_idx, axis_size)
+
+        for r in range(axis_size):
+            src = (my_idx + r) % axis_size
+            pending = []
+            if r < axis_size - 1:
+                pending = _exchange((k_blk, v_blk), (k_next, v_next), send_to, recv_from,
+                                    group, 2)
+            scores = torch.einsum("bqhd,bkhd->bhqk", qf, k_blk) * scale
+            p = torch.exp(scores - m[..., None]) * inv_l[..., None]  # [B, H, Sq, Sk]
+            if causal:
+                p = torch.where(_causal_mask(my_idx, src, s, q.device), p, 0.0)
+            d_p = torch.einsum("bqhd,bkhd->bhqk", dof, v_blk)
+            d_s = p * (d_p - delta[..., None])
+            d_q = d_q + torch.einsum("bhqk,bkhd->bqhd", d_s, k_blk) * scale
+            dk_blk = dk_blk + torch.einsum("bhqk,bqhd->bkhd", d_s, qf) * scale
+            dv_blk = dv_blk + torch.einsum("bhqk,bqhd->bkhd", p, dof)
+            if axis_size > 1:
+                # The block's accumulators follow it; after the last fold the
+                # hop takes them back to the block's own rank.
+                pending += _exchange((dk_blk, dv_blk), (dk_next, dv_next), send_to, recv_from,
+                                     group, 4)
+            for request in pending:
+                request.wait()
+            if axis_size > 1:
+                dk_blk, dk_next = dk_next, dk_blk
+                dv_blk, dv_next = dv_next, dv_blk
+                if r < axis_size - 1:
+                    k_blk, k_next = k_next, k_blk
+                    v_blk, v_next = v_next, v_blk
+        return d_q.to(q.dtype), dk_blk.to(k.dtype), dv_blk.to(v.dtype), None, None
 
 
 def fold_chunk(acc, pv_blk, m_blk, l_blk):

@@ -119,16 +119,19 @@ def materialize(tree: Any) -> Any:
     return tree_map(lambda x: x.detach().cpu().numpy(), tree)
 
 
-def fetch_global(tree: Any, mesh: Optional[DeviceMesh] = None, axis: str = "data",
+def fetch_global(tree: Any, mesh: Optional[DeviceMesh] = None, axis: Optional[str] = "data",
                  dim: int = 0) -> Any:
     """The global arrays of a tree of per-rank shards, as numpy on every
-    rank: each tensor leaf gathered over `axis` and concatenated along `dim`
-    in rank order. With no mesh (a single process) the tree as it is, as the
-    JAX package's `fetch_global_async` returns it. Every rank must call it:
-    it runs a collective."""
+    rank: each tensor leaf gathered over `axis` (every rank of the mesh when
+    None) and concatenated along `dim` in rank order. With no mesh (a single
+    process) the tree as it is, as the JAX package's `fetch_global_async`
+    returns it. Every rank must call it: it runs a collective."""
     if mesh is None:
         return tree
-    group, _, size = _rank_and_size(mesh, axis)
+    if axis is None:
+        group, size = dist.group.WORLD, dist.get_world_size()
+    else:
+        group, _, size = _rank_and_size(mesh, axis)
 
     def gather(x: torch.Tensor) -> np.ndarray:
         local = _on_backend(x, group)

@@ -6,24 +6,31 @@ package does with `jax.random.split`, the replica loop that stands in for its
 over the mesh's "data" axis that its learners run under `shard_map`).
 
 Data parallelism: one process a card, one shard a process. The "data" axis
-is every rank of the default process group (the runner refuses any other
-mesh axis), so a rank holds what a JAX shard holds: its own
-`total_num_envs // N` envs, generators, trajectory and buffer, and a
-replicated copy of params, optimizer states, observation statistics and β.
-Nothing is placed; the learners call `data_mean` and `data_sum` where the
-JAX learners call `pmean` and `psum` over "data". With no process group
-both return their input untouched, so one process runs exactly the ops it
-ran before data parallelism was ported.
+is every rank of the default process group, so a rank holds what a JAX
+shard holds: its own `total_num_envs // N` envs, generators, trajectory and
+buffer, and a replicated copy of params, optimizer states, observation
+statistics and β. Nothing is placed; the learners call `data_mean` and
+`data_sum` where the JAX learners call `pmean` and `psum` over "data". With
+no process group both return their input untouched, so one process runs
+exactly the ops it ran before data parallelism was ported.
+
+Gossip groups (parallel/gossip.py): on a ("group", "data") mesh, which the
+runner hands over with `use_mesh`, the "data" axis is the calling rank's
+group's data subgroup, so every data collective, seed split and episode
+share stays inside the group, as shard_map scopes the JAX learner's pmean
+over "data" to its group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from stoix_tpu_torch import envs
 from stoix_tpu_torch.envs import spaces as env_spaces
@@ -75,6 +82,17 @@ def make_seeds(seed: int, count: int) -> List[int]:
     return [int(c.generate_state(1, np.uint64)[0] >> np.uint64(1)) for c in children]
 
 
+def group_member_seed(seed: int, group: int) -> int:
+    """The seed of learner group `group`'s env and step streams: the run
+    seed itself for group 0 (so one group is the plain run), else the first
+    63-bit word of `np.random.SeedSequence([seed, group])` (the port's
+    `fold_in(key, group)`)."""
+    if group == 0:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed), int(group)]).generate_state(1, np.uint64)[0]
+               >> np.uint64(1))
+
+
 def make_generator(seed: int, device: torch.device) -> torch.Generator:
     generator = torch.Generator(device=device)
     generator.manual_seed(int(seed))
@@ -84,10 +102,47 @@ def make_generator(seed: int, device: torch.device) -> torch.Generator:
 # ---------------------------------------------------------------- the data axis
 
 
+# The grouped mesh of the run in progress (None: the "data" axis is the
+# default group). Set by the runner around a run with a "group" axis.
+_GROUPED_MESH: Optional[DeviceMesh] = None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[DeviceMesh]):
+    """Within the block, the data axis of `mesh` when it has a "group" axis
+    (the calling rank's group's data subgroup); any other mesh changes
+    nothing."""
+    global _GROUPED_MESH
+    grouped = mesh is not None and "group" in (mesh.mesh_dim_names or ())
+    previous = _GROUPED_MESH
+    _GROUPED_MESH = mesh if grouped else None
+    try:
+        yield
+    finally:
+        _GROUPED_MESH = previous
+
+
 def data_group() -> Optional[dist.ProcessGroup]:
-    """The process group of the mesh's "data" axis: the default group when
-    one is initialised, else None (a single process)."""
+    """The process group of the mesh's "data" axis: the calling rank's
+    group's data subgroup on a grouped mesh, else the default group when one
+    is initialised, else None (a single process)."""
+    if _GROUPED_MESH is not None:
+        return _GROUPED_MESH.get_group("data")
     return dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+
+
+def grouped_mesh() -> Optional[DeviceMesh]:
+    """The grouped mesh of the run in progress, or None."""
+    return _GROUPED_MESH
+
+
+def group_rank_and_size() -> Tuple[int, int]:
+    """(this rank's learner group, the number of groups): (0, 1) off a
+    grouped mesh."""
+    if _GROUPED_MESH is None:
+        return 0, 1
+    group = _GROUPED_MESH.get_group("group")
+    return dist.get_rank(group), dist.get_world_size(group)
 
 
 def data_rank_and_size() -> Tuple[int, int]:

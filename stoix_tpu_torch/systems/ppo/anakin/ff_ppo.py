@@ -44,6 +44,12 @@ all-reduce, with the guard's loss in the same bucket; the observation sums;
 the measured KL; and, once a window, the train metrics. Advantages stay
 standardised over the rank's own batch, as inside the JAX shard.
 
+On a mesh with a "group" axis (`arch=gossip`), `learner_setup` branches to
+`grouped_learner_setup`: G gossip-averaged learner groups of ranks, each
+this learner over its group's own data axis, mixed by the runner every
+`arch.gossip.interval` windows (parallel/gossip.py). The ff_ppo family
+(continuous, penalty, DPO) reaches it through this setup.
+
 Parameters are `{name: tensor}` dicts applied with
 `torch.func.functional_call`; updates build new dicts and never write in
 place, so a window's eval params need no copy. No tensor of the update path
@@ -66,6 +72,7 @@ from stoix_tpu_torch.base_types import (
 )
 from stoix_tpu_torch.evaluator import get_distribution_act_fn
 from stoix_tpu_torch.ops import losses, running_statistics, truncated_generalized_advantage_estimation
+from stoix_tpu_torch.parallel import gossip, mesh_shape, process_count, replicate
 from stoix_tpu_torch.resilience import guards
 from stoix_tpu_torch.systems import anakin
 from stoix_tpu_torch.systems.runner import AnakinSetup, run_anakin_experiment
@@ -595,9 +602,21 @@ def learner_setup(
     policy_loss_fn: Optional[Callable] = None,
 ) -> AnakinSetup:
     """Build the networks (initialised on the CPU from `seed`, then moved to
-    `device`), the optimizers, the learner and its initial state."""
+    `device`), the optimizers, the learner and its initial state. On a mesh
+    with a "group" axis, `grouped_learner_setup` instead, as the JAX
+    package's learner_setup branches."""
+    if "group" in (config.arch.get("mesh") or {}):
+        return grouped_learner_setup(env, config, device, seed, policy_loss_fn)
+    return _setup(env, config, device, anakin.make_seeds(seed, 3), policy_loss_fn)
+
+
+def _setup(env: envs.Environment, config: Any, device: torch.device, seeds: Sequence[int],
+           policy_loss_fn: Optional[Callable], group_zero_params: bool = False) -> AnakinSetup:
+    """The setup from (init, env, step) seeds. With `group_zero_params` the
+    evaluator takes learner group 0's actor params (and statistics), which
+    every rank receives by a broadcast over the "group" axis."""
     config.system.action_dim = env.num_actions
-    init_seed, env_seed, step_seed = anakin.make_seeds(seed, 3)
+    init_seed, env_seed, step_seed = seeds
 
     actor_network, critic_network = build_networks(
         env, config, anakin.make_generator(init_seed, torch.device("cpu"))
@@ -625,6 +644,13 @@ def learner_setup(
         # config names no kl_beta; the clip loss never reads it.
         kl_beta=torch.tensor(float(config.system.get("kl_beta", 3.0)), device=device),
     )
+    mesh = anakin.grouped_mesh() if group_zero_params else None
+    if mesh is not None and anakin.group_rank_and_size()[1] > 1:
+        def from_group_zero(tree: Any) -> Any:
+            return replicate(tree, mesh, axis="group")
+    else:
+        def from_group_zero(tree: Any) -> Any:
+            return tree
     if learner.normalize_obs:
         # The evaluator takes replica 0's actor params with the statistics.
         def eval_apply(bundle, observation):
@@ -633,10 +659,11 @@ def learner_setup(
                                running_statistics.normalize_observation(observation, stats))
 
         eval_act_fn = get_distribution_act_fn(config, eval_apply)
-        eval_params_fn = lambda s: (learner.eval_params(s.params), s.obs_stats)  # noqa: E731
+        eval_params_fn = lambda s: from_group_zero(  # noqa: E731
+            (learner.eval_params(s.params), s.obs_stats))
     else:
         eval_act_fn = get_distribution_act_fn(config, actor_apply)
-        eval_params_fn = lambda s: learner.eval_params(s.params)  # noqa: E731
+        eval_params_fn = lambda s: from_group_zero(learner.eval_params(s.params))  # noqa: E731
     return AnakinSetup(
         learn=learner,
         learner_state=learner_state,
@@ -645,10 +672,39 @@ def learner_setup(
     )
 
 
+def grouped_learner_setup(
+    env: envs.Environment, config: Any, device: torch.device, seed: int,
+    policy_loss_fn: Optional[Callable] = None,
+) -> AnakinSetup:
+    """G gossip-averaged learner groups on a ("group", "data") mesh
+    (parallel/gossip.py; the JAX package's ff_ppo.py:592-760).
+
+    Each group is the unchanged learner: its "data" collectives run over its
+    own data subgroup (systems/anakin.py::data_group), so the gradient
+    all-reduce never crosses a group boundary. Every group starts from group
+    0's params and optimizer state (the init draws from the run's init seed
+    on every rank), and rolls out on its own env and step streams: group g
+    takes `anakin.group_member_seed(seed, g)`, split into (init, env, step)
+    seeds as the plain run splits `seed`, of which it keeps env and step.
+    Group 0's seeds are exactly the plain run's, so one group is the plain
+    run, bit for bit. Env counts are per group. The evaluator serves group
+    0's params; the runner mixes the groups every `arch.gossip.interval`
+    windows through the returned plan."""
+    mesh = anakin.grouped_mesh()
+    axes = mesh if mesh is not None else mesh_shape(dict(config.arch.mesh), process_count())
+    gossip.validate_grouped_config(config, axes)
+    group, _ = anakin.group_rank_and_size()
+    init_seed = anakin.make_seeds(seed, 3)[0]
+    _, env_seed, step_seed = anakin.make_seeds(anakin.group_member_seed(seed, group), 3)
+    setup = _setup(env, config, device, (init_seed, env_seed, step_seed), policy_loss_fn,
+                   group_zero_params=True)
+    return setup._replace(gossip=gossip.build_gossip_plan(config, axes))
+
+
 def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> float:
     """Train Anakin PPO; returns the final evaluation episode-return mean.
     Runs on CUDA unless the caller asks for another device."""
-    return run_anakin_experiment(config, learner_setup, device)
+    return run_anakin_experiment(config, learner_setup, device, groups=True)
 
 
 def main() -> float:

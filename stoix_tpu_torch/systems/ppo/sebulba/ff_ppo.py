@@ -66,8 +66,14 @@ Fault injection (resilience/faultinject.py): `arch.fault_spec` or
 `STOIX_TPU_FAULT` may arm `actor_crash:N` and `queue_stall:N` (actor 0, at
 the top of rollout N); any other fault is refused naming it.
 
-Refused by name: the gymnasium and envpool backends, the fleet, integrity
-and preflight layers, and (ROADMAP C24) the knobs these learners never
+Envs: `env.backend` picks the factory (envs/factory.py::make_factory): the
+port's tensor envs on the host, the native pool, or the gymnasium and
+envpool adapters. A scenario with no tensor-env twin (a gymnasium or envpool
+task id) evaluates on a pool of the factory's through
+`get_stateful_evaluator_fn` (`make_evaluator`).
+
+Refused by name: the fleet, integrity, preflight and compile cache layers,
+the "group" mesh axis, and (ROADMAP C24) the knobs these learners never
 read: `system.replay.impl: sharded` (the JAX Sebulba PPO and IMPALA never
 read `system.replay`), and on PPO `system.fused_update` and
 `system.clip_value`.
@@ -89,8 +95,10 @@ import numpy as np
 import torch
 
 from stoix_tpu_torch.base_types import ActorCriticOptStates, ActorCriticParams, PPOTransition
-from stoix_tpu_torch.envs.factory import backend_of, make_factory
-from stoix_tpu_torch.evaluator import get_distribution_act_fn, get_ff_evaluator_fn
+from stoix_tpu_torch.envs.factory import make_factory
+from stoix_tpu_torch.evaluator import (
+    get_distribution_act_fn, get_ff_evaluator_fn, get_stateful_evaluator_fn,
+)
 from stoix_tpu_torch.observability import RunStats, annotate, get_registry, span
 from stoix_tpu_torch.ops import losses, running_statistics, scan_kernels
 from stoix_tpu_torch.ops import truncated_generalized_advantage_estimation
@@ -530,7 +538,6 @@ def check_ported(config: Any) -> None:
     unported = unported_arch_keys(config)
     if unported:
         raise NotImplementedError("not ported: " + ", ".join(unported))
-    backend_of(config)
     faultinject.check_sebulba_plan(faultinject.configure(config.arch.get("fault_spec")))
 
 
@@ -785,16 +792,26 @@ def sebulba_budget(config: Any, num_actors: int) -> int:
     return steps_per_update
 
 
-def make_evaluator(config: Any, eval_apply: Callable) -> Callable:
-    """The feed-forward evaluator over the registry's single env of the
-    run's scenario, acting through `eval_apply(params, observation)`."""
-    from stoix_tpu_torch.envs.registry import make_single
+def make_evaluator(config: Any, eval_apply: Callable, env_factory: Any,
+                   device: Any) -> Callable:
+    """The run's evaluator, acting through `eval_apply(params, observation)`,
+    by the JAX package's rule (its ff_ppo.py:823-853): a scenario with a
+    tensor-env twin (a registry scenario, or an external suite, which
+    `make_single` refuses) evaluates on the feed-forward evaluator over that
+    env; any other (a gymnasium or envpool task id) on a pool of
+    `env_factory`'s through `get_stateful_evaluator_fn`, acting on `device`."""
+    from stoix_tpu_torch.envs.registry import ENV_REGISTRY, EXTERNAL_SUITES, make_single
     from stoix_tpu_torch.envs.wrappers import RecordEpisodeMetrics
 
-    eval_env = RecordEpisodeMetrics(make_single(
-        config.env.scenario.name, config.env.get("env_name"),
-        **dict(config.env.get("kwargs", {}) or {})))
-    return get_ff_evaluator_fn(eval_env, get_distribution_act_fn(config, eval_apply), config)
+    scenario = (config.env.scenario.name if hasattr(config.env.scenario, "name")
+                else config.env.scenario)
+    suite = config.env.get("env_name")
+    act_fn = get_distribution_act_fn(config, eval_apply)
+    if scenario in ENV_REGISTRY or suite in EXTERNAL_SUITES:
+        eval_env = RecordEpisodeMetrics(make_single(
+            scenario, suite, **dict(config.env.get("kwargs", {}) or {})))
+        return get_ff_evaluator_fn(eval_env, act_fn, config)
+    return get_stateful_evaluator_fn(env_factory, act_fn, config, device)
 
 
 def resilience_counters() -> Tuple[Dict[str, Any], Dict[str, float]]:
@@ -932,7 +949,7 @@ def run_experiment(
                                                                                 stats))
         return eval_actor_apply(payload, observation)
 
-    eval_fn = make_evaluator(config, eval_apply)
+    eval_fn = make_evaluator(config, eval_apply, env_factory, evaluator_device)
     eval_generator = anakin.make_generator(setup.eval_seed, evaluator_device)
 
     logger = StoixLogger(config)

@@ -374,7 +374,7 @@ def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> fl
     eval_q_apply = setup.thread_apply_fn(evaluator_device)
     eval_eps = float(config.system.evaluation_epsilon)
     eval_fn = make_evaluator(config, lambda p, observation: act_dist(
-        eval_q_apply(p, observation, eval_eps)))
+        eval_q_apply(p, observation, eval_eps)), env_factory, evaluator_device)
     eval_generator = anakin.make_generator(setup.eval_seed, evaluator_device)
 
     logger = StoixLogger(config)

@@ -2205,3 +2205,152 @@ def test_impact_learn_step_on_the_card_matches_the_cpu():
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
     assert result["b1_gae_bitwise"] and result["kernel_launches"][lr.GAE_KERNEL.name] == 1
+
+
+# C27 on the card: a one-rank NCCL ring's output and gradients against float64
+# full attention on the host (1e-5 of each gradient's largest entry, 2e-5 the
+# output, as tests/test_torch_ring_grad.py); use_flash=True under grad refused.
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_backward_on_the_card_matches_the_cpu(tmp_path, causal):
+    device = _require_cuda()
+    config = Config.from_dict({"arch": {"distributed": {
+        "coordinator_address": f"file://{tmp_path / 'store'}", "num_processes": 1,
+        "process_id": 0}}})
+    gen = torch.Generator(device=device).manual_seed(5)
+    q, k, v, w = (torch.randn((4, 64, 2, 16), generator=gen, device=device) for _ in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    parallel.maybe_initialize_distributed(config, device="cuda")
+    try:
+        group = parallel.create_mesh({"data": 1}, device="cuda").get_group("data")
+        before = fac.KERNEL.launches
+        out = ring_attention(*leaves, group, causal=causal)
+        (out * w).sum().backward()
+        assert fac.KERNEL.launches == before  # the plain ring: B3 has no backward
+        with pytest.raises(NotImplementedError, match="C5"):
+            ring_attention(*leaves, group, causal=causal, use_flash=True)
+    finally:
+        dist.destroy_process_group()
+    ref = [x.detach().cpu().double().requires_grad_(True) for x in (q, k, v)]
+    want = full_attention(*ref, causal=causal)
+    (want * w.cpu().double()).sum().backward()
+    torch.testing.assert_close(out.detach().cpu().double(), want.detach(), rtol=0, atol=2e-5)
+    for got, r in zip(leaves, ref):
+        assert float((got.grad.cpu().double() - r.grad).abs().max()) <= 1e-5 * float(
+            r.grad.abs().max())
+
+
+# A gossip mixing round on the card: one torch.addcmul a term (nvcc's fmaf)
+# against the CPU's fma_f32, bitwise, for every topology.
+@pytest.mark.cuda
+@pytest.mark.parametrize("topology", ["ring", "all_pairs", "random_peer"])
+def test_mixing_round_on_the_card_matches_the_cpu(topology):
+    from stoix_tpu_torch.parallel import gossip
+
+    device = _require_cuda()
+    settings = gossip.GossipSettings(True, 1, topology, 0.3, False, 7)
+    shift = gossip.random_peer_shift(7, 2, 3) if topology == "random_peer" else None
+    matrix = gossip.mixing_matrix(settings, 3, shift)
+    leaf = torch.randn((3, 257, 33), generator=torch.Generator().manual_seed(1)) * 3
+    got = gossip._mix_leaf(matrix, leaf.to(device))
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), gossip._mix_leaf(matrix, leaf))
+
+
+class _LivesPool:
+    """A pool with envpool's surface (tests/test_envpool_adapter.py's
+    FakeEnvPool, vectorised): the step after a done resets, 2 lives, a life
+    ends every 3 steps except env 3's, which is cut at 6 elapsed steps."""
+
+    class spec:
+        class config:
+            max_episode_steps = 6
+
+    class action_space:
+        n = 5
+
+    def __init__(self, num_envs: int):
+        self._n = num_envs
+        self._game = torch.zeros(num_envs, dtype=torch.int64)
+        self._step = torch.zeros(num_envs, dtype=torch.int64)
+        self._lives = torch.full((num_envs,), 2, dtype=torch.int64)
+        self._reset = torch.zeros(num_envs, dtype=torch.bool)
+
+    def _obs(self, ids):
+        return (10 * ids + self._game[ids]).float()[:, None].repeat(1, 2).numpy()
+
+    def reset(self):
+        self.__init__(self._n)
+        return self._obs(torch.arange(self._n)), {}
+
+    def step(self, action, env_ids=None):
+        import numpy as np
+
+        ids = torch.arange(self._n) if env_ids is None else torch.as_tensor(env_ids)
+        resetting = self._reset[ids]
+        over = ids[resetting & (self._lives[ids] <= 0)]
+        self._lives[over] = 2
+        self._game[over] += 1
+        self._step[ids[resetting]] = 0
+        self._reset[ids[resetting]] = False
+        moving = ids[~resetting]
+        self._step[moving] += 1
+        dies = ~resetting & (self._step[ids] >= 3) & (ids != 3)
+        self._lives[ids[dies]] -= 1
+        self._reset[ids[dies]] = True
+        self._reset[ids[~dies & ~resetting & (self._step[ids] >= 6)]] = True
+        reward = (~resetting).float().numpy()
+        info = {"elapsed_step": self._step[ids].numpy().copy(),
+                "lives": self._lives[ids].numpy().copy(), "reward": reward.copy()}
+        return self._obs(ids), reward, dies.numpy(), np.zeros(len(ids), bool), info
+
+    def close(self):
+        pass
+
+
+def _stateful_returns(factory, device, num_actions):
+    from stoix_tpu_torch.evaluator import get_stateful_evaluator_fn
+
+    devices = set()
+
+    def act(params, observation, generator):
+        devices.add(observation.agent_view.device.type)
+        return (observation.agent_view[:, 0].to(torch.int64) + params) % num_actions
+
+    config = Config.from_dict({"arch": {"num_eval_episodes": 8}})
+    evaluate = get_stateful_evaluator_fn(factory, act, config, device)
+    returns = evaluate(torch.tensor(1, device=device),
+                       torch.Generator(device=device))["episode_return"]
+    assert devices == {torch.device(device).type}
+    return returns
+
+
+# The stateful evaluator acting on the card: the same returns as on the CPU
+# over an envpool-adapted pool, and over gymnasium CartPole-v1 where
+# gymnasium is installed.
+@pytest.mark.cuda
+def test_stateful_evaluator_on_the_card_matches_the_cpu():
+    from stoix_tpu_torch.envs.envpool_adapter import EnvPoolAdapter
+
+    device = _require_cuda()
+    factory = lambda n: EnvPoolAdapter(_LivesPool(n), has_lives=True)  # noqa: E731
+    card = _stateful_returns(factory, device, 5)
+    cpu = _stateful_returns(factory, "cpu", 5)
+    assert card.shape == (8,) and torch.equal(card, cpu)
+
+
+@pytest.mark.cuda
+def test_stateful_evaluator_on_gymnasium_on_the_card_matches_the_cpu():
+    device = _require_cuda()
+    pytest.importorskip("gymnasium")
+    from stoix_tpu_torch.envs.gymnasium_adapter import GymnasiumFactory
+
+    def factory(num_envs):
+        # The evaluator resets without a seed: seed the pool's streams first.
+        envs = GymnasiumFactory("CartPole-v1", 3)(num_envs)
+        envs.reset(seed=3)
+        return envs
+
+    card = _stateful_returns(factory, device, 2)
+    cpu = _stateful_returns(factory, "cpu", 2)
+    assert card.shape == (8,) and torch.equal(card, cpu)

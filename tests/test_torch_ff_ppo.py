@@ -299,6 +299,10 @@ def test_port_imports_nothing_of_jax():
         "           'systems.impala.sebulba.ff_impala',\n"
         "           'systems.impala.sebulba.ff_impala_shared_torso']\n"
         "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice19)\n"
+        "slice21 = ['parallel.gossip', 'parallel.tp', 'envs.gymnasium_adapter',\n"
+        "           'envs.envpool_adapter']\n"
+        "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice21)\n"
+        "assert 'gymnasium' not in sys.modules and 'envpool' not in sys.modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           cwd=REPO, timeout=120, check=True)

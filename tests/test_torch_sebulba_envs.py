@@ -13,9 +13,13 @@ stateful wrapper over the port's tensor envs.
    JAX package's `JaxToStateful`, the port's env fed the draws JAX made
    (its reset states and, for IdentityGame, each step's targets), over
    episode ends with auto-reset: exact, CartPole's physics at 1e-5.
+5. `make_factory` by `env.backend`: the tensor envs, the native pool, and
+   the gymnasium and envpool adapters (tests/test_torch_gym_envpool.py
+   holds the adapters against the JAX package's).
 """
 
 import filecmp
+import importlib.util
 import os
 
 import jax.numpy as jnp
@@ -28,7 +32,10 @@ from stoix_tpu.envs import debug as jdebug
 from stoix_tpu.envs.classic import CartPole as JCartPole
 from stoix_tpu.envs.factory import JaxToStateful
 from stoix_tpu_torch.envs import classic, cvec, debug
-from stoix_tpu_torch.envs.factory import TensorEnvFactory, TensorToStateful, make_factory
+from stoix_tpu_torch.envs.factory import (
+    EnvPoolFactory, TensorEnvFactory, TensorToStateful, make_factory,
+)
+from stoix_tpu_torch.envs.gymnasium_adapter import GymnasiumFactory, VecGymToStoix
 from stoix_tpu_torch.utils import config as config_lib
 from torch_parity import n
 
@@ -204,9 +211,23 @@ def test_factories_hand_out_unique_seeds_and_default_to_the_cpu():
 
 
 @pytest.mark.parametrize("backend", ["gymnasium", "envpool"])
-def test_unported_backends_are_refused_naming_the_key(backend):
+def test_backends_build_their_adapters(backend):
+    """`env.backend` gymnasium and envpool build the port's adapters (they
+    were refused before A15b); envpool's factory raises the JAX package's
+    missing-package error where `envpool` is not installed."""
     config = config_lib.compose(config_lib.default_config_dir(),
                                 "default/sebulba/default_ff_ppo.yaml",
-                                [f"env.backend={backend}"])
-    with pytest.raises(NotImplementedError, match=f"env.backend={backend}"):
-        make_factory(config)
+                                [f"env.backend={backend}", "env.scenario.name=CartPole-v1"])
+    factory = make_factory(config)
+    if backend == "gymnasium":
+        pytest.importorskip("gymnasium")
+        assert isinstance(factory, GymnasiumFactory)
+        envs = factory(2)
+        assert isinstance(envs, VecGymToStoix) and envs.num_actions == 2
+        assert envs.reset(seed=0).observation.agent_view.shape == (2, 4)
+        envs.close()
+    else:
+        assert isinstance(factory, EnvPoolFactory)
+        if importlib.util.find_spec("envpool") is None:
+            with pytest.raises(ImportError, match="requires the optional 'envpool' package"):
+                factory(2)

@@ -10,8 +10,11 @@ their refusals.
    on the native pool (CartPole) and on Pendulum (continuous, a negative
    return), and with two learner "devices".
 2. The entry points default to CUDA and never fall back to the CPU.
-3. Every refusal raises NotImplementedError naming its key: the gymnasium
-   and envpool backends, the fleet, integrity and preflight layers, a fault
+3. `env.backend` gymnasium and envpool build the port's adapters: ff_ppo
+   trains on gymnasium CartPole-v1 (evaluated on its registry twin); the
+   envpool factory raises its missing-package error without `envpool`.
+   Every refusal raises NotImplementedError naming its key: the fleet,
+   integrity and preflight layers, a fault
    the Sebulba runners do not inject (`arch.fault_spec=bitflip:1`,
    `sigterm:1`; they take `actor_crash` and `queue_stall`), and ROADMAP
    C24's unread knobs (`system.replay.impl: sharded`, which the JAX
@@ -22,6 +25,7 @@ their refusals.
    package's findings.
 """
 
+import importlib.util
 import math
 
 import pytest
@@ -111,8 +115,6 @@ def test_entry_point_defaults_to_cuda_and_never_falls_back(system, monkeypatch):
 
 
 REFUSALS = [
-    ("ff_ppo", "env.backend=gymnasium", "env.backend=gymnasium"),
-    ("ff_impala", "env.backend=envpool", "env.backend=envpool"),
     ("ff_impala", "arch.fleet.enabled=true", "arch.fleet.enabled"),
     ("ff_ppo", "arch.integrity.enabled=true", "arch.integrity.enabled"),
     ("ff_impala_shared_torso", "arch.preflight.enabled=true", "arch.preflight.enabled"),
@@ -127,6 +129,30 @@ REFUSALS = [
     ("ff_ppo", "system.clip_value=false", "system.clip_value"),
     ("ff_impala_shared_torso", "system.update_guard=skip", "system.update_guard"),
 ]
+
+
+@pytest.mark.parametrize("system,backend", [("ff_ppo", "gymnasium"), ("ff_impala", "envpool")])
+def test_backends_build_their_adapters_for_the_systems(system, backend, monkeypatch):
+    """`env.backend` gymnasium and envpool, refused before A15b, reach the
+    port's adapters: ff_ppo trains a window on gymnasium CartPole-v1 (the
+    registry's CartPole-v1 is its twin, which evaluates it, by the JAX
+    package's rule), and
+    ff_impala's envpool factory raises the JAX package's missing-package
+    error where `envpool` is not installed."""
+    overrides = [*(o for o in BASE if not o.startswith("env=")), "env=cartpole",
+                 f"env.backend={backend}", "env.scenario.name=CartPole-v1"]
+    if backend == "gymnasium":
+        pytest.importorskip("gymnasium")
+        cfg = compose(system, [*overrides, "arch.total_timesteps=1024", "arch.num_eval_episodes=2",
+                               "arch.eval_max_steps=600"])
+        ret = SYSTEMS[system].run_experiment(cfg, device="cpu")
+        _assert_clean_run(ret, 1024 // (8 * 8), system)
+        assert ret > 0.0
+    else:
+        if importlib.util.find_spec("envpool") is not None:
+            pytest.skip("envpool is installed: the missing-package error cannot show")
+        with pytest.raises(ImportError, match="requires the optional 'envpool' package"):
+            SYSTEMS[system].run_experiment(compose(system, overrides), device="cpu")
 
 
 @pytest.mark.parametrize("system,override,key", REFUSALS)

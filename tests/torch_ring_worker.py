@@ -1,6 +1,7 @@
 """Multi-process CPU harness for the PyTorch port's distributed tests
-(tests/test_torch_ring_attention.py, tests/test_torch_parallel.py,
-tests/test_torch_data_parallel.py).
+(tests/test_torch_ring_attention.py, tests/test_torch_ring_grad.py,
+tests/test_torch_parallel.py, tests/test_torch_data_parallel.py,
+tests/test_torch_gossip.py, tests/test_torch_tp.py).
 
 `spawn_ranks(jobs, world, tmp_dir)` starts `world` processes of
 
@@ -10,7 +11,8 @@ Each rank joins one gloo process group through
 `stoix_tpu_torch.parallel.maybe_initialize_distributed`, with a `file://`
 store in TMP_DIR (no network), runs every job of `jobs` in order, and returns
 {job name: result}. A job is (name, kind, keyword arguments): the kinds are
-the functions in `KINDS`, the data-parallel ones in tests/torch_dp_worker.py.
+the functions in `KINDS`, the data-parallel ones in tests/torch_dp_worker.py,
+the gossip and tensor-parallel ones in tests/torch_gossip_worker.py.
 This module imports no JAX, so each rank starts in about a second.
 """
 
@@ -36,6 +38,7 @@ from stoix_tpu_torch.parallel import (
 from stoix_tpu_torch.utils.config import Config
 from stoix_tpu_torch.utils.params import load_flax_params
 from torch_dp_worker import DP_KINDS
+from torch_gossip_worker import GOSSIP_KINDS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPAWN_TIMEOUT_S = 240.0
@@ -58,6 +61,21 @@ def _ring(mesh_for, axes, axis, q, k, v, causal, use_flash="default"):
     else:
         attend = partial(ring_attention, group=group, causal=causal, use_flash=use_flash)
     return attend(*(_shard(x, group) for x in (q, k, v))).numpy()
+
+
+def _ring_grad(mesh_for, axes, axis, q, k, v, cotangent, causal, use_flash=None):
+    """This rank's output shard of ring attention over `axis` and the
+    gradients of sum(output * cotangent) with respect to its q, k, v shards;
+    under use_flash=True the refusal's message instead."""
+    group = mesh_for(axes).get_group(axis)
+    q, k, v = (_shard(x, group).requires_grad_(True) for x in (q, k, v))
+    try:
+        out = ring_attention(q, k, v, group, causal=causal, use_flash=use_flash)
+    except NotImplementedError as error:
+        return {"refused": str(error)}
+    (out * _shard(cotangent, group)).sum().backward()
+    return {"out": out.detach().numpy(), "dq": q.grad.numpy(), "dk": k.grad.numpy(),
+            "dv": v.grad.numpy()}
 
 
 def _torso(mesh_for, params, x, torso_kwargs):
@@ -93,8 +111,8 @@ def _collectives(mesh_for):
     }
 
 
-KINDS = {"ring": _ring, "torso": _torso, "mesh": _mesh, "collectives": _collectives,
-         **DP_KINDS}
+KINDS = {"ring": _ring, "ring_grad": _ring_grad, "torso": _torso, "mesh": _mesh,
+         "collectives": _collectives, **DP_KINDS, **GOSSIP_KINDS}
 
 
 def main(rank: int, world: int, tmp_dir: str) -> None:
