@@ -453,15 +453,47 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    2e-5), timed beside full attention's; `use_flash=True`
                    under grad refused naming C5; the tensor-parallel block
                    on one model shard against `reference_block`.
+ 61. ops_train    — A19a, the operations layer of one process, on the main
+                   path: ff_ppo at the default config's full width,
+                   MAIN_UPDATES updates in 2 windows, every switch on
+                   (preflight with its probe child, the integrity sentinel
+                   with the determinism probe every window, telemetry,
+                   checkpoints, update_guard=skip), then every switch off:
+                   the final states bitwise equal, one B1 GAE launch an
+                   update (plus the probe's replay of window 0), trace.json
+                   and metrics.prom valid, the probe clean, the fingerprint
+                   of the card's state equal to the CPU's; env-steps/s on and
+                   off, the probe child's and the first-compile stage's
+                   seconds, the fingerprint's launches and ms, the memory
+                   gate's prediction beside window 0's measured peak.
+ 62. ops_faults   — the Anakin faults: a child under sigterm:0 exits 0 with
+                   its checkpoint and a run resumed from it ends bitwise in
+                   the unbroken (ops_train off) state; two gloo ranks on the
+                   card under bitflip:1 exit 88 with the quarantine file, its
+                   flight record and no checkpoint of the flipped window;
+                   here, nan_loss under skip (one skip, finite params),
+                   backend_wedge (two 3 s attempts), slow_compile (the
+                   first_compile watchdog) and ckpt_corrupt (the fallback
+                   with its reason).
 
-The learning oracles (learn, knobs_learn, trans_learn, q_learn, cont_learn, rec_learn,
+Once every kernel is timed (after c8_wide, B1's GAE entry at the search and
+SPO shapes included), a pool of child processes of this script runs beside
+the main process's later phases (knobs onwards): the learning oracles
+(learn, knobs_learn, trans_learn, q_learn, cont_learn, rec_learn,
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
 vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn, spo_continuous_learn,
 vmpo_continuous_learn, catch_learn, snake_learn, sebulba_ppo_learn,
-sebulba_impala_learn, sebulba_dqn_learn, sebulba_impact_learn) run last, after every timed
-phase, each in a child process of this script (`--learn-phase NAME`),
+sebulba_impala_learn, sebulba_dqn_learn, sebulba_impact_learn; each
+`--learn-phase NAME`) and the phases whose numbers no kernel timing reads
+(rec_train, mpo_train and vmpo_train, mcts, search_train, spo_train and
+disco_train, loco_train, loco_envs and grid_train; `--pool-phase NAME SMI`),
 LEARN_WORKERS at a time (four at least, more where the host has the cores;
-`host_cpus` is printed), the longest first; a `learn_all` line gives their wall time. Then a
+`host_cpus` is printed), the longest first. Their lines are printed when the
+main process's phases are done, and a `learn_all` line gives the pool's wall
+time. The env-steps/s and seconds of every phase from knobs on are taken
+beside the pool, on a shared host and card. Every child dies with its parent
+(PR_SET_PDEATHSIG), the main process adopts its children's orphans and stops
+any process left when it ends, and SIGTERM ends it through its cleanup. Then a
 `{"kernels": [...]}` line, the card's `nvidia-smi` name and power limit, and
 last `{"ok": true, "device": {...}}`.
 """
@@ -470,16 +502,19 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import glob
 import inspect
 import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from functools import partial
 
@@ -551,6 +586,82 @@ START = time.perf_counter()
 def emit(record: dict) -> None:
     """One JSON line, with the seconds since this process started."""
     print(json.dumps({**record, "elapsed_s": time.perf_counter() - START}), flush=True)
+
+
+# Every process this script starts ends with it: the children of this script
+# die with their parent (PR_SET_PDEATHSIG), the main process adopts its
+# children's orphans (PR_SET_CHILD_SUBREAPER) and stops whatever is left when
+# it ends, and SIGTERM ends it through its `finally` blocks.
+PR_SET_PDEATHSIG, PR_SET_CHILD_SUBREAPER = 1, 36
+PARENT_ENV = "CHIP_SMOKE_PARENT_PID"
+
+
+def _prctl(option: int, value: int) -> None:
+    if ctypes.CDLL(None, use_errno=True).prctl(option, value, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), f"prctl({option}, {value}) failed")
+
+
+def die_with_parent() -> None:
+    """A child of this script: SIGKILL when the process that started it
+    ends, and exit now if it already has."""
+    _prctl(PR_SET_PDEATHSIG, signal.SIGKILL)
+    if str(os.getppid()) != os.environ.get(PARENT_ENV):
+        os._exit(1)
+
+
+def _terminated(signum, frame) -> None:
+    raise SystemExit(128 + signum)
+
+
+def adopt_children() -> None:
+    """The main process: orphans of its children become its own, SIGTERM
+    unwinds through every `finally`, and the children know their parent.
+    SIGINT gets Python's handler back: the first-compile watchdog
+    interrupts the main thread through it (ops_faults' slow_compile), and a
+    shell starts a background job with SIGINT ignored."""
+    _prctl(PR_SET_CHILD_SUBREAPER, 1)
+    signal.signal(signal.SIGTERM, _terminated)
+    signal.signal(signal.SIGINT, signal.default_int_handler)
+    os.environ[PARENT_ENV] = str(os.getpid())
+
+
+def _children() -> dict:
+    """This process's children (adopted orphans included): pid -> state."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rpartition(")")[2].split()
+        except OSError:
+            continue
+        if int(fields[1]) == os.getpid():
+            children[int(entry)] = fields[0]
+    return children
+
+
+def stop_leftovers() -> list:
+    """Kill and reap every child still here; returns the command lines of
+    those that were still running (a zombie is only reaped)."""
+    stopped = []
+    for _ in range(50):
+        children = _children()
+        if not children:
+            break
+        for pid, state in children.items():
+            if state != "Z":
+                with contextlib.suppress(OSError):
+                    with open(f"/proc/{pid}/cmdline", "rb") as f:
+                        stopped.append(f.read().replace(b"\0", b" ").decode(errors="replace"))
+                with contextlib.suppress(OSError):
+                    os.kill(pid, signal.SIGKILL)
+        for pid in children:
+            with contextlib.suppress(OSError):
+                os.waitpid(pid, 0)
+    for command in stopped:
+        print(f"[chip_smoke] stopped a leftover process: {command}", file=sys.stderr, flush=True)
+    return stopped
 
 
 def cuda_ms(fn, repeats: int = 21, inner: int = 50, warmup: int = 10) -> float:
@@ -4041,7 +4152,7 @@ SEBULBA_THRESHOLD = 8.0  # the JAX package returns 10.0 for seeds 42 and 1 in bo
 # label -> (system, overrides, B1 GAE launches an update, generic launches an
 # update). Every role on device 0, the actors' pools on the host.
 SEBULBA_UPDATES = 6  # sebulba_train's ff_ppo at the JAX package's tracked shape
-SEBULBA_DQN_UPDATES = 16  # sebulba_dqn_train's ff_dqn runs, in 2 windows
+SEBULBA_DQN_UPDATES = 4  # sebulba_dqn_train's ff_dqn runs, in 2 windows
 SEBULBA_PATHS = {
     # bench.py:1876-1894's shape: 512 cvec CartPole envs in 2 actors, T = 64.
     "ff_ppo_cartpole": ("ff_ppo", ["env=cartpole", "env.backend=cvec", "arch.total_num_envs=512",
@@ -5144,95 +5255,529 @@ def phase_ring_grad(smi: str, mesh) -> None:
           "max_abs_err": errs, "card": smi})
 
 
-LEARN_PHASES = {
+OPS_SWITCHES = ["arch.preflight.enabled=true", "arch.integrity.enabled=true",
+                "arch.integrity.determinism_probe_interval=1", "logger.telemetry.enabled=true"]
+OPS_COMMON = [f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
+              "arch.num_eval_episodes=16", "system.multistep_impl=pallas",
+              "system.update_guard=skip", "logger.use_console=False",
+              "logger.checkpointing.save_model=true",
+              "logger.checkpointing.save_args.max_to_keep=~"]
+OPS_STEP = int(MAIN_UPDATES // 2) * 16 * 1024  # env steps a window at the default width
+OPS_GROUPS = ("params/", "opt_states/", "obs_stats/", "kl_beta")
+
+
+def _ops_run(uid: str, extra: list) -> dict:
+    """ff_ppo at full width (OPS_COMMON) in the working directory; B1's
+    counters zeroed just before and read just after."""
+    lr = linear_recurrence
+    config = compose(OPS_COMMON + [f"logger.checkpointing.save_args.checkpoint_uid={uid}",
+                                   f"logger.base_exp_path={os.getcwd()}/results_{uid}",
+                                   *extra])
+    for counter in lr.COUNTERS:
+        counter.launches = 0
+    start = time.perf_counter()
+    final_return = ff_ppo.run_experiment(config, device="cuda")
+    seconds = time.perf_counter() - start
+    if not math.isfinite(final_return):
+        raise AssertionError(f"{uid}: non-finite eval return {final_return}")
+    return {"b1": _counts(lr.COUNTERS), "stats": copy.deepcopy(runner.LAST_RUN_STATS),
+            "seconds": seconds, "final_return": final_return}
+
+
+def _ops_state(uid: str, step: int) -> dict:
+    from stoix_tpu_torch.utils import checkpointing
+
+    return torch.load(os.path.join("checkpoints", uid, "ff_ppo", str(step),
+                                   checkpointing.STATE_FILE), weights_only=True)
+
+
+def _differ(got: dict, want: dict) -> list:
+    """The keys of two saved states whose values differ (a generator's by its
+    state), or the keys one lacks."""
+    if got.keys() != want.keys():
+        return sorted(set(got) ^ set(want))
+    return [key for key, value in want.items() if not (
+        torch.equal(value, got[key]) if isinstance(value, torch.Tensor) else
+        torch.equal(value["generator_state"], got[key]["generator_state"])
+        if isinstance(value, dict) else value == got[key])]
+
+
+def _fingerprint_on_card_and_cpu(saved: dict) -> dict:
+    """The replicated groups of a saved state fingerprinted on the card and
+    on the CPU (bitwise equal), and one fingerprint pass timed and its
+    launches counted on the card."""
+    from stoix_tpu_torch.resilience import integrity
+
+    groups = {}
+    for key, value in saved.items():
+        if key.startswith(OPS_GROUPS) and isinstance(value, torch.Tensor):
+            groups.setdefault(key.split("/")[0], {})[key] = value
+    cpu = integrity.Fingerprinter(groups)
+    card_state = tree_map(lambda x: x.cuda(), groups)
+    card = integrity.Fingerprinter(card_state)
+    got, want = card(card_state), cpu(groups)
+    if got != want:
+        raise AssertionError(f"fingerprints differ: card {got}, CPU {want}")
+    torch.cuda.synchronize()
+    # None when the profiler sees no device event (not measured), never 0.
+    launches = _device_launches_of(lambda: card(card_state)) or None
+    times = []
+    for _ in range(5):
+        start = time.perf_counter()
+        card(card_state)
+        times.append((time.perf_counter() - start) * 1e3)
+    return {"groups": sorted(got), "card_equals_cpu": True,
+            "bytes": sum(card.sizes), "launches_a_pass": launches,
+            "ms_a_pass": statistics.median(times)}
+
+
+def phase_ops_train(smi: str) -> dict:
+    """A19a on the main path: ff_ppo at the default config's full width,
+    MAIN_UPDATES updates in 2 windows, with every switch of the operations
+    layer on (preflight with its probe child, the integrity sentinel with the
+    determinism probe every window, telemetry, checkpointing, update_guard
+    skip) and then with every switch off: the two final states bitwise
+    equal, B1's GAE launches one an update (the probe's replay adds its
+    window's), `trace.json` and `metrics.prom` valid, the probe clean; the
+    fingerprint of the card's state equals the CPU's. Returns B1's launches
+    of both runs and what ops_faults reuses."""
+    from stoix_tpu_torch.observability import validate_chrome_trace
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ops_")
+    with contextlib.chdir(tmp):
+        off = _ops_run("ops_off", [])
+        on = _ops_run("ops_on", OPS_SWITCHES)
+        final = MAIN_UPDATES * 16 * 1024
+        differ = _differ(_ops_state("ops_on", final), _ops_state("ops_off", final))
+        if differ:
+            raise AssertionError(f"switches on and off end in different states at {differ[:5]}")
+        stats = on["stats"]
+        probe_runs = stats["integrity"]["probe_runs"]
+        gae = linear_recurrence.GAE_KERNEL.name
+        if off["b1"][gae] != MAIN_UPDATES or on["b1"][gae] != MAIN_UPDATES + probe_runs * (
+                MAIN_UPDATES // 2) or probe_runs != 1:
+            raise AssertionError(f"B1 GAE launches off {off['b1']}, on {on['b1']} with "
+                                 f"{probe_runs} probe replays")
+        (telemetry,) = glob.glob(os.path.join(tmp, "results_ops_on", "**", "telemetry"),
+                                 recursive=True)
+        with open(os.path.join(telemetry, "trace.json")) as f:
+            trace = json.load(f)
+        problems = validate_chrome_trace(trace)
+        prom = open(os.path.join(telemetry, "metrics.prom")).read()
+        if problems or "# TYPE stoix_tpu_goodput_seconds_total counter" not in prom or (
+                "stoix_tpu_device_memory_bytes{" not in prom):
+            raise AssertionError(f"telemetry files: {problems[:3]}, prom {prom[:300]}")
+        fingerprint = _fingerprint_on_card_and_cpu(_ops_state("ops_on", final))
+        preflight_stats = stats["preflight"]
+        checks = stats["integrity"]["fingerprint_checks"]
+    record = {
+        "phase": "ops_train", "env": "cartpole", "total_num_envs": 1024, "updates": MAIN_UPDATES,
+        "switches": OPS_SWITCHES, "states_bitwise_equal": True,
+        "b1_gae_launches": {"on": on["b1"][gae], "off": off["b1"][gae]},
+        "env_steps_per_second": {"on": stats["steps_per_second"],
+                                 "off": off["stats"]["steps_per_second"]},
+        "window_seconds": {"on": stats["window_seconds"],
+                           "off": off["stats"]["window_seconds"]},
+        "run_seconds": {"on": on["seconds"], "off": off["seconds"]},
+        "probe_child_seconds": preflight_stats["probe"]["elapsed_s"],
+        "probe": preflight_stats["probe"],
+        "first_compile_s": preflight_stats["first_compile_s"],
+        "integrity": stats["integrity"],
+        "fingerprint_ms_per_window": stats["integrity"]["overhead_s"] * 1e3 / max(1, checks),
+        "fingerprint": fingerprint,
+        "memory_gate": preflight_stats["memory"],
+        "goodput": {k: stats["goodput"][k] for k in ("fraction", "stall_s", "recovery_s")},
+        "trace_events": len(trace["traceEvents"]), "card": smi}
+    emit(record)
+    return {"b1": record["b1_gae_launches"], "tmp": tmp, "probe": preflight_stats["probe"]}
+
+
+def ops_child(kind: str, tmp: str, out: str, rank: int = 0) -> None:
+    """One child of ops_faults (`--ops-child KIND TMP OUT [RANK]`), in TMP:
+    `sigterm` runs the main path with `sigterm:0` and saves its stats to OUT
+    (exit 0); `bitflip` is rank RANK of two gloo ranks on the one card under
+    `bitflip:1` (the sentinel's excepthook exits 88)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.chdir(tmp)
+    if kind == "sigterm":
+        _ops_run("ops_sigterm", ["arch.fault_spec=sigterm:0",
+                                 "logger.checkpointing.save_args.save_interval_steps=1000000"])
+        with open(out, "w") as f:
+            json.dump({"resilience": runner.LAST_RUN_STATS["resilience"]}, f)
+        return
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", world_size=2, rank=rank)
+    _ops_run("ops_bitflip", ["arch.integrity.enabled=true", "arch.num_eval_episodes=4",
+                             "arch.fault_spec=bitflip:1"])
+
+
+def _ops_children(tmp: str) -> dict:
+    """The sigterm child and the two bitflip ranks, started together."""
+    procs = {}
+    for name, args in (("sigterm", ["sigterm", os.path.join(tmp, "sigterm"), "sigterm.json"]),
+                       *((f"bitflip{r}", ["bitflip", os.path.join(tmp, "bitflip"),
+                                          f"bitflip{r}.json", str(r)]) for r in range(2))):
+        os.makedirs(args[1], exist_ok=True)
+        log = open(os.path.join(tmp, f"{name}.log"), "w+")
+        args[2] = os.path.join(tmp, args[2])
+        procs[name] = (subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                         "--ops-child", *args],
+                                        stdout=log, stderr=subprocess.STDOUT), log)
+    return procs
+
+
+def _ops_wait(procs: dict, timeout: float = 240.0) -> dict:
+    deadline = time.monotonic() + timeout
+    codes, logs = {}, {}
+    try:
+        for name, (proc, log) in procs.items():
+            codes[name] = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            log.seek(0)
+            logs[name] = log.read()
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            log.close()
+    return {"codes": codes, "logs": logs}
+
+
+def phase_ops_faults(smi: str, ops: dict) -> None:
+    """The Anakin faults on the card, each where its path ends: a child
+    under `sigterm:0` exits 0 with its emergency checkpoint, and a run
+    resumed from it ends bitwise in the unbroken run's state; two gloo ranks
+    under `bitflip:1` exit 88 with the quarantine file and no checkpoint of
+    the flipped window; in this process `nan_loss` under skip (one skip,
+    finite params), `backend_wedge` (BackendUnavailableError within its
+    deadline), `slow_compile` (CompileStallError at the first_compile
+    watchdog) and `ckpt_corrupt` (the restore falls back past the step, with
+    its reason)."""
+    from stoix_tpu_torch.resilience import (
+        BackendUnavailableError, CompileStallError, faultinject, preflight,
+    )
+    from stoix_tpu_torch.resilience.exit_codes import EXIT_CODE_STATE_CORRUPTION
+    from stoix_tpu_torch.utils import checkpointing
+
+    tmp = ops["tmp"]
+    start = time.perf_counter()
+    procs = _ops_children(tmp)
+    record = {"phase": "ops_faults", "card": smi}
+    with contextlib.chdir(tmp):
+        # nan_loss:1 (the second minibatch step) under skip: one update.
+        _ops_run("ops_nan", ["arch.fault_spec=nan_loss:1", f"arch.num_updates={MAIN_UPDATES // 2}",
+                             "arch.num_evaluation=1"])
+        skipped = runner.LAST_RUN_STATS["resilience"]["skipped_updates"]
+        state = _ops_state("ops_nan", OPS_STEP)
+        finite = all(bool(torch.isfinite(v).all()) for k, v in state.items()
+                     if k.startswith("params/"))
+        if skipped != 1.0 or not finite:
+            raise AssertionError(f"nan_loss under skip: {skipped} skipped, finite {finite}")
+        record["nan_loss"] = {"skipped_updates": skipped, "params_finite": finite}
+        # backend_wedge: every probe child sleeps; two attempts of 3 s.
+        faultinject.configure("backend_wedge")
+        began = time.perf_counter()
+        try:
+            preflight.probe_backend(timeout_s=3.0, attempts=2, backoff_base_s=0.5)
+            raise AssertionError("backend_wedge: the probe answered")
+        except BackendUnavailableError as error:
+            wedge = {"seconds": time.perf_counter() - began, "attempts": error.attempts}
+        finally:
+            faultinject.reset()
+        if wedge["seconds"] > 3.0 * 2 + 0.5 + 5.0:
+            raise AssertionError(f"backend_wedge took {wedge['seconds']} s")
+        record["backend_wedge"] = wedge
+        # slow_compile:30 against a 1 s first-compile deadline (this run's
+        # probe stands in for a second probe child).
+        probe_backend = preflight.probe_backend
+        preflight.probe_backend = lambda **kwargs: preflight.BackendProbe(**ops["probe"])
+        began = time.perf_counter()
+        try:
+            _ops_run("ops_slow", ["arch.fault_spec=slow_compile:30", "arch.preflight.enabled=true",
+                                  "arch.preflight.compile_deadline_s=1.0"])
+            raise AssertionError("slow_compile: the run finished")
+        except CompileStallError as error:
+            record["slow_compile"] = {"seconds": time.perf_counter() - began,
+                                      "stage": error.stage}
+        finally:
+            preflight.probe_backend = probe_backend
+        if record["slow_compile"]["seconds"] > 20.0:
+            raise AssertionError(f"slow_compile: {record['slow_compile']}")
+        # ckpt_corrupt on a card state's newest step.
+        saver = checkpointing.Checkpointer("corrupt", rel_dir="checkpoints", checkpoint_uid="c",
+                                           max_to_keep=None)
+        saver.save(1, {"w": torch.ones(4, device="cuda")})
+        faultinject.configure("ckpt_corrupt")
+        saver.save(2, {"w": torch.full((4,), 2.0, device="cuda")})
+        faultinject.reset()
+        restored, step = saver.restore({"w": torch.zeros(4, device="cuda")})
+        if step != 1 or not torch.equal(restored["w"], torch.ones(4, device="cuda")):
+            raise AssertionError(f"ckpt_corrupt: restored step {step}")
+        record["ckpt_corrupt"] = {"restored_step": step, "report": saver.last_restore_report}
+
+        children = _ops_wait(procs)
+        codes = children["codes"]
+        if codes != {"sigterm": 0, "bitflip0": EXIT_CODE_STATE_CORRUPTION,
+                     "bitflip1": EXIT_CODE_STATE_CORRUPTION}:
+            raise AssertionError(f"ops children exited {codes}:\n" + "\n".join(
+                f"--- {k} ---\n{v[-4000:]}" for k, v in children["logs"].items()))
+        with open(os.path.join(tmp, "sigterm.json")) as f:
+            sigterm = json.load(f)["resilience"]
+        # The resume: one more window from the child's emergency checkpoint.
+        with contextlib.chdir(os.path.join(tmp, "sigterm")):
+            _ops_run("ops_resumed", [f"arch.num_updates={MAIN_UPDATES // 2}",
+                                     "arch.num_evaluation=1",
+                                     "logger.checkpointing.load_model=true",
+                                     "logger.checkpointing.load_args.checkpoint_uid=ops_sigterm"])
+            restored_step = runner.LAST_RUN_STATS["resilience"]["restored_step"]
+            resumed = _ops_state("ops_resumed", 2 * OPS_STEP)
+        differ = _differ(resumed, _ops_state("ops_off", 2 * OPS_STEP))
+        if not sigterm["preempted"] or restored_step != OPS_STEP or differ:
+            raise AssertionError(f"sigterm: preempted {sigterm['preempted']}, restored "
+                                 f"{restored_step}, differing {differ[:5]}")
+        record["sigterm"] = {"child_exit": codes["sigterm"], "preempted": True,
+                             "restored_step": restored_step, "resume_bitwise": True}
+        bitflip = os.path.join(tmp, "bitflip", "checkpoints")
+        with open(os.path.join(bitflip, "quarantine.json")) as f:
+            quarantine = json.load(f)
+        (entry,) = quarantine["quarantined"]
+        steps = sorted(int(d) for d in os.listdir(os.path.join(bitflip, "ops_bitflip", "ff_ppo"))
+                       if d.isdigit())
+        if (entry["kind"], entry["window"], entry["devices"]) != (
+                "replica_mismatch", 1, [0, 1]) or steps != [OPS_STEP] or not os.path.isfile(
+                os.path.join(bitflip, "flight_record.json")):
+            raise AssertionError(f"bitflip: {entry}, saved steps {steps}")
+        record["bitflip"] = {"exit_codes": [codes["bitflip0"], codes["bitflip1"]],
+                             "quarantine": {k: entry[k] for k in ("kind", "window", "groups",
+                                                                  "devices")},
+                             "saved_steps": steps}
+    record["seconds"] = time.perf_counter() - start
+    emit(record)
+
+
+LEARN_PHASES = {  # the longest first, by their seconds on the card
     **{f"{name}_learn": partial(phase_pendulum_learn, name)
        for name in PENDULUM_THRESHOLDS},
     "mz_learn": partial(phase_pg_learn, "ff_mz", SEARCH_ROOTS["ff_mz"], MZ_IDENTITY, "mz_learn",
                         SEARCH_THRESHOLD),
     "cont_learn": phase_cont_learn,
-    "sac_learn": phase_sac_learn,
     "r2d2_learn": partial(phase_sequence_learn, "rec_r2d2"),
     "rainbow_learn": partial(phase_sequence_learn, "ff_rainbow"),
-    "rec_learn": phase_rec_learn,
+    "sac_learn": phase_sac_learn,
+    "snake_learn": phase_snake_learn,
     "q_learn": phase_q_learn,
+    "rec_learn": phase_rec_learn,
+    "catch_learn": phase_catch_learn,
+    **{f"{oracle}_learn": partial(phase_sebulba_learn, oracle) for oracle in SEBULBA_ORACLES},
     "trans_learn": phase_trans_learn,
+    "az_learn": partial(phase_pg_learn, "ff_az", SEARCH_ROOTS["ff_az"], AZ_IDENTITY, "az_learn",
+                        SEARCH_THRESHOLD),
+    "knobs_learn": phase_knobs_learn,
     "mpo_learn": partial(phase_pg_learn, "ff_mpo", MPO_ROOTS["ff_mpo"], MPO_IDENTITY,
                          "mpo_learn", MPO_THRESHOLD),
+    "disco_learn": partial(phase_pg_learn, "ff_disco103", DISCO_ROOT, DISCO_IDENTITY,
+                           "disco_learn", A13_THRESHOLD),
     "learn": phase_learn,
-    "knobs_learn": phase_knobs_learn,
+    "spo_learn": partial(phase_pg_learn, "ff_spo", SPO_ROOTS["ff_spo"], SPO_IDENTITY, "spo_learn",
+                         A13_THRESHOLD),
     "vmpo_learn": partial(phase_pg_learn, "ff_vmpo", MPO_ROOTS["ff_vmpo"], VMPO_IDENTITY,
                           "vmpo_learn", MPO_THRESHOLD),
     "awr_learn": partial(phase_pg_learn, "ff_awr", AWR_ROOT, AWR_IDENTITY, "awr_learn"),
     "vpg_learn": partial(phase_pg_learn, "ff_reinforce", VPG_ROOT, VPG_IDENTITY, "vpg_learn"),
-    "az_learn": partial(phase_pg_learn, "ff_az", SEARCH_ROOTS["ff_az"], AZ_IDENTITY, "az_learn",
-                        SEARCH_THRESHOLD),
-    "spo_learn": partial(phase_pg_learn, "ff_spo", SPO_ROOTS["ff_spo"], SPO_IDENTITY, "spo_learn",
-                         A13_THRESHOLD),
-    "disco_learn": partial(phase_pg_learn, "ff_disco103", DISCO_ROOT, DISCO_IDENTITY,
-                           "disco_learn", A13_THRESHOLD),
-    "catch_learn": phase_catch_learn,
-    "snake_learn": phase_snake_learn,
-    **{f"{oracle}_learn": partial(phase_sebulba_learn, oracle) for oracle in SEBULBA_ORACLES},
 }
-# The oracles share the card and the host's cores: one worker a core with
-# one left over for this process (which only waits on them), between four
-# and seven (seven on an 8-core host: the pool was the run's longest phase).
-LEARN_WORKERS = max(4, min(7, (os.cpu_count() or 8) - 1))
+# The phases whose numbers no kernel timing reads, each in a child of the
+# pool beside the oracles (each returns JSON), and the job each goes before.
+POOL_PHASES = {
+    "search_train": (phase_search_train, "cont_learn"),
+    "loco_grid": (lambda smi: {**phase_loco_train(smi), **phase_loco_envs(smi),
+                               **phase_grid_train(smi)}, "q_learn"),
+    "mcts": (phase_mcts, "q_learn"),
+    "mpo_family": (lambda smi: {**phase_mpo_train(smi, "mpo"), **phase_mpo_train(smi, "vmpo")},
+                   "q_learn"),
+    "spo_disco": (lambda smi: {**phase_spo_train(smi), **phase_disco_train(smi)}, "trans_learn"),
+    "rec_train": (phase_rec_train, "trans_learn"),
+}
+# The children share the card and the host's cores with the main process:
+# one worker a core, between four and eight.
+LEARN_WORKERS = max(4, min(8, os.cpu_count() or 8))
 LEARN_TIMEOUT_S = 480
 
 
-def learn_child(name: str) -> None:
-    """One learning oracle (`--learn-phase NAME`), on the card as the parent
-    sets it up; its JSON lines go to stdout."""
+def _child_setup() -> None:
+    """A pool child: TF32 off, as phase device sets it, and one share of the
+    host's cores."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # LEARN_WORKERS children share the host's cores.
     torch.set_num_threads(max(1, (os.cpu_count() or 8) // LEARN_WORKERS))
+
+
+def learn_child(name: str) -> None:
+    """One learning oracle (`--learn-phase NAME`); its JSON lines go to stdout."""
+    _child_setup()
     LEARN_PHASES[name]()
 
 
-def phase_learn_all() -> None:
-    """Every learning oracle in a child process, LEARN_WORKERS at a time:
-    each child's lines are printed when it ends, and any failure (or a child
-    past LEARN_TIMEOUT_S) stops the rest and raises."""
-    pending = list(LEARN_PHASES)
-    running = {}
-    start = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_learn_") as tmp:
-        try:
-            while pending or running:
-                while pending and len(running) < LEARN_WORKERS:
-                    name = pending.pop(0)
-                    log = open(os.path.join(tmp, f"{name}.log"), "w+")
-                    proc = subprocess.Popen(
-                        [sys.executable, os.path.abspath(__file__), "--learn-phase", name],
-                        stdout=log, stderr=subprocess.STDOUT)
-                    running[name] = (proc, log, time.monotonic())
-                for name, (proc, log, began) in list(running.items()):
+def pool_phase_child(name: str, smi: str) -> None:
+    """One of POOL_PHASES (`--pool-phase NAME SMI`); its JSON lines go to
+    stdout, the last one `{"pool_return": NAME, "value": ...}`."""
+    _child_setup()
+    value = POOL_PHASES[name][0](smi)
+    print(json.dumps({"pool_return": name, "value": value}), flush=True)
+
+
+def pool_jobs(smi: str) -> list:
+    """(name, command) of every job of the pool, the longest first."""
+    names = list(LEARN_PHASES)
+    for name, (_, before) in POOL_PHASES.items():
+        names.insert(names.index(before), name)
+    script = os.path.abspath(__file__)
+    return [(name, [sys.executable, script, "--pool-phase", name, smi] if name in POOL_PHASES
+             else [sys.executable, script, "--learn-phase", name]) for name in names]
+
+
+class Pool(threading.Thread):
+    """The jobs, each a child process, LEARN_WORKERS at a time, beside the
+    main process's phases. A child's JSON lines are kept until `finish`,
+    which prints them, records the pool and returns what the pool phases
+    returned. A failed child, or one past LEARN_TIMEOUT_S, or `stop`, ends
+    the rest."""
+
+    def __init__(self, jobs: list):
+        super().__init__(name="chip-smoke-pool", daemon=True)
+        self.jobs = list(jobs)
+        self.lines: list = []
+        self.returns: dict = {}
+        self.error = None
+        self.seconds = None
+        self._halt = threading.Event()
+
+    def run(self) -> None:
+        pending = list(self.jobs)
+        running = {}
+        start = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pool_") as tmp:
+            try:
+                while (pending or running) and not self._halt.is_set():
+                    while pending and len(running) < LEARN_WORKERS:
+                        name, command = pending.pop(0)
+                        log = open(os.path.join(tmp, f"{name}.log"), "w+")
+                        proc = subprocess.Popen(command, stdout=log, stderr=subprocess.STDOUT)
+                        running[name] = (proc, log, time.monotonic())
+                    for name, (proc, log, began) in list(running.items()):
+                        if proc.poll() is None:
+                            if time.monotonic() - began > LEARN_TIMEOUT_S:
+                                raise AssertionError(f"{name} ran past {LEARN_TIMEOUT_S} s")
+                            continue
+                        del running[name]
+                        log.seek(0)
+                        text = log.read()
+                        log.close()
+                        if proc.returncode:
+                            raise AssertionError(f"{name} failed (exit {proc.returncode}):\n"
+                                                 f"{text[-6000:]}")
+                        for line in text.splitlines():
+                            if line.startswith('{"pool_return"'):
+                                self.returns[name] = json.loads(line)["value"]
+                            elif line.startswith("{"):
+                                self.lines.append(line)
+                    time.sleep(0.2)
+                if self._halt.is_set() and (pending or running):
+                    raise AssertionError("the pool was stopped before its jobs ended")
+                self.seconds = time.perf_counter() - start
+            except BaseException as error:  # noqa: BLE001 -- handed to `finish`
+                self.error = error
+            finally:
+                for proc, log, _ in running.values():
                     if proc.poll() is None:
-                        if time.monotonic() - began > LEARN_TIMEOUT_S:
-                            raise AssertionError(f"{name} ran past {LEARN_TIMEOUT_S} s")
-                        continue
-                    del running[name]
-                    log.seek(0)
-                    text = log.read()
+                        proc.kill()
+                    proc.wait(timeout=60)
                     log.close()
-                    if proc.returncode:
-                        raise AssertionError(f"{name} failed (exit {proc.returncode}):\n"
-                                             f"{text[-6000:]}")
-                    for line in text.splitlines():
-                        if line.startswith("{"):
-                            print(line, flush=True)
-                time.sleep(0.2)
-        finally:
-            for proc, log, _ in running.values():
-                if proc.poll() is None:
-                    proc.kill()
-                proc.wait(timeout=60)
-                log.close()
-    emit({"phase": "learn_all", "phases": list(LEARN_PHASES), "workers": LEARN_WORKERS,
-          "host_cpus": os.cpu_count(),
-          "seconds": time.perf_counter() - start})
+
+    def stop(self) -> None:
+        self._halt.set()
+        self.join(timeout=120)
+
+    def finish(self) -> dict:
+        self.join()
+        if self.error is not None:
+            raise AssertionError(f"pool: {self.error}") from self.error
+        for line in self.lines:
+            print(line, flush=True)
+        emit({"phase": "learn_all", "phases": [name for name, _ in self.jobs],
+              "pool_phases": list(POOL_PHASES), "workers": LEARN_WORKERS,
+              "host_cpus": os.cpu_count(), "seconds": self.seconds})
+        return self.returns
+
+
+def main_phases(smi: str, recurrence: dict, gae: dict, attention: list, chunk: dict,
+                wide: list) -> dict:
+    """The main process's phases beside the pool; each kernel entry gains its
+    launches on each path. Returns what main still needs."""
+    kernels = (recurrence, gae, *attention, chunk, *wide)
+    phase_knobs(smi)
+    # The generic entry point is off both PPO paths (their GAE takes the GAE
+    # entry point); ff_pqn's Q(lambda) is its training path (phase q_train),
+    # and its launches on GAE's composed path (phase gae) stand under their own key.
+    recurrence["launches"] = phase_q_train(smi)
+    recurrence["path"] = "ff_pqn's update (Q(lambda)), phase q_train"
+    gae["launches_ff_ppo_continuous"] = phase_cont_train(smi)
+    # Sequence replay runs no kernel: each entry records its 0 launches there.
+    for name in SEQUENCE_ROOTS:
+        sequence = phase_sequence_train(name, smi)
+        for entry in kernels:
+            entry.setdefault("launches_sequence_replay", {})[name] = sequence[entry["name"]]
+    # A12's first half: the actor-critics run no kernel; ff_reinforce's update
+    # is one GAE launch (lambda 1.0), ff_awr's epoch one generic launch.
+    actor_critics = phase_ac_train(smi)
+    vpg = phase_pg_train(smi, "vpg")
+    awr = phase_pg_train(smi, "awr")
+    for entry in kernels:
+        entry["launches_actor_critics"] = {name: counts[entry["name"]]
+                                           for name, counts in actor_critics.items()}
+        entry["launches_ff_reinforce"] = vpg[entry["name"]]
+        entry["launches_ff_awr"] = awr[entry["name"]]
+    # A14's first half: one GAE launch an ff_ppo update on every vision path,
+    # nothing on ff_dqn's and ff_c51's.
+    vision = {"vision_train": phase_vision_train(smi), **phase_minatar_train(smi)}
+    phase_vision_parity(smi)
+    for entry in kernels:
+        entry["launches_vision"] = {label: counts[entry["name"]]
+                                    for label, counts in vision.items()}
+    data_parallel = phase_data_parallel(smi)
+    # A15's first part: Sebulba. One GAE launch an update on its ff_ppo paths,
+    # 4 generic launches (V-trace, one a minibatch) an update on the IMPALAs.
+    sebulba = {**phase_sebulba_train(smi), **phase_sebulba_pixel(smi),
+               **phase_sebulba_envs(smi)}
+    phase_sebulba_parity(smi)
+    for entry in kernels:
+        entry["launches_sebulba"] = {label: counts[entry["name"]]
+                                     for label, counts in sebulba.items()}
+    # A16 and A15b: Sebulba's off-policy half. The replay service and ff_dqn
+    # launch no kernel; IMPACT one GAE launch an update.
+    offpolicy = {"sebulba_replay": phase_sebulba_replay(smi), **phase_sebulba_dqn_train(smi),
+                 **phase_sebulba_impact_train(smi)}
+    phase_sebulba_offpolicy_parity(smi)
+    for entry in kernels:
+        entry["launches_sebulba_offpolicy"] = {label: counts[entry["name"]]
+                                               for label, counts in offpolicy.items()}
+    # A17a, A15b and C27: gossip groups (one GAE launch an update on each
+    # group's rank), Sebulba through the envpool adapter and the stateful
+    # evaluator (one an update on ff_ppo, none on ff_dqn), the ring's
+    # gradients and the tensor-parallel block (no kernel).
+    gae["launches_gossip"] = phase_gossip_train(smi)
+    adapters = phase_sebulba_adapters(smi)
+    for entry in kernels:
+        entry["launches_sebulba_adapters"] = {label: counts[entry["name"]]
+                                              for label, counts in adapters.items()}
+    with one_rank_mesh() as mesh:
+        phase_ring_grad(smi, mesh)
+    # A19a: the operations layer of one process on the main path, every
+    # switch on against every switch off, then the Anakin faults.
+    ops = phase_ops_train(smi)
+    gae["launches_ops_train"] = ops["b1"]
+    phase_ops_faults(smi, ops)
+    return {"data_parallel": data_parallel}
 
 
 def main() -> None:
@@ -5256,98 +5801,36 @@ def main() -> None:
         phase_c6(mesh, smi)
         phase_c8(smi)
         wide = phase_c8_wide(mesh, smi)
-    phase_knobs(smi)
-    # The generic entry point is off both PPO paths (their GAE takes the GAE
-    # entry point); ff_pqn's Q(lambda) is its training path (phase q_train),
-    # and its launches on GAE's composed path (phase gae) stand under their own key.
-    recurrence["launches"] = phase_q_train(smi)
-    recurrence["path"] = "ff_pqn's update (Q(lambda)), phase q_train"
-    gae["launches_ff_ppo_continuous"] = phase_cont_train(smi)
-    gae["launches_rec_ppo"] = phase_rec_train(smi)
-    # Sequence replay runs no kernel: each entry records its 0 launches there.
-    for name in SEQUENCE_ROOTS:
-        sequence = phase_sequence_train(name, smi)
-        for entry in (recurrence, gae, *attention, chunk, *wide):
-            entry.setdefault("launches_sequence_replay", {})[name] = sequence[entry["name"]]
-    # A12's first half: the actor-critics run no kernel; ff_reinforce's update
-    # is one GAE launch (lambda 1.0), ff_awr's epoch one generic launch.
-    actor_critics = phase_ac_train(smi)
-    vpg = phase_pg_train(smi, "vpg")
-    awr = phase_pg_train(smi, "awr")
-    # A12's second half: an MPO epoch is one generic launch (Retrace), a
-    # V-MPO epoch one GAE launch.
-    mpo = phase_mpo_train(smi, "mpo")
-    vmpo = phase_mpo_train(smi, "vmpo")
-    for entry in (recurrence, gae, *attention, chunk, *wide):
-        entry["launches_actor_critics"] = {name: counts[entry["name"]]
-                                           for name, counts in actor_critics.items()}
-        entry["launches_ff_reinforce"] = vpg[entry["name"]]
-        entry["launches_ff_awr"] = awr[entry["name"]]
-        entry["launches_mpo_family"] = {name: counts[entry["name"]]
-                                        for name, counts in {**mpo, **vmpo}.items()}
-    # A13's first half: the batched MCTS, then the four search systems; B1's
-    # GAE entry is ff_az's (on-policy and replay) and ff_sampled_az's path.
-    phase_mcts(smi)
-    search = phase_search_train(smi)
-    for entry in (recurrence, gae, *attention, chunk, *wide):
-        entry["launches_search"] = {label: counts[entry["name"]]
-                                    for label, counts in search.items()}
+    # Every kernel timing is taken by here, B1's GAE entry at the search and
+    # SPO shapes included: the oracles and POOL_PHASES run from now on in
+    # the pool's children, beside the main process's phases.
     gae["shapes"] += search_gae_shapes()
-    # A13's second half: an SPO epoch is one GAE launch (64 an update); the
-    # Disco rule launches no kernel, in either mode.
-    spo = phase_spo_train(smi)
-    disco = phase_disco_train(smi)
-    for entry in (recurrence, gae, *attention, chunk, *wide):
-        entry["launches_spo_disco"] = {label: counts[entry["name"]]
-                                       for label, counts in {**spo, **disco}.items()}
     gae["shapes"].append(spo_gae_shape())
-    # A14's first half: one GAE launch an ff_ppo update on every vision path,
-    # nothing on ff_dqn's and ff_c51's.
-    vision = {"vision_train": phase_vision_train(smi), **phase_minatar_train(smi)}
-    phase_vision_parity(smi)
+    pool = Pool(pool_jobs(smi))
+    pool.start()
+    try:
+        rest = main_phases(smi, recurrence, gae, attention, chunk, wide)
+        returned = pool.finish()
+    finally:
+        pool.stop()
+    # The pool's phases: ff_rec_ppo one GAE launch an update; A12's second
+    # half (an MPO epoch is one generic launch, Retrace, a V-MPO epoch one
+    # GAE launch); A13's (the batched MCTS, then the four search systems:
+    # B1's GAE entry is ff_az's, on-policy and replay, and ff_sampled_az's
+    # path; an SPO epoch is one GAE launch, 64 an update, and the Disco rule
+    # launches none, in either mode); A14b's first part (one GAE launch an
+    # update on every PPO path over the locomotion envs and the grid games,
+    # nothing on ff_sac's or the Q family's).
+    gae["launches_rec_ppo"] = returned["rec_train"]
     for entry in (recurrence, gae, *attention, chunk, *wide):
-        entry["launches_vision"] = {label: counts[entry["name"]]
-                                    for label, counts in vision.items()}
-    # A14b's first part: one GAE launch an update on every PPO path over the
-    # locomotion envs and the grid games, nothing on ff_sac's or the Q family's.
-    loco_grid = {**phase_loco_train(smi), **phase_loco_envs(smi), **phase_grid_train(smi)}
-    for entry in (recurrence, gae, *attention, chunk, *wide):
-        entry["launches_loco_grid"] = {label: counts[entry["name"]]
-                                       for label, counts in loco_grid.items()}
-    data_parallel = phase_data_parallel(smi)
-    # A15's first part: Sebulba. One GAE launch an update on its ff_ppo paths,
-    # 4 generic launches (V-trace, one a minibatch) an update on the IMPALAs.
-    sebulba = {**phase_sebulba_train(smi), **phase_sebulba_pixel(smi),
-               **phase_sebulba_envs(smi)}
-    phase_sebulba_parity(smi)
-    for entry in (recurrence, gae, *attention, chunk, *wide):
-        entry["launches_sebulba"] = {label: counts[entry["name"]]
-                                     for label, counts in sebulba.items()}
-    # A16 and A15b: Sebulba's off-policy half. The replay service and ff_dqn
-    # launch no kernel; IMPACT one GAE launch an update.
-    offpolicy = {"sebulba_replay": phase_sebulba_replay(smi), **phase_sebulba_dqn_train(smi),
-                 **phase_sebulba_impact_train(smi)}
-    phase_sebulba_offpolicy_parity(smi)
-    for entry in (recurrence, gae, *attention, chunk, *wide):
-        entry["launches_sebulba_offpolicy"] = {label: counts[entry["name"]]
-                                               for label, counts in offpolicy.items()}
-    # A17a, A15b and C27: gossip groups (one GAE launch an update on each
-    # group's rank), Sebulba through the envpool adapter and the stateful
-    # evaluator (one an update on ff_ppo, none on ff_dqn), the ring's
-    # gradients and the tensor-parallel block (no kernel).
-    gae["launches_gossip"] = phase_gossip_train(smi)
-    adapters = phase_sebulba_adapters(smi)
-    for entry in (recurrence, gae, *attention, chunk, *wide):
-        entry["launches_sebulba_adapters"] = {label: counts[entry["name"]]
-                                              for label, counts in adapters.items()}
-    with one_rank_mesh() as mesh:
-        phase_ring_grad(smi, mesh)
-    gae["launches_data_parallel"] = {"a_one_rank_ff_ppo": data_parallel["a_ff_ppo"],
-                                     "b_per_rank": data_parallel["b_per_rank"]}
-    recurrence["launches_data_parallel"] = {"a_one_rank_ff_pqn": data_parallel["a_ff_pqn"]}
-    # The learning oracles last, LEARN_WORKERS at a time, each in a process
-    # of its own: no timed phase shares the card or the host with them.
-    phase_learn_all()
+        for key, phase in (("launches_mpo_family", "mpo_family"), ("launches_search", "search_train"),
+                           ("launches_spo_disco", "spo_disco"), ("launches_loco_grid", "loco_grid")):
+            entry[key] = {label: counts[entry["name"]]
+                          for label, counts in returned[phase].items()}
+    gae["launches_data_parallel"] = {"a_one_rank_ff_ppo": rest["data_parallel"]["a_ff_ppo"],
+                                     "b_per_rank": rest["data_parallel"]["b_per_rank"]}
+    recurrence["launches_data_parallel"] = {
+        "a_one_rank_ff_pqn": rest["data_parallel"]["a_ff_pqn"]}
     chunk["launches"] = ring["launches"]
     chunk["composed_op"] = {"ring_attention_ms": ring["ring_attention_ms"],
                             "sdpa_ms": ring["sdpa_ms"]}
@@ -5362,11 +5845,22 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] in (["--data-parallel-rank"], ["--gossip-rank"], ["--learn-phase"],
+                         ["--pool-phase"], ["--ops-child"]):
+        die_with_parent()
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         dp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
     elif sys.argv[1:2] == ["--gossip-rank"]:
         gossip_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     elif sys.argv[1:2] == ["--learn-phase"]:
         learn_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--pool-phase"]:
+        pool_phase_child(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--ops-child"]:
+        ops_child(sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5]) if sys.argv[5:] else 0)
     else:
-        main()
+        adopt_children()
+        try:
+            main()
+        finally:
+            stop_leftovers()

@@ -1,0 +1,185 @@
+"""Goodput/badput ledger (counterpart of stoix_tpu/observability/goodput.py,
+the same taxonomy, maps and report).
+
+Every second of a run is classified into exactly one of nine phases —
+compute, eval, checkpoint, fetch_wait, queue_wait, gossip, compile, stall,
+recovery — from the phase timings the runners already record. `finalize()`
+assigns the residual wall time (wall minus the explicitly timed phases) to
+`compute`, so the fractions sum to 1. Pure host arithmetic over a monotonic
+clock: no threads, no device work. Exported as
+`stoix_tpu_goodput_seconds_total{phase=...}` and the
+`stoix_tpu_goodput_fraction` gauge.
+
+In the port's synchronous Anakin loop `learn_s` is the learn step's wall
+time including the device's (the loop waits for the card every window).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, Mapping, Optional
+
+from stoix_tpu_torch.observability.registry import MetricsRegistry, get_registry
+
+# The fixed taxonomy, in presentation order.
+PHASES = (
+    "compute",
+    "eval",
+    "checkpoint",
+    "fetch_wait",
+    "queue_wait",
+    "gossip",
+    "compile",
+    "stall",
+    "recovery",
+)
+
+# Anakin runner phase-clock names (stoix_tpu_runner_phase_seconds_total
+# labels) -> taxonomy. learn_s is dispatch cost in the pipelined loop; the
+# device execution it overlaps lands in the compute residual either way.
+RUNNER_PHASE_MAP = {
+    "compile_s": "compile",
+    "learn_s": "compute",
+    "gossip_s": "gossip",
+    "eval_s": "eval",
+    "fetch_s": "fetch_wait",
+    "ckpt_s": "checkpoint",
+}
+
+# Sebulba TimingTracker keys -> taxonomy (learner-loop attribution).
+# `ingest` is the off-policy poll/warmup-block path (ff_dqn): time spent
+# waiting on actor experience, same class as the on-policy rollout collect.
+SEBULBA_PHASE_MAP = {
+    "rollout_get": "queue_wait",
+    "ingest": "queue_wait",
+    "assemble": "compute",
+    "learn": "compute",
+}
+
+
+class GoodputLedger:
+    """One run's attribution ledger. `start()` opens the wall clock;
+    `note()`/`note_phases()` attribute explicitly timed seconds;
+    `finalize()` closes the books, assigns the residual, exports the
+    counters/gauge, and returns the report dict (LAST_RUN_STATS["goodput"])."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self._registry = registry or get_registry()
+        self._counter = self._registry.counter(
+            "stoix_tpu_goodput_seconds_total",
+            "Run wall-clock seconds attributed per goodput-taxonomy phase",
+        )
+        self._gauge = self._registry.gauge(
+            "stoix_tpu_goodput_fraction",
+            "Goodput (compute) fraction of wall time for the most recent run",
+        )
+        self._lock = threading.Lock()
+        self._seconds: Dict[str, float] = {phase: 0.0 for phase in PHASES}
+        self._t0: Optional[float] = None
+
+    def start(self) -> "GoodputLedger":
+        self._t0 = time.perf_counter()
+        return self
+
+    def note(self, phase: str, seconds: float) -> None:
+        if phase not in self._seconds:
+            raise ValueError(
+                f"unknown goodput phase {phase!r} (taxonomy: {PHASES})"
+            )
+        seconds = max(0.0, float(seconds))
+        if seconds == 0.0:
+            return
+        with self._lock:
+            self._seconds[phase] += seconds
+        self._counter.inc(seconds, {"phase": phase})
+
+    def note_phases(
+        self, breakdown: Mapping[str, float], mapping: Optional[Mapping[str, str]] = None
+    ) -> None:
+        """Attribute a whole phase-breakdown dict at once. `mapping` renames
+        source keys into the taxonomy (default: the Anakin runner names);
+        keys already in the taxonomy pass through, unknown keys are refused
+        loudly — an unmapped phase would silently inflate the residual."""
+        mapping = dict(RUNNER_PHASE_MAP if mapping is None else mapping)
+        for name, seconds in breakdown.items():
+            phase = mapping.get(name, name)
+            self.note(phase, seconds)
+
+    def seconds(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._seconds)
+
+    def finalize(self, wall_s: Optional[float] = None) -> Dict[str, object]:
+        """Close the ledger: residual wall time -> compute, fractions
+        normalized to the (possibly clamped) wall so they always sum to 1."""
+        if self._t0 is None and wall_s is None:
+            raise RuntimeError("GoodputLedger.finalize() before start()")
+        wall = float(wall_s) if wall_s is not None else time.perf_counter() - self._t0
+        attributed = sum(self.seconds().values())
+        residual = wall - attributed
+        if residual > 0:
+            self.note("compute", residual)
+        else:
+            # Explicitly timed phases can (rarely) over-cover the wall when
+            # timers overlap; the books still balance by taking the
+            # attributed total as the denominator.
+            wall = attributed
+        seconds = self.seconds()
+        denom = wall if wall > 0 else 1.0
+        fractions = {phase: seconds[phase] / denom for phase in PHASES}
+        fraction = fractions["compute"]
+        self._gauge.set(fraction)
+        return {
+            "wall_s": round(wall, 6),
+            "fraction": round(fraction, 6),
+            "stall_s": round(seconds["stall"], 6),
+            "recovery_s": round(seconds["recovery"], 6),
+            "seconds": {phase: round(seconds[phase], 6) for phase in PHASES},
+            "fractions": {phase: fractions[phase] for phase in PHASES},
+        }
+
+
+_lock = threading.Lock()
+_active: Optional[GoodputLedger] = None
+
+
+def set_active(ledger: Optional[GoodputLedger]) -> None:
+    """Install/clear the run's ledger so out-of-loop attribution sites
+    (faultinject stalls, supervisor respawn backoff, watchdog verdicts) can
+    feed it without threading a handle through every call chain."""
+    global _active
+    with _lock:
+        _active = ledger
+
+
+def get_active() -> Optional[GoodputLedger]:
+    with _lock:
+        return _active
+
+
+def note_stall(seconds: float) -> None:
+    """Attribute stall seconds to the active run's ledger (no-op between
+    runs — a stall with no ledger has no wall clock to charge)."""
+    ledger = get_active()
+    if ledger is not None:
+        ledger.note("stall", seconds)
+
+
+def note_recovery(seconds: float) -> None:
+    ledger = get_active()
+    if ledger is not None:
+        ledger.note("recovery", seconds)
+
+
+def disabled_report() -> Dict[str, object]:
+    """The schema-complete zero report for paths that never ran a ledger
+    : the same keys, all zero, fraction 0."""
+    return {
+        "wall_s": 0.0,
+        "fraction": 0.0,
+        "stall_s": 0.0,
+        "recovery_s": 0.0,
+        "seconds": {phase: 0.0 for phase in PHASES},
+        "fractions": {phase: 0.0 for phase in PHASES},
+    }

@@ -1,14 +1,27 @@
 """Fault-tolerance layer (counterpart of stoix_tpu/resilience): the typed
-errors the ported modules raise, the update guard (`guards`), Sebulba's
-actor supervisor (`supervisor`) and its fault injection (`faultinject`)."""
+errors, the exit-code registry (`exit_codes`), the update guard (`guards`),
+fault injection (`faultinject`), graceful preemption (`preemption`), the
+deadline watchdogs (`watchdog`), the launch preflight (`preflight`), the
+state-integrity sentinel (`integrity`) and Sebulba's actor supervisor
+(`supervisor`)."""
 
 from stoix_tpu_torch.resilience.errors import (
+    BackendUnavailableError,
+    CheckpointIntegrityError,
+    CompileStallError,
     ComponentFailure,
     ConfigValidationError,
     DivergenceError,
     EvaluatorStallError,
     InjectedFault,
+    PreflightError,
+    ResourcePreflightError,
+    StateCorruptionError,
 )
+from stoix_tpu_torch.resilience.preemption import PreemptionHandler
+from stoix_tpu_torch.resilience.watchdog import Watchdog
 
-__all__ = ["ComponentFailure", "ConfigValidationError", "DivergenceError",
-           "EvaluatorStallError", "InjectedFault"]
+__all__ = ["BackendUnavailableError", "CheckpointIntegrityError", "CompileStallError",
+           "ComponentFailure", "ConfigValidationError", "DivergenceError",
+           "EvaluatorStallError", "InjectedFault", "PreemptionHandler", "PreflightError",
+           "ResourcePreflightError", "StateCorruptionError", "Watchdog"]

@@ -24,20 +24,23 @@ rank makes the same decision, as the JAX package's pmean over ("batch",
 replica, so the host sum counts each skipped update once; the window's
 metrics are averaged over the ranks, so the host half decides alike on each.
 
-The JAX guard's fault-injection half (`nan_loss:N` through `arch.fault_spec`)
-waits for the Anakin faults (ROADMAP A19): the Anakin runner refuses
-`arch.fault_spec`, and the Sebulba runners take only `actor_crash` and
-`queue_stall` (resilience/faultinject.py).
+Fault injection (`nan_loss:N`, resilience/faultinject.py) lives inside the
+guard, as in the JAX package: when the optimizer's step count (the host int
+`count` found in the pre-update `opt_state`) is N, the loss and every float
+leaf of the update are poisoned with NaN. Under `off` that poisons the
+params for good (the failure the guard exists for); under `skip` and `halt`
+the guard catches it. A caller runs the guard whenever `active(mode)`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from stoix_tpu_torch.observability import get_registry
+from stoix_tpu_torch.resilience import faultinject
 from stoix_tpu_torch.resilience.errors import DivergenceError
 from stoix_tpu_torch.utils.tree import tree_map
 
@@ -85,17 +88,35 @@ def global_norm(grads: Sequence[Dict[str, torch.Tensor]]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for tree in grads for g in tree.values()))
 
 
+def active(mode: str) -> bool:
+    """Whether a learner must run `guard_update`: a guard mode, or an armed
+    `nan_loss` fault (which poisons the update under every mode)."""
+    return mode != "off" or faultinject.poison_step() is not None
+
+
 def guard_update(
-    mode: str, *, new: Any, old: Any, loss: torch.Tensor,
-    grads: Sequence[Dict[str, torch.Tensor]],
+    mode: str, *, new: Any, old: Any, loss: Optional[torch.Tensor],
+    grads: Sequence[Dict[str, torch.Tensor]], opt_state: Any = None,
 ) -> Tuple[Any, Dict[str, torch.Tensor]]:
     """The guard around one minibatch update. `new` and `old` are matching
     (params, opt_states) trees after and before the update; `loss` the
     minibatch loss (the replicas' mean); `grads` the gradient dicts the
-    update applied. Returns (the selected tree, the guard's metrics): under
-    'off' `new` as it is and no metrics. Tensor leaves are selected on the
-    device; a leaf that is not a tensor (the optimizer's host step count) is
-    taken from `new`."""
+    update applied; `opt_state` the pre-update optimizer state, where an
+    armed `nan_loss` reads the step count. Returns (the selected tree, the
+    guard's metrics): under 'off' `new` as it is (poisoned when the fault
+    fires) and no metrics. Tensor leaves are selected on the device; a leaf
+    that is not a tensor (the optimizer's host step count) is taken from
+    `new`."""
+    poison_at = faultinject.poison_step()
+    if mode == "off" and poison_at is None:
+        return new, {}
+    if poison_at is not None:
+        count = find_step_count(opt_state)
+        if count is None or int(count) == poison_at:  # no counter found: poison always
+            # NaN * 0 is NaN: every float leaf of the update becomes a real
+            # poisoned update, not just a poisoned detection signal.
+            new = tree_map(lambda x: x + float("nan") if x.is_floating_point() else x, new)
+            loss = None if loss is None else loss + float("nan")
     if mode == "off":
         return new, {}
     loss = loss.to(torch.float32)

@@ -20,9 +20,9 @@ Restarts change WHICH env steps feed the learner (the replacement re-seeds
 its envs), so supervision never fires on a healthy run — with no crashes the
 training stream is untouched.
 
-The JAX supervisor also writes to the flight recorder and the goodput
-ledger; neither is ported (ROADMAP A19), so those two calls have no
-counterpart here. Its crash and restart counters keep their names.
+Each crash and each unrecoverable failure goes on the flight recorder, and
+each backoff-and-respawn is recovery on the run's goodput ledger, as in the
+JAX supervisor. Its crash and restart counters keep their names.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, Optional
 
-from stoix_tpu_torch.observability import HeartbeatBoard, get_registry
+from stoix_tpu_torch.observability import HeartbeatBoard, flightrec, get_registry, goodput
 from stoix_tpu_torch.resilience.errors import ComponentFailure
 
 ThreadFactory = Callable[[], threading.Thread]
@@ -129,6 +129,9 @@ class ActorSupervisor:
             )
             return
         delay = min(self.backoff_base_s * (2.0 ** attempt), self.backoff_max_s)
+        flightrec.get_flight_recorder().record(
+            "actor_crash", actor=actor_id, error=f"{type(exc).__name__}: {exc}",
+            attempt=attempt + 1, backoff_s=delay)
         self._log.warning(
             "[supervisor] actor-%d crashed (%s: %s) — restarting in %.2fs "
             "(attempt %d/%d)",
@@ -187,6 +190,8 @@ class ActorSupervisor:
             self._threads[actor_id] = thread
             self._spawned_at[actor_id] = time.monotonic()
         thread.start()
+        # The backoff and respawn are recovery: one actor was down this long.
+        goodput.note_recovery(delay)
         self._restart_counter.inc(labels={"actor": str(actor_id)})
         self._log.warning(
             "[supervisor] actor-%d restarted (fresh env instance, re-primed params)",
@@ -195,6 +200,8 @@ class ActorSupervisor:
 
     def _propagate(self, actor_id: int, failure: ComponentFailure) -> None:
         self._failure_counter.inc(labels={"component": failure.component})
+        flightrec.get_flight_recorder().record(
+            "component_failure", component=failure.component, detail=str(failure))
         self._log.error("[supervisor] %s", failure)
         # Learner side: poison the rollout hand-off so collect_rollouts
         # raises instead of burning its timeout.

@@ -332,8 +332,9 @@ class PPOLearner:
             terms = per_replica[0][2]
         else:
             terms = tuple(torch.stack(parts) for parts in zip(*(g[2] for g in per_replica)))
+        guard = guards.active(self.guard_mode)
         guard_loss = None
-        if self.guard_mode != "off":  # off adds no op
+        if guard:  # off (and no fault armed) adds no op
             guard_loss = (terms[0] + terms[1]).mean()
         actor_grads, critic_grads, guard_loss = anakin.data_mean(
             (actor_grads, critic_grads, guard_loss), self.data_group)
@@ -350,10 +351,10 @@ class PPOLearner:
             new_opt.append(ActorCriticOptStates(actor_opt_state, critic_opt_state))
         loss_actor, value_loss, entropy = terms
         info = self.loss_info(loss_actor, value_loss, entropy)
-        if self.guard_mode != "off":
+        if guard:
             (new_params, new_opt), guard_metrics = guards.guard_update(
                 self.guard_mode, new=(new_params, new_opt), old=(params, opt_states),
-                loss=guard_loss, grads=(actor_grads, critic_grads),
+                loss=guard_loss, grads=(actor_grads, critic_grads), opt_state=opt_states,
             )
             info.update(guard_metrics)
         return new_params, new_opt, info
@@ -669,6 +670,7 @@ def _setup(env: envs.Environment, config: Any, device: torch.device, seeds: Sequ
         learner_state=learner_state,
         eval_act_fn=eval_act_fn,
         eval_params_fn=eval_params_fn,
+        guarded=True,
     )
 
 

@@ -72,8 +72,15 @@ envpool adapters. A scenario with no tensor-env twin (a gymnasium or envpool
 task id) evaluates on a pool of the factory's through
 `get_stateful_evaluator_fn` (`make_evaluator`).
 
-Refused by name: the fleet, integrity, preflight and compile cache layers,
-the "group" mesh axis, and (ROADMAP C24) the knobs these learners never
+The operations layer, as the JAX runner wires it: `arch.preflight` (the
+probe child and the config's cross-checks before any device work),
+`arch.integrity` (the determinism probe at each eval boundary: see
+`refuse_integrity_without_probe`), the goodput ledger and flight recorder,
+telemetry, and SIGTERM
+or SIGINT stopping the learner at the next update boundary
+(`LAST_RUN_STATS["resilience"]["preempted"]`; Sebulba has no checkpoint).
+
+Refused by name: the fleet and compile cache layers, the "group" mesh axis, and (ROADMAP C24) the knobs these learners never
 read: `system.replay.impl: sharded` (the JAX Sebulba PPO and IMPALA never
 read `system.replay`), and on PPO `system.fused_update` and
 `system.clip_value`.
@@ -99,11 +106,13 @@ from stoix_tpu_torch.envs.factory import make_factory
 from stoix_tpu_torch.evaluator import (
     get_distribution_act_fn, get_ff_evaluator_fn, get_stateful_evaluator_fn,
 )
-from stoix_tpu_torch.observability import RunStats, annotate, get_registry, span
+from stoix_tpu_torch.observability import (
+    RunStats, annotate, flightrec, get_registry, goodput, span,
+)
 from stoix_tpu_torch.ops import losses, running_statistics, scan_kernels
 from stoix_tpu_torch.ops import truncated_generalized_advantage_estimation
 from stoix_tpu_torch.parallel.roles import MeshRoles
-from stoix_tpu_torch.resilience import faultinject, guards
+from stoix_tpu_torch.resilience import PreemptionHandler, faultinject, guards, integrity, preflight
 from stoix_tpu_torch.resilience.errors import EvaluatorStallError
 from stoix_tpu_torch.resilience.supervisor import supervisor_from_config
 from stoix_tpu_torch.sebulba.core import (
@@ -118,7 +127,9 @@ from stoix_tpu_torch.sebulba.core import (
 )
 from stoix_tpu_torch.systems import anakin
 from stoix_tpu_torch.systems.ppo.anakin.ff_ppo import build_networks, make_apply_fn, make_optimizers
-from stoix_tpu_torch.systems.runner import resolve_device, unported_arch_keys
+from stoix_tpu_torch.systems.runner import (
+    resolve_device, run_preflight_checks, unported_arch_keys,
+)
 from stoix_tpu_torch.utils import config as config_lib
 from stoix_tpu_torch.utils.logger import LogEvent, StoixLogger
 from stoix_tpu_torch.utils.timing import TimingTracker
@@ -551,6 +562,22 @@ def refuse_replay_impl(config: Any) -> None:
             "system.replay (ROADMAP C24); the sharded replay serves Sebulba ff_dqn")
 
 
+def refuse_integrity_without_probe(config: Any) -> None:
+    """The port keeps ONE copy of the Sebulba learner state (on the first
+    learner device; the JAX runner replicates it over the learner devices),
+    so the replica fingerprints the JAX runner compares have no second
+    witness here and could never reach a verdict. The check that can is
+    the determinism probe: update 0's (state, batch), held, replayed through
+    the learn step at the eval boundaries and fingerprinted bitwise against
+    update 0's own result. `arch.integrity.enabled` without it is refused."""
+    settings = integrity.settings_from_config(config)
+    if settings.enabled and settings.determinism_probe_interval <= 0:
+        raise NotImplementedError(
+            "arch.integrity.enabled on Sebulba needs arch.integrity.determinism_probe_interval "
+            "> 0: the port keeps one copy of the Sebulba learner state, so replica "
+            "fingerprints have nothing to compare, and the determinism probe is its check")
+
+
 def ppo_refusals(config: Any) -> None:
     """ROADMAP C24: `system.fused_update` and `system.clip_value`, which the
     JAX Sebulba learner never reads (it always takes two backward passes
@@ -824,9 +851,11 @@ def resilience_counters() -> Tuple[Dict[str, Any], Dict[str, float]]:
 
 
 def resilience_stats(guard_mode: str, skipped_base: float, supervisor: Any,
-                     counters: Dict[str, Any], base: Dict[str, float]) -> Dict[str, Any]:
+                     counters: Dict[str, Any], base: Dict[str, float],
+                     preempted: bool = False) -> Dict[str, Any]:
     """`LAST_RUN_STATS["resilience"]` of a Sebulba run."""
     return {
+        "preempted": preempted,
         "update_guard": guard_mode,
         "skipped_updates": guards.skipped_counter().value() - skipped_base,
         "actor_restarts": supervisor.restart_count() if supervisor is not None else 0,
@@ -914,6 +943,7 @@ def run_experiment(
     LAST_RUN_STATS.clear()
     check_ported(config)
     refuse_replay_impl(config)
+    refuse_integrity_without_probe(config)
     refusals(config)
     impact = impact_settings_from_config(config)
     if impact is not None and learn_step_builder is not None:
@@ -924,6 +954,11 @@ def run_experiment(
         learn_step_builder = partial(get_impact_learn_step, rho_clip=impact.rho_clip)
     guard_mode = guards.resolve_mode(config)
     scan_kernels.configure_from_config(config)
+    # Preflight before any device work: the probe child, then the config's
+    # cross-checks against the probed cards (the actor/learner split is the
+    # kind of config it catches); a CPU run's devices are as many as its ids.
+    pf = preflight.settings_from_config(config)
+    run_preflight_checks(config, pf, torch.device(device), sebulba=True)
     roles = MeshRoles.from_config(config, devices=sebulba_devices(config, device))
     actor_devices = roles.role_devices("act")
     learner_devices = roles.role_devices("learn")
@@ -939,6 +974,12 @@ def run_experiment(
     setup = learner_setup(config, probe_envs, learner_devices, networks_builder,
                           learn_step_builder)
     state, learn_step, thread_apply_fns = setup.state, setup.learn_step, setup.thread_apply_fns
+    # The integrity sentinel: its probe holds update 0's input and result
+    # and replays it at the eval boundaries (refuse_integrity_without_probe).
+    sentinel = integrity.sentinel_from_config(config)
+    if sentinel is not None:
+        sentinel.bind(state)
+        sentinel.install_excepthook()
     normalize_obs = bool(config.system.get("normalize_observations", False))
     eval_actor_apply = thread_apply_fns(evaluator_device)[0]
 
@@ -959,6 +1000,13 @@ def run_experiment(
         with log_lock:
             logger.log(metrics, t, t_eval, event)
 
+    # StoixLogger reset the flight recorder: this run's identity and its
+    # goodput ledger go on the fresh instances.
+    ledger = goodput.GoodputLedger().start()
+    goodput.set_active(ledger)
+    recorder = flightrec.get_flight_recorder()
+    recorder.set_context(architecture="sebulba", system=str(config.system.system_name),
+                         seed=int(config.arch.seed))
     lifetime = ThreadLifetime()
     # IMPACT's learner never waits on a particular actor: the actors push to
     # one shared queue and ImpactIngest takes any full set.
@@ -1016,6 +1064,10 @@ def run_experiment(
     steady_start_steps = 0
     run_start_time = time.perf_counter()
     steady_end_time = run_start_time
+    # SIGTERM and SIGINT stop the learner at the next update boundary and
+    # run the orderly shutdown below.
+    preempt = PreemptionHandler().install()
+    preempted = False
     try:
         for update_idx in range(int(config.arch.num_updates)):
             fresh = True
@@ -1038,12 +1090,14 @@ def run_experiment(
                 impact_stats["staleness_sum"] += staleness
                 impact_stats["max_staleness_seen"] = max(impact_stats["max_staleness_seen"],
                                                          staleness)
+            learn_args = (state, batch) if ingest is None else (state, target_params, batch)
+            if sentinel is not None and update_idx == 0:
+                sentinel.capture_probe_input(learn_args)
             with span("learner_update", update=update_idx), timer.time("learn"):
-                if ingest is None:
-                    state, train_metrics = learn_step(state, batch)
-                else:
-                    state, train_metrics = learn_step(state, target_params, batch)
+                state, train_metrics = learn_step(*learn_args)
                 synchronize(learner_devices)
+            if sentinel is not None and update_idx == 0:
+                sentinel.record_probe_reference(sentinel.fingerprints(state))
             learn_steps += 1
             param_server.distribute_params((state.params, state.obs_stats))
             if ingest is not None and impact_stats["updates"] % impact.target_update_interval == 0:
@@ -1055,6 +1109,14 @@ def run_experiment(
                 # env frames, not gradient steps.
                 t_steps += steps_per_update
             guards.publish_guard_metrics(guard_mode, train_metrics, t_steps)
+            ledger.note(goodput.SEBULBA_PHASE_MAP["rollout_get"], timer.latest("rollout_get"))
+            if ingest is None:
+                ledger.note(goodput.SEBULBA_PHASE_MAP["assemble"], timer.latest("assemble"))
+            ledger.note(goodput.SEBULBA_PHASE_MAP["learn"], timer.latest("learn"))
+            if preempt.stop_requested():
+                preempt.acknowledge(t_steps)
+                preempted = True
+                break
 
             if (update_idx + 1) % int(config.arch.num_updates_per_eval) == 0:
                 ep_returns = drain_episodes(metrics_sink, timings)
@@ -1073,10 +1135,25 @@ def run_experiment(
                 if steady_start_time is None:
                     steady_start_time = time.perf_counter()
                     steady_start_steps = t_steps
+                window_idx = (update_idx + 1) // int(config.arch.num_updates_per_eval)
+                recorder.record("window", window=window_idx, step=t_steps,
+                                updates=update_idx + 1,
+                                queue_wait_s=round(timer.mean("rollout_get"), 6),
+                                learn_s=round(timer.mean("learn"), 6))
+                if sentinel is not None and sentinel.should_probe(window_idx):
+                    corruption = sentinel.run_probe(lambda held: learn_step(*held)[0])
+                    if corruption is not None:
+                        recorder.record("integrity_verdict", window=window_idx, step=t_steps,
+                                        detail=str(corruption))
+                        raise corruption
         # Close the window BEFORE shutdown: joins and the evaluator's drain
         # must not deflate the steady-state number.
         steady_end_time = time.perf_counter()
     finally:
+        preempt.uninstall()
+        goodput.set_active(None)
+        if sentinel is not None:
+            sentinel.deactivate()
         shut_down(lifetime, param_server, pipeline, supervisor, actor_threads, async_evaluator)
         logger.close()
 
@@ -1103,7 +1180,9 @@ def run_experiment(
         "eval_returns": list(eval_results),
         "history": logger.history,
         "resilience": resilience_stats(guard_mode, skipped_base, supervisor, counters,
-                                       counter_base),
+                                       counter_base, preempted),
+        "goodput": ledger.finalize(),
+        "integrity": sentinel.stats() if sentinel is not None else integrity.disabled_stats(),
         # None when IMPACT is off, as in the JAX package.
         "impact": None if impact is None else {
             "rho_clip": impact.rho_clip,

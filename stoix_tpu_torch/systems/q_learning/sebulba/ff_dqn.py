@@ -35,7 +35,9 @@ One learn step, `epochs` times, in the JAX package's order:
 Params reach the actors every `replay.param_sync_interval` updates; an
 actor takes the freshest queued version without ever waiting for one. The
 supervisor restarts a crashed actor while the learner goes on sampling;
-`arch.fault_spec` may arm `actor_crash` and `queue_stall`.
+`arch.fault_spec` may arm `actor_crash` and `queue_stall`. The goodput
+ledger, the flight recorder and preemption are wired as in the JAX runner;
+`arch.preflight` and `arch.integrity`, which it never reads, are refused.
 `system.replay.impl` must be `sharded`, as in the JAX package.
 """
 
@@ -53,11 +55,13 @@ import torch
 
 from stoix_tpu_torch.base_types import OnlineAndTarget, Transition
 from stoix_tpu_torch.envs.factory import make_factory
-from stoix_tpu_torch.observability import RunStats, annotate, get_registry, span
+from stoix_tpu_torch.observability import (
+    RunStats, annotate, flightrec, get_registry, goodput, span,
+)
 from stoix_tpu_torch.parallel.roles import MeshRoles
 from stoix_tpu_torch.replay import ShardedReplayService, service_from_config
 from stoix_tpu_torch.replay.core import pow_f32
-from stoix_tpu_torch.resilience import faultinject, guards
+from stoix_tpu_torch.resilience import PreemptionHandler, faultinject, guards
 from stoix_tpu_torch.resilience.supervisor import supervisor_from_config
 from stoix_tpu_torch.sebulba.core import (
     PUT_TIMEOUT_S,
@@ -345,11 +349,23 @@ def _rollout_body(actor_id, actor_device, env_factory, apply_fn, config, pipelin
 # ---------------------------------------------------------------- the runner
 
 
+def refuse_ignored_layers(config: Any) -> None:
+    """`arch.preflight` and `arch.integrity`, which the JAX Sebulba ff_dqn
+    never reads (its runner wires the goodput ledger, the flight recorder and
+    preemption only), raise, naming the key, rather than be ignored."""
+    ignored = [f"arch.{block}.enabled" for block in ("preflight", "integrity")
+               if (config.arch.get(block) or {}).get("enabled", False)]
+    if ignored:
+        raise NotImplementedError(
+            f"not ported for Sebulba ff_dqn (the JAX package's ignores it): {', '.join(ignored)}")
+
+
 def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> float:
     """Train Sebulba DQN; returns the last evaluation's mean return. The
     roles' devices are cards unless the caller asks for the CPU."""
     LAST_RUN_STATS.clear()
     check_ported(config)
+    refuse_ignored_layers(config)
     guard_mode = guards.resolve_mode(config)
     roles = MeshRoles.from_config(config, devices=sebulba_devices(config, device))
     actor_devices = roles.role_devices("act")
@@ -384,6 +400,12 @@ def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> fl
         with log_lock:
             logger.log(metrics, t, t_eval, event)
 
+    # This run's goodput ledger and flight-recorder identity, as the JAX runner.
+    ledger = goodput.GoodputLedger().start()
+    goodput.set_active(ledger)
+    recorder = flightrec.get_flight_recorder()
+    recorder.set_context(architecture="sebulba", system=str(config.system.system_name),
+                         seed=int(config.arch.seed))
     lifetime = ThreadLifetime()
     pipeline = OffPolicyPipeline(num_actors)
     param_server = ParameterServer(actor_devices, actors_per_device,
@@ -435,6 +457,8 @@ def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> fl
     run_start_time = time.perf_counter()
     steady_end_time = run_start_time
     replay_warmed = False
+    preempt = PreemptionHandler().install()
+    preempted = False
     try:
         for update_idx in range(int(config.arch.num_updates)):
             with timer.time("ingest"):
@@ -454,8 +478,14 @@ def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> fl
                 param_server.distribute_params(state.params.online)
             t_steps = ingested_items()
             guards.publish_guard_metrics(guard_mode, train_metrics, t_steps)
+            ledger.note(goodput.SEBULBA_PHASE_MAP["ingest"], timer.latest("ingest"))
+            ledger.note(goodput.SEBULBA_PHASE_MAP["learn"], timer.latest("learn"))
             # Drained every update: the sink is unbounded.
             pending_returns.extend(drain_episodes(metrics_sink, timings))
+            if preempt.stop_requested():
+                preempt.acknowledge(t_steps)
+                preempted = True
+                break
 
             if (update_idx + 1) % int(config.arch.num_updates_per_eval) == 0:
                 if pending_returns:
@@ -474,10 +504,17 @@ def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> fl
                 if steady_start_time is None:
                     steady_start_time = time.perf_counter()
                     steady_start_items = ingested_items()
+                recorder.record("window",
+                                window=(update_idx + 1) // int(config.arch.num_updates_per_eval),
+                                step=t_steps, updates=update_idx + 1,
+                                ingest_s=round(timer.mean("ingest"), 6),
+                                learn_s=round(timer.mean("learn"), 6))
         # Close the window BEFORE shutdown: joins and the evaluator's drain
         # must not deflate the steady-state number.
         steady_end_time = time.perf_counter()
     finally:
+        preempt.uninstall()
+        goodput.set_active(None)
         shut_down(lifetime, param_server, pipeline, supervisor, actor_threads, async_evaluator)
         logger.close()
 
@@ -501,7 +538,8 @@ def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> fl
         "replay": {k: replay_stats[k] - replay_base[k] for k in replay_stats},
         "ring_bytes": service.ring_bytes(),
         "resilience": resilience_stats(guard_mode, skipped_base, supervisor, counters,
-                                       counter_base),
+                                       counter_base, preempted),
+        "goodput": ledger.finalize(),
     })
     return eval_results[-1] if eval_results else 0.0
 

@@ -14,12 +14,41 @@ already overlap.
 
 Checkpointing (utils/checkpointing.py), as the JAX runner wires it: with
 `logger.checkpointing.load_model` the saved state is restored into the freshly
-built one before the evaluators are made, and the run's steps count on from
-the restored step; with `save_model` each window's state is saved after its
-evaluation. The update guard's host half (resilience/guards.py) reads each
-window's train metrics once they are on the host. The JAX package's fleet,
-integrity, preflight, compile-cache, fault-injection and telemetry layers
-are not ported; their knobs raise.
+built one before the evaluators are made (the fallback walk past unusable
+steps, their count in `resilience.restore_skipped`), and the run's steps
+count on from the restored step; with `save_model` each window's state is
+saved after its evaluation. The update guard's host half
+(resilience/guards.py) reads each window's train metrics once they are on
+the host.
+
+The operations layer of one process, as the JAX runner wires it
+(stoix_tpu/systems/runner.py:250-960); every piece is off by default and
+adds no work then, so a run with every switch on is the same run, bit for
+bit, as with every switch off:
+
+  * `arch.fault_spec` / `STOIX_TPU_FAULT` arms the Anakin faults
+    (resilience/faultinject.py) before the learner is built.
+  * The goodput ledger (observability/goodput.py) attributes the run's wall
+    time from the phase clock; `LAST_RUN_STATS["goodput"]`.
+  * `arch.preflight.enabled`: the backend probe in a child process and the
+    config's cross-checks before any device work; the first-compile stage
+    (the kernels' build, where `slow_compile` sleeps) and window 0 under
+    deadline watchdogs (resilience/watchdog.py); the memory gate, its lower
+    bound before window 0 and window 0's measured peak before window 1.
+  * `arch.integrity.enabled`: the sentinel (resilience/integrity.py)
+    fingerprints the replicated state after each learn step, gathers every
+    rank's fingerprints, and raises StateCorruptionError before that
+    window's checkpoint on any disagreement; with
+    `determinism_probe_interval` it replays window 0's input.
+  * Graceful preemption (resilience/preemption.py): SIGTERM or SIGINT stops
+    the loop at the next window boundary, writes an emergency checkpoint of
+    the last window's state, and returns normally.
+  * The flight recorder (observability/flightrec.py) keeps one record a
+    window; telemetry (`logger.telemetry.enabled`, utils/logger.py) records
+    a span for each host phase.
+
+The fleet and compile-cache layers are not ported (ROADMAP A19b, A19c);
+their knobs raise.
 
 Data parallelism, as the JAX runner's `maybe_initialize_distributed`, mesh
 and `check_total_timesteps(config, mesh.shape["data"])`: under `torchrun
@@ -47,6 +76,7 @@ step.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Union
@@ -55,12 +85,17 @@ import torch
 
 from stoix_tpu_torch import envs
 from stoix_tpu_torch.evaluator import evaluator_setup, get_rnn_evaluator_fn
-from stoix_tpu_torch.observability import get_registry
+from stoix_tpu_torch.observability import (
+    device_annotation, flightrec, get_logger, get_registry, goodput, span,
+)
 from stoix_tpu_torch.ops import scan_kernels
 from stoix_tpu_torch.parallel import (
     create_mesh, fetch_global, maybe_initialize_distributed, mesh_shape, process_count,
 )
-from stoix_tpu_torch.resilience import guards
+from stoix_tpu_torch.resilience import (
+    PreemptionHandler, Watchdog, faultinject, guards, integrity, preflight,
+)
+from stoix_tpu_torch.resilience.errors import BackendUnavailableError
 from stoix_tpu_torch.systems import anakin
 from stoix_tpu_torch.systems.anakin import make_generator, make_seeds, rank_seed
 from stoix_tpu_torch.utils.checkpointing import checkpointer_from_config, loader_from_config
@@ -70,8 +105,11 @@ from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
 # Stats of the most recent run_anakin_experiment call in this process, as
 # the JAX runner's LAST_RUN_STATS: per-window wall seconds and env-steps/s
 # (of the whole run), the logger's records, the device the run used, the
-# mesh and this rank's env count, and the resilience block (the guard's mode
-# and skipped updates, the restored step). Every rank keeps its own.
+# mesh and this rank's env count, the phase breakdown and its goodput
+# report, the resilience block (the guard's mode and skipped updates, the
+# restored step and the rejected newer steps, whether a signal stopped the
+# run), the sentinel's stats and the preflight's probe and memory gate.
+# Every rank keeps its own.
 LAST_RUN_STATS: Dict[str, Any] = {}
 GOSSIP_ROUNDS = "stoix_tpu_gossip_rounds_total"
 
@@ -87,6 +125,9 @@ class AnakinSetup(NamedTuple):
     # runner dispatches it every plan.interval windows right after the learn
     # step. None (the default) is lockstep.
     gossip: Any = None
+    # Whether the learner runs the update guard, where the `nan_loss` fault
+    # is injected (the ff_ppo family); the runner refuses the fault elsewhere.
+    guarded: bool = False
 
 
 SetupFn = Callable[[envs.Environment, Any, torch.device, int], AnakinSetup]
@@ -109,27 +150,22 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 def unported_arch_keys(config: Any, groups: bool = False) -> list:
     """The arch settings no runner of the port implements: a mesh axis other
     than "data" (and "group", the gossip learner groups, where the system
-    takes them: `groups`) and the fleet, integrity, preflight and compile
-    cache layers."""
+    takes them: `groups`) and the fleet and compile-cache layers."""
     arch = config.arch
     taken = ("data", "group") if groups else ("data",)
     unported = [f"arch.mesh.{axis}" for axis in (arch.get("mesh") or {}) if axis not in taken]
-    for block in ("fleet", "integrity", "preflight", "compile_cache"):
+    for block in ("fleet", "compile_cache"):
         if (arch.get(block) or {}).get("enabled", False):
             unported.append(f"arch.{block}.enabled")
     return unported
 
 
 def check_ported_arch(config: Any, groups: bool = False) -> None:
-    """Raise NotImplementedError, naming the key, for an arch/logger setting
-    this slice of the port does not implement; `groups` where the system
-    takes gossip learner groups (the ff_ppo family)."""
+    """Raise NotImplementedError, naming the key, for an arch setting the
+    port does not implement; `groups` where the system takes gossip learner
+    groups (the ff_ppo family). Faults are checked when they are armed
+    (`faultinject.check_anakin_plan`)."""
     unported = unported_arch_keys(config, groups)
-    if config.arch.get("fault_spec"):
-        # Anakin's faults (nan_loss, sigterm, bitflip, ...) belong to layers
-        # not ported yet (ROADMAP A19); the Sebulba runners take theirs
-        # (resilience/faultinject.py).
-        unported.append("arch.fault_spec")
     if config.arch.get("roles") not in (None, "~"):
         # Anakin colocates every role on the whole mesh, as the JAX Anakin
         # runner does; only the Sebulba runner (systems/ppo/sebulba/ff_ppo.py)
@@ -142,6 +178,54 @@ def check_ported_arch(config: Any, groups: bool = False) -> None:
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def maybe_watchdog(pf: preflight.PreflightSettings, stage: str, deadline_s: float):
+    """A deadline Watchdog around `stage` when preflight is on; a free
+    nullcontext otherwise (the off path adds no thread and no work)."""
+    if not pf.enabled:
+        return contextlib.nullcontext()
+    return Watchdog(stage, deadline_s, hard_exit_grace_s=pf.hard_exit_grace_s)
+
+
+def build_path_kernels(config: Any, device: torch.device) -> None:
+    """The first-compile stage: build (or load) the kernels the learn step
+    launches on the card before the first window. B1 is on every Anakin
+    path under `system.multistep_impl: pallas`; a system's other kernels
+    build at their first launch, inside window 0's watchdog."""
+    if device.type != "cuda" or str(config.system.get("multistep_impl", "scan")) != "pallas":
+        return
+    from stoix_tpu_torch.kernels import linear_recurrence
+
+    linear_recurrence.LIBRARY.load()
+
+
+def run_preflight_checks(config: Any, pf: preflight.PreflightSettings, device: torch.device,
+                         sebulba: bool = False) -> Optional[preflight.BackendProbe]:
+    """The backend probe and the config's cross-checks, when preflight is
+    on (None otherwise). A run asked for the card fails here when the probe
+    finds none. Anakin's mesh spans processes, one device each; Sebulba's
+    roles span the probed cards (a CPU run builds as many devices as its
+    ids name, so its device-count checks are skipped)."""
+    if not pf.enabled:
+        return None
+    with span("preflight"):
+        probe = preflight.probe_backend(
+            timeout_s=pf.probe_timeout_s, attempts=pf.probe_attempts,
+            backoff_base_s=pf.probe_backoff_base_s, backoff_max_s=pf.probe_backoff_max_s)
+        if device.type == "cuda" and probe.platform != "cuda":
+            raise BackendUnavailableError(
+                probe.attempts, pf.probe_timeout_s,
+                f"the probe found platform {probe.platform!r} but the run asked for {device}")
+        if sebulba:
+            count = probe.device_count if device.type == "cuda" else None
+        else:
+            count = 1
+        preflight.validate_config(config, device_count=count)
+        get_logger("stoix_tpu_torch.resilience").info(
+            "[preflight] backend healthy (%s x%d, attempt %d) and config cross-checks pass",
+            probe.platform, probe.device_count, probe.attempts)
+    return probe
 
 
 def run_anakin_experiment(
@@ -162,24 +246,35 @@ def run_anakin_experiment(
     passes `groups`; every other refuses the axis, naming it."""
     device = resolve_device(device)
     check_ported_arch(config, groups)
+    # Armed before the learner is built: the guard reads the nan_loss step.
+    faultinject.check_anakin_plan(faultinject.configure(config.arch.get("fault_spec")))
     guard_mode = guards.resolve_mode(config)
-    scan_kernels.configure_from_config(config)
-    maybe_initialize_distributed(config, device.type)
-    mesh_axes = dict(config.arch.get("mesh") or {"data": -1})
+    # The goodput ledger is open before any setup work, so restore, build and
+    # stall seconds all fall inside the attributed wall.
+    ledger = goodput.GoodputLedger().start()
+    goodput.set_active(ledger)
     try:
-        shape = mesh_shape(mesh_axes, process_count())
-    except ValueError as error:
-        named = ", ".join(f"arch.mesh.{axis}={size}" for axis, size in mesh_axes.items())
-        raise ValueError(f"{named}: {error}") from None
-    data_shards, num_groups = shape["data"], shape.get("group", 1)
-    mesh = None
-    if torch.distributed.is_initialized():
-        if device.type == "cuda":
-            device = torch.device("cuda", torch.cuda.current_device())
-        mesh = create_mesh(mesh_axes, device.type)
-    with anakin.use_mesh(mesh):
-        return _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, mesh,
-                    shape, data_shards, num_groups)
+        scan_kernels.configure_from_config(config)
+        pf = preflight.settings_from_config(config)
+        probe = run_preflight_checks(config, pf, device)
+        maybe_initialize_distributed(config, device.type)
+        mesh_axes = dict(config.arch.get("mesh") or {"data": -1})
+        try:
+            shape = mesh_shape(mesh_axes, process_count())
+        except ValueError as error:
+            named = ", ".join(f"arch.mesh.{axis}={size}" for axis, size in mesh_axes.items())
+            raise ValueError(f"{named}: {error}") from None
+        data_shards, num_groups = shape["data"], shape.get("group", 1)
+        mesh = None
+        if torch.distributed.is_initialized():
+            if device.type == "cuda":
+                device = torch.device("cuda", torch.cuda.current_device())
+            mesh = create_mesh(mesh_axes, device.type)
+        with anakin.use_mesh(mesh):
+            return _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, mesh,
+                        shape, data_shards, num_groups, ledger, pf, probe)
+    finally:
+        goodput.set_active(None)
 
 
 def _gossip_counter():
@@ -187,30 +282,47 @@ def _gossip_counter():
 
 
 def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, mesh, shape,
-         data_shards, num_groups) -> float:
+         data_shards, num_groups, ledger, pf, probe) -> float:
     """The host loop of `run_anakin_experiment`, with the mesh in use."""
     config = check_total_timesteps(config, data_shards)
     config.logger.system_name = config.system.system_name
+    sentinel = integrity.sentinel_from_config(config)
+    log = get_logger("stoix_tpu_torch.resilience")
 
     env, eval_env = envs.make(config)
     setup_seed, eval_seed = make_seeds(int(config.arch.seed), 2)
     setup = setup_fn(env, config, device, setup_seed)
+    if faultinject.poison_step() is not None and not setup.guarded:
+        raise NotImplementedError(
+            f"not ported for {config.system.system_name}: arch.fault_spec / "
+            f"{faultinject.ENV_VAR} fault nan_loss (its learner runs no update guard to poison; "
+            "the ff_ppo family's does)")
     learner_state = setup.learner_state
     if warmup_fn is not None:
         learner_state = warmup_fn(learner_state)
     # Resume: the saved state restored into the freshly built one, before
-    # the evaluators (the JAX runner's order).
-    start_step = 0
+    # the evaluators (the JAX runner's order). Its seconds are recovery.
+    start_step, restore_skipped = 0, 0
     if config.logger.checkpointing.get("load_model", False):
+        started = time.perf_counter()
         loader = loader_from_config(config, config.system.system_name)
         loader.check_version()
         load_args = config.logger.checkpointing.get("load_args") or {}
         learner_state, start_step = loader.restore(learner_state, load_args.get("timestep"))
+        restore_skipped = len(loader.last_restore_report)
+        ledger.note("recovery", time.perf_counter() - started)
+        get_logger("stoix_tpu_torch.checkpoint").info(
+            "[checkpoint] restored state from step %d%s", start_step,
+            f" ({restore_skipped} newer checkpoint(s) rejected)" if restore_skipped else "")
     eval_generator = make_generator(rank_seed(eval_seed), device)
     make_evaluators = evaluator_setup_fn or evaluator_setup
     evaluator, absolute_evaluator = make_evaluators(eval_env, setup.eval_act_fn, config)
+    # StoixLogger's observability.configure is the run's reset of the flight
+    # recorder: the run's context goes on the fresh ring after it.
     logger = StoixLogger(config)
-    checkpointer = checkpointer_from_config(config, config.system.system_name)
+    recorder = flightrec.get_flight_recorder()
+    recorder.set_context(architecture="anakin", system=str(config.system.system_name),
+                         seed=int(config.arch.seed))
     gossip_plan = setup.gossip
     gossip_step = gossip_plan.step if gossip_plan is not None else None
     gossip_rounds = 0
@@ -224,37 +336,105 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
         * int(config.arch.total_num_envs)
         * int(config.arch.num_updates_per_eval)
     )
+    num_evaluation = int(config.arch.num_evaluation)
+    phases = {"compile_s": 0.0, "learn_s": 0.0, "eval_s": 0.0, "ckpt_s": 0.0}
     best_params = setup.eval_params_fn(learner_state)
     best_return = -math.inf
     final_return = 0.0
     window_seconds = []
-    phases = {"learn_s": 0.0, "eval_s": 0.0}
     skipped_base = guards.skipped_counter().value()
+    preempt = PreemptionHandler()
+    preempted = False
+    last_save_t: Optional[int] = None
+    dispatched_t = start_step
+    memory = None
+    checkpointer = None
     try:
-        for eval_idx in range(int(config.arch.num_evaluation)):
+        checkpointer = checkpointer_from_config(config, config.system.system_name)
+        if sentinel is not None:
+            sentinel.bind(learner_state, world=process_count())
+            if checkpointer is not None:
+                sentinel.set_resume_info(checkpointer.directory)
+            sentinel.install_excepthook()
+        # The first-compile stage: the kernels' build (a cold one takes tens
+        # of seconds), under its watchdog when preflight is on.
+        start = time.perf_counter()
+        with span("first_compile"), maybe_watchdog(pf, "first_compile", pf.compile_deadline_s):
+            faultinject.maybe_slow_compile()
+            build_path_kernels(config, device)
+        phases["compile_s"] = time.perf_counter() - start
+        if pf.enabled:
+            memory = preflight.check_device_memory(
+                preflight.predict_memory(learner_state, config, env.observation_value()),
+                device, headroom=pf.hbm_headroom)
+            if device.type == "cuda":
+                # Window 0's peak counts what the process already holds (the
+                # state among it): the baseline goes beside it.
+                torch.cuda.reset_peak_memory_stats(device)
+                memory["allocated_before_bytes"] = int(torch.cuda.memory_allocated(device))
+        preempt.install()
+        if sentinel is not None and sentinel.probe_enabled:
+            sentinel.capture_probe_input(learner_state)
+        for eval_idx in range(num_evaluation):
+            faultinject.maybe_host_stall(eval_idx)
+            # bitflip:N corrupts rank 0's params going into window N: only
+            # the sentinel's fingerprints can see it.
+            learner_state = faultinject.maybe_bitflip(learner_state, eval_idx)
+            if sentinel is not None and sentinel.should_probe(eval_idx):
+                probe_error = sentinel.run_probe(setup.learn)
+                if probe_error is not None:
+                    raise probe_error
+            # Window 0 runs under the first-window watchdog with preflight on
+            # (a card that builds but wedges on its first launch).
+            first = maybe_watchdog(pf, "first_window", pf.first_window_deadline_s) if (
+                eval_idx == 0) else contextlib.nullcontext()
             start = time.perf_counter()
-            output = setup.learn(learner_state)
-            _synchronize(device)
+            with first, span("learn_dispatch", window=eval_idx), \
+                    device_annotation("learn_dispatch"):
+                output = setup.learn(learner_state)
+                _synchronize(device)
             wall = time.perf_counter() - start
             window_seconds.append(wall)
             phases["learn_s"] += wall
             learner_state = output.learner_state
+            if eval_idx == 0 and memory is not None and device.type == "cuda":
+                # The measured half of the gate, before anything reads or
+                # saves this window's state and before window 1 runs.
+                memory["first_window_peak_bytes"] = int(torch.cuda.max_memory_allocated(device))
+                memory = preflight.check_window_peak(
+                    memory, torch.cuda.max_memory_reserved(device), pf.hbm_headroom,
+                    torch.cuda.get_device_name(device))
             if gossip_step is not None and (eval_idx + 1) % gossip_plan.interval == 0:
                 # Mix before the snapshot: eval, best params and checkpoints
                 # all observe the post-gossip parameters; the round index
                 # seeds random_peer's edge.
                 start = time.perf_counter()
-                learner_state = gossip_step(learner_state, eval_idx)
-                _synchronize(device)
+                with span("gossip_dispatch", window=eval_idx):
+                    learner_state = gossip_step(learner_state, eval_idx)
+                    _synchronize(device)
                 phases["gossip_s"] = phases.get("gossip_s", 0.0) + time.perf_counter() - start
                 gossip_rounds += 1
                 _gossip_counter().inc()
             t = start_step + (eval_idx + 1) * steps_per_eval
+            dispatched_t = t
+
+            if sentinel is not None:
+                # The verdict before anything reads this window's state: a
+                # corrupt state is never evaluated as best or saved.
+                payload = sentinel.fingerprints(output.learner_state)
+                corruption = sentinel.verify(payload, eval_idx, t)
+                if corruption is not None:
+                    recorder.record("integrity_verdict", window=eval_idx, step=t,
+                                    detail=str(corruption))
+                    raise corruption
+                if eval_idx == 0:
+                    sentinel.record_probe_reference(payload)
 
             # Parameters are never updated in place, so the eval params need no copy.
             start = time.perf_counter()
-            eval_params = setup.eval_params_fn(learner_state)
-            eval_metrics = fetch_global(evaluator(eval_params, eval_generator), mesh)
+            with span("eval_dispatch", window=eval_idx):
+                eval_params = setup.eval_params_fn(learner_state)
+                eval_metrics = fetch_global(evaluator(eval_params, eval_generator), mesh)
             phases["eval_s"] += time.perf_counter() - start
             train_metrics = output.train_metrics
             if num_groups > 1:
@@ -266,34 +446,67 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
             # Envs along the last axis of the [updates, T, envs] episode metrics.
             episode_metrics = fetch_global(output.episode_metrics, mesh, axis=episode_axis,
                                            dim=-1)
-            logger.log(
-                {**envs.get_final_step_metrics(episode_metrics),
-                 "steps_per_second": steps_per_eval / wall},
-                t, eval_idx, LogEvent.ACT,
-            )
-            logger.log(
-                {k: v.mean() for k, v in train_metrics.items()}, t, eval_idx,
-                LogEvent.TRAIN,
-            )
-            logger.log(eval_metrics, t, eval_idx, LogEvent.EVAL)
+            sps = steps_per_eval / wall
+            recorder.record("window", window=eval_idx, step=t, wall_s=round(wall, 6),
+                            steps_per_second=round(sps, 3),
+                            phases={k: round(v, 6) for k, v in phases.items()},
+                            integrity=sentinel is not None)
+            with span("log", window=eval_idx):
+                logger.log({**envs.get_final_step_metrics(episode_metrics),
+                            "steps_per_second": sps}, t, eval_idx, LogEvent.ACT)
+                logger.log({k: v.mean() for k, v in train_metrics.items()}, t, eval_idx,
+                           LogEvent.TRAIN)
+                logger.log(eval_metrics, t, eval_idx, LogEvent.EVAL)
             mean_return = float(eval_metrics["episode_return"].mean())
             final_return = mean_return
             if mean_return >= best_return:
                 best_return = mean_return
                 best_params = eval_params
             if checkpointer is not None:
-                checkpointer.save(t, learner_state, mean_return)
+                start = time.perf_counter()
+                with span("ckpt_save", window=eval_idx):
+                    if checkpointer.save(t, learner_state, mean_return):
+                        last_save_t = t
+                phases["ckpt_s"] += time.perf_counter() - start
+            faultinject.maybe_sigterm(eval_idx)
+            if preempt.stop_requested():
+                preempted = True
+                break
 
-        if bool(config.arch.get("absolute_metric", True)):
+        if preempted:
+            preempt.acknowledge(dispatched_t)
+            if checkpointer is not None:
+                if last_save_t != dispatched_t:
+                    # The cadence did not cover the last window: an emergency
+                    # save of the live state.
+                    start = time.perf_counter()
+                    with span("emergency_ckpt", step=dispatched_t):
+                        checkpointer.save(dispatched_t, learner_state, final_return, force=True)
+                    phases["ckpt_s"] += time.perf_counter() - start
+                log.warning("[preemption] emergency state secured at step %d — exiting "
+                            "cleanly; resume with logger.checkpointing.load_model=true",
+                            dispatched_t)
+            else:
+                log.warning("[preemption] checkpointing disabled "
+                            "(logger.checkpointing.save_model=false): stopping cleanly at step "
+                            "%d WITHOUT saving state", dispatched_t)
+        elif bool(config.arch.get("absolute_metric", True)):
             abs_metrics = fetch_global(absolute_evaluator(best_params, eval_generator), mesh)
             logger.log(
                 abs_metrics, start_step + int(config.arch.total_timesteps),
-                int(config.arch.num_evaluation), LogEvent.ABSOLUTE,
+                num_evaluation, LogEvent.ABSOLUTE,
             )
             final_return = float(abs_metrics["episode_return"].mean())
     finally:
+        preempt.uninstall()
+        if sentinel is not None:
+            # Keeps the excepthook while a corruption verdict propagates (it
+            # must still become exit code 88).
+            sentinel.deactivate()
         logger.close()
 
+    # Close the goodput books: this run's phases, the residual to compute.
+    ledger.note_phases(phases)
     LAST_RUN_STATS.clear()
     LAST_RUN_STATS.update(
         {
@@ -304,12 +517,23 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
             "steps_per_second": [steps_per_eval / w for w in window_seconds],
             # gossip_s only in runs that dispatched a round, as the JAX runner.
             "phase_breakdown": phases,
+            "goodput": ledger.finalize(),
             "history": logger.history,
             "resilience": {
                 "update_guard": guard_mode,
                 "skipped_updates": guards.skipped_counter().value() - skipped_base,
+                "preempted": preempted,
                 "resume_capable": checkpointer is not None,
+                "preflight": pf.enabled,
                 "restored_step": start_step,
+                "restore_skipped": restore_skipped,
+            },
+            "integrity": (sentinel.stats() if sentinel is not None
+                          else integrity.disabled_stats()),
+            "preflight": None if not pf.enabled else {
+                "probe": None if probe is None else probe._asdict(),
+                "first_compile_s": phases["compile_s"],
+                "memory": memory,
             },
             "gossip": (
                 {"num_groups": gossip_plan.num_groups, "interval": gossip_plan.interval,

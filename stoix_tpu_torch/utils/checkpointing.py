@@ -32,9 +32,21 @@ done, so each rank's next save decision reads the same store. A restore
 reads the rank's own file; a step saved by another number of processes
 raises, naming both counts.
 
-Not ported (ROADMAP A19): the fleet's emergency stores (a `load_path` that
-names one raises, naming `arch.fleet`), topology-elastic re-placement, the
-per-leaf digests and the fallback walk past a corrupt step.
+Every save also records each leaf's sha256 digest (its tensor's bytes, a
+generator's state) in a `_digests.json` sidecar at the store's root
+(`_digests.<rank>-of-<N>.json` for each rank of several), and a restore
+checks what it read before it fills the template: the same tree paths,
+shapes and dtypes ('structure'), finite float leaves wherever the template's
+are finite, bfloat16 included ('non_finite'), and the recorded digests
+('digest'). A restore of the latest step walks from the newest step to the
+oldest past every step that fails, an unreadable file included (its reason
+the type of the exception `torch.load` raised), and records each rejection
+in `last_restore_report`; an explicit `timestep` never falls back, and a
+missing one lists the steps there are. The `ckpt_corrupt` fault overwrites
+the saved step's files after a save (resilience/faultinject.py).
+
+Not ported (ROADMAP A19b): the fleet's emergency stores (a `load_path` that
+names one raises, naming `arch.fleet`) and topology-elastic re-placement.
 """
 
 from __future__ import annotations
@@ -47,6 +59,10 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from stoix_tpu_torch.observability import get_logger
+from stoix_tpu_torch.resilience import faultinject, integrity
+from stoix_tpu_torch.resilience.errors import CheckpointIntegrityError
+
 # 3.0 is the JAX package's (PPOLearnerState carries kl_beta). A major version
 # that differs refuses to restore.
 CHECKPOINTER_VERSION = 3.0
@@ -54,6 +70,7 @@ STATE_FILE = "state.pt"
 METRICS_FILE = "metrics.json"
 METADATA_FILE = "metadata.json"
 FLEET_MANIFEST = "fleet_manifest.json"  # stoix_tpu/resilience/fleet.py::MANIFEST_NAME
+DIGEST_SIDECAR = "_digests.json"
 
 Path = Tuple[str, ...]
 
@@ -61,6 +78,34 @@ Path = Tuple[str, ...]
 def state_file(rank: int, world: int) -> str:
     """The file of rank `rank`'s state in a step saved by `world` processes."""
     return STATE_FILE if world == 1 else f"state.{rank}-of-{world}.pt"
+
+
+def digest_file(rank: int, world: int) -> str:
+    """The digest sidecar of rank `rank` in a store saved by `world` processes."""
+    return DIGEST_SIDECAR if world == 1 else f"_digests.{rank}-of-{world}.json"
+
+
+def saved_digest_record(store_dir: str, rank: int = 0,
+                        world: int = 1) -> Dict[int, Dict[str, str]]:
+    """Per-step digest records of a store's sidecar ({} when absent)."""
+    try:
+        with open(os.path.join(str(store_dir), digest_file(rank, world))) as f:
+            data = json.load(f)
+        return {int(step): {str(k): str(v) for k, v in (record or {}).items()}
+                for step, record in (data.get("steps") or {}).items()}
+    except (OSError, ValueError):
+        return {}
+
+
+def payload_digests(payload: Dict[str, Any]) -> Dict[str, str]:
+    """The sha256 of every tensor and generator state of a saved payload."""
+    digests = {}
+    for key, value in payload.items():
+        if isinstance(value, dict) and "generator_state" in value:
+            value = value["generator_state"]
+        if isinstance(value, torch.Tensor):
+            digests[key] = integrity.leaf_digest(value)
+    return digests
 
 
 def saved_world(step_dir: str) -> Optional[int]:
@@ -136,6 +181,9 @@ class Checkpointer:
         initialized = dist.is_available() and dist.is_initialized()
         self._rank = dist.get_rank() if initialized else 0
         self._world = dist.get_world_size() if initialized else 1
+        # The typed rejections of the latest restore's fallback walk:
+        # [{"step", "reason", "error"}, ...].
+        self.last_restore_report: List[Dict[str, str]] = []
 
     # ------------------------------------------------------------ the store
 
@@ -173,7 +221,8 @@ class Checkpointer:
             keep.update(steps)
         else:
             ranked = sorted(steps, key=lambda step: (self._episode_return(step), step))
-            keep.update(ranked[len(ranked) - self._max_to_keep:] if self._max_to_keep else [])
+            keep.update(ranked[max(0, len(ranked) - self._max_to_keep):] if self._max_to_keep
+                        else [])
         if self._keep_period:
             keep.update(step for step in steps if step % self._keep_period == 0)
         for step in steps:
@@ -199,6 +248,7 @@ class Checkpointer:
         if self._rank == 0 and not os.path.exists(metadata_path):
             _write_json(metadata_path, self._metadata)
         payload = {"/".join(path): _saveable(leaf) for path, leaf in flatten_state(state)}
+        self._record_digests(int(timestep), payload)
         name = state_file(self._rank, self._world)
         tmp = os.path.join(step_dir, name + ".tmp")
         torch.save(payload, tmp)
@@ -207,57 +257,142 @@ class Checkpointer:
             _write_json(os.path.join(step_dir, METRICS_FILE), metrics)
             os.replace(tmp, os.path.join(step_dir, STATE_FILE))
             self._prune()
-            return True
-        os.replace(tmp, os.path.join(step_dir, name))
-        dist.barrier()  # every rank's file is in place
-        if self._rank == 0:
-            _write_json(os.path.join(step_dir, METRICS_FILE), metrics)
-            self._prune()
-        dist.barrier()  # the store is whole again before any rank reads it
+        else:
+            os.replace(tmp, os.path.join(step_dir, name))
+            dist.barrier()  # every rank's file is in place
+            if self._rank == 0:
+                _write_json(os.path.join(step_dir, METRICS_FILE), metrics)
+                self._prune()
+            dist.barrier()  # the store is whole again before any rank reads it
+        if faultinject.consume_ckpt_corrupt():
+            faultinject.corrupt_checkpoint_files(step_dir)
         return True
 
+    def _record_digests(self, timestep: int, payload: Dict[str, Any]) -> None:
+        """Record the payload's per-leaf digests for `timestep` in this rank's
+        sidecar (read-modify-write; steps no longer on disk dropped). A
+        failed write only leaves the step unverified, so it is logged."""
+        path = os.path.join(self.directory, digest_file(self._rank, self._world))
+        try:
+            record = saved_digest_record(self.directory, self._rank, self._world)
+            record[timestep] = payload_digests(payload)
+            on_disk = set(self.all_steps()) | {timestep}
+            _write_json(path, {"steps": {str(step): record[step] for step in sorted(record)
+                                         if step in on_disk}})
+        except OSError as exc:
+            get_logger("stoix_tpu_torch.checkpoint").warning(
+                "[checkpoint] could not record the digest sidecar for step %d (%s) — this "
+                "step will restore without digest verification", timestep, exc)
+
     def restore(self, template: Any, timestep: Optional[int] = None) -> Tuple[Any, int]:
-        """The saved state at `timestep` (the latest when None) in the
-        structure of `template`; returns (state, step). Generators in the
-        template take their saved states in place."""
+        """The saved state at `timestep` (the latest valid one when None) in
+        the structure of `template`; returns (state, step). Generators in the
+        template take their saved states in place, once a step has passed
+        every check. Without `timestep` the walk goes from the newest step to
+        the oldest past every step that fails, each rejection in
+        `last_restore_report` with its typed reason; an explicit `timestep`
+        never falls back."""
+        self.last_restore_report = []
         steps = self.all_steps()
         if timestep is not None:
             if int(timestep) not in steps:
                 raise FileNotFoundError(
                     f"No checkpoint at timestep {timestep} under {self.directory}; "
                     f"available steps: {steps or '[]'}")
-            step = int(timestep)
+            candidates = [int(timestep)]
         elif steps:
-            step = steps[-1]
+            candidates = steps[::-1]
         else:
             raise FileNotFoundError(f"No checkpoints under {self.directory}")
-        step_dir = os.path.join(self.directory, str(step))
-        world = saved_world(step_dir)
+        log = get_logger("stoix_tpu_torch.checkpoint")
+        last_error: Optional[Exception] = None
+        for step in candidates:
+            self._check_world(step)  # another topology is not corruption: no fallback
+            try:
+                saved = self._read_step(step)
+                self._validate(saved, template, step)
+                self._verify_digests(saved, step)
+                return _fill(template, saved, ()), step
+            except Exception as exc:  # every failure means: try the next-newest
+                if timestep is not None:
+                    raise
+                last_error = exc
+                reason = getattr(exc, "kind", None) or type(exc).__name__
+                self.last_restore_report.append(
+                    {"step": str(step), "reason": str(reason), "error": str(exc)})
+                log.warning("[checkpoint] step %d unusable [reason: %s] (%s: %s) — falling "
+                            "back to the next-newest checkpoint", step, reason,
+                            type(exc).__name__, exc)
+        raise CheckpointIntegrityError(
+            candidates[-1],
+            f"no valid checkpoint among steps {candidates} under {self.directory}; last "
+            f"error: {type(last_error).__name__}: {last_error}")
+
+    def _check_world(self, step: int) -> None:
+        world = saved_world(os.path.join(self.directory, str(step)))
         if world != self._world:
             raise ValueError(
                 f"checkpoint step {step} under {self.directory} was saved by {world} "
                 f"process(es) and this run has {self._world}: restoring under another "
                 "number of processes (elastic re-placement) is not ported")
-        saved = torch.load(os.path.join(step_dir, state_file(self._rank, self._world)),
-                           map_location="cpu", weights_only=True)
-        paths = {"/".join(path) for path, _ in flatten_state(template)}
-        if paths != set(saved):
-            raise ValueError(
-                f"checkpoint step {step} under {self.directory} does not match the learner "
-                f"state: missing {sorted(paths - set(saved))[:5]}, "
-                f"unexpected {sorted(set(saved) - paths)[:5]}")
-        return _fill(template, saved, ()), step
+
+    def _read_step(self, step: int) -> Dict[str, Any]:
+        return torch.load(os.path.join(self.directory, str(step),
+                                       state_file(self._rank, self._world)),
+                          map_location="cpu", weights_only=True)
+
+    @staticmethod
+    def _validate(saved: Dict[str, Any], template: Any, step: int) -> None:
+        """The integrity gate on a read payload: the template's tree paths,
+        each tensor's shape and dtype ('structure'), and every float tensor
+        finite wherever the template's is ('non_finite')."""
+        leaves = dict(("/".join(path), leaf) for path, leaf in flatten_state(template))
+        if set(leaves) != set(saved):
+            raise CheckpointIntegrityError(
+                step, f"the saved tree does not match the learner state: missing "
+                f"{sorted(set(leaves) - set(saved))[:5]}, unexpected "
+                f"{sorted(set(saved) - set(leaves))[:5]}", kind="structure")
+        for key, ref in leaves.items():
+            value = saved[key]
+            if isinstance(ref, torch.Generator):
+                if not (isinstance(value, dict) and isinstance(
+                        value.get("generator_state"), torch.Tensor)):
+                    raise CheckpointIntegrityError(step, f"leaf {key} is not a generator's "
+                                                   "state", kind="structure")
+                continue
+            if not isinstance(ref, torch.Tensor):
+                continue
+            if not isinstance(value, torch.Tensor) or (value.shape, value.dtype) != (
+                    ref.shape, ref.dtype):
+                raise CheckpointIntegrityError(
+                    step, f"leaf {key}: expected a {ref.dtype} tensor of shape "
+                    f"{tuple(ref.shape)}", kind="structure")
+            if (value.is_floating_point() and not bool(torch.isfinite(value).all())
+                    and bool(torch.isfinite(ref).all())):
+                raise CheckpointIntegrityError(
+                    step, f"non-finite values in leaf {key} (template expects finite values "
+                    "here)", kind="non_finite")
+
+    def _verify_digests(self, saved: Dict[str, Any], step: int) -> None:
+        """Each leaf's digest against the record made at save time; a
+        mismatch is bit-rot ('digest'). No record for the step: skipped."""
+        record = saved_digest_record(self.directory, self._rank, self._world).get(step) or {}
+        if not record:
+            return
+        got = payload_digests(saved)
+        mismatched = sorted(key for key, want in record.items() if got.get(key) != want)
+        if mismatched:
+            raise CheckpointIntegrityError(
+                step, f"sha256 digest mismatch on {len(mismatched)} leaf(s) — the bytes on "
+                f"disk are not the bytes that were saved (bit-rot or tampering): "
+                f"{', '.join(mismatched[:5])}{'...' if len(mismatched) > 5 else ''}",
+                kind="digest")
 
 
 def _fill(template: Any, saved: Dict[str, Any], prefix: Path) -> Any:
     key = "/".join(prefix)
     if isinstance(template, torch.Tensor):
-        value = saved[key]
-        if not isinstance(value, torch.Tensor) or (value.shape, value.dtype) != (
-                template.shape, template.dtype):
-            raise ValueError(f"checkpoint leaf {key}: expected a {template.dtype} tensor of "
-                             f"shape {tuple(template.shape)}")
-        return value.to(template.device)
+        return saved[key].to(template.device)
     if isinstance(template, torch.Generator):
         template.set_state(saved[key]["generator_state"])
         return template

@@ -10,7 +10,12 @@ files: the console, JSON in the marl-eval layout (`use_json`), TensorBoard
 neptune (`use_neptune`) sinks, which the JAX package writes when those
 packages are absent; the port always writes those directories and never
 calls the packages. Every logged record is also kept in
-`StoixLogger.history`. `logger.telemetry.enabled` is not ported and raises.
+`StoixLogger.history`. With `logger.telemetry.enabled` a TelemetrySink
+(observability/sink.py) writes `metrics.prom`, `metrics.jsonl` and, at
+close, the span trace `trace.json` under `logger.telemetry.dir` (default
+`<exp_dir>/telemetry`); `observability.configure` is called once a logger,
+as the JAX logger calls it, and is the run's reset of the flight recorder.
+`logger.telemetry.http.enabled` (the HTTP ops plane) raises.
 
 Over several processes only the coordinator (rank 0) has sinks, as the JAX
 runner logs only on its coordinator: the other ranks write no file and print
@@ -29,6 +34,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from stoix_tpu_torch import observability
 from stoix_tpu_torch.parallel.distributed import is_coordinator
 
 
@@ -247,8 +253,11 @@ class StoixLogger:
 
     def __init__(self, config: Any):
         logger_cfg = config.logger
-        if (logger_cfg.get("telemetry") or {}).get("enabled", False):
-            raise NotImplementedError("logger sinks not ported: logger.telemetry.enabled")
+        telemetry_cfg = dict(logger_cfg.get("telemetry") or {})
+        # Only the coordinator has sinks, so only it records spans; every
+        # rank resets its flight recorder.
+        telemetry = observability.configure(
+            telemetry_cfg if is_coordinator() else {**telemetry_cfg, "enabled": False})
         env_name = config.env.get("env_name", "env")
         task_name = (config.env.get("scenario") or {}).get("task_name", "task")
         system_name = logger_cfg.get("system_name") or "system"
@@ -285,6 +294,13 @@ class StoixLogger:
             kwargs.setdefault("architecture_name",
                               (config.get("arch") or {}).get("architecture_name", "anakin"))
             self._sinks.append(NeptuneSink(os.path.join(self.exp_dir, "neptune"), **kwargs))
+        if telemetry:
+            from stoix_tpu_torch.observability.sink import TelemetrySink
+
+            self._sinks.append(TelemetrySink(
+                telemetry_cfg.get("dir") or os.path.join(self.exp_dir, "telemetry"),
+                min_write_interval_s=float(telemetry_cfg.get("min_write_interval_s", 0.0) or 0.0),
+            ))
 
     def log(self, metrics: Dict[str, Any], t: int, t_eval: int, event: LogEvent) -> None:
         processed: Dict[str, float] = {}

@@ -29,6 +29,11 @@ class TimingTracker:
         times = self._times.get(name)
         return sum(times) / len(times) if times else 0.0
 
+    def latest(self, name: str) -> float:
+        """The most recent duration of `name` (0.0 before its first)."""
+        times = self._times.get(name)
+        return times[-1] if times else 0.0
+
     def all_means(self, prefix: str = "") -> Dict[str, float]:
         return {f"{prefix}{k}_time": self.mean(k) for k in self._times}
 

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from stoix_tpu_torch.resilience.errors import CheckpointIntegrityError
 from stoix_tpu_torch.systems import runner
 from stoix_tpu_torch.systems.ppo.anakin import ff_ppo, ff_trans_ppo
 from stoix_tpu_torch.utils import checkpointing
@@ -82,7 +83,8 @@ def test_store_layout_and_metadata(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     _run([], 2, "layout")
     store = tmp_path / "checkpoints" / "layout" / "ff_ppo"
-    assert sorted(os.listdir(store)) == sorted([str(WINDOW), str(2 * WINDOW), "metadata.json"])
+    assert sorted(os.listdir(store)) == sorted([str(WINDOW), str(2 * WINDOW), "metadata.json",
+                                                checkpointing.DIGEST_SIDECAR])
     meta = json.loads((store / "metadata.json").read_text())
     assert meta["checkpointer_version"] == checkpointing.CHECKPOINTER_VERSION
     assert meta["system"]["system_name"] == "ff_ppo"
@@ -110,10 +112,13 @@ def test_restore_refuses_a_mismatched_state_and_missing_steps(tmp_path):
     saver.save(3, {"w": torch.zeros(2)})
     with pytest.raises(FileNotFoundError, match="available steps: \\[3\\]"):
         saver.restore({"w": torch.zeros(2)}, 4)
-    with pytest.raises(ValueError, match="shape"):
+    # A mismatch is a typed rejection of the step; with no other step the
+    # fallback walk ends in CheckpointIntegrityError, naming it.
+    with pytest.raises(CheckpointIntegrityError, match="shape"):
         saver.restore({"w": torch.zeros(3)})
-    with pytest.raises(ValueError, match="does not match"):
+    with pytest.raises(CheckpointIntegrityError, match="does not match"):
         saver.restore({"v": torch.zeros(2)})
+    assert saver.last_restore_report[0]["reason"] == "structure"
     state, step = saver.restore({"w": torch.ones(2)})
     assert step == 3 and torch.equal(state["w"], torch.zeros(2))
 
@@ -154,4 +159,4 @@ def test_ff_trans_ppo_saves_and_resumes_with_update_batches(tmp_path, monkeypatc
     assert np.isfinite(first) and np.isfinite(again)
     assert runner.LAST_RUN_STATS["resilience"]["restored_step"] == WINDOW
     assert sorted(os.listdir(tmp_path / "checkpoints" / "t2" / "ff_trans_ppo")) == sorted(
-        ["metadata.json", str(2 * WINDOW)])
+        ["metadata.json", checkpointing.DIGEST_SIDECAR, str(2 * WINDOW)])

@@ -2354,3 +2354,90 @@ def test_stateful_evaluator_on_gymnasium_on_the_card_matches_the_cpu():
     card = _stateful_returns(factory, device, 2)
     cpu = _stateful_returns(factory, "cpu", 2)
     assert card.shape == (8,) and torch.equal(card, cpu)
+
+
+# The operations layer on the card (A19a): integer fingerprints do not
+# depend on the order of their sums, so the card's equal the CPU's; the
+# probe child reports the card; the poller reads the allocator; the memory
+# gate refuses a run past a faked small limit.
+@pytest.mark.cuda
+def test_fingerprint_of_card_tensors_equals_the_cpus_bitwise():
+    from stoix_tpu_torch.resilience import integrity
+
+    device = _require_cuda()
+    gen = torch.Generator().manual_seed(0)
+    leaves = [torch.randn(257, 129, generator=gen), torch.randn(31, generator=gen).bfloat16(),
+              torch.randint(-9, 9, (1000,), generator=gen, dtype=torch.int32),
+              torch.rand(77, generator=gen) > 0.5, torch.zeros(0)]
+    assert integrity.fingerprint_leaves([x.to(device) for x in leaves], 5) == (
+        integrity.fingerprint_leaves(leaves, 5))
+    state = {"params": {"w": leaves[0]}, "opt_states": (leaves[2], leaves[1])}
+    card_state = {"params": {"w": leaves[0].to(device)},
+                  "opt_states": (leaves[2].to(device), leaves[1].to(device))}
+    assert integrity.Fingerprinter(card_state)(card_state) == integrity.Fingerprinter(state)(state)
+
+
+@pytest.mark.cuda
+def test_probe_child_reports_the_card():
+    from stoix_tpu_torch.resilience import preflight
+
+    _require_cuda()
+    probe = preflight.probe_backend(timeout_s=300.0, attempts=1)
+    assert probe.platform == "cuda" and probe.device_kind == torch.cuda.get_device_name(0)
+    assert probe.device_count == torch.cuda.device_count()
+    assert probe.hbm_bytes_limit == torch.cuda.mem_get_info(0)[1]
+
+
+@pytest.mark.cuda
+def test_poller_reads_the_allocator():
+    from stoix_tpu_torch.observability import introspect, registry
+
+    device = _require_cuda()
+    held = torch.empty(1 << 20, device=device)
+    reg = registry.MetricsRegistry()
+    assert introspect.sample_device_telemetry(reg) >= 4
+    gauge = reg.gauge("stoix_tpu_device_memory_bytes")
+    labels = {"device": "cuda:0", "kind": "bytes_in_use", "source": "memory_stats"}
+    assert gauge.value(labels) >= held.numel() * 4
+    assert gauge.value({"device": "cuda:0", "kind": "bytes_limit",
+                        "source": "mem_get_info"}) == torch.cuda.mem_get_info(0)[1]
+
+
+@pytest.mark.cuda
+def test_memory_gate_rejects_a_faked_small_limit():
+    from stoix_tpu_torch.resilience import preflight
+    from stoix_tpu_torch.resilience.errors import ResourcePreflightError
+
+    device = _require_cuda()
+    estimate = {"predicted_bytes": 1 << 30, "state_bytes": 1 << 29, "rollout_bytes": 1 << 29}
+    gated = preflight.check_device_memory(estimate, device)
+    assert gated["limit_bytes"] == torch.cuda.mem_get_info(0)[1]
+    with pytest.raises(ResourcePreflightError, match="exceeds 90%"):
+        preflight.check_device_memory(estimate, device, limit_bytes=1 << 30)
+    # The measured half on a real peak: it fits the card and not a faked
+    # limit below it.
+    held = torch.empty(1 << 24, device=device)
+    peak = torch.cuda.max_memory_reserved(device)
+    assert peak >= held.numel() * 4
+    preflight.check_window_peak(gated, peak)
+    with pytest.raises(ResourcePreflightError, match="measured"):
+        preflight.check_window_peak({**gated, "limit_bytes": peak}, peak)
+
+
+@pytest.mark.cuda
+def test_sebulba_determinism_probe_is_clean_on_the_card(tmp_path, monkeypatch):
+    """Sebulba ff_ppo's integrity check, the replay of update 0, on the card:
+    the learn step is repeatable there, so a healthy run reaches no verdict."""
+    from stoix_tpu_torch.systems.ppo.sebulba import ff_ppo as sebulba_ppo
+    from stoix_tpu_torch.utils import config as config_lib
+
+    _require_cuda()
+    monkeypatch.chdir(tmp_path)
+    cfg = config_lib.compose(config_lib.default_config_dir(), "default/sebulba/default_ff_ppo.yaml", [
+        "env=identity_game", "arch.total_num_envs=64", "arch.total_timesteps=4096",
+        "arch.num_evaluation=2", "arch.num_eval_episodes=8", "system.rollout_length=8",
+        "logger.use_console=False", "arch.actor.device_ids=[0]", "arch.learner.device_ids=[0]",
+        "arch.evaluator_device_id=0", "arch.integrity.enabled=true",
+        "arch.integrity.determinism_probe_interval=1", f"logger.base_exp_path={tmp_path}"])
+    sebulba_ppo.run_experiment(cfg, device="cuda")
+    assert sebulba_ppo.LAST_RUN_STATS["integrity"]["probe_runs"] == 2

@@ -774,7 +774,10 @@ def test_two_ranks_under_the_default_mesh_form_one_run(two_ranks):
     json_logs = [os.path.join(d, f) for d, _, files in os.walk(root / "results") for f in files]
     assert [os.path.basename(p) for p in json_logs] == ["metrics.json"]
     store = root / "runs" / "checkpoints" / "unbroken" / "ff_ppo"
-    assert sorted(os.listdir(store)) == sorted([str(WINDOW), str(2 * WINDOW), "metadata.json"])
+    # Each rank records its own leaves' digests beside the steps.
+    assert sorted(os.listdir(store)) == sorted([str(WINDOW), str(2 * WINDOW), "metadata.json",
+                                                checkpointing.digest_file(0, 2),
+                                                checkpointing.digest_file(1, 2)])
     assert sorted(os.listdir(store / str(2 * WINDOW))) == [
         "metrics.json", "state.0-of-2.pt", "state.1-of-2.pt"]
 

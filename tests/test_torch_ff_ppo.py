@@ -249,10 +249,14 @@ def test_entry_point_defaults_to_cuda_and_never_falls_back(monkeypatch):
     # Anakin colocates every role; only the Sebulba runner splits them.
     ("arch.roles.learn.device_ids=[0]", "arch.roles"),
     ("arch.fleet.enabled=true", "arch.fleet.enabled"),
-    ("arch.integrity.enabled=true", "arch.integrity.enabled"),
-    ("arch.preflight.enabled=true", "arch.preflight.enabled"),
-    ("arch.fault_spec=nan_loss:1", "arch.fault_spec"),
-    ("logger.telemetry.enabled=true", "logger.telemetry.enabled"),
+    # The integrity, preflight, fault and telemetry layers run
+    # (tests/test_torch_resilience.py, test_torch_integrity.py,
+    # test_torch_opsplane.py); what stays refused: the compile cache (A19c),
+    # the HTTP ops plane, and the fleet and serving faults (A19b, A18).
+    ("arch.compile_cache.enabled=true", "arch.compile_cache.enabled"),
+    ("logger.telemetry.http.enabled=true", "logger.telemetry.http.enabled"),
+    ("arch.fault_spec=host_loss:1", "host_loss"),
+    ("arch.fault_spec=swap_poison", "swap_poison"),
 ])
 def test_unported_knobs_raise_naming_the_key(override, key):
     cfg = make_config(["env=identity_game", "arch.total_num_envs=8", "arch.num_updates=1",
@@ -302,6 +306,11 @@ def test_port_imports_nothing_of_jax():
         "slice21 = ['parallel.gossip', 'parallel.tp', 'envs.gymnasium_adapter',\n"
         "           'envs.envpool_adapter']\n"
         "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice21)\n"
+        "slice22 = ['resilience.' + m for m in ('exit_codes', 'preemption', 'watchdog',\n"
+        "           'integrity', 'preflight')] + ['observability.' + m for m in (\n"
+        "           'flightrec', 'goodput', 'trace', 'trace_export', 'exporters', 'sink',\n"
+        "           'introspect')]\n"
+        "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice22)\n"
         "assert 'gymnasium' not in sys.modules and 'envpool' not in sys.modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -180,8 +180,10 @@ def test_gossip_config_trees_mirror_the_jax_package(root, overrides):
 
 
 @pytest.mark.parametrize("override,key", [
-    ("arch.fault_spec=host_stall:1", "arch.fault_spec"),
-    ("arch.preflight.enabled=true", "arch.preflight.enabled"),
+    # host_stall and preflight run (the straggler drill below); the fleet
+    # faults, the HTTP ops plane and the compile cache stay refused.
+    ("arch.fault_spec=host_loss:1", "host_loss"),
+    ("logger.telemetry.http.enabled=true", "logger.telemetry.http.enabled"),
     ("arch.compile_cache.enabled=true", "arch.compile_cache.enabled"),
 ])
 def test_gossip_root_refuses_the_unported_layers(override, key):
@@ -284,7 +286,8 @@ def two_ranks(tmp_path_factory):
     jobs = [_update_job("g2d1", 2, 1, ["arch.gossip.average_opt_states=true"]),
             _run_job("ring", root, []),
             _run_job("all_pairs", root, ["arch.gossip.topology=all_pairs",
-                                         "arch.gossip.mixing_weight=1.0"])]
+                                         "arch.gossip.mixing_weight=1.0"]),
+            _run_job("host_stall", root, ["arch.fault_spec=host_stall:1"])]
     return spawn_ranks(jobs, 2, root)
 
 
@@ -463,6 +466,18 @@ def test_two_group_run_mixes_and_preserves_group_mean(two_ranks):
         assert any(not np.array_equal(a, b) for a, b in zip(*pre)), "groups identical"
         for a0, a1, b0, b1 in zip(*pre, *post):
             np.testing.assert_allclose((b0 + b1) / 2, (a0 + a1) / 2, rtol=1e-6, atol=1e-7)
+
+
+def test_two_group_run_survives_host_stall(two_ranks):
+    """The straggler drill (the JAX package's
+    tests/test_gossip.py::test_two_group_run_survives_host_stall): two groups
+    under `host_stall:1` complete (the stall is a delay, never a deadlock),
+    dispatch every round, and the fault counter rises by one on each rank."""
+    for run in (r["host_stall"] for r in two_ranks):
+        assert len(run["learn"]) == 2 and len(run["gossip"]) == 2
+        assert run["stats_gossip"]["rounds"] == 2 and run["rounds_counted"] == 2
+        assert run["faults_injected"] == 1 and run["preempted"] is False
+        assert run["stall_s"] >= 1.0  # the goodput ledger charged the sleep
 
 
 def test_all_pairs_full_weight_reaches_consensus(two_ranks):

@@ -116,13 +116,20 @@ def test_entry_point_defaults_to_cuda_and_never_falls_back(system, monkeypatch):
 
 REFUSALS = [
     ("ff_impala", "arch.fleet.enabled=true", "arch.fleet.enabled"),
-    ("ff_ppo", "arch.integrity.enabled=true", "arch.integrity.enabled"),
-    ("ff_impala_shared_torso", "arch.preflight.enabled=true", "arch.preflight.enabled"),
+    # Integrity, preflight and telemetry run on the PPO/IMPALA runner
+    # (test_sebulba_integrity_checks_at_eval_boundaries); the compile cache
+    # and the HTTP ops plane stay refused, and Sebulba ff_dqn refuses the
+    # layers its JAX runner never reads.
+    ("ff_ppo", "arch.compile_cache.enabled=true", "arch.compile_cache.enabled"),
+    ("ff_impala_shared_torso", "logger.telemetry.http.enabled=true",
+     "logger.telemetry.http.enabled"),
     # Faults of layers not ported: the Sebulba runners inject actor_crash
     # and queue_stall only.
     ("ff_ppo", "arch.fault_spec=bitflip:1", "bitflip"),
     ("ff_dqn", "arch.fault_spec=sigterm:1", "sigterm"),
-    ("ff_ppo", "logger.telemetry.enabled=true", "logger.telemetry.enabled"),
+    ("ff_dqn", "arch.integrity.enabled=true", "arch.integrity.enabled"),
+    # One copy of the learner state: the determinism probe is the check.
+    ("ff_impala", "arch.integrity.enabled=true", "arch.integrity.determinism_probe_interval"),
     # ROADMAP C24: knobs the JAX Sebulba learners never read.
     ("ff_ppo", "system.replay.impl=sharded", "system.replay.impl=sharded"),
     ("ff_ppo", "system.fused_update=true", "system.fused_update"),

@@ -16,6 +16,7 @@ from stoix_tpu_torch.base_types import ActorCriticOptStates, ActorCriticParams, 
 from stoix_tpu_torch.networks import base, heads, inputs, torso
 from stoix_tpu_torch.observability import get_registry
 from stoix_tpu_torch.parallel import gossip, tp
+from stoix_tpu_torch.resilience import faultinject
 from stoix_tpu_torch.systems import anakin, runner
 from stoix_tpu_torch.systems.ppo.anakin import ff_ppo
 from stoix_tpu_torch.utils import config as config_lib
@@ -121,7 +122,8 @@ def gossip_run(mesh_for, root, overrides, cwd):
         return setup._replace(learn=recorded_learn, gossip=plan)
 
     rounds = get_registry().counter(runner.GOSSIP_ROUNDS)
-    before = rounds.value()
+    faults = get_registry().counter(faultinject.FAULTS_INJECTED)
+    before, faults_before = rounds.value(), faults.total()
     ff_ppo.learner_setup = recording_setup
     try:
         with RecordedReduces() as reduces:
@@ -131,6 +133,9 @@ def gossip_run(mesh_for, root, overrides, cwd):
     stats = runner.LAST_RUN_STATS
     return {"return": final_return, "learn": learn_traj, "gossip": gossip_traj,
             "rounds_counted": rounds.value() - before,
+            "faults_injected": faults.total() - faults_before,
+            "preempted": stats["resilience"]["preempted"],
+            "stall_s": stats["goodput"]["stall_s"],
             "stats_gossip": stats["gossip"], "phases": sorted(stats["phase_breakdown"]),
             "mesh": stats["mesh"], "reduce_ranks": sorted(set(reduces.ranks)),
             "history": stats["history"]}
