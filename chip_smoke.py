@@ -475,6 +475,32 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    backend_wedge (two 3 s attempts), slow_compile (the
                    first_compile watchdog) and ckpt_corrupt (the fallback
                    with its reason).
+ 63. fleet_train  — A19b, the operations layer across processes, on the
+                   main path: two ranks on the card over gloo (a tcp://
+                   store for the fleet run, a file:// one for the other)
+                   run ff_ppo at the default config's full width (1024 envs
+                   in total, 512 a rank), MAIN_UPDATES updates in 2
+                   windows, with `arch.fleet` and the HTTP ops plane off,
+                   then on, then off again (warm, beside on): the final
+                   states bitwise equal on both ranks,
+                   one B1 GAE launch an update on each rank, `/metrics/fleet`
+                   scraped while the run is live carrying both ranks' host
+                   labels and `/healthz` answering 200; env-steps/s a window
+                   on and off, the rescue snapshot's host copy (ms a window,
+                   bytes) and the skew ratio.
+ 64. fleet_faults — at the same width, three pairs of ranks at once: SIGTERM
+                   to rank 1 (sigterm:0 over 3 windows: both stop at window
+                   1 and exit 0); host_loss:2 on rank 1 (the survivor exits
+                   87 naming process 1, with the seconds from the freeze to
+                   the declaration and to the exit; a relaunch at one
+                   process here restores the emergency store, every params/
+                   digest the manifest's, and trains to its end); shrink:0
+                   (both exit 89 with a resize request for one device). Then
+                   the sigterm pair's two-rank store restored in one process
+                   and the relaunch's one-process store over two ranks
+                   through the checkpointer, the replicated leaves bitwise
+                   and the per-rank fields reported; no child left, the
+                   store's port free.
 
 Once every kernel is timed (after c8_wide, B1's GAE entry at the search and
 SPO shapes included), a pool of child processes of this script runs beside
@@ -510,6 +536,7 @@ import math
 import os
 import re
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -5556,6 +5583,421 @@ def phase_ops_faults(smi: str, ops: dict) -> None:
     emit(record)
 
 
+FLEET_RANKS = 2
+FLEET_COMMON = [f"arch.num_updates={MAIN_UPDATES}", "arch.num_evaluation=2",
+                "arch.num_eval_episodes=16", "system.multistep_impl=pallas",
+                "logger.use_console=False", "logger.checkpointing.save_model=true",
+                "logger.checkpointing.save_args.max_to_keep=~"]
+# The fleet and the ops plane as the drills run them: beats every 0.5 s, a
+# peer deadline no healthy run comes near, the fleet's metrics published every
+# 0.5 s so /metrics/fleet shows both ranks within a short run.
+FLEET_ON = ["arch.fleet.enabled=true", "arch.fleet.heartbeat_interval_s=0.5",
+            "arch.fleet.heartbeat_timeout_s=60", "arch.fleet.monitor_poll_s=0.5",
+            "arch.fleet.exit_grace_s=5", "logger.telemetry.http.enabled=true",
+            "logger.telemetry.http.aggregate_interval_s=0.5"]
+# host_loss's: declared within the timeout and one poll of the freeze, the
+# hard exit EXIT_GRACE after.
+FLEET_TIMEOUT_S, FLEET_POLL_S, FLEET_GRACE_S = 3.0, 0.5, 2.0
+FLEET_DEADLINES = [f"arch.fleet.heartbeat_timeout_s={FLEET_TIMEOUT_S}",
+                   f"arch.fleet.monitor_poll_s={FLEET_POLL_S}",
+                   f"arch.fleet.exit_grace_s={FLEET_GRACE_S}"]
+FLEET_STEP = 16 * 1024  # env steps an update at the default width (both ranks)
+FLEET_REPLICATED = ("params", "opt_states", "obs_stats", "kl_beta")
+
+
+def free_port() -> int:
+    with contextlib.closing(socket.socket()) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def port_is_free(port: int) -> bool:
+    """Whether no process listens on `port` (connections of the ended run
+    that linger in TIME_WAIT do not count)."""
+    with contextlib.closing(socket.socket()) as sock:
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            sock.bind(("127.0.0.1", port))
+            return True
+        except OSError:
+            return False
+
+
+def _fleet_group(address: str, rank: int) -> list:
+    """A fresh gloo group of the two ranks on the one card at `address`;
+    the overrides naming it, which the fleet's store reads."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("gloo", init_method=address, world_size=FLEET_RANKS, rank=rank)
+    return [f"arch.distributed.coordinator_address={address}",
+            f"arch.distributed.num_processes={FLEET_RANKS}", f"arch.distributed.process_id={rank}"]
+
+
+def _fleet_run(uid: str, extra: list, common: list = FLEET_COMMON) -> dict:
+    """ff_ppo at full width in the working directory, B1's counters zeroed
+    just before and read just after."""
+    lr = linear_recurrence
+    config = compose(common + [f"logger.checkpointing.save_args.checkpoint_uid={uid}", *extra])
+    for counter in lr.COUNTERS:
+        counter.launches = 0
+    start = time.perf_counter()
+    final_return = ff_ppo.run_experiment(config, device="cuda")
+    seconds = time.perf_counter() - start
+    if not math.isfinite(final_return):
+        raise AssertionError(f"{uid}: non-finite eval return {final_return}")
+    return {"b1": _counts(lr.COUNTERS), "stats": copy.deepcopy(runner.LAST_RUN_STATS),
+            "seconds": seconds}
+
+
+def _scrape_fleet(done: threading.Event, seen: dict) -> None:
+    """Scrape this rank's /metrics/fleet and /healthz while its run is live."""
+    import urllib.error
+    import urllib.request
+
+    from stoix_tpu_torch import observability
+
+    while not done.wait(0.2):
+        server = observability.get_ops_server()
+        if server is None:
+            continue
+        for path in ("/metrics/fleet", "/healthz"):
+            try:
+                with urllib.request.urlopen(server.url + path, timeout=5) as response:
+                    code, body = response.status, response.read().decode()
+            except urllib.error.HTTPError as error:
+                code, body = error.code, ""
+            except OSError:
+                continue
+            seen.setdefault(path, []).append(code)
+            if path == "/metrics/fleet" and code == 200:
+                hosts = sorted(set(re.findall(r'host="(\d+)"', body)))
+                if len(hosts) > len(seen.get("hosts", [])):
+                    seen["hosts"] = hosts
+
+
+def _replicated_of(state) -> dict:
+    from stoix_tpu_torch.utils.checkpointing import flatten_state
+
+    return {"/".join(p): leaf for p, leaf in flatten_state(state)
+            if p[0] in FLEET_REPLICATED and isinstance(leaf, torch.Tensor)}
+
+
+def _template_state(common: list, extra: list):
+    """A fresh learner state of the main path's config on the card, built
+    as the runner builds it (the template a restore fills)."""
+    config = check_total_timesteps(compose(common + extra), parallel.process_count())
+    env, _ = envs.make(config)
+    seed = anakin.make_seeds(int(config.arch.seed), 2)[0]
+    return ff_ppo.learner_setup(env, config, torch.device("cuda"), seed).learner_state
+
+
+def _elastic_restore(store: str, uid: str, saved_file: str) -> dict:
+    """The store's newest step restored through the checkpointer into this
+    process's template (its world may differ from the saver's): the
+    replicated leaves against `saved_file`'s, bitwise."""
+    from stoix_tpu_torch.utils import checkpointing
+
+    loader = checkpointing.Checkpointer("ff_ppo", rel_dir=store, checkpoint_uid=uid)
+    step = max(loader.all_steps())
+    saved = torch.load(os.path.join(loader.directory, str(step), saved_file), weights_only=True)
+    restored, _ = loader.restore(_template_state(FLEET_COMMON, []))
+    got = _replicated_of(restored)
+    want = {k: v for k, v in saved.items() if k.split("/")[0] in FLEET_REPLICATED
+            and isinstance(v, torch.Tensor)}
+    differ = sorted(k for k in want if k not in got or not torch.equal(got[k].cpu(), want[k]))
+    report = loader.last_elastic_restore
+    if differ or report is None:
+        raise AssertionError(f"elastic restore of {uid}: differing {differ[:5]}, report {report}")
+    return {"step": step, "saved_world": report["saved_world"], "world": report["world"],
+            "matched": report["matched"], "replicated_bitwise": len(want),
+            "kept": sorted({e.split(" ")[0].split("/")[0] for e in report["reinitialized"]})}
+
+
+def fleet_rank(kind: str, rank: int, address: str, tmp: str, out: str) -> None:
+    """One rank of phase fleet_train or fleet_faults (`--fleet-rank KIND RANK
+    ADDRESS TMP OUT`), both ranks on the one card in a gloo group (NCCL
+    refuses two ranks on one device); its record to OUT."""
+    from stoix_tpu_torch.observability import get_registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    os.chdir(tmp)
+    record = {}
+    if kind == "train":
+        off = _fleet_run("fleet_off", _fleet_group(f"file://{tmp}/store_off", rank))
+        seen: dict = {}
+        done = threading.Event()
+        scraper = threading.Thread(target=_scrape_fleet, args=(done, seen), daemon=True)
+        scraper.start()
+        try:
+            on = _fleet_run("fleet_on", _fleet_group(address, rank) + FLEET_ON)
+        finally:
+            done.set()
+            scraper.join(timeout=10)
+        # Off again: the first run paid the process's first CUDA work, so on
+        # is read beside this warm one.
+        again = _fleet_run("fleet_off_again", _fleet_group(f"file://{tmp}/store_again", rank))
+        record = {"off": {"b1": off["b1"], "sps": off["stats"]["steps_per_second"],
+                          "seconds": off["seconds"]},
+                  "off_again": {"b1": again["b1"], "sps": again["stats"]["steps_per_second"],
+                                "seconds": again["seconds"]},
+                  "on": {"b1": on["b1"], "sps": on["stats"]["steps_per_second"],
+                         "seconds": on["seconds"], "rescue": on["stats"]["fleet_rescue"],
+                         "resilience": on["stats"]["resilience"]},
+                  "skew_ratio": get_registry().gauge(
+                      "stoix_tpu_fleet_window_skew_ratio").value(),
+                  "scrape": seen}
+    elif kind == "sigterm":
+        fault = ["arch.fault_spec=sigterm:0"] if rank == 1 else []
+        run = _fleet_run("fleet_sigterm", _fleet_group(address, rank) + FLEET_ON + fault + [
+            "arch.num_updates=3", "arch.num_evaluation=3",
+            f"arch.fleet.emergency_dir={tmp}/emergency"])
+        record = {"windows": len(run["stats"]["window_seconds"]),
+                  "resilience": run["stats"]["resilience"]}
+    elif kind == "host_loss":
+        fault = ["arch.fault_spec=host_loss:2"] if rank == 1 else []
+        _fleet_run("fleet_loss", _fleet_group(address, rank) + FLEET_ON + FLEET_DEADLINES
+                   + fault + ["arch.num_updates=4", "arch.num_evaluation=4",
+            f"arch.fleet.emergency_dir={tmp}/emergency"])
+        raise AssertionError("host_loss:2 returned")
+    elif kind == "shrink":
+        _fleet_run("fleet_shrink", _fleet_group(address, rank) + FLEET_ON + [
+            "arch.fault_spec=shrink:0", f"arch.fleet.emergency_dir={tmp}/emergency/r{rank}"])
+        raise AssertionError("shrink:0 returned")
+    elif kind == "restore":
+        _fleet_group(address, rank)
+        record = _elastic_restore(os.path.join(tmp, "checkpoints"), "fleet_relaunched",
+                                  "state.pt")
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(record, f)
+
+
+def _fleet_ranks(kind: str, address: str, tmp: str) -> list:
+    """The two ranks of `kind`, started (a log each beside their record),
+    each in a session of its own: a rank that host_loss stops must not leave
+    a stopped member in this script's process group, which has no parent in
+    its session (the script may run under `setsid`), or a kernel that sends
+    an orphaned group with stopped members SIGHUP hangs this script up."""
+    os.makedirs(tmp, exist_ok=True)
+    ranks = []
+    for rank in range(FLEET_RANKS):
+        log = open(os.path.join(tmp, f"{kind}{rank}.log"), "w+")
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--fleet-rank", kind,
+                                 str(rank), address, tmp, os.path.join(tmp, f"{kind}{rank}.json")],
+                                stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+        ranks.append((proc, log))
+    return ranks
+
+
+def _fleet_wait(ranks: list, timeout: float = 300.0) -> tuple:
+    """Each rank's exit code and log; a rank past `timeout` is killed (a
+    stopped one too) and reaped."""
+    deadline = time.monotonic() + timeout
+    codes, logs = [], []
+    try:
+        for proc, _ in ranks:
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                proc.wait(timeout=max(0.1, deadline - time.monotonic()))
+    finally:
+        for proc, log in ranks:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            codes.append(proc.returncode)
+            log.seek(0)
+            logs.append(log.read())
+            log.close()
+    return codes, logs
+
+
+def _fleet_failed(kind: str, codes: list, logs: list) -> AssertionError:
+    return AssertionError(f"{kind} ranks exited {codes}:\n" + "\n".join(
+        f"--- rank {r} ---\n{log[-5000:]}" for r, log in enumerate(logs)))
+
+
+def _process_stopped(pid: int) -> bool:
+    with contextlib.suppress(OSError):
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rpartition(")")[2].split()[0] == "T"
+    return False
+
+
+def _no_fleet_child_left() -> None:
+    left = []
+    for pid in _children():
+        with contextlib.suppress(OSError):
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if b"--fleet-rank" in f.read():
+                    left.append(pid)
+    if left:
+        raise AssertionError(f"fleet children left running: {left}")
+
+
+def phase_fleet_train(smi: str) -> dict:
+    """A19b on the main path: two ranks on the card, fleet and HTTP off then
+    on, the final states bitwise equal. Returns B1's launches by rank."""
+    start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    port = free_port()
+    codes, logs = _fleet_wait(_fleet_ranks("train", f"tcp://127.0.0.1:{port}", tmp))
+    if codes != [0, 0]:
+        raise _fleet_failed("fleet_train", codes, logs)
+    ranks = [json.load(open(os.path.join(tmp, f"train{r}.json"))) for r in range(FLEET_RANKS)]
+    final = MAIN_UPDATES * FLEET_STEP
+    from stoix_tpu_torch.utils import checkpointing
+
+    differ = []
+    for rank in range(FLEET_RANKS):
+        name = checkpointing.state_file(rank, FLEET_RANKS)
+        on, off, again = [torch.load(os.path.join(tmp, "checkpoints", uid, "ff_ppo", str(final),
+                                                  name), weights_only=True)
+                          for uid in ("fleet_on", "fleet_off", "fleet_off_again")]
+        differ += [f"rank {rank}: {key}" for key in _differ(on, off) + _differ(again, off)]
+    gae, generic = linear_recurrence.GAE_KERNEL.name, linear_recurrence.KERNEL.name
+    runs = ("on", "off", "off_again")
+    launches = {run: [r[run]["b1"][gae] for r in ranks] for run in runs}
+    scrape = [r["scrape"] for r in ranks]
+    if differ or any(n != MAIN_UPDATES for run in launches.values() for n in run) or any(
+            r[run]["b1"][generic] for r in ranks for run in runs):
+        raise AssertionError(f"fleet_train: differing {differ[:5]}, B1 GAE launches {launches}")
+    if any(s.get("hosts") != ["0", "1"] or set(s.get("/healthz", [])) != {200} for s in scrape):
+        raise AssertionError(f"fleet_train: the live scrape saw {scrape}")
+    if not port_is_free(port):
+        raise AssertionError(f"fleet_train: the store's port {port} is still bound")
+    record = {
+        "phase": "fleet_train", "env": "cartpole", "total_num_envs": 1024, "ranks": FLEET_RANKS,
+        "updates": MAIN_UPDATES, "states_bitwise_equal": True, "b1_gae_launches": launches,
+        "env_steps_per_second": {run: [r[run]["sps"] for r in ranks] for run in runs},
+        "run_seconds": {run: [r[run]["seconds"] for r in ranks] for run in runs},
+        "host_copy_ms_per_window": [r["on"]["rescue"]["copy_ms"] for r in ranks],
+        "host_copy_bytes": ranks[0]["on"]["rescue"]["bytes"],
+        "skew_ratio": [r["skew_ratio"] for r in ranks],
+        "scrape": {"hosts": scrape[0]["hosts"], "metrics_fleet_codes": sorted(
+            set(scrape[0]["/metrics/fleet"])), "healthz_scrapes": [len(s["/healthz"])
+                                                                    for s in scrape]},
+        "seconds": time.perf_counter() - start, "card": smi}
+    emit(record)
+    return {"b1": launches}
+
+
+def phase_fleet_faults(smi: str) -> dict:
+    """The faults across processes on the card, three pairs of ranks at once
+    (sigterm, host_loss, shrink), then the relaunch at one process and the
+    elastic restores both ways through the checkpointer. Returns B1's
+    launches on the relaunch."""
+    from stoix_tpu_torch.resilience import elastic, fleet, integrity
+    from stoix_tpu_torch.resilience.exit_codes import (
+        EXIT_CODE_ELASTIC_RESIZE, EXIT_CODE_FLEET_PARTITION,
+    )
+
+    start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_faults_")
+    loss_port = free_port()
+    pairs = {"sigterm": _fleet_ranks("sigterm", f"file://{tmp}/sigterm/store",
+                                     os.path.join(tmp, "sigterm")),
+             "host_loss": _fleet_ranks("host_loss", f"tcp://127.0.0.1:{loss_port}",
+                                       os.path.join(tmp, "host_loss")),
+             "shrink": _fleet_ranks("shrink", f"file://{tmp}/shrink/store",
+                                    os.path.join(tmp, "shrink"))}
+    survivor, victim = pairs["host_loss"][0][0], pairs["host_loss"][1][0]
+    frozen_at = None
+    deadline = time.monotonic() + 300.0
+    while survivor.poll() is None and time.monotonic() < deadline:
+        if frozen_at is None and _process_stopped(victim.pid):
+            frozen_at = time.time()
+        time.sleep(0.02)
+    exited_at = time.time()
+    # The frozen victim ignores SIGTERM until continued: SIGKILL, and reap.
+    loss_codes, loss_logs = _fleet_wait(pairs["host_loss"], timeout=0.1)
+    results = {kind: _fleet_wait(pairs[kind]) for kind in ("sigterm", "shrink")}
+    record = {"phase": "fleet_faults", "total_num_envs": 1024, "card": smi}
+
+    # SIGTERM to rank 1: both stop at window 1, both exit 0.
+    codes, logs = results["sigterm"]
+    if codes != [0, 0]:
+        raise _fleet_failed("sigterm", codes, logs)
+    sig = [json.load(open(os.path.join(tmp, "sigterm", f"sigterm{r}.json"))) for r in range(2)]
+    stops = {s["resilience"]["fleet_agreed_stop"] for s in sig}
+    if [s["windows"] for s in sig] != [2, 2] or stops != {
+            "fleet stop agreed (process 1: preempt)"}:
+        raise AssertionError(f"sigterm: {sig}")
+    record["sigterm"] = {"exit_codes": codes, "windows": [2, 2], "agreed_stop": stops.pop()}
+
+    # host_loss:2 on rank 1: the survivor exits 87 within its deadlines.
+    if loss_codes[0] != EXIT_CODE_FLEET_PARTITION or frozen_at is None or (
+            "fleet partition: process 1 silent" not in loss_logs[0]):
+        raise _fleet_failed("host_loss", loss_codes, loss_logs)
+    emergency = os.path.join(tmp, "host_loss", "emergency")
+    flight = json.load(open(os.path.join(emergency, "flight_record.json")))
+    declared = [e["unix_time"] for e in flight["events"] if e["kind"] == "fleet_partition"]
+    to_declaration, to_exit = declared[0] - frozen_at, exited_at - frozen_at
+    if to_exit > FLEET_TIMEOUT_S + FLEET_POLL_S + FLEET_GRACE_S + 3.0:
+        raise AssertionError(f"host_loss: the survivor exited {to_exit} s after the freeze")
+    # The relaunch at one process restores the survivor's store here.
+    manifest = json.load(open(os.path.join(emergency, "p0", fleet.MANIFEST_NAME)))
+    restored, step = fleet.restore_emergency(_template_state(FLEET_COMMON, []), emergency)
+    params = {k: v for k, v in _replicated_of(restored).items() if k.startswith("params/")}
+    bad = [k for k, v in params.items() if integrity.leaf_digest(v) != manifest["digests"][k]]
+    kept = sorted({e.split(" ")[0].split("/")[0]
+                   for e in fleet.read_restore_report(emergency)["reinitialized"]})
+    if bad or not params or step != manifest["step"] or kept != [
+            "env_state", "generator", "timestep"]:
+        raise AssertionError(f"host_loss relaunch: step {step}, digests differ at {bad[:5]}, "
+                             f"kept {kept}")
+    with contextlib.chdir(tmp):
+        relaunch = _fleet_run("fleet_relaunched", [
+            "logger.checkpointing.load_model=true",
+            f"logger.checkpointing.load_args.load_path={emergency}"])
+    if relaunch["stats"]["resilience"]["restored_step"] != step:
+        raise AssertionError(f"host_loss relaunch restored {relaunch['stats']['resilience']}")
+    # The resumed run's updates go through B1's GAE entry, one launch each.
+    if relaunch["b1"] != {linear_recurrence.KERNEL.name: 0,
+                          linear_recurrence.GAE_KERNEL.name: MAIN_UPDATES}:
+        raise AssertionError(f"host_loss relaunch: B1 launches {relaunch['b1']}")
+    record["host_loss"] = {
+        "survivor_exit": loss_codes[0], "victim_exit": loss_codes[1],
+        "freeze_to_declaration_s": to_declaration, "freeze_to_exit_s": to_exit,
+        "deadlines_s": {"heartbeat_timeout": FLEET_TIMEOUT_S, "monitor_poll": FLEET_POLL_S,
+                        "exit_grace": FLEET_GRACE_S},
+        "manifest_step": step, "params_digests_equal": len(params),
+        "partial": len(manifest["partial"]), "relaunch_b1": relaunch["b1"],
+        "relaunch_windows": len(relaunch["stats"]["window_seconds"])}
+
+    # shrink:0: both exit 89 with a request for one device.
+    codes, logs = results["shrink"]
+    if codes != [EXIT_CODE_ELASTIC_RESIZE] * 2:
+        raise _fleet_failed("shrink", codes, logs)
+    want = elastic.topology_overrides(compose(FLEET_COMMON), 1)
+    requests = [elastic.read_resize_request(os.path.join(tmp, "shrink", "emergency", f"r{r}"))
+                for r in range(2)]
+    if any((q["from_devices"], q["target_devices"], q["overrides"], q["platform"]) != (
+            2, 1, want, "cuda") for q in requests):
+        raise AssertionError(f"shrink requests: {requests}")
+    record["shrink"] = {"exit_codes": codes, "target_devices": 1, "overrides": want}
+
+    # The elastic restores: the sigterm pair's 2-rank store in this process,
+    # and the relaunch's 1-process store over two ranks.
+    record["restore_2_to_1"] = _elastic_restore(os.path.join(tmp, "sigterm", "checkpoints"),
+                                                "fleet_sigterm", "state.0-of-2.pt")
+    codes, logs = _fleet_wait(_fleet_ranks("restore", f"file://{tmp}/restore_store", tmp))
+    if codes != [0, 0]:
+        raise _fleet_failed("restore", codes, logs)
+    record["restore_1_to_2"] = [json.load(open(os.path.join(tmp, f"restore{r}.json")))
+                                for r in range(2)]
+    for report in (record["restore_2_to_1"], *record["restore_1_to_2"]):
+        if report["kept"] != ["env_state", "generator", "timestep"]:
+            raise AssertionError(f"elastic restore kept {report}")
+    _no_fleet_child_left()
+    if not port_is_free(loss_port):
+        raise AssertionError(f"fleet_faults: the store's port {loss_port} is still bound")
+    record["children_left"] = 0
+    record["seconds"] = time.perf_counter() - start
+    emit(record)
+    return {"b1": relaunch["b1"]}
+
+
 LEARN_PHASES = {  # the longest first, by their seconds on the card
     **{f"{name}_learn": partial(phase_pendulum_learn, name)
        for name in PENDULUM_THRESHOLDS},
@@ -5777,6 +6219,9 @@ def main_phases(smi: str, recurrence: dict, gae: dict, attention: list, chunk: d
     ops = phase_ops_train(smi)
     gae["launches_ops_train"] = ops["b1"]
     phase_ops_faults(smi, ops)
+    # A19b: the operations layer across processes, two ranks on the card.
+    gae["launches_fleet_train"] = phase_fleet_train(smi)["b1"]
+    gae["launches_fleet_relaunch"] = phase_fleet_faults(smi)["b1"]
     return {"data_parallel": data_parallel}
 
 
@@ -5846,7 +6291,7 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] in (["--data-parallel-rank"], ["--gossip-rank"], ["--learn-phase"],
-                         ["--pool-phase"], ["--ops-child"]):
+                         ["--pool-phase"], ["--ops-child"], ["--fleet-rank"]):
         die_with_parent()
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         dp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
@@ -5858,6 +6303,8 @@ if __name__ == "__main__":
         pool_phase_child(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--ops-child"]:
         ops_child(sys.argv[2], sys.argv[3], sys.argv[4], int(sys.argv[5]) if sys.argv[5:] else 0)
+    elif sys.argv[1:2] == ["--fleet-rank"]:
+        fleet_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
     else:
         adopt_children()
         try:

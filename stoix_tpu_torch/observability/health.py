@@ -1,7 +1,7 @@
-"""Sebulba health (counterpart of stoix_tpu/observability/health.py's
-`HeartbeatBoard`, `StallDetector` and `ActorStarvationError`): heartbeats per
-component and a stall detector that NAMES the starved side instead of
-surfacing an anonymous `queue.Empty`.
+"""Health (counterpart of stoix_tpu/observability/health.py): heartbeats
+per component, a stall detector that NAMES the starved side instead of
+surfacing an anonymous `queue.Empty`, and the process-wide `HealthMonitor`
+that `/healthz` reads (observability/httpz.py).
 
 Every Sebulba component (actor-i, learner, param-server, evaluator) beats a
 `HeartbeatBoard` each time it completes a unit of work. When the learner's
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 from stoix_tpu_torch.observability.registry import MetricsRegistry, get_registry
 
@@ -89,6 +89,94 @@ class StallDetector:
             return "all components beating within threshold"
         worst = max(stalled, key=lambda k: stalled[k])
         return f"{worst} stalled ({describe_age(stalled[worst])})"
+
+
+
+class HealthMonitor:
+    """Process-wide aggregation of liveness sources for `/healthz`: heartbeat
+    boards (the Anakin window loop, Sebulba's pipelines) judged through
+    StallDetector thresholds, check callables, and the watchdog's verdict
+    (any `stoix_tpu_watchdog_stalls_total` increment since the run started).
+
+    `reset()` is the relaunch seam: `observability.configure()` calls it at
+    every run's start, so a fresh run begins with no boards, no checks and a
+    re-based watchdog count."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self._registry = registry or get_registry()
+        self._lock = threading.Lock()
+        self._boards: Dict[str, Tuple[HeartbeatBoard, float]] = {}
+        self._checks: Dict[str, Callable[[], Optional[str]]] = {}
+        self._stall_base = self._watchdog_stalls()
+
+    def _watchdog_stalls(self) -> float:
+        counter = self._registry.counter("stoix_tpu_watchdog_stalls_total",
+                                         "Watchdog deadline expirations, by stage")
+        return float(sum(value for _, value in counter.labels_and_values()))
+
+    def register_board(self, name: str, board: HeartbeatBoard,
+                       stale_after_s: float = 60.0) -> None:
+        with self._lock:
+            self._boards[name] = (board, float(stale_after_s))
+
+    def register_check(self, name: str, check: Callable[[], Optional[str]]) -> None:
+        """`check()` returns None when healthy, else a one-line problem."""
+        with self._lock:
+            self._checks[name] = check
+
+    def unregister(self, name: str) -> None:
+        with self._lock:
+            self._boards.pop(name, None)
+            self._checks.pop(name, None)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._boards.clear()
+            self._checks.clear()
+        self._stall_base = self._watchdog_stalls()
+
+    def verdict(self) -> Tuple[bool, str]:
+        """(healthy, one-page detail). Unhealthy when a registered board has
+        a component older than its threshold, a check reports a problem, or
+        a watchdog stage blew its deadline this run. A component that never
+        beat is not unhealthy: the first build precedes the first beat."""
+        with self._lock:
+            boards = dict(self._boards)
+            checks = dict(self._checks)
+        problems: List[str] = []
+        lines: List[str] = []
+        for name, (board, stale_after_s) in sorted(boards.items()):
+            detector = StallDetector(board, stale_after_s=stale_after_s)
+            ages = board.ages()
+            if any(age > stale_after_s for age in ages.values()):
+                problems.append(f"{name}: {detector.diagnose()}")
+            summary = ", ".join(f"{component}={describe_age(age)}"
+                                for component, age in sorted(ages.items()))
+            lines.append(f"{name}: {summary or 'no beats yet'}")
+        for name, check in sorted(checks.items()):
+            problem = check()
+            if problem is not None:
+                problems.append(f"{name}: {problem}")
+            lines.append(f"{name}: {problem or 'ok'}")
+        stalls = self._watchdog_stalls() - self._stall_base
+        if stalls > 0:
+            problems.append(f"watchdog: {int(stalls)} stage deadline(s) blown this run")
+        if problems:
+            return False, "\n".join(problems)
+        return True, "ok\n" + "\n".join(lines) if lines else "ok"
+
+
+_monitor_lock = threading.Lock()
+_monitor: Optional[HealthMonitor] = None
+
+
+def get_health_monitor() -> HealthMonitor:
+    """The process-wide monitor serving `/healthz`."""
+    global _monitor
+    with _monitor_lock:
+        if _monitor is None:
+            _monitor = HealthMonitor()
+        return _monitor
 
 
 class ActorStarvationError(RuntimeError):

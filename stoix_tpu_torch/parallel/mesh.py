@@ -24,12 +24,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from stoix_tpu_torch.utils.tree import tree_map
+from stoix_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
 def mesh_shape(axes: Optional[Dict[str, int]], world_size: int) -> Dict[str, int]:
@@ -125,18 +124,34 @@ def fetch_global(tree: Any, mesh: Optional[DeviceMesh] = None, axis: Optional[st
     rank: each tensor leaf gathered over `axis` (every rank of the mesh when
     None) and concatenated along `dim` in rank order. With no mesh (a single
     process) the tree as it is, as the JAX package's `fetch_global_async`
-    returns it. Every rank must call it: it runs a collective."""
+    returns it. Every rank must call it: it runs ONE collective, an
+    all-gather of the leaves' bytes side by side, so a leaf added to the tree
+    (the fleet's per-rank payload) rides the same gather."""
     if mesh is None:
         return tree
     if axis is None:
         group, size = dist.group.WORLD, dist.get_world_size()
     else:
         group, _, size = _rank_and_size(mesh, axis)
-
-    def gather(x: torch.Tensor) -> np.ndarray:
-        local = _on_backend(x, group)
-        parts = [torch.empty_like(local) for _ in range(size)]
-        dist.all_gather(parts, local, group=group)
-        return materialize(torch.cat(parts, dim=dim))
-
-    return tree_map(gather, tree)
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return tree
+    local = [_on_backend(x, group) for x in leaves]
+    device = local[0].device
+    flat = torch.cat([x.reshape(-1).view(torch.uint8) if x.dtype != torch.bool
+                      else x.reshape(-1).to(torch.uint8) for x in (y.to(device) for y in local)])
+    parts = [torch.empty_like(flat) for _ in range(size)]
+    dist.all_gather(parts, flat, group=group)
+    gathered = []
+    offset = 0
+    for x in local:
+        width = x.numel() * x.element_size()
+        shards = []
+        for part in parts:
+            raw = part[offset:offset + width]
+            shard = raw.to(torch.bool) if x.dtype == torch.bool else raw.clone().view(x.dtype)
+            shards.append(shard.reshape(x.shape))
+        gathered.append(materialize(torch.cat(shards, dim=dim)))
+        offset += width
+    placed = iter(gathered)
+    return tree_map(lambda _: next(placed), tree)

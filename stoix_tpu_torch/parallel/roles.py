@@ -16,8 +16,9 @@ own list (`devices=[torch.device("cpu")] * 2` runs a two-learner Sebulba
 split on the CPU). Where the JAX package builds a `jax.sharding.Mesh` over a
 role's devices, the port's `role_mesh` is the role's device list: in one
 process the learner's "global array" is its list of per-device shards
-(systems/ppo/sebulba/ff_ppo.py::assemble_batch). `elastic_mesh_axes` belongs
-to the population runner and waits for it (ROADMAP A17).
+(systems/ppo/sebulba/ff_ppo.py::assemble_batch). `elastic_mesh_axes`
+re-derives a mesh spec for another device count, the JAX package's function
+line for line (the resize protocol, resilience/elastic.py).
 """
 
 from __future__ import annotations
@@ -174,6 +175,39 @@ def resolve_assignments(
     if findings:
         raise MeshRolesError(findings)
     return assignments
+
+
+
+def elastic_mesh_axes(axes: Optional[Dict[str, int]], device_count: int) -> Dict[str, int]:
+    """Re-derive a mesh axis spec for a different device count (the elastic
+    relaunch path). Pure host logic, so a supervisor can compute the survivor
+    topology before spawning.
+
+    A `-1` axis already absorbs whatever count the child finds, so the spec
+    passes through untouched. When every axis is pinned, the `data` axis is
+    rescaled to fit; a count the fixed axes cannot divide is refused rather
+    than silently truncated."""
+    if device_count < 1:
+        raise MeshRolesError([f"cannot derive a mesh for {device_count} devices"])
+    axes = dict(axes or {"data": -1})
+    if any(size == -1 for size in axes.values()):
+        return axes
+    fixed = 1
+    for name, size in axes.items():
+        if name != "data":
+            fixed *= int(size)
+    if "data" not in axes:
+        raise MeshRolesError([
+            f"mesh axes {axes} have no -1 axis and no 'data' axis to "
+            f"rescale for {device_count} devices"])
+    if fixed < 1 or device_count % fixed != 0:
+        raise MeshRolesError([
+            f"mesh axes {axes} cannot be rescaled to {device_count} "
+            f"devices: the non-data axes multiply to {fixed}, which does "
+            f"not divide {device_count}"])
+    rescaled = dict(axes)
+    rescaled["data"] = device_count // fixed
+    return rescaled
 
 
 class MeshRoles:

@@ -2,8 +2,9 @@
 errors, the exit-code registry (`exit_codes`), the update guard (`guards`),
 fault injection (`faultinject`), graceful preemption (`preemption`), the
 deadline watchdogs (`watchdog`), the launch preflight (`preflight`), the
-state-integrity sentinel (`integrity`) and Sebulba's actor supervisor
-(`supervisor`)."""
+state-integrity sentinel (`integrity`), Sebulba's actor supervisor
+(`supervisor`), the fleet across processes (`fleet`) and the resize protocol
+(`elastic`)."""
 
 from stoix_tpu_torch.resilience.errors import (
     BackendUnavailableError,

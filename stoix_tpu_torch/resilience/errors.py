@@ -9,8 +9,10 @@ resilience/integrity.py); and the preflight family, `PreflightError` with
 `BackendUnavailableError`, `ConfigValidationError` (also raised by
 `parallel/distributed.py` for a half-configured multi-process launch),
 `ResourcePreflightError` and `CompileStallError` (resilience/preflight.py,
-resilience/watchdog.py). The messages are the JAX package's. This module
-imports nothing from the rest of the package.
+resilience/watchdog.py); and the fleet family, `FleetError` with
+`FleetPartitionError` and `FleetBarrierTimeout` (resilience/fleet.py). The
+messages are the JAX package's. This module imports nothing from the rest of
+the package.
 """
 
 from __future__ import annotations
@@ -229,4 +231,52 @@ class CompileStallError(PreflightError):
             f"dumped to the stoix_tpu.resilience log). Raise "
             f"arch.preflight.{knob} if this shape legitimately "
             f"compiles/executes slower."
+        )
+
+
+class FleetError(RuntimeError):
+    """Base class for cross-process fleet-coordination failures
+    (resilience/fleet.py): a multi-process run lost a peer, a cross-process
+    barrier blew its deadline, or agreement could not be reached. Typed, so a
+    supervising launcher and the drills branch on the failure class instead
+    of scraping a hung collective."""
+
+
+class FleetPartitionError(FleetError):
+    """A peer process stopped heartbeating (or never answered an agreement
+    vote) past the configured deadline: the fleet is partitioned and every
+    pending collective would hang forever. Names the missing process(es).
+    The handling path writes a local-shard emergency checkpoint and exits
+    with EXIT_CODE_FLEET_PARTITION so a supervisor can relaunch at the
+    surviving topology."""
+
+    def __init__(self, missing_processes: list, deadline_s: float, detail: str = ""):
+        self.missing_processes = sorted(int(p) for p in missing_processes)
+        self.deadline_s = float(deadline_s)
+        self.detail = detail
+        names = ", ".join(f"process {p}" for p in self.missing_processes) or "unknown peer"
+        super().__init__(
+            f"fleet partition: {names} silent past the {deadline_s:.0f}s "
+            f"deadline{(' (' + detail + ')') if detail else ''} — every "
+            f"cross-host collective would hang; writing a local-shard "
+            f"emergency checkpoint and exiting with the fleet exit code so a "
+            f"supervisor can relaunch at the surviving topology"
+        )
+
+
+class FleetBarrierTimeout(FleetError):
+    """A cross-process barrier (fleet.guarded_barrier) exceeded its
+    deadline: at least one peer never arrived. Carries the barrier name, the
+    deadline, and the watchdog's all-thread stack dump taken at expiry."""
+
+    def __init__(self, barrier: str, deadline_s: float, dump: Optional[str] = None):
+        self.barrier = barrier
+        self.deadline_s = float(deadline_s)
+        self.dump = dump
+        super().__init__(
+            f"fleet barrier '{barrier}' not released within its "
+            f"{deadline_s:.0f}s deadline — a peer never arrived (dead host or "
+            f"wedged collective); thread stacks were dumped to the "
+            f"stoix_tpu.resilience log. Raise arch.fleet.barrier_deadline_s "
+            f"if this barrier legitimately takes longer."
         )

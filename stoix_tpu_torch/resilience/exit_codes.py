@@ -3,11 +3,10 @@ stoix_tpu/resilience/exit_codes.py: the same codes, names, meanings and
 supervision notes, record for record).
 
 Every deliberate non-zero exit of the port names one constant declared
-here: the watchdog's hard exit on a wedged stage (86) and the integrity
-sentinel's corruption verdict (88). 87 and 89 belong to the fleet and
-elastic layers (ROADMAP A19b) and are declared so that a supervisor reads
-one registry for both packages. Standard library only: the registry is
-importable without torch.
+here: the watchdog's hard exit on a wedged stage (86), the fleet's partition
+exit (87), the integrity sentinel's corruption verdict (88) and the resize
+protocol's exit (89). A supervisor reads one registry for both packages.
+Standard library only: the registry is importable without torch.
 """
 
 from __future__ import annotations
@@ -23,12 +22,13 @@ EXIT_CODE_USAGE = 2
 # The watchdog (resilience/watchdog.py) shot a main thread wedged in native
 # code past its stage deadline: retry is reasonable.
 EXIT_CODE_STALL = 86
-# A fleet peer died and this host secured its emergency checkpoint (A19b).
+# A fleet peer died and this host secured its emergency checkpoint
+# (resilience/fleet.py).
 EXIT_CODE_FLEET_PARTITION = 87
 # The integrity sentinel proved silent state corruption and recorded the
 # offender in the quarantine file (resilience/integrity.py).
 EXIT_CODE_STATE_CORRUPTION = 88
-# A deliberate topology resize (A19b).
+# A deliberate topology resize (resilience/elastic.py).
 EXIT_CODE_ELASTIC_RESIZE = 89
 
 

@@ -31,11 +31,25 @@ over the config. The faults, each with the hook that fires it:
   bitflip:N       (Anakin) one mantissa bit of rank 0's params is flipped
                   going into window N (one-shot): finite, silent, the class
                   only the integrity sentinel's fingerprints see
+  host_loss:N     (Anakin) this process freezes (SIGSTOP to itself: every
+                  thread, the fleet's heartbeat publisher included, halts and
+                  its sockets stay open) right after window N's learn step:
+                  the silent loss only the fleet's heartbeats catch. Armed on
+                  one rank, the survivors' monitor declares the partition,
+                  saves the emergency store and exits 87 (resilience/fleet.py).
+                  A SIGCONT makes it exit EXIT_CODE_FAILURE: the host stays
+                  lost. A frozen process ignores SIGTERM: end it with SIGKILL.
+  barrier_wedge   fleet.guarded_barrier sleeps instead of arriving at its
+                  barrier (one-shot): the barrier watchdog's
+                  FleetBarrierTimeout without a dead peer
+  shrink:N        (Anakin) after window N the run vacates for half its
+                  devices (one-shot): emergency snapshot, `resize_request.json`,
+                  flight record, exit 89 (resilience/elastic.py)
+  grow:N          (Anakin) the same with twice its devices
 
 `check_anakin_plan` and `check_sebulba_plan` refuse, naming it, every armed
-fault their runners do not inject: the fleet and elastic faults (host_loss,
-barrier_wedge, shrink, grow) wait for ROADMAP A19b, the serving faults
-(swap_poison, replica_kill, replica_slow, feedback_stall) for A18. `FaultPlan`
+fault their runners do not inject: the serving faults (swap_poison,
+replica_kill, replica_slow, feedback_stall) wait for ROADMAP A18. `FaultPlan`
 refuses a name the JAX package does not know. Each fault that fires adds one
 to `stoix_tpu_resilience_faults_injected_total` (labelled by fault). Every
 hook is a no-op (one None check) when no plan is armed; `configure` is
@@ -55,6 +69,7 @@ import torch
 
 from stoix_tpu_torch.observability import flightrec, get_registry, goodput
 from stoix_tpu_torch.resilience.errors import InjectedFault
+from stoix_tpu_torch.resilience.exit_codes import EXIT_CODE_FAILURE
 
 ENV_VAR = "STOIX_TPU_FAULT"
 FAULTS_INJECTED = "stoix_tpu_resilience_faults_injected_total"
@@ -68,12 +83,10 @@ _KNOWN = (
 # The faults the port's Sebulba runners inject, and the Anakin runner's.
 SEBULBA_FAULTS = ("actor_crash", "queue_stall")
 ANAKIN_FAULTS = ("nan_loss", "ckpt_corrupt", "sigterm", "backend_wedge", "slow_compile",
-                 "host_stall", "bitflip")
+                 "host_stall", "bitflip", "host_loss", "barrier_wedge", "shrink", "grow")
 # Where each fault no runner of the port injects is waiting.
-_WAITING = {**{name: "the fleet and elastic layers, ROADMAP A19b"
-               for name in ("host_loss", "barrier_wedge", "shrink", "grow")},
-            **{name: "serving, ROADMAP A18"
-               for name in ("swap_poison", "replica_kill", "replica_slow", "feedback_stall")}}
+_WAITING = {name: "serving, ROADMAP A18"
+            for name in ("swap_poison", "replica_kill", "replica_slow", "feedback_stall")}
 _LOG = logging.getLogger("stoix_tpu_torch.resilience")
 
 
@@ -271,6 +284,62 @@ def maybe_host_stall(window_idx: int) -> None:
                                            seconds=float(secs))
     time.sleep(secs)
     goodput.note_stall(float(secs))
+
+
+def maybe_host_loss(window_idx: int) -> None:
+    """Freeze this process (SIGSTOP to itself) after window N's learn step
+    when `host_loss:N` is armed (one-shot). A freeze, not an exit: a process
+    that closes its sockets fails its peers' collectives at once, and the
+    loss that needs the fleet layer is the silent one, where every
+    collective just stops answering."""
+    plan = get_plan()
+    if plan is None:
+        return
+    at = plan.arg("host_loss")
+    if at is not None and window_idx == at and plan.consume("host_loss"):
+        _injected_counter().inc(labels={"fault": "host_loss"})
+        _LOG.warning("[faultinject] host_loss at window %d — freezing (SIGSTOP) NOW", window_idx)
+        import sys
+
+        sys.stderr.flush()
+        os.kill(os.getpid(), signal.SIGSTOP)
+        # Only reached if something SIGCONTs the frozen process: the host is
+        # still lost.
+        os._exit(EXIT_CODE_FAILURE)
+
+
+def maybe_resize(window_idx: int) -> Optional[str]:
+    """"shrink" or "grow" when a `shrink:N` or `grow:N` fault fires after
+    window N (one-shot each), else None. The hook only decides: the runner
+    owns the exit protocol (resilience/elastic.py::resize_exit), as only it
+    holds the fleet coordinator and the step."""
+    plan = get_plan()
+    if plan is None:
+        return None
+    for action in ("shrink", "grow"):
+        at = plan.arg(action)
+        if at is not None and window_idx == at and plan.consume(action):
+            _injected_counter().inc(labels={"fault": action})
+            _LOG.warning("[faultinject] %s resize requested at window %d", action, window_idx)
+            flightrec.get_flight_recorder().record("fault", fault=action, window=window_idx)
+            return action
+    return None
+
+
+def maybe_barrier_wedge(barrier: str, max_wedge_s: float = 3600.0) -> None:
+    """Wedge (sleep, never arrive) instead of entering a fleet barrier when
+    `barrier_wedge` is armed (one-shot). The sleep is sliced: the barrier
+    watchdog's interrupt lands between bytecodes."""
+    plan = get_plan()
+    if plan is None:
+        return
+    if plan.arg("barrier_wedge") is None or not plan.consume("barrier_wedge"):
+        return
+    _injected_counter().inc(labels={"fault": "barrier_wedge"})
+    _LOG.warning("[faultinject] wedging instead of arriving at barrier %r", barrier)
+    deadline = time.monotonic() + max_wedge_s
+    while time.monotonic() < deadline:
+        time.sleep(0.05)
 
 
 # Top mantissa bit of each float dtype, with the integer view that flips it:

@@ -74,7 +74,10 @@ PER_RANK_FIELDS = ("generator", "generators", "key", "env_state", "timestep", "b
 
 def leaf_digest(arr: Any) -> str:
     """sha256 hex digest of a leaf's raw bytes in C order, bfloat16 included
-    (the JAX package's for the same bytes)."""
+    (the JAX package's for the same bytes). A numpy array is hashed as it
+    is, as the JAX package hashes a host array."""
+    if isinstance(arr, np.ndarray):
+        return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
     return hashlib.sha256(_leaf_bytes_tensor(arr).cpu().numpy().tobytes()).hexdigest()
 
 
@@ -221,6 +224,17 @@ def _contains_generator(tree: Any) -> bool:
     if isinstance(tree, (list, tuple)):
         return any(_contains_generator(v) for v in tree)
     return False
+
+
+def per_rank_fields(state: Any) -> set:
+    """The top-level fields of a learner state that each rank holds for
+    itself (`PER_RANK_FIELDS`, or a subtree holding a generator); empty for
+    a state that is not a record. The topology-elastic restore and the
+    fleet's rescue snapshot keep these rank-bound."""
+    if not (hasattr(state, "_fields") or isinstance(state, dict)):
+        return set()
+    return {str(name) for name, subtree in _state_fields(state)
+            if name in PER_RANK_FIELDS or _contains_generator(subtree)}
 
 
 def _tensor_leaves(tree: Any) -> List[torch.Tensor]:

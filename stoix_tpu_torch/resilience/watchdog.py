@@ -30,7 +30,7 @@ import sys
 import threading
 import time
 import traceback
-from typing import Optional
+from typing import Callable, Optional
 
 from stoix_tpu_torch.observability import HeartbeatBoard, flightrec, get_logger, get_registry
 from stoix_tpu_torch.resilience.errors import CompileStallError
@@ -97,10 +97,18 @@ class Watchdog:
         stage: str,
         deadline_s: float,
         hard_exit_grace_s: float = 0.0,
+        error_factory: Optional[Callable[[str, float, Optional[str]], BaseException]] = None,
+        exit_code: int = EXIT_CODE_STALL,
     ):
         self.stage = stage
         self.deadline_s = float(deadline_s)
         self.hard_exit_grace_s = float(hard_exit_grace_s)
+        # The stall error raised on expiry, (stage, deadline_s, dump) ->
+        # exception: CompileStallError by default, FleetBarrierTimeout for
+        # the fleet's barriers.
+        self._error_factory = error_factory or (
+            lambda stage, deadline, dump: CompileStallError(stage, deadline, dump=dump))
+        self._exit_code = int(exit_code)
         self._component = f"host-{stage}"
         self._timer: Optional[threading.Timer] = None
         self._hard_timer: Optional[threading.Timer] = None
@@ -152,18 +160,18 @@ class Watchdog:
         get_logger("stoix_tpu_torch.resilience").error(
             "[watchdog] main thread still wedged %.0fs after the '%s' stall "
             "dump (native call uninterruptible) — hard exit %d",
-            self.hard_exit_grace_s, self.stage, EXIT_CODE_STALL,
+            self.hard_exit_grace_s, self.stage, self._exit_code,
         )
         # The rc-86 flight record: dumped from the watchdog thread because
         # os._exit skips atexit/finally — this is the last Python that runs.
         flightrec.dump_flight_record(
             None,
             reason=f"watchdog stall in stage '{self.stage}'",
-            exit_code=EXIT_CODE_STALL,
+            exit_code=self._exit_code,
         )
         # Flush what we can: logging handlers buffer, and this process is done.
         sys.stderr.flush()
-        os._exit(EXIT_CODE_STALL)
+        os._exit(self._exit_code)
 
     # -- protected-section side ----------------------------------------------
     def __enter__(self) -> "Watchdog":
@@ -185,5 +193,5 @@ class Watchdog:
             # The KeyboardInterrupt interrupt_main() raised (when it landed —
             # the section may also have completed in the race window) is the
             # watchdog's own mechanism, not an operator ^C: convert it.
-            raise CompileStallError(self.stage, self.deadline_s, dump=self.dump) from exc
+            raise self._error_factory(self.stage, self.deadline_s, self.dump) from exc
         return False

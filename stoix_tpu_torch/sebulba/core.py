@@ -19,7 +19,11 @@ a collect timeout raises ActorStarvationError naming the starved actor.
 Both queue layers carry typed ComponentFailure poison-pills: the supervisor
 injects one for an unrecoverable actor, and the peer raises it on its next
 get instead of burning its timeout. Every blocking call takes a timeout
-(collect 180 s, a rollout's put 60 s, as in the JAX package).
+(collect 180 s, a rollout's put 60 s, as in the JAX package). With `fleet`
+(a resilience.fleet.FleetCoordinator) a collect fails at once with the typed
+FleetPartitionError once the fleet's monitor has declared a partition,
+instead of burning its timeout against actors that are healthy while a peer
+process is gone.
 
 Parameters on one card: `.to(device)` of a tensor already on that device is
 the tensor itself, so actors read the learner's own tensors. That is safe
@@ -95,15 +99,17 @@ class ThreadLifetime:
 
 
 class OnPolicyPipeline:
-    """Bounded rollout queues, one per actor thread."""
+    """Bounded rollout queues, one per actor thread; `fleet` makes a collect
+    fail fast on a declared partition."""
 
-    def __init__(self, num_actors: int, max_size: int = 1):
+    def __init__(self, num_actors: int, max_size: int = 1, fleet: Optional[Any] = None):
         self._queues: List[queue.Queue] = [queue.Queue(maxsize=max_size)
                                            for _ in range(num_actors)]
         self.heartbeats = HeartbeatBoard()
         self._depth, self._put_wait, self._get_wait = _queue_instruments()
         self._failures: Dict[int, ComponentFailure] = {}
         self._failure_lock = threading.Lock()
+        self._fleet = fleet
 
     def fail(self, actor_id: int, failure: ComponentFailure) -> None:
         """Poison-pill injection (the supervisor's path): record the failure
@@ -135,6 +141,8 @@ class OnPolicyPipeline:
         detector = StallDetector(self.heartbeats, stale_after_s=max(1.0, timeout / 4))
         payloads = []
         for actor_id, q in enumerate(self._queues):
+            if self._fleet is not None:
+                self._fleet.check_partition()
             with self._failure_lock:
                 failure = self._failures.get(actor_id)
             if failure is not None:
@@ -183,15 +191,18 @@ class OffPolicyPipeline:
     injects a typed ComponentFailure poison-pill for an unrecoverable actor,
     and the learner raises it on its next poll."""
 
-    def __init__(self, num_actors: int, depth_per_actor: int = 2):
+    def __init__(self, num_actors: int, depth_per_actor: int = 2, fleet: Optional[Any] = None):
         self.num_actors = num_actors
         self._queue: queue.Queue = queue.Queue(maxsize=max(1, num_actors * depth_per_actor))
         self.heartbeats = HeartbeatBoard()
         self._depth, self._put_wait, self._get_wait = _queue_instruments()
         self._failures: Dict[int, ComponentFailure] = {}
         self._failure_lock = threading.Lock()
+        self._fleet = fleet
 
     def _check_failures(self) -> None:
+        if self._fleet is not None:
+            self._fleet.check_partition()
         with self._failure_lock:
             for failure in self._failures.values():
                 raise failure

@@ -79,9 +79,24 @@ probe child and the config's cross-checks before any device work),
 telemetry, and SIGTERM
 or SIGINT stopping the learner at the next update boundary
 (`LAST_RUN_STATS["resilience"]["preempted"]`; Sebulba has no checkpoint).
+The ops plane: the pipeline's heartbeat board is registered with the health
+monitor (`/healthz` with `logger.telemetry.http.enabled`) and the status
+board follows the windows.
 
-Refused by name: the fleet and compile cache layers, the "group" mesh axis, and (ROADMAP C24) the knobs these learners never
-read: `system.replay.impl: sharded` (the JAX Sebulba PPO and IMPALA never
+`arch.fleet.enabled` (resilience/fleet.py), as the JAX runner wires it: the
+runner joins the process group that `arch.distributed` (or torchrun's
+environment) declares, over gloo (the group only carries the fleet's store
+and host-side gathers: each process's Sebulba run trains on its own cards),
+the collects fail fast on a declared partition, a local SIGTERM becomes this
+process's flag instead of a stop, and at every eval-window boundary the
+processes exchange their wall times (`observe_window_wall`, a
+`process_allgather`) and vote through the store (`agree_at_window`): every
+process stops at the same window. `LAST_RUN_STATS["fleet_decisions"]` lists
+each window's agreed verdict. The learner's gradients are not reduced across
+processes (one process's learner devices only).
+
+Refused by name: the compile cache layer, the "group" mesh axis, and (ROADMAP
+C24) the knobs these learners never read: `system.replay.impl: sharded` (the JAX Sebulba PPO and IMPALA never
 read `system.replay`), and on PPO `system.fused_update` and
 `system.clip_value`.
 """
@@ -107,12 +122,16 @@ from stoix_tpu_torch.evaluator import (
     get_distribution_act_fn, get_ff_evaluator_fn, get_stateful_evaluator_fn,
 )
 from stoix_tpu_torch.observability import (
-    RunStats, annotate, flightrec, get_registry, goodput, span,
+    RunStats, annotate, flightrec, get_health_monitor, get_logger, get_registry,
+    get_status_board, goodput, span,
 )
 from stoix_tpu_torch.ops import losses, running_statistics, scan_kernels
 from stoix_tpu_torch.ops import truncated_generalized_advantage_estimation
+from stoix_tpu_torch.parallel.distributed import maybe_initialize_distributed
 from stoix_tpu_torch.parallel.roles import MeshRoles
-from stoix_tpu_torch.resilience import PreemptionHandler, faultinject, guards, integrity, preflight
+from stoix_tpu_torch.resilience import (
+    PreemptionHandler, faultinject, fleet, guards, integrity, preflight,
+)
 from stoix_tpu_torch.resilience.errors import EvaluatorStallError
 from stoix_tpu_torch.resilience.supervisor import supervisor_from_config
 from stoix_tpu_torch.sebulba.core import (
@@ -852,9 +871,10 @@ def resilience_counters() -> Tuple[Dict[str, Any], Dict[str, float]]:
 
 def resilience_stats(guard_mode: str, skipped_base: float, supervisor: Any,
                      counters: Dict[str, Any], base: Dict[str, float],
-                     preempted: bool = False) -> Dict[str, Any]:
+                     preempted: bool = False, fleet_on: bool = False) -> Dict[str, Any]:
     """`LAST_RUN_STATS["resilience"]` of a Sebulba run."""
     return {
+        "fleet": fleet_on,
         "preempted": preempted,
         "update_guard": guard_mode,
         "skipped_updates": guards.skipped_counter().value() - skipped_base,
@@ -900,6 +920,18 @@ def drain_episodes(metrics_sink: "queue.Queue", timings: Dict[str, float]) -> Li
             returns.extend(em["episode_return"].reshape(-1)[mask].tolist())
         timings.update(m["timings"])
     return returns
+
+
+def register_pipeline_board(config: Any, pipeline: Any) -> Any:
+    """The ops plane of a Sebulba run: the pipeline's heartbeat board on the
+    health monitor (`/healthz`), stale after `logger.telemetry.http.
+    stale_after_s`; returns the monitor (unregister "sebulba-pipeline" at the
+    end)."""
+    http_cfg = dict(dict(config.logger.get("telemetry") or {}).get("http") or {})
+    monitor = get_health_monitor()
+    monitor.register_board("sebulba-pipeline", pipeline.heartbeats,
+                           stale_after_s=float(http_cfg.get("stale_after_s", 60.0) or 60.0))
+    return monitor
 
 
 def shut_down(lifetime: ThreadLifetime, param_server: ParameterServer, pipeline: Any,
@@ -1007,10 +1039,25 @@ def run_experiment(
     recorder = flightrec.get_flight_recorder()
     recorder.set_context(architecture="sebulba", system=str(config.system.system_name),
                          seed=int(config.arch.seed))
+    status = get_status_board()
+    status.update({"run_id": f"{config.system.system_name}_seed{config.arch.seed}",
+                   "architecture": "sebulba", "system": str(config.system.system_name),
+                   "step": 0})
     lifetime = ThreadLifetime()
+    fleet_coord = None
+    if fleet.settings_from_config(config).enabled:
+        # The group the launch declares, over gloo: it carries the fleet's
+        # store and host-side gathers only.
+        maybe_initialize_distributed(config, "cpu")
+        fleet_coord = fleet.fleet_from_config(config).start()
+    fleet_decisions: List[str] = []
     # IMPACT's learner never waits on a particular actor: the actors push to
     # one shared queue and ImpactIngest takes any full set.
-    pipeline = OnPolicyPipeline(num_actors) if impact is None else OffPolicyPipeline(num_actors)
+    pipeline = (OnPolicyPipeline(num_actors, fleet=fleet_coord) if impact is None
+                else OffPolicyPipeline(num_actors, fleet=fleet_coord))
+    # One board for the whole run (actors, param server, evaluator, learner),
+    # which /healthz reads through the health monitor.
+    monitor = register_pipeline_board(config, pipeline)
     param_server = ParameterServer(actor_devices, actors_per_device,
                                    heartbeats=pipeline.heartbeats)
     metrics_sink: "queue.Queue" = queue.Queue()
@@ -1068,6 +1115,7 @@ def run_experiment(
     # run the orderly shutdown below.
     preempt = PreemptionHandler().install()
     preempted = False
+    fleet_window_started = time.perf_counter()
     try:
         for update_idx in range(int(config.arch.num_updates)):
             fresh = True
@@ -1113,10 +1161,19 @@ def run_experiment(
             if ingest is None:
                 ledger.note(goodput.SEBULBA_PHASE_MAP["assemble"], timer.latest("assemble"))
             ledger.note(goodput.SEBULBA_PHASE_MAP["learn"], timer.latest("learn"))
-            if preempt.stop_requested():
-                preempt.acknowledge(t_steps)
-                preempted = True
-                break
+            if fleet_coord is None:
+                if preempt.stop_requested():
+                    preempt.acknowledge(t_steps)
+                    preempted = True
+                    break
+            else:
+                # Never stop alone: the local SIGTERM becomes this process's
+                # vote at the next window boundary; a declared partition
+                # raises here, typed.
+                fleet_coord.check_partition()
+                if preempt.stop_requested():
+                    fleet_coord.request_stop(
+                        fleet.FLAG_PREEMPT, note=f"{preempt.signal_name} at update {update_idx}")
 
             if (update_idx + 1) % int(config.arch.num_updates_per_eval) == 0:
                 ep_returns = drain_episodes(metrics_sink, timings)
@@ -1136,24 +1193,59 @@ def run_experiment(
                     steady_start_time = time.perf_counter()
                     steady_start_steps = t_steps
                 window_idx = (update_idx + 1) // int(config.arch.num_updates_per_eval)
+                status.update({"window": window_idx, "step": t_steps})
                 recorder.record("window", window=window_idx, step=t_steps,
                                 updates=update_idx + 1,
                                 queue_wait_s=round(timer.mean("rollout_get"), 6),
                                 learn_s=round(timer.mean("learn"), 6))
+                corruption = None
                 if sentinel is not None and sentinel.should_probe(window_idx):
                     corruption = sentinel.run_probe(lambda held: learn_step(*held)[0])
                     if corruption is not None:
                         recorder.record("integrity_verdict", window=window_idx, step=t_steps,
                                         detail=str(corruption))
-                        raise corruption
+                        if fleet_coord is not None:
+                            fleet_coord.request_stop(fleet.FLAG_CORRUPT, note=str(corruption))
+                if fleet_coord is not None:
+                    # The window boundary: wall times for the skew gauges,
+                    # then this window's stop vote through the store; every
+                    # process decides from the same votes.
+                    now = time.perf_counter()
+                    fleet_coord.observe_window_wall(window_idx, now - fleet_window_started)
+                    fleet_window_started = now
+                    decision = fleet_coord.agree_at_window(window_idx)
+                    fleet_decisions.append(decision.describe())
+                    if decision.stop:
+                        if corruption is not None:
+                            raise corruption
+                        if preempt.stop_requested():
+                            preempt.acknowledge(t_steps)
+                        else:
+                            get_logger("stoix_tpu_torch.sebulba").warning(
+                                "[fleet] %s — stopping at window %d in lockstep with the fleet",
+                                decision.describe(), window_idx)
+                        preempted = preempt.stop_requested()
+                        break
+                if corruption is not None:
+                    raise corruption
         # Close the window BEFORE shutdown: joins and the evaluator's drain
         # must not deflate the steady-state number.
         steady_end_time = time.perf_counter()
+    except KeyboardInterrupt:
+        # The fleet monitor interrupts the main thread when a peer dies: the
+        # typed error (exit 87 through the fleet's excepthook); an operator's
+        # ^C re-raises as it is.
+        if fleet_coord is not None and fleet_coord.partition_event.is_set():
+            raise fleet_coord.partition_error from None
+        raise
     finally:
         preempt.uninstall()
         goodput.set_active(None)
+        monitor.unregister("sebulba-pipeline")
         if sentinel is not None:
             sentinel.deactivate()
+        if fleet_coord is not None:
+            fleet_coord.stop()
         shut_down(lifetime, param_server, pipeline, supervisor, actor_threads, async_evaluator)
         logger.close()
 
@@ -1180,7 +1272,9 @@ def run_experiment(
         "eval_returns": list(eval_results),
         "history": logger.history,
         "resilience": resilience_stats(guard_mode, skipped_base, supervisor, counters,
-                                       counter_base, preempted),
+                                       counter_base, preempted, fleet_on=fleet_coord is not None),
+        # Each window's agreed fleet verdict (None with the fleet off).
+        "fleet_decisions": fleet_decisions if fleet_coord is not None else None,
         "goodput": ledger.finalize(),
         "integrity": sentinel.stats() if sentinel is not None else integrity.disabled_stats(),
         # None when IMPACT is off, as in the JAX package.

@@ -36,8 +36,10 @@ Params reach the actors every `replay.param_sync_interval` updates; an
 actor takes the freshest queued version without ever waiting for one. The
 supervisor restarts a crashed actor while the learner goes on sampling;
 `arch.fault_spec` may arm `actor_crash` and `queue_stall`. The goodput
-ledger, the flight recorder and preemption are wired as in the JAX runner;
-`arch.preflight` and `arch.integrity`, which it never reads, are refused.
+ledger, the flight recorder, preemption and the ops plane (the pipeline's
+heartbeat board on the health monitor, the status board) are wired as in the
+JAX runner; `arch.preflight`, `arch.integrity` and `arch.fleet`, which it
+never reads, are refused.
 `system.replay.impl` must be `sharded`, as in the JAX package.
 """
 
@@ -56,7 +58,7 @@ import torch
 from stoix_tpu_torch.base_types import OnlineAndTarget, Transition
 from stoix_tpu_torch.envs.factory import make_factory
 from stoix_tpu_torch.observability import (
-    RunStats, annotate, flightrec, get_registry, goodput, span,
+    RunStats, annotate, flightrec, get_registry, get_status_board, goodput, span,
 )
 from stoix_tpu_torch.parallel.roles import MeshRoles
 from stoix_tpu_torch.replay import ShardedReplayService, service_from_config
@@ -77,6 +79,7 @@ from stoix_tpu_torch.systems.ppo.sebulba.ff_ppo import (
     check_ported,
     drain_episodes,
     make_evaluator,
+    register_pipeline_board,
     resilience_counters,
     resilience_stats,
     sebulba_budget,
@@ -350,10 +353,11 @@ def _rollout_body(actor_id, actor_device, env_factory, apply_fn, config, pipelin
 
 
 def refuse_ignored_layers(config: Any) -> None:
-    """`arch.preflight` and `arch.integrity`, which the JAX Sebulba ff_dqn
-    never reads (its runner wires the goodput ledger, the flight recorder and
-    preemption only), raise, naming the key, rather than be ignored."""
-    ignored = [f"arch.{block}.enabled" for block in ("preflight", "integrity")
+    """`arch.preflight`, `arch.integrity` and `arch.fleet`, which the JAX
+    Sebulba ff_dqn never reads (its runner wires the goodput ledger, the
+    flight recorder, the ops plane and preemption only, and records
+    `"fleet": False`), raise, naming the key, rather than be ignored."""
+    ignored = [f"arch.{block}.enabled" for block in ("preflight", "integrity", "fleet")
                if (config.arch.get(block) or {}).get("enabled", False)]
     if ignored:
         raise NotImplementedError(
@@ -406,8 +410,13 @@ def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> fl
     recorder = flightrec.get_flight_recorder()
     recorder.set_context(architecture="sebulba", system=str(config.system.system_name),
                          seed=int(config.arch.seed))
+    status = get_status_board()
+    status.update({"run_id": f"{config.system.system_name}_seed{config.arch.seed}",
+                   "architecture": "sebulba", "system": str(config.system.system_name),
+                   "step": 0})
     lifetime = ThreadLifetime()
     pipeline = OffPolicyPipeline(num_actors)
+    monitor = register_pipeline_board(config, pipeline)
     param_server = ParameterServer(actor_devices, actors_per_device,
                                    heartbeats=pipeline.heartbeats)
     metrics_sink: "queue.Queue" = queue.Queue()
@@ -504,6 +513,8 @@ def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> fl
                 if steady_start_time is None:
                     steady_start_time = time.perf_counter()
                     steady_start_items = ingested_items()
+                status.update({"window": (update_idx + 1) // int(config.arch.num_updates_per_eval),
+                               "step": t_steps})
                 recorder.record("window",
                                 window=(update_idx + 1) // int(config.arch.num_updates_per_eval),
                                 step=t_steps, updates=update_idx + 1,
@@ -515,6 +526,7 @@ def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> fl
     finally:
         preempt.uninstall()
         goodput.set_active(None)
+        monitor.unregister("sebulba-pipeline")
         shut_down(lifetime, param_server, pipeline, supervisor, actor_threads, async_evaluator)
         logger.close()
 

@@ -47,8 +47,29 @@ bit, as with every switch off:
     window; telemetry (`logger.telemetry.enabled`, utils/logger.py) records
     a span for each host phase.
 
-The fleet and compile-cache layers are not ported (ROADMAP A19b, A19c);
-their knobs raise.
+The operations layer across processes, as the JAX runner wires it
+(stoix_tpu/systems/runner.py:295-1012):
+
+  * `arch.fleet.enabled` (resilience/fleet.py): the coordinator starts
+    before the learner is built; each window stages a host copy of the state
+    as the rescue candidate after the learn step, carries this rank's stop
+    flag and last window wall in its own slot of the window's episode gather
+    (`fetch_global`: the same one collective), confirms the candidate, and
+    decides; every rank stops at the same window. A SIGTERM on one rank
+    becomes its flag, and every rank drains and saves at the next window (or
+    through a store vote after the last); a frozen peer trips the monitor,
+    whose emergency save and exit 87 end the run; a partition seen at a
+    window boundary raises FleetPartitionError.
+  * A fleet emergency store as `load_path` restores through
+    `fleet.restore_emergency`, and a step saved by another number of
+    processes through the topology-elastic restore (utils/checkpointing.py).
+  * `shrink:N` and `grow:N` leave through `elastic.resize_exit` (exit 89).
+  * The ops plane: the status board and the health monitor's window beat
+    always (host memory only), and with `logger.telemetry.http.enabled` the
+    server (observability/httpz.py), with the fleet's metrics aggregator
+    behind `/metrics/fleet` when the fleet is on over several processes.
+
+The compile-cache layer is not ported (ROADMAP A19c); its knob raises.
 
 Data parallelism, as the JAX runner's `maybe_initialize_distributed`, mesh
 and `check_total_timesteps(config, mesh.shape["data"])`: under `torchrun
@@ -77,6 +98,7 @@ step.
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 import time
 from typing import Any, Callable, Dict, NamedTuple, Optional, Union
@@ -86,14 +108,16 @@ import torch
 from stoix_tpu_torch import envs
 from stoix_tpu_torch.evaluator import evaluator_setup, get_rnn_evaluator_fn
 from stoix_tpu_torch.observability import (
-    device_annotation, flightrec, get_logger, get_registry, goodput, span,
+    HeartbeatBoard, device_annotation, flightrec, get_health_monitor, get_logger, get_ops_server,
+    get_registry, get_status_board, goodput, span,
 )
+from stoix_tpu_torch.observability import aggregate as fleet_metrics
 from stoix_tpu_torch.ops import scan_kernels
 from stoix_tpu_torch.parallel import (
     create_mesh, fetch_global, maybe_initialize_distributed, mesh_shape, process_count,
 )
 from stoix_tpu_torch.resilience import (
-    PreemptionHandler, Watchdog, faultinject, guards, integrity, preflight,
+    PreemptionHandler, Watchdog, elastic, faultinject, fleet, guards, integrity, preflight,
 )
 from stoix_tpu_torch.resilience.errors import BackendUnavailableError
 from stoix_tpu_torch.systems import anakin
@@ -108,8 +132,9 @@ from stoix_tpu_torch.utils.timestep_checker import check_total_timesteps
 # mesh and this rank's env count, the phase breakdown and its goodput
 # report, the resilience block (the guard's mode and skipped updates, the
 # restored step and the rejected newer steps, whether a signal stopped the
-# run), the sentinel's stats and the preflight's probe and memory gate.
-# Every rank keeps its own.
+# run, the fleet and its agreed stop), the sentinel's stats, the
+# preflight's probe and memory gate, and the fleet's rescue copies. Every
+# rank keeps its own.
 LAST_RUN_STATS: Dict[str, Any] = {}
 GOSSIP_ROUNDS = "stoix_tpu_gossip_rounds_total"
 
@@ -150,13 +175,12 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 def unported_arch_keys(config: Any, groups: bool = False) -> list:
     """The arch settings no runner of the port implements: a mesh axis other
     than "data" (and "group", the gossip learner groups, where the system
-    takes them: `groups`) and the fleet and compile-cache layers."""
+    takes them: `groups`) and the compile-cache layer."""
     arch = config.arch
     taken = ("data", "group") if groups else ("data",)
     unported = [f"arch.mesh.{axis}" for axis in (arch.get("mesh") or {}) if axis not in taken]
-    for block in ("fleet", "compile_cache"):
-        if (arch.get(block) or {}).get("enabled", False):
-            unported.append(f"arch.{block}.enabled")
+    if (arch.get("compile_cache") or {}).get("enabled", False):
+        unported.append("arch.compile_cache.enabled")
     return unported
 
 
@@ -270,9 +294,18 @@ def run_anakin_experiment(
             if device.type == "cuda":
                 device = torch.device("cuda", torch.cuda.current_device())
             mesh = create_mesh(mesh_axes, device.type)
-        with anakin.use_mesh(mesh):
-            return _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, mesh,
-                        shape, data_shards, num_groups, ledger, pf, probe)
+        # The fleet (arch.fleet): heartbeats start before the learner is
+        # built, so a long build on one rank never reads as a dead peer.
+        fleet_coord = fleet.fleet_from_config(config)
+        if fleet_coord is not None:
+            fleet_coord.start()
+        try:
+            with anakin.use_mesh(mesh):
+                return _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode,
+                            mesh, shape, data_shards, num_groups, ledger, pf, probe, fleet_coord)
+        finally:
+            if fleet_coord is not None:
+                fleet_coord.stop()
     finally:
         goodput.set_active(None)
 
@@ -282,7 +315,7 @@ def _gossip_counter():
 
 
 def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, mesh, shape,
-         data_shards, num_groups, ledger, pf, probe) -> float:
+         data_shards, num_groups, ledger, pf, probe, fleet_coord) -> float:
     """The host loop of `run_anakin_experiment`, with the mesh in use."""
     config = check_total_timesteps(config, data_shards)
     config.logger.system_name = config.system.system_name
@@ -302,14 +335,23 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
         learner_state = warmup_fn(learner_state)
     # Resume: the saved state restored into the freshly built one, before
     # the evaluators (the JAX runner's order). Its seconds are recovery.
-    start_step, restore_skipped = 0, 0
+    start_step, restore_skipped, restore_report = 0, 0, []
+    elastic_restore = None
     if config.logger.checkpointing.get("load_model", False):
         started = time.perf_counter()
-        loader = loader_from_config(config, config.system.system_name)
-        loader.check_version()
         load_args = config.logger.checkpointing.get("load_args") or {}
-        learner_state, start_step = loader.restore(learner_state, load_args.get("timestep"))
-        restore_skipped = len(loader.last_restore_report)
+        load_path = load_args.get("load_path")
+        if load_path and fleet.is_emergency_store(load_path):
+            # A partition survivor's rescue store: the same placement by
+            # tree path as the topology-elastic restore.
+            learner_state, start_step = fleet.restore_emergency(learner_state, load_path)
+        else:
+            loader = loader_from_config(config, config.system.system_name)
+            loader.check_version()
+            learner_state, start_step = loader.restore(learner_state, load_args.get("timestep"))
+            restore_report = list(loader.last_restore_report)
+            restore_skipped = len(restore_report)
+            elastic_restore = loader.last_elastic_restore
         ledger.note("recovery", time.perf_counter() - started)
         get_logger("stoix_tpu_torch.checkpoint").info(
             "[checkpoint] restored state from step %d%s", start_step,
@@ -323,6 +365,33 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
     recorder = flightrec.get_flight_recorder()
     recorder.set_context(architecture="anakin", system=str(config.system.system_name),
                          seed=int(config.arch.seed))
+    # The ops plane, after StoixLogger (its observability.configure is the
+    # run's reset of the health monitor and starts the server with
+    # logger.telemetry.http.enabled): host memory only, always on.
+    http_cfg = dict(dict(config.logger.get("telemetry") or {}).get("http") or {})
+    status = get_status_board()
+    status.update({
+        "run_id": f"{config.system.system_name}_seed{int(config.arch.seed)}",
+        "architecture": "anakin", "system": str(config.system.system_name),
+        "step": start_step, "restore_skipped": restore_skipped,
+        "last_restore_report": restore_report,
+        "quarantine_file": dict(config.arch.get("integrity") or {}).get(
+            "quarantine_file", "checkpoints/quarantine.json")})
+    # /healthz's source: the loop beats once a window; a stalled loop's age
+    # crosses stale_after_s and the endpoint answers 503.
+    monitor = get_health_monitor()
+    loop_beats = HeartbeatBoard()
+    monitor.register_board("anakin-host-loop", loop_beats,
+                           stale_after_s=float(http_cfg.get("stale_after_s", 60.0) or 60.0))
+    ops_server = get_ops_server()
+    aggregator = None
+    if ops_server is not None and fleet_coord is not None:
+        # Every process's registry on /metrics/fleet, through the fleet's store.
+        aggregator = fleet_metrics.aggregator_from_fleet(
+            fleet_coord, interval_s=float(http_cfg.get("aggregate_interval_s", 10.0) or 10.0))
+        if aggregator is not None:
+            aggregator.start()
+            ops_server.set_aggregator(aggregator)
     gossip_plan = setup.gossip
     gossip_step = gossip_plan.step if gossip_plan is not None else None
     gossip_rounds = 0
@@ -345,6 +414,8 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
     skipped_base = guards.skipped_counter().value()
     preempt = PreemptionHandler()
     preempted = False
+    agreed_stop: Optional[fleet.FleetDecision] = None
+    window_done_at = time.perf_counter()
     last_save_t: Optional[int] = None
     dispatched_t = start_step
     memory = None
@@ -376,6 +447,8 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
         if sentinel is not None and sentinel.probe_enabled:
             sentinel.capture_probe_input(learner_state)
         for eval_idx in range(num_evaluation):
+            # One beat a window top: a stalled loop stops the beats.
+            loop_beats.beat("window")
             faultinject.maybe_host_stall(eval_idx)
             # bitflip:N corrupts rank 0's params going into window N: only
             # the sentinel's fingerprints can see it.
@@ -383,6 +456,8 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
             if sentinel is not None and sentinel.should_probe(eval_idx):
                 probe_error = sentinel.run_probe(setup.learn)
                 if probe_error is not None:
+                    if fleet_coord is not None:
+                        fleet_coord.request_stop(fleet.FLAG_CORRUPT, note=str(probe_error))
                     raise probe_error
             # Window 0 runs under the first-window watchdog with preflight on
             # (a card that builds but wedges on its first launch).
@@ -397,6 +472,9 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
             window_seconds.append(wall)
             phases["learn_s"] += wall
             learner_state = output.learner_state
+            # host_loss:N freezes this process here, its learn step's
+            # collectives done: its peers block in the window's gather.
+            faultinject.maybe_host_loss(eval_idx)
             if eval_idx == 0 and memory is not None and device.type == "cuda":
                 # The measured half of the gate, before anything reads or
                 # saves this window's state and before window 1 runs.
@@ -417,6 +495,10 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
                 _gossip_counter().inc()
             t = start_step + (eval_idx + 1) * steps_per_eval
             dispatched_t = t
+            if fleet_coord is not None:
+                # The rescue candidate: a host copy enqueued behind the learn
+                # step, confirmed once this window's metrics are on the host.
+                fleet_coord.stage_candidate(t, learner_state)
 
             if sentinel is not None:
                 # The verdict before anything reads this window's state: a
@@ -426,6 +508,8 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
                 if corruption is not None:
                     recorder.record("integrity_verdict", window=eval_idx, step=t,
                                     detail=str(corruption))
+                    if fleet_coord is not None:
+                        fleet_coord.request_stop(fleet.FLAG_CORRUPT, note=str(corruption))
                     raise corruption
                 if eval_idx == 0:
                     sentinel.record_probe_reference(payload)
@@ -443,13 +527,36 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
             # The guard's host half: the window's metrics are on the host here;
             # update_guard=halt raises DivergenceError, naming the step.
             guards.publish_guard_metrics(guard_mode, train_metrics, t)
-            # Envs along the last axis of the [updates, T, envs] episode metrics.
-            episode_metrics = fetch_global(output.episode_metrics, mesh, axis=episode_axis,
-                                           dim=-1)
+            # Envs along the last axis of the [updates, T, envs] episode
+            # metrics. The fleet's payload rides the same gather, one slot a
+            # rank over every rank (the episode gather spans the world).
+            gather = {"episode": output.episode_metrics}
+            if fleet_coord is not None:
+                gather["fleet"] = fleet_coord.telemetry_for_fetch(device)
+            fetched = fetch_global(gather, mesh, axis=episode_axis, dim=-1)
+            episode_metrics = fetched["episode"]
+            now = time.perf_counter()
+            window_wall, window_done_at = now - window_done_at, now
+            if fleet_coord is not None:
+                # The window's metrics are on the host, so its copy is
+                # complete: promote it, decide from every rank's flag, then
+                # the skew; this window's wall goes in the next payload.
+                fleet_coord.confirm_candidate(t)
+                payload = fetched["fleet"]
+                decision = fleet_coord.decide_from_fetch(payload, mesh)
+                if decision.stop and agreed_stop is None:
+                    agreed_stop = decision
+                fleet_coord.skew_from_fetch(payload, mesh, eval_idx)
+                fleet_coord.note_window_wall(window_wall)
             sps = steps_per_eval / wall
+            get_registry().gauge("stoix_tpu_runner_steps_per_second",
+                                 "Env-steps/sec over the most recent eval window").set(sps)
+            status.update({"window": eval_idx, "step": t, "steps_per_second": round(sps, 3)})
             recorder.record("window", window=eval_idx, step=t, wall_s=round(wall, 6),
                             steps_per_second=round(sps, 3),
                             phases={k: round(v, 6) for k, v in phases.items()},
+                            fleet=fleet_coord is not None,
+                            fleet_stop=agreed_stop.describe() if agreed_stop is not None else None,
                             integrity=sentinel is not None)
             with span("log", window=eval_idx):
                 logger.log({**envs.get_final_step_metrics(episode_metrics),
@@ -469,12 +576,50 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
                         last_save_t = t
                 phases["ckpt_s"] += time.perf_counter() - start
             faultinject.maybe_sigterm(eval_idx)
+            # shrink:N / grow:N vacate for another topology once this
+            # window's candidate is confirmed: the relaunch restores it.
+            resize_action = faultinject.maybe_resize(eval_idx)
+            if resize_action is not None:
+                elastic.resize_exit(resize_action, config=config, window_idx=eval_idx,
+                                    step=dispatched_t, fleet_coord=fleet_coord,
+                                    device_count=process_count(), platform=device.type)
+            if fleet_coord is None:
+                if preempt.stop_requested():
+                    preempted = True
+                    break
+            else:
+                # Never stop alone: a local stop request is this rank's flag
+                # in the next window's gather, and every rank breaks on the
+                # same decision. A partition the monitor declared while this
+                # thread ran Python surfaces here, typed.
+                fleet_coord.check_partition()
+                if preempt.stop_requested():
+                    fleet_coord.request_stop(
+                        fleet.FLAG_PREEMPT, note=f"{preempt.signal_name} at window {eval_idx}")
+                if agreed_stop is not None:
+                    preempted = True
+                    break
+
+        if fleet_coord is not None and not preempted:
+            # A SIGTERM during the last window has no later gather to carry
+            # its flag: one bounded store vote at a point every rank reaches.
             if preempt.stop_requested():
+                fleet_coord.request_stop(
+                    fleet.FLAG_PREEMPT, note=f"{preempt.signal_name} during the final window")
+            final_decision = fleet_coord.agree_at_window(num_evaluation)
+            if final_decision.stop:
+                if agreed_stop is None:
+                    agreed_stop = final_decision
                 preempted = True
-                break
 
         if preempted:
-            preempt.acknowledge(dispatched_t)
+            if preempt.stop_requested():
+                preempt.acknowledge(dispatched_t)
+            elif agreed_stop is not None:
+                # Stopping on a peer's flag: the same drain and save, at the
+                # same window.
+                log.warning("[fleet] %s — draining and checkpointing at step %d in "
+                            "lockstep with the fleet", agreed_stop.describe(), dispatched_t)
             if checkpointer is not None:
                 if last_save_t != dispatched_t:
                     # The cadence did not cover the last window: an emergency
@@ -497,11 +642,24 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
                 num_evaluation, LogEvent.ABSOLUTE,
             )
             final_return = float(abs_metrics["episode_return"].mean())
+    except KeyboardInterrupt:
+        # The fleet monitor interrupts the main thread when a peer dies: its
+        # interrupt becomes the typed error (exit 87 through the fleet's
+        # excepthook); an operator's ^C with no partition re-raises as it is.
+        if fleet_coord is not None and fleet_coord.partition_event.is_set():
+            fleet_coord.emergency_save()  # idempotent; the monitor usually saved
+            raise fleet_coord.partition_error from None
+        raise
     finally:
         preempt.uninstall()
+        monitor.unregister("anakin-host-loop")
+        if aggregator is not None:
+            aggregator.close()
+            ops_server.set_aggregator(None)
         if sentinel is not None:
             # Keeps the excepthook while a corruption verdict propagates (it
-            # must still become exit code 88).
+            # must still become exit code 88); before the fleet's stop, so
+            # the hooks unwind in reverse order.
             sentinel.deactivate()
         logger.close()
 
@@ -527,7 +685,15 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
                 "preflight": pf.enabled,
                 "restored_step": start_step,
                 "restore_skipped": restore_skipped,
+                "elastic_restore": elastic_restore,
+                "fleet": fleet_coord is not None,
+                "fleet_agreed_stop": (agreed_stop.describe() if agreed_stop is not None
+                                      else None),
             },
+            # The rescue snapshot's host copies: how many, their bytes and
+            # each window's device time (ms); None with the fleet off.
+            "fleet_rescue": (None if fleet_coord is None
+                             else copy.deepcopy(fleet_coord.rescue_stats)),
             "integrity": (sentinel.stats() if sentinel is not None
                           else integrity.disabled_stats()),
             "preflight": None if not pf.enabled else {

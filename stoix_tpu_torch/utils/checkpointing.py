@@ -29,8 +29,18 @@ keeps `state.pt`), in a store that every rank sees (one host, or a shared
 file system). The coordinator alone writes the metadata; after a barrier
 it alone writes `metrics.json` and prunes, and a second barrier holds every rank until it is
 done, so each rank's next save decision reads the same store. A restore
-reads the rank's own file; a step saved by another number of processes
-raises, naming both counts.
+reads the rank's own file.
+
+A step saved by another number of processes restores too (the topology-
+elastic restore, as the JAX package's `_restore_resharded`): every rank
+reads rank 0's file as host leaves keyed by tree path (`read_host_leaves`),
+checks their digests against rank 0's sidecar, and places them into its
+template by path (`place_host_leaves`). The replicated leaves (params,
+optimizer state, statistics) come back bit for bit; a rank's own fields
+(`integrity.per_rank_fields`: generators, env state, timestep, buffers) keep
+the template's fresh values and are reported, with the count placed
+("[checkpoint] elastic restore ... re-placed N leaf(s)";
+`last_elastic_restore`).
 
 Every save also records each leaf's sha256 digest (its tensor's bytes, a
 generator's state) in a `_digests.json` sidecar at the store's root
@@ -45,8 +55,8 @@ in `last_restore_report`; an explicit `timestep` never falls back, and a
 missing one lists the steps there are. The `ckpt_corrupt` fault overwrites
 the saved step's files after a save (resilience/faultinject.py).
 
-Not ported (ROADMAP A19b): the fleet's emergency stores (a `load_path` that
-names one raises, naming `arch.fleet`) and topology-elastic re-placement.
+A fleet emergency store (resilience/fleet.py) restores through
+`fleet.restore_emergency`, the same placement.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ import os
 import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -69,7 +80,6 @@ CHECKPOINTER_VERSION = 3.0
 STATE_FILE = "state.pt"
 METRICS_FILE = "metrics.json"
 METADATA_FILE = "metadata.json"
-FLEET_MANIFEST = "fleet_manifest.json"  # stoix_tpu/resilience/fleet.py::MANIFEST_NAME
 DIGEST_SIDECAR = "_digests.json"
 
 Path = Tuple[str, ...]
@@ -149,15 +159,129 @@ def _saveable(leaf: Any) -> Any:
     return leaf
 
 
-def is_fleet_store(path: Any) -> bool:
-    """Whether `path` holds a fleet emergency store (its manifest, or
-    per-survivor `p<N>/` subdirectories holding one)."""
-    if not path or not os.path.isdir(str(path)):
-        return False
-    if os.path.isfile(os.path.join(str(path), FLEET_MANIFEST)):
-        return True
-    return any(os.path.isfile(os.path.join(str(path), entry, FLEET_MANIFEST))
-               for entry in os.listdir(str(path)))
+def _keystr(key: Path) -> str:
+    return "/".join(key)
+
+
+def _as_tensor(value: Any) -> torch.Tensor:
+    if isinstance(value, dict) and "generator_state" in value:
+        value = value["generator_state"]
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.from_numpy(np.array(value, order="C"))  # a 0-d array stays 0-d
+
+
+def place_host_leaves(
+    raw_by_path: Dict[Path, Any],
+    template: Any,
+    step: int,
+    allow_missing: bool = False,
+    keep: Any = (),
+) -> Tuple[Any, int, List[str], List[Path]]:
+    """Place host leaves (numpy arrays, CPU tensors, generator states) into
+    `template`'s structure and devices, matching by tree path: the placement
+    half of the topology-elastic restore, shared with the fleet's emergency
+    restore (as the JAX package's function of the same name).
+
+    Returns (tree, matched_count, reinitialized_descriptions,
+    reinitialized_keys). A shape mismatch is topology-dependent state and
+    keeps the template's value; a dtype mismatch raises
+    CheckpointIntegrityError (corruption, not topology). A missing leaf
+    raises unless `allow_missing`; zero matched leaves always raises (that is
+    another state, not another topology). `keep` names paths that keep the
+    template's value whatever the store holds (a rank's own fields under
+    another number of processes). A template generator takes its saved state
+    in place; a plain value (the optimizer's step count) takes the saved one;
+    None stays None."""
+    keep = {tuple(k) for k in keep}
+    reinitialized: List[str] = []
+    reinitialized_keys: List[Path] = []
+    matched = 0
+
+    def reinit(key: Path, why: str, ref: Any) -> Any:
+        reinitialized.append(f"{_keystr(key)} ({why})")
+        reinitialized_keys.append(key)
+        return ref
+
+    def place(ref: Any, key: Path) -> Any:
+        nonlocal matched
+        if ref is None:
+            return None
+        children = None if isinstance(ref, (torch.Tensor, torch.Generator, np.ndarray)) \
+            else _children(ref)
+        if children is not None:
+            values = [place(child, key + (name,)) for name, child in children]
+            if hasattr(ref, "_fields"):
+                return type(ref)(*values)
+            if isinstance(ref, dict):
+                return dict(zip(ref.keys(), values))
+            return type(ref)(values)
+        if key in keep:
+            return reinit(key, "a rank's own state, kept the template's", ref)
+        if key not in raw_by_path:
+            if allow_missing:
+                return reinit(key, "absent from the store", ref)
+            raise CheckpointIntegrityError(
+                step, f"leaf {_keystr(key)} missing from the checkpoint (resharded restore "
+                "matches by tree-path)")
+        value = raw_by_path[key]
+        if isinstance(ref, torch.Generator):
+            saved = _as_tensor(value)
+            want = ref.get_state()
+            if saved.dtype != want.dtype:
+                raise CheckpointIntegrityError(
+                    step, f"dtype mismatch at {_keystr(key)}: saved {saved.dtype} vs "
+                    f"template {want.dtype}")
+            if saved.shape != want.shape:
+                return reinit(key, f"saved {tuple(saved.shape)} vs template "
+                                   f"{tuple(want.shape)}", ref)
+            ref.set_state(saved.clone())
+            matched += 1
+            return ref
+        if isinstance(ref, torch.Tensor):
+            arr = _as_tensor(value)
+            if arr.dtype != ref.dtype:
+                raise CheckpointIntegrityError(
+                    step, f"dtype mismatch at {_keystr(key)}: saved {arr.dtype} vs template "
+                    f"{ref.dtype}")
+            if arr.shape != ref.shape:
+                return reinit(key, f"saved {tuple(arr.shape)} vs template "
+                                   f"{tuple(ref.shape)}", ref)
+            matched += 1
+            return arr.to(device=ref.device, copy=True)
+        arr = np.asarray(value)
+        ref_arr = np.asarray(ref)
+        if arr.dtype != ref_arr.dtype:
+            raise CheckpointIntegrityError(
+                step, f"dtype mismatch at {_keystr(key)}: saved {arr.dtype} vs template "
+                f"{ref_arr.dtype}")
+        if arr.shape != ref_arr.shape:
+            return reinit(key, f"saved {arr.shape} vs template {ref_arr.shape}", ref)
+        matched += 1
+        if isinstance(ref, np.ndarray):
+            return arr.copy()
+        return type(ref)(arr.item()) if isinstance(ref, (bool, int, float)) else arr.item()
+
+    tree = place(template, ())
+    if matched == 0:
+        raise CheckpointIntegrityError(
+            step, "resharded restore matched ZERO leaves by shape — this is a different "
+            "state entirely, not a topology change")
+    return tree, matched, reinitialized, reinitialized_keys
+
+
+def read_host_leaves(store_dir: str, step: int) -> Dict[Path, Any]:
+    """One saved step's leaves on the host, keyed by tree path: rank 0's
+    file of the step, whatever number of processes saved it (tensors as CPU
+    tensors, generators as {"generator_state": tensor}, plain values as they
+    are). The read half of the topology-elastic restore."""
+    step_dir = os.path.join(store_dir, str(step))
+    world = saved_world(step_dir)
+    if world is None:
+        raise FileNotFoundError(f"no complete checkpoint at {step_dir}")
+    payload = torch.load(os.path.join(step_dir, state_file(0, world)), map_location="cpu",
+                         weights_only=True)
+    return {tuple(key.split("/")) if key else (): value for key, value in payload.items()}
 
 
 class Checkpointer:
@@ -184,6 +308,9 @@ class Checkpointer:
         # The typed rejections of the latest restore's fallback walk:
         # [{"step", "reason", "error"}, ...].
         self.last_restore_report: List[Dict[str, str]] = []
+        # What the latest restore under another number of processes placed
+        # and kept (None when it read this world's own files).
+        self.last_elastic_restore: Optional[Dict[str, Any]] = None
 
     # ------------------------------------------------------------ the store
 
@@ -293,6 +420,7 @@ class Checkpointer:
         `last_restore_report` with its typed reason; an explicit `timestep`
         never falls back."""
         self.last_restore_report = []
+        self.last_elastic_restore = None
         steps = self.all_steps()
         if timestep is not None:
             if int(timestep) not in steps:
@@ -307,8 +435,10 @@ class Checkpointer:
         log = get_logger("stoix_tpu_torch.checkpoint")
         last_error: Optional[Exception] = None
         for step in candidates:
-            self._check_world(step)  # another topology is not corruption: no fallback
             try:
+                world = saved_world(os.path.join(self.directory, str(step)))
+                if world != self._world:
+                    return self._restore_elastic(step, template, world), step
                 saved = self._read_step(step)
                 self._validate(saved, template, step)
                 self._verify_digests(saved, step)
@@ -328,13 +458,36 @@ class Checkpointer:
             f"no valid checkpoint among steps {candidates} under {self.directory}; last "
             f"error: {type(last_error).__name__}: {last_error}")
 
-    def _check_world(self, step: int) -> None:
-        world = saved_world(os.path.join(self.directory, str(step)))
-        if world != self._world:
-            raise ValueError(
-                f"checkpoint step {step} under {self.directory} was saved by {world} "
-                f"process(es) and this run has {self._world}: restoring under another "
-                "number of processes (elastic re-placement) is not ported")
+    def _restore_elastic(self, step: int, template: Any, world: int) -> Any:
+        """A step saved by `world` processes into this run of `self._world`:
+        rank 0's leaves outside a rank's own fields pass the same-world gate
+        (`_validate` against the template without those fields, then
+        `_verify_digests` against rank 0's sidecar) and are placed by tree
+        path; a rank's own fields keep the template's values. Generators are
+        set only once every check passed."""
+        from stoix_tpu_torch.resilience.integrity import per_rank_fields
+
+        log = get_logger("stoix_tpu_torch.checkpoint")
+        log.info("[checkpoint] step %d saved by %d process(es), this run has %d — taking the "
+                 "elastic (resharding) restore path", step, world, self._world)
+        own = per_rank_fields(template)
+        shared = {"/".join(k): v for k, v in read_host_leaves(self.directory, step).items()
+                  if not (k and k[0] in own)}
+        view = dict((name, child) for name, child in _children(template) or ()
+                    if name not in own) if own else template
+        self._validate(shared, view, step)
+        self._verify_digests(shared, step, rank=0, world=world)
+        keep = [path for path, _ in flatten_state(template) if path and path[0] in own]
+        restored, matched, reinitialized, _ = place_host_leaves(
+            {tuple(k.split("/")): v for k, v in shared.items()}, template, step, keep=keep)
+        log.warning(
+            "[checkpoint] elastic restore of step %d re-placed %d leaf(s) onto the new mesh; "
+            "%d topology-dependent leaf(s) kept their template initialization: %s",
+            step, matched, len(reinitialized), "; ".join(reinitialized))
+        self.last_elastic_restore = {"step": int(step), "saved_world": int(world),
+                                     "world": self._world, "matched": int(matched),
+                                     "reinitialized": list(reinitialized)}
+        return restored
 
     def _read_step(self, step: int) -> Dict[str, Any]:
         return torch.load(os.path.join(self.directory, str(step),
@@ -373,14 +526,20 @@ class Checkpointer:
                     step, f"non-finite values in leaf {key} (template expects finite values "
                     "here)", kind="non_finite")
 
-    def _verify_digests(self, saved: Dict[str, Any], step: int) -> None:
-        """Each leaf's digest against the record made at save time; a
-        mismatch is bit-rot ('digest'). No record for the step: skipped."""
-        record = saved_digest_record(self.directory, self._rank, self._world).get(step) or {}
+    def _verify_digests(self, saved: Dict[str, Any], step: int, rank: Optional[int] = None,
+                        world: Optional[int] = None) -> None:
+        """Each leaf of `saved` against the digest that rank `rank` of
+        `world` (default: this process's) recorded at save time; a mismatch
+        is bit-rot ('digest'). No record for the step: skipped. `_validate`
+        has already held `saved` to the template's paths."""
+        record = saved_digest_record(self.directory,
+                                     self._rank if rank is None else rank,
+                                     self._world if world is None else world).get(step) or {}
         if not record:
             return
         got = payload_digests(saved)
-        mismatched = sorted(key for key, want in record.items() if got.get(key) != want)
+        mismatched = sorted(key for key, want in record.items()
+                            if key in saved and got.get(key) != want)
         if mismatched:
             raise CheckpointIntegrityError(
                 step, f"sha256 digest mismatch on {len(mismatched)} leaf(s) — the bytes on "
@@ -433,12 +592,9 @@ def checkpointer_from_config(config: Any, model_name: str) -> Optional[Checkpoin
 
 def loader_from_config(config: Any, model_name: str) -> Checkpointer:
     """The restoring Checkpointer of `logger.checkpointing.load_args`
-    (`load_path`, default "checkpoints", and `checkpoint_uid`)."""
+    (`load_path`, default "checkpoints", and `checkpoint_uid`). A `load_path`
+    that holds a fleet emergency store is the runner's to restore
+    (fleet.restore_emergency), as the JAX runner does."""
     load_args = config.logger.checkpointing.get("load_args") or {}
-    load_path = load_args.get("load_path")
-    if is_fleet_store(load_path):
-        raise NotImplementedError(
-            f"logger.checkpointing.load_args.load_path={load_path!r} is a fleet emergency "
-            "store; restoring one (arch.fleet) is not ported")
-    return Checkpointer(model_name=model_name, rel_dir=load_path or "checkpoints",
+    return Checkpointer(model_name=model_name, rel_dir=load_args.get("load_path") or "checkpoints",
                         checkpoint_uid=load_args.get("checkpoint_uid"))

@@ -15,7 +15,8 @@ calls the packages. Every logged record is also kept in
 close, the span trace `trace.json` under `logger.telemetry.dir` (default
 `<exp_dir>/telemetry`); `observability.configure` is called once a logger,
 as the JAX logger calls it, and is the run's reset of the flight recorder.
-`logger.telemetry.http.enabled` (the HTTP ops plane) raises.
+`logger.telemetry.http.enabled` starts the HTTP ops plane (observability/httpz.py)
+through the same `configure`, on every rank.
 
 Over several processes only the coordinator (rank 0) has sinks, as the JAX
 runner logs only on its coordinator: the other ranks write no file and print

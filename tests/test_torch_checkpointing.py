@@ -135,13 +135,62 @@ def test_restore_sets_generator_states_in_place(tmp_path):
     assert torch.equal(torch.rand(4, generator=fresh), want)
 
 
-def test_a_fleet_store_as_load_path_raises_naming_arch_fleet(tmp_path):
-    (tmp_path / "p0").mkdir()
-    (tmp_path / "p0" / "fleet_manifest.json").write_text("{}")
+def test_a_fleet_store_as_load_path_raises_naming_arch_fleet(tmp_path, monkeypatch):
+    """The refusal this test pinned is lifted: a fleet emergency store as
+    `load_path` restores through fleet.restore_emergency. A one-process
+    fleet run's rescue store resumes bit for bit; a manifest that is not one
+    still fails, typed."""
+    from stoix_tpu_torch.resilience import fleet
+
+    (tmp_path / "bad" / "p0").mkdir(parents=True)
+    (tmp_path / "bad" / "p0" / "fleet_manifest.json").write_text("{}")
     config = _config(TINY + ["logger.checkpointing.load_model=true",
-                             f"logger.checkpointing.load_args.load_path={tmp_path}"])
-    with pytest.raises(NotImplementedError, match="arch.fleet"):
+                             f"logger.checkpointing.load_args.load_path={tmp_path / 'bad'}"])
+    with pytest.raises(KeyError, match="step"):
         ff_ppo.run_experiment(config, device="cpu")
+    monkeypatch.chdir(tmp_path)
+    # A rescue store of window 0, then one window resumed from it: the resumed
+    # run ends where an unbroken two-window run ends.
+    coordinator = fleet.FleetCoordinator(
+        fleet.settings_from_config(_config(TINY + [
+            "arch.fleet.enabled=true", f"arch.fleet.emergency_dir={tmp_path / 'rescue'}"])))
+    captured = []
+
+    def capturing(env, cfg, device, seed):
+        setup = ff_ppo.learner_setup(env, cfg, device, seed)
+        learn = setup.learn
+
+        def learn_and_stage(state):
+            out = learn(state)
+            if not captured:
+                coordinator.stage_candidate(WINDOW, out.learner_state)
+                coordinator.confirm_candidate(WINDOW)
+                captured.append(coordinator.emergency_save())
+            return out
+
+        return setup._replace(learn=learn_and_stage)
+
+    runner.run_anakin_experiment(_config(TINY + [
+        "arch.num_evaluation=2", f"arch.total_timesteps={2 * WINDOW}",
+        "logger.checkpointing.save_model=true", "logger.checkpointing.save_args.max_to_keep=~",
+        "logger.checkpointing.save_args.checkpoint_uid=unbroken"]), capturing, "cpu", groups=True)
+    ff_ppo.run_experiment(_config(TINY + [
+        "arch.num_evaluation=1", f"arch.total_timesteps={WINDOW}",
+        "logger.checkpointing.load_model=true",
+        f"logger.checkpointing.load_args.load_path={tmp_path / 'rescue'}",
+        "logger.checkpointing.save_model=true",
+        "logger.checkpointing.save_args.checkpoint_uid=resumed"]), device="cpu")
+    assert runner.LAST_RUN_STATS["resilience"]["restored_step"] == WINDOW
+    unbroken = _saved(tmp_path / "checkpoints" / "unbroken" / "ff_ppo", 2 * WINDOW)
+    resumed = _saved(tmp_path / "checkpoints" / "resumed" / "ff_ppo", 2 * WINDOW)
+    assert unbroken.keys() == resumed.keys()
+    for key, value in unbroken.items():
+        if isinstance(value, torch.Tensor):
+            assert torch.equal(value, resumed[key]), key
+        elif isinstance(value, dict):  # a generator's state
+            assert torch.equal(value["generator_state"], resumed[key]["generator_state"]), key
+        else:
+            assert value == resumed[key], key
 
 
 def test_ff_trans_ppo_saves_and_resumes_with_update_batches(tmp_path, monkeypatch):

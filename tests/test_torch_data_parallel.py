@@ -793,11 +793,35 @@ def test_two_rank_resume_is_bitwise_the_unbroken_run(two_ranks):
                 np.testing.assert_array_equal(value, resumed[key], err_msg=key)
             else:
                 assert value == resumed[key], key
-    # One process cannot restore what two saved (elastic re-placement is not ported).
+    # One process restores what two saved (the topology-elastic restore):
+    # rank 0's replicated leaves bit for bit, the per-rank fields kept fresh.
     loader = checkpointing.Checkpointer("ff_ppo", rel_dir=str(root / "runs" / "checkpoints"),
                                         checkpoint_uid="unbroken")
-    with pytest.raises(ValueError, match=r"saved by 2 process\(es\) and this run has 1"):
-        loader.restore(None)
+    step = max(loader.all_steps())
+    saved = torch.load(os.path.join(loader.directory, str(step), checkpointing.state_file(0, 2)),
+                       weights_only=True)
+    template = {}
+    for key, value in saved.items():
+        *parents, leaf = key.split("/")
+        node = template
+        for name in parents:
+            node = node.setdefault(name, {})
+        node[leaf] = (torch.Generator() if isinstance(value, dict) else
+                      torch.zeros_like(value) if isinstance(value, torch.Tensor) else 0)
+    state, restored_step = loader.restore(template)
+    assert restored_step == step
+    report = loader.last_elastic_restore
+    assert (report["saved_world"], report["world"]) == (2, 1)
+    assert {entry.split(" ")[0].split("/")[0] for entry in report["reinitialized"]} == {
+        "generator", "env_state", "timestep"}
+    for key, value in saved.items():
+        top, *rest = key.split("/")
+        if top in ("params", "opt_states", "obs_stats", "kl_beta"):
+            node = state[top]
+            for name in rest:
+                node = node[name]
+            assert (torch.equal(node, value) if isinstance(value, torch.Tensor)
+                    else node == value), key
 
 
 def test_ppo_learns_identity_game_over_two_ranks(two_ranks):

@@ -248,14 +248,12 @@ def test_entry_point_defaults_to_cuda_and_never_falls_back(monkeypatch):
 @pytest.mark.parametrize("override,key", [
     # Anakin colocates every role; only the Sebulba runner splits them.
     ("arch.roles.learn.device_ids=[0]", "arch.roles"),
-    ("arch.fleet.enabled=true", "arch.fleet.enabled"),
-    # The integrity, preflight, fault and telemetry layers run
+    # The integrity, preflight, fault, telemetry, fleet and HTTP layers run
     # (tests/test_torch_resilience.py, test_torch_integrity.py,
-    # test_torch_opsplane.py); what stays refused: the compile cache (A19c),
-    # the HTTP ops plane, and the fleet and serving faults (A19b, A18).
+    # test_torch_opsplane.py, test_torch_fleet.py, test_torch_httpz.py);
+    # what stays refused: the compile cache (A19c) and the serving faults
+    # (A18).
     ("arch.compile_cache.enabled=true", "arch.compile_cache.enabled"),
-    ("logger.telemetry.http.enabled=true", "logger.telemetry.http.enabled"),
-    ("arch.fault_spec=host_loss:1", "host_loss"),
     ("arch.fault_spec=swap_poison", "swap_poison"),
 ])
 def test_unported_knobs_raise_naming_the_key(override, key):
@@ -263,6 +261,27 @@ def test_unported_knobs_raise_naming_the_key(override, key):
                        "arch.num_evaluation=1", override])
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         ff_ppo.run_experiment(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    "arch.fleet.enabled=true", "logger.telemetry.http.enabled=true",
+    # Armed past the run's last window: accepted, and never fires.
+    "arch.fault_spec=host_loss:5"])
+def test_the_layers_across_hosts_run_on_ff_ppo(override, tmp_path, monkeypatch):
+    from stoix_tpu_torch import observability
+    from stoix_tpu_torch.resilience import faultinject
+
+    monkeypatch.chdir(tmp_path)
+    cfg = make_config(["env=identity_game", "arch.total_num_envs=8", "arch.num_updates=1",
+                       "arch.num_evaluation=1", override])
+    try:
+        assert np.isfinite(ff_ppo.run_experiment(cfg, device="cpu"))
+        assert runner.LAST_RUN_STATS["resilience"]["fleet"] is ("fleet" in override)
+        assert (observability.get_ops_server() is not None) is ("http" in override)
+        assert (faultinject.get_plan() is not None) is ("host_loss" in override)
+    finally:
+        observability.shutdown()
+        faultinject.reset()
 
 
 def test_port_imports_nothing_of_jax():

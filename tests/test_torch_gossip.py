@@ -180,10 +180,9 @@ def test_gossip_config_trees_mirror_the_jax_package(root, overrides):
 
 
 @pytest.mark.parametrize("override,key", [
-    # host_stall and preflight run (the straggler drill below); the fleet
-    # faults, the HTTP ops plane and the compile cache stay refused.
-    ("arch.fault_spec=host_loss:1", "host_loss"),
-    ("logger.telemetry.http.enabled=true", "logger.telemetry.http.enabled"),
+    # host_stall, preflight, the fleet and the HTTP ops plane run (the
+    # straggler drill below, the next test, tests/test_torch_fleet.py's
+    # gossip drill); the compile cache stays refused.
     ("arch.compile_cache.enabled=true", "arch.compile_cache.enabled"),
 ])
 def test_gossip_root_refuses_the_unported_layers(override, key):
@@ -191,6 +190,25 @@ def test_gossip_root_refuses_the_unported_layers(override, key):
                              BASE_OVERRIDES + [override])
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         ff_ppo.run_experiment(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    # Armed past the run's last window: accepted, and never fires.
+    "arch.fault_spec=host_loss:99", "logger.telemetry.http.enabled=true"])
+def test_gossip_root_runs_the_layers_across_hosts(override, tmp_path, monkeypatch):
+    from stoix_tpu_torch import observability
+    from stoix_tpu_torch.resilience import faultinject
+
+    monkeypatch.chdir(tmp_path)
+    cfg = config_lib.compose(config_lib.default_config_dir(), GOSSIP_ROOT,
+                             BASE_OVERRIDES + ["arch.fleet.enabled=true", override])
+    try:
+        assert np.isfinite(ff_ppo.run_experiment(cfg, device="cpu"))
+        assert runner.LAST_RUN_STATS["resilience"]["fleet"] is True
+        assert (observability.get_ops_server() is not None) is ("http" in override)
+    finally:
+        observability.shutdown()
+        faultinject.reset()
 
 
 def test_mesh_shape_takes_the_group_axis_in_jax_order():

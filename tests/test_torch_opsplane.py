@@ -9,7 +9,7 @@ report of the same phases and clock (equal). Then the port's runs, as the
 JAX tests pin them (tests/test_observability.py, tests/test_opsplane.py):
 telemetry off records nothing and writes no file, telemetry on writes a
 valid `trace.json`, `metrics.prom` and `metrics.jsonl`, and the HTTP ops
-plane stays refused, naming its key.
+plane starts on its own switch (tests/test_torch_httpz.py holds it).
 """
 
 import json
@@ -243,11 +243,20 @@ def test_telemetry_on_writes_valid_trace_and_prometheus(tmp_path):
 
 
 def test_http_ops_plane_stays_refused_naming_the_key(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"logger\.telemetry\.http\.enabled"):
+    """The refusal this test pinned is lifted (tests/test_torch_httpz.py
+    holds the plane against the JAX package's): `logger.telemetry.http.
+    enabled` now starts the server, its own switch beside `enabled`, and the
+    run records no span with telemetry off."""
+    try:
         _run([f"logger.base_exp_path={tmp_path}", "logger.telemetry.http.enabled=true"])
-    with pytest.raises(NotImplementedError, match=r"logger\.telemetry\.http\.enabled"):
-        observability.configure({"enabled": True, "http": {"enabled": True}})
-    assert not trace.is_enabled()
+        server = observability.get_ops_server()
+        assert server is not None and server.port > 0
+        assert not trace.is_enabled()
+        assert observability.configure({"enabled": True, "http": {"enabled": True}}) is True
+        assert observability.get_ops_server() is not server  # a fresh one a run
+    finally:
+        observability.shutdown()
+    assert observability.get_ops_server() is None and not trace.is_enabled()
 
 
 def test_device_poller_never_samples_a_cpu_run():

@@ -115,14 +115,13 @@ def test_entry_point_defaults_to_cuda_and_never_falls_back(system, monkeypatch):
 
 
 REFUSALS = [
-    ("ff_impala", "arch.fleet.enabled=true", "arch.fleet.enabled"),
-    # Integrity, preflight and telemetry run on the PPO/IMPALA runner
-    # (test_sebulba_integrity_checks_at_eval_boundaries); the compile cache
-    # and the HTTP ops plane stay refused, and Sebulba ff_dqn refuses the
-    # layers its JAX runner never reads.
+    # Integrity, preflight, telemetry, the fleet and the HTTP ops plane run on
+    # the PPO/IMPALA runner (test_sebulba_integrity_checks_at_eval_boundaries,
+    # test_the_fleet_and_http_layers_run_on_sebulba); the compile cache stays
+    # refused, and Sebulba ff_dqn refuses the layers its JAX runner never
+    # reads, the fleet among them (ROADMAP C24).
     ("ff_ppo", "arch.compile_cache.enabled=true", "arch.compile_cache.enabled"),
-    ("ff_impala_shared_torso", "logger.telemetry.http.enabled=true",
-     "logger.telemetry.http.enabled"),
+    ("ff_dqn", "arch.fleet.enabled=true", "arch.fleet.enabled"),
     # Faults of layers not ported: the Sebulba runners inject actor_crash
     # and queue_stall only.
     ("ff_ppo", "arch.fault_spec=bitflip:1", "bitflip"),
@@ -167,6 +166,25 @@ def test_refusals_raise_naming_the_key(system, override, key):
     cfg = compose(system, [*BASE, override])
     with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
         SYSTEMS[system].run_experiment(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("system,override", [
+    ("ff_impala", "arch.fleet.enabled=true"),
+    ("ff_impala_shared_torso", "logger.telemetry.http.enabled=true")])
+def test_the_fleet_and_http_layers_run_on_sebulba(system, override):
+    from stoix_tpu_torch import observability
+
+    cfg = compose(system, [*BASE, override])
+    try:
+        ret = SYSTEMS[system].run_experiment(cfg, device="cpu")
+        _assert_clean_run(ret, 2048 // (8 * 8), system)
+        stats = _stats(system)
+        assert stats["resilience"]["fleet"] is ("fleet" in override)
+        # One process: each window's verdict is its own flags.
+        assert stats["fleet_decisions"] == (["fleet healthy"] if "fleet" in override else None)
+        assert (observability.get_ops_server() is not None) is ("http" in override)
+    finally:
+        observability.shutdown()
 
 
 @pytest.mark.parametrize("override,match", [
