@@ -501,6 +501,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
                    through the checkpointer, the replicated leaves bitwise
                    and the per-rank fields reported; no child left, the
                    store's port free.
+ 65. population  — population training (in the pool) at
+                   default/population/default_ff_ppo.yaml's full width
+                   (CartPole, 1024 envs a member, T=16, 4 x 4 minibatches,
+                   MLP 256x256, pallas): (a) one member, PBT off, every leaf
+                   of every window bitwise the plain ff_ppo run; (b) 8
+                   members, ent_coef lifted to [0.001 ... 0.008], PBT every 2
+                   windows over 4 windows of one update: clone pairs bitwise
+                   at the fire windows and none between, 4 exploited
+                   members, the changed hparams at float32(0.8 or 1.2) times
+                   a survivor's, 8 B1 GAE launches an update, env-steps/s in
+                   total and a member; (c) (b)'s state as a fleet emergency
+                   store restored at 4 and 12 members through the
+                   population's raw transform (whole leaves at the store's
+                   digests, survivors and old members bitwise, clones'
+                   hparams at the exact products); (d) (b) as two ranks of
+                   four members (`arch.mesh.pop=2`) on the card over gloo,
+                   every leaf of every window bitwise (b)'s rows.
 
 Once every kernel is timed (after c8_wide, B1's GAE entry at the search and
 SPO shapes included), a pool of child processes of this script runs beside
@@ -509,10 +526,11 @@ the main process's later phases (knobs onwards): the learning oracles
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
 vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn, spo_continuous_learn,
 vmpo_continuous_learn, catch_learn, snake_learn, sebulba_ppo_learn,
-sebulba_impala_learn, sebulba_dqn_learn, sebulba_impact_learn; each
-`--learn-phase NAME`) and the phases whose numbers no kernel timing reads
-(rec_train, mpo_train and vmpo_train, mcts, search_train, spo_train and
-disco_train, loco_train, loco_envs and grid_train; `--pool-phase NAME SMI`),
+sebulba_impala_learn, sebulba_dqn_learn, sebulba_impact_learn,
+population_learn; each `--learn-phase NAME`) and the phases whose numbers no
+kernel timing reads (rec_train, mpo_train and vmpo_train, mcts, search_train,
+spo_train and disco_train, loco_train, loco_envs and grid_train, population;
+`--pool-phase NAME SMI`),
 LEARN_WORKERS at a time (four at least, more where the host has the cores;
 `host_cpus` is printed), the longest first. Their lines are printed when the
 main process's phases are done, and a `learn_all` line gives the pool's wall
@@ -5998,6 +6016,373 @@ def phase_fleet_faults(smi: str) -> dict:
     return {"b1": relaunch["b1"]}
 
 
+POPULATION_ROOT = "default/population/default_ff_ppo.yaml"
+POPULATION_COMMON = ["arch.num_eval_episodes=16", "system.multistep_impl=pallas",
+                     "logger.use_console=False"]
+POPULATION_SIZE = 8  # case (b): system.ent_coef lifted to [0.001 ... 0.008]
+POPULATION_PBT = {"enabled": True, "interval": 2, "quantile": 0.25, "perturb_scale": 0.2}
+POPULATION_WINDOWS = 4  # case (b): 4 windows of one update; PBT fires after 2 and 4
+# The population oracle: IdentityGame, 4 members with ent_coef lifted and PBT
+# every 2 windows; the fittest member's eval return must pass the threshold
+# scripts/jax_oracle_thresholds.py --oracles population fixed on the CPU.
+POPULATION_IDENTITY = ["env=identity_game", "arch.total_num_envs=64",
+                       "arch.total_timesteps=65536", "arch.num_evaluation=4",
+                       "arch.num_eval_episodes=32", "arch.evaluation_greedy=True",
+                       "arch.absolute_metric=False", "system.rollout_length=16",
+                       "system.epochs=4", "logger.use_console=False",
+                       "arch.population.size=4",
+                       "arch.population.hparams={system.ent_coef: [0.001, 0.003, 0.01, 0.03]}",
+                       "arch.population.pbt.enabled=true", "arch.population.pbt.interval=2",
+                       "system.multistep_impl=pallas"]
+POPULATION_THRESHOLD = 8.0
+
+
+def _population_module():
+    from stoix_tpu_torch.population import runner as population_runner
+
+    return population_runner
+
+
+def _state_leaves(state) -> dict:
+    """Host copies of every leaf of a learner state by tree path, generators
+    as their states (None leaves left out)."""
+    from stoix_tpu_torch.utils.checkpointing import flatten_state
+
+    out = {}
+    for path, leaf in flatten_state(state):
+        if leaf is None:
+            continue
+        if isinstance(leaf, torch.Generator):
+            leaf = leaf.get_state()
+        out["/".join(path)] = (leaf.detach().cpu().clone() if isinstance(leaf, torch.Tensor)
+                               else leaf)
+    return out
+
+
+def _population_run(extra: list, size: int, hparams=None, pbt=None) -> dict:
+    """One `run_population_experiment` on the card at the default population
+    config's full width plus `extra`: every window's state on the host, the
+    last window's live state, B1's launches (counters zeroed just before,
+    read just after) and the runner's stats."""
+    pop = _population_module()
+    lr = linear_recurrence
+    config = compose(POPULATION_COMMON + extra, POPULATION_ROOT)
+    config_lib._set_dotted(config, "arch.population.size", size)
+    if hparams:
+        config_lib._set_dotted(config, "arch.population.hparams", hparams)
+    if pbt:
+        config_lib._set_dotted(config, "arch.population.pbt", pbt)
+    windows, last = [], {}
+    setup_fn = pop.population_setup
+
+    def recording_setup(*args, **kwargs):
+        setup = setup_fn(*args, **kwargs)
+        learn = setup.learn
+
+        def recorded(state):
+            out = learn(state)
+            windows.append(_state_leaves(out.learner_state))
+            last["state"] = out.learner_state
+            return out
+
+        return setup._replace(learn=recorded)
+
+    for counter in lr.COUNTERS:
+        counter.launches = 0
+    pop.population_setup = recording_setup
+    try:
+        start = time.perf_counter()
+        final_return = pop.run_population_experiment(config, device="cuda")
+        seconds = time.perf_counter() - start
+    finally:
+        pop.population_setup = setup_fn
+    if not math.isfinite(final_return):
+        raise AssertionError(f"population of {size}: non-finite eval return {final_return}")
+    return {"windows": windows, "state": last["state"], "config": config,
+            "b1_launches": _counts(lr.COUNTERS), "updates": int(config.arch.num_updates),
+            "stats": copy.deepcopy({k: v for k, v in runner.LAST_RUN_STATS.items()
+                                    if k != "history"}),
+            "population": dict(pop.LAST_POPULATION_STATS),
+            "final_eval_return": final_return, "seconds": seconds}
+
+
+def _plain_windows(extra: list) -> tuple:
+    """The plain Anakin ff_ppo run at the same width: every window's state
+    on the host, and its env-steps/s."""
+    windows = []
+    setup_fn = ff_ppo.learner_setup
+
+    def recording_setup(*args, **kwargs):
+        setup = setup_fn(*args, **kwargs)
+        learn = setup.learn
+
+        def recorded(state):
+            out = learn(state)
+            windows.append(_state_leaves(out.learner_state))
+            return out
+
+        return setup._replace(learn=recorded)
+
+    ff_ppo.learner_setup = recording_setup
+    try:
+        ff_ppo.run_experiment(compose(extra, PPO_ROOT), device="cuda")
+    finally:
+        ff_ppo.learner_setup = setup_fn
+    return windows, list(runner.LAST_RUN_STATS["steps_per_second"])
+
+
+def _clone_pairs(window: dict, size: int) -> list:
+    params = [v for k, v in window.items() if k.startswith("members/params/")]
+    return [(i, j) for i in range(size) for j in range(i + 1, size)
+            if all(torch.equal(v[i], v[j]) for v in params)]
+
+
+def _population_restores(state, smi: str) -> dict:
+    """Case (c): the P = 8 state saved as a fleet emergency store, restored
+    at P = 4 and P = 12 through the population's raw transform: leaves kept
+    whole at the store's digests, survivors and old members bitwise, the
+    clones' hparams at float32(0.8 or 1.2) times their source's."""
+    from stoix_tpu_torch.population import elastic as population_elastic
+    from stoix_tpu_torch.resilience import fleet
+
+    pop = _population_module()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        settings = fleet.settings_from_config(
+            {"arch": {"fleet": {"enabled": True, "emergency_dir": tmp}}})
+        coord = fleet.FleetCoordinator(settings, backend=None, process_index=0,
+                                       process_count=1, interrupt_on_partition=False)
+        coord.stage_candidate(1, state)
+        coord.confirm_candidate(1)
+        path = coord.emergency_save()
+        with open(os.path.join(path, fleet.MANIFEST_NAME)) as f:
+            digests = json.load(f)["digests"]
+        saved = {k: (v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+                 for k, v in _state_leaves(state).items()}
+        fitness = saved["fitness"]
+        for size in (4, 12):
+            config = compose(POPULATION_COMMON + ["arch.num_updates=1", "arch.num_evaluation=1"],
+                             POPULATION_ROOT)
+            config_lib._set_dotted(config, "arch.population.size", size)
+            config_lib._set_dotted(config, "arch.population.hparams", {
+                "system.ent_coef": [0.001] * size})
+            config = check_total_timesteps(config, 1)
+            env, _ = envs.make(config)
+            template = pop.population_setup(env, config, torch.device("cuda"), 0).learner_state
+            start = time.perf_counter()
+            restored, step = fleet.restore_emergency(
+                template, path, raw_transform=population_elastic.raw_resize_transform(config))
+            restore_ms = 1e3 * (time.perf_counter() - start)
+            report = fleet.read_restore_report(path)
+            got = {k: (v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+                   for k, v in _state_leaves(restored).items()}
+            if step != 1 or not report["transformed"] or report["reinitialized"] or \
+                    sorted(got) != sorted(saved):
+                raise AssertionError(f"restore at {size}: step {step}, report {report}")
+            kept = population_elastic.select_survivors(fitness, 4)
+            src = population_elastic.clone_sources(fitness, 8, 12)
+            whole = bitwise = 0
+            for key, value in saved.items():
+                if not population_elastic.is_population_leaf(key):
+                    if key == "pbt_generator" and size == 12:
+                        if got[key].tobytes() == value.tobytes():
+                            raise AssertionError("the grow left the PBT stream where it was")
+                        continue
+                    if report["digests"][key] != digests[key] or \
+                            got[key].tobytes() != value.tobytes():
+                        raise AssertionError(f"restore at {size}: {key} is not the store's")
+                    whole += 1
+                    continue
+                want = value[kept] if size == 4 else value
+                if got[key][:len(want)].tobytes() != want.tobytes():
+                    raise AssertionError(f"restore at {size}: {key} moved")
+                bitwise += 1
+                if size == 12 and key.startswith("members/params/"):
+                    if got[key][8:].tobytes() != value[src[8:]].tobytes():
+                        raise AssertionError(f"a clone's {key} is not its source's")
+            clones = {}
+            if size == 12:
+                for slot in range(8, 12):
+                    source = saved["hparams/ent_coef"][src[slot]]
+                    value = got["hparams/ent_coef"][slot]
+                    if value not in (source * np.float32(0.8), source * np.float32(1.2)):
+                        raise AssertionError(f"clone {slot}: ent_coef {value} from {source}")
+                    if got["members/generator"][slot].tobytes() == \
+                            saved["members/generator"][src[slot]].tobytes():
+                        raise AssertionError(f"clone {slot} replays its source's stream")
+                clones = {"sources": src[8:].tolist(),
+                          "ent_coef": got["hparams/ent_coef"][8:].tolist()}
+            out[f"p{size}"] = {"leaves_at_the_stores_digests": whole,
+                               "member_leaves_bitwise": bitwise, "restore_ms": restore_ms,
+                               "kept_members": kept.tolist() if size == 4 else list(range(8)),
+                               **clones}
+    emit({"phase": "population", "case": "c", "store_members": 8, **out, "card": smi})
+    return out
+
+
+def phase_population(smi: str) -> dict:
+    """Population training (A17b) at default/population/default_ff_ppo.yaml's
+    full width (CartPole, 1024 envs a member, T = 16, 4 x 4 minibatches, MLP
+    256 x 256, pallas): (a) one member, PBT off, every leaf of every window
+    bitwise the plain ff_ppo run; (b) 8 members with ent_coef lifted to
+    [0.001 ... 0.008] and PBT every 2 windows over 4 windows of one update:
+    clone pairs bitwise at the fire windows, none between, 4 exploited
+    members, the hparams at the exact float32 products, 8 B1 GAE launches an
+    update; (c) its state's emergency store restored at 4 and 12 members;
+    (d) (b) as two ranks of four members (`arch.mesh.pop=2`) on the card
+    over gloo, bitwise (b). Returns B1's GAE launches by case."""
+    gae = linear_recurrence.GAE_KERNEL.name
+    windows = [f"arch.num_updates={MAIN_UPDATES}", f"arch.num_evaluation={MAIN_UPDATES}"]
+    plain, plain_sps = _plain_windows(POPULATION_COMMON + windows)
+    one = _population_run(windows, 1)
+    _check_b1_per_update("population (a)", one)
+    compared = 0
+    if len(one["windows"]) != MAIN_UPDATES or len(plain) != MAIN_UPDATES:
+        raise AssertionError(f"population (a): {len(one['windows'])} and {len(plain)} windows")
+    for window, (a, b) in enumerate(zip(plain, one["windows"])):
+        if sorted(f"members/{k}" for k in a) != sorted(k for k in b if k.startswith("members/")):
+            raise AssertionError(f"population (a): the member's leaves are not the plain run's")
+        for key, value in a.items():
+            row = b[f"members/{key}"][0]
+            same = torch.equal(row, value) if isinstance(value, torch.Tensor) else (
+                int(row) == value)
+            if not same:
+                raise AssertionError(f"population (a): {key} differs at window {window}")
+            compared += 1
+    emit({"phase": "population", "case": "a", "members": 1, "windows": MAIN_UPDATES,
+          "bitwise_equal_leaves": compared, "b1_launches": one["b1_launches"],
+          "env_steps_per_second": one["stats"]["steps_per_second"],
+          "plain_env_steps_per_second": plain_sps, "seconds": one["seconds"], "card": smi})
+
+    ent = [0.001 * (i + 1) for i in range(POPULATION_SIZE)]
+    run = _population_run([f"arch.num_updates={POPULATION_WINDOWS}",
+                           f"arch.num_evaluation={POPULATION_WINDOWS}"], POPULATION_SIZE,
+                          hparams={"system.ent_coef": ent}, pbt=POPULATION_PBT)
+    want = {gae: POPULATION_SIZE * POPULATION_WINDOWS, linear_recurrence.KERNEL.name: 0}
+    if run["b1_launches"] != want:
+        raise AssertionError(f"population (b): B1 launched {run['b1_launches']}, not {want}")
+    pairs = [_clone_pairs(w, POPULATION_SIZE) for w in run["windows"]]
+    if len(pairs[1]) < 2 or len(pairs[3]) < 2 or pairs[0] or pairs[2]:
+        raise AssertionError(f"population (b): clone pairs by window {pairs}")
+    if run["windows"][-1]["exploit_total"] != 4:
+        raise AssertionError(f"population (b): {run['windows'][-1]['exploit_total']} exploited")
+    for fire in (1, 3):
+        prev = run["windows"][fire - 1]["hparams/ent_coef"].numpy()
+        new = run["windows"][fire]["hparams/ent_coef"].numpy()
+        allowed = set(prev.tolist()) | set((prev * np.float32(0.8)).tolist()) | set(
+            (prev * np.float32(1.2)).tolist())
+        changed = [float(v) for v, p in zip(new, prev) if v != p]
+        if not changed or not all(v in allowed for v in changed):
+            raise AssertionError(f"population (b): window {fire + 1} hparams {changed}")
+    per_member = run["stats"]["steps_per_second"]
+    emit({"phase": "population", "case": "b", "members": POPULATION_SIZE,
+          "windows": POPULATION_WINDOWS, "pbt": POPULATION_PBT, "clone_pairs": pairs,
+          "exploit_total": run["windows"][-1]["exploit_total"],
+          "ent_coef_by_window": [w["hparams/ent_coef"].tolist() for w in run["windows"]],
+          "member_fitness": run["population"]["member_fitness"],
+          "b1_launches": run["b1_launches"],
+          "b1_gae_launches_per_update": run["b1_launches"][gae] // POPULATION_WINDOWS,
+          "env_steps_per_second_per_member": per_member,
+          "env_steps_per_second_total": [POPULATION_SIZE * s for s in per_member],
+          "window_seconds": run["stats"]["window_seconds"],
+          "final_eval_return": run["final_eval_return"], "seconds": run["seconds"],
+          "card": smi})
+    _population_restores(run["state"], smi)
+    ranks = _population_over_ranks(run, smi)
+    return {"a_one_member": one["b1_launches"][gae], "b_eight_members": run["b1_launches"][gae],
+            "b_per_update": run["b1_launches"][gae] // POPULATION_WINDOWS,
+            "d_per_rank": ranks}
+
+
+POPULATION_RANKS = 2  # case (d): arch.mesh.pop = 2, four members a rank
+
+
+def population_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of phase population's case (d) (`--population-rank`): case
+    (b)'s population with `arch.mesh.pop` = world, both ranks on the one card
+    in a gloo group; its windows to `out`.pt, its record to `out` (JSON).
+    It runs beside the pool, so it takes a pool child's share of the cores."""
+    _child_setup()
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
+    try:
+        run = _population_run([f"arch.num_updates={POPULATION_WINDOWS}",
+                               f"arch.num_evaluation={POPULATION_WINDOWS}",
+                               f"arch.mesh.pop={world}", "arch.mesh.data=1"], POPULATION_SIZE,
+                              hparams={"system.ent_coef": [0.001 * (i + 1)
+                                                           for i in range(POPULATION_SIZE)]},
+                              pbt=POPULATION_PBT)
+    finally:
+        dist.destroy_process_group()
+    torch.save(run["windows"], out + ".pt")
+    with open(out, "w") as f:
+        json.dump({"b1_launches": run["b1_launches"], "stats": run["stats"],
+                   "population": run["population"], "seconds": run["seconds"],
+                   "final_eval_return": run["final_eval_return"]}, f)
+
+
+def _population_over_ranks(one_rank: dict, smi: str) -> list:
+    """Case (d): case (b)'s population as two ranks of four members each on
+    the card over gloo, every leaf of every window bitwise case (b)'s rows
+    (the whole fitness and hparams on both). Returns each rank's B1 GAE
+    launches."""
+    gae = linear_recurrence.GAE_KERNEL.name
+    p_local = POPULATION_SIZE // POPULATION_RANKS
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = run_rank_children("--population-rank", POPULATION_RANKS, [], tmp)
+        records, windows = [], []
+        for out in outs:
+            with open(out) as f:
+                records.append(json.load(f))
+            windows.append(torch.load(out + ".pt", weights_only=False))
+    compared = 0
+    for rank, (record, mine) in enumerate(zip(records, windows)):
+        if record["b1_launches"][gae] != p_local * POPULATION_WINDOWS:
+            raise AssertionError(f"population (d) rank {rank}: B1 {record['b1_launches']}")
+        if len(mine) != POPULATION_WINDOWS:
+            raise AssertionError(f"population (d) rank {rank}: {len(mine)} windows")
+        for window, (part, whole) in enumerate(zip(mine, one_rank["windows"])):
+            if sorted(part) != sorted(whole):
+                raise AssertionError(f"population (d) rank {rank}: other leaves")
+            for key, value in whole.items():
+                if isinstance(value, torch.Tensor):
+                    want = value[rank * p_local:(rank + 1) * p_local] if key.startswith(
+                        "members/") else value
+                    same = torch.equal(part[key], want)
+                else:
+                    same = part[key] == value
+                if not same:
+                    raise AssertionError(f"population (d) rank {rank}: {key} differs from one "
+                                         f"rank's at window {window}")
+                compared += 1
+    sps = [r["stats"]["steps_per_second"] for r in records]
+    emit({"phase": "population", "case": "d", "members": POPULATION_SIZE,
+          "ranks": POPULATION_RANKS, "backend": "gloo", "cards": torch.cuda.device_count(),
+          "bitwise_equal_leaves": compared,
+          "b1_gae_launches_per_rank": [r["b1_launches"][gae] for r in records],
+          "env_steps_per_second_per_member": sps,
+          "env_steps_per_second_total": [POPULATION_SIZE * s for s in sps[0]],
+          "window_seconds": [r["stats"]["window_seconds"] for r in records],
+          "exploits": [r["population"]["pbt_exploits"] for r in records],
+          "seconds": [r["seconds"] for r in records], "card": smi})
+    return [r["b1_launches"][gae] for r in records]
+
+
+def phase_population_learn() -> None:
+    """The population oracle: the fittest member's eval return on IdentityGame
+    above POPULATION_THRESHOLD."""
+    start = time.perf_counter()
+    final_return = _population_module().run_population_experiment(
+        compose(POPULATION_IDENTITY, POPULATION_ROOT), device="cuda")
+    if not final_return > POPULATION_THRESHOLD:
+        raise AssertionError(f"the population returned {final_return}, not above "
+                             f"{POPULATION_THRESHOLD}")
+    emit({"phase": "population_learn", "env": "identity_game", "final_return": final_return,
+          "threshold": POPULATION_THRESHOLD,
+          "member_fitness": _population_module().LAST_POPULATION_STATS["member_fitness"],
+          "seconds": time.perf_counter() - start})
+
+
 LEARN_PHASES = {  # the longest first, by their seconds on the card
     **{f"{name}_learn": partial(phase_pendulum_learn, name)
        for name in PENDULUM_THRESHOLDS},
@@ -6016,6 +6401,7 @@ LEARN_PHASES = {  # the longest first, by their seconds on the card
     "az_learn": partial(phase_pg_learn, "ff_az", SEARCH_ROOTS["ff_az"], AZ_IDENTITY, "az_learn",
                         SEARCH_THRESHOLD),
     "knobs_learn": phase_knobs_learn,
+    "population_learn": phase_population_learn,
     "mpo_learn": partial(phase_pg_learn, "ff_mpo", MPO_ROOTS["ff_mpo"], MPO_IDENTITY,
                          "mpo_learn", MPO_THRESHOLD),
     "disco_learn": partial(phase_pg_learn, "ff_disco103", DISCO_ROOT, DISCO_IDENTITY,
@@ -6039,6 +6425,7 @@ POOL_PHASES = {
                    "q_learn"),
     "spo_disco": (lambda smi: {**phase_spo_train(smi), **phase_disco_train(smi)}, "trans_learn"),
     "rec_train": (phase_rec_train, "trans_learn"),
+    "population": (phase_population, "trans_learn"),
 }
 # The children share the card and the host's cores with the main process:
 # one worker a core, between four and eight.
@@ -6062,8 +6449,10 @@ def learn_child(name: str) -> None:
 
 def pool_phase_child(name: str, smi: str) -> None:
     """One of POOL_PHASES (`--pool-phase NAME SMI`); its JSON lines go to
-    stdout, the last one `{"pool_return": NAME, "value": ...}`."""
+    stdout, the last one `{"pool_return": NAME, "value": ...}`. The rank
+    children a pool phase starts die with it (population's case (d))."""
     _child_setup()
+    os.environ[PARENT_ENV] = str(os.getpid())
     value = POOL_PHASES[name][0](smi)
     print(json.dumps({"pool_return": name, "value": value}), flush=True)
 
@@ -6267,6 +6656,8 @@ def main() -> None:
     # update on every PPO path over the locomotion envs and the grid games,
     # nothing on ff_sac's or the Q family's).
     gae["launches_rec_ppo"] = returned["rec_train"]
+    # A17b: a population update is one GAE launch a member (8 at P = 8).
+    gae["launches_population"] = returned["population"]
     for entry in (recurrence, gae, *attention, chunk, *wide):
         for key, phase in (("launches_mpo_family", "mpo_family"), ("launches_search", "search_train"),
                            ("launches_spo_disco", "spo_disco"), ("launches_loco_grid", "loco_grid")):
@@ -6291,12 +6682,15 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] in (["--data-parallel-rank"], ["--gossip-rank"], ["--learn-phase"],
-                         ["--pool-phase"], ["--ops-child"], ["--fleet-rank"]):
+                         ["--pool-phase"], ["--ops-child"], ["--fleet-rank"],
+                         ["--population-rank"]):
         die_with_parent()
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         dp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
     elif sys.argv[1:2] == ["--gossip-rank"]:
         gossip_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    elif sys.argv[1:2] == ["--population-rank"]:
+        population_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     elif sys.argv[1:2] == ["--learn-phase"]:
         learn_child(sys.argv[2])
     elif sys.argv[1:2] == ["--pool-phase"]:

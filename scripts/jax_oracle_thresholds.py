@@ -2,13 +2,13 @@
 """The learning oracles of chip_smoke.py's cont_learn, rec_learn,
 rainbow_learn, r2d2_learn, sac_learn, vpg_learn, awr_learn, mpo_learn,
 vmpo_learn, az_learn, mz_learn, spo_learn, disco_learn, catch_learn,
-snake_learn, sebulba_ppo_learn, sebulba_impala_learn and Pendulum oracle
-phases, computed from the JAX package on the CPU:
+snake_learn, sebulba_ppo_learn, sebulba_impala_learn, population_learn and
+Pendulum oracle phases, computed from the JAX package on the CPU:
 
     JAX_PLATFORMS=cpu python scripts/jax_oracle_thresholds.py [--seeds 42 1 2]
         [--oracles pendulum rec rainbow r2d2 sac reinforce awr mpo vmpo az mz spo disco
                    catch snake spo_continuous mpo_continuous vmpo_continuous
-                   sebulba_ppo sebulba_impala sebulba_dqn sebulba_impact]
+                   sebulba_ppo sebulba_impala sebulba_dqn sebulba_impact population]
 
 - Pendulum: the mean return of uniform random actions over 4096 episodes of
   the JAX package's Pendulum-v1 (`jax.random` key 0), and the JAX package's
@@ -54,6 +54,12 @@ phases, computed from the JAX package on the CPU:
   ff_spo_continuous, ff_mpo_continuous and ff_vmpo_continuous under
   chip_smoke.py's PENDULUM_ORACLES overrides; the threshold is the midpoint
   of the random return (as above) and the first seed's.
+- Population training on IdentityGame: the JAX package's population runner
+  (4 ff_ppo members, ent_coef lifted, PBT every 2 windows) under
+  chip_smoke.py's POPULATION_IDENTITY overrides, for each seed: the fittest
+  member's final evaluation return; the threshold is 8.0 where every seed
+  returns 10.0, else the midpoint of random actions' 2.5 and the seeds'
+  lowest.
 
 `--extra o1 o2 ...` appends overrides to every run (a larger budget to try;
 later overrides win over the oracle's own).
@@ -149,14 +155,15 @@ def random_snake_return(episodes: int) -> float:
     return float(jnp.mean(jax.jit(jax.vmap(episode))(keys)))
 
 
-def final_return(module: str, root: str, overrides: list, seed: int) -> dict:
+def final_return(module: str, root: str, overrides: list, seed: int,
+                 entry: str = "run_experiment") -> dict:
     import importlib
 
     overrides = [o for o in overrides if not o.startswith("system.multistep_impl")] + EXTRA
     config = config_lib.compose(config_lib.default_config_dir(), root,
                                 overrides + [f"arch.seed={seed}"])
     start = time.perf_counter()
-    ret = importlib.import_module(module).run_experiment(config)
+    ret = getattr(importlib.import_module(module), entry)(config)
     return {"seed": seed, "final_return": float(ret), "seconds": time.perf_counter() - start}
 
 
@@ -166,7 +173,7 @@ def main() -> None:
     parser.add_argument("--episodes", type=int, default=4096)
     oracles = ["pendulum", "rec", "rainbow", "r2d2", "sac", "reinforce", "awr", "mpo", "vmpo",
                "az", "mz", "spo", "disco", "catch", "snake", *chip_smoke.PENDULUM_ORACLES,
-               *chip_smoke.SEBULBA_ORACLES]
+               *chip_smoke.SEBULBA_ORACLES, "population"]
     parser.add_argument("--oracles", nargs="+", default=oracles, choices=oracles)
     parser.add_argument("--extra", nargs="*", default=[],
                         help="overrides appended to every run, e.g. a budget to try")
@@ -274,6 +281,15 @@ def main() -> None:
             lowest = min(run["final_return"] for run in runs)
             out.update({f"{name}_identity_jax": runs, f"{name}_identity_overrides": overrides,
                         f"{name}_threshold": 8.0 if lowest >= 10.0 else (2.5 + lowest) / 2})
+    if "population" in args.oracles:
+        runs = [final_return("stoix_tpu.population.runner", chip_smoke.POPULATION_ROOT,
+                             chip_smoke.POPULATION_IDENTITY, seed,
+                             entry="run_population_experiment")
+                for seed in args.seeds]
+        lowest = min(run["final_return"] for run in runs)
+        out.update({"population_identity_jax": runs,
+                    "population_identity_overrides": chip_smoke.POPULATION_IDENTITY,
+                    "population_threshold": 8.0 if lowest >= 10.0 else (2.5 + lowest) / 2})
     print(json.dumps(out))
 
 

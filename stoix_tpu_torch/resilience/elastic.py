@@ -16,10 +16,9 @@ and exit code).
     longer fit fall back to `arch.roles=~`. Pure host logic.
 
 The port's Anakin runner spans one device a process, so its device count is
-the process count. The population transform belongs to the population runner
-(ROADMAP A17b): `resize_overrides` refuses a config with a population,
-naming `arch.population.size`. The supervising launcher's relaunch loop
-belongs to ROADMAP A19c.
+the process count. For a population run `resize_overrides` adds the
+population's re-placement overrides (population/elastic.py). The
+supervising launcher's relaunch loop belongs to ROADMAP A19c.
 """
 
 from __future__ import annotations
@@ -183,16 +182,32 @@ def consume_resize_request(directory: str) -> Optional[Dict[str, Any]]:
 
 def resize_overrides(config: Any, target_devices: int) -> List[str]:
     """Everything a relaunch at `target_devices` needs beyond the restore
-    overrides: the re-derived mesh axes. A population run's re-placement
-    overrides belong to the population runner, which the port does not have
-    yet: a config with one raises, naming the key."""
-    overrides = topology_overrides(config, target_devices)
+    overrides: the re-derived mesh axes, plus, for population runs, the
+    population re-placement overrides (`arch.population.size` scaled with
+    the device ratio, population/elastic.py). A population spread over
+    ranks (`arch.mesh.pop` above 1) is refused, naming the key: each rank's
+    members are its own and its rescue store does not hold them."""
     arch = dict((config.get("arch") if config is not None else None) or {})
     pop_cfg = dict(arch.get("population") or {})
-    if int(pop_cfg.get("size", 1) or 1) > 1:
-        raise NotImplementedError(
-            "not ported: arch.population.size > 1 in a resize (the population "
-            "re-placement, ROADMAP A17b)")
+    population = int(pop_cfg.get("size", 1) or 1) > 1
+    if population:
+        from stoix_tpu_torch.parallel import process_count
+
+        pop_axis = int(dict(arch.get("mesh") or {}).get("pop", 1))
+        if pop_axis > 1 or (pop_axis == -1 and process_count() > 1):
+            raise ElasticResizeError(
+                f"cannot resize a population spread over arch.mesh.pop={pop_axis}: each "
+                "rank's members are its own and the rescue store does not hold them; "
+                "relaunch at the same topology")
+    overrides = topology_overrides(config, target_devices)
+    if population:
+        from stoix_tpu_torch.population import elastic as population_elastic
+
+        overrides.extend(
+            population_elastic.population_resize_overrides(
+                config, target_devices=target_devices
+            )
+        )
     return overrides
 
 

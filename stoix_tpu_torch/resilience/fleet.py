@@ -43,7 +43,8 @@ the copies), confirms it once the window's metrics are on the host
 monitor thread's `emergency_save` only writes numpy: a read of the card from
 the monitor thread would queue behind the collective that never ends. Over
 several processes a rank's own fields (`integrity.per_rank_fields`: its
-generators, env state, timestep, buffers) are recorded as partial and not
+generators, env state, timestep, buffers; a population's members' own, or
+all its members when they are spread over ranks) are recorded as partial and not
 saved, as the JAX package cannot read the shards of a dead peer's global
 arrays; one process saves every leaf. The store's format is the JAX
 package's: `<emergency_dir>/p<rank>/state.npz` and `fleet_manifest.json`
@@ -65,7 +66,7 @@ import sys
 import threading
 import time
 import warnings
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -698,14 +699,14 @@ class FleetCoordinator:
         generator states and scalars are copied at once. `confirm_candidate`
         promotes it once the window's metrics are on the host. Over several
         processes a rank's own fields are recorded as partial."""
-        from stoix_tpu_torch.resilience.integrity import per_rank_fields
+        from stoix_tpu_torch.resilience.integrity import is_rank_bound, per_rank_fields
         from stoix_tpu_torch.utils.checkpointing import flatten_state
 
         rank_bound = per_rank_fields(state) if self.process_count > 1 else set()
         leaves = list(flatten_state(state))
         on_card = [(("/".join(path)), leaf) for path, leaf in leaves
                    if isinstance(leaf, torch.Tensor) and leaf.is_cuda
-                   and path[0] not in rank_bound]
+                   and not is_rank_bound(path, rank_bound)]
         with self._rescue_lock:
             buffers = None
             if on_card:
@@ -725,7 +726,7 @@ class FleetCoordinator:
             key = "/".join(path)
             if leaf is None:
                 continue
-            if path and path[0] in rank_bound:
+            if is_rank_bound(path, rank_bound):
                 partial.append(key)
                 continue
             if isinstance(leaf, torch.Tensor):
@@ -961,26 +962,41 @@ def read_restore_report(path: str) -> Optional[Dict[str, Any]]:
         return None
 
 
-def restore_emergency(template: Any, path: str) -> Tuple[Any, int]:
+def restore_emergency(
+    template: Any,
+    path: str,
+    raw_transform: Optional[Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]] = None,
+) -> Tuple[Any, int]:
     """Restore a local emergency store into `template` through the
     topology-elastic placement (utils/checkpointing.place_host_leaves):
     matched leaves come back bit for bit, partial leaves (and
-    shape-mismatched rank-bound ones) keep the template's fresh value. Any
-    other leaf whose shape differs is another state, not another topology,
-    and raises CheckpointIntegrityError ('structure'). Leaves
-    `restore_report.json` beside the store: the step, the sha256 of every
-    leaf placed, what was reinitialized, and the restore's wall clock."""
+    shape-mismatched rank-bound ones) keep the template's fresh value, and
+    over several processes every rank-bound leaf keeps this rank's own (the
+    store is the lowest survivor's). Any other leaf whose shape differs is
+    another state, not another topology, and raises
+    CheckpointIntegrityError ('structure').
+
+    `raw_transform` is the elastic seam: it rewrites the digest-verified
+    host arrays before placement (the population's shrink and grow re-place
+    the [P] member axis here, population/elastic.py). Leaves
+    `restore_report.json` beside the store: the step, whether a transform
+    ran, the sha256 of every leaf placed (after the transform, so with none
+    they are the manifest's), what was reinitialized, and the restore's
+    wall clock."""
+    from stoix_tpu_torch.parallel.distributed import process_count
     from stoix_tpu_torch.resilience import integrity
     from stoix_tpu_torch.resilience.errors import CheckpointIntegrityError
     from stoix_tpu_torch.utils.checkpointing import flatten_state, place_host_leaves
 
     t_start = time.perf_counter()
     raw, manifest = _read_emergency(path)
+    if raw_transform is not None:
+        raw = dict(raw_transform(dict(raw)))
     casts = dict(manifest.get("casts") or {})
     step = int(manifest["step"])
     own = integrity.per_rank_fields(template)
-    rank_bound = set(manifest.get("partial") or ()) | {
-        "/".join(p) for p, _ in flatten_state(template) if p and p[0] in own}
+    own_paths = [p for p, _ in flatten_state(template) if integrity.is_rank_bound(p, own)]
+    rank_bound = set(manifest.get("partial") or ()) | {"/".join(p) for p in own_paths}
     for p, leaf in flatten_state(template):
         key = "/".join(p)
         if (isinstance(leaf, (torch.Tensor, np.ndarray)) and key in raw
@@ -1001,8 +1017,8 @@ def restore_emergency(template: Any, path: str) -> Tuple[Any, int]:
                 template_dtypes[key])
     raw_by_path = {tuple(key.split("/")): value for key, value in placed.items()}
     restored, matched, reinitialized, _reinit_keys = place_host_leaves(
-        raw_by_path, template, step, allow_missing=True
-    )
+        raw_by_path, template, step, allow_missing=True,
+        keep=own_paths if process_count() > 1 else ())
     get_logger("stoix_tpu_torch.checkpoint").warning(
         "[fleet] emergency restore of step %d from %s: %d leaf(s) restored "
         "bit-identical, %d kept template initialization%s",
@@ -1013,6 +1029,7 @@ def restore_emergency(template: Any, path: str) -> Tuple[Any, int]:
         "format": 1,
         "step": int(step),
         "source": str(path),
+        "transformed": raw_transform is not None,
         "matched": int(matched),
         "reinitialized": list(reinitialized),
         "digests": placed_digests,

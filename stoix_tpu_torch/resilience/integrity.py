@@ -227,14 +227,25 @@ def _contains_generator(tree: Any) -> bool:
 
 
 def per_rank_fields(state: Any) -> set:
-    """The top-level fields of a learner state that each rank holds for
-    itself (`PER_RANK_FIELDS`, or a subtree holding a generator); empty for
-    a state that is not a record. The topology-elastic restore and the
-    fleet's rescue snapshot keep these rank-bound."""
+    """The subtrees of a learner state that each rank holds for itself, as
+    slash-joined tree paths: those the state declares
+    (`state.rank_bound_paths()`, a population's nested member fields), else
+    its top-level fields in `PER_RANK_FIELDS` or holding a generator; empty
+    for a state that is not a record. The topology-elastic restore and the
+    fleet's rescue snapshot keep these rank-bound (`is_rank_bound`)."""
+    declared = getattr(state, "rank_bound_paths", None)
+    if callable(declared):
+        return set(declared())
     if not (hasattr(state, "_fields") or isinstance(state, dict)):
         return set()
     return {str(name) for name, subtree in _state_fields(state)
             if name in PER_RANK_FIELDS or _contains_generator(subtree)}
+
+
+def is_rank_bound(path: Sequence[str], own: set) -> bool:
+    """Whether the leaf at tree path `path` lies in one of the subtrees
+    `own` names (`per_rank_fields`)."""
+    return any("/".join(path[:i]) in own for i in range(1, len(path) + 1))
 
 
 def _tensor_leaves(tree: Any) -> List[torch.Tensor]:

@@ -18,7 +18,9 @@ Gossip groups (parallel/gossip.py): on a ("group", "data") mesh, which the
 runner hands over with `use_mesh`, the "data" axis is the calling rank's
 group's data subgroup, so every data collective, seed split and episode
 share stays inside the group, as shard_map scopes the JAX learner's pmean
-over "data" to its group.
+over "data" to its group. A population's ("pop", "data") mesh
+(population/runner.py) scopes the data axis the same way: each rank of the
+"pop" axis holds its own members, trained on its pop group's data subgroup.
 """
 
 from __future__ import annotations
@@ -103,17 +105,19 @@ def make_generator(seed: int, device: torch.device) -> torch.Generator:
 
 
 # The grouped mesh of the run in progress (None: the "data" axis is the
-# default group). Set by the runner around a run with a "group" axis.
+# default group). Set by the runner around a run with a "group" or a "pop"
+# axis.
 _GROUPED_MESH: Optional[DeviceMesh] = None
+_OUTER_AXES = ("group", "pop")
 
 
 @contextlib.contextmanager
 def use_mesh(mesh: Optional[DeviceMesh]):
-    """Within the block, the data axis of `mesh` when it has a "group" axis
-    (the calling rank's group's data subgroup); any other mesh changes
-    nothing."""
+    """Within the block, the data axis of `mesh` when it has a "group" or a
+    "pop" axis (the calling rank's group's data subgroup); any other mesh
+    changes nothing."""
     global _GROUPED_MESH
-    grouped = mesh is not None and "group" in (mesh.mesh_dim_names or ())
+    grouped = mesh is not None and any(a in (mesh.mesh_dim_names or ()) for a in _OUTER_AXES)
     previous = _GROUPED_MESH
     _GROUPED_MESH = mesh if grouped else None
     try:
@@ -131,18 +135,42 @@ def data_group() -> Optional[dist.ProcessGroup]:
     return dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
 
 
+def _outer(axis: str) -> Optional[DeviceMesh]:
+    names = () if _GROUPED_MESH is None else (_GROUPED_MESH.mesh_dim_names or ())
+    return _GROUPED_MESH if axis in names else None
+
+
 def grouped_mesh() -> Optional[DeviceMesh]:
-    """The grouped mesh of the run in progress, or None."""
-    return _GROUPED_MESH
+    """The gossip groups' mesh of the run in progress, or None."""
+    return _outer("group")
 
 
 def group_rank_and_size() -> Tuple[int, int]:
     """(this rank's learner group, the number of groups): (0, 1) off a
     grouped mesh."""
-    if _GROUPED_MESH is None:
+    mesh = _outer("group")
+    if mesh is None:
         return 0, 1
-    group = _GROUPED_MESH.get_group("group")
+    group = mesh.get_group("group")
     return dist.get_rank(group), dist.get_world_size(group)
+
+
+def pop_mesh() -> Optional[DeviceMesh]:
+    """The population's ("pop", "data") mesh of the run in progress, or None."""
+    return _outer("pop")
+
+
+def pop_group() -> Optional[dist.ProcessGroup]:
+    """The process group of the run's "pop" axis (the ranks that hold the
+    other members beside this rank's data index), or None off a pop mesh."""
+    mesh = _outer("pop")
+    return None if mesh is None else mesh.get_group("pop")
+
+
+def pop_rank_and_size() -> Tuple[int, int]:
+    """(this rank's index on the "pop" axis, the axis size): (0, 1) off a pop mesh."""
+    group = pop_group()
+    return (0, 1) if group is None else (dist.get_rank(group), dist.get_world_size(group))
 
 
 def data_rank_and_size() -> Tuple[int, int]:

@@ -50,6 +50,15 @@ this learner over its group's own data axis, mixed by the runner every
 `arch.gossip.interval` windows (parallel/gossip.py). The ff_ppo family
 (continuous, penalty, DPO) reaches it through this setup.
 
+Population training (population/runner.py) runs this learner once a member
+with `hparams`: per-member overrides of `gamma`, `reward_scale`,
+`gae_lambda`, `clip_eps`, `ent_coef`, `vf_coef`, `actor_lr` and
+`critic_lr`, host floats holding float32 values, as the JAX package threads
+them as float32 scalars (its ff_ppo.py:85-130). A lifted learning rate is the
+member's own clip + Adam at that rate: `ClipAdam` multiplies the Adam
+direction by `-lr`, the JAX package's `u * (-lr)` after `scale_by_adam`.
+With `hparams=None` every value is the config's, as before.
+
 Parameters are `{name: tensor}` dicts applied with
 `torch.func.functional_call`; updates build new dicts and never write in
 place, so a window's eval params need no copy. No tensor of the update path
@@ -58,6 +67,7 @@ is read back to the host: the guard and β select on the device.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -119,6 +129,16 @@ def _cat(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(list(parts), dim=dim)
 
 
+def _at_learning_rate(optim: ClipAdam, lr: Optional[float]) -> ClipAdam:
+    """`optim` itself, or a copy of it at the flat rate `lr` (a population
+    member's lifted learning rate; population_setup refuses a schedule)."""
+    if lr is None:
+        return optim
+    member = copy.copy(optim)
+    member.learning_rate = float(lr)
+    return member
+
+
 class PPOLearner:
     """The learner function: `learner(state) -> ExperimentOutput` runs
     `arch.num_updates_per_eval` update steps. `rollout` and `update` are the
@@ -127,7 +147,9 @@ class PPOLearner:
     `policy_loss_fn(dist, action, old_log_prob, gae, config, behavior_dist=,
     beta=) -> (loss, entropy)` replaces the clip objective, as the JAX
     package's hook does; `behavior_dist` is the rollout's policy on the same
-    observations."""
+    observations. `hparams` overrides the config's `gamma`, `reward_scale`,
+    `gae_lambda`, `clip_eps`, `ent_coef`, `vf_coef`, `actor_lr` and
+    `critic_lr` for one population member."""
 
     def __init__(
         self,
@@ -136,10 +158,14 @@ class PPOLearner:
         update_fns: Tuple[ClipAdam, ClipAdam],
         config: Any,
         policy_loss_fn: Optional[Callable] = None,
+        hparams: Optional[Dict[str, float]] = None,
     ):
         self.env = env
         self.actor_apply, self.critic_apply = apply_fns
-        self.actor_optim, self.critic_optim = update_fns
+        hp = dict(hparams or {})
+        self.actor_optim, self.critic_optim = (
+            _at_learning_rate(optim, hp.get(key))
+            for optim, key in zip(update_fns, ("actor_lr", "critic_lr")))
         self.config = config
         self.policy_loss_fn = policy_loss_fn
         system = config.system
@@ -152,12 +178,12 @@ class PPOLearner:
                 "kl_beta (the PPO-penalty loss); the configured loss does not."
             )
         self.kl_target = float(system.get("kl_target", 0.01))
-        self.gamma = float(system.gamma)
-        self.reward_scale = float(system.get("reward_scale", 1.0))
-        self.gae_lambda = float(system.gae_lambda)
-        self.clip_eps = float(system.clip_eps)
-        self.ent_coef = float(system.ent_coef)
-        self.vf_coef = float(system.vf_coef)
+        self.gamma = float(hp.get("gamma", system.gamma))
+        self.reward_scale = float(hp.get("reward_scale", system.get("reward_scale", 1.0)))
+        self.gae_lambda = float(hp.get("gae_lambda", system.gae_lambda))
+        self.clip_eps = float(hp.get("clip_eps", system.clip_eps))
+        self.ent_coef = float(hp.get("ent_coef", system.ent_coef))
+        self.vf_coef = float(hp.get("vf_coef", system.vf_coef))
         self.clip_value = bool(system.get("clip_value", True))
         self.standardize_advantages = bool(system.get("standardize_advantages", True))
         self.multistep_impl = str(system.get("multistep_impl", "scan"))
@@ -523,8 +549,11 @@ def get_learner_fn(
     update_fns: Tuple[ClipAdam, ClipAdam],
     config: Any,
     policy_loss_fn: Optional[Callable] = None,
+    hparams: Optional[Dict[str, float]] = None,
 ) -> PPOLearner:
-    return PPOLearner(env, apply_fns, update_fns, config, policy_loss_fn)
+    """The learner; `hparams` (a population member's lifted scalars, host
+    floats) overrides the config's, None keeps the config's."""
+    return PPOLearner(env, apply_fns, update_fns, config, policy_loss_fn, hparams)
 
 
 def make_apply_fn(network: torch.nn.Module) -> Callable[[Dict[str, torch.Tensor], Any], Any]:
@@ -706,7 +735,7 @@ def grouped_learner_setup(
 def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> float:
     """Train Anakin PPO; returns the final evaluation episode-return mean.
     Runs on CUDA unless the caller asks for another device."""
-    return run_anakin_experiment(config, learner_setup, device, groups=True)
+    return run_anakin_experiment(config, learner_setup, device, outer_axes=("group",))
 
 
 def main() -> float:

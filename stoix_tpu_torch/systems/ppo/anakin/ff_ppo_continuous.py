@@ -22,7 +22,7 @@ from stoix_tpu_torch.utils import config as config_lib
 def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> float:
     """Train Anakin PPO on continuous actions; returns the final evaluation
     episode-return mean. Runs on CUDA unless the caller asks for another device."""
-    return run_anakin_experiment(config, learner_setup, device, groups=True)
+    return run_anakin_experiment(config, learner_setup, device, outer_axes=("group",))
 
 
 def main() -> float:

@@ -58,7 +58,7 @@ def learner_setup(env: envs.Environment, config: Any, device: torch.device,
 def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> float:
     """Train Anakin PPO-penalty; returns the final evaluation episode-return
     mean. Runs on CUDA unless the caller asks for another device."""
-    return run_anakin_experiment(config, learner_setup, device, groups=True)
+    return run_anakin_experiment(config, learner_setup, device, outer_axes=("group",))
 
 
 def main() -> float:

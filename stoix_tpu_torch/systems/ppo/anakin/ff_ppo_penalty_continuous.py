@@ -18,7 +18,7 @@ def run_experiment(config: Any, device: Union[str, torch.device] = "cuda") -> fl
     """Train Anakin PPO-penalty on continuous actions; returns the final
     evaluation episode-return mean. Runs on CUDA unless the caller asks for
     another device."""
-    return run_anakin_experiment(config, learner_setup, device, groups=True)
+    return run_anakin_experiment(config, learner_setup, device, outer_axes=("group",))
 
 
 def main() -> float:

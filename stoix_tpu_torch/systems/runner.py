@@ -61,7 +61,9 @@ The operations layer across processes, as the JAX runner wires it
     whose emergency save and exit 87 end the run; a partition seen at a
     window boundary raises FleetPartitionError.
   * A fleet emergency store as `load_path` restores through
-    `fleet.restore_emergency`, and a step saved by another number of
+    `fleet.restore_emergency`, with the setup's `restore_transform` (the
+    population's shrink and grow, population/elastic.py) applied to its
+    host arrays before placement, and a step saved by another number of
     processes through the topology-elastic restore (utils/checkpointing.py).
   * `shrink:N` and `grow:N` leave through `elastic.resize_exit` (exit 89).
   * The ops plane: the status board and the health monitor's window beat
@@ -85,14 +87,19 @@ deadlock the next collective. Only the coordinator logs and writes the
 store's metadata. One process with no group runs as it always did.
 
 Gossip learner groups (parallel/gossip.py), for a system that takes them
-(`groups`, the ff_ppo family): on a ("group", "data") mesh the data axis is
-each group's own (`systems/anakin.py::use_mesh`), the setup returns a
-GossipPlan, and its step runs every `arch.gossip.interval` windows after
-the learn step and before the eval and checkpoint snapshot, as in the JAX
-runner (`gossip_s` in the phases, `stoix_tpu_gossip_rounds_total`). Every
+(`outer_axes=("group",)`, the ff_ppo family): on a ("group", "data") mesh
+the data axis is each group's own (`systems/anakin.py::use_mesh`), the
+setup returns a GossipPlan, and its step runs every `arch.gossip.interval`
+windows after the learn step and before the eval and checkpoint snapshot,
+as in the JAX runner (`gossip_s` in the phases, `stoix_tpu_gossip_rounds_total`). Every
 rank evaluates group 0's params, reads every group's episodes and train
 metrics, and so decides alike. One group is the plain run: its plan has no
 step.
+
+The population root (population/runner.py, `outer_axes=("pop",)`) takes a
+"pop" axis beside "data" (the members spread over its ranks,
+`systems/anakin.py::use_mesh` scoping the data axis to each pop rank's
+own); every other system refuses `arch.mesh.pop`, naming it.
 """
 
 from __future__ import annotations
@@ -101,7 +108,7 @@ import contextlib
 import copy
 import math
 import time
-from typing import Any, Callable, Dict, NamedTuple, Optional, Union
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -153,6 +160,10 @@ class AnakinSetup(NamedTuple):
     # Whether the learner runs the update guard, where the `nan_loss` fault
     # is injected (the ff_ppo family); the runner refuses the fault elsewhere.
     guarded: bool = False
+    # The elastic-restore seam: a transform over a fleet emergency store's
+    # digest-verified host arrays, applied before placement by tree path
+    # (the population's shrink and grow). None restores the store as saved.
+    restore_transform: Any = None
 
 
 SetupFn = Callable[[envs.Environment, Any, torch.device, int], AnakinSetup]
@@ -172,24 +183,25 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     return device
 
 
-def unported_arch_keys(config: Any, groups: bool = False) -> list:
+def unported_arch_keys(config: Any, outer_axes: Sequence[str] = ()) -> list:
     """The arch settings no runner of the port implements: a mesh axis other
-    than "data" (and "group", the gossip learner groups, where the system
-    takes them: `groups`) and the compile-cache layer."""
+    than "data" and the system's `outer_axes` ("group", the gossip learner
+    groups of the ff_ppo family; "pop", the population root's members) and
+    the compile-cache layer."""
     arch = config.arch
-    taken = ("data", "group") if groups else ("data",)
+    taken = ("data", *outer_axes)
     unported = [f"arch.mesh.{axis}" for axis in (arch.get("mesh") or {}) if axis not in taken]
     if (arch.get("compile_cache") or {}).get("enabled", False):
         unported.append("arch.compile_cache.enabled")
     return unported
 
 
-def check_ported_arch(config: Any, groups: bool = False) -> None:
+def check_ported_arch(config: Any, outer_axes: Sequence[str] = ()) -> None:
     """Raise NotImplementedError, naming the key, for an arch setting the
-    port does not implement; `groups` where the system takes gossip learner
-    groups (the ff_ppo family). Faults are checked when they are armed
+    port does not implement; `outer_axes` names the mesh axes beside "data"
+    that the system takes. Faults are checked when they are armed
     (`faultinject.check_anakin_plan`)."""
-    unported = unported_arch_keys(config, groups)
+    unported = unported_arch_keys(config, outer_axes)
     if config.arch.get("roles") not in (None, "~"):
         # Anakin colocates every role on the whole mesh, as the JAX Anakin
         # runner does; only the Sebulba runner (systems/ppo/sebulba/ff_ppo.py)
@@ -258,18 +270,19 @@ def run_anakin_experiment(
     device: Union[str, torch.device] = "cuda",
     evaluator_setup_fn: Optional[EvaluatorSetupFn] = None,
     warmup_fn: Optional[Callable[[Any], Any]] = None,
-    groups: bool = False,
+    outer_axes: Sequence[str] = (),
 ) -> float:
     """Generic Anakin experiment: returns the final eval episode-return mean.
     A system with its own evaluator (a stateful one) passes
     `evaluator_setup_fn`; the default is the feed-forward evaluator. An
     off-policy system passes `warmup_fn` (learner_state -> learner_state, its
     buffer pre-fill), run once on the fresh state before a restore and the
-    first window, as the JAX runner runs it. A system whose setup takes
-    gossip learner groups (an `arch.mesh.group` axis; the ff_ppo family)
-    passes `groups`; every other refuses the axis, naming it."""
+    first window, as the JAX runner runs it. A system whose setup takes a
+    mesh axis beside "data" names it in `outer_axes`: "group", the gossip
+    learner groups (the ff_ppo family), or "pop", the population root's
+    members; every other system refuses the axis, naming it."""
     device = resolve_device(device)
-    check_ported_arch(config, groups)
+    check_ported_arch(config, outer_axes)
     # Armed before the learner is built: the guard reads the nan_loss step.
     faultinject.check_anakin_plan(faultinject.configure(config.arch.get("fault_spec")))
     guard_mode = guards.resolve_mode(config)
@@ -344,7 +357,8 @@ def _run(config, setup_fn, device, evaluator_setup_fn, warmup_fn, guard_mode, me
         if load_path and fleet.is_emergency_store(load_path):
             # A partition survivor's rescue store: the same placement by
             # tree path as the topology-elastic restore.
-            learner_state, start_step = fleet.restore_emergency(learner_state, load_path)
+            learner_state, start_step = fleet.restore_emergency(
+                learner_state, load_path, raw_transform=setup.restore_transform)
         else:
             loader = loader_from_config(config, config.system.system_name)
             loader.check_version()

@@ -465,19 +465,15 @@ class Checkpointer:
         `_verify_digests` against rank 0's sidecar) and are placed by tree
         path; a rank's own fields keep the template's values. Generators are
         set only once every check passed."""
-        from stoix_tpu_torch.resilience.integrity import per_rank_fields
-
         log = get_logger("stoix_tpu_torch.checkpoint")
         log.info("[checkpoint] step %d saved by %d process(es), this run has %d — taking the "
                  "elastic (resharding) restore path", step, world, self._world)
-        own = per_rank_fields(template)
+        own = integrity.per_rank_fields(template)
         shared = {"/".join(k): v for k, v in read_host_leaves(self.directory, step).items()
-                  if not (k and k[0] in own)}
-        view = dict((name, child) for name, child in _children(template) or ()
-                    if name not in own) if own else template
-        self._validate(shared, view, step)
+                  if not integrity.is_rank_bound(k, own)}
+        self._validate(shared, template, step, skip=own)
         self._verify_digests(shared, step, rank=0, world=world)
-        keep = [path for path, _ in flatten_state(template) if path and path[0] in own]
+        keep = [path for path, _ in flatten_state(template) if integrity.is_rank_bound(path, own)]
         restored, matched, reinitialized, _ = place_host_leaves(
             {tuple(k.split("/")): v for k, v in shared.items()}, template, step, keep=keep)
         log.warning(
@@ -495,11 +491,13 @@ class Checkpointer:
                           map_location="cpu", weights_only=True)
 
     @staticmethod
-    def _validate(saved: Dict[str, Any], template: Any, step: int) -> None:
-        """The integrity gate on a read payload: the template's tree paths,
-        each tensor's shape and dtype ('structure'), and every float tensor
-        finite wherever the template's is ('non_finite')."""
-        leaves = dict(("/".join(path), leaf) for path, leaf in flatten_state(template))
+    def _validate(saved: Dict[str, Any], template: Any, step: int, skip: Any = ()) -> None:
+        """The integrity gate on a read payload: the template's tree paths
+        outside the subtrees `skip` names (a rank's own), each tensor's shape
+        and dtype ('structure'), and every float tensor finite wherever the
+        template's is ('non_finite')."""
+        leaves = dict(("/".join(path), leaf) for path, leaf in flatten_state(template)
+                      if not integrity.is_rank_bound(path, skip))
         if set(leaves) != set(saved):
             raise CheckpointIntegrityError(
                 step, f"the saved tree does not match the learner state: missing "

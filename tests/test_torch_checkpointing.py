@@ -173,7 +173,8 @@ def test_a_fleet_store_as_load_path_raises_naming_arch_fleet(tmp_path, monkeypat
     runner.run_anakin_experiment(_config(TINY + [
         "arch.num_evaluation=2", f"arch.total_timesteps={2 * WINDOW}",
         "logger.checkpointing.save_model=true", "logger.checkpointing.save_args.max_to_keep=~",
-        "logger.checkpointing.save_args.checkpoint_uid=unbroken"]), capturing, "cpu", groups=True)
+        "logger.checkpointing.save_args.checkpoint_uid=unbroken"]), capturing, "cpu",
+        outer_axes=("group",))
     ff_ppo.run_experiment(_config(TINY + [
         "arch.num_evaluation=1", f"arch.total_timesteps={WINDOW}",
         "logger.checkpointing.load_model=true",

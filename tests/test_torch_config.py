@@ -225,3 +225,12 @@ SEBULBA = {
 @pytest.mark.parametrize("overridden", [False, True])
 def test_sebulba_config_trees_mirror_the_jax_package(name, overridden):
     _assert_mirrors(f"default/sebulba/default_{name}.yaml", SEBULBA[name] if overridden else [])
+
+
+# The population root and its arch group (arch/population.yaml), as they are
+# and with the overrides a population run takes.
+@pytest.mark.parametrize("overrides", [
+    [], ["env=identity_game", "arch.population.size=8", "arch.population.pbt.enabled=true",
+         "system.multistep_impl=pallas"]])
+def test_population_config_tree_mirrors_the_jax_package(overrides):
+    _assert_mirrors("default/population/default_ff_ppo.yaml", overrides)

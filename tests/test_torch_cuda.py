@@ -2441,3 +2441,86 @@ def test_sebulba_determinism_probe_is_clean_on_the_card(tmp_path, monkeypatch):
         "arch.integrity.determinism_probe_interval=1", f"logger.base_exp_path={tmp_path}"])
     sebulba_ppo.run_experiment(cfg, device="cuda")
     assert sebulba_ppo.LAST_RUN_STATS["integrity"]["probe_runs"] == 2
+
+
+def _population_update(device):
+    """One update of each member of a population of 2 with ent_coef,
+    gae_lambda and actor_lr lifted, through the population learner's member
+    learners, on explicit [8, 16] trajectories with given permutations, under
+    multistep_impl pallas on the card and scan on the CPU."""
+    from stoix_tpu_torch.base_types import ActorCriticOptStates, ActorCriticParams, PPOTransition
+    from stoix_tpu_torch.networks import base, heads, inputs, torso
+    from stoix_tpu_torch.population import hparams as hparams_lib
+    from stoix_tpu_torch.population import runner as prun
+    from stoix_tpu_torch.systems.ppo.anakin import ff_ppo
+    from stoix_tpu_torch.utils import config as config_lib
+    impl = "pallas" if torch.device(device).type == "cuda" else "scan"
+    cfg = config_lib.compose(config_lib.default_config_dir(),
+                             "default/population/default_ff_ppo.yaml",
+                             ["system.epochs=2", "system.num_minibatches=2",
+                              "arch.num_updates_per_eval=1", f"system.multistep_impl={impl}",
+                              "arch.population.size=2"])
+    config_lib._set_dotted(cfg, "arch.population.hparams", {
+        "system.ent_coef": [0.01, 0.05], "system.gae_lambda": [0.95, 0.8],
+        "system.actor_lr": [1e-3, 3e-3]})
+    _, arrays = hparams_lib.lift_hparams(cfg)
+    results = []
+    for p in range(2):
+        gen = torch.Generator().manual_seed(20 + p)
+        actor = base.FeedForwardActor(heads.CategoricalHead(3, 16, generator=gen),
+                                      torso.MLPTorso(5, (16, 16), generator=gen),
+                                      inputs.ObservationInput()).to(device)
+        critic = base.FeedForwardCritic(heads.ScalarCriticHead(16, generator=gen),
+                                        torso.MLPTorso(5, (16, 16), generator=gen),
+                                        inputs.ObservationInput()).to(device)
+        apply = (ff_ppo.make_apply_fn(actor), ff_ppo.make_apply_fn(critic))
+        learner = prun.PopulationLearner(None, apply, ff_ppo.make_optimizers(cfg), cfg, None)
+        state = prun.PopulationState(None, {k: torch.from_numpy(v) for k, v in arrays.items()},
+                                     torch.zeros(2), 0, None, 0)
+        member = learner.member_learner(learner.member_hparams(state)[p])
+        done = torch.rand((8, 16), generator=gen) < 0.1
+        obs = _observations((8, 16), 30 + p)
+        action = torch.randint(0, 3, (8, 16), generator=gen)
+        with torch.no_grad():
+            log_prob = apply[0]({k: v for k, v in actor.named_parameters()},
+                                _to(obs, device)).log_prob(action.to(device)).cpu()
+        traj = PPOTransition(done, (torch.rand((8, 16), generator=gen) < 0.1) & ~done, action,
+                             torch.randn((8, 16), generator=gen),
+                             torch.randn((8, 16), generator=gen), log_prob, obs,
+                             _observations((8, 16), 40 + p), {})
+        params = ActorCriticParams({k: v.detach() for k, v in actor.named_parameters()},
+                                   {k: v.detach() for k, v in critic.named_parameters()})
+        opt = ActorCriticOptStates(member.actor_optim.init(params.actor_params),
+                                   member.critic_optim.init(params.critic_params))
+        perms = [torch.randperm(128, generator=gen) for _ in range(2)]
+        results.append(member.update(params, opt, _to(traj, device), permutations=perms))
+    return results
+
+
+@pytest.mark.cuda
+def test_population_update_on_the_card_matches_the_cpu(monkeypatch):
+    # A population update is one B1 GAE launch a member, each bitwise its
+    # plain version on the same inputs; the whole update holds the CPU's
+    # `scan` run at the ff_ppo card tests' tolerances.
+    device = _require_cuda()
+    cpu = _population_update("cpu")
+    calls = []
+    launch = lr.truncated_gae
+
+    def recorded(*args):
+        out = launch(*args)
+        calls.append((args, out))
+        return out
+
+    monkeypatch.setattr(lr, "truncated_gae", recorded)
+    before = (lr.KERNEL.launches, lr.GAE_KERNEL.launches)
+    card = _population_update(device)
+    assert (lr.KERNEL.launches, lr.GAE_KERNEL.launches) == (before[0], before[1] + 2)
+    assert [args[-1] for args, _ in calls] == [0.949999988079071, 0.800000011920929]
+    for args, out in calls:
+        want = lr.plain_truncated_gae(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                                        for a in args))
+        for got, expected in zip(out, want):
+            assert torch.equal(got.cpu(), expected)
+    for card_member, cpu_member in zip(card, cpu):
+        _assert_update_matches(card_member, cpu_member)

@@ -87,9 +87,25 @@ def test_topology_and_survivor_overrides_equal_the_jax_package(overrides, count)
 
 
 def test_a_population_resize_stays_refused_naming_the_key():
-    cfg = {"arch": {"mesh": {"data": -1}, "population": {"size": 4}}}
-    with pytest.raises(NotImplementedError, match=r"arch\.population\.size"):
-        elastic.resize_overrides(cfg, 2)
+    # The population re-placement is ported: a population run's resize
+    # appends the JAX package's population overrides (the port's device count
+    # is its process count, one here). What stays refused, naming the key, is
+    # a population spread over ranks (arch.mesh.pop above 1), whose rescue
+    # store holds no member rows to re-place.
+    from stoix_tpu.population import elastic as jax_population_elastic
+
+    cfg = {"arch": {"mesh": {"data": -1}, "population": {
+        "size": 4, "hparams": {"system.actor_lr": [1e-3, 2e-3, 3e-3, 4e-3]}}}}
+    want = jax_elastic.topology_overrides(cfg, 2) + (
+        jax_population_elastic.population_resize_overrides(
+            cfg, target_devices=2, from_devices=1, stats={}))
+    assert elastic.resize_overrides(cfg, 2) == want
+    assert want[-2:] == ["arch.population.size=8",
+                         "arch.population.hparams.system.actor_lr="
+                         "[0.001,0.002,0.003,0.004,0.004,0.003,0.002,0.001]"]
+    spread = {"arch": {**cfg["arch"], "mesh": {"pop": 2, "data": 1}}}
+    with pytest.raises(elastic.ElasticResizeError, match=r"arch\.mesh\.pop=2"):
+        elastic.resize_overrides(spread, 4)
 
 
 def test_resize_request_round_trips_and_is_consumed_once(tmp_path):

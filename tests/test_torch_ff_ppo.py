@@ -330,6 +330,8 @@ def test_port_imports_nothing_of_jax():
         "           'flightrec', 'goodput', 'trace', 'trace_export', 'exporters', 'sink',\n"
         "           'introspect')]\n"
         "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice22)\n"
+        "slice24 = ['population.' + m for m in ('hparams', 'pbt', 'runner', 'elastic')]\n"
+        "assert all('stoix_tpu_torch.' + m in sys.modules for m in slice24)\n"
         "assert 'gymnasium' not in sys.modules and 'envpool' not in sys.modules\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

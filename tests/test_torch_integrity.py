@@ -231,7 +231,7 @@ def _run(extra, learn_wrapper=None, windows=3):
 
     cfg = config_lib.compose(config_lib.default_config_dir(), ROOT, TINY + list(extra) + [
         f"arch.num_evaluation={windows}", f"arch.total_timesteps={windows * WINDOW}"])
-    return runner.run_anakin_experiment(cfg, setup_fn, "cpu", groups=True)
+    return runner.run_anakin_experiment(cfg, setup_fn, "cpu", outer_axes=("group",))
 
 
 def test_determinism_probe_passes_replay_and_catches_wrong_math(tmp_path, monkeypatch):

@@ -86,7 +86,7 @@ def _run_recorded(windows, extra=()):
         return setup._replace(learn=recording_learn)
 
     final = runner.run_anakin_experiment(_config(windows, extra), recording_setup, "cpu",
-                                         groups=True)
+                                         outer_axes=("group",))
     return trajectory, final
 
 

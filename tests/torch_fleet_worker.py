@@ -81,7 +81,7 @@ def run_capturing_first_state(config):
 
         return built._replace(learn=capturing_learn)
 
-    final = runner.run_anakin_experiment(config, setup, "cpu", groups=True)
+    final = runner.run_anakin_experiment(config, setup, "cpu", outer_axes=("group",))
     return final, captured[0]
 
 

@@ -1,7 +1,8 @@
 """Multi-process CPU harness for the PyTorch port's distributed tests
 (tests/test_torch_ring_attention.py, tests/test_torch_ring_grad.py,
 tests/test_torch_parallel.py, tests/test_torch_data_parallel.py,
-tests/test_torch_gossip.py, tests/test_torch_tp.py).
+tests/test_torch_gossip.py, tests/test_torch_tp.py,
+tests/test_torch_population.py).
 
 `spawn_ranks(jobs, world, tmp_dir)` starts `world` processes of
 
@@ -12,7 +13,8 @@ Each rank joins one gloo process group through
 store in TMP_DIR (no network), runs every job of `jobs` in order, and returns
 {job name: result}. A job is (name, kind, keyword arguments): the kinds are
 the functions in `KINDS`, the data-parallel ones in tests/torch_dp_worker.py,
-the gossip and tensor-parallel ones in tests/torch_gossip_worker.py.
+the gossip and tensor-parallel ones in tests/torch_gossip_worker.py, the
+population's in tests/torch_population_worker.py.
 This module imports no JAX, so each rank starts in about a second.
 """
 
@@ -38,6 +40,7 @@ from stoix_tpu_torch.parallel import (
 from stoix_tpu_torch.utils.config import Config
 from stoix_tpu_torch.utils.params import load_flax_params
 from torch_dp_worker import DP_KINDS
+from torch_population_worker import POPULATION_KINDS
 from torch_gossip_worker import GOSSIP_KINDS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -112,7 +115,7 @@ def _collectives(mesh_for):
 
 
 KINDS = {"ring": _ring, "ring_grad": _ring_grad, "torso": _torso, "mesh": _mesh,
-         "collectives": _collectives, **DP_KINDS, **GOSSIP_KINDS}
+         "collectives": _collectives, **DP_KINDS, **GOSSIP_KINDS, **POPULATION_KINDS}
 
 
 def main(rank: int, world: int, tmp_dir: str) -> None:
